@@ -19,6 +19,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: subprocess / end-to-end tests (scripts/ci.sh "
         "runs them in a second pass after the fast tier)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips inside the test body "
+        "when torch.cuda.is_available() is false")
 
 
 def pytest_collection_modifyitems(config, items):
