@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py             # the check, on one card
     python3 chip_smoke.py --profile   # also profile one full-width forward
+                                      # and one full-width training step
 
 Phases, in order; any failure exits non-zero before the result line:
   1. card: nvidia-smi name and power limit; TF32 off for matmul and cuDNN.
-  2. build: every CUDA kernel of the port from its source, with the
-     -Xptxas -v report.
+  2. build: every CUDA kernel source of the port, one nvcc each, all
+     started together, with the -Xptxas -v report.
   3. kernel vs plain twin: `sla_fwd` against `sla_fwd_plain` on the same
      card tensors at the Wan2.1 shape (B=1, H=12, N=32768, D=128) and the
      LightningDiT shape (H=16, N=1024, D=108), 64x64 blocks, LUTs from
@@ -25,12 +26,44 @@ Phases, in order; any failure exits non-zero before the result line:
      on the gather backend with the same inputs and plans (1e-4 of max
      |v|); then the kernel against its twin (5e-5) on that forward's own
      sparse, uneven LUTs of the first and last layer at the Wan shape.
-  6. the kernels line (JSON), then the result line.
+  7. backward kernels vs plain twins: `sla_bwd_dq` and `sla_bwd_dkv`
+     against `sla_bwd_dq_plain` / `sla_bwd_dkv_plain` on the same card
+     tensors (L and O^s from the forward kernel, a seeded dO), at both
+     shapes of phase 3 with their random LUTs and on the full-width
+     forward's layer-0 and layer-29 LUTs, f32 and bf16: max abs error
+     against 5e-5 x max(1, max |twin|); CUDA-event times of kernel and
+     twin, live tiles, the bound, and the backward of dense
+     scaled_dot_product_attention as a yardstick (not the same function).
+     At the Wan shape and on the path's LUTs also the library call:
+     compiled flex_attention on a BlockMask of the same row LUT, whose
+     backward computes the same dQ, dK and dV as both kernels together
+     (its f32 gradients held to 1e-4 x max(1, max |g|) of the kernels').
+  8. gradient cross-check: at the Wan shape on layer 0's plan, one
+     `sla_attention_core` call on the kernel backend (both backward
+     kernels) against the gather backend's autograd: grads of q, k, v, qp
+     and kp within 1e-4 x max(1, max |g|).
+  9. training main path: `make_train_step` (AdamW, bf16 compute over f32
+     masters, kernel backend) on the phase-4 model under per-layer remat,
+     3 steps at seq_len 32768, batch 1 (`dit_video_32k` has 16), on
+     `latent_batch` data. Checks finite losses and grad norms, that the
+     parameters moved, and per step exactly 60 `sla_fwd` launches (30
+     layers, each run twice: the forward and its remat recompute), 30
+     `sla_bwd_dq`, 30 `sla_bwd_dkv` and 30 plan builds.
+ 10. train CLI on the card (its loss runs the gather backend, as the
+     reference's CLI): the lightningdit_1b smoke fine-tuning recipe
+     (distillation, learned routing, routing + sla_proj trained, warm
+     init), 3 steps, finite losses (exactly 0: the frozen output
+     projection is zero); then 2 steps of the plain flow-matching loop,
+     whose losses must be non-zero and change.
+ 11. the kernels line (JSON), then the result line.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -39,16 +72,27 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# The compiled flex_attention of phase 7 (a library yardstick) compiles in
+# this process and keeps its caches in the checkout's build directory.
+for _var, _dir in (("TORCHINDUCTOR_CACHE_DIR", "torchinductor"),
+                   ("TRITON_CACHE_DIR", "triton")):
+    os.environ.setdefault(_var, str(ROOT / "build" / _dir))
+os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs import DIT_SHAPES, get_arch  # noqa: E402
 from repro_torch.core import phi as phi_lib  # noqa: E402
 from repro_torch.core import plan as plan_lib  # noqa: E402
 from repro_torch.core.block_sparse_xla import sla_forward_gather  # noqa: E402
-from repro_torch.kernels import _build, ops, sla_fwd  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, make_iterator  # noqa: E402
+from repro_torch.distributed import ctx as actx  # noqa: E402
+from repro_torch.kernels import _build, ops, sla_bwd, sla_fwd  # noqa: E402
+from repro_torch.launch import steps as train_steps  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import dit  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.models.common import dense_init  # noqa: E402
 from repro_torch.serving.diffusion import (DenoiseParams,  # noqa: E402
                                            DiffusionScheduler)
@@ -67,6 +111,12 @@ SHAPES = {  # name: (arch, heads, seq_len, head_dim)
 }
 MAIN_SEQ, MAIN_SLOTS, MAIN_STEPS = 32768, 2, 4
 MAIN_T_STARTS = (1.0, 0.75, 1.0)
+GRAD_TOL = 1e-4  # kernel vs gather gradients, relative to max(1, max |g|)
+TRAIN_STEPS, TRAIN_BATCH = 3, 1  # dit_video_32k's global batch 16, cut
+PROBES = ("layers.0.wq", "layers.29.sla_proj", "patch_out")
+# backward kernels: (kernel, plain twin, operations per live tile / bq bkv D)
+BWD = {"sla_bwd_dq": (sla_bwd.sla_bwd_dq, sla_bwd.sla_bwd_dq_plain, 6),
+       "sla_bwd_dkv": (sla_bwd.sla_bwd_dkv, sla_bwd.sla_bwd_dkv_plain, 8)}
 DEV = torch.device("cuda")
 
 
@@ -111,7 +161,7 @@ def phase_card() -> str:
 
 def phase_build():
     t0 = time.time()
-    logs = {name: _build.build(name) for name in _build.kernel_names()}
+    logs = _build.build_all()
     say(f"[2 build] {len(logs)} kernel source(s) in {time.time() - t0:.1f}s")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -399,11 +449,455 @@ def phase_kernel_on_path_plans(cfg, plans):
     return rows
 
 
+# --------------------------------------------------------------------------
+def _bwd_operands(sla, q, k, v, leaves, dtype, seed: int):
+    """Operands of both backward kernels for one plan's (B, H, ...)
+    leaves (marginal, lut, counts, col_lut, col_counts) in `dtype`: L and
+    O^s from the forward kernel on the same inputs, a seeded dO^s and
+    D = rowsum(dO^s * O^s). Returns (dq args, dkv args, keywords)."""
+    marginal, lut, counts, col_lut, col_counts = leaves
+    args, kw, _ = _operands(sla, q, k, v, marginal, lut, counts, dtype)
+    o_s, _, lse = sla_fwd.sla_fwd(*args, **kw)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    do = torch.randn(o_s.shape, generator=gen, device=DEV)
+    tail = (*args[2:5], do, lse, (do * o_s).sum(dim=-1))
+    return (args[:2] + tail,
+            (ops._flat(col_lut), ops._flat(col_counts)) + tail, kw)
+
+
+def _bwd_bound(name, args, kw, dtype):
+    """Least time for one backward call, as `_bound`: bytes (inputs read
+    once, f32 gradients written once) over HBM bandwidth against this
+    data's operations (6 bq bkv D per live row-LUT tile for dQ, 8 per
+    live column-LUT tile for dK/dV) over the peak rate."""
+    lut, counts, q = args[:3]
+    bh, n, d = q.shape
+    nbytes = sum(t.numel() * t.element_size() for t in args)
+    nbytes += (1 if name == "sla_bwd_dq" else 2) * bh * n * d * 4
+    live = int(torch.clamp(counts, max=lut.shape[-1]).sum())
+    flops = live * BWD[name][2] * kw["block_q"] * kw["block_kv"] * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes,
+            live)
+
+
+def _bwd_check(name, args, kw, what: str):
+    """Kernel against its twin on the same card operands: max abs error
+    and the limit 5e-5 x max(1, max |twin|); raises on a non-finite
+    output."""
+    kernel, plain, _ = BWD[name]
+    got, want = kernel(*args, **kw), plain(*args, **kw)
+    got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    limit = TWIN_TOL * max(1.0, max(float(w.abs().max()) for w in want))
+    if not np.isfinite(err):
+        raise RuntimeError(f"{name} {what}: non-finite output")
+    return err, limit
+
+
+def _sdpa_bwd_ms(q, k, v) -> float:
+    """Device time of the backward of dense scaled_dot_product_attention
+    at this shape (a yardstick for dense attention, not the same
+    function)."""
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    g = torch.randn_like(out)
+    return cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), g,
+                                               retain_graph=True), 3,
+                   warmup=1)
+
+
+_FLEX = []
+
+
+def _flex_block_mask(lut, counts, n: int, block: int):
+    """flex_attention's BlockMask for one plan's (B, H, Tm, K) row LUT:
+    each query block's live LUT entries as full blocks (no mask_mod
+    inside them) and no partial blocks. Its column side, which flex's
+    backward walks for dK/dV, is derived by BlockMask itself."""
+    from torch.nn.attention.flex_attention import BlockMask
+    b, h, tq, k = lut.shape
+    live = torch.clamp(counts, max=k).to(torch.int32)
+    idx = torch.zeros((b, h, tq, n // block), dtype=torch.int32,
+                      device=lut.device)
+    idx[..., :k] = torch.where(
+        torch.arange(k, device=lut.device) < live[..., None], lut, 0)
+    none = torch.zeros((b, h, tq), dtype=torch.int32, device=lut.device)
+    return BlockMask.from_kv_blocks(
+        none, torch.zeros_like(idx), full_kv_num_blocks=live,
+        full_kv_indices=idx, BLOCK_SIZE=block, seq_lengths=(n, n))
+
+
+@contextlib.contextmanager
+def _flex_tiles_within(block: int):
+    """flex_attention's tiles must divide the BlockMask's blocks, and on
+    Hopper its one default bf16 configuration at head dim 128 takes
+    128-row tiles (forward and backward), which do not divide 64. While
+    flex compiles, cap each tile of its default configurations at
+    `block`, keeping their stages and warps; its f32 tiles already divide
+    64 and stay as they are."""
+    try:
+        from torch._inductor.template_heuristics.triton import \
+            CUDAConfigHeuristic as heuristic
+    except ImportError:
+        from torch._inductor.template_heuristics import \
+            CUDAConfigHeuristic as heuristic
+    saved = {name: getattr(heuristic, name) for name in
+             ("get_flex_attn_fwd_configs", "get_flex_attn_bwd_configs")}
+
+    def capped(orig):
+        def configs(self, *a, **kw):
+            return [dataclasses.replace(c, **{
+                f.name: min(getattr(c, f.name), block)
+                for f in dataclasses.fields(c) if f.name.startswith("block_")})
+                for c in orig(self, *a, **kw)]
+        return configs
+
+    for name, orig in saved.items():
+        setattr(heuristic, name, capped(orig))
+    try:
+        yield
+    finally:
+        for name, orig in saved.items():
+            setattr(heuristic, name, orig)
+
+
+def _flex_library(q, k, v, do, lut, counts, block: int, dq, dk, dv):
+    """The library call for both backward kernels: compiled flex_attention
+    on a BlockMask of the same row LUT computes the sparse branch O^s and,
+    through autograd, the same dQ, dK and dV as sla_bwd_dq and sla_bwd_dkv
+    together (scale D^-0.5, its own rowsum(dO * O^s)
+    inside). q, k, v are
+    (1, H, N, D); do and the kernels' dq, dk, dv are (H, N, D). Returns
+    the CUDA-event times of its forward and forward+backward, their
+    difference as the backward's time, and the max abs error of its
+    gradients against the kernels' with its limit 1e-4 x max(1, max |g|)
+    (flex's gradients come out in the inputs' dtype)."""
+    if not _FLEX:
+        from torch.nn.attention.flex_attention import flex_attention
+        _FLEX.append(torch.compile(flex_attention))
+    flex = _FLEX[0]
+    mask = _flex_block_mask(lut, counts, q.shape[-2], block)
+    ins = [x.detach().requires_grad_() for x in (q, k, v)]
+    do = do.to(q.dtype).view(q.shape)
+
+    def fwd():
+        return flex(*ins, block_mask=mask)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), ins, do)
+
+    with _flex_tiles_within(block):  # flex compiles at its first call
+        got = fwd_bwd()
+    torch.cuda.synchronize()
+    err = max(float((g.float().view(w.shape) - w).abs().max())
+              for g, w in zip(got, (dq, dk, dv)))
+    limit = GRAD_TOL * max(1.0, max(float(w.abs().max())
+                                    for w in (dq, dk, dv)))
+    del got
+    fwd_ms = cuda_ms(fwd, 5)
+    fwd_bwd_ms = cuda_ms(fwd_bwd, 5)
+    return dict(library_ms=fwd_bwd_ms - fwd_ms, library_fwd_ms=fwd_ms,
+                library_fwd_bwd_ms=fwd_bwd_ms, library_err=err,
+                library_limit=limit)
+
+
+def _with_library(sla, q, k, v, lut, counts, dq_args, dkv_args, kw,
+                  dtype, what: str):
+    """`_flex_library` for one case of phase 7, on the kernels' own
+    gradients of the same operands. In f32 it raises when flex's
+    gradients disagree with the kernels' (then it is not the same
+    function); in bf16 its gradients are rounded to bf16, and the error
+    is only reported."""
+    dq = BWD["sla_bwd_dq"][0](*dq_args, **kw)
+    dk, dv = BWD["sla_bwd_dkv"][0](*dkv_args, **kw)
+    try:
+        lib = _flex_library(*(x.to(dtype) for x in (q, k, v)), dq_args[5],
+                            lut, counts, sla.block_kv, dq, dk, dv)
+    except Exception as e:  # the yardstick only: the port does not use it
+        say(f"  library: compiled flex_attention failed ({what}): "
+            f"{type(e).__name__}: {str(e).splitlines()[0][:300]}")
+        return dict(library_ms=None, library_error=str(e)[:300])
+    ok = lib["library_err"] <= lib["library_limit"]
+    say(f"  library: compiled flex_attention on the same LUT, backward "
+        f"(dQ, dK, dV together) {lib['library_ms']:.3f} ms (forward "
+        f"{lib['library_fwd_ms']:.3f} ms, forward+backward "
+        f"{lib['library_fwd_bwd_ms']:.3f} ms) | its grads vs the kernels' "
+        f"max abs err {lib['library_err']:.3g} (limit "
+        f"{lib['library_limit']:.3g}"
+        + (f") {'OK' if ok else 'FAIL'}" if dtype == torch.float32
+           else ", bf16 grads: reported only)"))
+    if dtype == torch.float32 and not ok:
+        raise RuntimeError(f"flex_attention's gradients disagree with the "
+                           f"backward kernels' ({what}): {lib}")
+    return lib
+
+
+def phase_bwd_vs_plain():
+    rows = []
+    for shape, (arch, h, n, d) in SHAPES.items():
+        sla, q, k, v, plan = _kernel_inputs(arch, h, n, d, seed=1)
+        leaves = (plan.marginal, plan.lut, plan.counts, plan.col_lut,
+                  plan.col_counts)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = "f32" if dtype == torch.float32 else "bf16"
+            dq_args, dkv_args, kw = _bwd_operands(sla, q, k, v, leaves,
+                                                  dtype, seed=4)
+            sdpa_ms = _sdpa_bwd_ms(*(x.to(dtype) for x in (q, k, v)))
+            lib = {}
+            if shape == "wan2_1_1_3b":
+                lib = _with_library(sla, q, k, v, plan.lut, plan.counts,
+                                    dq_args, dkv_args, kw, dtype,
+                                    f"{shape} {dname}")
+            for name, args in (("sla_bwd_dq", dq_args),
+                               ("sla_bwd_dkv", dkv_args)):
+                kernel, plain, _ = BWD[name]
+                err, limit = _bwd_check(name, args, kw, f"{shape} {dname}")
+                ok = err <= limit
+                ms = cuda_ms(lambda: kernel(*args, **kw), 10)
+                plain_ms = cuda_ms(lambda: plain(*args, **kw), 2, warmup=1)
+                bound_ms, bound_by, flops, nbytes, live = _bwd_bound(
+                    name, args, kw, dtype)
+                say(f"[7 bwd] {name} {shape} {dname} (BH={args[2].shape[0]}"
+                    f", N={n}, D={d}, LUT width {args[0].shape[-1]}, live "
+                    f"tiles {live}): max abs err {err:.3g} (limit "
+                    f"{limit:.3g}) {'OK' if ok else 'FAIL'}")
+                say(f"  kernel {ms:.3f} ms | bound {bound_ms:.3f} ms by "
+                    f"{bound_by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f}"
+                    f" MB) | plain twin {plain_ms:.3f} ms | dense SDPA "
+                    f"backward yardstick (not the same function) "
+                    f"{sdpa_ms:.3f} ms")
+                rows.append(dict(kernel=name, shape=shape, dtype=dname,
+                                 bh=args[2].shape[0], n=n, d=d,
+                                 lut_width=args[0].shape[-1],
+                                 live_tiles=live, max_abs_err=err,
+                                 limit=limit, ok=ok, ms=ms,
+                                 plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, gflop=flops / 1e9,
+                                 mbytes=nbytes / 1e6,
+                                 dense_sdpa_bwd_ms=sdpa_ms, **lib))
+            del dq_args, dkv_args
+        del q, k, v, plan
+        torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"backward kernel disagrees with its plain "
+                           f"twin: {bad}")
+    return rows
+
+
+def phase_bwd_on_path_plans(cfg, plans):
+    """Both backward kernels against their twins on the full-width
+    forward's own row and column LUTs of the first and the last layer, at
+    the Wan shape with seeded q/k/v, f32 and bf16."""
+    sla = cfg.sla
+    h, n, d = cfg.num_heads, MAIN_SEQ, cfg.head_dim
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    q, k, v = (torch.randn((1, h, n, d), generator=gen, device=DEV)
+               for _ in range(3))
+    rows = []
+    for layer in (0, cfg.num_layers - 1):
+        leaves = [x[layer] for x in (plans.marginal, plans.lut, plans.counts,
+                                     plans.col_lut, plans.col_counts)]
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = "f32" if dtype == torch.float32 else "bf16"
+            dq_args, dkv_args, kw = _bwd_operands(sla, q, k, v, leaves,
+                                                  dtype, seed=5)
+            lib = _with_library(sla, q, k, v, leaves[1], leaves[2],
+                                dq_args, dkv_args, kw, dtype,
+                                f"layer {layer} plans {dname}")
+            for name, args in (("sla_bwd_dq", dq_args),
+                               ("sla_bwd_dkv", dkv_args)):
+                err, limit = _bwd_check(name, args, kw,
+                                        f"layer {layer} plans {dname}")
+                ok = err <= limit
+                ms = cuda_ms(lambda: BWD[name][0](*args, **kw), 10)
+                bound_ms, bound_by, _, _, live = _bwd_bound(name, args, kw,
+                                                            dtype)
+                say(f"[7 bwd path plans] {name} wan2_1_1_3b layer {layer} "
+                    f"{dname} (live tiles {live} of {args[0].numel()}): max "
+                    f"abs err {err:.3g} (limit {limit:.3g}) "
+                    f"{'OK' if ok else 'FAIL'} | kernel {ms:.3f} ms | bound "
+                    f"{bound_ms:.3f} ms by {bound_by}")
+                rows.append(dict(kernel=name, shape=f"wan2_1_1_3b layer "
+                                 f"{layer} plans", dtype=dname,
+                                 live_tiles=live, max_abs_err=err,
+                                 limit=limit, ok=ok, ms=ms,
+                                 bound_ms=bound_ms, bound_by=bound_by,
+                                 **lib))
+            del dq_args, dkv_args
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"backward kernel disagrees with its plain twin "
+                           f"on the path's plans: {bad}")
+    return rows
+
+
+def phase_grad_cross_check(cfg, plans):
+    """Gradients of q, k, v, qp and kp through the kernel backend's
+    autograd.Function against the gather backend's autograd, at the Wan
+    shape on layer 0's plan, for one random cotangent of (O^s, O^l)."""
+    sla = cfg.sla
+    plan = plan_lib.plan_map(lambda leaf: leaf[0], plans)
+    h, n, d = cfg.num_heads, MAIN_SEQ, cfg.head_dim
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    q, k, v, g_s, g_l = (torch.randn((1, h, n, d), generator=gen,
+                                     device=DEV) for _ in range(5))
+    qp, kp = phi_lib.phi(q, sla.phi), phi_lib.phi(k, sla.phi)
+    ins = [x.detach().requires_grad_() for x in (q, k, v, qp, kp)]
+    sla_bwd.LAUNCHES_DQ = sla_bwd.LAUNCHES_DKV = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got = torch.autograd.grad(ops.sla_attention_core(*ins, plan, sla), ins,
+                              (g_s, g_l))
+    torch.cuda.synchronize()
+    s_kernel = time.time() - t0
+    launches = (sla_bwd.LAUNCHES_DQ, sla_bwd.LAUNCHES_DKV)
+    t0 = time.time()
+    want = torch.autograd.grad(sla_forward_gather(*ins, plan, sla), ins,
+                               (g_s, g_l))
+    torch.cuda.synchronize()
+    s_gather = time.time() - t0
+    res = {}
+    for name, a, b in zip(("q", "k", "v", "qp", "kp"), got, want):
+        err = float((a - b).abs().max())
+        limit = GRAD_TOL * max(1.0, float(b.abs().max()))
+        res[name] = dict(max_abs_err=err, limit=limit,
+                         ok=bool(np.isfinite(err)) and err <= limit)
+    ok = all(r["ok"] for r in res.values()) and launches == (1, 1)
+    say(f"[8 grads] Wan shape, layer-0 plan: kernel vs gather backend "
+        f"grads " + ", ".join(f"d{k} {r['max_abs_err']:.3g} (limit "
+                              f"{r['limit']:.3g})" for k, r in res.items())
+        + f" | dQ, dK/dV launches {launches} | forward+backward wall: "
+        f"kernel {s_kernel:.3f}s, gather {s_gather:.3f}s "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"kernel and gather gradients disagree: {res}, "
+                           f"launches {launches}")
+    return dict(grads=res, kernel_s=s_kernel, gather_s=s_gather)
+
+
+def phase_train(cfg, params, profile: bool):
+    """The training main path: AdamW steps through make_train_step on the
+    kernel backend under per-layer remat, with per-step launch and plan
+    counts."""
+    opt_cfg = adamw.AdamWConfig(lr=1e-4, warmup_steps=1,
+                                total_steps=TRAIN_STEPS)
+    shape = dataclasses.replace(DIT_SHAPES["wan2_1_1_3b"],
+                                global_batch=TRAIN_BATCH)
+    data = make_iterator(cfg, shape, DataConfig(seed=0))
+    step_fn = train_steps.make_train_step(cfg, opt_cfg, backend="kernel")
+    named = dict(params.named_parameters())
+    opt_state = adamw.init(named)
+    probe = {n: named[n].detach().clone() for n in PROBES}
+    builds = [0]
+    orig_plan = plan_lib.plan_attention
+
+    def counted_plan(*a, **kw):
+        builds[0] += 1
+        return orig_plan(*a, **kw)
+
+    def step(batch):
+        return step_fn(params, opt_state, {k: torch.from_numpy(x).to(DEV)
+                                           for k, x in batch.items()})
+
+    want = dict(sla_fwd=2 * cfg.num_layers, sla_bwd_dq=cfg.num_layers,
+                sla_bwd_dkv=cfg.num_layers, plan_builds=cfg.num_layers)
+    rows, totals = [], dict.fromkeys(want, 0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    plan_lib.plan_attention = counted_plan
+    try:
+        with actx.activation_sharding(remat=True):
+            for i in range(TRAIN_STEPS):
+                batch = next(data)
+                torch.cuda.synchronize()
+                sla_fwd.LAUNCHES = sla_bwd.LAUNCHES_DQ = 0
+                sla_bwd.LAUNCHES_DKV = builds[0] = 0
+                t0 = time.time()
+                params, opt_state, loss, gnorm = step(batch)
+                loss, gnorm = float(loss), float(gnorm)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                got = dict(sla_fwd=sla_fwd.LAUNCHES,
+                           sla_bwd_dq=sla_bwd.LAUNCHES_DQ,
+                           sla_bwd_dkv=sla_bwd.LAUNCHES_DKV,
+                           plan_builds=builds[0])
+                for key in totals:
+                    totals[key] += got[key]
+                say(f"[9 train] step {i}: loss {loss:.6f} grad norm "
+                    f"{gnorm:.6f} | {wall:.3f}s | launches {got} (expected "
+                    f"{want})")
+                rows.append(dict(step=i, loss=loss, grad_norm=gnorm,
+                                 wall_s=wall, **got))
+                if not (np.isfinite(loss) and np.isfinite(gnorm)):
+                    raise RuntimeError(f"training step {i}: non-finite loss "
+                                       f"{loss} or grad norm {gnorm}")
+                if got != want:
+                    raise RuntimeError(f"training step {i}: launches {got}, "
+                                       f"expected {want}")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            if profile:
+                from torch.profiler import ProfilerActivity
+                from torch.profiler import profile as prof_ctx
+                batch = next(data)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                with prof_ctx(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]) as prof:
+                    step(batch)
+                    torch.cuda.synchronize()
+                say(f"[9 train profile] one more step, {time.time() - t0:.3f}"
+                    f"s wall under the profiler")
+                say(prof.key_averages().table(sort_by="cuda_time_total",
+                                              row_limit=25))
+    finally:
+        plan_lib.plan_attention = orig_plan
+    moved = {n: bool((named[n].detach() != probe[n]).any()) for n in PROBES}
+    say(f"[9 train] {TRAIN_STEPS} steps of wan2_1_1_3b at seq_len "
+        f"{shape.seq_len}, batch {shape.global_batch}: step walls "
+        f"{[round(r['wall_s'], 3) for r in rows]} s | peak memory "
+        f"{peak:.2f} GiB | parameters moved {moved}")
+    if not all(moved.values()):
+        raise RuntimeError(f"training did not move the parameters: {moved}")
+    return dict(steps=rows, launches=totals, peak_gib=peak, moved=moved)
+
+
+def phase_train_cli():
+    """The smoke fine-tuning recipe (distillation against the frozen,
+    zero-initialized output projection: its losses are exactly 0) and a
+    plain flow-matching run whose losses must be non-zero and move."""
+    recipe = ["--arch", "lightningdit_1b", "--smoke", "--distill",
+              "--routing-mode", "learned", "--train-only", "routing,sla_proj",
+              "--routing-warm-init", "--steps", "3", "--log-every", "1"]
+    flow = ["--arch", "lightningdit_1b", "--smoke", "--steps", "2",
+            "--log-every", "1"]
+    out = {}
+    for what, argv in (("recipe", recipe), ("flow", flow)):
+        t0 = time.time()
+        losses = train_cli.main(argv)
+        ok = len(losses) == int(argv[argv.index("--steps") + 1]) \
+            and bool(np.isfinite(losses).all())
+        if what == "flow":
+            ok = ok and min(losses) > 0 and losses[1] != losses[0]
+        say(f"[10 train CLI] {what}: repro_torch.launch.train "
+            f"{' '.join(argv)}: losses {losses} in {time.time() - t0:.1f}s "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"train CLI ({what}) losses {losses}")
+        out[what] = losses
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also run torch.profiler over one full-width "
-                         "forward and print the top device-time entries")
+                         "forward and one full-width training step and "
+                         "print the top device-time entries")
     args = ap.parse_args(argv)
     t_all = time.time()
     phase_card()
@@ -413,13 +907,21 @@ def main(argv=None) -> int:
     main_run = phase_main_path(cfg, params)
     plans, cross = phase_cross_check(cfg, params, args.profile)
     rows += phase_kernel_on_path_plans(cfg, plans)
+    bwd_rows = phase_bwd_vs_plain()
+    bwd_rows += phase_bwd_on_path_plans(cfg, plans)
+    grads = phase_grad_cross_check(cfg, plans)
+    del plans
+    train = phase_train(cfg, params, args.profile)
+    cli = phase_train_cli()
     wan32 = next(r for r in rows
                  if r["shape"] == "wan2_1_1_3b" and r["dtype"] == "f32")
     kernels = [{
         "name": "sla_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sla_fwd.cu",
         "replaces": "src/repro/kernels/sla_fwd.py:34",
-        "launches": main_run["launches"],
+        "launches": main_run["launches"] + train["launches"]["sla_fwd"],
+        "launches_by_path": {"serve": main_run["launches"],
+                             "train": train["launches"]["sla_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": wan32["ms"], "plain_ms": wan32["plain_ms"],
         "bound_ms": wan32["bound_ms"], "bound_by": wan32["bound_by"],
@@ -428,7 +930,30 @@ def main(argv=None) -> int:
         "gather_ms": wan32["gather_ms"],
         "cases": rows,
     }]
-    say(f"[6] main path {main_run} | cross-check {cross} | total "
+    wan_bwd = {r["kernel"]: r for r in bwd_rows
+               if r["shape"] == "wan2_1_1_3b" and r["dtype"] == "f32"}
+    kernels[0]["flex_sparse_branch_fwd_ms"] = \
+        wan_bwd["sla_bwd_dq"].get("library_fwd_ms")
+    for name, line in (("sla_bwd_dq", 48), ("sla_bwd_dkv", 76)):
+        mine = [r for r in bwd_rows if r["kernel"] == name]
+        wan = wan_bwd[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/sla_bwd.cu",
+            "replaces": f"src/repro/kernels/sla_bwd.py:{line}",
+            "launches": train["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": wan["ms"], "plain_ms": wan["plain_ms"],
+            "bound_ms": wan["bound_ms"], "bound_by": wan["bound_by"],
+            "library_ms": wan["library_ms"],
+            "library": "compiled flex_attention backward on a BlockMask of "
+                       "the same LUT; computes dQ, dK and dV together",
+            "dq_plus_dkv_ms": sum(r["ms"] for r in wan_bwd.values()),
+            "dense_sdpa_bwd_ms": wan["dense_sdpa_bwd_ms"],
+            "cases": mine,
+        })
+    say(f"[11] main path {main_run} | cross-check {cross} | grads {grads} | "
+        f"train {train} | train CLI {cli} | total "
         f"{time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

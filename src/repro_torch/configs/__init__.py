@@ -3,8 +3,8 @@
 Only the DiT configs are ported so far; asking for any other arch of the
 JAX registry raises and names the ROADMAP item that ports its family.
 """
-from repro_torch.configs.base import (ArchConfig, ShapeConfig, SHAPES,
-                                      SMOKE_SHAPES)
+from repro_torch.configs.base import (DIT_SHAPES, SHAPES, SMOKE_SHAPES,
+                                      ArchConfig, ShapeConfig)
 
 _ARCH_MODULES = {
     "wan2_1_1_3b": "wan2_1_1_3b",
@@ -40,5 +40,9 @@ def get_arch(name: str) -> ArchConfig:
     return mod.CONFIG
 
 
+def get_shape(name: str, smoke: bool = False) -> ShapeConfig:
+    return (SMOKE_SHAPES if smoke else SHAPES)[name]
+
+
 __all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "SMOKE_SHAPES",
-           "get_arch"]
+           "DIT_SHAPES", "get_arch", "get_shape"]

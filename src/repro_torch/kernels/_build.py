@@ -6,7 +6,8 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
 a directory `.gitignore` lists. The hash is of the source text, so an
 edited source is rebuilt and a stale library is never loaded. The
 `-Xptxas -v` report (registers, shared memory, spills) is kept beside the
-library as `<library>.log`. A failed build raises.
+library as `<library>.log`. `build_all` starts one nvcc per source at
+once and waits for all of them. A failed build raises.
 """
 from __future__ import annotations
 
@@ -49,24 +50,46 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{tag[:12]}.so"
 
 
-def build(name: str) -> str:
-    """Compile `csrc/<name>.cu` unless its library exists; return the
-    nvcc/ptxas report kept beside the library. Raises if nvcc fails."""
-    out = library_path(name)
-    log = Path(str(out) + ".log")
-    if not out.exists():
+def build_all(names=None) -> dict:
+    """Compile each `csrc/<name>.cu` whose library is missing, one nvcc
+    process per source, all started together; return {name: the
+    nvcc/ptxas report kept beside its library}. Raises if any nvcc
+    fails (after all of them have ended)."""
+    names = kernel_names() if names is None else list(names)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".so.tmp{os.getpid()}")
-        proc = subprocess.run(
+        procs[name] = (tmp, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        report = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"CUDA kernel build of {name} failed (nvcc "
-                               f"exit {proc.returncode}):\n{proc.stdout}")
-        log.write_text(proc.stdout)
+            failed.append(f"CUDA kernel build of {name} failed (nvcc exit "
+                          f"{proc.returncode}):\n{report}")
+            continue
+        out = library_path(name)
+        Path(str(out) + ".log").write_text(report)
         os.replace(tmp, out)
-    return log.read_text() if log.exists() else ""
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    logs = {}
+    for name in names:
+        log = Path(str(library_path(name)) + ".log")
+        logs[name] = log.read_text() if log.exists() else ""
+    return logs
+
+
+def build(name: str) -> str:
+    """Compile `csrc/<name>.cu` unless its library exists; return the
+    nvcc/ptxas report kept beside the library. Raises if nvcc fails."""
+    return build_all([name])[name]
 
 
 @functools.cache

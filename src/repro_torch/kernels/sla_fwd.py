@@ -69,42 +69,56 @@ def sla_fwd(lut, counts, q, k, v, qp, hi, zi, *, scale: float,
     return _launch(lut, counts, q, k, v, qp, hi, zi, **kw)
 
 
-def _check(lut, counts, q, k, v, qp, hi, zi, block_q, block_kv):
-    ts = dict(lut=lut, counts=counts, q=q, k=k, v=v, qp=qp, hi=hi, zi=zi)
+def check_operands(kernel: str, ts: dict, f32: Tuple[str, ...],
+                   i32: Tuple[str, ...], block_q: int, block_kv: int):
+    """The checks every SLA kernel wrapper shares: one device, contiguity,
+    q/k/v in one of f32/bf16, the named f32 and int32 operands, q
+    (BH, Nq, D) against k/v (BH_kv, N, D), and the head dims and blocks
+    the kernels take. `ts` maps operand names to tensors and holds q, k
+    and v. Raises TypeError or ValueError naming `kernel`."""
+    q, k, v = ts["q"], ts["k"], ts["v"]
     for name, t in ts.items():
         if t.device != q.device:
-            raise ValueError(f"sla_fwd: {name} is on {t.device}, q on "
+            raise ValueError(f"{kernel}: {name} is on {t.device}, q on "
                              f"{q.device}")
         if not t.is_contiguous():
-            raise ValueError(f"sla_fwd: {name} must be contiguous")
+            raise ValueError(f"{kernel}: {name} must be contiguous")
     if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"sla_fwd: q must be float32 or bfloat16, got "
+        raise TypeError(f"{kernel}: q must be float32 or bfloat16, got "
                         f"{q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("sla_fwd: q, k and v must share one dtype")
-    for name in ("qp", "hi", "zi"):
+        raise TypeError(f"{kernel}: q, k and v must share one dtype")
+    for name in f32:
         if ts[name].dtype != torch.float32:
-            raise TypeError(f"sla_fwd: {name} must be float32")
-    for name in ("lut", "counts"):
+            raise TypeError(f"{kernel}: {name} must be float32")
+    for name in i32:
         if ts[name].dtype != torch.int32:
-            raise TypeError(f"sla_fwd: {name} must be int32")
-    if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape \
-            or qp.shape != q.shape:
-        raise ValueError("sla_fwd: q/qp must be (BH, Nq, D) and k/v "
+            raise TypeError(f"{kernel}: {name} must be int32")
+    if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape:
+        raise ValueError(f"{kernel}: q must be (BH, Nq, D) and k/v "
                          "(BH_kv, N, D)")
     bh, nq, d = q.shape
     bh_kv, nkv = k.shape[0], k.shape[1]
     if k.shape[2] != d or bh % bh_kv:
-        raise ValueError(f"sla_fwd: k {tuple(k.shape)} does not match q "
+        raise ValueError(f"{kernel}: k {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)}")
     if d > MAX_HEAD_DIM or d % 4:
-        raise ValueError(f"sla_fwd kernel takes head dims <= "
+        raise ValueError(f"{kernel} kernel takes head dims <= "
                          f"{MAX_HEAD_DIM} that are multiples of 4, got {d}")
     if not (1 <= block_q <= MAX_BLOCK and 1 <= block_kv <= MAX_BLOCK):
-        raise ValueError(f"sla_fwd kernel takes blocks of 1..{MAX_BLOCK}, "
+        raise ValueError(f"{kernel} kernel takes blocks of 1..{MAX_BLOCK}, "
                          f"got {block_q} x {block_kv}")
     if nq % block_q or nkv % block_kv:
-        raise ValueError("sla_fwd: sequence lengths must be whole blocks")
+        raise ValueError(f"{kernel}: sequence lengths must be whole blocks")
+
+
+def _check(lut, counts, q, k, v, qp, hi, zi, block_q, block_kv):
+    ts = dict(lut=lut, counts=counts, q=q, k=k, v=v, qp=qp, hi=hi, zi=zi)
+    check_operands("sla_fwd", ts, ("qp", "hi", "zi"), ("lut", "counts"),
+                   block_q, block_kv)
+    if qp.shape != q.shape:
+        raise ValueError("sla_fwd: qp must be shaped like q")
+    bh, nq, d = q.shape
     tm = nq // block_q
     if lut.ndim != 3 or lut.shape[:2] != (bh, tm) or lut.shape[2] < 1:
         raise ValueError(f"sla_fwd: lut must be ({bh}, {tm}, K>=1), got "

@@ -1,0 +1,82 @@
+"""The train step. Counterpart of `repro.launch.steps`, train half
+(`cast_params_bf16`, `make_train_step`); the prefill and serve steps
+arrive with the LM slice.
+"""
+from __future__ import annotations
+
+import types
+from typing import Callable, Mapping, Optional
+
+import torch
+import torch.nn as nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import registry
+from repro_torch.optim import adamw
+
+
+def cast_params_bf16(params: nn.Module):
+    """One-shot f32 -> bf16 compute copy of the parameters, taken once
+    before the forward (mixed precision: the f32 masters live only in the
+    optimizer path). Returns the module's parameter tree with every f32
+    tensor cast, as plain tensors that the model's `forward` reads like
+    the module itself: attributes per module, a list for a ModuleList, a
+    dict for a ParameterDict. The casts are differentiable, so gradients
+    land on the f32 masters."""
+    def cast(t):
+        return t.to(torch.bfloat16) if t.dtype == torch.float32 else t
+
+    if isinstance(params, nn.ModuleList):
+        return [cast_params_bf16(m) for m in params]
+    if isinstance(params, nn.ParameterDict):
+        return {name: cast(p) for name, p in params.items()}
+    tree = types.SimpleNamespace(**{
+        name: cast(p) for name, p in params.named_parameters(recurse=False)})
+    for name, child in params.named_children():
+        setattr(tree, name, cast_params_bf16(child))
+    return tree
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
+                    backend: str = "gather", *, distill: bool = False,
+                    trainable: Optional[Mapping[str, bool]] = None,
+                    compute_bf16: bool = True,
+                    guard: Optional[Callable] = None) -> Callable:
+    """`train_step(params, opt_state, batch) -> (params, opt_state, loss,
+    grad_norm)`: the model family's `loss_fn` on a bf16 compute copy of
+    the f32 `params` (an nn.Module), its gradient on the masters, and one
+    AdamW update of all parameters in place. `opt_state` comes from
+    `adamw.init(dict(params.named_parameters()))`; `batch` is a dict of
+    tensors on the parameters' device. Remat follows the caller's
+    `distributed.ctx.activation_sharding` scope.
+
+    The defaults are the reference's `make_train_step`. The training CLI
+    sets the rest, as the reference's CLI loop does: `distill` takes the
+    family's `distill_loss_fn`; `trainable` (name -> bool, from
+    `adamw.trainable_mask`) updates only those parameters;
+    `compute_bf16=False` runs the loss on the f32 parameters themselves;
+    and when `guard(loss)` is false the update is skipped and the step
+    returns a grad norm of None."""
+    mdl = registry.get_model(cfg)
+    loss_impl = mdl.distill_loss_fn if distill else mdl.loss_fn
+
+    def train_step(params, opt_state, batch):
+        named = dict(params.named_parameters())
+        for p in named.values():
+            p.grad = None
+        compute = cast_params_bf16(params) if compute_bf16 else params
+        loss = loss_impl(compute, cfg, batch, backend=backend)
+        loss.backward()
+        loss = loss.detach()
+        gnorm = None
+        if guard is None or guard(loss):
+            grads = {n: p.grad for n, p in named.items()}
+            _, opt_state, metrics = adamw.update(named, grads, opt_state,
+                                                 opt_cfg,
+                                                 trainable=trainable)
+            gnorm = metrics["grad_norm"]
+        for p in named.values():
+            p.grad = None
+        return params, opt_state, loss, gnorm
+
+    return train_step

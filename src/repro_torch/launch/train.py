@@ -1,0 +1,205 @@
+"""Training CLI of the port, DiT path.
+
+    python -m repro_torch.launch.train --arch wan2_1_1_3b --shape train_4k
+    PYTHONPATH=src python -m repro_torch.launch.train --arch lightningdit_1b \
+        --smoke --distill --routing-mode learned --train-only routing,sla_proj \
+        --routing-warm-init --steps 3 --device cpu
+
+Counterpart of `repro.launch.train` for the DiT family: config ->
+seeded params -> deterministic latent batches -> loss and gradient under
+per-layer remat -> AdamW (optionally on a `--train-only` subset) ->
+straggler watchdog + NaN guard. The loss keeps the reference's default
+backend ("gather"). `--device` (default cuda) chooses the device; 'cpu'
+runs the kernels' plain twins. Checkpointing (`--ckpt-dir`), gradient
+compression (`--compress-grads`) and meshes larger than one device are
+not ported and raise. The weights are random, from a seeded
+`torch.Generator` (not bitwise the reference's init); the batches are
+bitwise the reference's.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+import warnings
+
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.configs import get_arch, get_shape
+from repro_torch.data.pipeline import DataConfig, make_iterator
+from repro_torch.distributed import ctx as actx
+from repro_torch.distributed.fault_tolerance import NaNGuard, \
+    StragglerWatchdog
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models import registry
+from repro_torch.optim import adamw
+
+ROUTING_WARM_EPS = 1e-3
+
+
+@torch.no_grad()
+def routing_warm_init(params):
+    """Replace every layer's zero-initialized per-head Proj merge
+    (`sla_proj`) with an epsilon-scaled identity (`ROUTING_WARM_EPS * I`),
+    in place.
+
+    Opt-in escape hatch for the learned-routing dead point (see
+    `check_routing_dead_point`): a tiny but nonzero Proj lets the
+    straight-through routing gradients through from step 0 while
+    perturbing the model's output by only O(eps * ||o_l||)."""
+    for layer in params.layers:
+        proj = layer.sla_proj
+        eye = torch.eye(proj.shape[-1], dtype=proj.dtype,
+                        device=proj.device)
+        proj.copy_(torch.broadcast_to(eye, proj.shape) * ROUTING_WARM_EPS)
+    return params
+
+
+def check_routing_dead_point(params, mask) -> bool:
+    """Warn loudly when a fine-tune is pinned at the learned-routing
+    dead point: the routing head is trainable but every `sla_proj` is
+    exactly zero. Routing parameters only receive gradients through the
+    straight-through marginal gates of the LINEAR branch, and that
+    branch's output is multiplied by `sla_proj` (Eq. 6), so all-zero
+    Proj multiplies every routing gradient by exact zero and
+    `--train-only routing` silently flatlines. `params` and `mask` are
+    name -> tensor / bool dicts. Returns True iff the warning fired."""
+    trains_routing = any("routing" in name and t for name, t in mask.items())
+    proj = [p for name, p in params.items() if name.endswith("sla_proj")]
+    if not trains_routing or not proj:
+        return False
+    if any(bool(torch.any(p != 0)) for p in proj):
+        return False
+    warnings.warn(
+        "learned-routing dead point: --train-only includes the routing "
+        "head, but every sla_proj is exactly zero (the paper's init). "
+        "Routing gradients flow only through the linear branch, whose "
+        "output is multiplied by sla_proj — they are therefore all "
+        "exactly zero and routing will never move. Pass "
+        "--routing-warm-init to seed sla_proj with an epsilon identity, "
+        "or include 'sla_proj' in --train-only and train the merge off "
+        "zero first.")
+    return True
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", default="train_4k")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config + shape (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="not ported yet (ROADMAP.md queue 1, item 16)")
+    ap.add_argument("--compress-grads", action="store_true",
+                    help="not ported yet (ROADMAP.md queue 1, item 16)")
+    ap.add_argument("--data-mesh", type=int, default=1)
+    ap.add_argument("--model-mesh", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=5)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to train on (default cuda; 'cpu' "
+                         "runs the kernels' plain twins)")
+    ap.add_argument("--distill", action="store_true",
+                    help="fine-tune against the model family's end-to-end "
+                         "distillation loss (exact-attention teacher, SLA "
+                         "student; paper Sec. 5) instead of the training "
+                         "loss")
+    ap.add_argument("--routing-mode", default=None,
+                    choices=["threshold", "learned"],
+                    help="override SLAConfig.routing_mode: 'learned' adds "
+                         "the trainable SLA2-style routing head "
+                         "(identity-initialized to reproduce 'threshold' "
+                         "exactly)")
+    ap.add_argument("--train-only", default=None,
+                    help="comma-separated parameter-name substrings to "
+                         "train (e.g. 'routing,sla_proj'); everything "
+                         "else is frozen — the fixed-FLOP-budget "
+                         "fine-tuning recipe")
+    ap.add_argument("--routing-warm-init", action="store_true",
+                    help="seed every layer's sla_proj with a small "
+                         "epsilon-scaled identity (1e-3) instead of the "
+                         "paper's zero init, which pins '--train-only "
+                         "routing' at exactly zero routing gradients")
+    args = ap.parse_args(argv)
+    for flag, bad in (("--ckpt-dir", args.ckpt_dir is not None),
+                      ("--compress-grads", args.compress_grads),
+                      ("--data-mesh/--model-mesh",
+                       args.data_mesh * args.model_mesh > 1)):
+        if bad:
+            raise NotImplementedError(
+                f"{flag} is not ported to repro_torch yet (ROADMAP.md "
+                "queue 1, item 16)")
+
+    cfg = get_arch(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    if args.routing_mode is not None:
+        cfg = dataclasses.replace(
+            cfg, sla=cfg.sla.replace(routing_mode=args.routing_mode))
+    shape = get_shape(args.shape, smoke=args.smoke)
+    mdl = registry.get_model(cfg)
+    opt_cfg = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
+                                warmup_steps=max(args.steps // 10, 1))
+    device = resolve_device(args.device)
+
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    model = mdl.init(gen, cfg, device=device)
+    if args.routing_warm_init:
+        routing_warm_init(model)
+    params = dict(model.named_parameters())
+    opt_state = adamw.init(params)
+    data = make_iterator(cfg, shape, DataConfig(seed=args.seed))
+
+    mask = None
+    if args.train_only:
+        mask = adamw.trainable_mask(
+            params, tuple(s for s in args.train_only.split(",") if s))
+        n_train = sum(p.numel() for n, p in params.items() if mask[n])
+        if n_train == 0:
+            raise ValueError(
+                f"--train-only {args.train_only!r} matches no parameters")
+        print(f"training {n_train} of "
+              f"{sum(p.numel() for p in params.values())} params "
+              f"({args.train_only})")
+        check_routing_dead_point(params, mask)
+
+    watchdog = StragglerWatchdog()
+    guard = NaNGuard()
+    # The reference's CLI loop: the loss's default backend on the f32
+    # parameters (no bf16 compute copy), the NaN guard before the update.
+    train_step = make_train_step(cfg, opt_cfg, distill=args.distill,
+                                 trainable=mask, compute_bf16=False,
+                                 guard=guard.check)
+    losses = []
+    with actx.activation_sharding(None, remat=True):
+        for step in range(args.steps):
+            t0 = time.time()
+            batch = {k: torch.from_numpy(v).to(device)
+                     for k, v in next(data).items()}
+            model, opt_state, loss, gnorm = train_step(model, opt_state,
+                                                       batch)
+            if gnorm is None:
+                print(f"step {step}: non-finite loss, update skipped")
+                continue
+            loss = float(loss)
+            dt = time.time() - t0
+            slow = watchdog.record(dt)
+            losses.append(loss)
+            if step % args.log_every == 0 or step == args.steps - 1:
+                extra = " STRAGGLER" if slow else ""
+                lr = adamw.schedule_lr(opt_cfg, opt_state["step"])
+                print(f"step {step:5d} loss {loss:.4f} "
+                      f"gnorm {float(gnorm):.3f} "
+                      f"lr {float(lr):.2e} {dt:.2f}s{extra}",
+                      flush=True)
+    if watchdog.flagged:
+        print(f"stragglers flagged: {len(watchdog.flagged)}")
+    print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
+    return losses
+
+
+if __name__ == "__main__":
+    main()

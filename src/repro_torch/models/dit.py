@@ -9,12 +9,19 @@ Counterpart of `repro.models.dit`. The parameters live in `nn.Module`s in
 the reference's layout (`x @ W`, W of shape (in, out)); the reference's
 layer-stacked params are an `nn.ModuleList`, its `lax.scan` over layers
 and steps and its `lax.cond` are Python loops and branches. Plans carry a
-leading layer axis, as in the reference. The training losses arrive with
-the training slice.
+leading layer axis, as in the reference.
+
+Under `distributed.ctx.activation_sharding(remat=True)` each layer is
+rematerialized, as the reference's `ctx.maybe_remat` scan body: its
+activations are recomputed in the backward. The recompute reuses the
+block plan the first pass built (and any drift re-plan it made), so a
+layer is planned once per forward whether or not it is recomputed, and
+the recompute attends over the same blocks.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -25,7 +32,9 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import masks as masks_lib
 from repro_torch.core import plan as plan_lib
-from repro_torch.models.common import attention, dense_init, rms_norm
+from repro_torch.distributed import ctx
+from repro_torch.models.common import (attention, dense_init, mse_loss,
+                                       rms_norm)
 
 
 class DiTLayer(nn.Module):
@@ -117,6 +126,8 @@ def forward(params: DiT, cfg: ArchConfig, latents: torch.Tensor, t,
     """latents: (B, N, patch_dim); t: per-sample (B,) diffusion time in
     [0, 1], or a scalar broadcast to the batch. cond: (B, Lc, d) text
     embeddings. Returns the velocity prediction, shaped like latents.
+    `params` is the DiT module or a tree of its tensors with the same
+    attributes (`launch.steps.cast_params_bf16`).
 
     `return_plans=True` also returns the per-layer SLAPlan stack (leading
     axis = layer); pass it back as `plans=` to skip planning. With `plans`
@@ -153,16 +164,10 @@ def forward(params: DiT, cfg: ArchConfig, latents: torch.Tensor, t,
             torch.as_tensor(drift_threshold, dtype=torch.float32,
                             device=dev), thr_shape)
 
-    out_plans, rets, reps = [], [], []
-    for li, p in enumerate(params.layers):
-        layer_plan = (None if plans is None
-                      else plan_lib.plan_map(lambda leaf: leaf[li], plans))
-        if adaptive and per_sample_refresh:
-            retention = torch.ones((b,), dtype=torch.float32, device=dev)
-            replanned = torch.zeros((b,), dtype=torch.bool, device=dev)
-        else:
-            retention = torch.ones((), dtype=torch.float32, device=dev)
-            replanned = torch.zeros((), dtype=torch.bool, device=dev)
+    def layer(x, p, given, thr, kept):
+        """One DiT block. Planning (or the drift-gated refresh of a given
+        plan) runs on the first call only and is kept in `kept`, so a
+        rematerializing recompute attends over the same blocks."""
         mod = temb @ p.ada.to(temb.dtype)
         sh1, sc1, g1, sh2, sc2, g2 = mod.chunk(6, dim=-1)
         xn = rms_norm(x, p.ln1) * (1 + sc1[:, None]) + sh1[:, None]
@@ -171,20 +176,20 @@ def forward(params: DiT, cfg: ArchConfig, latents: torch.Tensor, t,
         v = (xn @ p.wv.to(x.dtype)).reshape(b, n, hkv, dh).transpose(1, 2)
         routing = (dict(p.routing) if sla_cfg.routing_mode == "learned"
                    else None)
-        if plan_needed and layer_plan is None:
-            layer_plan = plan_lib.plan_attention(q, k, sla_cfg,
-                                                 routing=routing)
-        elif adaptive:
-            refresh = (plan_lib.refresh_plan_per_sample
-                       if per_sample_refresh else plan_lib.refresh_plan)
-            layer_plan, retention, replanned = refresh(
-                layer_plan, q, k, sla_cfg, thresholds[li], routing=routing)
+        if "plan" not in kept:
+            # Tensors the planning ops save for the backward (the learned
+            # router's straight-through gates) stay out of the remat
+            # checkpoint, whose recompute does not plan again.
+            with torch.autograd.graph.saved_tensors_hooks(
+                    lambda t: t.detach(), lambda t: t):
+                kept["plan"] = plan_layer(q, k, routing, given, thr)
+        layer_plan = kept["plan"][0]
         o = attention({"proj": p.sla_proj}, q, k, v, kind, sla_cfg,
                       causal=False, backend=backend,
                       plan=layer_plan if plan_needed else None,
                       routing=routing)
         o = o.transpose(1, 2).reshape(b, n, h * dh)
-        x = x + g1[:, None] * (o @ p.wo.to(x.dtype))
+        x = ctx.shard_residual(x + g1[:, None] * (o @ p.wo.to(x.dtype)))
         if cfg.cross_attn and cond is not None:
             cx = cond.to(x.dtype)
             lc = cx.shape[1]
@@ -199,7 +204,36 @@ def forward(params: DiT, cfg: ArchConfig, latents: torch.Tensor, t,
             x = x + xo @ p.xo.to(x.dtype)
         xn2 = rms_norm(x, p.ln2) * (1 + sc2[:, None]) + sh2[:, None]
         g, u = (xn2 @ p.mlp_wi.to(x.dtype)).chunk(2, dim=-1)
-        x = x + g2[:, None] * ((F.silu(g) * u) @ p.mlp_wo.to(x.dtype))
+        return ctx.shard_residual(
+            x + g2[:, None] * ((F.silu(g) * u) @ p.mlp_wo.to(x.dtype)))
+
+    def plan_layer(q, k, routing, layer_plan, thr):
+        """(plan, retention, replanned) for one layer."""
+        if adaptive and per_sample_refresh:
+            retention = torch.ones((b,), dtype=torch.float32, device=dev)
+            replanned = torch.zeros((b,), dtype=torch.bool, device=dev)
+        else:
+            retention = torch.ones((), dtype=torch.float32, device=dev)
+            replanned = torch.zeros((), dtype=torch.bool, device=dev)
+        if plan_needed and layer_plan is None:
+            layer_plan = plan_lib.plan_attention(q, k, sla_cfg,
+                                                 routing=routing)
+        elif adaptive:
+            refresh = (plan_lib.refresh_plan_per_sample
+                       if per_sample_refresh else plan_lib.refresh_plan)
+            layer_plan, retention, replanned = refresh(
+                layer_plan, q, k, sla_cfg, thr, routing=routing)
+        return layer_plan, retention, replanned
+
+    out_plans, rets, reps = [], [], []
+    for li, p in enumerate(params.layers):
+        given = (None if plans is None
+                 else plan_lib.plan_map(lambda leaf: leaf[li], plans))
+        kept = {}
+        x = ctx.maybe_remat(functools.partial(
+            layer, p=p, given=given, thr=thresholds[li] if adaptive
+            else None, kept=kept))(x)
+        layer_plan, retention, replanned = kept["plan"]
         if return_plans and plan_needed:
             out_plans.append(layer_plan)
         if adaptive:
@@ -348,3 +382,36 @@ def retire_denoise_slot(latents, slot: int):
 def take_slot_plans(plans, slot: int):
     """One slot's per-layer plan rows (leaves (L, 1, ...))."""
     return plan_lib.plan_map(lambda leaf: leaf[:, slot:slot + 1], plans)
+
+
+def loss_fn(params: DiT, cfg: ArchConfig, batch, compute_dtype=torch.bfloat16,
+            backend: str = "gather", sla_mode: Optional[str] = None
+            ) -> torch.Tensor:
+    """Flow-matching (rectified flow): x_t = (1-t) x0 + t noise; the model
+    predicts the velocity (noise - x0). batch: latents (B, N, P), noise,
+    t (B,), cond (optional) tensors."""
+    x0, noise, t = batch["latents"], batch["noise"], batch["t"]
+    xt = (1.0 - t[:, None, None]) * x0 + t[:, None, None] * noise
+    pred = forward(params, cfg, xt, t, batch.get("cond"), compute_dtype,
+                   backend, sla_mode)
+    return mse_loss(pred, noise - x0)
+
+
+def distill_loss_fn(params: DiT, cfg: ArchConfig, batch,
+                    compute_dtype=torch.bfloat16, backend: str = "gather"
+                    ) -> torch.Tensor:
+    """End-to-end distillation (paper Sec. 5): MSE between the SLA
+    student's velocity and an exact-attention teacher running the same
+    params on the same noised latents. The teacher runs under
+    `torch.no_grad()` (the reference's stop_gradient). Routing parameters
+    get their straight-through gradients only on the autodiff backends
+    ("gather", "reference"): the kernel backend treats the plan as a
+    constant."""
+    x0, noise, t = batch["latents"], batch["noise"], batch["t"]
+    xt = (1.0 - t[:, None, None]) * x0 + t[:, None, None] * noise
+    with torch.no_grad():
+        teacher = forward(params, cfg, xt, t, batch.get("cond"),
+                          compute_dtype, backend, sla_mode="full")
+    student = forward(params, cfg, xt, t, batch.get("cond"), compute_dtype,
+                      backend)
+    return mse_loss(student, teacher)

@@ -1,0 +1,27 @@
+"""Model registry: family -> module. Counterpart of
+`repro.models.registry`, `get_model` half.
+
+Every module exposes init(generator, cfg, device=), forward, loss_fn and
+distill_loss_fn. Only the DiT family is ported; the others raise and
+name the ROADMAP.md queue-1 item that ports them.
+"""
+from __future__ import annotations
+
+import types
+
+from repro_torch.configs.base import ArchConfig
+
+# family -> the ROADMAP.md queue-1 item that ports it
+_NOT_YET_PORTED = {"dense": 13, "moe": 13, "vlm": 15, "ssm": 15,
+                   "hybrid": 15, "encdec": 15}
+
+
+def get_model(cfg: ArchConfig) -> types.ModuleType:
+    if cfg.family == "dit":
+        from repro_torch.models import dit
+        return dit
+    if cfg.family in _NOT_YET_PORTED:
+        raise NotImplementedError(
+            f"model family {cfg.family!r} is not ported to repro_torch yet "
+            f"(ROADMAP.md queue 1, item {_NOT_YET_PORTED[cfg.family]})")
+    raise KeyError(f"unknown model family {cfg.family!r}")

@@ -7,9 +7,10 @@ false, and import no JAX, so they run on a machine with the card:
         tests/test_torch_gpu.py
 
 (`--noconftest` because tests/conftest.py imports JAX for the reference
-tests.) The CUDA kernel is held to its plain twin on the same card
-tensors, the kernel backend to the gather backend on a small DiT, and
-the streaming service to the sequential sampler.
+tests.) Each CUDA kernel (the forward, dQ and dK/dV) is held to its
+plain twin on the same card tensors, the kernel backend to the gather
+backend on a small DiT (forward, gradients and a train step), and the
+streaming service to the sequential sampler.
 """
 import numpy as np
 import pytest
@@ -19,8 +20,11 @@ from repro_torch.configs import get_arch
 from repro_torch.core import plan as plan_lib
 from repro_torch.core.config import SLAConfig
 from repro_torch.core.phi import phi
-from repro_torch.kernels import ops, sla_fwd
+from repro_torch.distributed import ctx
+from repro_torch.kernels import ops, sla_bwd, sla_fwd
+from repro_torch.launch import steps
 from repro_torch.models import dit
+from repro_torch.optim import adamw
 
 # Kernel and twin read the same (possibly bf16) inputs and accumulate in
 # f32, so both dtypes are held to the f32 limit; 5e-2 is test_conformance's
@@ -65,7 +69,7 @@ def _operands(seed, h, group, n, d, block, dtype, causal, base, span):
     args = (lut, counts, fq, fk, fv, fqp, hi, zi)
     kw = dict(scale=d ** -0.5, causal=causal, block_q=block,
               block_kv=block, base=base)
-    return args, kw
+    return args, kw, plan
 
 
 CASES = [
@@ -85,8 +89,8 @@ CASES = [
 def test_cuda_kernel_matches_plain_twin(h, group, n, d, block, causal, base,
                                         dtype):
     _need_gpu()
-    args, kw = _operands(7, h, group, n, d, block, dtype, causal, base,
-                         span=4)
+    args, kw, _ = _operands(7, h, group, n, d, block, dtype, causal, base,
+                            span=4)
     before = sla_fwd.LAUNCHES
     got = sla_fwd.sla_fwd(*args, **kw)
     want = sla_fwd.sla_fwd_plain(*args, **kw)
@@ -99,12 +103,13 @@ def test_cuda_kernel_matches_plain_twin(h, group, n, d, block, causal, base,
 
 def test_cuda_kernel_refuses_what_it_cannot_take():
     _need_gpu()
-    args, kw = _operands(1, 2, 1, 256, 32, 16, torch.float32, False, 0, 4)
+    args, kw, _ = _operands(1, 2, 1, 256, 32, 16, torch.float32, False, 0, 4)
     bad = list(args)
     bad[2] = bad[2].half()
     with pytest.raises(TypeError, match="float32 or"):
         sla_fwd.sla_fwd(*bad, **kw)
-    args, kw = _operands(1, 2, 1, 256, 132, 16, torch.float32, False, 0, 4)
+    args, kw, _ = _operands(1, 2, 1, 256, 132, 16, torch.float32, False, 0,
+                            4)
     with pytest.raises(ValueError, match="head dims"):
         sla_fwd.sla_fwd(*args, **kw)
 
@@ -178,3 +183,158 @@ def test_scheduler_on_the_card_matches_sequential_sample():
         assert np.isfinite(r.result).all()
         np.testing.assert_allclose(r.result, ref[0].cpu().numpy(),
                                    atol=1e-4, rtol=1e-4)
+
+
+BWD_CASES = [
+    # (h, group, n, d, block, causal)
+    (4, 1, 256, 32, 16, False),
+    (4, 2, 256, 108, 16, True),
+    (2, 1, 512, 128, 64, False),
+    (2, 1, 512, 128, 64, True),
+    (3, 1, 384, 64, 32, False),
+    (2, 1, 256, 8, 16, True),
+]
+
+
+def _bwd_operands(seed, h, group, n, d, block, dtype, causal):
+    """Both backward kernels' operands: L and O^s from the forward kernel
+    on the same inputs, a seeded dO^s and D = rowsum(dO^s * O^s)."""
+    args, kw, plan = _operands(seed, h, group, n, d, block, dtype, causal,
+                               0, n // block)  # causal: every query block
+    o_s, _, lse = sla_fwd.sla_fwd(*args, **kw)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    do = torch.randn(o_s.shape, generator=gen, device="cuda")
+    kw.pop("base")
+    tail = (*args[2:5], do, lse, (do * o_s).sum(-1))
+    col = (ops._flat(plan.col_lut), ops._flat(plan.col_counts))
+    return args[:2] + tail, col + tail, kw
+
+
+def _assert_twin(got, want):
+    got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.dtype == torch.float32
+        atol = TWIN_TOL * max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(g, w, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("h,group,n,d,block,causal", BWD_CASES)
+def test_cuda_bwd_kernels_match_plain_twins(h, group, n, d, block, causal,
+                                            dtype):
+    _need_gpu()
+    dq_args, dkv_args, kw = _bwd_operands(11, h, group, n, d, block, dtype,
+                                          causal)
+    before = (sla_bwd.LAUNCHES_DQ, sla_bwd.LAUNCHES_DKV)
+    got_dq = sla_bwd.sla_bwd_dq(*dq_args, **kw)
+    got_dkv = sla_bwd.sla_bwd_dkv(*dkv_args, **kw)
+    want_dq = sla_bwd.sla_bwd_dq_plain(*dq_args, **kw)
+    want_dkv = sla_bwd.sla_bwd_dkv_plain(*dkv_args, **kw)
+    torch.cuda.synchronize()
+    assert (sla_bwd.LAUNCHES_DQ, sla_bwd.LAUNCHES_DKV) == (before[0] + 1,
+                                                           before[1] + 1)
+    _assert_twin(got_dq, want_dq)
+    _assert_twin(got_dkv, want_dkv)
+    assert float(got_dq.abs().max()) > 0
+
+
+def test_cuda_bwd_kernels_stop_at_counts():
+    """Rows and columns with no live entry get zero gradients whatever
+    their padded slots name: the kernels never read past the counts."""
+    _need_gpu()
+    dq_args, dkv_args, kw = _bwd_operands(3, 2, 1, 512, 128, 64,
+                                          torch.float32, False)
+    dq_args, dkv_args = list(dq_args), list(dkv_args)
+    for args in (dq_args, dkv_args):
+        args[0], args[1] = args[0].clone(), args[1].clone()
+        args[1][0, 2] = 0
+        args[0][0, 2] = 5  # padded slots name another valid block
+    dq = sla_bwd.sla_bwd_dq(*dq_args, **kw)
+    dk, dv = sla_bwd.sla_bwd_dkv(*dkv_args, **kw)
+    torch.cuda.synchronize()
+    assert torch.all(dq[0, 128:192] == 0)
+    assert torch.all(dk[0, 128:192] == 0) and torch.all(dv[0, 128:192] == 0)
+    _assert_twin(dq, sla_bwd.sla_bwd_dq_plain(*dq_args, **kw))
+    _assert_twin((dk, dv), sla_bwd.sla_bwd_dkv_plain(*dkv_args, **kw))
+
+
+def _small_dit(arch, seed):
+    cfg = get_arch(arch).smoke()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = dit.init(gen, cfg)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen,
+                                      device="cuda"))
+    rs = np.random.default_rng(seed)
+    batch = {"latents": rs.standard_normal((2, 128, cfg.patch_dim),
+                                           dtype=np.float32),
+             "noise": rs.standard_normal((2, 128, cfg.patch_dim),
+                                         dtype=np.float32),
+             "t": np.array([0.8, 0.3], np.float32)}
+    if cfg.cross_attn:
+        batch["cond"] = rs.standard_normal((2, cfg.cond_len, cfg.d_model),
+                                           dtype=np.float32)
+    return cfg, model, {k: torch.from_numpy(v).cuda()
+                        for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("arch", ["wan2_1_1_3b", "lightningdit_1b"])
+def test_kernel_backend_grads_match_gather_on_a_small_dit(arch):
+    """f32 flow-matching loss and every parameter gradient: the kernel
+    backend (forward, dQ and dK/dV kernels) against the gather backend's
+    autograd, under per-layer remat."""
+    _need_gpu()
+    cfg, model, batch = _small_dit(arch, 4)
+    grads = {}
+    for backend in ("kernel", "gather"):
+        model.zero_grad()
+        before = (sla_fwd.LAUNCHES, sla_bwd.LAUNCHES_DQ,
+                  sla_bwd.LAUNCHES_DKV)
+        with ctx.activation_sharding(remat=True):
+            loss = dit.loss_fn(model, cfg, batch, torch.float32, backend)
+            loss.backward()
+        after = (sla_fwd.LAUNCHES, sla_bwd.LAUNCHES_DQ,
+                 sla_bwd.LAUNCHES_DKV)
+        if backend == "kernel":
+            n = cfg.num_layers
+            assert tuple(a - b for a, b in zip(after, before)) == (2 * n,
+                                                                   n, n)
+        grads[backend] = (loss.detach(), {n: p.grad.clone() for n, p in
+                                          model.named_parameters()})
+    (lk, gk), (lg, gg) = grads["kernel"], grads["gather"]
+    torch.testing.assert_close(lk, lg, atol=1e-5, rtol=1e-5)
+    for name in gk:
+        atol = 1e-4 * max(1.0, float(gg[name].abs().max()))
+        torch.testing.assert_close(gk[name], gg[name], atol=atol, rtol=0,
+                                   msg=name)
+
+
+def test_train_step_on_the_card_kernel_vs_gather():
+    """One make_train_step (bf16 compute over f32 masters, AdamW) on each
+    backend from the same weights: the same loss and grad norm to bf16
+    noise, finite, and the kernels ran once per layer (twice for the
+    forward: its remat recompute)."""
+    _need_gpu()
+    out = {}
+    for backend in ("kernel", "gather"):
+        cfg, model, batch = _small_dit("wan2_1_1_3b", 5)
+        step = steps.make_train_step(
+            cfg, adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2),
+            backend=backend)
+        state = adamw.init(dict(model.named_parameters()))
+        before = (sla_fwd.LAUNCHES, sla_bwd.LAUNCHES_DQ,
+                  sla_bwd.LAUNCHES_DKV)
+        with ctx.activation_sharding(remat=True):
+            model, state, loss, gnorm = step(model, state, batch)
+        launches = tuple(a - b for a, b in zip(
+            (sla_fwd.LAUNCHES, sla_bwd.LAUNCHES_DQ, sla_bwd.LAUNCHES_DKV),
+            before))
+        out[backend] = (float(loss), float(gnorm), launches)
+    n = cfg.num_layers
+    assert out["kernel"][2] == (2 * n, n, n)
+    assert out["gather"][2] == (0, 0, 0)
+    assert all(np.isfinite(out[b][:2]).all() for b in out)
+    np.testing.assert_allclose(out["kernel"][:2], out["gather"][:2],
+                               rtol=2e-2)

@@ -170,4 +170,6 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build("sla_fwd")
-    assert _build.kernel_names() == ["sla_fwd"]
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
+    assert _build.kernel_names() == ["sla_bwd", "sla_fwd"]

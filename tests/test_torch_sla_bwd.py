@@ -1,0 +1,169 @@
+"""The backward kernels' plain twins against the Pallas kernels.
+
+`repro_torch.kernels.sla_bwd.sla_bwd_dq_plain` / `sla_bwd_dkv_plain` are
+held to `repro.kernels.sla_bwd.sla_bwd_dq` / `sla_bwd_dkv(interpret=True)`
+on the same numpy inputs (the row and column LUTs of one JAX plan, L and
+O^s from the forward twin), over bidirectional / causal, GQA group 1 / 2,
+head dims 16 / 108 and f32 / bf16 inputs. Both sides compute in f32 from
+the same (bf16-rounded) values, so both dtypes are held to
+5e-5 x max(1, max |reference|).
+
+The CUDA kernels themselves run only on a GPU: their tests are in
+tests/test_torch_gpu.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import plan as jplan
+from repro.core.config import SLAConfig as JaxSLAConfig
+from repro.kernels.sla_bwd import sla_bwd_dkv as jax_dkv
+from repro.kernels.sla_bwd import sla_bwd_dq as jax_dq
+from repro_torch.kernels import sla_bwd, sla_fwd
+
+TOL = 5e-5
+BLOCK = 16
+
+
+def _case(seed, d, group, causal, dtype, h=4, n=128):
+    """Numpy operands for one backward call: q, k, v (rounded to bf16
+    for the bf16 cases), a random dO^s, the forward's L and
+    D = rowsum(dO^s * O^s), and the plan's row and column LUTs."""
+    rs = np.random.default_rng(seed)
+    hkv = h // group
+    q = rs.standard_normal((h, n, d), dtype=np.float32)
+    k = rs.standard_normal((hkv, n, d), dtype=np.float32)
+    v = rs.standard_normal((hkv, n, d), dtype=np.float32)
+    if dtype == "bf16":
+        q, k, v = (np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
+                   for x in (q, k, v))
+    cfg = JaxSLAConfig(block_q=BLOCK, block_kv=BLOCK, kh_frac=0.5,
+                       kl_frac=0.25, causal=causal)
+    plan = jplan.plan_attention(jnp.asarray(q[None]), jnp.asarray(k[None]),
+                                cfg)
+    luts = {name: np.asarray(getattr(plan, name)[0]).astype(np.int32)
+            for name in ("lut", "counts", "col_lut", "col_counts")}
+    tm = n // BLOCK
+    zeros_h = torch.zeros((h, tm, d, d))
+    zeros_z = torch.zeros((h, tm, d))
+    t = {name: torch.from_numpy(a) for name, a in
+         dict(q=q, k=k, v=v, **luts).items()}
+    o_s, _, lse = sla_fwd.sla_fwd_plain(
+        t["lut"], t["counts"], t["q"], t["k"], t["v"], torch.zeros_like(
+            t["q"]), zeros_h, zeros_z, scale=d ** -0.5, causal=causal,
+        block_q=BLOCK, block_kv=BLOCK)
+    do = rs.standard_normal((h, n, d), dtype=np.float32)
+    d_s = (torch.from_numpy(do) * o_s).sum(-1).numpy()
+    return dict(q=q, k=k, v=v, do=do, lse=lse.numpy(), d_s=d_s, **luts)
+
+
+def _torch(c, dtype, lut, counts):
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    return [t(c[lut]), t(c[counts]), *(t(c[n]).to(td) for n in "qkv"),
+            t(c["do"]), t(c["lse"]), t(c["d_s"])]
+
+
+def _jax(c, dtype, lut, counts):
+    jd = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    return [jnp.asarray(c[lut]), jnp.asarray(c[counts]),
+            *(jnp.asarray(c[n], jd) for n in "qkv"), jnp.asarray(c["do"]),
+            jnp.asarray(c["lse"]), jnp.asarray(c["d_s"])]
+
+
+def _close(got, want, name):
+    want = np.asarray(want)
+    assert got.dtype == torch.float32 and got.shape == want.shape, name
+    atol = TOL * max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got.numpy(), want, atol=atol, rtol=0,
+                               err_msg=name)
+
+
+CASES = [
+    pytest.param(d, group, causal, dtype,
+                 id=f"d{d}-g{group}-{'causal' if causal else 'bidir'}"
+                    f"-{dtype}")
+    for d in (16, 108)
+    for group in (1, 2)
+    for causal in (False, True)
+    for dtype in ("f32", "bf16")
+]
+
+
+@pytest.mark.parametrize("d,group,causal,dtype", CASES)
+def test_plain_twins_match_pallas_kernels(d, group, causal, dtype):
+    c = _case(d + 3 * group + int(causal), d, group, causal, dtype)
+    kw = dict(scale=d ** -0.5, causal=causal, block_q=BLOCK,
+              block_kv=BLOCK)
+    before = (sla_bwd.LAUNCHES_DQ, sla_bwd.LAUNCHES_DKV)
+    dq = sla_bwd.sla_bwd_dq(*_torch(c, dtype, "lut", "counts"), **kw)
+    dk, dv = sla_bwd.sla_bwd_dkv(*_torch(c, dtype, "col_lut",
+                                         "col_counts"), **kw)
+    # CPU tensors: the plain twins, no kernel launch counted
+    assert (sla_bwd.LAUNCHES_DQ, sla_bwd.LAUNCHES_DKV) == before
+    _close(dq, jax_dq(*_jax(c, dtype, "lut", "counts"), **kw), "dq")
+    jdk, jdv = jax_dkv(*_jax(c, dtype, "col_lut", "col_counts"), **kw)
+    _close(dk, jdk, "dk")
+    _close(dv, jdv, "dv")
+    assert float(dq.abs().max()) > 0 and float(dk.abs().max()) > 0
+
+
+def test_dead_rows_and_columns_get_zero_gradient():
+    """A query row with no live LUT entry gets dQ = 0 and a kv column
+    with none gets dK = dV = 0, whatever its padded slots name; the other
+    rows and columns are unchanged."""
+    c = _case(0, 16, 1, False, "f32")
+    kw = dict(scale=0.25, causal=False, block_q=BLOCK, block_kv=BLOCK)
+    dq0 = sla_bwd.sla_bwd_dq_plain(*_torch(c, "f32", "lut", "counts"),
+                                   **kw)
+    dk0, _ = sla_bwd.sla_bwd_dkv_plain(
+        *_torch(c, "f32", "col_lut", "col_counts"), **kw)
+    c["counts"][0, 2] = 0
+    c["col_counts"][1, 3] = 0
+    c["lut"][0, 2] = 5  # padded slots name another (valid) block
+    c["col_lut"][1, 3] = 5
+    dq = sla_bwd.sla_bwd_dq_plain(*_torch(c, "f32", "lut", "counts"), **kw)
+    dk, dv = sla_bwd.sla_bwd_dkv_plain(
+        *_torch(c, "f32", "col_lut", "col_counts"), **kw)
+    rows = slice(2 * BLOCK, 3 * BLOCK)
+    cols = slice(3 * BLOCK, 4 * BLOCK)
+    assert torch.all(dq[0, rows] == 0) and torch.all(dq0[0, rows] != 0)
+    assert torch.all(dk[1, cols] == 0) and torch.all(dv[1, cols] == 0)
+    assert torch.equal(dq[:, :2 * BLOCK], dq0[:, :2 * BLOCK])
+    assert torch.equal(dk[0], dk0[0])
+
+
+def _valid(kernel="dq"):
+    c = _case(0, 16, 1, False, "f32")
+    names = ("lut", "counts") if kernel == "dq" else ("col_lut",
+                                                      "col_counts")
+    return _torch(c, "f32", *names)
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("change,match", [
+    (lambda a: a.__setitem__(2, a[2].to(torch.float16)), "float32 or"),
+    (lambda a: a.__setitem__(3, a[3].to(torch.bfloat16)), "share one"),
+    (lambda a: a.__setitem__(5, a[5].to(torch.bfloat16)), "do_s must"),
+    (lambda a: a.__setitem__(6, a[6][:, :8].contiguous()), "lse and"),
+    (lambda a: a.__setitem__(0, a[0].long()), "lut must"),
+    (lambda a: a.__setitem__(1, a[1][:, :2].contiguous()), "counts must"),
+    (lambda a: a.__setitem__(2, a[2].transpose(0, 1).contiguous()
+                             .transpose(0, 1)), "contiguous"),
+    (lambda a: a.__setitem__(0, a[0][:3]), "lut must be"),
+])
+def test_wrappers_check_their_operands(kernel, change, match):
+    args = _valid(kernel)
+    change(args)
+    with pytest.raises((TypeError, ValueError), match=match):
+        sla_bwd._check(f"sla_bwd_{kernel}", *args, BLOCK, BLOCK, BLOCK)
+
+
+def test_wrappers_refuse_other_devices():
+    for kernel, fn in (("dq", sla_bwd.sla_bwd_dq),
+                       ("dkv", sla_bwd.sla_bwd_dkv)):
+        args = [a.to("meta") for a in _valid(kernel)]
+        with pytest.raises(ValueError, match="CUDA or CPU"):
+            fn(*args, scale=1.0, causal=False, block_q=BLOCK,
+               block_kv=BLOCK)
