@@ -2,8 +2,10 @@
 """Drive the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py             # the check, on one card
-    python3 chip_smoke.py --profile   # also profile one full-width forward
-                                      # and one full-width training step
+    python3 chip_smoke.py --profile   # also profile one full-width forward,
+                                      # one full-width training step,
+                                      # 8 full-width LM decode steps and
+                                      # one full-width LM prefill
 
 Phases, in order; any failure exits non-zero before the result line:
   1. card: nvidia-smi name and power limit; TF32 off for matmul and cuDNN.
@@ -55,7 +57,38 @@ Phases, in order; any failure exits non-zero before the result line:
      init), 3 steps, finite losses (exactly 0: the frozen output
      projection is zero); then 2 steps of the plain flow-matching loop,
      whose losses must be non-zero and change.
- 11. the kernels line (JSON), then the result line.
+ 11. decode kernel vs plain twin: `sla_decode` against `sla_decode_plain`
+     on the same card tensors at the Qwen3-1.7B decode shape (B 2, H 16,
+     Hkv 8, D 128, 64-token blocks, Tn 512 = max_len 32768, K 26), a
+     random live row at a position mid-block, C = 1 (live-row layout: one
+     running total per kv head, no diagonal partials) and C = 4
+     (per-token hdiag / htot), K/V in f32 and bf16, rows with
+     marg = 0 and padded LUT slots naming another block: max abs error
+     against 5e-5 x max(1, max |twin|); CUDA-event times of kernel and
+     twin, the bound, and dense scaled_dot_product_attention of one bf16
+     query token over the whole 32768-token cache (a yardstick, not the
+     same function: no PyTorch call computes O^l).
+ 12. LM main path (after the DiT models are freed): the static
+     ServingEngine serving qwen3-1.7b at full width and depth (28
+     layers, random seeded weights, sla_proj redrawn) on the kernel
+     backend with decode-time SLA, bf16 compute over f32 weights, batch
+     2, max_len 32768: 4 requests (prompts 32000, 31937, 32000, 31990 in
+     a 32000 bucket; 96, 80, 96, 80 new tokens), 2 groups of 95 decode
+     steps, each crossing the block boundaries at 32000 and 32064.
+     Checks every request's token count, finite logits, 28 x 190
+     `sla_decode` and 28 x 2 `sla_fwd` launches, and the decode-plan
+     counters (56 builds, 56 extends, 112 re-plans + reuses).
+ 13. LM cross-checks on the main path's own state after its last
+     boundary: decode_execute on the kernel vs the gather backend and
+     `sla_decode` vs its twin on the live LUTs of layers 0 and 27 (5e-5 x
+     max(1, max |twin|)); one full decode step's logits, kernel vs
+     gather backend from the same cache (5e-2 x max(1, max |logits|),
+     bf16 compute), with the greedy-token agreement; `sla_fwd` vs its
+     twin on the Qwen3 prefill's layer-0 and layer-27 LUTs (causal, bf16,
+     K/V repeated to the 16 query heads as the kernel backend gives
+     them). `--profile` adds a profile of 8 decode steps and one of a
+     prefill (the forward kernel's share of its device time).
+ 14. the kernels line (JSON), then the result line.
 """
 from __future__ import annotations
 
@@ -88,14 +121,18 @@ from repro_torch.core import plan as plan_lib  # noqa: E402
 from repro_torch.core.block_sparse_xla import sla_forward_gather  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, make_iterator  # noqa: E402
 from repro_torch.distributed import ctx as actx  # noqa: E402
+from repro_torch.core import backends as backend_lib  # noqa: E402
 from repro_torch.kernels import _build, ops, sla_bwd, sla_fwd  # noqa: E402
+from repro_torch.kernels import sla_decode  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import dit  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.models.common import dense_init  # noqa: E402
 from repro_torch.serving.diffusion import (DenoiseParams,  # noqa: E402
                                            DiffusionScheduler)
+from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 
 # Kernel vs plain twin: both read the same (possibly bf16) inputs and
 # accumulate in f32, so bf16 is held to the f32 limit too; the 5e-2 of
@@ -117,6 +154,10 @@ PROBES = ("layers.0.wq", "layers.29.sla_proj", "patch_out")
 # backward kernels: (kernel, plain twin, operations per live tile / bq bkv D)
 BWD = {"sla_bwd_dq": (sla_bwd.sla_bwd_dq, sla_bwd.sla_bwd_dq_plain, 6),
        "sla_bwd_dkv": (sla_bwd.sla_bwd_dkv, sla_bwd.sla_bwd_dkv_plain, 8)}
+# the LM main path and the decode kernel's shape (qwen3-1.7b decode)
+LM_ARCH, LM_BATCH, LM_MAX_LEN = "qwen3-1.7b", 2, 32768
+LM_PROMPTS, LM_MAX_NEW = (32000, 31937, 32000, 31990), (96, 80, 96, 80)
+LM_LOGIT_TOL = 5e-2  # kernel vs gather logits in bf16 compute
 DEV = torch.device("cuda")
 
 
@@ -892,12 +933,537 @@ def phase_train_cli():
     return out
 
 
+
+# --------------------------------------------------------------------------
+def _decode_operands(seed: int, c: int, kv_dtype, pos: int, b=2, hkv=8, g=2,
+                     d=128, bkv=64, tn=LM_MAX_LEN // 64, k_sel=26):
+    """The decode kernel's flat operands at the Qwen3 decode shape: C
+    tokens from base position `pos` (mid-block), a live LUT per (bh, c)
+    with the diagonal block first and other distinct valid blocks after
+    it, cnt in [1, K], padded slots naming another valid block, every
+    third marg 0, and per-token totals and diagonal partials that grow
+    token by token (C = 1: the live-row layout of the main path, one
+    running total per kv head and no partials)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    bh, bh_kv, row = b * hkv * g, b * hkv, pos // bkv
+
+    def rnd(*shape):
+        return torch.rand(shape, generator=gen, device=DEV)
+
+    k = torch.randn((bh_kv, tn, bkv, d), generator=gen, device=DEV)
+    v = torch.randn((bh_kv, tn, bkv, d), generator=gen, device=DEV)
+    hblk, zblk = rnd(bh_kv, tn, d, d) * 0.2, rnd(bh_kv, tn, d) + 0.1
+    hblk[:, row + 1:] = 0
+    zblk[:, row + 1:] = 0
+    others = torch.argsort(rnd(bh, c, row), dim=-1)[..., :k_sel - 1]
+    lut = torch.cat([torch.full((bh, c, 1), row, device=DEV), others], -1)
+    cnt = torch.randint(1, k_sel + 1, (bh, c), generator=gen, device=DEV)
+    dead = torch.arange(k_sel, device=DEV) >= cnt[..., None]
+    pad = torch.randint(0, row, (bh, c, k_sel), generator=gen, device=DEV)
+    lut = torch.where(dead, pad, lut).int().contiguous()
+    marg = torch.randint(0, 4, (bh, c), generator=gen, device=DEV).int()
+    marg.view(-1)[::3] = 0
+    grow, growz = rnd(bh_kv, c, d, d) * 0.05, rnd(bh_kv, c, d) * 0.05
+    htot = (hblk.sum(1)[:, None] + grow.cumsum(1)).contiguous()
+    ztot = (zblk.sum(1)[:, None] + growz.cumsum(1)).contiguous()
+    if c == 1:
+        hdiag = zdiag = None
+        htot, ztot = htot[:, 0], ztot[:, 0]
+    else:
+        hdiag = (hblk[:, row][:, None] * 0.5 + grow.cumsum(1)).contiguous()
+        zdiag = (zblk[:, row][:, None] * 0.5 + growz.cumsum(1)).contiguous()
+    q = torch.randn((bh, c, d), generator=gen, device=DEV)
+    qp = torch.softmax(torch.randn((bh, c, d), generator=gen, device=DEV),
+                       dim=-1)
+    posv = torch.full((bh,), pos, dtype=torch.int32, device=DEV)
+    args = (lut, cnt.int(), marg, posv, q, qp, k.to(kv_dtype),
+            v.to(kv_dtype), hblk, zblk, hdiag, zdiag, htot, ztot)
+    return args, dict(scale=d ** -0.5, block_kv=bkv, group=g)
+
+
+def _decode_bound(args, kw):
+    """Least time for one decode call: bytes over HBM bandwidth against
+    operations over the f32 peak. Bytes: each (kv head, block) that any
+    query head of its group selects (live slots only) once for its K and
+    V tiles, and once for its hblk and zblk tiles unless only the
+    diagonal slot selects it and per-token partials stand in for it;
+    each (kv head, token) diagonal partial that a live diagonal slot
+    reads; the totals (per token or one per kv head); q, qp, the outputs
+    and the integer operands. Operations: 4 bkv D + 2 D^2 per live
+    (bh, c, block) plus the totals' 2 D^2 + 2 D per (bh, c)."""
+    lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag, htot, \
+        ztot = args
+    bh, c, k_sel = lut.shape
+    bh_kv, tn, bkv, d = k.shape
+    live = torch.arange(k_sel, device=DEV) < torch.clamp(
+        cnt, max=k_sel)[..., None]
+    kvrow = (torch.arange(bh, device=DEV) // kw["group"])[:, None, None]
+    tile = (kvrow * tn + lut.long()).expand(bh, c, k_sel)
+    blocks = int(torch.unique(tile[live]).numel())
+    h_tiles, diag_reads = blocks, 0
+    if hdiag is not None:  # the diagonal slot reads hdiag/zdiag instead
+        diag = ((posv.long()[:, None] + torch.arange(c, device=DEV))
+                // bkv)[..., None]
+        on_diag = live & (lut.long() == diag)
+        h_tiles = int(torch.unique(tile[live & ~on_diag]).numel())
+        kvtok = (kvrow * c + torch.arange(c, device=DEV)[:, None]).expand(
+            bh, c, k_sel)
+        diag_reads = int(torch.unique(kvtok[on_diag]).numel())
+    slots = int(live.sum())
+    nbytes = (blocks * 2 * bkv * d * k.element_size()
+              + (h_tiles + diag_reads) * (d * d + d) * 4
+              + sum(t.numel() * 4 for t in (htot, ztot))
+              + 4 * bh * c * d * 4
+              + sum(t.numel() * 4 for t in (lut, cnt, marg, posv)))
+    flops = slots * (4 * bkv * d + 2 * d * d) + bh * c * (2 * d * d + 2 * d)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[torch.float32]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes,
+            blocks, slots)
+
+
+def _decode_case(args, kw, what: str, reps: int = 50):
+    """The decode kernel against its twin on one set of card operands:
+    errors, exact zeros where marg = 0, times and the bound."""
+    got = sla_decode.sla_decode(*args, **kw)
+    want = sla_decode.sla_decode_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    limit = TWIN_TOL * max(1.0, max(float(w.abs().max()) for w in want))
+    zeros = bool((got[1][args[2] == 0] == 0).all())
+    if not np.isfinite(err):
+        raise RuntimeError(f"sla_decode {what}: non-finite output")
+    ms = cuda_ms(lambda: sla_decode.sla_decode(*args, **kw), reps)
+    plain_ms = cuda_ms(lambda: sla_decode.sla_decode_plain(*args, **kw), 5,
+                       warmup=1)
+    bound_ms, bound_by, flops, nbytes, blocks, slots = _decode_bound(args,
+                                                                     kw)
+    ok = err <= limit and zeros
+    say(f"  {what}: max abs err {err:.3g} (limit {limit:.3g}), marg-0 rows "
+        f"exact zeros {zeros} {'OK' if ok else 'FAIL'} | kernel {ms:.4f} ms"
+        f" | bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
+        f"{blocks} (kv head, block) tiles, {slots} live slots) | plain twin "
+        f"{plain_ms:.3f} ms")
+    return dict(max_abs_err=err, limit=limit, ok=ok, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                gflop=flops / 1e9, mbytes=nbytes / 1e6, blocks_read=blocks,
+                live_slots=slots)
+
+
+def phase_decode_vs_plain():
+    """sla_decode vs its plain twin at the Qwen3 decode shape, random
+    LUTs, and the dense SDPA yardstick."""
+    rows = []
+    pos = 300 * 64 + 32  # row 300 of 512, mid-block
+    for c in (1, 4):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = "f32" if dtype == torch.float32 else "bf16"
+            args, kw = _decode_operands(21 + c, c, dtype, pos)
+            say(f"[11 decode kernel] qwen3-1.7b decode shape (BH=32, "
+                f"BH_kv=16, C={c}, D=128, bkv=64, Tn=512, K=26, pos {pos}) "
+                f"K/V {dname}")
+            row = _decode_case(args, kw, f"C={c} {dname}")
+            rows.append(dict(shape=f"qwen3-1.7b decode C={c}", dtype=dname,
+                             c=c, pos=pos, **row))
+            del args
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    q = torch.randn((LM_BATCH, 16, 1, 128), generator=gen, device=DEV,
+                    dtype=torch.bfloat16)
+    kv = [torch.randn((LM_BATCH, 8, LM_MAX_LEN, 128), generator=gen,
+                      device=DEV, dtype=torch.bfloat16) for _ in range(2)]
+    sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, *kv, enable_gqa=True), 50)
+    say(f"  dense SDPA yardstick (one bf16 query token per head over the "
+        f"whole {LM_MAX_LEN}-token cache, GQA; not the same function): "
+        f"{sdpa_ms:.4f} ms")
+    del q, kv
+    torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"decode kernel disagrees with its plain twin: "
+                           f"{bad}")
+    return rows, sdpa_ms
+
+
+# --------------------------------------------------------------------------
+def _lm_model(seed: int):
+    """Full-width qwen3-1.7b with random weights from a seeded generator;
+    sla_proj (zero-initialized) is redrawn so that O^l reaches the
+    logits."""
+    cfg = get_arch(LM_ARCH)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    params = transformer.init(gen, cfg, device=DEV)
+    with torch.no_grad():
+        for layer in params.layers:
+            layer.sla_proj.copy_(0.1 * torch.randn(
+                layer.sla_proj.shape, generator=gen, device=DEV))
+    return cfg, params
+
+
+def phase_lm_main(cfg, params):
+    """The LM serving main path: the static engine on the kernel backend
+    with decode-time SLA. Keeps the last group's decode state, its last
+    token, its prefill plans and the first group's prefill tokens for
+    phase 13."""
+    rs = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rs.integers(0, cfg.vocab_size, size=n)
+                    .astype(np.int32), max_new_tokens=m)
+            for i, (n, m) in enumerate(zip(LM_PROMPTS, LM_MAX_NEW))]
+    engine = ServingEngine(cfg, params, batch_size=LM_BATCH,
+                           max_len=LM_MAX_LEN, backend="kernel",
+                           decode_sla=True)
+    last, plans, groups, first = {}, [], [], {}
+    finite = torch.ones((), dtype=torch.bool, device=DEV)
+    run_prefill, decode_loop = engine._run_prefill, engine._decode_loop
+    one, run_group = engine._one, engine._run_group
+
+    def prefill_hook(toks):  # frees the previous group's state first
+        last.clear()
+        plans.clear()
+        first.setdefault("toks", toks)
+        return run_prefill(toks)
+
+    def decode_loop_hook(p, token, cache, n):
+        token, cache, buf = decode_loop(p, token, cache, n)
+        last.update(token=token, cache=cache)
+        return token, cache, buf
+
+    def one_hook(p, token, cache):
+        logits, cache = one(p, token, cache)
+        finite.logical_and_(torch.isfinite(logits).all())
+        return logits, cache
+
+    def group_hook(group):
+        st = engine.stats
+        before = (st.prefill_s, st.decode_s, st.decode_tokens)
+        out = run_group(group)
+        groups.append(dict(prefill_s=st.prefill_s - before[0],
+                           decode_s=st.decode_s - before[1],
+                           decode_tokens=st.decode_tokens - before[2],
+                           steps=max(r.max_new_tokens for r in group) - 1))
+        return out
+
+    orig_plan = backend_lib.plan_attention
+
+    def plan_hook(*a, **kw):
+        plan = orig_plan(*a, **kw)
+        plans.append(plan)
+        return plan
+
+    engine._run_prefill, engine._decode_loop = prefill_hook, decode_loop_hook
+    engine._one, engine._run_group = one_hook, group_hook
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sla_decode.LAUNCHES = sla_fwd.LAUNCHES = 0
+    backend_lib.plan_attention = plan_hook
+    t0 = time.time()
+    try:
+        done = engine.run(reqs)
+    finally:
+        backend_lib.plan_attention = orig_plan
+    wall = time.time() - t0
+    launches = dict(sla_decode=sla_decode.LAUNCHES, sla_fwd=sla_fwd.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    st = engine.stats
+    n_steps = sum(g["steps"] for g in groups)
+    want = dict(sla_decode=cfg.num_layers * n_steps,
+                sla_fwd=cfg.num_layers * len(groups))
+    say(f"[12 lm main] {len(done)} requests, {LM_ARCH} at full width and "
+        f"depth ({cfg.num_layers} layers, bf16 compute), batch {LM_BATCH}, "
+        f"max_len "
+        f"{LM_MAX_LEN}, kernel backend, decode-SLA, in {wall:.2f}s | peak "
+        f"memory {peak:.2f} GiB")
+    for i, g in enumerate(groups):
+        say(f"  group {i}: prefill {g['prefill_s']:.3f}s ({LM_BATCH} x "
+            f"{engine._bucket} tokens) | decode {g['decode_s']:.3f}s for "
+            f"{g['steps']} steps = {1e3 * g['decode_s'] / g['steps']:.2f} "
+            f"ms per step, {1e3 * g['decode_s'] / g['decode_tokens']:.2f} "
+            f"ms per generated token")
+    say(f"  stats: prefill {st.prefill_tokens} tok / {st.prefill_s:.3f}s, "
+        f"decode {st.decode_tokens} tok / {st.decode_s:.3f}s | decode plans"
+        f" {st.decode_plan_builds} built, {st.decode_plan_extends} extended,"
+        f" {st.decode_plan_replans} re-planned, {st.decode_plan_reuses} "
+        f"reused, retention {st.decode_last_retention:.4f}")
+    say(f"  launches {launches} (expected {want}) | logits finite "
+        f"{bool(finite)}")
+    for r in done:
+        say(f"  request {r.rid}: prompt {len(r.prompt)}, "
+            f"{len(r.tokens_out)} tokens, TTFT {r.metrics.ttft_s:.3f}s, "
+            f"latency {r.metrics.latency_s:.3f}s, first tokens "
+            f"{r.tokens_out[:4]}")
+    # each group decodes positions bucket .. bucket + steps - 1; every
+    # multiple of block_q there is a boundary (a re-plan or reuse per
+    # layer), and every one but the first (the prompt's end) appends a row
+    bq, nl = cfg.sla.block_q, cfg.num_layers
+    bounds = [len(range(-(-engine._bucket // bq) * bq,
+                        engine._bucket + g["steps"], bq)) for g in groups]
+    want_counters = (nl * len(groups), nl * sum(n - 1 for n in bounds),
+                     nl * sum(bounds))
+    counters = (st.decode_plan_builds, st.decode_plan_extends,
+                st.decode_plan_replans + st.decode_plan_reuses)
+    want_steps = sum(max(LM_MAX_NEW[i:i + LM_BATCH]) - 1
+                     for i in range(0, len(LM_MAX_NEW), LM_BATCH))
+    say(f"  decode-plan counters (builds, extends, re-plans + reuses) "
+        f"{counters} (expected {want_counters}) | {n_steps} decode steps "
+        f"(expected {want_steps})")
+    if [len(r.tokens_out) for r in done] != list(LM_MAX_NEW):
+        raise RuntimeError("an LM request did not finish with its tokens")
+    if not bool(finite):
+        raise RuntimeError("non-finite logits on the LM main path")
+    if launches != want or n_steps != want_steps or launches[
+            "sla_decode"] == 0:
+        raise RuntimeError(f"LM main path launches {launches}, steps "
+                           f"{n_steps}; expected {want} over {want_steps}")
+    if counters != want_counters:
+        raise RuntimeError(f"decode-plan counters {counters}, expected "
+                           f"{want_counters}")
+    return dict(engine=engine, last=last, plans=plans,
+                prefill_toks=first["toks"], summary=dict(
+        wall_s=wall, peak_gib=peak, groups=groups, launches=launches,
+        prefill_s=st.prefill_s, decode_s=st.decode_s,
+        decode_tokens=st.decode_tokens,
+        decode_plan_builds=st.decode_plan_builds,
+        decode_plan_extends=st.decode_plan_extends,
+        decode_plan_replans=st.decode_plan_replans,
+        decode_plan_reuses=st.decode_plan_reuses,
+        decode_last_retention=st.decode_last_retention))
+
+
+def _step_snapshot(cache, bkv: int):
+    """What one SLA decode step at cache["pos"] writes, copied: the K/V
+    and hblk slices at that position and every smaller leaf of the
+    decode state (the plan included). `_restore` puts it back."""
+    pos = cache["pos"]
+    st = cache["sla"]
+    snap = {"pos": pos, "k": cache["k"][..., pos, :].clone(),
+            "v": cache["v"][..., pos, :].clone(),
+            "hblk": st["hblk"][:, :, :, pos // bkv].clone(), "sla": {}}
+    for name, leaf in st.items():
+        if name == "hblk":
+            continue
+        if torch.is_tensor(leaf):
+            leaf = leaf.clone()
+        elif isinstance(leaf, plan_lib.SLAPlan):
+            leaf = plan_lib.plan_map(torch.clone, leaf)
+        snap["sla"][name] = leaf
+    return snap
+
+
+def _restore(cache, snap, bkv: int):
+    pos = snap["pos"]
+    cache["pos"] = pos
+    cache["k"][..., pos, :] = snap["k"]
+    cache["v"][..., pos, :] = snap["v"]
+    cache["sla"]["hblk"][:, :, :, pos // bkv] = snap["hblk"]
+    cache["sla"].update(snap["sla"])
+
+
+def _profile_prefill(engine, toks):
+    """torch.profiler over one LM prefill as the engine runs it (decode
+    state seeded): device time, the device's busy share and the forward
+    kernel's share of the device time."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as prof_ctx
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with prof_ctx(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        out = engine._prefill(engine._cparams, toks)
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    del out
+    torch.cuda.empty_cache()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    fwd = [e for e in kernels if "sla_fwd_kernel" in e.key]
+    fwd_us = sum(e.self_device_time_total for e in fwd)
+    fwd_n = sum(e.count for e in fwd)
+    res = dict(wall_s=wall, device_s=dev_us / 1e6, busy=dev_us / 1e6 / wall,
+               sla_fwd_s=fwd_us / 1e6, sla_fwd_launches=fwd_n,
+               sla_fwd_share=fwd_us / max(dev_us, 1e-9))
+    say(f"[13 lm prefill profile] one prefill ({tuple(toks.shape)} tokens): "
+        f"{wall:.3f}s wall under the profiler, {dev_us / 1e6:.3f}s device "
+        f"time, device busy {res['busy']:.3f} | sla_fwd {fwd_n} launches, "
+        f"{fwd_us / 1e6:.3f}s = {res['sla_fwd_share']:.3f} of device time")
+    say(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                  row_limit=15))
+    return res
+
+
+def phase_lm_cross_check(cfg, run, profile: bool):
+    engine, last, plans = run["engine"], run["last"], run["plans"]
+    cache, token = last["cache"], last["token"]
+    params = engine._cparams
+    st = cache["sla"]
+    sla = cfg.sla
+    bkv = sla.block_kv
+    tn = cache["k"].shape[-2] // bkv
+    dcfg = sla.decode_plan_cfg(tn)
+    pos = cache["pos"] - 1  # the last token the state holds
+    hkv, g = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    dec_rows, res = [], {}
+    for layer in (0, cfg.num_layers - 1):
+        state = {"k": cache["k"][layer], "v": cache["v"][layer],
+                 "hblk": st["hblk"][layer], "zblk": st["zblk"][layer],
+                 "htot": st["htot"][layer], "ztot": st["ztot"][layer],
+                 "lut": st["live_lut"][layer], "cnt": st["live_cnt"][layer],
+                 "marg": st["live_marg"][layer]}
+        q = torch.randn((LM_BATCH, cfg.num_heads, 1, cfg.head_dim),
+                        generator=gen, device=DEV)
+        proj = {"proj": params.layers[layer].sla_proj}
+        with torch.no_grad():
+            o_k = backend_lib.decode_execute(state, proj, q, pos, dcfg,
+                                             backend="kernel")
+            o_g = backend_lib.decode_execute(state, proj, q, pos, dcfg,
+                                             backend="gather")
+        err = float((o_k - o_g).abs().max())
+        limit = TWIN_TOL * max(1.0, float(o_g.abs().max()))
+        qg = backend_lib._group_heads(q[:, :, 0].float(), hkv)[..., None, :]
+        qpg = backend_lib._group_heads(phi_lib.phi(q[:, :, 0], sla.phi),
+                                       hkv)[..., None, :]
+        flat = sla_decode._flat_args(
+            *sla_decode.decode_operands(state, qg, qpg, pos), bkv)
+        kw = dict(scale=cfg.head_dim ** -0.5, block_kv=bkv, group=g)
+        live = int(torch.clamp(state["cnt"], max=state["lut"].shape[-1])
+                   .sum())
+        say(f"[13 lm cross-check] layer {layer} at pos {pos} (live row "
+            f"{pos // bkv}, {live} live LUT slots of {state['lut'].numel()})"
+            f": decode_execute kernel vs gather max abs err {err:.3g} (limit"
+            f" {limit:.3g}) {'OK' if err <= limit else 'FAIL'}")
+        row = _decode_case(flat, kw, f"sla_decode vs twin on layer {layer}'s"
+                           f" path LUTs (K/V bf16)")
+        row["ok"] = row["ok"] and err <= limit
+        dec_rows.append(dict(shape=f"qwen3-1.7b path LUTs layer {layer}",
+                             dtype="bf16", c=1, pos=pos,
+                             backend_err=err, backend_limit=limit, **row))
+        del state, flat
+    # one full decode step, kernel vs gather backend, from the same cache
+    bad = [r for r in dec_rows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"decode kernel disagrees on the path's state: "
+                           f"{bad}")
+    snap = _step_snapshot(cache, bkv)
+    with torch.no_grad():
+        l_k, _ = transformer.decode_step(
+            params, cfg, token, cache, backend="kernel",
+            drift_threshold=engine.drift_threshold)
+        _restore(cache, snap, bkv)
+        l_g, _ = transformer.decode_step(
+            params, cfg, token, cache, backend="gather",
+            drift_threshold=engine.drift_threshold)
+    del snap
+    diff = float((l_k - l_g).abs().max())
+    limit = LM_LOGIT_TOL * max(1.0, float(l_g.abs().max()))
+    agree = float((l_k.argmax(-1) == l_g.argmax(-1)).float().mean())
+    ok = bool(torch.isfinite(l_k).all()) and diff <= limit
+    say(f"[13 lm cross-check] one full decode step at pos {pos + 1}, logits"
+        f" kernel vs gather max abs diff {diff:.3g} (limit {limit:.3g}, max "
+        f"|logits| {float(l_g.abs().max()):.3g}) {'OK' if ok else 'FAIL'} |"
+        f" greedy tokens agree on {agree:.2f} of the batch")
+    if not ok:
+        raise RuntimeError("kernel and gather LM decode steps disagree")
+    res.update(step_logit_diff=diff, step_logit_limit=limit,
+               greedy_agreement=agree)
+    # 8 more decode steps, timed, and profiled under --profile
+    tok = l_g.argmax(-1)
+
+    def steps8():
+        nonlocal tok, cache
+        with torch.no_grad():
+            for _ in range(8):
+                logits, cache = transformer.decode_step(
+                    params, cfg, tok, cache, backend="kernel",
+                    drift_threshold=engine.drift_threshold)
+                tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    steps8()
+    res["steps8_ms_per_step"] = (time.time() - t0) / 8 * 1e3
+    say(f"  8 more decode steps: {res['steps8_ms_per_step']:.2f} ms per step")
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as prof_ctx
+        t0 = time.time()
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            steps8()
+        wall = time.time() - t0
+        events = prof.key_averages()
+        # kernel-level device events only (an op's row repeats its
+        # kernels' time), as the profiler's own table total
+        dev_us = sum(e.self_device_time_total for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.is_user_annotation)
+        res["profile"] = dict(wall_s=wall, device_s=dev_us / 1e6,
+                              busy=dev_us / 1e6 / wall)
+        say(f"[13 lm profile] 8 decode steps: {wall:.3f}s wall under the "
+            f"profiler, {dev_us / 1e6:.3f}s device time, device busy "
+            f"{dev_us / 1e6 / wall:.3f}")
+        say(events.table(sort_by="self_cuda_time_total", row_limit=20))
+    last.clear()
+    del cache, token
+    torch.cuda.empty_cache()
+    if profile:
+        res["prefill_profile"] = _profile_prefill(engine, run["prefill_toks"])
+    # the forward kernel against its twin on the prefill's own LUTs, at
+    # the layout the path gives it: the kernel backend repeats K/V to the
+    # query heads before the kernel (`execute`, as the reference does)
+    fwd_rows = []
+    n, d, h = LM_PROMPTS[0], cfg.head_dim, cfg.num_heads
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    q = torch.randn((LM_BATCH, h, n, d), generator=gen, device=DEV)
+    k, v = (torch.randn((LM_BATCH, hkv, n, d), generator=gen, device=DEV)
+            for _ in range(2))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    k, v = (plan_lib.repeat_kv(x, h) for x in (k, v))
+    qp, kp = phi_lib.phi(q, sla.phi), phi_lib.phi(k, sla.phi)
+    fq, fk, fv, fqp = map(ops._flat, (q, k, v, qp))
+    hb, zb = ops._hz_blocks(ops._flat(kp), fv, bkv)
+    for layer in (0, cfg.num_layers - 1):
+        plan = plans[layer]
+        a, lut, counts = map(ops._flat, (plan.marginal, plan.lut,
+                                         plan.counts))
+        hi, zi = ops._aggregate(a, hb, zb)
+        args = (lut, counts, fq, fk, fv, fqp, hi, zi)
+        kw = dict(scale=d ** -0.5, causal=True, block_q=sla.block_q,
+                  block_kv=bkv)
+        errs = _twin_errors(args, kw, f"lm prefill layer {layer}")
+        err = max(errs)
+        ms = cuda_ms(lambda: sla_fwd.sla_fwd(*args, **kw), 10)
+        bound_ms, bound_by, _, _, live = _bound(args, kw, torch.bfloat16)
+        ok = err <= TWIN_TOL
+        say(f"[13 lm prefill plans] sla_fwd qwen3-1.7b prefill layer {layer}"
+            f" bf16 causal, K/V repeated to the {h} query heads as on the "
+            f"path (BH={fq.shape[0]}, BH_kv={fk.shape[0]}, "
+            f"N={n}, K={lut.shape[-1]}, live tiles {live} of {lut.numel()})"
+            f": max abs err o_s {errs[0]:.3g} o_l {errs[1]:.3g} lse "
+            f"{errs[2]:.3g} (tol {TWIN_TOL:g}) {'OK' if ok else 'FAIL'} | "
+            f"kernel {ms:.3f} ms | bound {bound_ms:.3f} ms by {bound_by}")
+        fwd_rows.append(dict(shape=f"qwen3-1.7b prefill layer {layer} plans",
+                             dtype="bf16", live_tiles=live, max_abs_err=err,
+                             tol=TWIN_TOL, ok=ok, ms=ms, bound_ms=bound_ms,
+                             bound_by=bound_by))
+        del args, hi, zi
+    if not all(r["ok"] for r in fwd_rows):
+        raise RuntimeError(f"sla_fwd disagrees with its twin on the LM "
+                           f"prefill plans: {fwd_rows}")
+    return dec_rows, fwd_rows, res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also run torch.profiler over one full-width "
-                         "forward and one full-width training step and "
-                         "print the top device-time entries")
+                         "forward, one full-width training step, 8 "
+                         "full-width LM decode steps and one full-width LM "
+                         "prefill and print the top device-time entries")
     args = ap.parse_args(argv)
     t_all = time.time()
     phase_card()
@@ -913,15 +1479,27 @@ def main(argv=None) -> int:
     del plans
     train = phase_train(cfg, params, args.profile)
     cli = phase_train_cli()
+    del cfg, params  # the LM phases get the whole card
+    torch.cuda.empty_cache()
+    dec_rows, sdpa_ms = phase_decode_vs_plain()
+    lm_cfg, lm_params = _lm_model(seed=0)
+    lm_run = phase_lm_main(lm_cfg, lm_params)
+    path_rows, lm_fwd_rows, lm_cross = phase_lm_cross_check(lm_cfg, lm_run,
+                                                            args.profile)
+    dec_rows += path_rows
+    rows += lm_fwd_rows
+    lm = lm_run["summary"]
     wan32 = next(r for r in rows
                  if r["shape"] == "wan2_1_1_3b" and r["dtype"] == "f32")
     kernels = [{
         "name": "sla_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sla_fwd.cu",
         "replaces": "src/repro/kernels/sla_fwd.py:34",
-        "launches": main_run["launches"] + train["launches"]["sla_fwd"],
+        "launches": (main_run["launches"] + train["launches"]["sla_fwd"]
+                     + lm["launches"]["sla_fwd"]),
         "launches_by_path": {"serve": main_run["launches"],
-                             "train": train["launches"]["sla_fwd"]},
+                             "train": train["launches"]["sla_fwd"],
+                             "lm_prefill": lm["launches"]["sla_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": wan32["ms"], "plain_ms": wan32["plain_ms"],
         "bound_ms": wan32["bound_ms"], "bound_by": wan32["bound_by"],
@@ -952,9 +1530,26 @@ def main(argv=None) -> int:
             "dense_sdpa_bwd_ms": wan["dense_sdpa_bwd_ms"],
             "cases": mine,
         })
-    say(f"[11] main path {main_run} | cross-check {cross} | grads {grads} | "
-        f"train {train} | train CLI {cli} | total "
-        f"{time.time() - t_all:.1f}s")
+    head = next(r for r in dec_rows if r["shape"] == "qwen3-1.7b decode C=1"
+                and r["dtype"] == "bf16")
+    kernels.append({
+        "name": "sla_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sla_decode.cu",
+        "replaces": "src/repro/kernels/sla_decode.py:52",
+        "launches": lm["launches"]["sla_decode"],
+        "launches_by_path": {"lm_decode": lm["launches"]["sla_decode"]},
+        "max_abs_err": max(r["max_abs_err"] for r in dec_rows),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None,
+        "library": "none: no PyTorch call computes O^l (the subtractive "
+                   "linear branch) with the sparse softmax",
+        "dense_sdpa_ms": sdpa_ms,
+        "cases": dec_rows,
+    })
+    say(f"[14] main path {main_run} | cross-check {cross} | grads {grads} | "
+        f"train {train} | train CLI {cli} | lm {lm} | lm cross-check "
+        f"{lm_cross} | total {time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
-"""Carry the JAX package's DiT params and plans into the port, via numpy.
+"""Carry the JAX package's model params and plans into the port, via numpy.
 
-The JAX package keeps DiT params as a nested dict whose `layers` leaves
-are stacked over the layer axis (L, ...); the port keeps one
-`DiTLayer` per layer. `params_from_numpy` unstacks them into a
-`state_dict` for `models.dit.DiT.load_state_dict`; `plan_from_numpy`
+The JAX package keeps DiT and LM params as nested dicts whose `layers`
+leaves are stacked over the layer axis (L, ...); the port keeps one
+`DiTLayer` / `TransformerLayer` per layer. `params_from_numpy` unstacks
+them into a `state_dict` for `load_state_dict` of `models.dit.DiT` or
+`models.transformer.Transformer` (qk-norm, `sla_proj` and the routing
+dict included); `plan_from_numpy`
 turns a dict of plan leaves into an `SLAPlan`. The caller does the
 `np.asarray` on the JAX side: this module imports no JAX.
 """
@@ -23,7 +25,7 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def params_from_numpy(tree: Mapping, device=None) -> Dict[str, torch.Tensor]:
-    """JAX DiT params (nested dict of numpy arrays) -> the port's DiT
+    """JAX DiT or LM params (nested dict of numpy arrays) -> the port's
     state_dict. `layers` leaves (L, ...) become `layers.<l>.<name>`; a
     nested dict (the learned-routing head) becomes `<name>.<key>`."""
     dev = resolve_device(device)

@@ -1,7 +1,7 @@
 """Config registry: --arch <id> resolution.
 
-Only the DiT configs are ported so far; asking for any other arch of the
-JAX registry raises and names the ROADMAP item that ports its family.
+The DiT configs and qwen3-1.7b are ported; asking for any other arch of
+the JAX registry raises and names the ROADMAP item that ports its family.
 """
 from repro_torch.configs.base import (DIT_SHAPES, SHAPES, SMOKE_SHAPES,
                                       ArchConfig, ShapeConfig)
@@ -9,11 +9,11 @@ from repro_torch.configs.base import (DIT_SHAPES, SHAPES, SMOKE_SHAPES,
 _ARCH_MODULES = {
     "wan2_1_1_3b": "wan2_1_1_3b",
     "lightningdit_1b": "lightningdit_1b",
+    "qwen3-1.7b": "qwen3_1_7b",
 }
 
 # arch -> the ROADMAP.md queue-1 item that ports its model family
 _NOT_YET_PORTED = {
-    "qwen3-1.7b": 13,
     "h2o-danube-3-4b": 15,
     "gemma3-1b": 15,
     "mistral-large-123b": 15,

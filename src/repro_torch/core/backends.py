@@ -11,8 +11,10 @@ the attention math given that plan. Three backends, all returning
 `execute(plan, params, q, k, v, cfg, backend=...)` owns mode dispatch
 ("sla" / "sparse_only" / "linear_only" / "l_plus_s" / "full"), the phi
 feature maps, GQA head broadcast, and the learned Proj merge (Eq. 6).
-Counterpart of `repro.core.backends`, execute half; the decode registry
-arrives with the LM slice.
+A second registry runs one decode token against the decode cache state
+(`decode_execute`; backends gather / reference / kernel). Counterpart of
+`repro.core.backends`; the paged helpers and `decode_execute_chunk` arrive
+with the paged LM scheduler (ROADMAP.md queue 1, item 14).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 
 from repro_torch.core import reference as ref
 from repro_torch.core.config import SLAConfig
+from repro_torch.core.masks import NEG_INF
 from repro_torch.core.phi import phi
 from repro_torch.core.plan import SLAPlan, plan_attention
 from repro_torch.core.plan import repeat_kv as _repeat_kv
@@ -141,4 +144,193 @@ def execute(plan: Optional[SLAPlan], params: Optional[Params],
     o_s, o_l = get_backend(backend)(plan, q, k, v, qp, kp, cfg, scale)
     proj = params["proj"].float()
     o = o_s + torch.einsum("bhnd,hde->bhne", o_l, proj)
+    return o.to(in_dtype)
+
+
+# ---------------------------------------------------------------------------
+# decode-time SLA: one new token against the per-layer decode cache state
+# ---------------------------------------------------------------------------
+# A decode backend maps (state, qg, qpg, pos, cfg, scale) -> (O^s, O^l),
+# both (B, Hkv, G, D) f32, where G = H // Hkv and `state` holds
+#   k, v   : (B, Hkv, Smax, D)   static KV cache (Smax = Tn * block_kv)
+#   hblk   : (B, Hkv, Tn, D, D)  per-block running h_j = sum phi(k) v^T
+#   zblk   : (B, Hkv, Tn, D)     per-block running z_j = sum phi(k)
+#   htot   : (B, Hkv, D, D)      running total H = sum_j h_j
+#   ztot   : (B, Hkv, D)         running total Z = sum_j z_j
+#   lut    : (B, H, K) int32     live row's critical block ids
+#   cnt    : (B, H)    int32     live entries in lut
+#   marg   : (B, H)    int32     live row's marginal block count
+# The linear branch is the subtractive aggregation (paper App. A.3),
+#   H_marg = htot - sum_{j in lut} hblk[j],
+# exact because decode plans classify with kl_frac = 0.
+_DECODE_BACKENDS: Dict[str, BackendFn] = {}
+_DECODE_ALIASES = {"pallas": "kernel", "xla": "gather", "dense": "reference"}
+
+
+def register_decode_backend(name: str) -> Callable[[BackendFn], BackendFn]:
+    def deco(fn: BackendFn) -> BackendFn:
+        _DECODE_BACKENDS[name] = fn
+        return fn
+
+    return deco
+
+
+def resolve_decode(name: str) -> str:
+    """Canonical decode-backend name (loud failure, like `resolve`)."""
+    key = _DECODE_ALIASES.get(name, name)
+    if key not in _DECODE_BACKENDS:
+        raise ValueError(
+            f"unknown SLA decode backend {name!r}; available: "
+            f"{sorted(_DECODE_BACKENDS)} (aliases: "
+            f"{ {a: t for a, t in sorted(_DECODE_ALIASES.items())} })")
+    return key
+
+
+def _group_heads(x: torch.Tensor, hkv: int) -> torch.Tensor:
+    """(B, H, ...) -> (B, Hkv, G, ...): q head h <-> (h // G, h % G)."""
+    b, h = x.shape[:2]
+    return x.reshape(b, hkv, h // hkv, *x.shape[2:])
+
+
+def _gather_state(x: torch.Tensor, idx: torch.Tensor, k_sel: int
+                  ) -> torch.Tensor:
+    """x: (B, Hkv, Tn, ...); idx: (B, Hkv, G*K) -> (B, Hkv, G, K, ...)."""
+    b, hkv = x.shape[:2]
+    bi = torch.arange(b, device=x.device)[:, None, None]
+    hi = torch.arange(hkv, device=x.device)[None, :, None]
+    out = x[bi, hi, idx.long()]
+    return out.reshape(b, hkv, -1, k_sel, *x.shape[3:])
+
+
+def _pos_view(pos, ndim: int, device):
+    """`pos` (python int, scalar or (B,) tensor) shaped to broadcast
+    against a (B, ...) tensor of `ndim` dims; a python int stays one (no
+    host-to-device copy)."""
+    if not torch.is_tensor(pos):
+        return int(pos)
+    p = pos.to(device)
+    return p if p.ndim == 0 else p.reshape(-1, *(1,) * (ndim - 1))
+
+
+def _check_unpaged(state):
+    if "pt" in state:
+        raise NotImplementedError(
+            "paged decode state is not ported to repro_torch yet "
+            "(ROADMAP.md queue 1, item 14)")
+
+
+@register_decode_backend("gather")
+def _decode_gather_backend(state, qg, qpg, pos, cfg, scale):
+    """O(K * bkv * d) sparse + O(K * d^2) subtractive linear per token."""
+    _check_unpaged(state)
+    kc, vc = state["k"], state["v"]
+    bkv = cfg.block_kv
+    b, hkv, smax, d = kc.shape
+    tn = smax // bkv
+    dev = kc.device
+    lutg = _group_heads(state["lut"], hkv)  # (B, Hkv, G, K)
+    cntg = _group_heads(state["cnt"], hkv)  # (B, Hkv, G)
+    k_sel = lutg.shape[-1]
+    idx = lutg.reshape(b, hkv, -1)
+    kg = _gather_state(kc.reshape(b, hkv, tn, bkv, d), idx, k_sel)
+    vg = _gather_state(vc.reshape(b, hkv, tn, bkv, d), idx, k_sel)
+    s = torch.einsum("bngd,bngkvd->bngkv", qg, kg.float()) * scale
+    cols = lutg[..., None] * bkv + torch.arange(bkv, device=dev)
+    live = torch.arange(k_sel, device=dev) < cntg[..., None]
+    ok = (cols <= _pos_view(pos, 5, dev)) & live[..., None]
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    sf = s.reshape(b, hkv, -1, k_sel * bkv)
+    m = sf.amax(dim=-1, keepdim=True)
+    p = torch.exp(sf - m)
+    o_s = torch.einsum("bngk,bngkd->bngd", p / p.sum(dim=-1, keepdim=True),
+                       vg.reshape(b, hkv, -1, k_sel * bkv, d).float())
+    hg = _gather_state(state["hblk"], idx, k_sel)  # (B, Hkv, G, K, D, D)
+    zg = _gather_state(state["zblk"], idx, k_sel)  # (B, Hkv, G, K, D)
+    hg = torch.where(live[..., None, None], hg, torch.zeros_like(hg))
+    zg = torch.where(live[..., None], zg, torch.zeros_like(zg))
+    h_m = state["htot"][:, :, None] - hg.sum(dim=3)
+    z_m = state["ztot"][:, :, None] - zg.sum(dim=3)
+    num = torch.einsum("bngd,bngde->bnge", qpg, h_m)
+    den = torch.einsum("bngd,bngd->bng", qpg, z_m)[..., None]
+    o_l = ref._safe_div(num, den)
+    # rows with an empty marginal set give exact zeros (the residual of
+    # the subtraction is f32 noise; never divide noise by noise)
+    margg = _group_heads(state["marg"], hkv)
+    o_l = torch.where(margg[..., None] > 0, o_l, torch.zeros_like(o_l))
+    return o_s, o_l
+
+
+@register_decode_backend("kernel")
+def _decode_kernel_backend(state, qg, qpg, pos, cfg, scale):
+    """The fused CUDA decode kernel (kernels/sla_decode; its plain twin on
+    CPU tensors): one launch for the sparse softmax over the LUT blocks
+    and the subtractive linear branch."""
+    from repro_torch.kernels import sla_decode
+    o_s, o_l = sla_decode.decode_attention(
+        state, qg[..., None, :], qpg[..., None, :], pos, cfg, scale)
+    return o_s[..., 0, :], o_l[..., 0, :]
+
+
+@register_decode_backend("reference")
+def _decode_reference_backend(state, qg, qpg, pos, cfg, scale):
+    """Dense O(S) oracle: expands the live row's block structure to a token
+    mask and aggregates marginal blocks directly (validation)."""
+    _check_unpaged(state)
+    kc, vc = state["k"], state["v"]
+    b, hkv, smax, d = kc.shape
+    bkv = cfg.block_kv
+    tn = smax // bkv
+    dev = kc.device
+    lutg = _group_heads(state["lut"], hkv)
+    cntg = _group_heads(state["cnt"], hkv)
+    k_sel = lutg.shape[-1]
+    live = torch.arange(k_sel, device=dev) < cntg[..., None]
+    crit_blk = ((lutg[..., None] == torch.arange(tn, device=dev))
+                & live[..., None]).any(dim=3)  # (B, Hkv, G, Tn)
+    crit_tok = torch.repeat_interleave(crit_blk, bkv, dim=-1)
+    s = torch.einsum("bngd,bnsd->bngs", qg, kc.float()) * scale
+    post = _pos_view(pos, 4, dev)
+    keep = crit_tok & (torch.arange(smax, device=dev) <= post)
+    s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    o_s = torch.einsum("bngs,bnsd->bngd", p / p.sum(dim=-1, keepdim=True),
+                       vc.float())
+    valid = torch.arange(tn, device=dev) <= post // bkv
+    marg = (valid & ~crit_blk).float()
+    h_m = torch.einsum("bngt,bntde->bngde", marg, state["hblk"])
+    z_m = torch.einsum("bngt,bntd->bngd", marg, state["zblk"])
+    num = torch.einsum("bngd,bngde->bnge", qpg, h_m)
+    den = torch.einsum("bngd,bngd->bng", qpg, z_m)[..., None]
+    return o_s, ref._safe_div(num, den)
+
+
+def decode_execute(state: Dict[str, torch.Tensor], params: Optional[Params],
+                   q: torch.Tensor, pos, cfg: SLAConfig,
+                   scale: Optional[float] = None,
+                   backend: str = "gather") -> torch.Tensor:
+    """One-token SLA attention against the decode cache state.
+
+    q: (B, H, 1, D) the new token's query; `pos` its position, a python
+    int or an int tensor, scalar (every row shares it) or (B,). Returns
+    (B, H, D) in q.dtype: O^s + Proj(O^l) under cfg.mode "sla", O^s alone
+    under "sparse_only"."""
+    backend = resolve_decode(backend)
+    cfg.validate()
+    in_dtype = q.dtype
+    b, h, _, d = q.shape
+    hkv = state["k"].shape[1]
+    scale = (d**-0.5) if scale is None else scale
+    qg = _group_heads(q[:, :, 0, :].float(), hkv)
+    qpg = _group_heads(phi(q[:, :, 0, :], cfg.phi), hkv)
+    o_s, o_l = _DECODE_BACKENDS[backend](state, qg, qpg, pos, cfg, scale)
+    o_s = o_s.reshape(b, h, d)
+    if cfg.mode == "sparse_only":
+        return o_s.to(in_dtype)
+    if cfg.mode != "sla":
+        raise ValueError(
+            f"decode_execute supports modes 'sla'/'sparse_only', got "
+            f"{cfg.mode!r}")
+    proj = params["proj"].float()
+    o = o_s + torch.einsum("bhd,hde->bhe", o_l.reshape(b, h, d), proj)
     return o.to(in_dtype)

@@ -13,7 +13,9 @@ Two routers produce the score map the classification ranks
 
 Counterpart of `repro.core.masks`. Sorts are stable and use the same keys
 as the reference, so equal score maps give bitwise-equal classifications.
-The row-local decode half arrives with the LM slice.
+The row-local half (`row_valid` .. `classify_row`) classifies one query
+row at a time for decode-time incremental plans; `score_map_pooled`
+arrives with chunked prefill.
 """
 from __future__ import annotations
 
@@ -202,6 +204,103 @@ def classify_blocks(pc: torch.Tensor, cfg: SLAConfig) -> torch.Tensor:
         demote = is_crit & (col_rank >= cap)
         mc = torch.where(demote, torch.zeros_like(mc), mc)
     return mc
+
+
+# ---------------------------------------------------------------------------
+# row-local classification (decode-time incremental plans). `row` is a
+# python int or an int tensor of per-slot rows shaped to broadcast
+# against the score rows' batch axes.
+# ---------------------------------------------------------------------------
+def row_valid(row, tn: int, cfg: SLAConfig, device=None) -> torch.Tensor:
+    """Validity of query-block row `row`: the row slice of `block_valid`.
+    A scalar row gives (tn,); a tensor of rows gives row.shape + (tn,)."""
+    if torch.is_tensor(row):
+        device = row.device
+        r = row[..., None]
+    else:  # a python int stays one (no host-to-device copy)
+        r = int(row)
+    j = torch.arange(tn, device=device)
+    valid = torch.ones(torch.broadcast_shapes(getattr(r, "shape", ()),
+                                              j.shape),
+                       dtype=torch.bool, device=device)
+    if cfg.causal:
+        valid = valid & ((r + 1) * cfg.block_q - 1 >= j * cfg.block_kv)
+    if cfg.window:
+        dist = (r * cfg.block_q - j * cfg.block_kv).abs()
+        valid = valid & (dist < cfg.window + cfg.block_kv)
+    return valid
+
+
+def predict_pc_row(qpool_row: torch.Tensor, kpool: torch.Tensor, row,
+                   cfg: SLAConfig, scale: Optional[float] = None
+                   ) -> torch.Tensor:
+    """One row of P_c from pooled inputs. qpool_row: (..., D) mean-pooled q
+    of block `row`; kpool: (..., Tn, D) mean-pooled k per KV block.
+    Equals `predict_pc(q, k, cfg)[..., row, :]` for matching pools."""
+    d = qpool_row.shape[-1]
+    scale = (d**-0.5) if scale is None else scale
+    s = torch.einsum("...d,...nd->...n", qpool_row.float(),
+                     kpool.float()) * scale
+    if cfg.causal or cfg.window:
+        valid = row_valid(row, kpool.shape[-2], cfg, s.device)
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    return torch.softmax(s, dim=-1)
+
+
+def predict_routing_row(routing: dict, qpool_row: torch.Tensor,
+                        kpool: torch.Tensor, row, cfg: SLAConfig,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """One row of the learned-routing map. qpool_row: (B, H, D); kpool:
+    (B, H, Tn, D). Projects both through the routing head, then
+    `predict_pc_row`."""
+    qr = torch.einsum("bhd,hde->bhe", qpool_row.float(),
+                      routing["wq"].float())
+    kr = torch.einsum("bhnd,hde->bhne", kpool.float(),
+                      routing["wk"].float())
+    return predict_pc_row(qr, kr, row, cfg, scale)
+
+
+def score_row(routing: Optional[dict], qpool_row: torch.Tensor,
+              kpool: torch.Tensor, row, cfg: SLAConfig,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """Row counterpart of `score_map`: the same routing dispatch."""
+    check_routing_mode(cfg, routing)
+    if cfg.routing_mode == "learned":
+        return predict_routing_row(routing, qpool_row, kpool, row, cfg,
+                                   scale)
+    return predict_pc_row(qpool_row, kpool, row, cfg, scale)
+
+
+def classify_row(pc_row: torch.Tensor, row, cfg: SLAConfig) -> torch.Tensor:
+    """Classify one query-block row: `classify_blocks(pc, cfg)[..., row, :]`.
+    pc_row: (..., Tn) f32 -> (..., Tn) int8. Row-local only without the
+    column-capacity pass: classify with `SLAConfig.decode_plan_cfg`."""
+    if cfg.col_capacity_factor is not None:
+        raise ValueError("classify_row is row-local; column capacity "
+                         "couples rows — classify with "
+                         "SLAConfig.decode_plan_cfg(...)")
+    dev = pc_row.device
+    tn = pc_row.shape[-1]
+    n_crit = cfg.num_critical(tn)
+    n_neg = cfg.num_negligible(tn)
+    valid = row_valid(row, tn, cfg, dev)
+    score = torch.where(valid, pc_row, torch.full_like(pc_row, -1.0))
+    if cfg.causal and cfg.block_q != cfg.block_kv:
+        raise ValueError("causal SLA requires b_q == b_kv")
+    if cfg.force_diagonal or cfg.causal:
+        diag_col = row * cfg.block_q // cfg.block_kv
+        if torch.is_tensor(diag_col):
+            diag_col = diag_col[..., None]
+        diag = torch.arange(tn, device=dev) == diag_col
+        score = torch.where(diag, torch.full_like(score, 2.0), score)
+    order = torch.argsort(-score, dim=-1, stable=True)
+    rank = torch.argsort(order, dim=-1, stable=True)
+    one = torch.ones((), dtype=torch.int8, device=dev)
+    mc = torch.zeros(pc_row.shape, dtype=torch.int8, device=dev)
+    mc = torch.where(rank < n_crit, one, mc)
+    if n_neg > 0:
+        mc = torch.where(rank >= tn - n_neg, -one, mc)
+    return torch.where(valid, mc, -one)
 
 
 def compute_mask(q: torch.Tensor, k: torch.Tensor, cfg: SLAConfig,

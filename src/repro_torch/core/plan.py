@@ -7,7 +7,7 @@ refreshed only when its drift says so.
 
 Counterpart of `repro.core.plan`. This is the only place LUTs are built;
 `core/masks.py` keeps the classification math and `core/backends.py` the
-execution. `plan_extend` and plan serialization arrive with later slices.
+execution. Plan serialization arrives with the plan cache.
 """
 from __future__ import annotations
 
@@ -163,10 +163,43 @@ def plan_attention(q: torch.Tensor, k: torch.Tensor, cfg: SLAConfig,
 def empty_plan(cfg: SLAConfig, batch: int, heads: int, tm: int, tn: int,
                device=None) -> SLAPlan:
     """All-negligible plan over a static (tm, tn) block grid — the
-    placeholder a serving slot holds before its first request."""
+    placeholder a serving slot holds before its first request, and the
+    decode-time starting point that `plan_extend` appends rows into."""
     mc = torch.full((batch, heads, tm, tn), -1, dtype=torch.int8,
                     device=device)
     return plan_from_mask(mc, cfg)
+
+
+def plan_extend(plan: SLAPlan, mc_row: torch.Tensor, row: int) -> SLAPlan:
+    """Append query-block row `row` to a plan: O(Tn * K), no rebuild.
+
+    mc_row: (..., Tn) int8 classification of row `row`. Unlike the
+    reference, which returns a new plan, this writes the row into the
+    plan's own tensors IN PLACE (saving a copy of every leaf per decoded
+    block) and returns the same plan. Precondition: `row` is the first
+    unwritten row (rows are appended in order, each once), so the column
+    LUT update is an append at each column's fill level.
+
+    Contract (the reference's): from `empty_plan`, appending rows 0..R-1
+    of a classification M_c reproduces `plan_from_mask(M_c)` on mc, lut,
+    counts, col_counts, marginal and every live col_lut slot (slot <
+    col_counts); dead col_lut padding may differ and nothing reads it.
+    """
+    mc_row = mc_row.to(plan.mc.dtype)
+    plan.mc[..., row, :] = mc_row
+    lut_r, cnt_r = build_lut(mc_row[..., None, :], plan.k_sel)
+    plan.lut[..., row, :] = lut_r[..., 0, :]
+    plan.counts[..., row] = cnt_r[..., 0]
+    # the new row becomes the last critical entry of every column it is
+    # critical in (rows arrive ascending, as build_col_lut lists them)
+    cc = plan.col_counts
+    can = (mc_row == 1) & (cc < plan.w_col)
+    slot = torch.arange(plan.w_col, dtype=cc.dtype, device=cc.device)
+    write = can[..., None] & (slot == cc[..., None])
+    plan.col_lut.masked_fill_(write, row)
+    cc += can.to(cc.dtype)
+    plan.marginal[..., row, :] = (mc_row == 0).to(plan.marginal.dtype)
+    return plan
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,339 @@
+"""Fused SLA decode: the CUDA kernel `csrc/sla_decode.cu`, its plain twin,
+its launch counter, and the public `decode_attention` entry.
+
+Counterpart of the Pallas TPU kernel `repro.kernels.sla_decode._decode_kernel`
+(via `_fused_decode`) and of `decode_attention`. One launch covers a chunk
+of C decode tokens (C = 1 is a plain `decode_step`): for each (batch*head,
+token c) at position pos + c it runs online softmax over the live row's
+critical KV blocks (columns <= pos + c) and the subtractive linear branch
+
+    O^l = phi(q) (htot - sum_{j in lut} hblk[j]) / phi(q) (ztot - ...)
+
+where the in-flight diagonal block reads the per-token partials
+hdiag/zdiag when the state holds them (live-row decode has none: there the
+partial is the stored block); O^l is zero where marg = 0 or the
+denominator is <= 1e-6.
+
+`sla_decode` launches the kernel for CUDA tensors and runs
+`sla_decode_plain` (plain PyTorch gathers, the twin of the reference's
+`_decode_math`) only for CPU tensors. `LAUNCHES` counts kernel launches
+and nothing else. `decode_attention` is differentiable through a
+`torch.autograd.Function` whose backward is autograd over the plain twin,
+as the reference's `custom_vjp` is JAX autodiff over `_decode_math`.
+Paged decode state (`"pt"`, the `_decode_kernel_paged` path) is not
+ported yet (ROADMAP.md queue 1, item 14).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from repro_torch.core.config import SLAConfig
+from repro_torch.kernels.sla_fwd import EPS, NEG_INF, check_operands
+
+LAUNCHES = 0  # kernel launches in this process (plain-twin calls excluded)
+
+_I, _F, _P, _L = ctypes.c_int, ctypes.c_float, ctypes.c_void_p, \
+    ctypes.c_longlong
+_ARGTYPES = [_P] * 16 + [_I] * 7 + [_F] + [_L] * 6 + [_I, _I, _P]
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    from repro_torch.kernels import _build
+    lib = _build.load("sla_decode")
+    lib.sla_decode_launch.argtypes = _ARGTYPES
+    lib.sla_decode_launch.restype = ctypes.c_int
+    lib.sla_decode_error_string.argtypes = [ctypes.c_int]
+    lib.sla_decode_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def sla_decode(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag,
+               htot, ztot, *, scale: float, block_kv: int, group: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the fused decode on the flat layout of `_fused_decode`.
+
+    Args:
+      lut:    (BH, C, K) int32 critical block ids (padded slots repeat the
+              first); cnt, marg: (BH, C) int32; posv: (BH,) int32 base
+              positions (token c sits at posv + c).
+      q, qp:  (BH, C, D) f32 (qp = phi(q)).
+      k, v:   (BH_kv, Tn, bkv, D) f32 or bf16, BH = BH_kv * group.
+      hblk:   (BH_kv, Tn, D, D) f32; zblk: (BH_kv, Tn, D) f32.
+      hdiag:  (BH_kv, C, D, D) f32 per-token diagonal partials, zdiag
+              (BH_kv, C, D) f32; or both None (live-row decode: the
+              diagonal block is read from hblk/zblk in place).
+      htot:   (BH_kv, C, D, D) f32 per-token totals, ztot (BH_kv, C, D);
+              or one running total per kv head, (BH_kv, D, D) / (BH_kv, D).
+
+    Returns (o_s, o_l), both (BH, C, D) f32.
+    """
+    kw = dict(scale=scale, block_kv=block_kv, group=group)
+    args = (lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag,
+            htot, ztot)
+    if q.device.type == "cpu":
+        return sla_decode_plain(*args, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"sla_decode runs on CUDA or CPU tensors, got "
+                         f"{q.device}")
+    return _launch(*args, **kw)
+
+
+def _check(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag,
+           htot, ztot, block_kv, group):
+    if k.ndim != 4 or v.shape != k.shape:
+        raise ValueError("sla_decode: k and v must be (BH_kv, Tn, bkv, D)")
+    bh_kv, tn, bkv, d = k.shape
+    if bkv != block_kv:
+        raise ValueError(f"sla_decode: k blocks of {bkv} rows, block_kv "
+                         f"{block_kv}")
+    if (hdiag is None) != (zdiag is None):
+        raise ValueError("sla_decode: give both hdiag and zdiag, or neither")
+    ts = dict(lut=lut, cnt=cnt, marg=marg, posv=posv, q=q, qp=qp,
+              k=k.view(bh_kv, tn * bkv, d), v=v.view(bh_kv, tn * bkv, d),
+              hblk=hblk, zblk=zblk, htot=htot, ztot=ztot)
+    if hdiag is not None:
+        ts.update(hdiag=hdiag, zdiag=zdiag)
+    f32 = ("qp", "hblk", "zblk", "htot", "ztot") + (
+        ("hdiag", "zdiag") if hdiag is not None else ())
+    check_operands("sla_decode", ts, f32, ("lut", "cnt", "marg", "posv"), 1,
+                   block_kv, q_f32=True)
+    bh, c, _ = q.shape
+    if bh != bh_kv * group:
+        raise ValueError(f"sla_decode: {bh} q rows are not {bh_kv} kv "
+                         f"heads x group {group}")
+    if lut.ndim != 3 or tuple(lut.shape[:2]) != (bh, c) or lut.shape[2] < 1:
+        raise ValueError(f"sla_decode: lut must be ({bh}, {c}, K>=1), got "
+                         f"{tuple(lut.shape)}")
+    per_tok = (c,) if htot.ndim == 4 else ()
+    want = dict(cnt=(bh, c), marg=(bh, c), posv=(bh,), qp=(bh, c, d),
+                hblk=(bh_kv, tn, d, d), zblk=(bh_kv, tn, d),
+                htot=(bh_kv, *per_tok, d, d), ztot=(bh_kv, *per_tok, d))
+    if hdiag is not None:
+        want.update(hdiag=(bh_kv, c, d, d), zdiag=(bh_kv, c, d))
+    for name, shape in want.items():
+        if tuple(ts[name].shape) != shape:
+            raise ValueError(f"sla_decode: {name} is "
+                             f"{tuple(ts[name].shape)}, expected {shape}")
+    for name in ("q", "qp", "k", "v", "hblk", "zblk", "htot", "ztot") + (
+            ("hdiag", "zdiag") if hdiag is not None else ()):
+        if ts[name].data_ptr() % 16:
+            raise ValueError(f"sla_decode: {name} must be 16-byte aligned")
+
+
+def _launch(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag,
+            htot, ztot, *, scale, block_kv, group):
+    global LAUNCHES
+    _check(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag,
+           htot, ztot, block_kv, group)
+    lib = _lib()
+    bh, c, d = q.shape
+    tn = k.shape[1]
+    o_s = torch.empty((bh, c, d), dtype=torch.float32, device=q.device)
+    o_l = torch.empty_like(o_s)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sla_decode_launch(
+            lut.data_ptr(), cnt.data_ptr(), marg.data_ptr(),
+            posv.data_ptr(), q.data_ptr(), qp.data_ptr(), k.data_ptr(),
+            v.data_ptr(), hblk.data_ptr(), zblk.data_ptr(),
+            None if hdiag is None else hdiag.data_ptr(),
+            None if zdiag is None else zdiag.data_ptr(), htot.data_ptr(),
+            ztot.data_ptr(), o_s.data_ptr(), o_l.data_ptr(), bh, c,
+            lut.shape[-1], tn, d, block_kv, group, float(scale),
+            k.stride(0), k.stride(1), hblk.stride(0), hblk.stride(1),
+            zblk.stride(0), zblk.stride(1), int(htot.ndim == 4),
+            int(k.dtype == torch.bfloat16), stream)
+    if err != 0:
+        msg = lib.sla_decode_error_string(err).decode()
+        raise RuntimeError(f"sla_decode kernel launch failed: CUDA error "
+                           f"{err} ({msg})")
+    LAUNCHES += 1
+    return o_s, o_l
+
+
+def sla_decode_plain(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag,
+                     zdiag, htot, ztot, *, scale: float, block_kv: int,
+                     group: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-PyTorch twin of the kernel (the reference's `_decode_math` on
+    the flat layout): gather the K selected blocks of every (bh, c), mask
+    dead slots and columns past pos + c, one softmax over K * bkv scores,
+    and the subtractive linear branch with the diagonal substitution.
+    Same arguments and outputs as `sla_decode`; arithmetic in f32;
+    differentiable with respect to every float input."""
+    bh, c, k_sel = lut.shape
+    dev = q.device
+    bkv = block_kv
+    kvh = (torch.arange(bh, device=dev) // group)[:, None, None]
+    j = lut.long()  # (BH, C, K)
+    kg = k[kvh, j].float()  # (BH, C, K, bkv, D)
+    vg = v[kvh, j].float()
+    s = torch.einsum("bcd,bckvd->bckv", q.float(), kg) * scale
+    pos_tok = posv.long()[:, None] + torch.arange(c, device=dev)  # (BH, C)
+    cols = j[..., None] * bkv + torch.arange(bkv, device=dev)
+    live = torch.arange(k_sel, device=dev) < cnt[..., None]  # (BH, C, K)
+    ok = (cols <= pos_tok[..., None, None]) & live[..., None]
+    sf = torch.where(ok, s, torch.full_like(s, NEG_INF)).reshape(
+        bh, c, k_sel * bkv)
+    m = sf.amax(dim=-1, keepdim=True)
+    p = torch.exp(sf - m)
+    o_s = torch.einsum("bck,bckd->bcd", p / p.sum(dim=-1, keepdim=True),
+                       vg.reshape(bh, c, k_sel * bkv, -1))
+    # subtractive marginal aggregation; the in-flight diagonal block reads
+    # its per-token partial where one is given
+    kv1 = kvh[:, 0, 0]
+    hg, zg = hblk[kvh, j], zblk[kvh, j]
+    if hdiag is not None:
+        is_diag = j == (pos_tok // bkv)[..., None]  # (BH, C, K)
+        hg = torch.where(is_diag[..., None, None], hdiag[kv1][:, :, None],
+                         hg)
+        zg = torch.where(is_diag[..., None], zdiag[kv1][:, :, None], zg)
+    hg = torch.where(live[..., None, None], hg, torch.zeros_like(hg))
+    zg = torch.where(live[..., None], zg, torch.zeros_like(zg))
+    ht, zt = htot[kv1], ztot[kv1]
+    if htot.ndim == 3:  # one running total, every token
+        ht, zt = ht[:, None], zt[:, None]
+    h_m = ht - hg.sum(dim=2)  # (BH, C, D, D)
+    z_m = zt - zg.sum(dim=2)
+    qpf = qp.float()
+    num = torch.einsum("bcd,bcde->bce", qpf, h_m)
+    den = (qpf * z_m).sum(dim=-1, keepdim=True)
+    ok_l = den > EPS
+    o_l = torch.where(ok_l, num / torch.where(ok_l, den,
+                                              torch.ones_like(den)),
+                      torch.zeros_like(num))
+    o_l = torch.where(marg[..., None] > 0, o_l, torch.zeros_like(o_l))
+    return o_s, o_l
+
+
+def _flat_args(q, qp, kc, vc, hblk, zblk, hdiag, zdiag, htot, ztot, lut,
+               cnt, marg, posv, block_kv):
+    """Grouped (B, Hkv, G, C, ...) operands -> the flat kernel layout:
+    q head (b, n, gi) is row b*H + n*G + gi, whose kv row b*Hkv + n is
+    row // G, as the prefill kernel's head layout. hdiag/zdiag may be
+    None, and htot/ztot may lack the C axis (live-row decode); both pass
+    through without a copy."""
+    b, hkv, g, c, d = q.shape
+    bh, tn = b * hkv * g, kc.shape[2] // block_kv
+
+    def kv_rows(x):
+        return None if x is None else x.reshape(b * hkv, *x.shape[2:])
+
+    return (lut.reshape(bh, c, lut.shape[-1]).int().contiguous(),
+            cnt.reshape(bh, c).int().contiguous(),
+            marg.reshape(bh, c).int().contiguous(),
+            posv.int().repeat_interleave(hkv * g).contiguous(),
+            q.reshape(bh, c, d).contiguous(),
+            qp.reshape(bh, c, d).contiguous(),
+            kc.reshape(b * hkv, tn, block_kv, d),
+            vc.reshape(b * hkv, tn, block_kv, d),
+            hblk.reshape(b * hkv, tn, d, d), zblk.reshape(b * hkv, tn, d),
+            kv_rows(hdiag), kv_rows(zdiag), kv_rows(htot), kv_rows(ztot))
+
+
+def _decode_math(q, qp, kc, vc, hblk, zblk, hdiag, zdiag, htot, ztot, lut,
+                 cnt, marg, posv, cfg: SLAConfig, scale: float):
+    """The reference's `_decode_math` on its grouped layout: q/qp
+    (B, Hkv, G, C, D) f32, kc/vc (B, Hkv, Smax, D), hblk (B, Hkv, Tn, D, D),
+    zblk (B, Hkv, Tn, D), hdiag/htot (B, Hkv, C, D, D), zdiag/ztot
+    (B, Hkv, C, D) (hdiag/zdiag may be None and htot/ztot may lack the C
+    axis), lut (B, Hkv, G, C, K), cnt/marg (B, Hkv, G, C), posv
+    (B,). Returns (o_s, o_l), both (B, Hkv, G, C, D) f32, through the
+    plain twin."""
+    flat = _flat_args(q, qp, kc, vc, hblk, zblk, hdiag, zdiag, htot, ztot,
+                      lut, cnt, marg, posv, cfg.block_kv)
+    o_s, o_l = sla_decode_plain(*flat, scale=scale, block_kv=cfg.block_kv,
+                                group=q.shape[2])
+    return o_s.reshape(q.shape), o_l.reshape(q.shape)
+
+
+class _DecodeCore(torch.autograd.Function):
+    """(O^s, O^l) through `sla_decode`; the backward is autograd over the
+    plain twin (there is no backward kernel for decode, as in the
+    reference). The plan's integer operands get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, qp, kc, vc, hblk, zblk, hdiag, zdiag, htot, ztot,
+                lut, cnt, marg, posv, cfg: SLAConfig, scale: float):
+        flat = _flat_args(q, qp, kc, vc, hblk, zblk, hdiag, zdiag, htot,
+                          ztot, lut, cnt, marg, posv, cfg.block_kv)
+        o_s, o_l = sla_decode(*flat, scale=scale, block_kv=cfg.block_kv,
+                              group=q.shape[2])
+        ctx.save_for_backward(q, qp, kc, vc, hblk, zblk, hdiag, zdiag, htot,
+                              ztot, lut, cnt, marg, posv)
+        ctx.cfg, ctx.scale = cfg, scale
+        return o_s.reshape(q.shape), o_l.reshape(q.shape)
+
+    @staticmethod
+    def backward(ctx, do_s, do_l):
+        saved = ctx.saved_tensors
+        floats = [None if x is None else x.detach().requires_grad_()
+                  for x in saved[:10]]
+        given = [x for x in floats if x is not None]
+        with torch.enable_grad():
+            outs = _decode_math(*floats, *saved[10:], ctx.cfg, ctx.scale)
+            pairs = [(o, g) for o, g in zip(outs, (do_s, do_l))
+                     if g is not None]
+            grads = iter(torch.autograd.grad(
+                [o for o, _ in pairs], given, [g for _, g in pairs],
+                allow_unused=True))
+        out = []
+        for x in saved[:10]:
+            g = None if x is None else next(grads)
+            out.append(None if g is None else g.to(x.dtype))
+        return tuple(out) + (None,) * 6
+
+
+def decode_operands(state, qg, qpg, pos):
+    """The grouped operands of `_decode_math` (and of the kernel, through
+    `_flat_args`) for one decode-state slice: the live-row LUT broadcast
+    over the chunk; running totals and absent diagonal partials (None)
+    pass through as they are, for the kernel reads them in place (the
+    reference slices hdiag from hblk, the same numbers). Arguments as
+    `decode_attention`. Returns (q, qp, k, v, hblk, zblk, hdiag, zdiag,
+    htot, ztot, lut, cnt, marg, posv)."""
+    if "pt" in state:
+        raise NotImplementedError(
+            "paged decode state (the _decode_kernel_paged path) is not "
+            "ported to repro_torch yet (ROADMAP.md queue 1, item 14)")
+    b, hkv, g, cdim, _ = qg.shape
+    dev = qg.device
+    lut, cnt, marg = state["lut"], state["cnt"], state["marg"]
+    if lut.ndim == 3:  # (B, H, K) live row: every chunk token shares it
+        lut = lut[:, :, None].expand(*lut.shape[:2], cdim, lut.shape[-1])
+        cnt = cnt[..., None].expand(*cnt.shape, cdim)
+        marg = marg[..., None].expand(*marg.shape, cdim)
+    if not torch.is_tensor(pos):  # a fill, not a host-to-device copy
+        posv = torch.full((b,), int(pos), dtype=torch.int32, device=dev)
+    else:
+        posv = torch.broadcast_to(pos.to(device=dev, dtype=torch.int32),
+                                  (b,))
+    k_sel = lut.shape[-1]
+    return (qg.float(), qpg.float(), state["k"], state["v"], state["hblk"],
+            state["zblk"], state.get("hdiag"), state.get("zdiag"),
+            state["htot"], state["ztot"], lut.reshape(b, hkv, g, cdim, k_sel),
+            cnt.reshape(b, hkv, g, cdim), marg.reshape(b, hkv, g, cdim),
+            posv)
+
+
+def decode_attention(state, qg, qpg, pos, cfg: SLAConfig, scale=None):
+    """Fused decode attention for a chunk of C tokens.
+
+    qg / qpg: (B, Hkv, G, C, D) grouped queries and phi(queries) (C = 1
+    for single-token decode). `state`: k/v (B, Hkv, Smax, D); hblk
+    (B, Hkv, Tn, D, D); zblk (B, Hkv, Tn, D); htot/ztot either running
+    totals (B, Hkv, D, D) / (B, Hkv, D), broadcast to every token, or
+    per-token snapshots with a C axis at dim 2; lut/cnt/marg either the
+    live row (B, H, K) / (B, H) or per token with a C axis before K;
+    optional per-token hdiag/zdiag (else the stored block). `pos`:
+    base position, a python int or an int tensor, scalar or (B,). Returns
+    (o_s, o_l), both (B, Hkv, G, C, D) f32, differentiable with respect
+    to q, qp, k, v, hblk, zblk, hdiag, zdiag, htot and ztot."""
+    d = qg.shape[-1]
+    scale = float(d**-0.5) if scale is None else float(scale)
+    return _DecodeCore.apply(*decode_operands(state, qg, qpg, pos),
+                             cfg, scale)

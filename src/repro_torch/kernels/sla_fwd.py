@@ -70,12 +70,15 @@ def sla_fwd(lut, counts, q, k, v, qp, hi, zi, *, scale: float,
 
 
 def check_operands(kernel: str, ts: dict, f32: Tuple[str, ...],
-                   i32: Tuple[str, ...], block_q: int, block_kv: int):
+                   i32: Tuple[str, ...], block_q: int, block_kv: int,
+                   q_f32: bool = False):
     """The checks every SLA kernel wrapper shares: one device, contiguity,
     q/k/v in one of f32/bf16, the named f32 and int32 operands, q
     (BH, Nq, D) against k/v (BH_kv, N, D), and the head dims and blocks
     the kernels take. `ts` maps operand names to tensors and holds q, k
-    and v. Raises TypeError or ValueError naming `kernel`."""
+    and v. With `q_f32` q must be f32 and k/v share either dtype (the
+    decode kernel); otherwise q, k and v share one. Raises TypeError or
+    ValueError naming `kernel`."""
     q, k, v = ts["q"], ts["k"], ts["v"]
     for name, t in ts.items():
         if t.device != q.device:
@@ -83,11 +86,15 @@ def check_operands(kernel: str, ts: dict, f32: Tuple[str, ...],
                              f"{q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be contiguous")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{kernel}: q must be float32 or bfloat16, got "
-                        f"{q.dtype}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{kernel}: q, k and v must share one dtype")
+    lead = k if q_f32 else q
+    if lead.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{kernel}: {'k' if q_f32 else 'q'} must be "
+                        f"float32 or bfloat16, got {lead.dtype}")
+    if q_f32 and q.dtype != torch.float32:
+        raise TypeError(f"{kernel}: q must be float32, got {q.dtype}")
+    if k.dtype != lead.dtype or v.dtype != lead.dtype:
+        raise TypeError(f"{kernel}: {'k and v' if q_f32 else 'q, k and v'}"
+                        " must share one dtype")
     for name in f32:
         if ts[name].dtype != torch.float32:
             raise TypeError(f"{kernel}: {name} must be float32")

@@ -1,17 +1,20 @@
-"""Serving CLI of the port: the streaming DiT denoise service.
+"""Serving CLI of the port: LM serving and the streaming DiT service.
 
+    python -m repro_torch.launch.serve --arch qwen3-1.7b --decode-sla \
+        --backend kernel --batch 2 --prompt-len 32000 --max-new 96
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \
+        --arch qwen3-1.7b --smoke --device cpu --decode-sla --backend kernel
     python -m repro_torch.launch.serve --workload dit --arch wan2_1_1_3b \
         --backend kernel --seq-len 32768
-    PYTHONPATH=src python -m repro_torch.launch.serve --workload dit \
-        --arch lightningdit_1b --smoke --device cpu --requests 3
 
-Counterpart of `repro.launch.serve` with its DiT flags and defaults plus
-`--device` (default cuda). Only `--workload dit` is ported; the LM
-workload raises and names the ROADMAP item that ports it, and the LM
-flags come with it. Request
-latents come from `np.random.default_rng(--seed)` exactly as in the
-reference, so a CPU run of the port and of the reference see the same
-requests; the weights are random, from a seeded `torch.Generator`.
+Counterpart of `repro.launch.serve` with its LM flags for the static
+engine, its DiT flags, and the same defaults, plus `--device` (default
+cuda). The continuous scheduler and its modes (`--scheduler continuous`,
+`--paged`, `--prefill-chunk`, `--disagg`, `--stream`) raise and name the
+ROADMAP item that ports them. Prompts and request latents come from
+`np.random.default_rng(--seed)` exactly as in the reference, so a CPU run
+of the port and of the reference see the same requests; the weights are
+random, from a seeded `torch.Generator`.
 """
 from __future__ import annotations
 
@@ -33,7 +36,10 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4,
-                    help="dit: number of denoise slots")
+                    help="lm: decode group size; dit: number of denoise "
+                         "slots")
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--backend", default="gather",
                     help="SLA execution backend: 'gather' (LUT gather, "
@@ -48,9 +54,36 @@ def main(argv=None):
                          "this; a comma-separated list gives one "
                          "threshold per layer. Default: "
                          "cfg.sla.plan_drift_threshold")
+    ap.add_argument("--scheduler", default="static",
+                    choices=["static", "continuous"],
+                    help="lm: 'static' decodes fixed groups in lockstep; "
+                         "'continuous' is not ported yet")
+    ap.add_argument("--stream", action="store_true",
+                    help="lm: per-token events (continuous only; not "
+                         "ported yet)")
+    ap.add_argument("--plan-reuse", default="off",
+                    choices=["off", "adaptive"],
+                    help="lm: 'adaptive' pads every prefill chunk to one "
+                         "block-aligned bucket, plans the per-layer block "
+                         "structure once and reuses it across chunks, "
+                         "re-planning a layer when its drift reaches "
+                         "--drift-threshold")
+    ap.add_argument("--decode-sla", action="store_true",
+                    help="lm: decode with incremental SLA block plans and "
+                         "the O(1) linear running state instead of dense "
+                         "attention over the whole cache")
+    ap.add_argument("--paged", action="store_true",
+                    help="lm: paged KV cache (not ported yet)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    metavar="BLOCKS",
+                    help="lm: chunked admission prefill (not ported yet)")
+    ap.add_argument("--disagg", action="store_true",
+                    help="lm: disaggregated prefill / decode pools (not "
+                         "ported yet)")
     ap.add_argument("--workload", default="lm", choices=["lm", "dit"],
-                    help="'dit' serves streaming diffusion denoising; "
-                         "'lm' is not ported yet")
+                    help="'lm' serves autoregressive token generation "
+                         "(default); 'dit' serves streaming diffusion "
+                         "denoising")
     ap.add_argument("--num-steps", type=int, default=8,
                     help="dit: Euler denoise steps per request")
     ap.add_argument("--seq-len", type=int, default=None,
@@ -75,10 +108,20 @@ def main(argv=None):
     if args.drift_threshold is not None:
         parts = [float(x) for x in str(args.drift_threshold).split(",")]
         args.drift_threshold = parts[0] if len(parts) == 1 else tuple(parts)
-    if args.workload == "lm":
+    unported = [flag for flag, on in (
+        ("--scheduler continuous", args.scheduler == "continuous"),
+        ("--paged", args.paged), ("--prefill-chunk",
+                                  args.prefill_chunk is not None),
+        ("--disagg", args.disagg), ("--stream", args.stream)) if on]
+    if unported:
         raise NotImplementedError(
-            "the LM serving workload is not ported to repro_torch yet "
-            "(ROADMAP.md queue 1, item 14); use --workload dit")
+            f"{', '.join(unported)}: the continuous LM scheduler and its "
+            f"modes are not ported to repro_torch yet (ROADMAP.md queue 1, "
+            f"item 14)")
+    if args.workload == "dit" and (args.decode_sla
+                                   or args.plan_reuse != "off"):
+        ap.error("--workload dit serves denoise requests — --decode-sla/"
+                 "--plan-reuse are LM-serving flags")
 
     from repro_torch.core import backends as backend_registry
     backend_registry.resolve(args.backend)  # unknown names fail here
@@ -90,14 +133,75 @@ def main(argv=None):
         cfg = dataclasses.replace(
             cfg, sla=cfg.sla.replace(routing_mode=args.routing_mode))
     cfg.sla.validate()
-    if cfg.family != "dit":
-        ap.error(f"--arch {args.arch} is not a DiT")
     device = resolve_device(args.device)
-    from repro_torch.models import dit
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = dit.init(gen, cfg, device=device)
     rs = np.random.default_rng(args.seed)
-    return _run_dit(args, cfg, params, rs, device)
+    if args.workload == "dit":
+        if cfg.family != "dit":
+            ap.error(f"--arch {args.arch} is not a DiT")
+        from repro_torch.models import dit
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        return _run_dit(args, cfg, dit.init(gen, cfg, device=device), rs,
+                        device)
+    if cfg.family == "dit":
+        ap.error(f"--arch {args.arch} is a DiT; serve it with --workload "
+                 "dit")
+    return _run_lm(args, cfg, rs, device)
+
+
+def _run_lm(args, cfg, rs, device):
+    """Synthetic prompts through the static ServingEngine."""
+    from repro_torch.models import registry
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    mdl = registry.get_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = mdl.init(gen, cfg, device=device)
+    max_len = args.prompt_len + args.max_new + 8
+    reqs = [Request(rid=i, prompt=rs.integers(0, cfg.vocab_size,
+                                              size=args.prompt_len)
+                    .astype(np.int32), max_new_tokens=args.max_new)
+            for i in range(args.requests)]
+    engine = ServingEngine(cfg, params, batch_size=args.batch,
+                           max_len=max_len, backend=args.backend,
+                           plan_reuse=args.plan_reuse,
+                           drift_threshold=args.drift_threshold,
+                           decode_sla=args.decode_sla)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.time()
+    done = engine.run(reqs)
+    wall = time.time() - t0
+    st = engine.stats
+    print(f"{len(done)} requests in {wall:.1f}s | prefill "
+          f"{st.prefill_tokens} tok / {st.prefill_s:.2f}s | decode "
+          f"{st.decode_tokens} tok / {st.decode_s:.2f}s")
+    from repro_torch.serving.api import percentile as pct
+    ttfts = [r.metrics.ttft_s for r in done if r.metrics.ttft_s is not None]
+    lats = [r.metrics.latency_s for r in done
+            if r.metrics.latency_s is not None]
+    if ttfts and lats:
+        print(f"per-request: TTFT p50 {pct(ttfts, 0.5)*1e3:.0f}ms / p95 "
+              f"{pct(ttfts, 0.95)*1e3:.0f}ms | latency p50 "
+              f"{pct(lats, 0.5)*1e3:.0f}ms / p95 {pct(lats, 0.95)*1e3:.0f}ms")
+    print(f"scheduler: {st.admissions} admissions | decode-slot occupancy "
+          f"{st.occupancy():.2f} ({st.slot_steps_active}/"
+          f"{st.slot_steps_total} slot-steps)")
+    if args.plan_reuse != "off":
+        print(f"plan reuse: {st.plan_builds} built, {st.plan_reuses} "
+              f"reused, {st.plan_replans} drift re-plans | retention "
+              f"{st.last_retention:.3f} (threshold: drift >= "
+              f"{engine.drift_threshold})")
+    if args.decode_sla:
+        print(f"decode plans: {st.decode_plan_builds} layer plans built at "
+              f"prefill, {st.decode_plan_extends} rows extended, "
+              f"{st.decode_plan_reuses} live rows reused, "
+              f"{st.decode_plan_replans} drift re-plans | retention "
+              f"{st.decode_last_retention:.3f}")
+    if device.type == "cuda":
+        print(f"device: {torch.cuda.get_device_name(device)} | peak memory "
+              f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+    _stats_json(args, "static", st, done)
+    return done
 
 
 def _run_dit(args, cfg, params, rs, device):
@@ -141,13 +245,19 @@ def _run_dit(args, cfg, params, rs, device):
         print(f"device: {torch.cuda.get_device_name(device)} | peak "
               f"memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f}"
               f" GiB")
-    if args.stats_json:
-        from repro_torch.serving.api import stats_json_payload
-        with open(args.stats_json, "w") as f:
-            json.dump(stats_json_payload("dit", st, done), f, indent=2,
-                      default=float)
-        print(f"stats json -> {args.stats_json}")
+    _stats_json(args, "dit", st, done)
     return done
+
+
+def _stats_json(args, mode, st, requests):
+    """--stats-json: ServeStats + per-request metrics as JSON."""
+    if not args.stats_json:
+        return
+    from repro_torch.serving.api import stats_json_payload
+    with open(args.stats_json, "w") as f:
+        json.dump(stats_json_payload(mode, st, requests), f, indent=2,
+                  default=float)
+    print(f"stats json -> {args.stats_json}")
 
 
 if __name__ == "__main__":

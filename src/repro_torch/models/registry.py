@@ -1,9 +1,11 @@
 """Model registry: family -> module. Counterpart of
 `repro.models.registry`, `get_model` half.
 
-Every module exposes init(generator, cfg, device=), forward, loss_fn and
-distill_loss_fn. Only the DiT family is ported; the others raise and
-name the ROADMAP.md queue-1 item that ports them.
+Every module exposes init(generator, cfg, device=) and forward; the DiT
+module adds loss_fn and distill_loss_fn, the dense LM module (models/
+transformer.py) prefill and decode_step. The DiT and dense families are
+ported; the others raise and name the ROADMAP.md queue-1 item that ports
+them.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import types
 from repro_torch.configs.base import ArchConfig
 
 # family -> the ROADMAP.md queue-1 item that ports it
-_NOT_YET_PORTED = {"dense": 13, "moe": 13, "vlm": 15, "ssm": 15,
+_NOT_YET_PORTED = {"moe": 13, "vlm": 15, "ssm": 15,
                    "hybrid": 15, "encdec": 15}
 
 
@@ -20,6 +22,9 @@ def get_model(cfg: ArchConfig) -> types.ModuleType:
     if cfg.family == "dit":
         from repro_torch.models import dit
         return dit
+    if cfg.family == "dense":
+        from repro_torch.models import transformer
+        return transformer
     if cfg.family in _NOT_YET_PORTED:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported to repro_torch yet "

@@ -1,1 +1,2 @@
-"""Serving surfaces of the port (the streaming DiT denoise service so far)."""
+"""Serving surfaces of the port: the streaming DiT denoise service and the
+static LM serving engine."""

@@ -10,7 +10,7 @@ from repro.core.config import SLAConfig as JaxSLAConfig
 from repro_torch.configs import get_arch
 from repro_torch.core.config import SLAConfig
 
-DIT_ARCHS = ("wan2_1_1_3b", "lightningdit_1b")
+PORTED_ARCHS = ("wan2_1_1_3b", "lightningdit_1b", "qwen3-1.7b")
 
 
 def _fields(cls):
@@ -78,7 +78,7 @@ def test_drift_thresholds_and_decode_plan_cfg_equal():
     assert a == b
 
 
-@pytest.mark.parametrize("arch", DIT_ARCHS)
+@pytest.mark.parametrize("arch", PORTED_ARCHS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_dit_arch_configs_equal(arch, smoke):
     a, b = get_arch(arch), jax_get_arch(arch)
@@ -89,8 +89,8 @@ def test_dit_arch_configs_equal(arch, smoke):
 
 
 def test_unported_arch_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        get_arch("qwen3-1.7b")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        get_arch("h2o-danube-3-4b")
     with pytest.raises(NotImplementedError, match="item 15"):
         get_arch("gemma3-1b")
     with pytest.raises(KeyError):

@@ -180,6 +180,10 @@ def test_serve_cli_matches_reference_cli(tmp_path):
     for name in COUNTERS:
         assert t["stats"][name] == j["stats"][name], name
     assert [r["state"] for r in t["requests"]] == ["finished"] * 3
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # the LM workload (the default) refuses a DiT arch, as the reference
+    with pytest.raises(SystemExit):
         torch_serve.main(["--arch", "lightningdit_1b", "--smoke",
                           "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 14"):
+        torch_serve.main(["--arch", "lightningdit_1b", "--smoke",
+                          "--device", "cpu", "--scheduler", "continuous"])

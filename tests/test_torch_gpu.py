@@ -7,10 +7,11 @@ false, and import no JAX, so they run on a machine with the card:
         tests/test_torch_gpu.py
 
 (`--noconftest` because tests/conftest.py imports JAX for the reference
-tests.) Each CUDA kernel (the forward, dQ and dK/dV) is held to its
-plain twin on the same card tensors, the kernel backend to the gather
-backend on a small DiT (forward, gradients and a train step), and the
-streaming service to the sequential sampler.
+tests.) Each CUDA kernel (the forward, dQ, dK/dV and decode) is held to
+its plain twin on the same card tensors, the kernel backend to the
+gather backend on a small DiT (forward, gradients and a train step) and
+on a small LM's decode steps, and the streaming service to the
+sequential sampler.
 """
 import numpy as np
 import pytest
@@ -21,9 +22,10 @@ from repro_torch.core import plan as plan_lib
 from repro_torch.core.config import SLAConfig
 from repro_torch.core.phi import phi
 from repro_torch.distributed import ctx
-from repro_torch.kernels import ops, sla_bwd, sla_fwd
+from repro_torch.kernels import ops, sla_bwd, sla_decode, sla_fwd
 from repro_torch.launch import steps
 from repro_torch.models import dit
+from repro_torch.models import transformer
 from repro_torch.optim import adamw
 
 # Kernel and twin read the same (possibly bf16) inputs and accumulate in
@@ -338,3 +340,159 @@ def test_train_step_on_the_card_kernel_vs_gather():
     assert all(np.isfinite(out[b][:2]).all() for b in out)
     np.testing.assert_allclose(out["kernel"][:2], out["gather"][:2],
                                rtol=2e-2)
+
+
+def _decode_operands(seed, b, hkv, g, c, d, bkv, tn, k_sel, kv_dtype, pos,
+                     poison=True):
+    """The decode kernel's flat operands on the card: C tokens from base
+    position `pos` (mid-block, all in one block), a live LUT per (bh, c)
+    with the diagonal block first and other distinct valid blocks after
+    it, cnt in [1, K], padded slots naming another valid block
+    (`poison`) or repeating the first, every third marg 0, and per-token
+    totals and diagonal partials that grow token by token (C = 1: the
+    live-row layout, one running total per kv head and no partials)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    bh, bh_kv = b * hkv * g, b * hkv
+    row = pos // bkv
+
+    def rnd(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    k = torch.randn((bh_kv, tn, bkv, d), generator=gen, device=dev)
+    v = torch.randn((bh_kv, tn, bkv, d), generator=gen, device=dev)
+    hblk, zblk = rnd(bh_kv, tn, d, d) * 0.2, rnd(bh_kv, tn, d) + 0.1
+    hblk[:, row + 1:] = 0
+    zblk[:, row + 1:] = 0
+    others = torch.argsort(rnd(bh, c, row), dim=-1)[..., :k_sel - 1]
+    lut = torch.cat([torch.full((bh, c, 1), row, device=dev), others],
+                    dim=-1).int()
+    cnt = torch.randint(1, k_sel + 1, (bh, c), generator=gen,
+                        device=dev).int()
+    dead = torch.arange(k_sel, device=dev) >= cnt[..., None]
+    pad = (torch.randint(0, row, (bh, c, k_sel), generator=gen, device=dev)
+           if poison else lut[..., :1].expand(-1, -1, k_sel))
+    lut = torch.where(dead, pad.int(), lut).contiguous()
+    marg = torch.randint(0, 4, (bh, c), generator=gen, device=dev).int()
+    marg.view(-1)[::3] = 0
+    grow, growz = rnd(bh_kv, c, d, d) * 0.05, rnd(bh_kv, c, d) * 0.05
+    htot = (hblk.sum(1)[:, None] + grow.cumsum(1)).contiguous()
+    ztot = (zblk.sum(1)[:, None] + growz.cumsum(1)).contiguous()
+    if c == 1:
+        hdiag = zdiag = None
+        htot, ztot = htot[:, 0], ztot[:, 0]
+    else:
+        hdiag = (hblk[:, row][:, None] * 0.5 + grow.cumsum(1)).contiguous()
+        zdiag = (zblk[:, row][:, None] * 0.5 + growz.cumsum(1)).contiguous()
+    q = torch.randn((bh, c, d), generator=gen, device=dev)
+    qp = torch.softmax(torch.randn((bh, c, d), generator=gen, device=dev),
+                       dim=-1)
+    posv = torch.full((bh,), pos, dtype=torch.int32, device=dev)
+    args = (lut, cnt, marg, posv, q, qp, k.to(kv_dtype), v.to(kv_dtype),
+            hblk, zblk.contiguous(), hdiag, zdiag, htot, ztot)
+    return args, dict(scale=d ** -0.5, block_kv=bkv, group=g)
+
+
+DECODE_CASES = [
+    # (b, hkv, g, c, d, bkv, tn, k_sel, pos)
+    (2, 8, 2, 1, 128, 64, 64, 6, 40 * 64 + 29),
+    (2, 8, 2, 4, 128, 64, 64, 6, 40 * 64 + 29),
+    (1, 2, 4, 1, 64, 16, 32, 5, 20 * 16 + 3),
+    (1, 2, 4, 4, 64, 16, 32, 5, 20 * 16 + 3),
+    (2, 2, 1, 1, 32, 32, 16, 3, 9 * 32 + 10),
+]
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("poison", [True, False], ids=["poison", "pad"])
+@pytest.mark.parametrize("b,hkv,g,c,d,bkv,tn,k_sel,pos", DECODE_CASES)
+def test_cuda_decode_kernel_matches_plain_twin(b, hkv, g, c, d, bkv, tn,
+                                               k_sel, pos, poison,
+                                               kv_dtype):
+    """The decode kernel against its twin on the same card tensors: GQA,
+    f32 / bf16 K/V, C = 1 (live row) and C = 4 (per-token layout), rows
+    with marg = 0 (exact zeros) and padded LUT slots that name another
+    block (ignored past cnt)."""
+    _need_gpu()
+    args, kw = _decode_operands(3 + c, b, hkv, g, c, d, bkv, tn, k_sel,
+                                kv_dtype, pos, poison)
+    before = sla_decode.LAUNCHES
+    got = sla_decode.sla_decode(*args, **kw)
+    want = sla_decode.sla_decode_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert sla_decode.LAUNCHES == before + 1
+    _assert_twin(got, want)
+    assert torch.all(got[1][args[2] == 0] == 0)
+    assert float(got[1].abs().max()) > 0
+
+
+def test_cuda_decode_kernel_refuses_what_it_cannot_take():
+    _need_gpu()
+    args, kw = _decode_operands(1, 1, 2, 2, 1, 64, 16, 8, 3, torch.float32,
+                                5 * 16 + 2)
+    bad = list(args)
+    bad[4] = bad[4].to(torch.bfloat16)
+    with pytest.raises(TypeError, match="q must be float32"):
+        sla_decode.sla_decode(*bad, **kw)
+    bad = list(args)
+    bad[6] = bad[6].half()
+    bad[7] = bad[7].half()
+    with pytest.raises(TypeError, match="float32 or"):
+        sla_decode.sla_decode(*bad, **kw)
+    with pytest.raises(ValueError, match="kv heads"):
+        sla_decode.sla_decode(*args, **dict(kw, group=3))
+
+
+def test_lm_kernel_decode_matches_gather_on_the_card():
+    """A smoke-size Qwen3 on the card, f32: prefill with a decode grid,
+    then 24 greedy decode steps through the kernel backend and, from a
+    copy of the same cache, the gather backend; the steps cross two block
+    boundaries. Logits within 1e-4 x max(1, max |logits|), the same
+    tokens, and one decode launch per layer per step."""
+    _need_gpu()
+    cfg = get_arch("qwen3-1.7b").smoke()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = transformer.init(gen, cfg)
+    with torch.no_grad():
+        for layer in model.layers:
+            layer.sla_proj.copy_(0.1 * torch.randn(
+                layer.sla_proj.shape, generator=gen, device="cuda"))
+    toks = torch.randint(0, cfg.vocab_size, (2, 48), generator=gen,
+                         device="cuda")
+    with torch.no_grad():
+        last, cache = transformer.prefill(model, cfg, toks,
+                                          compute_dtype=torch.float32,
+                                          decode_max_len=96)
+
+    def clone(x):
+        if torch.is_tensor(x):
+            return x.clone()
+        if isinstance(x, dict):
+            return {k: clone(v) for k, v in x.items()}
+        if isinstance(x, plan_lib.SLAPlan):
+            return plan_lib.plan_map(torch.clone, x)
+        return x
+
+    runs = {}
+    for backend, c in (("kernel", cache), ("gather", clone(cache))):
+        tok = (last @ model.embed.t()).argmax(-1)
+        toks_out, logits_out = [], []
+        before = sla_decode.LAUNCHES
+        with torch.no_grad():
+            for _ in range(24):
+                logits, c = transformer.decode_step(
+                    model, cfg, tok, c, compute_dtype=torch.float32,
+                    backend=backend)
+                tok = logits.argmax(-1)
+                toks_out.append(tok)
+                logits_out.append(logits)
+        runs[backend] = (torch.stack(toks_out), torch.stack(logits_out),
+                         sla_decode.LAUNCHES - before, c)
+    (tk, lk, nk, ck), (tg, lg, ng, cg) = runs["kernel"], runs["gather"]
+    assert nk == 24 * cfg.num_layers and ng == 0
+    atol = 1e-4 * max(1.0, float(lg.abs().max()))
+    torch.testing.assert_close(lk, lg, atol=atol, rtol=0)
+    assert torch.equal(tk, tg)
+    assert int(ck["sla"]["extends"].sum()) == cfg.num_layers
+    assert torch.equal(ck["sla"]["live_lut"], cg["sla"]["live_lut"])
