@@ -4,8 +4,9 @@
     python3 chip_smoke.py             # the check, on one card
     python3 chip_smoke.py --profile   # also profile one full-width forward,
                                       # one full-width training step,
-                                      # 8 full-width LM decode steps and
-                                      # one full-width LM prefill
+                                      # 8 full-width LM decode steps, one
+                                      # full-width LM prefill and 8 paged
+                                      # LM decode steps
 
 Phases, in order; any failure exits non-zero before the result line:
   1. card: nvidia-smi name and power limit; TF32 off for matmul and cuDNN.
@@ -76,7 +77,8 @@ Phases, in order; any failure exits non-zero before the result line:
      a 32000 bucket; 96, 80, 96, 80 new tokens), 2 groups of 95 decode
      steps, each crossing the block boundaries at 32000 and 32064.
      Checks every request's token count, finite logits, 28 x 190
-     `sla_decode` and 28 x 2 `sla_fwd` launches, and the decode-plan
+     `sla_decode`, 0 `sla_decode_paged` and 28 x 2 `sla_fwd` launches,
+     and the decode-plan
      counters (56 builds, 56 extends, 112 re-plans + reuses).
  13. LM cross-checks on the main path's own state after its last
      boundary: decode_execute on the kernel vs the gather backend and
@@ -88,13 +90,73 @@ Phases, in order; any failure exits non-zero before the result line:
      K/V repeated to the 16 query heads as the kernel backend gives
      them). `--profile` adds a profile of 8 decode steps and one of a
      prefill (the forward kernel's share of its device time).
- 14. the kernels line (JSON), then the result line.
+ 14. paged decode kernel vs plain twin: `sla_decode_paged` against
+     `sla_decode_paged_plain` on the same card tensors at the Qwen3-1.7B
+     decode shape with 4 slots (B 4, H 16, Hkv 8, D 128, bkv 64, Tn 512,
+     K 26) over a pool of 1,029 pages whose page table shares the slots'
+     first 480 pages and gives each 32 distinct shuffled ones (608 in
+     use), a live row mid-block (row 500), K/V in f32 and bf16, rows with
+     marg = 0, and padded LUT slots whose pages hold NaN: max abs error
+     against 5e-5 x max(1, max |twin|), finite outputs, exact zeros where
+     marg = 0, and bitwise equality with `sla_decode` (kernel 4) on the
+     page-gathered monolithic view of the same state; CUDA-event times of
+     both kernels and the twin, and the bound.
+ 15. paged LM main path (after phase 12's engine and state are freed, on
+     phase 12's model): first a probe of the prefix-sharing premise at the
+     default column capacity (two batch-1 prefills of prompts sharing
+     30,720 tokens; the elements of their shared pages that differ are
+     measured, not checked). Then the continuous `Scheduler` with a paged,
+     prefix-shared KV cache (4 slots, max_len 32768, a pool of 1,029
+     pages, prefill bucket 32000, decode-SLA, kernel backend, bf16
+     compute, the default config, whose col_capacity_factor the paged
+     Scheduler lifts to None) drains 6 requests of 32,000-token
+     prompts submitted at once: requests 0-3 and 5 share their first
+     30,720 tokens (480 pages), request 4 repeats request 1 (a
+     full-prompt snapshot hit, no prefill), request 5 samples
+     (temperature 0.8, seed 3); 96, 64, 80, 48, 72 and 64 new tokens.
+     Checks every request's token count, finite logits, the trace's
+     counters (126 decode steps, 28 x 126 `sla_decode_paged`, 0
+     `sla_decode` and 28 x 5 `sla_fwd` launches, 1 full-prompt hit,
+     2,420 / 580 prefix hits / misses, 9 CoW copies, 593 allocations,
+     418 decode tokens, 504 slot-steps, 140 / 84 / 252 decode-plan
+     builds / extends / decisions), 5 prefills, pages peak <= 1,029
+     (printed against the 2,053 of an unshared pool), and through a hook
+     on `insert_slot_paged` that every prefix page an admission rewrites
+     (4 x 480) is bitwise what the pool held. Prints prefill time per
+     admission, each request's TTFT, decode ms per step and per token,
+     and peak memory; `--profile` adds a profile of 8 paged decode
+     steps with 4 slots decoding.
+ 16. paged cross-checks, by a hook inside phase 15's trace right after
+     the last block boundary, with 2 slots decoding: decode_execute on
+     the kernel vs the gather backend and `sla_decode_paged` vs its twin
+     on the live LUTs of layers 0 and 27 (5e-5 x max(1, max |ref|)); one
+     full decode step's bf16 logits, kernel vs gather, from the same
+     cache (5e-2 x max(1, max |logits|)), with the greedy-token
+     agreement; the step's writes are put back, and the checks'
+     launches are not counted.
+ 17. unpaged mixed tick (after phase 15's scheduler is freed, on phase
+     12's model, default config): the continuous `Scheduler` with its
+     unpaged per-slot cache (3 slots, max_len 32768, prefill bucket
+     32000, decode-SLA, kernel backend, bf16 compute) drains 3 requests
+     of phase 15's first 3 prompts: request 0 samples (temperature 0.8,
+     seed 3, 6 new tokens) beside greedy requests of 65 and 70, so the
+     drain alternates masked sampling steps and masked greedy rolls (the
+     whole batch runs and the frozen slots' writes are put back). Checks
+     the token counts, finite logits, the counters (74 decode steps,
+     28 x 74 `sla_decode`, 0 `sla_decode_paged` and 28 x 3 `sla_fwd`
+     launches, 138 decode tokens, 222 slot-steps), and that in the
+     second sampling step the greedy slot frozen at the block boundary
+     32064, which appends a plan row, comes back with every leaf bitwise
+     as before (a whole-slot copy, ~11 GiB); prints the masked step's
+     time, decode ms per step and peak memory.
+ 18. the kernels line (JSON), then the result line.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -123,7 +185,7 @@ from repro_torch.data.pipeline import DataConfig, make_iterator  # noqa: E402
 from repro_torch.distributed import ctx as actx  # noqa: E402
 from repro_torch.core import backends as backend_lib  # noqa: E402
 from repro_torch.kernels import _build, ops, sla_bwd, sla_fwd  # noqa: E402
-from repro_torch.kernels import sla_decode  # noqa: E402
+from repro_torch.kernels import cases, sla_decode  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import dit  # noqa: E402
@@ -158,6 +220,27 @@ BWD = {"sla_bwd_dq": (sla_bwd.sla_bwd_dq, sla_bwd.sla_bwd_dq_plain, 6),
 LM_ARCH, LM_BATCH, LM_MAX_LEN = "qwen3-1.7b", 2, 32768
 LM_PROMPTS, LM_MAX_NEW = (32000, 31937, 32000, 31990), (96, 80, 96, 80)
 LM_LOGIT_TOL = 5e-2  # kernel vs gather logits in bf16 compute
+# the paged LM main path: 4 slots over a pool of 1,029 pages (2,053 hold 4
+# unshared slots); 6 prompts of 32,000 tokens, 5 sharing their first
+# 30,720 (480 pages), request 4 a repeat of request 1, request 5 sampling
+PG_SLOTS, PG_POOL, PG_PROMPT, PG_SHARED = 4, 1029, 32000, 30720
+PG_NEW = (96, 64, 80, 48, 72, 64)
+PG_SAMPLED = 5
+# the trace's counters, from the reference scheduler's rules (28 layers)
+PG_EXPECT = dict(steps=126, sla_decode_paged=28 * 126, sla_decode=0,
+                 sla_fwd=28 * 5, prefix_full_hits=1, prefix_hits=2420,
+                 prefix_misses=580, cow_copies=9, page_allocs=593,
+                 decode_tokens=418, slot_steps_total=504,
+                 decode_plan_builds=140, decode_plan_extends=84,
+                 decode_plan_decisions=252)
+# the unpaged mixed tick: request 0 samples beside two greedy ones in 3
+# slots; 1 + 64 + 1 + 5 + 3 decode steps (a sampling step, a masked roll
+# of 64, a sampling step with greedy slot 2 frozen at the appending
+# boundary 32064, a masked roll of 5, then 3 sampling steps alone)
+PU_NEW = (6, 65, 70)
+PU_EXPECT = dict(steps=74, sla_decode=28 * 74, sla_decode_paged=0,
+                 sla_fwd=28 * 3, decode_tokens=5 + 64 + 69,
+                 slot_steps_total=3 * 74)
 DEV = torch.device("cuda")
 
 
@@ -1156,7 +1239,7 @@ def phase_lm_main(cfg, params):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    sla_decode.LAUNCHES = sla_fwd.LAUNCHES = 0
+    sla_decode.PAGED_LAUNCHES = sla_decode.LAUNCHES = sla_fwd.LAUNCHES = 0
     backend_lib.plan_attention = plan_hook
     t0 = time.time()
     try:
@@ -1164,11 +1247,13 @@ def phase_lm_main(cfg, params):
     finally:
         backend_lib.plan_attention = orig_plan
     wall = time.time() - t0
-    launches = dict(sla_decode=sla_decode.LAUNCHES, sla_fwd=sla_fwd.LAUNCHES)
+    launches = dict(sla_decode=sla_decode.LAUNCHES,
+                    sla_decode_paged=sla_decode.PAGED_LAUNCHES,
+                    sla_fwd=sla_fwd.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
     st = engine.stats
     n_steps = sum(g["steps"] for g in groups)
-    want = dict(sla_decode=cfg.num_layers * n_steps,
+    want = dict(sla_decode=cfg.num_layers * n_steps, sla_decode_paged=0,
                 sla_fwd=cfg.num_layers * len(groups))
     say(f"[12 lm main] {len(done)} requests, {LM_ARCH} at full width and "
         f"depth ({cfg.num_layers} layers, bf16 compute), batch {LM_BATCH}, "
@@ -1457,6 +1542,604 @@ def phase_lm_cross_check(cfg, run, profile: bool):
     return dec_rows, fwd_rows, res
 
 
+# --------------------------------------------------------------------------
+def _paged_operands(seed: int, kv_dtype, pos: int):
+    """The paged kernel's operands at the Qwen3 decode shape
+    (`kernels/cases.py`): 4 slots over a pool of PG_POOL pages (page 0 the
+    zero page) sharing their first PG_SHARED / 64 pages, with distinct
+    shuffled pages after them, every slot's live row at `pos`, NaN in the
+    pages behind the padded LUT slots."""
+    return cases.paged_decode_operands(
+        seed, kv_dtype, pos, b=PG_SLOTS, hkv=8, g=2, d=128, bkv=64,
+        tn=LM_MAX_LEN // 64, k_sel=26, npages=PG_POOL,
+        shared=PG_SHARED // 64, device=DEV)
+
+
+def _paged_bound(args, kw):
+    """Kernel 4's convention on the paged operands: each (kv head, page)
+    tile that a live slot selects read once (K and V tiles, the hblk and
+    zblk tiles: no per-token partials), the totals, q, qp, the outputs,
+    the integer operands and the page id of every live slot; operations
+    4 bkv D + 2 D^2 per live slot plus 2 D^2 + 2 D per (bh)."""
+    lut, pt, cnt, marg, posv, q, qp, k, v, hblk, zblk, htot, ztot = args
+    bh, _, k_sel = lut.shape
+    npages, hkv, bkv, d = k.shape
+    b, tn = pt.shape
+    live = torch.arange(k_sel, device=DEV) < torch.clamp(
+        cnt, max=k_sel)[..., None]
+    rows = torch.arange(bh, device=DEV)
+    slot = (rows // (bh // b))[:, None, None]
+    kvh = ((rows // kw["group"]) % hkv)[:, None, None]
+    page = pt.long()[slot, lut.long().clamp(0, tn - 1)]
+    tiles = int(torch.unique((kvh * npages + page)[live]).numel())
+    slots = int(live.sum())
+    nbytes = (tiles * (2 * bkv * d * k.element_size() + (d * d + d) * 4)
+              + sum(t.numel() * 4 for t in (htot, ztot))
+              + 4 * bh * d * 4 + slots * 4
+              + sum(t.numel() * 4 for t in (lut, cnt, marg, posv)))
+    flops = slots * (4 * bkv * d + 2 * d * d) + bh * (2 * d * d + 2 * d)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[torch.float32]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", flops, nbytes,
+            tiles, slots)
+
+
+def _paged_case(args, kw, what: str, reps: int = 50):
+    """Kernel 5 against its twin and against kernel 4 on the monolithic
+    view of the same state: errors, exact zeros where marg = 0, the
+    bitwise test, times and the bound."""
+    got = sla_decode.sla_decode_paged(*args, **kw)
+    want = sla_decode.sla_decode_paged_plain(*args, **kw)
+    dense = cases.paged_dense_operands(args)
+    mono = sla_decode.sla_decode(*dense, **kw)
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    limit = TWIN_TOL * max(1.0, max(float(w.abs().max()) for w in want))
+    zeros = bool((got[1][args[3] == 0] == 0).all())
+    bitwise = all(torch.equal(g, m) for g, m in zip(got, mono))
+    ms = cuda_ms(lambda: sla_decode.sla_decode_paged(*args, **kw), reps)
+    mono_ms = cuda_ms(lambda: sla_decode.sla_decode(*dense, **kw), reps)
+    plain_ms = cuda_ms(lambda: sla_decode.sla_decode_paged_plain(
+        *args, **kw), 5, warmup=1)
+    bound_ms, bound_by, flops, nbytes, tiles, slots = _paged_bound(args, kw)
+    ok = finite and err <= limit and zeros and bitwise
+    say(f"  {what}: max abs err {err:.3g} (limit {limit:.3g}), finite "
+        f"{finite}, marg-0 rows exact zeros {zeros}, bitwise equal to "
+        f"sla_decode on the monolithic view {bitwise} "
+        f"{'OK' if ok else 'FAIL'} | kernel {ms:.4f} ms | sla_decode on "
+        f"the view {mono_ms:.4f} ms | bound {bound_ms:.4f} ms by {bound_by}"
+        f" ({nbytes / 1e6:.1f} MB, {tiles} (kv head, page) tiles, {slots} "
+        f"live slots) | plain twin {plain_ms:.3f} ms")
+    del dense, mono
+    return dict(max_abs_err=err, limit=limit, ok=ok, bitwise_vs_sla_decode=
+                bitwise, ms=ms, sla_decode_view_ms=mono_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                gflop=flops / 1e9, mbytes=nbytes / 1e6, tiles_read=tiles,
+                live_slots=slots)
+
+
+def phase_paged_vs_plain():
+    """sla_decode_paged vs its twin (and vs sla_decode on the monolithic
+    view) at the Qwen3 decode shape with a prefix-shared page table."""
+    rows = []
+    pos = 500 * 64 + 32  # row 500 of 512 (a slot's own page), mid-block
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = "f32" if dtype == torch.float32 else "bf16"
+        args, kw = _paged_operands(41, dtype, pos)
+        say(f"[14 paged decode kernel] qwen3-1.7b paged decode shape (B "
+            f"{PG_SLOTS}, BH=64, Hkv 8, D=128, bkv=64, Tn=512, K=26, pool "
+            f"{PG_POOL} pages, {PG_SHARED // 64} shared + 32 own pages a "
+            f"slot, pos {pos}, NaN pages behind the padded LUT slots) K/V "
+            f"{dname}")
+        row = _paged_case(args, kw, dname)
+        rows.append(dict(shape="qwen3-1.7b paged decode B=4", dtype=dname,
+                         pos=pos, **row))
+        del args
+    torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"paged decode kernel disagrees: {bad}")
+    return rows
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The raw bits of a float tensor, for bitwise comparisons."""
+    return t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+
+
+def _pg_prompts(cfg):
+    rs = np.random.default_rng(5)
+    shared = rs.integers(0, cfg.vocab_size, PG_SHARED).astype(np.int32)
+    own = [np.concatenate([shared, rs.integers(
+        0, cfg.vocab_size, PG_PROMPT - PG_SHARED).astype(np.int32)])
+        for _ in range(5)]
+    return own[:4] + [own[1].copy(), own[4]]  # request 4 repeats 1
+
+
+def _pg_cross_check(cfg, sched, logits, res):
+    """On the scheduler's own paged state mid-trace: decode_execute on the
+    kernel vs the gather backend, kernel 5 vs its twin on the live LUTs of
+    the first and last layer, and one full decode step's logits kernel vs
+    gather from the same cache (restored afterwards, so the trace goes on
+    as if nothing ran)."""
+    cache = sched._live
+    st, slap = cache["sla"], cache["slap"]
+    sla = cfg.sla
+    tn = cache["pt"].shape[1]
+    dcfg = sla.decode_plan_cfg(tn)
+    pos = cache["pos"] - 1  # the last token the state holds
+    hkv, g = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    gen = torch.Generator(device=DEV).manual_seed(16)
+    rows = []
+    params = sched._cparams
+    for layer in (0, cfg.num_layers - 1):
+        state = {"k": cache["kp"][layer], "v": cache["vp"][layer],
+                 "hblk": slap["hblk"][layer], "zblk": slap["zblk"][layer],
+                 "htot": st["htot"][layer], "ztot": st["ztot"][layer],
+                 "lut": st["live_lut"][layer], "cnt": st["live_cnt"][layer],
+                 "marg": st["live_marg"][layer], "pt": cache["pt"]}
+        q = torch.randn((PG_SLOTS, cfg.num_heads, 1, cfg.head_dim),
+                        generator=gen, device=DEV)
+        proj = {"proj": params.layers[layer].sla_proj}
+        with torch.no_grad():
+            o_k = backend_lib.decode_execute(state, proj, q, pos, dcfg,
+                                             backend="kernel")
+            o_g = backend_lib.decode_execute(state, proj, q, pos, dcfg,
+                                             backend="gather")
+        err = float((o_k - o_g).abs().max())
+        limit = TWIN_TOL * max(1.0, float(o_g.abs().max()))
+        b, bh, k_sel = PG_SLOTS, PG_SLOTS * cfg.num_heads, state[
+            "lut"].shape[-1]
+        qg = backend_lib._group_heads(q[:, :, 0].float(), hkv)
+        qpg = backend_lib._group_heads(phi_lib.phi(q[:, :, 0], sla.phi),
+                                       hkv)
+        args = (state["lut"].reshape(bh, 1, k_sel).contiguous(),
+                cache["pt"], state["cnt"].reshape(bh, 1).contiguous(),
+                state["marg"].reshape(bh, 1).contiguous(),
+                pos.int().repeat_interleave(cfg.num_heads).contiguous(),
+                qg.reshape(bh, 1, -1).contiguous(),
+                qpg.float().reshape(bh, 1, -1).contiguous(), state["k"],
+                state["v"], state["hblk"], state["zblk"],
+                state["htot"].reshape(b * hkv, *state["htot"].shape[2:]),
+                state["ztot"].reshape(b * hkv, -1))
+        kw = dict(scale=cfg.head_dim ** -0.5, block_kv=sla.block_kv,
+                  group=g)
+        got = sla_decode.sla_decode_paged(*args, **kw)
+        want = sla_decode.sla_decode_paged_plain(*args, **kw)
+        terr = max(float((x - y).abs().max()) for x, y in zip(got, want))
+        tlimit = TWIN_TOL * max(1.0, max(float(y.abs().max()) for y in want))
+        ms = cuda_ms(lambda: sla_decode.sla_decode_paged(*args, **kw), 50)
+        plain_ms = cuda_ms(lambda: sla_decode.sla_decode_paged_plain(
+            *args, **kw), 5, warmup=1)
+        bound_ms, bound_by, _, nbytes, tiles, slots = _paged_bound(args, kw)
+        ok = err <= limit and terr <= tlimit
+        say(f"[16 paged cross-check] layer {layer} at positions "
+            f"{pos.tolist()}: decode_execute kernel vs gather max abs err "
+            f"{err:.3g} (limit {limit:.3g}); sla_decode_paged vs twin "
+            f"{terr:.3g} (limit {tlimit:.3g}) {'OK' if ok else 'FAIL'} | "
+            f"kernel {ms:.4f} ms | bound {bound_ms:.4f} ms by {bound_by} "
+            f"({nbytes / 1e6:.1f} MB, {tiles} tiles, {slots} live slots) | "
+            f"plain twin {plain_ms:.3f} ms")
+        rows.append(dict(shape=f"qwen3-1.7b paged path layer {layer}",
+                         dtype="bf16", pos=pos.tolist(), max_abs_err=terr,
+                         limit=tlimit, backend_err=err, backend_limit=limit,
+                         ok=ok, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, mbytes=nbytes / 1e6,
+                         tiles_read=tiles, live_slots=slots))
+        del state, args, got, want
+    if not all(r["ok"] for r in rows):
+        raise RuntimeError(f"paged decode disagrees on the path's state: "
+                           f"{rows}")
+    token = logits.argmax(-1)
+    snap = transformer.snapshot_slots(cache, range(PG_SLOTS))
+    outs = {}
+    with torch.no_grad():
+        for backend in ("kernel", "gather"):
+            outs[backend], _ = transformer.decode_step(
+                params, cfg, token, cache, backend=backend,
+                drift_threshold=sched.drift_threshold)
+            transformer.restore_slots(cache, snap)
+    del snap
+    l_k, l_g = outs["kernel"], outs["gather"]
+    diff = float((l_k - l_g).abs().max())
+    limit = LM_LOGIT_TOL * max(1.0, float(l_g.abs().max()))
+    agree = float((l_k.argmax(-1) == l_g.argmax(-1)).float().mean())
+    ok = bool(torch.isfinite(l_k).all()) and diff <= limit
+    say(f"[16 paged cross-check] one full decode step from the path's "
+        f"paged cache, logits kernel vs gather max abs diff {diff:.3g} "
+        f"(limit {limit:.3g}) {'OK' if ok else 'FAIL'} | greedy tokens "
+        f"agree on {agree:.2f} of the slots")
+    if not ok:
+        raise RuntimeError("kernel and gather paged decode steps disagree")
+    res.update(rows=rows, step_logit_diff=diff, step_logit_limit=limit,
+               greedy_agreement=agree)
+
+
+def _prefix_premise_probe(cfg, params, prompts):
+    """The premise of prefix sharing, measured at `cfg`: the pages that
+    two prompts share (their first PG_SHARED tokens) after two batch-1
+    prefills as the scheduler runs them. Returns the elements that are not
+    bitwise equal and their max abs difference, over every layer's K/V
+    and h/z/kpool blocks of the shared pages."""
+    nb = PG_SHARED // cfg.sla.block_kv
+    caches = []
+    cparams = transformer.compute_params(params)
+    with torch.no_grad():
+        for prompt in prompts[:2]:
+            toks = torch.from_numpy(prompt[None]).long().to(DEV)
+            caches.append(transformer.prefill(
+                cparams, cfg, toks, backend="kernel",
+                decode_max_len=LM_MAX_LEN)[1])
+    a, b = caches
+    bits, diff = 0, 0.0
+    for layer in range(cfg.num_layers):
+        pairs = [(a[key][layer, :, :, :PG_SHARED], b[key][layer, :, :,
+                                                          :PG_SHARED])
+                 for key in ("k", "v")]
+        pairs += [(a["sla"][key][layer, :, :, :nb],
+                   b["sla"][key][layer, :, :, :nb])
+                  for key in transformer.PAGED_POOL_KEYS]
+        for x, y in pairs:
+            bits += int((_bits(x) != _bits(y)).sum())
+            diff = max(diff, float((x.float() - y.float()).abs().max()))
+    del caches, a, b, cparams
+    torch.cuda.empty_cache()
+    return bits, diff
+
+
+def phase_paged_main(cfg, params, profile: bool):
+    """The paged LM main path: the continuous Scheduler over a paged,
+    prefix-shared KV cache on the kernel backend with decode-time SLA,
+    6 requests of 32,000-token prompts through 4 slots. Checks the
+    trace's counters, that every rewritten prefix page is bitwise what
+    the pool held, and (phase 16) the kernel against the gather backend
+    and its twin on the path's own state.
+
+    Sharing a prompt page needs its contents to be a pure function of the
+    tokens below its end. SLA's column-capacity demotion
+    (`col_capacity_factor`, 2.0 by default) ranks a column's critical
+    blocks over every query row, later rows included, so with it a
+    shared page's K/V from layer 1 on can depend on the prompt's suffix:
+    the probe measures that at the default. The trace runs the default
+    config, which the paged Scheduler serves with the capacity lifted
+    (None), where the premise holds and is checked bitwise."""
+    from repro_torch.serving.api import SamplingParams, Scheduler
+    prompts = _pg_prompts(cfg)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    probe_bits, probe_diff = _prefix_premise_probe(cfg, params, prompts)
+    say(f"[15 paged lm main] prefix-sharing premise at the default "
+        f"col_capacity_factor {cfg.sla.col_capacity_factor}: requests 0 and"
+        f" 1's prefills hold {probe_bits} elements of their {PG_SHARED // 64}"
+        f" shared pages that are not bitwise equal (max abs difference "
+        f"{probe_diff:g}; {time.time() - t0:.1f}s); the paged Scheduler "
+        f"lifts it to None")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_build = time.time()
+    sched = Scheduler(cfg, params, num_slots=PG_SLOTS, max_len=LM_MAX_LEN,
+                      backend="kernel", decode_sla=True,
+                      prefill_bucket=PG_PROMPT, paged=True,
+                      pool_pages=PG_POOL)
+    torch.cuda.synchronize()
+    t_build = time.time() - t_build
+    if sched.cfg.sla.col_capacity_factor is not None:
+        raise RuntimeError("the paged Scheduler kept the column capacity")
+    cfg = sched.cfg
+    bq = cfg.sla.block_q
+    steps, prefills, hits = [0], [], []
+    rewrite = dict(pages=0, max_diff=0.0, bits=0)
+    finite = torch.ones((), dtype=torch.bool, device=DEV)
+    cross, prof = {}, {}
+    one, run_prefill = sched._one, sched._run_prefill
+    claim, admit_paged = sched._claim_page, sched._admit_paged
+
+    def done_with_boundaries():
+        """>= 2 slots decoding and none of them crosses another block
+        boundary before its budget ends."""
+        active = sched._decoding()
+        ph = sched._live["pos_host"]
+        return len(active) >= 2 and all(
+            (ph[j] + bq - 1) // bq * bq
+            > sched._slot_base[j] + sched._slots[j].sampling.max_new_tokens
+            - 2 for j in active)
+
+    def one_hook(token):
+        logits = one(token)
+        steps[0] += 1
+        finite.logical_and_(torch.isfinite(logits).all())
+        if profile and steps[0] == 64:  # 8 steps with 4 slots decoding
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as prof_ctx
+            torch.cuda.synchronize()
+            prof["ctx"] = prof_ctx(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA])
+            prof["ctx"].__enter__()
+            prof["t0"] = time.time()
+        if profile and steps[0] == 72:
+            torch.cuda.synchronize()
+            prof["wall"] = time.time() - prof["t0"]
+            prof["ctx"].__exit__(None, None, None)
+        if not cross and done_with_boundaries():
+            counts = (sla_decode.PAGED_LAUNCHES, sla_decode.LAUNCHES,
+                      sla_fwd.LAUNCHES)
+            _pg_cross_check(cfg, sched, logits, cross)
+            (sla_decode.PAGED_LAUNCHES, sla_decode.LAUNCHES,
+             sla_fwd.LAUNCHES) = counts  # the checks' launches do not count
+            cross["step"] = steps[0]
+        return logits
+
+    def prefill_hook(toks):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = run_prefill(toks)
+        torch.cuda.synchronize()
+        prefills.append(time.time() - t0)
+        return out
+
+    def claim_hook(key):
+        before = sched._pool.stats.prefix_hits
+        pid = claim(key)
+        hits.append(sched._pool.stats.prefix_hits > before)
+        return pid
+
+    def admit_hook(live, single, slot, pids):
+        """Every interned page this admission rewrites must already hold
+        bitwise what the new prefill computed for it."""
+        idx = [i for i, hit in enumerate(hits) if hit]
+        hits.clear()
+        if idx:
+            sel = torch.tensor(idx, device=DEV)
+            pid = torch.tensor([pids[i] for i in idx], device=DEV)
+            npp, hkv = len(pids), cfg.num_kv_heads
+            for layer in range(cfg.num_layers):
+                pairs = []
+                for key, pool in (("k", live["kp"]), ("v", live["vp"])):
+                    x = single[key][layer, 0, :, :npp * bq].reshape(
+                        hkv, npp, bq, -1).movedim(0, 1)
+                    pairs.append((x[sel], pool[layer, pid]))
+                for key in transformer.PAGED_POOL_KEYS:
+                    x = single["sla"][key][layer, 0, :, :npp].movedim(0, 1)
+                    pairs.append((x[sel], live["slap"][key][layer, pid]))
+                for new, old in pairs:
+                    rewrite["max_diff"] = max(rewrite["max_diff"], float(
+                        (new.float() - old.float()).abs().max()))
+                    rewrite["bits"] += int((_bits(new) != _bits(old)).sum())
+            rewrite["pages"] += len(idx)
+        return admit_paged(live, single, slot, pids)
+
+    sched._one, sched._run_prefill = one_hook, prefill_hook
+    sched._claim_page, sched._admit_paged = claim_hook, admit_hook
+    for i, (prompt, n) in enumerate(zip(prompts, PG_NEW)):
+        sched.submit(prompt, SamplingParams(
+            max_new_tokens=n, temperature=0.8 if i == PG_SAMPLED else 0.0,
+            seed=3))
+    sla_decode.PAGED_LAUNCHES = sla_decode.LAUNCHES = sla_fwd.LAUNCHES = 0
+    t0 = time.time()
+    done = sched.drain()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(sla_decode_paged=sla_decode.PAGED_LAUNCHES,
+                    sla_decode=sla_decode.LAUNCHES,
+                    sla_fwd=sla_fwd.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    st = sched.stats
+    got = dict(steps=steps[0], **launches,
+               prefix_full_hits=st.prefix_full_hits,
+               prefix_hits=st.prefix_hits, prefix_misses=st.prefix_misses,
+               cow_copies=st.cow_copies, page_allocs=st.page_allocs,
+               decode_tokens=st.decode_tokens,
+               slot_steps_total=st.slot_steps_total,
+               decode_plan_builds=st.decode_plan_builds,
+               decode_plan_extends=st.decode_plan_extends,
+               decode_plan_decisions=st.decode_plan_replans
+               + st.decode_plan_reuses)
+    unshared = 1 + PG_SLOTS + PG_SLOTS * (LM_MAX_LEN // bq)
+    say(f"[15 paged lm main] {len(done)} requests, {LM_ARCH} at full width "
+        f"and depth ({cfg.num_layers} layers, bf16 compute), continuous "
+        f"scheduler, {PG_SLOTS} slots, paged KV ({PG_POOL} pages of "
+        f"{bq} tokens), max_len {LM_MAX_LEN}, kernel backend, decode-SLA, "
+        f"in {wall:.2f}s (cache built in {t_build:.2f}s) | peak memory "
+        f"{peak:.2f} GiB")
+    say(f"  prefills {len(prefills)} (one per admission but the snapshot "
+        f"hit): {[round(t, 3) for t in prefills]} s | decode "
+        f"{st.decode_s:.3f}s for {steps[0]} steps = "
+        f"{1e3 * st.decode_s / steps[0]:.2f} ms per step, "
+        f"{1e3 * st.decode_s / st.decode_tokens:.2f} ms per generated token"
+        f" | pages peak {st.pages_peak} (limit {PG_POOL}; {unshared} "
+        f"without sharing), in use at the end {st.pages_in_use}")
+    say(f"  prefix pages rewritten by admissions: {rewrite['pages']} "
+        f"compared, max abs difference {rewrite['max_diff']:g}, "
+        f"{rewrite['bits']} elements not bitwise equal | logits finite "
+        f"{bool(finite)}")
+    say(f"  counters {got}")
+    say(f"  expected {PG_EXPECT}")
+    for r in done:
+        kind = ("snapshot hit" if r.rid == 4 else
+                "sampled" if r.rid == PG_SAMPLED else "greedy")
+        say(f"  request {r.rid} ({kind}): {len(r.tokens_out)} tokens, "
+            f"queue {r.metrics.queue_s:.3f}s, TTFT {r.metrics.ttft_s:.3f}s, "
+            f"latency {r.metrics.latency_s:.3f}s, first tokens "
+            f"{r.tokens_out[:4]}")
+    res = dict(wall_s=wall, cache_build_s=t_build, peak_gib=peak,
+               prefill_s=prefills, decode_s=st.decode_s,
+               ms_per_step=1e3 * st.decode_s / steps[0],
+               ms_per_token=1e3 * st.decode_s / st.decode_tokens,
+               ttft_s={r.rid: r.metrics.ttft_s for r in done},
+               pages_peak=st.pages_peak, pages_unshared=unshared,
+               rewritten_pages=rewrite["pages"],
+               rewritten_max_diff=rewrite["max_diff"],
+               rewritten_bit_mismatches=rewrite["bits"],
+               default_capacity_probe=dict(bit_mismatches=probe_bits,
+                                           max_abs_diff=probe_diff),
+               counters=got,
+               cross_check_step=cross.get("step"))
+    if "ctx" in prof:
+        events = prof["ctx"].key_averages()
+        dev_us = sum(e.self_device_time_total for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.is_user_annotation)
+        k5 = [e for e in events if e.device_type ==
+              torch.autograd.DeviceType.CUDA and "sla_decode_kernel" in e.key]
+        k5_us = sum(e.self_device_time_total for e in k5)
+        res["profile"] = dict(wall_s=prof["wall"], device_s=dev_us / 1e6,
+                              busy=dev_us / 1e6 / prof["wall"],
+                              kernel_s=k5_us / 1e6,
+                              kernel_launches=sum(e.count for e in k5))
+        say(f"[15 paged lm profile] 8 paged decode steps (4 slots): "
+            f"{prof['wall']:.3f}s wall under the profiler, "
+            f"{dev_us / 1e6:.3f}s device time, device busy "
+            f"{dev_us / 1e6 / prof['wall']:.3f} | decode kernel "
+            f"{res['profile']['kernel_launches']} launches, "
+            f"{k5_us / 1e6:.4f}s")
+        say(events.table(sort_by="self_cuda_time_total", row_limit=20))
+    if [len(r.tokens_out) for r in done] != list(PG_NEW):
+        raise RuntimeError("a paged LM request did not finish with its "
+                           "tokens")
+    if not bool(finite):
+        raise RuntimeError("non-finite logits on the paged LM main path")
+    if got != PG_EXPECT or len(prefills) != 5:
+        raise RuntimeError(f"paged LM main path counters {got} (prefills "
+                           f"{len(prefills)}); expected {PG_EXPECT} and 5")
+    if st.pages_peak > PG_POOL:
+        raise RuntimeError(f"pages peak {st.pages_peak} > {PG_POOL}")
+    if (rewrite["pages"] != 4 * PG_SHARED // bq or rewrite["max_diff"] != 0
+            or rewrite["bits"] != 0):
+        raise RuntimeError(f"rewritten prefix pages {rewrite}: expected "
+                           f"{4 * PG_SHARED // bq} pages, all bitwise equal")
+    if not cross:
+        raise RuntimeError("the paged cross-checks never ran")
+    res["cross"] = {k: v for k, v in cross.items() if k != "rows"}
+    return res, cross["rows"]
+
+
+def _slot_leaves(cache: dict, j: int, prefix: str = ""):
+    """Every tensor leaf of batch row j of a per-slot cache (plan fields
+    included), as views: row j of the batch axis (1, or 0 for (B,))."""
+    for key, val in cache.items():
+        name = prefix + key
+        if isinstance(val, dict):
+            yield from _slot_leaves(val, j, name + ".")
+        elif key == "plan":
+            for leaf in plan_lib.PLAN_LEAVES:
+                x = getattr(val, leaf)
+                yield f"{name}.{leaf}", x[:, j]
+        elif torch.is_tensor(val):
+            yield name, val[j] if val.dim() == 1 else val[:, j]
+
+
+def phase_unpaged_mixed(cfg, params):
+    """The unpaged continuous Scheduler at full width with a masked mixed
+    tick: one sampling request beside two greedy ones in 3 slots, so each
+    greedy roll freezes the sampling slot and each sampling step freezes
+    the greedy slots (the whole batch runs, the frozen slots' writes are
+    put back). The second sampling step freezes a greedy slot at a block
+    boundary that appends a plan row; every leaf of that slot must be
+    bitwise as before the step."""
+    from repro_torch.serving.api import SamplingParams, Scheduler
+    prompts = _pg_prompts(cfg)[:3]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sched = Scheduler(cfg, params, num_slots=3, max_len=LM_MAX_LEN,
+                      backend="kernel", decode_sla=True,
+                      prefill_bucket=PG_PROMPT, paged=False)
+    steps, finite, frozen = [0], torch.ones((), dtype=torch.bool,
+                                            device=DEV), {}
+    one, ctl_step = sched._one, sched._masked_ctl_step
+
+    def one_hook(token):
+        logits = one(token)
+        steps[0] += 1
+        finite.logical_and_(torch.isfinite(logits).all())
+        return logits
+
+    def ctl_hook(ctl):
+        frozen["calls"] = frozen.get("calls", 0) + 1
+        if frozen["calls"] != 2:
+            return ctl_step(ctl)
+        j = next(i for i in sched._decoding() if i not in ctl)
+        live, p = sched._live, int(sched._live["pos_host"][j])
+        st = live["sla"]
+        frozen.update(slot=j, pos=p, appends=bool(
+            p % cfg.sla.block_q == 0
+            and int(st["rows"][j]) < p // cfg.sla.block_q))
+        before = {n: x.clone() for n, x in _slot_leaves(live, j)}
+        cc = st["plan"].col_counts[:, j].clone()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = ctl_step(ctl)
+        torch.cuda.synchronize()
+        frozen["step_ms"] = 1e3 * (time.time() - t0)
+        after = dict(_slot_leaves(live, j))
+        frozen["differ"] = sorted(n for n, x in before.items()
+                                  if not torch.equal(x, after[n]))
+        frozen["leaves"] = len(before)
+        frozen["gib"] = sum(x.numel() * x.element_size()
+                            for x in before.values()) / 2**30
+        del before
+        return out
+
+    sched._one, sched._masked_ctl_step = one_hook, ctl_hook
+    for i, (prompt, n) in enumerate(zip(prompts, PU_NEW)):
+        sched.submit(prompt, SamplingParams(
+            max_new_tokens=n, temperature=0.8 if i == 0 else 0.0, seed=3))
+    sla_decode.PAGED_LAUNCHES = sla_decode.LAUNCHES = sla_fwd.LAUNCHES = 0
+    t0 = time.time()
+    done = sched.drain()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(sla_decode=sla_decode.LAUNCHES,
+                    sla_decode_paged=sla_decode.PAGED_LAUNCHES,
+                    sla_fwd=sla_fwd.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    st = sched.stats
+    got = dict(steps=steps[0], **launches, decode_tokens=st.decode_tokens,
+               slot_steps_total=st.slot_steps_total)
+    say(f"[17 unpaged mixed] {len(done)} requests ({PU_NEW} new tokens, "
+        f"request 0 sampling), {LM_ARCH} at full width and depth, "
+        f"continuous scheduler, 3 slots, unpaged per-slot cache, max_len "
+        f"{LM_MAX_LEN}, kernel backend, decode-SLA, in {wall:.2f}s | "
+        f"prefill {st.prefill_s:.3f}s for 3 admissions | decode "
+        f"{st.decode_s:.3f}s for {steps[0]} steps = "
+        f"{1e3 * st.decode_s / steps[0]:.2f} ms per step | peak memory "
+        f"{peak:.2f} GiB")
+    say(f"  masked sampling step with greedy slot {frozen.get('slot')} "
+        f"frozen at position {frozen.get('pos')} (appends a plan row "
+        f"{frozen.get('appends')}): {frozen.get('step_ms', 0):.2f} ms; "
+        f"{frozen.get('leaves')} leaves ({frozen.get('gib', 0):.2f} GiB) of "
+        f"the frozen slot compared, not bitwise equal: "
+        f"{frozen.get('differ')} | logits finite {bool(finite)}")
+    say(f"  counters {got}")
+    say(f"  expected {PU_EXPECT}")
+    res = dict(wall_s=wall, peak_gib=peak, prefill_s=st.prefill_s,
+               decode_s=st.decode_s,
+               ms_per_step=1e3 * st.decode_s / steps[0],
+               masked_step_ms=frozen.get("step_ms"), counters=got,
+               frozen_slot_pos=frozen.get("pos"),
+               frozen_slot_appends=frozen.get("appends"),
+               frozen_leaves_differ=frozen.get("differ"))
+    counts = [len(r.tokens_out) for r in done]
+    del sched, done
+    torch.cuda.empty_cache()
+    if counts != list(PU_NEW):
+        raise RuntimeError(f"unpaged mixed requests finished with {counts} "
+                           f"tokens, expected {PU_NEW}")
+    if not bool(finite):
+        raise RuntimeError("non-finite logits on the unpaged mixed path")
+    if got != PU_EXPECT:
+        raise RuntimeError(f"unpaged mixed counters {got}; expected "
+                           f"{PU_EXPECT}")
+    if not frozen.get("appends") or frozen.get("differ") != []:
+        raise RuntimeError(f"the frozen slot at an appending boundary was "
+                           f"not put back bitwise: {frozen}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1489,6 +2172,17 @@ def main(argv=None) -> int:
     dec_rows += path_rows
     rows += lm_fwd_rows
     lm = lm_run["summary"]
+    del lm_run  # phase 12's engine and decode state
+    gc.collect()  # the hooks hold the engine in reference cycles
+    torch.cuda.empty_cache()
+    pg_rows = phase_paged_vs_plain()
+    pg, pg_path_rows = phase_paged_main(lm_cfg, lm_params, args.profile)
+    pg_rows += pg_path_rows
+    pgc = pg["counters"]
+    gc.collect()  # phase 15's scheduler, held in cycles by its hooks
+    torch.cuda.empty_cache()
+    pu = phase_unpaged_mixed(lm_cfg, lm_params)
+    puc = pu["counters"]
     wan32 = next(r for r in rows
                  if r["shape"] == "wan2_1_1_3b" and r["dtype"] == "f32")
     kernels = [{
@@ -1496,10 +2190,13 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/sla_fwd.cu",
         "replaces": "src/repro/kernels/sla_fwd.py:34",
         "launches": (main_run["launches"] + train["launches"]["sla_fwd"]
-                     + lm["launches"]["sla_fwd"]),
+                     + lm["launches"]["sla_fwd"] + pgc["sla_fwd"]
+                     + puc["sla_fwd"]),
         "launches_by_path": {"serve": main_run["launches"],
                              "train": train["launches"]["sla_fwd"],
-                             "lm_prefill": lm["launches"]["sla_fwd"]},
+                             "lm_prefill": lm["launches"]["sla_fwd"],
+                             "lm_paged_prefill": pgc["sla_fwd"],
+                             "lm_unpaged_prefill": puc["sla_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": wan32["ms"], "plain_ms": wan32["plain_ms"],
         "bound_ms": wan32["bound_ms"], "bound_by": wan32["bound_by"],
@@ -1536,8 +2233,11 @@ def main(argv=None) -> int:
         "name": "sla_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sla_decode.cu",
         "replaces": "src/repro/kernels/sla_decode.py:52",
-        "launches": lm["launches"]["sla_decode"],
-        "launches_by_path": {"lm_decode": lm["launches"]["sla_decode"]},
+        "launches": (lm["launches"]["sla_decode"] + pgc["sla_decode"]
+                     + puc["sla_decode"]),
+        "launches_by_path": {"lm_decode": lm["launches"]["sla_decode"],
+                             "lm_paged_decode": pgc["sla_decode"],
+                             "lm_unpaged_decode": puc["sla_decode"]},
         "max_abs_err": max(r["max_abs_err"] for r in dec_rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1547,9 +2247,32 @@ def main(argv=None) -> int:
         "dense_sdpa_ms": sdpa_ms,
         "cases": dec_rows,
     })
-    say(f"[14] main path {main_run} | cross-check {cross} | grads {grads} | "
+    head5 = next(r for r in pg_rows if r["shape"] ==
+                 "qwen3-1.7b paged decode B=4" and r["dtype"] == "bf16")
+    kernels.append({
+        "name": "sla_decode_paged", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sla_decode.cu",
+        "replaces": "src/repro/kernels/sla_decode.py:181",
+        "launches": (lm["launches"]["sla_decode_paged"]
+                     + pgc["sla_decode_paged"] + puc["sla_decode_paged"]),
+        "launches_by_path": {"lm_decode": lm["launches"]["sla_decode_paged"],
+                             "lm_paged_decode": pgc["sla_decode_paged"],
+                             "lm_unpaged_decode": puc["sla_decode_paged"]},
+        "max_abs_err": max(r["max_abs_err"] for r in pg_rows),
+        "ms": head5["ms"], "plain_ms": head5["plain_ms"],
+        "bound_ms": head5["bound_ms"], "bound_by": head5["bound_by"],
+        "library_ms": None,
+        "library": "none: no PyTorch call computes O^l (the subtractive "
+                   "linear branch) with the sparse softmax",
+        "sla_decode_on_view_ms": head5["sla_decode_view_ms"],
+        "bitwise_vs_sla_decode": all(r.get("bitwise_vs_sla_decode", True)
+                                     for r in pg_rows),
+        "cases": pg_rows,
+    })
+    say(f"[18] main path {main_run} | cross-check {cross} | grads {grads} | "
         f"train {train} | train CLI {cli} | lm {lm} | lm cross-check "
-        f"{lm_cross} | total {time.time() - t_all:.1f}s")
+        f"{lm_cross} | paged lm {pg} | unpaged mixed {pu} | total "
+        f"{time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

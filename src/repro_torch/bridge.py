@@ -6,8 +6,10 @@ leaves are stacked over the layer axis (L, ...); the port keeps one
 them into a `state_dict` for `load_state_dict` of `models.dit.DiT` or
 `models.transformer.Transformer` (qk-norm, `sla_proj` and the routing
 dict included); `plan_from_numpy`
-turns a dict of plan leaves into an `SLAPlan`. The caller does the
-`np.asarray` on the JAX side: this module imports no JAX.
+turns a dict of plan leaves into an `SLAPlan`; `cache_from_numpy` carries
+a decode cache (monolithic, per-slot or paged, with or without decode-SLA
+state) into the port's cache dict. The caller does the `np.asarray` on
+the JAX side: this module imports no JAX.
 """
 from __future__ import annotations
 
@@ -21,6 +23,10 @@ from repro_torch.core.plan import PLAN_LEAVES, SLAPlan
 
 
 def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: exact through f32
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
@@ -51,3 +57,41 @@ def plan_from_numpy(leaves: Mapping, device=None) -> SLAPlan:
     dev = resolve_device(device)
     return SLAPlan(**{name: _tensor(leaves[name], dev)
                       for name in PLAN_LEAVES})
+
+
+def cache_from_numpy(tree: Mapping, device=None) -> dict:
+    """A reference decode cache (nested dict of numpy arrays; its SLAPlan
+    as an object with the six plan leaves, or a dict of them) -> the
+    port's cache dict, as `prefill`, `make_cache` or `make_paged_cache`
+    would hold it. A scalar `pos` (and decode-SLA `rows`) becomes a python
+    int; a (B,) `pos` an int32 tensor with its host mirror `pos_host`, and
+    (B,) `rows` an int32 tensor. Other leaves keep their dtypes (bf16
+    included)."""
+    dev = resolve_device(device)
+    out: dict = {}
+    for key, leaf in tree.items():
+        if key == "pos":
+            pos = np.asarray(leaf)
+            if pos.ndim == 0:
+                out["pos"] = int(pos)
+            else:
+                out["pos"] = _tensor(pos.astype(np.int32), dev)
+                out["pos_host"] = pos.astype(np.int64)
+        elif key == "sla":
+            st = {}
+            for name, val in leaf.items():
+                if name == "plan":
+                    st["plan"] = plan_from_numpy(
+                        {n: (val[n] if isinstance(val, Mapping)
+                             else getattr(val, n)) for n in PLAN_LEAVES},
+                        device=dev)
+                elif name == "rows" and np.asarray(val).ndim == 0:
+                    st["rows"] = int(np.asarray(val))
+                else:
+                    st[name] = _tensor(val, dev)
+            out["sla"] = st
+        elif isinstance(leaf, Mapping):  # the paged partials' pools
+            out[key] = {name: _tensor(val, dev) for name, val in leaf.items()}
+        else:
+            out[key] = _tensor(leaf, dev)
+    return out

@@ -12,9 +12,10 @@ the attention math given that plan. Three backends, all returning
 ("sla" / "sparse_only" / "linear_only" / "l_plus_s" / "full"), the phi
 feature maps, GQA head broadcast, and the learned Proj merge (Eq. 6).
 A second registry runs one decode token against the decode cache state
-(`decode_execute`; backends gather / reference / kernel). Counterpart of
-`repro.core.backends`; the paged helpers and `decode_execute_chunk` arrive
-with the paged LM scheduler (ROADMAP.md queue 1, item 14).
+(`decode_execute`; backends gather / reference / kernel), on monolithic
+or paged decode state. Counterpart of `repro.core.backends`;
+`decode_execute_chunk` (chunked decode) is not ported yet (ROADMAP.md
+queue 1, item 14).
 """
 from __future__ import annotations
 
@@ -160,6 +161,9 @@ def execute(plan: Optional[SLAPlan], params: Optional[Params],
 #   lut    : (B, H, K) int32     live row's critical block ids
 #   cnt    : (B, H)    int32     live entries in lut
 #   marg   : (B, H)    int32     live row's marginal block count
+# Paged state adds the page table pt (B, Tn) int32 and holds k, v, hblk
+# and zblk as the layer's page pools (P, Hkv, bkv, D) / (P, Hkv, D, D) /
+# (P, Hkv, D), read through pt[b, lut].
 # The linear branch is the subtractive aggregation (paper App. A.3),
 #   H_marg = htot - sum_{j in lut} hblk[j],
 # exact because decode plans classify with kl_frac = 0.
@@ -212,28 +216,82 @@ def _pos_view(pos, ndim: int, device):
     return p if p.ndim == 0 else p.reshape(-1, *(1,) * (ndim - 1))
 
 
-def _check_unpaged(state):
-    if "pt" in state:
-        raise NotImplementedError(
-            "paged decode state is not ported to repro_torch yet "
-            "(ROADMAP.md queue 1, item 14)")
+def _gather_pool(pool: torch.Tensor, idx: torch.Tensor, k_sel: int
+                 ) -> torch.Tensor:
+    """Paged analogue of `_gather_state`: pool (P, Hkv, ...) gathered by
+    PHYSICAL page ids idx (B, Hkv, G*K) -> (B, Hkv, G, K, ...).
+
+    The ids route the logical LUT through the page table (`plut =
+    pt[b, lut]`), so the gathered blocks are the ones the monolithic
+    layout would read. Dead LUT entries (beyond `cnt`) may name any live
+    page; as in the monolithic path they are masked to exact zeros."""
+    hkv = pool.shape[1]
+    hi = torch.arange(hkv, device=pool.device)[None, :, None]
+    out = pool[idx.long(), hi]
+    return out.reshape(out.shape[0], out.shape[1], -1, k_sel,
+                       *pool.shape[2:])
+
+
+def _physical_lut(pt: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """Logical block ids -> physical page ids: pt (B, Tn), lut
+    (B, H, K) -> (B, H, K)."""
+    b = torch.arange(pt.shape[0], device=pt.device)[:, None, None]
+    return pt[b, lut.long()]
+
+
+def gather_pages(pool: torch.Tensor, pt: torch.Tensor, axis: int = 0
+                 ) -> torch.Tensor:
+    """The monolithic per-block layout of a page pool (a copy): pool
+    (..., P, Hkv, X...), its page axis at `axis`, gathered through the
+    page table pt (B, Tn) -> (..., B, Hkv, Tn, X...)."""
+    g = pool.index_select(axis, pt.reshape(-1).long())
+    g = g.reshape(pool.shape[:axis] + pt.shape + pool.shape[axis + 1:])
+    return g.movedim(axis + 2, axis + 1)
+
+
+def _paged_dense_state(state):
+    """A monolithic decode-state slice from a paged one (page-gathered KV
+    and per-block partials, copies) for the backends that want the
+    contiguous layout (the dense reference oracle)."""
+    out = {k: v for k, v in state.items() if k != "pt"}
+    for key in ("k", "v", "hblk", "zblk"):
+        out[key] = gather_pages(state[key], state["pt"])
+    out["k"] = out["k"].flatten(-3, -2)  # (B, Hkv, Tn * bkv, Dh)
+    out["v"] = out["v"].flatten(-3, -2)
+    return out
 
 
 @register_decode_backend("gather")
 def _decode_gather_backend(state, qg, qpg, pos, cfg, scale):
-    """O(K * bkv * d) sparse + O(K * d^2) subtractive linear per token."""
-    _check_unpaged(state)
+    """O(K * bkv * d) sparse + O(K * d^2) subtractive linear per token.
+
+    Paged decode state (`"pt"` present) gathers the SAME K critical blocks
+    straight out of the page pools (P, Hkv, ...) through the page table:
+    physical ids replace logical ones at the gather and nowhere else (the
+    masking keeps the logical LUT), so paged and monolithic outputs are
+    bitwise equal."""
+    paged = "pt" in state
     kc, vc = state["k"], state["v"]
     bkv = cfg.block_kv
-    b, hkv, smax, d = kc.shape
-    tn = smax // bkv
+    if paged:
+        b, tn = state["pt"].shape
+        hkv, d = kc.shape[1], kc.shape[-1]
+    else:
+        b, hkv, smax, d = kc.shape
+        tn = smax // bkv
     dev = kc.device
     lutg = _group_heads(state["lut"], hkv)  # (B, Hkv, G, K)
     cntg = _group_heads(state["cnt"], hkv)  # (B, Hkv, G)
     k_sel = lutg.shape[-1]
-    idx = lutg.reshape(b, hkv, -1)
-    kg = _gather_state(kc.reshape(b, hkv, tn, bkv, d), idx, k_sel)
-    vg = _gather_state(vc.reshape(b, hkv, tn, bkv, d), idx, k_sel)
+    if paged:
+        idx = _group_heads(_physical_lut(state["pt"], state["lut"]),
+                           hkv).reshape(b, hkv, -1)
+        kg = _gather_pool(kc, idx, k_sel)
+        vg = _gather_pool(vc, idx, k_sel)
+    else:
+        idx = lutg.reshape(b, hkv, -1)
+        kg = _gather_state(kc.reshape(b, hkv, tn, bkv, d), idx, k_sel)
+        vg = _gather_state(vc.reshape(b, hkv, tn, bkv, d), idx, k_sel)
     s = torch.einsum("bngd,bngkvd->bngkv", qg, kg.float()) * scale
     cols = lutg[..., None] * bkv + torch.arange(bkv, device=dev)
     live = torch.arange(k_sel, device=dev) < cntg[..., None]
@@ -244,8 +302,9 @@ def _decode_gather_backend(state, qg, qpg, pos, cfg, scale):
     p = torch.exp(sf - m)
     o_s = torch.einsum("bngk,bngkd->bngd", p / p.sum(dim=-1, keepdim=True),
                        vg.reshape(b, hkv, -1, k_sel * bkv, d).float())
-    hg = _gather_state(state["hblk"], idx, k_sel)  # (B, Hkv, G, K, D, D)
-    zg = _gather_state(state["zblk"], idx, k_sel)  # (B, Hkv, G, K, D)
+    gather = _gather_pool if paged else _gather_state
+    hg = gather(state["hblk"], idx, k_sel)  # (B, Hkv, G, K, D, D)
+    zg = gather(state["zblk"], idx, k_sel)  # (B, Hkv, G, K, D)
     hg = torch.where(live[..., None, None], hg, torch.zeros_like(hg))
     zg = torch.where(live[..., None], zg, torch.zeros_like(zg))
     h_m = state["htot"][:, :, None] - hg.sum(dim=3)
@@ -274,8 +333,10 @@ def _decode_kernel_backend(state, qg, qpg, pos, cfg, scale):
 @register_decode_backend("reference")
 def _decode_reference_backend(state, qg, qpg, pos, cfg, scale):
     """Dense O(S) oracle: expands the live row's block structure to a token
-    mask and aggregates marginal blocks directly (validation)."""
-    _check_unpaged(state)
+    mask and aggregates marginal blocks directly (validation). Paged state
+    is made monolithic first (the oracle reads every position anyway)."""
+    if "pt" in state:
+        state = _paged_dense_state(state)
     kc, vc = state["k"], state["v"]
     b, hkv, smax, d = kc.shape
     bkv = cfg.block_kv
@@ -312,14 +373,17 @@ def decode_execute(state: Dict[str, torch.Tensor], params: Optional[Params],
     """One-token SLA attention against the decode cache state.
 
     q: (B, H, 1, D) the new token's query; `pos` its position, a python
-    int or an int tensor, scalar (every row shares it) or (B,). Returns
+    int or an int tensor, scalar (every row shares it) or (B,). Paged
+    state holds the page table `pt` (B, Tn) and pools k/v (P, Hkv, bkv,
+    D), hblk (P, Hkv, D, D), zblk (P, Hkv, D) in place of the per-slot
+    leaves. Returns
     (B, H, D) in q.dtype: O^s + Proj(O^l) under cfg.mode "sla", O^s alone
     under "sparse_only"."""
     backend = resolve_decode(backend)
     cfg.validate()
     in_dtype = q.dtype
     b, h, _, d = q.shape
-    hkv = state["k"].shape[1]
+    hkv = state["k"].shape[1]  # (B, Hkv, ...) or a (P, Hkv, ...) pool
     scale = (d**-0.5) if scale is None else scale
     qg = _group_heads(q[:, :, 0, :].float(), hkv)
     qpg = _group_heads(phi(q[:, :, 0, :], cfg.phi), hkv)

@@ -170,7 +170,8 @@ def empty_plan(cfg: SLAConfig, batch: int, heads: int, tm: int, tn: int,
     return plan_from_mask(mc, cfg)
 
 
-def plan_extend(plan: SLAPlan, mc_row: torch.Tensor, row: int) -> SLAPlan:
+def plan_extend(plan: SLAPlan, mc_row: torch.Tensor, row,
+                append: Optional[torch.Tensor] = None) -> SLAPlan:
     """Append query-block row `row` to a plan: O(Tn * K), no rebuild.
 
     mc_row: (..., Tn) int8 classification of row `row`. Unlike the
@@ -180,11 +181,21 @@ def plan_extend(plan: SLAPlan, mc_row: torch.Tensor, row: int) -> SLAPlan:
     unwritten row (rows are appended in order, each once), so the column
     LUT update is an append at each column's fill level.
 
+    Per-slot form (the reference's vmapped use in continuous decode):
+    with `append` a (B,) bool tensor, the plan's leaves are (B, H, ...),
+    mc_row is (B, H, Tn) and `row` a (B,) int tensor; slot b's row is
+    written only where append[b] is set, each slot at its own row and
+    each column at that slot's own fill level. A row past the grid (a
+    runaway inactive slot) lands on the last row, as the reference's
+    clamped dynamic_update_slice does.
+
     Contract (the reference's): from `empty_plan`, appending rows 0..R-1
     of a classification M_c reproduces `plan_from_mask(M_c)` on mc, lut,
     counts, col_counts, marginal and every live col_lut slot (slot <
     col_counts); dead col_lut padding may differ and nothing reads it.
     """
+    if append is not None:
+        return _plan_extend_slots(plan, mc_row, row, append)
     mc_row = mc_row.to(plan.mc.dtype)
     plan.mc[..., row, :] = mc_row
     lut_r, cnt_r = build_lut(mc_row[..., None, :], plan.k_sel)
@@ -199,6 +210,35 @@ def plan_extend(plan: SLAPlan, mc_row: torch.Tensor, row: int) -> SLAPlan:
     plan.col_lut.masked_fill_(write, row)
     cc += can.to(cc.dtype)
     plan.marginal[..., row, :] = (mc_row == 0).to(plan.marginal.dtype)
+    return plan
+
+
+def _plan_extend_slots(plan: SLAPlan, mc_row: torch.Tensor,
+                       row: torch.Tensor, append: torch.Tensor) -> SLAPlan:
+    """`plan_extend` per slot, in place: leaves (B, H, ...), mc_row
+    (B, H, Tn), row (B,) and append (B,) bool tensors."""
+    mc_row = mc_row.to(plan.mc.dtype)
+    b = torch.arange(mc_row.shape[0], device=mc_row.device)
+    r = row.long().clamp(0, plan.num_q_blocks - 1)
+    on = append[:, None, None]
+
+    def put(leaf, new):  # leaf[b, :, r[b]] = new[b] where append[b]
+        leaf[b, :, r] = torch.where(on, new.to(leaf.dtype), leaf[b, :, r])
+
+    put(plan.mc, mc_row)
+    lut_r, cnt_r = build_lut(mc_row[..., None, :], plan.k_sel)
+    put(plan.lut, lut_r[..., 0, :])
+    leaf = plan.counts
+    leaf[b, :, r] = torch.where(append[:, None], cnt_r[..., 0],
+                                leaf[b, :, r])
+    put(plan.marginal, mc_row == 0)
+    cc = plan.col_counts
+    can = (mc_row == 1) & (cc < plan.w_col) & on
+    slot = torch.arange(plan.w_col, dtype=cc.dtype, device=cc.device)
+    write = can[..., None] & (slot == cc[..., None])
+    rows = row.to(plan.col_lut.dtype)[:, None, None, None]
+    plan.col_lut.copy_(torch.where(write, rows, plan.col_lut))
+    cc += can.to(cc.dtype)
     return plan
 
 

@@ -1,7 +1,7 @@
 """Training fault tolerance: step-time straggler detection and the
 non-finite-loss guard. Counterpart of `repro.distributed.fault_tolerance`
 (`StragglerWatchdog`, `NaNGuard`); the serving fault plans arrive with
-the LM serving slice (ROADMAP.md queue 1, item 14).
+disaggregated serving (ROADMAP.md queue 1, item 14).
 """
 from __future__ import annotations
 

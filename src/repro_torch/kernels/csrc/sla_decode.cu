@@ -1,9 +1,13 @@
-// Fused SLA decode kernel for Hopper (sm_90a): for each decode token, the
+// Fused SLA decode kernels for Hopper (sm_90a): for each decode token, the
 // sparse softmax over the live plan row's critical KV blocks plus the
 // subtractive linear branch against the running H/Z state.
 //
-// Replaces the Pallas TPU kernel `_decode_kernel` in
-// src/repro/kernels/sla_decode.py:52 (launched by `_fused_decode`, :172).
+// Replaces two Pallas TPU kernels with one templated body:
+//   `_decode_kernel` in src/repro/kernels/sla_decode.py:52 (launched by
+//   `_fused_decode`, :172): monolithic per-slot K/V/hblk/zblk;
+//   `_decode_kernel_paged` in src/repro/kernels/sla_decode.py:181
+//   (launched by `_fused_decode_paged`, :255): K/V/hblk/zblk read from the
+//   global page pools at page pt[b, j] for logical block j of slot b.
 // For each (batch*head bh, chunk token c) at position p = pos[bh] + c it
 // computes, over the cnt[bh,c] blocks J = lut[bh,c,:cnt]:
 //   O^s = softmax(q K_J^T * scale) V_J   with columns j*bkv + t <= p,
@@ -38,10 +42,24 @@
 // 16-byte (f32) or 8-byte (bf16) coalesced vector load and a block keeps a
 // whole 64 KB H tile in flight. K, V, hblk and zblk are addressed through
 // explicit head and block strides with the block id read from the LUT, so
-// the paged variant (`_decode_kernel_paged`) only swaps in the page id and
-// the pool strides. Occupancy: one block per (bh, c), so B H C blocks (32
-// at batch 2) on 132 SMs; a split of the LUT walk over several blocks with
-// a combine pass (flash-decoding) is the next step for speed.
+// the paged variant only swaps in the page id and the pool strides.
+// Occupancy: one block per (bh, c), so B H C blocks (32 at batch 2, 64 at
+// batch 4) on 132 SMs; a split of the LUT walk over several blocks with a
+// combine pass (flash-decoding) is the next step for speed.
+//
+// Paged decode (`pt` given, single token, live row). The logical block
+// id j = lut[s] drives the column mask and the diagonal test; the
+// physical page pt[b * tn + j], b = bh / heads, drives the addresses. The
+// page is looked up here, not gathered into a `plut` operand by the
+// wrapper (one launch and one allocation fewer per layer). The pools stay
+// where they are, (P, Hkv, ...) per layer: the kv head stride is one
+// page's head slab and the page stride Hkv of them, and the kv head is
+// (bh / group) % hkv. The diagonal block's partial is the pool's own
+// (hdiag null) and the totals are one running total per (b, kv head).
+// Both ids are clamped into range (j to [0, tn), the page to [0, pages)),
+// so a runaway inactive slot past max_len reads garbage, never out of
+// bounds. With one body, the paged kernel on the pools and the monolithic
+// one on the gathered view sum in the same order: bitwise equal.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -82,7 +100,9 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
+// kPaged selects the page-table addressing at compile time, so that the
+// monolithic instantiation carries no per-slot branch or page load.
+template <typename T, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
     sla_decode_kernel(const int32_t* __restrict__ lut,
                       const int32_t* __restrict__ cnt,
@@ -97,9 +117,11 @@ __global__ void __launch_bounds__(kThreads)
                       const float* __restrict__ zdiag,
                       const float* __restrict__ htot,
                       const float* __restrict__ ztot,
+                      const int32_t* __restrict__ pt,
                       float* __restrict__ o_s, float* __restrict__ o_l,
-                      int c_len, int k_sel, int tn, int d, int block_kv,
-                      int group, float scale, long long kv_head_stride,
+                      int c_len, int k_sel, int tn, int num_blocks, int d,
+                      int block_kv, int group, int heads, int kv_mod,
+                      float scale, long long kv_head_stride,
                       long long kv_blk_stride, long long h_head_stride,
                       long long h_blk_stride, long long z_head_stride,
                       long long z_blk_stride, int tot_per_token) {
@@ -115,10 +137,12 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int kvh = bh / group;
-  const size_t tok = (size_t)bh * c_len + c;     // q, lut, outputs row
-  const size_t kvtok = (size_t)kvh * c_len + c;  // hdiag row
-  const size_t totrow = tot_per_token ? kvtok : (size_t)kvh;  // htot row
+  const int kvrow = bh / group;     // per-token kv-operand row (htot, hdiag)
+  const int kvh = kPaged ? kvrow % kv_mod : kvrow;  // in the K/V layout
+  const size_t tok = (size_t)bh * c_len + c;       // q, lut, outputs row
+  const size_t kvtok = (size_t)kvrow * c_len + c;  // hdiag row
+  const size_t totrow = tot_per_token ? kvtok : (size_t)kvrow;  // htot row
+  const int32_t* pt_row = kPaged ? pt + (size_t)(bh / heads) * tn : nullptr;
   const int pos = posv[bh] + c;
   const int diag = pos / block_kv;
   const int col0 = 4 * lane;  // this lane's 4 head-dim columns
@@ -142,13 +166,20 @@ __global__ void __launch_bounds__(kThreads)
   for (int s = 0; s < n; ++s) {
     int j = lut_row[s];
     j = j < 0 ? 0 : (j < tn ? j : tn - 1);  // memory-safe on a bad LUT
-    const T* kj = k_head + j * kv_blk_stride;
-    const T* vj = v_head + j * kv_blk_stride;
+    int blk = j;  // the block's storage: itself, or its physical page
+    if (kPaged) {
+      blk = pt_row[j];
+      blk = blk < 0 ? 0 : (blk < num_blocks ? blk : num_blocks - 1);
+    }
+    const T* kj = k_head + blk * kv_blk_stride;
+    const T* vj = v_head + blk * kv_blk_stride;
     const bool is_diag = hdiag != nullptr && j == diag;
-    const float* hj = is_diag ? hdiag + kvtok * d * d
-                              : hblk + kvh * h_head_stride + j * h_blk_stride;
-    const float* zj = is_diag ? zdiag + kvtok * d
-                              : zblk + kvh * z_head_stride + j * z_blk_stride;
+    const float* hj = is_diag
+        ? hdiag + kvtok * d * d
+        : hblk + kvh * h_head_stride + blk * h_blk_stride;
+    const float* zj = is_diag
+        ? zdiag + kvtok * d
+        : zblk + kvh * z_head_stride + blk * z_blk_stride;
 
     // scores: warp w takes keys w, w + 8, ...; lanes split the head dim
 #pragma unroll 4
@@ -257,20 +288,52 @@ int launch(const int32_t* lut, const int32_t* cnt, const int32_t* marg,
            const int32_t* posv, const float* q, const float* qp,
            const void* k, const void* v, const float* hblk,
            const float* zblk, const float* hdiag, const float* zdiag,
-           const float* htot, const float* ztot, float* o_s, float* o_l,
-           int bh_q, int c_len, int k_sel, int tn, int d, int block_kv,
-           int group, float scale, long long kv_head_stride,
+           const float* htot, const float* ztot, const int32_t* pt,
+           float* o_s, float* o_l, int bh_q, int c_len, int k_sel, int tn,
+           int num_blocks, int d, int block_kv, int group, int heads,
+           int kv_mod, float scale, long long kv_head_stride,
            long long kv_blk_stride, long long h_head_stride,
            long long h_blk_stride, long long z_head_stride,
            long long z_blk_stride, int tot_per_token, cudaStream_t stream) {
   const dim3 grid(c_len, bh_q);
-  sla_decode_kernel<T><<<grid, kThreads, 0, stream>>>(
+  auto kernel = pt != nullptr ? sla_decode_kernel<T, true>
+                              : sla_decode_kernel<T, false>;
+  kernel<<<grid, kThreads, 0, stream>>>(
       lut, cnt, marg, posv, q, qp, static_cast<const T*>(k),
-      static_cast<const T*>(v), hblk, zblk, hdiag, zdiag, htot, ztot, o_s,
-      o_l, c_len, k_sel, tn, d, block_kv, group, scale, kv_head_stride,
-      kv_blk_stride, h_head_stride, h_blk_stride, z_head_stride,
-      z_blk_stride, tot_per_token);
+      static_cast<const T*>(v), hblk, zblk, hdiag, zdiag, htot, ztot, pt,
+      o_s, o_l, c_len, k_sel, tn, num_blocks, d, block_kv, group, heads,
+      kv_mod, scale, kv_head_stride, kv_blk_stride, h_head_stride,
+      h_blk_stride, z_head_stride, z_blk_stride, tot_per_token);
   return (int)cudaGetLastError();
+}
+
+int launch_any(int is_bf16, const int32_t* lut, const int32_t* cnt,
+               const int32_t* marg, const int32_t* posv, const float* q,
+               const float* qp, const void* k, const void* v,
+               const float* hblk, const float* zblk, const float* hdiag,
+               const float* zdiag, const float* htot, const float* ztot,
+               const int32_t* pt, float* o_s, float* o_l, int bh_q,
+               int c_len, int k_sel, int tn, int num_blocks, int d,
+               int block_kv, int group, int heads, int kv_mod, float scale,
+               long long kv_head_stride, long long kv_blk_stride,
+               long long h_head_stride, long long h_blk_stride,
+               long long z_head_stride, long long z_blk_stride,
+               int tot_per_token, void* stream) {
+  if (d > kMaxD || d % 4 || block_kv > kMaxBlock || block_kv < 1 ||
+      (hdiag == nullptr) != (zdiag == nullptr) || group < 1 || kv_mod < 1 ||
+      heads < 1 || num_blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto tag) {
+    using T = decltype(tag);
+    return launch<T>(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag,
+                     zdiag, htot, ztot, pt, o_s, o_l, bh_q, c_len, k_sel,
+                     tn, num_blocks, d, block_kv, group, heads, kv_mod,
+                     scale, kv_head_stride, kv_blk_stride, h_head_stride,
+                     h_blk_stride, z_head_stride, z_blk_stride,
+                     tot_per_token, st);
+  };
+  return is_bf16 ? go(__nv_bfloat16()) : go(float());
 }
 
 }  // namespace
@@ -297,21 +360,41 @@ extern "C" int sla_decode_launch(
     long long kv_blk_stride, long long h_head_stride, long long h_blk_stride,
     long long z_head_stride, long long z_blk_stride, int tot_per_token,
     int is_bf16, void* stream) {
-  if (d > kMaxD || d % 4 || block_kv > kMaxBlock || block_kv < 1 ||
-      (hdiag == nullptr) != (zdiag == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(
-        lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag, htot,
-        ztot, o_s, o_l, bh_q, c_len, k_sel, tn, d, block_kv, group, scale,
-        kv_head_stride, kv_blk_stride, h_head_stride, h_blk_stride,
-        z_head_stride, z_blk_stride, tot_per_token, st);
-  return launch<float>(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag,
-                       zdiag, htot, ztot, o_s, o_l, bh_q, c_len, k_sel, tn,
-                       d, block_kv, group, scale, kv_head_stride,
-                       kv_blk_stride, h_head_stride, h_blk_stride,
-                       z_head_stride, z_blk_stride, tot_per_token, st);
+  const int bh_kv = group > 0 ? bh_q / group : 0;
+  return launch_any(is_bf16, lut, cnt, marg, posv, q, qp, k, v, hblk, zblk,
+                    hdiag, zdiag, htot, ztot, nullptr, o_s, o_l, bh_q, c_len,
+                    k_sel, tn, tn, d, block_kv, group, 1, bh_kv, scale,
+                    kv_head_stride, kv_blk_stride, h_head_stride,
+                    h_blk_stride, z_head_stride, z_blk_stride, tot_per_token,
+                    stream);
+}
+
+// The paged kernel (single token, live row). lut, cnt, marg, q, qp and the
+// outputs have one row per bh = b * heads + h, heads = group * hkv; posv
+// one entry per bh; pt is (B, tn) int32 with rows b = bh / heads; htot,
+// ztot one running total per (b, kv head), row bh / group. k and v are the
+// layer's pools (pages, hkv, block_kv, d), hblk (pages, hkv, d, d) and zblk
+// (pages, hkv, d), addressed as base + ((bh / group) % hkv) * head_stride +
+// page * page_stride (elements), rows of d contiguous elements. Same
+// limits and return value as sla_decode_launch.
+extern "C" int sla_decode_paged_launch(
+    const int32_t* lut, const int32_t* pt, const int32_t* cnt,
+    const int32_t* marg, const int32_t* posv, const float* q,
+    const float* qp, const void* k, const void* v, const float* hblk,
+    const float* zblk, const float* htot, const float* ztot, float* o_s,
+    float* o_l, int bh_q, int k_sel, int tn, int num_pages, int d,
+    int block_kv, int group, int hkv, float scale,
+    long long kv_head_stride, long long kv_page_stride,
+    long long h_head_stride, long long h_page_stride,
+    long long z_head_stride, long long z_page_stride, int is_bf16,
+    void* stream) {
+  if (pt == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_any(is_bf16, lut, cnt, marg, posv, q, qp, k, v, hblk, zblk,
+                    nullptr, nullptr, htot, ztot, pt, o_s, o_l, bh_q, 1,
+                    k_sel, tn, num_pages, d, block_kv, group, group * hkv,
+                    hkv, scale, kv_head_stride, kv_page_stride,
+                    h_head_stride, h_page_stride, z_head_stride,
+                    z_page_stride, 0, stream);
 }
 
 extern "C" const char* sla_decode_error_string(int err) {

@@ -1,8 +1,9 @@
-"""Fused SLA decode: the CUDA kernel `csrc/sla_decode.cu`, its plain twin,
-its launch counter, and the public `decode_attention` entry.
+"""Fused SLA decode: the CUDA kernels of `csrc/sla_decode.cu`, their plain
+twins, their launch counters, and the public `decode_attention` entry.
 
-Counterpart of the Pallas TPU kernel `repro.kernels.sla_decode._decode_kernel`
-(via `_fused_decode`) and of `decode_attention`. One launch covers a chunk
+Counterpart of the Pallas TPU kernels `repro.kernels.sla_decode._decode_kernel`
+(via `_fused_decode`) and `_decode_kernel_paged` (via `_fused_decode_paged`
+and `_decode_attention_paged`), and of `decode_attention`. One launch covers a chunk
 of C decode tokens (C = 1 is a plain `decode_step`): for each (batch*head,
 token c) at position pos + c it runs online softmax over the live row's
 critical KV blocks (columns <= pos + c) and the subtractive linear branch
@@ -20,8 +21,13 @@ denominator is <= 1e-6.
 and nothing else. `decode_attention` is differentiable through a
 `torch.autograd.Function` whose backward is autograd over the plain twin,
 as the reference's `custom_vjp` is JAX autodiff over `_decode_math`.
-Paged decode state (`"pt"`, the `_decode_kernel_paged` path) is not
-ported yet (ROADMAP.md queue 1, item 14).
+
+Paged decode state (a page table `"pt"` (B, Tn) and the layer's page
+pools in place of the per-slot leaves) goes to `sla_decode_paged`: the
+same kernel body with K/V/hblk/zblk read from the pools at page
+pt[b, lut] (masking on the logical ids), single-token only, counted by
+`PAGED_LAUNCHES` apart from `LAUNCHES`; its twin is
+`sla_decode_paged_plain`. Serving never differentiates it.
 """
 from __future__ import annotations
 
@@ -35,10 +41,12 @@ from repro_torch.core.config import SLAConfig
 from repro_torch.kernels.sla_fwd import EPS, NEG_INF, check_operands
 
 LAUNCHES = 0  # kernel launches in this process (plain-twin calls excluded)
+PAGED_LAUNCHES = 0  # the paged kernel's launches, counted apart
 
 _I, _F, _P, _L = ctypes.c_int, ctypes.c_float, ctypes.c_void_p, \
     ctypes.c_longlong
 _ARGTYPES = [_P] * 16 + [_I] * 7 + [_F] + [_L] * 6 + [_I, _I, _P]
+_PAGED_ARGTYPES = [_P] * 15 + [_I] * 8 + [_F] + [_L] * 6 + [_I, _P]
 
 
 @functools.cache
@@ -47,6 +55,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("sla_decode")
     lib.sla_decode_launch.argtypes = _ARGTYPES
     lib.sla_decode_launch.restype = ctypes.c_int
+    lib.sla_decode_paged_launch.argtypes = _PAGED_ARGTYPES
+    lib.sla_decode_paged_launch.restype = ctypes.c_int
     lib.sla_decode_error_string.argtypes = [ctypes.c_int]
     lib.sla_decode_error_string.restype = ctypes.c_char_p
     return lib
@@ -162,20 +172,38 @@ def sla_decode_plain(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag,
     """Plain-PyTorch twin of the kernel (the reference's `_decode_math` on
     the flat layout): gather the K selected blocks of every (bh, c), mask
     dead slots and columns past pos + c, one softmax over K * bkv scores,
-    and the subtractive linear branch with the diagonal substitution.
+    and the subtractive linear branch with the diagonal substitution. A
+    block id outside [0, Tn) is clamped into it, as the kernel does.
     Same arguments and outputs as `sla_decode`; arithmetic in f32;
     differentiable with respect to every float input."""
+    kvh = (torch.arange(lut.shape[0], device=q.device) // group)[
+        :, None, None]
+    j = lut.long().clamp(0, k.shape[1] - 1)  # (BH, C, K), as the kernel
+    blocks = (k[kvh, j], v[kvh, j], hblk[kvh, j], zblk[kvh, j])
+    return _plain_math(j.to(lut.dtype), cnt, marg, posv, q, qp, blocks,
+                       hdiag, zdiag, htot, ztot, scale, block_kv, group)
+
+
+def _plain_math(lut, cnt, marg, posv, q, qp, blocks, hdiag, zdiag, htot,
+                ztot, scale, block_kv, group):
+    """The twins' shared math on gathered blocks: kg, vg (BH, C, K, bkv,
+    D) and hg (BH, C, K, D, D), zg (BH, C, K, D), the K selected blocks
+    of every (bh, c)."""
     bh, c, k_sel = lut.shape
     dev = q.device
     bkv = block_kv
     kvh = (torch.arange(bh, device=dev) // group)[:, None, None]
     j = lut.long()  # (BH, C, K)
-    kg = k[kvh, j].float()  # (BH, C, K, bkv, D)
-    vg = v[kvh, j].float()
+    kg, vg, hg, zg = blocks
+    kg = kg.float()  # (BH, C, K, bkv, D)
     s = torch.einsum("bcd,bckvd->bckv", q.float(), kg) * scale
     pos_tok = posv.long()[:, None] + torch.arange(c, device=dev)  # (BH, C)
     cols = j[..., None] * bkv + torch.arange(bkv, device=dev)
     live = torch.arange(k_sel, device=dev) < cnt[..., None]  # (BH, C, K)
+    # dead slots contribute exact zeros, whatever their blocks hold (the
+    # kernel never reads them)
+    vg = torch.where(live[..., None, None], vg.float(),
+                     torch.zeros((), device=dev))
     ok = (cols <= pos_tok[..., None, None]) & live[..., None]
     sf = torch.where(ok, s, torch.full_like(s, NEG_INF)).reshape(
         bh, c, k_sel * bkv)
@@ -186,7 +214,6 @@ def sla_decode_plain(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag,
     # subtractive marginal aggregation; the in-flight diagonal block reads
     # its per-token partial where one is given
     kv1 = kvh[:, 0, 0]
-    hg, zg = hblk[kvh, j], zblk[kvh, j]
     if hdiag is not None:
         is_diag = j == (pos_tok // bkv)[..., None]  # (BH, C, K)
         hg = torch.where(is_diag[..., None, None], hdiag[kv1][:, :, None],
@@ -208,6 +235,157 @@ def sla_decode_plain(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag,
                       torch.zeros_like(num))
     o_l = torch.where(marg[..., None] > 0, o_l, torch.zeros_like(o_l))
     return o_s, o_l
+
+
+def sla_decode_paged(lut, pt, cnt, marg, posv, q, qp, k, v, hblk, zblk,
+                     htot, ztot, *, scale: float, block_kv: int, group: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the paged decode kernel (`_decode_kernel_paged`'s counterpart,
+    single token, live row) on the layer's page pools in place.
+
+    Args:
+      lut:    (BH, 1, K) int32 LOGICAL block ids of the live row (padded
+              slots repeat the first); cnt, marg: (BH, 1) int32; posv:
+              (BH,) int32 positions. Row bh = b * H + h.
+      pt:     (B, Tn) int32 page table: logical block j of slot b lives in
+              page pt[b, j].
+      q, qp:  (BH, 1, D) f32 (qp = phi(q)).
+      k, v:   (P, Hkv, bkv, D) f32 or bf16 page pools, any page and head
+              strides (rows of D contiguous); hblk (P, Hkv, D, D) f32,
+              zblk (P, Hkv, D) f32 likewise. q head h reads kv head
+              (h // group) % Hkv.
+      htot, ztot: (B * Hkv, D, D) / (B * Hkv, D) f32 running totals.
+
+    Returns (o_s, o_l), both (BH, 1, D) f32. CPU tensors run
+    `sla_decode_paged_plain`; CUDA tensors launch the kernel (a refused
+    operand or a failed launch raises; there is no fallback)."""
+    args = (lut, pt, cnt, marg, posv, q, qp, k, v, hblk, zblk, htot, ztot)
+    kw = dict(scale=scale, block_kv=block_kv, group=group)
+    if q.device.type == "cpu":
+        return sla_decode_paged_plain(*args, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"sla_decode_paged runs on CUDA or CPU tensors, got "
+                         f"{q.device}")
+    return _launch_paged(*args, **kw)
+
+
+def _check_paged(lut, pt, cnt, marg, posv, q, qp, k, v, hblk, zblk, htot,
+                 ztot, block_kv, group):
+    name = "sla_decode_paged"
+    ts = dict(lut=lut, pt=pt, cnt=cnt, marg=marg, posv=posv, q=q, qp=qp,
+              k=k, v=v, hblk=hblk, zblk=zblk, htot=htot, ztot=ztot)
+    for key, t in ts.items():
+        if t.device != q.device:
+            raise ValueError(f"{name}: {key} is on {t.device}, q on "
+                             f"{q.device}")
+    for key in ("lut", "pt", "cnt", "marg", "posv"):
+        if ts[key].dtype != torch.int32:
+            raise TypeError(f"{name}: {key} must be int32")
+    for key in ("q", "qp", "hblk", "zblk", "htot", "ztot"):
+        if ts[key].dtype != torch.float32:
+            raise TypeError(f"{name}: {key} must be float32")
+    if k.dtype not in (torch.float32, torch.bfloat16) or v.dtype != k.dtype:
+        raise TypeError(f"{name}: k and v must share float32 or bfloat16")
+    if k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"{name}: k and v must be (P, Hkv, bkv, D) pools")
+    npages, hkv, bkv, d = k.shape
+    if bkv != block_kv:
+        raise ValueError(f"{name}: k pages of {bkv} rows, block_kv "
+                         f"{block_kv}")
+    if d > 128 or d % 4 or not 1 <= bkv <= 64:
+        raise ValueError(f"{name} kernel takes head dims <= 128 that are "
+                         f"multiples of 4 and blocks of 1..64, got D {d}, "
+                         f"bkv {bkv}")
+    if pt.ndim != 2:
+        raise ValueError(f"{name}: pt must be (B, Tn), got "
+                         f"{tuple(pt.shape)}")
+    b, tn = pt.shape
+    bh = q.shape[0]
+    if lut.ndim != 3 or lut.shape[0] != bh or lut.shape[1] != 1 \
+            or lut.shape[2] < 1:
+        raise ValueError(f"{name}: lut must be ({bh}, 1, K>=1), got "
+                         f"{tuple(lut.shape)}")
+    if bh != b * hkv * group:
+        raise ValueError(f"{name}: {bh} q rows are not B {b} x {hkv} kv "
+                         f"heads x group {group} (pt {tuple(pt.shape)})")
+    want = dict(cnt=(bh, 1), marg=(bh, 1), posv=(bh,), q=(bh, 1, d),
+                qp=(bh, 1, d), hblk=(npages, hkv, d, d),
+                zblk=(npages, hkv, d), htot=(b * hkv, d, d),
+                ztot=(b * hkv, d))
+    for key, shape in want.items():
+        if tuple(ts[key].shape) != shape:
+            raise ValueError(f"{name}: {key} is {tuple(ts[key].shape)}, "
+                             f"expected {shape}")
+    for key in ("lut", "pt", "cnt", "marg", "posv", "q", "qp", "htot",
+                "ztot"):
+        if not ts[key].is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+    # the pools are read in place: rows of D contiguous elements, rows of a
+    # block D apart, head and page strides that keep 16-byte loads aligned
+    for key, rows in (("k", True), ("v", True), ("hblk", True),
+                      ("zblk", False)):
+        t = ts[key]
+        if t.stride(-1) != 1 or (rows and t.stride(-2) != d):
+            raise ValueError(f"{name}: {key} must hold rows of {d} "
+                             f"contiguous elements, got strides "
+                             f"{tuple(t.stride())}")
+        if t.stride(0) % 4 or t.stride(1) % 4:
+            raise ValueError(f"{name}: {key}'s page and head strides "
+                             f"{tuple(t.stride()[:2])} must be multiples "
+                             f"of 4 elements")
+    for key in ("q", "qp", "k", "v", "hblk", "zblk", "htot", "ztot"):
+        if ts[key].data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be 16-byte aligned")
+
+
+def _launch_paged(lut, pt, cnt, marg, posv, q, qp, k, v, hblk, zblk, htot,
+                  ztot, *, scale, block_kv, group):
+    global PAGED_LAUNCHES
+    _check_paged(lut, pt, cnt, marg, posv, q, qp, k, v, hblk, zblk, htot,
+                 ztot, block_kv, group)
+    lib = _lib()
+    bh, _, d = q.shape
+    o_s = torch.empty((bh, 1, d), dtype=torch.float32, device=q.device)
+    o_l = torch.empty_like(o_s)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sla_decode_paged_launch(
+            lut.data_ptr(), pt.data_ptr(), cnt.data_ptr(), marg.data_ptr(),
+            posv.data_ptr(), q.data_ptr(), qp.data_ptr(), k.data_ptr(),
+            v.data_ptr(), hblk.data_ptr(), zblk.data_ptr(), htot.data_ptr(),
+            ztot.data_ptr(), o_s.data_ptr(), o_l.data_ptr(), bh,
+            lut.shape[-1], pt.shape[1], k.shape[0], d, block_kv, group,
+            k.shape[1], float(scale), k.stride(1), k.stride(0),
+            hblk.stride(1), hblk.stride(0), zblk.stride(1), zblk.stride(0),
+            int(k.dtype == torch.bfloat16), stream)
+    if err != 0:
+        msg = lib.sla_decode_error_string(err).decode()
+        raise RuntimeError(f"sla_decode_paged kernel launch failed: CUDA "
+                           f"error {err} ({msg})")
+    PAGED_LAUNCHES += 1
+    return o_s, o_l
+
+
+def sla_decode_paged_plain(lut, pt, cnt, marg, posv, q, qp, k, v, hblk,
+                           zblk, htot, ztot, *, scale: float, block_kv: int,
+                           group: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-PyTorch twin of the paged kernel: `sla_decode_plain` with the
+    gathers routed through pt[b, lut] into the pools (the logical ids, as
+    the kernel clamps them, keep the masking), the live row's diagonal
+    block read from its page, one running total per (b, kv head). Same
+    arguments and outputs as `sla_decode_paged`."""
+    bh = lut.shape[0]
+    b, tn = pt.shape
+    hkv = k.shape[1]
+    dev = q.device
+    rows = torch.arange(bh, device=dev)
+    slot = (rows // (bh // b))[:, None, None]
+    kvh = ((rows // group) % hkv)[:, None, None]
+    j = lut.long().clamp(0, tn - 1)
+    page = pt.long()[slot, j].clamp(0, k.shape[0] - 1)  # (BH, 1, K)
+    blocks = (k[page, kvh], v[page, kvh], hblk[page, kvh], zblk[page, kvh])
+    return _plain_math(j.to(lut.dtype), cnt, marg, posv, q, qp, blocks,
+                       None, None, htot, ztot, scale, block_kv, group)
 
 
 def _flat_args(q, qp, kc, vc, hblk, zblk, hdiag, zdiag, htot, ztot, lut,
@@ -295,11 +473,8 @@ def decode_operands(state, qg, qpg, pos):
     pass through as they are, for the kernel reads them in place (the
     reference slices hdiag from hblk, the same numbers). Arguments as
     `decode_attention`. Returns (q, qp, k, v, hblk, zblk, hdiag, zdiag,
-    htot, ztot, lut, cnt, marg, posv)."""
-    if "pt" in state:
-        raise NotImplementedError(
-            "paged decode state (the _decode_kernel_paged path) is not "
-            "ported to repro_torch yet (ROADMAP.md queue 1, item 14)")
+    htot, ztot, lut, cnt, marg, posv). Monolithic state only: paged state
+    goes to `_decode_attention_paged`."""
     b, hkv, g, cdim, _ = qg.shape
     dev = qg.device
     lut, cnt, marg = state["lut"], state["cnt"], state["marg"]
@@ -320,6 +495,42 @@ def decode_operands(state, qg, qpg, pos):
             posv)
 
 
+def _decode_attention_paged(state, qg, qpg, pos, scale: float):
+    """Paged entry: one launch of `sla_decode_paged` against the layer's
+    page pools, in place (no gathered `plut`, no copy of a pool; the
+    kernel looks the pages up). Single-token steps only (the chunked path
+    snapshots per-token state the paged scheduler never builds). The
+    reference passes the live block's partial as hdiag; that is the
+    pool's own block, which the kernel reads in place. Returns (o_s,
+    o_l), both (B, Hkv, G, 1, D) f32."""
+    b, hkv, g, cdim, d = qg.shape
+    if cdim != 1:
+        raise ValueError("paged fused decode supports single-token steps "
+                         f"only (got chunk of {cdim})")
+    bh = b * hkv * g
+    k_sel = state["lut"].shape[-1]
+    if not torch.is_tensor(pos):  # a fill, not a host-to-device copy
+        posv = torch.full((b,), int(pos), dtype=torch.int32,
+                          device=qg.device)
+    else:
+        posv = torch.broadcast_to(pos.to(device=qg.device,
+                                          dtype=torch.int32), (b,))
+    o_s, o_l = sla_decode_paged(
+        state["lut"].reshape(bh, 1, k_sel).int().contiguous(),
+        state["pt"].int().contiguous(),
+        state["cnt"].reshape(bh, 1).int().contiguous(),
+        state["marg"].reshape(bh, 1).int().contiguous(),
+        posv.repeat_interleave(hkv * g).contiguous(),
+        qg.float().reshape(bh, 1, d).contiguous(),
+        qpg.float().reshape(bh, 1, d).contiguous(),
+        state["k"], state["v"], state["hblk"], state["zblk"],
+        state["htot"].reshape(b * hkv, d, d),
+        state["ztot"].reshape(b * hkv, d),
+        scale=scale, block_kv=state["k"].shape[2], group=g)
+    shape = (b, hkv, g, 1, d)
+    return o_s.reshape(shape), o_l.reshape(shape)
+
+
 def decode_attention(state, qg, qpg, pos, cfg: SLAConfig, scale=None):
     """Fused decode attention for a chunk of C tokens.
 
@@ -332,8 +543,12 @@ def decode_attention(state, qg, qpg, pos, cfg: SLAConfig, scale=None):
     optional per-token hdiag/zdiag (else the stored block). `pos`:
     base position, a python int or an int tensor, scalar or (B,). Returns
     (o_s, o_l), both (B, Hkv, G, C, D) f32, differentiable with respect
-    to q, qp, k, v, hblk, zblk, hdiag, zdiag, htot and ztot."""
+    to q, qp, k, v, hblk, zblk, hdiag, zdiag, htot and ztot. State that
+    holds a page table `pt` (and page pools for k/v/hblk/zblk) runs the
+    paged kernel (C = 1), without gradients."""
     d = qg.shape[-1]
     scale = float(d**-0.5) if scale is None else float(scale)
+    if "pt" in state:
+        return _decode_attention_paged(state, qg, qpg, pos, scale)
     return _DecodeCore.apply(*decode_operands(state, qg, qpg, pos),
                              cfg, scale)

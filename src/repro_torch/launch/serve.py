@@ -2,16 +2,20 @@
 
     python -m repro_torch.launch.serve --arch qwen3-1.7b --decode-sla \
         --backend kernel --batch 2 --prompt-len 32000 --max-new 96
+    python -m repro_torch.launch.serve --arch qwen3-1.7b --decode-sla \
+        --backend kernel --scheduler continuous --paged --batch 4 \
+        --requests 6 --prompt-len 32000 --max-new 64 --pool-pages 2053
     PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \
         --arch qwen3-1.7b --smoke --device cpu --decode-sla --backend kernel
     python -m repro_torch.launch.serve --workload dit --arch wan2_1_1_3b \
         --backend kernel --seq-len 32768
 
-Counterpart of `repro.launch.serve` with its LM flags for the static
-engine, its DiT flags, and the same defaults, plus `--device` (default
-cuda). The continuous scheduler and its modes (`--scheduler continuous`,
-`--paged`, `--prefill-chunk`, `--disagg`, `--stream`) raise and name the
-ROADMAP item that ports them. Prompts and request latents come from
+Counterpart of `repro.launch.serve` with its LM flags (the static engine,
+the continuous scheduler with `--stream`, the paged KV cache with
+`--paged` / `--pool-pages`), its DiT flags, the same argument checks and
+defaults, plus `--device` (default cuda). Chunked admission
+(`--prefill-chunk`) and disaggregated serving (`--disagg`) raise and name
+the ROADMAP item that ports them. Prompts and request latents come from
 `np.random.default_rng(--seed)` exactly as in the reference, so a CPU run
 of the port and of the reference see the same requests; the weights are
 random, from a seeded `torch.Generator`.
@@ -36,8 +40,9 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4,
-                    help="lm: decode group size; dit: number of denoise "
-                         "slots")
+                    help="lm static scheduler: decode group size; lm "
+                         "continuous scheduler: number of decode slots; "
+                         "dit: number of denoise slots")
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
@@ -57,10 +62,12 @@ def main(argv=None):
     ap.add_argument("--scheduler", default="static",
                     choices=["static", "continuous"],
                     help="lm: 'static' decodes fixed groups in lockstep; "
-                         "'continuous' is not ported yet")
+                         "'continuous' runs the continuous-batching "
+                         "scheduler (a fixed pool of decode slots; a "
+                         "request is admitted the moment a slot frees)")
     ap.add_argument("--stream", action="store_true",
-                    help="lm: per-token events (continuous only; not "
-                         "ported yet)")
+                    help="lm: print per-token StreamEvents as they are "
+                         "produced (continuous scheduler only)")
     ap.add_argument("--plan-reuse", default="off",
                     choices=["off", "adaptive"],
                     help="lm: 'adaptive' pads every prefill chunk to one "
@@ -73,7 +80,14 @@ def main(argv=None):
                          "the O(1) linear running state instead of dense "
                          "attention over the whole cache")
     ap.add_argument("--paged", action="store_true",
-                    help="lm: paged KV cache (not ported yet)")
+                    help="lm: paged KV cache: block_kv-sized physical pages "
+                         "in a refcounted global pool, prompt prefixes "
+                         "shared between requests (copy-on-write). "
+                         "Requires --scheduler continuous")
+    ap.add_argument("--pool-pages", type=int, default=None,
+                    help="total physical pages in the paged KV pool "
+                         "(default: one full sequence per slot plus a "
+                         "scratch page per slot and the zero page)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     metavar="BLOCKS",
                     help="lm: chunked admission prefill (not ported yet)")
@@ -109,19 +123,22 @@ def main(argv=None):
         parts = [float(x) for x in str(args.drift_threshold).split(",")]
         args.drift_threshold = parts[0] if len(parts) == 1 else tuple(parts)
     unported = [flag for flag, on in (
-        ("--scheduler continuous", args.scheduler == "continuous"),
-        ("--paged", args.paged), ("--prefill-chunk",
-                                  args.prefill_chunk is not None),
-        ("--disagg", args.disagg), ("--stream", args.stream)) if on]
+        ("--prefill-chunk", args.prefill_chunk is not None),
+        ("--disagg", args.disagg)) if on]
     if unported:
         raise NotImplementedError(
-            f"{', '.join(unported)}: the continuous LM scheduler and its "
-            f"modes are not ported to repro_torch yet (ROADMAP.md queue 1, "
-            f"item 14)")
-    if args.workload == "dit" and (args.decode_sla
+            f"{', '.join(unported)}: chunked admission and disaggregated "
+            f"serving are not ported to repro_torch yet (ROADMAP.md queue "
+            f"1, item 14)")
+    if args.stream and args.scheduler != "continuous":
+        ap.error("--stream requires --scheduler continuous")
+    if args.paged and args.scheduler != "continuous":
+        ap.error("--paged requires --scheduler continuous or --disagg")
+    if args.workload == "dit" and (args.stream or args.paged
+                                   or args.decode_sla
                                    or args.plan_reuse != "off"):
-        ap.error("--workload dit serves denoise requests — --decode-sla/"
-                 "--plan-reuse are LM-serving flags")
+        ap.error("--workload dit serves denoise requests — --stream/"
+                 "--paged/--decode-sla/--plan-reuse are LM-serving flags")
 
     from repro_torch.core import backends as backend_registry
     backend_registry.resolve(args.backend)  # unknown names fail here
@@ -149,7 +166,9 @@ def main(argv=None):
 
 
 def _run_lm(args, cfg, rs, device):
-    """Synthetic prompts through the static ServingEngine."""
+    """Synthetic prompts through the static ServingEngine, the continuous
+    Scheduler (`--stream`: events printed as they happen) or the engine's
+    continuous wrapper."""
     from repro_torch.models import registry
     from repro_torch.serving.engine import Request, ServingEngine
 
@@ -157,6 +176,34 @@ def _run_lm(args, cfg, rs, device):
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = mdl.init(gen, cfg, device=device)
     max_len = args.prompt_len + args.max_new + 8
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    if args.scheduler == "continuous" and args.stream:
+        from repro_torch.serving.api import SamplingParams, Scheduler
+        sched = Scheduler(cfg, params, num_slots=args.batch,
+                          max_len=max_len, backend=args.backend,
+                          decode_sla=args.decode_sla or None,
+                          plan_reuse=args.plan_reuse,
+                          drift_threshold=args.drift_threshold,
+                          paged=args.paged or None,
+                          pool_pages=args.pool_pages)
+        t0 = time.time()
+        for _ in range(args.requests):
+            sched.submit(rs.integers(0, cfg.vocab_size,
+                                     size=args.prompt_len).astype(np.int32),
+                         SamplingParams(max_new_tokens=args.max_new))
+        for ev in sched.stream():
+            if ev.kind == "token":
+                print(f"  [{ev.t - t0:7.3f}s] req {ev.rid} "
+                      f"token[{ev.index}] = {ev.token}")
+            else:
+                print(f"  [{ev.t - t0:7.3f}s] req {ev.rid} {ev.kind}")
+        done = sched.drain()
+        _print_stats(args, sched.stats, len(done), time.time() - t0,
+                     [r.metrics for r in done], sched.drift_threshold,
+                     device)
+        _stats_json(args, "continuous", sched.stats, done)
+        return done
     reqs = [Request(rid=i, prompt=rs.integers(0, cfg.vocab_size,
                                               size=args.prompt_len)
                     .astype(np.int32), max_new_tokens=args.max_new)
@@ -165,32 +212,45 @@ def _run_lm(args, cfg, rs, device):
                            max_len=max_len, backend=args.backend,
                            plan_reuse=args.plan_reuse,
                            drift_threshold=args.drift_threshold,
-                           decode_sla=args.decode_sla)
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+                           decode_sla=args.decode_sla,
+                           scheduler=args.scheduler,
+                           paged=args.paged or None,
+                           pool_pages=args.pool_pages)
     t0 = time.time()
     done = engine.run(reqs)
-    wall = time.time() - t0
-    st = engine.stats
-    print(f"{len(done)} requests in {wall:.1f}s | prefill "
+    _print_stats(args, engine.stats, len(done), time.time() - t0,
+                 [r.metrics for r in done if r.metrics is not None],
+                 engine.drift_threshold, device)
+    _stats_json(args, args.scheduler, engine.stats, done)
+    return done
+
+
+def _print_stats(args, st, n_done, wall, metrics, drift_threshold, device):
+    print(f"{n_done} requests in {wall:.1f}s | prefill "
           f"{st.prefill_tokens} tok / {st.prefill_s:.2f}s | decode "
           f"{st.decode_tokens} tok / {st.decode_s:.2f}s")
     from repro_torch.serving.api import percentile as pct
-    ttfts = [r.metrics.ttft_s for r in done if r.metrics.ttft_s is not None]
-    lats = [r.metrics.latency_s for r in done
-            if r.metrics.latency_s is not None]
+    ttfts = [m.ttft_s for m in metrics if m.ttft_s is not None]
+    lats = [m.latency_s for m in metrics if m.latency_s is not None]
     if ttfts and lats:
         print(f"per-request: TTFT p50 {pct(ttfts, 0.5)*1e3:.0f}ms / p95 "
               f"{pct(ttfts, 0.95)*1e3:.0f}ms | latency p50 "
               f"{pct(lats, 0.5)*1e3:.0f}ms / p95 {pct(lats, 0.95)*1e3:.0f}ms")
-    print(f"scheduler: {st.admissions} admissions | decode-slot occupancy "
-          f"{st.occupancy():.2f} ({st.slot_steps_active}/"
-          f"{st.slot_steps_total} slot-steps)")
+    if st.slot_steps_total:
+        print(f"scheduler: {st.admissions} admissions | decode-slot "
+              f"occupancy {st.occupancy():.2f} ({st.slot_steps_active}/"
+              f"{st.slot_steps_total} slot-steps)")
+    if args.paged:
+        print(f"paged KV: {st.pages_in_use} pages in use "
+              f"(peak {st.pages_peak}) | {st.page_allocs} allocs, "
+              f"{st.cow_copies} CoW copies | prefix cache "
+              f"{st.prefix_hits} page hits / {st.prefix_misses} misses, "
+              f"{st.prefix_full_hits} full-prompt hits")
     if args.plan_reuse != "off":
         print(f"plan reuse: {st.plan_builds} built, {st.plan_reuses} "
               f"reused, {st.plan_replans} drift re-plans | retention "
               f"{st.last_retention:.3f} (threshold: drift >= "
-              f"{engine.drift_threshold})")
+              f"{drift_threshold})")
     if args.decode_sla:
         print(f"decode plans: {st.decode_plan_builds} layer plans built at "
               f"prefill, {st.decode_plan_extends} rows extended, "
@@ -200,8 +260,6 @@ def _run_lm(args, cfg, rs, device):
     if device.type == "cuda":
         print(f"device: {torch.cuda.get_device_name(device)} | peak memory "
               f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
-    _stats_json(args, "static", st, done)
-    return done
 
 
 def _run_dit(args, cfg, params, rs, device):

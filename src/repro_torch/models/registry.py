@@ -3,7 +3,11 @@
 
 Every module exposes init(generator, cfg, device=) and forward; the DiT
 module adds loss_fn and distill_loss_fn, the dense LM module (models/
-transformer.py) prefill and decode_step. The DiT and dense families are
+transformer.py) prefill, decode_step and the serving caches that the
+continuous scheduler reaches as `mdl.make_cache`, `mdl.insert_slot`,
+`mdl.make_paged_cache`, `mdl.insert_slot_paged`,
+`mdl.insert_slot_state_paged`, `mdl.slot_state_from_prefill` and
+`mdl.copy_page`. The DiT and dense families are
 ported; the others raise and name the ROADMAP.md queue-1 item that ports
 them.
 """

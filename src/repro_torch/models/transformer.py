@@ -1,23 +1,29 @@
 """Decoder-only transformer LM (dense family): the part LM serving needs.
 
 Counterpart of `repro.models.transformer`: `init`, `forward` (with plan
-reuse and decode-plan seeding), `prefill`, and the dense and decode-time
-SLA `decode_step` over a monolithic static cache with one position shared
-by the batch. The parameters live in `nn.Module`s in the reference's
-layout (`x @ W`, W of shape (in, out)); the reference's layer scan and
-`lax.cond`s are Python loops and branches. Caches and plans carry a
-leading layer axis, as in the reference.
+reuse and decode-plan seeding), `prefill`, the dense and decode-time SLA
+`decode_step`, and the decode caches of serving: the monolithic static
+cache with one position shared by the batch, the per-slot cache of
+continuous batching (`make_cache(per_slot=True)`, `insert_slot`), and
+the paged, prefix-shared cache (`make_paged_cache`, `insert_slot_paged`,
+`insert_slot_state_paged`, `slot_state_from_prefill`, `copy_page`,
+`paged_dense_view`). The parameters live in `nn.Module`s in the
+reference's layout (`x @ W`, W of shape (in, out)); the reference's layer
+scan and `lax.cond`s are Python loops and branches. Caches and plans
+carry a leading layer axis, as in the reference.
 
 Decode updates the cache IN PLACE (the reference returns a new cache):
 the new token's K/V, the running h/z partials and totals, the pooled
 features, and at block boundaries the appended plan row and the live
-row. `cache["pos"]` and the decode state's `"rows"` are python ints, so
-the boundary work is a host branch, not a select; decode_step returns
-the same cache dict, advanced by one token. Not ported yet: MoE FFNs
-(ROADMAP.md queue 1, item 13), sliding-window and VLM layers (item 15),
-and, for the paged continuous scheduler (item 14), per-slot (B,)
-positions, `make_cache`, `insert_slot`, the paged cache, `decode_chunk`
-and chunked prefill; each raises and names its item.
+row. A static cache's `pos` and decode-state `rows` are python ints; a
+per-slot cache keeps `pos` as a (B,) device tensor advanced in place with
+its host mirror `pos_host`, so the boundary work is a host branch (run
+for the whole batch when any slot is at a boundary, selected per slot),
+not a select, and no step syncs the stream. decode_step returns the same
+cache dict, advanced by one token. Not ported yet: MoE FFNs (ROADMAP.md
+queue 1, item 13), sliding-window and VLM layers (item 15), and
+`decode_chunk` and chunked prefill (item 14); each raises and names its
+item.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import dataclasses
 import types
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -420,17 +427,32 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
     return (x[:, -1], cache) + tuple(extras)
 
 
-def _scalar_pos(pos) -> int:
+def _slot_positions(cache: dict):
+    """The positions of a decode cache: (vec, pos, pos_host). A static
+    cache holds one python int shared by the batch (vec False, pos_host
+    the same int); a per-slot cache (`make_cache(per_slot=True)`,
+    `make_paged_cache`) holds a (B,) int32 device tensor advanced in
+    place and its host mirror, a (B,) numpy array, that the boundary
+    branches read without syncing the stream."""
+    pos = cache["pos"]
     if torch.is_tensor(pos) and pos.ndim > 0:
-        raise _not_ported("decode with per-slot (B,) positions (the "
-                          "continuous scheduler)", 14)
-    return int(pos)
+        return True, pos, cache["pos_host"]
+    return False, int(pos), int(pos)
 
 
-def _dense_decode_attn(q, kc, vc, pos: int, kind, cfg: ArchConfig):
+def _advance(cache: dict, vec: bool):
+    if vec:
+        cache["pos"] += 1
+        cache["pos_host"] += 1
+    else:
+        cache["pos"] = cache["pos"] + 1
+
+
+def _dense_decode_attn(q, kc, vc, pos, kind, cfg: ArchConfig):
     """Masked softmax over the full static cache, O(S) per token. q:
-    (B, H, 1, Dh); kc, vc: (B, Hkv, Smax, Dh). GQA folds the head group
-    into the query. Returns (B, 1, H * Dh) in q.dtype."""
+    (B, H, 1, Dh); kc, vc: (B, Hkv, Smax, Dh); pos: a python int (aligned
+    static batch) or a (B,) tensor of per-slot positions. GQA folds the
+    head group into the query. Returns (B, 1, H * Dh) in q.dtype."""
     if kind == KIND_SWA:
         raise _not_ported("sliding-window decode attention", 15)
     b, h = q.shape[0], q.shape[1]
@@ -438,56 +460,127 @@ def _dense_decode_attn(q, kc, vc, pos: int, kind, cfg: ArchConfig):
     qg = q[:, :, 0, :].reshape(b, hkv, h // hkv, cfg.head_dim)
     s = torch.einsum("bkgd,bksd->bkgs", qg.float(), kc.float()) \
         * (cfg.head_dim**-0.5)
-    ok = torch.arange(smax, device=q.device) <= pos
+    posb = pos if not torch.is_tensor(pos) else pos[:, None, None, None]
+    ok = torch.arange(smax, device=q.device) <= posb
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     o = torch.einsum("bkgs,bksd->bkgd", torch.softmax(s, dim=-1),
                      vc.float())
     return o.to(q.dtype).reshape(b, 1, h * cfg.head_dim)
 
 
-def _cache_write(c, new, pos: int):
-    """Write one new token's KV at `pos`, in place: c (B, Hn, S, D), new
-    (B, Hn, 1, D)."""
-    c[:, :, pos] = new[:, :, 0].to(c.dtype)
+def _cache_write(c, new, pos):
+    """Write one new token's KV in place: c (B, Hn, S, D), new
+    (B, Hn, 1, D). A python-int `pos` writes every row there; a (B,)
+    tensor writes each slot at its own position, clamped to the last
+    position as the reference's dynamic_update_slice clamps a runaway
+    inactive slot."""
+    if not torch.is_tensor(pos):
+        c[:, :, pos] = new[:, :, 0].to(c.dtype)
+        return
+    b = torch.arange(c.shape[0], device=c.device)
+    c[b, :, pos.long().clamp(0, c.shape[2] - 1)] = new[:, :, 0].to(c.dtype)
 
 
-def _blk_update(buf, upd, row: int):
+def _blk_update(buf, upd, row):
     """Add `upd` (B, Hn, ...) into block `row` of a per-block running
-    buffer (B, Hn, Tn, ...), in place."""
-    buf[:, :, row] += upd
+    buffer (B, Hn, Tn, ...), in place; `row` a python int or a (B,)
+    tensor (clamped into the grid, as the reference's dynamic slices)."""
+    if not torch.is_tensor(row):
+        buf[:, :, row] += upd
+        return
+    b = torch.arange(buf.shape[0], device=buf.device)
+    r = row.long().clamp(0, buf.shape[2] - 1)
+    buf[b, :, r] = buf[b, :, r] + upd
+
+
+def _page_gather(pool, pt):
+    """Per-layer page pool (P, Hkv, ...) -> per-slot block view
+    (B, Hkv, Tn, ...) through the page table pt (B, Tn) int32 (a copy)."""
+    return pool[pt.long()].movedim(2, 1)
+
+
+def _page_gather_kv(pool, pt):
+    """KV page pool (P, Hkv, bkv, Dh) -> the contiguous (B, Hkv, S, Dh)
+    cache view a monolithic per-slot cache would hold."""
+    g = _page_gather(pool, pt)                  # (B, Hkv, Tn, bkv, Dh)
+    return g.reshape(g.shape[:2] + (g.shape[2] * g.shape[3], g.shape[4]))
+
+
+def _page_write_kv(pool, new, pid, off):
+    """Write one new-token KV into its page, in place: pool
+    (P, Hkv, bkv, Dh), new (B, Hkv, 1, Dh), pid/off (B,) tensors. The
+    scheduler's copy-on-write pass makes every active slot's write page
+    private, so the pids are distinct and the scatter has no conflict."""
+    pool[pid, :, off] = new[:, :, 0, :].to(pool.dtype)
+
+
+def _write_page(cache: dict, pos: torch.Tensor, bkv: int):
+    """(page, offset) of each slot's write: the page table's entry for
+    block pos // bkv, clamped to the last block (runaway inactive slots
+    land on their scratch page), and pos % bkv."""
+    pt = cache["pt"]
+    b, tn = pt.shape
+    blk = torch.clamp(pos.long() // bkv, max=tn - 1)
+    wpid = pt[torch.arange(b, device=pt.device), blk].long()
+    return wpid, pos.long() % bkv
 
 
 def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
                 compute_dtype=torch.bfloat16, backend: str = "gather",
                 drift_threshold=None):
-    """One decode step. token: (B,) int; cache k/v: (L, B, Hkv, S, Dh);
-    cache["pos"] the position shared by the batch. Caches made with
-    `prefill(decode_max_len=)` carry decode-SLA state and run SLA decode
-    (`_decode_step_sla`); otherwise dense masked attention over the full
-    static cache. Writes the new token into the cache in place and
-    returns (logits (B, V) f32, cache) with cache["pos"] advanced."""
-    if "kp" in cache:
-        raise _not_ported("the paged KV cache", 14)
+    """One decode step. token: (B,) int; cache k/v: (L, B, Hkv, S, Dh).
+    cache["pos"] is the position shared by the batch (a python int,
+    static serving) or a (B,) tensor of per-slot positions with its host
+    mirror cache["pos_host"] (continuous batching: every slot advances
+    through its own sequence). Caches made with `prefill(decode_max_len=)`
+    or `make_cache(decode_sla=True)` carry decode-SLA state and run SLA
+    decode (`_decode_step_sla`); otherwise dense masked attention over
+    the full static cache.
+
+    Paged caches (`make_paged_cache`) carry `kp`/`vp` page pools and a
+    `pt` page table instead of monolithic k/v; the same step math runs
+    against page-gathered views (dense) or the pools in place (SLA), so
+    paged and monolithic decode are bitwise equal. Writes the new token
+    into the cache in place and returns (logits (B, V) f32, cache) with
+    the positions advanced."""
     if "sla" in cache:
         return _decode_step_sla(params, cfg, token, cache, compute_dtype,
                                 backend, drift_threshold)
-    pos = _scalar_pos(cache["pos"])
+    paged = "kp" in cache
+    vec, pos, _ = _slot_positions(cache)
     x = params.embed[token[:, None]].to(compute_dtype)
-    b = x.shape[0]
-    positions = torch.full((b, 1), pos, device=x.device)
+    b, dev = x.shape[0], x.device
+    positions = (pos.long()[:, None] if vec
+                 else torch.full((b, 1), pos, device=dev))
+    if paged:
+        pt = cache["pt"]
+        wpid, woff = _write_page(cache, pos, cfg.sla.block_kv)
     kinds = layer_kinds_list(cfg)
     for li, p in enumerate(params.layers):
         q, k_new, v_new = _qkv(p, rms_norm(x, p.ln1), cfg, positions)
-        kc, vc = cache["k"][li], cache["v"][li]
-        _cache_write(kc, k_new, pos)
-        _cache_write(vc, v_new, pos)
+        if paged:
+            kc, vc = cache["kp"][li], cache["vp"][li]
+            _page_write_kv(kc, k_new, wpid, woff)
+            _page_write_kv(vc, v_new, wpid, woff)
+            kc, vc = _page_gather_kv(kc, pt), _page_gather_kv(vc, pt)
+        else:
+            kc, vc = cache["k"][li], cache["v"][li]
+            _cache_write(kc, k_new, pos)
+            _cache_write(vc, v_new, pos)
         o = _dense_decode_attn(q, kc, vc, pos, kinds[li], cfg)
         x = x + o @ p.wo.to(x.dtype)
         f, _ = _ffn(p, rms_norm(x, p.ln2), cfg)
         x = x + f
     x = rms_norm(x, params.ln_f)
-    cache["pos"] = pos + 1
+    _advance(cache, vec)
     return logits_from_hidden(params, x[:, 0]), cache
+
+
+def _sel(mask, new, old):
+    """where(mask, new, old) with a (B,) slot mask broadcast over the
+    trailing dims of new."""
+    return torch.where(mask.reshape((-1,) + (1,) * (new.ndim - 1)), new,
+                       old)
 
 
 def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
@@ -505,15 +598,36 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
     ("replan"). The boundary work runs only at boundaries (a host
     branch); the reference computes it every step and selects, with the
     same result.
+
+    Per-slot positions (a (B,) `pos`) run all of this per slot: each slot
+    crosses its own block boundaries, appends its own plan row and makes
+    its own drift decision (the min over ITS heads; the scalar-pos static
+    batch keeps the min over the whole batch). When any slot is at a
+    boundary the boundary work runs for the whole batch and is selected
+    per slot; the counters are (L, B) and `rows` (B,).
+
+    Paged caches keep K/V and the per-block h/z/kpool partials in global
+    page pools: every write lands in the slot's private current page and
+    the decode backends read the pools in place through the page table,
+    so the step stays bitwise equal to unpaged decode.
     """
     backend_lib.resolve_decode(backend)
-    pos = _scalar_pos(cache["pos"])
+    paged = "kp" in cache
+    vec, pos, pos_h = _slot_positions(cache)
+    if paged and not vec:
+        raise ValueError("paged decode requires per-slot (B,) positions")
     st = cache["sla"]
     sla = cfg.sla
     bq, bkv = sla.block_q, sla.block_kv
     x = params.embed[token[:, None]].to(compute_dtype)
     b, dev = x.shape[0], x.device
-    tn = cache["k"].shape[-2] // bkv
+    if paged:
+        pt = cache["pt"]
+        tn = pt.shape[1]
+        slap = cache["slap"]
+        wpid, woff = _write_page(cache, pos, bkv)
+    else:
+        tn = cache["k"].shape[-2] // bkv
     dcfg = sla.decode_plan_cfg(tn)
     kinds = layer_kinds_list(cfg)
     nl = cfg.num_layers
@@ -522,21 +636,46 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
     # host floats: a per-step host-to-device copy would sync the stream
     thresholds = torch.broadcast_to(torch.as_tensor(
         drift_threshold, dtype=torch.float32), (nl,)).tolist()
-    row = pos // bq                     # the current (partial) query row
-    boundary = pos % bq == 0            # a block was just completed
-    append = boundary and st["rows"] < row
-    positions = torch.full((b, 1), pos, device=dev)
-    if boundary:
-        # tokens per KV block after this step's write (pooled-k means)
-        blk = torch.arange(tn, device=dev)
-        blk_cnt = torch.clamp(torch.clamp((pos + 1) - blk * bkv, max=bkv),
-                              1, bkv)[:, None].float()
+    blk = torch.arange(tn, device=dev)
+    if vec:
+        posl = pos.long()
+        row = posl // bq                  # each slot's live query row
+        any_boundary = bool((pos_h % bq == 0).any())
+        positions = posl[:, None]
+        rowm = row[:, None]               # row arg of the masks helpers
+        if any_boundary:
+            boundary = posl % bq == 0
+            append = boundary & (st["rows"].long() < row)
+            blk_cnt = torch.clamp(torch.clamp(
+                (posl[:, None] + 1) - blk * bkv, max=bkv), 1, bkv)
+            cnt_div = blk_cnt[:, None, :, None].float()
+            prev = torch.clamp(row - 1, 0, tn - 1)
+            bi = torch.arange(b, device=dev)
+            diag = (blk == row[:, None])[:, None, :]
+    else:
+        row = rowm = pos // bq            # the current (partial) query row
+        any_boundary = pos % bq == 0      # a block was just completed
+        append = any_boundary and st["rows"] < row
+        positions = torch.full((b, 1), pos, device=dev)
+        if any_boundary:
+            # tokens per KV block after this step's write (pooled-k means)
+            cnt_div = torch.clamp(torch.clamp((pos + 1) - blk * bkv,
+                                              max=bkv), 1, bkv)[:, None]
+            cnt_div = cnt_div.float()
     plan = st["plan"]
     for li, p in enumerate(params.layers):
         q, k_new, v_new = _qkv(p, rms_norm(x, p.ln1), cfg, positions)
-        kc, vc = cache["k"][li], cache["v"][li]
-        _cache_write(kc, k_new, pos)
-        _cache_write(vc, v_new, pos)
+        if paged:
+            kc, vc = cache["kp"][li], cache["vp"][li]
+            _page_write_kv(kc, k_new, wpid, woff)
+            _page_write_kv(vc, v_new, wpid, woff)
+            hb, zb, kp_sum = (slap[key][li]
+                              for key in ("hblk", "zblk", "kpool"))
+        else:
+            kc, vc = cache["k"][li], cache["v"][li]
+            _cache_write(kc, k_new, pos)
+            _cache_write(vc, v_new, pos)
+            hb, zb, kp_sum = st["hblk"][li], st["zblk"][li], st["kpool"][li]
         h, hkv = q.shape[1], k_new.shape[1]
         g = h // hkv
         qf = q[:, :, 0, :].float()       # (B, H, D)
@@ -544,57 +683,87 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
         vf = v_new[:, :, 0, :].float()
         routing = _routing(p, dcfg)
         lplan = plan_lib.plan_map(lambda leaf: leaf[li], plan)  # views
-        hb, zb = st["hblk"][li], st["zblk"][li]
         ht, zt = st["htot"][li], st["ztot"][li]
-        kp_sum, qp_sum = st["kpool"][li], st["qpool"][li]
+        qp_sum = st["qpool"][li]
+
+        def kp_view():
+            return _page_gather(kp_sum, pt) if paged else kp_sum
 
         # 1. append the just-completed row (its pooled k excludes the
         # current block's new token)
-        if append:
-            kpm = torch.repeat_interleave(kp_sum / bkv, g, dim=1)
+        if (vec and any_boundary) or (not vec and append):
+            kpm = torch.repeat_interleave(kp_view() / bkv, g, dim=1)
             pc_prev = masks_lib.score_row(routing, qp_sum / bq, kpm,
-                                          row - 1, dcfg)
-            plan_lib.plan_extend(
-                lplan, masks_lib.classify_row(pc_prev, row - 1, dcfg),
-                row - 1)
-            st["extends"][li] += 1
+                                          rowm - 1, dcfg)
+            mc_prev = masks_lib.classify_row(pc_prev, rowm - 1, dcfg)
+            if vec:
+                plan_lib.plan_extend(lplan, mc_prev, row - 1, append)
+                st["extends"][li] += append.to(torch.int32)
+            else:
+                plan_lib.plan_extend(lplan, mc_prev, row - 1)
+                st["extends"][li] += 1
 
         # 2. O(1) running-state update for the new token
         phik = phi(kf, sla.phi)          # (B, Hkv, D) f32
         hupd = phik[..., :, None] * vf[..., None, :]
-        _blk_update(hb, hupd, row)
-        _blk_update(zb, phik, row)
-        _blk_update(kp_sum, kf, row)
+        if paged:
+            # distinct private write pages: a gather/add/set, as the
+            # monolithic slice/add/write, so the partials stay bitwise
+            hb[wpid] = hb[wpid] + hupd
+            zb[wpid] = zb[wpid] + phik
+            kp_sum[wpid] = kp_sum[wpid] + kf
+        else:
+            _blk_update(hb, hupd, row)
+            _blk_update(zb, phik, row)
+            _blk_update(kp_sum, kf, row)
         ht += hupd
         zt += phik
 
         # 3. the new live row's structure, drift-gated per layer
-        if boundary:
-            kpm_live = torch.repeat_interleave(kp_sum / blk_cnt, g, dim=1)
-            pc_live = masks_lib.score_row(routing, qf, kpm_live, row, dcfg)
-            mc_fresh = masks_lib.classify_row(pc_live, row, dcfg)
-            mc_inh = lplan.mc[..., row - 1, :].clone()  # (B, H, Tn)
-            mc_inh[..., row] = 1
+        if any_boundary:
+            kpm_live = torch.repeat_interleave(kp_view() / cnt_div, g, dim=1)
+            pc_live = masks_lib.score_row(routing, qf, kpm_live, rowm, dcfg)
+            mc_fresh = masks_lib.classify_row(pc_live, rowm, dcfg)
+            if vec:
+                mc_inh = lplan.mc[bi, :, prev]  # (B, H, Tn), a copy
+                mc_inh[diag.expand_as(mc_inh)] = 1
+            else:
+                mc_inh = lplan.mc[..., row - 1, :].clone()  # (B, H, Tn)
+                mc_inh[..., row] = 1
             stale = (pc_live * (mc_inh == 1)).sum(dim=-1)
             fresh = (pc_live * (mc_fresh == 1)).sum(dim=-1)
             r = torch.clamp(stale / torch.clamp(fresh, min=plan_lib.EPS),
                             0.0, 1.0)
-            retention = r.min()
             thr = thresholds[li]
-            replan = (1.0 - retention) >= thr
-            if thr >= 1.0:  # a threshold of 1.0 never re-plans
-                replan = torch.zeros_like(replan)
-            mc_live = torch.where(replan, mc_fresh, mc_inh)
+            # per slot: each slot's own heads gate its row; the aligned
+            # static batch takes one decision for every row
+            retention = r.min(dim=1).values if vec else r.min()
+            replan = ((1.0 - retention) >= thr) & (thr < 1.0)
+            rep_m = replan[:, None, None] if vec else replan
+            mc_live = torch.where(rep_m, mc_fresh, mc_inh)
             lut_n, cnt_n = plan_lib.build_lut(mc_live[..., None, :],
                                               lplan.k_sel)
-            st["live_lut"][li] = lut_n[..., 0, :]
-            st["live_cnt"][li] = cnt_n[..., 0]
-            st["live_marg"][li] = (mc_live == 0).sum(dim=-1,
-                                                     dtype=torch.int32)
-            st["replans"][li] += replan.to(torch.int32)
-            st["reuses"][li] += (~replan).to(torch.int32)
-            st["retention"][li] = retention
-            qp_sum.copy_(qf)
+            marg_n = (mc_live == 0).sum(dim=-1, dtype=torch.int32)
+            if vec:
+                st["live_lut"][li] = _sel(boundary, lut_n[..., 0, :],
+                                          st["live_lut"][li])
+                st["live_cnt"][li] = _sel(boundary, cnt_n[..., 0],
+                                          st["live_cnt"][li])
+                st["live_marg"][li] = _sel(boundary, marg_n,
+                                           st["live_marg"][li])
+                st["replans"][li] += (boundary & replan).to(torch.int32)
+                st["reuses"][li] += (boundary & ~replan).to(torch.int32)
+                st["retention"][li] = torch.where(boundary, retention,
+                                                  st["retention"][li])
+                qp_sum.copy_(_sel(boundary, qf, qp_sum + qf))
+            else:
+                st["live_lut"][li] = lut_n[..., 0, :]
+                st["live_cnt"][li] = cnt_n[..., 0]
+                st["live_marg"][li] = marg_n
+                st["replans"][li] += replan.to(torch.int32)
+                st["reuses"][li] += (~replan).to(torch.int32)
+                st["retention"][li] = retention
+                qp_sum.copy_(qf)
         else:
             qp_sum += qf
 
@@ -603,19 +772,413 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
             state = {"k": kc, "v": vc, "hblk": hb, "zblk": zb, "htot": ht,
                      "ztot": zt, "lut": st["live_lut"][li],
                      "cnt": st["live_cnt"][li], "marg": st["live_marg"][li]}
+            if paged:
+                state["pt"] = pt
             o = backend_lib.decode_execute(
                 state, {"proj": p.sla_proj}, q, pos, dcfg, backend=backend)
             o = o.reshape(b, 1, h * cfg.head_dim).to(x.dtype)
+        elif paged:
+            o = _dense_decode_attn(q, _page_gather_kv(kc, pt),
+                                   _page_gather_kv(vc, pt), pos, kinds[li],
+                                   cfg)
         else:
             o = _dense_decode_attn(q, kc, vc, pos, kinds[li], cfg)
         x = x + o @ p.wo.to(x.dtype)
         f, _ = _ffn(p, rms_norm(x, p.ln2), cfg)
         x = x + f
-    if append:
+    if vec and any_boundary:
+        st["rows"] += append.to(st["rows"].dtype)
+    elif not vec and append:
         st["rows"] += 1
     x = rms_norm(x, params.ln_f)
-    cache["pos"] = pos + 1
+    _advance(cache, vec)
     return logits_from_hidden(params, x[:, 0]), cache
+
+
+# --------------------------------------------------------------------------
+# per-slot caches (continuous batching)
+# --------------------------------------------------------------------------
+COUNTER_KEYS = ("extends", "replans", "reuses", "retention")
+
+
+def _empty_decode_state(cfg: ArchConfig, batch: int, max_len: int, device,
+                        per_slot: bool, pooled: bool) -> dict:
+    """The decode-SLA state of an empty cache: what `_seed_decode_state`
+    gives for an empty prompt (an all-negligible plan, zero partials and
+    totals), built directly so that no (L, B, Hkv, Tn, D, D) block
+    buffer is made when `pooled` keeps the partials in page pools."""
+    sla = cfg.sla
+    nl, hkv, dh, nh = (cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
+                       cfg.num_heads)
+    tn = max_len // sla.block_kv
+    dcfg = sla.decode_plan_cfg(tn)
+    k_sel = dcfg.num_critical(tn)
+    f32 = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    lead = (nl, batch, nh)
+    # plan_from_mask of an all-negligible mask: every index LUT pads
+    # with block 0 and nothing is counted or marginal
+    plan = plan_lib.SLAPlan(
+        mc=torch.full(lead + (tn, tn), -1, dtype=torch.int8, device=device),
+        lut=torch.zeros(lead + (tn, k_sel), **i32),
+        counts=torch.zeros(lead + (tn,), **i32),
+        col_lut=torch.zeros(lead + (tn, 1), **i32),
+        col_counts=torch.zeros(lead + (tn,), **i32),
+        marginal=torch.zeros(lead + (tn, tn), **f32))
+    counters = (nl, batch) if per_slot else (nl,)
+    st = {"htot": torch.zeros((nl, batch, hkv, dh, dh), **f32),
+          "ztot": torch.zeros((nl, batch, hkv, dh), **f32),
+          "qpool": torch.zeros((nl, batch, nh, dh), **f32),
+          "plan": plan,
+          "rows": torch.zeros((batch,), **i32) if per_slot else 0,
+          "live_lut": torch.zeros(lead + (k_sel,), **i32),
+          "live_cnt": torch.zeros(lead, **i32),
+          "live_marg": torch.zeros(lead, **i32),
+          "extends": torch.zeros(counters, **i32),
+          "replans": torch.zeros(counters, **i32),
+          "reuses": torch.zeros(counters, **i32),
+          "retention": torch.ones(counters, **f32)}
+    if not pooled:
+        st["hblk"] = torch.zeros((nl, batch, hkv, tn, dh, dh), **f32)
+        st["zblk"] = torch.zeros((nl, batch, hkv, tn, dh), **f32)
+        st["kpool"] = torch.zeros((nl, batch, hkv, tn, dh), **f32)
+    return st
+
+
+def _slot_pos(cache: dict, batch: int, per_slot: bool, device):
+    if per_slot:
+        cache["pos"] = torch.zeros((batch,), dtype=torch.int32,
+                                   device=device)
+        cache["pos_host"] = np.zeros((batch,), np.int64)
+    else:
+        cache["pos"] = 0
+
+
+def make_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, decode_sla: Optional[bool] = None,
+               per_slot: bool = False, device=None) -> dict:
+    """Empty decode cache on `device` (the card unless the caller asks
+    for the CPU). `decode_sla` (default: cfg.sla.decode_mode == "sla")
+    adds the decode-time SLA state (an empty incremental plan and zero
+    running H/Z); a filled decode cache comes from
+    `prefill(decode_max_len=)`.
+
+    `per_slot=True` lays the cache out for continuous batching: `pos`
+    becomes a (B,) int32 tensor (with its host mirror `pos_host`) and the
+    decode-SLA `rows` and counters per-slot (B,) / (L, B), so each batch
+    row advances through its own sequence and `insert_slot` can copy a
+    fresh prefill into any slot."""
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    _slot_pos(cache, batch, per_slot, dev)
+    if decode_sla is None:
+        decode_sla = cfg.sla.decode_mode == "sla"
+    if decode_sla:
+        _check_decode_grid(cfg, max_len, max_len)
+        cache["sla"] = _empty_decode_state(cfg, batch, max_len, dev,
+                                           per_slot, pooled=False)
+    return cache
+
+
+def _put_slot(live: torch.Tensor, one, slot: int):
+    """Copy a batch-1 leaf (1, ...) into batch row `slot` of a (L, B, ...)
+    live leaf, in place (values only: no storage is shared)."""
+    live[:, slot] = one[:, 0].to(live.dtype)
+
+
+def _insert_slot_state(cache: dict, single: dict, slot: int, keys):
+    """The per-slot half of an admission: pos, and under decode-SLA the
+    listed state leaves, the plan rows, `rows` and the counters."""
+    if ("sla" in cache) != ("sla" in single):
+        raise ValueError(
+            "decode-SLA 'sla' state mismatch: the slot cache and the "
+            "prefill cache must both (or neither) carry it")
+    cache["pos"][slot] = int(single["pos"])
+    cache["pos_host"][slot] = int(single["pos"])
+    if "sla" not in cache:
+        return
+    s, t = cache["sla"], single["sla"]
+    for key in keys:
+        _put_slot(s[key], t[key], slot)
+    for name in plan_lib.PLAN_LEAVES:
+        _put_slot(getattr(s["plan"], name), getattr(t["plan"], name), slot)
+    s["rows"][slot] = int(t["rows"])
+    for key in COUNTER_KEYS:
+        # (L,) single-request counters -> column `slot` of (L, B)
+        s[key][:, slot] = t[key].to(s[key].dtype)
+
+
+def insert_slot(cache: dict, single: dict, slot: int) -> dict:
+    """Copy a batch-1 prefill cache into decode slot `slot` of a per-slot
+    cache (`make_cache(..., per_slot=True)`), in place; returns `cache`.
+
+    `single` comes from `prefill(params, cfg, prompt[None, :], ...)` over
+    the SAME max_len (decode-SLA prefills size their caches with
+    `decode_max_len`; dense callers pad k/v first). Every piece of
+    request state rides along: KV rows, the incremental decode plan's
+    rows, the running H/Z state and the pooled q/k features, so the
+    admitted request decodes exactly as in a fresh aligned batch."""
+    if single["k"].shape[1] != 1:
+        raise ValueError(
+            f"insert_slot takes a batch-1 prefill cache (got batch "
+            f"{single['k'].shape[1]})")
+    if single["k"].shape[-2] != cache["k"].shape[-2]:
+        raise ValueError(
+            f"cache length mismatch: the slot cache holds "
+            f"{cache['k'].shape[-2]} positions but the prefill cache "
+            f"has {single['k'].shape[-2]}; prefill with decode_max_len "
+            f"(or pad k/v) to the scheduler's max_len first")
+    _insert_slot_state(cache, single, slot,
+                       ("hblk", "zblk", "htot", "ztot", "kpool", "qpool",
+                        "live_lut", "live_cnt", "live_marg"))
+    _put_slot(cache["k"], single["k"], slot)
+    _put_slot(cache["v"], single["v"], slot)
+    return cache
+
+
+# --------------------------------------------------------------------------
+# paged serving: page pools + page table. Host-side refcounting and CoW
+# live in serving/pages.py; these are the device-side constructors and
+# copies, all in place.
+# --------------------------------------------------------------------------
+PAGED_POOL_KEYS = ("hblk", "zblk", "kpool")  # per-block leaves that move
+#                                              from per-slot state into the
+#                                              global page pools under paging
+PAGED_SLOT_KEYS = ("htot", "ztot", "qpool", "live_lut", "live_cnt",
+                   "live_marg")
+
+
+def make_paged_cache(cfg: ArchConfig, batch: int, max_len: int,
+                     num_pages: int, dtype=torch.bfloat16,
+                     decode_sla: Optional[bool] = None, device=None) -> dict:
+    """Paged decode cache on `device` (the card unless the caller asks
+    for the CPU): global pools of block_kv-sized pages plus a per-slot
+    page table, in place of make_cache(per_slot=True)'s monolithic
+    (L, B, Hkv, max_len, Dh) slabs.
+
+      kp/vp   (L, P, Hkv, bkv, Dh)  KV page pools
+      pt      (B, Tn) int32         logical block -> physical page, shared
+                                    by every layer
+      slap.*  (L, P, Hkv, ...)      decode-SLA per-block h (D x D), z and
+                                    kpool (D) partials at the same ids
+
+    Physical page 0 is the permanent all-zero page; the scheduler pins
+    one private scratch page per slot on top so inactive slots (which
+    keep stepping through every batched dispatch) write somewhere
+    harmless. Per-slot decode-SLA state (plan rows, totals, live-row LUT,
+    counters) keeps the per-slot layout; `pos` is a (B,) tensor with its
+    host mirror `pos_host`."""
+    sla = cfg.sla
+    if max_len % sla.block_kv:
+        raise ValueError(
+            f"paged cache needs block-aligned max_len (got {max_len} "
+            f"for block_kv={sla.block_kv})")
+    dev = resolve_device(device)
+    tn = max_len // sla.block_kv
+    nl, hkv, dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    pshape = (nl, num_pages, hkv, sla.block_kv, dh)
+    cache = {"kp": torch.zeros(pshape, dtype=dtype, device=dev),
+             "vp": torch.zeros(pshape, dtype=dtype, device=dev),
+             "pt": torch.zeros((batch, tn), dtype=torch.int32, device=dev)}
+    _slot_pos(cache, batch, True, dev)
+    if decode_sla is None:
+        decode_sla = sla.decode_mode == "sla"
+    if decode_sla:
+        _check_decode_grid(cfg, max_len, max_len)
+        f32 = dict(dtype=torch.float32, device=dev)
+        cache["slap"] = {
+            "hblk": torch.zeros((nl, num_pages, hkv, dh, dh), **f32),
+            "zblk": torch.zeros((nl, num_pages, hkv, dh), **f32),
+            "kpool": torch.zeros((nl, num_pages, hkv, dh), **f32)}
+        cache["sla"] = _empty_decode_state(cfg, batch, max_len, dev, True,
+                                           pooled=True)
+    return cache
+
+
+def insert_slot_state_paged(cache: dict, single: dict, slot: int) -> dict:
+    """Copy only the PER-SLOT half of a batch-1 prefill (or a
+    `slot_state_from_prefill` snapshot) into `slot` of a paged cache, in
+    place: pos and, under decode-SLA, plan rows, running totals, pooled
+    q and counters. Page contents are written by `insert_slot_paged`, or
+    not at all when every prompt page was a prefix-cache hit (the
+    full-prompt snapshot fast path). Returns `cache`."""
+    _insert_slot_state(cache, single, slot, PAGED_SLOT_KEYS)
+    return cache
+
+
+def slot_state_from_prefill(single: dict) -> dict:
+    """The per-slot half of a batch-1 prefill cache (what
+    `insert_slot_state_paged` consumes): everything except KV rows and
+    per-block partials, so a snapshot keeps no (1, Hkv, S, ...) buffer
+    alive. This is the full-prompt snapshot the scheduler caches for
+    exact prefix hits. Its leaves are the prefill's own tensors, which
+    nothing writes: admissions copy them into the live cache."""
+    out = {"pos": single["pos"]}
+    if "sla" in single:
+        st = single["sla"]
+        out["sla"] = {key: st[key] for key in st
+                      if key not in PAGED_POOL_KEYS}
+    return out
+
+
+def insert_slot_paged(cache: dict, single: dict, slot: int,
+                      page_ids) -> dict:
+    """Copy a batch-1 prefill cache into `slot` of a paged cache, in place.
+
+    `page_ids` (n_prompt_pages,) names the physical page of each prompt
+    block, host-allocated or interned before the call. KV rows and (under
+    decode-SLA) the per-block h/z/kpool partials land in the pools at
+    those ids; the per-slot state goes through `insert_slot_state_paged`.
+    Prefix-interned hit pages are rewritten with the same contents
+    (causal attention makes page j a pure function of the padded tokens
+    below its end). The page table itself is host-owned and pushed
+    separately. Returns `cache`."""
+    if single["k"].shape[1] != 1:
+        raise ValueError(
+            f"insert_slot_paged takes a batch-1 prefill cache (got "
+            f"batch {single['k'].shape[1]})")
+    bkv = cache["kp"].shape[3]
+    pids = torch.as_tensor(page_ids, dtype=torch.long,
+                           device=cache["kp"].device)
+    npp = pids.shape[0]
+    if single["k"].shape[-2] < npp * bkv:
+        raise ValueError(
+            f"prefill cache holds {single['k'].shape[-2]} positions but "
+            f"{npp} pages of {bkv} were requested")
+    insert_slot_state_paged(cache, single, slot)
+    nl, hkv = cache["kp"].shape[0], cache["kp"].shape[2]
+    for key, pool in (("k", cache["kp"]), ("v", cache["vp"])):
+        # (L, 1, Hkv, S, Dh) -> (L, npp, Hkv, bkv, Dh)
+        x = single[key][:, 0, :, :npp * bkv, :].reshape(nl, hkv, npp, bkv,
+                                                        -1)
+        pool[:, pids] = x.movedim(1, 2).to(pool.dtype)
+    if "sla" in cache:
+        for key in PAGED_POOL_KEYS:  # (L, 1, Hkv, Tn, ...) -> (L, npp, ...)
+            pool = cache["slap"][key]
+            pool[:, pids] = single["sla"][key][:, 0, :, :npp].movedim(1, 2)
+    return cache
+
+
+def copy_page(cache: dict, dst: int, src: int) -> dict:
+    """Device-side page copy `src -> dst` across every pool (KV and, under
+    decode-SLA, the h/z/kpool partials), in place. The scheduler's
+    copy-on-write pass uses it both to duplicate a shared page before a
+    divergent write and to ZERO a freshly allocated decode page (src =
+    the permanent zero page: the partials accumulate onto the page, so a
+    recycled page must start clean). Returns `cache`."""
+    pools = [cache["kp"], cache["vp"]] + list(cache.get("slap", {}).values())
+    for pool in pools:
+        pool[:, dst] = pool[:, src]
+    return cache
+
+
+def paged_dense_view(cfg: ArchConfig, cache: dict) -> dict:
+    """The monolithic per-slot cache a paged cache represents (page-
+    gathered KV slabs and per-block partials, copies). Test and debugging
+    aid: the paged-vs-monolithic checks compare this view bitwise with
+    the unpaged cache, and `chip_smoke.py` runs the monolithic decode
+    kernel on it."""
+    def view(pool):  # (L, P, Hkv, ...) -> (L, B, Hkv, Tn, ...)
+        return backend_lib.gather_pages(pool, cache["pt"], axis=1)
+
+    out = {"k": view(cache["kp"]).flatten(-3, -2),  # (L, B, Hkv, S, Dh)
+           "v": view(cache["vp"]).flatten(-3, -2), "pos": cache["pos"],
+           "pos_host": cache["pos_host"]}
+    if "sla" in cache:
+        st = dict(cache["sla"])
+        for key in PAGED_POOL_KEYS:
+            st[key] = view(cache["slap"][key])
+        out["sla"] = st
+    return out
+
+
+def snapshot_slots(cache: dict, slots) -> dict:
+    """Copies of everything one decode step writes for the batch rows
+    `slots` of a per-slot or paged cache: the K/V row at each slot's
+    position (its page and offset, paged), the h/z/kpool partials of its
+    live block, the plan row that block boundary would append, the
+    column-LUT entry at each column's fill level (the only ones an
+    append writes), and every smaller per-slot leaf (totals, pooled q,
+    live row, column fill levels, rows, counters, positions).
+    `restore_slots` puts them back, so a step over the whole batch can
+    leave these slots as they were. Reads the page table on the host (a
+    sync) for paged caches."""
+    paged = "kp" in cache
+    st = cache.get("sla")
+    snap = []
+    for j in slots:
+        p = int(cache["pos_host"][j])
+        one = {"slot": j, "pos": p, "kv": {}, "blk": {}, "row": {},
+               "whole": {}}
+        if paged:
+            bkv, tn = cache["kp"].shape[3], cache["pt"].shape[1]
+            blk = min(p // bkv, tn - 1)
+            page, off = int(cache["pt"][j, blk]), p % bkv
+            for key in ("kp", "vp"):
+                one["kv"][key] = (page, off, cache[key][:, page, :,
+                                                        off].clone())
+            for key, pool in cache.get("slap", {}).items():
+                one["blk"][key] = (page, pool[:, page].clone())
+        else:
+            at = min(p, cache["k"].shape[3] - 1)
+            for key in ("k", "v"):
+                one["kv"][key] = (at, cache[key][:, j, :, at].clone())
+        if st is not None:
+            plan = st["plan"]
+            tm = plan.mc.shape[-2]
+            bq = (cache["kp"].shape[3] if paged
+                  else cache["k"].shape[3] // tm)
+            live = min(p // bq, tm - 1)
+            prev = min(max(p // bq - 1, 0), tm - 1)
+            if not paged:
+                for key in PAGED_POOL_KEYS:
+                    one["blk"][key] = (live, st[key][:, j, :, live].clone())
+            for name in ("mc", "lut", "counts", "marginal"):
+                one["row"][name] = (prev, getattr(plan, name)[:, j, :,
+                                                              prev].clone())
+            fill = plan.col_counts[:, j].long().clamp(
+                max=plan.w_col - 1)[..., None]
+            one["fill"] = (fill, plan.col_lut[:, j].gather(-1, fill))
+            one["whole"]["col_counts"] = plan.col_counts[:, j].clone()
+            for key in PAGED_SLOT_KEYS + COUNTER_KEYS:
+                one["whole"][key] = st[key][:, j].clone()
+            one["rows"] = st["rows"][j].clone()
+        snap.append(one)
+    return {"slots": snap}
+
+
+def restore_slots(cache: dict, snap: dict) -> dict:
+    """Put back what `snapshot_slots` copied, in place; returns `cache`."""
+    paged = "kp" in cache
+    st = cache.get("sla")
+    for one in snap["slots"]:
+        j = one["slot"]
+        cache["pos"][j] = one["pos"]
+        cache["pos_host"][j] = one["pos"]
+        if paged:
+            for key, (page, off, val) in one["kv"].items():
+                cache[key][:, page, :, off] = val
+            for key, (page, val) in one["blk"].items():
+                cache["slap"][key][:, page] = val
+        else:
+            for key, (at, val) in one["kv"].items():
+                cache[key][:, j, :, at] = val
+        if st is None:
+            continue
+        if not paged:
+            for key, (live, val) in one["blk"].items():
+                st[key][:, j, :, live] = val
+        plan = st["plan"]
+        for name, (prev, val) in one["row"].items():
+            getattr(plan, name)[:, j, :, prev] = val
+        plan.col_lut[:, j].scatter_(-1, *one["fill"])
+        for name, val in one["whole"].items():
+            leaf = plan.col_counts if name == "col_counts" else st[name]
+            leaf[:, j] = val
+        st["rows"][j] = one["rows"]
+    return cache
 
 
 def _item14(what: str):
@@ -626,7 +1189,5 @@ def _item14(what: str):
     return fn
 
 
-make_cache = _item14("make_cache")
-insert_slot = _item14("insert_slot")
 decode_chunk = _item14("decode_chunk")
 prefill_chunk = _item14("prefill_chunk")

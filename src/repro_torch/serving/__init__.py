@@ -1,2 +1,3 @@
-"""Serving surfaces of the port: the streaming DiT denoise service and the
-static LM serving engine."""
+"""Serving surfaces of the port: the streaming DiT denoise service, the
+static LM serving engine, and the continuous LM scheduler with its paged,
+prefix-shared KV cache."""

@@ -1,9 +1,12 @@
 """Batched LM serving engine: request queue -> SLA prefill -> batched decode.
 
-Counterpart of `repro.serving.engine` with its "static" policy: requests
-are grouped into fixed-size decode batches; prefill runs per group, then
-tokens are decoded in lockstep until each request's budget (finished
-requests keep computing, their sampling frozen).
+Counterpart of `repro.serving.engine`. The "static" policy groups requests
+into fixed-size decode batches; prefill runs per group, then tokens are
+decoded in lockstep until each request's budget (finished requests keep
+computing, their sampling frozen). The "continuous" policy is a thin
+wrapper over `serving.api.Scheduler` (one slot per batch lane, unpaged or
+with `paged=True` the paged, prefix-shared KV cache): `run()` submits
+every request and drains the scheduler, sharing its ServeStats.
 
 Prefill plan reuse (`plan_reuse="adaptive"`): every prefill chunk is
 padded to one static (batch, length) bucket; the per-layer SLA block
@@ -20,10 +23,9 @@ The engine computes in bf16 over the f32 parameters, as the reference:
 it casts the matmul weights to bf16 once at construction
 (`transformer.compute_params`). The reference's rolled per-segment decode
 (one traced loop per run of steps between request finishes) is a Python
-loop here with the same segments. The continuous scheduler, the paged
-cache and chunked admission are not ported yet (ROADMAP.md queue 1,
-item 14): `scheduler="continuous"`, `paged=True` and a config with
-`sla.prefill_chunk_blocks` raise and name it.
+loop here with the same segments. Chunked admission is not ported yet
+(ROADMAP.md queue 1, item 14): `prefill_chunk_blocks` (or a config with
+`sla.prefill_chunk_blocks`) raises and names it.
 """
 from __future__ import annotations
 
@@ -37,8 +39,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import registry
 from repro_torch.models.common import logits_from_hidden
-from repro_torch.serving.api import (RequestMetrics, ServeStats,
-                                     block_bucket, check_serving_family,
+from repro_torch.serving.api import (RequestMetrics, SamplingParams,
+                                     Scheduler, ServeStats, block_bucket,
+                                     check_serving_family,
                                      normalize_drift_threshold,
                                      prefill_with_plan_reuse)
 
@@ -71,7 +74,9 @@ class ServingEngine:
                  max_len: int = 512, greedy: bool = True,
                  backend: str = "gather", plan_reuse: str = "off",
                  drift_threshold=None, decode_sla: bool = False,
-                 scheduler: str = "static", paged: Optional[bool] = None):
+                 scheduler: str = "static", paged: Optional[bool] = None,
+                 pool_pages: Optional[int] = None,
+                 prefill_chunk_blocks: Optional[int] = None):
         from repro_torch.core import backends as backend_registry
         backend = backend_registry.resolve(backend)  # fail loudly, early
         cfg.sla.validate()
@@ -83,12 +88,18 @@ class ServingEngine:
             raise ValueError(
                 f"unknown scheduler {scheduler!r}; expected 'static' or "
                 "'continuous'")
-        if scheduler == "continuous":
-            raise _not_ported("the continuous-batching scheduler")
-        if paged or (paged is None and cfg.sla.paged):
-            raise _not_ported("the paged KV cache")
-        if cfg.sla.prefill_chunk_blocks is not None:
+        if paged is None:
+            paged = cfg.sla.paged
+        if paged and scheduler != "continuous":
+            raise ValueError(
+                "paged KV caching requires the continuous-batching "
+                "scheduler (the static engine decodes group-local "
+                "caches; there is no shared pool to page)")
+        if prefill_chunk_blocks is None:
+            prefill_chunk_blocks = cfg.sla.prefill_chunk_blocks
+        if prefill_chunk_blocks is not None:
             raise _not_ported("chunked admission prefill")
+        self.paged = paged
         self.cfg = cfg
         self.params = params
         self.mdl = registry.get_model(cfg)
@@ -108,8 +119,19 @@ class ServingEngine:
         self.stats = ServeStats()
         self._plans = None
         self._bucket: Optional[int] = None  # static prefill (len) bucket
-        check_serving_family(cfg, self.mdl, plan_reuse, self.decode_sla)
+        check_serving_family(cfg, self.mdl, plan_reuse, self.decode_sla,
+                             continuous=scheduler == "continuous")
         self.device = params.embed.device
+        if scheduler == "continuous":
+            # run() becomes a thin wrapper: one slot per static-batch
+            # lane, the same bucket policy, the SAME ServeStats object
+            self._sched = Scheduler(
+                cfg, params, num_slots=batch_size, max_len=max_len,
+                backend=backend, decode_sla=self.decode_sla,
+                plan_reuse=plan_reuse, drift_threshold=drift_threshold,
+                paged=paged, pool_pages=pool_pages)
+            self._sched.stats = self.stats
+            return
         self._cparams = self.mdl.compute_params(params)
         # decode-SLA prefills seed the decode state against the final
         # cache length; plain prefills are grown by _grow_cache instead
@@ -188,6 +210,8 @@ class ServingEngine:
         for r in requests:
             if r.metrics is None:
                 r.metrics = RequestMetrics(submit_t=t_submit)
+        if self.scheduler == "continuous":
+            return self._run_continuous(requests)
         if self.plan_reuse != "off" or self.decode_sla:
             # both plan reuse and decode-SLA need block-aligned static
             # prefill shapes (reused plans / the decode block grid)
@@ -208,6 +232,25 @@ class ServingEngine:
         for i in range(0, len(requests), self.batch_size):
             done.extend(self._run_group(requests[i: i + self.batch_size]))
         return done
+
+    def _run_continuous(self, requests: List[Request]) -> List[Request]:
+        """The v1 surface over the continuous scheduler."""
+        rid_map = {}
+        for r in requests:
+            sid = self._sched.submit(
+                r.prompt, SamplingParams(max_new_tokens=r.max_new_tokens))
+            rid_map[sid] = r
+        for sr in self._sched.drain():
+            if sr.rid not in rid_map:
+                continue  # finished in an earlier run() call
+            r = rid_map[sr.rid]
+            # keep the caller's (or run()'s) submission stamp: it predates
+            # the scheduler's own submit() stamp
+            sr.metrics.submit_t = r.metrics.submit_t
+            r.tokens_out = list(sr.tokens_out)
+            r.metrics = sr.metrics
+            r.latency_s = sr.metrics.latency_s
+        return requests
 
     def _run_prefill(self, toks: torch.Tensor):
         """Prefill one chunk, through the plan-reuse path when enabled.

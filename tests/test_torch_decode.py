@@ -195,11 +195,19 @@ def test_decode_attention_gradients_match_custom_vjp(c):
 
 
 def test_decode_attention_rejects_paged_state():
+    """Paged state (a page table `pt` over page pools) runs the paged
+    kernel for single tokens (tests/test_torch_paged_decode.py) and is
+    refused for a chunk of C > 1 tokens, as the reference refuses it."""
     _, tcfg = _cfgs()
-    st, qg, qpg, pos = _state(1, 1, "f32")
-    ts = dict(_torch_state(st, "f32"), pt=torch.zeros((B, TN), dtype=int))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        sla_decode.decode_attention(ts, torch.from_numpy(qg),
+    st, qg, qpg, pos = _state(1, 4, "f32")
+    ts = _torch_state(st, "f32")
+    pools = {n: ts[n].reshape(B * HKV, TN, *ts[n].shape[3:])
+             for n in ("hblk", "zblk")}
+    pools.update({n: ts[n].reshape(B * HKV, TN, BKV, D) for n in "kv"})
+    pt = torch.arange(B * TN, dtype=torch.int32).reshape(B, TN)
+    paged = dict(ts, pt=pt, **pools)
+    with pytest.raises(ValueError, match="single-token"):
+        sla_decode.decode_attention(paged, torch.from_numpy(qg),
                                     torch.from_numpy(qpg), pos, tcfg)
 
 

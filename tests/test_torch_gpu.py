@@ -22,7 +22,7 @@ from repro_torch.core import plan as plan_lib
 from repro_torch.core.config import SLAConfig
 from repro_torch.core.phi import phi
 from repro_torch.distributed import ctx
-from repro_torch.kernels import ops, sla_bwd, sla_decode, sla_fwd
+from repro_torch.kernels import cases, ops, sla_bwd, sla_decode, sla_fwd
 from repro_torch.launch import steps
 from repro_torch.models import dit
 from repro_torch.models import transformer
@@ -496,3 +496,114 @@ def test_lm_kernel_decode_matches_gather_on_the_card():
     assert torch.equal(tk, tg)
     assert int(ck["sla"]["extends"].sum()) == cfg.num_layers
     assert torch.equal(ck["sla"]["live_lut"], cg["sla"]["live_lut"])
+
+
+PAGED_CASES = [
+    # (b, hkv, g, d, bkv, tn, npages, k_sel, shared, pos, runaway)
+    (4, 8, 2, 128, 64, 32, 140, 6, 12, 20 * 64 + 29, False),
+    (2, 2, 4, 64, 16, 24, 60, 5, 6, 10 * 16 + 3, True),
+    (2, 2, 1, 32, 32, 16, 40, 3, 4, 9 * 32 + 10, True),
+]
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,hkv,g,d,bkv,tn,npages,k_sel,shared,pos,runaway",
+                         PAGED_CASES)
+def test_cuda_paged_decode_kernel_matches_twin_and_monolithic(
+        b, hkv, g, d, bkv, tn, npages, k_sel, shared, pos, runaway,
+        kv_dtype):
+    """The paged decode kernel against its twin on the same card tensors
+    (shared and shuffled pages, NaN pages behind the padded LUT slots,
+    marg = 0 rows exact zeros, a runaway slot), and bitwise against the
+    monolithic decode kernel on the page-gathered view of the pools."""
+    _need_gpu()
+    args, kw = cases.paged_decode_operands(
+        5 + b, kv_dtype, pos, b=b, hkv=hkv, g=g, d=d, bkv=bkv, tn=tn,
+        npages=npages, k_sel=k_sel, shared=shared, runaway=runaway)
+    before = (sla_decode.PAGED_LAUNCHES, sla_decode.LAUNCHES)
+    got = sla_decode.sla_decode_paged(*args, **kw)
+    want = sla_decode.sla_decode_paged_plain(*args, **kw)
+    mono = sla_decode.sla_decode(*cases.paged_dense_operands(args), **kw)
+    torch.cuda.synchronize()
+    assert (sla_decode.PAGED_LAUNCHES, sla_decode.LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    _assert_twin(got, want)
+    assert torch.all(got[1][args[3] == 0] == 0)
+    assert float(got[1].abs().max()) > 0
+    for p, m in zip(got, mono):
+        assert torch.equal(p, m)
+
+
+def test_cuda_paged_decode_kernel_refuses_what_it_cannot_take():
+    _need_gpu()
+    args, kw = cases.paged_decode_operands(
+        2, torch.float32, 9 * 16 + 4, b=2, hkv=2, g=1, d=32, bkv=16, tn=16,
+        npages=40, k_sel=3, shared=4)
+    k = args[7]
+
+    def swap(i, x):
+        bad = list(args)
+        bad[i] = x
+        return bad
+
+    rows_apart = torch.empty(k.shape[:2] + (k.shape[3], k.shape[2]),
+                             device="cuda").transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous elements"):
+        sla_decode.sla_decode_paged(*swap(7, rows_apart), **kw)
+    flat = torch.zeros(k.numel() + 1, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sla_decode.sla_decode_paged(*swap(7, flat[1:].view(k.shape)), **kw)
+    with pytest.raises(ValueError, match="pt must be"):
+        sla_decode.sla_decode_paged(*swap(1, args[1].reshape(-1)), **kw)
+    with pytest.raises(ValueError, match="q rows are not"):
+        sla_decode.sla_decode_paged(*swap(1, args[1][:1]), **kw)
+    with pytest.raises(TypeError, match="q must be float32"):
+        sla_decode.sla_decode_paged(*swap(5, args[5].bfloat16()), **kw)
+
+
+def test_paged_scheduler_on_the_card_kernel_vs_gather():
+    """A smoke-size Qwen3 through the paged continuous scheduler on the
+    card, f32, decode-SLA: 4 requests sharing a prefix (one an exact
+    repeat) through 2 slots on the kernel and on the gather backend give
+    the same tokens and page counters; the kernel path launches the paged
+    kernel once per layer per decode step and the monolithic one never."""
+    _need_gpu()
+    from repro_torch.serving.api import SamplingParams, Scheduler
+    cfg = get_arch("qwen3-1.7b").smoke()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    model = transformer.init(gen, cfg)
+    with torch.no_grad():
+        for layer in model.layers:
+            layer.sla_proj.copy_(0.1 * torch.randn(
+                layer.sla_proj.shape, generator=gen, device="cuda"))
+    rs = np.random.default_rng(3)
+    shared = rs.integers(0, cfg.vocab_size, 32)
+    prompts = [np.concatenate([shared, rs.integers(0, cfg.vocab_size, n)])
+               for n in (16, 9, 16)]
+    prompts.append(prompts[1])
+    budgets = (20, 12, 9, 12)
+    runs = {}
+    for backend in ("kernel", "gather"):
+        sched = Scheduler(cfg, model, num_slots=2, max_len=96,
+                          prefill_bucket=48, decode_sla=True, paged=True,
+                          backend=backend, compute_dtype=torch.float32)
+        for p, n in zip(prompts, budgets):
+            sched.submit(p, SamplingParams(max_new_tokens=n))
+        before = (sla_decode.PAGED_LAUNCHES, sla_decode.LAUNCHES)
+        done = sched.drain()
+        runs[backend] = ([r.tokens_out for r in done], sched.stats,
+                         sla_decode.PAGED_LAUNCHES - before[0],
+                         sla_decode.LAUNCHES - before[1])
+    (tk, sk, pk, mk), (tg, sg, pg, mg) = runs["kernel"], runs["gather"]
+    assert tk == tg
+    assert [len(t) for t in tk] == list(budgets)
+    steps = sk.slot_steps_total // 2
+    assert pk == steps * cfg.num_layers and mk == 0 and pg == 0
+    for name in ("prefix_hits", "prefix_misses", "prefix_full_hits",
+                 "cow_copies", "page_allocs", "pages_peak",
+                 "decode_plan_extends", "decode_plan_replans",
+                 "decode_plan_reuses"):
+        assert getattr(sk, name) == getattr(sg, name), name
+    assert sk.prefix_full_hits == 1 and sk.prefix_hits > 0

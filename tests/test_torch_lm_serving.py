@@ -107,11 +107,27 @@ def test_static_engine_matches_jax_engine(decode_sla, plan_reuse, backend):
 
 
 def test_engine_rejects_unported_modes():
-    _, tcfg, _, model, _ = _shared()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ServingEngine(tcfg, model, scheduler="continuous")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    """Chunked admission still raises and names item 14; the continuous
+    scheduler is ported (a paged cache without it is refused as in the
+    reference), and the engine's continuous wrapper serves the static
+    engine's tokens on a trace whose groups do not mix."""
+    _, tcfg, _, model, prompts = _shared()
+    with pytest.raises(ValueError, match="continuous-batching"):
         ServingEngine(tcfg, model, paged=True)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        ServingEngine(tcfg, model, scheduler="continuous",
+                      prefill_chunk_blocks=2)
+    runs = {}
+    for scheduler in ("static", "continuous"):
+        eng = ServingEngine(tcfg, model, batch_size=2, max_len=64,
+                            decode_sla=True, backend="kernel",
+                            scheduler=scheduler,
+                            paged=scheduler == "continuous")
+        runs[scheduler] = eng.run([
+            Request(rid=i, prompt=p[:32], max_new_tokens=4)
+            for i, p in enumerate(prompts[:2])])
+    assert [r.tokens_out for r in runs["continuous"]] == \
+        [r.tokens_out for r in runs["static"]]
     with pytest.raises(NotImplementedError, match="item 14"):
         ServingEngine(dataclasses.replace(tcfg, sla=dataclasses.replace(
             tcfg.sla, prefill_chunk_blocks=2)), model)
@@ -150,10 +166,23 @@ def test_serve_cli_lm_workload_matches_reference_cli(tmp_path):
                                    ["--disagg"], ["--stream"]],
                          ids=lambda f: f[0])
 def test_serve_cli_unported_lm_modes_name_item_14(flags):
+    """The LM modes still unported (--prefill-chunk, --disagg) raise and
+    name item 14. The ported ones run: --scheduler continuous serves,
+    and --paged / --stream without it are refused with the reference
+    CLI's argument error."""
     from repro_torch.launch import serve as torch_serve
-    with pytest.raises(NotImplementedError, match="item 14"):
-        torch_serve.main(["--arch", "qwen3-1.7b", "--smoke", "--device",
-                          "cpu"] + flags)
+    argv = ["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+            "--requests", "2", "--batch", "2", "--prompt-len", "16",
+            "--max-new", "3"] + flags
+    if flags[0] in ("--prefill-chunk", "--disagg"):
+        with pytest.raises(NotImplementedError, match="item 14"):
+            torch_serve.main(argv)
+    elif flags[0] == "--scheduler":
+        done = torch_serve.main(argv)
+        assert [len(r.tokens_out) for r in done] == [3, 3]
+    else:
+        with pytest.raises(SystemExit):
+            torch_serve.main(argv)
 
 
 def test_engine_group_accounting_counts_each_request():

@@ -223,14 +223,30 @@ def test_prefill_plan_reuse_with_drift_matches_jax():
 
 
 def test_unported_lm_paths_name_their_item():
+    """Chunked decode and chunked prefill still raise and name item 14,
+    the MoE FFN item 13. The per-slot caches they used to share the
+    raise with are ported (tests/test_torch_paged.py): an empty per-slot
+    cache decodes with (B,) positions, and a paged cache with a scalar
+    position is refused as in the reference."""
     _, tcfg = _cfgs()
     _, model = _params()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ttfm.make_cache(tcfg, 2, 96)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    for fn in (ttfm.decode_chunk, ttfm.prefill_chunk):
+        with pytest.raises(NotImplementedError, match="item 14"):
+            fn(model, tcfg)
+    cache = ttfm.make_cache(tcfg, 2, 96, dtype=torch.float32,
+                            per_slot=True, device="cpu")
+    with torch.no_grad():
+        logits, cache = ttfm.decode_step(
+            model, tcfg, torch.zeros(2, dtype=torch.long), cache,
+            compute_dtype=torch.float32)
+    assert logits.shape == (2, tcfg.vocab_size)
+    assert cache["pos"].tolist() == cache["pos_host"].tolist() == [1, 1]
+    paged = ttfm.make_paged_cache(tcfg, 2, 96, 8, dtype=torch.float32,
+                                  decode_sla=True, device="cpu")
+    paged["pos"] = 3
+    with pytest.raises(ValueError, match="per-slot"):
         ttfm.decode_step(model, tcfg, torch.zeros(2, dtype=torch.long),
-                         {"k": None, "v": None,
-                          "pos": torch.tensor([3, 4])})
+                         paged)
     moe = dataclasses.replace(tcfg, num_experts=4)
     with pytest.raises(NotImplementedError, match="item 13"):
         ttfm.init(None, moe, device="cpu")
