@@ -32,10 +32,16 @@ Phases, in order; any failure exits non-zero before the result line:
   7. backward kernels vs plain twins: `sla_bwd_dq` and `sla_bwd_dkv`
      against `sla_bwd_dq_plain` / `sla_bwd_dkv_plain` on the same card
      tensors (L and O^s from the forward kernel, a seeded dO), at both
-     shapes of phase 3 with their random LUTs and on the full-width
-     forward's layer-0 and layer-29 LUTs, f32 and bf16: max abs error
-     against 5e-5 x max(1, max |twin|); CUDA-event times of kernel and
-     twin, live tiles, the bound, and the backward of dense
+     shapes of phase 3 with their random LUTs, a causal GQA-2 case (H 12,
+     N 4096, D 128) and on the full-width forward's layer-0 and layer-29
+     LUTs, f32 and bf16. The f32 cases take the f32-FMA kernels, held to
+     5e-5 x max(1, max |twin|). The bf16 cases (all at 64 x 64 blocks)
+     take the tensor-core kernels (checked by their own launch counters),
+     held by `cases.tc_criterion`: err(kernel, f32 twin) <= 2 err(rounded
+     twin, f32 twin) + 5e-5 m and <= 5e-2 m, m = max(1, max |twin|), the
+     rounded twin rounding dO, P and dS to bf16 where the kernels do; two
+     launches bitwise equal. CUDA-event times of kernel and twin, live
+     tiles, the bound and its fraction, and the backward of dense
      scaled_dot_product_attention as a yardstick (not the same function).
      At the Wan shape and on the path's LUTs also the library call:
      compiled flex_attention on a BlockMask of the same row LUT, whose
@@ -43,15 +49,21 @@ Phases, in order; any failure exits non-zero before the result line:
      (its f32 gradients held to 1e-4 x max(1, max |g|) of the kernels').
   8. gradient cross-check: at the Wan shape on layer 0's plan, one
      `sla_attention_core` call on the kernel backend (both backward
-     kernels) against the gather backend's autograd: grads of q, k, v, qp
-     and kp within 1e-4 x max(1, max |g|).
+     kernels) against the gather backend's autograd: in f32, grads of q,
+     k, v, qp and kp within 1e-4 x max(1, max |g|); in bf16 (the
+     tensor-core kernels) against the gather backend's f32 autograd on
+     the same bf16-rounded inputs, by `cases.tc_criterion` with the kernel
+     backend run once more through the rounded twins as the "rounded"
+     term.
   9. training main path: `make_train_step` (AdamW, bf16 compute over f32
      masters, kernel backend) on the phase-4 model under per-layer remat,
      3 steps at seq_len 32768, batch 1 (`dit_video_32k` has 16), on
      `latent_batch` data. Checks finite losses and grad norms, that the
      parameters moved, and per step exactly 60 `sla_fwd` launches (30
      layers, each run twice: the forward and its remat recompute), 30
-     `sla_bwd_dq`, 30 `sla_bwd_dkv` and 30 plan builds.
+     `sla_bwd_dq`, 30 `sla_bwd_dkv` (all 60 on the tensor-core route) and
+     30 plan builds. `--profile` adds the backward kernels' mean device
+     time per launch on the training step's own plans.
  10. train CLI on the card (its loss runs the gather backend, as the
      reference's CLI): the lightningdit_1b smoke fine-tuning recipe
      (distillation, learned routing, routing + sla_proj trained, warm
@@ -156,6 +168,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -199,6 +212,9 @@ from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
 # Kernel vs plain twin: both read the same (possibly bf16) inputs and
 # accumulate in f32, so bf16 is held to the f32 limit too; the 5e-2 of
 # tests/test_conformance.py is for the port's bf16 path against JAX's.
+# The one exception is the backward's tensor-core route (bf16 at 64 x 64
+# blocks), which rounds dO, P and dS to bf16 before its products: it is
+# held by `cases.tc_criterion` against the twin that rounds alike.
 TWIN_TOL = 5e-5
 FWD_TOL = 1e-4  # kernel vs gather velocity, relative to max(1, max |v|)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -606,19 +622,86 @@ def _bwd_bound(name, args, kw, dtype):
             live)
 
 
-def _bwd_check(name, args, kw, what: str):
-    """Kernel against its twin on the same card operands: max abs error
-    and the limit 5e-5 x max(1, max |twin|); raises on a non-finite
-    output."""
+TC_ROUTE = "tensor cores, wgmma m64n64k16 (sla_bwd_tc.cu)"
+F32_ROUTE = "f32 FMA on CUDA cores (sla_bwd.cu)"
+
+
+def _tc_launches(name: str) -> int:
+    return (sla_bwd.TC_LAUNCHES_DQ if name == "sla_bwd_dq"
+            else sla_bwd.TC_LAUNCHES_DKV)
+
+
+def _bwd_check(name, args, kw, what: str) -> dict:
+    """Kernel against its twin on the same card operands. The f32-FMA
+    route: max abs error against 5e-5 x max(1, max |twin|). The
+    tensor-core route (`sla_bwd.use_tensor_cores`): `cases.tc_criterion`
+    against the f32 twin and the twin that rounds dO, P and dS to bf16,
+    and a second launch bitwise equal to the first. Raises on a
+    non-finite output or when the route's counter did not move."""
     kernel, plain, _ = BWD[name]
-    got, want = kernel(*args, **kw), plain(*args, **kw)
-    got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
+    q = args[2]
+    tc = sla_bwd.use_tensor_cores(q.dtype, kw["block_q"], kw["block_kv"],
+                                  q.shape[-1])
+    before = _tc_launches(name)
+    got = kernel(*args, **kw)
+    launched = _tc_launches(name) - before
+    want = plain(*args, **kw)
     torch.cuda.synchronize()
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    limit = TWIN_TOL * max(1.0, max(float(w.abs().max()) for w in want))
-    if not np.isfinite(err):
+    if launched != int(tc):
+        raise RuntimeError(f"{name} {what}: {launched} tensor-core "
+                           f"launches, expected {int(tc)}")
+    got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
+    if not all(bool(torch.isfinite(g).all()) for g in got):
         raise RuntimeError(f"{name} {what}: non-finite output")
-    return err, limit
+    if not tc:
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        limit = TWIN_TOL * max(1.0, max(float(w.abs().max())
+                                        for w in want))
+        return dict(route=F32_ROUTE, max_abs_err=err, limit=limit,
+                    ok=err <= limit)
+    rounded = plain(*args, **kw, mma_dtype=torch.bfloat16)
+    res = cases.tc_criterion(got, want, rounded)
+    again = kernel(*args, **kw)
+    again = (again,) if torch.is_tensor(again) else again
+    res["bitwise_repeat"] = all(torch.equal(a, b)
+                                for a, b in zip(got, again))
+    res["ok"] = res["ok"] and res["bitwise_repeat"]
+    return dict(route=TC_ROUTE, **res)
+
+
+def _check_text(c: dict) -> str:
+    if c["route"] == F32_ROUTE:
+        return (f"max abs err {c['max_abs_err']:.3g} (limit "
+                f"{c['limit']:.3g}) {'OK' if c['ok'] else 'FAIL'}")
+    return (f"tensor cores: max abs err {c['max_abs_err']:.3g} vs f32 twin "
+            f"(rounded twin {c['rounded_err']:.3g}, limit {c['limit']:.3g}"
+            f"), bitwise repeat {c['bitwise_repeat']} "
+            f"{'OK' if c['ok'] else 'FAIL'}")
+
+
+def _gqa_bwd_operands(h, group, n, d, seed, causal):
+    """Both backward kernels' bf16 operands for GQA (h // group kv heads)
+    at 64 x 64 blocks: a plan of seeded q/k, L and O^s from the forward
+    kernel, a seeded dO. Returns (dq args, dkv args, keywords)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    q = torch.randn((1, h, n, d), generator=gen, device=DEV)
+    k, v = (torch.randn((1, h // group, n, d), generator=gen, device=DEV)
+            for _ in range(2))
+    sla = get_arch("wan2_1_1_3b").sla.replace(causal=causal)
+    plan = plan_lib.plan_attention(q, k, sla)
+    fq, fk, fv = (ops._flat(x.to(torch.bfloat16)) for x in (q, k, v))
+    lut, counts = ops._flat(plan.lut), ops._flat(plan.counts)
+    tm = n // sla.block_q
+    kw = dict(scale=d ** -0.5, causal=causal, block_q=sla.block_q,
+              block_kv=sla.block_kv)
+    o_s, _, lse = sla_fwd.sla_fwd(
+        lut, counts, fq, fk, fv, torch.zeros_like(fq, dtype=torch.float32),
+        torch.zeros((fq.shape[0], tm, d, d), device=DEV),
+        torch.zeros((fq.shape[0], tm, d), device=DEV), **kw)
+    do = torch.randn(o_s.shape, generator=gen, device=DEV)
+    tail = (fq, fk, fv, do, lse, (do * o_s).sum(dim=-1))
+    return ((lut, counts) + tail,
+            (ops._flat(plan.col_lut), ops._flat(plan.col_counts)) + tail, kw)
 
 
 def _sdpa_bwd_ms(q, k, v) -> float:
@@ -759,6 +842,42 @@ def _with_library(sla, q, k, v, lut, counts, dq_args, dkv_args, kw,
     return lib
 
 
+def _bwd_case(shape, dname, dq_args, dkv_args, kw, n, d, extra):
+    """Check and time both backward kernels on one case's operands."""
+    rows = []
+    for name, args in (("sla_bwd_dq", dq_args), ("sla_bwd_dkv", dkv_args)):
+        kernel, plain, _ = BWD[name]
+        c = _bwd_check(name, args, kw, f"{shape} {dname}")
+        ms = cuda_ms(lambda: kernel(*args, **kw), 10)
+        plain_ms = cuda_ms(lambda: plain(*args, **kw), 2, warmup=1)
+        bound_ms, bound_by, flops, nbytes, live = _bwd_bound(
+            name, args, kw, args[2].dtype)
+        if c["route"] == TC_ROUTE:  # the wrapper's dO cast and D padding
+            c["prep_ms"] = cuda_ms(lambda: sla_bwd._tc_operands(
+                name, *args[2:]), 10)
+        say(f"[7 bwd] {name} {shape} {dname} (BH={args[2].shape[0]}, "
+            f"BH_kv={args[3].shape[0]}, N={n}, D={d}, causal "
+            f"{kw['causal']}, LUT width {args[0].shape[-1]}, live tiles "
+            f"{live}): {_check_text(c)}")
+        say(f"  kernel {ms:.3f} ms | bound {bound_ms:.3f} ms by {bound_by} "
+            f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f} MB; "
+            f"{bound_ms / ms:.1%} of it) | plain twin {plain_ms:.3f} ms"
+            + (f" | of the kernel's time, the wrapper's dO cast and head-dim"
+               f" padding {c['prep_ms']:.3f} ms" if "prep_ms" in c else "")
+            + (f" | dense SDPA backward yardstick (not the same function) "
+               f"{extra['dense_sdpa_bwd_ms']:.3f} ms"
+               if "dense_sdpa_bwd_ms" in extra else ""))
+        rows.append(dict(kernel=name, shape=shape, dtype=dname,
+                         bh=args[2].shape[0], bh_kv=args[3].shape[0], n=n,
+                         d=d, causal=kw["causal"],
+                         lut_width=args[0].shape[-1], live_tiles=live,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, bound_fraction=bound_ms / ms,
+                         gflop=flops / 1e9, mbytes=nbytes / 1e6, **c,
+                         **extra))
+    return rows
+
+
 def phase_bwd_vs_plain():
     rows = []
     for shape, (arch, h, n, d) in SHAPES.items():
@@ -769,42 +888,23 @@ def phase_bwd_vs_plain():
             dname = "f32" if dtype == torch.float32 else "bf16"
             dq_args, dkv_args, kw = _bwd_operands(sla, q, k, v, leaves,
                                                   dtype, seed=4)
-            sdpa_ms = _sdpa_bwd_ms(*(x.to(dtype) for x in (q, k, v)))
-            lib = {}
+            extra = dict(dense_sdpa_bwd_ms=_sdpa_bwd_ms(
+                *(x.to(dtype) for x in (q, k, v))))
             if shape == "wan2_1_1_3b":
-                lib = _with_library(sla, q, k, v, plan.lut, plan.counts,
-                                    dq_args, dkv_args, kw, dtype,
-                                    f"{shape} {dname}")
-            for name, args in (("sla_bwd_dq", dq_args),
-                               ("sla_bwd_dkv", dkv_args)):
-                kernel, plain, _ = BWD[name]
-                err, limit = _bwd_check(name, args, kw, f"{shape} {dname}")
-                ok = err <= limit
-                ms = cuda_ms(lambda: kernel(*args, **kw), 10)
-                plain_ms = cuda_ms(lambda: plain(*args, **kw), 2, warmup=1)
-                bound_ms, bound_by, flops, nbytes, live = _bwd_bound(
-                    name, args, kw, dtype)
-                say(f"[7 bwd] {name} {shape} {dname} (BH={args[2].shape[0]}"
-                    f", N={n}, D={d}, LUT width {args[0].shape[-1]}, live "
-                    f"tiles {live}): max abs err {err:.3g} (limit "
-                    f"{limit:.3g}) {'OK' if ok else 'FAIL'}")
-                say(f"  kernel {ms:.3f} ms | bound {bound_ms:.3f} ms by "
-                    f"{bound_by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f}"
-                    f" MB) | plain twin {plain_ms:.3f} ms | dense SDPA "
-                    f"backward yardstick (not the same function) "
-                    f"{sdpa_ms:.3f} ms")
-                rows.append(dict(kernel=name, shape=shape, dtype=dname,
-                                 bh=args[2].shape[0], n=n, d=d,
-                                 lut_width=args[0].shape[-1],
-                                 live_tiles=live, max_abs_err=err,
-                                 limit=limit, ok=ok, ms=ms,
-                                 plain_ms=plain_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by, gflop=flops / 1e9,
-                                 mbytes=nbytes / 1e6,
-                                 dense_sdpa_bwd_ms=sdpa_ms, **lib))
+                extra.update(_with_library(sla, q, k, v, plan.lut,
+                                           plan.counts, dq_args, dkv_args,
+                                           kw, dtype, f"{shape} {dname}"))
+            rows += _bwd_case(shape, dname, dq_args, dkv_args, kw, n, d,
+                              extra)
             del dq_args, dkv_args
         del q, k, v, plan
         torch.cuda.empty_cache()
+    h, n, d = SHAPES["wan2_1_1_3b"][1], 4096, 128
+    dq_args, dkv_args, kw = _gqa_bwd_operands(h, 2, n, d, seed=6,
+                                              causal=True)
+    rows += _bwd_case("causal GQA-2", "bf16", dq_args, dkv_args, kw, n, d,
+                      {})
+    del dq_args, dkv_args
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise RuntimeError(f"backward kernel disagrees with its plain "
@@ -834,23 +934,20 @@ def phase_bwd_on_path_plans(cfg, plans):
                                 f"layer {layer} plans {dname}")
             for name, args in (("sla_bwd_dq", dq_args),
                                ("sla_bwd_dkv", dkv_args)):
-                err, limit = _bwd_check(name, args, kw,
-                                        f"layer {layer} plans {dname}")
-                ok = err <= limit
+                c = _bwd_check(name, args, kw, f"layer {layer} plans {dname}")
                 ms = cuda_ms(lambda: BWD[name][0](*args, **kw), 10)
                 bound_ms, bound_by, _, _, live = _bwd_bound(name, args, kw,
                                                             dtype)
                 say(f"[7 bwd path plans] {name} wan2_1_1_3b layer {layer} "
-                    f"{dname} (live tiles {live} of {args[0].numel()}): max "
-                    f"abs err {err:.3g} (limit {limit:.3g}) "
-                    f"{'OK' if ok else 'FAIL'} | kernel {ms:.3f} ms | bound "
-                    f"{bound_ms:.3f} ms by {bound_by}")
+                    f"{dname} (live tiles {live} of {args[0].numel()}): "
+                    f"{_check_text(c)} | kernel {ms:.3f} ms | bound "
+                    f"{bound_ms:.3f} ms by {bound_by} ({bound_ms / ms:.1%} "
+                    f"of it)")
                 rows.append(dict(kernel=name, shape=f"wan2_1_1_3b layer "
                                  f"{layer} plans", dtype=dname,
-                                 live_tiles=live, max_abs_err=err,
-                                 limit=limit, ok=ok, ms=ms,
-                                 bound_ms=bound_ms, bound_by=bound_by,
-                                 **lib))
+                                 live_tiles=live, ms=ms, bound_ms=bound_ms,
+                                 bound_by=bound_by,
+                                 bound_fraction=bound_ms / ms, **c, **lib))
             del dq_args, dkv_args
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -862,45 +959,88 @@ def phase_bwd_on_path_plans(cfg, plans):
 def phase_grad_cross_check(cfg, plans):
     """Gradients of q, k, v, qp and kp through the kernel backend's
     autograd.Function against the gather backend's autograd, at the Wan
-    shape on layer 0's plan, for one random cotangent of (O^s, O^l)."""
+    shape on layer 0's plan, for one random cotangent of (O^s, O^l). In
+    f32 (the f32-FMA backward kernels) within 1e-4 x max(1, max |g|); in
+    bf16 (the tensor-core kernels) against the gather backend's f32
+    autograd on the same bf16-rounded inputs by `cases.tc_criterion`, the
+    "rounded" term from the kernel backend run through the twins that
+    round dO, P and dS to bf16."""
     sla = cfg.sla
     plan = plan_lib.plan_map(lambda leaf: leaf[0], plans)
     h, n, d = cfg.num_heads, MAIN_SEQ, cfg.head_dim
     gen = torch.Generator(device=DEV).manual_seed(3)
     q, k, v, g_s, g_l = (torch.randn((1, h, n, d), generator=gen,
                                      device=DEV) for _ in range(5))
-    qp, kp = phi_lib.phi(q, sla.phi), phi_lib.phi(k, sla.phi)
-    ins = [x.detach().requires_grad_() for x in (q, k, v, qp, kp)]
-    sla_bwd.LAUNCHES_DQ = sla_bwd.LAUNCHES_DKV = 0
-    torch.cuda.synchronize()
-    t0 = time.time()
-    got = torch.autograd.grad(ops.sla_attention_core(*ins, plan, sla), ins,
-                              (g_s, g_l))
-    torch.cuda.synchronize()
-    s_kernel = time.time() - t0
-    launches = (sla_bwd.LAUNCHES_DQ, sla_bwd.LAUNCHES_DKV)
-    t0 = time.time()
-    want = torch.autograd.grad(sla_forward_gather(*ins, plan, sla), ins,
-                               (g_s, g_l))
-    torch.cuda.synchronize()
-    s_gather = time.time() - t0
-    res = {}
-    for name, a, b in zip(("q", "k", "v", "qp", "kp"), got, want):
-        err = float((a - b).abs().max())
-        limit = GRAD_TOL * max(1.0, float(b.abs().max()))
-        res[name] = dict(max_abs_err=err, limit=limit,
-                         ok=bool(np.isfinite(err)) and err <= limit)
-    ok = all(r["ok"] for r in res.values()) and launches == (1, 1)
-    say(f"[8 grads] Wan shape, layer-0 plan: kernel vs gather backend "
-        f"grads " + ", ".join(f"d{k} {r['max_abs_err']:.3g} (limit "
-                              f"{r['limit']:.3g})" for k, r in res.items())
-        + f" | dQ, dK/dV launches {launches} | forward+backward wall: "
-        f"kernel {s_kernel:.3f}s, gather {s_gather:.3f}s "
-        f"{'OK' if ok else 'FAIL'}")
-    if not ok:
-        raise RuntimeError(f"kernel and gather gradients disagree: {res}, "
-                           f"launches {launches}")
-    return dict(grads=res, kernel_s=s_kernel, gather_s=s_gather)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = "f32" if dtype == torch.float32 else "bf16"
+        xs = [x.to(dtype) for x in (q, k, v)]
+        xs += [phi_lib.phi(xs[0], sla.phi), phi_lib.phi(xs[1], sla.phi)]
+        ins = [x.detach().requires_grad_() for x in xs]
+        sla_bwd.LAUNCHES_DQ = sla_bwd.LAUNCHES_DKV = 0
+        sla_bwd.TC_LAUNCHES_DQ = sla_bwd.TC_LAUNCHES_DKV = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = torch.autograd.grad(ops.sla_attention_core(*ins, plan, sla),
+                                  ins, (g_s, g_l))
+        torch.cuda.synchronize()
+        s_kernel = time.time() - t0
+        launches = (sla_bwd.LAUNCHES_DQ, sla_bwd.LAUNCHES_DKV)
+        tc = (sla_bwd.TC_LAUNCHES_DQ, sla_bwd.TC_LAUNCHES_DKV)
+        f32_ins = [x.detach().float().requires_grad_() for x in xs]
+        t0 = time.time()
+        want = torch.autograd.grad(sla_forward_gather(*f32_ins, plan, sla),
+                                   f32_ins, (g_s, g_l))
+        torch.cuda.synchronize()
+        s_gather = time.time() - t0
+        rounded = (_through_rounded_twins(ins, plan, sla, (g_s, g_l))
+                   if dtype == torch.bfloat16 else None)
+        res = {}
+        for i, name in enumerate(("q", "k", "v", "qp", "kp")):
+            a, b = got[i], want[i]
+            if rounded is not None:
+                res[name] = cases.tc_criterion(a, b, rounded[i])
+                continue
+            err = float((a - b).abs().max())
+            limit = GRAD_TOL * max(1.0, float(b.abs().max()))
+            res[name] = dict(max_abs_err=err, limit=limit,
+                             ok=bool(np.isfinite(err)) and err <= limit)
+        want_tc = (0, 0) if rounded is None else (1, 1)
+        ok = all(r["ok"] for r in res.values()) and launches == (1, 1) \
+            and tc == want_tc
+        say(f"[8 grads] Wan shape, layer-0 plan, {dname}: kernel vs gather "
+            f"backend grads " + ", ".join(
+                f"d{k} {r['max_abs_err']:.3g} (limit {r['limit']:.3g}"
+                + (f", rounded twins {r['rounded_err']:.3g})"
+                   if "rounded_err" in r else ")") for k, r in res.items())
+            + f" | dQ, dK/dV launches {launches}, tensor-core {tc} | "
+            f"forward+backward wall: kernel {s_kernel:.3f}s, gather "
+            f"{s_gather:.3f}s {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"kernel and gather gradients disagree "
+                               f"({dname}): {res}, launches {launches}, "
+                               f"tensor-core {tc}")
+        out[dname] = dict(grads=res, kernel_s=s_kernel, gather_s=s_gather,
+                          tc_launches=tc)
+        del got, want, rounded, ins, f32_ins
+    return out
+
+
+def _through_rounded_twins(ins, plan, sla, cot):
+    """The kernel backend's gradients with its two backward kernels
+    replaced by the plain twins that round dO, P and dS to bf16: the
+    rounding alone, with every other operation as in the kernel run."""
+    saved = ops.sla_bwd_dq, ops.sla_bwd_dkv
+    ops.sla_bwd_dq = functools.partial(sla_bwd.sla_bwd_dq_plain,
+                                       mma_dtype=torch.bfloat16)
+    ops.sla_bwd_dkv = functools.partial(sla_bwd.sla_bwd_dkv_plain,
+                                        mma_dtype=torch.bfloat16)
+    try:
+        ins = [x.detach().requires_grad_() for x in ins]
+        return torch.autograd.grad(ops.sla_attention_core(*ins, plan, sla),
+                                   ins, cot)
+    finally:
+        ops.sla_bwd_dq, ops.sla_bwd_dkv = saved
 
 
 def phase_train(cfg, params, profile: bool):
@@ -928,7 +1068,8 @@ def phase_train(cfg, params, profile: bool):
                                            for k, x in batch.items()})
 
     want = dict(sla_fwd=2 * cfg.num_layers, sla_bwd_dq=cfg.num_layers,
-                sla_bwd_dkv=cfg.num_layers, plan_builds=cfg.num_layers)
+                sla_bwd_dkv=cfg.num_layers, tc_sla_bwd_dq=cfg.num_layers,
+                tc_sla_bwd_dkv=cfg.num_layers, plan_builds=cfg.num_layers)
     rows, totals = [], dict.fromkeys(want, 0)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -941,6 +1082,7 @@ def phase_train(cfg, params, profile: bool):
                 torch.cuda.synchronize()
                 sla_fwd.LAUNCHES = sla_bwd.LAUNCHES_DQ = 0
                 sla_bwd.LAUNCHES_DKV = builds[0] = 0
+                sla_bwd.TC_LAUNCHES_DQ = sla_bwd.TC_LAUNCHES_DKV = 0
                 t0 = time.time()
                 params, opt_state, loss, gnorm = step(batch)
                 loss, gnorm = float(loss), float(gnorm)
@@ -949,6 +1091,8 @@ def phase_train(cfg, params, profile: bool):
                 got = dict(sla_fwd=sla_fwd.LAUNCHES,
                            sla_bwd_dq=sla_bwd.LAUNCHES_DQ,
                            sla_bwd_dkv=sla_bwd.LAUNCHES_DKV,
+                           tc_sla_bwd_dq=sla_bwd.TC_LAUNCHES_DQ,
+                           tc_sla_bwd_dkv=sla_bwd.TC_LAUNCHES_DKV,
                            plan_builds=builds[0])
                 for key in totals:
                     totals[key] += got[key]
@@ -964,6 +1108,7 @@ def phase_train(cfg, params, profile: bool):
                     raise RuntimeError(f"training step {i}: launches {got}, "
                                        f"expected {want}")
             peak = torch.cuda.max_memory_allocated() / 2**30
+            per_launch = None
             if profile:
                 from torch.profiler import ProfilerActivity
                 from torch.profiler import profile as prof_ctx
@@ -978,6 +1123,10 @@ def phase_train(cfg, params, profile: bool):
                     f"s wall under the profiler")
                 say(prof.key_averages().table(sort_by="cuda_time_total",
                                               row_limit=25))
+                per_launch = _kernel_means(prof, ("sla_bwd_dq_tc_kernel",
+                                                  "sla_bwd_dkv_tc_kernel"))
+                say(f"[9 train profile] backward kernels on the training "
+                    f"plans, mean device ms per launch: {per_launch}")
     finally:
         plan_lib.plan_attention = orig_plan
     moved = {n: bool((named[n].detach() != probe[n]).any()) for n in PROBES}
@@ -987,7 +1136,21 @@ def phase_train(cfg, params, profile: bool):
         f"{peak:.2f} GiB | parameters moved {moved}")
     if not all(moved.values()):
         raise RuntimeError(f"training did not move the parameters: {moved}")
-    return dict(steps=rows, launches=totals, peak_gib=peak, moved=moved)
+    return dict(steps=rows, launches=totals, peak_gib=peak, moved=moved,
+                bwd_ms_per_launch=per_launch)
+
+
+def _kernel_means(prof, names) -> dict:
+    """{name: (mean device ms per launch, launches)} of the profiled
+    kernels whose symbol contains each name."""
+    out = {}
+    for name in names:
+        evs = [e for e in prof.key_averages() if name in e.key]
+        total = sum(getattr(e, "device_time_total", None)
+                    or getattr(e, "cuda_time_total", 0) for e in evs)
+        count = sum(e.count for e in evs)
+        out[name] = (total / count / 1e3 if count else None, count)
+    return out
 
 
 def phase_train_cli():
@@ -2209,15 +2372,19 @@ def main(argv=None) -> int:
                if r["shape"] == "wan2_1_1_3b" and r["dtype"] == "f32"}
     kernels[0]["flex_sparse_branch_fwd_ms"] = \
         wan_bwd["sla_bwd_dq"].get("library_fwd_ms")
+    wan_tc = {r["kernel"]: r for r in bwd_rows
+              if r["shape"] == "wan2_1_1_3b" and r["dtype"] == "bf16"}
     for name, line in (("sla_bwd_dq", 48), ("sla_bwd_dkv", 76)):
         mine = [r for r in bwd_rows if r["kernel"] == name]
-        wan = wan_bwd[name]
+        tc_cases = [r for r in mine if r["route"] == TC_ROUTE]
+        wan, tc = wan_bwd[name], wan_tc[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sla_bwd.cu",
             "replaces": f"src/repro/kernels/sla_bwd.py:{line}",
             "launches": train["launches"][name],
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "max_abs_err": max(r["max_abs_err"] for r in mine
+                               if r["route"] == F32_ROUTE),
             "ms": wan["ms"], "plain_ms": wan["plain_ms"],
             "bound_ms": wan["bound_ms"], "bound_by": wan["bound_by"],
             "library_ms": wan["library_ms"],
@@ -2225,6 +2392,19 @@ def main(argv=None) -> int:
                        "the same LUT; computes dQ, dK and dV together",
             "dq_plus_dkv_ms": sum(r["ms"] for r in wan_bwd.values()),
             "dense_sdpa_bwd_ms": wan["dense_sdpa_bwd_ms"],
+            "route_bf16": TC_ROUTE,
+            "source_bf16": "src/repro_torch/kernels/csrc/sla_bwd_tc.cu",
+            "tc_launches": train["launches"][f"tc_{name}"],
+            "ms_bf16": tc["ms"], "plain_ms_bf16": tc["plain_ms"],
+            "bound_ms_bf16": tc["bound_ms"],
+            "bound_by_bf16": tc["bound_by"],
+            "bound_fraction_bf16": tc["bound_fraction"],
+            "library_ms_bf16": tc["library_ms"],
+            "dq_plus_dkv_ms_bf16": sum(r["ms"] for r in wan_tc.values()),
+            "max_abs_err_bf16": max(r["max_abs_err"] for r in tc_cases),
+            "tc_criterion_all_ok": all(r["ok"] for r in tc_cases),
+            "train_ms_per_launch": (train["bwd_ms_per_launch"] or {}).get(
+                f"{name}_tc_kernel"),
             "cases": mine,
         })
     head = next(r for r in dec_rows if r["shape"] == "qwen3-1.7b decode C=1"

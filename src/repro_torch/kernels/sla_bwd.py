@@ -1,5 +1,5 @@
-"""SLA sparse-branch backward: the CUDA kernels `csrc/sla_bwd.cu`, their
-plain twins, and their launch counters.
+"""SLA sparse-branch backward: the CUDA kernels `csrc/sla_bwd.cu` and
+`csrc/sla_bwd_tc.cu`, their plain twins, and their launch counters.
 
 Counterparts of the Pallas TPU kernels `repro.kernels.sla_bwd._dq_kernel`
 (`sla_bwd_dq`) and `_dkv_kernel` (`sla_bwd_dkv`). With P = exp(S * scale
@@ -11,10 +11,26 @@ dS = P * (dO V^T - D) * scale, D = rowsum(dO^s * O^s):
                dV_j = sum of P_ij^T dO_i, per query head (the caller sums
                a GQA group).
 
-Each wrapper launches its kernel for CUDA tensors and runs the plain twin
-(plain PyTorch walking the same LUT loop, in f32) only for CPU tensors: a
-CUDA tensor gets the kernel or an exception, never the twin.
-`LAUNCHES_DQ` / `LAUNCHES_DKV` count kernel launches and nothing else.
+Each wrapper launches a kernel for CUDA tensors and runs the plain twin
+(plain PyTorch walking the same LUT loop) only for CPU tensors: a CUDA
+tensor gets a kernel or an exception, never the twin. Which kernel is a
+rule on dtype and shape (`use_tensor_cores`), not a fallback:
+
+  * bf16 q, k, v at 64 x 64 blocks and head dims up to 128: the
+    tensor-core kernels of `sla_bwd_tc.cu` (wgmma). Their precision is
+    FlashAttention's: dO (cast once from f32 by the wrapper), P and dS are
+    rounded to bf16 before their products; every sum is f32. Narrower
+    heads are zero-padded to `TC_HEAD_DIM` (zero columns change neither S
+    nor dP) and the outputs sliced back.
+  * everything else (f32, other blocks): the f32-FMA kernels of
+    `sla_bwd.cu`, every product in f32 from the same inputs.
+
+A failed build or launch raises; nothing reroutes. The twins compute in
+f32; with `mma_dtype=torch.bfloat16` they round dO, P and dS where the
+tensor-core kernels do, the yardstick of that route's rounding.
+`LAUNCHES_DQ` / `LAUNCHES_DKV` count kernel launches of either route and
+nothing else, `TC_LAUNCHES_DQ` / `TC_LAUNCHES_DKV` those of the
+tensor-core route.
 """
 from __future__ import annotations
 
@@ -28,6 +44,10 @@ from repro_torch.kernels.sla_fwd import NEG_INF, check_operands
 
 LAUNCHES_DQ = 0   # dQ kernel launches in this process (twin calls excluded)
 LAUNCHES_DKV = 0  # dK/dV kernel launches in this process
+TC_LAUNCHES_DQ = 0   # of which on the tensor-core route
+TC_LAUNCHES_DKV = 0
+TC_BLOCK = 64      # the tensor-core kernels' block_q == block_kv
+TC_HEAD_DIM = 128  # the head dim they are built for (narrower is padded)
 
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 # lut, counts, q, k, v, dout, lse, dsum, dq; bh_q, bh_kv, n, d, k_sel,
@@ -35,19 +55,46 @@ _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 _DQ_ARGTYPES = [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P]
 # the same with col_lut, col_counts, ..., dk, dv and w_col for k_sel
 _DKV_ARGTYPES = [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P]
+# {source: {launch function: argtypes}}; the tensor-core kernels take the
+# same arguments without is_bf16 (always bf16)
+_LAUNCHERS = {
+    "sla_bwd": {"sla_bwd_dq_launch": _DQ_ARGTYPES,
+                "sla_bwd_dkv_launch": _DKV_ARGTYPES},
+    "sla_bwd_tc": {"sla_bwd_dq_tc_launch": _DQ_ARGTYPES[:-2] + [_P],
+                   "sla_bwd_dkv_tc_launch": _DKV_ARGTYPES[:-2] + [_P]},
+}
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
+def _lib(name: str = "sla_bwd") -> ctypes.CDLL:
+    """Build and load csrc/<name>.cu; each exports its launchers and
+    `sla_bwd_error_string`."""
     from repro_torch.kernels import _build
-    lib = _build.load("sla_bwd")
-    lib.sla_bwd_dq_launch.argtypes = _DQ_ARGTYPES
-    lib.sla_bwd_dq_launch.restype = ctypes.c_int
-    lib.sla_bwd_dkv_launch.argtypes = _DKV_ARGTYPES
-    lib.sla_bwd_dkv_launch.restype = ctypes.c_int
+    lib = _build.load(name)
+    for fn, argtypes in _LAUNCHERS[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
     lib.sla_bwd_error_string.argtypes = [ctypes.c_int]
     lib.sla_bwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def use_tensor_cores(dtype: torch.dtype, block_q: int, block_kv: int,
+                     d: int) -> bool:
+    """The route rule of a CUDA call: bf16 operands at 64 x 64 blocks and
+    head dims up to `TC_HEAD_DIM` take the tensor-core kernels, every
+    other call the f32-FMA kernels."""
+    return (dtype == torch.bfloat16 and block_q == TC_BLOCK
+            and block_kv == TC_BLOCK and d <= TC_HEAD_DIM)
+
+
+def pad_head_dim(x: torch.Tensor) -> torch.Tensor:
+    """Zero-pad the last dim to `TC_HEAD_DIM` (x itself when it is that
+    wide already)."""
+    d = x.shape[-1]
+    if d == TC_HEAD_DIM:
+        return x
+    return torch.nn.functional.pad(x, (0, TC_HEAD_DIM - d)).contiguous()
 
 
 def _route(kernel: str, q: torch.Tensor) -> bool:
@@ -73,7 +120,10 @@ def sla_bwd_dq(lut, counts, q, k, v, do_s, lse, d_s, *, scale: float,
       lse:    (BH, N) f32 forward row log-sum-exp; d_s (BH, N) f32
               rowsum(dO^s * O^s).
 
-    Returns dq (BH, N, D) f32.
+    Returns dq (BH, N, D) f32. On CUDA, bf16 q at 64 x 64 blocks and
+    D <= 128 runs the tensor-core kernel (dO, P and dS rounded to bf16),
+    everything else the f32-FMA kernel (`use_tensor_cores`); CPU tensors
+    run the f32 twin.
     """
     kw = dict(scale=scale, causal=causal, block_q=block_q,
               block_kv=block_kv)
@@ -92,7 +142,8 @@ def sla_bwd_dkv(col_lut, col_counts, q, k, v, do_s, lse, d_s, *,
     block ids per kv block) and col_counts (BH, Tn) int32.
 
     Returns (dk, dv), each (BH, N, D) f32 per query head: with GQA
-    (BH_kv < BH) the caller sums each group.
+    (BH_kv < BH) the caller sums each group. The route rule is
+    `sla_bwd_dq`'s.
     """
     kw = dict(scale=scale, causal=causal, block_q=block_q,
               block_kv=block_kv)
@@ -140,8 +191,11 @@ def _launch_dq(lut, counts, q, k, v, do_s, lse, d_s, *, scale, causal,
     global LAUNCHES_DQ
     _check("sla_bwd_dq", lut, counts, q, k, v, do_s, lse, d_s, block_q,
            block_kv, block_q)
-    lib = _lib()
     bh, n, d = q.shape
+    if use_tensor_cores(q.dtype, block_q, block_kv, d):
+        return _launch_dq_tc(lut, counts, q, k, v, do_s, lse, d_s,
+                             scale=scale, causal=causal)
+    lib = _lib()
     dq = torch.empty((bh, n, d), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -161,8 +215,11 @@ def _launch_dkv(col_lut, col_counts, q, k, v, do_s, lse, d_s, *, scale,
     global LAUNCHES_DKV
     _check("sla_bwd_dkv", col_lut, col_counts, q, k, v, do_s, lse, d_s,
            block_q, block_kv, block_kv)
-    lib = _lib()
     bh, n, d = q.shape
+    if use_tensor_cores(q.dtype, block_q, block_kv, d):
+        return _launch_dkv_tc(col_lut, col_counts, q, k, v, do_s, lse, d_s,
+                              scale=scale, causal=causal)
+    lib = _lib()
     dk = torch.empty((bh, n, d), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
     with torch.cuda.device(q.device):
@@ -176,6 +233,69 @@ def _launch_dkv(col_lut, col_counts, q, k, v, do_s, lse, d_s, *, scale,
     _raise_on(err, "sla_bwd_dkv", lib)
     LAUNCHES_DKV += 1
     return dk, dv
+
+
+def _tc_operands(kernel, q, k, v, do_s, lse, d_s):
+    """q, k, v and dO as the tensor-core kernels read them: dO cast to
+    bf16 once, all four zero-padded to `TC_HEAD_DIM`. Raises unless
+    they, lse and d_s start on 16 bytes (the kernels copy 16-byte
+    chunks)."""
+    xs = [pad_head_dim(x) for x in (q, k, v, do_s.to(torch.bfloat16))]
+    if any(x.data_ptr() % 16 for x in (*xs, lse, d_s)):
+        raise ValueError(f"{kernel}: the tensor-core kernel needs q, k, v, "
+                         f"do_s, lse and d_s 16-byte aligned")
+    return xs
+
+
+def _launch_dq_tc(lut, counts, q, k, v, do_s, lse, d_s, *, scale, causal):
+    global LAUNCHES_DQ, TC_LAUNCHES_DQ
+    lib = _lib("sla_bwd_tc")
+    bh, n, d = q.shape
+    qp, kp, vp, dop = _tc_operands("sla_bwd_dq", q, k, v, do_s, lse, d_s)
+    dq = torch.empty((bh, n, TC_HEAD_DIM), dtype=torch.float32,
+                     device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sla_bwd_dq_tc_launch(
+            lut.data_ptr(), counts.data_ptr(), qp.data_ptr(), kp.data_ptr(),
+            vp.data_ptr(), dop.data_ptr(), lse.data_ptr(), d_s.data_ptr(),
+            dq.data_ptr(), bh, k.shape[0], n, TC_HEAD_DIM, lut.shape[-1],
+            TC_BLOCK, TC_BLOCK, float(scale), int(bool(causal)), stream)
+    _raise_on(err, "sla_bwd_dq tensor-core", lib)
+    LAUNCHES_DQ += 1
+    TC_LAUNCHES_DQ += 1
+    return dq if d == TC_HEAD_DIM else dq[..., :d].contiguous()
+
+
+def _launch_dkv_tc(col_lut, col_counts, q, k, v, do_s, lse, d_s, *, scale,
+                   causal):
+    global LAUNCHES_DKV, TC_LAUNCHES_DKV
+    lib = _lib("sla_bwd_tc")
+    bh, n, d = q.shape
+    qp, kp, vp, dop = _tc_operands("sla_bwd_dkv", q, k, v, do_s, lse,
+                                   d_s)
+    dk = torch.empty((bh, n, TC_HEAD_DIM), dtype=torch.float32,
+                     device=q.device)
+    dv = torch.empty_like(dk)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sla_bwd_dkv_tc_launch(
+            col_lut.data_ptr(), col_counts.data_ptr(), qp.data_ptr(),
+            kp.data_ptr(), vp.data_ptr(), dop.data_ptr(), lse.data_ptr(),
+            d_s.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, k.shape[0], n,
+            TC_HEAD_DIM, col_lut.shape[-1], TC_BLOCK, TC_BLOCK,
+            float(scale), int(bool(causal)), stream)
+    _raise_on(err, "sla_bwd_dkv tensor-core", lib)
+    LAUNCHES_DKV += 1
+    TC_LAUNCHES_DKV += 1
+    if d != TC_HEAD_DIM:
+        dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
+    return dk, dv
+
+
+def _rounded(x, mma_dtype):
+    """x rounded to `mma_dtype` and back to f32 (x itself for None)."""
+    return x if mma_dtype is None else x.to(mma_dtype).float()
 
 
 def _recompute(qi, kj, vj, doi, lse_i, ds_i, rows, cols, scale, causal):
@@ -205,15 +325,18 @@ def _tiles(q, k, v, do_s, lse, d_s, block_q, block_kv):
 
 
 def sla_bwd_dq_plain(lut, counts, q, k, v, do_s, lse, d_s, *, scale: float,
-                     causal: bool, block_q: int, block_kv: int
-                     ) -> torch.Tensor:
+                     causal: bool, block_q: int, block_kv: int,
+                     mma_dtype=None) -> torch.Tensor:
     """Plain-PyTorch twin of the dQ kernel: the same walk over row-LUT
     slots s, one update per slot for every (bh, query block) at once,
     slots s >= counts left out. Same arguments and output as
-    `sla_bwd_dq`; all arithmetic in f32."""
+    `sla_bwd_dq`; all arithmetic in f32. `mma_dtype=torch.bfloat16`
+    rounds dO and dS to bf16 before their products, as the tensor-core
+    kernel does."""
     bh, n, d = q.shape
     qb, kb, vb, dob, lseb, dsb = _tiles(q, k, v, do_s, lse, d_s, block_q,
                                         block_kv)
+    dob = _rounded(dob, mma_dtype)
     dev = q.device
     tm = qb.shape[1]
     kvh = (torch.arange(bh, device=dev) // (bh // k.shape[0]))[:, None]
@@ -227,20 +350,25 @@ def sla_bwd_dq_plain(lut, counts, q, k, v, do_s, lse, d_s, *, scale: float,
         cols = j[..., None] * block_kv + torch.arange(block_kv, device=dev)
         _, ds = _recompute(qb, kj, vj, dob, lseb, dsb, rows, cols, scale,
                            causal)
-        dq = torch.where(live, dq + torch.matmul(ds, kj), dq)
+        dq = torch.where(live, dq + torch.matmul(_rounded(ds, mma_dtype),
+                                                 kj), dq)
     return dq.reshape(bh, n, d)
 
 
 def sla_bwd_dkv_plain(col_lut, col_counts, q, k, v, do_s, lse, d_s, *,
                       scale: float, causal: bool, block_q: int,
-                      block_kv: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                      block_kv: int, mma_dtype=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain-PyTorch twin of the dK/dV kernel: the same walk over
     column-LUT slots c, one update per slot for every (bh, kv block) at
     once, slots c >= col_counts left out. Same arguments and outputs as
-    `sla_bwd_dkv`; all arithmetic in f32."""
+    `sla_bwd_dkv`; all arithmetic in f32. `mma_dtype=torch.bfloat16`
+    rounds dO, P and dS to bf16 before their products, as the
+    tensor-core kernel does."""
     bh, n, d = q.shape
     qb, kb, vb, dob, lseb, dsb = _tiles(q, k, v, do_s, lse, d_s, block_q,
                                         block_kv)
+    dob = _rounded(dob, mma_dtype)
     dev = q.device
     tn = kb.shape[1]
     kvh = torch.arange(bh, device=dev) // (bh // k.shape[0])
@@ -256,6 +384,7 @@ def sla_bwd_dkv_plain(col_lut, col_counts, q, k, v, do_s, lse, d_s, *,
         rows = i[..., None] * block_q + torch.arange(block_q, device=dev)
         p, ds = _recompute(qi, kj, vj, doi, lseb[hh, i], dsb[hh, i], rows,
                            cols, scale, causal)
+        p, ds = _rounded(p, mma_dtype), _rounded(ds, mma_dtype)
         dv = torch.where(live, dv + torch.matmul(p.transpose(-1, -2), doi),
                          dv)
         dk = torch.where(live, dk + torch.matmul(ds.transpose(-1, -2), qi),

@@ -13,6 +13,9 @@ gather backend on a small DiT (forward, gradients and a train step) and
 on a small LM's decode steps, and the streaming service to the
 sequential sampler.
 """
+import dataclasses
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -31,6 +34,9 @@ from repro_torch.optim import adamw
 # Kernel and twin read the same (possibly bf16) inputs and accumulate in
 # f32, so both dtypes are held to the f32 limit; 5e-2 is test_conformance's
 # limit for the port's bf16 path against JAX's, not for kernel vs twin.
+# The backward's tensor-core route (bf16 at 64 x 64 blocks) rounds dO, P
+# and dS to bf16 before its products and is held by `cases.tc_criterion`
+# against the twin that rounds alike.
 TWIN_TOL = 5e-5
 pytestmark = pytest.mark.gpu
 
@@ -195,6 +201,8 @@ BWD_CASES = [
     (2, 1, 512, 128, 64, True),
     (3, 1, 384, 64, 32, False),
     (2, 1, 256, 8, 16, True),
+    (4, 2, 1024, 128, 64, True),
+    (2, 1, 512, 108, 64, False),
 ]
 
 
@@ -220,25 +228,62 @@ def _assert_twin(got, want):
         torch.testing.assert_close(g, w, atol=atol, rtol=0)
 
 
+def _launches():
+    return (sla_bwd.LAUNCHES_DQ, sla_bwd.LAUNCHES_DKV,
+            sla_bwd.TC_LAUNCHES_DQ, sla_bwd.TC_LAUNCHES_DKV)
+
+
+def _assert_tc(got, plain, args, kw):
+    """The tensor-core route's criterion against the f32 twin and the
+    twin that rounds dO, P and dS to bf16."""
+    want = plain(*args, **kw)
+    rounded = plain(*args, **kw, mma_dtype=torch.bfloat16)
+    res = cases.tc_criterion(got, want, rounded)
+    assert res["ok"], res
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("h,group,n,d,block,causal", BWD_CASES)
 def test_cuda_bwd_kernels_match_plain_twins(h, group, n, d, block, causal,
                                             dtype):
+    """Both backward kernels against their twins: the f32-FMA route within
+    5e-5, the tensor-core route (bf16 at 64 x 64 blocks) by the rounding
+    criterion; the route's own counter moves once per call."""
     _need_gpu()
     dq_args, dkv_args, kw = _bwd_operands(11, h, group, n, d, block, dtype,
                                           causal)
-    before = (sla_bwd.LAUNCHES_DQ, sla_bwd.LAUNCHES_DKV)
+    tc = sla_bwd.use_tensor_cores(dtype, block, block, d)
+    before = _launches()
     got_dq = sla_bwd.sla_bwd_dq(*dq_args, **kw)
     got_dkv = sla_bwd.sla_bwd_dkv(*dkv_args, **kw)
-    want_dq = sla_bwd.sla_bwd_dq_plain(*dq_args, **kw)
-    want_dkv = sla_bwd.sla_bwd_dkv_plain(*dkv_args, **kw)
     torch.cuda.synchronize()
-    assert (sla_bwd.LAUNCHES_DQ, sla_bwd.LAUNCHES_DKV) == (before[0] + 1,
-                                                           before[1] + 1)
-    _assert_twin(got_dq, want_dq)
-    _assert_twin(got_dkv, want_dkv)
+    assert tuple(a - b for a, b in zip(_launches(), before)) == \
+        (1, 1, int(tc), int(tc))
+    if tc:
+        _assert_tc(got_dq, sla_bwd.sla_bwd_dq_plain, dq_args, kw)
+        _assert_tc(got_dkv, sla_bwd.sla_bwd_dkv_plain, dkv_args, kw)
+    else:
+        _assert_twin(got_dq, sla_bwd.sla_bwd_dq_plain(*dq_args, **kw))
+        _assert_twin(got_dkv, sla_bwd.sla_bwd_dkv_plain(*dkv_args, **kw))
+    assert got_dq.dtype == torch.float32 and got_dq.shape == (h, n, d)
     assert float(got_dq.abs().max()) > 0
+
+
+def test_cuda_tc_bwd_kernels_are_deterministic():
+    """No atomics on the tensor-core route: two launches on the same
+    operands are bitwise equal."""
+    _need_gpu()
+    dq_args, dkv_args, kw = _bwd_operands(12, 4, 2, 1024, 128, 64,
+                                          torch.bfloat16, True)
+    before = _launches()
+    first = (sla_bwd.sla_bwd_dq(*dq_args, **kw),
+             *sla_bwd.sla_bwd_dkv(*dkv_args, **kw))
+    second = (sla_bwd.sla_bwd_dq(*dq_args, **kw),
+              *sla_bwd.sla_bwd_dkv(*dkv_args, **kw))
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (2, 2, 2, 2)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_cuda_bwd_kernels_stop_at_counts():
@@ -259,6 +304,29 @@ def test_cuda_bwd_kernels_stop_at_counts():
     assert torch.all(dk[0, 128:192] == 0) and torch.all(dv[0, 128:192] == 0)
     _assert_twin(dq, sla_bwd.sla_bwd_dq_plain(*dq_args, **kw))
     _assert_twin((dk, dv), sla_bwd.sla_bwd_dkv_plain(*dkv_args, **kw))
+
+
+def test_cuda_tc_bwd_kernels_stop_at_counts():
+    """The tensor-core route (bf16, 64 x 64 blocks) also stops at the
+    counts: a row and a column with no live entry get zero gradients
+    whatever their padded slots name."""
+    _need_gpu()
+    dq_args, dkv_args, kw = _bwd_operands(3, 2, 1, 512, 128, 64,
+                                          torch.bfloat16, False)
+    dq_args, dkv_args = list(dq_args), list(dkv_args)
+    for args in (dq_args, dkv_args):
+        args[0], args[1] = args[0].clone(), args[1].clone()
+        args[1][0, 2] = 0
+        args[0][0, 2] = 5  # padded slots name another valid block
+    before = _launches()
+    dq = sla_bwd.sla_bwd_dq(*dq_args, **kw)
+    dk, dv = sla_bwd.sla_bwd_dkv(*dkv_args, **kw)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (1, 1, 1, 1)
+    assert torch.all(dq[0, 128:192] == 0)
+    assert torch.all(dk[0, 128:192] == 0) and torch.all(dv[0, 128:192] == 0)
+    _assert_tc(dq, sla_bwd.sla_bwd_dq_plain, dq_args, kw)
+    _assert_tc((dk, dv), sla_bwd.sla_bwd_dkv_plain, dkv_args, kw)
 
 
 def _small_dit(arch, seed):
@@ -311,6 +379,57 @@ def test_kernel_backend_grads_match_gather_on_a_small_dit(arch):
         atol = 1e-4 * max(1.0, float(gg[name].abs().max()))
         torch.testing.assert_close(gk[name], gg[name], atol=atol, rtol=0,
                                    msg=name)
+
+
+def test_kernel_backend_bf16_grads_on_tensor_cores_match_gather(
+        monkeypatch):
+    """bf16 compute at 64 x 64 blocks (smoke Wan, seq 256): the kernel
+    backend's backward runs on the tensor-core kernels, and every
+    parameter gradient and the loss meet the rounding criterion against
+    the gather backend (f32 attention arithmetic), the "rounded" term from
+    the kernel backend run through the twins that round dO, P and dS to
+    bf16."""
+    _need_gpu()
+    cfg = get_arch("wan2_1_1_3b").smoke()
+    cfg = dataclasses.replace(cfg, sla=cfg.sla.replace(block_q=64,
+                                                       block_kv=64))
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    model = dit.init(gen, cfg)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen,
+                                      device="cuda"))
+    rs = np.random.default_rng(6)
+    batch = {"latents": rs.standard_normal((2, 256, cfg.patch_dim),
+                                           dtype=np.float32),
+             "noise": rs.standard_normal((2, 256, cfg.patch_dim),
+                                         dtype=np.float32),
+             "t": np.array([0.8, 0.3], np.float32),
+             "cond": rs.standard_normal((2, cfg.cond_len, cfg.d_model),
+                                        dtype=np.float32)}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+    def grads(backend):
+        model.zero_grad()
+        loss = dit.loss_fn(model, cfg, batch, torch.bfloat16, backend)
+        loss.backward()
+        return {"loss": loss.detach().float(),
+                **{n: p.grad.clone() for n, p in model.named_parameters()}}
+
+    before = _launches()
+    got = grads("kernel")
+    n = cfg.num_layers
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (n, n, n, n)
+    want = grads("gather")
+    monkeypatch.setattr(ops, "sla_bwd_dq", functools.partial(
+        sla_bwd.sla_bwd_dq_plain, mma_dtype=torch.bfloat16))
+    monkeypatch.setattr(ops, "sla_bwd_dkv", functools.partial(
+        sla_bwd.sla_bwd_dkv_plain, mma_dtype=torch.bfloat16))
+    rounded = grads("kernel")
+    for name in got:
+        res = cases.tc_criterion(got[name], want[name].float(),
+                                 rounded[name])
+        assert res["ok"], (name, res)
 
 
 def test_train_step_on_the_card_kernel_vs_gather():

@@ -172,4 +172,5 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         _build.build("sla_fwd")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
-    assert _build.kernel_names() == ["sla_bwd", "sla_decode", "sla_fwd"]
+    assert _build.kernel_names() == ["sla_bwd", "sla_bwd_tc", "sla_decode",
+                                     "sla_fwd"]

@@ -6,7 +6,11 @@ on the same numpy inputs (the row and column LUTs of one JAX plan, L and
 O^s from the forward twin), over bidirectional / causal, GQA group 1 / 2,
 head dims 16 / 108 and f32 / bf16 inputs. Both sides compute in f32 from
 the same (bf16-rounded) values, so both dtypes are held to
-5e-5 x max(1, max |reference|).
+5e-5 x max(1, max |reference|). The twins' `mma_dtype=torch.bfloat16`
+form, which rounds dO, P and dS where the tensor-core kernels do, is held
+to the Pallas kernels within the repo's bf16 conformance limit, 5e-2 x
+max(1, max |reference|); the route rule and the head-dim padding of that
+route are checked here too.
 
 The CUDA kernels themselves run only on a GPU: their tests are in
 tests/test_torch_gpu.py.
@@ -23,6 +27,7 @@ from repro.kernels.sla_bwd import sla_bwd_dq as jax_dq
 from repro_torch.kernels import sla_bwd, sla_fwd
 
 TOL = 5e-5
+BF16_TOL = 5e-2  # tests/test_conformance.py's bf16 limit
 BLOCK = 16
 
 
@@ -72,10 +77,10 @@ def _jax(c, dtype, lut, counts):
             jnp.asarray(c["lse"]), jnp.asarray(c["d_s"])]
 
 
-def _close(got, want, name):
+def _close(got, want, name, tol=TOL):
     want = np.asarray(want)
     assert got.dtype == torch.float32 and got.shape == want.shape, name
-    atol = TOL * max(1.0, float(np.abs(want).max()))
+    atol = tol * max(1.0, float(np.abs(want).max()))
     np.testing.assert_allclose(got.numpy(), want, atol=atol, rtol=0,
                                err_msg=name)
 
@@ -107,6 +112,125 @@ def test_plain_twins_match_pallas_kernels(d, group, causal, dtype):
     _close(dk, jdk, "dk")
     _close(dv, jdv, "dv")
     assert float(dq.abs().max()) > 0 and float(dk.abs().max()) > 0
+
+
+@pytest.mark.parametrize("d,group,causal,dtype", [
+    c for c in CASES if c.values[3] == "bf16"])
+def test_rounded_twins_match_pallas_kernels(d, group, causal, dtype):
+    """The twins with dO, P and dS rounded to bf16 (the tensor-core
+    route's arithmetic) stay within bf16 conformance of the Pallas
+    kernels, and the rounding changes the result."""
+    c = _case(d + 3 * group + int(causal), d, group, causal, dtype)
+    kw = dict(scale=d ** -0.5, causal=causal, block_q=BLOCK,
+              block_kv=BLOCK)
+    dq_args = _torch(c, dtype, "lut", "counts")
+    dkv_args = _torch(c, dtype, "col_lut", "col_counts")
+    dq = sla_bwd.sla_bwd_dq_plain(*dq_args, **kw, mma_dtype=torch.bfloat16)
+    dk, dv = sla_bwd.sla_bwd_dkv_plain(*dkv_args, **kw,
+                                       mma_dtype=torch.bfloat16)
+    _close(dq, jax_dq(*_jax(c, dtype, "lut", "counts"), **kw), "dq",
+           BF16_TOL)
+    jdk, jdv = jax_dkv(*_jax(c, dtype, "col_lut", "col_counts"), **kw)
+    _close(dk, jdk, "dk", BF16_TOL)
+    _close(dv, jdv, "dv", BF16_TOL)
+    assert not torch.equal(dq, sla_bwd.sla_bwd_dq_plain(*dq_args, **kw))
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_rounding_keyword_defaults_to_the_f32_twin(kernel):
+    """`mma_dtype=None` is today's f32 twin, bitwise."""
+    c = _case(1, 16, 2, True, "bf16")
+    names = ("lut", "counts") if kernel == "dq" else ("col_lut",
+                                                      "col_counts")
+    plain = (sla_bwd.sla_bwd_dq_plain if kernel == "dq"
+             else sla_bwd.sla_bwd_dkv_plain)
+    args = _torch(c, "bf16", *names)
+    kw = dict(scale=0.25, causal=True, block_q=BLOCK, block_kv=BLOCK)
+    got = plain(*args, **kw, mma_dtype=None)
+    want = plain(*args, **kw)
+    got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("mma_dtype", [None, torch.bfloat16],
+                         ids=["f32", "rounded"])
+def test_head_dim_padding_leaves_the_gradients_unchanged(mma_dtype):
+    """The tensor-core route zero-pads q, k, v and dO from 108 to the
+    kernel's width: zero columns change neither S nor dP, so the twin on
+    the padded operands, sliced back, is the unpadded twin."""
+    c = _case(5, 108, 2, False, "bf16")
+    kw = dict(scale=108 ** -0.5, causal=False, block_q=BLOCK,
+              block_kv=BLOCK, mma_dtype=mma_dtype)
+    for names, plain in ((("lut", "counts"), sla_bwd.sla_bwd_dq_plain),
+                         (("col_lut", "col_counts"),
+                          sla_bwd.sla_bwd_dkv_plain)):
+        args = _torch(c, "bf16", *names)
+        padded = args[:2] + [sla_bwd.pad_head_dim(x) for x in args[2:6]] \
+            + args[6:]
+        assert padded[2].shape[-1] == sla_bwd.TC_HEAD_DIM
+        assert torch.all(padded[3][..., 108:] == 0)
+        want = plain(*args, **kw)
+        got = plain(*padded, **kw)
+        got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
+        for g, w in zip(got, want):
+            assert float(g[..., 108:].abs().max()) == 0
+            torch.testing.assert_close(g[..., :108], w, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,block_q,block_kv,d,tc", [
+    (torch.bfloat16, 64, 64, 128, True),
+    (torch.bfloat16, 64, 64, 108, True),
+    (torch.bfloat16, 64, 64, 32, True),
+    (torch.float32, 64, 64, 128, False),
+    (torch.bfloat16, 32, 32, 128, False),
+    (torch.bfloat16, 16, 16, 108, False),
+    (torch.bfloat16, 64, 32, 128, False),
+    (torch.bfloat16, 64, 64, 132, False),
+])
+def test_tensor_core_route_rule(dtype, block_q, block_kv, d, tc):
+    """bf16 at 64 x 64 blocks and head dims up to 128 take the
+    tensor-core kernels; everything else the f32-FMA kernels."""
+    assert sla_bwd.use_tensor_cores(dtype, block_q, block_kv, d) is tc
+
+
+def test_tensor_core_operands_are_cast_padded_and_aligned():
+    """What the tensor-core kernels read: bf16 q, k, v and dO padded to
+    `TC_HEAD_DIM` with zeros; a misaligned lse is refused."""
+    c = _case(4, 108, 2, False, "bf16")
+    q, k, v, do, lse, d_s = _torch(c, "bf16", "lut", "counts")[2:]
+    xs = sla_bwd._tc_operands("sla_bwd_dq", q, k, v, do, lse, d_s)
+    for x, src in zip(xs, (q, k, v, do)):
+        assert x.dtype == torch.bfloat16 and x.is_contiguous()
+        assert x.shape == (*src.shape[:-1], sla_bwd.TC_HEAD_DIM)
+        assert torch.equal(x[..., :108], src.to(torch.bfloat16))
+        assert float(x[..., 108:].abs().max()) == 0
+    shifted = lse.reshape(-1)[1:1 + lse.numel() - 64].reshape(
+        lse.shape[0], -1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sla_bwd._tc_operands("sla_bwd_dq", q, k, v, do, shifted, d_s)
+
+
+def test_cpu_tensors_on_the_tensor_core_shape_run_the_f32_twin():
+    """A CPU call at the tensor-core route's shape runs the f32 twin (no
+    rounding) and counts no launch of either route."""
+    c = _case(2, 108, 1, False, "bf16")
+    args = _torch(c, "bf16", "lut", "counts")
+    h, n = args[2].shape[:2]
+    lut = torch.stack([torch.arange(n // 64, dtype=torch.int32)] * h)
+    call = [lut[..., None], torch.ones_like(lut)] + args[2:]
+    kw = dict(scale=108 ** -0.5, causal=False, block_q=64, block_kv=64)
+    assert sla_bwd.use_tensor_cores(args[2].dtype, 64, 64, 108)
+    before = (sla_bwd.LAUNCHES_DQ, sla_bwd.LAUNCHES_DKV,
+              sla_bwd.TC_LAUNCHES_DQ, sla_bwd.TC_LAUNCHES_DKV)
+    got = sla_bwd.sla_bwd_dq(*call, **kw)
+    got_kv = sla_bwd.sla_bwd_dkv(*call, **kw)
+    assert (sla_bwd.LAUNCHES_DQ, sla_bwd.LAUNCHES_DKV,
+            sla_bwd.TC_LAUNCHES_DQ, sla_bwd.TC_LAUNCHES_DKV) == before
+    assert torch.equal(got, sla_bwd.sla_bwd_dq_plain(*call, **kw))
+    assert all(torch.equal(g, w) for g, w in
+               zip(got_kv, sla_bwd.sla_bwd_dkv_plain(*call, **kw)))
+    assert not torch.equal(got, sla_bwd.sla_bwd_dq_plain(
+        *call, **kw, mma_dtype=torch.bfloat16))
 
 
 def test_dead_rows_and_columns_get_zero_gradient():
