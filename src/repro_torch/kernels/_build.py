@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
 `nvcc` alone (no PyTorch headers, so a build takes seconds) into
 `build/repro_torch_kernels/lib<name>-<hash>.so` at the repository root,
-a directory `.gitignore` lists. The hash is of the source text, so an
-edited source is rebuilt and a stale library is never loaded. The
+a directory `.gitignore` lists. The hash is of the source text and of
+every header in `csrc/` (`*.cuh`, which sources include by name), so an
+edited source or header is rebuilt and a stale library is never loaded. The
 `-Xptxas -v` report (registers, shared memory, spills) is kept beside the
 library as `<library>.log`. `build_all` starts one nvcc per source at
 once and waits for all of them. A failed build raises.
@@ -45,8 +46,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where csrc/<name>.cu's library lives: tagged by the hash of the
+    source, every csrc/*.cuh header (name and text) and the nvcc flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    tag = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{tag[:12]}.so"
 
 

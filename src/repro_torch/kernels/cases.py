@@ -1,7 +1,7 @@
 """Seeded operands and criteria shared by `chip_smoke.py` and
 `tests/test_torch_gpu.py`: the paged decode kernel's cases (held against
 its plain twin and the monolithic decode kernel) and the tensor-core
-backward route's precision criterion, each written once.
+route's precision criterion (forward and backward), each written once.
 """
 from __future__ import annotations
 
@@ -9,20 +9,24 @@ import torch
 
 from repro_torch.core.backends import gather_pages
 
-# The tensor-core backward route against the f32 twin (FlashAttention's
-# precision: dO, P and dS rounded to bf16 before their products).
+# The tensor-core route against the f32 twin (FlashAttention's precision:
+# P rounded to bf16 before P V in the forward; dO, P and dS before their
+# products in the backward).
 TC_ROUNDING_FACTOR = 2.0   # times the rounded twin's own distance
 TC_SUM_TOL = 5e-5          # plus summation order, x max(1, max |twin|)
 TC_CONFORMANCE_TOL = 5e-2  # and never past the repo's bf16 conformance
 
 
 def tc_criterion(got, want, rounded) -> dict:
-    """Hold a tensor-core backward result against the f32 twin: with
-    err(x) = max |x - want| over every output and m = max(1, max |want|),
-    pass when err(got) <= 2 err(rounded) + 5e-5 m and err(got) <= 5e-2 m.
-    `got`, `want` and `rounded` (the twin with `mma_dtype=torch.bfloat16`)
-    are a tensor or a tuple of tensors in one order. The kernel's distance
-    from the f32 twin is then bf16 rounding, not summation order."""
+    """Hold a tensor-core result of either route against the f32 twin:
+    with err(x) = max |x - want| over every output and m = max(1, max
+    |want|), pass when err(got) <= 2 err(rounded) + 5e-5 m and err(got) <=
+    5e-2 m. `got`, `want` and `rounded` (the twin with
+    `mma_dtype=torch.bfloat16`) are a tensor or a tuple of tensors in one
+    order: dQ, or (dK, dV), for the backward; (O^s, lse) for the forward,
+    whose O^l (f32 arithmetic on both routes) is held to 5e-5 apart. The
+    kernel's distance from the f32 twin is then bf16 rounding, not
+    summation order."""
     got, want, rounded = ((x,) if torch.is_tensor(x) else tuple(x)
                           for x in (got, want, rounded))
     err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))

@@ -14,7 +14,8 @@ dS = P * (dO V^T - D) * scale, D = rowsum(dO^s * O^s):
 Each wrapper launches a kernel for CUDA tensors and runs the plain twin
 (plain PyTorch walking the same LUT loop) only for CPU tensors: a CUDA
 tensor gets a kernel or an exception, never the twin. Which kernel is a
-rule on dtype and shape (`use_tensor_cores`), not a fallback:
+rule on dtype and shape (`sla_fwd.use_tensor_cores`, the forward's rule
+too, so a training step never mixes routes), not a fallback:
 
   * bf16 q, k, v at 64 x 64 blocks and head dims up to 128: the
     tensor-core kernels of `sla_bwd_tc.cu` (wgmma). Their precision is
@@ -40,14 +41,14 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.sla_fwd import NEG_INF, check_operands
+from repro_torch.kernels.sla_fwd import (NEG_INF, TC_BLOCK, TC_HEAD_DIM,
+                                         check_operands, pad_head_dim,
+                                         use_tensor_cores)
 
 LAUNCHES_DQ = 0   # dQ kernel launches in this process (twin calls excluded)
 LAUNCHES_DKV = 0  # dK/dV kernel launches in this process
 TC_LAUNCHES_DQ = 0   # of which on the tensor-core route
 TC_LAUNCHES_DKV = 0
-TC_BLOCK = 64      # the tensor-core kernels' block_q == block_kv
-TC_HEAD_DIM = 128  # the head dim they are built for (narrower is padded)
 
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 # lut, counts, q, k, v, dout, lse, dsum, dq; bh_q, bh_kv, n, d, k_sel,
@@ -77,24 +78,6 @@ def _lib(name: str = "sla_bwd") -> ctypes.CDLL:
     lib.sla_bwd_error_string.argtypes = [ctypes.c_int]
     lib.sla_bwd_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def use_tensor_cores(dtype: torch.dtype, block_q: int, block_kv: int,
-                     d: int) -> bool:
-    """The route rule of a CUDA call: bf16 operands at 64 x 64 blocks and
-    head dims up to `TC_HEAD_DIM` take the tensor-core kernels, every
-    other call the f32-FMA kernels."""
-    return (dtype == torch.bfloat16 and block_q == TC_BLOCK
-            and block_kv == TC_BLOCK and d <= TC_HEAD_DIM)
-
-
-def pad_head_dim(x: torch.Tensor) -> torch.Tensor:
-    """Zero-pad the last dim to `TC_HEAD_DIM` (x itself when it is that
-    wide already)."""
-    d = x.shape[-1]
-    if d == TC_HEAD_DIM:
-        return x
-    return torch.nn.functional.pad(x, (0, TC_HEAD_DIM - d)).contiguous()
 
 
 def _route(kernel: str, q: torch.Tensor) -> bool:

@@ -1,15 +1,33 @@
-"""Fused SLA forward: the CUDA kernel `csrc/sla_fwd.cu`, its plain twin,
-and its launch counter.
+"""Fused SLA forward: the CUDA kernels `csrc/sla_fwd.cu` and
+`csrc/sla_fwd_tc.cu`, their plain twin, the route rule they share with the
+backward, and their launch counters.
 
 Counterpart of the Pallas TPU kernel `repro.kernels.sla_fwd._fwd_kernel`.
 For each (batch*head, query block i) it runs online softmax over the
 `counts[i]` critical KV blocks named by `lut[i]` and merges the linear
 branch O^l = phi(Q_i) H_i / phi(Q_i) Z_i (zero where den <= 1e-6).
 
-`sla_fwd` launches the kernel for CUDA tensors and runs `sla_fwd_plain`
+`sla_fwd` launches a kernel for CUDA tensors and runs `sla_fwd_plain`
 (plain PyTorch walking the same LUT loop) only for CPU tensors: a CUDA
-tensor gets the kernel or an exception, never the plain version.
-`LAUNCHES` counts kernel launches and nothing else.
+tensor gets a kernel or an exception, never the plain version. Which
+kernel is a rule on dtype and shape (`use_tensor_cores`, which the
+backward's wrappers import too, so a training step never mixes routes),
+not a fallback:
+
+  * bf16 q, k, v at 64 x 64 blocks and head dims up to 128: the
+    tensor-core kernel of `sla_fwd_tc.cu` (wgmma). Its precision is
+    FlashAttention's: P is rounded to bf16 before P V; every sum, m, l,
+    lse and the whole linear branch are f32. Narrower heads zero-pad q, k
+    and v to `TC_HEAD_DIM` (zero columns leave S unchanged); qp, hi, zi
+    and the outputs keep their own D.
+  * everything else (f32, other blocks): the f32-FMA kernel of
+    `sla_fwd.cu`, every product in f32 from the same inputs.
+
+A failed build or launch raises; nothing reroutes. With
+`mma_dtype=torch.bfloat16` the twin rounds P where the tensor-core kernel
+does, the yardstick of that route's rounding. `LAUNCHES` counts kernel
+launches of either route and nothing else, `TC_LAUNCHES` those of the
+tensor-core route.
 """
 from __future__ import annotations
 
@@ -25,21 +43,50 @@ MAX_HEAD_DIM = 128
 MAX_BLOCK = 64
 
 LAUNCHES = 0  # kernel launches in this process (plain-twin calls excluded)
+TC_LAUNCHES = 0  # of which on the tensor-core route
+TC_BLOCK = 64      # the tensor-core kernels' block_q == block_kv
+TC_HEAD_DIM = 128  # the head dim they are built for (narrower is padded)
 
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+# lut, counts, base, q, k, v, qp, hi, zi, o_s, o_l, lse; bh_q, bh_kv, nq,
+# nkv, d, tm, k_sel, block_q, block_kv; scale; causal, is_bf16; stream. The
+# tensor-core kernel takes the same arguments without is_bf16.
 _ARGTYPES = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
              _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]
+_TC_ARGTYPES = _ARGTYPES[:-2] + [_P]
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
+def _lib(name: str = "sla_fwd") -> ctypes.CDLL:
+    """Build and load csrc/<name>.cu; each exports `<name>_launch` and
+    `<name>_error_string`."""
     from repro_torch.kernels import _build
-    lib = _build.load("sla_fwd")
-    lib.sla_fwd_launch.argtypes = _ARGTYPES
-    lib.sla_fwd_launch.restype = ctypes.c_int
-    lib.sla_fwd_error_string.argtypes = [ctypes.c_int]
-    lib.sla_fwd_error_string.restype = ctypes.c_char_p
+    lib = _build.load(name)
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = _TC_ARGTYPES if name == "sla_fwd_tc" else _ARGTYPES
+    launch.restype = ctypes.c_int
+    errs = getattr(lib, f"{name}_error_string")
+    errs.argtypes = [ctypes.c_int]
+    errs.restype = ctypes.c_char_p
     return lib
+
+
+def use_tensor_cores(dtype: torch.dtype, block_q: int, block_kv: int,
+                     d: int) -> bool:
+    """The route rule of a CUDA call, for the forward and the backward: bf16
+    operands at 64 x 64 blocks and head dims up to `TC_HEAD_DIM` take the
+    tensor-core kernels, every other call the f32-FMA kernels."""
+    return (dtype == torch.bfloat16 and block_q == TC_BLOCK
+            and block_kv == TC_BLOCK and d <= TC_HEAD_DIM)
+
+
+def pad_head_dim(x: torch.Tensor) -> torch.Tensor:
+    """Zero-pad the last dim to `TC_HEAD_DIM` (x itself when it is that
+    wide already)."""
+    d = x.shape[-1]
+    if d == TC_HEAD_DIM:
+        return x
+    return torch.nn.functional.pad(x, (0, TC_HEAD_DIM - d)).contiguous()
 
 
 def sla_fwd(lut, counts, q, k, v, qp, hi, zi, *, scale: float,
@@ -57,7 +104,10 @@ def sla_fwd(lut, counts, q, k, v, qp, hi, zi, *, scale: float,
       base:   absolute block id of query row block 0 (causal masking of
               a span of query rows against the full KV).
 
-    Returns (o_s (BH,Nq,D) f32, o_l (BH,Nq,D) f32, lse (BH,Nq) f32).
+    Returns (o_s (BH,Nq,D) f32, o_l (BH,Nq,D) f32, lse (BH,Nq) f32). On
+    CUDA, bf16 q at 64 x 64 blocks and D <= 128 runs the tensor-core
+    kernel (P rounded to bf16), everything else the f32-FMA kernel
+    (`use_tensor_cores`); CPU tensors run the f32 twin.
     """
     kw = dict(scale=scale, causal=causal, block_q=block_q,
               block_kv=block_kv, base=base)
@@ -137,38 +187,51 @@ def _check(lut, counts, q, k, v, qp, hi, zi, block_q, block_kv):
 
 def _launch(lut, counts, q, k, v, qp, hi, zi, *, scale, causal, block_q,
             block_kv, base):
-    global LAUNCHES
+    global LAUNCHES, TC_LAUNCHES
     _check(lut, counts, q, k, v, qp, hi, zi, block_q, block_kv)
-    lib = _lib()
     bh, nq, d = q.shape
     bh_kv, nkv = k.shape[0], k.shape[1]
+    tc = use_tensor_cores(q.dtype, block_q, block_kv, d)
+    name = "sla_fwd_tc" if tc else "sla_fwd"
+    lib = _lib(name)
+    flags = []  # the f32-FMA kernel's is_bf16
+    if tc:
+        q, k, v = (pad_head_dim(x) for x in (q, k, v))
+        if any(x.data_ptr() % 16 for x in (q, k, v, qp, hi, zi)):
+            raise ValueError("sla_fwd: the tensor-core kernel needs q, k, v,"
+                             " qp, hi and zi 16-byte aligned")
+    else:
+        flags = [int(q.dtype == torch.bfloat16)]
     o_s = torch.empty((bh, nq, d), dtype=torch.float32, device=q.device)
     o_l = torch.empty_like(o_s)
     lse = torch.empty((bh, nq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sla_fwd_launch(
+        err = getattr(lib, f"{name}_launch")(
             lut.data_ptr(), counts.data_ptr(), int(base), q.data_ptr(),
             k.data_ptr(), v.data_ptr(), qp.data_ptr(), hi.data_ptr(),
             zi.data_ptr(), o_s.data_ptr(), o_l.data_ptr(), lse.data_ptr(),
             bh, bh_kv, nq, nkv, d, nq // block_q, lut.shape[-1], block_q,
-            block_kv, float(scale), int(bool(causal)),
-            int(q.dtype == torch.bfloat16), stream)
+            block_kv, float(scale), int(bool(causal)), *flags, stream)
     if err != 0:
-        msg = lib.sla_fwd_error_string(err).decode()
-        raise RuntimeError(f"sla_fwd kernel launch failed: CUDA error "
-                           f"{err} ({msg})")
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
+                           f"({msg})")
     LAUNCHES += 1
+    TC_LAUNCHES += int(tc)
     return o_s, o_l, lse
 
 
 def sla_fwd_plain(lut, counts, q, k, v, qp, hi, zi, *, scale: float,
-                  causal: bool, block_q: int, block_kv: int, base: int = 0
+                  causal: bool, block_q: int, block_kv: int, base: int = 0,
+                  mma_dtype=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain-PyTorch twin of the kernel: the same LUT walk over slots s,
+    """Plain-PyTorch twin of the kernels: the same LUT walk over slots s,
     one online-softmax update per slot for every (bh, row block) at once,
     with slots s >= counts left out. Same arguments and outputs as
-    `sla_fwd`; all arithmetic in f32."""
+    `sla_fwd`; all arithmetic in f32. `mma_dtype=torch.bfloat16` rounds P
+    (and only P) to bf16 before P V, as the tensor-core kernel does; l
+    still sums the unrounded P."""
     bh, nq, d = q.shape
     bh_kv, nkv = k.shape[0], k.shape[1]
     group = bh // bh_kv
@@ -196,7 +259,8 @@ def sla_fwd_plain(lut, counts, q, k, v, qp, hi, zi, *, scale: float,
         p = torch.exp(sij - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l_new = l * alpha + p.sum(dim=-1)
-        acc_new = acc * alpha[..., None] + torch.matmul(p, vj)
+        p_mma = p if mma_dtype is None else p.to(mma_dtype).float()
+        acc_new = acc * alpha[..., None] + torch.matmul(p_mma, vj)
         m = torch.where(live, m_new, m)
         l = torch.where(live, l_new, l)
         acc = torch.where(live[..., None], acc_new, acc)

@@ -6,6 +6,14 @@ Proj, norms) are live, and carried over with `repro_torch.bridge` — on
 the same numpy latents, timesteps and conditioning, at f32. Velocities
 and sampled latents agree within 1e-4 (atol and rtol); block plans and
 per-(step, layer) re-plan flags are equal.
+
+The bf16 cases run the DiT's default compute dtype and hold the port to
+the bf16 conformance limit, 5e-2 x max(1, max |v|). Both sides then get
+JAX's f32 plans (the planning-parity rule: top-k over bf16 scores can
+flip a near-tied block between the two frameworks); the count of blocks
+that differ when each side plans inline in bf16 is kept as the test's
+user property `bf16_inline_plan_blocks_differ` (0 on wan2_1_1_3b and 1
+on lightningdit_1b at these inputs, for every backend).
 """
 import dataclasses
 
@@ -22,6 +30,7 @@ from repro_torch.configs import get_arch
 from repro_torch.models import dit as tdit
 
 TOL = dict(atol=1e-4, rtol=1e-4)
+BF16_TOL = 5e-2  # tests/test_conformance.py's bf16 limit, x max(1, max |v|)
 SEQ = 128  # 8 blocks of 16: enough structure for plans to drift
 LEAVES = ("mc", "lut", "counts", "col_lut", "col_counts", "marginal")
 
@@ -70,13 +79,49 @@ def test_bridge_fills_every_parameter(models):
                        _t(jparams["layers"]["wq"][1]))
 
 
-@pytest.mark.parametrize("backend", ["reference", "gather", "kernel"])
-def test_forward_velocity_matches_jax(models, backend):
+def _plans_to_torch(pj):
+    return bridge.plan_from_numpy({n: np.asarray(getattr(pj, n))
+                                   for n in LEAVES}, device="cpu")
+
+
+def _assert_bf16_close(got, want):
+    """bf16 conformance: max |got - want| <= 5e-2 x max(1, max |want|)."""
+    want = np.asarray(want, np.float32)
+    limit = BF16_TOL * max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(np.asarray(got, np.float32) - want).max())
+    assert np.isfinite(err) and err <= limit, (err, limit)
+
+
+@pytest.mark.parametrize("backend,dtype", [
+    pytest.param(b, dt, id=b if dt == "f32" else f"{b}-bf16")
+    for dt in ("f32", "bf16") for b in ("reference", "gather", "kernel")])
+def test_forward_velocity_matches_jax(models, backend, dtype, request):
     jcfg, tcfg, jparams, model = models
     lat, cond = _inputs(tcfg)
     t = np.array([0.9, 0.35], np.float32)
     vj, pj = jdit.forward(jparams, jcfg, _j(lat), _j(t), _j(cond),
                           jnp.float32, backend, return_plans=True)
+    if dtype == "bf16":
+        # both sides execute on JAX's f32 plans; inline bf16 planning is
+        # only counted
+        _, pj16 = jdit.forward(jparams, jcfg, _j(lat), _j(t), _j(cond),
+                               jnp.bfloat16, backend, return_plans=True)
+        vj = jdit.forward(jparams, jcfg, _j(lat), _j(t), _j(cond),
+                          jnp.bfloat16, backend, plans=pj)
+        with torch.no_grad():
+            _, pt16 = tdit.forward(model, tcfg, _t(lat), _t(t), _t(cond),
+                                   torch.bfloat16, backend,
+                                   return_plans=True)
+            vt = tdit.forward(model, tcfg, _t(lat), _t(t), _t(cond),
+                              torch.bfloat16, backend,
+                              plans=_plans_to_torch(pj))
+        differ = int((pt16.mc.numpy() != np.asarray(pj16.mc)).sum())
+        request.node.user_properties.append(
+            ("bf16_inline_plan_blocks_differ", differ))
+        assert differ <= 0.01 * pt16.mc.numel()  # near-ties only
+        assert vt.dtype == torch.bfloat16
+        _assert_bf16_close(vt.float().numpy(), np.asarray(vj, np.float32))
+        return
     with torch.no_grad():
         vt, pt = tdit.forward(model, tcfg, _t(lat), _t(t), _t(cond),
                               torch.float32, backend, return_plans=True)
@@ -94,8 +139,7 @@ def test_forward_reused_plans_and_per_sample_refresh_match_jax(models):
     t = np.array([0.8, 0.5], np.float32)
     _, pj = jdit.forward(jparams, jcfg, _j(lat), _j(t), _j(cond),
                          jnp.float32, "kernel", return_plans=True)
-    pt = bridge.plan_from_numpy({n: np.asarray(getattr(pj, n))
-                                 for n in LEAVES}, device="cpu")
+    pt = _plans_to_torch(pj)
     thr = np.array([[0.0, 1.0]] * tcfg.num_layers, np.float32)
     vj, pj2, ij = jdit.forward(jparams, jcfg, _j(lat2), _j(t), _j(cond),
                                jnp.float32, "kernel", plans=pj,
@@ -118,23 +162,48 @@ def test_forward_reused_plans_and_per_sample_refresh_match_jax(models):
                               np.asarray(getattr(pj2, name))), name
 
 
-@pytest.mark.parametrize("mode,kw", [
-    ("adaptive", dict(drift_threshold=0.25)),
-    ("fixed", dict(refresh_interval=2)),
+def _given_plans(forward, plans):
+    """`forward` with `plans` in place of inline planning: a call that
+    would plan (plans=None) executes on `plans` instead."""
+    def wrapped(*a, plans=None, **kw):
+        return forward(*a, plans=given if plans is None else plans, **kw)
+    given = plans
+    return wrapped
+
+
+@pytest.mark.parametrize("mode,kw,dtype", [
+    pytest.param("adaptive", dict(drift_threshold=0.25), "f32",
+                 id="adaptive-kw0"),
+    pytest.param("fixed", dict(refresh_interval=2), "f32", id="fixed-kw1"),
+    pytest.param("fixed", dict(refresh_interval=4), "bf16", id="fixed-bf16"),
 ])
-def test_sample_matches_jax(models, mode, kw):
+def test_sample_matches_jax(models, mode, kw, dtype, monkeypatch):
     """4-step Euler sampling on the kernel backend: final latent and the
-    per-(step, layer) re-plan flags."""
+    per-(step, layer) re-plan flags. In bf16 each layer plans once, at
+    step 0 on the noise, and both samplers get JAX's f32 plans of that
+    step in place of their inline planning."""
     jcfg, tcfg, jparams, model = models
     lat, cond = _inputs(tcfg, b=1, seed=3)
+    jdt, tdt = jnp.float32, torch.float32
+    if dtype == "bf16":
+        jdt, tdt = jnp.bfloat16, torch.bfloat16
+        _, pj = jdit.forward(jparams, jcfg, _j(lat), jnp.ones((1,)),
+                             _j(cond), jnp.float32, "kernel",
+                             return_plans=True)
+        monkeypatch.setattr(jdit, "forward", _given_plans(jdit.forward, pj))
+        monkeypatch.setattr(tdit, "forward",
+                            _given_plans(tdit.forward, _plans_to_torch(pj)))
     xj, trj = jdit.sample(jparams, jcfg, _j(lat), num_steps=4,
-                          cond=_j(cond), compute_dtype=jnp.float32,
+                          cond=_j(cond), compute_dtype=jdt,
                           backend="kernel", refresh_mode=mode,
                           return_trace=True, **kw)
     xt, trt = tdit.sample(model, tcfg, _t(lat), num_steps=4, cond=_t(cond),
-                          compute_dtype=torch.float32, backend="kernel",
+                          compute_dtype=tdt, backend="kernel",
                           refresh_mode=mode, return_trace=True, **kw)
-    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), **TOL)
+    if dtype == "bf16":
+        _assert_bf16_close(xt.float().numpy(), np.asarray(xj, np.float32))
+    else:
+        np.testing.assert_allclose(xt.numpy(), np.asarray(xj), **TOL)
     assert np.array_equal(trt["replanned"].numpy(),
                           np.asarray(trj["replanned"]))
     assert np.array_equal(trt["replan_count"].numpy(),

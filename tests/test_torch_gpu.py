@@ -34,9 +34,10 @@ from repro_torch.optim import adamw
 # Kernel and twin read the same (possibly bf16) inputs and accumulate in
 # f32, so both dtypes are held to the f32 limit; 5e-2 is test_conformance's
 # limit for the port's bf16 path against JAX's, not for kernel vs twin.
-# The backward's tensor-core route (bf16 at 64 x 64 blocks) rounds dO, P
-# and dS to bf16 before its products and is held by `cases.tc_criterion`
-# against the twin that rounds alike.
+# The tensor-core routes (bf16 at 64 x 64 blocks) round P (forward) and
+# dO, P and dS (backward) to bf16 before their products and are held by
+# `cases.tc_criterion` against the twin that rounds alike; the forward's
+# O^l, whose arithmetic stays f32, is held to 5e-5.
 TWIN_TOL = 5e-5
 pytestmark = pytest.mark.gpu
 
@@ -96,17 +97,98 @@ CASES = [
 @pytest.mark.parametrize("h,group,n,d,block,causal,base", CASES)
 def test_cuda_kernel_matches_plain_twin(h, group, n, d, block, causal, base,
                                         dtype):
+    """The f32-FMA route within 5e-5; the tensor-core route (bf16 at
+    64 x 64 blocks) by the rounding criterion on (O^s, lse) and 5e-5 on
+    O^l; the route's own counter moves once per call."""
     _need_gpu()
     args, kw, _ = _operands(7, h, group, n, d, block, dtype, causal, base,
                             span=4)
-    before = sla_fwd.LAUNCHES
+    tc = sla_fwd.use_tensor_cores(dtype, block, block, d)
+    before = (sla_fwd.LAUNCHES, sla_fwd.TC_LAUNCHES)
     got = sla_fwd.sla_fwd(*args, **kw)
     want = sla_fwd.sla_fwd_plain(*args, **kw)
     torch.cuda.synchronize()
-    assert sla_fwd.LAUNCHES == before + 1
-    for g, w in zip(got, want):
+    assert (sla_fwd.LAUNCHES, sla_fwd.TC_LAUNCHES) == (before[0] + 1,
+                                                       before[1] + int(tc))
+    for g in got:
         assert g.is_cuda and g.dtype == torch.float32
+    if tc:
+        _assert_tc_fwd(got, want, args, kw)
+        return
+    for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=TWIN_TOL, rtol=TWIN_TOL)
+
+
+def _assert_tc_fwd(got, want, args, kw):
+    """The tensor-core forward: (O^s, lse) by `cases.tc_criterion` against
+    the f32 twin and the twin that rounds P to bf16; O^l within 5e-5 x
+    max(1, max |twin|)."""
+    rounded = sla_fwd.sla_fwd_plain(*args, **kw, mma_dtype=torch.bfloat16)
+    res = cases.tc_criterion((got[0], got[2]), (want[0], want[2]),
+                             (rounded[0], rounded[2]))
+    assert res["ok"], res
+    atol = TWIN_TOL * max(1.0, float(want[1].abs().max()))
+    torch.testing.assert_close(got[1], want[1], atol=atol, rtol=0)
+
+
+def test_cuda_tc_fwd_kernel_is_deterministic():
+    """No atomics on the forward's tensor-core route: two launches on the
+    same operands (causal GQA-2 with a row offset, D 108 padded) are
+    bitwise equal."""
+    _need_gpu()
+    for d in (128, 108):
+        args, kw, _ = _operands(8, 4, 2, 1024, d, 64, torch.bfloat16, True,
+                                4, span=8)
+        before = sla_fwd.TC_LAUNCHES
+        first = sla_fwd.sla_fwd(*args, **kw)
+        second = sla_fwd.sla_fwd(*args, **kw)
+        torch.cuda.synchronize()
+        assert sla_fwd.TC_LAUNCHES == before + 2
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+        _assert_tc_fwd(first, sla_fwd.sla_fwd_plain(*args, **kw), args, kw)
+
+
+def test_cuda_tc_fwd_kernel_stops_at_counts():
+    """The forward's tensor-core route never reads a padded LUT slot: with
+    every slot past the counts naming an extra KV block of NaN, the
+    outputs stay finite and bitwise what they were."""
+    _need_gpu()
+    args, kw, _ = _operands(9, 2, 1, 512, 128, 64, torch.bfloat16, False, 0,
+                            span=8)
+    lut, counts, q, k, v = args[:5]
+    counts = torch.clamp(counts - 1, min=1)  # padded slots in every row
+    nan = torch.full((k.shape[0], 64, 128), float("nan"), dtype=k.dtype,
+                     device="cuda")
+    k_nan, v_nan = (torch.cat([x, nan], dim=1) for x in (k, v))
+    extra = k.shape[1] // 64  # the NaN block's index
+    dead = torch.arange(lut.shape[-1], device="cuda") >= counts[..., None]
+    lut_nan = torch.where(dead, torch.full_like(lut, extra), lut)
+    assert int(dead.sum()) > 0
+    base_args = (lut, counts, q, k, v, *args[5:])
+    want = sla_fwd.sla_fwd(*base_args, **kw)
+    got = sla_fwd.sla_fwd(lut_nan, counts, q, k_nan, v_nan, *args[5:], **kw)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    _assert_tc_fwd(got, sla_fwd.sla_fwd_plain(*base_args, **kw), base_args,
+                   kw)
+
+
+def test_cuda_tc_fwd_kernel_refuses_misaligned_operands():
+    """The tensor-core kernel copies 16-byte chunks: an operand that does
+    not start on 16 bytes is refused before any launch."""
+    _need_gpu()
+    args, kw, _ = _operands(10, 2, 1, 256, 128, 64, torch.bfloat16, False,
+                            0, span=4)
+    q = args[2]
+    store = torch.empty(q.numel() + 8, dtype=q.dtype, device="cuda")
+    shifted = store[1:1 + q.numel()].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    before = (sla_fwd.LAUNCHES, sla_fwd.TC_LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sla_fwd.sla_fwd(args[0], args[1], shifted, *args[3:], **kw)
+    assert (sla_fwd.LAUNCHES, sla_fwd.TC_LAUNCHES) == before
 
 
 def test_cuda_kernel_refuses_what_it_cannot_take():
@@ -384,11 +466,11 @@ def test_kernel_backend_grads_match_gather_on_a_small_dit(arch):
 def test_kernel_backend_bf16_grads_on_tensor_cores_match_gather(
         monkeypatch):
     """bf16 compute at 64 x 64 blocks (smoke Wan, seq 256): the kernel
-    backend's backward runs on the tensor-core kernels, and every
-    parameter gradient and the loss meet the rounding criterion against
-    the gather backend (f32 attention arithmetic), the "rounded" term from
-    the kernel backend run through the twins that round dO, P and dS to
-    bf16."""
+    backend's forward and backward run on the tensor-core kernels, and
+    every parameter gradient and the loss meet the rounding criterion
+    against the gather backend (f32 attention arithmetic), the "rounded"
+    term from the kernel backend run through the twins that round P
+    (forward) and dO, P and dS (backward) to bf16."""
     _need_gpu()
     cfg = get_arch("wan2_1_1_3b").smoke()
     cfg = dataclasses.replace(cfg, sla=cfg.sla.replace(block_q=64,
@@ -416,11 +498,14 @@ def test_kernel_backend_bf16_grads_on_tensor_cores_match_gather(
         return {"loss": loss.detach().float(),
                 **{n: p.grad.clone() for n, p in model.named_parameters()}}
 
-    before = _launches()
+    before = _launches() + (sla_fwd.TC_LAUNCHES,)
     got = grads("kernel")
     n = cfg.num_layers
-    assert tuple(a - b for a, b in zip(_launches(), before)) == (n, n, n, n)
+    assert tuple(a - b for a, b in zip(_launches() + (sla_fwd.TC_LAUNCHES,),
+                                       before)) == (n, n, n, n, n)
     want = grads("gather")
+    monkeypatch.setattr(ops, "sla_fwd", functools.partial(
+        sla_fwd.sla_fwd_plain, mma_dtype=torch.bfloat16))
     monkeypatch.setattr(ops, "sla_bwd_dq", functools.partial(
         sla_bwd.sla_bwd_dq_plain, mma_dtype=torch.bfloat16))
     monkeypatch.setattr(ops, "sla_bwd_dkv", functools.partial(

@@ -6,7 +6,13 @@ f32 and bf16, bidirectional and causal with a `base` row offset, GQA
 group 2, head dims 32 and 108. Tolerances are the conformance matrix's
 (tests/test_conformance.py): f32 5e-5, bf16 5e-2.
 
-The CUDA kernel itself runs only on a GPU: its tests are in
+The twin's `mma_dtype=torch.bfloat16` form, which rounds P to bf16 before
+P V where the tensor-core kernel (bf16 at 64 x 64 blocks) does, is held to
+the Pallas kernel within the bf16 limit; the route rule the forward shares
+with the backward, the head-dim padding of that route, and the build's
+hashing of the shared CUDA header are checked here too.
+
+The CUDA kernels themselves run only on a GPU: their tests are in
 tests/test_torch_gpu.py, which imports no JAX so that it runs on the card.
 """
 import shutil
@@ -23,7 +29,7 @@ from repro.kernels.sla_fwd import sla_fwd as jax_sla_fwd
 from repro_torch.core.config import SLAConfig
 from repro_torch.core.phi import phi
 from repro_torch.core.plan import plan_attention
-from repro_torch.kernels import _build, ops, ref, sla_fwd
+from repro_torch.kernels import _build, ops, ref, sla_bwd, sla_fwd
 
 TOL = {"f32": 5e-5, "bf16": 5e-2}
 BLOCK = 16
@@ -106,6 +112,106 @@ def test_plain_twin_matches_pallas_kernel(d, group, causal, base, dtype):
     assert torch.all(got[1][0, :BLOCK] == 0.0)  # den <= eps rows
 
 
+BF16_CASES = [c for c in CASES if c.values[-1] == "bf16"]
+
+
+@pytest.mark.parametrize("d,group,causal,base,dtype", BF16_CASES)
+def test_rounded_twin_matches_pallas_kernel(d, group, causal, base, dtype):
+    """The twin that rounds P to bf16 before P V (the tensor-core route's
+    rounding) against the Pallas kernel, within the bf16 limit; it leaves
+    l, and so lse, bitwise as the f32 twin has them."""
+    ops, base = _case(d + group, d, group, causal, base, dtype)
+    kw = dict(scale=d ** -0.5, causal=causal, block_q=BLOCK,
+              block_kv=BLOCK)
+    want = jax_sla_fwd(*_jax_args(ops, dtype), **kw, interpret=True,
+                       base=jnp.asarray([base], jnp.int32))
+    args = _torch_args(ops, dtype)
+    got = sla_fwd.sla_fwd_plain(*args, **kw, base=base,
+                                mma_dtype=torch.bfloat16)
+    f32 = sla_fwd.sla_fwd_plain(*args, **kw, base=base)
+    for name, g, w in zip(("o_s", "o_l", "lse"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                   atol=TOL["bf16"], rtol=TOL["bf16"],
+                                   err_msg=name)
+    assert float((got[0] - f32[0]).abs().max()) > 0  # P was rounded
+    assert torch.equal(got[1], f32[1]) and torch.equal(got[2], f32[2])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_twin_without_mma_dtype_is_the_default_twin(dtype):
+    """`mma_dtype=None` is bitwise the twin as it was before the option."""
+    ops, base = _case(3, 32, 2, True, 4, dtype)
+    kw = dict(scale=32 ** -0.5, causal=True, block_q=BLOCK, block_kv=BLOCK,
+              base=base)
+    args = _torch_args(ops, dtype)
+    want = sla_fwd.sla_fwd_plain(*args, **kw)
+    got = sla_fwd.sla_fwd_plain(*args, **kw, mma_dtype=None)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("mma_dtype", [None, torch.bfloat16],
+                         ids=["f32", "rounded"])
+def test_head_dim_padding_leaves_the_twin_unchanged(mma_dtype):
+    """The tensor-core route zero-pads q, k and v from 108 to the kernel's
+    width: zero columns leave S unchanged, so the twin on padded operands
+    (qp, hi and zi padded with zeros too), sliced back, is the unpadded
+    twin within 1e-6."""
+    ops, base = _case(5, 108, 2, True, 4, "bf16")
+    kw = dict(scale=108 ** -0.5, causal=True, block_q=BLOCK, block_kv=BLOCK,
+              base=base, mma_dtype=mma_dtype)
+    args = _torch_args(ops, "bf16")
+    pad = sla_fwd.TC_HEAD_DIM - 108
+    padded = args[:2] + [sla_fwd.pad_head_dim(x) for x in args[2:6]] + [
+        torch.nn.functional.pad(args[6], (0, pad, 0, pad)),
+        sla_fwd.pad_head_dim(args[7])]
+    assert padded[2].shape[-1] == sla_fwd.TC_HEAD_DIM
+    assert torch.all(padded[3][..., 108:] == 0)
+    want = sla_fwd.sla_fwd_plain(*args, **kw)
+    got = sla_fwd.sla_fwd_plain(*padded, **kw)
+    for g, w in zip(got[:2], want[:2]):
+        assert float(g[..., 108:].abs().max()) == 0
+        torch.testing.assert_close(g[..., :108], w, atol=1e-6, rtol=0)
+    torch.testing.assert_close(got[2], want[2], atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,block_q,block_kv,d,tc", [
+    (torch.bfloat16, 64, 64, 128, True),
+    (torch.bfloat16, 64, 64, 108, True),
+    (torch.float32, 64, 64, 128, False),
+    (torch.bfloat16, 16, 16, 108, False),
+    (torch.bfloat16, 64, 64, 132, False),
+])
+def test_forward_and_backward_share_one_route_rule(dtype, block_q, block_kv,
+                                                   d, tc):
+    """One rule object decides the forward's and the backward's route, so
+    a training step never mixes them."""
+    assert sla_bwd.use_tensor_cores is sla_fwd.use_tensor_cores
+    assert sla_bwd.pad_head_dim is sla_fwd.pad_head_dim
+    assert (sla_bwd.TC_BLOCK, sla_bwd.TC_HEAD_DIM) == (sla_fwd.TC_BLOCK,
+                                                       sla_fwd.TC_HEAD_DIM)
+    assert sla_fwd.use_tensor_cores(dtype, block_q, block_kv, d) is tc
+
+
+def test_cpu_tensors_at_the_tensor_core_shape_run_the_f32_twin():
+    """A CPU call at the tensor-core route's shape (bf16, 64 x 64 blocks,
+    D 108) runs the f32 twin, with no rounding of P, and counts no launch
+    of either route."""
+    ops, _ = _case(2, 108, 1, False, 0, "bf16", n=256)
+    args = _torch_args(ops, "bf16")
+    h, n = args[2].shape[:2]
+    tm = n // 64
+    lut = torch.stack([torch.arange(tm, dtype=torch.int32)] * h)
+    call = [lut[..., None], torch.ones_like(lut), *args[2:6],
+            torch.zeros((h, tm, 108, 108)), torch.ones((h, tm, 108))]
+    kw = dict(scale=108 ** -0.5, causal=False, block_q=64, block_kv=64)
+    assert sla_fwd.use_tensor_cores(args[2].dtype, 64, 64, 108)
+    before = (sla_fwd.LAUNCHES, sla_fwd.TC_LAUNCHES)
+    got = sla_fwd.sla_fwd(*call, **kw)
+    assert (sla_fwd.LAUNCHES, sla_fwd.TC_LAUNCHES) == before
+    want = sla_fwd.sla_fwd_plain(*call, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_kernel_op_matches_dense_oracle(causal):
     """ops.sla_attention_core (h/z, aggregation, kernel twin) against the
@@ -173,4 +279,25 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
     assert _build.kernel_names() == ["sla_bwd", "sla_bwd_tc", "sla_decode",
-                                     "sla_fwd"]
+                                     "sla_fwd", "sla_fwd_tc"]
+
+
+def test_library_path_hashes_the_shared_headers(monkeypatch, tmp_path):
+    """A library's name hashes every csrc/*.cuh with its source, so an
+    edited header (which no source's text shows) is rebuilt, never loaded
+    stale."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first  # a pure function of the text
+    assert _build.kernel_names() == ["k"]
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    second = _build.library_path("k")
+    assert second != first and second.parent == first.parent
+    (tmp_path / "g.cuh").write_text("// another header\n")
+    assert _build.library_path("k") not in (first, second)
+    (tmp_path / "g.cuh").unlink()
+    assert _build.library_path("k") == second
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert _build.library_path("k") != second
