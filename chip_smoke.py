@@ -79,17 +79,21 @@ Phases, in order; any failure exits non-zero before the result line:
      init), 3 steps, finite losses (exactly 0: the frozen output
      projection is zero); then 2 steps of the plain flow-matching loop,
      whose losses must be non-zero and change.
- 11. decode kernel vs plain twin: `sla_decode` against `sla_decode_plain`
-     on the same card tensors at the Qwen3-1.7B decode shape (B 2, H 16,
-     Hkv 8, D 128, 64-token blocks, Tn 512 = max_len 32768, K 26), a
-     random live row at a position mid-block, C = 1 (live-row layout: one
-     running total per kv head, no diagonal partials) and C = 4
-     (per-token hdiag / htot), K/V in f32 and bf16, rows with
-     marg = 0 and padded LUT slots naming another block: max abs error
-     against 5e-5 x max(1, max |twin|); CUDA-event times of kernel and
-     twin, the bound, and dense scaled_dot_product_attention of one bf16
-     query token over the whole 32768-token cache (a yardstick, not the
-     same function: no PyTorch call computes O^l).
+ 11. decode kernel vs plain twin: `sla_decode` (the split kernel and its
+     combine) against `sla_decode_plain` on the same card tensors at the
+     Qwen3-1.7B decode shape (B 2, H 16, Hkv 8, D 128, 64-token blocks,
+     Tn 512 = max_len 32768, K 26), a random live row at a position
+     mid-block, C = 1 (live-row layout: one running total per kv head, no
+     diagonal partials) and C = 4 (per-token hdiag / htot), K/V in f32
+     and bf16, rows with marg = 0 and padded LUT slots naming another
+     block; at the chosen split width and at widths 1 and 2, each printed
+     with its splits and grid size: max abs error against 5e-5 x max(1,
+     max |twin|), exact zeros where marg = 0, two launches bitwise equal;
+     device times (CUDA events around CUDA-graph replays: an eager call's
+     host dispatch outlasts the kernels) of each width, the eager call's
+     time, the twin's, the bound, and dense scaled_dot_product_attention
+     of one bf16 query token over the whole 32768-token cache (a
+     yardstick, not the same function: no PyTorch call computes O^l).
  12. LM main path (after the DiT models are freed): the static
      ServingEngine serving qwen3-1.7b at full width and depth (28
      layers, random seeded weights, sla_proj redrawn) on the kernel
@@ -103,27 +107,32 @@ Phases, in order; any failure exits non-zero before the result line:
      counters (56 builds, 56 extends, 112 re-plans + reuses).
  13. LM cross-checks on the main path's own state after its last
      boundary: decode_execute on the kernel vs the gather backend and
-     `sla_decode` vs its twin on the live LUTs of layers 0 and 27 (5e-5 x
-     max(1, max |twin|)); one full decode step's logits, kernel vs
-     gather backend from the same cache (5e-2 x max(1, max |logits|),
+     `sla_decode` vs its twin on the live LUTs of layers 0 and 27 as in
+     phase 11 (three widths, 5e-5 x max(1, max |twin|), two launches
+     bitwise equal, device times); one full decode step's logits, kernel
+     vs gather backend from the same cache (5e-2 x max(1, max |logits|),
      bf16 compute), with the greedy-token agreement; `sla_fwd` vs its
      twin on the Qwen3 prefill's layer-0 and layer-27 LUTs (causal, bf16,
      tensor cores, phase 3's criterion, K/V repeated to the 16 query heads
      as the kernel backend gives them), and the same call on the 8 kv
      heads unrepeated (group 2), bitwise equal and timed. `--profile`
-     adds a profile of 8 decode steps and one of a prefill (the forward
-     kernel's share of its device time).
+     adds a profile of 8 decode steps (the decode kernels' device time
+     among it) and one of a prefill (the forward kernel's share of its
+     device time).
  14. paged decode kernel vs plain twin: `sla_decode_paged` against
      `sla_decode_paged_plain` on the same card tensors at the Qwen3-1.7B
      decode shape with 4 slots (B 4, H 16, Hkv 8, D 128, bkv 64, Tn 512,
      K 26) over a pool of 1,029 pages whose page table shares the slots'
      first 480 pages and gives each 32 distinct shuffled ones (608 in
      use), a live row mid-block (row 500), K/V in f32 and bf16, rows with
-     marg = 0, and padded LUT slots whose pages hold NaN: max abs error
-     against 5e-5 x max(1, max |twin|), finite outputs, exact zeros where
-     marg = 0, and bitwise equality with `sla_decode` (kernel 4) on the
-     page-gathered monolithic view of the same state; CUDA-event times of
-     both kernels and the twin, and the bound.
+     marg = 0, and padded LUT slots whose pages hold NaN; at the chosen
+     split width and at widths 1 and 2, each printed with its splits and
+     grid size: max abs error against 5e-5 x max(1, max |twin|), finite
+     outputs, exact zeros where marg = 0, two launches bitwise equal, and
+     bitwise equality with `sla_decode` (kernel 4) at the same width on
+     the page-gathered monolithic view of the same state; device times
+     (CUDA-graph replays) of each width and of kernel 4 on the view, the
+     eager call's and the twin's, and the bound.
  15. paged LM main path (after phase 12's engine and state are freed, on
      phase 12's model): first a probe of the prefix-sharing premise at the
      default column capacity (two batch-1 prefills of prompts sharing
@@ -153,7 +162,9 @@ Phases, in order; any failure exits non-zero before the result line:
  16. paged cross-checks, by a hook inside phase 15's trace right after
      the last block boundary, with 2 slots decoding: decode_execute on
      the kernel vs the gather backend and `sla_decode_paged` vs its twin
-     on the live LUTs of layers 0 and 27 (5e-5 x max(1, max |ref|)); one
+     on the live LUTs of layers 0 and 27 (5e-5 x max(1, max |ref|)) as in
+     phase 14 (three widths, bitwise repeats, bitwise equal to kernel 4
+     on the gathered view, device times); one
      full decode step's bf16 logits, kernel vs gather, from the same
      cache (5e-2 x max(1, max |logits|)), with the greedy-token
      agreement; the step's writes are put back, and the checks'
@@ -293,6 +304,34 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
+    """Mean device time of fn() from CUDA events around replays of one
+    CUDA graph that holds `reps` calls: for kernels shorter than the
+    host's dispatch of their call, where `cuda_ms` times the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * replays)
+    del graph
+    return ms
 
 
 # --------------------------------------------------------------------------
@@ -1409,32 +1448,88 @@ def _decode_bound(args, kw):
             blocks, slots)
 
 
-def _decode_case(args, kw, what: str, reps: int = 50):
-    """The decode kernel against its twin on one set of card operands:
-    errors, exact zeros where marg = 0, times and the bound."""
-    got = sla_decode.sla_decode(*args, **kw)
-    want = sla_decode.sla_decode_plain(*args, **kw)
-    torch.cuda.synchronize()
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+DECODE_WIDTHS = (None, 1, 2)  # the chosen split width, then forced ones
+
+
+def _split_runs(fn, args, kw, q, lut, want, zeros_of, extra=None):
+    """Kernel 4 or 5 (`fn`) at each of DECODE_WIDTHS against the unsplit
+    twin's `want`: max abs error, exact zeros where marg = 0 (`zeros_of`
+    picks them), two launches bitwise equal, `extra(width, got)` (False
+    fails), and the device time (`cuda_graph_ms`). Returns one dict a
+    width, the chosen first."""
     limit = TWIN_TOL * max(1.0, max(float(w.abs().max()) for w in want))
-    zeros = bool((got[1][args[2] == 0] == 0).all())
-    if not np.isfinite(err):
-        raise RuntimeError(f"sla_decode {what}: non-finite output")
-    ms = cuda_ms(lambda: sla_decode.sla_decode(*args, **kw), reps)
+    runs = []
+    for width in DECODE_WIDTHS:
+        geo = sla_decode.split_geometry(q, lut, width)
+        got = fn(*args, **kw, split_width=width)
+        again = fn(*args, **kw, split_width=width)
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        if not np.isfinite(err):
+            raise RuntimeError(f"decode kernel at split width {width}: "
+                               f"non-finite output")
+        run = dict(width=width, **geo, max_abs_err=err, limit=limit,
+                   zeros=bool((zeros_of(got) == 0).all()),
+                   bitwise_repeat=all(torch.equal(a, b)
+                                      for a, b in zip(got, again)),
+                   extra=True if extra is None else extra(width, got))
+        run["ok"] = (err <= limit and run["zeros"] and run["bitwise_repeat"]
+                     and run["extra"])
+        del got, again
+        run["ms"] = cuda_graph_ms(lambda: fn(*args, **kw, split_width=width))
+        runs.append(run)
+    return runs
+
+
+def _runs_text(runs) -> str:
+    return "; ".join(
+        f"width {r['split_width']}{' (chosen)' if r['width'] is None else ''}"
+        f", {r['nsplit']} splits, grid {r['grid_ctas']} + {r['rows']} "
+        f"blocks: err {r['max_abs_err']:.3g}, bitwise repeat "
+        f"{r['bitwise_repeat']}, {r['ms']:.4f} ms"
+        f"{' OK' if r['ok'] else ' FAIL'}" for r in runs)
+
+
+def _split_summary(runs, bound_ms) -> dict:
+    """The chosen width's numbers and width 1's time beside them."""
+    chosen = runs[0]
+    return dict(max_abs_err=max(r["max_abs_err"] for r in runs),
+                limit=chosen["limit"], ok=all(r["ok"] for r in runs),
+                ms=chosen["ms"], split_width=chosen["split_width"],
+                nsplit=chosen["nsplit"], grid_ctas=chosen["grid_ctas"],
+                ms_width1=runs[1]["ms"], ms_width2=runs[2]["ms"],
+                bitwise_repeat=all(r["bitwise_repeat"] for r in runs),
+                bound_fraction=bound_ms / chosen["ms"],
+                widths=[{k: r[k] for k in ("split_width", "nsplit",
+                                           "grid_ctas", "max_abs_err",
+                                           "ms", "ok")} for r in runs])
+
+
+def _decode_case(args, kw, what: str, reps: int = 50):
+    """The decode kernel against its twin on one set of card operands at
+    the chosen split width and at widths 1 and 2: errors, exact zeros
+    where marg = 0, two launches bitwise equal, device times (CUDA graph
+    replays), the eager call's time, and the bound."""
+    want = sla_decode.sla_decode_plain(*args, **kw)
+    runs = _split_runs(sla_decode.sla_decode, args, kw, args[4], args[0],
+                       want, lambda got: got[1][args[2] == 0])
+    for r in runs:
+        r["rows"] = args[4].shape[0] * args[4].shape[1]
+    eager_ms = cuda_ms(lambda: sla_decode.sla_decode(*args, **kw), reps)
     plain_ms = cuda_ms(lambda: sla_decode.sla_decode_plain(*args, **kw), 5,
                        warmup=1)
     bound_ms, bound_by, flops, nbytes, blocks, slots = _decode_bound(args,
                                                                      kw)
-    ok = err <= limit and zeros
-    say(f"  {what}: max abs err {err:.3g} (limit {limit:.3g}), marg-0 rows "
-        f"exact zeros {zeros} {'OK' if ok else 'FAIL'} | kernel {ms:.4f} ms"
-        f" | bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
-        f"{blocks} (kv head, block) tiles, {slots} live slots) | plain twin "
+    row = _split_summary(runs, bound_ms)
+    say(f"  {what}: {_runs_text(runs)} (limit {row['limit']:.3g}, marg-0 "
+        f"rows exact zeros {all(r['zeros'] for r in runs)}) | eager call "
+        f"{eager_ms:.4f} ms | bound {bound_ms:.4f} ms by {bound_by} "
+        f"({nbytes / 1e6:.1f} MB, {blocks} (kv head, block) tiles, {slots} "
+        f"live slots; {row['bound_fraction']:.1%} of it) | plain twin "
         f"{plain_ms:.3f} ms")
-    return dict(max_abs_err=err, limit=limit, ok=ok, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                gflop=flops / 1e9, mbytes=nbytes / 1e6, blocks_read=blocks,
-                live_slots=slots)
+    return dict(row, eager_ms=eager_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, gflop=flops / 1e9,
+                mbytes=nbytes / 1e6, blocks_read=blocks, live_slots=slots)
 
 
 def phase_decode_vs_plain():
@@ -1685,6 +1780,16 @@ def _profile_prefill(engine, toks):
     return res
 
 
+def _decode_kernel_time(events):
+    """The decode kernels' device time (us) in a profile's key averages,
+    split and combine kernels together, and the split kernel's launches."""
+    mine = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and re.search(r"sla_decode_(split|combine)_kernel", e.key)]
+    return (sum(e.self_device_time_total for e in mine),
+            sum(e.count for e in mine if "split" in e.key))
+
+
 def phase_lm_cross_check(cfg, run, profile: bool):
     engine, last, plans = run["engine"], run["last"], run["plans"]
     cache, token = last["cache"], last["token"]
@@ -1792,11 +1897,14 @@ def phase_lm_cross_check(cfg, run, profile: bool):
         dev_us = sum(e.self_device_time_total for e in events
                      if e.device_type == torch.autograd.DeviceType.CUDA
                      and not e.is_user_annotation)
+        k4_us, k4_n = _decode_kernel_time(events)
         res["profile"] = dict(wall_s=wall, device_s=dev_us / 1e6,
-                              busy=dev_us / 1e6 / wall)
+                              busy=dev_us / 1e6 / wall,
+                              kernel_s=k4_us / 1e6, kernel_launches=k4_n)
         say(f"[13 lm profile] 8 decode steps: {wall:.3f}s wall under the "
             f"profiler, {dev_us / 1e6:.3f}s device time, device busy "
-            f"{dev_us / 1e6 / wall:.3f}")
+            f"{dev_us / 1e6 / wall:.3f} | decode kernels {k4_n} launches, "
+            f"{k4_us / 1e6:.4f}s")
         say(events.table(sort_by="self_cuda_time_total", row_limit=20))
     last.clear()
     del cache, token
@@ -1904,35 +2012,41 @@ def _paged_bound(args, kw):
 
 
 def _paged_case(args, kw, what: str, reps: int = 50):
-    """Kernel 5 against its twin and against kernel 4 on the monolithic
-    view of the same state: errors, exact zeros where marg = 0, the
-    bitwise test, times and the bound."""
-    got = sla_decode.sla_decode_paged(*args, **kw)
+    """Kernel 5 against its twin, and bitwise against kernel 4 on the
+    monolithic view of the same state at the same split width (the
+    chosen one, 1 and 2): errors, exact zeros where marg = 0, finite
+    outputs, two launches bitwise equal, device times, the bound."""
     want = sla_decode.sla_decode_paged_plain(*args, **kw)
     dense = cases.paged_dense_operands(args)
-    mono = sla_decode.sla_decode(*dense, **kw)
-    torch.cuda.synchronize()
-    finite = all(bool(torch.isfinite(x).all()) for x in got)
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    limit = TWIN_TOL * max(1.0, max(float(w.abs().max()) for w in want))
-    zeros = bool((got[1][args[3] == 0] == 0).all())
-    bitwise = all(torch.equal(g, m) for g, m in zip(got, mono))
-    ms = cuda_ms(lambda: sla_decode.sla_decode_paged(*args, **kw), reps)
-    mono_ms = cuda_ms(lambda: sla_decode.sla_decode(*dense, **kw), reps)
+
+    def same_as_kernel4(width, got):
+        mono = sla_decode.sla_decode(*dense, **kw, split_width=width)
+        return (all(bool(torch.isfinite(x).all()) for x in got)
+                and all(torch.equal(g, m) for g, m in zip(got, mono)))
+
+    runs = _split_runs(sla_decode.sla_decode_paged, args, kw, args[5],
+                       args[0], want, lambda got: got[1][args[3] == 0],
+                       same_as_kernel4)
+    for r in runs:
+        r["rows"] = args[5].shape[0]
+    mono_ms = cuda_graph_ms(lambda: sla_decode.sla_decode(*dense, **kw))
+    eager_ms = cuda_ms(lambda: sla_decode.sla_decode_paged(*args, **kw),
+                       reps)
     plain_ms = cuda_ms(lambda: sla_decode.sla_decode_paged_plain(
         *args, **kw), 5, warmup=1)
     bound_ms, bound_by, flops, nbytes, tiles, slots = _paged_bound(args, kw)
-    ok = finite and err <= limit and zeros and bitwise
-    say(f"  {what}: max abs err {err:.3g} (limit {limit:.3g}), finite "
-        f"{finite}, marg-0 rows exact zeros {zeros}, bitwise equal to "
-        f"sla_decode on the monolithic view {bitwise} "
-        f"{'OK' if ok else 'FAIL'} | kernel {ms:.4f} ms | sla_decode on "
-        f"the view {mono_ms:.4f} ms | bound {bound_ms:.4f} ms by {bound_by}"
-        f" ({nbytes / 1e6:.1f} MB, {tiles} (kv head, page) tiles, {slots} "
-        f"live slots) | plain twin {plain_ms:.3f} ms")
-    del dense, mono
-    return dict(max_abs_err=err, limit=limit, ok=ok, bitwise_vs_sla_decode=
-                bitwise, ms=ms, sla_decode_view_ms=mono_ms,
+    row = _split_summary(runs, bound_ms)
+    say(f"  {what}: {_runs_text(runs)} (limit {row['limit']:.3g}; finite, "
+        f"marg-0 rows exact zeros and bitwise equal to sla_decode on the "
+        f"monolithic view at each width: "
+        f"{all(r['extra'] and r['zeros'] for r in runs)}) | sla_decode on "
+        f"the view {mono_ms:.4f} ms | eager call {eager_ms:.4f} ms | bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, {tiles} "
+        f"(kv head, page) tiles, {slots} live slots; "
+        f"{row['bound_fraction']:.1%} of it) | plain twin {plain_ms:.3f} ms")
+    del dense
+    return dict(row, bitwise_vs_sla_decode=all(r["extra"] for r in runs),
+                sla_decode_view_ms=mono_ms, eager_ms=eager_ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 gflop=flops / 1e9, mbytes=nbytes / 1e6, tiles_read=tiles,
                 live_slots=slots)
@@ -2025,29 +2139,45 @@ def _pg_cross_check(cfg, sched, logits, res):
                 state["ztot"].reshape(b * hkv, -1))
         kw = dict(scale=cfg.head_dim ** -0.5, block_kv=sla.block_kv,
                   group=g)
-        got = sla_decode.sla_decode_paged(*args, **kw)
         want = sla_decode.sla_decode_paged_plain(*args, **kw)
-        terr = max(float((x - y).abs().max()) for x, y in zip(got, want))
-        tlimit = TWIN_TOL * max(1.0, max(float(y.abs().max()) for y in want))
-        ms = cuda_ms(lambda: sla_decode.sla_decode_paged(*args, **kw), 50)
+        dense = cases.paged_dense_operands(args)
+
+        def same_as_kernel4(width, got):
+            mono = sla_decode.sla_decode(*dense, **kw, split_width=width)
+            return all(torch.equal(g, m) for g, m in zip(got, mono))
+
+        runs = _split_runs(sla_decode.sla_decode_paged, args, kw, args[5],
+                           args[0], want, lambda got: got[1][args[3] == 0],
+                           same_as_kernel4)
+        for r in runs:
+            r["rows"] = bh
+        del dense
+        eager_ms = cuda_ms(lambda: sla_decode.sla_decode_paged(*args, **kw),
+                           50)
         plain_ms = cuda_ms(lambda: sla_decode.sla_decode_paged_plain(
             *args, **kw), 5, warmup=1)
         bound_ms, bound_by, _, nbytes, tiles, slots = _paged_bound(args, kw)
-        ok = err <= limit and terr <= tlimit
+        split = _split_summary(runs, bound_ms)
+        ok = err <= limit and split["ok"]
         say(f"[16 paged cross-check] layer {layer} at positions "
             f"{pos.tolist()}: decode_execute kernel vs gather max abs err "
-            f"{err:.3g} (limit {limit:.3g}); sla_decode_paged vs twin "
-            f"{terr:.3g} (limit {tlimit:.3g}) {'OK' if ok else 'FAIL'} | "
-            f"kernel {ms:.4f} ms | bound {bound_ms:.4f} ms by {bound_by} "
-            f"({nbytes / 1e6:.1f} MB, {tiles} tiles, {slots} live slots) | "
-            f"plain twin {plain_ms:.3f} ms")
-        rows.append(dict(shape=f"qwen3-1.7b paged path layer {layer}",
-                         dtype="bf16", pos=pos.tolist(), max_abs_err=terr,
-                         limit=tlimit, backend_err=err, backend_limit=limit,
-                         ok=ok, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, mbytes=nbytes / 1e6,
-                         tiles_read=tiles, live_slots=slots))
-        del state, args, got, want
+            f"{err:.3g} (limit {limit:.3g}); sla_decode_paged vs twin, "
+            f"bitwise equal to sla_decode on the gathered view at each "
+            f"width {all(r['extra'] for r in runs)}: {_runs_text(runs)} "
+            f"(limit {split['limit']:.3g}) {'OK' if ok else 'FAIL'} | eager "
+            f"call {eager_ms:.4f} ms | bound {bound_ms:.4f} ms by {bound_by}"
+            f" ({nbytes / 1e6:.1f} MB, {tiles} tiles, {slots} live slots; "
+            f"{split['bound_fraction']:.1%} of it) | plain twin "
+            f"{plain_ms:.3f} ms")
+        rows.append(dict(split, shape=f"qwen3-1.7b paged path layer {layer}",
+                         dtype="bf16", pos=pos.tolist(), backend_err=err,
+                         backend_limit=limit, ok=ok,
+                         bitwise_vs_sla_decode=all(r["extra"] for r in runs),
+                         eager_ms=eager_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         mbytes=nbytes / 1e6, tiles_read=tiles,
+                         live_slots=slots))
+        del state, args, want
     if not all(r["ok"] for r in rows):
         raise RuntimeError(f"paged decode disagrees on the path's state: "
                            f"{rows}")
@@ -2302,13 +2432,10 @@ def phase_paged_main(cfg, params, profile: bool):
         dev_us = sum(e.self_device_time_total for e in events
                      if e.device_type == torch.autograd.DeviceType.CUDA
                      and not e.is_user_annotation)
-        k5 = [e for e in events if e.device_type ==
-              torch.autograd.DeviceType.CUDA and "sla_decode_kernel" in e.key]
-        k5_us = sum(e.self_device_time_total for e in k5)
+        k5_us, k5_n = _decode_kernel_time(events)
         res["profile"] = dict(wall_s=prof["wall"], device_s=dev_us / 1e6,
                               busy=dev_us / 1e6 / prof["wall"],
-                              kernel_s=k5_us / 1e6,
-                              kernel_launches=sum(e.count for e in k5))
+                              kernel_s=k5_us / 1e6, kernel_launches=k5_n)
         say(f"[15 paged lm profile] 8 paged decode steps (4 slots): "
             f"{prof['wall']:.3f}s wall under the profiler, "
             f"{dev_us / 1e6:.3f}s device time, device busy "
@@ -2599,6 +2726,8 @@ def main(argv=None) -> int:
         })
     head = next(r for r in dec_rows if r["shape"] == "qwen3-1.7b decode C=1"
                 and r["dtype"] == "bf16")
+    split_keys = ("split_width", "nsplit", "grid_ctas", "ms_width1",
+                  "ms_width2", "eager_ms", "bitwise_repeat")
     kernels.append({
         "name": "sla_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sla_decode.cu",
@@ -2615,6 +2744,10 @@ def main(argv=None) -> int:
         "library": "none: no PyTorch call computes O^l (the subtractive "
                    "linear branch) with the sparse softmax",
         "dense_sdpa_ms": sdpa_ms,
+        **{key: head[key] for key in split_keys},
+        "timing": "ms: CUDA events around CUDA-graph replays (device time "
+                  "of the split and combine kernels); eager_ms: CUDA events "
+                  "around eager calls (host dispatch included)",
         "cases": dec_rows,
     })
     head5 = next(r for r in pg_rows if r["shape"] ==
@@ -2635,8 +2768,9 @@ def main(argv=None) -> int:
         "library": "none: no PyTorch call computes O^l (the subtractive "
                    "linear branch) with the sparse softmax",
         "sla_decode_on_view_ms": head5["sla_decode_view_ms"],
-        "bitwise_vs_sla_decode": all(r.get("bitwise_vs_sla_decode", True)
+        "bitwise_vs_sla_decode": all(r["bitwise_vs_sla_decode"]
                                      for r in pg_rows),
+        **{key: head5[key] for key in split_keys},
         "cases": pg_rows,
     })
     say(f"[18] main path {main_run} | cross-check {cross} | grads {grads} | "

@@ -30,22 +30,43 @@
 // layer's step streams ~40-80 MB (each (kv head, block) that a q head of
 // its group selects), 12-24 us at 3.35 TB/s.
 //
-// What the design does about it. The TPU kernel walks the LUT as a
-// sequential grid axis with its softmax state and a D x D hsel sum in VMEM
-// scratch. Here one 256-thread block owns one (bh, c) for the whole walk:
-// it reads its own LUT row, stops at cnt (padded slots are never read),
-// and keeps m, l and its share of acc in registers. The linear branch uses
-// the equal form phi(q) Htot - sum_j phi(q) H_j, so each hblk tile is
-// dotted with phi(q) as it streams and the block keeps a D-vector instead
-// of a D x D sum. Lanes own 4 consecutive head-dim columns and warps
-// interleave rows (keys of K/V, head-dim rows of H), so every load is a
-// 16-byte (f32) or 8-byte (bf16) coalesced vector load and a block keeps a
-// whole 64 KB H tile in flight. K, V, hblk and zblk are addressed through
-// explicit head and block strides with the block id read from the LUT, so
-// the paged variant only swaps in the page id and the pool strides.
-// Occupancy: one block per (bh, c), so B H C blocks (32 at batch 2, 64 at
-// batch 4) on 132 SMs; a split of the LUT walk over several blocks with a
-// combine pass (flash-decoding) is the next step for speed.
+// What the design does about it. The TPU kernel walks the LUT as a sequential
+// grid axis with its softmax state and a D x D hsel sum in VMEM scratch; one
+// block a (bh, c) for the whole walk would leave most of the 132 SMs idle (32
+// rows at batch 2) with one slot's loads in flight each. So the walk is split
+// (flash-decoding): the split kernel's grid is (nsplit + 1, C, BH), and the
+// block at split s < nsplit walks slots [s w, min((s + 1) w, cnt)) of its row,
+// the width w chosen by the wrapper from the shapes and the SM count alone
+// (the grid covers the SMs twice, and no block walks more than 4 slots). A
+// split past cnt writes a neutral partial (m = -1e30, l = 0, zeros). Block
+// `nsplit` of a row computes phi(q) Htot and phi(q) Ztot, in parallel with the
+// walk. The linear branch uses the equal form phi(q) Htot - sum_j phi(q) H_j,
+// so each hblk tile is dotted with phi(q) as it streams and a split keeps a
+// D-vector instead of a D x D sum. Loads: per-thread vector loads of a whole
+// slot (~96 KB a block in flight) stalled well short of the memory rate
+// whatever the grid (the SM's limit on outstanding loads, not latency); so
+// thread 0 moves each slot with four 1-D bulk copies (TMA, `cp.async.bulk`)
+// into the block's stage in shared memory (bf16 at D 128, bkv 64: 96.5 KB, two
+// blocks an SM; f32 128.5 KB, one), K and V on one mbarrier, H and Z on
+// another, and refills K and V with the next slot as soon as they are read,
+// while the warps read H (a two-stage ring in one block was slower than two
+// one-stage blocks an SM). The eight warps keep separate online softmaxes:
+// warp w owns keys w, w + 8, ... of every block and H rows w, w + 8, ...,
+// reduces its scores with shuffles (every lane holds them), and keeps m, l and
+// acc in registers; lanes own 4 consecutive head-dim columns. The warps'
+// states merge once, at the end, in warp order, into one partial record per
+// (bh, c, split) in an f32 workspace the wrapper allocates: m, l, the
+// unnormalised acc[D], hpart[D] = phi(q) sum H_j and zpart = phi(q) sum Z_j.
+// The combine kernel (one block a (bh, c)), launched to start while the split
+// grid drains (programmatic dependent launch), reads the records in split
+// order: m* = max m_s, l = sum l_s e^(m_s - m*), acc the same way, hsel = sum
+// hpart_s, zsel = sum zpart_s, and writes O^s = acc / l (l = 1 where l = 0)
+// and O^l from the totals' record. The -1e30 sentinel (never -inf: e^(-inf -
+// (-inf)) is NaN) makes a split whose columns are all masked weigh in as in
+// the unsplit walk: it vanishes against any live score. Fixed orders
+// everywhere, no atomics: two launches are bitwise equal. The bulk copies need
+// K/V tiles of a multiple of 16 bytes (bkv D % 8 == 0 in bf16) and 16-byte
+// strides.
 //
 // Paged decode (`pt` given, single token, live row). The logical block
 // id j = lut[s] drives the column mask and the diagonal test; the
@@ -58,20 +79,40 @@
 // (hdiag null) and the totals are one running total per (b, kv head).
 // Both ids are clamped into range (j to [0, tn), the page to [0, pages)),
 // so a runaway inactive slot past max_len reads garbage, never out of
-// bounds. With one body, the paged kernel on the pools and the monolithic
-// one on the gathered view sum in the same order: bitwise equal.
+// bounds. With one body and a width that depends on the shapes only, the
+// paged kernel on the pools and the monolithic one on the gathered view
+// split and sum in the same order: bitwise equal.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxD = 128;      // 4 columns for each of the 32 lanes
-constexpr int kMaxBlock = 64;   // scores of one KV block in shared memory
+constexpr int kMaxBlock = 64;   // keys of one KV block
+constexpr int kKeys = kMaxBlock / kWarps;  // a block's keys per warp
+constexpr int kRows = kMaxD / kWarps;      // an H tile's rows per warp
+constexpr int kMaxGrid = 65535;            // grid y (C) and z (BH)
+constexpr int kBatch = 8;  // records the combine reads at once
 constexpr float kNegInf = -1e30f;  // the reference's masked score
 constexpr float kEps = 1e-6f;
+
+// One partial record per (bh, c, split) in the workspace, in floats:
+// [m, l, zpart, 0, acc[d], hpart[d]]; d % 4 == 0 keeps records 16-byte
+// aligned. Record `nsplit` of a row holds the totals' products (zpart =
+// phi(q) Ztot, hpart = phi(q) Htot).
+__host__ __device__ constexpr int record(int d) { return 4 + 2 * d; }
+
+// A block's stage: a slot's K tile, V tile (bkv x d of T each), H tile
+// (d x d f32) and Z row (d f32), each a multiple of 16 bytes.
+__host__ __device__ constexpr int stage_bytes(int d, int block_kv,
+                                              int esize) {
+  return 2 * block_kv * d * esize + (d * d + d) * 4;
+}
 
 __device__ __forceinline__ void load4(const float* p, float out[4]) {
   const float4 x = *reinterpret_cast<const float4*>(p);
@@ -100,40 +141,113 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// kPaged selects the page-table addressing at compile time, so that the
-// monolithic instantiation carries no per-slot branch or page load.
+// mbarrier and 1-D bulk copy (TMA) primitives, shared::cta addresses
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// hs += sum over this warp's rows r of phi(q)[r] * h[r, col0:col0+4] and,
+// in warp 0, zs += phi(q) . z, for an H tile and Z row in shared memory
+__device__ __forceinline__ void dot_h(const float* h, const float* z,
+                                     const float* sQp, int d, int warp,
+                                     int col0, float hs[4], float& zs) {
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = warp + kWarps * i;
+    if (r < d) {
+      float hv[4];
+      load4(h + r * d + col0, hv);
+      const float w = sQp[r];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hs[e] = fmaf(w, hv[e], hs[e]);
+    }
+  }
+  if (warp == 0) {
+    float zv[4];
+    load4(z + col0, zv);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) zs = fmaf(sQp[col0 + e], zv[e], zs);
+  }
+}
+
+// The split kernel: one block per (split, c, bh). kPaged selects the
+// page-table addressing at compile time, so that the monolithic
+// instantiation carries no per-slot branch or page load. Thread 0 fills
+// the block's stage with a slot's tiles by bulk copies: K and V on one
+// mbarrier, H and Z on another. Every warp reads its keys of K and V
+// once theirs completes; a block barrier then lets thread 0 refill K and
+// V with the next slot while the warps read H; a second barrier frees H.
 template <typename T, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
-    sla_decode_kernel(const int32_t* __restrict__ lut,
-                      const int32_t* __restrict__ cnt,
-                      const int32_t* __restrict__ marg,
-                      const int32_t* __restrict__ posv,
-                      const float* __restrict__ q,
-                      const float* __restrict__ qp,
-                      const T* __restrict__ k, const T* __restrict__ v,
-                      const float* __restrict__ hblk,
-                      const float* __restrict__ zblk,
-                      const float* __restrict__ hdiag,
-                      const float* __restrict__ zdiag,
-                      const float* __restrict__ htot,
-                      const float* __restrict__ ztot,
-                      const int32_t* __restrict__ pt,
-                      float* __restrict__ o_s, float* __restrict__ o_l,
-                      int c_len, int k_sel, int tn, int num_blocks, int d,
-                      int block_kv, int group, int heads, int kv_mod,
-                      float scale, long long kv_head_stride,
-                      long long kv_blk_stride, long long h_head_stride,
-                      long long h_blk_stride, long long z_head_stride,
-                      long long z_blk_stride, int tot_per_token) {
+    sla_decode_split_kernel(const int32_t* __restrict__ lut,
+                            const int32_t* __restrict__ cnt,
+                            const int32_t* __restrict__ posv,
+                            const float* __restrict__ q,
+                            const float* __restrict__ qp,
+                            const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const float* __restrict__ hblk,
+                            const float* __restrict__ zblk,
+                            const float* __restrict__ hdiag,
+                            const float* __restrict__ zdiag,
+                            const float* __restrict__ htot,
+                            const float* __restrict__ ztot,
+                            const int32_t* __restrict__ pt,
+                            float* __restrict__ work, int c_len, int k_sel,
+                            int tn, int num_blocks, int d, int block_kv,
+                            int group, int heads, int kv_mod, float scale,
+                            long long kv_head_stride,
+                            long long kv_blk_stride, long long h_head_stride,
+                            long long h_blk_stride, long long z_head_stride,
+                            long long z_blk_stride, int tot_per_token,
+                            int width, int nsplit) {
+  extern __shared__ __align__(128) unsigned char stage[];
+  __shared__ __align__(8) uint64_t kv_full;  // K, V landed
+  __shared__ __align__(8) uint64_t h_full;   // H, Z landed
   __shared__ float sQp[kMaxD];
-  __shared__ float sS[kMaxBlock];   // masked scores of the current block
-  __shared__ float sP[kMaxBlock];   // their probabilities
+  __shared__ float sM[kWarps], sL[kWarps];
   __shared__ float sAcc[kWarps][kMaxD];
-  __shared__ float sNum[kWarps][kMaxD];
-  __shared__ float sDen;
+  __shared__ float sH[kWarps][kMaxD];
+  __shared__ float sZ;
 
-  const int c = blockIdx.x;
-  const int bh = blockIdx.y;
+  const int split = blockIdx.x;
+  const int c = blockIdx.y;
+  const int bh = blockIdx.z;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -142,168 +256,308 @@ __global__ void __launch_bounds__(kThreads)
   const size_t tok = (size_t)bh * c_len + c;       // q, lut, outputs row
   const size_t kvtok = (size_t)kvrow * c_len + c;  // hdiag row
   const size_t totrow = tot_per_token ? kvtok : (size_t)kvrow;  // htot row
-  const int32_t* pt_row = kPaged ? pt + (size_t)(bh / heads) * tn : nullptr;
-  const int pos = posv[bh] + c;
-  const int diag = pos / block_kv;
   const int col0 = 4 * lane;  // this lane's 4 head-dim columns
   const bool col_ok = col0 < d;
+  const int kv_elems = block_kv * d;
+  const uint32_t kv_bytes = kv_elems * sizeof(T);
+  const uint32_t h_bytes = d * d * 4, z_bytes = d * 4;
+  float* part = work + (tok * (nsplit + 1) + split) * record(d);
+  // let the combine kernel launch now and wait for this grid
+  // (programmatic dependent launch)
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 
+  if (tid == 0) {
+    mbar_init(&kv_full);
+    mbar_init(&h_full);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   for (int i = tid; i < d; i += kThreads) sQp[i] = qp[tok * d + i];
-  float qv[4] = {0.f, 0.f, 0.f, 0.f};
-  if (col_ok) load4(q + tok * d + col0, qv);
   __syncthreads();
 
   float m_run = kNegInf, l_run = 0.f;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};  // O^s columns, this warp's keys
-  float hsel[4] = {0.f, 0.f, 0.f, 0.f};  // phi(q) H_sel, this warp's rows
-  float zsel = 0.f;                       // phi(q) Z_sel (warp 0)
-  int n = cnt[tok];
-  n = n < k_sel ? n : k_sel;
-  const int32_t* lut_row = lut + tok * k_sel;
-  const T* k_head = k + kvh * kv_head_stride;
-  const T* v_head = v + kvh * kv_head_stride;
+  float hs[4] = {0.f, 0.f, 0.f, 0.f};   // phi(q) H, this warp's rows
+  float zs = 0.f;                        // phi(q) Z, per lane (warp 0)
 
-  for (int s = 0; s < n; ++s) {
-    int j = lut_row[s];
-    j = j < 0 ? 0 : (j < tn ? j : tn - 1);  // memory-safe on a bad LUT
-    int blk = j;  // the block's storage: itself, or its physical page
-    if (kPaged) {
-      blk = pt_row[j];
-      blk = blk < 0 ? 0 : (blk < num_blocks ? blk : num_blocks - 1);
+  if (split == nsplit) {  // the totals: phi(q) Htot, phi(q) Ztot
+    float* sh = reinterpret_cast<float*>(stage);
+    if (tid == 0) {
+      mbar_expect(&h_full, h_bytes + z_bytes);
+      bulk_load(sh, htot + totrow * d * d, h_bytes, &h_full);
+      bulk_load(sh + d * d, ztot + totrow * d, z_bytes, &h_full);
     }
-    const T* kj = k_head + blk * kv_blk_stride;
-    const T* vj = v_head + blk * kv_blk_stride;
-    const bool is_diag = hdiag != nullptr && j == diag;
-    const float* hj = is_diag
-        ? hdiag + kvtok * d * d
-        : hblk + kvh * h_head_stride + blk * h_blk_stride;
-    const float* zj = is_diag
-        ? zdiag + kvtok * d
-        : zblk + kvh * z_head_stride + blk * z_blk_stride;
-
-    // scores: warp w takes keys w, w + 8, ...; lanes split the head dim
-#pragma unroll 4
-    for (int t = warp; t < block_kv; t += kWarps) {
-      float kk[4] = {0.f, 0.f, 0.f, 0.f};
-      if (col_ok) load4(kj + (size_t)t * d + col0, kk);
-      float dot = qv[0] * kk[0];
-      dot = fmaf(qv[1], kk[1], dot);
-      dot = fmaf(qv[2], kk[2], dot);
-      dot = fmaf(qv[3], kk[3], dot);
-      dot = warp_sum(dot);
-      if (lane == 0)
-        sS[t] = (j * block_kv + t <= pos) ? dot * scale : kNegInf;
+    mbar_wait(&h_full, 0);
+    if (col_ok) dot_h(sh, sh + d * d, sQp, d, warp, col0, hs, zs);
+  } else {
+    int n = cnt[tok];
+    n = n < k_sel ? n : k_sel;
+    const int s0 = split * width;
+    const int s1 = s0 + width < n ? s0 + width : n;
+    const int pos = posv[bh] + c;
+    const int diag = pos / block_kv;
+    const int32_t* lut_row = lut + tok * k_sel;
+    const int32_t* pt_row = kPaged ? pt + (size_t)(bh / heads) * tn
+                                   : nullptr;
+    // the block id (mask, diagonal test), clamped: memory-safe on a bad
+    // LUT; its storage is itself, or its physical page (clamped too)
+    auto block_id = [&](int s) {
+      const int j = lut_row[s];
+      return j < 0 ? 0 : (j < tn ? j : tn - 1);
+    };
+    // where slot s's four tiles live (its storage: the block itself, or
+    // its physical page, clamped too)
+    struct Tiles {
+      const T* k;
+      const T* v;
+      const float* h;
+      const float* z;
+    };
+    auto tiles = [&](int s) {
+      const int j = block_id(s);
+      int blk = j;
+      if (kPaged) {
+        blk = pt_row[j];
+        blk = blk < 0 ? 0 : (blk < num_blocks ? blk : num_blocks - 1);
+      }
+      const bool is_diag = hdiag != nullptr && j == diag;
+      const long long kv_off = kvh * kv_head_stride + blk * kv_blk_stride;
+      return Tiles{k + kv_off, v + kv_off,
+                   is_diag ? hdiag + kvtok * d * d
+                           : hblk + kvh * h_head_stride + blk * h_blk_stride,
+                   is_diag ? zdiag + kvtok * d
+                           : zblk + kvh * z_head_stride + blk * z_blk_stride};
+    };
+    // thread 0: a slot's K and V tiles, or its H tile and Z row, into
+    // the stage
+    const T* sk = reinterpret_cast<const T*>(stage);
+    const T* sv = sk + kv_elems;
+    const float* sh = reinterpret_cast<const float*>(stage + 2 * kv_bytes);
+    auto fill_kv = [&](const Tiles& t) {
+      mbar_expect(&kv_full, 2 * kv_bytes);
+      bulk_load(stage, t.k, kv_bytes, &kv_full);
+      bulk_load(stage + kv_bytes, t.v, kv_bytes, &kv_full);
+    };
+    auto fill_h = [&](const Tiles& t) {
+      mbar_expect(&h_full, h_bytes + z_bytes);
+      bulk_load(stage + 2 * kv_bytes, t.h, h_bytes, &h_full);
+      bulk_load(stage + 2 * kv_bytes + h_bytes, t.z, z_bytes, &h_full);
+    };
+    if (tid == 0 && s0 < s1) {
+      const Tiles t = tiles(s0);
+      fill_kv(t);
+      fill_h(t);
     }
-    __syncthreads();
+    float qv[4] = {0.f, 0.f, 0.f, 0.f};
+    if (col_ok) load4(q + tok * d + col0, qv);
 
-    // online softmax (every thread holds the same m, l)
-    float mx = kNegInf;
-    for (int t = 0; t < block_kv; ++t) mx = fmaxf(mx, sS[t]);
-    const float m_new = fmaxf(m_run, mx);
-    const float alpha = expf(m_run - m_new);
-    if (tid < block_kv) sP[tid] = expf(sS[tid] - m_new);
-    __syncthreads();
-    float ps = 0.f;
-    for (int t = 0; t < block_kv; ++t) ps += sP[t];
-    l_run = l_run * alpha + ps;
-    m_run = m_new;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i] *= alpha;
+    for (int s = s0; s < s1; ++s) {
+      const uint32_t parity = (s - s0) & 1;
+      const bool refill = tid == 0 && s + 1 < s1;
+      const int j = block_id(s);
+      Tiles next{};
+      if (refill) next = tiles(s + 1);  // looked up ahead of its use
+      mbar_wait(&kv_full, parity);
 
-    // acc += P V (keys by warp), hsel += phi(q) H_j (rows by warp)
-    if (col_ok) {
-#pragma unroll 4
-      for (int t = warp; t < block_kv; t += kWarps) {
-        float vv[4];
-        load4(vj + (size_t)t * d + col0, vv);
-        const float p = sP[t];
+      // this warp's scores, every lane holding all of them
+      float p[kKeys];
+      float mx = kNegInf;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i] = fmaf(p, vv[i], acc[i]);
+      for (int u = 0; u < kKeys; ++u) {
+        const int t = warp + kWarps * u;
+        float kk[4] = {0.f, 0.f, 0.f, 0.f};
+        if (col_ok && t < block_kv) load4(sk + t * d + col0, kk);
+        float dot = qv[0] * kk[0];
+        dot = fmaf(qv[1], kk[1], dot);
+        dot = fmaf(qv[2], kk[2], dot);
+        dot = fmaf(qv[3], kk[3], dot);
+        dot = warp_sum(dot);
+        p[u] = (j * block_kv + t <= pos) ? dot * scale : kNegInf;
+        if (t < block_kv) mx = fmaxf(mx, p[u]);
       }
-#pragma unroll 8
-      for (int r = warp; r < d; r += kWarps) {
-        float hv[4];
-        load4(hj + (size_t)r * d + col0, hv);
-        const float w = sQp[r];
+      // this warp's online softmax
+      const float m_new = fmaxf(m_run, mx);
+      const float alpha = expf(m_run - m_new);
+      float ps = 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) hsel[i] = fmaf(w, hv[i], hsel[i]);
+      for (int u = 0; u < kKeys; ++u) {
+        p[u] = warp + kWarps * u < block_kv ? expf(p[u] - m_new) : 0.f;
+        ps += p[u];
       }
-      if (warp == 0) {
-        float zv[4];
-        load4(zj + col0, zv);
+      l_run = l_run * alpha + ps;
+      m_run = m_new;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) zsel = fmaf(sQp[col0 + i], zv[i], zsel);
+      for (int e = 0; e < 4; ++e) acc[e] *= alpha;
+      if (col_ok) {
+#pragma unroll
+        for (int u = 0; u < kKeys; ++u) {
+          const int t = warp + kWarps * u;
+          if (t < block_kv) {
+            float vv[4];
+            load4(sv + t * d + col0, vv);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[e] = fmaf(p[u], vv[e], acc[e]);
+          }
+        }
       }
+      // K and V are read: refill them with the next slot while the warps
+      // read H
+      __syncthreads();
+      if (refill) fill_kv(next);
+      mbar_wait(&h_full, parity);
+      if (col_ok) dot_h(sh, sh + d * d, sQp, d, warp, col0, hs, zs);
+      __syncthreads();
+      if (refill) fill_h(next);
     }
   }
 
-  // linear branch against the running totals: phi(q) Htot - hsel
-  const float* ht = htot + totrow * d * d;
-  float num[4] = {0.f, 0.f, 0.f, 0.f};
+  // merge the warps' states, in warp order, into this split's record
+  if (lane == 0) {
+    sM[warp] = m_run;
+    sL[warp] = l_run;
+  }
   if (col_ok) {
-#pragma unroll 8
-    for (int r = warp; r < d; r += kWarps) {
-      float hv[4];
-      load4(ht + (size_t)r * d + col0, hv);
-      const float w = sQp[r];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) num[i] = fmaf(w, hv[i], num[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      sAcc[warp][col0 + i] = acc[i];
-      sNum[warp][col0 + i] = num[i] - hsel[i];
+    for (int e = 0; e < 4; ++e) {
+      sAcc[warp][col0 + e] = acc[e];
+      sH[warp][col0 + e] = hs[e];
     }
   }
   if (warp == 0) {
-    float zt = 0.f;
-    if (col_ok) {
-      float zv[4];
-      load4(ztot + totrow * d + col0, zv);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) zt = fmaf(sQp[col0 + i], zv[i], zt);
-    }
-    const float den = warp_sum(zt - zsel);
-    if (lane == 0) sDen = den;
+    const float z = warp_sum(zs);
+    if (lane == 0) sZ = z;
   }
   __syncthreads();
-
-  const float l = l_run > 0.f ? l_run : 1.f;
-  const float den = sDen;
-  const bool live = den > kEps && marg[tok] > 0;
+  float m = kNegInf;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) m = fmaxf(m, sM[w]);
   for (int e = tid; e < d; e += kThreads) {
-    float a = 0.f, nm = 0.f;
+    float a = 0.f, h = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      a += sAcc[w][e];
-      nm += sNum[w][e];
+      a += sAcc[w][e] * expf(sM[w] - m);
+      h += sH[w][e];
     }
-    o_s[tok * d + e] = a / l;
-    o_l[tok * d + e] = live ? nm / den : 0.f;
+    part[4 + e] = a;
+    part[4 + d + e] = h;
+  }
+  if (tid == 0) {
+    float l = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) l += sL[w] * expf(sM[w] - m);
+    part[0] = m;
+    part[1] = l;
+    part[2] = sZ;
+    part[3] = 0.f;
   }
 }
 
-template <typename T>
+// The combine kernel: one block per (bh, c) row, thread e owns column e.
+// It waits for the split grid (programmatic dependent launch), stages the
+// row's record headers (m, l, zpart) in shared memory in one parallel
+// pass, reads the nsplit split records in index order, kBatch at a time
+// (their loads in flight together), then the totals' record, and writes
+// O^s and O^l.
+__global__ void __launch_bounds__(kMaxD)
+    sla_decode_combine_kernel(const int32_t* __restrict__ marg,
+                              const float* __restrict__ work,
+                              float* __restrict__ o_s,
+                              float* __restrict__ o_l, int d, int nsplit) {
+  extern __shared__ float head[];  // (nsplit + 1) x (m, l, zpart)
+  const size_t tok = blockIdx.x;
+  const int e = threadIdx.x;
+  const bool col = e < d;
+  const int rec = record(d);
+  const float* row = work + tok * (nsplit + 1) * rec;
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  for (int i = e; i < 3 * (nsplit + 1); i += blockDim.x)
+    head[i] = row[(size_t)(i / 3) * rec + i % 3];
+  __syncthreads();
+  float m = kNegInf;
+  for (int s = 0; s < nsplit; ++s) m = fmaxf(m, head[3 * s]);
+  float l = 0.f, z = 0.f, a = 0.f, h = 0.f;
+  for (int s0 = 0; s0 < nsplit; s0 += kBatch) {
+    float av[kBatch], hv[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const float* r = row + (size_t)(s0 + u) * rec;
+      const bool in = col && s0 + u < nsplit;
+      av[u] = in ? r[4 + e] : 0.f;
+      hv[u] = in ? r[4 + d + e] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int s = s0 + u;
+      if (s < nsplit) {
+        const float f = expf(head[3 * s] - m);
+        l += head[3 * s + 1] * f;
+        z += head[3 * s + 2];
+        a += av[u] * f;
+        h += hv[u];
+      }
+    }
+  }
+  const float den = head[3 * nsplit + 2] - z;
+  const bool live = den > kEps && marg[tok] > 0;
+  if (col) {
+    o_s[tok * d + e] = a / (l > 0.f ? l : 1.f);
+    o_l[tok * d + e] =
+        live ? (row[(size_t)nsplit * rec + 4 + d + e] - h) / den : 0.f;
+  }
+}
+
+// The split kernel's stage takes dynamic shared memory past 48 KB (the
+// largest, f32 at D 128 and bkv 64, 128.5 KB): allow it, once per
+// instantiation.
+template <typename T, bool kPaged>
+cudaError_t allow_stage() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      sla_decode_split_kernel<T, kPaged>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      stage_bytes(kMaxD, kMaxBlock, sizeof(T)));
+  return err;
+}
+
+template <typename T, bool kPaged>
 int launch(const int32_t* lut, const int32_t* cnt, const int32_t* marg,
            const int32_t* posv, const float* q, const float* qp,
            const void* k, const void* v, const float* hblk,
            const float* zblk, const float* hdiag, const float* zdiag,
            const float* htot, const float* ztot, const int32_t* pt,
-           float* o_s, float* o_l, int bh_q, int c_len, int k_sel, int tn,
-           int num_blocks, int d, int block_kv, int group, int heads,
-           int kv_mod, float scale, long long kv_head_stride,
-           long long kv_blk_stride, long long h_head_stride,
-           long long h_blk_stride, long long z_head_stride,
-           long long z_blk_stride, int tot_per_token, cudaStream_t stream) {
-  const dim3 grid(c_len, bh_q);
-  auto kernel = pt != nullptr ? sla_decode_kernel<T, true>
-                              : sla_decode_kernel<T, false>;
-  kernel<<<grid, kThreads, 0, stream>>>(
-      lut, cnt, marg, posv, q, qp, static_cast<const T*>(k),
+           float* work, float* o_s, float* o_l, int bh_q, int c_len,
+           int k_sel, int tn, int num_blocks, int d, int block_kv,
+           int group, int heads, int kv_mod, float scale,
+           long long kv_head_stride, long long kv_blk_stride,
+           long long h_head_stride, long long h_blk_stride,
+           long long z_head_stride, long long z_blk_stride,
+           int tot_per_token, int width, int nsplit, cudaStream_t stream) {
+  cudaError_t err = allow_stage<T, kPaged>();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(nsplit + 1, c_len, bh_q);
+  sla_decode_split_kernel<T, kPaged><<<grid, kThreads,
+                                       stage_bytes(d, block_kv, sizeof(T)),
+                                       stream>>>(
+      lut, cnt, posv, q, qp, static_cast<const T*>(k),
       static_cast<const T*>(v), hblk, zblk, hdiag, zdiag, htot, ztot, pt,
-      o_s, o_l, c_len, k_sel, tn, num_blocks, d, block_kv, group, heads,
-      kv_mod, scale, kv_head_stride, kv_blk_stride, h_head_stride,
-      h_blk_stride, z_head_stride, z_blk_stride, tot_per_token);
+      work, c_len, k_sel, tn, num_blocks, d, block_kv, group, heads, kv_mod,
+      scale, kv_head_stride, kv_blk_stride, h_head_stride, h_blk_stride,
+      z_head_stride, z_blk_stride, tot_per_token, width, nsplit);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // the combine kernel may start while the split grid drains; it waits
+  // for the split grid's records itself (griddepcontrol.wait)
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(bh_q * c_len);
+  cfg.blockDim = dim3(kMaxD);
+  cfg.dynamicSmemBytes = 3 * (nsplit + 1) * sizeof(float);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, sla_decode_combine_kernel, marg,
+                           (const float*)work, o_s, o_l, d, nsplit);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -312,28 +566,40 @@ int launch_any(int is_bf16, const int32_t* lut, const int32_t* cnt,
                const float* qp, const void* k, const void* v,
                const float* hblk, const float* zblk, const float* hdiag,
                const float* zdiag, const float* htot, const float* ztot,
-               const int32_t* pt, float* o_s, float* o_l, int bh_q,
-               int c_len, int k_sel, int tn, int num_blocks, int d,
+               const int32_t* pt, float* work, float* o_s, float* o_l,
+               int bh_q, int c_len, int k_sel, int tn, int num_blocks, int d,
                int block_kv, int group, int heads, int kv_mod, float scale,
                long long kv_head_stride, long long kv_blk_stride,
                long long h_head_stride, long long h_blk_stride,
                long long z_head_stride, long long z_blk_stride,
-               int tot_per_token, void* stream) {
+               int tot_per_token, int width, int nsplit, void* stream) {
+  const int esize = is_bf16 ? 2 : 4;
+  const int align = 16 / esize;  // K/V elements in 16 bytes
   if (d > kMaxD || d % 4 || block_kv > kMaxBlock || block_kv < 1 ||
+      (block_kv * d) % align || kv_head_stride % align ||
+      kv_blk_stride % align || h_head_stride % 4 || h_blk_stride % 4 ||
+      z_head_stride % 4 || z_blk_stride % 4 ||
       (hdiag == nullptr) != (zdiag == nullptr) || group < 1 || kv_mod < 1 ||
-      heads < 1 || num_blocks < 1)
+      heads < 1 || num_blocks < 1 || k_sel < 1 || width < 1 ||
+      width > k_sel || nsplit != (k_sel + width - 1) / width ||
+      c_len < 1 || c_len > kMaxGrid || bh_q < 1 || bh_q > kMaxGrid ||
+      work == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto go = [&](auto tag) {
+  auto go = [&](auto tag, auto paged) {
     using T = decltype(tag);
-    return launch<T>(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag,
-                     zdiag, htot, ztot, pt, o_s, o_l, bh_q, c_len, k_sel,
-                     tn, num_blocks, d, block_kv, group, heads, kv_mod,
-                     scale, kv_head_stride, kv_blk_stride, h_head_stride,
-                     h_blk_stride, z_head_stride, z_blk_stride,
-                     tot_per_token, st);
+    return launch<T, decltype(paged)::value>(
+        lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag, htot,
+        ztot, pt, work, o_s, o_l, bh_q, c_len, k_sel, tn, num_blocks, d,
+        block_kv, group, heads, kv_mod, scale, kv_head_stride,
+        kv_blk_stride, h_head_stride, h_blk_stride, z_head_stride,
+        z_blk_stride, tot_per_token, width, nsplit, st);
   };
-  return is_bf16 ? go(__nv_bfloat16()) : go(float());
+  using Paged = std::true_type;
+  using Flat = std::false_type;
+  if (pt != nullptr)
+    return is_bf16 ? go(__nv_bfloat16(), Paged()) : go(float(), Paged());
+  return is_bf16 ? go(__nv_bfloat16(), Flat()) : go(float(), Flat());
 }
 
 }  // namespace
@@ -346,27 +612,32 @@ int launch_any(int is_bf16, const int32_t* lut, const int32_t* cnt,
 // htot, ztot have rows (bh / group) * c_len + c when tot_per_token, else
 // one row per kv head (bh / group). k, v, hblk and zblk are addressed as
 // base + kv_head * head_stride + block * blk_stride (elements) with rows
-// of d contiguous elements inside a block. Requires d <= 128, d % 4 == 0
-// and block_kv <= 64 (the wrapper checks). Returns a cudaError_t value (0
-// on success). The launch is asynchronous on `stream` and allocates
-// nothing.
+// of d contiguous elements inside a block. `work` is an f32 workspace of
+// bh_q * c_len * (nsplit + 1) * (4 + 2 d) floats (its contents need not be
+// set); each block walks `width` LUT slots of its row and nsplit =
+// ceil(k_sel / width). Requires d <= 128, d % 4 == 0, block_kv <= 64,
+// K/V tiles (block_kv x d) of a multiple of 16 bytes and strides of 16
+// bytes, 1 <= width <= k_sel, and c_len, bh_q <= 65535 (the wrapper
+// checks).
+// Returns a cudaError_t value (0 on success). The two launches (split,
+// combine) are asynchronous on `stream` and allocate nothing.
 extern "C" int sla_decode_launch(
     const int32_t* lut, const int32_t* cnt, const int32_t* marg,
     const int32_t* posv, const float* q, const float* qp, const void* k,
     const void* v, const float* hblk, const float* zblk, const float* hdiag,
-    const float* zdiag, const float* htot, const float* ztot, float* o_s,
-    float* o_l, int bh_q, int c_len, int k_sel, int tn, int d, int block_kv,
-    int group, float scale, long long kv_head_stride,
+    const float* zdiag, const float* htot, const float* ztot, float* work,
+    float* o_s, float* o_l, int bh_q, int c_len, int k_sel, int tn, int d,
+    int block_kv, int group, float scale, long long kv_head_stride,
     long long kv_blk_stride, long long h_head_stride, long long h_blk_stride,
     long long z_head_stride, long long z_blk_stride, int tot_per_token,
-    int is_bf16, void* stream) {
+    int width, int nsplit, int is_bf16, void* stream) {
   const int bh_kv = group > 0 ? bh_q / group : 0;
   return launch_any(is_bf16, lut, cnt, marg, posv, q, qp, k, v, hblk, zblk,
-                    hdiag, zdiag, htot, ztot, nullptr, o_s, o_l, bh_q, c_len,
-                    k_sel, tn, tn, d, block_kv, group, 1, bh_kv, scale,
-                    kv_head_stride, kv_blk_stride, h_head_stride,
+                    hdiag, zdiag, htot, ztot, nullptr, work, o_s, o_l, bh_q,
+                    c_len, k_sel, tn, tn, d, block_kv, group, 1, bh_kv,
+                    scale, kv_head_stride, kv_blk_stride, h_head_stride,
                     h_blk_stride, z_head_stride, z_blk_stride, tot_per_token,
-                    stream);
+                    width, nsplit, stream);
 }
 
 // The paged kernel (single token, live row). lut, cnt, marg, q, qp and the
@@ -375,26 +646,26 @@ extern "C" int sla_decode_launch(
 // ztot one running total per (b, kv head), row bh / group. k and v are the
 // layer's pools (pages, hkv, block_kv, d), hblk (pages, hkv, d, d) and zblk
 // (pages, hkv, d), addressed as base + ((bh / group) % hkv) * head_stride +
-// page * page_stride (elements), rows of d contiguous elements. Same
-// limits and return value as sla_decode_launch.
+// page * page_stride (elements), rows of d contiguous elements. The same
+// workspace, width, limits and return value as sla_decode_launch.
 extern "C" int sla_decode_paged_launch(
     const int32_t* lut, const int32_t* pt, const int32_t* cnt,
     const int32_t* marg, const int32_t* posv, const float* q,
     const float* qp, const void* k, const void* v, const float* hblk,
-    const float* zblk, const float* htot, const float* ztot, float* o_s,
-    float* o_l, int bh_q, int k_sel, int tn, int num_pages, int d,
-    int block_kv, int group, int hkv, float scale,
+    const float* zblk, const float* htot, const float* ztot, float* work,
+    float* o_s, float* o_l, int bh_q, int k_sel, int tn, int num_pages,
+    int d, int block_kv, int group, int hkv, float scale,
     long long kv_head_stride, long long kv_page_stride,
     long long h_head_stride, long long h_page_stride,
-    long long z_head_stride, long long z_page_stride, int is_bf16,
-    void* stream) {
+    long long z_head_stride, long long z_page_stride, int width, int nsplit,
+    int is_bf16, void* stream) {
   if (pt == nullptr) return (int)cudaErrorInvalidValue;
   return launch_any(is_bf16, lut, cnt, marg, posv, q, qp, k, v, hblk, zblk,
-                    nullptr, nullptr, htot, ztot, pt, o_s, o_l, bh_q, 1,
+                    nullptr, nullptr, htot, ztot, pt, work, o_s, o_l, bh_q, 1,
                     k_sel, tn, num_pages, d, block_kv, group, group * hkv,
                     hkv, scale, kv_head_stride, kv_page_stride,
                     h_head_stride, h_page_stride, z_head_stride,
-                    z_page_stride, 0, stream);
+                    z_page_stride, 0, width, nsplit, stream);
 }
 
 extern "C" const char* sla_decode_error_string(int err) {

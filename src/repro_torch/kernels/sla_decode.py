@@ -15,19 +15,30 @@ hdiag/zdiag when the state holds them (live-row decode has none: there the
 partial is the stored block); O^l is zero where marg = 0 or the
 denominator is <= 1e-6.
 
-`sla_decode` launches the kernel for CUDA tensors and runs
+On the card the LUT walk is split (flash-decoding): a split kernel whose
+blocks each walk `split_width` slots of a row and write a partial record
+into an f32 workspace, then a combine kernel that merges a row's records
+in split order (deterministic: two launches are bitwise equal). The
+width is `choose_split_width(rows, K, SMs)`, a function of the shapes and the
+card only, so a paged call and a monolithic call on the same rows split
+alike; a caller may force one (1 <= width <= K).
+
+`sla_decode` launches the kernels for CUDA tensors and runs
 `sla_decode_plain` (plain PyTorch gathers, the twin of the reference's
-`_decode_math`) only for CPU tensors. `LAUNCHES` counts kernel launches
-and nothing else. `decode_attention` is differentiable through a
+`_decode_math`) only for CPU tensors. `LAUNCHES` counts calls that
+launched the kernels, one per call (split and combine together), and
+nothing else. `decode_attention` is differentiable through a
 `torch.autograd.Function` whose backward is autograd over the plain twin,
 as the reference's `custom_vjp` is JAX autodiff over `_decode_math`.
+The twins take `split_width` too: they then compute the kernel's partial
+records and combine them in its order (tests only).
 
 Paged decode state (a page table `"pt"` (B, Tn) and the layer's page
 pools in place of the per-slot leaves) goes to `sla_decode_paged`: the
 same kernel body with K/V/hblk/zblk read from the pools at page
 pt[b, lut] (masking on the logical ids), single-token only, counted by
-`PAGED_LAUNCHES` apart from `LAUNCHES`; its twin is
-`sla_decode_paged_plain`. Serving never differentiates it.
+`PAGED_LAUNCHES` apart from `LAUNCHES` (one per call as well); its twin
+is `sla_decode_paged_plain`. Serving never differentiates it.
 """
 from __future__ import annotations
 
@@ -40,13 +51,16 @@ import torch
 from repro_torch.core.config import SLAConfig
 from repro_torch.kernels.sla_fwd import EPS, NEG_INF, check_operands
 
-LAUNCHES = 0  # kernel launches in this process (plain-twin calls excluded)
-PAGED_LAUNCHES = 0  # the paged kernel's launches, counted apart
+LAUNCHES = 0  # kernel calls in this process (plain-twin calls excluded)
+PAGED_LAUNCHES = 0  # the paged kernel's calls, counted apart
+SPLITS_PER_SM = 2  # the split grid covers every SM at least this often
+MAX_SPLIT_WIDTH = 4  # and no block walks more slots, one after another
 
 _I, _F, _P, _L = ctypes.c_int, ctypes.c_float, ctypes.c_void_p, \
     ctypes.c_longlong
-_ARGTYPES = [_P] * 16 + [_I] * 7 + [_F] + [_L] * 6 + [_I, _I, _P]
-_PAGED_ARGTYPES = [_P] * 15 + [_I] * 8 + [_F] + [_L] * 6 + [_I, _P]
+_ARGTYPES = [_P] * 17 + [_I] * 7 + [_F] + [_L] * 6 + [_I] * 4 + [_P]
+_PAGED_ARGTYPES = [_P] * 16 + [_I] * 8 + [_F] + [_L] * 6 + [_I] * 3 + [_P]
+_MAX_GRID = 65535  # the split grid's C and BH axes
 
 
 @functools.cache
@@ -62,9 +76,48 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def choose_split_width(rows: int, k_sel: int, sms: int) -> int:
+    """The LUT slots each block of the split kernel walks: the largest
+    width w <= MAX_SPLIT_WIDTH whose ceil(K / w) splits of each of `rows`
+    (BH * C) rows give at least SPLITS_PER_SM blocks per SM (w = 1 where
+    even that falls short). A block walks its slots one after another, so
+    the cap bounds the longest block. A function of the shapes and the SM
+    count only."""
+    want = min(k_sel, -(-SPLITS_PER_SM * sms // max(rows, 1)))
+    widest = k_sel if want <= 1 else -(-k_sel // (want - 1)) - 1
+    return min(widest, MAX_SPLIT_WIDTH)
+
+
+def _check_width(width, k_sel: int, name: str):
+    if width is not None and (isinstance(width, bool) or not isinstance(
+            width, int) or not 1 <= width <= k_sel):
+        raise ValueError(f"{name}: split_width must be an int in 1..{k_sel} "
+                         f"(K), got {width!r}")
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def split_geometry(q, lut, width=None, sms=None) -> dict:
+    """The split both kernels take for q (BH, C, D) and lut (BH, C, K)
+    on a card of `sms` SMs (default: the card that holds q): the width
+    (forced, or `choose_split_width`), the splits per row, and the split
+    kernel's blocks (one more a row for the totals' product; the combine
+    kernel adds one a row)."""
+    if sms is None:
+        sms = sm_count(q.device)
+    rows, k_sel = q.shape[0] * q.shape[1], lut.shape[-1]
+    w = width if width is not None else choose_split_width(rows, k_sel, sms)
+    nsplit = -(-k_sel // w)
+    return dict(split_width=w, nsplit=nsplit, grid_ctas=rows * (nsplit + 1))
+
+
 def sla_decode(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag,
-               htot, ztot, *, scale: float, block_kv: int, group: int
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               htot, ztot, *, scale: float, block_kv: int, group: int,
+               split_width=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the fused decode on the flat layout of `_fused_decode`.
 
     Args:
@@ -79,10 +132,15 @@ def sla_decode(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag,
               diagonal block is read from hblk/zblk in place).
       htot:   (BH_kv, C, D, D) f32 per-token totals, ztot (BH_kv, C, D);
               or one running total per kv head, (BH_kv, D, D) / (BH_kv, D).
+      split_width: LUT slots a split walks, 1..K; None: the card's
+              `choose_split_width`, or the reference's unsplit order on
+              CPU.
 
     Returns (o_s, o_l), both (BH, C, D) f32.
     """
-    kw = dict(scale=scale, block_kv=block_kv, group=group)
+    _check_width(split_width, lut.shape[-1], "sla_decode")
+    kw = dict(scale=scale, block_kv=block_kv, group=group,
+              split_width=split_width)
     args = (lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag,
             htot, ztot)
     if q.device.type == "cpu":
@@ -116,9 +174,13 @@ def _check(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag,
     if bh != bh_kv * group:
         raise ValueError(f"sla_decode: {bh} q rows are not {bh_kv} kv "
                          f"heads x group {group}")
+    if bh > _MAX_GRID or c > _MAX_GRID:
+        raise ValueError(f"sla_decode kernel takes at most {_MAX_GRID} q "
+                         f"rows and chunk tokens, got {bh} x {c}")
     if lut.ndim != 3 or tuple(lut.shape[:2]) != (bh, c) or lut.shape[2] < 1:
         raise ValueError(f"sla_decode: lut must be ({bh}, {c}, K>=1), got "
                          f"{tuple(lut.shape)}")
+    _check_tile("sla_decode", bkv, d, k.element_size())
     per_tok = (c,) if htot.ndim == 4 else ()
     want = dict(cnt=(bh, c), marg=(bh, c), posv=(bh,), qp=(bh, c, d),
                 hblk=(bh_kv, tn, d, d), zblk=(bh_kv, tn, d),
@@ -135,14 +197,33 @@ def _check(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag,
             raise ValueError(f"sla_decode: {name} must be 16-byte aligned")
 
 
+def _check_tile(name: str, bkv: int, d: int, esize: int):
+    """The split kernel copies each K and V tile whole (a 1-D bulk copy):
+    a tile of bkv x D elements must be a multiple of 16 bytes."""
+    if (bkv * d * esize) % 16:
+        raise ValueError(f"{name} kernel takes K/V blocks of a multiple of "
+                         f"16 bytes, got {bkv} x {d} of {esize} bytes")
+
+
+def _workspace(q, lut, width):
+    """The split's width, splits per row and the f32 workspace of the
+    partial records (csrc/sla_decode.cu: BH C (nsplit + 1) records of
+    4 + 2 D floats; the kernel writes every one)."""
+    geo = split_geometry(q, lut, width)
+    work = torch.empty((geo["grid_ctas"] * (4 + 2 * q.shape[-1]),),
+                       dtype=torch.float32, device=q.device)
+    return geo["split_width"], geo["nsplit"], work
+
+
 def _launch(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag,
-            htot, ztot, *, scale, block_kv, group):
+            htot, ztot, *, scale, block_kv, group, split_width):
     global LAUNCHES
     _check(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag,
            htot, ztot, block_kv, group)
     lib = _lib()
     bh, c, d = q.shape
-    tn = k.shape[1]
+    tn, k_sel = k.shape[1], lut.shape[-1]
+    width, nsplit, work = _workspace(q, lut, split_width)
     o_s = torch.empty((bh, c, d), dtype=torch.float32, device=q.device)
     o_l = torch.empty_like(o_s)
     with torch.cuda.device(q.device):
@@ -153,10 +234,11 @@ def _launch(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag,
             v.data_ptr(), hblk.data_ptr(), zblk.data_ptr(),
             None if hdiag is None else hdiag.data_ptr(),
             None if zdiag is None else zdiag.data_ptr(), htot.data_ptr(),
-            ztot.data_ptr(), o_s.data_ptr(), o_l.data_ptr(), bh, c,
-            lut.shape[-1], tn, d, block_kv, group, float(scale),
-            k.stride(0), k.stride(1), hblk.stride(0), hblk.stride(1),
-            zblk.stride(0), zblk.stride(1), int(htot.ndim == 4),
+            ztot.data_ptr(), work.data_ptr(), o_s.data_ptr(),
+            o_l.data_ptr(), bh, c, k_sel, tn, d, block_kv, group,
+            float(scale), k.stride(0), k.stride(1), hblk.stride(0),
+            hblk.stride(1), zblk.stride(0), zblk.stride(1),
+            int(htot.ndim == 4), width, nsplit,
             int(k.dtype == torch.bfloat16), stream)
     if err != 0:
         msg = lib.sla_decode_error_string(err).decode()
@@ -168,27 +250,32 @@ def _launch(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag,
 
 def sla_decode_plain(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag,
                      zdiag, htot, ztot, *, scale: float, block_kv: int,
-                     group: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                     group: int, split_width=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain-PyTorch twin of the kernel (the reference's `_decode_math` on
     the flat layout): gather the K selected blocks of every (bh, c), mask
     dead slots and columns past pos + c, one softmax over K * bkv scores,
     and the subtractive linear branch with the diagonal substitution. A
     block id outside [0, Tn) is clamped into it, as the kernel does.
-    Same arguments and outputs as `sla_decode`; arithmetic in f32;
-    differentiable with respect to every float input."""
+    With `split_width` w, the kernel's split-and-combine instead: one
+    partial record per w slots, merged in split order. Same arguments
+    and outputs as `sla_decode`; arithmetic in f32; differentiable with
+    respect to every float input."""
     kvh = (torch.arange(lut.shape[0], device=q.device) // group)[
         :, None, None]
     j = lut.long().clamp(0, k.shape[1] - 1)  # (BH, C, K), as the kernel
     blocks = (k[kvh, j], v[kvh, j], hblk[kvh, j], zblk[kvh, j])
     return _plain_math(j.to(lut.dtype), cnt, marg, posv, q, qp, blocks,
-                       hdiag, zdiag, htot, ztot, scale, block_kv, group)
+                       hdiag, zdiag, htot, ztot, scale, block_kv, group,
+                       split_width)
 
 
 def _plain_math(lut, cnt, marg, posv, q, qp, blocks, hdiag, zdiag, htot,
-                ztot, scale, block_kv, group):
+                ztot, scale, block_kv, group, split_width=None):
     """The twins' shared math on gathered blocks: kg, vg (BH, C, K, bkv,
     D) and hg (BH, C, K, D, D), zg (BH, C, K, D), the K selected blocks
-    of every (bh, c)."""
+    of every (bh, c). `split_width` None: the reference's order (one
+    softmax over all K * bkv scores); else `_split_combine`'s."""
     bh, c, k_sel = lut.shape
     dev = q.device
     bkv = block_kv
@@ -205,12 +292,7 @@ def _plain_math(lut, cnt, marg, posv, q, qp, blocks, hdiag, zdiag, htot,
     vg = torch.where(live[..., None, None], vg.float(),
                      torch.zeros((), device=dev))
     ok = (cols <= pos_tok[..., None, None]) & live[..., None]
-    sf = torch.where(ok, s, torch.full_like(s, NEG_INF)).reshape(
-        bh, c, k_sel * bkv)
-    m = sf.amax(dim=-1, keepdim=True)
-    p = torch.exp(sf - m)
-    o_s = torch.einsum("bck,bckd->bcd", p / p.sum(dim=-1, keepdim=True),
-                       vg.reshape(bh, c, k_sel * bkv, -1))
+    sf = torch.where(ok, s, torch.full_like(s, NEG_INF))
     # subtractive marginal aggregation; the in-flight diagonal block reads
     # its per-token partial where one is given
     kv1 = kvh[:, 0, 0]
@@ -224,11 +306,20 @@ def _plain_math(lut, cnt, marg, posv, q, qp, blocks, hdiag, zdiag, htot,
     ht, zt = htot[kv1], ztot[kv1]
     if htot.ndim == 3:  # one running total, every token
         ht, zt = ht[:, None], zt[:, None]
-    h_m = ht - hg.sum(dim=2)  # (BH, C, D, D)
-    z_m = zt - zg.sum(dim=2)
     qpf = qp.float()
-    num = torch.einsum("bcd,bcde->bce", qpf, h_m)
-    den = (qpf * z_m).sum(dim=-1, keepdim=True)
+    if split_width is None:
+        sf = sf.reshape(bh, c, k_sel * bkv)
+        m = sf.amax(dim=-1, keepdim=True)
+        p = torch.exp(sf - m)
+        o_s = torch.einsum("bck,bckd->bcd", p / p.sum(dim=-1, keepdim=True),
+                           vg.reshape(bh, c, k_sel * bkv, -1))
+        h_m = ht - hg.sum(dim=2)  # (BH, C, D, D)
+        z_m = zt - zg.sum(dim=2)
+        num = torch.einsum("bcd,bcde->bce", qpf, h_m)
+        den = (qpf * z_m).sum(dim=-1, keepdim=True)
+    else:
+        o_s, num, den = _split_combine(sf, live, vg, hg, zg, qpf, ht, zt,
+                                       split_width)
     ok_l = den > EPS
     o_l = torch.where(ok_l, num / torch.where(ok_l, den,
                                               torch.ones_like(den)),
@@ -237,9 +328,55 @@ def _plain_math(lut, cnt, marg, posv, q, qp, blocks, hdiag, zdiag, htot,
     return o_s, o_l
 
 
+def _split_combine(sf, live, vg, hg, zg, qpf, ht, zt, width):
+    """The kernels' split-and-combine on the twins' masked scores sf (BH,
+    C, K, bkv; -1e30 where masked) and gathered, zeroed-when-dead vg, hg,
+    zg: split n walks the live slots of [n w, (n + 1) w) and keeps its
+    own max m_n, sum l_n (its masked columns count when all of its
+    columns are masked, as in the kernel; slots past cnt never count),
+    unnormalised acc_n, hpart_n = phi(q) sum H_j and zpart_n; the records
+    merge in split order. Returns (o_s, num, den) for the linear branch's
+    phi(q) Htot - sum hpart, phi(q) Ztot - sum zpart."""
+    bh, c, k_sel, bkv = sf.shape
+    nsplit = -(-k_sel // width)
+    pad = nsplit * width - k_sel
+
+    def splits(x, fill):  # (BH, C, K, ...) -> (BH, C, nsplit, w, ...)
+        if pad:
+            x = torch.cat([x, x.new_full((bh, c, pad, *x.shape[3:]), fill)],
+                          dim=2)
+        return x.reshape(bh, c, nsplit, width, *x.shape[3:])
+
+    walked = splits(live, False)[..., None]  # (BH, C, n, w, 1)
+    sfs = splits(sf, NEG_INF)
+    m_n = torch.where(walked, sfs, torch.full_like(sfs, NEG_INF)).amax(
+        dim=(3, 4))  # (BH, C, n): -1e30 for a split past cnt
+    p = torch.where(walked, torch.exp(sfs - m_n[..., None, None]),
+                    torch.zeros_like(sfs))
+    l_n = p.sum(dim=(3, 4))
+    acc_n = torch.einsum("bcnwt,bcnwtd->bcnd", p, splits(vg, 0.0))
+    h_n = torch.einsum("bcd,bcnwde->bcne", qpf, splits(hg, 0.0))
+    z_n = torch.einsum("bcd,bcnwd->bcn", qpf, splits(zg, 0.0))
+    m = m_n.amax(dim=-1)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(acc_n[:, :, 0])
+    hsel, zsel = torch.zeros_like(acc), torch.zeros_like(m)
+    for n in range(nsplit):  # the combine kernel's order
+        f = torch.exp(m_n[..., n] - m)
+        l = l + l_n[..., n] * f
+        acc = acc + acc_n[:, :, n] * f[..., None]
+        hsel = hsel + h_n[:, :, n]
+        zsel = zsel + z_n[..., n]
+    o_s = acc / torch.where(l > 0, l, torch.ones_like(l))[..., None]
+    d = qpf.shape[-1]
+    num = torch.einsum("bcd,bcde->bce", qpf, ht.expand(bh, c, d, d)) - hsel
+    den = ((qpf * zt.expand(bh, c, d)).sum(dim=-1) - zsel)[..., None]
+    return o_s, num, den
+
+
 def sla_decode_paged(lut, pt, cnt, marg, posv, q, qp, k, v, hblk, zblk,
-                     htot, ztot, *, scale: float, block_kv: int, group: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     htot, ztot, *, scale: float, block_kv: int, group: int,
+                     split_width=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the paged decode kernel (`_decode_kernel_paged`'s counterpart,
     single token, live row) on the layer's page pools in place.
 
@@ -255,12 +392,16 @@ def sla_decode_paged(lut, pt, cnt, marg, posv, q, qp, k, v, hblk, zblk,
               zblk (P, Hkv, D) f32 likewise. q head h reads kv head
               (h // group) % Hkv.
       htot, ztot: (B * Hkv, D, D) / (B * Hkv, D) f32 running totals.
+      split_width: as `sla_decode`'s; the chosen width is the one
+              `sla_decode` takes on the same rows.
 
     Returns (o_s, o_l), both (BH, 1, D) f32. CPU tensors run
     `sla_decode_paged_plain`; CUDA tensors launch the kernel (a refused
     operand or a failed launch raises; there is no fallback)."""
+    _check_width(split_width, lut.shape[-1], "sla_decode_paged")
     args = (lut, pt, cnt, marg, posv, q, qp, k, v, hblk, zblk, htot, ztot)
-    kw = dict(scale=scale, block_kv=block_kv, group=group)
+    kw = dict(scale=scale, block_kv=block_kv, group=group,
+              split_width=split_width)
     if q.device.type == "cpu":
         return sla_decode_paged_plain(*args, **kw)
     if q.device.type != "cuda":
@@ -296,6 +437,7 @@ def _check_paged(lut, pt, cnt, marg, posv, q, qp, k, v, hblk, zblk, htot,
         raise ValueError(f"{name} kernel takes head dims <= 128 that are "
                          f"multiples of 4 and blocks of 1..64, got D {d}, "
                          f"bkv {bkv}")
+    _check_tile(name, bkv, d, k.element_size())
     if pt.ndim != 2:
         raise ValueError(f"{name}: pt must be (B, Tn), got "
                          f"{tuple(pt.shape)}")
@@ -308,6 +450,9 @@ def _check_paged(lut, pt, cnt, marg, posv, q, qp, k, v, hblk, zblk, htot,
     if bh != b * hkv * group:
         raise ValueError(f"{name}: {bh} q rows are not B {b} x {hkv} kv "
                          f"heads x group {group} (pt {tuple(pt.shape)})")
+    if bh > _MAX_GRID:
+        raise ValueError(f"{name} kernel takes at most {_MAX_GRID} q rows, "
+                         f"got {bh}")
     want = dict(cnt=(bh, 1), marg=(bh, 1), posv=(bh,), q=(bh, 1, d),
                 qp=(bh, 1, d), hblk=(npages, hkv, d, d),
                 zblk=(npages, hkv, d), htot=(b * hkv, d, d),
@@ -329,22 +474,25 @@ def _check_paged(lut, pt, cnt, marg, posv, q, qp, k, v, hblk, zblk, htot,
             raise ValueError(f"{name}: {key} must hold rows of {d} "
                              f"contiguous elements, got strides "
                              f"{tuple(t.stride())}")
-        if t.stride(0) % 4 or t.stride(1) % 4:
+        if (t.stride(0) * t.element_size()) % 16 or \
+                (t.stride(1) * t.element_size()) % 16:
             raise ValueError(f"{name}: {key}'s page and head strides "
                              f"{tuple(t.stride()[:2])} must be multiples "
-                             f"of 4 elements")
+                             f"of 16 bytes")
     for key in ("q", "qp", "k", "v", "hblk", "zblk", "htot", "ztot"):
         if ts[key].data_ptr() % 16:
             raise ValueError(f"{name}: {key} must be 16-byte aligned")
 
 
 def _launch_paged(lut, pt, cnt, marg, posv, q, qp, k, v, hblk, zblk, htot,
-                  ztot, *, scale, block_kv, group):
+                  ztot, *, scale, block_kv, group, split_width):
     global PAGED_LAUNCHES
     _check_paged(lut, pt, cnt, marg, posv, q, qp, k, v, hblk, zblk, htot,
                  ztot, block_kv, group)
     lib = _lib()
     bh, _, d = q.shape
+    k_sel = lut.shape[-1]
+    width, nsplit, work = _workspace(q, lut, split_width)
     o_s = torch.empty((bh, 1, d), dtype=torch.float32, device=q.device)
     o_l = torch.empty_like(o_s)
     with torch.cuda.device(q.device):
@@ -353,11 +501,11 @@ def _launch_paged(lut, pt, cnt, marg, posv, q, qp, k, v, hblk, zblk, htot,
             lut.data_ptr(), pt.data_ptr(), cnt.data_ptr(), marg.data_ptr(),
             posv.data_ptr(), q.data_ptr(), qp.data_ptr(), k.data_ptr(),
             v.data_ptr(), hblk.data_ptr(), zblk.data_ptr(), htot.data_ptr(),
-            ztot.data_ptr(), o_s.data_ptr(), o_l.data_ptr(), bh,
-            lut.shape[-1], pt.shape[1], k.shape[0], d, block_kv, group,
-            k.shape[1], float(scale), k.stride(1), k.stride(0),
+            ztot.data_ptr(), work.data_ptr(), o_s.data_ptr(),
+            o_l.data_ptr(), bh, k_sel, pt.shape[1], k.shape[0], d, block_kv,
+            group, k.shape[1], float(scale), k.stride(1), k.stride(0),
             hblk.stride(1), hblk.stride(0), zblk.stride(1), zblk.stride(0),
-            int(k.dtype == torch.bfloat16), stream)
+            width, nsplit, int(k.dtype == torch.bfloat16), stream)
     if err != 0:
         msg = lib.sla_decode_error_string(err).decode()
         raise RuntimeError(f"sla_decode_paged kernel launch failed: CUDA "
@@ -368,7 +516,8 @@ def _launch_paged(lut, pt, cnt, marg, posv, q, qp, k, v, hblk, zblk, htot,
 
 def sla_decode_paged_plain(lut, pt, cnt, marg, posv, q, qp, k, v, hblk,
                            zblk, htot, ztot, *, scale: float, block_kv: int,
-                           group: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                           group: int, split_width=None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain-PyTorch twin of the paged kernel: `sla_decode_plain` with the
     gathers routed through pt[b, lut] into the pools (the logical ids, as
     the kernel clamps them, keep the masking), the live row's diagonal
@@ -385,7 +534,8 @@ def sla_decode_paged_plain(lut, pt, cnt, marg, posv, q, qp, k, v, hblk,
     page = pt.long()[slot, j].clamp(0, k.shape[0] - 1)  # (BH, 1, K)
     blocks = (k[page, kvh], v[page, kvh], hblk[page, kvh], zblk[page, kvh])
     return _plain_math(j.to(lut.dtype), cnt, marg, posv, q, qp, blocks,
-                       None, None, htot, ztot, scale, block_kv, group)
+                       None, None, htot, ztot, scale, block_kv, group,
+                       split_width)
 
 
 def _flat_args(q, qp, kc, vc, hblk, zblk, hdiag, zdiag, htot, ztot, lut,

@@ -9,10 +9,16 @@ block. Forward tolerance 5e-5 (f32 K/V) and 5e-2 (bf16 K/V), relative to
 max(1, max |reference|); the gradients of the autograd wrapper against the
 reference's custom_vjp within 1e-5 of the same scale. Then
 `decode_execute` of each decode backend (gather / reference / kernel)
-against the JAX backend of the same name, within 5e-5.
+against the JAX backend of the same name, within 5e-5. The kernel's
+split-and-combine, as its plain twin computes it (`split_width`), is held
+to the reference's `_fused_decode` (interpret mode) at the same
+tolerances, over split widths, NaN-poisoned padded slots and both
+layouts; and the wrapper's split chooser covers every live slot once.
 
 The CUDA kernel itself runs only on a GPU: tests/test_torch_gpu.py.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,16 +45,19 @@ def _cfgs():
     return JaxSLAConfig(**kw), SLAConfig(**kw)
 
 
-def _state(seed, c, kv_dtype, poison=True):
-    """Numpy decode state at base position `pos` (mid-block, row 5 of
-    Tn 8): K/V, per-block h/z and their totals; a live LUT of distinct
+def _state(seed, c, kv_dtype, poison=True, tn=TN, k_sel=K, row=5,
+           nan=False):
+    """Numpy decode state at base position `pos` (mid-block, row `row` of
+    `tn`): K/V, per-block h/z and their totals; a live LUT of distinct
     valid blocks with the diagonal first, cnt in [1, K] and padded slots
     pointing at another valid block (`poison`) or repeating the first;
     marg with zero rows. c > 1 adds the per-token layout: LUT rows and
-    totals per token and the diagonal partials hdiag/zdiag."""
+    totals per token and the diagonal partials hdiag/zdiag. `nan`: the
+    padded slots name blocks past the live one whose K, V, hblk and zblk
+    are NaN (the totals sum the valid blocks)."""
     rs = np.random.default_rng(seed)
-    pos = 5 * BKV + 6
-    row = pos // BKV
+    K, TN = k_sel, tn  # noqa: N806 (this state's sizes)
+    pos = row * BKV + 6
     smax = TN * BKV
     k = rs.standard_normal((B, HKV, smax, D), dtype=np.float32)
     v = rs.standard_normal((B, HKV, smax, D), dtype=np.float32)
@@ -65,7 +74,9 @@ def _state(seed, c, kv_dtype, poison=True):
     for idx in np.ndindex(*tok):
         others = rs.permutation(row)[:K - 1]
         lut[idx] = np.concatenate([[row], others])
-        if poison:
+        if nan:
+            lut[idx][cnt[idx]:] = rs.integers(row + 1, TN, K - cnt[idx])
+        elif poison:
             lut[idx][cnt[idx]:] = rs.permutation(
                 [j for j in range(row) if j not in lut[idx][:cnt[idx]]])[
                     :K - cnt[idx]]
@@ -84,6 +95,11 @@ def _state(seed, c, kv_dtype, poison=True):
         st["zdiag"] = zblk[:, :, row][:, :, None] * 0.5 + np.cumsum(growz, 2)
         st["htot"] = st["htot"][:, :, None] + np.cumsum(grow, 2)
         st["ztot"] = st["ztot"][:, :, None] + np.cumsum(growz, 2)
+    if nan:
+        for name in "kv":
+            st[name][:, :, (row + 1) * BKV:] = np.nan
+        for name in ("hblk", "zblk"):
+            st[name][:, :, row + 1:] = np.nan
     qg = rs.standard_normal((B, HKV, G, c, D), dtype=np.float32)
     qpg = rs.random((B, HKV, G, c, D), dtype=np.float32)
     qpg /= qpg.sum(-1, keepdims=True)
@@ -250,3 +266,95 @@ def test_resolve_decode_aliases_and_loud_failure():
             jbackends.resolve_decode(name)
     with pytest.raises(ValueError, match="unknown SLA decode backend"):
         tbackends.resolve_decode("flash")
+
+
+# the split-and-combine: a wider grid (Tn 16, K 9, live row 10) so that
+# widths 1, 2, 7 and K split it, some splits starting past cnt
+SPLIT_TN, SPLIT_K, SPLIT_ROW = 16, 9, 10
+SPLIT_WIDTHS = [1, 2, 7, SPLIT_K]
+
+
+@functools.cache
+def _split_case(c, kv_dtype):
+    """The flat kernel operands (`_flat_args` of `decode_operands`) of a
+    state with NaN-poisoned padded slots, and the reference's
+    `_fused_decode` on them (per-token hdiag/htot: for the live row, the
+    stored diagonal block and the running totals)."""
+    st, qg, qpg, pos = _state(17 + c, c, kv_dtype, tn=SPLIT_TN,
+                              k_sel=SPLIT_K, row=SPLIT_ROW, nan=True)
+    flat = sla_decode._flat_args(*sla_decode.decode_operands(
+        _torch_state(st, kv_dtype), torch.from_numpy(qg),
+        torch.from_numpy(qpg), pos), BKV)
+    ref = list(flat)
+    if ref[10] is None:  # live row
+        ref[10], ref[11] = ref[8][:, SPLIT_ROW, None], ref[9][:, SPLIT_ROW,
+                                                                None]
+        ref[12], ref[13] = ref[12][:, None], ref[13][:, None]
+
+    def to_jax(x):
+        if x.dtype == torch.bfloat16:
+            return jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+        return jnp.asarray(x.numpy())
+
+    want = jdecode._fused_decode(*map(to_jax, ref), scale=D ** -0.5,
+                                 block_kv=BKV, group=G, interpret=True)
+    return flat, [np.asarray(w) for w in want]
+
+
+@pytest.mark.parametrize("width", SPLIT_WIDTHS)
+@pytest.mark.parametrize("kv_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("c", [1, 4])
+def test_split_twin_matches_pallas_kernel(c, kv_dtype, width):
+    """The kernel's split-and-combine (the twin at `split_width`) against
+    the Pallas kernel: finite despite the NaN blocks behind the padded
+    slots, within the file's tolerance, exact zeros where marg = 0; and
+    `sla_decode` on CPU tensors with a forced width is that twin."""
+    flat, want = _split_case(c, kv_dtype)
+    kw = dict(scale=D ** -0.5, block_kv=BKV, group=G)
+    got = sla_decode.sla_decode_plain(*flat, **kw, split_width=width)
+    before = sla_decode.LAUNCHES
+    wrapped = sla_decode.sla_decode(*flat, **kw, split_width=width)
+    assert sla_decode.LAUNCHES == before
+    assert all(torch.equal(a, b) for a, b in zip(got, wrapped))
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        limit = TOL[kv_dtype] * max(1.0, float(np.abs(w).max()))
+        assert float(np.abs(g.numpy() - w).max()) <= limit
+    cnt, marg = flat[1], flat[2]
+    nsplit = -(-SPLIT_K // width)
+    if nsplit > 1:  # some row's last split starts past its cnt
+        assert bool((cnt <= (nsplit - 1) * width).any())
+    dead = marg == 0
+    assert bool(dead.any()) and float(got[1][dead].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("rows,k_sel,sms", [
+    (32, 26, 132), (64, 26, 132), (128, 26, 132), (27, 26, 132),
+    (8, 3, 132), (4096, 26, 132), (6, 9, 4), (1, 1, 132)])
+def test_split_chooser_covers_every_live_slot_once(rows, k_sel, sms):
+    """`choose_split_width`: the widest split, up to MAX_SPLIT_WIDTH,
+    whose grid still gives every SM SPLITS_PER_SM blocks where the slots
+    allow it; for every count the splits [n w, min((n + 1) w, cnt)) walk
+    each live slot exactly once."""
+    w = sla_decode.choose_split_width(rows, k_sel, sms)
+    assert 1 <= w <= min(k_sel, sla_decode.MAX_SPLIT_WIDTH)
+    nsplit = -(-k_sel // w)
+    want = min(sla_decode.SPLITS_PER_SM * sms, rows * k_sel)
+    assert rows * nsplit >= want
+    assert w in (k_sel, sla_decode.MAX_SPLIT_WIDTH) or \
+        rows * -(-k_sel // (w + 1)) < want
+    for cnt in range(k_sel + 1):
+        walked = [s for n in range(nsplit)
+                  for s in range(n * w, min((n + 1) * w, cnt))]
+        assert walked == list(range(cnt))
+    q, lut = torch.zeros(rows, 1, 4), torch.zeros(rows, 1, k_sel)
+    assert sla_decode.split_geometry(q, lut, sms=sms) == dict(
+        split_width=w, nsplit=nsplit, grid_ctas=rows * (nsplit + 1))
+
+
+def test_split_width_is_refused_outside_one_to_k():
+    flat, _ = _split_case(1, "f32")
+    kw = dict(scale=D ** -0.5, block_kv=BKV, group=G)
+    for bad in (0, SPLIT_K + 1, 2.0, True):
+        with pytest.raises(ValueError, match="split_width"):
+            sla_decode.sla_decode(*flat, **kw, split_width=bad)

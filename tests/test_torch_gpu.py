@@ -617,18 +617,76 @@ def test_cuda_decode_kernel_matches_plain_twin(b, hkv, g, c, d, bkv, tn,
     """The decode kernel against its twin on the same card tensors: GQA,
     f32 / bf16 K/V, C = 1 (live row) and C = 4 (per-token layout), rows
     with marg = 0 (exact zeros) and padded LUT slots that name another
-    block (ignored past cnt)."""
+    block (ignored past cnt); at the chosen split width and at widths 1
+    and 2, against the unsplit twin and the split twin at that width, one
+    launch a call."""
     _need_gpu()
     args, kw = _decode_operands(3 + c, b, hkv, g, c, d, bkv, tn, k_sel,
                                 kv_dtype, pos, poison)
-    before = sla_decode.LAUNCHES
-    got = sla_decode.sla_decode(*args, **kw)
     want = sla_decode.sla_decode_plain(*args, **kw)
-    torch.cuda.synchronize()
-    assert sla_decode.LAUNCHES == before + 1
-    _assert_twin(got, want)
-    assert torch.all(got[1][args[2] == 0] == 0)
-    assert float(got[1].abs().max()) > 0
+    for width in (None, 1, 2):
+        before = sla_decode.LAUNCHES
+        got = sla_decode.sla_decode(*args, **kw, split_width=width)
+        torch.cuda.synchronize()
+        assert sla_decode.LAUNCHES == before + 1
+        w = sla_decode.split_geometry(args[4], args[0], width)["split_width"]
+        split = sla_decode.sla_decode_plain(*args, **kw, split_width=w)
+        _assert_twin(got, want)
+        _assert_twin(got, split)
+        assert torch.all(got[1][args[2] == 0] == 0)
+        assert float(got[1].abs().max()) > 0
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [1, 4])
+def test_cuda_decode_kernels_are_deterministic(c, kv_dtype):
+    """Split and combine in fixed orders, no atomics: two launches of
+    either kernel are bitwise equal, at the chosen width and at width 1;
+    the paged kernel equals the monolithic one on the gathered view."""
+    _need_gpu()
+    args, kw = _decode_operands(11, 2, 8, 2, c, 128, 64, 64, 6, kv_dtype,
+                                40 * 64 + 29)
+    for width in (None, 1):
+        one = sla_decode.sla_decode(*args, **kw, split_width=width)
+        two = sla_decode.sla_decode(*args, **kw, split_width=width)
+        assert all(torch.equal(x, y) for x, y in zip(one, two))
+    if c == 1:
+        pargs, pkw = cases.paged_decode_operands(
+            12, kv_dtype, 20 * 64 + 29, b=4, hkv=8, g=2, d=128, bkv=64,
+            tn=32, npages=140, k_sel=6, shared=12)
+        dense = cases.paged_dense_operands(pargs)
+        for width in (None, 1):
+            one = sla_decode.sla_decode_paged(*pargs, **pkw,
+                                              split_width=width)
+            two = sla_decode.sla_decode_paged(*pargs, **pkw,
+                                              split_width=width)
+            mono = sla_decode.sla_decode(*dense, **pkw, split_width=width)
+            assert all(torch.equal(x, y) and torch.equal(x, z)
+                       for x, y, z in zip(one, two, mono))
+
+
+def test_cuda_decode_kernels_refuse_what_the_split_cannot_take():
+    """A split width outside 1..K, and bf16 K/V tiles that are not a
+    multiple of 16 bytes (the bulk copies' unit), raise before any
+    launch."""
+    _need_gpu()
+    args, kw = _decode_operands(1, 1, 2, 2, 1, 64, 16, 8, 3, torch.float32,
+                                5 * 16 + 2)
+    pargs, pkw = cases.paged_decode_operands(
+        2, torch.float32, 9 * 16 + 4, b=2, hkv=2, g=1, d=32, bkv=16, tn=16,
+        npages=40, k_sel=3, shared=4)
+    before = (sla_decode.LAUNCHES, sla_decode.PAGED_LAUNCHES)
+    for width in (0, 4, -1):
+        with pytest.raises(ValueError, match="split_width"):
+            sla_decode.sla_decode(*args, **kw, split_width=width)
+        with pytest.raises(ValueError, match="split_width"):
+            sla_decode.sla_decode_paged(*pargs, **pkw, split_width=width)
+    odd, okw = _decode_operands(1, 1, 2, 2, 1, 36, 3, 8, 3, torch.bfloat16,
+                                5 * 3 + 1)
+    with pytest.raises(ValueError, match="16 bytes"):
+        sla_decode.sla_decode(*odd, **okw)
+    assert (sla_decode.LAUNCHES, sla_decode.PAGED_LAUNCHES) == before
 
 
 def test_cuda_decode_kernel_refuses_what_it_cannot_take():
@@ -720,24 +778,27 @@ def test_cuda_paged_decode_kernel_matches_twin_and_monolithic(
     """The paged decode kernel against its twin on the same card tensors
     (shared and shuffled pages, NaN pages behind the padded LUT slots,
     marg = 0 rows exact zeros, a runaway slot), and bitwise against the
-    monolithic decode kernel on the page-gathered view of the pools."""
+    monolithic decode kernel on the page-gathered view of the pools at
+    the same split width: the chosen one, 1 and 2."""
     _need_gpu()
     args, kw = cases.paged_decode_operands(
         5 + b, kv_dtype, pos, b=b, hkv=hkv, g=g, d=d, bkv=bkv, tn=tn,
         npages=npages, k_sel=k_sel, shared=shared, runaway=runaway)
-    before = (sla_decode.PAGED_LAUNCHES, sla_decode.LAUNCHES)
-    got = sla_decode.sla_decode_paged(*args, **kw)
     want = sla_decode.sla_decode_paged_plain(*args, **kw)
-    mono = sla_decode.sla_decode(*cases.paged_dense_operands(args), **kw)
-    torch.cuda.synchronize()
-    assert (sla_decode.PAGED_LAUNCHES, sla_decode.LAUNCHES) == (
-        before[0] + 1, before[1] + 1)
-    assert all(bool(torch.isfinite(x).all()) for x in got)
-    _assert_twin(got, want)
-    assert torch.all(got[1][args[3] == 0] == 0)
-    assert float(got[1].abs().max()) > 0
-    for p, m in zip(got, mono):
-        assert torch.equal(p, m)
+    dense = cases.paged_dense_operands(args)
+    for width in (None, 1, 2):
+        before = (sla_decode.PAGED_LAUNCHES, sla_decode.LAUNCHES)
+        got = sla_decode.sla_decode_paged(*args, **kw, split_width=width)
+        mono = sla_decode.sla_decode(*dense, **kw, split_width=width)
+        torch.cuda.synchronize()
+        assert (sla_decode.PAGED_LAUNCHES, sla_decode.LAUNCHES) == (
+            before[0] + 1, before[1] + 1)
+        assert all(bool(torch.isfinite(x).all()) for x in got)
+        _assert_twin(got, want)
+        assert torch.all(got[1][args[3] == 0] == 0)
+        assert float(got[1].abs().max()) > 0
+        for p, m in zip(got, mono):
+            assert torch.equal(p, m)
 
 
 def test_cuda_paged_decode_kernel_refuses_what_it_cannot_take():

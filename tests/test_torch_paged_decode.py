@@ -12,9 +12,14 @@ slots pointing at other blocks; f32 K/V within 5e-5 and bf16 K/V within
 `decode_execute` of each decode backend (gather / reference / kernel) on
 paged state against the JAX function of the same name (5e-5), and the
 port's paged state against the monolithic state it represents, per
-backend, bitwise. The CUDA kernel itself runs only on a GPU:
-tests/test_torch_gpu.py.
+backend, bitwise. The kernel's split-and-combine, as the paged twin
+computes it (`split_width`), is held to the same Pallas kernel over split
+widths with NaN-poisoned pages behind the padded slots, and to the
+monolithic twin on the page-gathered view at the same width, bitwise.
+The CUDA kernel itself runs only on a GPU: tests/test_torch_gpu.py.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,7 +30,7 @@ from repro.core.config import SLAConfig as JaxSLAConfig
 from repro.kernels import sla_decode as jdecode
 from repro_torch.core import backends as tbackends
 from repro_torch.core.config import SLAConfig
-from repro_torch.kernels import sla_decode
+from repro_torch.kernels import cases, sla_decode
 
 B, HKV, G, D, BKV, TN, P, K = 2, 2, 2, 32, 16, 8, 24, 4
 H = HKV * G
@@ -39,15 +44,18 @@ def _cfgs():
     return JaxSLAConfig(**kw), SLAConfig(**kw)
 
 
-def _state(seed, kv_dtype, poison=True):
+def _state(seed, kv_dtype, poison=True, tn=TN, npages=P, k_sel=K,
+           rows=(5, 6), nan=False):
     """Numpy paged decode state: pools (P, Hkv, ...), a page table in
     which both slots share their first SHARED pages and hold distinct
     shuffled pages after them, per-slot positions mid-block (rows 5 and
     6), the live LUT per q head (diagonal first, distinct earlier blocks
     after it, padded slots naming other blocks or repeating the first),
-    marg with zero rows, and each slot's running totals."""
+    marg with zero rows, and each slot's running totals. `nan`: the
+    padded slots name blocks past the live one, whose pages hold NaN."""
     rs = np.random.default_rng(seed)
-    pos = np.array([5 * BKV + 6, 6 * BKV + 2], np.int32)
+    TN, P, K = tn, npages, k_sel  # noqa: N806 (this state's sizes)
+    pos = np.array([rows[0] * BKV + 6, rows[1] * BKV + 2], np.int32)
     k = rs.standard_normal((P, HKV, BKV, D), dtype=np.float32)
     v = rs.standard_normal((P, HKV, BKV, D), dtype=np.float32)
     if kv_dtype == "bf16":
@@ -65,7 +73,9 @@ def _state(seed, kv_dtype, poison=True):
     for b, h in np.ndindex(B, H):
         row = pos[b] // BKV
         lut[b, h] = np.concatenate([[row], rs.permutation(row)[:K - 1]])
-        if poison:
+        if nan:
+            lut[b, h][cnt[b, h]:] = rs.integers(row + 1, TN, K - cnt[b, h])
+        elif poison:
             pad = [j for j in range(TN) if j not in lut[b, h][:cnt[b, h]]]
             lut[b, h][cnt[b, h]:] = rs.permutation(pad)[:K - cnt[b, h]]
         else:
@@ -78,6 +88,10 @@ def _state(seed, kv_dtype, poison=True):
                      for b in range(B)])
     st = dict(k=k, v=v, hblk=hblk, zblk=zblk, pt=pt, lut=lut, cnt=cnt,
               marg=marg, htot=htot, ztot=ztot)
+    if nan:  # each slot's own pages past its live block
+        for b in range(B):
+            for pool in (k, v, hblk, zblk):
+                pool[pt[b, pos[b] // BKV + 1:]] = np.nan
     qg = rs.standard_normal((B, HKV, G, 1, D), dtype=np.float32)
     qpg = rs.random((B, HKV, G, 1, D), dtype=np.float32)
     qpg /= qpg.sum(-1, keepdims=True)
@@ -107,12 +121,11 @@ def _close(got, want, tol):
     assert err <= limit, (err, limit)
 
 
-@pytest.mark.parametrize("kv_dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("poison", [True, False])
-def test_paged_twin_matches_pallas_paged_kernel(kv_dtype, poison):
-    """The flat paged twin against `_fused_decode_paged(interpret=True)`
-    on the reference's head-major pool layout and gathered `plut`."""
-    st, qg, qpg, pos = _state(3 + poison, kv_dtype, poison)
+def _flat_case(st, qg, qpg, pos, kv_dtype):
+    """`sla_decode_paged`'s flat operands of a state, and the reference's
+    `_fused_decode_paged(interpret=True)` on its head-major pool layout
+    and gathered `plut`."""
+    K = st["lut"].shape[-1]  # noqa: N806
     bh = B * H
     plut = np.take_along_axis(st["pt"][:, None, :].repeat(H, 1), st["lut"],
                               axis=2)
@@ -143,6 +156,16 @@ def test_paged_twin_matches_pallas_paged_kernel(kv_dtype, poison):
             torch.from_numpy(np.ascontiguousarray(flat["qp"])), ts["k"],
             ts["v"], ts["hblk"], ts["zblk"], ts["htot"].reshape(-1, D, D),
             ts["ztot"].reshape(-1, D))
+    return args, want
+
+
+@pytest.mark.parametrize("kv_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("poison", [True, False])
+def test_paged_twin_matches_pallas_paged_kernel(kv_dtype, poison):
+    """The flat paged twin against `_fused_decode_paged(interpret=True)`
+    on the reference's head-major pool layout and gathered `plut`."""
+    st, qg, qpg, pos = _state(3 + poison, kv_dtype, poison)
+    args, want = _flat_case(st, qg, qpg, pos, kv_dtype)
     kw = dict(scale=D ** -0.5, block_kv=BKV, group=G)
     before = sla_decode.PAGED_LAUNCHES
     got = sla_decode.sla_decode_paged(*args, **kw)
@@ -208,3 +231,61 @@ def test_paged_decode_backends_match_jax_and_monolithic(backend, kv_dtype):
     _close(got, want, 5e-5)
     mono = tbackends.decode_execute(_monolithic(ts), *args, backend=backend)
     assert torch.equal(got, mono)
+
+
+# the split-and-combine: Tn 16, K 9, live rows 10 and 12 over 40 pages,
+# so that widths 1, 2, 7 and K split the walk, some splits past cnt
+SPLIT_TN, SPLIT_P, SPLIT_K = 16, 40, 9
+SPLIT_WIDTHS = [1, 2, 7, SPLIT_K]
+
+
+@functools.cache
+def _split_case(kv_dtype):
+    st, qg, qpg, pos = _state(23, kv_dtype, tn=SPLIT_TN, npages=SPLIT_P,
+                              k_sel=SPLIT_K, rows=(10, 12), nan=True)
+    args, want = _flat_case(st, qg, qpg, pos, kv_dtype)
+    return args, [np.asarray(w) for w in want]
+
+
+@pytest.mark.parametrize("width", SPLIT_WIDTHS)
+@pytest.mark.parametrize("kv_dtype", ["f32", "bf16"])
+def test_paged_split_twin_matches_pallas_paged_kernel(kv_dtype, width):
+    """The paged kernel's split-and-combine (the paged twin at
+    `split_width`) against the Pallas paged kernel: finite despite the NaN
+    pages behind the padded slots, within the file's tolerance, exact
+    zeros where marg = 0; `sla_decode_paged` on CPU tensors with a forced
+    width is that twin, and no launch."""
+    args, want = _split_case(kv_dtype)
+    kw = dict(scale=D ** -0.5, block_kv=BKV, group=G)
+    got = sla_decode.sla_decode_paged_plain(*args, **kw, split_width=width)
+    before = sla_decode.PAGED_LAUNCHES
+    wrapped = sla_decode.sla_decode_paged(*args, **kw, split_width=width)
+    assert sla_decode.PAGED_LAUNCHES == before
+    assert all(torch.equal(a, b) for a, b in zip(got, wrapped))
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        _close(g, w, TOL[kv_dtype])
+    cnt, marg = args[2], args[3]
+    nsplit = -(-SPLIT_K // width)
+    if nsplit > 1:  # some row's last split starts past its cnt
+        assert bool((cnt <= (nsplit - 1) * width).any())
+    dead = marg.reshape(-1) == 0
+    assert bool(dead.any()) and float(got[1][dead].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("width", [None, *SPLIT_WIDTHS])
+def test_paged_split_matches_monolithic_on_the_gathered_view(width):
+    """A paged call and a monolithic call on the same rows split alike
+    (`split_geometry` reads the shapes only) and, at the same width, the
+    paged twin equals the monolithic twin on the page-gathered view
+    bitwise, NaN pages and all."""
+    args, _ = _split_case("f32")
+    dense = cases.paged_dense_operands(args)
+    geo = sla_decode.split_geometry(args[5], args[0], width, sms=132)
+    assert geo == sla_decode.split_geometry(dense[4], dense[0], width,
+                                             sms=132)
+    kw = dict(scale=D ** -0.5, block_kv=BKV, group=G,
+              split_width=geo["split_width"])
+    paged = sla_decode.sla_decode_paged_plain(*args, **kw)
+    mono = sla_decode.sla_decode_plain(*dense, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(paged, mono))
