@@ -15,29 +15,41 @@ Phases, in order; any failure exits non-zero before the result line:
   3. kernel vs plain twin: `sla_fwd` against `sla_fwd_plain` on the same
      card tensors at the Wan2.1 shape (B=1, H=12, N=32768, D=128) and the
      LightningDiT shape (H=16, N=1024, D=108), 64x64 blocks, LUTs from
-     `plan_attention`, in f32 and bf16. The f32 cases take the f32-FMA
-     kernel: max abs error on o_s, o_l and lse against 5e-5. The bf16
-     cases take the tensor-core kernel (checked by its launch counter),
-     held on (o_s, lse) by `cases.tc_criterion` against the f32 twin and
-     the twin that rounds P to bf16, on o_l to 5e-5 x max(1, max |twin|),
-     two launches bitwise equal; so are a causal GQA-2 case (H 12, BH_kv
-     6, N 4096, D 128, the query span from block 32 on, base 32) and the
-     Wan bf16 operands with every row cut to its diagonal block (count 1:
-     the time of the linear-branch epilogue and one tile). CUDA-event
-     times of the kernel, the plain twin, the gather backend, and dense
-     scaled_dot_product_attention (a yardstick for dense attention, not
-     the same function), the bound and its fraction.
+     `plan_attention`, in f32 and bf16, each on the route
+     `sla_fwd.forward_route` picks, checked by that route's counters. The
+     f32 cases take the split kernel (tensor cores, bf16x3 products) and
+     its K/V pre-pass: o_s, o_l and lse each within 5e-5 x max(1, max
+     |twin|) of the f32 twin (the twin that cuts and sums alike printed
+     beside it), two launches bitwise equal; the pre-pass is held bitwise
+     to its twin on the Wan K/V, and the f32-FMA kernel, forced, is held
+     (max abs error against 5e-5) and timed beside the split kernel at the
+     Wan case. The bf16 cases take the tensor-core kernel, held on (o_s,
+     lse) by `cases.tc_criterion` against the f32 twin and the twin that
+     rounds P to bf16, on o_l to 5e-5 x max(1, max |twin|), two launches
+     bitwise equal; so are a causal GQA-2 case (H 12, BH_kv 6, N 4096, D
+     128, the query span from block 32 on, base 32) and the Wan operands
+     in both dtypes with every row cut to its diagonal block (count 1: the
+     time of the linear-branch epilogue and one tile). The f32-FMA kernel's
+     own calls, the LightningDiT shape at 32x32 blocks in f32 and bf16, are
+     held to 5e-5. CUDA-event times of the kernel, the plain twin, the
+     gather backend, and dense scaled_dot_product_attention (a yardstick
+     for dense attention, not the same function), the route's bound and
+     its fraction (the split route's beside the f32-FMA one).
   4. main path: the DiffusionScheduler serving wan2_1_1_3b at full width
      and depth (30 layers, random seeded weights) on the kernel backend in
      f32: 3 requests at seq_len 32768 (t_start 1.0, 0.75, 1.0; 4 steps
      each) through 2 slots. Checks every request finished with finite
-     latents and that the kernel ran 30 times per forward, never on the
-     tensor-core route (f32 compute).
+     latents and that the kernel ran 30 times per forward, every launch on
+     the split route with one pre-pass launch each, none on the bf16
+     tensor-core route.
   5. cross-check: one full-width forward on the kernel backend and again
      on the gather backend with the same inputs and plans (1e-4 of max
      |v|); then the kernel against its twin on that forward's own
      sparse, uneven LUTs of the first and last layer at the Wan shape (f32
-     within 5e-5, bf16 on tensor cores by phase 3's criterion).
+     on the split route, and the f32-FMA kernel forced beside it, as in
+     phase 3; bf16 on tensor cores by phase 3's criterion). `--profile`
+     adds a profile of one full-width f32 forward: kernel 1's launches,
+     mean times and share of the device time.
   7. backward kernels vs plain twins: `sla_bwd_dq` and `sla_bwd_dkv`
      against `sla_bwd_dq_plain` / `sla_bwd_dkv_plain` on the same card
      tensors (L and O^s from the forward kernel, a seeded dO), at both
@@ -185,7 +197,10 @@ Phases, in order; any failure exits non-zero before the result line:
      32064, which appends a plan row, comes back with every leaf bitwise
      as before (a whole-slot copy, ~11 GiB); prints the masked step's
      time, decode ms per step and peak memory.
- 18. the kernels line (JSON), then the result line.
+ 18. the kernels line (JSON): `sla_fwd` carries the split route's fields
+     at the top (the f32 serving route) and the f32-FMA and bf16
+     tensor-core routes' beside them; `sla_fwd_split_planes` is the split
+     route's pre-pass; then the result line.
 """
 from __future__ import annotations
 
@@ -244,7 +259,8 @@ TWIN_TOL = 5e-5
 FWD_TOL = 1e-4  # kernel vs gather velocity, relative to max(1, max |v|)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {torch.float32: 67e12,  # f32 FMA on CUDA cores
-              torch.bfloat16: 989e12}  # bf16 dense tensor cores
+              torch.bfloat16: 989e12,  # bf16 dense tensor cores
+              "fma": 67e12, "tc": 989e12}  # the forward's routes
 SHAPES = {  # name: (arch, heads, seq_len, head_dim)
     "wan2_1_1_3b": ("wan2_1_1_3b", 12, 32768, 128),
     "lightningdit_1b": ("lightningdit_1b", 16, 1024, 108),
@@ -365,10 +381,14 @@ def phase_build():
 
 
 # --------------------------------------------------------------------------
-def _kernel_inputs(arch: str, h: int, n: int, d: int, seed: int):
-    """Seeded q/k/v at one shape and the port's plan for them."""
+def _kernel_inputs(arch: str, h: int, n: int, d: int, seed: int,
+                   block=None):
+    """Seeded q/k/v at one shape and the port's plan for them (at the
+    arch's blocks, or `block` x `block`)."""
     cfg = get_arch(arch)
     sla = cfg.sla.replace(causal=False)
+    if block is not None:
+        sla = sla.replace(block_q=block, block_kv=block)
     gen = torch.Generator(device=DEV).manual_seed(seed)
     q, k, v = (torch.randn((1, h, n, d), generator=gen, device=DEV)
                for _ in range(3))
@@ -392,60 +412,104 @@ def _operands(sla, q, k, v, marginal, lut, counts, dtype):
     return args, kw, (q, k, v, qp, kp)
 
 
-def _bound(args, kw, dtype):
-    """Least time for this call: the larger of bytes (each input read
+def _bound(args, kw, route=None):
+    """Least time for this call on `route` (default: the one
+    `sla_fwd.forward_route` picks): the larger of bytes (each input read
     once, each output written once) over HBM bandwidth and this data's
-    operations (live critical tiles + linear merge) over the peak rate."""
+    operations (live critical tiles + linear merge) at the route's rate:
+    all at 67 TFLOP/s on the f32-FMA route, all at 989 on the tensor-core
+    route, and on the split route the tile products six times at 989 (its
+    six bf16 part products) plus the linear merge's f32 FMAs at 67."""
     lut, counts, q, k, v, qp, hi, zi = args
     bh, nq, d = q.shape
     bq, bkv = kw["block_q"], kw["block_kv"]
+    route = route or sla_fwd.forward_route(q.dtype, bq, bkv, d)
     nbytes = sum(t.numel() * t.element_size() for t in args)
     nbytes += 2 * bh * nq * d * 4 + bh * nq * 4  # o_s, o_l, lse
     live = int(torch.clamp(counts, max=lut.shape[-1]).sum())
-    flops = live * 4 * bq * bkv * d + (nq // bq) * bh * (2 * bq * d * d
-                                                        + 2 * bq * d)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    tile_flops = live * 4 * bq * bkv * d
+    lin_flops = (nq // bq) * bh * (2 * bq * d * d + 2 * bq * d)
+    flops = tile_flops + lin_flops
+    if route == "split":
+        t_ops = (sla_fwd.SPLIT_PRODUCTS * tile_flops / PEAK_FLOPS["tc"]
+                 + lin_flops / PEAK_FLOPS["fma"])
+    else:
+        t_ops = flops / PEAK_FLOPS[route]
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", flops, nbytes,
             live)
 
 
 FWD_TC_ROUTE = "tensor cores, wgmma m64n64k16 (sla_fwd_tc.cu)"
+FWD_SPLIT_ROUTE = ("tensor cores, bf16x3 split products on wgmma m64n64k16 "
+                   "(sla_fwd_split.cu)")
 FWD_F32_ROUTE = "f32 FMA on CUDA cores (sla_fwd.cu)"
+FWD_ROUTES = {"tc": FWD_TC_ROUTE, "split": FWD_SPLIT_ROUTE,
+              "fma": FWD_F32_ROUTE}
 
 
-def _fwd_check(args, kw, what: str) -> dict:
-    """The forward kernel against its plain twin on the same card
-    operands. The f32-FMA route: max abs error over o_s, o_l and lse
-    against 5e-5. The tensor-core route (`sla_fwd.use_tensor_cores`):
-    (o_s, lse) by `cases.tc_criterion` against the f32 twin and the twin
-    that rounds P to bf16, o_l (f32 arithmetic on either route) within
-    5e-5 x max(1, max |twin|), and a second launch bitwise equal to the
-    first. Raises on a non-finite output or when the route's counter did
-    not move."""
+def _fwd_counters():
+    return (sla_fwd.LAUNCHES, sla_fwd.TC_LAUNCHES, sla_fwd.SPLIT_LAUNCHES,
+            sla_fwd.PLANES_LAUNCHES)
+
+
+def _fwd_call(args, kw, route=None):
+    """The forward on `route`: through `sla_fwd.sla_fwd` where the rule
+    picks that route, else forced through `sla_fwd._launch`."""
     q = args[2]
-    tc = sla_fwd.use_tensor_cores(q.dtype, kw["block_q"], kw["block_kv"],
-                                  q.shape[-1])
-    before = sla_fwd.TC_LAUNCHES
-    got = sla_fwd.sla_fwd(*args, **kw)
-    launched = sla_fwd.TC_LAUNCHES - before
+    if route is None or route == sla_fwd.forward_route(
+            q.dtype, kw["block_q"], kw["block_kv"], q.shape[-1]):
+        return lambda: sla_fwd.sla_fwd(*args, **kw)
+    return lambda: sla_fwd._launch(*args, **{"base": 0, **kw}, route=route)
+
+
+def _fwd_check(args, kw, what: str, route=None) -> dict:
+    """The forward kernel of `route` (default: the rule's) against its plain
+    twin on the same card operands. The f32-FMA route: max abs error over
+    o_s, o_l and lse against 5e-5. The split route: each of o_s, o_l and
+    lse within 5e-5 x max(1, max |twin|) of the f32 twin (the distance
+    from the twin that cuts and sums alike, `mma_dtype="bf16x3"`, is
+    printed beside it). The tensor-core route: (o_s, lse) by
+    `cases.tc_criterion` against the f32 twin and the twin that rounds P
+    to bf16, o_l (f32 arithmetic on either route) within 5e-5 x max(1, max
+    |twin|). Both tensor-core routes: a second launch bitwise equal to the
+    first. Raises on a non-finite output or when the route's counters did
+    not move as they should."""
+    q = args[2]
+    route = route or sla_fwd.forward_route(q.dtype, kw["block_q"],
+                                           kw["block_kv"], q.shape[-1])
+    call = _fwd_call(args, kw, route)
+    before = _fwd_counters()
+    got = call()
+    moved = tuple(a - b for a, b in zip(_fwd_counters(), before))
     want = sla_fwd.sla_fwd_plain(*args, **kw)
     torch.cuda.synchronize()
-    if launched != int(tc):
-        raise RuntimeError(f"sla_fwd {what}: {launched} tensor-core "
-                           f"launches, expected {int(tc)}")
+    split = int(route == "split")
+    if moved != (1, int(route == "tc"), split, split):
+        raise RuntimeError(f"sla_fwd {what}: counters (launches, tc, split, "
+                           f"planes) moved {moved} on the {route} route")
     if not all(bool(torch.isfinite(g).all()) for g in got):
         raise RuntimeError(f"sla_fwd {what}: non-finite output")
     errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
-    if not tc:
+    if route == "fma":
         err = max(errs)
         return dict(route=FWD_F32_ROUTE, errs=errs, max_abs_err=err,
                     limit=TWIN_TOL, ok=err <= TWIN_TOL)
+    again = call()
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    if route == "split":
+        limits = [TWIN_TOL * max(1.0, float(w.abs().max())) for w in want]
+        cut = sla_fwd.sla_fwd_plain(*args, **kw, mma_dtype="bf16x3")
+        cut_errs = [float((c - w).abs().max()) for c, w in zip(cut, want)]
+        return dict(route=FWD_SPLIT_ROUTE, errs=errs, max_abs_err=max(errs),
+                    limits=limits, cut_twin_errs=cut_errs,
+                    bitwise_repeat=bitwise,
+                    ok=bitwise and all(e <= m for e, m in zip(errs, limits)))
     rounded = sla_fwd.sla_fwd_plain(*args, **kw, mma_dtype=torch.bfloat16)
     res = cases.tc_criterion((got[0], got[2]), (want[0], want[2]),
                              (rounded[0], rounded[2]))
-    again = sla_fwd.sla_fwd(*args, **kw)
-    res["bitwise_repeat"] = all(torch.equal(a, b) for a, b in zip(got, again))
+    res["bitwise_repeat"] = bitwise
     res.update(errs=errs, o_l_err=errs[1], o_l_limit=TWIN_TOL * max(
         1.0, float(want[1].abs().max())))
     res["ok"] = (res["ok"] and res["bitwise_repeat"]
@@ -455,14 +519,55 @@ def _fwd_check(args, kw, what: str) -> dict:
 
 def _fwd_text(c: dict) -> str:
     e = c["errs"]
+    verdict = "OK" if c["ok"] else "FAIL"
     if c["route"] == FWD_F32_ROUTE:
-        return (f"max abs err o_s {e[0]:.3g} o_l {e[1]:.3g} lse {e[2]:.3g} "
-                f"(tol {TWIN_TOL:g}) {'OK' if c['ok'] else 'FAIL'}")
+        return (f"f32 FMA: max abs err o_s {e[0]:.3g} o_l {e[1]:.3g} lse "
+                f"{e[2]:.3g} (tol {TWIN_TOL:g}) {verdict}")
+    if c["route"] == FWD_SPLIT_ROUTE:
+        m, t = c["limits"], c["cut_twin_errs"]
+        return (f"split: max abs err o_s {e[0]:.3g} o_l {e[1]:.3g} lse "
+                f"{e[2]:.3g} vs f32 twin (limits {m[0]:.3g} / {m[1]:.3g} / "
+                f"{m[2]:.3g}; the cut twin's own {t[0]:.3g} / {t[1]:.3g} / "
+                f"{t[2]:.3g}), bitwise repeat {c['bitwise_repeat']} "
+                f"{verdict}")
     return (f"tensor cores: max abs err o_s {e[0]:.3g} lse {e[2]:.3g} vs f32 "
             f"twin (rounded twin {c['rounded_err']:.3g}, limit "
             f"{c['limit']:.3g}), o_l {e[1]:.3g} (limit {c['o_l_limit']:.3g})"
-            f", bitwise repeat {c['bitwise_repeat']} "
-            f"{'OK' if c['ok'] else 'FAIL'}")
+            f", bitwise repeat {c['bitwise_repeat']} {verdict}")
+
+
+def _planes_case(k, v) -> dict:
+    """The split route's pre-pass against its twin on the same card K/V:
+    bitwise, timed, with its bound (bytes: f32 k and v read, six bf16
+    planes written)."""
+    before = sla_fwd.PLANES_LAUNCHES
+    got = sla_fwd.split_kv_planes(k, v)
+    want = sla_fwd.split_kv_planes_plain(k, v)
+    torch.cuda.synchronize()
+    if sla_fwd.PLANES_LAUNCHES != before + 1:
+        raise RuntimeError("split_kv_planes did not launch its kernel")
+    bitwise = all(torch.equal(g.view(torch.int16), w.view(torch.int16))
+                  for g, w in zip(got, want))
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    del got, want
+    ms = cuda_ms(lambda: sla_fwd.split_kv_planes(k, v), 20)
+    plain_ms = cuda_ms(lambda: sla_fwd.split_kv_planes_plain(k, v), 5,
+                       warmup=1)
+    nbytes = 2 * k.numel() * 4 + 2 * sla_fwd.SPLIT_PARTS * (
+        k.shape[0] * k.shape[1] * sla_fwd.TC_HEAD_DIM * 2)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    say(f"[3 kernel] split_kv_planes (the split route's pre-pass) on the Wan "
+        f"f32 K/V {tuple(k.shape)}: bitwise equal to its twin {bitwise} "
+        f"{'OK' if bitwise else 'FAIL'} | kernel {ms:.3f} ms | bound "
+        f"{bound_ms:.3f} ms by bytes ({nbytes / 1e6:.0f} MB; "
+        f"{bound_ms / ms:.1%} of it) | plain twin {plain_ms:.3f} ms")
+    if not bitwise:
+        raise RuntimeError("split_kv_planes disagrees with its twin")
+    return dict(shape="wan2_1_1_3b", max_abs_err=err, bitwise=bitwise,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", bound_fraction=bound_ms / ms,
+                mbytes=nbytes / 1e6)
 
 
 def _gqa_fwd_operands(h, group, n, d, base, seed):
@@ -507,14 +612,14 @@ def _diagonal_only(args):
 
 
 def phase_kernel_vs_plain():
-    rows = []
+    rows, planes = [], None
     for shape, (arch, h, n, d) in SHAPES.items():
         sla, q, k, v, plan = _kernel_inputs(arch, h, n, d, seed=1)
         for dtype in (torch.float32, torch.bfloat16):
             args, kw, (qd, kd, vd, qpd, kpd) = _operands(
                 sla, q, k, v, plan.marginal, plan.lut, plan.counts, dtype)
             c = _fwd_check(args, kw, f"{shape} {dtype}")
-            ms = cuda_ms(lambda: sla_fwd.sla_fwd(*args, **kw), 20)
+            ms = cuda_ms(_fwd_call(args, kw), 20)
             plain_ms = cuda_ms(lambda: sla_fwd.sla_fwd_plain(*args, **kw),
                                10, warmup=1)
             gather_ms = cuda_ms(lambda: sla_forward_gather(
@@ -524,14 +629,20 @@ def phase_kernel_vs_plain():
             sdpa_ms = cuda_ms(lambda: torch.nn.functional
                               .scaled_dot_product_attention(qd, kd, vd),
                               10, warmup=1)
-            bound_ms, bound_by, flops, nbytes, live = _bound(args, kw, dtype)
+            bound_ms, bound_by, flops, nbytes, live = _bound(args, kw)
+            extra = {}
+            if c["route"] == FWD_SPLIT_ROUTE:
+                extra["bound_ms_f32_fma"] = _bound(args, kw, "fma")[0]
             dname = "f32" if dtype == torch.float32 else "bf16"
             say(f"[3 kernel] {shape} {dname} (BH={args[2].shape[0]}, "
                 f"N={n}, D={d}, K={plan.k_sel}, live tiles {live}): "
                 f"{_fwd_text(c)}")
             say(f"  kernel {ms:.3f} ms | bound {bound_ms:.3f} ms by "
                 f"{bound_by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f} MB;"
-                f" {bound_ms / ms:.1%} of it) | plain twin {plain_ms:.3f} ms "
+                f" {bound_ms / ms:.1%} of it)"
+                + (f" | f32-FMA bound {extra['bound_ms_f32_fma']:.3f} ms"
+                   if extra else "")
+                + f" | plain twin {plain_ms:.3f} ms "
                 f"| gather backend {gather_ms:.3f} ms | kernel backend (h/z "
                 f"+ aggregate + kernel) {backend_ms:.3f} ms | dense SDPA "
                 f"yardstick (not the same function) {sdpa_ms:.3f} ms")
@@ -541,13 +652,26 @@ def phase_kernel_vs_plain():
                              kernel_backend_ms=backend_ms,
                              dense_sdpa_ms=sdpa_ms, bound_ms=bound_ms,
                              bound_by=bound_by, bound_fraction=bound_ms / ms,
-                             gflop=flops / 1e9, mbytes=nbytes / 1e6, **c))
-            if shape == "wan2_1_1_3b" and dtype == torch.bfloat16:
+                             gflop=flops / 1e9, mbytes=nbytes / 1e6, **extra,
+                             **c))
+            if shape == "wan2_1_1_3b":
+                if dtype == torch.float32:
+                    planes = _planes_case(args[3], args[4])
+                    rows.append(_fwd_case("wan2_1_1_3b", args, kw,
+                                          plain=False, route="fma"))
                 rows.append(_fwd_case("wan2_1_1_3b count 1 (epilogue)",
                                       _diagonal_only(args), kw, plain=False))
             del args
         del q, k, v, plan
         torch.cuda.empty_cache()
+    # sla_fwd.cu's own calls: blocks other than 64 x 64, f32 and bf16
+    arch, h, n, d = SHAPES["lightningdit_1b"]
+    sla, q, k, v, plan = _kernel_inputs(arch, h, n, d, seed=3, block=32)
+    for dtype in (torch.float32, torch.bfloat16):
+        args, kw, _ = _operands(sla, q, k, v, plan.marginal, plan.lut,
+                                plan.counts, dtype)
+        rows.append(_fwd_case("lightningdit_1b 32x32 blocks", args, kw))
+    del args, q, k, v, plan
     h, n, d = SHAPES["wan2_1_1_3b"][1], 4096, 128
     args, kw = _gqa_fwd_operands(h, 2, n, d, base=32, seed=6)
     rows.append(_fwd_case("causal GQA-2 base 32", args, kw))
@@ -555,33 +679,41 @@ def phase_kernel_vs_plain():
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise RuntimeError(f"kernel disagrees with its plain twin: {bad}")
-    return rows
+    return rows, planes
 
 
-def _fwd_case(shape, args, kw, plain=True) -> dict:
-    """Check and time the forward kernel on one extra case of phase 3."""
-    c = _fwd_check(args, kw, shape)
-    ms = cuda_ms(lambda: sla_fwd.sla_fwd(*args, **kw), 20)
+def _fwd_case(shape, args, kw, plain=True, route=None) -> dict:
+    """Check and time the forward kernel of `route` (default: the rule's)
+    on one extra case of phase 3."""
+    c = _fwd_check(args, kw, shape, route)
+    ms = cuda_ms(_fwd_call(args, kw, route), 20)
     plain_ms = (cuda_ms(lambda: sla_fwd.sla_fwd_plain(*args, **kw), 3,
                         warmup=1) if plain else None)
     dtype = args[2].dtype
-    bound_ms, bound_by, flops, nbytes, live = _bound(args, kw, dtype)
+    bound_ms, bound_by, flops, nbytes, live = _bound(args, kw, route)
+    extra = {}
+    if c["route"] == FWD_SPLIT_ROUTE:
+        extra["bound_ms_f32_fma"] = _bound(args, kw, "fma")[0]
     dname = "f32" if dtype == torch.float32 else "bf16"
     say(f"[3 kernel] {shape} {dname} (BH={args[2].shape[0]}, BH_kv="
         f"{args[3].shape[0]}, Nq={args[2].shape[1]}, Nkv={args[3].shape[1]}"
-        f", D={args[2].shape[-1]}, causal {kw['causal']}, base "
-        f"{kw.get('base', 0)}, live tiles {live}): {_fwd_text(c)}")
+        f", D={args[2].shape[-1]}, blocks {kw['block_q']}, causal "
+        f"{kw['causal']}, base {kw.get('base', 0)}, live tiles {live}): "
+        f"{_fwd_text(c)}")
     say(f"  kernel {ms:.3f} ms | bound {bound_ms:.3f} ms by {bound_by} "
         f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f} MB; "
         f"{bound_ms / ms:.1%} of it)"
+        + (f" | f32-FMA bound {extra['bound_ms_f32_fma']:.3f} ms"
+           if extra else "")
         + (f" | plain twin {plain_ms:.3f} ms" if plain else ""))
     return dict(shape=shape, dtype=dname, bh=args[2].shape[0],
                 bh_kv=args[3].shape[0], n=args[2].shape[1],
-                d=args[2].shape[-1], causal=kw["causal"],
-                base=kw.get("base", 0), live_tiles=live, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                d=args[2].shape[-1], block=kw["block_q"],
+                causal=kw["causal"], base=kw.get("base", 0),
+                live_tiles=live, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
                 bound_fraction=bound_ms / ms, gflop=flops / 1e9,
-                mbytes=nbytes / 1e6, **c)
+                mbytes=nbytes / 1e6, **extra, **c)
 
 
 # --------------------------------------------------------------------------
@@ -623,7 +755,8 @@ def phase_main_path(cfg, params):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    sla_fwd.LAUNCHES = sla_fwd.TC_LAUNCHES = 0
+    sla_fwd.LAUNCHES = sla_fwd.TC_LAUNCHES = sla_fwd.SPLIT_LAUNCHES = 0
+    sla_fwd.PLANES_LAUNCHES = 0
     dit.forward = counted_forward
     t0 = time.time()
     try:
@@ -631,7 +764,8 @@ def phase_main_path(cfg, params):
     finally:
         dit.forward = orig_forward
     wall = time.time() - t0
-    launches, tc_launches = sla_fwd.LAUNCHES, sla_fwd.TC_LAUNCHES
+    launches, tc_launches, split_launches, planes_launches = \
+        _fwd_counters()
     peak = torch.cuda.max_memory_allocated() / 2**30
     st = sched.stats
     ticks = st.slot_steps_total // MAIN_SLOTS
@@ -656,13 +790,19 @@ def phase_main_path(cfg, params):
                                f"finite latent of the expected shape")
     want = cfg.num_layers * forwards
     say(f"  sla_fwd launches {launches} (expected {cfg.num_layers} x "
-        f"{forwards} forwards = {want}), on the tensor-core route "
-        f"{tc_launches} (expected 0: f32 compute)")
-    if launches != want or launches == 0 or tc_launches != 0:
+        f"{forwards} forwards = {want}), on the split route "
+        f"{split_launches} with {planes_launches} pre-pass launches "
+        f"(expected all: f32 compute at 64 x 64 blocks), on the bf16 "
+        f"tensor-core route {tc_launches} (expected 0)")
+    if launches != want or launches == 0 or tc_launches != 0 \
+            or split_launches != want or planes_launches != want:
         raise RuntimeError(f"main path launched sla_fwd {launches} times "
-                           f"({tc_launches} on tensor cores), expected "
-                           f"{want} (0)")
+                           f"({split_launches} split, {planes_launches} "
+                           f"pre-pass, {tc_launches} bf16 tensor cores), "
+                           f"expected {want} ({want}, {want}, 0)")
     return dict(launches=launches, tc_launches=tc_launches,
+                split_launches=split_launches,
+                planes_launches=planes_launches,
                 forwards=forwards, wall_s=wall,
                 peak_gib=peak, latency_s=lat, ticks=ticks,
                 plan_builds=st.plan_builds, plan_replans=st.plan_replans,
@@ -709,23 +849,52 @@ def phase_cross_check(cfg, params, profile: bool):
     if not ok:
         raise RuntimeError("kernel and gather backends disagree on the "
                            "full-width forward")
+    share = None
     if profile:
         from torch.profiler import ProfilerActivity, profile as prof_ctx
         with prof_ctx(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
-            run("kernel", plans=plans)
+            _, s_prof = run("kernel", plans=plans)
         say(prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=15))
+        share = _fwd_kernel_share(prof, s_prof)
+        say(f"[5 profile] one full-width f32 forward (kernel backend, given "
+            f"plans), {s_prof:.3f}s wall under the profiler: {share}")
     return plans, dict(max_abs_diff=diff, max_abs_v=scale,
                        kernel_fwd_s=s_k, gather_fwd_s=s_g,
-                       plan_fwd_s=s_plan, live_tiles=live)
+                       plan_fwd_s=s_plan, live_tiles=live,
+                       kernel1_profile=share)
+
+
+def _fwd_kernel_share(prof, wall_s: float) -> dict:
+    """Kernel 1's device time in a profile of a forward: the split
+    kernel and its pre-pass (and any other forward kernel), their launches
+    and mean times, and their share of the device time."""
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.is_user_annotation]
+    dev_us = sum(e.self_device_time_total for e in evs)
+    out = dict(device_s=dev_us / 1e6, busy=dev_us / 1e6 / wall_s)
+    total = 0.0
+    for name in ("sla_fwd_split_kernel", "split_kv_kernel",
+                 "sla_fwd_tc_kernel", "sla_fwd_kernel"):
+        mine = [e for e in evs if name in e.key]  # no name holds another
+        us = sum(e.self_device_time_total for e in mine)
+        n = sum(e.count for e in mine)
+        total += us
+        out[name] = dict(launches=n, ms_mean=us / n / 1e3 if n else None,
+                         s=us / 1e6)
+    out["kernel1_s"] = total / 1e6
+    out["kernel1_share"] = total / max(dev_us, 1e-9)
+    return out
 
 
 def phase_kernel_on_path_plans(cfg, plans):
     """The kernel against its twin on the LUTs the full-width forward
     built (sparse, uneven counts after the column cap), at the Wan shape
-    with seeded q/k/v: the first and the last layer, f32 (f32-FMA route)
-    and bf16 (tensor-core route), by `_fwd_check`."""
+    with seeded q/k/v: the first and the last layer, f32 (the split route,
+    and the f32-FMA kernel forced beside it) and bf16 (tensor-core route),
+    by `_fwd_check`."""
     sla = cfg.sla
     h, n, d = cfg.num_heads, MAIN_SEQ, cfg.head_dim
     gen = torch.Generator(device=DEV).manual_seed(2)
@@ -735,20 +904,26 @@ def phase_kernel_on_path_plans(cfg, plans):
     for layer in (0, cfg.num_layers - 1):
         lp = [x[layer] for x in (plans.marginal, plans.lut, plans.counts)]
         live = int(torch.clamp(lp[2], max=lp[1].shape[-1]).sum())
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype, route in ((torch.float32, None), (torch.float32, "fma"),
+                             (torch.bfloat16, None)):
             args, kw, _ = _operands(sla, q, k, v, *lp, dtype)
-            c = _fwd_check(args, kw, f"layer {layer} plans {dtype}")
-            ms = cuda_ms(lambda: sla_fwd.sla_fwd(*args, **kw), 20)
-            bound_ms, bound_by, _, _, _ = _bound(args, kw, dtype)
+            c = _fwd_check(args, kw, f"layer {layer} plans {dtype}", route)
+            ms = cuda_ms(_fwd_call(args, kw, route), 20)
+            bound_ms, bound_by, _, _, _ = _bound(args, kw, route)
+            extra = {}
+            if c["route"] == FWD_SPLIT_ROUTE:
+                extra["bound_ms_f32_fma"] = _bound(args, kw, "fma")[0]
             dname = "f32" if dtype == torch.float32 else "bf16"
             say(f"[5 path plans] wan2_1_1_3b layer {layer} {dname} (live "
                 f"tiles {live} of {lp[1].numel()}): {_fwd_text(c)} | kernel "
                 f"{ms:.3f} ms | bound {bound_ms:.3f} ms by {bound_by} "
-                f"({bound_ms / ms:.1%} of it)")
+                f"({bound_ms / ms:.1%} of it)"
+                + (f" | f32-FMA bound {extra['bound_ms_f32_fma']:.3f} ms"
+                   if extra else ""))
             rows.append(dict(shape=f"wan2_1_1_3b layer {layer} plans",
                              dtype=dname, live_tiles=live, ms=ms,
                              bound_ms=bound_ms, bound_by=bound_by,
-                             bound_fraction=bound_ms / ms, **c))
+                             bound_fraction=bound_ms / ms, **extra, **c))
             del args
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -1936,7 +2111,7 @@ def phase_lm_cross_check(cfg, run, profile: bool):
                   block_kv=bkv)
         c = _fwd_check(args, kw, f"lm prefill layer {layer}")
         ms = cuda_ms(lambda: sla_fwd.sla_fwd(*args, **kw), 10)
-        bound_ms, bound_by, _, _, live = _bound(args, kw, torch.bfloat16)
+        bound_ms, bound_by, _, _, live = _bound(args, kw)
         # the same call on the unrepeated kv heads (group 2): the kernel
         # reads a kv head for each of its 2 query heads, bitwise as on
         # the repeated copy (the path keeps `_repeat_kv`, as the reference)
@@ -2598,7 +2773,7 @@ def main(argv=None) -> int:
     t_all = time.time()
     phase_card()
     phase_build()
-    rows = phase_kernel_vs_plain()
+    rows, planes = phase_kernel_vs_plain()
     cfg, params = _main_model(seed=0)
     main_run = phase_main_path(cfg, params)
     plans, cross = phase_cross_check(cfg, params, args.profile)
@@ -2630,11 +2805,21 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     pu = phase_unpaged_mixed(lm_cfg, lm_params)
     puc = pu["counters"]
-    wan32 = next(r for r in rows
-                 if r["shape"] == "wan2_1_1_3b" and r["dtype"] == "f32")
-    wan16 = next(r for r in rows
-                 if r["shape"] == "wan2_1_1_3b" and r["dtype"] == "bf16")
+    def row(shape, dtype, route):
+        return next(r for r in rows if r["shape"] == shape
+                    and r["dtype"] == dtype and r["route"] == route)
+
+    wan32 = row("wan2_1_1_3b", "f32", FWD_SPLIT_ROUTE)
+    wan32_fma = row("wan2_1_1_3b", "f32", FWD_F32_ROUTE)
+    wan16 = row("wan2_1_1_3b", "bf16", FWD_TC_ROUTE)
+    ldit32 = row("lightningdit_1b", "f32", FWD_SPLIT_ROUTE)
+    layers = {f"path_layer{layer}": {
+        route: row(f"wan2_1_1_3b layer {layer} plans", "f32", route)
+        for route in (FWD_SPLIT_ROUTE, FWD_F32_ROUTE)}
+        for layer in (0, 29)}
     fwd_tc = [r for r in rows if r["route"] == FWD_TC_ROUTE]
+    fwd_split = [r for r in rows if r["route"] == FWD_SPLIT_ROUTE]
+    fwd_fma = [r for r in rows if r["route"] == FWD_F32_ROUTE]
     wan_bwd = {r["kernel"]: r for r in bwd_rows
                if r["shape"] == "wan2_1_1_3b" and r["dtype"] == "f32"}
     wan_tc = {r["kernel"]: r for r in bwd_rows
@@ -2647,14 +2832,28 @@ def main(argv=None) -> int:
         f"({wan16['bound_fraction']:.1%}) | compiled flex_attention forward "
         f"on the same LUT (O^s and L only, lacks O^l): "
         + (f"{flex16:.3f} ms" if flex16 is not None else "not measured"))
+    say(f"[18] sla_fwd at the Wan f32 case: split route {wan32['ms']:.3f} ms "
+        f"against its bound {wan32['bound_ms']:.3f} ms "
+        f"({wan32['bound_fraction']:.1%}; the f32-FMA bound "
+        f"{wan32['bound_ms_f32_fma']:.3f} ms) | f32-FMA kernel "
+        f"{wan32_fma['ms']:.3f} ms | path layer 0 / 29: split "
+        f"{layers['path_layer0'][FWD_SPLIT_ROUTE]['ms']:.3f} / "
+        f"{layers['path_layer29'][FWD_SPLIT_ROUTE]['ms']:.3f} ms, f32-FMA "
+        f"{layers['path_layer0'][FWD_F32_ROUTE]['ms']:.3f} / "
+        f"{layers['path_layer29'][FWD_F32_ROUTE]['ms']:.3f} ms")
     tc_paths = {"serve": main_run["tc_launches"],
                 "train": train["launches"]["tc_sla_fwd"],
                 "lm_prefill": lm["launches"]["tc_sla_fwd"],
                 "lm_paged_prefill": pgc["tc_sla_fwd"],
                 "lm_unpaged_prefill": puc["tc_sla_fwd"]}
+    # the other paths compute in bf16: every launch there is a tensor-core
+    # one (phases 9, 12, 15, 17 check), so none is on the split route
+    split_paths = {"serve": main_run["split_launches"], "train": 0,
+                   "lm_prefill": 0, "lm_paged_prefill": 0,
+                   "lm_unpaged_prefill": 0}
     kernels = [{
         "name": "sla_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/sla_fwd.cu",
+        "source": "src/repro_torch/kernels/csrc/sla_fwd_split.cu",
         "replaces": "src/repro/kernels/sla_fwd.py:34",
         "launches": (main_run["launches"] + train["launches"]["sla_fwd"]
                      + lm["launches"]["sla_fwd"] + pgc["sla_fwd"]
@@ -2664,17 +2863,35 @@ def main(argv=None) -> int:
                              "lm_prefill": lm["launches"]["sla_fwd"],
                              "lm_paged_prefill": pgc["sla_fwd"],
                              "lm_unpaged_prefill": puc["sla_fwd"]},
-        "max_abs_err": max(r["max_abs_err"] for r in rows
-                           if r["route"] == FWD_F32_ROUTE),
+        "max_abs_err": max(r["max_abs_err"] for r in fwd_split),
         "ms": wan32["ms"], "plain_ms": wan32["plain_ms"],
         "bound_ms": wan32["bound_ms"], "bound_by": wan32["bound_by"],
         "library_ms": None,
         "library": "none: no PyTorch call computes O^l with the sparse "
                    "softmax",
+        "route_f32": FWD_SPLIT_ROUTE,
+        "split_launches": sum(split_paths.values()),
+        "split_launches_by_path": split_paths,
+        "bound_fraction": wan32["bound_fraction"],
+        "bound_ms_f32_fma": wan32["bound_ms_f32_fma"],
+        "split_ctas_per_sm": sla_fwd.split_ctas_per_sm(),
+        "ms_lightningdit": ldit32["ms"],
+        "split_limits_all_ok": all(r["ok"] for r in fwd_split),
         "dense_sdpa_ms": wan32["dense_sdpa_ms"],
         "gather_ms": wan32["gather_ms"],
+        "kernel_backend_ms": wan32["kernel_backend_ms"],
         "flex_sparse_branch_fwd_ms": wan_bwd["sla_bwd_dq"].get(
             "library_fwd_ms"),
+        **{f"ms_{name}": {"split": by[FWD_SPLIT_ROUTE]["ms"],
+                          "f32_fma": by[FWD_F32_ROUTE]["ms"],
+                          "bound_split": by[FWD_SPLIT_ROUTE]["bound_ms"],
+                          "bound_f32_fma": by[FWD_F32_ROUTE]["bound_ms"]}
+           for name, by in layers.items()},
+        "serve_profile": cross["kernel1_profile"],
+        "route_fma": FWD_F32_ROUTE,
+        "source_fma": "src/repro_torch/kernels/csrc/sla_fwd.cu",
+        "ms_fma": wan32_fma["ms"], "bound_ms_fma": wan32_fma["bound_ms"],
+        "max_abs_err_fma": max(r["max_abs_err"] for r in fwd_fma),
         "route_bf16": FWD_TC_ROUTE,
         "source_bf16": "src/repro_torch/kernels/csrc/sla_fwd_tc.cu",
         "tc_launches": sum(tc_paths.values()),
@@ -2690,6 +2907,19 @@ def main(argv=None) -> int:
         "train_ms_per_launch": (train["ms_per_launch"] or {}).get(
             "sla_fwd_tc_kernel"),
         "cases": rows,
+    }, {
+        "name": "sla_fwd_split_planes", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sla_fwd_split.cu",
+        "replaces": "src/repro/kernels/sla_fwd.py:34",
+        "part_of": "sla_fwd's split route: its K/V pre-pass",
+        "launches": main_run["planes_launches"],
+        "launches_by_path": {"serve": main_run["planes_launches"]},
+        "max_abs_err": planes["max_abs_err"], "ms": planes["ms"],
+        "plain_ms": planes["plain_ms"], "bound_ms": planes["bound_ms"],
+        "bound_by": planes["bound_by"], "library_ms": None,
+        "library": "none: no one PyTorch call cuts f32 into bf16 parts",
+        "bitwise_vs_twin": planes["bitwise"],
+        "bound_fraction": planes["bound_fraction"],
     }]
     for name, line in (("sla_bwd_dq", 48), ("sla_bwd_dkv", 76)):
         mine = [r for r in bwd_rows if r["kernel"] == name]

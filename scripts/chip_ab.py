@@ -6,7 +6,12 @@
 
 Runs, in the order parent, change, change, parent and each tree in its
 own process from its own root (so each builds and loads its own
-kernels): three full-width Wan2.1 training steps through that tree's
+kernels): four full-width f32 Wan2.1 serving forwards (batch 1, seq_len
+32768, kernel backend, the plans of one forward with inline planning
+given), three timed by the host clock around a synchronised forward (the
+walls) and the fourth under torch.profiler (the forward kernel's device
+time: the split kernel and its pre-pass, or the parent's f32-FMA
+kernel); then three full-width Wan2.1 training steps through that tree's
 `chip_smoke.phase_train` (kernel backend, bf16 compute, per-layer remat),
 then three static Qwen3-1.7B prefill groups of 2 x 32,000 tokens through
 the `ServingEngine` (kernel backend, decode-SLA), then four groups that
@@ -40,6 +45,39 @@ from repro_torch.serving.engine import Request, ServingEngine
 cs.phase_card()
 cs.phase_build()
 cfg, params = cs._main_model(seed=0)
+from repro_torch.models import dit
+from torch.profiler import ProfilerActivity, profile
+rs = np.random.default_rng(1)
+lat = torch.from_numpy(rs.standard_normal((1, 32768, cfg.patch_dim),
+                                          dtype=np.float32)).cuda()
+cond = torch.from_numpy(rs.standard_normal((1, cfg.cond_len, cfg.d_model),
+                                           dtype=np.float32)).cuda()
+tt = torch.full((1,), 0.6, device="cuda")
+with torch.no_grad():
+    _, plans = dit.forward(params, cfg, lat, tt, cond, torch.float32,
+                           "kernel", return_plans=True)
+    serve_walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        dit.forward(params, cfg, lat, tt, cond, torch.float32, "kernel",
+                    plans=plans)
+        torch.cuda.synchronize()
+        serve_walls.append(time.time() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dit.forward(params, cfg, lat, tt, cond, torch.float32, "kernel",
+                    plans=plans)
+        torch.cuda.synchronize()
+dev = [e for e in prof.key_averages()
+       if e.device_type == torch.autograd.DeviceType.CUDA]
+fwd = [e for e in dev if re.search(r"sla_fwd\w*_kernel|split_kv_kernel",
+                                   e.key)]
+serve_kernel_ms = sum(e.self_device_time_total for e in fwd) / 1e3
+serve_device_ms = sum(e.self_device_time_total for e in dev) / 1e3
+serve_kernel_launches = sum(e.count for e in fwd)
+del plans, lat, cond
+torch.cuda.empty_cache()
 train = cs.phase_train(cfg, params, False)
 del params
 torch.cuda.empty_cache()
@@ -137,6 +175,10 @@ for _ in range(200):
 host_us = (time.perf_counter() - t0) / 200 * 1e6
 torch.cuda.synchronize()
 print("AB " + json.dumps(dict(
+    serve_fwd_walls=serve_walls,
+    serve_fwd_kernel1_ms=serve_kernel_ms,
+    serve_fwd_kernel1_launches=serve_kernel_launches,
+    serve_fwd_device_ms=serve_device_ms,
     train_walls=[r["wall_s"] for r in train["steps"]],
     peak_gib=train["peak_gib"], prefill_s=prefill,
     decode_ms_per_step=decode_ms,

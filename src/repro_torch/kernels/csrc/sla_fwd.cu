@@ -30,8 +30,10 @@
 // 4 x 4 tile of the 64 x 64 scores and a 4 x 8 tile of the 64 x 128
 // accumulator, with row reductions done by warp shuffles inside 16-lane
 // groups. Tiles are kept in f32 whatever the input type (about 82 KB of
-// shared memory at D = 128), so two blocks fit on an SM. The tensor cores
-// (wgmma, TMA) are not used yet: that is the next step for speed.
+// shared memory at D = 128), so two blocks fit on an SM. It takes the
+// calls the tensor-core kernels do not (blocks other than 64 x 64): at
+// 64 x 64 blocks and D <= 128, f32 runs on sla_fwd_split.cu and bf16 on
+// sla_fwd_tc.cu.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -4,8 +4,8 @@
 //
 // Replaces, for bf16 q, k, v at 64 x 64 blocks and head dims up to 128,
 // the Pallas TPU kernel `_fwd_kernel` in src/repro/kernels/sla_fwd.py
-// (launched by `sla_fwd`). Every other case takes the f32-FMA kernel of
-// sla_fwd.cu. For each (batch*head bh, query block i) it computes
+// (launched by `sla_fwd`). f32 at those blocks takes sla_fwd_split.cu,
+// every other case the f32-FMA kernel of sla_fwd.cu. For each (batch*head bh, query block i) it computes
 //   O^s_i = softmax(Q_i K_J^T * scale) V_J   over the counts[bh,i] critical
 //           blocks J = lut[bh,i,:counts], online (running max m, sum l, acc),
 //   lse_i = m + log l,
@@ -49,7 +49,8 @@
 // blocks, and its arithmetic stays the f32 kernel's): phi(Q_i) and Z_i
 // are staged in the freed tile ring, H_i streams through it in 32-row
 // chunks, two deep, and each thread owns an 8 x 8 tile of the 64 x D
-// output (4-wide shared loads, ~72 FMAs per 24 load wavefronts a warp).
+// output (4-wide shared loads, ~72 FMAs per 24 load wavefronts a warp;
+// sm90_tc.cuh's `linear_branch`, shared with sla_fwd_split.cu).
 // Shared memory (~81 KB) and registers admit two CTAs per SM, so one
 // CTA's exponentials and epilogue overlap the other's products. The
 // helpers shared with the tensor-core backward are in sm90_tc.cuh.
@@ -59,21 +60,15 @@ namespace {
 
 using namespace sm90;
 
-constexpr float kEps = 1e-6f;
 constexpr float kLn2 = 0.6931471805599453f;
 // the reference's masked score, -1e30, in the exp2 domain
 constexpr float kMasked2 = -1e30f * kLog2e;
 
 // smem: Q_i, then two stages of (K_j, V_j), 1024-byte aligned. The
-// epilogue reuses it as phi(Q_i) (64 rows of stride d + 4 floats), Z_i
-// and two 32-row chunks of H_i.
+// linear-branch epilogue reuses it for phi(Q_i), Z_i and H_i chunks.
 constexpr int kStageBytes = 2 * kTileBytes;
 constexpr size_t kSmem = 1024 + kTileBytes + 2 * kStageBytes;
-constexpr int kHRows = 32;                   // H_i rows per chunk
-constexpr int kPQFloats = kBlock * (kD + 4);  // phi(Q_i) at d = 128
-constexpr int kZOff = kPQFloats;             // Z_i (floats from the base)
-constexpr int kHOff = kZOff + kD;            // H_i chunk 0, then chunk 1
-static_assert((kHOff + 2 * kHRows * kD) * 4 <= kTileBytes + 2 * kStageBytes,
+static_assert(kLinearSmemBytes <= kTileBytes + 2 * kStageBytes,
               "the epilogue's tiles must fit the freed ring");
 
 __global__ void __launch_bounds__(kThreads, 2)
@@ -230,102 +225,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     lse[row_base + r0 + 8] = m2[1] * kLn2 + logf(l[1]);
   }
 
-  // Linear branch: num = phi(Q_i) H_i, den = phi(Q_i) Z_i in f32, with
-  // phi(Q_i), Z_i and H_i staged by cp.async in the freed ring.
-  cp_async_wait_all();
-  __syncthreads();  // every product that read the ring is done
-  float* fbase = reinterpret_cast<float*>(smem_raw + pad);
-  const int ps = d + 4;  // phi(Q_i) row stride in floats
-  const int d4 = d >> 2;
-  const float* qp_blk = qp + row_base * d;
-  const float* hi_blk = hi + (size_t)row_blk * d * d;
-  const uint32_t f0 = sbase;
-  for (int idx = tid; idx < kBlock * d4; idx += kThreads) {
-    const int r = idx / d4, c4 = idx - r * d4;
-    cp_async16(f0 + (r * ps + c4 * 4) * 4, qp_blk + (size_t)r * d + c4 * 4);
-  }
-  if (tid < d4)
-    cp_async16(f0 + (kZOff + tid * 4) * 4, zi + (size_t)row_blk * d + tid * 4);
-  const int n_chunks = (d + kHRows - 1) / kHRows;
-  auto load_h = [&](int c) {
-    const int rows = min(kHRows, d - c * kHRows);
-    const uint32_t dst = f0 + (kHOff + (c & 1) * kHRows * kD) * 4;
-    const float* src = hi_blk + (size_t)c * kHRows * d;
-    for (int idx = tid; idx < rows * d4; idx += kThreads)
-      cp_async16(dst + idx * 16, src + idx * 4);
-  };
-  load_h(0);
-  cp_async_commit();
-  if (n_chunks > 1) load_h(1);
-  cp_async_commit();
-
-  const int tx = tid & 15, ty = tid >> 4;  // rows ty + 8 rr; columns
-  const int c0 = 4 * tx, c1 = 64 + 4 * tx;  // c0..c0+3 and c1..c1+3
-  const bool ok0 = c0 < d, ok1 = c1 < d;
-  const int cr0 = ok0 ? c0 : 0, cr1 = ok1 ? c1 : 0;  // clamped reads
-  const float* sPQ = fbase;
-  const float* sZ = fbase + kZOff;
-  float num[8][8], den[8];
-#pragma unroll
-  for (int rr = 0; rr < 8; ++rr) {
-    den[rr] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) num[rr][e] = 0.f;
-  }
-  for (int c = 0; c < n_chunks; ++c) {
-    cp_async_wait<1>();  // chunk c (and phi(Q_i), Z_i) landed
-    __syncthreads();
-    const float* sH = fbase + kHOff + (c & 1) * kHRows * kD;
-    const int rows = min(kHRows, d - c * kHRows);
-    for (int dd = 0; dd < rows; dd += 4) {
-      float4 q4[8];
-#pragma unroll
-      for (int rr = 0; rr < 8; ++rr)
-        q4[rr] = *reinterpret_cast<const float4*>(
-            sPQ + (ty + 8 * rr) * ps + c * kHRows + dd);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float4 h0 =
-            *reinterpret_cast<const float4*>(sH + (dd + u) * d + cr0);
-        const float4 h1 =
-            *reinterpret_cast<const float4*>(sH + (dd + u) * d + cr1);
-        const float z = sZ[c * kHRows + dd + u];
-#pragma unroll
-        for (int rr = 0; rr < 8; ++rr) {
-          const float qv = u == 0   ? q4[rr].x
-                           : u == 1 ? q4[rr].y
-                           : u == 2 ? q4[rr].z
-                                    : q4[rr].w;
-          num[rr][0] = fmaf(qv, h0.x, num[rr][0]);
-          num[rr][1] = fmaf(qv, h0.y, num[rr][1]);
-          num[rr][2] = fmaf(qv, h0.z, num[rr][2]);
-          num[rr][3] = fmaf(qv, h0.w, num[rr][3]);
-          num[rr][4] = fmaf(qv, h1.x, num[rr][4]);
-          num[rr][5] = fmaf(qv, h1.y, num[rr][5]);
-          num[rr][6] = fmaf(qv, h1.z, num[rr][6]);
-          num[rr][7] = fmaf(qv, h1.w, num[rr][7]);
-          den[rr] = fmaf(qv, z, den[rr]);
-        }
-      }
-    }
-    __syncthreads();  // everyone is done with this chunk's buffer
-    if (c + 2 < n_chunks) load_h(c + 2);
-    cp_async_commit();
-  }
-#pragma unroll
-  for (int rr = 0; rr < 8; ++rr) {
-    const bool live = den[rr] > kEps;
-    float out[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) out[e] = live ? num[rr][e] / den[rr] : 0.f;
-    float* dst = o_l + (row_base + ty + 8 * rr) * d;
-    if (ok0)
-      *reinterpret_cast<float4*>(dst + c0) =
-          make_float4(out[0], out[1], out[2], out[3]);
-    if (ok1)
-      *reinterpret_cast<float4*>(dst + c1) =
-          make_float4(out[4], out[5], out[6], out[7]);
-  }
+  // Linear branch in f32, in the freed ring (sm90_tc.cuh).
+  linear_branch(sbase, reinterpret_cast<const float*>(smem_raw + pad),
+                qp + row_base * d, hi + (size_t)row_blk * d * d,
+                zi + (size_t)row_blk * d, o_l + row_base * d, d, tid);
 }
 
 }  // namespace

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core SLA kernels
-// (sla_fwd_tc.cu, sla_bwd_tc.cu): cp.async staging of 64 x 128 bf16 tiles
-// into the 128-byte-swizzled layout wgmma reads, the wgmma shared-memory
-// descriptors for K-major and MN-major operands, the m64n64k16 bf16
-// products with f32 accumulators, and the accumulator's register layout.
+// (sla_fwd_tc.cu, sla_fwd_split.cu, sla_bwd_tc.cu): cp.async staging of
+// 64 x 128 bf16 tiles into the 128-byte-swizzled layout wgmma reads, the
+// wgmma shared-memory descriptors for K-major and MN-major operands, the
+// m64n64k16 bf16 products with f32 accumulators, the accumulator's
+// register layout, and the forwards' f32 linear-branch epilogue.
 //
 // Every kernel built on them runs one warpgroup (128 threads) per CTA at
 // 64 x 64 blocks and a head dim of 128 (the wrappers zero-pad narrower
@@ -151,6 +152,20 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (+)= A B, m64n64k16, A from registers, B K-major in shared memory
+// (the split forward's S = Q K^T with Q's lower parts held in registers).
+__device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_WGMMA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : SM90_WGMMA_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -174,6 +189,120 @@ __device__ __forceinline__ void zero(float (&acc)[NA][32]) {
   for (int a = 0; a < NA; ++a)
 #pragma unroll
     for (int t = 0; t < 32; ++t) acc[a][t] = 0.f;
+}
+
+// The forward kernels' linear branch, in f32 FMAs (not TF32 or bf16: H_i is
+// a sum over many blocks): rows of query block i of O^l = phi(Q_i) H_i /
+// (phi(Q_i) Z_i), zero where the denominator is <= 1e-6, at the true head
+// dim d. phi(Q_i) (64 rows of stride d + 4 floats) and Z_i are staged by
+// cp.async into the freed shared memory at `sbase` (1024-byte aligned,
+// kLinearSmemBytes long), H_i streams through it in 32-row chunks, two
+// deep, and each of the 128 threads owns an 8 x 8 tile of the 64 x d
+// output (4-wide shared loads, ~72 FMAs per 24 load wavefronts a warp).
+// Call when no product still reads that memory; it waits for the caller's
+// own copies first.
+constexpr float kDenEps = 1e-6f;
+constexpr int kHRows = 32;                    // H_i rows per chunk
+constexpr int kPQFloats = kBlock * (kD + 4);  // phi(Q_i) at d = 128
+constexpr int kZOff = kPQFloats;              // Z_i (floats from the base)
+constexpr int kHOff = kZOff + kD;             // H_i chunk 0, then chunk 1
+constexpr int kLinearSmemBytes = (kHOff + 2 * kHRows * kD) * 4;
+
+// `fbase` is the generic pointer to the shared address `sbase`.
+__device__ __forceinline__ void linear_branch(
+    uint32_t sbase, const float* fbase, const float* qp_blk,
+    const float* hi_blk, const float* zi_row, float* o_l_blk, int d,
+    int tid) {
+  cp_async_wait_all();
+  __syncthreads();  // every product that read the ring is done
+  const int ps = d + 4;  // phi(Q_i) row stride in floats
+  const int d4 = d >> 2;
+  const uint32_t f0 = sbase;
+  for (int idx = tid; idx < kBlock * d4; idx += kThreads) {
+    const int r = idx / d4, c4 = idx - r * d4;
+    cp_async16(f0 + (r * ps + c4 * 4) * 4, qp_blk + (size_t)r * d + c4 * 4);
+  }
+  if (tid < d4) cp_async16(f0 + (kZOff + tid * 4) * 4, zi_row + tid * 4);
+  const int n_chunks = (d + kHRows - 1) / kHRows;
+  auto load_h = [&](int c) {
+    const int rows = min(kHRows, d - c * kHRows);
+    const uint32_t dst = f0 + (kHOff + (c & 1) * kHRows * kD) * 4;
+    const float* src = hi_blk + (size_t)c * kHRows * d;
+    for (int idx = tid; idx < rows * d4; idx += kThreads)
+      cp_async16(dst + idx * 16, src + idx * 4);
+  };
+  load_h(0);
+  cp_async_commit();
+  if (n_chunks > 1) load_h(1);
+  cp_async_commit();
+
+  const int tx = tid & 15, ty = tid >> 4;  // rows ty + 8 rr; columns
+  const int c0 = 4 * tx, c1 = 64 + 4 * tx;  // c0..c0+3 and c1..c1+3
+  const bool ok0 = c0 < d, ok1 = c1 < d;
+  const int cr0 = ok0 ? c0 : 0, cr1 = ok1 ? c1 : 0;  // clamped reads
+  const float* sPQ = fbase;
+  const float* sZ = fbase + kZOff;
+  float num[8][8], den[8];
+#pragma unroll
+  for (int rr = 0; rr < 8; ++rr) {
+    den[rr] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) num[rr][e] = 0.f;
+  }
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<1>();  // chunk c (and phi(Q_i), Z_i) landed
+    __syncthreads();
+    const float* sH = fbase + kHOff + (c & 1) * kHRows * kD;
+    const int rows = min(kHRows, d - c * kHRows);
+    for (int dd = 0; dd < rows; dd += 4) {
+      float4 q4[8];
+#pragma unroll
+      for (int rr = 0; rr < 8; ++rr)
+        q4[rr] = *reinterpret_cast<const float4*>(
+            sPQ + (ty + 8 * rr) * ps + c * kHRows + dd);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float4 h0 =
+            *reinterpret_cast<const float4*>(sH + (dd + u) * d + cr0);
+        const float4 h1 =
+            *reinterpret_cast<const float4*>(sH + (dd + u) * d + cr1);
+        const float z = sZ[c * kHRows + dd + u];
+#pragma unroll
+        for (int rr = 0; rr < 8; ++rr) {
+          const float qv = u == 0   ? q4[rr].x
+                           : u == 1 ? q4[rr].y
+                           : u == 2 ? q4[rr].z
+                                    : q4[rr].w;
+          num[rr][0] = fmaf(qv, h0.x, num[rr][0]);
+          num[rr][1] = fmaf(qv, h0.y, num[rr][1]);
+          num[rr][2] = fmaf(qv, h0.z, num[rr][2]);
+          num[rr][3] = fmaf(qv, h0.w, num[rr][3]);
+          num[rr][4] = fmaf(qv, h1.x, num[rr][4]);
+          num[rr][5] = fmaf(qv, h1.y, num[rr][5]);
+          num[rr][6] = fmaf(qv, h1.z, num[rr][6]);
+          num[rr][7] = fmaf(qv, h1.w, num[rr][7]);
+          den[rr] = fmaf(qv, z, den[rr]);
+        }
+      }
+    }
+    __syncthreads();  // everyone is done with this chunk's buffer
+    if (c + 2 < n_chunks) load_h(c + 2);
+    cp_async_commit();
+  }
+#pragma unroll
+  for (int rr = 0; rr < 8; ++rr) {
+    const bool live = den[rr] > kDenEps;
+    float out[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) out[e] = live ? num[rr][e] / den[rr] : 0.f;
+    float* dst = o_l_blk + (size_t)(ty + 8 * rr) * d;
+    if (ok0)
+      *reinterpret_cast<float4*>(dst + c0) =
+          make_float4(out[0], out[1], out[2], out[3]);
+    if (ok1)
+      *reinterpret_cast<float4*>(dst + c1) =
+          make_float4(out[4], out[5], out[6], out[7]);
+  }
 }
 
 }  // namespace sm90

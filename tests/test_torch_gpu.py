@@ -97,19 +97,20 @@ CASES = [
 @pytest.mark.parametrize("h,group,n,d,block,causal,base", CASES)
 def test_cuda_kernel_matches_plain_twin(h, group, n, d, block, causal, base,
                                         dtype):
-    """The f32-FMA route within 5e-5; the tensor-core route (bf16 at
-    64 x 64 blocks) by the rounding criterion on (O^s, lse) and 5e-5 on
-    O^l; the route's own counter moves once per call."""
+    """The f32-FMA and split routes within 5e-5; the tensor-core route
+    (bf16 at 64 x 64 blocks) by the rounding criterion on (O^s, lse) and
+    5e-5 on O^l; the route's own counter moves once per call."""
     _need_gpu()
     args, kw, _ = _operands(7, h, group, n, d, block, dtype, causal, base,
                             span=4)
-    tc = sla_fwd.use_tensor_cores(dtype, block, block, d)
-    before = (sla_fwd.LAUNCHES, sla_fwd.TC_LAUNCHES)
+    route = sla_fwd.forward_route(dtype, block, block, d)
+    tc = route == "tc"
+    before = _fwd_counters()
     got = sla_fwd.sla_fwd(*args, **kw)
     want = sla_fwd.sla_fwd_plain(*args, **kw)
     torch.cuda.synchronize()
-    assert (sla_fwd.LAUNCHES, sla_fwd.TC_LAUNCHES) == (before[0] + 1,
-                                                       before[1] + int(tc))
+    assert _fwd_counters() == (before[0] + 1, before[1] + int(tc),
+                               before[2] + int(route == "split"))
     for g in got:
         assert g.is_cuda and g.dtype == torch.float32
     if tc:
@@ -117,6 +118,10 @@ def test_cuda_kernel_matches_plain_twin(h, group, n, d, block, causal, base,
         return
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=TWIN_TOL, rtol=TWIN_TOL)
+
+
+def _fwd_counters():
+    return sla_fwd.LAUNCHES, sla_fwd.TC_LAUNCHES, sla_fwd.SPLIT_LAUNCHES
 
 
 def _assert_tc_fwd(got, want, args, kw):
@@ -189,6 +194,135 @@ def test_cuda_tc_fwd_kernel_refuses_misaligned_operands():
     with pytest.raises(ValueError, match="16-byte aligned"):
         sla_fwd.sla_fwd(args[0], args[1], shifted, *args[3:], **kw)
     assert (sla_fwd.LAUNCHES, sla_fwd.TC_LAUNCHES) == before
+
+
+SPLIT_CASES = [c for c in CASES if c[4] == 64] + [
+    (4, 2, 512, 108, 64, True, 2)]
+
+
+def _assert_split_fwd(got, args, kw):
+    """The split route against the f32 twin within 5e-5 x max(1, max
+    |twin|) on each of o_s, o_l and lse, and against the twin that cuts
+    and sums alike (`mma_dtype="bf16x3"`) within the same limit."""
+    want = sla_fwd.sla_fwd_plain(*args, **kw)
+    cut = sla_fwd.sla_fwd_plain(*args, **kw, mma_dtype="bf16x3")
+    for g, w, c in zip(got, want, cut):
+        assert g.is_cuda and g.dtype == torch.float32
+        atol = TWIN_TOL * max(1.0, float(w.abs().max()))
+        torch.testing.assert_close(g, w, atol=atol, rtol=0)
+        torch.testing.assert_close(g, c, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("h,group,n,d,block,causal,base", SPLIT_CASES)
+def test_cuda_split_fwd_kernel_matches_f32_twin(h, group, n, d, block,
+                                                causal, base):
+    """f32 at 64 x 64 blocks takes the split route (one split launch and
+    one pre-pass launch a call), held at the f32 criterion."""
+    _need_gpu()
+    args, kw, _ = _operands(11, h, group, n, d, block, torch.float32, causal,
+                            base, span=4)
+    assert sla_fwd.forward_route(torch.float32, block, block, d) == "split"
+    before = _fwd_counters() + (sla_fwd.PLANES_LAUNCHES,)
+    got = sla_fwd.sla_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert _fwd_counters() + (sla_fwd.PLANES_LAUNCHES,) == (
+        before[0] + 1, before[1], before[2] + 1, before[3] + 1)
+    _assert_split_fwd(got, args, kw)
+
+
+def test_cuda_split_planes_match_their_twin_bitwise():
+    """The pre-pass cuts bit for bit as `split_kv_planes_plain` does, pads
+    D 108 with zeros, and its planes sum back to k and v."""
+    _need_gpu()
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    k, v = (torch.randn((6, 256, 108), generator=gen, device="cuda") * 3.0
+            for _ in range(2))
+    k[0, 0, :4] = torch.tensor([0.0, -0.0, 3.4e38, 1e-40])
+    before = sla_fwd.PLANES_LAUNCHES
+    got = sla_fwd.split_kv_planes(k, v)
+    want = sla_fwd.split_kv_planes_plain(k, v)
+    torch.cuda.synchronize()
+    assert sla_fwd.PLANES_LAUNCHES == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == (3, 6, 256, 128) and g.dtype == torch.bfloat16
+        assert torch.equal(g.view(torch.int16), w.view(torch.int16))
+    assert torch.equal(got[0].double().sum(0)[1:, :, :108], k.double()[1:])
+
+
+def test_cuda_split_fwd_kernel_is_deterministic():
+    """No atomics on the split route: two launches on the same operands
+    (causal GQA-2 with a row offset, D 128 and 108) are bitwise equal."""
+    _need_gpu()
+    for d in (128, 108):
+        args, kw, _ = _operands(13, 4, 2, 1024, d, 64, torch.float32, True,
+                                4, span=8)
+        before = sla_fwd.SPLIT_LAUNCHES
+        first = sla_fwd.sla_fwd(*args, **kw)
+        second = sla_fwd.sla_fwd(*args, **kw)
+        torch.cuda.synchronize()
+        assert sla_fwd.SPLIT_LAUNCHES == before + 2
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+        _assert_split_fwd(first, args, kw)
+
+
+def test_cuda_split_fwd_kernel_stops_at_counts():
+    """The split route never reads a padded LUT slot: with every slot past
+    the counts naming an extra KV block of NaN, the outputs stay finite
+    and bitwise what they were."""
+    _need_gpu()
+    args, kw, _ = _operands(14, 2, 1, 512, 128, 64, torch.float32, False, 0,
+                            span=8)
+    lut, counts, q, k, v = args[:5]
+    counts = torch.clamp(counts - 1, min=1)  # padded slots in every row
+    nan = torch.full((k.shape[0], 64, 128), float("nan"), device="cuda")
+    k_nan, v_nan = (torch.cat([x, nan], dim=1) for x in (k, v))
+    extra = k.shape[1] // 64  # the NaN block's index
+    dead = torch.arange(lut.shape[-1], device="cuda") >= counts[..., None]
+    lut_nan = torch.where(dead, torch.full_like(lut, extra), lut)
+    assert int(dead.sum()) > 0
+    base_args = (lut, counts, q, k, v, *args[5:])
+    want = sla_fwd.sla_fwd(*base_args, **kw)
+    got = sla_fwd.sla_fwd(lut_nan, counts, q, k_nan, v_nan, *args[5:], **kw)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    _assert_split_fwd(got, base_args, kw)
+
+
+def test_cuda_split_fwd_kernel_refuses_misaligned_operands():
+    """The split kernel reads q in 8-byte pairs and cp.async's the rest in
+    16-byte chunks: an operand that does not start on 16 bytes is refused
+    before any launch, the pre-pass's included."""
+    _need_gpu()
+    args, kw, _ = _operands(15, 2, 1, 256, 128, 64, torch.float32, False, 0,
+                            span=4)
+    for i in (2, 3):  # q, k
+        x = args[i]
+        store = torch.empty(x.numel() + 4, dtype=x.dtype, device="cuda")
+        shifted = store[1:1 + x.numel()].view(x.shape)
+        shifted.copy_(x)
+        assert shifted.is_contiguous() and shifted.data_ptr() % 16
+        bad = list(args)
+        bad[i] = shifted
+        before = _fwd_counters() + (sla_fwd.PLANES_LAUNCHES,)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            sla_fwd.sla_fwd(*bad, **kw)
+        assert _fwd_counters() + (sla_fwd.PLANES_LAUNCHES,) == before
+
+
+def test_cuda_fma_kernel_forced_at_the_split_shape():
+    """`sla_fwd.cu` still takes f32 at 64 x 64 blocks when forced (as
+    chip_smoke times it beside the split kernel), within 5e-5."""
+    _need_gpu()
+    args, kw, _ = _operands(16, 2, 1, 512, 128, 64, torch.float32, True, 2,
+                            span=4)
+    before = _fwd_counters()
+    got = sla_fwd._launch(*args, **kw, route="fma")
+    want = sla_fwd.sla_fwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert _fwd_counters() == (before[0] + 1, before[1], before[2])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=TWIN_TOL, rtol=TWIN_TOL)
 
 
 def test_cuda_kernel_refuses_what_it_cannot_take():

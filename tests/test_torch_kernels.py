@@ -12,6 +12,13 @@ the Pallas kernel within the bf16 limit; the route rule the forward shares
 with the backward, the head-dim padding of that route, and the build's
 hashing of the shared CUDA header are checked here too.
 
+The twin's `mma_dtype="bf16x3"` form computes Q K^T and P V as the split
+kernel (f32 at 64 x 64 blocks, on the tensor cores) does: three bf16
+parts of each operand, six part products summed in f32. It is held to
+the Pallas kernel within 5e-5 and to the f32 twin within 1e-5, the cut
+(`split_bf16x3`) to recombine exactly, and the forward's three-way route
+rule is checked on a table of dtypes, blocks and head dims.
+
 The CUDA kernels themselves run only on a GPU: their tests are in
 tests/test_torch_gpu.py, which imports no JAX so that it runs on the card.
 """
@@ -212,6 +219,181 @@ def test_cpu_tensors_at_the_tensor_core_shape_run_the_f32_twin():
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+F32_CASES = [c for c in CASES if c.values[-1] == "f32"]
+SPLIT_TOL = 1e-5  # split twin vs f32 twin, x max(1, max |twin|)
+
+
+@pytest.mark.parametrize("d,group,causal,base,dtype", F32_CASES)
+def test_split_twin_matches_pallas_kernel(d, group, causal, base, dtype):
+    """The twin that cuts and sums the products as the split kernel does
+    (`mma_dtype="bf16x3"`) against the Pallas kernel at the f32 limit."""
+    ops, base = _case(d + group, d, group, causal, base, dtype)
+    kw = dict(scale=d ** -0.5, causal=causal, block_q=BLOCK,
+              block_kv=BLOCK)
+    want = jax_sla_fwd(*_jax_args(ops, dtype), **kw, interpret=True,
+                       base=jnp.asarray([base], jnp.int32))
+    got = sla_fwd.sla_fwd_plain(*_torch_args(ops, dtype), **kw, base=base,
+                                mma_dtype="bf16x3")
+    for name, g, w in zip(("o_s", "o_l", "lse"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                   atol=TOL["f32"], rtol=TOL["f32"],
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("d,group,causal,base,dtype", F32_CASES)
+def test_split_twin_matches_f32_twin(d, group, causal, base, dtype,
+                                     record_property):
+    """The split twin against the f32 twin within 1e-5 x max(1, max
+    |twin|) on o_s, o_l and lse (the measured distance is recorded as
+    `split_twin_max_abs_err`); O^l, whose arithmetic is the f32 twin's on
+    either, is bitwise equal."""
+    ops, base = _case(d + group, d, group, causal, base, dtype)
+    kw = dict(scale=d ** -0.5, causal=causal, block_q=BLOCK,
+              block_kv=BLOCK, base=base)
+    args = _torch_args(ops, dtype)
+    want = sla_fwd.sla_fwd_plain(*args, **kw)
+    got = sla_fwd.sla_fwd_plain(*args, **kw, mma_dtype="bf16x3")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    scale = max(1.0, max(float(w.abs().max()) for w in want))
+    record_property("split_twin_max_abs_err", err)
+    assert err <= SPLIT_TOL * scale, err
+    assert float((got[0] - want[0]).abs().max()) > 0  # the products differ
+    assert torch.equal(got[1], want[1])
+
+
+SPLIT_VALUES = {
+    "randn": np.random.default_rng(0).standard_normal(4096) * 10.0,
+    "large": [3.4028235e38, -3.4028235e38, 1e38, -2.5e37, 65504.0, 1e30],
+    "zeros": [0.0, -0.0],
+    "small_normals": [1.1754944e-38, -2.0 ** -110, 2.0 ** -100 * 1.2345,
+                      1e-37, -3e-35],
+    "denormals": [1e-40, -3e-42, 1.4e-45, -5.877472e-39, 2.0 ** -133,
+                  2.0 ** -140],
+}
+
+
+@pytest.mark.parametrize("family", list(SPLIT_VALUES))
+def test_split_parts_recombine(family):
+    """`split_bf16x3`: every part is exact in bf16, |x1| <= 2^-7 |x| and
+    |x2| <= 2^-15 |x|; the parts sum to x exactly when x's lowest set bit
+    is at or above 2^-133 (bf16's denormal step: every normal x down to
+    2^-110 and the large ones up to the f32 maximum, which truncation
+    never rounds past), and within 2^-133 otherwise (no sum of bf16 values
+    lands between its steps), so within 2^-24 |x| for |x| >= 2^-109.
+    Zeros keep their sign."""
+    x = torch.tensor(SPLIT_VALUES[family], dtype=torch.float32)
+    parts = sla_fwd.split_bf16x3(x)
+    assert len(parts) == sla_fwd.SPLIT_PARTS
+    for part in parts:
+        assert torch.isfinite(part).all()
+        assert torch.equal(part.to(torch.bfloat16).float(), part)
+    xd = x.double()
+    assert torch.all(parts[1].double().abs() <= 2.0 ** -7 * xd.abs())
+    assert torch.all(parts[2].double().abs() <= 2.0 ** -15 * xd.abs())
+    err = (sum(part.double() for part in parts) - xd).abs()
+    on_grid = torch.remainder(xd, 2.0 ** -133) == 0
+    assert torch.all(err[on_grid] == 0)
+    assert torch.all(err < 2.0 ** -133)
+    big = xd.abs() >= 2.0 ** -109
+    assert torch.all(err[big] <= 2.0 ** -24 * xd.abs()[big])
+    if family == "zeros":
+        assert torch.equal(torch.signbit(parts[0]), torch.signbit(x))
+
+
+def test_split_kv_planes_twin_pads_and_recombines():
+    """The pre-pass's twin: (3, BH_kv, N, 128) bf16 planes whose columns
+    past D are zero and whose sum is k (v) exactly; the CPU call counts no
+    launch."""
+    rs = np.random.default_rng(4)
+    k, v = (torch.from_numpy(rs.standard_normal((3, 128, 108),
+                                                dtype=np.float32))
+            for _ in range(2))
+    before = sla_fwd.PLANES_LAUNCHES
+    k3, v3 = sla_fwd.split_kv_planes(k, v)
+    assert sla_fwd.PLANES_LAUNCHES == before
+    for x, x3 in ((k, k3), (v, v3)):
+        assert x3.shape == (3, 3, 128, sla_fwd.TC_HEAD_DIM)
+        assert x3.dtype == torch.bfloat16
+        assert float(x3[..., 108:].abs().max()) == 0
+        assert torch.equal(x3.double().sum(0)[..., :108], x.double())
+
+
+@pytest.mark.parametrize("dtype,block_q,block_kv,d,route", [
+    (torch.float32, 64, 64, 128, "split"),
+    (torch.float32, 64, 64, 108, "split"),
+    (torch.float32, 64, 64, 32, "split"),
+    (torch.float32, 32, 32, 128, "fma"),
+    (torch.float32, 16, 16, 108, "fma"),
+    (torch.float32, 64, 32, 128, "fma"),
+    (torch.float32, 64, 64, 132, "fma"),
+    (torch.bfloat16, 64, 64, 128, "tc"),
+    (torch.bfloat16, 64, 64, 108, "tc"),
+    (torch.bfloat16, 32, 32, 128, "fma"),
+    (torch.bfloat16, 64, 64, 132, "fma"),
+])
+def test_forward_route_rule(dtype, block_q, block_kv, d, route):
+    """The forward's three routes; the split rule is the forward's alone,
+    so the backward's (shared) tensor-core rule still sends f32 to its
+    f32-FMA kernels."""
+    assert sla_fwd.forward_route(dtype, block_q, block_kv, d) == route
+    assert sla_fwd.use_split(dtype, block_q, block_kv, d) is (
+        route == "split")
+    assert sla_bwd.use_tensor_cores(dtype, block_q, block_kv, d) is (
+        route == "tc")
+
+
+def test_cpu_tensors_at_the_split_shape_run_the_f32_twin():
+    """A CPU call at the split route's shape (f32, 64 x 64 blocks, D 108)
+    runs the f32 twin, not the split twin, and counts no launch of any
+    route or of the pre-pass."""
+    ops, _ = _case(2, 108, 1, False, 0, "f32", n=256)
+    args = _torch_args(ops, "f32")
+    h, n = args[2].shape[:2]
+    tm = n // 64
+    lut = torch.stack([torch.arange(tm, dtype=torch.int32)] * h)
+    call = [lut[..., None], torch.ones_like(lut), *args[2:6],
+            torch.zeros((h, tm, 108, 108)), torch.ones((h, tm, 108))]
+    kw = dict(scale=108 ** -0.5, causal=False, block_q=64, block_kv=64)
+    assert sla_fwd.forward_route(args[2].dtype, 64, 64, 108) == "split"
+    counters = ("LAUNCHES", "TC_LAUNCHES", "SPLIT_LAUNCHES",
+                "PLANES_LAUNCHES")
+    before = [getattr(sla_fwd, c) for c in counters]
+    got = sla_fwd.sla_fwd(*call, **kw)
+    assert [getattr(sla_fwd, c) for c in counters] == before
+    want = sla_fwd.sla_fwd_plain(*call, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    split = sla_fwd.sla_fwd_plain(*call, **kw, mma_dtype="bf16x3")
+    assert not torch.equal(got[0], split[0])
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "split"),
+                                         (torch.float32, "tc"),
+                                         (torch.float32, "dense")])
+def test_forced_route_must_take_the_call(dtype, route):
+    """`_launch` forces a route only where that route's kernel takes the
+    call (the f32-FMA kernel takes every one): the rest are refused before
+    any build or launch."""
+    ops, _ = _case(2, 32, 1, False, 0, "f32", n=256)
+    args = _torch_args(ops, "f32")
+    for i in (2, 3, 4):
+        args[i] = args[i].to(dtype)
+    h, n = args[2].shape[:2]
+    tm = n // 64
+    lut = torch.stack([torch.arange(tm, dtype=torch.int32)] * h)
+    call = [lut[..., None], torch.ones_like(lut), *args[2:6],
+            torch.zeros((h, tm, 32, 32)), torch.ones((h, tm, 32))]
+    with pytest.raises(ValueError, match="does not take"):
+        sla_fwd._launch(*call, scale=1.0, causal=False, block_q=64,
+                        block_kv=64, base=0, route=route)
+
+
+def test_twin_refuses_unknown_mma_dtype():
+    args = _valid_args()
+    with pytest.raises(ValueError, match="mma_dtype"):
+        sla_fwd.sla_fwd_plain(*args, scale=1.0, causal=False, block_q=BLOCK,
+                              block_kv=BLOCK, mma_dtype=torch.float16)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_kernel_op_matches_dense_oracle(causal):
     """ops.sla_attention_core (h/z, aggregation, kernel twin) against the
@@ -279,7 +461,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
     assert _build.kernel_names() == ["sla_bwd", "sla_bwd_tc", "sla_decode",
-                                     "sla_fwd", "sla_fwd_tc"]
+                                     "sla_fwd", "sla_fwd_split", "sla_fwd_tc"]
 
 
 def test_library_path_hashes_the_shared_headers(monkeypatch, tmp_path):
