@@ -50,6 +50,24 @@ Phases, in order; any failure exits non-zero before the result line:
      phase 3; bf16 on tensor cores by phase 3's criterion). `--profile`
      adds a profile of one full-width f32 forward: kernel 1's launches,
      mean times and share of the device time.
+  6. plan cache (on phase 4's model, with phase 5's plans alive): the
+     DiffusionScheduler as in phase 4 but with the reference plan-cache
+     stage's policy (adaptive refresh, drift threshold 0.3, 8 timestep
+     buckets) drains the same 4 seeded requests (each its own latent and
+     text condition, 3 steps from t 1.0) twice, the cache off and then
+     on. Checks every latent finite and of shape (32768, 64); with the
+     cache on 3 hits, 1 miss, 0 evictions, 60 entries and 60 puts plus
+     the invalidations; 30 plan builds on, 120 off; 30 `sla_fwd` launches
+     a forward in both runs, all on the split route with one pre-pass
+     each, none on the bf16 route; on each hit, every layer the drift
+     check kept bitwise equal to its cache entry; and one full-width
+     30-layer stack (phase 5's) through `serialize_plan` ->
+     `deserialize_plan` bitwise on all six leaves. Prints the
+     invalidations, re-plans, reuses, the lowest retention, each
+     request's admission wall and latency in both runs, max |latent(on)
+     - latent(off)| against max |latent|, the stack's bytes and its
+     serialize (device->host) and deserialize (host->device) times, the
+     host bytes the cache holds, and peak device memory.
   7. backward kernels vs plain twins: `sla_bwd_dq` and `sla_bwd_dkv`
      against `sla_bwd_dq_plain` / `sla_bwd_dkv_plain` on the same card
      tensors (L and O^s from the forward kernel, a seeded dO), at both
@@ -267,6 +285,9 @@ SHAPES = {  # name: (arch, heads, seq_len, head_dim)
 }
 MAIN_SEQ, MAIN_SLOTS, MAIN_STEPS = 32768, 2, 4
 MAIN_T_STARTS = (1.0, 0.75, 1.0)
+# the plan-cache trace (phase 6): a fleet denoising at one resolution and
+# schedule, the reference plan-cache stage's policy, cache off then on
+PC_REQUESTS, PC_STEPS, PC_THRESHOLD, PC_BUCKETS = 4, 3, 0.3, 8
 GRAD_TOL = 1e-4  # kernel vs gather gradients, relative to max(1, max |g|)
 TRAIN_STEPS, TRAIN_BATCH = 3, 1  # dit_video_32k's global batch 16, cut
 PROBES = ("layers.0.wq", "layers.29.sla_proj", "patch_out")
@@ -930,6 +951,219 @@ def phase_kernel_on_path_plans(cfg, plans):
         raise RuntimeError(f"kernel disagrees with its plain twin on the "
                            f"path's plans: {bad}")
     return rows
+
+
+# --------------------------------------------------------------------------
+def _time_calls(obj, name: str, parts: dict) -> None:
+    """Wrap `obj.name` so that each call's wall, synchronized at both
+    ends, is appended to parts[name]."""
+    orig = getattr(obj, name)
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = orig(*a, **kw)
+        torch.cuda.synchronize()
+        parts.setdefault(name, []).append(time.time() - t0)
+        return out
+
+    setattr(obj, name, timed)
+
+
+def _plan_cache_run(cfg, params, reqs, cache: bool) -> dict:
+    """One drain of the phase-6 trace, the launch counts set to 0 just
+    before it and read just after. The admission forwards and the
+    cache's calls are timed. With the cache on, each cached admission's
+    plans, drift info and the cache entries it was handed are kept for
+    the kept-layers check."""
+    nl = cfg.num_layers
+    sched = DiffusionScheduler(
+        cfg, params, num_slots=MAIN_SLOTS, seq_len=MAIN_SEQ,
+        backend="kernel", compute_dtype=torch.float32,
+        refresh_mode="adaptive", drift_threshold=PC_THRESHOLD,
+        plan_cache=cache, t_buckets=PC_BUCKETS, device=DEV)
+    for lat, cond in reqs:
+        sched.submit(lat, DenoiseParams(num_steps=PC_STEPS, t_start=1.0),
+                     cond=cond)
+    hits, parts = [], {}
+    for name in ("_admit_fresh", "_admit_cached"):
+        _time_calls(sched, name, parts)
+    if cache:
+        for name in ("get", "put", "update", "put_if_absent"):
+            _time_calls(sched.cache, name, parts)
+        orig_cached = sched._admit_cached
+
+        def admit_cached(lat1, t1, dt1, cond1, cached):
+            pc = sched.cache
+            bucket = pc.bucket(float(t1[0]))
+            entries = [pc._entries[(pc._compat, layer, bucket)]
+                       for layer in range(nl)]
+            out = orig_cached(lat1, t1, dt1, cond1, cached)
+            hits.append(dict(entries=entries, plans=out[1], info=out[2]))
+            return out
+
+        sched._admit_cached = admit_cached
+    forwards = 0
+    orig_forward = dit.forward
+
+    def counted_forward(*a, **kw):
+        nonlocal forwards
+        forwards += 1
+        return orig_forward(*a, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sla_fwd.LAUNCHES = sla_fwd.TC_LAUNCHES = sla_fwd.SPLIT_LAUNCHES = 0
+    sla_fwd.PLANES_LAUNCHES = 0
+    dit.forward = counted_forward
+    t0 = time.time()
+    try:
+        done = sched.drain()
+    finally:
+        dit.forward = orig_forward
+    wall = time.time() - t0
+    launches, tc_launches, split_launches, planes_launches = \
+        _fwd_counters()
+    return dict(sched=sched, done=done, hits=hits, parts=parts, wall_s=wall,
+                forwards=forwards, launches=launches,
+                tc_launches=tc_launches, split_launches=split_launches,
+                planes_launches=planes_launches,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def phase_plan_cache(cfg, params, plans):
+    """Phase 6: the cross-request plan cache on the full-width DiT
+    service. The same 4 seeded requests (each its own latent and text
+    condition, 3 steps from t 1.0) drain with the cache off, then on."""
+    nl = cfg.num_layers
+    rs = np.random.default_rng(6)
+    reqs = [(rs.standard_normal((MAIN_SEQ, cfg.patch_dim),
+                                dtype=np.float32),
+             rs.standard_normal((cfg.cond_len, cfg.d_model),
+                                dtype=np.float32))
+            for _ in range(PC_REQUESTS)]
+    runs = {name: _plan_cache_run(cfg, params, reqs, name == "on")
+            for name in ("off", "on")}
+    bad = []
+    for name, run in runs.items():
+        st = run["sched"].stats
+        want = nl * run["forwards"]
+        say(f"[6 plan cache {name}] {len(run['done'])} requests x "
+            f"{PC_STEPS} steps at seq_len {MAIN_SEQ} through {MAIN_SLOTS} "
+            f"slots in {run['wall_s']:.2f}s | {st.admissions} admissions + "
+            f"{st.slot_steps_total // MAIN_SLOTS} ticks = {run['forwards']} "
+            f"forwards | plans built {st.plan_builds}, reused "
+            f"{st.plan_reuses}, re-planned {st.plan_replans}, last "
+            f"retention {st.last_retention:.4f} | sla_fwd launches "
+            f"{run['launches']} (expected {want}), split "
+            f"{run['split_launches']}, pre-pass {run['planes_launches']}, "
+            f"bf16 tensor cores {run['tc_launches']} | peak memory "
+            f"{run['peak_gib']:.2f} GiB")
+        say(f"  timed parts (s, in call order; forwards and cache calls "
+            f"synchronized at both ends): "
+            + ", ".join(f"{k} {[round(x, 4) for x in v]}"
+                        for k, v in run["parts"].items()))
+        for r in run["done"]:
+            m = r.metrics
+            finite = (r.result is not None
+                      and bool(np.isfinite(r.result).all()))
+            say(f"  request {r.rid}: admission "
+                f"{m.first_token_t - m.admit_t:.3f}s, latency "
+                f"{m.latency_s:.3f}s, queue {m.queue_s:.3f}s, state "
+                f"{r.state.value}, latent finite {finite}")
+            if r.state.value != "finished" or not finite \
+                    or r.result.shape != (MAIN_SEQ, cfg.patch_dim):
+                bad.append(f"{name}: request {r.rid} did not finish with "
+                           f"a finite latent of the expected shape")
+        if (run["launches"], run["split_launches"], run["planes_launches"],
+                run["tc_launches"]) != (want, want, want, 0) or want == 0:
+            bad.append(f"{name}: sla_fwd launches {run['launches']} "
+                       f"(split {run['split_launches']}, pre-pass "
+                       f"{run['planes_launches']}, bf16 "
+                       f"{run['tc_launches']}), expected {want}, {want}, "
+                       f"{want}, 0")
+        builds = nl * (1 if name == "on" else PC_REQUESTS)
+        if st.plan_builds != builds:
+            bad.append(f"{name}: {st.plan_builds} plan builds, expected "
+                       f"{builds}")
+    on, off = runs["on"], runs["off"]
+    cache = on["sched"].cache
+    cs = cache.stats()
+    say(f"  cache {cs} | host bytes held {cache.host_bytes()} | "
+        f"invalidations {cs['invalidations']} of {len(on['hits']) * nl} "
+        f"validated layers")
+    want_cs = dict(hits=PC_REQUESTS - 1, misses=1, evictions=0,
+                   entries=2 * nl, puts=2 * nl + cs["invalidations"])
+    if any(cs[k] != v for k, v in want_cs.items()):
+        bad.append(f"cache counters {cs}, expected {want_cs}")
+    # on each hit, the layers the drift check kept are the entries, bitwise
+    kept = mismatched = 0
+    min_ret = 1.0
+    for hit in on["hits"]:
+        replanned = hit["info"]["replanned"].cpu().numpy().reshape(nl)
+        min_ret = min(min_ret, float(hit["info"]["retention"].min()))
+        for layer in np.flatnonzero(~replanned):
+            kept += 1
+            for n in plan_lib.PLAN_LEAVES:
+                got = getattr(hit["plans"], n)[layer:layer + 1].cpu().numpy()
+                ent = hit["entries"][layer][n]
+                if got.dtype != ent.dtype or got.tobytes() != ent.tobytes():
+                    mismatched += 1
+    say(f"  cached admissions {len(on['hits'])}: {kept} kept layers, "
+        f"{mismatched} leaves differing from their cache entry; lowest "
+        f"retention at a cached admission {min_ret:.4f}")
+    if mismatched or len(on["hits"]) != PC_REQUESTS - 1:
+        bad.append(f"{mismatched} kept-layer leaves differ from the cache "
+                   f"entries ({len(on['hits'])} cached admissions)")
+    diffs = []
+    for a, b in zip(on["done"], off["done"]):
+        d = float(np.abs(a.result - b.result).max())
+        diffs.append(dict(rid=a.rid, max_abs_diff=d,
+                          max_abs_latent=float(np.abs(b.result).max())))
+    say(f"  latent, cache on vs off: {diffs}")
+    # one full-width 30-layer stack through the wire format
+    torch.cuda.synchronize()
+    t0 = time.time()
+    data = plan_lib.serialize_plan(plans)
+    ser_s = time.time() - t0
+    t0 = time.time()
+    back = plan_lib.deserialize_plan(data, DEV)
+    torch.cuda.synchronize()
+    de_s = time.time() - t0
+    nbytes = sum(getattr(plans, n).nbytes for n in plan_lib.PLAN_LEAVES)
+    same = {n: bool(getattr(back, n).dtype == getattr(plans, n).dtype
+                    and torch.equal(getattr(back, n), getattr(plans, n)))
+            for n in plan_lib.PLAN_LEAVES}
+    say(f"  one {nl}-layer stack ({nbytes} bytes, "
+        f"{ {n: getattr(plans, n).nbytes for n in plan_lib.PLAN_LEAVES} }): "
+        f"serialize (device->host) {ser_s:.4f}s, deserialize (host->"
+        f"device) {de_s:.4f}s, bitwise {same}")
+    if not all(same.values()):
+        bad.append(f"the stack does not round-trip bitwise: {same}")
+    if bad:
+        raise RuntimeError("plan-cache phase failed: " + "; ".join(bad))
+
+    def req_times(run):
+        return [dict(rid=r.rid, admission_s=r.metrics.first_token_t
+                     - r.metrics.admit_t, latency_s=r.metrics.latency_s)
+                for r in run["done"]]
+
+    return dict(
+        cache=cs, host_bytes=cache.host_bytes(), kept_layers=kept,
+        min_retention=min_ret, latent_diff=diffs,
+        stack_bytes=nbytes, serialize_s=ser_s, deserialize_s=de_s,
+        **{name: dict(
+            wall_s=run["wall_s"], forwards=run["forwards"],
+            launches=run["launches"], split_launches=run["split_launches"],
+            planes_launches=run["planes_launches"],
+            tc_launches=run["tc_launches"], peak_gib=run["peak_gib"],
+            parts_s=run["parts"],
+            requests=req_times(run),
+            **{k: getattr(run["sched"].stats, k) for k in (
+                "plan_builds", "plan_replans", "plan_reuses",
+                "plan_cache_hits", "plan_cache_misses",
+                "plan_cache_invalidations", "plan_cache_evictions")})
+           for name, run in runs.items()})
 
 
 # --------------------------------------------------------------------------
@@ -2778,6 +3012,7 @@ def main(argv=None) -> int:
     main_run = phase_main_path(cfg, params)
     plans, cross = phase_cross_check(cfg, params, args.profile)
     rows += phase_kernel_on_path_plans(cfg, plans)
+    pcache = phase_plan_cache(cfg, params, plans)
     bwd_rows = phase_bwd_vs_plain()
     bwd_rows += phase_bwd_on_path_plans(cfg, plans)
     grads = phase_grad_cross_check(cfg, plans)
@@ -2841,24 +3076,32 @@ def main(argv=None) -> int:
         f"{layers['path_layer29'][FWD_SPLIT_ROUTE]['ms']:.3f} ms, f32-FMA "
         f"{layers['path_layer0'][FWD_F32_ROUTE]['ms']:.3f} / "
         f"{layers['path_layer29'][FWD_F32_ROUTE]['ms']:.3f} ms")
+    pc_runs = (pcache["off"], pcache["on"])
+    pc_launches = {key: sum(r[key] for r in pc_runs) for key in (
+        "launches", "split_launches", "planes_launches", "tc_launches")}
     tc_paths = {"serve": main_run["tc_launches"],
+                "serve_plan_cache": pc_launches["tc_launches"],
                 "train": train["launches"]["tc_sla_fwd"],
                 "lm_prefill": lm["launches"]["tc_sla_fwd"],
                 "lm_paged_prefill": pgc["tc_sla_fwd"],
                 "lm_unpaged_prefill": puc["tc_sla_fwd"]}
     # the other paths compute in bf16: every launch there is a tensor-core
     # one (phases 9, 12, 15, 17 check), so none is on the split route
-    split_paths = {"serve": main_run["split_launches"], "train": 0,
+    split_paths = {"serve": main_run["split_launches"],
+                   "serve_plan_cache": pc_launches["split_launches"],
+                   "train": 0,
                    "lm_prefill": 0, "lm_paged_prefill": 0,
                    "lm_unpaged_prefill": 0}
     kernels = [{
         "name": "sla_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sla_fwd_split.cu",
         "replaces": "src/repro/kernels/sla_fwd.py:34",
-        "launches": (main_run["launches"] + train["launches"]["sla_fwd"]
+        "launches": (main_run["launches"] + pc_launches["launches"]
+                     + train["launches"]["sla_fwd"]
                      + lm["launches"]["sla_fwd"] + pgc["sla_fwd"]
                      + puc["sla_fwd"]),
         "launches_by_path": {"serve": main_run["launches"],
+                             "serve_plan_cache": pc_launches["launches"],
                              "train": train["launches"]["sla_fwd"],
                              "lm_prefill": lm["launches"]["sla_fwd"],
                              "lm_paged_prefill": pgc["sla_fwd"],
@@ -2912,8 +3155,11 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/sla_fwd_split.cu",
         "replaces": "src/repro/kernels/sla_fwd.py:34",
         "part_of": "sla_fwd's split route: its K/V pre-pass",
-        "launches": main_run["planes_launches"],
-        "launches_by_path": {"serve": main_run["planes_launches"]},
+        "launches": (main_run["planes_launches"]
+                     + pc_launches["planes_launches"]),
+        "launches_by_path": {
+            "serve": main_run["planes_launches"],
+            "serve_plan_cache": pc_launches["planes_launches"]},
         "max_abs_err": planes["max_abs_err"], "ms": planes["ms"],
         "plain_ms": planes["plain_ms"], "bound_ms": planes["bound_ms"],
         "bound_by": planes["bound_by"], "library_ms": None,
@@ -3003,7 +3249,8 @@ def main(argv=None) -> int:
         **{key: head5[key] for key in split_keys},
         "cases": pg_rows,
     })
-    say(f"[18] main path {main_run} | cross-check {cross} | grads {grads} | "
+    say(f"[18] main path {main_run} | cross-check {cross} | plan cache "
+        f"{pcache} | grads {grads} | "
         f"train {train} | train CLI {cli} | lm {lm} | lm cross-check "
         f"{lm_cross} | paged lm {pg} | unpaged mixed {pu} | total "
         f"{time.time() - t_all:.1f}s")

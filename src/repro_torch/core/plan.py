@@ -7,13 +7,15 @@ refreshed only when its drift says so.
 
 Counterpart of `repro.core.plan`. This is the only place LUTs are built;
 `core/masks.py` keeps the classification math and `core/backends.py` the
-execution. Plan serialization arrives with the plan cache.
+execution; `serialize_plan` / `deserialize_plan` carry a plan across
+requests for the plan cache (`serving/plan_cache.py`).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.config import SLAConfig
@@ -332,3 +334,50 @@ def refresh_plan_per_sample(plan: SLAPlan, q: torch.Tensor, k: torch.Tensor,
         return torch.where(m, new_leaf, old_leaf)
 
     return plan_map(sel, fresh, plan), retention, replanned
+
+
+# ---------------------------------------------------------------------------
+# plan serialization + config compatibility (serving/plan_cache.py)
+# ---------------------------------------------------------------------------
+_PLAN_WIRE_VERSION = 1
+
+
+def plan_compat_key(cfg: SLAConfig, heads: int, tm: int, tn: int) -> tuple:
+    """Hashable key under which two SLAPlans are interchangeable: the
+    config and shape fields that fix the leaves' shapes and the
+    classification. Execution-only fields (phi, proj_init, decode_*) are
+    absent, so changing them keeps cached structure. The same tuple as
+    the reference's, field by field."""
+    return (
+        "sla-plan-v%d" % _PLAN_WIRE_VERSION,
+        cfg.block_q, cfg.block_kv, cfg.kh_frac, cfg.kl_frac, cfg.mode,
+        bool(cfg.causal), bool(cfg.force_diagonal), cfg.fixed_budget,
+        cfg.col_capacity_factor, cfg.routing_mode, cfg.window,
+        int(heads), int(tm), int(tn),
+    )
+
+
+def serialize_plan(plan: SLAPlan) -> dict:
+    """SLAPlan -> dict of host numpy leaves (+ wire version), in
+    `PLAN_LEAVES` order: the reference's wire format. One device->host
+    copy a leaf; the arrays never alias the plan's tensors (on the CPU
+    too), so a cache entry outlives in-place writes to the plan."""
+    out = {"__version__": _PLAN_WIRE_VERSION}
+    for name in PLAN_LEAVES:
+        out[name] = getattr(plan, name).detach().to(
+            "cpu", copy=True).numpy()
+    return out
+
+
+def deserialize_plan(data: dict, device) -> SLAPlan:
+    """Dict from `serialize_plan` -> SLAPlan with its leaves on `device`
+    (copies: the plan never aliases `data`). Refuses another wire
+    version."""
+    v = data.get("__version__")
+    if v != _PLAN_WIRE_VERSION:
+        raise ValueError(
+            f"serialized SLAPlan wire version {v!r} != "
+            f"{_PLAN_WIRE_VERSION} — refusing to guess leaf layout")
+    return SLAPlan(**{name: torch.tensor(np.asarray(data[name]),
+                                         device=device)
+                      for name in PLAN_LEAVES})

@@ -9,6 +9,9 @@
         --arch qwen3-1.7b --smoke --device cpu --decode-sla --backend kernel
     python -m repro_torch.launch.serve --workload dit --arch wan2_1_1_3b \
         --backend kernel --seq-len 32768
+    PYTHONPATH=src python -m repro_torch.launch.serve --workload dit \
+        --arch wan2_1_1_3b --smoke --device cpu --backend kernel \
+        --plan-cache --t-buckets 8 --cache-entries 256
 
 Counterpart of `repro.launch.serve` with its LM flags (the static engine,
 the continuous scheduler with `--stream`, the paged KV cache with
@@ -110,7 +113,16 @@ def main(argv=None):
                     help="dit: per-slot plan refresh policy. Default: "
                          "cfg.sla.plan_refresh_mode")
     ap.add_argument("--plan-cache", action="store_true",
-                    help="dit: cross-request plan cache (not ported yet)")
+                    help="dit: cross-request plan cache — admissions "
+                         "look up per-(layer, timestep-bucket) SLAPlans "
+                         "and validate them through the drift check "
+                         "instead of planning from scratch "
+                         "(serving/plan_cache.py)")
+    ap.add_argument("--t-buckets", type=int, default=8,
+                    help="dit: timestep buckets for --plan-cache keys")
+    ap.add_argument("--cache-entries", type=int, default=256,
+                    help="dit: LRU bound on --plan-cache entries "
+                         "(per-layer, per-bucket)")
     ap.add_argument("--stats-json", default=None, metavar="PATH",
                     help="after the run, dump ServeStats + per-request "
                          "metrics as JSON to PATH")
@@ -275,7 +287,8 @@ def _run_dit(args, cfg, params, rs, device):
         cfg, params, num_slots=args.batch, seq_len=seq_len,
         backend=args.backend, refresh_mode=args.refresh_mode,
         drift_threshold=args.drift_threshold,
-        plan_cache=args.plan_cache or None, device=device)
+        plan_cache=args.plan_cache, t_buckets=args.t_buckets,
+        cache_entries=args.cache_entries, device=device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     t0 = time.time()
@@ -294,6 +307,12 @@ def _run_dit(args, cfg, params, rs, device):
     print(f"plans: {st.plan_builds} built, {st.plan_reuses} reused, "
           f"{st.plan_replans} re-plans | retention "
           f"{st.last_retention:.3f}")
+    if sched.cache is not None:
+        print(f"plan cache: {st.plan_cache_hits} hits / "
+              f"{st.plan_cache_misses} misses, "
+              f"{st.plan_cache_invalidations} drift invalidations, "
+              f"{st.plan_cache_evictions} evictions "
+              f"({len(sched.cache)} entries)")
     lats = [r.metrics.latency_s for r in done
             if r.metrics.latency_s is not None]
     if lats:

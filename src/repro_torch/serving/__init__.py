@@ -1,3 +1,3 @@
-"""Serving surfaces of the port: the streaming DiT denoise service, the
-static LM serving engine, and the continuous LM scheduler with its paged,
-prefix-shared KV cache."""
+"""Serving surfaces of the port: the streaming DiT denoise service with
+its cross-request plan cache, the static LM serving engine, and the
+continuous LM scheduler with its paged, prefix-shared KV cache."""

@@ -187,7 +187,7 @@ class ServeStats:
     prefill_chunks: int = 0
     max_decode_gap_s: float = 0.0
     denoise_steps: int = 0  # per-request Euler steps executed
-    # the cross-request plan cache's counters (not ported yet: 0)
+    # the cross-request plan cache's counters (DiffusionScheduler)
     plan_cache_hits: int = 0
     plan_cache_misses: int = 0
     plan_cache_invalidations: int = 0

@@ -7,10 +7,11 @@ modulation and attention are row-independent, so a mixed-timestep batch
 computes for each row what a batch-1 run at that row's t would.
 
   submit -> queue -> [admission: a batch-1 step-0 forward plans the
-  request's per-layer SLAPlans and writes (latent, plans) into a free
-  slot] -> per tick, ONE batched forward + Euler update advances every
-  active slot one step at its own (t, dt) -> a slot that reaches its
-  request's num_steps retires and frees for the next admission.
+  request's per-layer SLAPlans (or validates cached ones) and writes
+  (latent, plans) into a free slot] -> per tick, ONE batched forward +
+  Euler update advances every active slot one step at its own (t, dt)
+  -> a slot that reaches its request's num_steps retires and frees for
+  the next admission.
 
 Plan refresh inside the tick is per sample
 (`plan.refresh_plan_per_sample`): "fixed" intervals become a per-slot
@@ -18,8 +19,16 @@ Plan refresh inside the tick is per sample
 refresh never couples to its neighbours' and each request's trajectory
 equals its own sequential `dit.sample` run.
 
-Counterpart of `repro.serving.diffusion`. The cross-request plan cache
-(`plan_cache=`) arrives with a later slice (ROADMAP.md queue 1, item 12).
+Cross-request plan cache (`serving/plan_cache.py`, `plan_cache=`):
+admission looks up the request's timestep bucket; on a hit the first
+forward validates the cached per-layer stack through the drift check
+instead of planning from scratch. Layers whose structure still fits are
+planning saved fleet-wide; layers that drifted re-plan and are written
+back. Mid-flight, a slot crossing into a bucket not yet filled donates
+its current plans, so the first requests fill the timestep axis for the
+requests behind them.
+
+Counterpart of `repro.serving.diffusion`.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ from repro_torch.models import dit
 from repro_torch.serving.api import (RequestMetrics, RequestState,
                                      ServeStats, StreamEvent,
                                      normalize_drift_threshold)
+from repro_torch.serving.plan_cache import PlanCache
 
 __all__ = ["DenoiseParams", "DenoiseRequest", "DiffusionScheduler"]
 
@@ -86,9 +96,12 @@ class DiffusionScheduler:
     """Continuous batching for DiT denoising over a fixed slot pool.
 
     One batched (forward + Euler) tick serves every active slot; one
-    batch-1 admission forward plans each incoming request's SLAPlans.
-    Runs on the CUDA device unless `device` says otherwise; `params` (a
-    `models.dit.DiT`) must already live there.
+    batch-1 admission forward plans (or validates from the plan cache)
+    each incoming request's SLAPlans. Runs on the CUDA device unless
+    `device` says otherwise; `params` (a `models.dit.DiT`) must already
+    live there. `plan_cache`: None/False (off), True (a cache of
+    `cache_entries` per-(layer, bucket) entries over `t_buckets`
+    timestep buckets) or a shared `PlanCache` on the same device.
     """
 
     def __init__(self, cfg: ArchConfig, params: dit.DiT, *,
@@ -96,18 +109,15 @@ class DiffusionScheduler:
                  backend: str = "gather", compute_dtype=torch.float32,
                  refresh_mode: Optional[str] = None,
                  refresh_interval: Optional[int] = None,
-                 drift_threshold=None, plan_cache=None, device=None):
+                 drift_threshold=None, plan_cache=None,
+                 t_buckets: int = 8, cache_entries: int = 256,
+                 device=None):
         from repro_torch.core import backends as backend_registry
         backend = backend_registry.resolve(backend)
         if cfg.family != "dit":
             raise ValueError(
                 f"DiffusionScheduler serves the dit family only "
                 f"(got family={cfg.family!r})")
-        if plan_cache not in (None, False):
-            raise NotImplementedError(
-                "the cross-request plan cache is not ported yet: it "
-                "arrives with the plan_extend / plan-cache slice "
-                "(ROADMAP.md queue 1, item 12); pass plan_cache=None")
         cfg.sla.validate()
         want = resolve_device(device)
         pdev = next(params.parameters()).device
@@ -144,6 +154,21 @@ class DiffusionScheduler:
         self.plan_needed = (cfg.attention_kind == "sla"
                             and self.sla_cfg.mode
                             not in ("full", "linear_only"))
+        # cross-request plan cache: False/None = off, True = build one,
+        # or a shared PlanCache instance (fleet-wide amortization)
+        if plan_cache is True:
+            plan_cache = PlanCache(self.sla_cfg, nl, t_buckets=t_buckets,
+                                   max_entries=cache_entries,
+                                   device=self.device)
+        if isinstance(plan_cache, PlanCache) and \
+                plan_cache.device.type != self.device.type:
+            raise ValueError(f"the plan cache serves {plan_cache.device} "
+                             f"but the scheduler runs on {self.device}")
+        # identity checks, not truthiness: an empty PlanCache has
+        # len() == 0 and must still count as "cache on"
+        self.cache: Optional[PlanCache] = (
+            plan_cache if (isinstance(plan_cache, PlanCache)
+                           and self.plan_needed) else None)
 
         # live batched state: one latent row + one per-layer plan row per
         # slot; host-side f32 (t0, dt) bookkeeping per slot
@@ -164,6 +189,7 @@ class DiffusionScheduler:
             self._plans = None
         self._t0 = np.zeros((num_slots,), np.float32)
         self._dt = np.zeros((num_slots,), np.float32)
+        self._bucket = [None] * num_slots  # last plan-cache bucket seen
 
         self._queue: Deque[DenoiseRequest] = deque()
         self._requests: List[DenoiseRequest] = []
@@ -181,6 +207,18 @@ class DiffusionScheduler:
                           return_plans=self.plan_needed)
         vel, plans = out if self.plan_needed else (out, None)
         return lat1 - dt1[:, None, None] * vel.to(lat1.dtype), plans
+
+    def _admit_cached(self, lat1, t1, dt1, cond1, cached):
+        """Step 0 against a cached plan stack: the drift check validates
+        each layer's cached structure at the per-layer threshold; the
+        info's `replanned` flags the invalidated layers."""
+        vel, plans, info = dit.forward(
+            self.params, self.cfg, lat1, t1,
+            cond1 if self.cfg.cross_attn else None, self.compute_dtype,
+            self.backend, plans=cached, return_plans=True,
+            drift_threshold=torch.from_numpy(self._thr_layers).to(
+                self.device))
+        return lat1 - dt1[:, None, None] * vel.to(lat1.dtype), plans, info
 
     def _tick(self, tv, dtv, thr, mask):
         """ONE batched denoise step for every slot: mixed per-slot
@@ -269,15 +307,35 @@ class DiffusionScheduler:
                  else np.zeros((self.cfg.cond_len, self.cfg.d_model),
                                np.float32))
             cond1 = torch.from_numpy(c[None]).to(dev)
-        new_lat, plan_row = self._admit_fresh(lat1, t1, dt1, cond1)
-        if self.plan_needed:
-            self.stats.plan_builds += self.cfg.num_layers
+        nl = self.cfg.num_layers
+        cached = bucket = None
+        if self.cache is not None:
+            bucket = self.cache.bucket(float(t_start))
+            cached = self.cache.get(bucket)
+        if cached is None:
+            new_lat, plan_row = self._admit_fresh(lat1, t1, dt1, cond1)
+            if self.plan_needed:
+                self.stats.plan_builds += nl
+            if self.cache is not None:
+                self.cache.put(bucket, plan_row)
+        else:
+            new_lat, plan_row, info = self._admit_cached(lat1, t1, dt1,
+                                                         cond1, cached)
+            replanned = info["replanned"].cpu().numpy().reshape(nl)
+            n_replan = int(replanned.sum())
+            self.stats.plan_replans += n_replan
+            self.stats.plan_reuses += nl - n_replan
+            self.stats.last_retention = float(
+                info["retention"].min().cpu())
+            if n_replan:
+                self.cache.update(bucket, plan_row, replanned)
         self._lat, self._plans = dit.insert_denoise_slot(
             self._lat, self._plans, slot, new_lat, plan_row)
         if self._cond is not None:
             self._cond[slot] = cond1[0]
         self._t0[slot] = t_start
         self._dt[slot] = dt
+        self._bucket[slot] = bucket
         self._slots[slot] = r
         r.steps_done = 1
         r.metrics.decode_tokens = 1
@@ -291,6 +349,7 @@ class DiffusionScheduler:
         events.append(StreamEvent(rid=r.rid, kind="step", t=now, index=0))
         if r.steps_done >= r.params.num_steps:
             self._finish(slot, events)
+        self._sync_cache_stats()
 
     def _finish(self, slot: int, events: List[StreamEvent]):
         r = self._slots[slot]
@@ -302,8 +361,17 @@ class DiffusionScheduler:
         r.metrics.finish_t = time.time()
         r.slot = None
         self._slots[slot] = None
+        self._bucket[slot] = None
         events.append(StreamEvent(rid=r.rid, kind="finish",
                                   t=r.metrics.finish_t))
+
+    def _sync_cache_stats(self):
+        if self.cache is None:
+            return
+        self.stats.plan_cache_hits = self.cache.hits
+        self.stats.plan_cache_misses = self.cache.misses
+        self.stats.plan_cache_invalidations = self.cache.invalidations
+        self.stats.plan_cache_evictions = self.cache.evictions
 
     # -- the tick ----------------------------------------------------------
     @torch.no_grad()
@@ -358,8 +426,17 @@ class DiffusionScheduler:
             r.metrics.decode_tokens += 1
             events.append(StreamEvent(rid=r.rid, kind="step", t=now,
                                       index=r.steps_done - 1))
+            if self.cache is not None and r.steps_done < r.params.num_steps:
+                nb = self.cache.bucket(float(self._slot_t(j)))
+                if nb != self._bucket[j]:
+                    # crossing into a new timestep bucket: donate this
+                    # slot's current plans if the bucket is not filled
+                    self._bucket[j] = nb
+                    self.cache.put_if_absent(
+                        nb, dit.take_slot_plans(self._plans, j))
             if r.steps_done >= r.params.num_steps:
                 self._finish(j, events)
+        self._sync_cache_stats()
         return events
 
     def drain(self) -> List[DenoiseRequest]:

@@ -9,7 +9,11 @@ own sequential sampler.
   within 1e-5: unlike XLA on the CPU, torch's GEMMs may block a batch-2
   product differently from a batch-1 one, so rows agree to f32 noise
   rather than bitwise.
-* The serve CLI drives the same requests as the reference's.
+* With the plan cache on, the reference's drift-parity test: cached-plan
+  latents equal fresh-plan latents within the conformance f32 tolerance,
+  and the port's counters equal the reference's.
+* The serve CLI drives the same requests as the reference's, with and
+  without `--plan-cache`.
 """
 import json
 
@@ -34,6 +38,8 @@ SEQ = 128  # 8 blocks of 16: enough structure for plans to drift
 TRACE = ((4, 1.0), (3, 1.0), (5, 0.75), (2, 0.5))
 COUNTERS = ("admissions", "denoise_steps", "plan_builds", "plan_replans",
             "plan_reuses", "slot_steps_active", "slot_steps_total")
+CACHE_COUNTERS = ("plan_cache_hits", "plan_cache_misses",
+                  "plan_cache_invalidations", "plan_cache_evictions")
 
 
 def _models(arch):
@@ -146,9 +152,12 @@ def test_events_metrics_and_validation():
         DenoiseParams(t_start=1.5).validate()
     with pytest.raises(ValueError, match="multiple"):
         DiffusionScheduler(tcfg, model, seq_len=SEQ + 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="t_buckets"):
         DiffusionScheduler(tcfg, model, seq_len=SEQ, plan_cache=True,
-                           device="cpu")
+                           t_buckets=0, device="cpu")
+    with pytest.raises(ValueError, match="max_entries"):
+        DiffusionScheduler(tcfg, model, seq_len=SEQ, plan_cache=True,
+                           cache_entries=tcfg.num_layers - 1, device="cpu")
     with pytest.raises(ValueError, match="unknown SLA backend"):
         DiffusionScheduler(tcfg, model, seq_len=SEQ, backend="nope",
                            device="cpu")
@@ -160,15 +169,16 @@ def test_events_metrics_and_validation():
         percentile([], 0.5)
 
 
-def test_serve_cli_matches_reference_cli(tmp_path):
-    """`--workload dit` on the port and on the reference: same flags,
-    same seeded requests, the same scheduler counters."""
+def _cli_pair(tmp_path, extra=()):
+    """`--workload dit` on the port (kernel backend) and on the
+    reference (gather): same flags, same seeded requests, the same
+    counters. Returns the port's --stats-json payload."""
     from repro.launch import serve as jax_serve
     from repro_torch.launch import serve as torch_serve
     argv = ["--workload", "dit", "--arch", "lightningdit_1b", "--smoke",
             "--requests", "3", "--batch", "2", "--num-steps", "3",
             "--t-start", "0.75", "--refresh-mode", "adaptive",
-            "--drift-threshold", "0.3"]
+            "--drift-threshold", "0.3", *extra]
     done = torch_serve.main(argv + ["--device", "cpu", "--backend",
                                     "kernel", "--stats-json",
                                     str(tmp_path / "t.json")])
@@ -177,9 +187,18 @@ def test_serve_cli_matches_reference_cli(tmp_path):
     assert [r.state for r in done] == [RequestState.FINISHED] * 3
     t = json.loads((tmp_path / "t.json").read_text())
     j = json.loads((tmp_path / "j.json").read_text())
-    for name in COUNTERS:
+    for name in COUNTERS + CACHE_COUNTERS:
         assert t["stats"][name] == j["stats"][name], name
     assert [r["state"] for r in t["requests"]] == ["finished"] * 3
+    return t
+
+
+def test_serve_cli_matches_reference_cli(tmp_path):
+    """`--workload dit` on the port and on the reference: the same
+    scheduler counters."""
+    from repro_torch.launch import serve as torch_serve
+    t = _cli_pair(tmp_path)
+    assert t["stats"]["plan_cache_misses"] == 0  # no cache without the flag
     # the LM workload (the default) refuses a DiT arch, as the reference
     with pytest.raises(SystemExit):
         torch_serve.main(["--arch", "lightningdit_1b", "--smoke",
@@ -188,3 +207,63 @@ def test_serve_cli_matches_reference_cli(tmp_path):
     with pytest.raises(SystemExit):
         torch_serve.main(["--arch", "lightningdit_1b", "--smoke",
                           "--device", "cpu", "--scheduler", "continuous"])
+
+
+def test_serve_cli_plan_cache_matches_reference_cli(tmp_path, capsys):
+    """`--plan-cache --t-buckets 8 --cache-entries 256` on both CLIs: the
+    same plan-cache counters and the same summary line."""
+    t = _cli_pair(tmp_path, ["--plan-cache", "--t-buckets", "8",
+                             "--cache-entries", "256"])
+    st = t["stats"]
+    assert (st["plan_cache_hits"], st["plan_cache_misses"]) == (2, 1)
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("plan cache:")]
+    assert len(lines) == 2 and lines[0] == lines[1]
+
+
+def test_plan_cache_drift_parity_and_counters():
+    """The reference's `test_plan_cache_drift_parity_and_counters` on the
+    port, with the reference's weights (`dit.init(PRNGKey(0))`, bridged)
+    and latents: cached-plan outputs equal fresh-plan outputs within the
+    conformance f32 tolerance, and the port's counters equal the JAX
+    scheduler's with the cache off and on."""
+    jcfg = jax_get_arch("lightningdit_1b").smoke()
+    tcfg = get_arch("lightningdit_1b").smoke()
+    jparams = jdit.init(jax.random.PRNGKey(0), jcfg)
+    model = tdit.init(None, tcfg, device="cpu")
+    model.load_state_dict(bridge.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jparams), device="cpu"))
+    seq = 32
+    lats = [np.asarray(jax.random.normal(jax.random.PRNGKey(i + 1),
+                                         (seq, tcfg.patch_dim), jnp.float32))
+            for i in range(5)]
+    kw = dict(num_slots=2, seq_len=seq, backend="gather",
+              refresh_mode="adaptive", drift_threshold=0.3)
+
+    def drain(sched, params_cls):
+        for lat in lats:
+            sched.submit(lat, params_cls(num_steps=3))
+        sched.drain()
+        return sched
+
+    def port(cache):
+        return drain(DiffusionScheduler(
+            tcfg, model, compute_dtype=torch.float32, plan_cache=cache,
+            device="cpu", **kw), DenoiseParams)
+
+    def ref(cache):
+        return drain(JaxScheduler(jcfg, jparams, compute_dtype=jnp.float32,
+                                  plan_cache=cache, **kw), JaxDenoiseParams)
+
+    off, on = port(False), port(True)
+    for a, b in zip(off._requests, on._requests):
+        np.testing.assert_allclose(a.result, b.result, atol=5e-5, rtol=5e-5)
+    st = on.stats
+    assert st.plan_cache_misses >= 1 and st.plan_cache_hits >= 1
+    assert st.plan_cache_hits + st.plan_cache_misses == 5
+    assert st.plan_builds < off.stats.plan_builds
+    assert off.stats.plan_cache_hits == 0 and off.cache is None
+    for mine, theirs in ((off, ref(False)), (on, ref(True))):
+        for name in COUNTERS + CACHE_COUNTERS:
+            assert getattr(mine.stats, name) == \
+                getattr(theirs.stats, name), name

@@ -409,6 +409,67 @@ def test_scheduler_on_the_card_matches_sequential_sample():
                                    atol=1e-4, rtol=1e-4)
 
 
+def test_plan_cache_scheduler_on_the_card_matches_the_cpu():
+    """The streaming service with the plan cache on the card (kernel
+    backend, adaptive refresh, 6 requests of 4 steps through 2 slots)
+    against the same trace on the CPU (the kernels' plain twins): the
+    same counters, latents within 1e-4. A plan built on the card
+    round-trips the wire format bitwise, and `get` hands back CUDA
+    tensors."""
+    _need_gpu()
+    from repro_torch.serving.diffusion import (DenoiseParams,
+                                               DiffusionScheduler)
+    cfg = get_arch("wan2_1_1_3b").smoke()
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    host = dit.init(gen, cfg, device="cpu")
+    with torch.no_grad():
+        for p in host.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    card = dit.init(None, cfg, device="cuda")
+    card.load_state_dict(host.state_dict())
+    rs = np.random.default_rng(3)
+    reqs = [(rs.standard_normal((64, cfg.patch_dim), dtype=np.float32),
+             rs.standard_normal((cfg.cond_len, cfg.d_model),
+                                dtype=np.float32)) for _ in range(6)]
+
+    def drain(model, device):
+        sched = DiffusionScheduler(cfg, model, num_slots=2, seq_len=64,
+                                   backend="kernel", refresh_mode="adaptive",
+                                   drift_threshold=0.3, plan_cache=True,
+                                   t_buckets=8, device=device)
+        for lat, cond in reqs:
+            sched.submit(lat, DenoiseParams(num_steps=4), cond=cond)
+        sched.drain()
+        return sched
+
+    on_cpu = drain(host, "cpu")
+    before = sla_fwd.LAUNCHES
+    on_card = drain(card, "cuda")
+    assert sla_fwd.LAUNCHES > before
+    assert on_card.cache.stats() == on_cpu.cache.stats()
+    assert (on_card.stats.plan_cache_hits,
+            on_card.stats.plan_cache_misses) == (5, 1)
+    for f in dataclasses.fields(on_card.stats):
+        if f.name not in ("prefill_s", "decode_s", "max_decode_gap_s",
+                          "last_retention"):
+            assert getattr(on_card.stats, f.name) == \
+                getattr(on_cpu.stats, f.name), f.name
+    for a, b in zip(on_card._requests, on_cpu._requests):
+        assert np.isfinite(a.result).all()
+        np.testing.assert_allclose(a.result, b.result, atol=1e-4, rtol=1e-4)
+    got = on_card.cache.get(on_card.cache.bucket(1.0))
+    assert all(getattr(got, n).is_cuda for n in plan_lib.PLAN_LEAVES)
+    with torch.no_grad():
+        _, plans = dit.forward(card, cfg, torch.from_numpy(
+            reqs[0][0][None]).cuda(), 0.5, torch.from_numpy(
+            reqs[0][1][None]).cuda(), torch.float32, "kernel",
+            return_plans=True)
+    back = plan_lib.deserialize_plan(plan_lib.serialize_plan(plans), "cuda")
+    for n in plan_lib.PLAN_LEAVES:
+        a, b = getattr(back, n), getattr(plans, n)
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b), n
+
+
 BWD_CASES = [
     # (h, group, n, d, block, causal)
     (4, 1, 256, 32, 16, False),
