@@ -215,7 +215,43 @@ Phases, in order; any failure exits non-zero before the result line:
      32064, which appends a plan row, comes back with every leaf bitwise
      as before (a whole-slot copy, ~11 GiB); prints the masked step's
      time, decode ms per step and peak memory.
- 18. the kernels line (JSON): `sla_fwd` carries the split route's fields
+ 18. chunked admission (on phase 12's model): the paged continuous
+     `Scheduler` (4 slots, max_len 32768, 1,160 pages, bucket 32000,
+     decode-SLA, kernel backend, bf16) runs one trace twice, blocking and
+     with `prefill_chunk_blocks=125` (8,000-token chunks, 4 an
+     admission): r0 (32,000 tokens, 96 new) until its first token, then
+     r1 (unrelated, 64 new) until its first token, then r2 (r1's first
+     24,000 tokens and its own 8,000, 48 new) and r3 (r0 again, 32 new),
+     stepped one decode token a tick to the end (the gaps between
+     emissions are then the stalls admission work causes). Checks the
+     token counts, finite logits, 3 chunked
+     admissions, 9 chunks, 72,000 prefill tokens, one full-prompt hit
+     (r3 makes no dispatch), r2's resume at 24,000 with its 375 shared
+     pages claimed from the intern index, 28 x 9 `sla_fwd` launches all
+     on tensor cores, one `sla_decode_paged` a layer and step, r0's 3 or
+     more tokens between r1's start and first token, every rewritten
+     prefix page bitwise what the pool held (both runs), and r0's K/V
+     after 4 tokens chunked vs blocking within 5e-2 x max(1, max |x|)
+     (elements that differ counted). Prints max_decode_gap_s, TTFTs,
+     prefill per chunk and per admission, greedy agreement, the
+     snapshots' bytes and peak memory of both runs. Then kernel 1 against
+     its twin on r1's last chunk at layers 0 and 27 (base 375, 125 query
+     blocks against 500 KV blocks, causal, K/V repeated as the path gives
+     them; `cases.tc_criterion`, two launches bitwise equal), with its
+     CUDA-event time and bound.
+ 19. verify-style decode (on phase 12's model): a static decode-SLA
+     state of 2 x 32,000-token prompts (`prefill(decode_max_len=32768)`,
+     ~24 GiB, one clone kept); two `decode_chunk` calls of 16 fed tokens
+     from 32000 and 32016 on the kernel backend beside 32 `decode_step`s
+     from the clone. Checks logits and float cache leaves within 5e-2 x
+     max(1, max |x|) (integer leaves: differing entries counted), 28
+     `sla_decode` launches a chunk, and on the first chunk's own
+     per-token state at layers 0 and 27 `decode_execute_chunk` kernel vs
+     gather on f32 queries (5e-5 x max(1, max |ref|)) and `sla_decode`
+     vs its twin at
+     three split widths (two launches bitwise equal, CUDA-graph times,
+     bound). Prints each chunk's wall against 16 steps'.
+ 20. the kernels line (JSON): `sla_fwd` carries the split route's fields
      at the top (the f32 serving route) and the f32-FMA and bf16
      tensor-core routes' beside them; `sla_fwd_split_planes` is the split
      route's pre-pass; then the result line.
@@ -321,6 +357,16 @@ PU_EXPECT = dict(steps=74, sla_decode=28 * 74, sla_decode_paged=0,
                  sla_fwd=28 * 3, tc_sla_fwd=28 * 3,
                  decode_tokens=5 + 64 + 69,
                  slot_steps_total=3 * 74)
+# chunked admission (phase 18): 8,000-token chunks of a 32,000 bucket; r0
+# and r1 unrelated, r2 shares r1's first 24,000 tokens, r3 repeats r0. The
+# pool holds the trace's 1,125 prompt pages with all four live (1 + 4 +
+# 1,125 + decode pages), which 1,029 cannot
+PC_CHUNK_BLOCKS, PC_POOL, PC_SHARED = 125, 1160, 24000
+PC_NEW = (96, 64, 48, 32)
+PC_EXPECT = dict(chunked_admissions=3, prefill_chunks=9,
+                 prefill_tokens=72000, prefix_full_hits=1,
+                 sla_fwd=28 * 9, tc_sla_fwd=28 * 9)
+DC_C = 16  # verify-style decode_chunk (phase 19): tokens a chunk
 DEV = torch.device("cuda")
 
 
@@ -2996,6 +3042,578 @@ def phase_unpaged_mixed(cfg, params):
     return res
 
 
+# --------------------------------------------------------------------------
+def _pc_prompts(cfg):
+    """Phase 18's prompts: r0 and r1 unrelated, r2 r1's first PC_SHARED
+    tokens and its own last chunk, r3 a repeat of r0."""
+    rs = np.random.default_rng(18)
+    r0, r1 = (rs.integers(0, cfg.vocab_size, PG_PROMPT).astype(np.int32)
+              for _ in range(2))
+    r2 = np.concatenate([r1[:PC_SHARED], rs.integers(
+        0, cfg.vocab_size, PG_PROMPT - PC_SHARED).astype(np.int32)])
+    return [r0, r1, r2, r0.copy()]
+
+
+def _pc_run(cfg, params, chunk, capture: bool):
+    """One run of phase 18's trace through the paged Scheduler, blocking
+    (`chunk` None) or chunked. Hooks time each prefill chunk and dispatch,
+    check every rewritten prefix page against the pool (as phase 15),
+    record the prefix resumes and page claims, copy r0's K/V after its 4th
+    token to the host, and (`capture`) keep kernel 1's operands of r1's
+    last chunk at the first and last layer."""
+    from repro_torch.serving.api import SamplingParams, Scheduler
+    gc.collect()  # an earlier run's scheduler, held in cycles by its hooks
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sched = Scheduler(cfg, params, num_slots=PG_SLOTS, max_len=LM_MAX_LEN,
+                      backend="kernel", decode_sla=True,
+                      prefill_bucket=PG_PROMPT, paged=True,
+                      pool_pages=PC_POOL, prefill_chunk_blocks=chunk)
+    cfg = sched.cfg
+    bq, nl = cfg.sla.block_q, cfg.num_layers
+    rec = dict(steps=0, chunks=[], dispatches=[], completions=[],
+               resumes=[], claims=[], kv0=None, rows={}, admission={},
+               gaps=[], capture=None)
+    rewrite = dict(pages=0, max_diff=0.0, bits=0)
+    finite = torch.ones((), dtype=torch.bool, device=DEV)
+    hits = []
+    one, claim, admit_paged = sched._one, sched._claim_page, \
+        sched._admit_paged
+    pf_chunk, carry_get = sched._pf.chunk, sched._pf.carry_get
+    advance, complete, dispatch = (sched._advance_job, sched._complete_job,
+                                   sched._dispatch_paged)
+    claim_job = sched._claim_job_pages
+    rows_fn, layer_no, cur = ops.sla_attention_rows, [0], {}
+
+    def one_hook(token):
+        logits = one(token)
+        rec["steps"] += 1
+        finite.logical_and_(torch.isfinite(logits).all())
+        return logits
+
+    def timed(fn, out, rid):
+        """fn timed with the stream synchronized; the seconds go to the
+        list `out` and to the admission of request rid()."""
+        def hook(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            out.append(time.time() - t0)
+            key = rid(*a)
+            rec["admission"][key] = rec["admission"].get(key, 0.0) + out[-1]
+            return res
+        return hook
+
+    def advance_hook(slot, events):
+        job = sched._job_by_slot[slot]
+        cur.update(rid=job.r.rid, chunk=job.next_chunk)
+        layer_no[0] = 0
+        return advance(slot, events)
+
+    chunk_timed = timed(pf_chunk, rec["chunks"], lambda *a: cur["rid"])
+
+    def chunk_hook(span, carry, start):
+        out = chunk_timed(span, carry, start)
+        rec["chunks"][-1] = (cur["rid"], start, rec["chunks"][-1])
+        return out
+
+    def rows_hook(*a, **kw):
+        li = layer_no[0]
+        layer_no[0] += 1
+        if (capture and cur.get("rid") == 1 and cur.get("chunk") == 3
+                and li in (0, nl - 1)):
+            rec["rows"][li] = (a, kw)
+        return rows_fn(*a, **kw)
+
+    def carry_get_hook(key):
+        snap = carry_get(key)
+        if snap is not None:
+            rec["resumes"].append((cur.get("admit"), len(key[1]) // 4))
+        return snap
+
+    def claim_job_hook(job, lo, hi):
+        before = sched._pool.stats.prefix_hits
+        claim_job(job, lo, hi)
+        rec["claims"].append((job.r.rid, lo, hi,
+                              sched._pool.stats.prefix_hits - before))
+
+    def claim_hook(key):
+        before = sched._pool.stats.prefix_hits
+        pid = claim(key)
+        hits.append(sched._pool.stats.prefix_hits > before)
+        return pid
+
+    def admit_hook(live, single, slot, pids):
+        idx = [i for i, hit in enumerate(hits) if hit]
+        hits.clear()
+        if idx:
+            sel = torch.tensor(idx, device=DEV)
+            pid = torch.tensor([pids[i] for i in idx], device=DEV)
+            npp, hkv = len(pids), cfg.num_kv_heads
+            for layer in range(nl):
+                pairs = []
+                for key, pool in (("k", live["kp"]), ("v", live["vp"])):
+                    x = single[key][layer, 0, :, :npp * bq].reshape(
+                        hkv, npp, bq, -1).movedim(0, 1)
+                    pairs.append((x[sel], pool[layer, pid]))
+                for key in transformer.PAGED_POOL_KEYS:
+                    x = single["sla"][key][layer, 0, :, :npp].movedim(0, 1)
+                    pairs.append((x[sel], live["slap"][key][layer, pid]))
+                for new, old in pairs:
+                    rewrite["max_diff"] = max(rewrite["max_diff"], float(
+                        (new.float() - old.float()).abs().max()))
+                    rewrite["bits"] += int((_bits(new) != _bits(old)).sum())
+            rewrite["pages"] += len(idx)
+        return admit_paged(live, single, slot, pids)
+
+    admit_next, note_gap = sched._admit_next, sched._note_gap
+
+    def gap_hook(now):
+        if sched._last_token_t is not None:
+            rec["gaps"].append(now - sched._last_token_t)
+        note_gap(now)
+
+    sched._note_gap = gap_hook
+
+    def admit_hook_next(slot, events):
+        cur["admit"] = sched._queue[0].rid
+        return admit_next(slot, events)
+
+    sched._one, sched._claim_page, sched._admit_paged = one_hook, \
+        claim_hook, admit_hook
+    sched._pf.chunk, sched._pf.carry_get = chunk_hook, carry_get_hook
+    sched._advance_job, sched._claim_job_pages = advance_hook, claim_job_hook
+    sched._admit_next = admit_hook_next
+    sched._complete_job = timed(complete, rec["completions"],
+                                lambda slot, job, ev: job.r.rid)
+    sched._dispatch_paged = timed(dispatch, rec["dispatches"],
+                                  lambda *a: cur["admit"])
+    prompts = _pc_prompts(cfg)
+    events = []
+
+    def tick():
+        """One step(); once r0 has emitted 4 tokens, its K/V (positions
+        before its 4th token) go to the host between two ticks, with the
+        scheduler's clocks (the gap's last emission, the submit times of
+        requests still waiting for a first token) moved past the copy."""
+        events.extend(sched.step())
+        r0 = sched._requests[0]
+        if rec["kv0"] is None and len(r0.tokens_out) == 4:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            pt = sched._live["pt"][r0.slot:r0.slot + 1]
+            rec["kv0"] = {key: [transformer._page_gather_kv(
+                sched._live[key][li], pt)[0, :, :PG_PROMPT + 3].cpu()
+                for li in range(nl)] for key in ("kp", "vp")}
+            dt = time.time() - t0
+            rec["capture"] = (len(rec["gaps"]), dt)
+            sched._last_token_t += dt
+            for r in sched._requests:
+                if not r.tokens_out:
+                    r.metrics.submit_t += dt
+
+    def until_first(rid):
+        r = sched._requests[rid]
+        while not r.tokens_out:
+            tick()
+
+    sla_decode.PAGED_LAUNCHES = sla_decode.LAUNCHES = sla_fwd.LAUNCHES = 0
+    sla_fwd.TC_LAUNCHES = 0
+    ops.sla_attention_rows = rows_hook
+    t0 = time.time()
+    try:
+        for rid, prompt in enumerate(prompts):
+            sched.submit(prompt, SamplingParams(max_new_tokens=PC_NEW[rid]))
+            if rid < 2:
+                until_first(rid)
+        while sched.has_work:  # one token a tick: the gaps are the stalls
+            tick()
+        done = list(sched._requests)
+        torch.cuda.synchronize()
+    finally:
+        ops.sla_attention_rows = rows_fn
+    wall = time.time() - t0
+    st = sched.stats
+    start1 = next(i for i, e in enumerate(events)
+                  if e.rid == 1 and e.kind == "start")
+    tok1 = next(i for i, e in enumerate(events)
+                if e.rid == 1 and e.kind == "token")
+    res = dict(
+        wall_s=wall, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        steps=rec["steps"], finite=bool(finite),
+        tokens=[list(r.tokens_out) for r in done],
+        ttft_s=[r.metrics.ttft_s for r in done],
+        chunk_s=[c[2] for c in rec["chunks"]], chunks=rec["chunks"],
+        dispatch_s=rec["dispatches"], completion_s=rec["completions"],
+        resumes=rec["resumes"], claims=rec["claims"],
+        r0_between=sum(1 for e in events[start1:tok1]
+                       if e.rid == 0 and e.kind == "token"),
+        max_decode_gap_s=st.max_decode_gap_s, rewrite=rewrite,
+        counters=dict(chunked_admissions=st.chunked_admissions,
+                      prefill_chunks=st.prefill_chunks,
+                      prefill_tokens=st.prefill_tokens,
+                      prefix_full_hits=st.prefix_full_hits,
+                      prefix_hits=st.prefix_hits,
+                      pages_peak=st.pages_peak,
+                      sla_fwd=sla_fwd.LAUNCHES,
+                      tc_sla_fwd=sla_fwd.TC_LAUNCHES,
+                      sla_decode_paged=sla_decode.PAGED_LAUNCHES),
+        gaps_top=sorted(((g, i) for i, g in enumerate(rec["gaps"])),
+                        reverse=True)[:4], capture=rec["capture"],
+        carry_bytes=sched._pf.carry_bytes(),
+        carry_snapshots=len(sched._pf._carry_snaps),
+        kv0=rec["kv0"], rows=rec["rows"],
+        # per admission: its chunks and completion, or its dispatch
+        admission_s=rec["admission"])
+    del sched, done
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_chunked_admission(cfg, params):
+    """Phase 18: chunked admission prefill on the paged continuous
+    Scheduler at full Qwen3-1.7B width, blocking then chunked, stepped
+    one decode token a tick to the end (so `max_decode_gap_s` is the
+    longest stall a tick's admission work causes); checks the
+    chunked run's counters, resumes and interleave, the rewritten prefix
+    pages, r0's mid-decode K/V against the blocking run, and kernel 1 on
+    r1's last chunk against its twin. Returns (summary, fwd rows)."""
+    runs = {}
+    for name, chunk in (("blocking", None), ("chunked", PC_CHUNK_BLOCKS)):
+        runs[name] = _pc_run(cfg, params, chunk, capture=chunk is not None)
+        r = runs[name]
+        say(f"[18 chunked admission] {name}: {LM_ARCH}, paged Scheduler, "
+            f"{PG_SLOTS} slots, {PC_POOL} pages, bucket {PG_PROMPT}, "
+            f"chunks of {PC_CHUNK_BLOCKS} blocks" if chunk else
+            f"[18 chunked admission] {name}: {LM_ARCH}, paged Scheduler, "
+            f"{PG_SLOTS} slots, {PC_POOL} pages, bucket {PG_PROMPT}, "
+            f"blocking admission")
+        say(f"  {r['wall_s']:.2f}s, {r['steps']} decode steps, peak memory "
+            f"{r['peak_gib']:.2f} GiB | max_decode_gap_s "
+            f"{r['max_decode_gap_s']:.4f} (largest gaps (s, emission): "
+            f"{[(round(g, 4), i) for g, i in r['gaps_top']]}; r0's K/V copied"
+            f" after emission {r['capture'][0]} in {r['capture'][1]:.3f}s, "
+            f"outside the clocks) | TTFT "
+            f"{[round(t, 3) for t in r['ttft_s']]} s | prefill per chunk "
+            f"{[round(t, 4) for t in r['chunk_s']]} s, per admission "
+            f"{ {k: round(v, 4) for k, v in r['admission_s'].items()} } s | "
+            f"completions {[round(t, 4) for t in r['completion_s']]} s")
+        say(f"  counters {r['counters']} | resumes (rid, tokens) "
+            f"{r['resumes']} | claims (rid, lo, hi, hits) {r['claims']} | "
+            f"r0 tokens between r1's start and first token "
+            f"{r['r0_between']} | rewritten prefix pages {r['rewrite']} | "
+            f"carry snapshots {r['carry_snapshots']} holding "
+            f"{r['carry_bytes']} bytes | logits finite {r['finite']}")
+    blk, chk = runs["blocking"], runs["chunked"]
+    agree = [sum(a == b for a, b in zip(x, y)) / max(1, len(y))
+             for x, y in zip(chk["tokens"], blk["tokens"])]
+    kv = dict(elements=0, differ=0, max_diff=0.0, limit=0.0)
+    if chk["kv0"] is None or blk["kv0"] is None:
+        raise RuntimeError("r0's K/V were not captured after 4 tokens")
+    for key in ("kp", "vp"):
+        for li in range(cfg.num_layers):
+            x = chk["kv0"][key][li].to(DEV).float()
+            y = blk["kv0"][key][li].to(DEV).float()
+            kv["elements"] += x.numel()
+            kv["differ"] += int((x != y).sum())
+            kv["max_diff"] = max(kv["max_diff"], float((x - y).abs().max()))
+            kv["limit"] = max(kv["limit"], LM_LOGIT_TOL * max(
+                1.0, float(y.abs().max())))
+    say(f"[18 chunked admission] chunked vs blocking: max_decode_gap_s "
+        f"{chk['max_decode_gap_s']:.4f} vs {blk['max_decode_gap_s']:.4f} | "
+        f"TTFT {[round(t, 3) for t in chk['ttft_s']]} vs "
+        f"{[round(t, 3) for t in blk['ttft_s']]} s | greedy agreement per "
+        f"request {[round(a, 3) for a in agree]} | r0's K/V after 4 tokens "
+        f"(positions < {PG_PROMPT + 3}): {kv['differ']} of {kv['elements']} "
+        f"elements differ, max abs diff {kv['max_diff']:.4g} (limit "
+        f"{kv['limit']:.4g}) | peak {chk['peak_gib']:.2f} vs "
+        f"{blk['peak_gib']:.2f} GiB | snapshots hold {chk['carry_bytes']} "
+        f"bytes")
+    # kernel 1 against its twin on r1's last chunk (base 375, 125 query
+    # blocks against the 500-block bucket, K/V repeated as the path gives
+    # them); the check's launches come after the run's counts
+    rows = []
+    for li, (a, kw) in sorted(chk["rows"].items()):
+        q, k, v, qp, kp, marginal, lut, counts, pcfg = a[:9]
+        base = kw["row_offset"]
+        fq, fk, fv, fqp, fkp = map(ops._flat, (q, k, v, qp, kp))
+        fa, flut, fcounts = map(ops._flat, (marginal, lut, counts))
+        hb, zb = ops._hz_blocks(fkp, fv, pcfg.block_kv)
+        hi, zi = ops._aggregate(fa, hb, zb)
+        del hb, zb
+        args = (flut, fcounts, fq, fk, fv, fqp, hi, zi)
+        fkw = dict(scale=q.shape[-1] ** -0.5, causal=True,
+                   block_q=pcfg.block_q, block_kv=pcfg.block_kv, base=base)
+        c = _fwd_check(args, fkw, f"lm prefill chunk layer {li}")
+        ms = cuda_ms(lambda: sla_fwd.sla_fwd(*args, **fkw), 10)
+        plain_ms = cuda_ms(lambda: sla_fwd.sla_fwd_plain(*args, **fkw), 2,
+                           warmup=1)
+        bound_ms, bound_by, _, nbytes, live = _bound(args, fkw)
+        say(f"[18 chunk kernel] sla_fwd on r1's last chunk, layer {li}: "
+            f"base {base}, {fq.shape[1] // pcfg.block_q} query blocks "
+            f"against {fk.shape[1] // pcfg.block_kv} KV blocks, causal, "
+            f"bf16, K/V repeated "
+            f"(BH={fq.shape[0]}, BH_kv={fk.shape[0]}, K={flut.shape[-1]}, "
+            f"live tiles {live} of {flut.numel()}): {_fwd_text(c)} | kernel "
+            f"{ms:.3f} ms | bound {bound_ms:.3f} ms by {bound_by} "
+            f"({nbytes / 1e6:.0f} MB; {bound_ms / ms:.1%} of it) | plain twin "
+            f"{plain_ms:.2f} ms")
+        rows.append(dict(shape=f"qwen3-1.7b prefill chunk layer {li} "
+                               f"(base {base})", dtype="bf16", base=base,
+                         live_tiles=live, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         bound_fraction=bound_ms / ms, **c))
+        del args, hi, zi
+    del chk["rows"], chk["kv0"], blk["kv0"]
+    torch.cuda.empty_cache()
+    cc = chk["counters"]
+    want = dict(PC_EXPECT)
+    got = {key: cc[key] for key in want}
+    summary = dict(
+        max_decode_gap_s=dict(chunked=chk["max_decode_gap_s"],
+                              blocking=blk["max_decode_gap_s"]),
+        ttft_s=dict(chunked=chk["ttft_s"], blocking=blk["ttft_s"]),
+        chunk_s=chk["chunk_s"], admission_s=dict(
+            chunked=chk["admission_s"], blocking=blk["admission_s"]),
+        completion_s=chk["completion_s"], greedy_agreement=agree,
+        r0_kv=kv, carry_bytes=chk["carry_bytes"],
+        peak_gib=dict(chunked=chk["peak_gib"], blocking=blk["peak_gib"]),
+        wall_s=dict(chunked=chk["wall_s"], blocking=blk["wall_s"]),
+        counters=cc, blocking_counters=blk["counters"],
+        resumes=chk["resumes"], r0_between=chk["r0_between"],
+        rewrite=chk["rewrite"], blocking_rewrite=blk["rewrite"])
+    bad = []
+    if [len(t) for t in chk["tokens"]] != list(PC_NEW) or \
+            [len(t) for t in blk["tokens"]] != list(PC_NEW):
+        bad.append("a request did not finish with its tokens")
+    if not (chk["finite"] and blk["finite"]):
+        bad.append("non-finite logits")
+    if got != want:
+        bad.append(f"chunked counters {got}, expected {want}")
+    for name, r in (("chunked", chk), ("blocking", blk)):
+        n = r["counters"]["sla_decode_paged"]
+        if n != cfg.num_layers * r["steps"]:
+            bad.append(f"{name}: {n} sla_decode_paged launches in "
+                       f"{r['steps']} decode steps")
+    if blk["counters"]["sla_fwd"] != 3 * cfg.num_layers or \
+            blk["counters"]["prefix_full_hits"] != 1:
+        bad.append(f"blocking counters {blk['counters']}")
+    shared_pages = PC_SHARED // cfg.sla.block_q
+    if chk["resumes"] != [(2, PC_SHARED)] or \
+            (2, 0, PC_SHARED, shared_pages) not in chk["claims"]:
+        bad.append(f"r2 did not resume at {PC_SHARED} with {shared_pages} "
+                   f"shared pages: {chk['resumes']} {chk['claims']}")
+    if any(c[0] == 3 for c in chk["chunks"]) or len(chk["dispatch_s"]):
+        bad.append("r3 (a full-prompt repeat) made a dispatch")
+    if chk["r0_between"] < 3:
+        bad.append(f"r0 emitted {chk['r0_between']} tokens during r1's "
+                   "chunked admission, fewer than 3")
+    for name, r in (("chunked", chk), ("blocking", blk)):
+        rw = r["rewrite"]
+        if rw["pages"] != shared_pages or rw["bits"] or rw["max_diff"]:
+            bad.append(f"{name} rewritten prefix pages {rw}: expected "
+                       f"{shared_pages}, all bitwise equal")
+    if kv["max_diff"] > kv["limit"]:
+        bad.append(f"r0's mid-decode K/V chunked vs blocking {kv}")
+    if len(rows) != 2 or not all(r["ok"] for r in rows):
+        bad.append(f"sla_fwd on the chunk rows {rows}")
+    if bad:
+        raise RuntimeError("chunked admission phase failed: "
+                           + "; ".join(bad))
+    return summary, rows
+
+
+def _clone_cache(x):
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _clone_cache(v) for k, v in x.items()}
+    if isinstance(x, plan_lib.SLAPlan):
+        return plan_lib.plan_map(torch.clone, x)
+    return x
+
+
+def _cache_diffs(a: dict, b: dict, nl: int) -> dict:
+    """Float leaves of two static decode caches: the max abs difference
+    and the limit 5e-2 x max(1, max |b|) (layer by layer, so no
+    whole-cache temporary); integer leaves: the count of entries (plan:
+    blocks) that differ."""
+    out = {}
+    floats = [("k", a["k"], b["k"]), ("v", a["v"], b["v"])]
+    sa, sb = a["sla"], b["sla"]
+    floats += [(key, sa[key], sb[key]) for key in
+               ("hblk", "zblk", "htot", "ztot", "kpool", "qpool")]
+    for name, x, y in floats:
+        diff = ref = 0.0
+        for li in range(nl):
+            diff = max(diff, float((x[li].float() - y[li].float())
+                                   .abs().max()))
+            ref = max(ref, float(y[li].float().abs().max()))
+        out[name] = dict(max_diff=diff, limit=LM_LOGIT_TOL * max(1.0, ref))
+    ints = [(f"plan.{n}", getattr(sa["plan"], n), getattr(sb["plan"], n))
+            for n in plan_lib.PLAN_LEAVES]
+    ints += [(key, sa[key], sb[key]) for key in
+             ("live_lut", "live_cnt", "live_marg", "extends", "replans",
+              "reuses")]
+    for name, x, y in ints:
+        out[name] = dict(differ=int((x != y).sum()))
+    out["rows"] = dict(differ=int(sa["rows"] != sb["rows"]))
+    return out
+
+
+def phase_decode_chunk(cfg, params):
+    """Phase 19: verify-style `decode_chunk` (C = 16, twice) from a static
+    decode-SLA state of 2 x 32,000-token prompts, beside 32 `decode_step`s
+    from a clone of it; checks and times kernel 4 on the chunk's own
+    per-token state. Returns (summary, decode rows)."""
+    rs = np.random.default_rng(19)
+    gc.collect()
+    cparams = transformer.compute_params(params)
+    toks = torch.from_numpy(rs.integers(0, cfg.vocab_size, (
+        LM_BATCH, PG_PROMPT))).to(DEV)
+    fed = torch.from_numpy(rs.integers(0, cfg.vocab_size, (
+        LM_BATCH, 2 * DC_C))).to(DEV)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        _, cache = transformer.prefill(cparams, cfg, toks, backend="kernel",
+                                       decode_max_len=LM_MAX_LEN)
+    del toks
+    steps = _clone_cache(cache)
+    state_gib = sum(t.numel() * t.element_size() for t in
+                    _tensors(cache)) / 2**30
+    nl, hkv = cfg.num_layers, cfg.num_kv_heads
+    caught, calls = {}, [0]
+    execute_chunk = backend_lib.decode_execute_chunk
+
+    def chunk_hook(state, params_, q, pos, dcfg, **kw):
+        li = calls[0] % nl
+        if calls[0] < nl and li in (0, nl - 1):  # the first chunk's
+            caught[li] = ({k: v.clone() for k, v in state.items()},
+                          params_, q.clone(), pos, dcfg)
+        calls[0] += 1
+        return execute_chunk(state, params_, q, pos, dcfg, **kw)
+
+    sla_decode.LAUNCHES = sla_decode.PAGED_LAUNCHES = 0
+    launches, walls, logits = [], [], []
+    backend_lib.decode_execute_chunk = chunk_hook
+    try:
+        for i in range(2):
+            before = sla_decode.LAUNCHES
+            torch.cuda.synchronize()
+            t0 = time.time()
+            lg, cache = transformer.decode_chunk(
+                cparams, cfg, fed[:, i * DC_C:(i + 1) * DC_C], cache,
+                backend="kernel")
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+            launches.append(sla_decode.LAUNCHES - before)
+            logits.append(lg)
+    finally:
+        backend_lib.decode_execute_chunk = execute_chunk
+    paged_launches = sla_decode.PAGED_LAUNCHES
+    step_logits, step_walls = [], []
+    with torch.no_grad():
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for c in range(i * DC_C, (i + 1) * DC_C):
+                lg, steps = transformer.decode_step(
+                    cparams, cfg, fed[:, c], steps, backend="kernel")
+                step_logits.append(lg)
+            torch.cuda.synchronize()
+            step_walls.append(time.time() - t0)
+    lc = torch.cat(logits, dim=1)
+    ls = torch.stack(step_logits, dim=1)
+    diff = float((lc - ls).abs().max())
+    limit = LM_LOGIT_TOL * max(1.0, float(ls.abs().max()))
+    agree = float((lc.argmax(-1) == ls.argmax(-1)).float().mean())
+    finite = bool(torch.isfinite(lc).all())
+    leaves = _cache_diffs(cache, steps, nl)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"[19 decode_chunk] {LM_ARCH} static decode-SLA state of "
+        f"{LM_BATCH} x {PG_PROMPT}-token prompts (max_len {LM_MAX_LEN}, "
+        f"{state_gib:.2f} GiB, one clone kept), kernel backend, bf16: 2 "
+        f"decode_chunk calls of C={DC_C} from {PG_PROMPT} vs {2 * DC_C} "
+        f"decode_steps | logits max abs diff {diff:.4g} (limit "
+        f"{limit:.4g}), greedy agreement {agree:.3f}, finite {finite} | "
+        f"sla_decode launches per chunk {launches} | wall per chunk "
+        f"{[round(w, 4) for w in walls]} s (the first with the state "
+        f"copies of the checks) vs 16 steps {[round(w, 4) for w in step_walls]}"
+        f" s | peak {peak:.2f} GiB")
+    say(f"  cache leaves, chunks vs steps: {leaves}")
+    # the chunk's own per-token state at the first and last layer; the
+    # backends compared on f32 queries (the path's are bf16, and its
+    # output is rounded to them), as phase 13 compares decode_execute
+    rows, backend_errs = [], {}
+    g = cfg.num_heads // hkv
+    for li, (state, proj, q, pos, dcfg) in sorted(caught.items()):
+        with torch.no_grad():
+            o_k = backend_lib.decode_execute_chunk(state, proj, q.float(),
+                                                   pos, dcfg,
+                                                   backend="kernel")
+            o_g = backend_lib.decode_execute_chunk(state, proj, q.float(),
+                                                   pos, dcfg,
+                                                   backend="gather")
+        err = float((o_k - o_g).abs().max())
+        lim = TWIN_TOL * max(1.0, float(o_g.abs().max()))
+        backend_errs[li] = dict(err=err, limit=lim)
+        qg = backend_lib._group_heads(q.float(), hkv)
+        qpg = backend_lib._group_heads(phi_lib.phi(q, cfg.sla.phi), hkv)
+        flat = sla_decode._flat_args(
+            *sla_decode.decode_operands(state, qg, qpg, pos),
+            cfg.sla.block_kv)
+        kw = dict(scale=cfg.head_dim ** -0.5, block_kv=cfg.sla.block_kv,
+                  group=g)
+        say(f"[19 decode_chunk kernel] layer {li} at pos {pos}, C={DC_C}, "
+            f"per-token rows: decode_execute_chunk kernel vs gather max abs "
+            f"err {err:.3g} (limit {lim:.3g}) "
+            f"{'OK' if err <= lim else 'FAIL'}")
+        row = _decode_case(flat, kw, f"sla_decode vs twin on layer {li}'s "
+                           f"decode_chunk rows (K/V bf16)")
+        row["ok"] = row["ok"] and err <= lim
+        rows.append(dict(shape=f"qwen3-1.7b decode_chunk C={DC_C} layer "
+                               f"{li}", dtype="bf16", c=DC_C, pos=pos,
+                         backend_err=err, backend_limit=lim, **row))
+        del flat, state
+    del cache, steps, caught, cparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = dict(state_gib=state_gib, launches=launches,
+                   chunk_wall_s=walls, steps16_wall_s=step_walls,
+                   logit_diff=diff, logit_limit=limit,
+                   greedy_agreement=agree, peak_gib=peak,
+                   leaves=leaves, backend_errs=backend_errs)
+    bad = []
+    if not finite or diff > limit:
+        bad.append(f"logits chunk vs steps {diff} (limit {limit})")
+    if launches != [nl, nl] or paged_launches:
+        bad.append(f"sla_decode launches {launches} (paged "
+                   f"{paged_launches}), expected {nl} a chunk")
+    bad += [f"{name} {v}" for name, v in leaves.items()
+            if "max_diff" in v and v["max_diff"] > v["limit"]]
+    if len(rows) != 2 or not all(r["ok"] for r in rows):
+        bad.append(f"sla_decode on the chunk rows {rows}")
+    if bad:
+        raise RuntimeError("decode_chunk phase failed: " + "; ".join(bad))
+    return summary, rows
+
+
+def _tensors(x):
+    if torch.is_tensor(x):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
+    elif isinstance(x, plan_lib.SLAPlan):
+        for n in plan_lib.PLAN_LEAVES:
+            yield getattr(x, n)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3040,6 +3658,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     pu = phase_unpaged_mixed(lm_cfg, lm_params)
     puc = pu["counters"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    pc, pc_rows = phase_chunked_admission(lm_cfg, lm_params)
+    rows += pc_rows
+    pcc = pc["counters"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    dchunk, dc_rows = phase_decode_chunk(lm_cfg, lm_params)
+    dec_rows += dc_rows
     def row(shape, dtype, route):
         return next(r for r in rows if r["shape"] == shape
                     and r["dtype"] == dtype and r["route"] == route)
@@ -3062,12 +3689,12 @@ def main(argv=None) -> int:
     # compiled flex_attention's forward on the same inputs and LUT (phase
     # 7): O^s and L only, no linear branch, so not the kernel's function
     flex16 = wan_tc["sla_bwd_dq"].get("library_fwd_ms")
-    say(f"[18] sla_fwd at the Wan bf16 case (tensor cores): "
+    say(f"[20] sla_fwd at the Wan bf16 case (tensor cores): "
         f"{wan16['ms']:.3f} ms against its bound {wan16['bound_ms']:.3f} ms "
         f"({wan16['bound_fraction']:.1%}) | compiled flex_attention forward "
         f"on the same LUT (O^s and L only, lacks O^l): "
         + (f"{flex16:.3f} ms" if flex16 is not None else "not measured"))
-    say(f"[18] sla_fwd at the Wan f32 case: split route {wan32['ms']:.3f} ms "
+    say(f"[20] sla_fwd at the Wan f32 case: split route {wan32['ms']:.3f} ms "
         f"against its bound {wan32['bound_ms']:.3f} ms "
         f"({wan32['bound_fraction']:.1%}; the f32-FMA bound "
         f"{wan32['bound_ms_f32_fma']:.3f} ms) | f32-FMA kernel "
@@ -3084,14 +3711,15 @@ def main(argv=None) -> int:
                 "train": train["launches"]["tc_sla_fwd"],
                 "lm_prefill": lm["launches"]["tc_sla_fwd"],
                 "lm_paged_prefill": pgc["tc_sla_fwd"],
-                "lm_unpaged_prefill": puc["tc_sla_fwd"]}
+                "lm_unpaged_prefill": puc["tc_sla_fwd"],
+                "lm_chunked_prefill": pcc["tc_sla_fwd"]}
     # the other paths compute in bf16: every launch there is a tensor-core
     # one (phases 9, 12, 15, 17 check), so none is on the split route
     split_paths = {"serve": main_run["split_launches"],
                    "serve_plan_cache": pc_launches["split_launches"],
                    "train": 0,
                    "lm_prefill": 0, "lm_paged_prefill": 0,
-                   "lm_unpaged_prefill": 0}
+                   "lm_unpaged_prefill": 0, "lm_chunked_prefill": 0}
     kernels = [{
         "name": "sla_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sla_fwd_split.cu",
@@ -3099,13 +3727,14 @@ def main(argv=None) -> int:
         "launches": (main_run["launches"] + pc_launches["launches"]
                      + train["launches"]["sla_fwd"]
                      + lm["launches"]["sla_fwd"] + pgc["sla_fwd"]
-                     + puc["sla_fwd"]),
+                     + puc["sla_fwd"] + pcc["sla_fwd"]),
         "launches_by_path": {"serve": main_run["launches"],
                              "serve_plan_cache": pc_launches["launches"],
                              "train": train["launches"]["sla_fwd"],
                              "lm_prefill": lm["launches"]["sla_fwd"],
                              "lm_paged_prefill": pgc["sla_fwd"],
-                             "lm_unpaged_prefill": puc["sla_fwd"]},
+                             "lm_unpaged_prefill": puc["sla_fwd"],
+                             "lm_chunked_prefill": pcc["sla_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in fwd_split),
         "ms": wan32["ms"], "plain_ms": wan32["plain_ms"],
         "bound_ms": wan32["bound_ms"], "bound_by": wan32["bound_by"],
@@ -3209,10 +3838,11 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/sla_decode.cu",
         "replaces": "src/repro/kernels/sla_decode.py:52",
         "launches": (lm["launches"]["sla_decode"] + pgc["sla_decode"]
-                     + puc["sla_decode"]),
+                     + puc["sla_decode"] + sum(dchunk["launches"])),
         "launches_by_path": {"lm_decode": lm["launches"]["sla_decode"],
                              "lm_paged_decode": pgc["sla_decode"],
-                             "lm_unpaged_decode": puc["sla_decode"]},
+                             "lm_unpaged_decode": puc["sla_decode"],
+                             "lm_decode_chunk": sum(dchunk["launches"])},
         "max_abs_err": max(r["max_abs_err"] for r in dec_rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -3233,10 +3863,12 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/sla_decode.cu",
         "replaces": "src/repro/kernels/sla_decode.py:181",
         "launches": (lm["launches"]["sla_decode_paged"]
-                     + pgc["sla_decode_paged"] + puc["sla_decode_paged"]),
+                     + pgc["sla_decode_paged"] + puc["sla_decode_paged"]
+                     + pcc["sla_decode_paged"]),
         "launches_by_path": {"lm_decode": lm["launches"]["sla_decode_paged"],
                              "lm_paged_decode": pgc["sla_decode_paged"],
-                             "lm_unpaged_decode": puc["sla_decode_paged"]},
+                             "lm_unpaged_decode": puc["sla_decode_paged"],
+                             "lm_chunked_decode": pcc["sla_decode_paged"]},
         "max_abs_err": max(r["max_abs_err"] for r in pg_rows),
         "ms": head5["ms"], "plain_ms": head5["plain_ms"],
         "bound_ms": head5["bound_ms"], "bound_by": head5["bound_by"],
@@ -3249,10 +3881,11 @@ def main(argv=None) -> int:
         **{key: head5[key] for key in split_keys},
         "cases": pg_rows,
     })
-    say(f"[18] main path {main_run} | cross-check {cross} | plan cache "
+    say(f"[20] main path {main_run} | cross-check {cross} | plan cache "
         f"{pcache} | grads {grads} | "
         f"train {train} | train CLI {cli} | lm {lm} | lm cross-check "
-        f"{lm_cross} | paged lm {pg} | unpaged mixed {pu} | total "
+        f"{lm_cross} | paged lm {pg} | unpaged mixed {pu} | chunked "
+        f"admission {pc} | decode_chunk {dchunk} | total "
         f"{time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

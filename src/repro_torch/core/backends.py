@@ -13,9 +13,9 @@ the attention math given that plan. Three backends, all returning
 feature maps, GQA head broadcast, and the learned Proj merge (Eq. 6).
 A second registry runs one decode token against the decode cache state
 (`decode_execute`; backends gather / reference / kernel), on monolithic
-or paged decode state. Counterpart of `repro.core.backends`;
-`decode_execute_chunk` (chunked decode) is not ported yet (ROADMAP.md
-queue 1, item 14).
+or paged decode state, and `decode_execute_chunk` a chunk of C tokens
+with per-token plan rows and linear-state snapshots (verify-style
+decode). Counterpart of `repro.core.backends`.
 """
 from __future__ import annotations
 
@@ -398,3 +398,59 @@ def decode_execute(state: Dict[str, torch.Tensor], params: Optional[Params],
     proj = params["proj"].float()
     o = o_s + torch.einsum("bhd,hde->bhe", o_l.reshape(b, h, d), proj)
     return o.to(in_dtype)
+
+
+def decode_execute_chunk(state: Dict[str, torch.Tensor],
+                         params: Optional[Params], q: torch.Tensor, pos,
+                         cfg: SLAConfig, scale: Optional[float] = None,
+                         backend: str = "gather") -> torch.Tensor:
+    """C-token chunked SLA attention against the decode cache state.
+
+    q: (B, H, C, D) chunk queries; `pos` the base position (token c sits
+    at pos + c). Unlike the single-token path, `state` carries per-token
+    plan rows and linear-state snapshots: lut (B, H, C, K), cnt/marg
+    (B, H, C), htot (B, Hkv, C, D, D), ztot (B, Hkv, C, D) and the
+    diagonal block's at-time partials hdiag/zdiag of the same shapes (what
+    `transformer.decode_chunk` records). One launch of the decode kernel
+    (backend "kernel") or one call of its plain math (backends "gather"
+    and "reference", as in the reference) covers the chunk. Monolithic
+    state only. Returns (B, H, C, D) in q.dtype."""
+    from repro_torch.kernels import sla_decode
+
+    backend = resolve_decode(backend)
+    cfg.validate()
+    in_dtype = q.dtype
+    b, h, cdim, d = q.shape
+    hkv = state["k"].shape[1]
+    scale = (d**-0.5) if scale is None else scale
+    qg = _group_heads(q.float(), hkv)
+    qpg = _group_heads(phi(q, cfg.phi), hkv)
+    if backend == "kernel":
+        o_s, o_l = _decode_kernel_backend_chunk(state, qg, qpg, pos, cfg,
+                                                scale)
+    else:
+        posv = torch.broadcast_to(torch.as_tensor(
+            pos, dtype=torch.int32, device=q.device), (b,))
+        o_s, o_l = sla_decode._decode_math(
+            qg, qpg, state["k"], state["v"], state["hblk"], state["zblk"],
+            state["hdiag"], state["zdiag"], state["htot"], state["ztot"],
+            _group_heads(state["lut"], hkv), _group_heads(state["cnt"], hkv),
+            _group_heads(state["marg"], hkv), posv, cfg, scale)
+    o_s = o_s.reshape(b, h, cdim, d)
+    if cfg.mode == "sparse_only":
+        return o_s.to(in_dtype)
+    if cfg.mode != "sla":
+        raise ValueError(
+            f"decode_execute_chunk supports modes 'sla'/'sparse_only', got "
+            f"{cfg.mode!r}")
+    proj = params["proj"].float()
+    o = o_s + torch.einsum("bhcd,hde->bhce", o_l.reshape(b, h, cdim, d),
+                           proj)
+    return o.to(in_dtype)
+
+
+def _decode_kernel_backend_chunk(state, qg, qpg, pos, cfg, scale):
+    """The fused decode kernel over a chunk's per-token rows (its plain
+    twin on CPU tensors): one launch for the whole chunk."""
+    from repro_torch.kernels import sla_decode
+    return sla_decode.decode_attention(state, qg, qpg, pos, cfg, scale)

@@ -15,7 +15,7 @@ Counterpart of `repro.core.masks`. Sorts are stable and use the same keys
 as the reference, so equal score maps give bitwise-equal classifications.
 The row-local half (`row_valid` .. `classify_row`) classifies one query
 row at a time for decode-time incremental plans; `score_map_pooled`
-arrives with chunked prefill.
+scores pooled features, as chunked admission prefill keeps them.
 """
 from __future__ import annotations
 
@@ -152,6 +152,24 @@ def score_map(routing: Optional[dict], q: torch.Tensor, k: torch.Tensor,
     if cfg.routing_mode == "learned":
         return predict_routing(routing, q, k, cfg, scale)
     return predict_pc(q, k, cfg, scale)
+
+
+def score_map_pooled(routing: Optional[dict], qp: torch.Tensor,
+                     kp: torch.Tensor, cfg: SLAConfig,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """`score_map` from already-pooled block features. qp: (B, H, Tm, D),
+    kp: (B, H, Tn, D), the means `pool_blocks` produces. Equal to
+    `score_map(routing, q, k, ...)` when the pools are `pool_blocks` of
+    the same q and k: the chunked-prefill carry keeps exactly those pools,
+    so a chunk can re-score the full map without holding raw q/k."""
+    check_routing_mode(cfg, routing)
+    d = qp.shape[-1]
+    scale = (d**-0.5) if scale is None else scale
+    qp, kp = qp.float(), kp.float()
+    if cfg.routing_mode == "learned":
+        qp = torch.einsum("bhmd,hde->bhme", qp, routing["wq"].float())
+        kp = torch.einsum("bhnd,hde->bhne", kp, routing["wk"].float())
+    return _pooled_scores(qp, kp, cfg, scale)
 
 
 def classify_blocks(pc: torch.Tensor, cfg: SLAConfig) -> torch.Tensor:

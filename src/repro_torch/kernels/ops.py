@@ -1,7 +1,8 @@
 """SLA attention op around the CUDA kernels (Alg. 1 + Alg. 2).
 
 `sla_attention_core(q, k, v, qp, kp, plan, cfg)` returns (O^s, O^l); the
-caller applies Proj and the sum (Eq. 6). Differentiable with respect to
+caller applies Proj and the sum (Eq. 6). `sla_attention_rows` is its
+forward-only form over a span of query-row blocks (chunked prefill). Differentiable with respect to
 q, k, v, qp and kp through a `torch.autograd.Function`; the plan is a
 constant, as in the paper (TopK is not differentiated), so `marginal`
 gets a zero gradient. Counterpart of `repro.kernels.ops` (`_sla_core`
@@ -141,6 +142,34 @@ class _SLACore(torch.autograd.Function):
             d_marginal = torch.zeros(ctx.shape[:2] + a.shape[1:],
                                      dtype=a.dtype, device=a.device)
         return grads + (d_marginal,) + (None,) * 6
+
+
+def sla_attention_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       qp: torch.Tensor, kp: torch.Tensor,
+                       marginal: torch.Tensor, lut: torch.Tensor,
+                       counts: torch.Tensor, cfg: SLAConfig,
+                       scale: Optional[float] = None, row_offset: int = 0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward-only fused kernel over a span of query-row blocks: the
+    chunked-prefill entry point. q/qp cover C = Cm * block_q query
+    tokens whose first row block is the absolute block `row_offset`;
+    k/v/kp cover the full (B, H, N, D) KV bucket; `marginal`
+    (B, H, Cm, Tn), `lut` (B, H, Cm, K) and `counts` (B, H, Cm) are the
+    span's rows of the full plan. The same steps as the differentiable
+    forward (per-block h/z at full bucket width, the aggregation, then
+    one kernel launch at base `row_offset`), without autograd: prefill
+    chunks are inference-only. Returns (O^s, O^l) f32, q's shape."""
+    scale = float(q.shape[-1] ** -0.5) if scale is None else float(scale)
+    fq, fk, fv, fqp, fkp = map(_flat, (q, k, v, qp, kp))
+    a, flut, fcounts = map(_flat, (marginal, lut, counts))
+    hb, zb = _hz_blocks(fkp, fv, cfg.block_kv)
+    hi, zi = _aggregate(a, hb, zb)
+    del hb, zb
+    o_s, o_l, _ = sla_fwd(flut, fcounts, fq, fk, fv, fqp, hi, zi,
+                          scale=scale, causal=cfg.causal,
+                          block_q=cfg.block_q, block_kv=cfg.block_kv,
+                          base=int(row_offset))
+    return o_s.reshape(q.shape), o_l.reshape(q.shape)
 
 
 def sla_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -5,6 +5,9 @@
     python -m repro_torch.launch.serve --arch qwen3-1.7b --decode-sla \
         --backend kernel --scheduler continuous --paged --batch 4 \
         --requests 6 --prompt-len 32000 --max-new 64 --pool-pages 2053
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+        --smoke --device cpu --scheduler continuous --paged --decode-sla \
+        --backend kernel --prefill-chunk 1 --requests 4 --batch 2
     PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \
         --arch qwen3-1.7b --smoke --device cpu --decode-sla --backend kernel
     python -m repro_torch.launch.serve --workload dit --arch wan2_1_1_3b \
@@ -16,9 +19,9 @@
 Counterpart of `repro.launch.serve` with its LM flags (the static engine,
 the continuous scheduler with `--stream`, the paged KV cache with
 `--paged` / `--pool-pages`), its DiT flags, the same argument checks and
-defaults, plus `--device` (default cuda). Chunked admission
-(`--prefill-chunk`) and disaggregated serving (`--disagg`) raise and name
-the ROADMAP item that ports them. Prompts and request latents come from
+defaults, plus `--device` (default cuda), and chunked admission
+(`--prefill-chunk`, with `--paged`). Disaggregated serving (`--disagg`)
+raises and names the ROADMAP item that ports it. Prompts and request latents come from
 `np.random.default_rng(--seed)` exactly as in the reference, so a CPU run
 of the port and of the reference see the same requests; the weights are
 random, from a seeded `torch.Generator`.
@@ -93,7 +96,16 @@ def main(argv=None):
                          "scratch page per slot and the zero page)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     metavar="BLOCKS",
-                    help="lm: chunked admission prefill (not ported yet)")
+                    help="lm: chunked admission prefill: a request that "
+                         "misses the full-prompt snapshot owns its slot "
+                         "in PREFILLING state and advances BLOCKS SLA "
+                         "blocks of prompt per tick while the other slots "
+                         "keep decoding, bounding the decode stall a long "
+                         "prompt causes to one chunk. Requires --paged and "
+                         "--scheduler continuous; lifts "
+                         "sla.col_capacity_factor to None (printed): "
+                         "chunk classification is row-decomposable only "
+                         "uncapped")
     ap.add_argument("--disagg", action="store_true",
                     help="lm: disaggregated prefill / decode pools (not "
                          "ported yet)")
@@ -134,23 +146,24 @@ def main(argv=None):
     if args.drift_threshold is not None:
         parts = [float(x) for x in str(args.drift_threshold).split(",")]
         args.drift_threshold = parts[0] if len(parts) == 1 else tuple(parts)
-    unported = [flag for flag, on in (
-        ("--prefill-chunk", args.prefill_chunk is not None),
-        ("--disagg", args.disagg)) if on]
-    if unported:
+    if args.disagg:
         raise NotImplementedError(
-            f"{', '.join(unported)}: chunked admission and disaggregated "
-            f"serving are not ported to repro_torch yet (ROADMAP.md queue "
-            f"1, item 14)")
+            "--disagg: disaggregated serving is not ported to repro_torch "
+            "yet (ROADMAP.md queue 1, item 14)")
     if args.stream and args.scheduler != "continuous":
         ap.error("--stream requires --scheduler continuous")
     if args.paged and args.scheduler != "continuous":
         ap.error("--paged requires --scheduler continuous or --disagg")
+    if args.prefill_chunk is not None and not args.paged:
+        ap.error("--prefill-chunk requires --paged (chunks land "
+                 "through the page-table scatter) or --disagg")
     if args.workload == "dit" and (args.stream or args.paged
                                    or args.decode_sla
-                                   or args.plan_reuse != "off"):
+                                   or args.plan_reuse != "off"
+                                   or args.prefill_chunk is not None):
         ap.error("--workload dit serves denoise requests — --stream/"
-                 "--paged/--decode-sla/--plan-reuse are LM-serving flags")
+                 "--paged/--decode-sla/--plan-reuse/--prefill-chunk are "
+                 "LM-serving flags")
 
     from repro_torch.core import backends as backend_registry
     backend_registry.resolve(args.backend)  # unknown names fail here
@@ -161,6 +174,17 @@ def main(argv=None):
     if args.routing_mode is not None:
         cfg = dataclasses.replace(
             cfg, sla=cfg.sla.replace(routing_mode=args.routing_mode))
+    if (args.prefill_chunk is not None
+            and cfg.sla.col_capacity_factor is not None):
+        # chunk plan rows are sliced from the full classification, which
+        # the column-capacity demotion couples across rows; lifting the
+        # cap keeps strictly more critical blocks, a valid SLA plan that
+        # blocking admission applies alike
+        print("--prefill-chunk: lifting sla.col_capacity_factor "
+              f"({cfg.sla.col_capacity_factor} -> None); chunked "
+              "classification is row-decomposable only uncapped")
+        cfg = dataclasses.replace(
+            cfg, sla=cfg.sla.replace(col_capacity_factor=None))
     cfg.sla.validate()
     device = resolve_device(args.device)
     rs = np.random.default_rng(args.seed)
@@ -198,7 +222,8 @@ def _run_lm(args, cfg, rs, device):
                           plan_reuse=args.plan_reuse,
                           drift_threshold=args.drift_threshold,
                           paged=args.paged or None,
-                          pool_pages=args.pool_pages)
+                          pool_pages=args.pool_pages,
+                          prefill_chunk_blocks=args.prefill_chunk)
         t0 = time.time()
         for _ in range(args.requests):
             sched.submit(rs.integers(0, cfg.vocab_size,
@@ -227,7 +252,8 @@ def _run_lm(args, cfg, rs, device):
                            decode_sla=args.decode_sla,
                            scheduler=args.scheduler,
                            paged=args.paged or None,
-                           pool_pages=args.pool_pages)
+                           pool_pages=args.pool_pages,
+                           prefill_chunk_blocks=args.prefill_chunk)
     t0 = time.time()
     done = engine.run(reqs)
     _print_stats(args, engine.stats, len(done), time.time() - t0,
@@ -258,6 +284,10 @@ def _print_stats(args, st, n_done, wall, metrics, drift_threshold, device):
               f"{st.cow_copies} CoW copies | prefix cache "
               f"{st.prefix_hits} page hits / {st.prefix_misses} misses, "
               f"{st.prefix_full_hits} full-prompt hits")
+    if args.prefill_chunk:
+        print(f"chunked admission: {st.chunked_admissions} requests in "
+              f"{st.prefill_chunks} chunks | max inter-token gap "
+              f"{st.max_decode_gap_s * 1e3:.0f}ms")
     if args.plan_reuse != "off":
         print(f"plan reuse: {st.plan_builds} built, {st.plan_reuses} "
               f"reused, {st.plan_replans} drift re-plans | retention "

@@ -7,7 +7,10 @@ transformer.py) prefill, decode_step and the serving caches that the
 continuous scheduler reaches as `mdl.make_cache`, `mdl.insert_slot`,
 `mdl.make_paged_cache`, `mdl.insert_slot_paged`,
 `mdl.insert_slot_state_paged`, `mdl.slot_state_from_prefill` and
-`mdl.copy_page`. The DiT and dense families are
+`mdl.copy_page`, and chunked admission as `mdl.check_chunked_prefill`,
+`mdl.make_prefill_carry`, `mdl.prefill_chunk`,
+`mdl.finalize_chunked_prefill`, `mdl.carry_rows` and
+`mdl.carry_restore`. The DiT and dense families are
 ported; the others raise and name the ROADMAP.md queue-1 item that ports
 them.
 """

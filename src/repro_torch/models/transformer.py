@@ -20,10 +20,12 @@ per-slot cache keeps `pos` as a (B,) device tensor advanced in place with
 its host mirror `pos_host`, so the boundary work is a host branch (run
 for the whole batch when any slot is at a boundary, selected per slot),
 not a select, and no step syncs the stream. decode_step returns the same
-cache dict, advanced by one token. Not ported yet: MoE FFNs (ROADMAP.md
-queue 1, item 13), sliding-window and VLM layers (item 15), and
-`decode_chunk` and chunked prefill (item 14); each raises and names its
-item.
+cache dict, advanced by one token. Chunked admission prefill
+(`prefill_chunk` over a carry, `finalize_chunked_prefill`) and
+verify-style multi-token decode (`decode_chunk`) update their carry and
+cache in place too. Not ported yet: MoE FFNs (ROADMAP.md queue 1, item
+13) and sliding-window and VLM layers (item 15); each raises and names
+its item.
 """
 from __future__ import annotations
 
@@ -427,6 +429,236 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
     return (x[:, -1], cache) + tuple(extras)
 
 
+# --------------------------------------------------------------------------
+# chunked admission prefill: the prompt one block-aligned span at a time,
+# so the scheduler can run decode ticks between chunks. The carry holds
+# what later chunks and `_seed_decode_state` need: each layer's KV written
+# so far, the mean-pooled q/k block features (every chunk re-scores the
+# FULL block map from them with `masks.score_map_pooled`, which is what
+# blocking prefill scores) and the decode-grid classification rows.
+# Finalization goes through `_seed_decode_state`, as blocking prefill.
+# --------------------------------------------------------------------------
+def check_chunked_prefill(cfg: ArchConfig, backend: str = "gather"):
+    """Refuse configs the chunked-prefill machine cannot serve as blocking
+    prefill does. Chunk plan rows are sliced from a full-map
+    classification, which is row-decomposable only without the
+    column-capacity demotion (it couples rows); the execution path covers
+    SLA layers on the gather and kernel backends only."""
+    sla = cfg.sla
+    if sla.mode != "sla":
+        raise ValueError(
+            f"chunked admission prefill requires sla.mode='sla' (got "
+            f"{sla.mode!r})")
+    if sorted(set(layer_kinds_list(cfg))) != [KIND_SLA]:
+        raise ValueError(
+            "chunked admission prefill requires an all-SLA layer stack "
+            "(mixed full/swa stacks prefill blocking)")
+    if sla.col_capacity_factor is not None:
+        raise ValueError(
+            "chunked admission prefill requires "
+            "sla.col_capacity_factor=None: the column-capacity demotion "
+            "pass couples query rows, so chunk plan rows could not be "
+            "sliced from the full classification")
+    if sla.window or cfg.sliding_window:
+        raise ValueError(
+            "chunked admission prefill does not support window-"
+            "constrained SLA layers")
+    if sla.block_q != sla.block_kv:
+        raise ValueError(
+            f"chunked admission prefill requires block_q == block_kv "
+            f"(got {sla.block_q} vs {sla.block_kv})")
+    if backend_lib.resolve(backend) not in ("gather", "kernel"):
+        raise ValueError(
+            f"chunked admission prefill supports backends "
+            f"'gather'/'kernel' (got {backend!r})")
+
+
+def make_prefill_carry(cfg: ArchConfig, bucket: int,
+                       compute_dtype=torch.bfloat16,
+                       decode_sla: bool = False, device=None) -> dict:
+    """Zero chunked-prefill carry for a (1, bucket) admission, on `device`
+    (the card unless the caller asks for the CPU). Leaves, stacked over
+    layers; `prefill_chunk` writes them in place:
+      k/v  (L, 1, Hkv, bucket, Dh)  KV written so far (later rows zero)
+      qpm  (L, 1, H, Tm, Dh) f32    mean-pooled q per written block row
+      kpm  (L, 1, H, Tm, Dh) f32    mean-pooled (GQA-repeated) k per block
+      dmc  (L, 1, H, Tm, Tm) int8   decode-grid rows (decode_sla only)
+    """
+    sla = cfg.sla
+    if bucket % sla.block_q:
+        raise ValueError(
+            f"chunked prefill needs a block-aligned bucket (got {bucket} "
+            f"for block_q={sla.block_q})")
+    dev = resolve_device(device)
+    nl, hkv, h, dh = (cfg.num_layers, cfg.num_kv_heads, cfg.num_heads,
+                      cfg.head_dim)
+    tm = bucket // sla.block_q
+    carry = {
+        "k": torch.zeros((nl, 1, hkv, bucket, dh), dtype=compute_dtype,
+                         device=dev),
+        "v": torch.zeros((nl, 1, hkv, bucket, dh), dtype=compute_dtype,
+                         device=dev),
+        "qpm": torch.zeros((nl, 1, h, tm, dh), dtype=torch.float32,
+                           device=dev),
+        "kpm": torch.zeros((nl, 1, h, tm, dh), dtype=torch.float32,
+                           device=dev),
+    }
+    if decode_sla:
+        carry["dmc"] = torch.full((nl, 1, h, tm, tm), -1, dtype=torch.int8,
+                                  device=dev)
+    return carry
+
+
+def carry_rows(carry: dict, tokens: int, block: int) -> dict:
+    """The written part of a carry after `tokens` prompt tokens: KV rows
+    [:tokens] and block rows [:tokens // block] of the pooled features
+    and decode rows (copies). Every later row of the carry is its zero
+    (or -1) initial value, so this is all a snapshot has to keep."""
+    rows = tokens // block
+    return {key: (val[..., :tokens, :] if key in ("k", "v")
+                  else val[..., :rows, :]).clone()
+            for key, val in carry.items()}
+
+
+def carry_restore(carry: dict, rows: dict) -> dict:
+    """Write a `carry_rows` snapshot into the head of a fresh zero carry,
+    in place; returns `carry`."""
+    for key, val in rows.items():
+        carry[key][..., :val.shape[-2], :] = val
+    return carry
+
+
+@torch.no_grad()
+def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, carry: dict,
+                  start: int, compute_dtype=torch.bfloat16,
+                  backend: str = "gather",
+                  decode_max_len: Optional[int] = None):
+    """Consume one block-aligned span of prompt tokens against the prefix
+    already in `carry`.
+
+    tokens: (1, C) int, C a multiple of block_q; `start` the span's
+    absolute, block-aligned token offset (a python int). Writes the span
+    into the carry IN PLACE (the reference returns a new carry) and
+    returns (carry, last_hidden (1, d)); the last chunk's hidden feeds
+    `logits_from_hidden` for the admission's first token.
+
+    Per layer the chunk (a) writes its KV and pooled q/k rows into the
+    carry, (b) re-scores the full block map from the pooled carry
+    (masked-softmax rows depend only on columns <= row, all written) and
+    slices its rows, (c) runs the attention op on its rows against the
+    full-bucket carried KV at row offset start // block_q (zero future
+    blocks contribute exact zeros through the marginal mask), (d)
+    classifies its decode-grid rows from the same pooled maps.
+    `decode_max_len` must be the value blocking prefill would get
+    (required when the carry has "dmc")."""
+    from repro_torch.core.block_sparse_xla import sla_forward_gather
+    from repro_torch.kernels import ops as kops
+
+    check_chunked_prefill(cfg, backend)
+    backend = backend_lib.resolve(backend)
+    sla = cfg.sla
+    bq = sla.block_q
+    b, c = tokens.shape
+    if b != 1:
+        raise ValueError(f"prefill_chunk takes a batch-1 span (got {b})")
+    if c % bq:
+        raise ValueError(
+            f"chunk length {c} must be a multiple of block_q={bq}")
+    start = int(start)
+    bucket = carry["k"].shape[-2]
+    if start % bq or start + c > bucket:
+        raise ValueError(
+            f"chunk [{start}, {start + c}) must be block-aligned inside "
+            f"the {bucket}-token bucket")
+    tm = bucket // bq
+    nb, sb = c // bq, start // bq
+    decode_sla = "dmc" in carry
+    if decode_sla and decode_max_len is None:
+        raise ValueError(
+            "carry tracks decode-grid rows ('dmc'): pass the same "
+            "decode_max_len blocking prefill would use")
+    plan_cfg = dataclasses.replace(sla, causal=True)
+    dcfg = (sla.decode_plan_cfg(decode_max_len // sla.block_kv)
+            if decode_sla else None)
+    x = params.embed[tokens].to(compute_dtype)
+    dev = x.device
+    positions = (start + torch.arange(c, device=dev))[None, :]
+    k_sel = plan_cfg.num_critical(tm)
+    for li, p in enumerate(params.layers):
+        q, k, v = _qkv(p, rms_norm(x, p.ln1), cfg, positions)
+        kc, vc = carry["k"][li], carry["v"][li]
+        kc[:, :, start:start + c] = k.to(kc.dtype)
+        vc[:, :, start:start + c] = v.to(vc.dtype)
+        h = q.shape[1]
+        qpm, kpm = carry["qpm"][li], carry["kpm"][li]
+        # pooled rows: the mean over each block's own tokens, so chunk-
+        # local pooling equals full-prefill pooling (and GQA repeat and
+        # pooling commute)
+        qpm[:, :, sb:sb + nb] = masks_lib.pool_blocks(q, bq)
+        kpm[:, :, sb:sb + nb] = masks_lib.pool_blocks(repeat_kv(k, h),
+                                                      sla.block_kv)
+        routing = _routing(p, sla)
+        mc_rows = masks_lib.classify_blocks(
+            masks_lib.score_map_pooled(routing, qpm, kpm, plan_cfg),
+            plan_cfg)[:, :, sb:sb + nb]
+        lut, counts = plan_lib.build_lut(mc_rows, k_sel)
+        # inference only: the hard indicator is the forward value of the
+        # learned-routing straight-through gates
+        marginal = (mc_rows == 0).float()
+        if decode_sla:
+            mcd = masks_lib.classify_blocks(
+                masks_lib.score_map_pooled(routing, qpm, kpm, dcfg), dcfg)
+            carry["dmc"][li][:, :, sb:sb + nb] = mcd[:, :, sb:sb + nb]
+            del mcd
+        krf, vrf = repeat_kv(kc, h), repeat_kv(vc, h)
+        qp, kp = phi(q, sla.phi), phi(krf, sla.phi)
+        if backend == "gather":
+            rows_plan = plan_lib.SLAPlan(
+                mc=mc_rows, lut=lut, counts=counts,
+                col_lut=torch.zeros((b, h, tm, 1), dtype=torch.int32,
+                                    device=dev),
+                col_counts=torch.zeros((b, h, tm), dtype=torch.int32,
+                                       device=dev),
+                marginal=marginal)
+            o_s, o_l = sla_forward_gather(q, krf, vrf, qp, kp, rows_plan,
+                                          plan_cfg, row_offset=sb)
+        else:
+            o_s, o_l = kops.sla_attention_rows(
+                q, krf, vrf, qp, kp, marginal, lut, counts, plan_cfg,
+                row_offset=sb)
+        del krf, vrf, kp
+        o = (o_s + torch.einsum("bhnd,hde->bhne", o_l,
+                                p.sla_proj.float())).to(x.dtype)
+        x = x + o.transpose(1, 2).reshape(b, c, -1) @ p.wo.to(x.dtype)
+        f, _ = _ffn(p, rms_norm(x, p.ln2), cfg)
+        x = x + f
+        del q, k, v, o_s, o_l, o, f
+    x = rms_norm(x, params.ln_f)
+    return carry, x[:, -1]
+
+
+def finalize_chunked_prefill(cfg: ArchConfig, carry: dict,
+                             decode_max_len: Optional[int] = None) -> dict:
+    """Chunked-prefill carry -> the cache dict blocking `prefill` returns:
+    the decode state is rebuilt with `_seed_decode_state` from the carried
+    KV and decode rows (not grown with `plan_extend`, whose dead col_lut
+    padding would differ), and the KV caches are padded to
+    `decode_max_len`. The cache's k/v share the carry's storage when no
+    padding is needed."""
+    kc, vc = carry["k"], carry["v"]
+    bucket = kc.shape[-2]
+    cache = {"k": kc, "v": vc, "pos": bucket}
+    if decode_max_len is not None:
+        _check_decode_grid(cfg, bucket, decode_max_len)
+        cache["sla"] = _seed_decode_state(cfg, kc, vc, carry["dmc"],
+                                          decode_max_len)
+        grow = decode_max_len - bucket
+        if grow > 0:
+            cache["k"] = F.pad(kc, (0, 0, 0, grow))
+            cache["v"] = F.pad(vc, (0, 0, 0, grow))
+    return cache
+
+
 def _slot_positions(cache: dict):
     """The positions of a decode cache: (vec, pos, pos_host). A static
     cache holds one python int shared by the batch (vec False, pos_host
@@ -793,6 +1025,235 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
     x = rms_norm(x, params.ln_f)
     _advance(cache, vec)
     return logits_from_hidden(params, x[:, 0]), cache
+
+
+# --------------------------------------------------------------------------
+# verify-style multi-token decode (speculative drafts)
+# --------------------------------------------------------------------------
+def _dense_decode_chunk_attn(q, kc, vc, pos_c, kind, cfg: ArchConfig):
+    """Chunked `_dense_decode_attn`: q (B, H, C, Dh) against the full
+    static cache, token c masked to columns <= pos_c[c] ((C,) tensor).
+    Returns (B, C, H * Dh) in q.dtype."""
+    if kind == KIND_SWA:
+        raise _not_ported("sliding-window decode attention", 15)
+    b, h, cdim = q.shape[0], q.shape[1], q.shape[2]
+    hkv, smax = kc.shape[1], kc.shape[2]
+    qg = q.reshape(b, hkv, h // hkv, cdim, cfg.head_dim)
+    s = torch.einsum("bkgcd,bksd->bkgcs", qg.float(), kc.float()) \
+        * (cfg.head_dim**-0.5)
+    ok = torch.arange(smax, device=q.device)[None, :] <= pos_c[:, None]
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    o = torch.einsum("bkgcs,bksd->bkgcd", torch.softmax(s, dim=-1),
+                     vc.float())
+    return (o.to(q.dtype).permute(0, 3, 1, 2, 4)
+            .reshape(b, cdim, h * cfg.head_dim))
+
+
+@torch.no_grad()
+def decode_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict,
+                 compute_dtype=torch.bfloat16, backend: str = "gather",
+                 drift_threshold=None, chunk: Optional[int] = None):
+    """Score a chunk of C given tokens against the cache in one pass
+    (verify-style multi-token decode, for speculative drafts).
+
+    tokens: (B, C) int. Returns (logits (B, C, V) f32, cache): logits[:, c]
+    are the next-token logits after consuming tokens[:, :c + 1], the
+    values C successive `decode_step` calls give, and the cache (updated
+    IN PLACE, as `decode_step` updates it) holds the state after all C
+    tokens. Under decode-time SLA one attention call per layer covers the
+    chunk, each token with its own plan row, running totals and diagonal
+    partials (`backends.decode_execute_chunk`).
+
+    `chunk=` splits a longer token run into sub-chunks of that size.
+    Requires a scalar cache["pos"] (aligned static batch); the
+    continuous-batching scheduler decodes one token at a time."""
+    if torch.is_tensor(cache["pos"]) and cache["pos"].ndim > 0:
+        raise ValueError(
+            "decode_chunk requires a scalar cache['pos'] (aligned "
+            "static-batch decode); per-slot continuous batching decodes "
+            "one token at a time via decode_step")
+    cdim = tokens.shape[1]
+    if chunk is not None and cdim > chunk:
+        outs = []
+        for lo in range(0, cdim, chunk):
+            logits, cache = decode_chunk(
+                params, cfg, tokens[:, lo:lo + chunk], cache,
+                compute_dtype, backend, drift_threshold)
+            outs.append(logits)
+        return torch.cat(outs, dim=1), cache
+    pos = int(cache["pos"])
+    smax = (cache["k"].shape[-2])
+    if pos + cdim > smax:
+        raise ValueError(f"decode_chunk: {cdim} tokens from position {pos} "
+                         f"overrun the {smax}-position cache")
+    if "sla" in cache:
+        return _decode_chunk_sla(params, cfg, tokens, cache, compute_dtype,
+                                 backend, drift_threshold)
+    x = params.embed[tokens].to(compute_dtype)
+    b, dev = x.shape[0], x.device
+    pos_c = pos + torch.arange(cdim, device=dev)
+    positions = pos_c[None, :].expand(b, cdim)
+    kinds = layer_kinds_list(cfg)
+    for li, p in enumerate(params.layers):
+        q, k_new, v_new = _qkv(p, rms_norm(x, p.ln1), cfg, positions)
+        kc, vc = cache["k"][li], cache["v"][li]
+        kc[:, :, pos:pos + cdim] = k_new.to(kc.dtype)
+        vc[:, :, pos:pos + cdim] = v_new.to(vc.dtype)
+        o = _dense_decode_chunk_attn(q, kc, vc, pos_c, kinds[li], cfg)
+        x = x + o @ p.wo.to(x.dtype)
+        f, _ = _ffn(p, rms_norm(x, p.ln2), cfg)
+        x = x + f
+    x = rms_norm(x, params.ln_f)
+    cache["pos"] = pos + cdim
+    return logits_from_hidden(params, x), cache
+
+
+def _decode_chunk_sla(params, cfg: ArchConfig, tokens, cache, compute_dtype,
+                      backend: str, drift_threshold=None):
+    """Chunked decode-time SLA on a static (scalar-pos) cache.
+
+    Per layer a loop over the C tokens runs `_decode_step_sla`'s
+    boundary and state phases 1-3 in the same order on the same tensors
+    (so the cache ends as C steps leave it), recording each token's live
+    plan row (lut/cnt/marg) and its at-time-c totals; then ONE chunked
+    attention call covers all C tokens.
+
+    Snapshot protocol (why the end-of-chunk hblk serves every token):
+    token c's marginal set holds only completed blocks j < row_c, and no
+    later chunk token writes those (tokens write their own row, >= row_c).
+    The one exception is the forced critical diagonal block row_c, still
+    filling inside the chunk: its at-time partial rides per token
+    (state["hdiag"] / ["zdiag"]) and the kernel substitutes it for the
+    stored block at the LUT's diagonal entry. The sparse branch needs no
+    protocol: the chunk's KV is written before attention and token c
+    masks columns > pos + c."""
+    backend_lib.resolve_decode(backend)
+    x = params.embed[tokens].to(compute_dtype)
+    b, cdim = tokens.shape
+    dev = x.device
+    pos = int(cache["pos"])
+    st = cache["sla"]
+    sla = cfg.sla
+    bq, bkv = sla.block_q, sla.block_kv
+    tn = cache["k"].shape[-2] // bkv
+    dcfg = sla.decode_plan_cfg(tn)
+    kinds = layer_kinds_list(cfg)
+    nl = cfg.num_layers
+    if drift_threshold is None:
+        drift_threshold = sla.drift_thresholds(nl)
+    thresholds = torch.broadcast_to(torch.as_tensor(
+        drift_threshold, dtype=torch.float32), (nl,)).tolist()
+    pos_c = [pos + c for c in range(cdim)]
+    row_c = [p_ // bq for p_ in pos_c]
+    bnd_c = [p_ % bq == 0 for p_ in pos_c]
+    # the rows bookkeeping is layer-independent: replay the appends
+    rows = st["rows"]
+    app_c = []
+    for c in range(cdim):
+        app_c.append(bnd_c[c] and rows < row_c[c])
+        rows += int(app_c[-1])
+    positions = torch.tensor(pos_c, device=dev)[None, :].expand(b, cdim)
+    blk = torch.arange(tn, device=dev)
+    plan = st["plan"]
+    for li, p in enumerate(params.layers):
+        q, k_new, v_new = _qkv(p, rms_norm(x, p.ln1), cfg, positions)
+        kc, vc = cache["k"][li], cache["v"][li]
+        kc[:, :, pos:pos + cdim] = k_new.to(kc.dtype)
+        vc[:, :, pos:pos + cdim] = v_new.to(vc.dtype)
+        hb, zb, kp_sum = st["hblk"][li], st["zblk"][li], st["kpool"][li]
+        h, hkv = q.shape[1], k_new.shape[1]
+        g = h // hkv
+        qf, kf, vf = q.float(), k_new.float(), v_new.float()
+        phik = phi(kf, sla.phi)                      # (B, Hkv, C, D)
+        routing = _routing(p, dcfg)
+        lplan = plan_lib.plan_map(lambda leaf: leaf[li], plan)  # views
+        ht, zt = st["htot"][li], st["ztot"][li]
+        qp_sum = st["qpool"][li]
+        luts, cnts, margs, hts, zts, hds, zds = [], [], [], [], [], [], []
+        for c in range(cdim):
+            row = row_c[c]
+            qf_c = qf[:, :, c]
+            # 1. append the just-completed row (pooled k before the
+            # current block's new token)
+            if app_c[c]:
+                kpm = torch.repeat_interleave(kp_sum / bkv, g, dim=1)
+                pc_prev = masks_lib.score_row(routing, qp_sum / bq, kpm,
+                                              row - 1, dcfg)
+                plan_lib.plan_extend(lplan, masks_lib.classify_row(
+                    pc_prev, row - 1, dcfg), row - 1)
+                st["extends"][li] += 1
+            # 2. O(1) running-state update
+            hupd = phik[:, :, c, :, None] * vf[:, :, c, None, :]
+            _blk_update(hb, hupd, row)
+            _blk_update(zb, phik[:, :, c], row)
+            _blk_update(kp_sum, kf[:, :, c], row)
+            ht += hupd
+            zt += phik[:, :, c]
+            hds.append(hb[:, :, row].clone())
+            zds.append(zb[:, :, row].clone())
+            # 3. the live row's structure, at a boundary only
+            if bnd_c[c]:
+                cnt_div = torch.clamp(torch.clamp(
+                    (pos_c[c] + 1) - blk * bkv, max=bkv), 1, bkv)[:, None]
+                kpm_live = torch.repeat_interleave(
+                    kp_sum / cnt_div.float(), g, dim=1)
+                pc_live = masks_lib.score_row(routing, qf_c, kpm_live, row,
+                                              dcfg)
+                mc_fresh = masks_lib.classify_row(pc_live, row, dcfg)
+                mc_inh = lplan.mc[..., row - 1, :].clone()
+                mc_inh[..., row] = 1
+                stale = (pc_live * (mc_inh == 1)).sum(dim=-1)
+                fresh = (pc_live * (mc_fresh == 1)).sum(dim=-1)
+                r = torch.clamp(stale / torch.clamp(fresh, min=plan_lib.EPS),
+                                0.0, 1.0)
+                thr = thresholds[li]
+                retention = r.min()
+                replan = ((1.0 - retention) >= thr) & (thr < 1.0)
+                mc_live = torch.where(replan, mc_fresh, mc_inh)
+                lut_n, cnt_n = plan_lib.build_lut(mc_live[..., None, :],
+                                                  lplan.k_sel)
+                st["live_lut"][li] = lut_n[..., 0, :]
+                st["live_cnt"][li] = cnt_n[..., 0]
+                st["live_marg"][li] = (mc_live == 0).sum(dim=-1,
+                                                         dtype=torch.int32)
+                st["replans"][li] += replan.to(torch.int32)
+                st["reuses"][li] += (~replan).to(torch.int32)
+                st["retention"][li] = retention
+                qp_sum.copy_(qf_c)
+            else:
+                qp_sum += qf_c
+            luts.append(st["live_lut"][li].clone())
+            cnts.append(st["live_cnt"][li].clone())
+            margs.append(st["live_marg"][li].clone())
+            hts.append(ht.clone())
+            zts.append(zt.clone())
+
+        # 4. attention: one chunked call over the C tokens
+        if kinds[li] == KIND_SLA:
+            state = {"k": kc, "v": vc, "hblk": hb, "zblk": zb,
+                     "hdiag": torch.stack(hds, dim=2),
+                     "zdiag": torch.stack(zds, dim=2),
+                     "htot": torch.stack(hts, dim=2),
+                     "ztot": torch.stack(zts, dim=2),
+                     "lut": torch.stack(luts, dim=2),
+                     "cnt": torch.stack(cnts, dim=2),
+                     "marg": torch.stack(margs, dim=2)}
+            o = backend_lib.decode_execute_chunk(
+                state, {"proj": p.sla_proj}, q, pos, dcfg, backend=backend)
+            o = o.transpose(1, 2).reshape(b, cdim, h * cfg.head_dim)
+            o = o.to(x.dtype)
+            del state
+        else:
+            o = _dense_decode_chunk_attn(
+                q, kc, vc, torch.tensor(pos_c, device=dev), kinds[li], cfg)
+        x = x + o @ p.wo.to(x.dtype)
+        f, _ = _ffn(p, rms_norm(x, p.ln2), cfg)
+        x = x + f
+        del hds, zds, hts, zts
+    st["rows"] = rows
+    x = rms_norm(x, params.ln_f)
+    cache["pos"] = pos + cdim
+    return logits_from_hidden(params, x), cache
 
 
 # --------------------------------------------------------------------------
@@ -1179,15 +1640,3 @@ def restore_slots(cache: dict, snap: dict) -> dict:
             leaf[:, j] = val
         st["rows"][j] = one["rows"]
     return cache
-
-
-def _item14(what: str):
-    def fn(*args, **kwargs):
-        raise _not_ported(what, 14)
-    fn.__name__ = what
-    fn.__doc__ = f"`{what}` of the reference; raises until item 14."
-    return fn
-
-
-decode_chunk = _item14("decode_chunk")
-prefill_chunk = _item14("prefill_chunk")

@@ -24,10 +24,12 @@ of `decode_step`s with the greedy tokens kept on the device (one sync per
 dispatch), and the reference's masked mixed tick (some slots sample, the
 rest roll greedily; unpaged) runs the full batch and puts the frozen
 slots' touched state back (`transformer.snapshot_slots` /
-`restore_slots`), which commits the same tokens and counters. Not ported
-yet (ROADMAP.md queue 1, item 14): chunked admission prefill
-(`prefill_chunk_blocks`, the chunk half of `PrefillEngine`) and the
-disaggregated handoff `admit_external`; each raises and names the item.
+`restore_slots`), which commits the same tokens and counters. Chunked
+admission (`prefill_chunk_blocks`, paged only) runs a request's prompt
+one chunk per tick (`_PrefillJob`) while the other slots decode, resuming
+from a chunk-boundary carry snapshot when a prompt shares a prefix. Not
+ported yet (ROADMAP.md queue 1, item 14): the disaggregated handoff
+`admit_external`, which raises and names the item.
 """
 from __future__ import annotations
 
@@ -180,9 +182,9 @@ class ServeStats:
     prefix_misses: int = 0
     prefix_full_hits: int = 0
     cow_copies: int = 0
-    # chunked-admission accounting (chunked admission is not ported yet:
-    # these stay 0) and the largest wall-clock gap between consecutive
-    # token emissions
+    # chunked-admission accounting (requests admitted by chunks, chunk
+    # dispatches) and the largest wall-clock gap between consecutive
+    # token emissions, the decode stall chunked admission bounds
     chunked_admissions: int = 0
     prefill_chunks: int = 0
     max_decode_gap_s: float = 0.0
@@ -304,17 +306,23 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
 class PrefillEngine:
     """The prefill half of the scheduler: the (1, bucket) prefill of an
     admission (fresh, plan-building, or drift-gated reuse) over the
-    parameters cast once to the compute dtype (`compute_params`), and the
-    first-token logits. Counterpart of the reference's `PrefillEngine`,
-    blocking half; the chunked-prefill half (`chunk`, `finalize`, the
-    carry helpers) raises and names ROADMAP.md item 14."""
+    parameters cast once to the compute dtype (`compute_params`), the
+    first-token logits, and chunked admission: the chunk / finalize
+    dispatches, the zero carry of a job, and the LRU of chunk-boundary
+    carry snapshots. Counterpart of the reference's `PrefillEngine`.
+
+    The reference's carries are immutable arrays, so it keeps one zero
+    carry per bucket and stores snapshots by reference; here
+    `prefill_chunk` writes its carry in place. So every job starts from a
+    zero carry of its own (`carry_proto`), and a snapshot keeps a copy of
+    the rows written so far (`carry_put`), restored into a fresh zero
+    carry by `carry_get`: the values the reference's snapshot holds,
+    without the zero rows past them."""
 
     def __init__(self, cfg: ArchConfig, params, mdl, *, backend: str,
                  compute_dtype, decode_sla: bool, max_len: int,
                  drift_threshold, plan_reuse: str = "off",
-                 chunk_tokens: int = 0, cparams=None):
-        if chunk_tokens:
-            raise _not_ported("chunked admission prefill")
+                 cparams=None):
         self.cfg = cfg
         self.mdl = mdl
         self.backend = backend
@@ -325,7 +333,10 @@ class PrefillEngine:
         self.drift_threshold = drift_threshold
         self.params = (cparams if cparams is not None
                        else mdl.compute_params(params, compute_dtype))
+        self.device = self.params.embed.device
         self._dkw = {"decode_max_len": max_len} if decode_sla else {}
+        self._carry_snaps = collections.OrderedDict()
+        self._carry_cap = 16
 
     @torch.no_grad()
     def _prefill(self, params, tokens):
@@ -366,17 +377,77 @@ class PrefillEngine:
         with torch.no_grad():
             return _to_host(logits_from_hidden(self.params, last_hidden))
 
-    def chunk(self, *args, **kwargs):
-        raise _not_ported("chunked admission prefill (PrefillEngine.chunk)")
+    # -- chunked prefill ---------------------------------------------------
+    def chunk(self, toks_span: torch.Tensor, carry: dict, start: int):
+        """Run ONE prefill chunk into `carry` (in place); returns (carry,
+        last_hidden)."""
+        return self.mdl.prefill_chunk(
+            self.params, self.cfg, toks_span, carry, start,
+            compute_dtype=self.compute_dtype, backend=self.backend,
+            decode_max_len=self.max_len if self.decode_sla else None)
 
-    def finalize(self, *args, **kwargs):
-        raise _not_ported("chunked admission prefill "
-                          "(PrefillEngine.finalize)")
+    @torch.no_grad()
+    def finalize(self, carry: dict) -> dict:
+        """A completed carry -> the cache dict blocking prefill returns."""
+        return self.mdl.finalize_chunked_prefill(
+            self.cfg, carry,
+            decode_max_len=self.max_len if self.decode_sla else None)
 
-    def carry_proto(self, *args, **kwargs):
-        raise _not_ported("chunked admission prefill (the prefill carry)")
+    def carry_proto(self, bucket: int) -> dict:
+        """A zero chunked-prefill carry for `bucket`, new for each job
+        (the job writes into it; keeping one to copy from would hold a
+        whole carry for nothing)."""
+        return self.mdl.make_prefill_carry(
+            self.cfg, bucket, compute_dtype=self.compute_dtype,
+            decode_sla=self.decode_sla, device=self.device)
 
-    carry_get = carry_put = carry_proto
+    def carry_get(self, key) -> Optional[dict]:
+        """LRU lookup of a chunk-boundary carry snapshot (touches); a hit
+        comes back as a fresh carry with the snapshot's rows written."""
+        snap = self._carry_snaps.get(key)
+        if snap is None:
+            return None
+        self._carry_snaps.move_to_end(key)
+        return self.mdl.carry_restore(self.carry_proto(key[0]), snap)
+
+    def carry_put(self, key, carry: dict, tokens: int):
+        """Keep a copy of the first `tokens` prompt tokens' rows of `carry`
+        under `key` (bucket, padded prefix bytes)."""
+        self._carry_snaps[key] = self.mdl.carry_rows(carry, tokens,
+                                                     self.cfg.sla.block_q)
+        self._carry_snaps.move_to_end(key)
+        while len(self._carry_snaps) > self._carry_cap:
+            self._carry_snaps.popitem(last=False)
+
+    def carry_bytes(self) -> int:
+        """Device bytes the carry snapshots hold."""
+        return sum(t.numel() * t.element_size()
+                   for snap in self._carry_snaps.values()
+                   for t in snap.values())
+
+
+@dataclasses.dataclass
+class _PrefillJob:
+    """One in-flight chunked admission. The request owns `slot` in
+    PREFILLING state while its prompt advances one chunk per tick;
+    `carry` is the model's chunked-prefill carry (KV written so far,
+    pooled block features, decode-grid rows), `pids` the pool refs
+    claimed page by page as chunks land (taken over by `_set_slot_pages`
+    at completion), and `dispatched` the prompt tokens that actually ran
+    (prefix-resumed chunks are skipped)."""
+
+    r: ServedRequest
+    slot: int
+    toks: np.ndarray        # (1, bucket) left-padded prompt
+    keys: List[bytes]       # page intern keys for every prompt page
+    bucket: int             # admission-time bucket (survives later growth)
+    carry: dict
+    num_chunks: int
+    t0: float               # admission wall-clock (metrics.admit_t)
+    next_chunk: int = 0
+    dispatched: int = 0
+    pids: List[int] = dataclasses.field(default_factory=list)
+    last_hidden: Optional[torch.Tensor] = None
 
 
 # ---------------------------------------------------------------------------
@@ -452,12 +523,28 @@ class Scheduler:
         if prefill_chunk_blocks is None:
             prefill_chunk_blocks = cfg.sla.prefill_chunk_blocks
         if prefill_chunk_blocks is not None:
-            raise _not_ported("chunked admission prefill "
-                              "(prefill_chunk_blocks)")
+            if prefill_chunk_blocks < 1:
+                raise ValueError(
+                    f"prefill_chunk_blocks must be >= 1 (got "
+                    f"{prefill_chunk_blocks})")
+            if not paged:
+                raise ValueError(
+                    "prefill_chunk_blocks requires paged=True: chunked "
+                    "admission lands its pages through the page-table "
+                    "scatter and the prefix page cache")
         self.cfg = cfg
         self.mdl = registry.get_model(cfg)
         check_serving_family(cfg, self.mdl, plan_reuse, decode_sla,
                              continuous=True)
+        if prefill_chunk_blocks is not None:
+            chk = getattr(self.mdl, "check_chunked_prefill", None)
+            if chk is None:
+                raise ValueError(
+                    f"prefill_chunk_blocks requires a model family with "
+                    f"chunked prefill (prefill_chunk / "
+                    f"finalize_chunked_prefill); family {cfg.family!r} "
+                    f"has none")
+            chk(cfg, backend)  # all-SLA, no column capacity, ...
         self.num_slots = num_slots
         self.backend = backend
         self.decode_sla = decode_sla
@@ -485,6 +572,12 @@ class Scheduler:
                         if prefill_bucket else None)
         self._plans = None  # (1, bucket) plan stack for plan_reuse
         self._stat_base = [None] * num_slots  # decode-SLA counter bases
+        # chunked admission: one optional in-flight _PrefillJob per slot;
+        # the zero carries and the boundary-snapshot LRU live on the
+        # PrefillEngine below
+        self.prefill_chunk_blocks = prefill_chunk_blocks
+        self._chunk_tokens = (prefill_chunk_blocks or 0) * self.block
+        self._job_by_slot: List[Optional[_PrefillJob]] = [None] * num_slots
         self._last_token_t: Optional[float] = None
 
         if paged:
@@ -624,30 +717,35 @@ class Scheduler:
         """The disaggregated handoff of the reference; not ported yet."""
         raise _not_ported("admit_external (disaggregated serving)")
 
-    def _start_job(self, *args, **kwargs):
-        """The chunked-admission job machine of the reference; not ported
-        yet (the constructor refuses `prefill_chunk_blocks`)."""
-        raise _not_ported("chunked admission prefill (the job machine)")
-
-    _advance_job = _complete_job = _start_job
-
     @property
     def has_work(self) -> bool:
         return bool(self._queue) or any(r is not None for r in self._slots)
 
     def step(self) -> List[StreamEvent]:
-        """Admit queued requests into free slots, then run ONE batched
-        decode step over the live cache. Returns the events produced."""
+        """Advance in-flight chunked prefills by one chunk and admit queued
+        requests into free slots, then run ONE batched decode step over
+        the live cache. Returns the events produced."""
         events: List[StreamEvent] = []
         self._tick_admit(events)
         return events + self._decode_tick()
 
     def _tick_admit(self, events: List[StreamEvent]):
+        """Shared tick head: every in-flight chunked-prefill job advances
+        ONE chunk (a completion hands its slot to this tick's decode),
+        then queued requests fill free slots."""
+        for slot in range(self.num_slots):
+            if self._job_by_slot[slot] is not None:
+                self._advance_job(slot, events)
         for slot in range(self.num_slots):
             if self._slots[slot] is None and self._queue:
                 self._admit_next(slot, events)
 
     def _decoding(self) -> List[int]:
+        """Slots eligible for decode dispatch: occupied and past their
+        prefill. A PREFILLING job's slot is masked out like a free one:
+        its page-table row still points at its pinned scratch page, so
+        the batched dispatch's writes for it land there until the
+        completion scatters the real pages in."""
         return [j for j in range(self.num_slots)
                 if self._slots[j] is not None
                 and self._slots[j].state is RequestState.DECODING]
@@ -755,6 +853,10 @@ class Scheduler:
         events: List[StreamEvent] = []
         nsteps = min(self._slots[j].sampling.max_new_tokens
                      - len(self._slots[j].tokens_out) for j in greedy)
+        if any(job is not None for job in self._job_by_slot):
+            # a chunked prefill is in flight: one step, so its next chunk
+            # interleaves at per-token granularity
+            nsteps = 1
         if self.paged:
             for j in greedy:
                 self._ensure_decode_pages(j, nsteps)
@@ -816,10 +918,14 @@ class Scheduler:
         if self.paged:
             padded = toks[0]
             keys = self._page_keys(padded)
+            # precedence: full-prompt snapshot > chunked job > blocking
             logits = self._try_snapshot(padded, keys, slot)
             if logits is not None:
                 self._finish_admission(r, slot, logits, t0, events,
                                        prefilled=0, plan_built=False)
+                return
+            if self._chunk_tokens:
+                self._start_job(r, slot, toks, keys, t0, events)
                 return
             logits = self._dispatch_paged(toks, keys, slot)
         else:
@@ -836,10 +942,12 @@ class Scheduler:
 
     def _finish_admission(self, r: ServedRequest, slot: int, logits,
                           t0: float, events: List[StreamEvent], *,
-                          prefilled: int, plan_built: bool):
-        """Common admission tail: decode-SLA accounting (a snapshot hit
-        builds no plans and prefills no tokens), first-token sampling,
-        events, and the slot's hand-off to DECODING."""
+                          prefilled: int, plan_built: bool,
+                          start_emitted: bool = False):
+        """Common admission tail (blocking, snapshot hit, chunked
+        completion): decode-SLA accounting (a snapshot hit builds no plans
+        and prefills no tokens), first-token sampling, events, and the
+        slot's hand-off to DECODING."""
         if self.decode_sla:
             if plan_built:
                 self.stats.decode_plan_builds += self.cfg.num_layers
@@ -854,7 +962,8 @@ class Scheduler:
         r.state = RequestState.DECODING
         r.tokens_out.append(tok)
         r.metrics.decode_tokens += 1
-        events.append(StreamEvent(rid=r.rid, kind="start", t=t0))
+        if not start_emitted:
+            events.append(StreamEvent(rid=r.rid, kind="start", t=t0))
         self._note_gap(now)
         events.append(StreamEvent(rid=r.rid, kind="token", t=now,
                                   token=tok, index=0))
@@ -901,15 +1010,19 @@ class Scheduler:
         st.prefix_misses = ps.prefix_misses
         st.cow_copies = ps.cow_copies
 
-    def _set_slot_pages(self, slot: int, pids: List[int]):
+    def _set_slot_pages(self, slot: int, pids: List[int],
+                        bucket: Optional[int] = None):
         """Point `slot`'s page-table row at its prompt pages (one pool ref
         each, already taken); the decode tail reads the permanent zero
-        page until the CoW pass makes it private."""
+        page until the CoW pass makes it private. `bucket` defaults to the
+        shared prefill bucket; a chunked completion passes its own
+        admission-time bucket, which a later longer prompt may have
+        outgrown."""
         npp = len(pids)
         self._pt_host[slot, :npp] = pids
         self._pt_host[slot, npp:] = self._zero_page
         self._slot_pids[slot] = list(pids)
-        self._slot_base[slot] = self._bucket
+        self._slot_base[slot] = self._bucket if bucket is None else bucket
         self._push_pt()
 
     def _try_snapshot(self, padded: np.ndarray, keys: List[bytes],
@@ -970,6 +1083,94 @@ class Scheduler:
                              logits)
         self._sync_page_stats()
         return logits
+
+    # -- chunked admission -------------------------------------------------
+    def _claim_job_pages(self, job: _PrefillJob, lo: int, hi: int):
+        """Intern-or-alloc the pages covering padded tokens [lo, hi), one
+        pool ref each, held by the job until `_set_slot_pages` takes them
+        over at completion. Interned hits count prefix hits once per page,
+        as in blocking admission; the pages' contents land at the
+        completion's full rewrite (nothing reads a slot's pages before
+        its own completion: snapshot hits need a stored snapshot, stored
+        only after such a rewrite)."""
+        bkv = self.block
+        for j in range(lo // bkv, hi // bkv):
+            job.pids.append(self._claim_page(job.keys[j]))
+        self._sync_page_stats()
+
+    def _start_job(self, r: ServedRequest, slot: int, toks: np.ndarray,
+                   keys: List[bytes], t0: float,
+                   events: List[StreamEvent]):
+        """Claim `slot` for a multi-tick chunked admission. The request
+        sits in PREFILLING state (masked out of decode) while `_tick_admit`
+        advances it one chunk per tick; its first chunk runs in THIS tick.
+        If a carry snapshot survives for a chunk-boundary prefix of the
+        padded prompt, the job resumes past those chunks, their pages
+        claimed by intern lookup instead of recomputed."""
+        bucket, ct = self._bucket, self._chunk_tokens
+        job = _PrefillJob(r=r, slot=slot, toks=toks, keys=keys,
+                          bucket=bucket, carry=None,
+                          num_chunks=-(-bucket // ct), t0=t0)
+        for c in range(job.num_chunks - 1, 0, -1):
+            snap = self._pf.carry_get((bucket, toks[0, :c * ct].tobytes()))
+            if snap is not None:
+                job.carry = snap
+                job.next_chunk = c
+                self._claim_job_pages(job, 0, c * ct)
+                break
+        if job.carry is None:
+            job.carry = self._pf.carry_proto(bucket)
+        self.stats.chunked_admissions += 1
+        self._job_by_slot[slot] = job
+        self._slots[slot] = r  # owns the slot; PREFILLING masks decode
+        events.append(StreamEvent(rid=r.rid, kind="start", t=t0))
+        self._advance_job(slot, events)
+
+    def _advance_job(self, slot: int, events: List[StreamEvent]):
+        """Run ONE prefill chunk for the job in `slot`: its KV and pooled
+        rows land in the carry, its pages are claimed from the pool, and
+        the boundary carry is snapshotted for later prefix resumes. The
+        last chunk hands the slot to decode."""
+        job = self._job_by_slot[slot]
+        ct = self._chunk_tokens
+        lo = job.next_chunk * ct
+        hi = min(lo + ct, job.bucket)
+        t0 = time.time()
+        span = torch.from_numpy(job.toks[:, lo:hi]).long().to(self.device)
+        job.carry, job.last_hidden = self._pf.chunk(span, job.carry, lo)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.stats.prefill_s += time.time() - t0
+        self.stats.prefill_chunks += 1
+        job.dispatched += hi - lo
+        self._claim_job_pages(job, lo, hi)
+        if hi < job.bucket:  # a full-prompt resume is the snapshot's job
+            self._pf.carry_put((job.bucket, job.toks[0, :hi].tobytes()),
+                               job.carry, hi)
+        job.next_chunk += 1
+        if job.next_chunk >= job.num_chunks:
+            self._complete_job(slot, job, events)
+
+    def _complete_job(self, slot: int, job: _PrefillJob,
+                      events: List[StreamEvent]):
+        """Blocking admission's tail: finalize the carry into the cache
+        dict blocking prefill returns (decode state rebuilt with
+        `_seed_decode_state`), scatter it into `slot` through the page
+        table, store the full-prompt snapshot, emit the first token."""
+        t0 = time.time()
+        cache = self._pf.finalize(job.carry)
+        logits = self._pf.logits(job.last_hidden)
+        self._admit_paged(self._live, cache, slot, job.pids)
+        self._set_slot_pages(slot, job.pids, bucket=job.bucket)
+        self._store_snapshot((job.bucket, job.toks[0].tobytes()), cache,
+                             logits)
+        self._sync_page_stats()
+        self._job_by_slot[slot] = None
+        job.carry = None
+        del cache
+        self._finish_admission(job.r, slot, logits, t0, events,
+                               prefilled=job.dispatched, plan_built=True,
+                               start_emitted=True)
 
     def _ensure_decode_pages(self, slot: int, nsteps: int):
         """Copy-on-write pass before a decode dispatch: every page in

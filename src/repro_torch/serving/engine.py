@@ -23,9 +23,10 @@ The engine computes in bf16 over the f32 parameters, as the reference:
 it casts the matmul weights to bf16 once at construction
 (`transformer.compute_params`). The reference's rolled per-segment decode
 (one traced loop per run of steps between request finishes) is a Python
-loop here with the same segments. Chunked admission is not ported yet
-(ROADMAP.md queue 1, item 14): `prefill_chunk_blocks` (or a config with
-`sla.prefill_chunk_blocks`) raises and names it.
+loop here with the same segments. Chunked admission
+(`prefill_chunk_blocks`, or a config with `sla.prefill_chunk_blocks`)
+passes through to the continuous scheduler; the static engine refuses
+it, as the reference does.
 """
 from __future__ import annotations
 
@@ -56,12 +57,6 @@ class Request:
     tokens_out: Optional[List[int]] = None
     latency_s: float = 0.0  # = metrics.latency_s
     metrics: Optional[RequestMetrics] = None
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1, "
-        f"item 14)")
 
 
 def _sync(t: torch.Tensor):
@@ -97,8 +92,11 @@ class ServingEngine:
                 "caches; there is no shared pool to page)")
         if prefill_chunk_blocks is None:
             prefill_chunk_blocks = cfg.sla.prefill_chunk_blocks
-        if prefill_chunk_blocks is not None:
-            raise _not_ported("chunked admission prefill")
+        if prefill_chunk_blocks is not None and scheduler != "continuous":
+            raise ValueError(
+                "chunked admission prefill (prefill_chunk_blocks) "
+                "requires the continuous-batching scheduler: the static "
+                "engine has no decode to interleave chunks with")
         self.paged = paged
         self.cfg = cfg
         self.params = params
@@ -129,7 +127,8 @@ class ServingEngine:
                 cfg, params, num_slots=batch_size, max_len=max_len,
                 backend=backend, decode_sla=self.decode_sla,
                 plan_reuse=plan_reuse, drift_threshold=drift_threshold,
-                paged=paged, pool_pages=pool_pages)
+                paged=paged, pool_pages=pool_pages,
+                prefill_chunk_blocks=prefill_chunk_blocks)
             self._sched.stats = self.stats
             return
         self._cparams = self.mdl.compute_params(params)

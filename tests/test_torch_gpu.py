@@ -741,6 +741,17 @@ def test_train_step_on_the_card_kernel_vs_gather():
                                rtol=2e-2)
 
 
+def _clone(x):
+    """A copy of a decode cache: tensors, nested dicts and plans."""
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    if isinstance(x, plan_lib.SLAPlan):
+        return plan_lib.plan_map(torch.clone, x)
+    return x
+
+
 def _decode_operands(seed, b, hkv, g, c, d, bkv, tn, k_sel, kv_dtype, pos,
                      poison=True):
     """The decode kernel's flat operands on the card: C tokens from base
@@ -922,17 +933,8 @@ def test_lm_kernel_decode_matches_gather_on_the_card():
                                           compute_dtype=torch.float32,
                                           decode_max_len=96)
 
-    def clone(x):
-        if torch.is_tensor(x):
-            return x.clone()
-        if isinstance(x, dict):
-            return {k: clone(v) for k, v in x.items()}
-        if isinstance(x, plan_lib.SLAPlan):
-            return plan_lib.plan_map(torch.clone, x)
-        return x
-
     runs = {}
-    for backend, c in (("kernel", cache), ("gather", clone(cache))):
+    for backend, c in (("kernel", cache), ("gather", _clone(cache))):
         tok = (last @ model.embed.t()).argmax(-1)
         toks_out, logits_out = [], []
         before = sla_decode.LAUNCHES
@@ -1067,3 +1069,168 @@ def test_paged_scheduler_on_the_card_kernel_vs_gather():
                  "decode_plan_reuses"):
         assert getattr(sk, name) == getattr(sg, name), name
     assert sk.prefix_full_hits == 1 and sk.prefix_hits > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_fwd_kernel_on_a_prefill_chunk_span(dtype):
+    """Kernel 1 at the shape of a chunked-prefill chunk: a span of 8
+    query blocks from block 16 (base > 0, Nq < N) against the full KV,
+    causal, 64 x 64 blocks, K/V repeated to the query heads, the rows of
+    a plan of the whole map. bf16 takes the tensor-core route (the
+    rounding criterion), f32 the split route (5e-5); two launches are
+    bitwise equal."""
+    _need_gpu()
+    args, kw, _ = _operands(21, 4, 1, 2048, 128, 64, dtype, True, 16,
+                            span=8)
+    route = sla_fwd.forward_route(dtype, 64, 64, 128)
+    assert route == ("tc" if dtype == torch.bfloat16 else "split")
+    before = _fwd_counters()
+    first = sla_fwd.sla_fwd(*args, **kw)
+    second = sla_fwd.sla_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert _fwd_counters()[0] == before[0] + 2
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    want = sla_fwd.sla_fwd_plain(*args, **kw)
+    if route == "tc":
+        _assert_tc_fwd(first, want, args, kw)
+    else:
+        _assert_split_fwd(first, args, kw)
+
+
+def _chunk_lm(block, seed=0):
+    """A smoke-size Qwen3 on the card whose SLA blocks are `block` wide
+    (64: the tensor-core and split routes of kernel 1), chunk-eligible
+    (no column capacity), decode-time SLA, `sla_proj` drawn again."""
+    cfg = get_arch("qwen3-1.7b").smoke()
+    cfg = dataclasses.replace(cfg, sla=cfg.sla.replace(
+        block_q=block, block_kv=block, kh_frac=0.25, kl_frac=0.0,
+        col_capacity_factor=None, decode_mode="sla"))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = transformer.init(gen, cfg)
+    with torch.no_grad():
+        for layer in model.layers:
+            layer.sla_proj.copy_(0.1 * torch.randn(
+                layer.sla_proj.shape, generator=gen, device="cuda"))
+    return cfg, model, gen
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_chunked_prefill_on_the_card_kernel_vs_gather(dtype):
+    """`prefill_chunk` x 4 (64-token chunks of a 256-token bucket, 64 x 64
+    blocks) then `finalize_chunked_prefill` on the kernel backend against
+    the gather backend: one kernel-1 launch per layer per chunk, all on
+    the dtype's route (bf16: tensor cores; f32: split); carried K/V and
+    the last hidden within 1e-4 x max(1, max |ref|) in f32 and 5e-2 in
+    bf16; the decode rows equal; the kernel's chunks within the same
+    limit of its own blocking prefill."""
+    _need_gpu()
+    cfg, model, gen = _chunk_lm(64)
+    cparams = transformer.compute_params(model, dtype)
+    toks = torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
+                         device="cuda")
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    runs = {}
+    for backend in ("kernel", "gather"):
+        carry = transformer.make_prefill_carry(cfg, 256, compute_dtype=dtype,
+                                               decode_sla=True)
+        before = _fwd_counters()
+        for lo in range(0, 256, 64):
+            carry, last = transformer.prefill_chunk(
+                cparams, cfg, toks[:, lo:lo + 64], carry, lo,
+                compute_dtype=dtype, backend=backend, decode_max_len=320)
+        torch.cuda.synchronize()
+        runs[backend] = (carry, last, [a - b for a, b in
+                                       zip(_fwd_counters(), before)])
+    (ck, lk, nk), (cg, lg, ng) = runs["kernel"], runs["gather"]
+    route = 1 if dtype == torch.bfloat16 else 2
+    assert nk[0] == nk[route] == 4 * cfg.num_layers and ng[0] == 0
+    for got, want in ((ck["k"], cg["k"]), (ck["v"], cg["v"]), (lk, lg)):
+        atol = tol * max(1.0, float(want.float().abs().max()))
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=0)
+    assert torch.equal(ck["dmc"], cg["dmc"])
+    cache = transformer.finalize_chunked_prefill(cfg, ck, decode_max_len=320)
+    with torch.no_grad():
+        blast, blocking = transformer.prefill(
+            cparams, cfg, toks, compute_dtype=dtype, backend="kernel",
+            decode_max_len=320)
+    atol = tol * max(1.0, float(blast.float().abs().max()))
+    torch.testing.assert_close(lk.float(), blast.float(), atol=atol, rtol=0)
+    assert torch.equal(cache["sla"]["plan"].mc, blocking["sla"]["plan"].mc)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_decode_kernel_at_a_16_token_chunk(kv_dtype):
+    """Kernel 4 at the shape of a verify-style `decode_chunk`: C = 16
+    tokens from a block boundary, each with its own LUT row, totals and
+    diagonal partials, at the chosen split width and widths 1 and 2:
+    within 5e-5 of the twin, and two launches bitwise equal."""
+    _need_gpu()
+    args, kw = _decode_operands(31, 2, 8, 2, 16, 128, 64, 64, 6, kv_dtype,
+                                40 * 64)
+    want = sla_decode.sla_decode_plain(*args, **kw)
+    for width in (None, 1, 2):
+        before = sla_decode.LAUNCHES
+        one = sla_decode.sla_decode(*args, **kw, split_width=width)
+        two = sla_decode.sla_decode(*args, **kw, split_width=width)
+        torch.cuda.synchronize()
+        assert sla_decode.LAUNCHES == before + 2
+        _assert_twin(one, want)
+        assert all(torch.equal(x, y) for x, y in zip(one, two))
+
+
+def test_lm_decode_chunk_on_the_card_kernel_vs_gather():
+    """A smoke-size Qwen3 on the card, f32: from one cache (a 48-token
+    prefill and 8 decode steps), `decode_chunk` of 16 fed tokens (from
+    position 56, crossing the block boundary at 64) on the kernel
+    backend, on the gather backend, and 16 kernel `decode_step`s; logits
+    and the chunk's float cache state within 1e-4 x max(1, max |x|) of
+    the steps' (cuBLAS rounds a (B, 16) projection unlike 16 (B, 1)
+    ones, so the state is not bitwise the steps' on the card), its
+    decode-plan counters equal, and one decode launch per layer per
+    chunk."""
+    _need_gpu()
+    cfg, model, gen = _chunk_lm(16)
+    toks = torch.randint(0, cfg.vocab_size, (2, 48), generator=gen,
+                         device="cuda")
+    fed = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen,
+                        device="cuda")
+    with torch.no_grad():
+        _, cache = transformer.prefill(model, cfg, toks,
+                                       compute_dtype=torch.float32,
+                                       decode_max_len=96)
+        for c in range(8):
+            _, cache = transformer.decode_step(
+                model, cfg, fed[:, c], cache, compute_dtype=torch.float32,
+                backend="kernel")
+    fed = fed[:, 8:]
+
+    out = {}
+    for backend in ("kernel", "gather"):
+        before = sla_decode.LAUNCHES
+        out[backend] = transformer.decode_chunk(
+            model, cfg, fed, _clone(cache), compute_dtype=torch.float32,
+            backend=backend) + (sla_decode.LAUNCHES - before,)
+    steps, logits = _clone(cache), []
+    with torch.no_grad():
+        for c in range(16):
+            lg, steps = transformer.decode_step(
+                model, cfg, fed[:, c], steps, compute_dtype=torch.float32,
+                backend="kernel")
+            logits.append(lg)
+    (lk, ck, nk), (lg, _, ng) = out["kernel"], out["gather"]
+    assert nk == cfg.num_layers and ng == 0
+    for want in (lg, torch.stack(logits, dim=1)):
+        atol = 1e-4 * max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(lk, want, atol=atol, rtol=0)
+    assert int(ck["sla"]["extends"].sum()) == cfg.num_layers
+    for key in ("extends", "replans", "reuses", "live_cnt"):
+        assert torch.equal(ck["sla"][key], steps["sla"][key]), key
+    for got, want in [(ck[k], steps[k]) for k in ("k", "v")] + [
+            (ck["sla"][k], steps["sla"][k])
+            for k in ("htot", "ztot", "hblk", "zblk", "qpool")]:
+        atol = 1e-4 * max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, atol=atol, rtol=0)

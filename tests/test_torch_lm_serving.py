@@ -107,14 +107,17 @@ def test_static_engine_matches_jax_engine(decode_sla, plan_reuse, backend):
 
 
 def test_engine_rejects_unported_modes():
-    """Chunked admission still raises and names item 14; the continuous
-    scheduler is ported (a paged cache without it is refused as in the
-    reference), and the engine's continuous wrapper serves the static
-    engine's tokens on a trace whose groups do not mix."""
+    """Chunked admission is ported (tests/test_torch_chunked_prefill.py)
+    and refused as in the reference: the static engine has no decode to
+    interleave chunks with, and the continuous one needs a paged cache.
+    The continuous scheduler is ported (a paged cache without it is
+    refused as in the reference), and the engine's continuous wrapper
+    serves the static engine's tokens on a trace whose groups do not
+    mix."""
     _, tcfg, _, model, prompts = _shared()
     with pytest.raises(ValueError, match="continuous-batching"):
         ServingEngine(tcfg, model, paged=True)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="paged=True"):
         ServingEngine(tcfg, model, scheduler="continuous",
                       prefill_chunk_blocks=2)
     runs = {}
@@ -128,7 +131,7 @@ def test_engine_rejects_unported_modes():
             for i, p in enumerate(prompts[:2])])
     assert [r.tokens_out for r in runs["continuous"]] == \
         [r.tokens_out for r in runs["static"]]
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="continuous-batching"):
         ServingEngine(dataclasses.replace(tcfg, sla=dataclasses.replace(
             tcfg.sla, prefill_chunk_blocks=2)), model)
     with pytest.raises(ValueError, match="plan_reuse"):
@@ -166,15 +169,17 @@ def test_serve_cli_lm_workload_matches_reference_cli(tmp_path):
                                    ["--disagg"], ["--stream"]],
                          ids=lambda f: f[0])
 def test_serve_cli_unported_lm_modes_name_item_14(flags):
-    """The LM modes still unported (--prefill-chunk, --disagg) raise and
-    name item 14. The ported ones run: --scheduler continuous serves,
-    and --paged / --stream without it are refused with the reference
-    CLI's argument error."""
+    """The LM mode still unported (--disagg) raises and names item 14.
+    The ported ones run: --scheduler continuous serves, and --paged /
+    --stream / --prefill-chunk without what they need (the continuous
+    scheduler, a paged cache) are refused with the reference CLI's
+    argument error (--prefill-chunk with --paged serves:
+    tests/test_torch_chunked_prefill.py)."""
     from repro_torch.launch import serve as torch_serve
     argv = ["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
             "--requests", "2", "--batch", "2", "--prompt-len", "16",
             "--max-new", "3"] + flags
-    if flags[0] in ("--prefill-chunk", "--disagg"):
+    if flags[0] == "--disagg":
         with pytest.raises(NotImplementedError, match="item 14"):
             torch_serve.main(argv)
     elif flags[0] == "--scheduler":

@@ -133,8 +133,15 @@ def test_scheduler_refuses_what_it_cannot_serve():
     _, tcfg = _cfgs(True)
     with pytest.raises(ValueError, match="plan_reuse='adaptive'"):
         tapi.Scheduler(tcfg, model, paged=True, plan_reuse="adaptive")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tapi.Scheduler(tcfg, model, paged=True, prefill_chunk_blocks=1)
+    # chunked admission is ported (tests/test_torch_chunked_prefill.py):
+    # it needs a paged cache and a chunk of at least one block
+    with pytest.raises(ValueError, match="paged=True"):
+        tapi.Scheduler(tcfg, model, prefill_chunk_blocks=1)
+    with pytest.raises(ValueError, match=">= 1"):
+        tapi.Scheduler(tcfg, model, paged=True, prefill_chunk_blocks=0)
+    chunked = tapi.Scheduler(tcfg, model, num_slots=1, max_len=48,
+                             paged=True, prefill_chunk_blocks=1)
+    assert chunked._chunk_tokens == tcfg.sla.block_q
     sched = tapi.Scheduler(tcfg, model, num_slots=1, max_len=48,
                            decode_sla=True, paged=True)
     with pytest.raises(NotImplementedError, match="item 14"):

@@ -223,18 +223,28 @@ def test_prefill_plan_reuse_with_drift_matches_jax():
 
 
 def test_unported_lm_paths_name_their_item():
-    """Chunked decode and chunked prefill still raise and name item 14,
-    the MoE FFN item 13. The per-slot caches they used to share the
-    raise with are ported (tests/test_torch_paged.py): an empty per-slot
-    cache decodes with (B,) positions, and a paged cache with a scalar
-    position is refused as in the reference."""
+    """The MoE FFN still raises and names item 13. Chunked decode and
+    chunked prefill are ported (tests/test_torch_decode_chunk.py,
+    tests/test_torch_chunked_prefill.py) and refuse what the reference
+    refuses: `decode_chunk` a per-slot (B,) position, `prefill_chunk` a
+    config with a column capacity (its rows could not be sliced from the
+    full classification). The per-slot caches are ported too
+    (tests/test_torch_paged.py): an empty per-slot cache decodes with
+    (B,) positions, and a paged cache with a scalar position is refused
+    as in the reference."""
     _, tcfg = _cfgs()
     _, model = _params()
-    for fn in (ttfm.decode_chunk, ttfm.prefill_chunk):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            fn(model, tcfg)
     cache = ttfm.make_cache(tcfg, 2, 96, dtype=torch.float32,
                             per_slot=True, device="cpu")
+    with pytest.raises(ValueError, match="scalar"):
+        ttfm.decode_chunk(model, tcfg, torch.zeros((2, 3), dtype=torch.long),
+                          cache)
+    carry = ttfm.make_prefill_carry(tcfg, 32, device="cpu")
+    assert tcfg.sla.col_capacity_factor is not None
+    with pytest.raises(ValueError, match="col_capacity_factor"):
+        ttfm.prefill_chunk(model, tcfg, torch.zeros((1, 16),
+                                                    dtype=torch.long),
+                           carry, 0)
     with torch.no_grad():
         logits, cache = ttfm.decode_step(
             model, tcfg, torch.zeros(2, dtype=torch.long), cache,
