@@ -251,7 +251,32 @@ Phases, in order; any failure exits non-zero before the result line:
      vs its twin at
      three split widths (two launches bitwise equal, CUDA-graph times,
      bound). Prints each chunk's wall against 16 steps'.
- 20. the kernels line (JSON): `sla_fwd` carries the split route's fields
+ 20. disaggregated serving (on phase 12's model, col_capacity_factor
+     lifted to None, printed): 8 prompts of 4,500-8,000 tokens (r4 r0's
+     first 6,144 tokens and 1,856 of its own), 32-64 new tokens, r0-r3
+     submitted, 3 ticks, r4-r7, drained; three runs freed one after
+     another: the paged single `Scheduler` (2 slots, max_len 8192, bucket
+     8000, blocking), then the `DisaggScheduler` (2 prefill workers, 3
+     decode workers of 2 slots, paged, 2,048-token chunks) healthy
+     (rolled decode) and faulted (per-token decode, the virtual clock, a
+     flake on decode:1 at tick 2, a x10 straggle on decode:2 at tick 4,
+     a kill of decode:0 at tick 7 with r0 mid-stream). Checks equal
+     tokens across the three runs, 8 completions and handoffs, 28 chunks
+     and 55,808 prefill tokens (r4 resumes at 6,144, r6 at 2,048: its
+     first chunk is left padding, as r3's), one kill, retry and drain
+     and a replay of r0 from its bundle, 28 x 28 `sla_fwd` launches on
+     tensor cores and 28 `sla_decode_paged` a decode step of each worker
+     (no `sla_decode`), r0's bundle bitwise its host clone after the
+     drain, r0's slot state and 125 prompt pages after the replayed
+     admission bitwise what its first admission left (host copies), kernel
+     5 against its twin on the replayed worker's live LUT rows after its
+     first step there (layers 0 and 27, three widths, repeats bitwise) and
+     kernel 1 on r1's last chunk (base 96, 29 query blocks against 125,
+     `cases.tc_criterion`). Prints each run's wall and TTFTs (p50, p95),
+     handoff waits in ticks, `admit_external` seconds, a bundle's bytes
+     (k/v, hblk, the rest) and the most held at once, occupancies, the
+     pool rows, ms a decode step by worker and peak memory.
+ 21. the kernels line (JSON): `sla_fwd` carries the split route's fields
      at the top (the f32 serving route) and the f32-FMA and bf16
      tensor-core routes' beside them; `sla_fwd_split_planes` is the split
      route's pre-pass; then the result line.
@@ -367,6 +392,22 @@ PC_EXPECT = dict(chunked_admissions=3, prefill_chunks=9,
                  prefill_tokens=72000, prefix_full_hits=1,
                  sla_fwd=28 * 9, tc_sla_fwd=28 * 9)
 DC_C = 16  # verify-style decode_chunk (phase 19): tokens a chunk
+# disaggregated serving (phase 20): 2 slots a decode worker, 2,048-token
+# chunks of an 8,000 bucket (32, 32, 32, 29 blocks), r4 shares r0's first
+# three chunks. r6's first 2,048 tokens are left padding, as are r3's, so
+# r6 resumes from r3's first snapshot too: 28 chunks, 7 x 8,000 + 1,856 -
+# 2,048 tokens
+DG_LENS = (8000, 6000, 7000, 5000, 8000, 8000, 4500, 6000)
+DG_NEW = (48, 64, 32, 56, 40, 64, 48, 32)
+DG_SLOTS, DG_BUCKET, DG_MAX_LEN, DG_CHUNK_BLOCKS = 2, 8000, 8192, 32
+DG_SHARED, DG_EARLY_TICKS, DG_LAST_BASE = 6144, 3, 96
+DG_FAULTS = (dict(tick=2, kind="flake", pool="decode", worker=1),
+             dict(tick=4, kind="straggle", pool="decode", worker=2,
+                  factor=10.0),
+             dict(tick=7, kind="kill", pool="decode", worker=0))
+DG_RESUMES = ((4, 6144), (6, 2048))
+DG_EXPECT = dict(submitted=8, completed=8, handoffs=8, prefill_chunks=28,
+                 prefill_tokens=7 * 8000 + 1856 - 2048)
 DEV = torch.device("cuda")
 
 
@@ -2546,6 +2587,54 @@ def _pg_prompts(cfg):
     return own[:4] + [own[1].copy(), own[4]]  # request 4 repeats 1
 
 
+def _paged_live_case(cfg, cache, layer: int, q, pos) -> dict:
+    """Kernel 5 against its twin on a paged scheduler's own state: the
+    live LUT rows of `layer` for the queries `q` (B, H, 1, D) at `pos`, at
+    three split widths (two launches bitwise equal, bitwise equal to
+    kernel 4 on the gathered view), with its CUDA-graph time, an eager
+    call's, the twin's and the bound. Returns the row (`ok` its verdict)."""
+    st, slap, sla = cache["sla"], cache["slap"], cfg.sla
+    hkv, g = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+    b = q.shape[0]
+    bh, k_sel = b * cfg.num_heads, st["live_lut"].shape[-1]
+    qg = backend_lib._group_heads(q[:, :, 0].float(), hkv)
+    qpg = backend_lib._group_heads(phi_lib.phi(q[:, :, 0], sla.phi), hkv)
+    args = (st["live_lut"][layer].reshape(bh, 1, k_sel).contiguous(),
+            cache["pt"], st["live_cnt"][layer].reshape(bh, 1).contiguous(),
+            st["live_marg"][layer].reshape(bh, 1).contiguous(),
+            pos.int().repeat_interleave(cfg.num_heads).contiguous(),
+            qg.reshape(bh, 1, -1).contiguous(),
+            qpg.float().reshape(bh, 1, -1).contiguous(),
+            cache["kp"][layer], cache["vp"][layer], slap["hblk"][layer],
+            slap["zblk"][layer],
+            st["htot"][layer].reshape(b * hkv, *st["htot"].shape[3:]),
+            st["ztot"][layer].reshape(b * hkv, -1))
+    kw = dict(scale=cfg.head_dim ** -0.5, block_kv=sla.block_kv, group=g)
+    want = sla_decode.sla_decode_paged_plain(*args, **kw)
+    dense = cases.paged_dense_operands(args)
+
+    def same_as_kernel4(width, got):
+        mono = sla_decode.sla_decode(*dense, **kw, split_width=width)
+        return all(torch.equal(g, m) for g, m in zip(got, mono))
+
+    runs = _split_runs(sla_decode.sla_decode_paged, args, kw, args[5],
+                       args[0], want, lambda got: got[1][args[3] == 0],
+                       same_as_kernel4)
+    for r in runs:
+        r["rows"] = bh
+    del dense
+    eager_ms = cuda_ms(lambda: sla_decode.sla_decode_paged(*args, **kw), 50)
+    plain_ms = cuda_ms(lambda: sla_decode.sla_decode_paged_plain(
+        *args, **kw), 5, warmup=1)
+    bound_ms, bound_by, _, nbytes, tiles, slots = _paged_bound(args, kw)
+    split = _split_summary(runs, bound_ms)
+    return dict(split, runs=runs,
+                bitwise_vs_sla_decode=all(r["extra"] for r in runs),
+                eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, mbytes=nbytes / 1e6, tiles_read=tiles,
+                live_slots=slots)
+
+
 def _pg_cross_check(cfg, sched, logits, res):
     """On the scheduler's own paged state mid-trace: decode_execute on the
     kernel vs the gather backend, kernel 5 vs its twin on the live LUTs of
@@ -2558,7 +2647,6 @@ def _pg_cross_check(cfg, sched, logits, res):
     tn = cache["pt"].shape[1]
     dcfg = sla.decode_plan_cfg(tn)
     pos = cache["pos"] - 1  # the last token the state holds
-    hkv, g = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
     gen = torch.Generator(device=DEV).manual_seed(16)
     rows = []
     params = sched._cparams
@@ -2578,61 +2666,25 @@ def _pg_cross_check(cfg, sched, logits, res):
                                              backend="gather")
         err = float((o_k - o_g).abs().max())
         limit = TWIN_TOL * max(1.0, float(o_g.abs().max()))
-        b, bh, k_sel = PG_SLOTS, PG_SLOTS * cfg.num_heads, state[
-            "lut"].shape[-1]
-        qg = backend_lib._group_heads(q[:, :, 0].float(), hkv)
-        qpg = backend_lib._group_heads(phi_lib.phi(q[:, :, 0], sla.phi),
-                                       hkv)
-        args = (state["lut"].reshape(bh, 1, k_sel).contiguous(),
-                cache["pt"], state["cnt"].reshape(bh, 1).contiguous(),
-                state["marg"].reshape(bh, 1).contiguous(),
-                pos.int().repeat_interleave(cfg.num_heads).contiguous(),
-                qg.reshape(bh, 1, -1).contiguous(),
-                qpg.float().reshape(bh, 1, -1).contiguous(), state["k"],
-                state["v"], state["hblk"], state["zblk"],
-                state["htot"].reshape(b * hkv, *state["htot"].shape[2:]),
-                state["ztot"].reshape(b * hkv, -1))
-        kw = dict(scale=cfg.head_dim ** -0.5, block_kv=sla.block_kv,
-                  group=g)
-        want = sla_decode.sla_decode_paged_plain(*args, **kw)
-        dense = cases.paged_dense_operands(args)
-
-        def same_as_kernel4(width, got):
-            mono = sla_decode.sla_decode(*dense, **kw, split_width=width)
-            return all(torch.equal(g, m) for g, m in zip(got, mono))
-
-        runs = _split_runs(sla_decode.sla_decode_paged, args, kw, args[5],
-                           args[0], want, lambda got: got[1][args[3] == 0],
-                           same_as_kernel4)
-        for r in runs:
-            r["rows"] = bh
-        del dense
-        eager_ms = cuda_ms(lambda: sla_decode.sla_decode_paged(*args, **kw),
-                           50)
-        plain_ms = cuda_ms(lambda: sla_decode.sla_decode_paged_plain(
-            *args, **kw), 5, warmup=1)
-        bound_ms, bound_by, _, nbytes, tiles, slots = _paged_bound(args, kw)
-        split = _split_summary(runs, bound_ms)
+        split = _paged_live_case(cfg, cache, layer, q, pos)
+        runs = split.pop("runs")
         ok = err <= limit and split["ok"]
         say(f"[16 paged cross-check] layer {layer} at positions "
             f"{pos.tolist()}: decode_execute kernel vs gather max abs err "
             f"{err:.3g} (limit {limit:.3g}); sla_decode_paged vs twin, "
             f"bitwise equal to sla_decode on the gathered view at each "
-            f"width {all(r['extra'] for r in runs)}: {_runs_text(runs)} "
+            f"width {split['bitwise_vs_sla_decode']}: {_runs_text(runs)} "
             f"(limit {split['limit']:.3g}) {'OK' if ok else 'FAIL'} | eager "
-            f"call {eager_ms:.4f} ms | bound {bound_ms:.4f} ms by {bound_by}"
-            f" ({nbytes / 1e6:.1f} MB, {tiles} tiles, {slots} live slots; "
+            f"call {split['eager_ms']:.4f} ms | bound "
+            f"{split['bound_ms']:.4f} ms by {split['bound_by']} "
+            f"({split['mbytes']:.1f} MB, {split['tiles_read']} tiles, "
+            f"{split['live_slots']} live slots; "
             f"{split['bound_fraction']:.1%} of it) | plain twin "
-            f"{plain_ms:.3f} ms")
+            f"{split['plain_ms']:.3f} ms")
         rows.append(dict(split, shape=f"qwen3-1.7b paged path layer {layer}",
                          dtype="bf16", pos=pos.tolist(), backend_err=err,
-                         backend_limit=limit, ok=ok,
-                         bitwise_vs_sla_decode=all(r["extra"] for r in runs),
-                         eager_ms=eager_ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         mbytes=nbytes / 1e6, tiles_read=tiles,
-                         live_slots=slots))
-        del state, args, want
+                         backend_limit=limit, ok=ok))
+        del state
     if not all(r["ok"] for r in rows):
         raise RuntimeError(f"paged decode disagrees on the path's state: "
                            f"{rows}")
@@ -3273,6 +3325,45 @@ def _pc_run(cfg, params, chunk, capture: bool):
     return res
 
 
+def _chunk_fwd_rows(captured: dict, what: str, tag: str) -> list:
+    """Kernel 1 against its twin on a prefill chunk's own operands, as
+    `sla_attention_rows` received them (`captured`: layer -> (args, kw)),
+    by `cases.tc_criterion` with two launches bitwise equal; with its
+    CUDA-event time, the twin's and the bound. Returns one row a layer."""
+    rows = []
+    for li, (a, kw) in sorted(captured.items()):
+        q, k, v, qp, kp, marginal, lut, counts, pcfg = a[:9]
+        base = kw["row_offset"]
+        fq, fk, fv, fqp, fkp = map(ops._flat, (q, k, v, qp, kp))
+        fa, flut, fcounts = map(ops._flat, (marginal, lut, counts))
+        hb, zb = ops._hz_blocks(fkp, fv, pcfg.block_kv)
+        hi, zi = ops._aggregate(fa, hb, zb)
+        del hb, zb
+        args = (flut, fcounts, fq, fk, fv, fqp, hi, zi)
+        fkw = dict(scale=q.shape[-1] ** -0.5, causal=True,
+                   block_q=pcfg.block_q, block_kv=pcfg.block_kv, base=base)
+        c = _fwd_check(args, fkw, f"lm prefill chunk layer {li}")
+        ms = cuda_ms(lambda: sla_fwd.sla_fwd(*args, **fkw), 10)
+        plain_ms = cuda_ms(lambda: sla_fwd.sla_fwd_plain(*args, **fkw), 2,
+                           warmup=1)
+        bound_ms, bound_by, _, nbytes, live = _bound(args, fkw)
+        say(f"[{tag}] sla_fwd on {what}, layer {li}: base {base}, "
+            f"{fq.shape[1] // pcfg.block_q} query blocks against "
+            f"{fk.shape[1] // pcfg.block_kv} KV blocks, causal, bf16, K/V "
+            f"repeated (BH={fq.shape[0]}, BH_kv={fk.shape[0]}, "
+            f"K={flut.shape[-1]}, live tiles {live} of {flut.numel()}): "
+            f"{_fwd_text(c)} | kernel {ms:.3f} ms | bound {bound_ms:.3f} ms "
+            f"by {bound_by} ({nbytes / 1e6:.0f} MB; {bound_ms / ms:.1%} of "
+            f"it) | plain twin {plain_ms:.2f} ms")
+        rows.append(dict(shape=f"qwen3-1.7b prefill chunk layer {li} "
+                               f"(base {base})", dtype="bf16", base=base,
+                         live_tiles=live, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         bound_fraction=bound_ms / ms, **c))
+        del args, hi, zi
+    return rows
+
+
 def phase_chunked_admission(cfg, params):
     """Phase 18: chunked admission prefill on the paged continuous
     Scheduler at full Qwen3-1.7B width, blocking then chunked, stepped
@@ -3335,38 +3426,8 @@ def phase_chunked_admission(cfg, params):
     # kernel 1 against its twin on r1's last chunk (base 375, 125 query
     # blocks against the 500-block bucket, K/V repeated as the path gives
     # them); the check's launches come after the run's counts
-    rows = []
-    for li, (a, kw) in sorted(chk["rows"].items()):
-        q, k, v, qp, kp, marginal, lut, counts, pcfg = a[:9]
-        base = kw["row_offset"]
-        fq, fk, fv, fqp, fkp = map(ops._flat, (q, k, v, qp, kp))
-        fa, flut, fcounts = map(ops._flat, (marginal, lut, counts))
-        hb, zb = ops._hz_blocks(fkp, fv, pcfg.block_kv)
-        hi, zi = ops._aggregate(fa, hb, zb)
-        del hb, zb
-        args = (flut, fcounts, fq, fk, fv, fqp, hi, zi)
-        fkw = dict(scale=q.shape[-1] ** -0.5, causal=True,
-                   block_q=pcfg.block_q, block_kv=pcfg.block_kv, base=base)
-        c = _fwd_check(args, fkw, f"lm prefill chunk layer {li}")
-        ms = cuda_ms(lambda: sla_fwd.sla_fwd(*args, **fkw), 10)
-        plain_ms = cuda_ms(lambda: sla_fwd.sla_fwd_plain(*args, **fkw), 2,
-                           warmup=1)
-        bound_ms, bound_by, _, nbytes, live = _bound(args, fkw)
-        say(f"[18 chunk kernel] sla_fwd on r1's last chunk, layer {li}: "
-            f"base {base}, {fq.shape[1] // pcfg.block_q} query blocks "
-            f"against {fk.shape[1] // pcfg.block_kv} KV blocks, causal, "
-            f"bf16, K/V repeated "
-            f"(BH={fq.shape[0]}, BH_kv={fk.shape[0]}, K={flut.shape[-1]}, "
-            f"live tiles {live} of {flut.numel()}): {_fwd_text(c)} | kernel "
-            f"{ms:.3f} ms | bound {bound_ms:.3f} ms by {bound_by} "
-            f"({nbytes / 1e6:.0f} MB; {bound_ms / ms:.1%} of it) | plain twin "
-            f"{plain_ms:.2f} ms")
-        rows.append(dict(shape=f"qwen3-1.7b prefill chunk layer {li} "
-                               f"(base {base})", dtype="bf16", base=base,
-                         live_tiles=live, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         bound_fraction=bound_ms / ms, **c))
-        del args, hi, zi
+    rows = _chunk_fwd_rows(chk["rows"], "r1's last chunk",
+                           "18 chunk kernel")
     del chk["rows"], chk["kv0"], blk["kv0"]
     torch.cuda.empty_cache()
     cc = chk["counters"]
@@ -3603,6 +3664,481 @@ def phase_decode_chunk(cfg, params):
     return summary, rows
 
 
+# --------------------------------------------------------------------------
+class TickClock:
+    """A virtual clock for the watchdog (tests/test_disagg.py's): every
+    call advances 0.5 s, so each measured decode tick spans 0.5 s and
+    only a straggle factor makes one slow."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        self.t += 0.5
+        return self.t
+
+
+def _dg_prompts(cfg):
+    """Phase 20's prompts: DG_LENS tokens from a seeded rng, r4 r0's first
+    DG_SHARED tokens followed by its own."""
+    rs = np.random.default_rng(20)
+    ps = [rs.integers(0, cfg.vocab_size, n).astype(np.int32)
+          for n in DG_LENS]
+    ps[4] = np.concatenate([ps[0][:DG_SHARED], ps[4][DG_SHARED:]])
+    return ps
+
+
+def _bundle_bytes(bundle) -> dict:
+    """A handoff bundle's device bytes: K/V rows, the per-block h
+    partials and the rest (z / kpool partials, totals, plan rows, LUTs)."""
+    c = bundle.cache
+    kv = sum(c[k].numel() * c[k].element_size() for k in ("k", "v"))
+    h = c["sla"]["hblk"]
+    hblk = h.numel() * h.element_size()
+    total = sum(t.numel() * t.element_size() for t in _tensors(c))
+    return dict(kv=kv, hblk=hblk, rest=total - kv - hblk, total=total)
+
+
+def _host_bits(x: torch.Tensor) -> torch.Tensor:
+    """A host copy whose equality is bitwise (floats as raw bits)."""
+    x = x.detach().contiguous()
+    if x.is_floating_point():
+        x = _bits(x)
+    return x.to("cpu", copy=True)
+
+
+def _slot_capture(sched, slot: int, npages: int) -> dict:
+    """Host copies of a paged slot's state (position, decode-SLA per-slot
+    leaves) and of the contents of its first `npages` pages in every pool,
+    keyed by name: what a replayed admission must reproduce bitwise while
+    the page ids differ."""
+    live = sched._live
+    out = {name: _host_bits(x) for name, x in _slot_leaves(
+        {"pos": live["pos"], "sla": live["sla"]}, slot)}
+    pid = torch.tensor(sched._slot_pids[slot][:npages], device=DEV)
+    for key in ("kp", "vp"):
+        out[f"pages.{key}"] = _host_bits(live[key][:, pid])
+    for key, pool in live["slap"].items():
+        out[f"pages.{key}"] = _host_bits(pool[:, pid])
+    return out
+
+
+def _dg_counts():
+    return dict(sla_fwd=sla_fwd.LAUNCHES, tc_sla_fwd=sla_fwd.TC_LAUNCHES,
+                sla_decode_paged=sla_decode.PAGED_LAUNCHES,
+                sla_decode=sla_decode.LAUNCHES)
+
+
+def _dg_set_counts(c):
+    sla_fwd.LAUNCHES, sla_fwd.TC_LAUNCHES = c["sla_fwd"], c["tc_sla_fwd"]
+    sla_decode.PAGED_LAUNCHES = c["sla_decode_paged"]
+    sla_decode.LAUNCHES = c["sla_decode"]
+
+
+def _dg_baseline(cfg, params) -> dict:
+    """Run 1: the port's paged single Scheduler on the trace, blocking."""
+    from repro_torch.serving.api import SamplingParams, Scheduler
+    sched = Scheduler(cfg, params, num_slots=DG_SLOTS, max_len=DG_MAX_LEN,
+                      backend="kernel", decode_sla=True,
+                      prefill_bucket=DG_BUCKET, paged=True)
+    prompts = _dg_prompts(cfg)
+    _dg_set_counts(dict.fromkeys(_dg_counts(), 0))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for p, n in zip(prompts[:4], DG_NEW[:4]):
+        sched.submit(p, SamplingParams(max_new_tokens=n))
+    for _ in range(DG_EARLY_TICKS):
+        sched._drain_tick()
+    for p, n in zip(prompts[4:], DG_NEW[4:]):
+        sched.submit(p, SamplingParams(max_new_tokens=n))
+    done = sched.drain()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    st = sched.stats
+    steps = st.slot_steps_total // DG_SLOTS
+    res = dict(wall_s=wall, tokens=[list(r.tokens_out) for r in done],
+               ttft_s=[r.metrics.ttft_s for r in done],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               counters=_dg_counts(), steps=steps,
+               ms_per_step=1e3 * st.decode_s / max(1, steps),
+               prefill_s=st.prefill_s, occupancy=st.occupancy())
+    del sched, done
+    return res
+
+
+def _dg_disagg(cfg, params, faulted: bool) -> dict:
+    """Run 2 (healthy, rolled decode) or 3 (faulted, per-token decode,
+    virtual clock, flake / straggle / kill) of the trace through the
+    DisaggScheduler. Hooks time each admit_external, record each handoff's
+    wait in ticks, the bytes the retained bundles hold, the carry resumes
+    and each worker's decode steps; the healthy run keeps kernel 1's
+    operands of r1's last chunk, the faulted one checks r0's replay (its
+    bundle against a host clone, its slot and prompt pages against its
+    first admission, kernel 5 against its twin after its first step on
+    the new worker). The checks' time is taken off the wall and the TTFTs
+    of requests still waiting."""
+    from repro_torch.distributed.fault_tolerance import (FaultEvent,
+                                                         FaultPlan,
+                                                         StragglerWatchdog)
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.serving.disagg import DisaggScheduler
+    kw = {}
+    if faulted:
+        kw = dict(decode_step_mode="token", clock=TickClock(),
+                  watchdog=StragglerWatchdog(threshold=2.0, warmup=3),
+                  max_requeues=2, sleep=lambda s: None,
+                  fault_plan=FaultPlan([FaultEvent(**e)
+                                        for e in DG_FAULTS]))
+    dis = DisaggScheduler(cfg, params, prefill_workers=2, decode_workers=3,
+                          slots_per_worker=DG_SLOTS, max_len=DG_MAX_LEN,
+                          backend="kernel", decode_sla=True,
+                          prefill_bucket=DG_BUCKET, paged=True,
+                          prefill_chunk_blocks=DG_CHUNK_BLOCKS, **kw)
+    nl = cfg.num_layers
+    npages = DG_BUCKET // cfg.sla.block_kv
+    rec = dict(handoff_tick={}, waits=[], admit_s=[], resumes=[],
+               held_max=0, bundle_bytes=None, steps={}, overhead=0.0,
+               kills=[], r0=[], rows={}, paged_rows=[], r0_clone=None,
+               r0_bundle=None, admissions=[])
+    finite = torch.ones((), dtype=torch.bool, device=DEV)
+    cur = dict(rid=None, chunk=None, layer=0)
+    rows_fn, carry_get = ops.sla_attention_rows, dis._engine.carry_get
+
+    def off_clock(fn):
+        """Run a check outside the clocks: its seconds go to the overhead
+        and to the submit times of requests without a first token, and
+        its kernel launches are not counted."""
+        counts = _dg_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        _dg_set_counts(counts)
+        rec["overhead"] += dt
+        for r in dis._requests:
+            if not r.tokens_out:
+                r.metrics.submit_t += dt
+
+    def rows_hook(*a, **kw):
+        li = cur["layer"]
+        cur["layer"] += 1
+        if (not faulted and cur["rid"] == 1 and cur["chunk"] == 3
+                and li in (0, nl - 1)):
+            rec["rows"][li] = (a, kw)
+        return rows_fn(*a, **kw)
+
+    def carry_get_hook(key):
+        snap = carry_get(key)
+        if snap is not None:
+            rec["resumes"].append((cur["assign"], len(key[1]) // 4))
+        return snap
+
+    def held(extra=()):
+        live = {id(b): b for b in list(dis._bundles.values()) + list(extra)}
+        return sum(_bundle_bytes(b)["total"] for b in live.values())
+
+    for w in dis._prefill_pool:
+        def tick_hook(stats, w=w, tick=w.tick):
+            cur.update(rid=w.task.r.rid, chunk=w.task.next_chunk, layer=0)
+            done = tick(stats)
+            if done is not None:
+                r, bundle = done
+                rec["handoff_tick"][r.rid] = dis._tick_no
+                rec["held_max"] = max(rec["held_max"], held((bundle,)))
+                if rec["bundle_bytes"] is None:
+                    rec["bundle_bytes"] = _bundle_bytes(bundle)
+                if faulted and r.rid == 0:
+                    rec["r0_bundle"] = bundle
+
+                    def clone():
+                        rec["r0_clone"] = {
+                            i: _host_bits(t)
+                            for i, t in enumerate(_tensors(bundle.cache))}
+                    off_clock(clone)
+            return done
+        w.tick = tick_hook
+
+        def assign_hook(r, toks, bucket, w=w, assign=w.assign):
+            cur["assign"] = r.rid
+            return assign(r, toks, bucket)
+        w.assign = assign_hook
+
+    for w in dis._decode_pool:
+        sched = w.sched
+        rec["steps"][w.wid] = 0
+
+        def admit_hook(r, bundle, *, plan_built, prefilled, w=w,
+                       admit=w.admit):
+            rec["waits"].append((r.rid, dis._tick_no
+                                 - rec["handoff_tick"][r.rid]))
+            rec["admissions"].append((r.rid, w.wid, prefilled))
+            return admit(r, bundle, plan_built=plan_built,
+                         prefilled=prefilled)
+        w.admit = admit_hook
+
+        def ext_hook(r, slot, *a, sched=sched, ext=sched.admit_external,
+                     **k):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            evs = ext(r, slot, *a, **k)
+            torch.cuda.synchronize()
+            rec["admit_s"].append(time.time() - t0)
+            if faulted and r.rid == 0:
+                off_clock(lambda: rec["r0"].append(
+                    _slot_capture(sched, slot, npages)))
+            return evs
+        sched.admit_external = ext_hook
+
+        def one_hook(token, w=w, sched=sched, one=sched._one):
+            logits = one(token)
+            rec["steps"][w.wid] += 1
+            finite.logical_and_(torch.isfinite(logits).all())
+            r0 = dis._requests[0]
+            if (faulted and len(rec["r0"]) == 2 and not rec["paged_rows"]
+                    and r0.slot is not None
+                    and sched._slots[r0.slot] is r0):
+                off_clock(lambda: rec["paged_rows"].extend(
+                    _dg_paged_check(cfg, sched, r0.slot)))
+            return logits
+        sched._one = one_hook
+
+    kill = dis._kill_worker
+
+    def kill_hook(pool, w):
+        if pool == "decode":
+            rec["kills"].append((w.wid, [(r.rid, len(r.tokens_out))
+                                         for r in w.in_flight()]))
+        return kill(pool, w)
+    dis._kill_worker = kill_hook
+    dis._engine.carry_get = carry_get_hook
+    prompts = _dg_prompts(cfg)
+    ops.sla_attention_rows = rows_hook
+    _dg_set_counts(dict.fromkeys(_dg_counts(), 0))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    try:
+        for p, n in zip(prompts[:4], DG_NEW[:4]):
+            dis.submit(p, SamplingParams(max_new_tokens=n))
+        for _ in range(DG_EARLY_TICKS):
+            dis.tick()
+        for p, n in zip(prompts[4:], DG_NEW[4:]):
+            dis.submit(p, SamplingParams(max_new_tokens=n))
+        done = dis.drain()
+        torch.cuda.synchronize()
+    finally:
+        ops.sla_attention_rows = rows_fn
+    wall = time.time() - t0 - rec["overhead"]
+    counts = _dg_counts()
+    st = dis.stats
+    res = dict(
+        wall_s=wall, overhead_s=rec["overhead"], finite=bool(finite),
+        tokens=[list(r.tokens_out) for r in done],
+        ttft_s=[r.metrics.ttft_s for r in done],
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        counters=counts, steps=rec["steps"],
+        stats={k: v for k, v in dataclasses.asdict(st).items()},
+        prefill_occupancy=st.prefill_occupancy(),
+        decode_occupancy=dis.decode_occupancy(), pool=dis.pool_stats(),
+        ms_per_step={w.wid: 1e3 * w.sched.stats.decode_s
+                     / max(1, rec["steps"][w.wid])
+                     for w in dis._decode_pool},
+        waits=rec["waits"], admit_s=rec["admit_s"],
+        resumes=rec["resumes"], held_max=rec["held_max"],
+        bundle_bytes=rec["bundle_bytes"], kills=rec["kills"],
+        admissions=rec["admissions"], rows=rec["rows"],
+        paged_rows=rec["paged_rows"])
+    if faulted:
+        b = rec["r0_bundle"]
+        res["r0_bundle_bitwise"] = b is not None and all(
+            torch.equal(_host_bits(t), rec["r0_clone"][i])
+            for i, t in enumerate(_tensors(b.cache)))
+        first, again = (rec["r0"] + [None, None])[:2]
+        res["r0_replay"] = dict(
+            admissions=len(rec["r0"]),
+            leaves=0 if first is None else len(first),
+            differ=None if again is None else sorted(
+                k for k in first if not torch.equal(first[k], again[k])))
+        del b, rec["r0_bundle"], rec["r0_clone"], rec["r0"], first, again
+    del dis, done
+    return res
+
+
+def _dg_paged_check(cfg, sched, slot: int) -> list:
+    """Kernel 5 against its twin on a decode worker's live LUT rows at
+    the first and last layer, right after the replayed request's first
+    decode step there (random queries, as phase 16)."""
+    cache = sched._live
+    pos = cache["pos"] - 1
+    gen = torch.Generator(device=DEV).manual_seed(20)
+    rows = []
+    for layer in (0, cfg.num_layers - 1):
+        q = torch.randn((sched.num_slots, cfg.num_heads, 1, cfg.head_dim),
+                        generator=gen, device=DEV)
+        row = _paged_live_case(cfg, cache, layer, q, pos)
+        runs = row.pop("runs")
+        say(f"[20 disagg kernel] sla_decode_paged on the replayed slot's "
+            f"worker, layer {layer} at positions {pos.tolist()} (slot "
+            f"{slot}): vs twin, bitwise equal to sla_decode on the gathered "
+            f"view at each width {row['bitwise_vs_sla_decode']}: "
+            f"{_runs_text(runs)} (limit {row['limit']:.3g}) | eager call "
+            f"{row['eager_ms']:.4f} ms | bound {row['bound_ms']:.4f} ms by "
+            f"{row['bound_by']} ({row['mbytes']:.1f} MB, {row['tiles_read']} "
+            f"tiles, {row['live_slots']} live slots; "
+            f"{row['bound_fraction']:.1%} of it) | plain twin "
+            f"{row['plain_ms']:.3f} ms")
+        rows.append(dict(row, shape=f"qwen3-1.7b disagg replay layer "
+                                    f"{layer}", dtype="bf16",
+                         pos=pos.tolist()))
+    return rows
+
+
+def _dg_free():
+    gc.collect()  # a run's schedulers, held in cycles by its hooks
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _ttft_text(ttfts) -> str:
+    from repro_torch.serving.api import percentile
+    return (f"TTFT {[round(t, 3) for t in ttfts]} s (p50 "
+            f"{percentile(ttfts, 0.5):.3f}, p95 "
+            f"{percentile(ttfts, 0.95):.3f})")
+
+
+def phase_disagg(cfg, params):
+    """Phase 20: disaggregated prefill/decode serving at full Qwen3-1.7B
+    width: the trace through the paged single Scheduler (blocking), then
+    the DisaggScheduler healthy and under a flake, a straggle and a kill,
+    each freed before the next. Returns (summary, kernel-1 rows, kernel-5
+    rows)."""
+    cfg = dataclasses.replace(cfg, sla=cfg.sla.replace(
+        col_capacity_factor=None))
+    say(f"[20 disagg] {LM_ARCH} ({cfg.num_layers} layers, bf16 compute over "
+        f"f32 weights, kernel backend, decode-SLA), col_capacity_factor "
+        f"lifted to {cfg.sla.col_capacity_factor} (a shared prompt page is "
+        f"a pure function of its prefix only uncapped); prompts {DG_LENS} "
+        f"(r4 = r0's first {DG_SHARED} + its own), new {DG_NEW}, bucket "
+        f"{DG_BUCKET}, max_len {DG_MAX_LEN}")
+    _dg_free()
+    base = _dg_baseline(cfg, params)
+    say(f"[20 disagg] baseline, paged Scheduler ({DG_SLOTS} slots, "
+        f"blocking): {base['wall_s']:.2f}s, {_ttft_text(base['ttft_s'])} | "
+        f"{base['steps']} decode steps, {base['ms_per_step']:.2f} ms a step,"
+        f" occupancy {base['occupancy']:.3f}, prefill {base['prefill_s']:.3f}"
+        f"s | peak {base['peak_gib']:.2f} GiB | counters {base['counters']}")
+    runs = {}
+    for name, faulted in (("healthy", False), ("faulted", True)):
+        _dg_free()
+        r = runs[name] = _dg_disagg(cfg, params, faulted)
+        bb = r["bundle_bytes"]
+        say(f"[20 disagg] {name}: DisaggScheduler (2 prefill workers, 3 "
+            f"decode workers of {DG_SLOTS} slots, chunks of "
+            f"{DG_CHUNK_BLOCKS} blocks, "
+            + ("per-token decode, virtual clock, faults "
+               f"{[(e['tick'], e['kind'], e['worker']) for e in DG_FAULTS]}"
+               if faulted else "rolled decode")
+            + f"): {r['wall_s']:.2f}s (checks {r['overhead_s']:.2f}s taken "
+            f"off), {_ttft_text(r['ttft_s'])} | peak {r['peak_gib']:.2f} GiB")
+        say(f"  stats {r['stats']} | prefill occupancy "
+            f"{r['prefill_occupancy']:.3f}, decode occupancy "
+            f"{r['decode_occupancy']:.3f} | decode ms a step by worker "
+            f"{ {k: round(v, 2) for k, v in r['ms_per_step'].items()} } over "
+            f"steps {r['steps']}")
+        say(f"  pool {r['pool']}")
+        say(f"  handoff waits (rid, ticks) {r['waits']} | admit_external "
+            f"{[round(t, 4) for t in r['admit_s']]} s | admissions (rid, "
+            f"worker, prefilled) {r['admissions']} | resumes (rid, tokens) "
+            f"{r['resumes']} | kills {r['kills']}")
+        say(f"  a bundle {bb['total']} bytes (k/v {bb['kv']}, hblk "
+            f"{bb['hblk']}, rest {bb['rest']}); most held at once "
+            f"{r['held_max']} | counters {r['counters']} | logits finite "
+            f"{r['finite']}")
+        if faulted:
+            say(f"  r0's bundle bitwise its clone after the drain "
+                f"{r['r0_bundle_bitwise']} | r0's replay {r['r0_replay']}")
+    hl, fl = runs["healthy"], runs["faulted"]
+    fwd_rows = _chunk_fwd_rows(hl.pop("rows"), "r1's last chunk",
+                               "20 disagg kernel")
+    paged_rows = fl.pop("paged_rows")
+    fl.pop("rows")
+    torch.cuda.empty_cache()
+    bad = []
+    if not (hl["tokens"] == fl["tokens"] == base["tokens"]):
+        bad.append("tokens differ across the baseline, healthy and faulted "
+                   "runs: " + str([
+                       [sum(a == b for a, b in zip(x, y)) for x, y in zip(
+                           run["tokens"], base["tokens"])]
+                       for run in (hl, fl)]))
+    if [len(t) for t in base["tokens"]] != list(DG_NEW):
+        bad.append("a request did not finish with its tokens")
+    for name, r in runs.items():
+        st, c = r["stats"], r["counters"]
+        got = {k: st[k] for k in DG_EXPECT}
+        if got != DG_EXPECT:
+            bad.append(f"{name}: {got}, expected {DG_EXPECT}")
+        if r["resumes"] != list(DG_RESUMES):
+            bad.append(f"{name}: resumes {r['resumes']}, expected "
+                       f"{list(DG_RESUMES)}")
+        if c["sla_fwd"] != c["tc_sla_fwd"] or \
+                c["sla_fwd"] != cfg.num_layers * DG_EXPECT["prefill_chunks"]:
+            bad.append(f"{name}: sla_fwd launches {c}")
+        steps = sum(r["steps"].values())
+        if c["sla_decode_paged"] != cfg.num_layers * steps or \
+                c["sla_decode"]:
+            bad.append(f"{name}: {c} in {steps} decode steps")
+        if not r["finite"]:
+            bad.append(f"{name}: non-finite logits")
+    st = fl["stats"]
+    if (st["kills"], st["retries"], st["straggler_drains"]) != (1, 1, 1) \
+            or st["requeues"] < 1:
+        bad.append(f"faulted counters {st}")
+    replays = [a for a in fl["admissions"] if a[2] == 0]
+    if not replays or replays[0][0] != 0:
+        bad.append(f"no replay of r0 from its bundle: {fl['admissions']}")
+    r0_at_kill = dict(sum((k[1] for k in fl["kills"]), []))
+    if not 1 < r0_at_kill.get(0, 0) < DG_NEW[0]:
+        bad.append(f"the kill did not land while r0 was mid-stream: "
+                   f"{fl['kills']}")
+    if not fl["r0_bundle_bitwise"]:
+        bad.append("r0's bundle changed after its handoff")
+    rp = fl["r0_replay"]
+    if rp["admissions"] != 2 or rp["differ"]:
+        bad.append(f"r0's replayed admission is not bitwise its first: {rp}")
+    if len(paged_rows) != 2 or not all(r["ok"] for r in paged_rows):
+        bad.append(f"sla_decode_paged on the replay's state {paged_rows}")
+    if len(fwd_rows) != 2 or not all(r["ok"] for r in fwd_rows) or \
+            any(r["base"] != DG_LAST_BASE for r in fwd_rows):
+        bad.append(f"sla_fwd on r1's last chunk {fwd_rows}")
+    summary = dict(
+        wall_s=dict(baseline=base["wall_s"], healthy=hl["wall_s"],
+                    faulted=fl["wall_s"]),
+        ttft_s=dict(baseline=base["ttft_s"], healthy=hl["ttft_s"],
+                    faulted=fl["ttft_s"]),
+        peak_gib=dict(baseline=base["peak_gib"], healthy=hl["peak_gib"],
+                      faulted=fl["peak_gib"]),
+        bundle_bytes=hl["bundle_bytes"],
+        held_max=dict(healthy=hl["held_max"], faulted=fl["held_max"]),
+        admit_s=dict(healthy=hl["admit_s"], faulted=fl["admit_s"]),
+        waits=dict(healthy=hl["waits"], faulted=fl["waits"]),
+        ms_per_step=dict(baseline=base["ms_per_step"],
+                         healthy=hl["ms_per_step"],
+                         faulted=fl["ms_per_step"]),
+        occupancy=dict(healthy=(hl["prefill_occupancy"],
+                                hl["decode_occupancy"]),
+                       faulted=(fl["prefill_occupancy"],
+                                fl["decode_occupancy"])),
+        counters=dict(baseline=base["counters"], healthy=hl["counters"],
+                      faulted=fl["counters"]),
+        stats=dict(healthy=hl["stats"], faulted=fl["stats"]),
+        r0_replay=rp, kills=fl["kills"])
+    if bad:
+        raise RuntimeError("disaggregated serving phase failed: "
+                           + "; ".join(bad))
+    return summary, fwd_rows, paged_rows
+
+
 def _tensors(x):
     if torch.is_tensor(x):
         yield x
@@ -3667,6 +4203,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     dchunk, dc_rows = phase_decode_chunk(lm_cfg, lm_params)
     dec_rows += dc_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    dg, dg_fwd_rows, dg_pg_rows = phase_disagg(lm_cfg, lm_params)
+    rows += dg_fwd_rows
+    pg_rows += dg_pg_rows
+    dgc = {key: sum(dg["counters"][run][key]
+                    for run in ("healthy", "faulted"))
+           for key in dg["counters"]["healthy"]}
     def row(shape, dtype, route):
         return next(r for r in rows if r["shape"] == shape
                     and r["dtype"] == dtype and r["route"] == route)
@@ -3689,12 +4233,12 @@ def main(argv=None) -> int:
     # compiled flex_attention's forward on the same inputs and LUT (phase
     # 7): O^s and L only, no linear branch, so not the kernel's function
     flex16 = wan_tc["sla_bwd_dq"].get("library_fwd_ms")
-    say(f"[20] sla_fwd at the Wan bf16 case (tensor cores): "
+    say(f"[21] sla_fwd at the Wan bf16 case (tensor cores): "
         f"{wan16['ms']:.3f} ms against its bound {wan16['bound_ms']:.3f} ms "
         f"({wan16['bound_fraction']:.1%}) | compiled flex_attention forward "
         f"on the same LUT (O^s and L only, lacks O^l): "
         + (f"{flex16:.3f} ms" if flex16 is not None else "not measured"))
-    say(f"[20] sla_fwd at the Wan f32 case: split route {wan32['ms']:.3f} ms "
+    say(f"[21] sla_fwd at the Wan f32 case: split route {wan32['ms']:.3f} ms "
         f"against its bound {wan32['bound_ms']:.3f} ms "
         f"({wan32['bound_fraction']:.1%}; the f32-FMA bound "
         f"{wan32['bound_ms_f32_fma']:.3f} ms) | f32-FMA kernel "
@@ -3712,14 +4256,16 @@ def main(argv=None) -> int:
                 "lm_prefill": lm["launches"]["tc_sla_fwd"],
                 "lm_paged_prefill": pgc["tc_sla_fwd"],
                 "lm_unpaged_prefill": puc["tc_sla_fwd"],
-                "lm_chunked_prefill": pcc["tc_sla_fwd"]}
+                "lm_chunked_prefill": pcc["tc_sla_fwd"],
+                "lm_disagg": dgc["tc_sla_fwd"]}
     # the other paths compute in bf16: every launch there is a tensor-core
     # one (phases 9, 12, 15, 17 check), so none is on the split route
     split_paths = {"serve": main_run["split_launches"],
                    "serve_plan_cache": pc_launches["split_launches"],
                    "train": 0,
                    "lm_prefill": 0, "lm_paged_prefill": 0,
-                   "lm_unpaged_prefill": 0, "lm_chunked_prefill": 0}
+                   "lm_unpaged_prefill": 0, "lm_chunked_prefill": 0,
+                   "lm_disagg": 0}
     kernels = [{
         "name": "sla_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sla_fwd_split.cu",
@@ -3727,14 +4273,15 @@ def main(argv=None) -> int:
         "launches": (main_run["launches"] + pc_launches["launches"]
                      + train["launches"]["sla_fwd"]
                      + lm["launches"]["sla_fwd"] + pgc["sla_fwd"]
-                     + puc["sla_fwd"] + pcc["sla_fwd"]),
+                     + puc["sla_fwd"] + pcc["sla_fwd"] + dgc["sla_fwd"]),
         "launches_by_path": {"serve": main_run["launches"],
                              "serve_plan_cache": pc_launches["launches"],
                              "train": train["launches"]["sla_fwd"],
                              "lm_prefill": lm["launches"]["sla_fwd"],
                              "lm_paged_prefill": pgc["sla_fwd"],
                              "lm_unpaged_prefill": puc["sla_fwd"],
-                             "lm_chunked_prefill": pcc["sla_fwd"]},
+                             "lm_chunked_prefill": pcc["sla_fwd"],
+                             "lm_disagg": dgc["sla_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in fwd_split),
         "ms": wan32["ms"], "plain_ms": wan32["plain_ms"],
         "bound_ms": wan32["bound_ms"], "bound_by": wan32["bound_by"],
@@ -3838,11 +4385,13 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/sla_decode.cu",
         "replaces": "src/repro/kernels/sla_decode.py:52",
         "launches": (lm["launches"]["sla_decode"] + pgc["sla_decode"]
-                     + puc["sla_decode"] + sum(dchunk["launches"])),
+                     + puc["sla_decode"] + sum(dchunk["launches"])
+                     + dgc["sla_decode"]),
         "launches_by_path": {"lm_decode": lm["launches"]["sla_decode"],
                              "lm_paged_decode": pgc["sla_decode"],
                              "lm_unpaged_decode": puc["sla_decode"],
-                             "lm_decode_chunk": sum(dchunk["launches"])},
+                             "lm_decode_chunk": sum(dchunk["launches"]),
+                             "lm_disagg": dgc["sla_decode"]},
         "max_abs_err": max(r["max_abs_err"] for r in dec_rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -3864,11 +4413,12 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/sla_decode.py:181",
         "launches": (lm["launches"]["sla_decode_paged"]
                      + pgc["sla_decode_paged"] + puc["sla_decode_paged"]
-                     + pcc["sla_decode_paged"]),
+                     + pcc["sla_decode_paged"] + dgc["sla_decode_paged"]),
         "launches_by_path": {"lm_decode": lm["launches"]["sla_decode_paged"],
                              "lm_paged_decode": pgc["sla_decode_paged"],
                              "lm_unpaged_decode": puc["sla_decode_paged"],
-                             "lm_chunked_decode": pcc["sla_decode_paged"]},
+                             "lm_chunked_decode": pcc["sla_decode_paged"],
+                             "lm_disagg": dgc["sla_decode_paged"]},
         "max_abs_err": max(r["max_abs_err"] for r in pg_rows),
         "ms": head5["ms"], "plain_ms": head5["plain_ms"],
         "bound_ms": head5["bound_ms"], "bound_by": head5["bound_by"],
@@ -3881,11 +4431,11 @@ def main(argv=None) -> int:
         **{key: head5[key] for key in split_keys},
         "cases": pg_rows,
     })
-    say(f"[20] main path {main_run} | cross-check {cross} | plan cache "
+    say(f"[21] main path {main_run} | cross-check {cross} | plan cache "
         f"{pcache} | grads {grads} | "
         f"train {train} | train CLI {cli} | lm {lm} | lm cross-check "
         f"{lm_cross} | paged lm {pg} | unpaged mixed {pu} | chunked "
-        f"admission {pc} | decode_chunk {dchunk} | total "
+        f"admission {pc} | decode_chunk {dchunk} | disagg {dg} | total "
         f"{time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -8,6 +8,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --smoke --device cpu --scheduler continuous --paged --decode-sla \
         --backend kernel --prefill-chunk 1 --requests 4 --batch 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+        --smoke --device cpu --disagg --paged --prefill-chunk 1 \
+        --decode-sla --backend kernel --requests 4 --batch 2
     PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \
         --arch qwen3-1.7b --smoke --device cpu --decode-sla --backend kernel
     python -m repro_torch.launch.serve --workload dit --arch wan2_1_1_3b \
@@ -19,9 +22,11 @@
 Counterpart of `repro.launch.serve` with its LM flags (the static engine,
 the continuous scheduler with `--stream`, the paged KV cache with
 `--paged` / `--pool-pages`), its DiT flags, the same argument checks and
-defaults, plus `--device` (default cuda), and chunked admission
-(`--prefill-chunk`, with `--paged`). Disaggregated serving (`--disagg`)
-raises and names the ROADMAP item that ports it. Prompts and request latents come from
+defaults, plus `--device` (default cuda), chunked admission
+(`--prefill-chunk`, with `--paged`) and disaggregated serving
+(`--disagg`, `--prefill-workers`, `--decode-workers`: a prefill pool and
+a decode pool with handoff bundles; `--batch` is then the slots of each
+decode worker). Prompts and request latents come from
 `np.random.default_rng(--seed)` exactly as in the reference, so a CPU run
 of the port and of the reference see the same requests; the weights are
 random, from a seeded `torch.Generator`.
@@ -107,8 +112,19 @@ def main(argv=None):
                          "chunk classification is row-decomposable only "
                          "uncapped")
     ap.add_argument("--disagg", action="store_true",
-                    help="lm: disaggregated prefill / decode pools (not "
-                         "ported yet)")
+                    help="lm: disaggregated serving: a prefill worker pool "
+                         "runs admission, a decode worker pool runs token "
+                         "generation, with handoff bundles (prefill cache "
+                         "+ decode-SLA state) routed to the least-loaded "
+                         "decode worker and requeue of a lost worker's "
+                         "in-flight requests. Greedy tokens equal the "
+                         "single-Scheduler run's. --batch sets the slots "
+                         "of EACH decode worker; incompatible with "
+                         "--stream and --plan-reuse adaptive")
+    ap.add_argument("--prefill-workers", type=int, default=1,
+                    help="prefill pool size for --disagg")
+    ap.add_argument("--decode-workers", type=int, default=2,
+                    help="decode pool size for --disagg")
     ap.add_argument("--workload", default="lm", choices=["lm", "dit"],
                     help="'lm' serves autoregressive token generation "
                          "(default); 'dit' serves streaming diffusion "
@@ -146,24 +162,31 @@ def main(argv=None):
     if args.drift_threshold is not None:
         parts = [float(x) for x in str(args.drift_threshold).split(",")]
         args.drift_threshold = parts[0] if len(parts) == 1 else tuple(parts)
-    if args.disagg:
-        raise NotImplementedError(
-            "--disagg: disaggregated serving is not ported to repro_torch "
-            "yet (ROADMAP.md queue 1, item 14)")
     if args.stream and args.scheduler != "continuous":
         ap.error("--stream requires --scheduler continuous")
-    if args.paged and args.scheduler != "continuous":
+    if args.paged and args.scheduler != "continuous" and not args.disagg:
         ap.error("--paged requires --scheduler continuous or --disagg")
-    if args.prefill_chunk is not None and not args.paged:
+    if args.prefill_chunk is not None and not args.paged \
+            and not args.disagg:
+        # in-process chunked admission lands through the page-table
+        # scatter; the disaggregated prefill pool chunks on its carry,
+        # with no pages, so --disagg lifts the requirement
         ap.error("--prefill-chunk requires --paged (chunks land "
                  "through the page-table scatter) or --disagg")
-    if args.workload == "dit" and (args.stream or args.paged
+    if args.disagg and args.stream:
+        ap.error("--disagg prints pool stats, not a token stream; "
+                 "drop --stream")
+    if args.disagg and args.plan_reuse != "off":
+        ap.error("--disagg requires --plan-reuse off: requeue replays "
+                 "a lost worker's prefill, which must be a pure "
+                 "function of the prompt")
+    if args.workload == "dit" and (args.disagg or args.stream or args.paged
                                    or args.decode_sla
                                    or args.plan_reuse != "off"
                                    or args.prefill_chunk is not None):
-        ap.error("--workload dit serves denoise requests — --stream/"
-                 "--paged/--decode-sla/--plan-reuse/--prefill-chunk are "
-                 "LM-serving flags")
+        ap.error("--workload dit serves denoise requests — --disagg/"
+                 "--stream/--paged/--decode-sla/--plan-reuse/"
+                 "--prefill-chunk are LM-serving flags")
 
     from repro_torch.core import backends as backend_registry
     backend_registry.resolve(args.backend)  # unknown names fail here
@@ -203,8 +226,8 @@ def main(argv=None):
 
 def _run_lm(args, cfg, rs, device):
     """Synthetic prompts through the static ServingEngine, the continuous
-    Scheduler (`--stream`: events printed as they happen) or the engine's
-    continuous wrapper."""
+    Scheduler (`--stream`: events printed as they happen), the engine's
+    continuous wrapper or the disaggregated pools (`--disagg`)."""
     from repro_torch.models import registry
     from repro_torch.serving.engine import Request, ServingEngine
 
@@ -214,6 +237,8 @@ def _run_lm(args, cfg, rs, device):
     max_len = args.prompt_len + args.max_new + 8
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    if args.disagg:
+        return _run_disagg(args, cfg, params, rs, max_len, device)
     if args.scheduler == "continuous" and args.stream:
         from repro_torch.serving.api import SamplingParams, Scheduler
         sched = Scheduler(cfg, params, num_slots=args.batch,
@@ -260,6 +285,54 @@ def _run_lm(args, cfg, rs, device):
                  [r.metrics for r in done if r.metrics is not None],
                  engine.drift_threshold, device)
     _stats_json(args, args.scheduler, engine.stats, done)
+    return done
+
+
+def _run_disagg(args, cfg, params, rs, max_len, device):
+    """`--disagg`: synthetic prompts through the DisaggScheduler; prints
+    the pools' occupancy, the fault counters and one row per decode
+    worker."""
+    from repro_torch.serving.api import SamplingParams
+    from repro_torch.serving.api import percentile as pct
+    from repro_torch.serving.disagg import DisaggScheduler
+
+    ds = DisaggScheduler(cfg, params, prefill_workers=args.prefill_workers,
+                         decode_workers=args.decode_workers,
+                         slots_per_worker=args.batch, max_len=max_len,
+                         backend=args.backend,
+                         decode_sla=args.decode_sla or None,
+                         paged=args.paged or None,
+                         pool_pages=args.pool_pages,
+                         prefill_chunk_blocks=args.prefill_chunk)
+    t0 = time.time()
+    for _ in range(args.requests):
+        ds.submit(rs.integers(0, cfg.vocab_size,
+                              size=args.prompt_len).astype(np.int32),
+                  SamplingParams(max_new_tokens=args.max_new))
+    done = ds.drain()
+    wall = time.time() - t0
+    st = ds.stats
+    print(f"{st.completed}/{st.submitted} requests in {wall:.1f}s over "
+          f"{st.ticks} ticks | prefill pool {args.prefill_workers}w occ "
+          f"{st.prefill_occupancy():.2f} ({st.prefill_tokens} tok, "
+          f"{st.prefill_chunks} chunks) | decode pool "
+          f"{args.decode_workers}w occ {ds.decode_occupancy():.2f}")
+    print(f"faults: {st.kills} kills, {st.requeues} requeues, "
+          f"{st.straggler_drains} straggler drains, {st.retries} retries | "
+          f"{st.handoffs} handoffs")
+    for row in ds.pool_stats()["decode"]:
+        print(f"  {row['worker']}: admitted {row['admitted']}, occupancy "
+              f"{row['occupancy']:.2f}, {row['decode_tokens']} decode tokens"
+              + (" [draining]" if row["draining"] else "")
+              + ("" if row["alive"] else " [dead]"))
+    ttfts = [r.metrics.ttft_s for r in done if r.metrics.ttft_s is not None]
+    if ttfts:
+        print(f"per-request: TTFT p50 {pct(ttfts, 0.5)*1e3:.0f}ms / p95 "
+              f"{pct(ttfts, 0.95)*1e3:.0f}ms")
+    if device.type == "cuda":
+        print(f"device: {torch.cuda.get_device_name(device)} | peak memory "
+              f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+    _stats_json(args, "disagg", st, done)
     return done
 
 

@@ -9,7 +9,8 @@ Counterpart of `repro.serving.api`:
   * `ServeStats` and the shared helpers (`block_bucket`,
     `prefill_with_plan_reuse`, `check_serving_family`, `percentile`,
     `stats_json_payload`);
-  * `PrefillEngine`: the (1, bucket) prefill of an admission;
+  * `PrefillEngine`: the (1, bucket) prefill of an admission, shared by
+    a disaggregated prefill pool (`serving/disagg.py`);
   * `Scheduler`: continuous batching over a fixed pool of decode slots on
     ONE live per-slot cache (`make_cache(per_slot=True)`) or a paged,
     prefix-shared one (`make_paged_cache`, `serving/pages.py`). `submit()`
@@ -17,7 +18,8 @@ Counterpart of `repro.serving.api`:
     prefilled in its own block-aligned (1, bucket) call and copied into
     its slot) and runs one batched decode step with per-slot positions;
     `drain()` runs to completion in rolled greedy segments; `stream()`
-    yields StreamEvents.
+    yields StreamEvents; `admit_external()` adopts a request another
+    worker prefilled (the disaggregated handoff).
 
 The port decodes eagerly and in place: a rolled segment is a Python loop
 of `decode_step`s with the greedy tokens kept on the device (one sync per
@@ -27,9 +29,7 @@ slots' touched state back (`transformer.snapshot_slots` /
 `restore_slots`), which commits the same tokens and counters. Chunked
 admission (`prefill_chunk_blocks`, paged only) runs a request's prompt
 one chunk per tick (`_PrefillJob`) while the other slots decode, resuming
-from a chunk-boundary carry snapshot when a prompt shares a prefix. Not
-ported yet (ROADMAP.md queue 1, item 14): the disaggregated handoff
-`admit_external`, which raises and names the item.
+from a chunk-boundary carry snapshot when a prompt shares a prefix.
 """
 from __future__ import annotations
 
@@ -290,10 +290,21 @@ def check_serving_family(cfg: ArchConfig, mdl, plan_reuse: str,
             f"insert_slot); family {cfg.family!r} has neither")
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1, "
-        f"item 14)")
+def lift_column_capacity(cfg: ArchConfig) -> ArchConfig:
+    """`cfg` with `sla.col_capacity_factor` lifted to None, with a warning
+    when it was set: what paged serving runs. A prompt page is interned by
+    its padded prefix bytes, and the column-capacity demotion ranks a
+    column over every query row, so with it a shared page could depend on
+    the prompt's suffix. Uncapped, the plan keeps strictly more critical
+    blocks, still a valid SLA plan."""
+    if cfg.sla.col_capacity_factor is None:
+        return cfg
+    warnings.warn(
+        f"paged=True: lifting sla.col_capacity_factor "
+        f"({cfg.sla.col_capacity_factor} -> None); a shared prompt page is "
+        f"a pure function of its prefix only uncapped", stacklevel=3)
+    return dataclasses.replace(
+        cfg, sla=cfg.sla.replace(col_capacity_factor=None))
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -308,8 +319,13 @@ class PrefillEngine:
     admission (fresh, plan-building, or drift-gated reuse) over the
     parameters cast once to the compute dtype (`compute_params`), the
     first-token logits, and chunked admission: the chunk / finalize
-    dispatches, the zero carry of a job, and the LRU of chunk-boundary
-    carry snapshots. Counterpart of the reference's `PrefillEngine`.
+    dispatches (`chunk_tokens` tokens a chunk, 0 for blocking), the zero
+    carry of a job, and the LRU of chunk-boundary carry snapshots.
+    Counterpart of the reference's `PrefillEngine`. A disaggregated
+    prefill pool shares one, so carry snapshots amortize across the pool
+    and a requeued request re-prefills the same on any worker (prefill
+    is a pure function of the padded prompt and bucket with plan_reuse
+    off).
 
     The reference's carries are immutable arrays, so it keeps one zero
     carry per bucket and stores snapshots by reference; here
@@ -322,7 +338,7 @@ class PrefillEngine:
     def __init__(self, cfg: ArchConfig, params, mdl, *, backend: str,
                  compute_dtype, decode_sla: bool, max_len: int,
                  drift_threshold, plan_reuse: str = "off",
-                 cparams=None):
+                 chunk_tokens: int = 0, cparams=None):
         self.cfg = cfg
         self.mdl = mdl
         self.backend = backend
@@ -330,6 +346,7 @@ class PrefillEngine:
         self.decode_sla = decode_sla
         self.max_len = max_len
         self.plan_reuse = plan_reuse
+        self.chunk_tokens = chunk_tokens
         self.drift_threshold = drift_threshold
         self.params = (cparams if cparams is not None
                        else mdl.compute_params(params, compute_dtype))
@@ -475,7 +492,11 @@ class Scheduler:
     queue 3). So `paged=True` lifts the capacity (None) with a warning,
     as the reference CLI does for chunked admission: the plan keeps
     strictly more critical blocks, still a valid SLA plan, and every
-    shared page is what an unshared prefill would write."""
+    shared page is what an unshared prefill would write.
+
+    `cparams` takes parameters already cast by `compute_params`, so that
+    schedulers over the same weights (a disaggregated decode pool) share
+    one read-only copy."""
 
     def __init__(self, cfg: ArchConfig, params, num_slots: int = 4,
                  max_len: int = 512, backend: str = "gather",
@@ -485,7 +506,8 @@ class Scheduler:
                  compute_dtype=torch.bfloat16,
                  paged: Optional[bool] = None,
                  pool_pages: Optional[int] = None,
-                 prefill_chunk_blocks: Optional[int] = None):
+                 prefill_chunk_blocks: Optional[int] = None,
+                 cparams=None):
         from repro_torch.core import backends as backend_registry
 
         backend = backend_registry.resolve(backend)
@@ -512,14 +534,8 @@ class Scheduler:
                 f"paged KV pages are block_kv-sized and admission is "
                 f"block_q-aligned; the grids must match (got block_q="
                 f"{cfg.sla.block_q}, block_kv={cfg.sla.block_kv})")
-        if paged and cfg.sla.col_capacity_factor is not None:
-            warnings.warn(
-                f"paged=True: lifting sla.col_capacity_factor "
-                f"({cfg.sla.col_capacity_factor} -> None); a shared prompt "
-                f"page is a pure function of its prefix only uncapped",
-                stacklevel=2)
-            cfg = dataclasses.replace(
-                cfg, sla=cfg.sla.replace(col_capacity_factor=None))
+        if paged:
+            cfg = lift_column_capacity(cfg)
         if prefill_chunk_blocks is None:
             prefill_chunk_blocks = cfg.sla.prefill_chunk_blocks
         if prefill_chunk_blocks is not None:
@@ -615,12 +631,14 @@ class Scheduler:
             self._snapshots = collections.OrderedDict()
             self._snapshot_cap = 32
 
-        self._cparams = self.mdl.compute_params(params, compute_dtype)
+        self._cparams = (cparams if cparams is not None else
+                         self.mdl.compute_params(params, compute_dtype))
         self._pf = PrefillEngine(
             cfg, params, self.mdl, backend=backend,
             compute_dtype=compute_dtype, decode_sla=decode_sla,
             max_len=self.max_len, drift_threshold=self.drift_threshold,
-            plan_reuse=plan_reuse, cparams=self._cparams)
+            plan_reuse=plan_reuse, chunk_tokens=self._chunk_tokens,
+            cparams=self._cparams)
         # the model's cache writers, as attributes (the reference's jitted
         # closures), so a caller can wrap one
         self._admit = self.mdl.insert_slot
@@ -713,9 +731,60 @@ class Scheduler:
         """Slots with no resident request."""
         return [j for j in range(self.num_slots) if self._slots[j] is None]
 
-    def admit_external(self, *args, **kwargs):
-        """The disaggregated handoff of the reference; not ported yet."""
-        raise _not_ported("admit_external (disaggregated serving)")
+    def admit_external(self, r: ServedRequest, slot: int, cache: dict,
+                       logits: np.ndarray, toks: np.ndarray, bucket: int, *,
+                       prefilled: int, plan_built: bool = True,
+                       start_emitted: bool = True) -> List[StreamEvent]:
+        """Admit a request another worker prefilled into `slot`: the
+        disaggregated handoff (`serving/disagg.py`). The prefill worker
+        hands over the batch-1 prefill `cache`, the (1, vocab) first-token
+        `logits` row and the (1, bucket) left-padded prompt `toks`. Runs
+        blocking admission's tail: paged, page claim -> page-table scatter
+        -> full-prompt snapshot; unpaged, k/v padded to max_len (new
+        tensors) -> `insert_slot`. So the slot's cache and every later
+        greedy token are what self-admission of the same prompt at the
+        same bucket gives, and admitting the same bundle again after a
+        worker loss replays the same trajectory. Nothing here writes
+        `cache`: its leaves are copied, or kept unwritten by the snapshot.
+
+        `prefilled` is the prompt tokens the prefill dispatched (0 for a
+        replayed bundle) and `plan_built` gates the decode-plan build
+        count alike."""
+        if self._slots[slot] is not None \
+                or self._job_by_slot[slot] is not None:
+            raise ValueError(
+                f"slot {slot} is occupied; admit_external needs a slot "
+                f"from free_slots()")
+        r.state = RequestState.PREFILLING
+        r.slot = slot
+        t0 = time.time()
+        if r.metrics.admit_t == 0.0:
+            r.metrics.admit_t = t0
+        # the handoff bucket raises this scheduler's shared floor as a
+        # self-admitted long prompt would
+        if self._bucket is None or bucket > self._bucket:
+            self._bucket = bucket
+            self._plans = None
+        if bucket + r.sampling.max_new_tokens > self.max_len:
+            r.state = RequestState.QUEUED
+            r.slot = None
+            raise ValueError(
+                f"max_len={self.max_len} cannot hold handoff request "
+                f"{r.rid}: bucket {bucket} plus "
+                f"{r.sampling.max_new_tokens} new tokens does not fit; "
+                f"raise max_len to >= "
+                f"{bucket + r.sampling.max_new_tokens}")
+        if self.paged:
+            padded = np.asarray(toks[0])
+            pids = [self._claim_page(key) for key in self._page_keys(padded)]
+            self._land_paged(cache, logits, padded, slot, pids, bucket)
+        else:
+            self._land_dense(cache, slot)
+        events: List[StreamEvent] = []
+        self._finish_admission(r, slot, logits, t0, events,
+                               prefilled=prefilled, plan_built=plan_built,
+                               start_emitted=start_emitted)
+        return events
 
     @property
     def has_work(self) -> bool:
@@ -931,11 +1000,7 @@ class Scheduler:
         else:
             last_hidden, cache = self._run_prefill(toks)
             logits = self._pf.logits(last_hidden)
-            grow = self.max_len - cache["k"].shape[-2]
-            if grow > 0:  # dense prefill caches stop at the bucket
-                cache = dict(cache, **{key: torch.nn.functional.pad(
-                    cache[key], (0, 0, 0, grow)) for key in ("k", "v")})
-            self._admit(self._live, cache, slot)
+            self._land_dense(cache, slot)
             del cache
         self._finish_admission(r, slot, logits, t0, events,
                                prefilled=self._bucket, plan_built=True)
@@ -1061,6 +1126,27 @@ class Scheduler:
             self._pool.intern(key, pid)
         return pid
 
+    def _land_dense(self, cache: dict, slot: int):
+        """Unpaged admission's copy: the batch-1 cache into `slot`, its k/v
+        padded to max_len first (dense prefill caches stop at the bucket;
+        the padding makes new tensors, `cache` is not written)."""
+        grow = self.max_len - cache["k"].shape[-2]
+        if grow > 0:
+            cache = dict(cache, **{key: torch.nn.functional.pad(
+                cache[key], (0, 0, 0, grow)) for key in ("k", "v")})
+        self._admit(self._live, cache, slot)
+
+    def _land_paged(self, cache: dict, logits, padded: np.ndarray,
+                    slot: int, pids: List[int], bucket: int):
+        """Paged admission's tail: the batch-1 cache scattered into the
+        prompt pages `pids` (one pool ref each, taken), the page-table row
+        pointed at them, the full-prompt snapshot stored under (bucket,
+        padded bytes)."""
+        self._admit_paged(self._live, cache, slot, pids)
+        self._set_slot_pages(slot, pids, bucket=bucket)
+        self._store_snapshot((bucket, padded.tobytes()), cache, logits)
+        self._sync_page_stats()
+
     def _store_snapshot(self, snap_key, cache, logits):
         self._snapshots[snap_key] = (
             self.mdl.slot_state_from_prefill(cache), logits)
@@ -1077,11 +1163,7 @@ class Scheduler:
         last_hidden, cache = self._run_prefill(toks)
         logits = self._pf.logits(last_hidden)
         pids = [self._claim_page(key) for key in keys]
-        self._admit_paged(self._live, cache, slot, pids)
-        self._set_slot_pages(slot, pids)
-        self._store_snapshot((self._bucket, toks[0].tobytes()), cache,
-                             logits)
-        self._sync_page_stats()
+        self._land_paged(cache, logits, toks[0], slot, pids, self._bucket)
         return logits
 
     # -- chunked admission -------------------------------------------------
@@ -1160,11 +1242,8 @@ class Scheduler:
         t0 = time.time()
         cache = self._pf.finalize(job.carry)
         logits = self._pf.logits(job.last_hidden)
-        self._admit_paged(self._live, cache, slot, job.pids)
-        self._set_slot_pages(slot, job.pids, bucket=job.bucket)
-        self._store_snapshot((job.bucket, job.toks[0].tobytes()), cache,
-                             logits)
-        self._sync_page_stats()
+        self._land_paged(cache, logits, job.toks[0], slot, job.pids,
+                         job.bucket)
         self._job_by_slot[slot] = None
         job.carry = None
         del cache

@@ -1234,3 +1234,89 @@ def test_lm_decode_chunk_on_the_card_kernel_vs_gather():
             for k in ("htot", "ztot", "hblk", "zblk", "qpool")]:
         atol = 1e-4 * max(1.0, float(want.abs().max()))
         torch.testing.assert_close(got, want, atol=atol, rtol=0)
+
+
+def _leaf_pairs(a, b, prefix=""):
+    """(name, x, y) for every tensor leaf of two caches of one layout."""
+    if torch.is_tensor(a):
+        yield prefix, a, b
+    elif isinstance(a, dict):
+        for key in a:
+            yield from _leaf_pairs(a[key], b[key], f"{prefix}.{key}")
+    elif isinstance(a, plan_lib.SLAPlan):
+        for key in plan_lib.PLAN_LEAVES:
+            yield (f"{prefix}.{key}", getattr(a, key), getattr(b, key))
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "mono"])
+def test_disagg_on_the_card_matches_the_scheduler(paged):
+    """A small disaggregated trace on the card, kernel backend, f32,
+    decode-SLA, 64 x 64 blocks: 2 prefill and 2 decode workers (paged:
+    chunks of one block, r3 resuming from r0's 128-token snapshot;
+    unpaged: blocking), per-token decode, decode:0 killed mid-stream at
+    tick 5. The tokens equal the port's single Scheduler on the same
+    prompts (chunked when paged), every bundle is bitwise its clone from
+    its handoff after the drain (one of them replayed), kernel 1 runs
+    once a layer per prefill dispatch, and every decode step launches the
+    paged kernel (kernel 5) a layer when paged and the monolithic one
+    (kernel 4) when not, never the other."""
+    _need_gpu()
+    from repro_torch.distributed.fault_tolerance import FaultEvent, FaultPlan
+    from repro_torch.serving.api import SamplingParams, Scheduler
+    from repro_torch.serving.disagg import DisaggScheduler
+    cfg, model, _ = _chunk_lm(64)
+    rs = np.random.default_rng(7)
+    shared = rs.integers(0, cfg.vocab_size, 128)
+    prompts = [np.concatenate([shared, rs.integers(0, cfg.vocab_size, 64)]),
+               rs.integers(0, cfg.vocab_size, 150),
+               rs.integers(0, cfg.vocab_size, 100),
+               np.concatenate([shared, rs.integers(0, cfg.vocab_size, 64)])]
+    budgets = (12, 9, 10, 8)
+    chunk = 1 if paged else None
+    kw = dict(max_len=256, backend="kernel", decode_sla=True,
+              prefill_bucket=192, paged=paged, prefill_chunk_blocks=chunk,
+              compute_dtype=torch.float32)
+    base = Scheduler(cfg, model, num_slots=2, **kw)
+    for p, n in zip(prompts, budgets):
+        base.submit(p, SamplingParams(max_new_tokens=n))
+    want = [list(r.tokens_out) for r in base.drain()]
+    del base
+    clock = iter(range(10**6))
+    dis = DisaggScheduler(
+        cfg, model, prefill_workers=2, decode_workers=2, slots_per_worker=2,
+        decode_step_mode="token", sleep=lambda s: None,
+        clock=lambda: 0.5 * next(clock),
+        fault_plan=FaultPlan([FaultEvent(tick=5, kind="kill",
+                                         pool="decode", worker=0)]), **kw)
+    clones = {}
+    for w in dis._prefill_pool:
+        def hook(stats, tick=w.tick):
+            done = tick(stats)
+            if done is not None:
+                clones[done[0].rid] = (done[1], _clone(done[1].cache))
+            return done
+        w.tick = hook
+    for p, n in zip(prompts, budgets):
+        dis.submit(p, SamplingParams(max_new_tokens=n))
+    before = (_fwd_counters()[0], sla_decode.LAUNCHES,
+              sla_decode.PAGED_LAUNCHES)
+    done = dis.drain()
+    torch.cuda.synchronize()
+    fwd, mono, pg = (a - b for a, b in zip(
+        (_fwd_counters()[0], sla_decode.LAUNCHES, sla_decode.PAGED_LAUNCHES),
+        before))
+    assert [list(r.tokens_out) for r in done] == want
+    st = dis.stats
+    assert st.kills == 1 and st.requeues >= 1 and st.completed == 4
+    assert sorted(clones) == [0, 1, 2, 3]
+    for bundle, clone in clones.values():
+        for name, x, y in _leaf_pairs(bundle.cache, clone):
+            assert torch.equal(x, y), name
+    dispatches = st.prefill_chunks if paged else st.handoffs
+    if paged:
+        assert st.prefill_tokens == 3 * 192 + 64  # r3 resumed at 128
+    assert fwd == cfg.num_layers * dispatches
+    steps = sum(w.sched.stats.slot_steps_total // 2
+                for w in dis._decode_pool)
+    assert (pg, mono) == ((cfg.num_layers * steps, 0) if paged
+                          else (0, cfg.num_layers * steps))

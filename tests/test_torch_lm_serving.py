@@ -9,8 +9,8 @@ counter equal, the first-token logits within 5e-2 x max(1, max |logits|)
 (bf16), and the greedy tokens equal on a seed whose first-token top-2
 margins exceed twice the measured difference of the two packages' logits. Then the port's serve CLI runs the LM workload
 on the CPU (`--workload lm --smoke --device cpu --decode-sla --backend
-kernel`) with the reference CLI's counters, and the LM modes that are not
-ported raise and name their ROADMAP item.
+kernel`) with the reference CLI's counters, and the CLI's LM modes and
+argument rules.
 """
 import dataclasses
 import json
@@ -169,19 +169,24 @@ def test_serve_cli_lm_workload_matches_reference_cli(tmp_path):
                                    ["--disagg"], ["--stream"]],
                          ids=lambda f: f[0])
 def test_serve_cli_unported_lm_modes_name_item_14(flags):
-    """The LM mode still unported (--disagg) raises and names item 14.
-    The ported ones run: --scheduler continuous serves, and --paged /
-    --stream / --prefill-chunk without what they need (the continuous
-    scheduler, a paged cache) are refused with the reference CLI's
-    argument error (--prefill-chunk with --paged serves:
-    tests/test_torch_chunked_prefill.py)."""
+    """Every LM mode of the reference CLI is ported (item 14 is done):
+    --scheduler continuous and --disagg serve, and --paged / --stream /
+    --prefill-chunk without what they need (the continuous scheduler or
+    the disaggregated pools, a paged cache) are refused with the
+    reference CLI's argument error, as are --disagg with --stream and
+    --disagg with adaptive plan reuse (--prefill-chunk with --paged
+    serves: tests/test_torch_chunked_prefill.py; --disagg against the
+    reference CLI: tests/test_torch_disagg.py)."""
     from repro_torch.launch import serve as torch_serve
     argv = ["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
             "--requests", "2", "--batch", "2", "--prompt-len", "16",
             "--max-new", "3"] + flags
     if flags[0] == "--disagg":
-        with pytest.raises(NotImplementedError, match="item 14"):
-            torch_serve.main(argv)
+        done = torch_serve.main(argv)
+        assert [len(r.tokens_out) for r in done] == [3, 3]
+        for extra in (["--stream"], ["--plan-reuse", "adaptive"]):
+            with pytest.raises(SystemExit):
+                torch_serve.main(argv + extra)
     elif flags[0] == "--scheduler":
         done = torch_serve.main(argv)
         assert [len(r.tokens_out) for r in done] == [3, 3]

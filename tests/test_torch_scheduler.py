@@ -144,8 +144,16 @@ def test_scheduler_refuses_what_it_cannot_serve():
     assert chunked._chunk_tokens == tcfg.sla.block_q
     sched = tapi.Scheduler(tcfg, model, num_slots=1, max_len=48,
                            decode_sla=True, paged=True)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        sched.admit_external(None, 0, None, None, None, 32, prefilled=0)
+    # the disaggregated handoff is ported (tests/test_torch_disagg.py): a
+    # bucket that cannot hold the budget is refused before any copy, and
+    # the request goes back to QUEUED with no slot
+    late = tapi.ServedRequest(rid=7, prompt=prompts[0],
+                              sampling=tapi.SamplingParams(
+                                  max_new_tokens=40))
+    with pytest.raises(ValueError, match="handoff request 7"):
+        sched.admit_external(late, 0, None, None,
+                             np.zeros((1, 32), np.int32), 32, prefilled=0)
+    assert late.state is tapi.RequestState.QUEUED and late.slot is None
     with pytest.raises(ValueError, match="max_len"):
         sched.submit(prompts[0], tapi.SamplingParams(max_new_tokens=40))
     assert sched.free_slots() == [0] and not sched.has_work
