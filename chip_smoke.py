@@ -5,8 +5,10 @@
     python3 chip_smoke.py --profile   # also profile one full-width forward,
                                       # one full-width training step,
                                       # 8 full-width LM decode steps, one
-                                      # full-width LM prefill and 8 paged
-                                      # LM decode steps
+                                      # full-width LM prefill, 8 paged
+                                      # LM decode steps, one full-width
+                                      # LM training step and one MoE
+                                      # decode step
 
 Phases, in order; any failure exits non-zero before the result line:
   1. card: nvidia-smi name and power limit; TF32 off for matmul and cuDNN.
@@ -276,7 +278,44 @@ Phases, in order; any failure exits non-zero before the result line:
      handoff waits in ticks, `admit_external` seconds, a bundle's bytes
      (k/v, hblk, the rest) and the most held at once, occupancies, the
      pool rows, ms a decode step by worker and peak memory.
- 21. the kernels line (JSON): `sla_fwd` carries the split route's fields
+ 21. LM training (on phase 12's model, which it trains in place):
+     qwen3-1.7b at full width and depth (28 layers, d_model 2048, 16 / 8
+     heads of 128, vocab 151,936), `train_4k` (seq 4096) with its global
+     batch 256 cut to 1, `token_batch` data. First one batch's `loss_fn`
+     on the kernel against the gather backend (bf16 compute) within 5e-2
+     x max(1, |loss|); then `make_train_step` (AdamW over the f32
+     masters, bf16 compute, kernel backend) under per-layer remat: 3
+     `loss_fn` steps and one `distill_loss_fn` step. Checks finite losses
+     and grad norms, moved parameters, and per step exactly 56 `sla_fwd`
+     launches (28 layers, each run twice: the forward and its remat
+     recompute), 28 `sla_bwd_dq` and 28 `sla_bwd_dkv`, all on the tensor
+     cores, and 28 plan builds; prints each step's wall, loss, grad norm
+     and peak memory. Then kernels 1-3 against their twins on the last
+     `loss_fn` step's plans of layers 0 and 27 (seeded q and k/v repeated
+     to the 16 query heads as the kernel backend gives them, causal;
+     `cases.tc_criterion`, two launches bitwise equal), timed with their
+     bounds; then the train CLI on the card (`--arch qwen3-1.7b --smoke
+     --steps 3`). `--profile` adds a profile of one more `loss_fn` step.
+ 22. MoE serving (after phase 21's model is freed): the static
+     ServingEngine serving moonshot-v1-16b-a3b at full width and depth
+     (48 layers, d_model 2048, 16 / 16 heads of 128, 64 experts top-6 of
+     1408 plus the shared expert, vocab 163,840; weights made in bf16,
+     since f32 masters of its ~28.1 B parameters would not fit the card)
+     with decode-time SLA on the kernel backend: batch 2, prompts of
+     4,000 and 3,980 tokens (a 4,032-token bucket), max_len 4,096, 32 new
+     tokens each. Checks the token counts, finite logits, 48 `sla_fwd`
+     launches (all on tensor cores), 48 x 31 `sla_decode` and no
+     `sla_decode_paged`, and 48 MoE calls in the prefill and 48 a decode
+     step; prints the prefill wall, decode ms a step, peak memory, and the
+     MoE capacity and dropped (token, slot) pairs in prefill and decode.
+     Then kernel 4 against its twin on the path's decode state of layers
+     0 and 47 (group 1, three split widths, two launches bitwise equal,
+     CUDA-graph times, decode_execute kernel vs gather within 5e-5), the
+     prefill's last-position logits on the kernel against the gather
+     backend (5e-2 x max(1, max |logits|), greedy agreement), and kernel
+     1 against its twin on the prefill's layer-0 plans (BH 32, group 1,
+     N 4,032). `--profile` adds a profile of one decode step.
+ 23. the kernels line (JSON): `sla_fwd` carries the split route's fields
      at the top (the f32 serving route) and the f32-FMA and bf16
      tensor-core routes' beside them; `sla_fwd_split_planes` is the split
      route's pre-pass; then the result line.
@@ -308,7 +347,7 @@ os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs import DIT_SHAPES, get_arch  # noqa: E402
+from repro_torch.configs import DIT_SHAPES, get_arch, get_shape  # noqa: E402
 from repro_torch.core import phi as phi_lib  # noqa: E402
 from repro_torch.core import plan as plan_lib  # noqa: E402
 from repro_torch.core.block_sparse_xla import sla_forward_gather  # noqa: E402
@@ -320,9 +359,11 @@ from repro_torch.kernels import cases, sla_decode  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import dit  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.models.common import dense_init  # noqa: E402
+from repro_torch.models.common import logits_from_hidden  # noqa: E402
 from repro_torch.serving.diffusion import (DenoiseParams,  # noqa: E402
                                            DiffusionScheduler)
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
@@ -408,6 +449,15 @@ DG_FAULTS = (dict(tick=2, kind="flake", pool="decode", worker=1),
 DG_RESUMES = ((4, 6144), (6, 2048))
 DG_EXPECT = dict(submitted=8, completed=8, handoffs=8, prefill_chunks=28,
                  prefill_tokens=7 * 8000 + 1856 - 2048)
+# LM training (phase 21): qwen3-1.7b's train_4k, global batch 256 cut to 1
+LT_STEPS, LT_BATCH, LT_SEQ = 3, 1, 4096
+LT_LOSS_TOL = 5e-2  # kernel vs gather loss, relative to max(1, |loss|)
+LT_PROBES = ("layers.0.wq", "layers.27.sla_proj", "embed")
+# MoE serving (phase 22): 2 prompts of ~4,000 tokens (8K context cut) in a
+# 4,032-token bucket, batch 2 (decode_32k's 128 cut), 32 new tokens
+MOE_ARCH, MOE_BATCH, MOE_MAX_LEN, MOE_NEW = ("moonshot-v1-16b-a3b", 2,
+                                             4096, 32)
+MOE_PROMPTS = (4000, 3980)
 DEV = torch.device("cuda")
 
 
@@ -504,7 +554,7 @@ def _kernel_inputs(arch: str, h: int, n: int, d: int, seed: int,
     return sla, q, k, v, plan
 
 
-def _operands(sla, q, k, v, marginal, lut, counts, dtype):
+def _operands(sla, q, k, v, marginal, lut, counts, dtype, causal=False):
     """The kernel's flattened operands in `dtype` for one plan's
     (B, H, ...) marginal / lut / counts, with hi/zi aggregated as the
     kernel backend does, plus the 4-D inputs for the backends."""
@@ -515,7 +565,7 @@ def _operands(sla, q, k, v, marginal, lut, counts, dtype):
     hb, zb = ops._hz_blocks(fkp, fv, sla.block_kv)
     hi, zi = ops._aggregate(a, hb, zb)
     args = (lut, counts, fq, fk, fv, fqp, hi, zi)
-    kw = dict(scale=q.shape[-1] ** -0.5, causal=False,
+    kw = dict(scale=q.shape[-1] ** -0.5, causal=causal,
               block_q=sla.block_q, block_kv=sla.block_kv)
     return args, kw, (q, k, v, qp, kp)
 
@@ -1254,13 +1304,14 @@ def phase_plan_cache(cfg, params, plans):
 
 
 # --------------------------------------------------------------------------
-def _bwd_operands(sla, q, k, v, leaves, dtype, seed: int):
+def _bwd_operands(sla, q, k, v, leaves, dtype, seed: int, causal=False):
     """Operands of both backward kernels for one plan's (B, H, ...)
     leaves (marginal, lut, counts, col_lut, col_counts) in `dtype`: L and
     O^s from the forward kernel on the same inputs, a seeded dO^s and
     D = rowsum(dO^s * O^s). Returns (dq args, dkv args, keywords)."""
     marginal, lut, counts, col_lut, col_counts = leaves
-    args, kw, _ = _operands(sla, q, k, v, marginal, lut, counts, dtype)
+    args, kw, _ = _operands(sla, q, k, v, marginal, lut, counts, dtype,
+                            causal)
     o_s, _, lse = sla_fwd.sla_fwd(*args, **kw)
     gen = torch.Generator(device=DEV).manual_seed(seed)
     do = torch.randn(o_s.shape, generator=gen, device=DEV)
@@ -1828,6 +1879,16 @@ def _kernel_means(prof, names) -> dict:
     return out
 
 
+def _busy(prof, wall_s: float) -> dict:
+    """Device time (kernel-level events, as the profiler's own table
+    total) and the busy share of `wall_s`."""
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.is_user_annotation)
+    return dict(wall_s=wall_s, device_s=dev_us / 1e6,
+                busy=dev_us / 1e6 / wall_s)
+
+
 def phase_train_cli():
     """The smoke fine-tuning recipe (distillation against the frozen,
     zero-initialized output projection: its losses are exactly 0) and a
@@ -2121,7 +2182,7 @@ def phase_lm_main(cfg, params):
                            steps=max(r.max_new_tokens for r in group) - 1))
         return out
 
-    orig_plan = backend_lib.plan_attention
+    orig_plan = plan_lib.plan_attention
 
     def plan_hook(*a, **kw):
         plan = orig_plan(*a, **kw)
@@ -2135,12 +2196,12 @@ def phase_lm_main(cfg, params):
     torch.cuda.reset_peak_memory_stats()
     sla_decode.PAGED_LAUNCHES = sla_decode.LAUNCHES = sla_fwd.LAUNCHES = 0
     sla_fwd.TC_LAUNCHES = 0
-    backend_lib.plan_attention = plan_hook
+    plan_lib.plan_attention = plan_hook
     t0 = time.time()
     try:
         done = engine.run(reqs)
     finally:
-        backend_lib.plan_attention = orig_plan
+        plan_lib.plan_attention = orig_plan
     wall = time.time() - t0
     launches = dict(sla_decode=sla_decode.LAUNCHES,
                     sla_decode_paged=sla_decode.PAGED_LAUNCHES,
@@ -2386,20 +2447,13 @@ def phase_lm_cross_check(cfg, run, profile: bool):
         with prof_ctx(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
             steps8()
-        wall = time.time() - t0
         events = prof.key_averages()
-        # kernel-level device events only (an op's row repeats its
-        # kernels' time), as the profiler's own table total
-        dev_us = sum(e.self_device_time_total for e in events
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and not e.is_user_annotation)
         k4_us, k4_n = _decode_kernel_time(events)
-        res["profile"] = dict(wall_s=wall, device_s=dev_us / 1e6,
-                              busy=dev_us / 1e6 / wall,
-                              kernel_s=k4_us / 1e6, kernel_launches=k4_n)
-        say(f"[13 lm profile] 8 decode steps: {wall:.3f}s wall under the "
-            f"profiler, {dev_us / 1e6:.3f}s device time, device busy "
-            f"{dev_us / 1e6 / wall:.3f} | decode kernels {k4_n} launches, "
+        res["profile"] = p = dict(_busy(prof, time.time() - t0),
+                                  kernel_s=k4_us / 1e6, kernel_launches=k4_n)
+        say(f"[13 lm profile] 8 decode steps: {p['wall_s']:.3f}s wall under "
+            f"the profiler, {p['device_s']:.3f}s device time, device busy "
+            f"{p['busy']:.3f} | decode kernels {k4_n} launches, "
             f"{k4_us / 1e6:.4f}s")
         say(events.table(sort_by="self_cuda_time_total", row_limit=20))
     last.clear()
@@ -4139,6 +4193,536 @@ def phase_disagg(cfg, params):
     return summary, fwd_rows, paged_rows
 
 
+# --------------------------------------------------------------------------
+def _lt_kernel_rows(cfg, plans) -> tuple:
+    """Kernels 1-3 against their twins on a training step's own plans of
+    the first and the last layer: seeded bf16 q and 8-head k/v repeated
+    to the 16 query heads (as the kernel backend gives them), causal, at
+    the step's N. Returns (forward rows, backward rows)."""
+    sla = cfg.sla
+    h, hkv, n, d = cfg.num_heads, cfg.num_kv_heads, LT_SEQ, cfg.head_dim
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    q = torch.randn((LT_BATCH, h, n, d), generator=gen, device=DEV)
+    k, v = (plan_lib.repeat_kv(torch.randn(
+        (LT_BATCH, hkv, n, d), generator=gen, device=DEV), h)
+        for _ in range(2))
+    fwd_rows, bwd_rows = [], []
+    for layer, plan in sorted(plans.items()):
+        leaves = [plan.marginal, plan.lut, plan.counts, plan.col_lut,
+                  plan.col_counts]
+        shape = f"qwen3-1.7b train layer {layer} plans"
+        args, kw, _ = _operands(sla, q, k, v, *leaves[:3], torch.bfloat16,
+                                causal=True)
+        c = _fwd_check(args, kw, shape)
+        ms = cuda_ms(lambda: sla_fwd.sla_fwd(*args, **kw), 10)
+        plain_ms = cuda_ms(lambda: sla_fwd.sla_fwd_plain(*args, **kw), 2,
+                           warmup=1)
+        bound_ms, bound_by, _, _, live = _bound(args, kw)
+        say(f"[21 lm train kernels] sla_fwd {shape} bf16 causal (BH="
+            f"{args[2].shape[0]}, N={n}, K={args[0].shape[-1]}, live tiles "
+            f"{live} of {args[0].numel()}): {_fwd_text(c)} | kernel "
+            f"{ms:.3f} ms | bound {bound_ms:.3f} ms by {bound_by} "
+            f"({bound_ms / ms:.1%} of it) | plain twin {plain_ms:.3f} ms")
+        fwd_rows.append(dict(shape=shape, dtype="bf16", live_tiles=live,
+                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by,
+                             bound_fraction=bound_ms / ms, **c))
+        del args
+        dq_args, dkv_args, kw = _bwd_operands(sla, q, k, v, leaves,
+                                              torch.bfloat16, seed=12,
+                                              causal=True)
+        for name, args in (("sla_bwd_dq", dq_args),
+                           ("sla_bwd_dkv", dkv_args)):
+            c = _bwd_check(name, args, kw, shape)
+            ms = cuda_ms(lambda: BWD[name][0](*args, **kw), 10)
+            plain_ms = cuda_ms(lambda: BWD[name][1](*args, **kw), 2,
+                               warmup=1)
+            bound_ms, bound_by, _, _, live = _bwd_bound(name, args, kw,
+                                                        torch.bfloat16)
+            say(f"[21 lm train kernels] {name} {shape} bf16 causal (live "
+                f"tiles {live} of {args[0].numel()}): {_check_text(c)} | "
+                f"kernel {ms:.3f} ms | bound {bound_ms:.3f} ms by "
+                f"{bound_by} ({bound_ms / ms:.1%} of it) | plain twin "
+                f"{plain_ms:.3f} ms")
+            bwd_rows.append(dict(kernel=name, shape=shape, dtype="bf16",
+                                 live_tiles=live, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by,
+                                 bound_fraction=bound_ms / ms, **c))
+        del dq_args, dkv_args
+    torch.cuda.empty_cache()
+    return fwd_rows, bwd_rows
+
+
+def phase_lm_train(cfg, params, profile: bool):
+    """Phase 21: LM training at full Qwen3-1.7B width and depth. The
+    kernel-vs-gather loss on one batch, LT_STEPS `loss_fn` steps and one
+    `distill_loss_fn` step through `make_train_step` (AdamW, bf16 compute
+    over the f32 masters, kernel backend, per-layer remat), kernels 1-3
+    against their twins on the last `loss_fn` step's plans of layers 0 and
+    27, then the train CLI on the card. Trains `params` in place."""
+    nl = cfg.num_layers
+    shape = dataclasses.replace(get_shape("train_4k"),
+                                global_batch=LT_BATCH)
+    data = make_iterator(cfg, shape, DataConfig(seed=0))
+
+    def tensors(batch):
+        return {k: torch.from_numpy(x).to(DEV) for k, x in batch.items()}
+
+    batches = [tensors(next(data)) for _ in range(LT_STEPS + 1)]
+    # one batch's loss, kernel against gather backend (bf16 compute)
+    losses = {}
+    with torch.no_grad():
+        tree = train_steps.cast_params_bf16(params)
+        for backend in ("kernel", "gather"):
+            losses[backend] = float(transformer.loss_fn(
+                tree, cfg, batches[0], backend=backend))
+        del tree
+    limit = LT_LOSS_TOL * max(1.0, abs(losses["gather"]))
+    diff = abs(losses["kernel"] - losses["gather"])
+    say(f"[21 lm train] {LM_ARCH} at full width and depth ({nl} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} / {cfg.num_kv_heads} heads "
+        f"of {cfg.head_dim}, vocab {cfg.vocab_size}), train_4k seq "
+        f"{shape.seq_len}, batch {LT_BATCH} (global 256 cut) | one batch's "
+        f"loss_fn: kernel {losses['kernel']:.6f}, gather "
+        f"{losses['gather']:.6f}, diff {diff:.3g} (limit {limit:.3g}) "
+        f"{'OK' if diff <= limit else 'FAIL'}")
+    if not (np.isfinite(diff) and diff <= limit):
+        raise RuntimeError(f"LM loss kernel {losses['kernel']} vs gather "
+                           f"{losses['gather']}")
+    opt_cfg = adamw.AdamWConfig(lr=1e-4, warmup_steps=1,
+                                total_steps=LT_STEPS + 1)
+    step_fns = {False: train_steps.make_train_step(cfg, opt_cfg,
+                                                   backend="kernel"),
+                True: train_steps.make_train_step(cfg, opt_cfg,
+                                                  backend="kernel",
+                                                  distill=True)}
+    named = dict(params.named_parameters())
+    opt_state = adamw.init(named)
+    probe = {n: named[n].detach().clone() for n in LT_PROBES}
+    plans = []  # this step's, in layer order
+    orig_plan = plan_lib.plan_attention
+
+    def counted_plan(*a, **kw):
+        plans.append(orig_plan(*a, **kw))
+        return plans[-1]
+
+    want = dict(sla_fwd=2 * nl, tc_sla_fwd=2 * nl, sla_bwd_dq=nl,
+                tc_sla_bwd_dq=nl, sla_bwd_dkv=nl, tc_sla_bwd_dkv=nl,
+                plan_builds=nl)
+    rows, totals = [], dict.fromkeys(want, 0)
+    plan_lib.plan_attention = counted_plan
+    try:
+        with actx.activation_sharding(remat=True):
+            for i, batch in enumerate(batches):
+                distill = i == LT_STEPS
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                sla_fwd.LAUNCHES = sla_fwd.TC_LAUNCHES = 0
+                sla_bwd.LAUNCHES_DQ = sla_bwd.LAUNCHES_DKV = 0
+                sla_bwd.TC_LAUNCHES_DQ = sla_bwd.TC_LAUNCHES_DKV = 0
+                t0 = time.time()
+                params, opt_state, loss, gnorm = step_fns[distill](
+                    params, opt_state, batch)
+                loss, gnorm = float(loss), float(gnorm)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                got = dict(sla_fwd=sla_fwd.LAUNCHES,
+                           tc_sla_fwd=sla_fwd.TC_LAUNCHES,
+                           sla_bwd_dq=sla_bwd.LAUNCHES_DQ,
+                           tc_sla_bwd_dq=sla_bwd.TC_LAUNCHES_DQ,
+                           sla_bwd_dkv=sla_bwd.LAUNCHES_DKV,
+                           tc_sla_bwd_dkv=sla_bwd.TC_LAUNCHES_DKV,
+                           plan_builds=len(plans))
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                for key in totals:
+                    totals[key] += got[key]
+                what = "distill_loss_fn" if distill else "loss_fn"
+                say(f"[21 lm train] step {i} ({what}): loss {loss:.6f} grad "
+                    f"norm {gnorm:.6f} | {wall:.3f}s | peak {peak:.2f} GiB "
+                    f"| launches {got} (expected {want})")
+                rows.append(dict(step=i, loss_fn=what, loss=loss,
+                                 grad_norm=gnorm, wall_s=wall, peak_gib=peak,
+                                 **got))
+                if not (np.isfinite(loss) and np.isfinite(gnorm)):
+                    raise RuntimeError(f"LM training step {i}: loss {loss}, "
+                                       f"grad norm {gnorm}")
+                if got != want:
+                    raise RuntimeError(f"LM training step {i}: launches "
+                                       f"{got}, expected {want}")
+                if i == LT_STEPS - 1:
+                    step_plans = {li: plans[li] for li in (0, nl - 1)}
+                plans.clear()
+            prof_res = None
+            if profile:
+                from torch.profiler import ProfilerActivity
+                from torch.profiler import profile as prof_ctx
+                torch.cuda.synchronize()
+                t0 = time.time()
+                with prof_ctx(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]) as prof:
+                    step_fns[False](params, opt_state, batches[0])
+                    torch.cuda.synchronize()
+                wall = time.time() - t0
+                prof_res = _busy(prof, wall)
+                prof_res["kernels"] = _kernel_means(
+                    prof, ("sla_fwd_tc_kernel", "sla_bwd_dq_tc_kernel",
+                           "sla_bwd_dkv_tc_kernel"))
+                say(f"[21 lm train profile] one more loss_fn step: "
+                    f"{prof_res}")
+                say(prof.key_averages().table(sort_by="cuda_time_total",
+                                              row_limit=25))
+    finally:
+        plan_lib.plan_attention = orig_plan
+    moved = {n: bool((named[n].detach() != probe[n]).any())
+             for n in LT_PROBES}
+    del opt_state, named, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[21 lm train] {len(rows)} steps: walls "
+        f"{[round(r['wall_s'], 3) for r in rows]} s | peaks "
+        f"{[round(r['peak_gib'], 2) for r in rows]} GiB | parameters moved "
+        f"{moved}")
+    if not all(moved.values()):
+        raise RuntimeError(f"LM training did not move the parameters: "
+                           f"{moved}")
+    fwd_rows, bwd_rows = _lt_kernel_rows(cfg, step_plans)
+    del step_plans
+    bad = [r for r in fwd_rows + bwd_rows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"a kernel disagrees with its twin on the LM "
+                           f"training plans: {bad}")
+    argv = ["--arch", LM_ARCH, "--smoke", "--steps", "3", "--device", "cuda",
+            "--log-every", "1"]
+    t0 = time.time()
+    cli = train_cli.main(argv)
+    ok = len(cli) == 3 and bool(np.isfinite(cli).all()) and min(cli) > 0
+    say(f"[21 lm train CLI] repro_torch.launch.train {' '.join(argv)}: "
+        f"losses {cli} in {time.time() - t0:.1f}s {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"LM train CLI losses {cli}")
+    return dict(steps=rows, launches=totals, moved=moved, loss_check=dict(
+        kernel=losses["kernel"], gather=losses["gather"], diff=diff,
+        limit=limit), cli_losses=cli, profile=prof_res), fwd_rows, bwd_rows
+
+
+# --------------------------------------------------------------------------
+def _moe_model(seed: int):
+    """Full-width moonshot-v1-16b-a3b with random weights made in bf16 on
+    the card (f32 masters of its ~28.1 B parameters would not fit);
+    sla_proj redrawn so that O^l reaches the logits."""
+    cfg = get_arch(MOE_ARCH)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    params = transformer.init(gen, cfg, dtype=torch.bfloat16, device=DEV)
+    with torch.no_grad():
+        for layer in params.layers:
+            layer.sla_proj.copy_(0.1 * torch.randn(
+                layer.sla_proj.shape, generator=gen, device=DEV))
+    return cfg, params
+
+
+def _moe_cross_check(cfg, cparams, toks) -> dict:
+    """The prefill's last-position logits on the kernel against the gather
+    backend. Each backend plans its blocks and routes its tokens from its
+    own activations, so one ulp can flip a near-tied block or expert, and
+    a flipped expert (or a slot another flip pushed past capacity) moves
+    every later layer: that run is measured (logit difference, greedy
+    agreement, routing slots and plan blocks that differ from the kernel
+    run's), not held. The gather backend then runs again on the kernel
+    run's plans and routing, which isolates execution: held to 5e-2 x
+    max(1, max |logits|)."""
+    orig_route, orig_plan = moe_lib.route, plan_lib.plan_attention
+    rec = {"route": [], "plan": []}
+    seen = dict(route=0, plan=0, slots=0, blocks=0, first_layer=None)
+
+    def record_route(router, tokens, cfg_):
+        rec["route"].append(orig_route(router, tokens, cfg_))
+        return rec["route"][-1]
+
+    def record_plan(*a, **kw):
+        rec["plan"].append(orig_plan(*a, **kw))
+        return rec["plan"][-1]
+
+    def free_route(router, tokens, cfg_):
+        r = orig_route(router, tokens, cfg_)
+        want = rec["route"][seen["route"]]
+        differ = int((r["eidx"] != want["eidx"]).sum()
+                     + (r["keep"] != want["keep"]).sum())
+        if differ and seen["first_layer"] is None:
+            seen["first_layer"] = seen["route"]
+        seen["slots"] += differ
+        seen["route"] += 1
+        return r
+
+    def free_plan(*a, **kw):
+        p = orig_plan(*a, **kw)
+        seen["blocks"] += int((p.mc != rec["plan"][seen["plan"]].mc).sum())
+        seen["plan"] += 1
+        return p
+
+    def replay_route(router, tokens, cfg_):
+        return rec["route"].pop(0)
+
+    def replay_plan(*a, **kw):
+        return rec["plan"].pop(0)
+
+    logits = {}
+    try:
+        with torch.no_grad():
+            for run, backend, hooks in (
+                    ("kernel", "kernel", (record_route, record_plan)),
+                    ("free", "gather", (free_route, free_plan)),
+                    ("shared", "gather", (replay_route, replay_plan))):
+                moe_lib.route, plan_lib.plan_attention = hooks
+                x, _ = transformer.forward(cparams, cfg, toks,
+                                           backend=backend)
+                logits[run] = logits_from_hidden(cparams, x[:, -1])
+                del x
+    finally:
+        moe_lib.route, plan_lib.plan_attention = orig_route, orig_plan
+    if rec["route"] or rec["plan"]:
+        raise RuntimeError("the replayed gather run left recorded routing "
+                           "or plans unused")
+    want = logits.pop("kernel")
+    limit = LM_LOGIT_TOL * max(1.0, float(want.abs().max()))
+    out = dict(limit=limit, routing_slots_differ=seen["slots"],
+               first_layer_differ=seen["first_layer"],
+               plan_blocks_differ=seen["blocks"])
+    for run, got in logits.items():
+        out[run] = dict(diff=float((got - want).abs().max()),
+                        greedy_agreement=float(
+                            (got.argmax(-1) == want.argmax(-1)).float()
+                            .mean()))
+    say(f"[22 moe cross-check] prefill logits at the last position, kernel "
+        f"vs gather | each planning and routing by itself: max abs diff "
+        f"{out['free']['diff']:.3g}, greedy agreement "
+        f"{out['free']['greedy_agreement']:.2f}, {seen['slots']} routing "
+        f"entries (top-k experts and keep) differ from the kernel run's, "
+        f"first in layer {seen['first_layer']}, {seen['blocks']} plan blocks"
+        f" | gather on the kernel run's plans and routing: max abs diff "
+        f"{out['shared']['diff']:.3g} (limit {limit:.3g}) "
+        f"{'OK' if out['shared']['diff'] <= limit else 'FAIL'}, greedy "
+        f"agreement {out['shared']['greedy_agreement']:.2f}")
+    return out
+
+
+def phase_moe_serving(cfg, params, profile: bool):
+    """Phase 22: the static engine serving moonshot-v1-16b-a3b at full
+    width and depth with decode-time SLA on the kernel backend; kernel 4
+    against its twin on the path's decode state (group 1), kernel 1 on
+    the prefill's plans, and the prefill's logits kernel against gather.
+    Returns (summary, kernel-1 rows, kernel-4 rows)."""
+    nl, hkv = cfg.num_layers, cfg.num_kv_heads
+    g = cfg.num_heads // hkv
+    rs = np.random.default_rng(0)
+    reqs = [Request(rid=i, prompt=rs.integers(0, cfg.vocab_size, size=n)
+                    .astype(np.int32), max_new_tokens=MOE_NEW)
+            for i, n in enumerate(MOE_PROMPTS)]
+    engine = ServingEngine(cfg, params, batch_size=MOE_BATCH,
+                           max_len=MOE_MAX_LEN, backend="kernel",
+                           decode_sla=True)
+    last, plans, first = {}, [], {}
+    finite = torch.ones((), dtype=torch.bool, device=DEV)
+    run_prefill, decode_loop, one = (engine._run_prefill,
+                                     engine._decode_loop, engine._one)
+    drops = {"prefill": [], "decode": []}
+    orig_route, orig_plan = moe_lib.route, plan_lib.plan_attention
+
+    def route_hook(router, tokens, cfg_):
+        r = orig_route(router, tokens, cfg_)
+        kind = "decode" if tokens.shape[0] == MOE_BATCH else "prefill"
+        drops[kind].append(((~r["keep"]).sum(), r["cap"],
+                            r["keep"].numel()))
+        return r
+
+    def plan_hook(*a, **kw):
+        plan = orig_plan(*a, **kw)
+        plans.append(plan)
+        return plan
+
+    def prefill_hook(toks):
+        first["toks"] = toks
+        return run_prefill(toks)
+
+    def decode_loop_hook(p, token, cache, n):
+        token, cache, buf = decode_loop(p, token, cache, n)
+        last.update(token=token, cache=cache)
+        return token, cache, buf
+
+    def one_hook(p, token, cache):
+        logits, cache = one(p, token, cache)
+        finite.logical_and_(torch.isfinite(logits).all())
+        return logits, cache
+
+    engine._run_prefill, engine._decode_loop = prefill_hook, decode_loop_hook
+    engine._one = one_hook
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sla_decode.PAGED_LAUNCHES = sla_decode.LAUNCHES = sla_fwd.LAUNCHES = 0
+    sla_fwd.TC_LAUNCHES = 0
+    moe_lib.route, plan_lib.plan_attention = route_hook, plan_hook
+    t0 = time.time()
+    try:
+        done = engine.run(reqs)
+    finally:
+        moe_lib.route, plan_lib.plan_attention = orig_route, orig_plan
+    wall = time.time() - t0
+    launches = dict(sla_fwd=sla_fwd.LAUNCHES, tc_sla_fwd=sla_fwd.TC_LAUNCHES,
+                    sla_decode=sla_decode.LAUNCHES,
+                    sla_decode_paged=sla_decode.PAGED_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    st = engine.stats
+    steps = MOE_NEW - 1
+    want = dict(sla_fwd=nl, tc_sla_fwd=nl, sla_decode=nl * steps,
+                sla_decode_paged=0)
+    moe = {kind: dict(calls=len(v), cap=sorted({c for _, c, _ in v}),
+                      slots=sum(n for _, _, n in v),
+                      dropped=int(sum(int(d) for d, _, _ in v)))
+           for kind, v in drops.items()}
+    moe["prefill"]["dropped_by_layer"] = [int(d) for d, _, _ in
+                                          drops["prefill"]]
+    say(f"[22 moe serve] {MOE_ARCH} at full width and depth ({nl} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} / {hkv} heads of "
+        f"{cfg.head_dim}, {cfg.num_experts} experts top-"
+        f"{cfg.experts_per_token} of {cfg.moe_d_ff} + a shared expert, vocab "
+        f"{cfg.vocab_size}; bf16 weights, "
+        f"{sum(p.numel() for p in params.parameters()) / 1e9:.2f} B "
+        f"parameters), batch {MOE_BATCH}, prompts {MOE_PROMPTS} (bucket "
+        f"{engine._bucket}), max_len {MOE_MAX_LEN}, {MOE_NEW} new tokens, "
+        f"kernel backend, decode-SLA, in {wall:.2f}s | peak {peak:.2f} GiB")
+    say(f"  prefill {st.prefill_s:.3f}s ({MOE_BATCH} x {engine._bucket} "
+        f"tokens) | decode {st.decode_s:.3f}s for {steps} steps = "
+        f"{1e3 * st.decode_s / steps:.2f} ms a step | decode plans "
+        f"{st.decode_plan_builds} built, {st.decode_plan_extends} extended, "
+        f"{st.decode_plan_replans} re-planned, {st.decode_plan_reuses} "
+        f"reused")
+    say(f"  MoE calls, capacity and dropped (token, slot) pairs: {moe} | "
+        f"launches {launches} (expected {want}) | logits finite "
+        f"{bool(finite)} | tokens {[r.tokens_out[:6] for r in done]}")
+    bad = []
+    if [len(r.tokens_out) for r in done] != [MOE_NEW] * len(MOE_PROMPTS):
+        bad.append("a request did not finish with its tokens")
+    if not bool(finite):
+        bad.append("non-finite logits")
+    if launches != want:
+        bad.append(f"launches {launches}, expected {want}")
+    if (moe["prefill"]["calls"], moe["decode"]["calls"]) != (nl, nl * steps):
+        bad.append(f"MoE calls {moe}")
+    if bad:
+        raise RuntimeError("MoE serving phase failed: " + "; ".join(bad))
+    prof_res = None
+    cache, token = last["cache"], last["token"]
+    cparams = engine._cparams
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as prof_ctx
+        snap = _step_snapshot(cache, cfg.sla.block_kv)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            with torch.no_grad():
+                transformer.decode_step(cparams, cfg, token, cache,
+                                        backend="kernel",
+                                        drift_threshold=engine.
+                                        drift_threshold)
+            torch.cuda.synchronize()
+        _restore(cache, snap, cfg.sla.block_kv)
+        del snap
+        prof_res = _busy(prof, time.time() - t0)
+        k4_us, k4_n = _decode_kernel_time(prof.key_averages())
+        prof_res.update(decode_kernel_s=k4_us / 1e6, decode_launches=k4_n)
+        say(f"[22 moe profile] one decode step: {prof_res}")
+        say(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=20))
+    # kernel 4 against its twin on the path's live rows (group 1)
+    st_ = cache["sla"]
+    bkv = cfg.sla.block_kv
+    dcfg = cfg.sla.decode_plan_cfg(cache["k"].shape[-2] // bkv)
+    pos = cache["pos"] - 1
+    gen = torch.Generator(device=DEV).manual_seed(16)
+    dec_rows = []
+    for layer in (0, nl - 1):
+        state = {"k": cache["k"][layer], "v": cache["v"][layer],
+                 "hblk": st_["hblk"][layer], "zblk": st_["zblk"][layer],
+                 "htot": st_["htot"][layer], "ztot": st_["ztot"][layer],
+                 "lut": st_["live_lut"][layer], "cnt": st_["live_cnt"][layer],
+                 "marg": st_["live_marg"][layer]}
+        q = torch.randn((MOE_BATCH, cfg.num_heads, 1, cfg.head_dim),
+                        generator=gen, device=DEV)
+        proj = {"proj": cparams.layers[layer].sla_proj}
+        with torch.no_grad():
+            o_k = backend_lib.decode_execute(state, proj, q, pos, dcfg,
+                                             backend="kernel")
+            o_g = backend_lib.decode_execute(state, proj, q, pos, dcfg,
+                                             backend="gather")
+        err = float((o_k - o_g).abs().max())
+        limit = TWIN_TOL * max(1.0, float(o_g.abs().max()))
+        qg = backend_lib._group_heads(q[:, :, 0].float(), hkv)[..., None, :]
+        qpg = backend_lib._group_heads(phi_lib.phi(q[:, :, 0], cfg.sla.phi),
+                                       hkv)[..., None, :]
+        flat = sla_decode._flat_args(
+            *sla_decode.decode_operands(state, qg, qpg, pos), bkv)
+        kw = dict(scale=cfg.head_dim ** -0.5, block_kv=bkv, group=g)
+        say(f"[22 moe decode kernel] layer {layer} at pos {pos} (BH="
+            f"{flat[4].shape[0]}, BH_kv={flat[6].shape[0]}, group {g}): "
+            f"decode_execute kernel vs gather max abs err {err:.3g} (limit "
+            f"{limit:.3g}) {'OK' if err <= limit else 'FAIL'}")
+        row = _decode_case(flat, kw, f"sla_decode vs twin on layer {layer}'s"
+                           f" path LUTs (K/V bf16, group {g})")
+        row["ok"] = row["ok"] and err <= limit
+        dec_rows.append(dict(shape=f"moonshot path LUTs layer {layer}",
+                             dtype="bf16", c=1, pos=pos, group=g,
+                             backend_err=err, backend_limit=limit, **row))
+        del state, flat
+    last.clear()
+    del cache, token
+    gc.collect()
+    torch.cuda.empty_cache()
+    cross = _moe_cross_check(cfg, cparams, first["toks"])
+    diff, limit = cross["shared"]["diff"], cross["limit"]
+    # kernel 1 against its twin on the prefill's layer-0 plans
+    fwd_rows = []
+    n, d, h = engine._bucket, cfg.head_dim, cfg.num_heads
+    q = torch.randn((MOE_BATCH, h, n, d), generator=gen, device=DEV)
+    k, v = (plan_lib.repeat_kv(torch.randn(
+        (MOE_BATCH, hkv, n, d), generator=gen, device=DEV), h)
+        for _ in range(2))  # as the kernel backend gives them (group 1)
+    plan = plans[0]
+    args, kw, _ = _operands(cfg.sla, q, k, v, plan.marginal, plan.lut,
+                            plan.counts, torch.bfloat16, causal=True)
+    c = _fwd_check(args, kw, "moonshot prefill layer 0")
+    ms = cuda_ms(lambda: sla_fwd.sla_fwd(*args, **kw), 10)
+    plain_ms = cuda_ms(lambda: sla_fwd.sla_fwd_plain(*args, **kw), 2,
+                       warmup=1)
+    bound_ms, bound_by, _, _, live = _bound(args, kw)
+    say(f"[22 moe prefill plans] sla_fwd moonshot prefill layer 0 bf16 "
+        f"causal (BH={args[2].shape[0]}, BH_kv={args[3].shape[0]}, N={n}, "
+        f"K={args[0].shape[-1]}, live tiles {live} of {args[0].numel()}): "
+        f"{_fwd_text(c)} | kernel {ms:.3f} ms | bound {bound_ms:.3f} ms by "
+        f"{bound_by} ({bound_ms / ms:.1%} of it) | plain twin "
+        f"{plain_ms:.3f} ms")
+    fwd_rows.append(dict(shape="moonshot prefill layer 0 plans",
+                         dtype="bf16", live_tiles=live, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, bound_fraction=bound_ms / ms, **c))
+    del args, q, k, v, plans[:]
+    torch.cuda.empty_cache()
+    if diff > limit or not np.isfinite(diff):
+        bad.append(f"prefill logits kernel vs gather {diff} > {limit}")
+    bad += [f"sla_decode {r['shape']}" for r in dec_rows if not r["ok"]]
+    bad += [f"sla_fwd {r['shape']}" for r in fwd_rows if not r["ok"]]
+    if bad:
+        raise RuntimeError("MoE serving checks failed: " + "; ".join(bad))
+    summary = dict(wall_s=wall, peak_gib=peak, prefill_s=st.prefill_s,
+                   decode_s=st.decode_s,
+                   decode_ms_per_step=1e3 * st.decode_s / steps,
+                   launches=launches, moe=moe, cross_check=cross,
+                   profile=prof_res)
+    return summary, fwd_rows, dec_rows
+
+
 def _tensors(x):
     if torch.is_tensor(x):
         yield x
@@ -4155,8 +4739,10 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also run torch.profiler over one full-width "
                          "forward, one full-width training step, 8 "
-                         "full-width LM decode steps and one full-width LM "
-                         "prefill and print the top device-time entries")
+                         "full-width LM decode steps, one full-width LM "
+                         "prefill, 8 paged decode steps, one full-width LM "
+                         "training step and one MoE decode step and print "
+                         "the top device-time entries")
     args = ap.parse_args(argv)
     t_all = time.time()
     phase_card()
@@ -4211,6 +4797,25 @@ def main(argv=None) -> int:
     dgc = {key: sum(dg["counters"][run][key]
                     for run in ("healthy", "faulted"))
            for key in dg["counters"]["healthy"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    lt, lt_fwd_rows, lt_bwd_rows = phase_lm_train(lm_cfg, lm_params,
+                                                  args.profile)
+    rows += lt_fwd_rows
+    bwd_rows += lt_bwd_rows
+    ltc = lt["launches"]
+    del lm_cfg, lm_params  # the MoE model needs 56 GB of the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_cfg, moe_params = _moe_model(seed=0)
+    moe, moe_fwd_rows, moe_dec_rows = phase_moe_serving(moe_cfg, moe_params,
+                                                        args.profile)
+    rows += moe_fwd_rows
+    dec_rows += moe_dec_rows
+    moec = moe["launches"]
+    del moe_cfg, moe_params
+    gc.collect()
+    torch.cuda.empty_cache()
     def row(shape, dtype, route):
         return next(r for r in rows if r["shape"] == shape
                     and r["dtype"] == dtype and r["route"] == route)
@@ -4233,12 +4838,12 @@ def main(argv=None) -> int:
     # compiled flex_attention's forward on the same inputs and LUT (phase
     # 7): O^s and L only, no linear branch, so not the kernel's function
     flex16 = wan_tc["sla_bwd_dq"].get("library_fwd_ms")
-    say(f"[21] sla_fwd at the Wan bf16 case (tensor cores): "
+    say(f"[23] sla_fwd at the Wan bf16 case (tensor cores): "
         f"{wan16['ms']:.3f} ms against its bound {wan16['bound_ms']:.3f} ms "
         f"({wan16['bound_fraction']:.1%}) | compiled flex_attention forward "
         f"on the same LUT (O^s and L only, lacks O^l): "
         + (f"{flex16:.3f} ms" if flex16 is not None else "not measured"))
-    say(f"[21] sla_fwd at the Wan f32 case: split route {wan32['ms']:.3f} ms "
+    say(f"[23] sla_fwd at the Wan f32 case: split route {wan32['ms']:.3f} ms "
         f"against its bound {wan32['bound_ms']:.3f} ms "
         f"({wan32['bound_fraction']:.1%}; the f32-FMA bound "
         f"{wan32['bound_ms_f32_fma']:.3f} ms) | f32-FMA kernel "
@@ -4257,7 +4862,9 @@ def main(argv=None) -> int:
                 "lm_paged_prefill": pgc["tc_sla_fwd"],
                 "lm_unpaged_prefill": puc["tc_sla_fwd"],
                 "lm_chunked_prefill": pcc["tc_sla_fwd"],
-                "lm_disagg": dgc["tc_sla_fwd"]}
+                "lm_disagg": dgc["tc_sla_fwd"],
+                "lm_train": ltc["tc_sla_fwd"],
+                "moe_prefill": moec["tc_sla_fwd"]}
     # the other paths compute in bf16: every launch there is a tensor-core
     # one (phases 9, 12, 15, 17 check), so none is on the split route
     split_paths = {"serve": main_run["split_launches"],
@@ -4265,7 +4872,7 @@ def main(argv=None) -> int:
                    "train": 0,
                    "lm_prefill": 0, "lm_paged_prefill": 0,
                    "lm_unpaged_prefill": 0, "lm_chunked_prefill": 0,
-                   "lm_disagg": 0}
+                   "lm_disagg": 0, "lm_train": 0, "moe_prefill": 0}
     kernels = [{
         "name": "sla_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sla_fwd_split.cu",
@@ -4273,7 +4880,8 @@ def main(argv=None) -> int:
         "launches": (main_run["launches"] + pc_launches["launches"]
                      + train["launches"]["sla_fwd"]
                      + lm["launches"]["sla_fwd"] + pgc["sla_fwd"]
-                     + puc["sla_fwd"] + pcc["sla_fwd"] + dgc["sla_fwd"]),
+                     + puc["sla_fwd"] + pcc["sla_fwd"] + dgc["sla_fwd"]
+                     + ltc["sla_fwd"] + moec["sla_fwd"]),
         "launches_by_path": {"serve": main_run["launches"],
                              "serve_plan_cache": pc_launches["launches"],
                              "train": train["launches"]["sla_fwd"],
@@ -4281,7 +4889,9 @@ def main(argv=None) -> int:
                              "lm_paged_prefill": pgc["sla_fwd"],
                              "lm_unpaged_prefill": puc["sla_fwd"],
                              "lm_chunked_prefill": pcc["sla_fwd"],
-                             "lm_disagg": dgc["sla_fwd"]},
+                             "lm_disagg": dgc["sla_fwd"],
+                             "lm_train": ltc["sla_fwd"],
+                             "moe_prefill": moec["sla_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in fwd_split),
         "ms": wan32["ms"], "plain_ms": wan32["plain_ms"],
         "bound_ms": wan32["bound_ms"], "bound_by": wan32["bound_by"],
@@ -4351,7 +4961,9 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sla_bwd.cu",
             "replaces": f"src/repro/kernels/sla_bwd.py:{line}",
-            "launches": train["launches"][name],
+            "launches": train["launches"][name] + ltc[name],
+            "launches_by_path": {"train": train["launches"][name],
+                                 "lm_train": ltc[name]},
             "max_abs_err": max(r["max_abs_err"] for r in mine
                                if r["route"] == F32_ROUTE),
             "ms": wan["ms"], "plain_ms": wan["plain_ms"],
@@ -4363,7 +4975,8 @@ def main(argv=None) -> int:
             "dense_sdpa_bwd_ms": wan["dense_sdpa_bwd_ms"],
             "route_bf16": TC_ROUTE,
             "source_bf16": "src/repro_torch/kernels/csrc/sla_bwd_tc.cu",
-            "tc_launches": train["launches"][f"tc_{name}"],
+            "tc_launches": (train["launches"][f"tc_{name}"]
+                            + ltc[f"tc_{name}"]),
             "ms_bf16": tc["ms"], "plain_ms_bf16": tc["plain_ms"],
             "bound_ms_bf16": tc["bound_ms"],
             "bound_by_bf16": tc["bound_by"],
@@ -4386,12 +4999,13 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/sla_decode.py:52",
         "launches": (lm["launches"]["sla_decode"] + pgc["sla_decode"]
                      + puc["sla_decode"] + sum(dchunk["launches"])
-                     + dgc["sla_decode"]),
+                     + dgc["sla_decode"] + moec["sla_decode"]),
         "launches_by_path": {"lm_decode": lm["launches"]["sla_decode"],
                              "lm_paged_decode": pgc["sla_decode"],
                              "lm_unpaged_decode": puc["sla_decode"],
                              "lm_decode_chunk": sum(dchunk["launches"]),
-                             "lm_disagg": dgc["sla_decode"]},
+                             "lm_disagg": dgc["sla_decode"],
+                             "moe_decode": moec["sla_decode"]},
         "max_abs_err": max(r["max_abs_err"] for r in dec_rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -4413,12 +5027,14 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/sla_decode.py:181",
         "launches": (lm["launches"]["sla_decode_paged"]
                      + pgc["sla_decode_paged"] + puc["sla_decode_paged"]
-                     + pcc["sla_decode_paged"] + dgc["sla_decode_paged"]),
+                     + pcc["sla_decode_paged"] + dgc["sla_decode_paged"]
+                     + moec["sla_decode_paged"]),
         "launches_by_path": {"lm_decode": lm["launches"]["sla_decode_paged"],
                              "lm_paged_decode": pgc["sla_decode_paged"],
                              "lm_unpaged_decode": puc["sla_decode_paged"],
                              "lm_chunked_decode": pcc["sla_decode_paged"],
-                             "lm_disagg": dgc["sla_decode_paged"]},
+                             "lm_disagg": dgc["sla_decode_paged"],
+                             "moe_decode": moec["sla_decode_paged"]},
         "max_abs_err": max(r["max_abs_err"] for r in pg_rows),
         "ms": head5["ms"], "plain_ms": head5["plain_ms"],
         "bound_ms": head5["bound_ms"], "bound_by": head5["bound_by"],
@@ -4431,12 +5047,12 @@ def main(argv=None) -> int:
         **{key: head5[key] for key in split_keys},
         "cases": pg_rows,
     })
-    say(f"[21] main path {main_run} | cross-check {cross} | plan cache "
+    say(f"[23] main path {main_run} | cross-check {cross} | plan cache "
         f"{pcache} | grads {grads} | "
         f"train {train} | train CLI {cli} | lm {lm} | lm cross-check "
         f"{lm_cross} | paged lm {pg} | unpaged mixed {pu} | chunked "
-        f"admission {pc} | decode_chunk {dchunk} | disagg {dg} | total "
-        f"{time.time() - t_all:.1f}s")
+        f"admission {pc} | decode_chunk {dchunk} | disagg {dg} | lm train "
+        f"{lt} | moe serve {moe} | total {time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

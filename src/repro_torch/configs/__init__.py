@@ -1,7 +1,8 @@
 """Config registry: --arch <id> resolution.
 
-The DiT configs and qwen3-1.7b are ported; asking for any other arch of
-the JAX registry raises and names the ROADMAP item that ports its family.
+The DiT configs, qwen3-1.7b and the two MoE configs are ported; asking
+for any other arch of the JAX registry raises and names the ROADMAP item
+that ports its family.
 """
 from repro_torch.configs.base import (DIT_SHAPES, SHAPES, SMOKE_SHAPES,
                                       ArchConfig, ShapeConfig)
@@ -10,6 +11,8 @@ _ARCH_MODULES = {
     "wan2_1_1_3b": "wan2_1_1_3b",
     "lightningdit_1b": "lightningdit_1b",
     "qwen3-1.7b": "qwen3_1_7b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
 }
 
 # arch -> the ROADMAP.md queue-1 item that ports its model family
@@ -20,8 +23,6 @@ _NOT_YET_PORTED = {
     "zamba2-1.2b": 15,
     "rwkv6-7b": 15,
     "whisper-small": 15,
-    "moonshot-v1-16b-a3b": 15,
-    "llama4-maverick-400b-a17b": 15,
     "internvl2-1b": 15,
 }
 

@@ -1,6 +1,7 @@
-"""The train step. Counterpart of `repro.launch.steps`, train half
-(`cast_params_bf16`, `make_train_step`); the prefill and serve steps
-arrive with the LM slice.
+"""The train step of every ported family (DiT, dense and MoE LMs).
+Counterpart of `repro.launch.steps`, train half (`cast_params_bf16`,
+`make_train_step`); the prefill and serve steps, which only the dry run
+calls, are not ported (ROADMAP.md queue 1, item 16).
 """
 from __future__ import annotations
 
@@ -21,8 +22,9 @@ def cast_params_bf16(params: nn.Module):
     optimizer path). Returns the module's parameter tree with every f32
     tensor cast, as plain tensors that the model's `forward` reads like
     the module itself: attributes per module, a list for a ModuleList, a
-    dict for a ParameterDict. The casts are differentiable, so gradients
-    land on the f32 masters."""
+    dict for a ParameterDict; submodules (an LM layer's `moe`, router
+    included, as the reference casts every f32 leaf) recurse. The casts
+    are differentiable, so gradients land on the f32 masters."""
     def cast(t):
         return t.to(torch.bfloat16) if t.dtype == torch.float32 else t
 

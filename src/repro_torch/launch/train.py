@@ -1,13 +1,17 @@
-"""Training CLI of the port, DiT path.
+"""Training CLI of the port: DiT, dense and MoE LM families.
 
     python -m repro_torch.launch.train --arch wan2_1_1_3b --shape train_4k
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
+        --smoke --steps 3 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch lightningdit_1b \
         --smoke --distill --routing-mode learned --train-only routing,sla_proj \
         --routing-warm-init --steps 3 --device cpu
 
-Counterpart of `repro.launch.train` for the DiT family: config ->
-seeded params -> deterministic latent batches -> loss and gradient under
-per-layer remat -> AdamW (optionally on a `--train-only` subset) ->
+Counterpart of `repro.launch.train`: config -> seeded params ->
+deterministic batches (latents for a DiT, Markov-chain tokens for an LM)
+-> the family's loss (flow matching or next-token cross-entropy, or with
+`--distill` its distillation loss) and gradient under per-layer remat ->
+AdamW (optionally on a `--train-only` subset) ->
 straggler watchdog + NaN guard. The loss keeps the reference's default
 backend ("gather"). `--device` (default cuda) chooses the device; 'cpu'
 runs the kernels' plain twins. Checkpointing (`--ckpt-dir`), gradient

@@ -85,14 +85,89 @@ def attention(sla_params: Optional[dict], q: torch.Tensor, k: torch.Tensor,
     raise ValueError(f"unknown attention kind {kind!r}")
 
 
+def output_table(params) -> torch.Tensor:
+    """The LM's output table: `unembed`, or the tied `embed` when there is
+    none. `params` is the model module or a tree of its tensors."""
+    table = getattr(params, "unembed", None)
+    return params.embed if table is None else table
+
+
 def logits_from_hidden(params, hidden: torch.Tensor) -> torch.Tensor:
     """Unembed final hidden states: (..., D) -> (..., V) f32 logits over
-    the `unembed` table, or the tied `embed` table when there is none.
-    `params` is the model module or its compute copy."""
-    table = getattr(params, "unembed", None)
-    if table is None:
-        table = params.embed
-    return hidden.float() @ table.float().t()
+    `output_table(params)`."""
+    return hidden.float() @ output_table(params).float().t()
+
+
+class _ChunkedXent(torch.autograd.Function):
+    """Sum over rows of mask * (logsumexp(logits) - logits[target]), with
+    f32 logits = x @ table^T built one (B, chunk, V) chunk at a time. The
+    forward keeps only each row's logsumexp; the backward rebuilds each
+    chunk's logits from it, so peak logits memory stays one chunk (and its
+    gradient) both ways."""
+
+    @staticmethod
+    def forward(ctx, x, table, targets, mask, chunk: int):
+        b, s, _ = x.shape
+        t32 = table.float()
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        lse = torch.empty((b, s), dtype=torch.float32, device=x.device)
+        for c0 in range(0, s, chunk):
+            rows = slice(c0, c0 + chunk)
+            logits = x[:, rows].float() @ t32.t()
+            lse[:, rows] = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, targets[:, rows, None])[..., 0]
+            total = total + ((lse[:, rows] - gold) * mask[:, rows]).sum()
+            del logits
+        ctx.save_for_backward(x, table, targets, mask, lse)
+        ctx.chunk = chunk
+        return total
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, table, targets, mask, lse = ctx.saved_tensors
+        want_x, want_t = ctx.needs_input_grad[:2]
+        t32 = table.float()
+        dx = torch.empty_like(x) if want_x else None
+        dt = torch.zeros_like(t32) if want_t else None
+        for c0 in range(0, x.shape[1], ctx.chunk):
+            rows = slice(c0, c0 + ctx.chunk)
+            xi = x[:, rows].float()
+            # d(lse - gold) / d logits = softmax - onehot(target)
+            dlog = (xi @ t32.t()).sub_(lse[:, rows, None]).exp_()
+            dlog.scatter_add_(-1, targets[:, rows, None],
+                              -torch.ones_like(lse[:, rows, None]))
+            dlog.mul_((grad * mask[:, rows])[..., None])
+            if want_x:
+                dx[:, rows] = (dlog @ t32).to(x.dtype)
+            if want_t:
+                dt += dlog.reshape(-1, dlog.shape[-1]).t() @ xi.reshape(
+                    -1, xi.shape[-1])
+            del dlog
+        return (dx, dt.to(table.dtype) if want_t else None, None, None,
+                None)
+
+
+def chunked_softmax_xent(x: torch.Tensor, embed: torch.Tensor,
+                         targets: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None,
+                         chunk: int = 512) -> torch.Tensor:
+    """Cross-entropy without materializing full (B, S, V) logits.
+
+    x: final hidden states (B, S, D); embed: (V, D) output table; targets:
+    (B, S) integer. f32 logits over the f32-cast table, one (B, chunk, V)
+    chunk at a time, forward and backward (each chunk's logits are built
+    again from its rows' logsumexp), so peak logits memory is (B, chunk,
+    V). The chunk is the largest size <= `chunk` that divides S, as in
+    the reference. Returns the mean over the rows `mask` keeps (all rows
+    without a mask)."""
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk -= 1
+    m = (torch.ones((b, s), dtype=torch.float32, device=x.device)
+         if mask is None else mask.float())
+    total = _ChunkedXent.apply(x, embed, targets.long(), m, chunk)
+    return total / torch.clamp(m.sum(), min=1.0)
 
 
 def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

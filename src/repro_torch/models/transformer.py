@@ -1,7 +1,8 @@
-"""Decoder-only transformer LM (dense family): the part LM serving needs.
+"""Decoder-only transformer LM (dense and MoE families).
 
 Counterpart of `repro.models.transformer`: `init`, `forward` (with plan
-reuse and decode-plan seeding), `prefill`, the dense and decode-time SLA
+reuse, decode-plan seeding and per-layer remat), the training losses
+`loss_fn` and `distill_loss_fn`, `prefill`, the dense and decode-time SLA
 `decode_step`, and the decode caches of serving: the monolithic static
 cache with one position shared by the batch, the per-slot cache of
 continuous batching (`make_cache(per_slot=True)`, `insert_slot`), and
@@ -23,13 +24,15 @@ not a select, and no step syncs the stream. decode_step returns the same
 cache dict, advanced by one token. Chunked admission prefill
 (`prefill_chunk` over a carry, `finalize_chunked_prefill`) and
 verify-style multi-token decode (`decode_chunk`) update their carry and
-cache in place too. Not ported yet: MoE FFNs (ROADMAP.md queue 1, item
-13) and sliding-window and VLM layers (item 15); each raises and names
-its item.
+cache in place too. An MoE layer (`cfg.num_experts`) holds its FFN in a
+`moe` submodule (`models/moe.py`) in place of `mlp_wi` / `mlp_wo`. Not
+ported yet: sliding-window and VLM layers (ROADMAP.md queue 1, item 15);
+each raises and names its item.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import types
 from typing import Optional, Tuple
 
@@ -45,13 +48,20 @@ from repro_torch.core import masks as masks_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core.phi import phi
 from repro_torch.core.plan import repeat_kv
-from repro_torch.models.common import (attention, dense_init, embed_init,
-                                       logits_from_hidden, rms_norm, rope)
+from repro_torch.distributed import ctx
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.common import (attention, chunked_softmax_xent,
+                                       dense_init, embed_init,
+                                       logits_from_hidden, mse_loss,
+                                       output_table, rms_norm, rope)
 
 KIND_SLA, KIND_FULL, KIND_SWA = 0, 1, 2
 NEG_INF = masks_lib.NEG_INF
-# the weights the reference casts to the compute dtype inside each matmul
+# the weights the reference casts to the compute dtype inside each matmul:
+# a layer's own (the dense FFN's where it has one), then its MoE FFN's
+# experts; the MoE router is read in f32
 MATMUL_WEIGHTS = ("wq", "wk", "wv", "wo", "mlp_wi", "mlp_wo")
+MOE_MATMUL_WEIGHTS = ("wi", "wo", "shared_wi", "shared_wo")
 
 
 def _not_ported(what: str, item: int):
@@ -85,8 +95,6 @@ class TransformerLayer(nn.Module):
     def __init__(self, cfg: ArchConfig, generator=None, dtype=torch.float32,
                  device=None):
         super().__init__()
-        if cfg.num_experts:
-            raise _not_ported("the MoE FFN", 13)
         d, h, hkv, dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                          cfg.head_dim)
 
@@ -107,8 +115,11 @@ class TransformerLayer(nn.Module):
                 {name: nn.Parameter(w) for name, w in r.items()})
         if cfg.qk_norm:
             self.qnorm, self.knorm = zeros(dh), zeros(dh)
-        self.mlp_wi = dense(d, 2 * cfg.d_ff)
-        self.mlp_wo = dense(cfg.d_ff, d)
+        if cfg.num_experts:
+            self.moe = moe_lib.moe_init(generator, cfg, dtype, device)
+        else:
+            self.mlp_wi = dense(d, 2 * cfg.d_ff)
+            self.mlp_wo = dense(cfg.d_ff, d)
 
 
 class Transformer(nn.Module):
@@ -144,21 +155,29 @@ def init(generator: Optional[torch.Generator], cfg: ArchConfig,
 
 def compute_params(params: Transformer, dtype=torch.bfloat16):
     """The parameters as the forward reads them in `dtype` compute: the
-    matmul weights (MATMUL_WEIGHTS) cast once, everything the reference
-    reads in f32 (norms, sla_proj, routing, the embedding table) as it
+    matmul weights (MATMUL_WEIGHTS, and an MoE layer's expert weights
+    MOE_MATMUL_WEIGHTS) cast once, everything the reference reads in f32
+    (norms, sla_proj, routing, the MoE router, the embedding table) as it
     is. Casting once equals the reference's per-matmul cast and saves a
     cast of every weight per call. Returns a tree of plain tensors (no
     gradient) that `forward`, `prefill` and `decode_step` read like the
     module."""
+    def cast(module, names):
+        tree = types.SimpleNamespace(**{
+            name: t.detach() for name, t in module.named_parameters(
+                recurse=False)})
+        for name in names:
+            if hasattr(tree, name):
+                setattr(tree, name, getattr(tree, name).to(dtype))
+        return tree
+
     layers = []
     for p in params.layers:
-        tree = types.SimpleNamespace(**{
-            name: t.detach() for name, t in p.named_parameters(
-                recurse=False)})
-        for name in MATMUL_WEIGHTS:
-            setattr(tree, name, getattr(tree, name).to(dtype))
+        tree = cast(p, MATMUL_WEIGHTS)
         if hasattr(p, "routing"):
             tree.routing = {n: w.detach() for n, w in p.routing.items()}
+        if hasattr(p, "moe"):
+            tree.moe = cast(p.moe, MOE_MATMUL_WEIGHTS)
         layers.append(tree)
     return types.SimpleNamespace(
         layers=layers, embed=params.embed.detach(),
@@ -192,36 +211,61 @@ def _qkv(p, x, cfg: ArchConfig, positions):
     return q, k, v
 
 
-def _attn(p, x, kind, cfg: ArchConfig, positions, backend, layer_plan=None,
-          drift_threshold=None, want_plan=False, decode_plan_cfg=None):
-    """Returns (attn_out (B,S,d), k, v, plan, retention, replanned,
-    decode_mc). `want_plan` plans inline and returns the plan; a given
-    `layer_plan` is reused, refreshed when its drift reaches
+def _plan_layer(q, k, sla_cfg, routing, layer_plan, drift_threshold,
+                plan: bool, decode_plan_cfg) -> dict:
+    """One layer's block structure: {"plan", "retention", "replanned",
+    "decode_mc"}. `plan` plans inline when no `layer_plan` is given; a
+    given one is reused, refreshed when its drift reaches
     `drift_threshold` (this layer's scalar). `decode_plan_cfg` also
-    returns the prompt's decode-grid classification (the rows that seed
-    the decode plan)."""
+    classifies the prompt on the decode grid (the rows that seed the
+    decode plan)."""
+    dev = q.device
+    out = dict(retention=torch.ones((), dtype=torch.float32, device=dev),
+               replanned=torch.zeros((), dtype=torch.bool, device=dev),
+               decode_mc=None, plan=layer_plan)
+    if decode_plan_cfg is not None:
+        out["decode_mc"] = masks_lib.compute_mask(
+            q, repeat_kv(k, q.shape[1]), decode_plan_cfg, routing=routing)
+    plan_cfg = dataclasses.replace(sla_cfg, causal=True)
+    if layer_plan is None and plan:
+        out["plan"] = plan_lib.plan_attention(q, k, plan_cfg,
+                                              routing=routing)
+    elif layer_plan is not None and drift_threshold is not None:
+        out["plan"], out["retention"], out["replanned"] = \
+            plan_lib.refresh_plan(layer_plan, q, k, plan_cfg,
+                                  drift_threshold, routing=routing)
+    return out
+
+
+def _attn(p, x, kind, cfg: ArchConfig, positions, backend, kept: dict,
+          layer_plan=None, drift_threshold=None, want_plan=False,
+          decode_plan_cfg=None) -> torch.Tensor:
+    """Returns the attention block's output (B, S, d). Its first call (an
+    empty `kept`) builds the layer's block structure (`_plan_layer`: an
+    SLA layer's plan whenever `want_plan` or its mode needs one) and keeps
+    it in `kept` with the layer's k and v; a rematerializing recompute
+    finds it there and attends over the same blocks without planning
+    again."""
     b, s, _ = x.shape
-    dev = x.device
     q, k, v = _qkv(p, x, cfg, positions)
     sla_cfg = cfg.sla
     if cfg.sliding_window:
         sla_cfg = dataclasses.replace(sla_cfg, window=cfg.sliding_window)
     routing = _routing(p, sla_cfg)
-    retention = torch.ones((), dtype=torch.float32, device=dev)
-    replanned = torch.zeros((), dtype=torch.bool, device=dev)
-    decode_mc = None
-    if decode_plan_cfg is not None:
-        decode_mc = masks_lib.compute_mask(q, repeat_kv(k, q.shape[1]),
-                                           decode_plan_cfg, routing=routing)
-    if want_plan or layer_plan is not None:
-        plan_cfg = dataclasses.replace(sla_cfg, causal=True)
-        if layer_plan is None:
-            layer_plan = plan_lib.plan_attention(q, k, plan_cfg,
-                                                 routing=routing)
-        elif drift_threshold is not None:
-            layer_plan, retention, replanned = plan_lib.refresh_plan(
-                layer_plan, q, k, plan_cfg, drift_threshold,
-                routing=routing)
+    if "plan" not in kept:
+        plan_needed = kind == KIND_SLA and sla_cfg.mode not in (
+            "full", "linear_only")
+        # Tensors the planning ops save for the backward (the learned
+        # router's straight-through gates) stay out of a remat checkpoint,
+        # whose recompute does not plan again.
+        with torch.autograd.graph.saved_tensors_hooks(
+                lambda t: t.detach(), lambda t: t):
+            kept.update(_plan_layer(q, k, sla_cfg, routing, layer_plan,
+                                    drift_threshold,
+                                    want_plan or plan_needed,
+                                    decode_plan_cfg))
+        kept["k"], kept["v"] = k, v
+    layer_plan = kept["plan"]
     if kind == KIND_SLA:
         out = attention({"proj": p.sla_proj}, q, k, v, "sla", sla_cfg,
                         causal=True, backend=backend, plan=layer_plan,
@@ -230,13 +274,12 @@ def _attn(p, x, kind, cfg: ArchConfig, positions, backend, layer_plan=None,
         out = attention(None, q, k, v, "full", sla_cfg, causal=True)
     else:
         out = attention(None, q, k, v, "swa", sla_cfg, causal=True)
-    out = out.transpose(1, 2).reshape(b, s, -1) @ p.wo.to(x.dtype)
-    return out, k, v, layer_plan, retention, replanned, decode_mc
+    return out.transpose(1, 2).reshape(b, s, -1) @ p.wo.to(x.dtype)
 
 
 def _ffn(p, x, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     if cfg.num_experts:
-        raise _not_ported("the MoE FFN", 13)
+        return moe_lib.moe_apply(p.moe, x, cfg)
     g, u = (x @ p.mlp_wi.to(x.dtype)).chunk(2, dim=-1)
     out = (F.silu(g) * u) @ p.mlp_wo.to(x.dtype)
     return out, torch.zeros((), dtype=torch.float32, device=x.device)
@@ -262,10 +305,16 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     `cache_len` (with return_cache) allocates the caches at that length,
     zero past the prompt, as `prefill(decode_max_len=)` needs them.
     Return order: (x, aux[, (k, v)][, plans][, decode_mcs][, drift info]).
+
+    Under `distributed.ctx.activation_sharding(remat=True)` with autograd
+    recording, each layer is rematerialized (`ctx.maybe_remat`, the
+    reference's remat of its layer scan); its block structure is built
+    once, outside the recompute.
     """
     if prefix_embeds is not None:
         raise _not_ported("the VLM prefix embeddings", 15)
-    x = params.embed[tokens].to(compute_dtype)
+    # F.embedding: its backward is deterministic, an index's is not
+    x = F.embedding(tokens, params.embed).to(compute_dtype)
     b, s, _ = x.shape
     dev = x.device
     positions = torch.arange(s, device=dev)[None, :].expand(b, s)
@@ -282,31 +331,38 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
         make = torch.zeros if length > s else torch.empty
         kc = make(shape, dtype=compute_dtype, device=dev)
         vc = make(shape, dtype=compute_dtype, device=dev)
+
+    def layer(x, p, kind, given, thr, kept):
+        a = _attn(p, rms_norm(x, p.ln1), kind, cfg, positions, backend,
+                  kept, layer_plan=given, drift_threshold=thr,
+                  want_plan=want_plan, decode_plan_cfg=decode_plan_cfg)
+        x = x + a
+        f, layer_aux = _ffn(p, rms_norm(x, p.ln2), cfg)
+        return x + f, layer_aux
+
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     out_plans, dmcs, rets, reps = [], [], [], []
     for li, p in enumerate(params.layers):
         given = (None if plans is None
                  else plan_lib.plan_map(lambda leaf: leaf[li], plans))
-        a, k, v, layer_plan, ret, rep, dmc = _attn(
-            p, rms_norm(x, p.ln1), kinds[li], cfg, positions, backend,
-            layer_plan=given,
-            drift_threshold=thresholds[li] if adaptive else None,
-            want_plan=want_plan, decode_plan_cfg=decode_plan_cfg)
-        x = x + a
-        f, layer_aux = _ffn(p, rms_norm(x, p.ln2), cfg)
-        x = x + f
+        kept = {}
+        x, layer_aux = ctx.maybe_remat(functools.partial(
+            layer, p=p, kind=kinds[li], given=given,
+            thr=thresholds[li] if adaptive else None, kept=kept))(x)
         aux = aux + layer_aux
+        # popped: a remat checkpoint holds `kept` until the backward
+        k, v = kept.pop("k"), kept.pop("v")
         if return_cache:
             kc[li, :, :, :s] = k
             vc[li, :, :, :s] = v
         if return_plans:
-            out_plans.append(layer_plan)
+            out_plans.append(kept["plan"])
         if decode_plan_cfg is not None:
-            dmcs.append(dmc)
+            dmcs.append(kept["decode_mc"])
         if adaptive:
-            rets.append(ret)
-            reps.append(rep)
-        del a, k, v, f  # free this layer's activations before the next
+            rets.append(kept["retention"])
+            reps.append(kept["replanned"])
+        del k, v  # free this layer's k and v before the next
     x = rms_norm(x, params.ln_f)
     result = (x, aux)
     if return_cache:
@@ -320,6 +376,45 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
         result += ({"retention": torch.stack(rets),
                     "replanned": torch.stack(reps)},)
     return result
+
+
+def loss_fn(params, cfg: ArchConfig, batch: dict,
+            compute_dtype=torch.bfloat16, backend: str = "gather"
+            ) -> torch.Tensor:
+    """Next-token cross-entropy over the `unembed` table (the tied `embed`
+    without one), plus 0.01 x the MoE aux loss. batch: `tokens`,
+    `targets` (B, S) integer tensors and an optional `mask`. `params` is
+    the Transformer module or a tree of its tensors with the same
+    attributes (`launch.steps.cast_params_bf16`)."""
+    x, aux = forward(params, cfg, batch["tokens"],
+                     prefix_embeds=batch.get("patch_embeds"),
+                     compute_dtype=compute_dtype, backend=backend)
+    loss = chunked_softmax_xent(x, output_table(params), batch["targets"],
+                                batch.get("mask"))
+    return loss + 0.01 * aux
+
+
+def distill_loss_fn(params, cfg: ArchConfig, batch: dict,
+                    compute_dtype=torch.bfloat16, backend: str = "gather"
+                    ) -> torch.Tensor:
+    """End-to-end distillation (the paper's fine-tuning objective, Sec.
+    5): MSE between the SLA student's final hidden states and an
+    exact-attention teacher running the same params, plus 0.01 x the
+    student's MoE aux loss. The teacher (`mode="full"`, threshold
+    routing) runs under `torch.no_grad()`, the reference's
+    stop_gradient. Routing parameters get their straight-through
+    gradients only on the autodiff backends ("gather", "reference"): the
+    kernel backend treats the plan as a constant."""
+    tcfg = dataclasses.replace(
+        cfg, sla=cfg.sla.replace(mode="full", routing_mode="threshold"))
+    with torch.no_grad():
+        x_t, _ = forward(params, tcfg, batch["tokens"],
+                         prefix_embeds=batch.get("patch_embeds"),
+                         compute_dtype=compute_dtype, backend=backend)
+    x_s, aux = forward(params, cfg, batch["tokens"],
+                       prefix_embeds=batch.get("patch_embeds"),
+                       compute_dtype=compute_dtype, backend=backend)
+    return mse_loss(x_s, x_t) + 0.01 * aux
 
 
 # --------------------------------------------------------------------------

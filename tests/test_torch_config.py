@@ -10,7 +10,8 @@ from repro.core.config import SLAConfig as JaxSLAConfig
 from repro_torch.configs import get_arch
 from repro_torch.core.config import SLAConfig
 
-PORTED_ARCHS = ("wan2_1_1_3b", "lightningdit_1b", "qwen3-1.7b")
+PORTED_ARCHS = ("wan2_1_1_3b", "lightningdit_1b", "qwen3-1.7b",
+                "moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b")
 
 
 def _fields(cls):

@@ -1320,3 +1320,90 @@ def test_disagg_on_the_card_matches_the_scheduler(paged):
                 for w in dis._decode_pool)
     assert (pg, mono) == ((cfg.num_layers * steps, 0) if paged
                           else (0, cfg.num_layers * steps))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "moonshot-v1-16b-a3b"])
+def test_lm_train_step_on_the_card_kernel_vs_gather(arch):
+    """One LM make_train_step (bf16 compute over f32 masters, AdamW,
+    remat) on each backend from the same seeded smoke weights and token
+    batch: the same loss and grad norm to bf16 noise, finite, and the
+    kernels ran once per layer (twice for the forward: its remat
+    recompute)."""
+    _need_gpu()
+    from repro_torch.configs import get_shape
+    from repro_torch.data import pipeline
+    cfg = get_arch(arch).smoke()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in pipeline.token_batch(
+        cfg, get_shape("train_4k", smoke=True), pipeline.DataConfig(), 0
+    ).items()}
+    out = {}
+    for backend in ("kernel", "gather"):
+        model = transformer.init(torch.Generator("cuda").manual_seed(3), cfg,
+                                 device="cuda")
+        step = steps.make_train_step(
+            cfg, adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2),
+            backend=backend)
+        state = adamw.init(dict(model.named_parameters()))
+        before = (sla_fwd.LAUNCHES, sla_bwd.LAUNCHES_DQ,
+                  sla_bwd.LAUNCHES_DKV)
+        with ctx.activation_sharding(remat=True):
+            model, state, loss, gnorm = step(model, state, batch)
+        launches = tuple(a - b for a, b in zip(
+            (sla_fwd.LAUNCHES, sla_bwd.LAUNCHES_DQ, sla_bwd.LAUNCHES_DKV),
+            before))
+        out[backend] = (float(loss), float(gnorm), launches)
+    n = cfg.num_layers
+    assert out["kernel"][2] == (2 * n, n, n)
+    assert out["gather"][2] == (0, 0, 0)
+    assert all(np.isfinite(out[b][:2]).all() for b in out)
+    np.testing.assert_allclose(out["kernel"][:2], out["gather"][:2],
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_moe_ffn_on_the_card_matches_the_cpu(dtype):
+    """The MoE FFN (smoke moonshot: 4 experts, top-2, capacity binding at
+    factor 0.5) on the card against the same call on the CPU: routing
+    integers equal on inputs with a margin between the k-th and (k+1)-th
+    probability, output, aux and gradients within 5e-5 x max(1, max
+    |cpu|) in f32 and 5e-2 in bf16."""
+    _need_gpu()
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_arch("moonshot-v1-16b-a3b").smoke(),
+                              capacity_factor=0.5)
+    mod = moe.moe_init(torch.Generator().manual_seed(4), cfg, device="cpu")
+    x = torch.randn((2, 32, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(5))
+    cot = torch.randn(x.shape, generator=torch.Generator().manual_seed(6))
+
+    def module(dev):
+        m = moe.moe_init(None, cfg, device=dev)
+        m.load_state_dict(mod.state_dict())
+        return m.to(dtype)
+
+    with torch.no_grad():
+        top = moe.route(module("cpu").router, x.to(dtype).reshape(
+            -1, cfg.d_model), cfg)["probs"].sort(dim=-1,
+                                                 descending=True).values
+    k = cfg.experts_per_token
+    assert float((top[:, k - 1] - top[:, k]).min()) > 1e-4  # the premise
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        m = module(dev)
+        xx = x.to(dev, dtype).clone().requires_grad_()
+        r = moe.route(m.router, xx.detach().reshape(-1, cfg.d_model), cfg)
+        out, aux = moe.moe_apply(m, xx, cfg)
+        ((out.float() * cot.to(dev)).sum() + aux).backward()
+        runs[dev] = dict(
+            ints=[r[n].cpu() for n in ("eidx", "keep", "dst")],
+            floats=[out.detach().float().cpu(), aux.detach().cpu(),
+                    xx.grad.float().cpu()]
+            + [p.grad.float().cpu() for p in m.parameters()])
+    assert bool((~runs["cpu"]["ints"][1]).any())  # slots drop
+    for a, b in zip(runs["cuda"]["ints"], runs["cpu"]["ints"]):
+        assert torch.equal(a, b)
+    tol = TWIN_TOL if dtype == torch.float32 else 5e-2
+    for a, b in zip(runs["cuda"]["floats"], runs["cpu"]["floats"]):
+        assert float((a - b).abs().max()) <= tol * max(
+            1.0, float(b.abs().max()))
