@@ -7,8 +7,9 @@
                                       # 8 full-width LM decode steps, one
                                       # full-width LM prefill, 8 paged
                                       # LM decode steps, one full-width
-                                      # LM training step and one MoE
-                                      # decode step
+                                      # LM training step, one MoE
+                                      # decode step and one zamba2
+                                      # and one whisper training step
 
 Phases, in order; any failure exits non-zero before the result line:
   1. card: nvidia-smi name and power limit; TF32 off for matmul and cuDNN.
@@ -315,9 +316,53 @@ Phases, in order; any failure exits non-zero before the result line:
      backend (5e-2 x max(1, max |logits|), greedy agreement), and kernel
      1 against its twin on the prefill's layer-0 plans (BH 32, group 1,
      N 4,032). `--profile` adds a profile of one decode step.
- 23. the kernels line (JSON): `sla_fwd` carries the split route's fields
+ 23. hybrid (after phase 22's model is freed): zamba2-1.2b at full
+     width and depth (38 Mamba2 layers, d_model 2048, 64 SSM heads of 64,
+     state 64, the shared SLA block of 32 heads of 64 after each of the
+     segments 6,6,6,6,6,6,2, vocab 32,000; f32 masters), train_4k (seq
+     4,096) with its global batch cut to 1, `token_batch` data. One
+     batch's `loss_fn` kernel vs gather (bf16 compute) within 5e-2 x
+     max(1, |loss|); 3 `make_train_step` steps (AdamW, bf16 compute,
+     kernel backend, the reference's remat: Mamba layers only), each with
+     finite loss and grad norm and exactly 7 `sla_fwd`, 7 `sla_bwd_dq`
+     and 7 `sla_bwd_dkv` launches, all on the tensor cores, and 7 plan
+     builds; the probes (a Mamba `in_proj`, `shared_attn.sla_proj`,
+     `embed`) moved. The chunked scan's CUDA-event time at a layer's
+     shape and its share of a step. Kernels 1-3 against their twins on
+     the last step's plans of the first and last application (causal,
+     BH 32, N 4,096, D 64; `cases.tc_criterion`, two launches bitwise
+     equal), timed, each with its bound for the D-64 work and for the
+     operands zero-padded to D 128. Then `prefill` of 2 x 4,096 tokens (7
+     tensor-core `sla_fwd` launches), the K/V grown by 16 zero rows, and
+     16 greedy `decode_step`s (dense attention, no SLA launch): finite
+     logits, `pos` 4,112; prefill wall, decode ms a step, peak memory.
+     Then the train CLI (`--arch zamba2-1.2b --smoke --steps 2`).
+     `--profile` adds a profile of one more training step.
+ 24. encdec: whisper-small at full width and depth (12 + 12 layers, d
+     768, 12 heads of 64, vocab 51,865; f32 masters), train_4k (4,096
+     audio frames, 512 text tokens), batch 1. As phase 23: the loss
+     kernel vs gather, 3 steps with 24 `sla_fwd` (12 encoder layers, the
+     forward and its remat recompute), 12 `sla_bwd_dq` and 12
+     `sla_bwd_dkv` a step on the tensor cores and 12 plan builds,
+     kernels 1-3 on the plans of encoder layers 0 and 11 (non-causal, BH
+     12, D 64) with both bounds; `prefill` of 2 x 4,096 frames (12
+     `sla_fwd` launches, every decoder layer's cross K/V) and 32 greedy
+     `decode_step`s with finite logits; the train CLI.
+ 25. ssm: rwkv6-7b at full width and depth (32 layers, d 4096, 64 heads
+     of 64, d_ff 14,336, vocab 65,536; 7.2 B parameters made in bf16:
+     f32 masters and moments would not fit a training step). `prefill`
+     of 2 x 2,048 tokens and 16 `decode_step`s fed the next tokens, in
+     bf16 and again in f32 compute, each against one `forward` over the
+     same 2,064 tokens: the f32 run held within 5e-2 x max(1, max
+     |logits|) (the reference test's decode-against-forward
+     consistency), the bf16 run's drift and greedy agreement measured
+     (the chunked forward rounds what the step does not, in the
+     reference too); finite logits; no SLA kernel launches. Prints walls
+     and peaks.
+ 26. the kernels line (JSON): `sla_fwd` carries the split route's fields
      at the top (the f32 serving route) and the f32-FMA and bf16
-     tensor-core routes' beside them; `sla_fwd_split_planes` is the split
+     tensor-core routes' beside them, kernels 1-3 the D-64 cases of
+     phases 23-24 (`d64_cases`); `sla_fwd_split_planes` is the split
      route's pre-pass; then the result line.
 """
 from __future__ import annotations
@@ -358,7 +403,8 @@ from repro_torch.kernels import _build, ops, sla_bwd, sla_fwd  # noqa: E402
 from repro_torch.kernels import cases, sla_decode  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
-from repro_torch.models import dit  # noqa: E402
+from repro_torch.models import dit, encdec, hybrid  # noqa: E402
+from repro_torch.models import linear_scan, rwkv6  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -458,6 +504,19 @@ LT_PROBES = ("layers.0.wq", "layers.27.sla_proj", "embed")
 MOE_ARCH, MOE_BATCH, MOE_MAX_LEN, MOE_NEW = ("moonshot-v1-16b-a3b", 2,
                                              4096, 32)
 MOE_PROMPTS = (4000, 3980)
+# the recurrent and encoder-decoder families (phases 23-25): zamba2's and
+# whisper's train_4k with the global batch 256 cut to 1; zamba2 served by
+# prefill of 2 x 4,096 tokens and 16 decode steps, whisper by prefill of
+# 2 x 4,096 frames and 32 decode steps, rwkv6 (bf16 weights) by prefill of
+# 2 x 2,048 tokens and 16 decode steps
+HY_ARCH, HY_STEPS, HY_BATCH, HY_SEQ = "zamba2-1.2b", 3, 1, 4096
+HY_PROBES = ("layers.0.in_proj", "shared_attn.sla_proj", "embed")
+HY_PREFILL, HY_NEW = 2, 16
+ED_ARCH, ED_STEPS, ED_BATCH, ED_FRAMES = "whisper-small", 3, 1, 4096
+ED_PROBES = ("enc.0.wq", "enc.11.sla_proj", "embed")
+ED_PREFILL, ED_NEW = 2, 32
+RW_ARCH, RW_BATCH, RW_PROMPT, RW_NEW = "rwkv6-7b", 2, 2048, 16
+FAM_LOSS_TOL = 5e-2  # kernel vs gather loss and decode vs forward logits
 DEV = torch.device("cuda")
 
 
@@ -2125,6 +2184,29 @@ def phase_decode_vs_plain():
 
 
 # --------------------------------------------------------------------------
+def _zero_kernel_counts():
+    sla_fwd.LAUNCHES = sla_fwd.TC_LAUNCHES = 0
+    sla_bwd.LAUNCHES_DQ = sla_bwd.LAUNCHES_DKV = 0
+    sla_bwd.TC_LAUNCHES_DQ = sla_bwd.TC_LAUNCHES_DKV = 0
+
+
+def _kernel_counts(plans: list) -> dict:
+    return dict(sla_fwd=sla_fwd.LAUNCHES, tc_sla_fwd=sla_fwd.TC_LAUNCHES,
+                sla_bwd_dq=sla_bwd.LAUNCHES_DQ,
+                tc_sla_bwd_dq=sla_bwd.TC_LAUNCHES_DQ,
+                sla_bwd_dkv=sla_bwd.LAUNCHES_DKV,
+                tc_sla_bwd_dkv=sla_bwd.TC_LAUNCHES_DKV,
+                plan_builds=len(plans))
+
+
+def _redraw(gen, projs):
+    """Redraw zero-initialized sla_proj tensors so that O^l reaches the
+    output."""
+    with torch.no_grad():
+        for p in projs:
+            p.copy_(0.1 * torch.randn(p.shape, generator=gen, device=DEV))
+
+
 def _lm_model(seed: int):
     """Full-width qwen3-1.7b with random weights from a seeded generator;
     sla_proj (zero-initialized) is redrawn so that O^l reaches the
@@ -2132,10 +2214,7 @@ def _lm_model(seed: int):
     cfg = get_arch(LM_ARCH)
     gen = torch.Generator(device=DEV).manual_seed(seed)
     params = transformer.init(gen, cfg, device=DEV)
-    with torch.no_grad():
-        for layer in params.layers:
-            layer.sla_proj.copy_(0.1 * torch.randn(
-                layer.sla_proj.shape, generator=gen, device=DEV))
+    _redraw(gen, [layer.sla_proj for layer in params.layers])
     return cfg, params
 
 
@@ -4194,65 +4273,6 @@ def phase_disagg(cfg, params):
 
 
 # --------------------------------------------------------------------------
-def _lt_kernel_rows(cfg, plans) -> tuple:
-    """Kernels 1-3 against their twins on a training step's own plans of
-    the first and the last layer: seeded bf16 q and 8-head k/v repeated
-    to the 16 query heads (as the kernel backend gives them), causal, at
-    the step's N. Returns (forward rows, backward rows)."""
-    sla = cfg.sla
-    h, hkv, n, d = cfg.num_heads, cfg.num_kv_heads, LT_SEQ, cfg.head_dim
-    gen = torch.Generator(device=DEV).manual_seed(11)
-    q = torch.randn((LT_BATCH, h, n, d), generator=gen, device=DEV)
-    k, v = (plan_lib.repeat_kv(torch.randn(
-        (LT_BATCH, hkv, n, d), generator=gen, device=DEV), h)
-        for _ in range(2))
-    fwd_rows, bwd_rows = [], []
-    for layer, plan in sorted(plans.items()):
-        leaves = [plan.marginal, plan.lut, plan.counts, plan.col_lut,
-                  plan.col_counts]
-        shape = f"qwen3-1.7b train layer {layer} plans"
-        args, kw, _ = _operands(sla, q, k, v, *leaves[:3], torch.bfloat16,
-                                causal=True)
-        c = _fwd_check(args, kw, shape)
-        ms = cuda_ms(lambda: sla_fwd.sla_fwd(*args, **kw), 10)
-        plain_ms = cuda_ms(lambda: sla_fwd.sla_fwd_plain(*args, **kw), 2,
-                           warmup=1)
-        bound_ms, bound_by, _, _, live = _bound(args, kw)
-        say(f"[21 lm train kernels] sla_fwd {shape} bf16 causal (BH="
-            f"{args[2].shape[0]}, N={n}, K={args[0].shape[-1]}, live tiles "
-            f"{live} of {args[0].numel()}): {_fwd_text(c)} | kernel "
-            f"{ms:.3f} ms | bound {bound_ms:.3f} ms by {bound_by} "
-            f"({bound_ms / ms:.1%} of it) | plain twin {plain_ms:.3f} ms")
-        fwd_rows.append(dict(shape=shape, dtype="bf16", live_tiles=live,
-                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by,
-                             bound_fraction=bound_ms / ms, **c))
-        del args
-        dq_args, dkv_args, kw = _bwd_operands(sla, q, k, v, leaves,
-                                              torch.bfloat16, seed=12,
-                                              causal=True)
-        for name, args in (("sla_bwd_dq", dq_args),
-                           ("sla_bwd_dkv", dkv_args)):
-            c = _bwd_check(name, args, kw, shape)
-            ms = cuda_ms(lambda: BWD[name][0](*args, **kw), 10)
-            plain_ms = cuda_ms(lambda: BWD[name][1](*args, **kw), 2,
-                               warmup=1)
-            bound_ms, bound_by, _, _, live = _bwd_bound(name, args, kw,
-                                                        torch.bfloat16)
-            say(f"[21 lm train kernels] {name} {shape} bf16 causal (live "
-                f"tiles {live} of {args[0].numel()}): {_check_text(c)} | "
-                f"kernel {ms:.3f} ms | bound {bound_ms:.3f} ms by "
-                f"{bound_by} ({bound_ms / ms:.1%} of it) | plain twin "
-                f"{plain_ms:.3f} ms")
-            bwd_rows.append(dict(kernel=name, shape=shape, dtype="bf16",
-                                 live_tiles=live, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=bound_ms, bound_by=bound_by,
-                                 bound_fraction=bound_ms / ms, **c))
-        del dq_args, dkv_args
-    torch.cuda.empty_cache()
-    return fwd_rows, bwd_rows
-
-
 def phase_lm_train(cfg, params, profile: bool):
     """Phase 21: LM training at full Qwen3-1.7B width and depth. The
     kernel-vs-gather loss on one batch, LT_STEPS `loss_fn` steps and one
@@ -4318,22 +4338,14 @@ def phase_lm_train(cfg, params, profile: bool):
                 gc.collect()
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-                sla_fwd.LAUNCHES = sla_fwd.TC_LAUNCHES = 0
-                sla_bwd.LAUNCHES_DQ = sla_bwd.LAUNCHES_DKV = 0
-                sla_bwd.TC_LAUNCHES_DQ = sla_bwd.TC_LAUNCHES_DKV = 0
+                _zero_kernel_counts()
                 t0 = time.time()
                 params, opt_state, loss, gnorm = step_fns[distill](
                     params, opt_state, batch)
                 loss, gnorm = float(loss), float(gnorm)
                 torch.cuda.synchronize()
                 wall = time.time() - t0
-                got = dict(sla_fwd=sla_fwd.LAUNCHES,
-                           tc_sla_fwd=sla_fwd.TC_LAUNCHES,
-                           sla_bwd_dq=sla_bwd.LAUNCHES_DQ,
-                           tc_sla_bwd_dq=sla_bwd.TC_LAUNCHES_DQ,
-                           sla_bwd_dkv=sla_bwd.LAUNCHES_DKV,
-                           tc_sla_bwd_dkv=sla_bwd.TC_LAUNCHES_DKV,
-                           plan_builds=len(plans))
+                got = _kernel_counts(plans)
                 peak = torch.cuda.max_memory_allocated() / 2**30
                 for key in totals:
                     totals[key] += got[key]
@@ -4386,12 +4398,11 @@ def phase_lm_train(cfg, params, profile: bool):
     if not all(moved.values()):
         raise RuntimeError(f"LM training did not move the parameters: "
                            f"{moved}")
-    fwd_rows, bwd_rows = _lt_kernel_rows(cfg, step_plans)
+    fwd_rows, bwd_rows = _family_kernel_rows(
+        "21 lm train", LM_ARCH, {f"layer {li}": plan
+                                 for li, plan in step_plans.items()},
+        causal=True, batch=LT_BATCH, n=LT_SEQ)
     del step_plans
-    bad = [r for r in fwd_rows + bwd_rows if not r["ok"]]
-    if bad:
-        raise RuntimeError(f"a kernel disagrees with its twin on the LM "
-                           f"training plans: {bad}")
     argv = ["--arch", LM_ARCH, "--smoke", "--steps", "3", "--device", "cuda",
             "--log-every", "1"]
     t0 = time.time()
@@ -4414,10 +4425,7 @@ def _moe_model(seed: int):
     cfg = get_arch(MOE_ARCH)
     gen = torch.Generator(device=DEV).manual_seed(seed)
     params = transformer.init(gen, cfg, dtype=torch.bfloat16, device=DEV)
-    with torch.no_grad():
-        for layer in params.layers:
-            layer.sla_proj.copy_(0.1 * torch.randn(
-                layer.sla_proj.shape, generator=gen, device=DEV))
+    _redraw(gen, [layer.sla_proj for layer in params.layers])
     return cfg, params
 
 
@@ -4723,6 +4731,565 @@ def phase_moe_serving(cfg, params, profile: bool):
     return summary, fwd_rows, dec_rows
 
 
+# --------------------------------------------------------------------------
+# the recurrent and encoder-decoder families (phases 23-25)
+# --------------------------------------------------------------------------
+def _padded_fwd_bound(args, kw):
+    """`_bound` of the tensor-core forward on what it reads at a head dim
+    below `TC_HEAD_DIM`: q, k and v zero-padded to it (bf16) and the tile
+    products at that width; qp, hi, zi, the outputs and the linear merge
+    at their own D. Returns (ms, "bytes" or "operations")."""
+    lut, counts, q, k, v, qp, hi, zi = args
+    bh, nq, d = q.shape
+    pad = sla_fwd.TC_HEAD_DIM
+    bq, bkv = kw["block_q"], kw["block_kv"]
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (lut, counts, qp, hi, zi))
+    nbytes += sum(t.numel() // d * pad * t.element_size() for t in (q, k, v))
+    nbytes += 2 * bh * nq * d * 4 + bh * nq * 4
+    live = int(torch.clamp(counts, max=lut.shape[-1]).sum())
+    flops = (live * 4 * bq * bkv * pad
+             + (nq // bq) * bh * (2 * bq * d * d + 2 * bq * d))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["tc"]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _padded_bwd_bound(name, args, kw):
+    """`_bwd_bound` of a tensor-core backward kernel on what it reads and
+    writes at a head dim below `TC_HEAD_DIM`: q, k, v and dO zero-padded
+    to it in bf16, its f32 gradients written at that width, the tile
+    products at that width. Returns (ms, "bytes" or "operations")."""
+    lut, counts, q, k, v, do, lse, dd = args
+    bh, n, d = q.shape
+    pad = sla_fwd.TC_HEAD_DIM
+    nbytes = sum(t.numel() * t.element_size() for t in (lut, counts, lse,
+                                                         dd))
+    nbytes += sum(t.numel() // d * pad * 2 for t in (q, k, v, do))
+    nbytes += (1 if name == "sla_bwd_dq" else 2) * bh * n * pad * 4
+    live = int(torch.clamp(counts, max=lut.shape[-1]).sum())
+    flops = live * BWD[name][2] * kw["block_q"] * kw["block_kv"] * pad
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[torch.bfloat16]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _family_kernel_rows(tag: str, arch: str, plans: dict, causal: bool,
+                        batch: int, n: int) -> tuple:
+    """Kernels 1-3 against their twins on a training step's own plans
+    ({application or layer: plan}): seeded bf16 q, k and v at the step's
+    (B, H, N, D) with k/v repeated to the query heads as the kernel
+    backend gives them; `cases.tc_criterion`, two launches bitwise equal.
+    Each timed with its bound for the D-wide work and for the operands
+    zero-padded to `TC_HEAD_DIM` that the tensor-core routes read.
+    Returns (forward rows, backward rows)."""
+    cfg = get_arch(arch)
+    sla, h, d = cfg.sla, cfg.num_heads, cfg.head_dim
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    q = torch.randn((batch, h, n, d), generator=gen, device=DEV)
+    k, v = (plan_lib.repeat_kv(torch.randn(
+        (batch, cfg.num_kv_heads, n, d), generator=gen, device=DEV), h)
+        for _ in range(2))
+    kind = "causal" if causal else "non-causal"
+    fwd_rows, bwd_rows = [], []
+    for at, plan in sorted(plans.items()):
+        leaves = [plan.marginal, plan.lut, plan.counts, plan.col_lut,
+                  plan.col_counts]
+        shape = f"{arch} train {at} plans"
+        args, kw, _ = _operands(sla, q, k, v, *leaves[:3], torch.bfloat16,
+                                causal=causal)
+        c = _fwd_check(args, kw, shape)
+        ms = cuda_ms(lambda: sla_fwd.sla_fwd(*args, **kw), 10)
+        plain_ms = cuda_ms(lambda: sla_fwd.sla_fwd_plain(*args, **kw), 2,
+                           warmup=1)
+        bound_ms, bound_by, _, _, live = _bound(args, kw)
+        pad_ms, pad_by = _padded_fwd_bound(args, kw)
+        say(f"[{tag} kernels] sla_fwd {shape} bf16 {kind} D {d} (BH="
+            f"{args[2].shape[0]}, N={n}, K={args[0].shape[-1]}, live tiles "
+            f"{live} of {args[0].numel()}): {_fwd_text(c)} | kernel "
+            f"{ms:.3f} ms | bound {bound_ms:.3f} ms by {bound_by} "
+            f"({bound_ms / ms:.1%} of it); padded to D "
+            f"{sla_fwd.TC_HEAD_DIM}: {pad_ms:.3f} ms by {pad_by} "
+            f"({pad_ms / ms:.1%}) | plain twin {plain_ms:.3f} ms")
+        fwd_rows.append(dict(shape=shape, dtype="bf16", head_dim=d,
+                             causal=causal, live_tiles=live, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by,
+                             bound_fraction=bound_ms / ms,
+                             bound_ms_padded=pad_ms, bound_by_padded=pad_by,
+                             bound_fraction_padded=pad_ms / ms, **c))
+        del args
+        dq_args, dkv_args, kw = _bwd_operands(sla, q, k, v, leaves,
+                                              torch.bfloat16, seed=12,
+                                              causal=causal)
+        for name, args in (("sla_bwd_dq", dq_args),
+                           ("sla_bwd_dkv", dkv_args)):
+            c = _bwd_check(name, args, kw, shape)
+            ms = cuda_ms(lambda: BWD[name][0](*args, **kw), 10)
+            plain_ms = cuda_ms(lambda: BWD[name][1](*args, **kw), 2,
+                               warmup=1)
+            bound_ms, bound_by, _, _, live = _bwd_bound(name, args, kw,
+                                                        torch.bfloat16)
+            pad_ms, pad_by = _padded_bwd_bound(name, args, kw)
+            say(f"[{tag} kernels] {name} {shape} bf16 {kind} D {d} (live "
+                f"tiles {live} of {args[0].numel()}): {_check_text(c)} | "
+                f"kernel {ms:.3f} ms | bound {bound_ms:.3f} ms by "
+                f"{bound_by} ({bound_ms / ms:.1%} of it); padded to D "
+                f"{sla_fwd.TC_HEAD_DIM}: {pad_ms:.3f} ms by {pad_by} "
+                f"({pad_ms / ms:.1%}) | plain twin {plain_ms:.3f} ms")
+            bwd_rows.append(dict(kernel=name, shape=shape, dtype="bf16",
+                                 head_dim=d, causal=causal, live_tiles=live,
+                                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by,
+                                 bound_fraction=bound_ms / ms,
+                                 bound_ms_padded=pad_ms,
+                                 bound_by_padded=pad_by,
+                                 bound_fraction_padded=pad_ms / ms, **c))
+        del dq_args, dkv_args
+    torch.cuda.empty_cache()
+    bad = [r for r in fwd_rows + bwd_rows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"a kernel disagrees with its twin on the {arch} "
+                           f"training plans: {bad}")
+    return fwd_rows, bwd_rows
+
+
+def _family_train(tag: str, cfg, mdl, params, batches, want: dict,
+                  probes, keep: tuple, profile: bool) -> tuple:
+    """Phases 23 and 24's training: one batch's `loss_fn` on the kernel
+    against the gather backend (bf16 compute) within FAM_LOSS_TOL x
+    max(1, |loss|), then one `make_train_step` step a batch (AdamW over
+    the f32 masters, bf16 compute, kernel backend, the reference's
+    remat), each checked for finite loss and grad norm and exactly the
+    launches and plan builds of `want`; the parameters named in `probes`
+    must move. Returns (summary, {i: the last step's i-th plan for i in
+    keep})."""
+    losses = {}
+    with torch.no_grad():
+        tree = train_steps.cast_params_bf16(params)
+        for backend in ("kernel", "gather"):
+            losses[backend] = float(mdl.loss_fn(tree, cfg, batches[0],
+                                                backend=backend))
+        del tree
+    limit = FAM_LOSS_TOL * max(1.0, abs(losses["gather"]))
+    diff = abs(losses["kernel"] - losses["gather"])
+    say(f"[{tag}] one batch's loss_fn: kernel {losses['kernel']:.6f}, "
+        f"gather {losses['gather']:.6f}, diff {diff:.3g} (limit "
+        f"{limit:.3g}) {'OK' if diff <= limit else 'FAIL'}")
+    if not (np.isfinite(diff) and diff <= limit):
+        raise RuntimeError(f"{cfg.name} loss kernel {losses['kernel']} vs "
+                           f"gather {losses['gather']}")
+    opt_cfg = adamw.AdamWConfig(lr=1e-4, warmup_steps=1,
+                                total_steps=len(batches))
+    step_fn = train_steps.make_train_step(cfg, opt_cfg, backend="kernel")
+    named = dict(params.named_parameters())
+    opt_state = adamw.init(named)
+    probe = {n: named[n].detach().clone() for n in probes}
+    plans = []
+    orig_plan = plan_lib.plan_attention
+
+    def counted_plan(*a, **kw):
+        plans.append(orig_plan(*a, **kw))
+        return plans[-1]
+
+    rows = []
+    plan_lib.plan_attention = counted_plan
+    try:
+        with actx.activation_sharding(remat=True):
+            for i, batch in enumerate(batches):
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _zero_kernel_counts()
+                plans.clear()
+                t0 = time.time()
+                params, opt_state, loss, gnorm = step_fn(params, opt_state,
+                                                         batch)
+                loss, gnorm = float(loss), float(gnorm)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                got = _kernel_counts(plans)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                say(f"[{tag}] step {i}: loss {loss:.6f} grad norm "
+                    f"{gnorm:.6f} | {wall:.3f}s | peak {peak:.2f} GiB | "
+                    f"launches {got} (expected {want})")
+                rows.append(dict(step=i, loss=loss, grad_norm=gnorm,
+                                 wall_s=wall, peak_gib=peak, **got))
+                if not (np.isfinite(loss) and np.isfinite(gnorm)):
+                    raise RuntimeError(f"{cfg.name} training step {i}: loss "
+                                       f"{loss}, grad norm {gnorm}")
+                if got != want:
+                    raise RuntimeError(f"{cfg.name} training step {i}: "
+                                       f"launches {got}, expected {want}")
+            kept = {at: plans[at] for at in keep}
+            prof_res = None
+            if profile:
+                from torch.profiler import ProfilerActivity
+                from torch.profiler import profile as prof_ctx
+                torch.cuda.synchronize()
+                t0 = time.time()
+                with prof_ctx(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]) as prof:
+                    step_fn(params, opt_state, batches[0])
+                    torch.cuda.synchronize()
+                prof_res = _busy(prof, time.time() - t0)
+                prof_res["kernels"] = _kernel_means(
+                    prof, ("sla_fwd_tc_kernel", "sla_bwd_dq_tc_kernel",
+                           "sla_bwd_dkv_tc_kernel"))
+                say(f"[{tag} profile] one more step: {prof_res}")
+                say(prof.key_averages().table(sort_by="cuda_time_total",
+                                              row_limit=25))
+    finally:
+        plan_lib.plan_attention = orig_plan
+    moved = {n: bool((named[n].detach() != probe[n]).any()) for n in probes}
+    del opt_state, named
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[{tag}] {len(rows)} steps: walls "
+        f"{[round(r['wall_s'], 3) for r in rows]} s | peaks "
+        f"{[round(r['peak_gib'], 2) for r in rows]} GiB | parameters moved "
+        f"{moved}")
+    if not all(moved.values()):
+        raise RuntimeError(f"{cfg.name} training did not move the "
+                           f"parameters: {moved}")
+    totals = {key: sum(r[key] for r in rows) for key in want}
+    return dict(steps=rows, launches=totals, moved=moved, profile=prof_res,
+                loss_check=dict(kernel=losses["kernel"],
+                                gather=losses["gather"], diff=diff,
+                                limit=limit)), kept
+
+
+def _family_cli(tag: str, arch: str, steps: int) -> list:
+    argv = ["--arch", arch, "--smoke", "--steps", str(steps), "--device",
+            "cuda", "--log-every", "1"]
+    t0 = time.time()
+    cli = train_cli.main(argv)
+    ok = len(cli) == steps and bool(np.isfinite(cli).all()) and min(cli) > 0
+    say(f"[{tag} CLI] repro_torch.launch.train {' '.join(argv)}: losses "
+        f"{cli} in {time.time() - t0:.1f}s {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{arch} train CLI losses {cli}")
+    return cli
+
+
+def _scan_cost(cfg, nlayers: int, step_wall: float) -> dict:
+    """The chunked scan (`linear_scan.decayed_la_chunked`, scalar decay)
+    at one Mamba2 layer's training shape (B, H, N, state) x (B, H, N, P)
+    in bf16, B and C broadcast over the heads as `mamba_apply` gives
+    them: CUDA-event time of the forward alone and of forward plus
+    backward; a remat step runs nlayers x (both). Its share of a step's
+    wall."""
+    b, h, n = HY_BATCH, cfg.ssm_heads, HY_SEQ
+    st, p = cfg.ssm_state, cfg.ssm_head_dim
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    bc = [torch.randn((b, 1, n, st), generator=gen, device=DEV,
+                      dtype=torch.bfloat16).expand(b, h, n, st)
+          for _ in range(2)]
+    x = torch.randn((b, h, n, p), generator=gen, device=DEV,
+                    dtype=torch.bfloat16)
+    la = -torch.nn.functional.softplus(torch.randn(
+        (b, h, n), generator=gen, device=DEV))
+
+    def fwd():
+        with torch.no_grad():
+            linear_scan.decayed_la_chunked(bc[0], bc[1], x, la,
+                                           inclusive=True,
+                                           scalar_decay=True, chunk=64)
+
+    xg = x.clone().requires_grad_()
+    lag = la.clone().requires_grad_()
+
+    def fwd_bwd():
+        o, s = linear_scan.decayed_la_chunked(bc[0], bc[1], xg, lag,
+                                              inclusive=True,
+                                              scalar_decay=True, chunk=64)
+        (o.sum() + s.sum()).backward()
+
+    f_ms, fb_ms = cuda_ms(fwd, 5), cuda_ms(fwd_bwd, 5)
+    step_ms = nlayers * (f_ms + fb_ms)
+    res = dict(fwd_ms=f_ms, fwd_bwd_ms=fb_ms, per_step_ms=step_ms,
+               share_of_step=step_ms / (step_wall * 1e3))
+    say(f"[23 hybrid scan] decayed_la_chunked at (B {b}, H {h}, N {n}, "
+        f"state {st}, P {p}) bf16, chunk 64: forward {f_ms:.3f} ms, forward "
+        f"+ backward {fb_ms:.3f} ms; {nlayers} layers x both = "
+        f"{step_ms:.1f} ms a step, {res['share_of_step']:.1%} of the "
+        f"{step_wall:.3f} s step")
+    return res
+
+
+def _finite(flag, logits):
+    return flag & torch.isfinite(logits).all()
+
+
+def phase_hybrid(profile: bool):
+    """Phase 23: zamba2-1.2b at full width and depth. Training through
+    `_family_train` (7 shared-block applications a step), the chunked
+    scan's cost, kernels 1-3 on the last step's plans of the first and
+    last application (causal, D 64), `prefill` of HY_PREFILL x HY_SEQ
+    tokens and HY_NEW `decode_step`s, then the train CLI. Returns
+    (summary, forward rows, backward rows)."""
+    cfg = get_arch(HY_ARCH)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params = hybrid.init(gen, cfg, device=DEV)
+    _redraw(gen, [params.shared_attn.sla_proj])
+    nparams = sum(p.numel() for p in params.parameters())
+    segs = hybrid.segments(cfg)
+    napp = len(segs)
+    say(f"[23 hybrid] {HY_ARCH} at full width and depth: {cfg.num_layers} "
+        f"Mamba2 layers (d_model {cfg.d_model}, {cfg.ssm_heads} SSM heads of "
+        f"{cfg.ssm_head_dim}, state {cfg.ssm_state}) in segments {segs}, a "
+        f"shared SLA block of {cfg.num_heads} heads of {cfg.head_dim} after "
+        f"each ({napp} applications), vocab {cfg.vocab_size}: {nparams:,} "
+        f"parameters in f32 | train_4k seq {HY_SEQ}, batch {HY_BATCH} "
+        f"(global 256 cut)")
+    shape = dataclasses.replace(get_shape("train_4k"), global_batch=HY_BATCH)
+    data = make_iterator(cfg, shape, DataConfig(seed=0))
+    batches = [{k: torch.from_numpy(x).to(DEV) for k, x in next(data).items()}
+               for _ in range(HY_STEPS)]
+    want = dict(sla_fwd=napp, tc_sla_fwd=napp, sla_bwd_dq=napp,
+                tc_sla_bwd_dq=napp, sla_bwd_dkv=napp, tc_sla_bwd_dkv=napp,
+                plan_builds=napp)
+    train, plans = _family_train("23 hybrid", cfg, hybrid, params, batches,
+                                 want, HY_PROBES, (0, napp - 1), profile)
+    del batches
+    train["scan"] = _scan_cost(cfg, cfg.num_layers,
+                               min(r["wall_s"] for r in train["steps"]))
+    fwd_rows, bwd_rows = _family_kernel_rows(
+        "23 hybrid", HY_ARCH, {f"application {at}": plan
+                               for at, plan in plans.items()},
+        causal=True, batch=HY_BATCH, n=HY_SEQ)
+    del plans
+    # serving through the model API: prefill, the K/V grown by zeros as
+    # the reference's test grows them, greedy decode steps
+    toks = torch.randint(0, cfg.vocab_size, (HY_PREFILL, HY_SEQ),
+                         generator=gen, device=DEV)
+    finite = torch.ones((), dtype=torch.bool, device=DEV)
+    with torch.no_grad():
+        tree = train_steps.cast_params_bf16(params)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_kernel_counts()
+        t0 = time.time()
+        last, cache = hybrid.prefill(tree, cfg, toks, backend="kernel")
+        torch.cuda.synchronize()
+        prefill_s = time.time() - t0
+        launches = (sla_fwd.LAUNCHES, sla_fwd.TC_LAUNCHES)
+        for key in ("attn_k", "attn_v"):
+            cache[key] = torch.nn.functional.pad(cache[key],
+                                                 (0, 0, 0, HY_NEW))
+        logits = logits_from_hidden(tree, last)
+        finite = _finite(finite, logits)
+        token = logits.argmax(dim=-1)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(HY_NEW):
+            logits, cache = hybrid.decode_step(tree, cfg, token, cache)
+            finite = _finite(finite, logits)
+            token = logits.argmax(dim=-1)
+        torch.cuda.synchronize()
+        decode_ms = (time.time() - t0) / HY_NEW * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        dec_launches = sla_fwd.LAUNCHES - launches[0]
+    ok = (bool(finite) and cache["pos"] == HY_SEQ + HY_NEW
+          and launches == (napp, napp) and dec_launches == 0)
+    say(f"[23 hybrid serve] prefill {HY_PREFILL} x {HY_SEQ} tokens "
+        f"{prefill_s:.3f}s (sla_fwd launches {launches[0]}, tensor cores "
+        f"{launches[1]}, expected {napp}) | {HY_NEW} decode steps "
+        f"{decode_ms:.2f} ms a step (dense attention over the shared "
+        f"block's cache; sla_fwd launches {dec_launches}) | pos "
+        f"{cache['pos']} | finite {bool(finite)} | peak {peak:.2f} GiB "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("zamba2 prefill/decode failed its checks")
+    del tree, cache, last, logits, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = _family_cli("23 hybrid", HY_ARCH, 2)
+    train.update(params=nparams, prefill_s=prefill_s, decode_ms=decode_ms,
+                 serve_peak_gib=peak, prefill_launches=launches[0],
+                 cli_losses=cli)
+    return train, fwd_rows, bwd_rows
+
+
+def phase_encdec(profile: bool):
+    """Phase 24: whisper-small at full width and depth. Training through
+    `_family_train` (12 encoder layers, each SLA forward run twice under
+    remat), kernels 1-3 on the last step's plans of encoder layers 0 and
+    11 (non-causal, D 64), `prefill` of ED_PREFILL x ED_FRAMES frames and
+    ED_NEW `decode_step`s. Returns (summary, forward rows, backward
+    rows)."""
+    cfg = get_arch(ED_ARCH)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    params = encdec.init(gen, cfg, device=DEV)
+    _redraw(gen, [block.sla_proj for block in params.enc])
+    nparams = sum(p.numel() for p in params.parameters())
+    ne = cfg.encoder_layers
+    shape = dataclasses.replace(get_shape("train_4k"), global_batch=ED_BATCH)
+    data = make_iterator(cfg, shape, DataConfig(seed=0))
+    batches = [{k: torch.from_numpy(x).to(DEV) for k, x in next(data).items()}
+               for _ in range(ED_STEPS)]
+    say(f"[24 encdec] {ED_ARCH} at full width and depth: {ne} + "
+        f"{cfg.decoder_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads of {cfg.head_dim}, vocab {cfg.vocab_size}: "
+        f"{nparams:,} parameters in f32 | train_4k: "
+        f"{batches[0]['audio_embeds'].shape[1]} audio frames and "
+        f"{batches[0]['tokens'].shape[1]} text tokens, batch {ED_BATCH}")
+    want = dict(sla_fwd=2 * ne, tc_sla_fwd=2 * ne, sla_bwd_dq=ne,
+                tc_sla_bwd_dq=ne, sla_bwd_dkv=ne, tc_sla_bwd_dkv=ne,
+                plan_builds=ne)
+    train, plans = _family_train("24 encdec", cfg, encdec, params, batches,
+                                 want, ED_PROBES, (0, ne - 1), profile)
+    del batches
+    fwd_rows, bwd_rows = _family_kernel_rows(
+        "24 encdec", ED_ARCH, {f"encoder layer {at}": plan
+                               for at, plan in plans.items()},
+        causal=False, batch=ED_BATCH, n=ED_FRAMES)
+    del plans
+    audio = torch.randn((ED_PREFILL, ED_FRAMES, cfg.d_model), generator=gen,
+                        device=DEV)
+    finite = torch.ones((), dtype=torch.bool, device=DEV)
+    with torch.no_grad():
+        tree = train_steps.cast_params_bf16(params)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_kernel_counts()
+        t0 = time.time()
+        enc, cache = encdec.prefill(tree, cfg, {"audio_embeds": audio},
+                                    backend="kernel")
+        torch.cuda.synchronize()
+        prefill_s = time.time() - t0
+        launches = (sla_fwd.LAUNCHES, sla_fwd.TC_LAUNCHES)
+        finite = _finite(finite, enc)
+        token = torch.zeros((ED_PREFILL,), dtype=torch.long, device=DEV)
+        t0 = time.time()
+        for _ in range(ED_NEW):
+            logits, cache = encdec.decode_step(tree, cfg, token, cache)
+            finite = _finite(finite, logits)
+            token = logits.argmax(dim=-1)
+        torch.cuda.synchronize()
+        decode_ms = (time.time() - t0) / ED_NEW * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        dec_launches = sla_fwd.LAUNCHES - launches[0]
+    ok = (bool(finite) and cache["pos"] == ED_NEW
+          and launches == (ne, ne) and dec_launches == 0)
+    say(f"[24 encdec serve] prefill {ED_PREFILL} x {ED_FRAMES} frames "
+        f"{prefill_s:.3f}s (sla_fwd launches {launches[0]}, tensor cores "
+        f"{launches[1]}, expected {ne}; cross K/V "
+        f"{tuple(cache['cross_k'].shape)}, self cache "
+        f"{cache['self_k'].shape[3]} tokens) | {ED_NEW} decode steps "
+        f"{decode_ms:.2f} ms a step | finite {bool(finite)} | peak "
+        f"{peak:.2f} GiB {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("whisper prefill/decode failed its checks")
+    del tree, cache, enc, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = _family_cli("24 encdec", ED_ARCH, 2)
+    train.update(params=nparams, prefill_s=prefill_s, decode_ms=decode_ms,
+                 serve_peak_gib=peak, prefill_launches=launches[0],
+                 cli_losses=cli)
+    return train, fwd_rows, bwd_rows
+
+
+def _rwkv_run(params, cfg, toks, dtype, hold: bool) -> dict:
+    """Prefill the first RW_PROMPT tokens, decode the next RW_NEW fed
+    tokens, and the forward over all of them: the decode logits against
+    the forward's at the same positions
+    (`tests/test_models.py::test_rwkv_decode_consistent_with_forward`),
+    held to FAM_LOSS_TOL x max(1, max |logits|) when `hold`, and their
+    greedy agreement. Finite logits are always held."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    _, cache = rwkv6.prefill(params, cfg, toks[:, :RW_PROMPT], dtype)
+    torch.cuda.synchronize()
+    prefill_s = time.time() - t0
+    dec = []
+    t0 = time.time()
+    for i in range(RW_NEW):
+        logits, cache = rwkv6.decode_step(params, cfg,
+                                          toks[:, RW_PROMPT + i], cache,
+                                          dtype)
+        dec.append(logits)
+    torch.cuda.synchronize()
+    decode_ms = (time.time() - t0) / RW_NEW * 1e3
+    del cache
+    x, _ = rwkv6.forward(params, cfg, toks, dtype)
+    fwd = logits_from_hidden(params, x[:, RW_PROMPT:RW_PROMPT + RW_NEW]
+                             ).transpose(0, 1)
+    del x
+    dec = torch.stack(dec)
+    diff = float((dec - fwd).abs().max())
+    limit = FAM_LOSS_TOL * max(1.0, float(fwd.abs().max()))
+    finite = bool(torch.isfinite(dec).all())
+    agree = float((dec.argmax(-1) == fwd.argmax(-1)).float().mean())
+    return dict(prefill_s=prefill_s, decode_ms=decode_ms, max_diff=diff,
+                limit=limit, held=hold, greedy_agreement=agree,
+                finite=finite,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                ok=finite and (diff <= limit or not hold))
+
+
+def phase_rwkv6():
+    """Phase 25: rwkv6-7b at full width and depth, weights made in bf16:
+    `prefill` of RW_BATCH x RW_PROMPT tokens and RW_NEW `decode_step`s in
+    bf16 compute and again in f32 compute, each against one `forward`
+    over the same tokens. The f32 run (the reference test's) is held; the
+    bf16 run's drift is measured: the chunked forward rounds its (C, C)
+    matrices to bf16 and the step does not, in the reference as here
+    (`tests/test_torch_rwkv6.py::test_bf16_decode_drift_is_the_reference_
+    drift`). No SLA kernel may launch. Returns the summary."""
+    cfg = get_arch(RW_ARCH)
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    t0 = time.time()
+    params = rwkv6.init(gen, cfg, dtype=torch.bfloat16, device=DEV)
+    nparams = sum(p.numel() for p in params.parameters())
+    init_s = time.time() - t0
+    say(f"[25 ssm] {RW_ARCH} at full width and depth: {cfg.num_layers} "
+        f"layers, d_model {cfg.d_model}, {cfg.ssm_heads} heads of "
+        f"{cfg.d_model // cfg.ssm_heads}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}: {nparams:,} parameters in bf16 "
+        f"({nparams * 2 / 1e9:.2f} GB, made in {init_s:.1f}s)")
+    toks = torch.randint(0, cfg.vocab_size, (RW_BATCH, RW_PROMPT + RW_NEW),
+                         generator=gen, device=DEV)
+    before = (sla_fwd.LAUNCHES, sla_bwd.LAUNCHES_DQ, sla_bwd.LAUNCHES_DKV,
+              sla_decode.LAUNCHES, sla_decode.PAGED_LAUNCHES)
+    runs = {}
+    with torch.no_grad():
+        for name, dtype in (("bf16", torch.bfloat16),
+                            ("f32", torch.float32)):
+            runs[name] = _rwkv_run(params, cfg, toks, dtype,
+                                   hold=name == "f32")
+            r = runs[name]
+            held = (f"limit {r['limit']:.4g}" if r["held"] else
+                    f"5e-2 x max |logits| = {r['limit']:.4g}, measured, not "
+                    f"held")
+            say(f"[25 ssm] {name} compute: prefill {RW_BATCH} x {RW_PROMPT} "
+                f"tokens {r['prefill_s']:.3f}s | {RW_NEW} decode steps "
+                f"{r['decode_ms']:.2f} ms a step | decode logits vs "
+                f"forward max |diff| {r['max_diff']:.4g} ({held}), greedy "
+                f"agreement {r['greedy_agreement']:.3f} | finite "
+                f"{r['finite']} | peak {r['peak_gib']:.2f} GiB "
+                f"{'OK' if r['ok'] else 'FAIL'}")
+            gc.collect()
+            torch.cuda.empty_cache()
+    sla = tuple(a - b for a, b in zip(
+        (sla_fwd.LAUNCHES, sla_bwd.LAUNCHES_DQ, sla_bwd.LAUNCHES_DKV,
+         sla_decode.LAUNCHES, sla_decode.PAGED_LAUNCHES), before))
+    say(f"[25 ssm] SLA kernel launches (fwd, dq, dkv, decode, paged "
+        f"decode): {sla} (expected none)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(r["ok"] for r in runs.values()) or any(sla):
+        raise RuntimeError(f"rwkv6 decode/forward consistency or launches "
+                           f"failed: {runs}, {sla}")
+    return dict(params=nparams, init_s=init_s, sla_launches=sla, **runs)
+
+
 def _tensors(x):
     if torch.is_tensor(x):
         yield x
@@ -4741,8 +5308,9 @@ def main(argv=None) -> int:
                          "forward, one full-width training step, 8 "
                          "full-width LM decode steps, one full-width LM "
                          "prefill, 8 paged decode steps, one full-width LM "
-                         "training step and one MoE decode step and print "
-                         "the top device-time entries")
+                         "training step, one MoE decode step, one zamba2 "
+                         "and one whisper training step and print the top "
+                         "device-time entries")
     args = ap.parse_args(argv)
     t_all = time.time()
     phase_card()
@@ -4816,6 +5384,15 @@ def main(argv=None) -> int:
     del moe_cfg, moe_params
     gc.collect()
     torch.cuda.empty_cache()
+    hy, hy_fwd_rows, hy_bwd_rows = phase_hybrid(args.profile)
+    ed, ed_fwd_rows, ed_bwd_rows = phase_encdec(args.profile)
+    rw = phase_rwkv6()
+    rows += hy_fwd_rows + ed_fwd_rows
+    bwd_rows += hy_bwd_rows + ed_bwd_rows
+    hyc, edc = hy["launches"], ed["launches"]
+    d64_keys = ("shape", "causal", "ms", "bound_ms", "bound_by",
+                "bound_fraction", "bound_ms_padded", "bound_by_padded",
+                "bound_fraction_padded", "ok")
     def row(shape, dtype, route):
         return next(r for r in rows if r["shape"] == shape
                     and r["dtype"] == dtype and r["route"] == route)
@@ -4838,12 +5415,12 @@ def main(argv=None) -> int:
     # compiled flex_attention's forward on the same inputs and LUT (phase
     # 7): O^s and L only, no linear branch, so not the kernel's function
     flex16 = wan_tc["sla_bwd_dq"].get("library_fwd_ms")
-    say(f"[23] sla_fwd at the Wan bf16 case (tensor cores): "
+    say(f"[26] sla_fwd at the Wan bf16 case (tensor cores): "
         f"{wan16['ms']:.3f} ms against its bound {wan16['bound_ms']:.3f} ms "
         f"({wan16['bound_fraction']:.1%}) | compiled flex_attention forward "
         f"on the same LUT (O^s and L only, lacks O^l): "
         + (f"{flex16:.3f} ms" if flex16 is not None else "not measured"))
-    say(f"[23] sla_fwd at the Wan f32 case: split route {wan32['ms']:.3f} ms "
+    say(f"[26] sla_fwd at the Wan f32 case: split route {wan32['ms']:.3f} ms "
         f"against its bound {wan32['bound_ms']:.3f} ms "
         f"({wan32['bound_fraction']:.1%}; the f32-FMA bound "
         f"{wan32['bound_ms_f32_fma']:.3f} ms) | f32-FMA kernel "
@@ -4864,7 +5441,11 @@ def main(argv=None) -> int:
                 "lm_chunked_prefill": pcc["tc_sla_fwd"],
                 "lm_disagg": dgc["tc_sla_fwd"],
                 "lm_train": ltc["tc_sla_fwd"],
-                "moe_prefill": moec["tc_sla_fwd"]}
+                "moe_prefill": moec["tc_sla_fwd"],
+                "hybrid_train": hyc["tc_sla_fwd"],
+                "hybrid_prefill": hy["prefill_launches"],
+                "encdec_train": edc["tc_sla_fwd"],
+                "encdec_prefill": ed["prefill_launches"]}
     # the other paths compute in bf16: every launch there is a tensor-core
     # one (phases 9, 12, 15, 17 check), so none is on the split route
     split_paths = {"serve": main_run["split_launches"],
@@ -4872,7 +5453,9 @@ def main(argv=None) -> int:
                    "train": 0,
                    "lm_prefill": 0, "lm_paged_prefill": 0,
                    "lm_unpaged_prefill": 0, "lm_chunked_prefill": 0,
-                   "lm_disagg": 0, "lm_train": 0, "moe_prefill": 0}
+                   "lm_disagg": 0, "lm_train": 0, "moe_prefill": 0,
+                   "hybrid_train": 0, "hybrid_prefill": 0,
+                   "encdec_train": 0, "encdec_prefill": 0}
     kernels = [{
         "name": "sla_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sla_fwd_split.cu",
@@ -4881,7 +5464,9 @@ def main(argv=None) -> int:
                      + train["launches"]["sla_fwd"]
                      + lm["launches"]["sla_fwd"] + pgc["sla_fwd"]
                      + puc["sla_fwd"] + pcc["sla_fwd"] + dgc["sla_fwd"]
-                     + ltc["sla_fwd"] + moec["sla_fwd"]),
+                     + ltc["sla_fwd"] + moec["sla_fwd"] + hyc["sla_fwd"]
+                     + hy["prefill_launches"] + edc["sla_fwd"]
+                     + ed["prefill_launches"]),
         "launches_by_path": {"serve": main_run["launches"],
                              "serve_plan_cache": pc_launches["launches"],
                              "train": train["launches"]["sla_fwd"],
@@ -4891,7 +5476,11 @@ def main(argv=None) -> int:
                              "lm_chunked_prefill": pcc["sla_fwd"],
                              "lm_disagg": dgc["sla_fwd"],
                              "lm_train": ltc["sla_fwd"],
-                             "moe_prefill": moec["sla_fwd"]},
+                             "moe_prefill": moec["sla_fwd"],
+                             "hybrid_train": hyc["sla_fwd"],
+                             "hybrid_prefill": hy["prefill_launches"],
+                             "encdec_train": edc["sla_fwd"],
+                             "encdec_prefill": ed["prefill_launches"]},
         "max_abs_err": max(r["max_abs_err"] for r in fwd_split),
         "ms": wan32["ms"], "plain_ms": wan32["plain_ms"],
         "bound_ms": wan32["bound_ms"], "bound_by": wan32["bound_by"],
@@ -4935,6 +5524,8 @@ def main(argv=None) -> int:
         "tc_criterion_all_ok": all(r["ok"] for r in fwd_tc),
         "train_ms_per_launch": (train["ms_per_launch"] or {}).get(
             "sla_fwd_tc_kernel"),
+        "d64_cases": [{k: r[k] for k in d64_keys}
+                      for r in hy_fwd_rows + ed_fwd_rows],
         "cases": rows,
     }, {
         "name": "sla_fwd_split_planes", "route": "cuda",
@@ -4961,9 +5552,12 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/sla_bwd.cu",
             "replaces": f"src/repro/kernels/sla_bwd.py:{line}",
-            "launches": train["launches"][name] + ltc[name],
+            "launches": (train["launches"][name] + ltc[name] + hyc[name]
+                         + edc[name]),
             "launches_by_path": {"train": train["launches"][name],
-                                 "lm_train": ltc[name]},
+                                 "lm_train": ltc[name],
+                                 "hybrid_train": hyc[name],
+                                 "encdec_train": edc[name]},
             "max_abs_err": max(r["max_abs_err"] for r in mine
                                if r["route"] == F32_ROUTE),
             "ms": wan["ms"], "plain_ms": wan["plain_ms"],
@@ -4976,7 +5570,8 @@ def main(argv=None) -> int:
             "route_bf16": TC_ROUTE,
             "source_bf16": "src/repro_torch/kernels/csrc/sla_bwd_tc.cu",
             "tc_launches": (train["launches"][f"tc_{name}"]
-                            + ltc[f"tc_{name}"]),
+                            + ltc[f"tc_{name}"] + hyc[f"tc_{name}"]
+                            + edc[f"tc_{name}"]),
             "ms_bf16": tc["ms"], "plain_ms_bf16": tc["plain_ms"],
             "bound_ms_bf16": tc["bound_ms"],
             "bound_by_bf16": tc["bound_by"],
@@ -4987,6 +5582,9 @@ def main(argv=None) -> int:
             "tc_criterion_all_ok": all(r["ok"] for r in tc_cases),
             "train_ms_per_launch": (train["ms_per_launch"] or {}).get(
                 f"{name}_tc_kernel"),
+            "d64_cases": [{k: r[k] for k in d64_keys}
+                          for r in hy_bwd_rows + ed_bwd_rows
+                          if r["kernel"] == name],
             "cases": mine,
         })
     head = next(r for r in dec_rows if r["shape"] == "qwen3-1.7b decode C=1"
@@ -5047,12 +5645,13 @@ def main(argv=None) -> int:
         **{key: head5[key] for key in split_keys},
         "cases": pg_rows,
     })
-    say(f"[23] main path {main_run} | cross-check {cross} | plan cache "
+    say(f"[26] main path {main_run} | cross-check {cross} | plan cache "
         f"{pcache} | grads {grads} | "
         f"train {train} | train CLI {cli} | lm {lm} | lm cross-check "
         f"{lm_cross} | paged lm {pg} | unpaged mixed {pu} | chunked "
         f"admission {pc} | decode_chunk {dchunk} | disagg {dg} | lm train "
-        f"{lt} | moe serve {moe} | total {time.time() - t_all:.1f}s")
+        f"{lt} | moe serve {moe} | hybrid {hy} | encdec {ed} | ssm {rw} | "
+        f"total {time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,17 @@
 """Carry the JAX package's model params and plans into the port, via numpy.
 
-The JAX package keeps DiT and LM params as nested dicts whose `layers`
-leaves are stacked over the layer axis (L, ...); the port keeps one
-`DiTLayer` / `TransformerLayer` per layer. `params_from_numpy` unstacks
-them into a `state_dict` for `load_state_dict` of `models.dit.DiT` or
-`models.transformer.Transformer` (qk-norm, `sla_proj` and the routing
-dict included); `plan_from_numpy`
+The JAX package keeps model params as nested dicts whose layer stacks
+(`layers`; an encoder-decoder's `enc` and `dec`) are stacked over the
+layer axis (L, ...); the port keeps one module per layer in an
+`nn.ModuleList`. `params_from_numpy` unstacks them into a `state_dict`
+for `load_state_dict` of any ported model (qk-norm, `sla_proj` and the
+routing dict included) and flattens unstacked nested dicts (the hybrid's
+`shared_attn`, its `routing` inside) into dotted names; `plan_from_numpy`
 turns a dict of plan leaves into an `SLAPlan`; `cache_from_numpy` carries
 a decode cache (monolithic, per-slot or paged, with or without decode-SLA
-state) into the port's cache dict. The caller does the `np.asarray` on
-the JAX side: this module imports no JAX.
+state, or a recurrent or encoder-decoder family's) into the port's cache
+dict. The caller does the `np.asarray` on the JAX side: this module
+imports no JAX.
 """
 from __future__ import annotations
 
@@ -30,24 +32,38 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
+# the params' layer stacks: leaves (L, ...) of one module per layer
+STACKS = ("layers", "enc", "dec")
+
+
+def _flatten(tree: Mapping, prefix: str = ""):
+    """(dotted name, leaf) pairs of a nested dict."""
+    for name, leaf in tree.items():
+        if isinstance(leaf, Mapping):
+            yield from _flatten(leaf, f"{prefix}{name}.")
+        else:
+            yield f"{prefix}{name}", leaf
+
+
 def params_from_numpy(tree: Mapping, device=None) -> Dict[str, torch.Tensor]:
-    """JAX DiT or LM params (nested dict of numpy arrays) -> the port's
-    state_dict. `layers` leaves (L, ...) become `layers.<l>.<name>`; a
-    nested dict (the learned-routing head) becomes `<name>.<key>`."""
+    """JAX model params (nested dict of numpy arrays) -> the port's
+    state_dict. A stack's leaves (L, ...) become `<stack>.<l>.<name>`, a
+    nested dict's leaves `<name>.<key>` (the learned-routing head, the
+    hybrid's unstacked `shared_attn`)."""
     dev = resolve_device(device)
     state: Dict[str, torch.Tensor] = {}
     for name, leaf in tree.items():
-        if name == "layers":
+        if name not in STACKS:
+            if isinstance(leaf, Mapping):
+                for full, arr in _flatten(leaf, f"{name}."):
+                    state[full] = _tensor(arr, dev)
+            else:
+                state[name] = _tensor(leaf, dev)
             continue
-        state[name] = _tensor(leaf, dev)
-    for name, leaf in tree.get("layers", {}).items():
-        sub = leaf.items() if isinstance(leaf, Mapping) else [(None, leaf)]
-        for key, arr in sub:
+        for sub, arr in _flatten(leaf):
             arr = np.asarray(arr)
             for li in range(arr.shape[0]):
-                full = f"layers.{li}.{name}" + ("" if key is None
-                                                else f".{key}")
-                state[full] = _tensor(arr[li], dev)
+                state[f"{name}.{li}.{sub}"] = _tensor(arr[li], dev)
     return state
 
 

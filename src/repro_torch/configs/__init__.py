@@ -1,8 +1,8 @@
 """Config registry: --arch <id> resolution.
 
-The DiT configs, qwen3-1.7b and the two MoE configs are ported; asking
-for any other arch of the JAX registry raises and names the ROADMAP item
-that ports its family.
+The DiT configs, qwen3-1.7b, the two MoE configs, zamba2-1.2b,
+rwkv6-7b and whisper-small are ported; asking for any other arch of the
+JAX registry raises and names the ROADMAP item that ports its family.
 """
 from repro_torch.configs.base import (DIT_SHAPES, SHAPES, SMOKE_SHAPES,
                                       ArchConfig, ShapeConfig)
@@ -13,6 +13,9 @@ _ARCH_MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
     "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "zamba2-1.2b": "zamba2_1_2b",
+    "rwkv6-7b": "rwkv6_7b",
+    "whisper-small": "whisper_small",
 }
 
 # arch -> the ROADMAP.md queue-1 item that ports its model family
@@ -20,9 +23,6 @@ _NOT_YET_PORTED = {
     "h2o-danube-3-4b": 15,
     "gemma3-1b": 15,
     "mistral-large-123b": 15,
-    "zamba2-1.2b": 15,
-    "rwkv6-7b": 15,
-    "whisper-small": 15,
     "internvl2-1b": 15,
 }
 

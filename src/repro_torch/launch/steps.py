@@ -1,4 +1,5 @@
-"""The train step of every ported family (DiT, dense and MoE LMs).
+"""The train step of every ported family (DiT, dense and MoE LMs, the
+recurrent, hybrid and encoder-decoder LMs).
 Counterpart of `repro.launch.steps`, train half (`cast_params_bf16`,
 `make_train_step`); the prefill and serve steps, which only the dry run
 calls, are not ported (ROADMAP.md queue 1, item 16).
@@ -54,13 +55,19 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
 
     The defaults are the reference's `make_train_step`. The training CLI
     sets the rest, as the reference's CLI loop does: `distill` takes the
-    family's `distill_loss_fn`; `trainable` (name -> bool, from
+    family's `distill_loss_fn` (a ValueError for a family without one:
+    ssm, hybrid, encdec); `trainable` (name -> bool, from
     `adamw.trainable_mask`) updates only those parameters;
     `compute_bf16=False` runs the loss on the f32 parameters themselves;
     and when `guard(loss)` is false the update is skipped and the step
     returns a grad norm of None."""
     mdl = registry.get_model(cfg)
-    loss_impl = mdl.distill_loss_fn if distill else mdl.loss_fn
+    loss_impl = mdl.loss_fn
+    if distill:
+        loss_impl = getattr(mdl, "distill_loss_fn", None)
+        if loss_impl is None:
+            raise ValueError(f"--distill: model family {cfg.family!r} has "
+                             "no distill_loss_fn")
 
     def train_step(params, opt_state, batch):
         named = dict(params.named_parameters())
@@ -72,7 +79,10 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
         loss = loss.detach()
         gnorm = None
         if guard is None or guard(loss):
-            grads = {n: p.grad for n, p in named.items()}
+            # a parameter the loss does not read (a decoder block's
+            # sla_proj) has a zero gradient, as the reference's
+            grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                     for n, p in named.items()}
             _, opt_state, metrics = adamw.update(named, grads, opt_state,
                                                  opt_cfg,
                                                  trainable=trainable)

@@ -1,16 +1,21 @@
-"""Training CLI of the port: DiT, dense and MoE LM families.
+"""Training CLI of the port: DiT, dense and MoE LM, recurrent (rwkv6),
+hybrid (zamba2) and encoder-decoder (whisper) families.
 
     python -m repro_torch.launch.train --arch wan2_1_1_3b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
         --smoke --steps 3 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \
+        --smoke --steps 2 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch lightningdit_1b \
         --smoke --distill --routing-mode learned --train-only routing,sla_proj \
         --routing-warm-init --steps 3 --device cpu
 
 Counterpart of `repro.launch.train`: config -> seeded params ->
-deterministic batches (latents for a DiT, Markov-chain tokens for an LM)
--> the family's loss (flow matching or next-token cross-entropy, or with
-`--distill` its distillation loss) and gradient under per-layer remat ->
+deterministic batches (latents for a DiT, Markov-chain tokens for an LM,
+stub audio frames and text tokens for whisper) -> the family's loss (flow
+matching or next-token cross-entropy, or with `--distill` its
+distillation loss, which the ssm, hybrid and encdec families lack: a
+ValueError, as the reference) and gradient under per-layer remat ->
 AdamW (optionally on a `--train-only` subset) ->
 straggler watchdog + NaN guard. The loss keeps the reference's default
 backend ("gather"). `--device` (default cuda) chooses the device; 'cpu'

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core import reference as sref
 from repro_torch.core.config import SLAConfig
+from repro_torch.core.masks import NEG_INF
 from repro_torch.core.sla import sla_attention
 
 
@@ -83,6 +84,30 @@ def attention(sla_params: Optional[dict], q: torch.Tensor, k: torch.Tensor,
             "sliding-window attention is not ported yet (ROADMAP.md "
             "queue 1, item 15: gemma3)")
     raise ValueError(f"unknown attention kind {kind!r}")
+
+
+def cache_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                    upto: Optional[int] = None) -> torch.Tensor:
+    """Dense softmax attention of q (B, H, Sq, D) over a static cache
+    (B, Hkv, S, D) in f32, masked past position `upto` when given (the
+    recurrent and encoder-decoder families' decode). Returns q.dtype."""
+    h = q.shape[1]
+    kk = (torch.repeat_interleave(kc, h // kc.shape[1], 1)
+          if kc.shape[1] != h else kc)
+    vv = (torch.repeat_interleave(vc, h // vc.shape[1], 1)
+          if vc.shape[1] != h else vc)
+    s = torch.matmul(q.float(), kk.float().transpose(-1, -2)) \
+        * q.shape[-1]**-0.5
+    if upto is not None:
+        ok = torch.arange(kc.shape[2], device=q.device) <= upto
+        s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    return torch.matmul(torch.softmax(s, dim=-1), vv.float()).to(q.dtype)
+
+
+def routing_of(p) -> Optional[dict]:
+    """A block's learned-routing head as a dict, or None without one."""
+    routing = getattr(p, "routing", None)
+    return None if routing is None else dict(routing)
 
 
 def output_table(params) -> torch.Tensor:

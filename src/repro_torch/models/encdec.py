@@ -1,0 +1,269 @@
+"""Whisper-style encoder-decoder backbone (the audio frontend is a stub:
+the batch carries precomputed frame embeddings `audio_embeds`).
+
+Counterpart of `repro.models.encdec`. Encoder: bidirectional
+self-attention over the frames, SLA when `cfg.attention_kind == "sla"`
+(the paper's own non-causal setting), with the learned routing head on
+encoder blocks only. Decoder: causal full self-attention over the text
+plus non-causal full cross-attention into the encoder states. Rope
+rotates q at its positions and k at arange(Sk); cross-attention has no
+rope. Both stacks are rematerialized layer by layer in training
+(`distributed.ctx.maybe_remat`); an encoder layer's SLA plan is built in
+its first pass and reused by the recompute, so each encoder layer plans
+once a step and runs the SLA forward twice.
+
+Serving: `prefill` encodes the audio and computes every decoder layer's
+cross K/V; `decode_step` runs one text token with masked dense attention
+over the self cache and dense attention over the cross cache, writing
+the self cache IN PLACE (the reference returns a new cache).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import masks as masks_lib
+from repro_torch.core import plan as plan_lib
+from repro_torch.distributed import ctx
+from repro_torch.models.common import (attention, cache_attention,
+                                       chunked_softmax_xent, dense_init,
+                                       embed_init, logits_from_hidden,
+                                       rms_norm, rope, routing_of)
+
+
+class EncDecBlock(nn.Module):
+    """One encoder (cross=False) or decoder (cross=True) block."""
+
+    def __init__(self, cfg: ArchConfig, cross: bool, generator=None,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        d, h, hkv, dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                         cfg.head_dim)
+
+        def dense(i, o):
+            return nn.Parameter(dense_init(generator, i, o, dtype, device))
+
+        def zeros(*shape):
+            return nn.Parameter(torch.zeros(shape, dtype=dtype,
+                                            device=device))
+
+        self.ln1, self.ln2 = zeros(d), zeros(d)
+        self.wq, self.wk = dense(d, h * dh), dense(d, hkv * dh)
+        self.wv, self.wo = dense(d, hkv * dh), dense(h * dh, d)
+        self.sla_proj = zeros(h, dh, dh)
+        self.mlp_wi = dense(d, 2 * cfg.d_ff)
+        self.mlp_wo = dense(cfg.d_ff, d)
+        if cfg.sla.routing_mode == "learned" and not cross:
+            # encoder blocks only: decode runs exact attention for the
+            # decoder's self- and cross-attention
+            r = masks_lib.routing_init(h, dh, dtype, device)
+            self.routing = nn.ParameterDict(
+                {name: nn.Parameter(w) for name, w in r.items()})
+        if cross:
+            self.ln_x = zeros(d)
+            self.xq, self.xk = dense(d, h * dh), dense(d, hkv * dh)
+            self.xv, self.xo = dense(d, hkv * dh), dense(h * dh, d)
+
+
+class EncDec(nn.Module):
+    def __init__(self, cfg: ArchConfig, generator=None, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.enc = nn.ModuleList(
+            EncDecBlock(cfg, False, generator, dtype, device)
+            for _ in range(cfg.encoder_layers))
+        self.dec = nn.ModuleList(
+            EncDecBlock(cfg, True, generator, dtype, device)
+            for _ in range(cfg.decoder_layers))
+        self.embed = nn.Parameter(embed_init(
+            generator, cfg.vocab_size, cfg.d_model, dtype, device))
+        self.ln_enc = nn.Parameter(torch.zeros(cfg.d_model, dtype=dtype,
+                                               device=device))
+        self.ln_f = nn.Parameter(torch.zeros(cfg.d_model, dtype=dtype,
+                                             device=device))
+
+
+def init(generator: Optional[torch.Generator], cfg: ArchConfig,
+         dtype=torch.float32, device=None) -> EncDec:
+    """Random parameters drawn from `generator` on the target device (the
+    card unless `device` says otherwise). Not bitwise the reference's
+    init; tests carry its weights over with `repro_torch.bridge`."""
+    return EncDec(cfg, generator, dtype, resolve_device(device))
+
+
+def _proj(x, w, heads: int, dh: int):
+    b, s, _ = x.shape
+    return (x @ w.to(x.dtype)).reshape(b, s, heads, dh).transpose(1, 2)
+
+
+def _mha(p, pre: str, x, kv_x, cfg: ArchConfig, causal: bool, kind: str,
+         positions, backend, kept: Optional[dict] = None):
+    """Attention sub-block: q from x, k and v from kv_x through the
+    `pre`-prefixed weights ("w" self, "x" cross). An SLA call plans on
+    its first pass and keeps the plan in `kept` for a rematerializing
+    recompute."""
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    b, s, _ = x.shape
+    q = _proj(x, getattr(p, pre + "q"), h, dh)
+    k = _proj(kv_x, getattr(p, pre + "k"), hkv, dh)
+    v = _proj(kv_x, getattr(p, pre + "v"), hkv, dh)
+    if positions is not None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, torch.arange(k.shape[2], device=k.device),
+                 cfg.rope_theta)
+    if kind == "sla":
+        routing = routing_of(p)
+        sla = cfg.sla.replace(causal=causal)
+        plan = None
+        if sla.mode not in ("full", "linear_only"):
+            if "plan" not in kept:
+                # planning's saved tensors (the learned router's gates)
+                # stay out of the remat checkpoint; the recompute reuses
+                # the plan
+                with torch.autograd.graph.saved_tensors_hooks(
+                        lambda t: t.detach(), lambda t: t):
+                    kept["plan"] = plan_lib.plan_attention(
+                        q, k, sla, routing=routing)
+            plan = kept["plan"]
+        o = attention({"proj": p.sla_proj}, q, k, v, "sla", cfg.sla,
+                      causal=causal, backend=backend, plan=plan,
+                      routing=routing)
+    else:
+        o = attention(None, q, k, v, kind, cfg.sla, causal=causal)
+    o = o.transpose(1, 2).reshape(b, s, h * dh)
+    return o @ getattr(p, pre + "o").to(x.dtype)
+
+
+def _mlp(p, x):
+    g, u = (x @ p.mlp_wi.to(x.dtype)).chunk(2, dim=-1)
+    return (F.silu(g) * u) @ p.mlp_wo.to(x.dtype)
+
+
+def encode(params, cfg: ArchConfig, audio_embeds: torch.Tensor,
+           compute_dtype=torch.bfloat16, backend: str = "gather"
+           ) -> torch.Tensor:
+    """audio_embeds: (B, T, d) stub frame embeddings -> encoder states."""
+    x = audio_embeds.to(compute_dtype)
+    b, t = x.shape[:2]
+    pos = torch.arange(t, device=x.device)[None].expand(b, t)
+    kind = "sla" if cfg.attention_kind == "sla" else "full"
+
+    def body(x, p, kept):
+        xn = rms_norm(x, p.ln1)
+        x = ctx.shard_residual(
+            x + _mha(p, "w", xn, xn, cfg, False, kind, pos, backend, kept))
+        return ctx.shard_residual(x + _mlp(p, rms_norm(x, p.ln2)))
+
+    for p in params.enc:
+        x = ctx.maybe_remat(functools.partial(body, p=p, kept={}))(x)
+    return rms_norm(x, params.ln_enc)
+
+
+def decode(params, cfg: ArchConfig, tokens: torch.Tensor,
+           enc_states: torch.Tensor, compute_dtype=torch.bfloat16,
+           backend: str = "gather") -> torch.Tensor:
+    """Teacher-forced decoder over text tokens (B, S) -> hidden states."""
+    x = F.embedding(tokens, params.embed).to(compute_dtype)
+    b, s = x.shape[:2]
+    pos = torch.arange(s, device=x.device)[None].expand(b, s)
+    enc = enc_states.to(compute_dtype)
+
+    def body(x, p):
+        xn = rms_norm(x, p.ln1)
+        x = ctx.shard_residual(
+            x + _mha(p, "w", xn, xn, cfg, True, "full", pos, backend))
+        x = ctx.shard_residual(
+            x + _mha(p, "x", rms_norm(x, p.ln_x), enc, cfg, False, "full",
+                     None, backend))
+        return ctx.shard_residual(x + _mlp(p, rms_norm(x, p.ln2)))
+
+    for p in params.dec:
+        x = ctx.maybe_remat(functools.partial(body, p=p))(x)
+    return rms_norm(x, params.ln_f)
+
+
+def loss_fn(params, cfg: ArchConfig, batch: dict,
+            compute_dtype=torch.bfloat16, backend: str = "gather"
+            ) -> torch.Tensor:
+    """batch: audio_embeds (B, T, d), tokens (B, S), targets (B, S);
+    cross-entropy over the tied `embed`."""
+    enc = encode(params, cfg, batch["audio_embeds"], compute_dtype, backend)
+    x = decode(params, cfg, batch["tokens"], enc, compute_dtype, backend)
+    return chunked_softmax_xent(x, params.embed, batch["targets"],
+                                batch.get("mask"))
+
+
+# --------------------------------------------------------------------------
+# serving: cross K/V computed at prefill; the decoder's self cache grows
+# --------------------------------------------------------------------------
+def make_cache(cfg: ArchConfig, batch: int, enc_len: int,
+               dec_len: Optional[int] = None, dtype=torch.bfloat16,
+               device=None) -> dict:
+    """Empty decode cache on `device` (the card unless asked otherwise);
+    `dec_len` defaults to max(enc_len // 8, 64)."""
+    dev = resolve_device(device)
+    dec_len = dec_len or max(enc_len // 8, 64)
+    dl, hkv, dh = cfg.decoder_layers, cfg.num_kv_heads, cfg.head_dim
+    kw = dict(dtype=dtype, device=dev)
+    return {
+        "self_k": torch.zeros((dl, batch, hkv, dec_len, dh), **kw),
+        "self_v": torch.zeros((dl, batch, hkv, dec_len, dh), **kw),
+        "cross_k": torch.zeros((dl, batch, hkv, enc_len, dh), **kw),
+        "cross_v": torch.zeros((dl, batch, hkv, enc_len, dh), **kw),
+        "pos": 0,
+    }
+
+
+def prefill(params, cfg: ArchConfig, batch: dict,
+            compute_dtype=torch.bfloat16, backend: str = "gather",
+            dec_len: Optional[int] = None):
+    """Encode the audio and compute every decoder layer's cross K/V.
+    Returns (encoder states (B, T, d), cache)."""
+    enc = encode(params, cfg, batch["audio_embeds"], compute_dtype, backend)
+    b, t, _ = enc.shape
+    hkv, dh = cfg.num_kv_heads, cfg.head_dim
+    cache = make_cache(cfg, b, t, dec_len, dtype=compute_dtype,
+                       device=enc.device)
+    for li, p in enumerate(params.dec):
+        cache["cross_k"][li] = _proj(enc, p.xk, hkv, dh)
+        cache["cross_v"][li] = _proj(enc, p.xv, hkv, dh)
+    return enc, cache
+
+
+def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
+                compute_dtype=torch.bfloat16):
+    """One text token (B,): causal self-attention over the (small) text
+    cache plus cross-attention over the (long) audio cross K/V. Writes
+    the self cache in place; returns (logits (B, V) f32, cache) with
+    `pos` advanced."""
+    x = F.embedding(token[:, None], params.embed).to(compute_dtype)
+    b = x.shape[0]
+    pos = int(cache["pos"])
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    positions = torch.full((b, 1), pos, device=x.device)
+    for li, p in enumerate(params.dec):
+        sk, sv = cache["self_k"][li], cache["self_v"][li]
+        xn = rms_norm(x, p.ln1)
+        q = rope(_proj(xn, p.wq, h, dh), positions, cfg.rope_theta)
+        kn = rope(_proj(xn, p.wk, hkv, dh), positions, cfg.rope_theta)
+        sk[:, :, pos] = kn[:, :, 0].to(sk.dtype)
+        sv[:, :, pos] = _proj(xn, p.wv, hkv, dh)[:, :, 0].to(sv.dtype)
+        o = cache_attention(q, sk, sv, pos).transpose(1, 2) \
+            .reshape(b, 1, h * dh)
+        x = x + o @ p.wo.to(x.dtype)
+        xq = _proj(rms_norm(x, p.ln_x), p.xq, h, dh)
+        xo = cache_attention(xq, cache["cross_k"][li],
+                             cache["cross_v"][li]).transpose(1, 2) \
+            .reshape(b, 1, h * dh)
+        x = x + xo @ p.xo.to(x.dtype)
+        x = x + _mlp(p, rms_norm(x, p.ln2))
+    x = rms_norm(x, params.ln_f)
+    cache["pos"] = pos + 1
+    return logits_from_hidden(params, x[:, 0]), cache

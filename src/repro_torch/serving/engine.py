@@ -131,7 +131,10 @@ class ServingEngine:
                 prefill_chunk_blocks=prefill_chunk_blocks)
             self._sched.stats = self.stats
             return
-        self._cparams = self.mdl.compute_params(params)
+        # families without a compute copy (rwkv6, hybrid, encdec) cast
+        # each weight in its matmul, as the reference
+        cast = getattr(self.mdl, "compute_params", None)
+        self._cparams = params if cast is None else cast(params)
         # decode-SLA prefills seed the decode state against the final
         # cache length; plain prefills are grown by _grow_cache instead
         self._dkw = ({"decode_max_len": self.max_len} if self.decode_sla

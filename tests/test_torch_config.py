@@ -11,7 +11,10 @@ from repro_torch.configs import get_arch
 from repro_torch.core.config import SLAConfig
 
 PORTED_ARCHS = ("wan2_1_1_3b", "lightningdit_1b", "qwen3-1.7b",
-                "moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b")
+                "moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b",
+                "zamba2-1.2b", "rwkv6-7b", "whisper-small")
+UNPORTED_ARCHS = ("h2o-danube-3-4b", "gemma3-1b", "mistral-large-123b",
+                  "internvl2-1b")
 
 
 def _fields(cls):
@@ -96,3 +99,27 @@ def test_unported_arch_names_its_roadmap_item():
         get_arch("gemma3-1b")
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
+
+
+@pytest.mark.parametrize("arch", UNPORTED_ARCHS)
+def test_the_four_remaining_archs_name_item_15(arch):
+    """Every arch of the JAX registry is either ported or raises naming
+    ROADMAP item 15; the VLM family's model raises too."""
+    from repro.configs import ASSIGNED_ARCHS, PAPER_ARCHS
+    from repro_torch.models import registry
+    assert sorted(ASSIGNED_ARCHS + PAPER_ARCHS) == sorted(
+        PORTED_ARCHS + UNPORTED_ARCHS)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        get_arch(arch)
+    vlm = dataclasses.replace(get_arch("qwen3-1.7b"), family="vlm")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        registry.get_model(vlm)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-7b",
+                                  "whisper-small"])
+def test_new_families_resolve_to_their_modules(arch):
+    from repro_torch.models import encdec, hybrid, registry, rwkv6
+    want = {"hybrid": hybrid, "ssm": rwkv6, "encdec": encdec}
+    cfg = get_arch(arch)
+    assert registry.get_model(cfg) is want[cfg.family]

@@ -89,6 +89,10 @@ CASES = [
     (2, 1, 512, 128, 64, True, 4),
     (3, 1, 384, 64, 32, False, 0),
     (2, 1, 256, 8, 16, True, 4),
+    # D 64 at 64 x 64 blocks (zamba2's shared block, causal; whisper's
+    # encoder, non-causal): the tensor-core and split routes pad to 128
+    (4, 1, 512, 64, 64, True, 4),
+    (3, 1, 512, 64, 64, False, 0),
 ]
 
 
@@ -480,6 +484,8 @@ BWD_CASES = [
     (2, 1, 256, 8, 16, True),
     (4, 2, 1024, 128, 64, True),
     (2, 1, 512, 108, 64, False),
+    (4, 1, 512, 64, 64, True),
+    (3, 1, 512, 64, 64, False),
 ]
 
 
@@ -1355,6 +1361,58 @@ def test_lm_train_step_on_the_card_kernel_vs_gather(arch):
     n = cfg.num_layers
     assert out["kernel"][2] == (2 * n, n, n)
     assert out["gather"][2] == (0, 0, 0)
+    assert all(np.isfinite(out[b][:2]).all() for b in out)
+    np.testing.assert_allclose(out["kernel"][:2], out["gather"][:2],
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "whisper-small"])
+def test_family_train_step_on_the_card_kernel_vs_gather(arch):
+    """One make_train_step of the hybrid (causal shared SLA block) and
+    the encoder-decoder (non-causal SLA encoder) smoke configs at 64 x 64
+    blocks and head dim 64, so that kernels 1-3 take the tensor cores at
+    D 64 (zero-padded to 128), on each backend from the same seeded
+    weights and batch: the same loss and grad norm to bf16 noise, and the
+    kernels ran once per SLA call (the encoder's forward twice: its remat
+    recompute)."""
+    _need_gpu()
+    from repro_torch.configs import get_shape
+    from repro_torch.data import pipeline
+    from repro_torch.models import registry
+    cfg = get_arch(arch).smoke()
+    cfg = dataclasses.replace(cfg, head_dim=64, sla=cfg.sla.replace(
+        block_q=64, block_kv=64))
+    mdl = registry.get_model(cfg)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in pipeline.token_batch(
+        cfg, get_shape("train_4k", smoke=True), pipeline.DataConfig(), 0
+    ).items()}
+    out = {}
+    for backend in ("kernel", "gather"):
+        model = mdl.init(torch.Generator("cuda").manual_seed(3), cfg,
+                         device="cuda")
+        step = steps.make_train_step(
+            cfg, adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2),
+            backend=backend)
+        state = adamw.init(dict(model.named_parameters()))
+        names = ("LAUNCHES", "TC_LAUNCHES")
+        before = ([getattr(sla_fwd, n) for n in names]
+                  + [getattr(sla_bwd, n + s) for n in names
+                     for s in ("_DQ", "_DKV")])
+        with ctx.activation_sharding(remat=True):
+            model, state, loss, gnorm = step(model, state, batch)
+        after = ([getattr(sla_fwd, n) for n in names]
+                 + [getattr(sla_bwd, n + s) for n in names
+                    for s in ("_DQ", "_DKV")])
+        out[backend] = (float(loss), float(gnorm),
+                        tuple(a - b for a, b in zip(after, before)))
+    if cfg.family == "hybrid":
+        n = len(registry.get_model(cfg).segments(cfg))
+        want = (n, n, n, n, n, n)
+    else:
+        n = cfg.encoder_layers
+        want = (2 * n, 2 * n, n, n, n, n)
+    assert out["kernel"][2] == want
+    assert out["gather"][2] == (0,) * 6
     assert all(np.isfinite(out[b][:2]).all() for b in out)
     np.testing.assert_allclose(out["kernel"][:2], out["gather"][:2],
                                rtol=2e-2)
