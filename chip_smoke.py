@@ -359,11 +359,57 @@ Phases, in order; any failure exits non-zero before the result line:
      (the chunked forward rounds what the step does not, in the
      reference too); finite logits; no SLA kernel launches. Prints walls
      and peaks.
- 26. the kernels line (JSON): `sla_fwd` carries the split route's fields
+ 26. head dim 256: kernel 1 against its twin at gemma3-1b's prefill shape
+     (BH 4 on BH_kv 1, N 32,768, D 256, 64x64 blocks, causal, LUTs from
+     `plan_attention`) in f32 and bf16, both on the f32-FMA route (the
+     tensor-core and split counters do not move), each output within 5e-5
+     x max(1, max |twin|), two launches bitwise equal; kernel 4 on a
+     gemma3 decode state (B 2, H 4, Hkv 1, D 256, Tn 512, K 26, bf16 K/V)
+     at C 1 and 4 and kernel 5 on a paged state of 4 slots sharing 96
+     pages, at three split widths, kernel 5 bitwise equal to kernel 4 on
+     the gathered view; each timed (CUDA events; the decode kernels by
+     CUDA-graph replay) beside its bound; kernels 2 and 3 raise at D 256
+     (ROADMAP item 15 part 3) without a launch.
+ 27. gemma3-1b at full width and depth (26 layers: 22 sliding-window
+     layers with a 512-token window, 4 SLA layers; 4 / 1 heads of 256;
+     vocab 262,144; f32 masters, bf16 compute): the static engine with
+     decode-time SLA, 2 prompts of 32,000 tokens and 64 new (prefill_32k's
+     batch 32 cut to 2): 4 kernel-1 launches a prefill forward, all on the
+     f32-FMA route, 4 kernel-4 launches a decode step, kernel 4 against
+     its twin on the path's state of the first and last SLA layer, the
+     prefill's last-position logits on the kernel and the gather backend
+     on the kernel run's plans within 5e-2 x max(1, max |logits|); then
+     the paged continuous Scheduler, 4 prompts of 8,000 tokens sharing
+     their first 6,144 and 16 new each: 4 kernel-1 launches an
+     admission, 4 kernel-5 launches a step, kernel 5 against its twin on
+     the live state at one step. Prefill walls, decode ms a step, pages,
+     peak memory.
+ 28. h2o-danube-3-4b at full width and depth (24 SLA layers, 32 / 8 heads
+     of 120, window 8,192 inside the SLA mask): the static engine with
+     dense decode (decode-time SLA refuses a window, as the reference),
+     2 prompts of 32,000 tokens and 32 new: 24 kernel-1 launches a
+     prefill, all on the tensor-core route (D 120 padded to 128); the
+     prefill logits kernel vs gather on shared plans; no block of those
+     plans classified at a distance of window + block_kv or more.
+ 29. internvl2-1b at full width and depth (24 layers, 14 / 2 heads of 64,
+     256 patch embeddings ahead of 3,840 tokens), train_4k at batch 1, f32
+     masters: the loss kernel vs gather, 3 AdamW steps under remat with
+     48 / 24 / 24 tensor-core launches of kernels 1 / 2 / 3 a step,
+     kernels 1-3 on the last step's plans of layers 0 and 23, the train
+     CLI.
+     mistral-large-123b is not driven: its 122 B parameters take 228 GiB
+     even in bf16, past one card; it waits for the mesh of ROADMAP item
+     16.
+ 30. the kernels line (JSON): `sla_fwd` carries the split route's fields
      at the top (the f32 serving route) and the f32-FMA and bf16
      tensor-core routes' beside them, kernels 1-3 the D-64 cases of
-     phases 23-24 (`d64_cases`); `sla_fwd_split_planes` is the split
-     route's pre-pass; then the result line.
+     phases 23, 24 and 29 (`d64_cases`), kernels 1, 4 and 5 their D-256
+     cases; every kernel the head dims its launches on the main paths
+     ran at (`head_dims`, `head_dims_by_path`: what its wrapper recorded
+     after padding, zeroed with the counters before each path) and,
+     apart, those of the archs it served (`arch_head_dims`);
+     `sla_fwd_split_planes` is the split route's pre-pass; then the
+     result line.
 """
 from __future__ import annotations
 
@@ -517,6 +563,18 @@ ED_PROBES = ("enc.0.wq", "enc.11.sla_proj", "embed")
 ED_PREFILL, ED_NEW = 2, 32
 RW_ARCH, RW_BATCH, RW_PROMPT, RW_NEW = "rwkv6-7b", 2, 2048, 16
 FAM_LOSS_TOL = 5e-2  # kernel vs gather loss and decode vs forward logits
+# head dim 256, sliding-window attention and the VLM prefix (phases 26-29):
+# kernel 1 at gemma3's prefill shape; gemma3 served static (prefill_32k's
+# batch 32 cut to 2, 64 new) and paged (4 prompts of 8,000 sharing 6,144,
+# 16 new); danube served static with dense decode (2 x 32,000, 32 new);
+# internvl2 trained at train_4k (batch 256 cut to 1)
+D256_N, D256_K = 32768, 26
+D256_DECODE_POS, D256_PAGED_POS = 300 * 64 + 32, 500 * 64 + 32
+G3_ARCH, G3_BATCH, G3_PROMPT, G3_NEW = "gemma3-1b", 2, 32000, 64
+G3_PG_SLOTS, G3_PG_PROMPT, G3_PG_SHARED, G3_PG_NEW = 4, 8000, 6144, 16
+G3_PG_MAX_LEN = 8192
+DN_ARCH, DN_BATCH, DN_PROMPT, DN_NEW = "h2o-danube-3-4b", 2, 32000, 32
+VL_ARCH, VL_STEPS, VL_BATCH = "internvl2-1b", 3, 1
 DEV = torch.device("cuda")
 
 
@@ -633,10 +691,12 @@ def _bound(args, kw, route=None):
     """Least time for this call on `route` (default: the one
     `sla_fwd.forward_route` picks): the larger of bytes (each input read
     once, each output written once) over HBM bandwidth and this data's
-    operations (live critical tiles + linear merge) at the route's rate:
-    all at 67 TFLOP/s on the f32-FMA route, all at 989 on the tensor-core
-    route, and on the split route the tile products six times at 989 (its
-    six bf16 part products) plus the linear merge's f32 FMAs at 67."""
+    operations (live critical tiles + linear merge) at the card's peak
+    for the operands' type: bf16 operands all at 989 TFLOP/s (bf16
+    tensor cores) whatever route runs them; f32 operands all at 67 on
+    the f32-FMA route, and on the split route the tile products six
+    times at 989 (its six bf16 part products) plus the linear merge's f32
+    FMAs at 67."""
     lut, counts, q, k, v, qp, hi, zi = args
     bh, nq, d = q.shape
     bq, bkv = kw["block_q"], kw["block_kv"]
@@ -650,6 +710,8 @@ def _bound(args, kw, route=None):
     if route == "split":
         t_ops = (sla_fwd.SPLIT_PRODUCTS * tile_flops / PEAK_FLOPS["tc"]
                  + lin_flops / PEAK_FLOPS["fma"])
+    elif q.dtype == torch.bfloat16:
+        t_ops = flops / PEAK_FLOPS[torch.bfloat16]
     else:
         t_ops = flops / PEAK_FLOPS[route]
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -669,6 +731,48 @@ FWD_ROUTES = {"tc": FWD_TC_ROUTE, "split": FWD_SPLIT_ROUTE,
 def _fwd_counters():
     return (sla_fwd.LAUNCHES, sla_fwd.TC_LAUNCHES, sla_fwd.SPLIT_LAUNCHES,
             sla_fwd.PLANES_LAUNCHES)
+
+
+def _head_dim_records() -> dict:
+    """Each kernel's wrapper record: its launches by the head dim the
+    kernel ran at (after the wrapper's padding)."""
+    return {"sla_fwd": sla_fwd.HEAD_DIMS,
+            "sla_fwd_split_planes": sla_fwd.PLANES_HEAD_DIMS,
+            "sla_bwd_dq": sla_bwd.HEAD_DIMS_DQ,
+            "sla_bwd_dkv": sla_bwd.HEAD_DIMS_DKV,
+            "sla_decode": sla_decode.HEAD_DIMS,
+            "sla_decode_paged": sla_decode.PAGED_HEAD_DIMS}
+
+
+# kernel -> main path -> the head dims its launches there ran at
+PATH_HEAD_DIMS: dict = {name: {} for name in _head_dim_records()}
+
+
+def _zero_head_dims():
+    """Clear the wrappers' head-dim records, with the launch counters,
+    just before a main path runs."""
+    for rec in _head_dim_records().values():
+        rec.clear()
+
+
+def _read_head_dims(path: str):
+    """Keep under `path` the head dims each kernel launched at since
+    `_zero_head_dims`, read just after the path ran."""
+    for name, rec in _head_dim_records().items():
+        if rec:
+            PATH_HEAD_DIMS[name].setdefault(path, set()).update(rec)
+
+
+def _head_dim_snapshot():
+    """A copy of the records, to restore after launches made only to
+    compare a kernel with its twin inside a path."""
+    return {name: rec.copy() for name, rec in _head_dim_records().items()}
+
+
+def _restore_head_dims(snap):
+    for name, rec in _head_dim_records().items():
+        rec.clear()
+        rec.update(snap[name])
 
 
 def _fwd_call(args, kw, route=None):
@@ -974,6 +1078,7 @@ def phase_main_path(cfg, params):
     torch.cuda.reset_peak_memory_stats()
     sla_fwd.LAUNCHES = sla_fwd.TC_LAUNCHES = sla_fwd.SPLIT_LAUNCHES = 0
     sla_fwd.PLANES_LAUNCHES = 0
+    _zero_head_dims()
     dit.forward = counted_forward
     t0 = time.time()
     try:
@@ -983,6 +1088,7 @@ def phase_main_path(cfg, params):
     wall = time.time() - t0
     launches, tc_launches, split_launches, planes_launches = \
         _fwd_counters()
+    _read_head_dims("serve")
     peak = torch.cuda.max_memory_allocated() / 2**30
     st = sched.stats
     ticks = st.slot_steps_total // MAIN_SLOTS
@@ -1211,6 +1317,7 @@ def _plan_cache_run(cfg, params, reqs, cache: bool) -> dict:
     torch.cuda.reset_peak_memory_stats()
     sla_fwd.LAUNCHES = sla_fwd.TC_LAUNCHES = sla_fwd.SPLIT_LAUNCHES = 0
     sla_fwd.PLANES_LAUNCHES = 0
+    _zero_head_dims()
     dit.forward = counted_forward
     t0 = time.time()
     try:
@@ -1220,6 +1327,7 @@ def _plan_cache_run(cfg, params, reqs, cache: bool) -> dict:
     wall = time.time() - t0
     launches, tc_launches, split_launches, planes_launches = \
         _fwd_counters()
+    _read_head_dims("serve_plan_cache")
     return dict(sched=sched, done=done, hits=hits, parts=parts, wall_s=wall,
                 forwards=forwards, launches=launches,
                 tc_launches=tc_launches, split_launches=split_launches,
@@ -1865,11 +1973,13 @@ def phase_train(cfg, params, profile: bool):
                 sla_bwd.LAUNCHES_DKV = builds[0] = 0
                 sla_bwd.TC_LAUNCHES_DQ = sla_bwd.TC_LAUNCHES_DKV = 0
                 sla_fwd.TC_LAUNCHES = 0
+                _zero_head_dims()
                 t0 = time.time()
                 params, opt_state, loss, gnorm = step(batch)
                 loss, gnorm = float(loss), float(gnorm)
                 torch.cuda.synchronize()
                 wall = time.time() - t0
+                _read_head_dims("train")
                 got = dict(sla_fwd=sla_fwd.LAUNCHES,
                            sla_bwd_dq=sla_bwd.LAUNCHES_DQ,
                            sla_bwd_dkv=sla_bwd.LAUNCHES_DKV,
@@ -2188,9 +2298,11 @@ def _zero_kernel_counts():
     sla_fwd.LAUNCHES = sla_fwd.TC_LAUNCHES = 0
     sla_bwd.LAUNCHES_DQ = sla_bwd.LAUNCHES_DKV = 0
     sla_bwd.TC_LAUNCHES_DQ = sla_bwd.TC_LAUNCHES_DKV = 0
+    _zero_head_dims()
 
 
-def _kernel_counts(plans: list) -> dict:
+def _kernel_counts(plans: list, path: str) -> dict:
+    _read_head_dims(path)
     return dict(sla_fwd=sla_fwd.LAUNCHES, tc_sla_fwd=sla_fwd.TC_LAUNCHES,
                 sla_bwd_dq=sla_bwd.LAUNCHES_DQ,
                 tc_sla_bwd_dq=sla_bwd.TC_LAUNCHES_DQ,
@@ -2275,6 +2387,7 @@ def phase_lm_main(cfg, params):
     torch.cuda.reset_peak_memory_stats()
     sla_decode.PAGED_LAUNCHES = sla_decode.LAUNCHES = sla_fwd.LAUNCHES = 0
     sla_fwd.TC_LAUNCHES = 0
+    _zero_head_dims()
     plan_lib.plan_attention = plan_hook
     t0 = time.time()
     try:
@@ -2285,6 +2398,7 @@ def phase_lm_main(cfg, params):
     launches = dict(sla_decode=sla_decode.LAUNCHES,
                     sla_decode_paged=sla_decode.PAGED_LAUNCHES,
                     sla_fwd=sla_fwd.LAUNCHES, tc_sla_fwd=sla_fwd.TC_LAUNCHES)
+    _read_head_dims("lm_static")
     peak = torch.cuda.max_memory_allocated() / 2**30
     st = engine.stats
     n_steps = sum(g["steps"] for g in groups)
@@ -2955,9 +3069,11 @@ def phase_paged_main(cfg, params, profile: bool):
         if not cross and done_with_boundaries():
             counts = (sla_decode.PAGED_LAUNCHES, sla_decode.LAUNCHES,
                       sla_fwd.LAUNCHES, sla_fwd.TC_LAUNCHES)
+            dims = _head_dim_snapshot()
             _pg_cross_check(cfg, sched, logits, cross)
             (sla_decode.PAGED_LAUNCHES, sla_decode.LAUNCHES,
              sla_fwd.LAUNCHES, sla_fwd.TC_LAUNCHES) = counts  # not counted
+            _restore_head_dims(dims)
             cross["step"] = steps[0]
         return logits
 
@@ -3008,6 +3124,7 @@ def phase_paged_main(cfg, params, profile: bool):
             seed=3))
     sla_decode.PAGED_LAUNCHES = sla_decode.LAUNCHES = sla_fwd.LAUNCHES = 0
     sla_fwd.TC_LAUNCHES = 0
+    _zero_head_dims()
     t0 = time.time()
     done = sched.drain()
     torch.cuda.synchronize()
@@ -3015,6 +3132,7 @@ def phase_paged_main(cfg, params, profile: bool):
     launches = dict(sla_decode_paged=sla_decode.PAGED_LAUNCHES,
                     sla_decode=sla_decode.LAUNCHES,
                     sla_fwd=sla_fwd.LAUNCHES, tc_sla_fwd=sla_fwd.TC_LAUNCHES)
+    _read_head_dims("lm_paged")
     peak = torch.cuda.max_memory_allocated() / 2**30
     st = sched.stats
     got = dict(steps=steps[0], **launches,
@@ -3176,6 +3294,7 @@ def phase_unpaged_mixed(cfg, params):
             max_new_tokens=n, temperature=0.8 if i == 0 else 0.0, seed=3))
     sla_decode.PAGED_LAUNCHES = sla_decode.LAUNCHES = sla_fwd.LAUNCHES = 0
     sla_fwd.TC_LAUNCHES = 0
+    _zero_head_dims()
     t0 = time.time()
     done = sched.drain()
     torch.cuda.synchronize()
@@ -3183,6 +3302,7 @@ def phase_unpaged_mixed(cfg, params):
     launches = dict(sla_decode=sla_decode.LAUNCHES,
                     sla_decode_paged=sla_decode.PAGED_LAUNCHES,
                     sla_fwd=sla_fwd.LAUNCHES, tc_sla_fwd=sla_fwd.TC_LAUNCHES)
+    _read_head_dims("lm_unpaged")
     peak = torch.cuda.max_memory_allocated() / 2**30
     st = sched.stats
     got = dict(steps=steps[0], **launches, decode_tokens=st.decode_tokens,
@@ -3406,6 +3526,7 @@ def _pc_run(cfg, params, chunk, capture: bool):
 
     sla_decode.PAGED_LAUNCHES = sla_decode.LAUNCHES = sla_fwd.LAUNCHES = 0
     sla_fwd.TC_LAUNCHES = 0
+    _zero_head_dims()
     ops.sla_attention_rows = rows_hook
     t0 = time.time()
     try:
@@ -3420,6 +3541,7 @@ def _pc_run(cfg, params, chunk, capture: bool):
     finally:
         ops.sla_attention_rows = rows_fn
     wall = time.time() - t0
+    _read_head_dims("lm_chunked")
     st = sched.stats
     start1 = next(i for i, e in enumerate(events)
                   if e.rid == 1 and e.kind == "start")
@@ -3693,6 +3815,7 @@ def phase_decode_chunk(cfg, params):
         return execute_chunk(state, params_, q, pos, dcfg, **kw)
 
     sla_decode.LAUNCHES = sla_decode.PAGED_LAUNCHES = 0
+    _zero_head_dims()
     launches, walls, logits = [], [], []
     backend_lib.decode_execute_chunk = chunk_hook
     try:
@@ -3710,6 +3833,7 @@ def phase_decode_chunk(cfg, params):
     finally:
         backend_lib.decode_execute_chunk = execute_chunk
     paged_launches = sla_decode.PAGED_LAUNCHES
+    _read_head_dims("lm_decode_chunk")
     step_logits, step_walls = [], []
     with torch.no_grad():
         for i in range(2):
@@ -3876,6 +4000,7 @@ def _dg_baseline(cfg, params) -> dict:
                       prefill_bucket=DG_BUCKET, paged=True)
     prompts = _dg_prompts(cfg)
     _dg_set_counts(dict.fromkeys(_dg_counts(), 0))
+    _zero_head_dims()
     torch.cuda.synchronize()
     t0 = time.time()
     for p, n in zip(prompts[:4], DG_NEW[:4]):
@@ -3887,6 +4012,7 @@ def _dg_baseline(cfg, params) -> dict:
     done = sched.drain()
     torch.cuda.synchronize()
     wall = time.time() - t0
+    _read_head_dims("lm_disagg")
     st = sched.stats
     steps = st.slot_steps_total // DG_SLOTS
     res = dict(wall_s=wall, tokens=[list(r.tokens_out) for r in done],
@@ -3941,13 +4067,14 @@ def _dg_disagg(cfg, params, faulted: bool) -> dict:
         """Run a check outside the clocks: its seconds go to the overhead
         and to the submit times of requests without a first token, and
         its kernel launches are not counted."""
-        counts = _dg_counts()
+        counts, dims = _dg_counts(), _head_dim_snapshot()
         torch.cuda.synchronize()
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
         dt = time.time() - t0
         _dg_set_counts(counts)
+        _restore_head_dims(dims)
         rec["overhead"] += dt
         for r in dis._requests:
             if not r.tokens_out:
@@ -4048,6 +4175,7 @@ def _dg_disagg(cfg, params, faulted: bool) -> dict:
     prompts = _dg_prompts(cfg)
     ops.sla_attention_rows = rows_hook
     _dg_set_counts(dict.fromkeys(_dg_counts(), 0))
+    _zero_head_dims()
     torch.cuda.synchronize()
     t0 = time.time()
     try:
@@ -4063,6 +4191,7 @@ def _dg_disagg(cfg, params, faulted: bool) -> dict:
         ops.sla_attention_rows = rows_fn
     wall = time.time() - t0 - rec["overhead"]
     counts = _dg_counts()
+    _read_head_dims("lm_disagg")
     st = dis.stats
     res = dict(
         wall_s=wall, overhead_s=rec["overhead"], finite=bool(finite),
@@ -4345,7 +4474,7 @@ def phase_lm_train(cfg, params, profile: bool):
                 loss, gnorm = float(loss), float(gnorm)
                 torch.cuda.synchronize()
                 wall = time.time() - t0
-                got = _kernel_counts(plans)
+                got = _kernel_counts(plans, "lm_train")
                 peak = torch.cuda.max_memory_allocated() / 2**30
                 for key in totals:
                     totals[key] += got[key]
@@ -4569,6 +4698,7 @@ def phase_moe_serving(cfg, params, profile: bool):
     torch.cuda.reset_peak_memory_stats()
     sla_decode.PAGED_LAUNCHES = sla_decode.LAUNCHES = sla_fwd.LAUNCHES = 0
     sla_fwd.TC_LAUNCHES = 0
+    _zero_head_dims()
     moe_lib.route, plan_lib.plan_attention = route_hook, plan_hook
     t0 = time.time()
     try:
@@ -4576,6 +4706,7 @@ def phase_moe_serving(cfg, params, profile: bool):
     finally:
         moe_lib.route, plan_lib.plan_attention = orig_route, orig_plan
     wall = time.time() - t0
+    _read_head_dims("moe")
     launches = dict(sla_fwd=sla_fwd.LAUNCHES, tc_sla_fwd=sla_fwd.TC_LAUNCHES,
                     sla_decode=sla_decode.LAUNCHES,
                     sla_decode_paged=sla_decode.PAGED_LAUNCHES)
@@ -4856,15 +4987,15 @@ def _family_kernel_rows(tag: str, arch: str, plans: dict, causal: bool,
 
 
 def _family_train(tag: str, cfg, mdl, params, batches, want: dict,
-                  probes, keep: tuple, profile: bool) -> tuple:
+                  probes, keep: tuple, profile: bool, path: str) -> tuple:
     """Phases 23 and 24's training: one batch's `loss_fn` on the kernel
     against the gather backend (bf16 compute) within FAM_LOSS_TOL x
     max(1, |loss|), then one `make_train_step` step a batch (AdamW over
     the f32 masters, bf16 compute, kernel backend, the reference's
     remat), each checked for finite loss and grad norm and exactly the
     launches and plan builds of `want`; the parameters named in `probes`
-    must move. Returns (summary, {i: the last step's i-th plan for i in
-    keep})."""
+    must move; each step's head dims are kept under `path`. Returns
+    (summary, {i: the last step's i-th plan for i in keep})."""
     losses = {}
     with torch.no_grad():
         tree = train_steps.cast_params_bf16(params)
@@ -4909,7 +5040,7 @@ def _family_train(tag: str, cfg, mdl, params, batches, want: dict,
                 loss, gnorm = float(loss), float(gnorm)
                 torch.cuda.synchronize()
                 wall = time.time() - t0
-                got = _kernel_counts(plans)
+                got = _kernel_counts(plans, path)
                 peak = torch.cuda.max_memory_allocated() / 2**30
                 say(f"[{tag}] step {i}: loss {loss:.6f} grad norm "
                     f"{gnorm:.6f} | {wall:.3f}s | peak {peak:.2f} GiB | "
@@ -5051,7 +5182,8 @@ def phase_hybrid(profile: bool):
                 tc_sla_bwd_dq=napp, sla_bwd_dkv=napp, tc_sla_bwd_dkv=napp,
                 plan_builds=napp)
     train, plans = _family_train("23 hybrid", cfg, hybrid, params, batches,
-                                 want, HY_PROBES, (0, napp - 1), profile)
+                                 want, HY_PROBES, (0, napp - 1), profile,
+                                 "hybrid_train")
     del batches
     train["scan"] = _scan_cost(cfg, cfg.num_layers,
                                min(r["wall_s"] for r in train["steps"]))
@@ -5076,6 +5208,7 @@ def phase_hybrid(profile: bool):
         torch.cuda.synchronize()
         prefill_s = time.time() - t0
         launches = (sla_fwd.LAUNCHES, sla_fwd.TC_LAUNCHES)
+        _read_head_dims("hybrid_prefill")
         for key in ("attn_k", "attn_v"):
             cache[key] = torch.nn.functional.pad(cache[key],
                                                  (0, 0, 0, HY_NEW))
@@ -5140,7 +5273,8 @@ def phase_encdec(profile: bool):
                 tc_sla_bwd_dq=ne, sla_bwd_dkv=ne, tc_sla_bwd_dkv=ne,
                 plan_builds=ne)
     train, plans = _family_train("24 encdec", cfg, encdec, params, batches,
-                                 want, ED_PROBES, (0, ne - 1), profile)
+                                 want, ED_PROBES, (0, ne - 1), profile,
+                                 "encdec_train")
     del batches
     fwd_rows, bwd_rows = _family_kernel_rows(
         "24 encdec", ED_ARCH, {f"encoder layer {at}": plan
@@ -5162,6 +5296,7 @@ def phase_encdec(profile: bool):
         torch.cuda.synchronize()
         prefill_s = time.time() - t0
         launches = (sla_fwd.LAUNCHES, sla_fwd.TC_LAUNCHES)
+        _read_head_dims("encdec_prefill")
         finite = _finite(finite, enc)
         token = torch.zeros((ED_PREFILL,), dtype=torch.long, device=DEV)
         t0 = time.time()
@@ -5290,6 +5425,560 @@ def phase_rwkv6():
     return dict(params=nparams, init_s=init_s, sla_launches=sla, **runs)
 
 
+# --------------------------------------------------------------------------
+# head dim 256, sliding-window attention and the VLM prefix (phases 26-29)
+# --------------------------------------------------------------------------
+def _d256_fwd_operands(dtype, seed: int):
+    """Kernel 1's operands at gemma3's prefill shape: BH 4 on BH_kv 1, N
+    D256_N, D 256, the arch's 64 x 64 blocks, causal, with the plan
+    `plan_attention` gives seeded q and k and h/z aggregated per query
+    head (the kv head's block states repeated over its group)."""
+    cfg = get_arch(G3_ARCH)
+    sla = cfg.sla.replace(causal=True)
+    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    q = torch.randn((1, h, D256_N, d), generator=gen, device=DEV)
+    k, v = (torch.randn((1, hkv, D256_N, d), generator=gen, device=DEV)
+            for _ in range(2))
+    plan = plan_lib.plan_attention(q, k, sla)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    qp, kp = phi_lib.phi(q, sla.phi), phi_lib.phi(k, sla.phi)
+    fq, fk, fv, fqp, fkp = map(ops._flat, (q, k, v, qp, kp))
+    a, lut, counts = map(ops._flat, (plan.marginal, plan.lut, plan.counts))
+    hb, zb = ops._hz_blocks(fkp, fv, sla.block_kv)
+    hb, zb = (torch.repeat_interleave(x, h // hkv, dim=0) for x in (hb, zb))
+    hi, zi = ops._aggregate(a, hb, zb)
+    del hb, zb, plan
+    args = (lut, counts, fq, fk, fv, fqp, hi, zi)
+    kw = dict(scale=d ** -0.5, causal=True, block_q=sla.block_q,
+              block_kv=sla.block_kv)
+    return args, kw
+
+
+def _d256_fwd_case(dtype) -> dict:
+    """Kernel 1 at D 256 against its twin: every output within 5e-5 x
+    max(1, max |twin|), two launches bitwise equal, both on the f32-FMA
+    route (the tensor-core and split counters do not move); CUDA-event
+    times of the kernel and the twin, the bound and its fraction."""
+    dname = "f32" if dtype == torch.float32 else "bf16"
+    args, kw = _d256_fwd_operands(dtype, seed=31)
+    route = sla_fwd.forward_route(dtype, kw["block_q"], kw["block_kv"], 256)
+    before = _fwd_counters()
+    got = sla_fwd.sla_fwd(*args, **kw)
+    again = sla_fwd.sla_fwd(*args, **kw)
+    moved = tuple(a - b for a, b in zip(_fwd_counters(), before))
+    want = sla_fwd.sla_fwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    limits = [TWIN_TOL * max(1.0, float(w.abs().max())) for w in want]
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    ok = (route == "fma" and moved == (2, 0, 0, 0) and bitwise
+          and all(e <= m for e, m in zip(errs, limits)))
+    del got, again, want
+    ms = cuda_ms(lambda: sla_fwd.sla_fwd(*args, **kw), 5)
+    plain_ms = cuda_ms(lambda: sla_fwd.sla_fwd_plain(*args, **kw), 1,
+                       warmup=1)
+    bound_ms, bound_by, flops, nbytes, live = _bound(args, kw)
+    say(f"[26 d256] sla_fwd {G3_ARCH} prefill shape {dname} (BH "
+        f"{args[2].shape[0]}, BH_kv {args[3].shape[0]}, N {D256_N}, D "
+        f"{args[2].shape[-1]}, {kw['block_q']}x{kw['block_kv']} blocks, "
+        f"causal, K {args[0].shape[-1]}, live tiles {live}): "
+        f"route {route}, counters (launches, tc, split, planes) moved "
+        f"{moved} for two calls | max abs err o_s {errs[0]:.3g} o_l "
+        f"{errs[1]:.3g} lse {errs[2]:.3g} (limits {limits[0]:.3g} / "
+        f"{limits[1]:.3g} / {limits[2]:.3g}), bitwise repeat {bitwise} "
+        f"{'OK' if ok else 'FAIL'} | kernel {ms:.3f} ms | bound "
+        f"{bound_ms:.3f} ms by {bound_by} ({bound_ms / ms:.1%} of it; "
+        f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.0f} MB) | plain twin "
+        f"{plain_ms:.3f} ms")
+    del args
+    torch.cuda.empty_cache()
+    return dict(shape=f"{G3_ARCH} prefill D 256", dtype=dname, head_dim=256,
+                route=FWD_F32_ROUTE, live_tiles=live, errs=errs,
+                limits=limits, max_abs_err=max(errs), bitwise_repeat=bitwise,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bound_fraction=bound_ms / ms, ok=ok)
+
+
+def _bwd_raises_at_d256() -> bool:
+    """Kernels 2 and 3 refuse head dim 256 on the card (ROADMAP item 15
+    part 3) before any launch."""
+    gen = torch.Generator(device=DEV).manual_seed(33)
+    n, d = 256, 256
+    q, k, v = (torch.randn((4, n, d), generator=gen, device=DEV,
+                           dtype=torch.bfloat16) for _ in range(3))
+    do = torch.randn((4, n, d), generator=gen, device=DEV)
+    lse, dd = (torch.zeros((4, n), device=DEV) for _ in range(2))
+    lut = torch.zeros((4, n // 64, 1), dtype=torch.int32, device=DEV)
+    counts = torch.ones((4, n // 64), dtype=torch.int32, device=DEV)
+    kw = dict(scale=d ** -0.5, causal=True, block_q=64, block_kv=64)
+    before = (sla_bwd.LAUNCHES_DQ, sla_bwd.LAUNCHES_DKV)
+    raised = []
+    for fn in (sla_bwd.sla_bwd_dq, sla_bwd.sla_bwd_dkv):
+        try:
+            fn(lut, counts, q, k, v, do, lse, dd, **kw)
+            raised.append(False)
+        except ValueError as e:
+            raised.append("item 15 part 3" in str(e))
+    ok = all(raised) and (sla_bwd.LAUNCHES_DQ,
+                          sla_bwd.LAUNCHES_DKV) == before
+    say(f"[26 d256] sla_bwd_dq / sla_bwd_dkv at D 256 raise naming ROADMAP "
+        f"item 15 part 3: {raised}, no launch {'OK' if ok else 'FAIL'}")
+    return ok
+
+
+def phase_d256_kernels():
+    """Phase 26: kernels 1, 4 and 5 at head dim 256 against their twins.
+    Kernel 1 on the f32-FMA route in f32 and bf16 at gemma3's prefill
+    shape; kernel 4 on a gemma3 decode state (B 2, H 4, Hkv 1, Tn 512, K
+    26, bf16 K/V) at C 1 and 4; kernel 5 on a paged state of 4 slots
+    sharing 96 pages, bitwise equal to kernel 4 on the gathered view at
+    every split width; kernels 2 and 3 raise. Returns (forward rows,
+    decode rows, paged rows)."""
+    fwd_rows = [_d256_fwd_case(dtype)
+                for dtype in (torch.float32, torch.bfloat16)]
+    dec_rows = []
+    pos = D256_DECODE_POS
+    for c in (1, 4):
+        args, kw = _decode_operands(35 + c, c, torch.bfloat16, pos, b=2,
+                                    hkv=1, g=4, d=256, bkv=64,
+                                    tn=LM_MAX_LEN // 64, k_sel=D256_K)
+        say(f"[26 d256 decode kernel] {G3_ARCH} decode state (B 2, H 4, Hkv "
+            f"1, D 256, bkv 64, Tn {LM_MAX_LEN // 64}, K {D256_K}, C {c}, "
+            f"pos {pos}) K/V bf16")
+        row = _decode_case(args, kw, f"C={c} bf16 D 256")
+        dec_rows.append(dict(shape=f"{G3_ARCH} decode C={c} D 256",
+                             dtype="bf16", c=c, pos=pos, head_dim=256,
+                             **row))
+        del args
+    pos = D256_PAGED_POS
+    shared = G3_PG_SHARED // 64
+    npages = 2 + shared + G3_PG_SLOTS * (LM_MAX_LEN // 64 - shared)
+    args, kw = cases.paged_decode_operands(
+        37, torch.bfloat16, pos, b=G3_PG_SLOTS, hkv=1, g=4, d=256, bkv=64,
+        tn=LM_MAX_LEN // 64, k_sel=D256_K, npages=npages, shared=shared,
+        device=DEV)
+    say(f"[26 d256 paged decode kernel] {G3_ARCH} paged state (B "
+        f"{G3_PG_SLOTS}, H 4, Hkv 1, D 256, bkv 64, Tn {LM_MAX_LEN // 64}, "
+        f"K {D256_K}, {npages} pages, {shared} shared, pos {pos}) K/V bf16")
+    pg_rows = [dict(shape=f"{G3_ARCH} paged decode B={G3_PG_SLOTS} D 256",
+                    dtype="bf16", pos=pos, head_dim=256,
+                    **_paged_case(args, kw, "bf16 D 256"))]
+    del args
+    torch.cuda.empty_cache()
+    bwd_ok = _bwd_raises_at_d256()
+    bad = [r["shape"] for r in fwd_rows + dec_rows + pg_rows if not r["ok"]]
+    if bad or not bwd_ok:
+        raise RuntimeError(f"head dim 256 kernels failed: {bad}, backward "
+                           f"raises {bwd_ok}")
+    return fwd_rows, dec_rows, pg_rows
+
+
+def _lm_full(arch: str, seed: int):
+    """Full-width `arch` with seeded random f32 weights on the card;
+    sla_proj redrawn so that O^l reaches the logits."""
+    cfg = get_arch(arch)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    params = transformer.init(gen, cfg, device=DEV)
+    _redraw(gen, [layer.sla_proj for layer in params.layers])
+    return cfg, params
+
+
+def _prefill_cross_check(tag: str, cfg, cparams, toks) -> dict:
+    """The prefill's last-position logits on the kernel backend and on the
+    gather backend given the kernel run's plans (execution isolated from
+    planning): within LM_LOGIT_TOL x max(1, max |logits|). Returns the
+    numbers and the kernel run's plans."""
+    with torch.no_grad():
+        x, _, plans = transformer.forward(cparams, cfg, toks,
+                                          backend="kernel", return_plans=True)
+        l_k = logits_from_hidden(cparams, x[:, -1])
+        del x
+        x, _ = transformer.forward(cparams, cfg, toks, backend="gather",
+                                   plans=plans)
+        l_g = logits_from_hidden(cparams, x[:, -1])
+        del x
+    diff = float((l_k - l_g).abs().max())
+    limit = LM_LOGIT_TOL * max(1.0, float(l_k.abs().max()))
+    agree = float((l_k.argmax(-1) == l_g.argmax(-1)).float().mean())
+    ok = bool(torch.isfinite(l_k).all()) and diff <= limit
+    say(f"[{tag} cross-check] prefill logits at the last position, kernel "
+        f"vs gather on the kernel run's plans: max abs diff {diff:.3g} "
+        f"(limit {limit:.3g}) {'OK' if ok else 'FAIL'}, greedy agreement "
+        f"{agree:.2f}")
+    return dict(diff=diff, limit=limit, greedy_agreement=agree, ok=ok), plans
+
+
+def _static_run(tag: str, cfg, params, prompts, new: int, decode_sla: bool):
+    """The static ServingEngine over `prompts` (one group) on the kernel
+    backend: walls, peak, launches of kernels 1, 4 and 5 and the group's
+    prefill tokens and decode state (kept by hooks)."""
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=new)
+            for i, p in enumerate(prompts)]
+    engine = ServingEngine(cfg, params, batch_size=len(prompts),
+                           max_len=LM_MAX_LEN, backend="kernel",
+                           decode_sla=decode_sla)
+    kept = {}
+    finite = torch.ones((), dtype=torch.bool, device=DEV)
+    run_prefill, decode_loop, one = (engine._run_prefill,
+                                     engine._decode_loop, engine._one)
+
+    def prefill_hook(toks):
+        kept["toks"] = toks
+        return run_prefill(toks)
+
+    def decode_loop_hook(p, token, cache, n):
+        token, cache, buf = decode_loop(p, token, cache, n)
+        kept.update(token=token, cache=cache)
+        return token, cache, buf
+
+    def one_hook(p, token, cache):
+        logits, cache = one(p, token, cache)
+        finite.logical_and_(torch.isfinite(logits).all())
+        return logits, cache
+
+    engine._run_prefill, engine._decode_loop = prefill_hook, decode_loop_hook
+    engine._one = one_hook
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sla_decode.PAGED_LAUNCHES = sla_decode.LAUNCHES = 0
+    sla_fwd.LAUNCHES = sla_fwd.TC_LAUNCHES = sla_fwd.SPLIT_LAUNCHES = 0
+    _zero_head_dims()
+    t0 = time.time()
+    done = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    _read_head_dims(f"{cfg.name} static")
+    launches = dict(sla_fwd=sla_fwd.LAUNCHES, tc_sla_fwd=sla_fwd.TC_LAUNCHES,
+                    split_sla_fwd=sla_fwd.SPLIT_LAUNCHES,
+                    sla_decode=sla_decode.LAUNCHES,
+                    sla_decode_paged=sla_decode.PAGED_LAUNCHES)
+    st = engine.stats
+    steps = new - 1
+    res = dict(wall_s=wall, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               prefill_s=st.prefill_s, decode_s=st.decode_s,
+               decode_ms_per_step=1e3 * st.decode_s / steps, steps=steps,
+               launches=launches, bucket=int(kept["toks"].shape[1]),
+               tokens_ok=[len(r.tokens_out) for r in done] == [new] * len(
+                   prompts), finite=bool(finite),
+               first_tokens=[r.tokens_out[:6] for r in done])
+    say(f"[{tag}] static engine, {len(prompts)} prompts of "
+        f"{[len(p) for p in prompts]} tokens (bucket {res['bucket']}), {new} "
+        f"new, kernel backend, decode-SLA {decode_sla}, in {wall:.2f}s | "
+        f"prefill {st.prefill_s:.3f}s | decode {st.decode_s:.3f}s for "
+        f"{steps} steps = {res['decode_ms_per_step']:.2f} ms a step | peak "
+        f"{res['peak_gib']:.2f} GiB | launches {launches} | finite "
+        f"{res['finite']} | first tokens {res['first_tokens']}")
+    return res, engine, kept
+
+
+def _g3_paged_run(cfg, params) -> tuple:
+    """gemma3's paged continuous Scheduler: G3_PG_SLOTS prompts of
+    G3_PG_PROMPT tokens sharing their first G3_PG_SHARED, G3_PG_NEW new
+    tokens each; kernel 5 against its twin on the live state of the first
+    SLA layer at one step (`_paged_live_case`, uncounted)."""
+    from repro_torch.serving.api import SamplingParams, Scheduler
+    rs = np.random.default_rng(27)
+    shared = rs.integers(0, cfg.vocab_size, G3_PG_SHARED).astype(np.int32)
+    prompts = [np.concatenate([shared, rs.integers(
+        0, cfg.vocab_size, G3_PG_PROMPT - G3_PG_SHARED).astype(np.int32)])
+        for _ in range(G3_PG_SLOTS)]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sched = Scheduler(cfg, params, num_slots=G3_PG_SLOTS,
+                      max_len=G3_PG_MAX_LEN, backend="kernel",
+                      decode_sla=True, prefill_bucket=G3_PG_PROMPT,
+                      paged=True)
+    scfg = sched.cfg
+    sla_layer = transformer.layer_kinds_list(scfg).index(transformer.KIND_SLA)
+    steps, prefills, live = [0], [], {}
+    finite = torch.ones((), dtype=torch.bool, device=DEV)
+    one, run_prefill = sched._one, sched._run_prefill
+
+    def one_hook(token):
+        logits = one(token)
+        steps[0] += 1
+        finite.logical_and_(torch.isfinite(logits).all())
+        if steps[0] == G3_PG_NEW // 2 and len(sched._decoding()) == \
+                G3_PG_SLOTS:
+            counts = (sla_decode.PAGED_LAUNCHES, sla_decode.LAUNCHES)
+            dims = _head_dim_snapshot()
+            cache = sched._live
+            gen = torch.Generator(device=DEV).manual_seed(17)
+            q = torch.randn((G3_PG_SLOTS, scfg.num_heads, 1, scfg.head_dim),
+                            generator=gen, device=DEV)
+            live.update(_paged_live_case(scfg, cache, sla_layer, q,
+                                         cache["pos"] - 1))
+            sla_decode.PAGED_LAUNCHES, sla_decode.LAUNCHES = counts
+            _restore_head_dims(dims)
+        return logits
+
+    def prefill_hook(toks):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = run_prefill(toks)
+        torch.cuda.synchronize()
+        prefills.append(time.time() - t0)
+        return out
+
+    sched._one, sched._run_prefill = one_hook, prefill_hook
+    for p in prompts:
+        sched.submit(p, SamplingParams(max_new_tokens=G3_PG_NEW,
+                                       temperature=0.0))
+    sla_decode.PAGED_LAUNCHES = sla_decode.LAUNCHES = 0
+    sla_fwd.LAUNCHES = sla_fwd.TC_LAUNCHES = sla_fwd.SPLIT_LAUNCHES = 0
+    _zero_head_dims()
+    t0 = time.time()
+    done = sched.drain()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    _read_head_dims(f"{cfg.name} paged")
+    launches = dict(sla_fwd=sla_fwd.LAUNCHES, tc_sla_fwd=sla_fwd.TC_LAUNCHES,
+                    split_sla_fwd=sla_fwd.SPLIT_LAUNCHES,
+                    sla_decode=sla_decode.LAUNCHES,
+                    sla_decode_paged=sla_decode.PAGED_LAUNCHES)
+    st = sched.stats
+    nsla = transformer.layer_kinds_list(scfg).count(transformer.KIND_SLA)
+    want = dict(sla_fwd=nsla * len(prefills), tc_sla_fwd=0, split_sla_fwd=0,
+                sla_decode=0, sla_decode_paged=nsla * steps[0])
+    runs = live.pop("runs", [])
+    res = dict(wall_s=wall, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               prefill_s=prefills, decode_s=st.decode_s, steps=steps[0],
+               decode_ms_per_step=1e3 * st.decode_s / max(steps[0], 1),
+               pages_peak=st.pages_peak, prefix_hits=st.prefix_hits,
+               prefix_misses=st.prefix_misses, launches=launches,
+               finite=bool(finite),
+               tokens_ok=[len(r.tokens_out) for r in done]
+               == [G3_PG_NEW] * len(prompts))
+    ok = (res["tokens_ok"] and res["finite"] and launches == want
+          and bool(live) and live.get("ok", False))
+    say(f"[27 gemma3 paged] continuous Scheduler, {G3_PG_SLOTS} prompts of "
+        f"{G3_PG_PROMPT} tokens sharing {G3_PG_SHARED}, {G3_PG_NEW} new, "
+        f"paged (max_len {G3_PG_MAX_LEN}), kernel backend, decode-SLA, in "
+        f"{wall:.2f}s | prefills {[round(t, 3) for t in prefills]} s | "
+        f"decode {st.decode_s:.3f}s for {steps[0]} steps = "
+        f"{res['decode_ms_per_step']:.2f} ms a step | pages peak "
+        f"{st.pages_peak}, prefix hits {st.prefix_hits} / misses "
+        f"{st.prefix_misses} | peak {res['peak_gib']:.2f} GiB | launches "
+        f"{launches} (expected {want})")
+    if live:
+        say(f"[27 gemma3 paged] sla_decode_paged vs twin on layer "
+            f"{sla_layer}'s live state (D 256), bitwise equal to sla_decode "
+            f"on the gathered view at each width "
+            f"{live['bitwise_vs_sla_decode']}: {_runs_text(runs)} (limit "
+            f"{live['limit']:.3g}) {'OK' if live['ok'] else 'FAIL'} | eager "
+            f"call {live['eager_ms']:.4f} ms | bound {live['bound_ms']:.4f} "
+            f"ms by {live['bound_by']} ({live['mbytes']:.1f} MB; "
+            f"{live['bound_fraction']:.1%} of it) | plain twin "
+            f"{live['plain_ms']:.3f} ms")
+    row = dict(live, shape=f"{G3_ARCH} paged path layer {sla_layer} D 256",
+               dtype="bf16", head_dim=256) if live else None
+    del sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not ok:
+        raise RuntimeError(f"gemma3 paged serving failed its checks: {res}, "
+                           f"kernel 5 on the live state {live.get('ok')}")
+    return res, row
+
+
+def phase_gemma3_serving():
+    """Phase 27: gemma3-1b at full width and depth (26 layers: 22
+    sliding-window layers with a 512-token window, 4 SLA layers; 4 query
+    heads on 1 kv head of 256; vocab 262,144), f32 masters, bf16 compute.
+    The static engine with decode-time SLA (G3_BATCH prompts of G3_PROMPT
+    tokens, G3_NEW new): 4 kernel-1 launches a prefill forward, all on the
+    f32-FMA route, 4 kernel-4 launches a decode step; the prefill logits
+    kernel vs gather on the kernel run's plans; kernel 4 against its twin
+    on the path's decode state. Then the paged continuous Scheduler
+    (`_g3_paged_run`). Returns (summary, decode rows, paged rows)."""
+    cfg, params = _lm_full(G3_ARCH, seed=0)
+    kinds = transformer.layer_kinds_list(cfg)
+    nsla = kinds.count(transformer.KIND_SLA)
+    nparams = sum(p.numel() for p in params.parameters())
+    say(f"[27 gemma3] {G3_ARCH} at full width and depth: {cfg.num_layers} "
+        f"layers ({kinds.count(transformer.KIND_SWA)} sliding-window, window "
+        f"{cfg.local_window}; {nsla} SLA), d_model {cfg.d_model}, "
+        f"{cfg.num_heads} / {cfg.num_kv_heads} heads of {cfg.head_dim}, vocab "
+        f"{cfg.vocab_size}: {nparams:,} parameters in f32")
+    rs = np.random.default_rng(26)
+    prompts = [rs.integers(0, cfg.vocab_size, G3_PROMPT).astype(np.int32)
+               for _ in range(G3_BATCH)]
+    res, engine, kept = _static_run("27 gemma3", cfg, params, prompts,
+                                     G3_NEW, decode_sla=True)
+    want = dict(sla_fwd=nsla, tc_sla_fwd=0, split_sla_fwd=0,
+                sla_decode=nsla * res["steps"], sla_decode_paged=0)
+    bad = []
+    if not (res["tokens_ok"] and res["finite"]):
+        bad.append("a request did not finish with finite logits")
+    if res["launches"] != want:
+        bad.append(f"launches {res['launches']}, expected {want}")
+    # kernel 4 against its twin on the path's live rows (the first and
+    # last SLA layer)
+    cache, cparams = kept.pop("cache"), engine._cparams
+    st_ = cache["sla"]
+    bkv, hkv = cfg.sla.block_kv, cfg.num_kv_heads
+    g = cfg.num_heads // hkv
+    pos = cache["pos"] - 1
+    gen = torch.Generator(device=DEV).manual_seed(18)
+    dec_rows = []
+    for layer in (kinds.index(transformer.KIND_SLA), len(kinds) - 1 -
+                  kinds[::-1].index(transformer.KIND_SLA)):
+        state = {"k": cache["k"][layer], "v": cache["v"][layer],
+                 "hblk": st_["hblk"][layer], "zblk": st_["zblk"][layer],
+                 "htot": st_["htot"][layer], "ztot": st_["ztot"][layer],
+                 "lut": st_["live_lut"][layer], "cnt": st_["live_cnt"][layer],
+                 "marg": st_["live_marg"][layer]}
+        q = torch.randn((G3_BATCH, cfg.num_heads, 1, cfg.head_dim),
+                        generator=gen, device=DEV)
+        qg = backend_lib._group_heads(q[:, :, 0].float(), hkv)[..., None, :]
+        qpg = backend_lib._group_heads(phi_lib.phi(q[:, :, 0], cfg.sla.phi),
+                                       hkv)[..., None, :]
+        flat = sla_decode._flat_args(
+            *sla_decode.decode_operands(state, qg, qpg, pos), bkv)
+        kw = dict(scale=cfg.head_dim ** -0.5, block_kv=bkv, group=g)
+        row = _decode_case(flat, kw, f"[27 gemma3] sla_decode vs twin on "
+                           f"layer {layer}'s path state (D 256, K/V bf16, "
+                           f"pos {pos})")
+        dec_rows.append(dict(shape=f"{G3_ARCH} path layer {layer} D 256",
+                             dtype="bf16", c=1, pos=pos, head_dim=256, **row))
+        del state, flat
+    del cache, kept["token"], st_
+    gc.collect()
+    torch.cuda.empty_cache()
+    cross, plans = _prefill_cross_check("27 gemma3", cfg, cparams,
+                                        kept["toks"])
+    del plans, engine, cparams, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    paged, pg_row = _g3_paged_run(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not cross["ok"]:
+        bad.append(f"prefill logits kernel vs gather {cross}")
+    bad += [r["shape"] for r in dec_rows if not r["ok"]]
+    if bad:
+        raise RuntimeError("gemma3 serving failed: " + "; ".join(bad))
+    res.update(params=nparams, cross_check=cross, paged=paged)
+    return res, dec_rows, [pg_row]
+
+
+def phase_danube_serving():
+    """Phase 28: h2o-danube-3-4b at full width and depth (24 SLA layers,
+    32 / 8 heads of 120, window 8,192 inside the SLA mask), f32 masters,
+    bf16 compute: the static engine with dense decode (decode-time SLA
+    refuses a window, as the reference), DN_BATCH prompts of DN_PROMPT
+    tokens and DN_NEW new. 24 kernel-1 launches a prefill on the
+    tensor-core route (D 120 padded to 128), none of kernels 4-5; the
+    prefill logits kernel vs gather on the kernel run's plans; no block of
+    those plans classified (critical or marginal) at a distance of window
+    + block_kv or more (`core/masks.py::block_valid`). Returns the
+    summary."""
+    cfg, params = _lm_full(DN_ARCH, seed=0)
+    nl = cfg.num_layers
+    nparams = sum(p.numel() for p in params.parameters())
+    say(f"[28 danube] {DN_ARCH} at full width and depth: {nl} SLA layers "
+        f"with window {cfg.sliding_window}, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} / {cfg.num_kv_heads} heads of {cfg.head_dim}, "
+        f"vocab {cfg.vocab_size}: {nparams:,} parameters in f32")
+    rs = np.random.default_rng(28)
+    prompts = [rs.integers(0, cfg.vocab_size, DN_PROMPT).astype(np.int32)
+               for _ in range(DN_BATCH)]
+    res, engine, kept = _static_run("28 danube", cfg, params, prompts,
+                                    DN_NEW, decode_sla=False)
+    route = sla_fwd.forward_route(torch.bfloat16, cfg.sla.block_q,
+                                  cfg.sla.block_kv, cfg.head_dim)
+    want = dict(sla_fwd=nl, tc_sla_fwd=nl * (route == "tc"), split_sla_fwd=0,
+                sla_decode=0, sla_decode_paged=0)
+    bad = []
+    if not (res["tokens_ok"] and res["finite"]):
+        bad.append("a request did not finish with finite logits")
+    if res["launches"] != want:
+        bad.append(f"launches {res['launches']}, expected {want}")
+    cparams, toks = engine._cparams, kept["toks"]
+    del kept, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    cross, plans = _prefill_cross_check("28 danube", cfg, cparams, toks)
+    sla = cfg.sla
+    tm, tn = plans.mc.shape[-2:]
+    qi = torch.arange(tm, device=DEV)[:, None] * sla.block_q
+    kj = torch.arange(tn, device=DEV)[None, :] * sla.block_kv
+    far = (qi - kj).abs() >= cfg.sliding_window + sla.block_kv
+    classified = plans.mc != -1
+    outside = int((classified & far).sum())
+    inside = int(classified.sum())
+    reach = int(((qi - kj) * classified.any(dim=(0, 1, 2))).max())
+    say(f"[28 danube] the prefill plans ({nl} layers, {tm} x {tn} blocks): "
+        f"{inside} classified blocks, {outside} of them at a distance of "
+        f"window + block_kv = {cfg.sliding_window + sla.block_kv} tokens or "
+        f"more (the farthest classified block starts {reach} tokens before "
+        f"its query block) {'OK' if outside == 0 else 'FAIL'}")
+    del plans, cparams, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not cross["ok"]:
+        bad.append(f"prefill logits kernel vs gather {cross}")
+    if outside:
+        bad.append(f"{outside} classified blocks outside the window")
+    if bad:
+        raise RuntimeError("danube serving failed: " + "; ".join(bad))
+    res.update(params=nparams, cross_check=cross, classified_blocks=inside,
+               classified_outside_window=outside, farthest_block_tokens=reach)
+    return res
+
+
+def phase_vlm_train():
+    """Phase 29: internvl2-1b at full width and depth (24 layers, 14 / 2
+    heads of 64, 256 patch embeddings ahead of 3,840 tokens, vocab
+    151,655), f32 masters, at train_4k with the global batch 256 cut to
+    VL_BATCH: `_family_train` (48 / 24 / 24 tensor-core launches of
+    kernels 1 / 2 / 3 a step, 24 plans), kernels 1-3 on the last step's
+    plans of layers 0 and 23, and the train CLI. Returns (summary,
+    forward rows, backward rows)."""
+    cfg = get_arch(VL_ARCH)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params = transformer.init(gen, cfg, device=DEV)
+    _redraw(gen, [layer.sla_proj for layer in params.layers])
+    nl = cfg.num_layers
+    nparams = sum(p.numel() for p in params.parameters())
+    shape = dataclasses.replace(get_shape("train_4k"), global_batch=VL_BATCH)
+    say(f"[29 vlm train] {VL_ARCH} at full width and depth: {nl} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} / {cfg.num_kv_heads} heads "
+        f"of {cfg.head_dim}, {cfg.num_patches} patches + "
+        f"{shape.seq_len - cfg.num_patches} tokens, vocab {cfg.vocab_size}: "
+        f"{nparams:,} parameters in f32 | train_4k, batch {VL_BATCH} (global "
+        f"256 cut)")
+    data = make_iterator(cfg, shape, DataConfig(seed=0))
+    batches = [{k: torch.from_numpy(x).to(DEV) for k, x in next(data).items()}
+               for _ in range(VL_STEPS)]
+    tc = int(sla_fwd.use_tensor_cores(torch.bfloat16, cfg.sla.block_q,
+                                      cfg.sla.block_kv, cfg.head_dim))
+    want = dict(sla_fwd=2 * nl, tc_sla_fwd=2 * nl * tc, sla_bwd_dq=nl,
+                tc_sla_bwd_dq=nl * tc, sla_bwd_dkv=nl,
+                tc_sla_bwd_dkv=nl * tc, plan_builds=nl)
+    probes = ("layers.0.wq", f"layers.{nl - 1}.sla_proj", "embed")
+    train, plans = _family_train("29 vlm train", cfg, transformer, params,
+                                 batches, want, probes, (0, nl - 1),
+                                 profile=False, path="vlm_train")
+    del batches, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    fwd_rows, bwd_rows = _family_kernel_rows(
+        "29 vlm train", VL_ARCH, {f"layer {li}": plan
+                                  for li, plan in plans.items()},
+        causal=True, batch=VL_BATCH, n=shape.seq_len)
+    del plans
+    cli = _family_cli("29 vlm train", VL_ARCH, 2)
+    train.update(params=nparams, cli_losses=cli)
+    return train, fwd_rows, bwd_rows
+
+
 def _tensors(x):
     if torch.is_tensor(x):
         yield x
@@ -5390,6 +6079,27 @@ def main(argv=None) -> int:
     rows += hy_fwd_rows + ed_fwd_rows
     bwd_rows += hy_bwd_rows + ed_bwd_rows
     hyc, edc = hy["launches"], ed["launches"]
+    d256_fwd, d256_dec, d256_pg = phase_d256_kernels()
+    g3, g3_dec, g3_pg = phase_gemma3_serving()
+    dn = phase_danube_serving()
+    vl, vl_fwd_rows, vl_bwd_rows = phase_vlm_train()
+    rows += d256_fwd + vl_fwd_rows
+    dec_rows += d256_dec + g3_dec
+    pg_rows += d256_pg + g3_pg
+    bwd_rows += vl_bwd_rows
+    g3c, g3pc = g3["launches"], g3["paged"]["launches"]
+    dnc, vlc = dn["launches"], vl["launches"]
+
+    def arch_head_dims(*archs):
+        return sorted({get_arch(a).head_dim for a in archs})
+
+    def ran_at(name):
+        """The head dims `name` launched at on the main paths (its
+        wrapper's record, padding included), overall and by path."""
+        by = {path: sorted(dims)
+              for path, dims in PATH_HEAD_DIMS[name].items()}
+        return {"head_dims": sorted(set().union(*by.values())),
+                "head_dims_by_path": by}
     d64_keys = ("shape", "causal", "ms", "bound_ms", "bound_by",
                 "bound_fraction", "bound_ms_padded", "bound_by_padded",
                 "bound_fraction_padded", "ok")
@@ -5415,12 +6125,12 @@ def main(argv=None) -> int:
     # compiled flex_attention's forward on the same inputs and LUT (phase
     # 7): O^s and L only, no linear branch, so not the kernel's function
     flex16 = wan_tc["sla_bwd_dq"].get("library_fwd_ms")
-    say(f"[26] sla_fwd at the Wan bf16 case (tensor cores): "
+    say(f"[30] sla_fwd at the Wan bf16 case (tensor cores): "
         f"{wan16['ms']:.3f} ms against its bound {wan16['bound_ms']:.3f} ms "
         f"({wan16['bound_fraction']:.1%}) | compiled flex_attention forward "
         f"on the same LUT (O^s and L only, lacks O^l): "
         + (f"{flex16:.3f} ms" if flex16 is not None else "not measured"))
-    say(f"[26] sla_fwd at the Wan f32 case: split route {wan32['ms']:.3f} ms "
+    say(f"[30] sla_fwd at the Wan f32 case: split route {wan32['ms']:.3f} ms "
         f"against its bound {wan32['bound_ms']:.3f} ms "
         f"({wan32['bound_fraction']:.1%}; the f32-FMA bound "
         f"{wan32['bound_ms_f32_fma']:.3f} ms) | f32-FMA kernel "
@@ -5445,7 +6155,11 @@ def main(argv=None) -> int:
                 "hybrid_train": hyc["tc_sla_fwd"],
                 "hybrid_prefill": hy["prefill_launches"],
                 "encdec_train": edc["tc_sla_fwd"],
-                "encdec_prefill": ed["prefill_launches"]}
+                "encdec_prefill": ed["prefill_launches"],
+                "gemma3_prefill": g3c["tc_sla_fwd"],
+                "gemma3_paged_prefill": g3pc["tc_sla_fwd"],
+                "danube_prefill": dnc["tc_sla_fwd"],
+                "vlm_train": vlc["tc_sla_fwd"]}
     # the other paths compute in bf16: every launch there is a tensor-core
     # one (phases 9, 12, 15, 17 check), so none is on the split route
     split_paths = {"serve": main_run["split_launches"],
@@ -5455,7 +6169,10 @@ def main(argv=None) -> int:
                    "lm_unpaged_prefill": 0, "lm_chunked_prefill": 0,
                    "lm_disagg": 0, "lm_train": 0, "moe_prefill": 0,
                    "hybrid_train": 0, "hybrid_prefill": 0,
-                   "encdec_train": 0, "encdec_prefill": 0}
+                   "encdec_train": 0, "encdec_prefill": 0,
+                   "gemma3_prefill": g3c["split_sla_fwd"],
+                   "gemma3_paged_prefill": g3pc["split_sla_fwd"],
+                   "danube_prefill": dnc["split_sla_fwd"], "vlm_train": 0}
     kernels = [{
         "name": "sla_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sla_fwd_split.cu",
@@ -5466,7 +6183,8 @@ def main(argv=None) -> int:
                      + puc["sla_fwd"] + pcc["sla_fwd"] + dgc["sla_fwd"]
                      + ltc["sla_fwd"] + moec["sla_fwd"] + hyc["sla_fwd"]
                      + hy["prefill_launches"] + edc["sla_fwd"]
-                     + ed["prefill_launches"]),
+                     + ed["prefill_launches"] + g3c["sla_fwd"]
+                     + g3pc["sla_fwd"] + dnc["sla_fwd"] + vlc["sla_fwd"]),
         "launches_by_path": {"serve": main_run["launches"],
                              "serve_plan_cache": pc_launches["launches"],
                              "train": train["launches"]["sla_fwd"],
@@ -5480,7 +6198,15 @@ def main(argv=None) -> int:
                              "hybrid_train": hyc["sla_fwd"],
                              "hybrid_prefill": hy["prefill_launches"],
                              "encdec_train": edc["sla_fwd"],
-                             "encdec_prefill": ed["prefill_launches"]},
+                             "encdec_prefill": ed["prefill_launches"],
+                             "gemma3_prefill": g3c["sla_fwd"],
+                             "gemma3_paged_prefill": g3pc["sla_fwd"],
+                             "danube_prefill": dnc["sla_fwd"],
+                             "vlm_train": vlc["sla_fwd"]},
+        **ran_at("sla_fwd"),
+        "arch_head_dims": arch_head_dims(
+            "wan2_1_1_3b", "lightningdit_1b", LM_ARCH, MOE_ARCH, HY_ARCH,
+            ED_ARCH, G3_ARCH, DN_ARCH, VL_ARCH),
         "max_abs_err": max(r["max_abs_err"] for r in fwd_split),
         "ms": wan32["ms"], "plain_ms": wan32["plain_ms"],
         "bound_ms": wan32["bound_ms"], "bound_by": wan32["bound_by"],
@@ -5525,7 +6251,11 @@ def main(argv=None) -> int:
         "train_ms_per_launch": (train["ms_per_launch"] or {}).get(
             "sla_fwd_tc_kernel"),
         "d64_cases": [{k: r[k] for k in d64_keys}
-                      for r in hy_fwd_rows + ed_fwd_rows],
+                      for r in hy_fwd_rows + ed_fwd_rows + vl_fwd_rows],
+        "d256_cases": [{k: r[k] for k in (
+            "shape", "dtype", "route", "max_abs_err", "bitwise_repeat", "ms",
+            "plain_ms", "bound_ms", "bound_by", "bound_fraction", "ok")}
+            for r in d256_fwd],
         "cases": rows,
     }, {
         "name": "sla_fwd_split_planes", "route": "cuda",
@@ -5541,6 +6271,8 @@ def main(argv=None) -> int:
         "plain_ms": planes["plain_ms"], "bound_ms": planes["bound_ms"],
         "bound_by": planes["bound_by"], "library_ms": None,
         "library": "none: no one PyTorch call cuts f32 into bf16 parts",
+        **ran_at("sla_fwd_split_planes"),
+        "arch_head_dims": arch_head_dims("wan2_1_1_3b", "lightningdit_1b"),
         "bitwise_vs_twin": planes["bitwise"],
         "bound_fraction": planes["bound_fraction"],
     }]
@@ -5553,11 +6285,17 @@ def main(argv=None) -> int:
             "source": "src/repro_torch/kernels/csrc/sla_bwd.cu",
             "replaces": f"src/repro/kernels/sla_bwd.py:{line}",
             "launches": (train["launches"][name] + ltc[name] + hyc[name]
-                         + edc[name]),
+                         + edc[name] + vlc[name]),
             "launches_by_path": {"train": train["launches"][name],
                                  "lm_train": ltc[name],
                                  "hybrid_train": hyc[name],
-                                 "encdec_train": edc[name]},
+                                 "encdec_train": edc[name],
+                                 "vlm_train": vlc[name]},
+            **ran_at(name),
+            "arch_head_dims": arch_head_dims(
+                "wan2_1_1_3b", "lightningdit_1b", LM_ARCH, HY_ARCH, ED_ARCH,
+                VL_ARCH),
+            "d256": "raises on CUDA tensors (ROADMAP item 15 part 3)",
             "max_abs_err": max(r["max_abs_err"] for r in mine
                                if r["route"] == F32_ROUTE),
             "ms": wan["ms"], "plain_ms": wan["plain_ms"],
@@ -5571,7 +6309,7 @@ def main(argv=None) -> int:
             "source_bf16": "src/repro_torch/kernels/csrc/sla_bwd_tc.cu",
             "tc_launches": (train["launches"][f"tc_{name}"]
                             + ltc[f"tc_{name}"] + hyc[f"tc_{name}"]
-                            + edc[f"tc_{name}"]),
+                            + edc[f"tc_{name}"] + vlc[f"tc_{name}"]),
             "ms_bf16": tc["ms"], "plain_ms_bf16": tc["plain_ms"],
             "bound_ms_bf16": tc["bound_ms"],
             "bound_by_bf16": tc["bound_by"],
@@ -5583,7 +6321,7 @@ def main(argv=None) -> int:
             "train_ms_per_launch": (train["ms_per_launch"] or {}).get(
                 f"{name}_tc_kernel"),
             "d64_cases": [{k: r[k] for k in d64_keys}
-                          for r in hy_bwd_rows + ed_bwd_rows
+                          for r in hy_bwd_rows + ed_bwd_rows + vl_bwd_rows
                           if r["kernel"] == name],
             "cases": mine,
         })
@@ -5597,13 +6335,23 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/sla_decode.py:52",
         "launches": (lm["launches"]["sla_decode"] + pgc["sla_decode"]
                      + puc["sla_decode"] + sum(dchunk["launches"])
-                     + dgc["sla_decode"] + moec["sla_decode"]),
+                     + dgc["sla_decode"] + moec["sla_decode"]
+                     + g3c["sla_decode"] + g3pc["sla_decode"]
+                     + dnc["sla_decode"]),
         "launches_by_path": {"lm_decode": lm["launches"]["sla_decode"],
                              "lm_paged_decode": pgc["sla_decode"],
                              "lm_unpaged_decode": puc["sla_decode"],
                              "lm_decode_chunk": sum(dchunk["launches"]),
                              "lm_disagg": dgc["sla_decode"],
-                             "moe_decode": moec["sla_decode"]},
+                             "moe_decode": moec["sla_decode"],
+                             "gemma3_decode": g3c["sla_decode"],
+                             "gemma3_paged_decode": g3pc["sla_decode"],
+                             "danube_decode": dnc["sla_decode"]},
+        **ran_at("sla_decode"),
+        "arch_head_dims": arch_head_dims(LM_ARCH, MOE_ARCH, G3_ARCH),
+        "d256": {k: d256_dec[0][k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_fraction", "max_abs_err", "split_width", "ok")},
         "max_abs_err": max(r["max_abs_err"] for r in dec_rows),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -5626,13 +6374,23 @@ def main(argv=None) -> int:
         "launches": (lm["launches"]["sla_decode_paged"]
                      + pgc["sla_decode_paged"] + puc["sla_decode_paged"]
                      + pcc["sla_decode_paged"] + dgc["sla_decode_paged"]
-                     + moec["sla_decode_paged"]),
+                     + moec["sla_decode_paged"] + g3c["sla_decode_paged"]
+                     + g3pc["sla_decode_paged"] + dnc["sla_decode_paged"]),
         "launches_by_path": {"lm_decode": lm["launches"]["sla_decode_paged"],
                              "lm_paged_decode": pgc["sla_decode_paged"],
                              "lm_unpaged_decode": puc["sla_decode_paged"],
                              "lm_chunked_decode": pcc["sla_decode_paged"],
                              "lm_disagg": dgc["sla_decode_paged"],
-                             "moe_decode": moec["sla_decode_paged"]},
+                             "moe_decode": moec["sla_decode_paged"],
+                             "gemma3_decode": g3c["sla_decode_paged"],
+                             "gemma3_paged_decode": g3pc["sla_decode_paged"],
+                             "danube_decode": dnc["sla_decode_paged"]},
+        **ran_at("sla_decode_paged"),
+        "arch_head_dims": arch_head_dims(LM_ARCH, G3_ARCH),
+        "d256": {k: d256_pg[0][k] for k in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_fraction", "max_abs_err", "split_width",
+            "bitwise_vs_sla_decode", "ok")},
         "max_abs_err": max(r["max_abs_err"] for r in pg_rows),
         "ms": head5["ms"], "plain_ms": head5["plain_ms"],
         "bound_ms": head5["bound_ms"], "bound_by": head5["bound_by"],
@@ -5645,13 +6403,14 @@ def main(argv=None) -> int:
         **{key: head5[key] for key in split_keys},
         "cases": pg_rows,
     })
-    say(f"[26] main path {main_run} | cross-check {cross} | plan cache "
+    say(f"[30] main path {main_run} | cross-check {cross} | plan cache "
         f"{pcache} | grads {grads} | "
         f"train {train} | train CLI {cli} | lm {lm} | lm cross-check "
         f"{lm_cross} | paged lm {pg} | unpaged mixed {pu} | chunked "
         f"admission {pc} | decode_chunk {dchunk} | disagg {dg} | lm train "
         f"{lt} | moe serve {moe} | hybrid {hy} | encdec {ed} | ssm {rw} | "
-        f"total {time.time() - t_all:.1f}s")
+        f"gemma3 serve {g3} | danube serve {dn} | vlm train {vl} | total "
+        f"{time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

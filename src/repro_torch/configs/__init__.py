@@ -1,8 +1,5 @@
-"""Config registry: --arch <id> resolution.
-
-The DiT configs, qwen3-1.7b, the two MoE configs, zamba2-1.2b,
-rwkv6-7b and whisper-small are ported; asking for any other arch of the
-JAX registry raises and names the ROADMAP item that ports its family.
+"""Config registry: --arch <id> resolution. Every arch of the JAX
+registry is ported; an unknown name raises KeyError.
 """
 from repro_torch.configs.base import (DIT_SHAPES, SHAPES, SMOKE_SHAPES,
                                       ArchConfig, ShapeConfig)
@@ -16,24 +13,15 @@ _ARCH_MODULES = {
     "zamba2-1.2b": "zamba2_1_2b",
     "rwkv6-7b": "rwkv6_7b",
     "whisper-small": "whisper_small",
-}
-
-# arch -> the ROADMAP.md queue-1 item that ports its model family
-_NOT_YET_PORTED = {
-    "h2o-danube-3-4b": 15,
-    "gemma3-1b": 15,
-    "mistral-large-123b": 15,
-    "internvl2-1b": 15,
+    "h2o-danube-3-4b": "h2o_danube_3_4b",
+    "gemma3-1b": "gemma3_1b",
+    "mistral-large-123b": "mistral_large_123b",
+    "internvl2-1b": "internvl2_1b",
 }
 
 
 def get_arch(name: str) -> ArchConfig:
     import importlib
-    if name in _NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to repro_torch yet (ROADMAP.md "
-            f"queue 1, item {_NOT_YET_PORTED[name]}); ported: "
-            f"{sorted(_ARCH_MODULES)}")
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}")
     mod = importlib.import_module(

@@ -68,6 +68,20 @@
 // K/V tiles of a multiple of 16 bytes (bkv D % 8 == 0 in bf16) and 16-byte
 // strides.
 //
+// Head dims up to 256 (gemma3's 256-wide heads). The columns a lane owns are
+// a template parameter, kCols: 4 up to D 128 (the layout above, unchanged),
+// 8 up to D 256. At D 256 a slot's H tile is 256 KB of f32, more than a
+// block's shared memory, so H streams through the stage in row slices of
+// kHRows rows (64 rows, 64 KB at D 256; at D <= 128 one slice holds the
+// whole tile) on the H mbarrier: the warps dot slice n with phi(q) while
+// nothing else is in flight on that barrier, then thread 0 refills the
+// slice buffer with slice n + 1, or with slice 0 of the next slot. K and V
+// (32 KB each in bf16 at D 256) keep their own barrier and are refilled as
+// before. The stage is then 129 KB (bf16) or 193 KB (f32): one block an SM.
+// The split width, the record layout and the combine kernel are the same at
+// every width, and a warp sums its H rows in the same order whether they
+// arrive in one slice or in four.
+//
 // Paged decode (`pt` given, single token, live row). The logical block
 // id j = lut[s] drives the column mask and the diagonal test; the
 // physical page pt[b * tn + j], b = bh / heads, drives the addresses. The
@@ -92,11 +106,19 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxD = 128;      // 4 columns for each of the 32 lanes
+constexpr int kNarrowCols = 4;  // columns a lane owns up to D 128
+constexpr int kWideCols = 8;    // and up to D 256
+constexpr int kMaxD = 32 * kWideCols;
 constexpr int kMaxBlock = 64;   // keys of one KV block
 constexpr int kKeys = kMaxBlock / kWarps;  // a block's keys per warp
-constexpr int kRows = kMaxD / kWarps;      // an H tile's rows per warp
 constexpr int kMaxGrid = 65535;            // grid y (C) and z (BH)
+
+// The largest head dim of an instantiation, and the H rows one slice of
+// its stage holds (at D <= 128 the whole tile, so one slice a slot).
+__host__ __device__ constexpr int dim_of(int cols) { return 32 * cols; }
+__host__ __device__ constexpr int h_rows_of(int cols) {
+  return cols == kNarrowCols ? dim_of(kNarrowCols) : 64;
+}
 constexpr int kBatch = 8;  // records the combine reads at once
 constexpr float kNegInf = -1e30f;  // the reference's masked score
 constexpr float kEps = 1e-6f;
@@ -107,11 +129,17 @@ constexpr float kEps = 1e-6f;
 // phi(q) Ztot, hpart = phi(q) Htot).
 __host__ __device__ constexpr int record(int d) { return 4 + 2 * d; }
 
-// A block's stage: a slot's K tile, V tile (bkv x d of T each), H tile
-// (d x d f32) and Z row (d f32), each a multiple of 16 bytes.
-__host__ __device__ constexpr int stage_bytes(int d, int block_kv,
-                                              int esize) {
-  return 2 * block_kv * d * esize + (d * d + d) * 4;
+// The H rows of one slice at head dim d: h_rows, or the whole tile.
+__host__ __device__ constexpr int slice_rows(int d, int h_rows) {
+  return d < h_rows ? d : h_rows;
+}
+
+// A block's stage: a slot's K tile, V tile (bkv x d of T each), one slice
+// of its H tile (slice_rows x d f32) and its Z row (d f32), each a
+// multiple of 16 bytes.
+__host__ __device__ constexpr int stage_bytes(int d, int block_kv, int esize,
+                                              int h_rows) {
+  return 2 * block_kv * d * esize + (slice_rows(d, h_rows) * d + d) * 4;
 }
 
 __device__ __forceinline__ void load4(const float* p, float out[4]) {
@@ -181,38 +209,69 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
-// hs += sum over this warp's rows r of phi(q)[r] * h[r, col0:col0+4] and,
-// in warp 0, zs += phi(q) . z, for an H tile and Z row in shared memory
-__device__ __forceinline__ void dot_h(const float* h, const float* z,
-                                     const float* sQp, int d, int warp,
-                                     int col0, float hs[4], float& zs) {
+// Loads kCols columns from col0 on, 4 at a time, each group of 4 only
+// where it lies inside the d columns (zeros past them).
+template <int kCols, typename T>
+__device__ __forceinline__ void load_cols(const T* p, int col0, int d,
+                                          float out[kCols]) {
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = warp + kWarps * i;
-    if (r < d) {
-      float hv[4];
-      load4(h + r * d + col0, hv);
-      const float w = sQp[r];
+  for (int g = 0; g < kCols / 4; ++g) {
+    if (col0 + 4 * g < d) {
+      load4(p + col0 + 4 * g, out + 4 * g);
+    } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) hs[e] = fmaf(w, hv[e], hs[e]);
+      for (int e = 0; e < 4; ++e) out[4 * g + e] = 0.f;
     }
   }
-  if (warp == 0) {
-    float zv[4];
-    load4(z + col0, zv);
+}
+
+// hs += sum over this warp's rows r of one H slice in shared memory (rows
+// row0 .. row0 + nrows of the tile, slice row r - row0) of
+// phi(q)[r] * h[r, col0:col0+kCols]
+template <int kCols>
+__device__ __forceinline__ void dot_h(const float* h, const float* sQp,
+                                     int d, int row0, int nrows, int warp,
+                                     int col0, float hs[kCols]) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) zs = fmaf(sQp[col0 + e], zv[e], zs);
+  for (int i = 0; i < h_rows_of(kCols) / kWarps; ++i) {
+    const int r = warp + kWarps * i;
+    if (r < nrows) {
+      float hv[kCols];
+      load_cols<kCols>(h + r * d, col0, d, hv);
+      const float w = sQp[row0 + r];
+#pragma unroll
+      for (int e = 0; e < kCols; ++e) hs[e] = fmaf(w, hv[e], hs[e]);
+    }
+  }
+}
+
+// in warp 0, zs += phi(q)[cols] . z[cols] over the lane's columns
+template <int kCols>
+__device__ __forceinline__ void dot_z(const float* z, const float* sQp,
+                                     int d, int warp, int col0, float& zs) {
+  if (warp != 0) return;
+#pragma unroll
+  for (int g = 0; g < kCols / 4; ++g) {
+    const int c = col0 + 4 * g;
+    if (c < d) {
+      float zv[4];
+      load4(z + c, zv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) zs = fmaf(sQp[c + e], zv[e], zs);
+    }
   }
 }
 
 // The split kernel: one block per (split, c, bh). kPaged selects the
 // page-table addressing at compile time, so that the monolithic
-// instantiation carries no per-slot branch or page load. Thread 0 fills
-// the block's stage with a slot's tiles by bulk copies: K and V on one
-// mbarrier, H and Z on another. Every warp reads its keys of K and V
-// once theirs completes; a block barrier then lets thread 0 refill K and
-// V with the next slot while the warps read H; a second barrier frees H.
-template <typename T, bool kPaged>
+// instantiation carries no per-slot branch or page load; kCols the
+// columns a lane owns (and with them the H slice). Thread 0 fills the
+// block's stage with a slot's tiles by bulk copies: K and V on one
+// mbarrier, H slices and Z on another. Every warp reads its keys of K and
+// V once theirs completes; a block barrier then lets thread 0 refill K
+// and V with the next slot while the warps read H; a barrier after each
+// slice frees the slice buffer for the next.
+template <typename T, bool kPaged, int kCols>
 __global__ void __launch_bounds__(kThreads)
     sla_decode_split_kernel(const int32_t* __restrict__ lut,
                             const int32_t* __restrict__ cnt,
@@ -239,10 +298,11 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ __align__(128) unsigned char stage[];
   __shared__ __align__(8) uint64_t kv_full;  // K, V landed
   __shared__ __align__(8) uint64_t h_full;   // H, Z landed
-  __shared__ float sQp[kMaxD];
+  constexpr int kDim = dim_of(kCols);
+  __shared__ float sQp[kDim];
   __shared__ float sM[kWarps], sL[kWarps];
-  __shared__ float sAcc[kWarps][kMaxD];
-  __shared__ float sH[kWarps][kMaxD];
+  __shared__ float sAcc[kWarps][kDim];
+  __shared__ float sH[kWarps][kDim];
   __shared__ float sZ;
 
   const int split = blockIdx.x;
@@ -256,11 +316,16 @@ __global__ void __launch_bounds__(kThreads)
   const size_t tok = (size_t)bh * c_len + c;       // q, lut, outputs row
   const size_t kvtok = (size_t)kvrow * c_len + c;  // hdiag row
   const size_t totrow = tot_per_token ? kvtok : (size_t)kvrow;  // htot row
-  const int col0 = 4 * lane;  // this lane's 4 head-dim columns
+  const int col0 = kCols * lane;  // this lane's kCols head-dim columns
   const bool col_ok = col0 < d;
   const int kv_elems = block_kv * d;
   const uint32_t kv_bytes = kv_elems * sizeof(T);
-  const uint32_t h_bytes = d * d * 4, z_bytes = d * 4;
+  const uint32_t z_bytes = d * 4;
+  // H arrives in nslices slices of srows rows (the last may be shorter)
+  const int srows = slice_rows(d, h_rows_of(kCols));
+  const int nslices = (d + srows - 1) / srows;
+  auto rows_in = [&](int n) { return d - n * srows < srows ? d - n * srows
+                                                           : srows; };
   float* part = work + (tok * (nsplit + 1) + split) * record(d);
   // let the combine kernel launch now and wait for this grid
   // (programmatic dependent launch)
@@ -275,19 +340,29 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   float m_run = kNegInf, l_run = 0.f;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};  // O^s columns, this warp's keys
-  float hs[4] = {0.f, 0.f, 0.f, 0.f};   // phi(q) H, this warp's rows
-  float zs = 0.f;                        // phi(q) Z, per lane (warp 0)
+  float acc[kCols], hs[kCols];  // O^s columns, this warp's keys; phi(q) H
+#pragma unroll
+  for (int e = 0; e < kCols; ++e) acc[e] = hs[e] = 0.f;
+  float zs = 0.f;  // phi(q) Z, per lane (warp 0)
 
   if (split == nsplit) {  // the totals: phi(q) Htot, phi(q) Ztot
     float* sh = reinterpret_cast<float*>(stage);
-    if (tid == 0) {
-      mbar_expect(&h_full, h_bytes + z_bytes);
-      bulk_load(sh, htot + totrow * d * d, h_bytes, &h_full);
-      bulk_load(sh + d * d, ztot + totrow * d, z_bytes, &h_full);
+    float* sz = sh + srows * d;
+    for (int n = 0; n < nslices; ++n) {
+      if (tid == 0) {
+        const uint32_t bytes = rows_in(n) * d * 4;
+        mbar_expect(&h_full, bytes + (n == 0 ? z_bytes : 0));
+        bulk_load(sh, htot + totrow * d * d + (size_t)n * srows * d, bytes,
+                  &h_full);
+        if (n == 0) bulk_load(sz, ztot + totrow * d, z_bytes, &h_full);
+      }
+      mbar_wait(&h_full, n & 1);
+      if (col_ok) {
+        dot_h<kCols>(sh, sQp, d, n * srows, rows_in(n), warp, col0, hs);
+        if (n == 0) dot_z<kCols>(sz, sQp, d, warp, col0, zs);
+      }
+      __syncthreads();  // the slice is read: it may be refilled
     }
-    mbar_wait(&h_full, 0);
-    if (col_ok) dot_h(sh, sh + d * d, sQp, d, warp, col0, hs, zs);
   } else {
     int n = cnt[tok];
     n = n < k_sel ? n : k_sel;
@@ -331,24 +406,31 @@ __global__ void __launch_bounds__(kThreads)
     // the stage
     const T* sk = reinterpret_cast<const T*>(stage);
     const T* sv = sk + kv_elems;
-    const float* sh = reinterpret_cast<const float*>(stage + 2 * kv_bytes);
+    unsigned char* h_stage = stage + 2 * kv_bytes;
+    const float* sh = reinterpret_cast<const float*>(h_stage);
+    const float* sz = sh + srows * d;
     auto fill_kv = [&](const Tiles& t) {
       mbar_expect(&kv_full, 2 * kv_bytes);
       bulk_load(stage, t.k, kv_bytes, &kv_full);
       bulk_load(stage + kv_bytes, t.v, kv_bytes, &kv_full);
     };
-    auto fill_h = [&](const Tiles& t) {
-      mbar_expect(&h_full, h_bytes + z_bytes);
-      bulk_load(stage + 2 * kv_bytes, t.h, h_bytes, &h_full);
-      bulk_load(stage + 2 * kv_bytes + h_bytes, t.z, z_bytes, &h_full);
+    // slice n of a slot's H tile, and with slice 0 its Z row
+    auto fill_h = [&](const Tiles& t, int n) {
+      const uint32_t bytes = rows_in(n) * d * 4;
+      mbar_expect(&h_full, bytes + (n == 0 ? z_bytes : 0));
+      bulk_load(h_stage, t.h + (size_t)n * srows * d, bytes, &h_full);
+      if (n == 0)
+        bulk_load(h_stage + srows * d * 4, t.z, z_bytes, &h_full);
     };
+    Tiles cur{};  // thread 0: the slot whose H slices are in flight
     if (tid == 0 && s0 < s1) {
-      const Tiles t = tiles(s0);
-      fill_kv(t);
-      fill_h(t);
+      cur = tiles(s0);
+      fill_kv(cur);
+      fill_h(cur, 0);
     }
-    float qv[4] = {0.f, 0.f, 0.f, 0.f};
-    if (col_ok) load4(q + tok * d + col0, qv);
+    float qv[kCols];
+    load_cols<kCols>(q + tok * d, col0, d, qv);
+    uint32_t h_parity = 0;
 
     for (int s = s0; s < s1; ++s) {
       const uint32_t parity = (s - s0) & 1;
@@ -364,12 +446,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int u = 0; u < kKeys; ++u) {
         const int t = warp + kWarps * u;
-        float kk[4] = {0.f, 0.f, 0.f, 0.f};
-        if (col_ok && t < block_kv) load4(sk + t * d + col0, kk);
+        float kk[kCols];
+#pragma unroll
+        for (int e = 0; e < kCols; ++e) kk[e] = 0.f;
+        if (col_ok && t < block_kv) load_cols<kCols>(sk + t * d, col0, d, kk);
         float dot = qv[0] * kk[0];
-        dot = fmaf(qv[1], kk[1], dot);
-        dot = fmaf(qv[2], kk[2], dot);
-        dot = fmaf(qv[3], kk[3], dot);
+#pragma unroll
+        for (int e = 1; e < kCols; ++e) dot = fmaf(qv[e], kk[e], dot);
         dot = warp_sum(dot);
         p[u] = (j * block_kv + t <= pos) ? dot * scale : kNegInf;
         if (t < block_kv) mx = fmaxf(mx, p[u]);
@@ -386,27 +469,39 @@ __global__ void __launch_bounds__(kThreads)
       l_run = l_run * alpha + ps;
       m_run = m_new;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[e] *= alpha;
+      for (int e = 0; e < kCols; ++e) acc[e] *= alpha;
       if (col_ok) {
 #pragma unroll
         for (int u = 0; u < kKeys; ++u) {
           const int t = warp + kWarps * u;
           if (t < block_kv) {
-            float vv[4];
-            load4(sv + t * d + col0, vv);
+            float vv[kCols];
+            load_cols<kCols>(sv + t * d, col0, d, vv);
 #pragma unroll
-            for (int e = 0; e < 4; ++e) acc[e] = fmaf(p[u], vv[e], acc[e]);
+            for (int e = 0; e < kCols; ++e) acc[e] = fmaf(p[u], vv[e], acc[e]);
           }
         }
       }
       // K and V are read: refill them with the next slot while the warps
-      // read H
+      // read H, a slice at a time
       __syncthreads();
       if (refill) fill_kv(next);
-      mbar_wait(&h_full, parity);
-      if (col_ok) dot_h(sh, sh + d * d, sQp, d, warp, col0, hs, zs);
-      __syncthreads();
-      if (refill) fill_h(next);
+      for (int sl = 0; sl < nslices; ++sl) {
+        mbar_wait(&h_full, h_parity);
+        h_parity ^= 1;
+        if (col_ok) {
+          dot_h<kCols>(sh, sQp, d, sl * srows, rows_in(sl), warp, col0, hs);
+          if (sl == 0) dot_z<kCols>(sz, sQp, d, warp, col0, zs);
+        }
+        __syncthreads();  // the slice is read: it may be refilled
+        if (tid == 0) {
+          if (sl + 1 < nslices)
+            fill_h(cur, sl + 1);
+          else if (refill)
+            fill_h(next, 0);
+        }
+      }
+      if (refill) cur = next;
     }
   }
 
@@ -415,9 +510,9 @@ __global__ void __launch_bounds__(kThreads)
     sM[warp] = m_run;
     sL[warp] = l_run;
   }
-  if (col_ok) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+  for (int e = 0; e < kCols; ++e) {
+    if (col0 + e < d) {
       sAcc[warp][col0 + e] = acc[e];
       sH[warp][col0 + e] = hs[e];
     }
@@ -451,13 +546,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The combine kernel: one block per (bh, c) row, thread e owns column e.
+// The combine kernel: one block per (bh, c) row of kMaxThreads threads
+// (128, or 256 for head dims above 128), thread e owns column e.
 // It waits for the split grid (programmatic dependent launch), stages the
 // row's record headers (m, l, zpart) in shared memory in one parallel
 // pass, reads the nsplit split records in index order, kBatch at a time
 // (their loads in flight together), then the totals' record, and writes
 // O^s and O^l.
-__global__ void __launch_bounds__(kMaxD)
+template <int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads)
     sla_decode_combine_kernel(const int32_t* __restrict__ marg,
                               const float* __restrict__ work,
                               float* __restrict__ o_s,
@@ -506,18 +603,18 @@ __global__ void __launch_bounds__(kMaxD)
 }
 
 // The split kernel's stage takes dynamic shared memory past 48 KB (the
-// largest, f32 at D 128 and bkv 64, 128.5 KB): allow it, once per
-// instantiation.
-template <typename T, bool kPaged>
+// largest of an instantiation at its widest head dim and bkv 64: f32 at D
+// 128 128.5 KB, at D 256 193 KB): allow it, once per instantiation.
+template <typename T, bool kPaged, int kCols>
 cudaError_t allow_stage() {
   static const cudaError_t err = cudaFuncSetAttribute(
-      sla_decode_split_kernel<T, kPaged>,
+      sla_decode_split_kernel<T, kPaged, kCols>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
-      stage_bytes(kMaxD, kMaxBlock, sizeof(T)));
+      stage_bytes(dim_of(kCols), kMaxBlock, sizeof(T), h_rows_of(kCols)));
   return err;
 }
 
-template <typename T, bool kPaged>
+template <typename T, bool kPaged, int kCols>
 int launch(const int32_t* lut, const int32_t* cnt, const int32_t* marg,
            const int32_t* posv, const float* q, const float* qp,
            const void* k, const void* v, const float* hblk,
@@ -530,12 +627,12 @@ int launch(const int32_t* lut, const int32_t* cnt, const int32_t* marg,
            long long h_head_stride, long long h_blk_stride,
            long long z_head_stride, long long z_blk_stride,
            int tot_per_token, int width, int nsplit, cudaStream_t stream) {
-  cudaError_t err = allow_stage<T, kPaged>();
+  cudaError_t err = allow_stage<T, kPaged, kCols>();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(nsplit + 1, c_len, bh_q);
-  sla_decode_split_kernel<T, kPaged><<<grid, kThreads,
-                                       stage_bytes(d, block_kv, sizeof(T)),
-                                       stream>>>(
+  sla_decode_split_kernel<T, kPaged, kCols><<<
+      grid, kThreads,
+      stage_bytes(d, block_kv, sizeof(T), h_rows_of(kCols)), stream>>>(
       lut, cnt, posv, q, qp, static_cast<const T*>(k),
       static_cast<const T*>(v), hblk, zblk, hdiag, zdiag, htot, ztot, pt,
       work, c_len, k_sel, tn, num_blocks, d, block_kv, group, heads, kv_mod,
@@ -547,7 +644,7 @@ int launch(const int32_t* lut, const int32_t* cnt, const int32_t* marg,
   // for the split grid's records itself (griddepcontrol.wait)
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(bh_q * c_len);
-  cfg.blockDim = dim3(kMaxD);
+  cfg.blockDim = dim3(dim_of(kCols));
   cfg.dynamicSmemBytes = 3 * (nsplit + 1) * sizeof(float);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -555,8 +652,8 @@ int launch(const int32_t* lut, const int32_t* cnt, const int32_t* marg,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, sla_decode_combine_kernel, marg,
-                           (const float*)work, o_s, o_l, d, nsplit);
+  err = cudaLaunchKernelEx(&cfg, sla_decode_combine_kernel<dim_of(kCols)>,
+                           marg, (const float*)work, o_s, o_l, d, nsplit);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -586,20 +683,27 @@ int launch_any(int is_bf16, const int32_t* lut, const int32_t* cnt,
       work == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto go = [&](auto tag, auto paged) {
+  auto go = [&](auto tag, auto paged, auto cols) {
     using T = decltype(tag);
-    return launch<T, decltype(paged)::value>(
+    return launch<T, decltype(paged)::value, decltype(cols)::value>(
         lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag, htot,
         ztot, pt, work, o_s, o_l, bh_q, c_len, k_sel, tn, num_blocks, d,
         block_kv, group, heads, kv_mod, scale, kv_head_stride,
         kv_blk_stride, h_head_stride, h_blk_stride, z_head_stride,
         z_blk_stride, tot_per_token, width, nsplit, st);
   };
-  using Paged = std::true_type;
-  using Flat = std::false_type;
-  if (pt != nullptr)
-    return is_bf16 ? go(__nv_bfloat16(), Paged()) : go(float(), Paged());
-  return is_bf16 ? go(__nv_bfloat16(), Flat()) : go(float(), Flat());
+  auto at_width = [&](auto cols) {
+    using Paged = std::true_type;
+    using Flat = std::false_type;
+    if (pt != nullptr)
+      return is_bf16 ? go(__nv_bfloat16(), Paged(), cols)
+                     : go(float(), Paged(), cols);
+    return is_bf16 ? go(__nv_bfloat16(), Flat(), cols)
+                   : go(float(), Flat(), cols);
+  };
+  if (d <= dim_of(kNarrowCols))
+    return at_width(std::integral_constant<int, kNarrowCols>());
+  return at_width(std::integral_constant<int, kWideCols>());
 }
 
 }  // namespace
@@ -615,7 +719,7 @@ int launch_any(int is_bf16, const int32_t* lut, const int32_t* cnt,
 // of d contiguous elements inside a block. `work` is an f32 workspace of
 // bh_q * c_len * (nsplit + 1) * (4 + 2 d) floats (its contents need not be
 // set); each block walks `width` LUT slots of its row and nsplit =
-// ceil(k_sel / width). Requires d <= 128, d % 4 == 0, block_kv <= 64,
+// ceil(k_sel / width). Requires d <= 256, d % 4 == 0, block_kv <= 64,
 // K/V tiles (block_kv x d) of a multiple of 16 bytes and strides of 16
 // bytes, 1 <= width <= k_sel, and c_len, bh_q <= 65535 (the wrapper
 // checks).

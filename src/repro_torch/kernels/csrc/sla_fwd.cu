@@ -31,19 +31,33 @@
 // accumulator, with row reductions done by warp shuffles inside 16-lane
 // groups. Tiles are kept in f32 whatever the input type (about 82 KB of
 // shared memory at D = 128), so two blocks fit on an SM. It takes the
-// calls the tensor-core kernels do not (blocks other than 64 x 64): at
-// 64 x 64 blocks and D <= 128, f32 runs on sla_fwd_split.cu and bf16 on
-// sla_fwd_tc.cu.
+// calls the tensor-core kernels do not (blocks other than 64 x 64, and
+// head dims above 128): at 64 x 64 blocks and D <= 128, f32 runs on
+// sla_fwd_split.cu and bf16 on sla_fwd_tc.cu.
+//
+// Head dims up to 256 (gemma3's 256-wide heads). The head-dim columns a
+// thread owns are a template parameter: 8 (tx + 16 e) up to D 128, 16 up
+// to D 256, so the accumulator doubles to a 4 x 16 tile a thread. At D 256
+// and 64 x 64 blocks the tiles take 146.5 KB of shared memory: one block
+// an SM (cudaFuncSetAttribute refuses more than the device's opt-in
+// maximum, and the launch then returns its error). The
+// arithmetic per element is the same at either width; only the columns
+// each thread walks change.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRows = 4;    // query rows per thread: ty + 16 * r
 constexpr int kCols = 4;    // kv columns per thread: tx + 16 * c
-constexpr int kDCols = 8;   // head-dim columns per thread: tx + 16 * e
+// head-dim columns per thread (tx + 16 * e): the template parameter kDCols,
+// kNarrowDCols up to D 128 (two blocks an SM), kWideDCols up to D 256
+constexpr int kNarrowDCols = 8;
+constexpr int kWideDCols = 16;
 constexpr float kNegInf = -1e30f;  // the reference's masked score
 constexpr float kEps = 1e-6f;
 
@@ -72,8 +86,8 @@ size_t smem_floats(int d, int block_q, int block_kv) {
          (size_t)block_q * (block_kv + 1) + d;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+template <typename T, int kDCols>
+__global__ void __launch_bounds__(kThreads, kDCols == kNarrowDCols ? 2 : 1)
     sla_fwd_kernel(const int32_t* __restrict__ lut,
                    const int32_t* __restrict__ counts, int base,
                    const T* __restrict__ q, const T* __restrict__ k,
@@ -288,20 +302,22 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <typename T>
+template <typename T, int kDCols>
 int launch(const int32_t* lut, const int32_t* counts, int base,
            const void* q, const void* k, const void* v, const float* qp,
            const float* hi, const float* zi, float* o_s, float* o_l,
            float* lse, int bh_q, int nq, int nkv, int d, int tm, int k_sel,
            int group, int block_q, int block_kv, float scale, int causal,
            cudaStream_t stream) {
+  if (d > 16 * kDCols) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_floats(d, block_q, block_kv) * sizeof(float);
+  // refused (and the wrapper raises) past the device's opt-in maximum
   cudaError_t err = cudaFuncSetAttribute(
-      sla_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sla_fwd_kernel<T, kDCols>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(tm, bh_q);
-  sla_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  sla_fwd_kernel<T, kDCols><<<grid, kThreads, smem, stream>>>(
       lut, counts, base, static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v), qp, hi, zi, o_s,
       o_l, lse, nq, nkv, d, tm, k_sel, group, block_q, block_kv, scale,
@@ -313,8 +329,9 @@ int launch(const int32_t* lut, const int32_t* counts, int base,
 
 // Plain C interface (loaded with ctypes). Pointers are device pointers;
 // q, k, v are f32 (is_bf16 = 0) or bf16 (is_bf16 = 1); everything else is
-// f32 / int32. Returns a cudaError_t value (0 on success). The launch is
-// asynchronous on `stream` and allocates nothing.
+// f32 / int32; d <= 256 (the tiles must fit the device's shared memory:
+// 146.5 KB at d 256 and 64 x 64 blocks). Returns a cudaError_t value (0 on
+// success). The launch is asynchronous on `stream` and allocates nothing.
 extern "C" int sla_fwd_launch(const int32_t* lut, const int32_t* counts,
                               int base, const void* q, const void* k,
                               const void* v, const float* qp,
@@ -325,13 +342,17 @@ extern "C" int sla_fwd_launch(const int32_t* lut, const int32_t* counts,
                               int causal, int is_bf16, void* stream) {
   const int group = bh_q / bh_kv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(lut, counts, base, q, k, v, qp, hi, zi,
-                                 o_s, o_l, lse, bh_q, nq, nkv, d, tm, k_sel,
-                                 group, block_q, block_kv, scale, causal, st);
-  return launch<float>(lut, counts, base, q, k, v, qp, hi, zi, o_s, o_l,
-                       lse, bh_q, nq, nkv, d, tm, k_sel, group, block_q,
-                       block_kv, scale, causal, st);
+  auto go = [&](auto tag, auto cols) {
+    using T = decltype(tag);
+    return launch<T, decltype(cols)::value>(
+        lut, counts, base, q, k, v, qp, hi, zi, o_s, o_l, lse, bh_q, nq, nkv,
+        d, tm, k_sel, group, block_q, block_kv, scale, causal, st);
+  };
+  using Narrow = std::integral_constant<int, kNarrowDCols>;
+  using Wide = std::integral_constant<int, kWideDCols>;
+  if (d <= 16 * kNarrowDCols)
+    return is_bf16 ? go(__nv_bfloat16(), Narrow()) : go(float(), Narrow());
+  return is_bf16 ? go(__nv_bfloat16(), Wide()) : go(float(), Wide());
 }
 
 extern "C" const char* sla_fwd_error_string(int err) {

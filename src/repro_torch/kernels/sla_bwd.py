@@ -26,29 +26,37 @@ too, so a training step never mixes routes), not a fallback:
   * everything else (f32, other blocks): the f32-FMA kernels of
     `sla_bwd.cu`, every product in f32 from the same inputs.
 
-A failed build or launch raises; nothing reroutes. The twins compute in
+Head dims above `MAX_HEAD_DIM` (128; gemma3's 256) raise a ValueError on
+CUDA tensors (ROADMAP.md queue 1, item 15 part 3); CPU tensors run the
+twins at any head dim. A failed build or launch raises; nothing
+reroutes. The twins compute in
 f32; with `mma_dtype=torch.bfloat16` they round dO, P and dS where the
 tensor-core kernels do, the yardstick of that route's rounding.
 `LAUNCHES_DQ` / `LAUNCHES_DKV` count kernel launches of either route and
 nothing else, `TC_LAUNCHES_DQ` / `TC_LAUNCHES_DKV` those of the
-tensor-core route.
+tensor-core route, `HEAD_DIMS_DQ` / `HEAD_DIMS_DKV` the same launches by
+the head dim the kernel ran at (`TC_HEAD_DIM` on the tensor-core route,
+which pads to it; the own D on the f32 route).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.sla_fwd import (NEG_INF, TC_BLOCK, TC_HEAD_DIM,
-                                         check_operands, pad_head_dim,
-                                         use_tensor_cores)
+from repro_torch.kernels.sla_fwd import (MAX_HEAD_DIM, NEG_INF, TC_BLOCK,
+                                         TC_HEAD_DIM, check_operands,
+                                         pad_head_dim, use_tensor_cores)
 
 LAUNCHES_DQ = 0   # dQ kernel launches in this process (twin calls excluded)
 LAUNCHES_DKV = 0  # dK/dV kernel launches in this process
 TC_LAUNCHES_DQ = 0   # of which on the tensor-core route
 TC_LAUNCHES_DKV = 0
+HEAD_DIMS_DQ = collections.Counter()  # LAUNCHES_DQ by the head dim run at
+HEAD_DIMS_DKV = collections.Counter()  # LAUNCHES_DKV alike
 
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 # lut, counts, q, k, v, dout, lse, dsum, dq; bh_q, bh_kv, n, d, k_sel,
@@ -141,6 +149,11 @@ def _check(kernel, lut, counts, q, k, v, do_s, lse, d_s, block_q,
     """Operand checks of both wrappers; `lut_block` is the block size
     the LUT's rows index (block_q for the row LUT, block_kv for the
     column LUT)."""
+    if q.ndim == 3 and q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(
+            f"{kernel} kernel takes head dims <= {MAX_HEAD_DIM}, got "
+            f"{q.shape[-1]}: the backward at wider heads (gemma3's 256) is "
+            f"ROADMAP.md queue 1, item 15 part 3")
     ts = dict(lut=lut, counts=counts, q=q, k=k, v=v, do_s=do_s, lse=lse,
               d_s=d_s)
     check_operands(kernel, ts, ("do_s", "lse", "d_s"), ("lut", "counts"),
@@ -190,6 +203,7 @@ def _launch_dq(lut, counts, q, k, v, do_s, lse, d_s, *, scale, causal,
             int(q.dtype == torch.bfloat16), stream)
     _raise_on(err, "sla_bwd_dq", lib)
     LAUNCHES_DQ += 1
+    HEAD_DIMS_DQ[d] += 1
     return dq
 
 
@@ -215,6 +229,7 @@ def _launch_dkv(col_lut, col_counts, q, k, v, do_s, lse, d_s, *, scale,
             int(bool(causal)), int(q.dtype == torch.bfloat16), stream)
     _raise_on(err, "sla_bwd_dkv", lib)
     LAUNCHES_DKV += 1
+    HEAD_DIMS_DKV[d] += 1
     return dk, dv
 
 
@@ -247,6 +262,7 @@ def _launch_dq_tc(lut, counts, q, k, v, do_s, lse, d_s, *, scale, causal):
     _raise_on(err, "sla_bwd_dq tensor-core", lib)
     LAUNCHES_DQ += 1
     TC_LAUNCHES_DQ += 1
+    HEAD_DIMS_DQ[TC_HEAD_DIM] += 1
     return dq if d == TC_HEAD_DIM else dq[..., :d].contiguous()
 
 
@@ -271,6 +287,7 @@ def _launch_dkv_tc(col_lut, col_counts, q, k, v, do_s, lse, d_s, *, scale,
     _raise_on(err, "sla_bwd_dkv tensor-core", lib)
     LAUNCHES_DKV += 1
     TC_LAUNCHES_DKV += 1
+    HEAD_DIMS_DKV[TC_HEAD_DIM] += 1
     if d != TC_HEAD_DIM:
         dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv

@@ -18,7 +18,9 @@ denominator is <= 1e-6.
 On the card the LUT walk is split (flash-decoding): a split kernel whose
 blocks each walk `split_width` slots of a row and write a partial record
 into an f32 workspace, then a combine kernel that merges a row's records
-in split order (deterministic: two launches are bitwise equal). The
+in split order (deterministic: two launches are bitwise equal). Head dims
+run up to `MAX_HEAD_DIM` (256): above 128 each lane owns 8 columns and
+the H tiles stream through the block's stage in row slices. The
 width is `choose_split_width(rows, K, SMs)`, a function of the shapes and the
 card only, so a paged call and a monolithic call on the same rows split
 alike; a caller may force one (1 <= width <= K).
@@ -39,9 +41,12 @@ same kernel body with K/V/hblk/zblk read from the pools at page
 pt[b, lut] (masking on the logical ids), single-token only, counted by
 `PAGED_LAUNCHES` apart from `LAUNCHES` (one per call as well); its twin
 is `sla_decode_paged_plain`. Serving never differentiates it.
+`HEAD_DIMS` and `PAGED_HEAD_DIMS` count the same calls by the head dim
+the kernels ran at (the operands' own D: they are never padded).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Tuple
@@ -51,8 +56,11 @@ import torch
 from repro_torch.core.config import SLAConfig
 from repro_torch.kernels.sla_fwd import EPS, NEG_INF, check_operands
 
+MAX_HEAD_DIM = 256  # the decode kernels' head dims (gemma3's 256 among them)
 LAUNCHES = 0  # kernel calls in this process (plain-twin calls excluded)
 PAGED_LAUNCHES = 0  # the paged kernel's calls, counted apart
+HEAD_DIMS = collections.Counter()  # LAUNCHES by the head dim run at
+PAGED_HEAD_DIMS = collections.Counter()  # PAGED_LAUNCHES alike
 SPLITS_PER_SM = 2  # the split grid covers every SM at least this often
 MAX_SPLIT_WIDTH = 4  # and no block walks more slots, one after another
 
@@ -169,7 +177,7 @@ def _check(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag,
     f32 = ("qp", "hblk", "zblk", "htot", "ztot") + (
         ("hdiag", "zdiag") if hdiag is not None else ())
     check_operands("sla_decode", ts, f32, ("lut", "cnt", "marg", "posv"), 1,
-                   block_kv, q_f32=True)
+                   block_kv, q_f32=True, max_head_dim=MAX_HEAD_DIM)
     bh, c, _ = q.shape
     if bh != bh_kv * group:
         raise ValueError(f"sla_decode: {bh} q rows are not {bh_kv} kv "
@@ -245,6 +253,7 @@ def _launch(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag,
         raise RuntimeError(f"sla_decode kernel launch failed: CUDA error "
                            f"{err} ({msg})")
     LAUNCHES += 1
+    HEAD_DIMS[d] += 1
     return o_s, o_l
 
 
@@ -433,10 +442,10 @@ def _check_paged(lut, pt, cnt, marg, posv, q, qp, k, v, hblk, zblk, htot,
     if bkv != block_kv:
         raise ValueError(f"{name}: k pages of {bkv} rows, block_kv "
                          f"{block_kv}")
-    if d > 128 or d % 4 or not 1 <= bkv <= 64:
-        raise ValueError(f"{name} kernel takes head dims <= 128 that are "
-                         f"multiples of 4 and blocks of 1..64, got D {d}, "
-                         f"bkv {bkv}")
+    if d > MAX_HEAD_DIM or d % 4 or not 1 <= bkv <= 64:
+        raise ValueError(f"{name} kernel takes head dims <= {MAX_HEAD_DIM} "
+                         f"that are multiples of 4 and blocks of 1..64, got "
+                         f"D {d}, bkv {bkv}")
     _check_tile(name, bkv, d, k.element_size())
     if pt.ndim != 2:
         raise ValueError(f"{name}: pt must be (B, Tn), got "
@@ -511,6 +520,7 @@ def _launch_paged(lut, pt, cnt, marg, posv, q, qp, k, v, hblk, zblk, htot,
         raise RuntimeError(f"sla_decode_paged kernel launch failed: CUDA "
                            f"error {err} ({msg})")
     PAGED_LAUNCHES += 1
+    PAGED_HEAD_DIMS[d] += 1
     return o_s, o_l
 
 

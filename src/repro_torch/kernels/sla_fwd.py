@@ -26,8 +26,10 @@ kernel is a rule on dtype and shape (`forward_route`), not a fallback:
     (`split_kv_planes`). A step that trains in f32 then runs this forward
     and the f32-FMA backward: both are f32-accurate, so this is not the
     bf16-rounding mismatch the shared rule exists to prevent.
-  * everything else (blocks other than 64 x 64): the f32-FMA kernel of
-    `sla_fwd.cu`, every product in f32 from the same inputs.
+  * everything else (blocks other than 64 x 64, and head dims above 128
+    up to `FWD_MAX_HEAD_DIM`, gemma3's 256 among them, in either dtype):
+    the f32-FMA kernel of `sla_fwd.cu`, every product in f32 from the
+    same inputs.
 
 Narrower heads on the tensor-core routes zero-pad q, k and v to
 `TC_HEAD_DIM` (zero columns leave S unchanged; the split route pads in
@@ -39,9 +41,13 @@ split kernel does: the yardsticks of those routes' arithmetic.
 `LAUNCHES` counts kernel launches of the forward on any route and nothing
 else, `TC_LAUNCHES` those of the tensor-core route, `SPLIT_LAUNCHES`
 those of the split route, `PLANES_LAUNCHES` those of its pre-pass.
+`HEAD_DIMS` and `PLANES_HEAD_DIMS` count the same launches by the head
+dim the kernel ran at: the tensor-core and split routes' (and the
+pre-pass's) padded `TC_HEAD_DIM`, the f32-FMA route's own D.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Tuple
@@ -50,13 +56,16 @@ import torch
 
 NEG_INF = -1e30
 EPS = 1e-6
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 128  # the head dims every SLA kernel takes
+FWD_MAX_HEAD_DIM = 256  # the forward's (on its f32-FMA route above 128)
 MAX_BLOCK = 64
 
 LAUNCHES = 0  # kernel launches in this process (plain-twin calls excluded)
 TC_LAUNCHES = 0  # of which on the tensor-core route
 SPLIT_LAUNCHES = 0  # of which on the split route
 PLANES_LAUNCHES = 0  # launches of the split route's K/V pre-pass
+HEAD_DIMS = collections.Counter()  # LAUNCHES by the head dim run at
+PLANES_HEAD_DIMS = collections.Counter()  # PLANES_LAUNCHES alike
 TC_BLOCK = 64      # the tensor-core kernels' block_q == block_kv
 TC_HEAD_DIM = 128  # the head dim they are built for (narrower is padded)
 SPLIT_PARTS = 3    # bf16 parts of each f32 operand on the split route
@@ -206,6 +215,7 @@ def split_kv_planes(k: torch.Tensor, v: torch.Tensor
         raise RuntimeError(f"split_kv_kernel launch failed: CUDA error {err} "
                            f"({msg})")
     PLANES_LAUNCHES += 1
+    PLANES_HEAD_DIMS[TC_HEAD_DIM] += 1
     return k3, v3
 
 
@@ -243,8 +253,8 @@ def sla_fwd(lut, counts, q, k, v, qp, hi, zi, *, scale: float,
     Returns (o_s (BH,Nq,D) f32, o_l (BH,Nq,D) f32, lse (BH,Nq) f32). On
     CUDA, q at 64 x 64 blocks and D <= 128 runs the tensor-core kernel if
     bf16 (P rounded to bf16) and the split kernel if f32 (f32-accurate
-    products), everything else the f32-FMA kernel (`forward_route`); CPU
-    tensors run the f32 twin.
+    products), everything else (D up to `FWD_MAX_HEAD_DIM`) the f32-FMA
+    kernel (`forward_route`); CPU tensors run the f32 twin.
     """
     kw = dict(scale=scale, causal=causal, block_q=block_q,
               block_kv=block_kv, base=base)
@@ -258,14 +268,14 @@ def sla_fwd(lut, counts, q, k, v, qp, hi, zi, *, scale: float,
 
 def check_operands(kernel: str, ts: dict, f32: Tuple[str, ...],
                    i32: Tuple[str, ...], block_q: int, block_kv: int,
-                   q_f32: bool = False):
+                   q_f32: bool = False, max_head_dim: int = MAX_HEAD_DIM):
     """The checks every SLA kernel wrapper shares: one device, contiguity,
     q/k/v in one of f32/bf16, the named f32 and int32 operands, q
-    (BH, Nq, D) against k/v (BH_kv, N, D), and the head dims and blocks
-    the kernels take. `ts` maps operand names to tensors and holds q, k
-    and v. With `q_f32` q must be f32 and k/v share either dtype (the
-    decode kernel); otherwise q, k and v share one. Raises TypeError or
-    ValueError naming `kernel`."""
+    (BH, Nq, D) against k/v (BH_kv, N, D), and the head dims (up to
+    `max_head_dim`) and blocks the kernels take. `ts` maps operand names
+    to tensors and holds q, k and v. With `q_f32` q must be f32 and k/v
+    share either dtype (the decode kernel); otherwise q, k and v share
+    one. Raises TypeError or ValueError naming `kernel`."""
     q, k, v = ts["q"], ts["k"], ts["v"]
     for name, t in ts.items():
         if t.device != q.device:
@@ -296,9 +306,9 @@ def check_operands(kernel: str, ts: dict, f32: Tuple[str, ...],
     if k.shape[2] != d or bh % bh_kv:
         raise ValueError(f"{kernel}: k {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)}")
-    if d > MAX_HEAD_DIM or d % 4:
+    if d > max_head_dim or d % 4:
         raise ValueError(f"{kernel} kernel takes head dims <= "
-                         f"{MAX_HEAD_DIM} that are multiples of 4, got {d}")
+                         f"{max_head_dim} that are multiples of 4, got {d}")
     if not (1 <= block_q <= MAX_BLOCK and 1 <= block_kv <= MAX_BLOCK):
         raise ValueError(f"{kernel} kernel takes blocks of 1..{MAX_BLOCK}, "
                          f"got {block_q} x {block_kv}")
@@ -309,7 +319,7 @@ def check_operands(kernel: str, ts: dict, f32: Tuple[str, ...],
 def _check(lut, counts, q, k, v, qp, hi, zi, block_q, block_kv):
     ts = dict(lut=lut, counts=counts, q=q, k=k, v=v, qp=qp, hi=hi, zi=zi)
     check_operands("sla_fwd", ts, ("qp", "hi", "zi"), ("lut", "counts"),
-                   block_q, block_kv)
+                   block_q, block_kv, max_head_dim=FWD_MAX_HEAD_DIM)
     if qp.shape != q.shape:
         raise ValueError("sla_fwd: qp must be shaped like q")
     bh, nq, d = q.shape
@@ -366,6 +376,7 @@ def _launch(lut, counts, q, k, v, qp, hi, zi, *, scale, causal, block_q,
     LAUNCHES += 1
     TC_LAUNCHES += int(route == "tc")
     SPLIT_LAUNCHES += int(route == "split")
+    HEAD_DIMS[d if route == "fma" else TC_HEAD_DIM] += 1
     return o_s, o_l, lse
 
 

@@ -12,8 +12,10 @@ from typing import Optional
 import torch
 
 from repro_torch.core import reference as sref
+from repro_torch.core.block_sparse_xla import sparse_component_gather
 from repro_torch.core.config import SLAConfig
 from repro_torch.core.masks import NEG_INF
+from repro_torch.core.plan import repeat_kv
 from repro_torch.core.sla import sla_attention
 
 
@@ -62,27 +64,62 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4
     return out.to(x.dtype)
 
 
+def _swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   window: int, causal: bool, scale=None, block: int = 128
+                   ) -> torch.Tensor:
+    """Banded sliding-window attention, O(N * window): block-sparse
+    attention over a static band LUT through the gather machinery, so no
+    N x N score matrix is built. The band is block-granular, as the
+    reference's: each query block attends its wb = ceil(window / block)
+    + 1 nearest blocks whole (the previous ones when causal, with the
+    causal mask inside them; a band shifted to stay in bounds
+    otherwise), with no token-level window mask. q, k, v: (B, H, N, D)
+    with k, v already at H heads. Returns q.dtype."""
+    b, h, n, _ = q.shape
+    dev = q.device
+    block = min(block, n)
+    while n % block:
+        block //= 2
+    tm = n // block
+    wb = min(tm, max(1, (window + block - 1) // block + 1))
+    rows = torch.arange(tm, device=dev)[:, None]
+    offs = torch.arange(wb, device=dev)[None, :]
+    if causal:
+        idx = torch.clamp(rows - (wb - 1) + offs, 0, tm - 1)
+        counts = torch.clamp(rows[:, 0] + 1, max=wb)
+        # the live slots are the last `counts`: rotate them to the front
+        shift = wb - counts[:, None]
+        idx = torch.gather(idx, 1, (offs + shift) % wb)
+    else:
+        start = torch.clamp(rows - wb // 2, 0, tm - wb)
+        idx = start + offs  # in bounds, no duplicates
+        counts = torch.full((tm,), wb, device=dev)
+    lut = idx[None, None].expand(b, h, tm, wb).to(torch.int32)
+    cnts = counts[None, None].expand(b, h, tm).to(torch.int32)
+    cfg = SLAConfig(block_q=block, block_kv=block, causal=causal,
+                    window=window)
+    o, _ = sparse_component_gather(q, k, v, lut, cnts, cfg, scale)
+    return o.to(q.dtype)
+
+
 def attention(sla_params: Optional[dict], q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor, kind: str, sla_cfg: SLAConfig,
               window: int = 0, causal: bool = True, backend: str = "gather",
               plan=None, routing: Optional[dict] = None) -> torch.Tensor:
-    """Unified attention entry. kind: "sla" | "full" ("swa" arrives with
-    the gemma3 family). k, v may have fewer (GQA) heads."""
+    """Unified attention entry. kind: "sla" | "full" | "swa" (the banded
+    sliding window of `window` tokens). k, v may have fewer (GQA)
+    heads."""
+    h = q.shape[1]
     if kind == "full":
-        h = q.shape[1]
-        kk = (torch.repeat_interleave(k, h // k.shape[1], 1)
-              if k.shape[1] != h else k)
-        vv = (torch.repeat_interleave(v, h // v.shape[1], 1)
-              if v.shape[1] != h else v)
-        return sref.full_attention(q, kk, vv, causal).to(q.dtype)
+        return sref.full_attention(q, repeat_kv(k, h), repeat_kv(v, h),
+                                   causal).to(q.dtype)
+    if kind == "swa":
+        return _swa_attention(q, repeat_kv(k, h), repeat_kv(v, h), window,
+                              causal)
     if kind == "sla":
         cfg = dataclasses.replace(sla_cfg, causal=causal)
         return sla_attention(sla_params, q, k, v, cfg, backend=backend,
                              plan=plan, routing=routing)
-    if kind == "swa":
-        raise NotImplementedError(
-            "sliding-window attention is not ported yet (ROADMAP.md "
-            "queue 1, item 15: gemma3)")
     raise ValueError(f"unknown attention kind {kind!r}")
 
 

@@ -13,7 +13,7 @@ as `mdl.check_chunked_prefill`, `mdl.make_prefill_carry`,
 `mdl.carry_restore`. The recurrent and encoder-decoder families
 (models/rwkv6.py for "ssm", models/hybrid.py, models/encdec.py) add
 prefill, decode_step and make_cache only, as in the reference. The VLM
-family raises and names the ROADMAP.md queue-1 item that ports it.
+family is the LM module with a prefix of patch embeddings.
 """
 from __future__ import annotations
 
@@ -26,20 +26,15 @@ _FAMILY = {
     "dit": "dit",
     "dense": "transformer",
     "moe": "transformer",
+    "vlm": "transformer",
     "ssm": "rwkv6",
     "hybrid": "hybrid",
     "encdec": "encdec",
 }
-# family -> the ROADMAP.md queue-1 item that ports it
-_NOT_YET_PORTED = {"vlm": 15}
 
 
 def get_model(cfg: ArchConfig) -> types.ModuleType:
     if cfg.family in _FAMILY:
         return importlib.import_module(
             f"repro_torch.models.{_FAMILY[cfg.family]}")
-    if cfg.family in _NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported to repro_torch yet "
-            f"(ROADMAP.md queue 1, item {_NOT_YET_PORTED[cfg.family]})")
     raise KeyError(f"unknown model family {cfg.family!r}")

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM (dense and MoE families).
+"""Decoder-only transformer LM (dense, MoE and VLM families).
 
 Counterpart of `repro.models.transformer`: `init`, `forward` (with plan
 reuse, decode-plan seeding and per-layer remat), the training losses
@@ -25,9 +25,11 @@ cache dict, advanced by one token. Chunked admission prefill
 (`prefill_chunk` over a carry, `finalize_chunked_prefill`) and
 verify-style multi-token decode (`decode_chunk`) update their carry and
 cache in place too. An MoE layer (`cfg.num_experts`) holds its FFN in a
-`moe` submodule (`models/moe.py`) in place of `mlp_wi` / `mlp_wo`. Not
-ported yet: sliding-window and VLM layers (ROADMAP.md queue 1, item 15);
-each raises and names its item.
+`moe` submodule (`models/moe.py`) in place of `mlp_wi` / `mlp_wo`.
+Sliding-window layers (gemma3's local layers) attend a block-granular
+band in the forward (`common._swa_attention`) and a token-level window
+in dense decode, as the reference's. The VLM family prepends patch
+embeddings to the tokens (`forward(prefix_embeds=)`).
 """
 from __future__ import annotations
 
@@ -62,12 +64,6 @@ NEG_INF = masks_lib.NEG_INF
 # experts; the MoE router is read in f32
 MATMUL_WEIGHTS = ("wq", "wk", "wv", "wo", "mlp_wi", "mlp_wo")
 MOE_MATMUL_WEIGHTS = ("wi", "wo", "shared_wi", "shared_wo")
-
-
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1, "
-        f"item {item})")
 
 
 def layer_kinds_list(cfg: ArchConfig) -> list:
@@ -147,9 +143,9 @@ def init(generator: Optional[torch.Generator], cfg: ArchConfig,
     """Random LM parameters drawn from `generator` (on the target
     device). Entry point: runs on CUDA unless `device` says otherwise. Not
     bitwise the reference's init; tests carry the reference's weights
-    over with `repro_torch.bridge`."""
-    if cfg.frontend != "none":
-        raise _not_ported(f"the {cfg.frontend!r} frontend", 15)
+    over with `repro_torch.bridge`. The VLM family's vision frontend is
+    a stub, as the reference's: it has no parameters, and its patch
+    embeddings arrive as `forward(prefix_embeds=)`."""
     return Transformer(cfg, generator, dtype, resolve_device(device))
 
 
@@ -273,7 +269,9 @@ def _attn(p, x, kind, cfg: ArchConfig, positions, backend, kept: dict,
     elif kind == KIND_FULL:
         out = attention(None, q, k, v, "full", sla_cfg, causal=True)
     else:
-        out = attention(None, q, k, v, "swa", sla_cfg, causal=True)
+        out = attention(None, q, k, v, "swa", sla_cfg,
+                        window=cfg.local_window or cfg.sliding_window,
+                        causal=True)
     return out.transpose(1, 2).reshape(b, s, -1) @ p.wo.to(x.dtype)
 
 
@@ -288,7 +286,7 @@ def _ffn(p, x, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
 # --------------------------------------------------------------------------
 # forward
 # --------------------------------------------------------------------------
-def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
+def forward(params, cfg: ArchConfig, tokens: Optional[torch.Tensor],
             prefix_embeds: Optional[torch.Tensor] = None,
             compute_dtype=torch.bfloat16, backend: str = "gather",
             return_cache: bool = False, plans=None,
@@ -306,15 +304,22 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     zero past the prompt, as `prefill(decode_max_len=)` needs them.
     Return order: (x, aux[, (k, v)][, plans][, decode_mcs][, drift info]).
 
+    VLM: `prefix_embeds` (B, P, d) are prepended to the token embeddings
+    in the compute dtype and share the rope positions (0 .. P + S - 1);
+    `tokens` may then be None.
+
     Under `distributed.ctx.activation_sharding(remat=True)` with autograd
     recording, each layer is rematerialized (`ctx.maybe_remat`, the
     reference's remat of its layer scan); its block structure is built
     once, outside the recompute.
     """
+    parts = []
     if prefix_embeds is not None:
-        raise _not_ported("the VLM prefix embeddings", 15)
-    # F.embedding: its backward is deterministic, an index's is not
-    x = F.embedding(tokens, params.embed).to(compute_dtype)
+        parts.append(prefix_embeds.to(compute_dtype))
+    if tokens is not None:
+        # F.embedding: its backward is deterministic, an index's is not
+        parts.append(F.embedding(tokens, params.embed).to(compute_dtype))
+    x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     b, s, _ = x.shape
     dev = x.device
     positions = torch.arange(s, device=dev)[None, :].expand(b, s)
@@ -383,12 +388,16 @@ def loss_fn(params, cfg: ArchConfig, batch: dict,
             ) -> torch.Tensor:
     """Next-token cross-entropy over the `unembed` table (the tied `embed`
     without one), plus 0.01 x the MoE aux loss. batch: `tokens`,
-    `targets` (B, S) integer tensors and an optional `mask`. `params` is
+    `targets` (B, S) integer tensors, an optional `mask` and, for the
+    VLM family, `patch_embeds` (B, P, d), whose P hidden rows the loss
+    leaves out. `params` is
     the Transformer module or a tree of its tensors with the same
     attributes (`launch.steps.cast_params_bf16`)."""
     x, aux = forward(params, cfg, batch["tokens"],
                      prefix_embeds=batch.get("patch_embeds"),
                      compute_dtype=compute_dtype, backend=backend)
+    if batch.get("patch_embeds") is not None:
+        x = x[:, batch["patch_embeds"].shape[1]:]
     loss = chunked_softmax_xent(x, output_table(params), batch["targets"],
                                 batch.get("mask"))
     return loss + 0.01 * aux
@@ -779,16 +788,20 @@ def _dense_decode_attn(q, kc, vc, pos, kind, cfg: ArchConfig):
     """Masked softmax over the full static cache, O(S) per token. q:
     (B, H, 1, Dh); kc, vc: (B, Hkv, Smax, Dh); pos: a python int (aligned
     static batch) or a (B,) tensor of per-slot positions. GQA folds the
-    head group into the query. Returns (B, 1, H * Dh) in q.dtype."""
-    if kind == KIND_SWA:
-        raise _not_ported("sliding-window decode attention", 15)
+    head group into the query. A sliding-window layer (KIND_SWA) also
+    masks the columns at or before pos - window, at token level, as the
+    reference's (its prefill band is block-granular); an SLA layer's
+    dense decode applies no window. Returns (B, 1, H * Dh) in q.dtype."""
     b, h = q.shape[0], q.shape[1]
     hkv, smax = kc.shape[1], kc.shape[2]
     qg = q[:, :, 0, :].reshape(b, hkv, h // hkv, cfg.head_dim)
     s = torch.einsum("bkgd,bksd->bkgs", qg.float(), kc.float()) \
         * (cfg.head_dim**-0.5)
     posb = pos if not torch.is_tensor(pos) else pos[:, None, None, None]
-    ok = torch.arange(smax, device=q.device) <= posb
+    idx = torch.arange(smax, device=q.device)
+    ok = idx <= posb
+    if kind == KIND_SWA:
+        ok = ok & (idx > posb - (cfg.local_window or cfg.sliding_window))
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     o = torch.einsum("bkgs,bksd->bkgd", torch.softmax(s, dim=-1),
                      vc.float())
@@ -1127,16 +1140,19 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
 # --------------------------------------------------------------------------
 def _dense_decode_chunk_attn(q, kc, vc, pos_c, kind, cfg: ArchConfig):
     """Chunked `_dense_decode_attn`: q (B, H, C, Dh) against the full
-    static cache, token c masked to columns <= pos_c[c] ((C,) tensor).
+    static cache, token c masked to columns <= pos_c[c] ((C,) tensor)
+    and, in a sliding-window layer, to columns > pos_c[c] - window.
     Returns (B, C, H * Dh) in q.dtype."""
-    if kind == KIND_SWA:
-        raise _not_ported("sliding-window decode attention", 15)
     b, h, cdim = q.shape[0], q.shape[1], q.shape[2]
     hkv, smax = kc.shape[1], kc.shape[2]
     qg = q.reshape(b, hkv, h // hkv, cdim, cfg.head_dim)
     s = torch.einsum("bkgcd,bksd->bkgcs", qg.float(), kc.float()) \
         * (cfg.head_dim**-0.5)
-    ok = torch.arange(smax, device=q.device)[None, :] <= pos_c[:, None]
+    idx = torch.arange(smax, device=q.device)[None, :]
+    ok = idx <= pos_c[:, None]
+    if kind == KIND_SWA:
+        ok = ok & (idx > pos_c[:, None]
+                   - (cfg.local_window or cfg.sliding_window))
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     o = torch.einsum("bkgcs,bksd->bkgcd", torch.softmax(s, dim=-1),
                      vc.float())

@@ -12,9 +12,9 @@ from repro_torch.core.config import SLAConfig
 
 PORTED_ARCHS = ("wan2_1_1_3b", "lightningdit_1b", "qwen3-1.7b",
                 "moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b",
-                "zamba2-1.2b", "rwkv6-7b", "whisper-small")
-UNPORTED_ARCHS = ("h2o-danube-3-4b", "gemma3-1b", "mistral-large-123b",
-                  "internvl2-1b")
+                "zamba2-1.2b", "rwkv6-7b", "whisper-small",
+                "h2o-danube-3-4b", "gemma3-1b", "mistral-large-123b",
+                "internvl2-1b")
 
 
 def _fields(cls):
@@ -92,28 +92,19 @@ def test_dit_arch_configs_equal(arch, smoke):
     assert da == db
 
 
-def test_unported_arch_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 15"):
-        get_arch("h2o-danube-3-4b")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        get_arch("gemma3-1b")
+def test_every_reference_arch_resolves():
+    """Every arch of the JAX registry resolves through `get_arch` and
+    `registry.get_model` (the VLM family to the transformer module); an
+    unknown name raises KeyError."""
+    from repro.configs import ASSIGNED_ARCHS, PAPER_ARCHS
+    from repro_torch.models import registry, transformer
+    assert sorted(ASSIGNED_ARCHS + PAPER_ARCHS) == sorted(PORTED_ARCHS)
+    for arch in PORTED_ARCHS:
+        assert registry.get_model(get_arch(arch)) is not None
+    assert get_arch("internvl2-1b").family == "vlm"
+    assert registry.get_model(get_arch("internvl2-1b")) is transformer
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
-
-
-@pytest.mark.parametrize("arch", UNPORTED_ARCHS)
-def test_the_four_remaining_archs_name_item_15(arch):
-    """Every arch of the JAX registry is either ported or raises naming
-    ROADMAP item 15; the VLM family's model raises too."""
-    from repro.configs import ASSIGNED_ARCHS, PAPER_ARCHS
-    from repro_torch.models import registry
-    assert sorted(ASSIGNED_ARCHS + PAPER_ARCHS) == sorted(
-        PORTED_ARCHS + UNPORTED_ARCHS)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        get_arch(arch)
-    vlm = dataclasses.replace(get_arch("qwen3-1.7b"), family="vlm")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        registry.get_model(vlm)
 
 
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-7b",

@@ -93,6 +93,11 @@ CASES = [
     # encoder, non-causal): the tensor-core and split routes pad to 128
     (4, 1, 512, 64, 64, True, 4),
     (3, 1, 512, 64, 64, False, 0),
+    # D 256 (gemma3's SLA layers: 4 q heads on 1 kv head, causal), and a
+    # head dim between 128 and 256: the f32-FMA route in both dtypes
+    (4, 4, 512, 256, 64, True, 4),
+    (2, 1, 256, 256, 64, False, 0),
+    (2, 2, 256, 192, 32, True, 4),
 ]
 
 
@@ -200,7 +205,7 @@ def test_cuda_tc_fwd_kernel_refuses_misaligned_operands():
     assert (sla_fwd.LAUNCHES, sla_fwd.TC_LAUNCHES) == before
 
 
-SPLIT_CASES = [c for c in CASES if c[4] == 64] + [
+SPLIT_CASES = [c for c in CASES if c[4] == 64 and c[3] <= 128] + [
     (4, 2, 512, 108, 64, True, 2)]
 
 
@@ -336,10 +341,27 @@ def test_cuda_kernel_refuses_what_it_cannot_take():
     bad[2] = bad[2].half()
     with pytest.raises(TypeError, match="float32 or"):
         sla_fwd.sla_fwd(*bad, **kw)
-    args, kw, _ = _operands(1, 2, 1, 256, 132, 16, torch.float32, False, 0,
+    args, kw, _ = _operands(1, 2, 1, 256, 260, 16, torch.float32, False, 0,
                             4)
     with pytest.raises(ValueError, match="head dims"):
         sla_fwd.sla_fwd(*args, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_fwd_kernel_at_d256_is_fma_and_deterministic(dtype):
+    """Head dim 256 takes the f32-FMA route in both dtypes (the
+    tensor-core and split routes stop at 128): the tc and split counters
+    do not move, and two launches are bitwise equal."""
+    _need_gpu()
+    args, kw, _ = _operands(17, 4, 4, 512, 256, 64, dtype, True, 2, span=4)
+    assert sla_fwd.forward_route(dtype, 64, 64, 256) == "fma"
+    before = _fwd_counters()
+    one = sla_fwd.sla_fwd(*args, **kw)
+    two = sla_fwd.sla_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert _fwd_counters() == (before[0] + 2, before[1], before[2])
+    assert all(torch.equal(x, y) for x, y in zip(one, two))
 
 
 @pytest.mark.parametrize("arch", ["wan2_1_1_3b", "lightningdit_1b"])
@@ -816,6 +838,11 @@ DECODE_CASES = [
     (1, 2, 4, 1, 64, 16, 32, 5, 20 * 16 + 3),
     (1, 2, 4, 4, 64, 16, 32, 5, 20 * 16 + 3),
     (2, 2, 1, 1, 32, 32, 16, 3, 9 * 32 + 10),
+    # D 256 (gemma3: 4 q heads on 1 kv head, 64-token blocks): lanes own
+    # 8 columns and H streams through the stage in 64-row slices
+    (2, 1, 4, 1, 256, 64, 32, 6, 20 * 64 + 29),
+    (2, 1, 4, 4, 256, 64, 32, 6, 20 * 64 + 29),
+    (1, 2, 2, 1, 160, 32, 16, 4, 9 * 32 + 10),
 ]
 
 
@@ -876,6 +903,46 @@ def test_cuda_decode_kernels_are_deterministic(c, kv_dtype):
             mono = sla_decode.sla_decode(*dense, **pkw, split_width=width)
             assert all(torch.equal(x, y) and torch.equal(x, z)
                        for x, y, z in zip(one, two, mono))
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_decode_kernels_at_d256_are_deterministic(kv_dtype):
+    """At head dim 256 (H in slices): two launches of kernel 4 bitwise
+    equal at C 1 and 4, and kernel 5 bitwise equal to kernel 4 on the
+    gathered view at every split width."""
+    _need_gpu()
+    for c in (1, 4):
+        args, kw = _decode_operands(13, 2, 1, 4, c, 256, 64, 32, 6,
+                                    kv_dtype, 20 * 64 + 29)
+        one = sla_decode.sla_decode(*args, **kw)
+        two = sla_decode.sla_decode(*args, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(one, two))
+    pargs, pkw = cases.paged_decode_operands(
+        14, kv_dtype, 10 * 64 + 29, b=2, hkv=1, g=4, d=256, bkv=64, tn=24,
+        npages=60, k_sel=6, shared=6)
+    dense = cases.paged_dense_operands(pargs)
+    for width in (None, 1, 2, 3, 6):
+        paged = sla_decode.sla_decode_paged(*pargs, **pkw, split_width=width)
+        mono = sla_decode.sla_decode(*dense, **pkw, split_width=width)
+        assert all(torch.equal(x, y) for x, y in zip(paged, mono))
+
+
+def test_cuda_bwd_kernels_raise_above_d128():
+    """The backward kernels stop at head dim 128 (item 15 part 3 takes
+    them to 256): a CUDA call at 256 raises before any launch, and CPU
+    tensors run the twins."""
+    _need_gpu()
+    dq_args, dkv_args, kw = _bwd_operands(18, 4, 4, 256, 256, 64,
+                                          torch.bfloat16, True)
+    before = _launches()
+    with pytest.raises(ValueError, match="item 15 part 3"):
+        sla_bwd.sla_bwd_dq(*dq_args, **kw)
+    with pytest.raises(ValueError, match="item 15 part 3"):
+        sla_bwd.sla_bwd_dkv(*dkv_args, **kw)
+    assert _launches() == before
+    cpu = [x.cpu() for x in dq_args]
+    assert sla_bwd.sla_bwd_dq(*cpu, **kw).shape == (4, 256, 256)
 
 
 def test_cuda_decode_kernels_refuse_what_the_split_cannot_take():
@@ -968,6 +1035,7 @@ PAGED_CASES = [
     (4, 8, 2, 128, 64, 32, 140, 6, 12, 20 * 64 + 29, False),
     (2, 2, 4, 64, 16, 24, 60, 5, 6, 10 * 16 + 3, True),
     (2, 2, 1, 32, 32, 16, 40, 3, 4, 9 * 32 + 10, True),
+    (2, 1, 4, 256, 64, 24, 60, 6, 6, 10 * 64 + 29, True),
 ]
 
 

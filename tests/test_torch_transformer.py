@@ -223,8 +223,8 @@ def test_prefill_plan_reuse_with_drift_matches_jax():
 
 
 def test_unported_lm_paths_name_their_item():
-    """A VLM frontend still raises and names item 15 (the MoE FFN is
-    ported: tests/test_torch_moe.py). Chunked decode and
+    """The MoE FFN and the VLM prefix are ported
+    (tests/test_torch_moe.py, tests/test_torch_vlm.py). Chunked decode and
     chunked prefill are ported (tests/test_torch_decode_chunk.py,
     tests/test_torch_chunked_prefill.py) and refuse what the reference
     refuses: `decode_chunk` a per-slot (B,) position, `prefill_chunk` a
@@ -258,6 +258,3 @@ def test_unported_lm_paths_name_their_item():
     with pytest.raises(ValueError, match="per-slot"):
         ttfm.decode_step(model, tcfg, torch.zeros(2, dtype=torch.long),
                          paged)
-    vlm = dataclasses.replace(tcfg, frontend="vision_stub")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ttfm.init(None, vlm, device="cpu")
