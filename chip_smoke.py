@@ -8,8 +8,9 @@
                                       # full-width LM prefill, 8 paged
                                       # LM decode steps, one full-width
                                       # LM training step, one MoE
-                                      # decode step and one zamba2
-                                      # and one whisper training step
+                                      # decode step and one zamba2,
+                                      # one whisper and one gemma3
+                                      # training step
 
 Phases, in order; any failure exits non-zero before the result line:
   1. card: nvidia-smi name and power limit; TF32 off for matmul and cuDNN.
@@ -359,17 +360,20 @@ Phases, in order; any failure exits non-zero before the result line:
      (the chunked forward rounds what the step does not, in the
      reference too); finite logits; no SLA kernel launches. Prints walls
      and peaks.
- 26. head dim 256: kernel 1 against its twin at gemma3-1b's prefill shape
-     (BH 4 on BH_kv 1, N 32,768, D 256, 64x64 blocks, causal, LUTs from
-     `plan_attention`) in f32 and bf16, both on the f32-FMA route (the
-     tensor-core and split counters do not move), each output within 5e-5
-     x max(1, max |twin|), two launches bitwise equal; kernel 4 on a
+ 26. head dim 256: kernels 1, 2 and 3 against their twins at gemma3-1b's
+     prefill shape (BH 4 on BH_kv 1, N 32,768, D 256, 64x64 blocks,
+     causal, LUTs from `plan_attention`) in f32 and bf16, all on the
+     f32-FMA route (the tensor-core and split counters do not move; kernels
+     2-3 through their wide kernels, which split the gradients' head-dim
+     columns over the grid), each output within 5e-5 x max(1, max |twin|),
+     two launches bitwise equal, kernels 2-3 also at D 192 (N 4,096) and
+     beside compiled flex_attention's backward on the same causal LUT at D
+     256 (the library time, or its error); kernel 4 on a
      gemma3 decode state (B 2, H 4, Hkv 1, D 256, Tn 512, K 26, bf16 K/V)
      at C 1 and 4 and kernel 5 on a paged state of 4 slots sharing 96
      pages, at three split widths, kernel 5 bitwise equal to kernel 4 on
      the gathered view; each timed (CUDA events; the decode kernels by
-     CUDA-graph replay) beside its bound; kernels 2 and 3 raise at D 256
-     (ROADMAP item 15 part 3) without a launch.
+     CUDA-graph replay) beside its bound.
  27. gemma3-1b at full width and depth (26 layers: 22 sliding-window
      layers with a 512-token window, 4 SLA layers; 4 / 1 heads of 256;
      vocab 262,144; f32 masters, bf16 compute): the static engine with
@@ -400,11 +404,28 @@ Phases, in order; any failure exits non-zero before the result line:
      mistral-large-123b is not driven: its 122 B parameters take 228 GiB
      even in bf16, past one card; it waits for the mesh of ROADMAP item
      16.
- 30. the kernels line (JSON): `sla_fwd` carries the split route's fields
+ 30. gemma3-1b trained at full width and depth (phase 27's model, 26
+     layers, ~1.0 B parameters), train_4k at batch 1, f32 masters, bf16
+     compute, kernel backend, remat: the loss kernel vs gather, 3 AdamW
+     steps with exactly 8 / 4 / 4 launches of kernels 1 / 2 / 3 a step,
+     none on tensor cores, all at head dim 256 in the wrappers' records,
+     4 plans; the probes (`layers.5.sla_proj`, `layers.0.wq`, `embed`)
+     moved. The trained state (masters, moments, step; ~12 GB) saved once
+     by `checkpoint.manager.CheckpointManager` into build/ (free disk
+     printed; under twice the state's bytes a smoke-width state instead),
+     the loop's blocking time and the writer's printed, restored onto the
+     card bitwise and deleted. Kernels 1-3 on the last step's plans of SLA
+     layers 5 and 23 with their bounds. Then the train CLI at smoke
+     gemma3 with `--ckpt-every 1 --compress-grads` into a temporary
+     directory under build/: 4 steps, every checkpoint past step_2
+     deleted, the same command resumed at step 2: its losses within 5e-2
+     of the straight run's last two (bitwise equality printed).
+ 31. the kernels line (JSON): `sla_fwd` carries the split route's fields
      at the top (the f32 serving route) and the f32-FMA and bf16
      tensor-core routes' beside them, kernels 1-3 the D-64 cases of
-     phases 23, 24 and 29 (`d64_cases`), kernels 1, 4 and 5 their D-256
-     cases; every kernel the head dims its launches on the main paths
+     phases 23, 24 and 29 (`d64_cases`), kernels 1-5 their D-256 cases,
+     kernels 1-3 phase 30's (`gemma3_train_cases`); every kernel the head
+     dims its launches on the main paths
      ran at (`head_dims`, `head_dims_by_path`: what its wrapper recorded
      after padding, zeroed with the counters before each path) and,
      apart, those of the archs it served (`arch_head_dims`);
@@ -421,8 +442,10 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -439,6 +462,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import DIT_SHAPES, get_arch, get_shape  # noqa: E402
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.core import phi as phi_lib  # noqa: E402
 from repro_torch.core import plan as plan_lib  # noqa: E402
 from repro_torch.core.block_sparse_xla import sla_forward_gather  # noqa: E402
@@ -568,13 +592,15 @@ FAM_LOSS_TOL = 5e-2  # kernel vs gather loss and decode vs forward logits
 # batch 32 cut to 2, 64 new) and paged (4 prompts of 8,000 sharing 6,144,
 # 16 new); danube served static with dense decode (2 x 32,000, 32 new);
 # internvl2 trained at train_4k (batch 256 cut to 1)
-D256_N, D256_K = 32768, 26
+D256_N, D256_K, D192_N = 32768, 26, 4096
 D256_DECODE_POS, D256_PAGED_POS = 300 * 64 + 32, 500 * 64 + 32
 G3_ARCH, G3_BATCH, G3_PROMPT, G3_NEW = "gemma3-1b", 2, 32000, 64
 G3_PG_SLOTS, G3_PG_PROMPT, G3_PG_SHARED, G3_PG_NEW = 4, 8000, 6144, 16
 G3_PG_MAX_LEN = 8192
 DN_ARCH, DN_BATCH, DN_PROMPT, DN_NEW = "h2o-danube-3-4b", 2, 32000, 32
 VL_ARCH, VL_STEPS, VL_BATCH = "internvl2-1b", 3, 1
+# gemma3 training (phase 30): train_4k with its global batch 256 cut to 1
+G3T_STEPS, G3T_BATCH = 3, 1
 DEV = torch.device("cuda")
 
 
@@ -1517,8 +1543,8 @@ def _bwd_check(name, args, kw, what: str) -> dict:
     """Kernel against its twin on the same card operands. The f32-FMA
     route: max abs error against 5e-5 x max(1, max |twin|). The
     tensor-core route (`sla_bwd.use_tensor_cores`): `cases.tc_criterion`
-    against the f32 twin and the twin that rounds dO, P and dS to bf16,
-    and a second launch bitwise equal to the first. Raises on a
+    against the f32 twin and the twin that rounds dO, P and dS to bf16.
+    On both, a second launch bitwise equal to the first. Raises on a
     non-finite output or when the route's counter did not move."""
     kernel, plain, _ = BWD[name]
     q = args[2]
@@ -1535,18 +1561,19 @@ def _bwd_check(name, args, kw, what: str) -> dict:
     got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
     if not all(bool(torch.isfinite(g).all()) for g in got):
         raise RuntimeError(f"{name} {what}: non-finite output")
+    again = kernel(*args, **kw)
+    again = (again,) if torch.is_tensor(again) else again
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
     if not tc:
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         limit = TWIN_TOL * max(1.0, max(float(w.abs().max())
                                         for w in want))
         return dict(route=F32_ROUTE, max_abs_err=err, limit=limit,
-                    ok=err <= limit)
+                    bitwise_repeat=bitwise, ok=err <= limit and bitwise)
     rounded = plain(*args, **kw, mma_dtype=torch.bfloat16)
     res = cases.tc_criterion(got, want, rounded)
-    again = kernel(*args, **kw)
-    again = (again,) if torch.is_tensor(again) else again
-    res["bitwise_repeat"] = all(torch.equal(a, b)
-                                for a, b in zip(got, again))
+    res["bitwise_repeat"] = bitwise
     res["ok"] = res["ok"] and res["bitwise_repeat"]
     return dict(route=TC_ROUTE, **res)
 
@@ -1554,24 +1581,27 @@ def _bwd_check(name, args, kw, what: str) -> dict:
 def _check_text(c: dict) -> str:
     if c["route"] == F32_ROUTE:
         return (f"max abs err {c['max_abs_err']:.3g} (limit "
-                f"{c['limit']:.3g}) {'OK' if c['ok'] else 'FAIL'}")
+                f"{c['limit']:.3g}), bitwise repeat {c['bitwise_repeat']} "
+                f"{'OK' if c['ok'] else 'FAIL'}")
     return (f"tensor cores: max abs err {c['max_abs_err']:.3g} vs f32 twin "
             f"(rounded twin {c['rounded_err']:.3g}, limit {c['limit']:.3g}"
             f"), bitwise repeat {c['bitwise_repeat']} "
             f"{'OK' if c['ok'] else 'FAIL'}")
 
 
-def _gqa_bwd_operands(h, group, n, d, seed, causal):
-    """Both backward kernels' bf16 operands for GQA (h // group kv heads)
-    at 64 x 64 blocks: a plan of seeded q/k, L and O^s from the forward
-    kernel, a seeded dO. Returns (dq args, dkv args, keywords)."""
+def _gqa_bwd_operands(h, group, n, d, seed, causal, dtype=torch.bfloat16,
+                      arch="wan2_1_1_3b"):
+    """Both backward kernels' operands in `dtype` for GQA (h // group kv
+    heads) at `arch`'s blocks: a plan of seeded q/k, L and O^s from the
+    forward kernel, a seeded dO. Returns (dq args, dkv args, keywords,
+    (q, k, v, plan) as f32 (1, H, N, D) tensors and the plan)."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     q = torch.randn((1, h, n, d), generator=gen, device=DEV)
     k, v = (torch.randn((1, h // group, n, d), generator=gen, device=DEV)
             for _ in range(2))
-    sla = get_arch("wan2_1_1_3b").sla.replace(causal=causal)
+    sla = get_arch(arch).sla.replace(causal=causal)
     plan = plan_lib.plan_attention(q, k, sla)
-    fq, fk, fv = (ops._flat(x.to(torch.bfloat16)) for x in (q, k, v))
+    fq, fk, fv = (ops._flat(x.to(dtype)) for x in (q, k, v))
     lut, counts = ops._flat(plan.lut), ops._flat(plan.counts)
     tm = n // sla.block_q
     kw = dict(scale=d ** -0.5, causal=causal, block_q=sla.block_q,
@@ -1583,7 +1613,8 @@ def _gqa_bwd_operands(h, group, n, d, seed, causal):
     do = torch.randn(o_s.shape, generator=gen, device=DEV)
     tail = (fq, fk, fv, do, lse, (do * o_s).sum(dim=-1))
     return ((lut, counts) + tail,
-            (ops._flat(plan.col_lut), ops._flat(plan.col_counts)) + tail, kw)
+            (ops._flat(plan.col_lut), ops._flat(plan.col_counts)) + tail, kw,
+            (q, k, v, plan))
 
 
 def _sdpa_bwd_ms(q, k, v) -> float:
@@ -1601,22 +1632,36 @@ def _sdpa_bwd_ms(q, k, v) -> float:
 _FLEX = []
 
 
-def _flex_block_mask(lut, counts, n: int, block: int):
+def _flex_block_mask(lut, counts, n: int, block: int, causal=False):
     """flex_attention's BlockMask for one plan's (B, H, Tm, K) row LUT:
     each query block's live LUT entries as full blocks (no mask_mod
-    inside them) and no partial blocks. Its column side, which flex's
+    inside them), except, when `causal`, the diagonal block, a partial
+    block under the causal mask_mod. Its column side, which flex's
     backward walks for dK/dV, is derived by BlockMask itself."""
     from torch.nn.attention.flex_attention import BlockMask
     b, h, tq, k = lut.shape
-    live = torch.clamp(counts, max=k).to(torch.int32)
-    idx = torch.zeros((b, h, tq, n // block), dtype=torch.int32,
-                      device=lut.device)
-    idx[..., :k] = torch.where(
-        torch.arange(k, device=lut.device) < live[..., None], lut, 0)
-    none = torch.zeros((b, h, tq), dtype=torch.int32, device=lut.device)
+    slots = torch.arange(k, device=lut.device)
+    live = slots < torch.clamp(counts, max=k)[..., None]
+    diag = live & causal & (lut == torch.arange(tq, device=lut.device)
+                            [:, None])
+
+    def packed(sel):
+        """(count, indices): the selected LUT entries moved to the front
+        of a (B, H, Tm, N / block) index table."""
+        order = torch.argsort((~sel).to(torch.int8), dim=-1, stable=True)
+        num = sel.sum(dim=-1, dtype=torch.int32)
+        idx = torch.zeros((b, h, tq, n // block), dtype=torch.int32,
+                          device=lut.device)
+        idx[..., :k] = torch.where(slots < num[..., None],
+                                   torch.gather(lut, -1, order), 0)
+        return num, idx
+
+    def causal_mod(b, h, q_idx, kv_idx):
+        return q_idx >= kv_idx
+
     return BlockMask.from_kv_blocks(
-        none, torch.zeros_like(idx), full_kv_num_blocks=live,
-        full_kv_indices=idx, BLOCK_SIZE=block, seq_lengths=(n, n))
+        *packed(diag), *packed(live & ~diag), BLOCK_SIZE=block,
+        mask_mod=causal_mod if causal else None, seq_lengths=(n, n))
 
 
 @contextlib.contextmanager
@@ -1653,13 +1698,15 @@ def _flex_tiles_within(block: int):
             setattr(heuristic, name, orig)
 
 
-def _flex_library(q, k, v, do, lut, counts, block: int, dq, dk, dv):
+def _flex_library(q, k, v, do, lut, counts, block: int, dq, dk, dv,
+                  causal=False):
     """The library call for both backward kernels: compiled flex_attention
     on a BlockMask of the same row LUT computes the sparse branch O^s and,
     through autograd, the same dQ, dK and dV as sla_bwd_dq and sla_bwd_dkv
-    together (scale D^-0.5, its own rowsum(dO * O^s)
-    inside). q, k, v are
-    (1, H, N, D); do and the kernels' dq, dk, dv are (H, N, D). Returns
+    together (scale D^-0.5, its own rowsum(dO * O^s) inside; `causal`
+    masks the diagonal blocks). q, k, v are (1, H, N, D), k and v
+    repeated to the H query heads for GQA, as the kernels' dk and dv are
+    per query head; do and the kernels' dq, dk, dv are (H, N, D). Returns
     the CUDA-event times of its forward and forward+backward, their
     difference as the backward's time, and the max abs error of its
     gradients against the kernels' with its limit 1e-4 x max(1, max |g|)
@@ -1668,7 +1715,7 @@ def _flex_library(q, k, v, do, lut, counts, block: int, dq, dk, dv):
         from torch.nn.attention.flex_attention import flex_attention
         _FLEX.append(torch.compile(flex_attention))
     flex = _FLEX[0]
-    mask = _flex_block_mask(lut, counts, q.shape[-2], block)
+    mask = _flex_block_mask(lut, counts, q.shape[-2], block, causal)
     ins = [x.detach().requires_grad_() for x in (q, k, v)]
     do = do.to(q.dtype).view(q.shape)
 
@@ -1704,7 +1751,8 @@ def _with_library(sla, q, k, v, lut, counts, dq_args, dkv_args, kw,
     dk, dv = BWD["sla_bwd_dkv"][0](*dkv_args, **kw)
     try:
         lib = _flex_library(*(x.to(dtype) for x in (q, k, v)), dq_args[5],
-                            lut, counts, sla.block_kv, dq, dk, dv)
+                            lut, counts, sla.block_kv, dq, dk, dv,
+                            kw["causal"])
     except Exception as e:  # the yardstick only: the port does not use it
         say(f"  library: compiled flex_attention failed ({what}): "
             f"{type(e).__name__}: {str(e).splitlines()[0][:300]}")
@@ -1724,7 +1772,8 @@ def _with_library(sla, q, k, v, lut, counts, dq_args, dkv_args, kw,
     return lib
 
 
-def _bwd_case(shape, dname, dq_args, dkv_args, kw, n, d, extra):
+def _bwd_case(shape, dname, dq_args, dkv_args, kw, n, d, extra,
+              tag="7 bwd"):
     """Check and time both backward kernels on one case's operands."""
     rows = []
     for name, args in (("sla_bwd_dq", dq_args), ("sla_bwd_dkv", dkv_args)):
@@ -1737,7 +1786,7 @@ def _bwd_case(shape, dname, dq_args, dkv_args, kw, n, d, extra):
         if c["route"] == TC_ROUTE:  # the wrapper's dO cast and D padding
             c["prep_ms"] = cuda_ms(lambda: sla_bwd._tc_operands(
                 name, *args[2:]), 10)
-        say(f"[7 bwd] {name} {shape} {dname} (BH={args[2].shape[0]}, "
+        say(f"[{tag}] {name} {shape} {dname} (BH={args[2].shape[0]}, "
             f"BH_kv={args[3].shape[0]}, N={n}, D={d}, causal "
             f"{kw['causal']}, LUT width {args[0].shape[-1]}, live tiles "
             f"{live}): {_check_text(c)}")
@@ -1782,8 +1831,8 @@ def phase_bwd_vs_plain():
         del q, k, v, plan
         torch.cuda.empty_cache()
     h, n, d = SHAPES["wan2_1_1_3b"][1], 4096, 128
-    dq_args, dkv_args, kw = _gqa_bwd_operands(h, 2, n, d, seed=6,
-                                              causal=True)
+    dq_args, dkv_args, kw, _ = _gqa_bwd_operands(h, 2, n, d, seed=6,
+                                                 causal=True)
     rows += _bwd_case("causal GQA-2", "bf16", dq_args, dkv_args, kw, n, d,
                       {})
     del dq_args, dkv_args
@@ -4912,9 +4961,9 @@ def _family_kernel_rows(tag: str, arch: str, plans: dict, causal: bool,
     ({application or layer: plan}): seeded bf16 q, k and v at the step's
     (B, H, N, D) with k/v repeated to the query heads as the kernel
     backend gives them; `cases.tc_criterion`, two launches bitwise equal.
-    Each timed with its bound for the D-wide work and for the operands
-    zero-padded to `TC_HEAD_DIM` that the tensor-core routes read.
-    Returns (forward rows, backward rows)."""
+    Each timed with its bound for the D-wide work and, below
+    `TC_HEAD_DIM`, for the operands zero-padded to it that the tensor-core
+    routes read. Returns (forward rows, backward rows)."""
     cfg = get_arch(arch)
     sla, h, d = cfg.sla, cfg.num_heads, cfg.head_dim
     gen = torch.Generator(device=DEV).manual_seed(11)
@@ -4923,6 +4972,14 @@ def _family_kernel_rows(tag: str, arch: str, plans: dict, causal: bool,
         (batch, cfg.num_kv_heads, n, d), generator=gen, device=DEV), h)
         for _ in range(2))
     kind = "causal" if causal else "non-causal"
+    padded = d < sla_fwd.TC_HEAD_DIM
+
+    def pad_text(pad_ms, pad_by, ms):
+        if not padded:
+            return ""
+        return (f"; padded to D {sla_fwd.TC_HEAD_DIM}: {pad_ms:.3f} ms by "
+                f"{pad_by} ({pad_ms / ms:.1%})")
+
     fwd_rows, bwd_rows = [], []
     for at, plan in sorted(plans.items()):
         leaves = [plan.marginal, plan.lut, plan.counts, plan.col_lut,
@@ -4935,21 +4992,22 @@ def _family_kernel_rows(tag: str, arch: str, plans: dict, causal: bool,
         plain_ms = cuda_ms(lambda: sla_fwd.sla_fwd_plain(*args, **kw), 2,
                            warmup=1)
         bound_ms, bound_by, _, _, live = _bound(args, kw)
-        pad_ms, pad_by = _padded_fwd_bound(args, kw)
+        pad_ms, pad_by = (_padded_fwd_bound(args, kw) if padded
+                          else (None, None))
         say(f"[{tag} kernels] sla_fwd {shape} bf16 {kind} D {d} (BH="
             f"{args[2].shape[0]}, N={n}, K={args[0].shape[-1]}, live tiles "
             f"{live} of {args[0].numel()}): {_fwd_text(c)} | kernel "
             f"{ms:.3f} ms | bound {bound_ms:.3f} ms by {bound_by} "
-            f"({bound_ms / ms:.1%} of it); padded to D "
-            f"{sla_fwd.TC_HEAD_DIM}: {pad_ms:.3f} ms by {pad_by} "
-            f"({pad_ms / ms:.1%}) | plain twin {plain_ms:.3f} ms")
+            f"({bound_ms / ms:.1%} of it){pad_text(pad_ms, pad_by, ms)} | "
+            f"plain twin {plain_ms:.3f} ms")
         fwd_rows.append(dict(shape=shape, dtype="bf16", head_dim=d,
                              causal=causal, live_tiles=live, ms=ms,
                              plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by,
                              bound_fraction=bound_ms / ms,
                              bound_ms_padded=pad_ms, bound_by_padded=pad_by,
-                             bound_fraction_padded=pad_ms / ms, **c))
+                             bound_fraction_padded=pad_ms and pad_ms / ms,
+                             **c))
         del args
         dq_args, dkv_args, kw = _bwd_operands(sla, q, k, v, leaves,
                                               torch.bfloat16, seed=12,
@@ -4962,13 +5020,14 @@ def _family_kernel_rows(tag: str, arch: str, plans: dict, causal: bool,
                                warmup=1)
             bound_ms, bound_by, _, _, live = _bwd_bound(name, args, kw,
                                                         torch.bfloat16)
-            pad_ms, pad_by = _padded_bwd_bound(name, args, kw)
+            pad_ms, pad_by = (_padded_bwd_bound(name, args, kw) if padded
+                              else (None, None))
             say(f"[{tag} kernels] {name} {shape} bf16 {kind} D {d} (live "
                 f"tiles {live} of {args[0].numel()}): {_check_text(c)} | "
                 f"kernel {ms:.3f} ms | bound {bound_ms:.3f} ms by "
-                f"{bound_by} ({bound_ms / ms:.1%} of it); padded to D "
-                f"{sla_fwd.TC_HEAD_DIM}: {pad_ms:.3f} ms by {pad_by} "
-                f"({pad_ms / ms:.1%}) | plain twin {plain_ms:.3f} ms")
+                f"{bound_by} ({bound_ms / ms:.1%} of it)"
+                f"{pad_text(pad_ms, pad_by, ms)} | plain twin "
+                f"{plain_ms:.3f} ms")
             bwd_rows.append(dict(kernel=name, shape=shape, dtype="bf16",
                                  head_dim=d, causal=causal, live_tiles=live,
                                  ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -4976,7 +5035,8 @@ def _family_kernel_rows(tag: str, arch: str, plans: dict, causal: bool,
                                  bound_fraction=bound_ms / ms,
                                  bound_ms_padded=pad_ms,
                                  bound_by_padded=pad_by,
-                                 bound_fraction_padded=pad_ms / ms, **c))
+                                 bound_fraction_padded=pad_ms and pad_ms / ms,
+                                 **c))
         del dq_args, dkv_args
     torch.cuda.empty_cache()
     bad = [r for r in fwd_rows + bwd_rows if not r["ok"]]
@@ -4987,15 +5047,23 @@ def _family_kernel_rows(tag: str, arch: str, plans: dict, causal: bool,
 
 
 def _family_train(tag: str, cfg, mdl, params, batches, want: dict,
-                  probes, keep: tuple, profile: bool, path: str) -> tuple:
-    """Phases 23 and 24's training: one batch's `loss_fn` on the kernel
-    against the gather backend (bf16 compute) within FAM_LOSS_TOL x
-    max(1, |loss|), then one `make_train_step` step a batch (AdamW over
+                  probes, keep: tuple, profile: bool, path: str,
+                  want_dims=None, keep_state: bool = False,
+                  kernel_names=("sla_fwd_tc_kernel", "sla_bwd_dq_tc_kernel",
+                                "sla_bwd_dkv_tc_kernel")) -> tuple:
+    """Phases 23, 24, 29 and 30's training: one batch's `loss_fn` on the
+    kernel against the gather backend (bf16 compute) within FAM_LOSS_TOL
+    x max(1, |loss|), then one `make_train_step` step a batch (AdamW over
     the f32 masters, bf16 compute, kernel backend, the reference's
     remat), each checked for finite loss and grad norm and exactly the
-    launches and plan builds of `want`; the parameters named in `probes`
-    must move; each step's head dims are kept under `path`. Returns
-    (summary, {i: the last step's i-th plan for i in keep})."""
+    launches and plan builds of `want` (and, with `want_dims`, exactly
+    the wrappers' head-dim records {kernel: {D: launches}} of the step);
+    the parameters named in `probes` must move; each step's head dims are
+    kept under `path`. `profile` adds a profile of one more step: the
+    busy share and the mean device time of the `kernel_names` kernels.
+    Returns (summary, {i: the last step's i-th plan for i in keep}, and
+    with `keep_state` the trained {"params": named parameters, "opt":
+    AdamW state}, else None)."""
     losses = {}
     with torch.no_grad():
         tree = train_steps.cast_params_bf16(params)
@@ -5041,10 +5109,12 @@ def _family_train(tag: str, cfg, mdl, params, batches, want: dict,
                 torch.cuda.synchronize()
                 wall = time.time() - t0
                 got = _kernel_counts(plans, path)
+                dims = {name: dict(rec) for name, rec in
+                        _head_dim_records().items() if rec}
                 peak = torch.cuda.max_memory_allocated() / 2**30
                 say(f"[{tag}] step {i}: loss {loss:.6f} grad norm "
                     f"{gnorm:.6f} | {wall:.3f}s | peak {peak:.2f} GiB | "
-                    f"launches {got} (expected {want})")
+                    f"launches {got} (expected {want}) | head dims {dims}")
                 rows.append(dict(step=i, loss=loss, grad_norm=gnorm,
                                  wall_s=wall, peak_gib=peak, **got))
                 if not (np.isfinite(loss) and np.isfinite(gnorm)):
@@ -5053,6 +5123,9 @@ def _family_train(tag: str, cfg, mdl, params, batches, want: dict,
                 if got != want:
                     raise RuntimeError(f"{cfg.name} training step {i}: "
                                        f"launches {got}, expected {want}")
+                if want_dims is not None and dims != want_dims:
+                    raise RuntimeError(f"{cfg.name} training step {i}: head "
+                                       f"dims {dims}, expected {want_dims}")
             kept = {at: plans[at] for at in keep}
             prof_res = None
             if profile:
@@ -5065,15 +5138,14 @@ def _family_train(tag: str, cfg, mdl, params, batches, want: dict,
                     step_fn(params, opt_state, batches[0])
                     torch.cuda.synchronize()
                 prof_res = _busy(prof, time.time() - t0)
-                prof_res["kernels"] = _kernel_means(
-                    prof, ("sla_fwd_tc_kernel", "sla_bwd_dq_tc_kernel",
-                           "sla_bwd_dkv_tc_kernel"))
+                prof_res["kernels"] = _kernel_means(prof, kernel_names)
                 say(f"[{tag} profile] one more step: {prof_res}")
                 say(prof.key_averages().table(sort_by="cuda_time_total",
                                               row_limit=25))
     finally:
         plan_lib.plan_attention = orig_plan
     moved = {n: bool((named[n].detach() != probe[n]).any()) for n in probes}
+    state = {"params": named, "opt": opt_state} if keep_state else None
     del opt_state, named
     gc.collect()
     torch.cuda.empty_cache()
@@ -5088,7 +5160,7 @@ def _family_train(tag: str, cfg, mdl, params, batches, want: dict,
     return dict(steps=rows, launches=totals, moved=moved, profile=prof_res,
                 loss_check=dict(kernel=losses["kernel"],
                                 gather=losses["gather"], diff=diff,
-                                limit=limit)), kept
+                                limit=limit)), kept, state
 
 
 def _family_cli(tag: str, arch: str, steps: int) -> list:
@@ -5181,9 +5253,9 @@ def phase_hybrid(profile: bool):
     want = dict(sla_fwd=napp, tc_sla_fwd=napp, sla_bwd_dq=napp,
                 tc_sla_bwd_dq=napp, sla_bwd_dkv=napp, tc_sla_bwd_dkv=napp,
                 plan_builds=napp)
-    train, plans = _family_train("23 hybrid", cfg, hybrid, params, batches,
-                                 want, HY_PROBES, (0, napp - 1), profile,
-                                 "hybrid_train")
+    train, plans, _ = _family_train("23 hybrid", cfg, hybrid, params,
+                                    batches, want, HY_PROBES, (0, napp - 1),
+                                    profile, "hybrid_train")
     del batches
     train["scan"] = _scan_cost(cfg, cfg.num_layers,
                                min(r["wall_s"] for r in train["steps"]))
@@ -5272,9 +5344,9 @@ def phase_encdec(profile: bool):
     want = dict(sla_fwd=2 * ne, tc_sla_fwd=2 * ne, sla_bwd_dq=ne,
                 tc_sla_bwd_dq=ne, sla_bwd_dkv=ne, tc_sla_bwd_dkv=ne,
                 plan_builds=ne)
-    train, plans = _family_train("24 encdec", cfg, encdec, params, batches,
-                                 want, ED_PROBES, (0, ne - 1), profile,
-                                 "encdec_train")
+    train, plans, _ = _family_train("24 encdec", cfg, encdec, params,
+                                    batches, want, ED_PROBES, (0, ne - 1),
+                                    profile, "encdec_train")
     del batches
     fwd_rows, bwd_rows = _family_kernel_rows(
         "24 encdec", ED_ARCH, {f"encoder layer {at}": plan
@@ -5500,43 +5572,57 @@ def _d256_fwd_case(dtype) -> dict:
                 bound_by=bound_by, bound_fraction=bound_ms / ms, ok=ok)
 
 
-def _bwd_raises_at_d256() -> bool:
-    """Kernels 2 and 3 refuse head dim 256 on the card (ROADMAP item 15
-    part 3) before any launch."""
-    gen = torch.Generator(device=DEV).manual_seed(33)
-    n, d = 256, 256
-    q, k, v = (torch.randn((4, n, d), generator=gen, device=DEV,
-                           dtype=torch.bfloat16) for _ in range(3))
-    do = torch.randn((4, n, d), generator=gen, device=DEV)
-    lse, dd = (torch.zeros((4, n), device=DEV) for _ in range(2))
-    lut = torch.zeros((4, n // 64, 1), dtype=torch.int32, device=DEV)
-    counts = torch.ones((4, n // 64), dtype=torch.int32, device=DEV)
-    kw = dict(scale=d ** -0.5, causal=True, block_q=64, block_kv=64)
-    before = (sla_bwd.LAUNCHES_DQ, sla_bwd.LAUNCHES_DKV)
-    raised = []
-    for fn in (sla_bwd.sla_bwd_dq, sla_bwd.sla_bwd_dkv):
-        try:
-            fn(lut, counts, q, k, v, do, lse, dd, **kw)
-            raised.append(False)
-        except ValueError as e:
-            raised.append("item 15 part 3" in str(e))
-    ok = all(raised) and (sla_bwd.LAUNCHES_DQ,
-                          sla_bwd.LAUNCHES_DKV) == before
-    say(f"[26 d256] sla_bwd_dq / sla_bwd_dkv at D 256 raise naming ROADMAP "
-        f"item 15 part 3: {raised}, no launch {'OK' if ok else 'FAIL'}")
-    return ok
+def _d256_bwd_cases() -> list:
+    """Kernels 2 and 3 above head dim 128, on their f32-FMA route (the
+    wide kernels) in f32 and bf16: at gemma3's prefill shape (BH 4 on
+    BH_kv 1, N D256_N, D 256, causal, the arch's 64 x 64 blocks and its
+    plan of seeded q and k) and at D 192 (N D192_N). Each held to its f32
+    twin within 5e-5 x max(1, max |twin|), two launches bitwise equal,
+    timed (CUDA events) with its bound; at D 256 compiled flex_attention's
+    backward on the same causal LUT (k and v repeated to the query heads)
+    is the library time, or its error the library cell."""
+    cfg = get_arch(G3_ARCH)
+    h, group = cfg.num_heads, cfg.num_heads // cfg.num_kv_heads
+    rows = []
+    for d, n in ((256, D256_N), (192, D192_N)):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = "f32" if dtype == torch.float32 else "bf16"
+            dq_args, dkv_args, kw, (q, k, v, plan) = _gqa_bwd_operands(
+                h, group, n, d, seed=33, causal=True, dtype=dtype,
+                arch=G3_ARCH)
+            extra = {}
+            if d == 256:
+                extra = _with_library(
+                    cfg.sla, q, *(plan_lib.repeat_kv(x, h).contiguous()
+                                  for x in (k, v)),
+                    plan.lut, plan.counts, dq_args, dkv_args, kw, dtype,
+                    f"{G3_ARCH} D 256 {dname}")
+            del q, k, v, plan
+            shape = (f"{G3_ARCH} prefill D 256" if d == 256
+                     else f"{G3_ARCH} heads at D 192")
+            rows += [dict(r, head_dim=d) for r in _bwd_case(
+                shape, dname, dq_args, dkv_args, kw, n, d, extra,
+                tag="26 d256")]
+            del dq_args, dkv_args
+            torch.cuda.empty_cache()
+    for r in rows:
+        if r["route"] != F32_ROUTE:
+            r["ok"] = False  # above 128 every call takes the f32-FMA route
+    return rows
 
 
 def phase_d256_kernels():
-    """Phase 26: kernels 1, 4 and 5 at head dim 256 against their twins.
-    Kernel 1 on the f32-FMA route in f32 and bf16 at gemma3's prefill
-    shape; kernel 4 on a gemma3 decode state (B 2, H 4, Hkv 1, Tn 512, K
-    26, bf16 K/V) at C 1 and 4; kernel 5 on a paged state of 4 slots
-    sharing 96 pages, bitwise equal to kernel 4 on the gathered view at
-    every split width; kernels 2 and 3 raise. Returns (forward rows,
-    decode rows, paged rows)."""
+    """Phase 26: kernels 1-5 at head dim 256 against their twins. Kernel
+    1 on the f32-FMA route in f32 and bf16 at gemma3's prefill shape;
+    kernels 2 and 3 on theirs there and at D 192 (`_d256_bwd_cases`);
+    kernel 4 on a gemma3 decode state (B 2, H 4, Hkv 1, Tn 512, K 26, bf16
+    K/V) at C 1 and 4; kernel 5 on a paged state of 4 slots sharing 96
+    pages, bitwise equal to kernel 4 on the gathered view at every split
+    width. Returns (forward rows, backward rows, decode rows, paged
+    rows)."""
     fwd_rows = [_d256_fwd_case(dtype)
                 for dtype in (torch.float32, torch.bfloat16)]
+    bwd_rows = _d256_bwd_cases()
     dec_rows = []
     pos = D256_DECODE_POS
     for c in (1, 4):
@@ -5566,12 +5652,11 @@ def phase_d256_kernels():
                     **_paged_case(args, kw, "bf16 D 256"))]
     del args
     torch.cuda.empty_cache()
-    bwd_ok = _bwd_raises_at_d256()
-    bad = [r["shape"] for r in fwd_rows + dec_rows + pg_rows if not r["ok"]]
-    if bad or not bwd_ok:
-        raise RuntimeError(f"head dim 256 kernels failed: {bad}, backward "
-                           f"raises {bwd_ok}")
-    return fwd_rows, dec_rows, pg_rows
+    bad = [(r["shape"], r.get("kernel"), r["dtype"])
+           for r in fwd_rows + bwd_rows + dec_rows + pg_rows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"head dim 256 kernels failed: {bad}")
+    return fwd_rows, bwd_rows, dec_rows, pg_rows
 
 
 def _lm_full(arch: str, seed: int):
@@ -5963,9 +6048,10 @@ def phase_vlm_train():
                 tc_sla_bwd_dq=nl * tc, sla_bwd_dkv=nl,
                 tc_sla_bwd_dkv=nl * tc, plan_builds=nl)
     probes = ("layers.0.wq", f"layers.{nl - 1}.sla_proj", "embed")
-    train, plans = _family_train("29 vlm train", cfg, transformer, params,
-                                 batches, want, probes, (0, nl - 1),
-                                 profile=False, path="vlm_train")
+    train, plans, _ = _family_train("29 vlm train", cfg, transformer,
+                                    params, batches, want, probes,
+                                    (0, nl - 1), profile=False,
+                                    path="vlm_train")
     del batches, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5976,6 +6062,158 @@ def phase_vlm_train():
     del plans
     cli = _family_cli("29 vlm train", VL_ARCH, 2)
     train.update(params=nparams, cli_losses=cli)
+    return train, fwd_rows, bwd_rows
+
+
+def _g3_checkpoint(state: dict) -> dict:
+    """The gemma3 training state (f32 masters, AdamW's moments and step)
+    saved once through `CheckpointManager` into the checkout's ignored
+    build/ directory, restored onto the card, held bitwise, deleted. The
+    free disk space is printed first; below twice the state's bytes the
+    save runs on a smoke-width model's state instead (a disk limit, not
+    the card's). Times: the save's blocking part (the snapshot to host
+    memory, what the training loop waits for), the writer thread's rest,
+    and the restore."""
+    nbytes = sum(t.numel() * t.element_size() for t in _tensors(state))
+    root = ROOT / "build" / "g3_checkpoint"
+    root.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(root).free
+    width = "full"
+    say(f"[30 gemma3 train] checkpoint: state {nbytes / 1e9:.3f} GB "
+        f"({len(list(_tensors(state)))} tensors), free disk "
+        f"{free / 1e9:.1f} GB")
+    if free < 2 * nbytes:
+        say(f"[30 gemma3 train] free disk {free / 1e9:.1f} GB is under "
+            f"twice the state's {nbytes / 1e9:.3f} GB: the checkpoint is "
+            f"saved at smoke width instead")
+        width = "smoke"
+        cfg = get_arch(G3_ARCH).smoke()
+        model = transformer.init(torch.Generator(device=DEV).manual_seed(1),
+                                 cfg, device=DEV)
+        small = dict(model.named_parameters())
+        state = {"params": small, "opt": adamw.init(small)}
+        nbytes = sum(t.numel() * t.element_size() for t in _tensors(state))
+    mgr = CheckpointManager(root, keep=1)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    mgr.save(1, state)
+    blocked = time.time() - t0
+    mgr.wait()
+    written = time.time() - t0 - blocked
+    t0 = time.time()
+    back = mgr.restore(1, state)
+    torch.cuda.synchronize()
+    restored = time.time() - t0
+    bitwise = all(a.device == b.device and torch.equal(a, b) for a, b in
+                  zip(_tensors(back), _tensors(state)))
+    del back
+    shutil.rmtree(root)
+    say(f"[30 gemma3 train] checkpoint at {width} width, {nbytes / 1e9:.3f} "
+        f"GB: save blocked the loop {blocked:.3f}s (device->host snapshot), "
+        f"the writer {written:.3f}s more; restore onto the card "
+        f"{restored:.3f}s, bitwise {bitwise} {'OK' if bitwise else 'FAIL'}")
+    return dict(width=width, gbytes=nbytes / 1e9, free_disk_gb=free / 1e9,
+                save_blocked_s=blocked, writer_s=written,
+                restore_s=restored, bitwise=bitwise)
+
+
+def _g3_cli_resume() -> dict:
+    """The train CLI at smoke gemma3 on the card with error-feedback
+    compression, checkpointing every step into a temporary directory
+    under build/: 4 steps straight, then every checkpoint past step 2
+    deleted and the same command again, which resumes at step 2. Its two
+    losses within 5e-2 of the straight run's last two (the CPU tests'
+    LOSS_TOL: the compression error is not checkpointed, so the resumed
+    run's updates start from a zero error); whether they are bitwise
+    equal is printed."""
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        argv = ["--arch", G3_ARCH, "--smoke", "--steps", "4", "--ckpt-dir",
+                tmp, "--ckpt-every", "1", "--compress-grads", "--device",
+                "cuda", "--log-every", "1"]
+        t0 = time.time()
+        straight = train_cli.main(argv)
+        kept = sorted(p.name for p in Path(tmp).iterdir())
+        for p in Path(tmp).iterdir():
+            if int(p.name.split("_")[1].split(".")[0]) > 2:
+                shutil.rmtree(p)
+        resumed = train_cli.main(argv)
+        wall = time.time() - t0
+    diffs = [abs(a - b) for a, b in zip(resumed, straight[2:])]
+    bitwise = [a == b for a, b in zip(resumed, straight[2:])]
+    ok = (len(straight) == 4 and len(resumed) == 2
+          and bool(np.isfinite(straight).all()) and max(diffs) <= 5e-2)
+    say(f"[30 gemma3 train CLI] repro_torch.launch.train {' '.join(argv)}: "
+        f"straight {straight} (checkpoints kept {kept}); after deleting "
+        f"those past step_2, resumed {resumed} | diffs {diffs} (limit "
+        f"5e-2), bitwise {bitwise} | {wall:.1f}s {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"gemma3 train CLI resume: straight {straight}, "
+                           f"resumed {resumed}")
+    return dict(straight=straight, resumed=resumed, diffs=diffs,
+                bitwise=bitwise, wall_s=wall)
+
+
+def phase_gemma3_train(profile: bool):
+    """Phase 30: gemma3-1b trained at full width and depth (26 layers: 22
+    sliding-window layers through the gather `_swa_attention`, 4 SLA
+    layers of 4 query heads on 1 kv head of 256; d_model 1152; vocab
+    262,144), f32 masters, bf16 compute, kernel backend, the reference's
+    remat, at train_4k with the global batch 256 cut to G3T_BATCH:
+    `_family_train` (8 / 4 / 4 launches of kernels 1 / 2 / 3 a step, all
+    on the f32-FMA route at head dim 256 in the wrappers' records, 4
+    plans), with the state saved and restored once (`_g3_checkpoint`);
+    kernels 1-3 on the last step's plans of SLA layers 5 and 23; the train
+    CLI's checkpoint resume (`_g3_cli_resume`). `profile` adds a profile
+    of one more step (the f32-FMA kernels' mean device times). Returns
+    (summary, forward rows, backward rows)."""
+    cfg, params = _lm_full(G3_ARCH, seed=0)
+    kinds = transformer.layer_kinds_list(cfg)
+    sla_layers = [li for li, kind in enumerate(kinds)
+                  if kind == transformer.KIND_SLA]
+    nsla = len(sla_layers)
+    nparams = sum(p.numel() for p in params.parameters())
+    shape = dataclasses.replace(get_shape("train_4k"),
+                                global_batch=G3T_BATCH)
+    say(f"[30 gemma3 train] {G3_ARCH} at full width and depth: "
+        f"{cfg.num_layers} layers ({kinds.count(transformer.KIND_SWA)} "
+        f"sliding-window, window {cfg.local_window}; SLA layers "
+        f"{sla_layers}), d_model {cfg.d_model}, {cfg.num_heads} / "
+        f"{cfg.num_kv_heads} heads of {cfg.head_dim}, vocab "
+        f"{cfg.vocab_size}: {nparams:,} parameters, {4 * nparams / 1e9:.2f} "
+        f"GB of f32 masters, {12 * nparams / 1e9:.2f} GB with AdamW's "
+        f"moments | train_4k (seq {shape.seq_len}), batch {G3T_BATCH} "
+        f"(global 256 cut)")
+    data = make_iterator(cfg, shape, DataConfig(seed=0))
+    batches = [{k: torch.from_numpy(x).to(DEV) for k, x in next(data).items()}
+               for _ in range(G3T_STEPS)]
+    want = dict(sla_fwd=2 * nsla, tc_sla_fwd=0, sla_bwd_dq=nsla,
+                tc_sla_bwd_dq=0, sla_bwd_dkv=nsla, tc_sla_bwd_dkv=0,
+                plan_builds=nsla)
+    d = cfg.head_dim
+    want_dims = {"sla_fwd": {d: 2 * nsla}, "sla_bwd_dq": {d: nsla},
+                 "sla_bwd_dkv": {d: nsla}}
+    probes = (f"layers.{sla_layers[0]}.sla_proj", "layers.0.wq", "embed")
+    train, plans, state = _family_train(
+        "30 gemma3 train", cfg, transformer, params, batches, want, probes,
+        (0, nsla - 1), profile=profile, path="gemma3_train",
+        want_dims=want_dims, keep_state=True,
+        kernel_names=("sla_fwd_kernel", "sla_bwd_dq_wide_kernel",
+                      "sla_bwd_dkv_wide_kernel"))
+    del batches
+    train["checkpoint"] = _g3_checkpoint(state)
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not train["checkpoint"]["bitwise"]:
+        raise RuntimeError(f"gemma3 checkpoint round trip: "
+                           f"{train['checkpoint']}")
+    fwd_rows, bwd_rows = _family_kernel_rows(
+        "30 gemma3 train", G3_ARCH,
+        {f"layer {sla_layers[i]}": plan for i, plan in plans.items()},
+        causal=True, batch=G3T_BATCH, n=shape.seq_len)
+    del plans
+    cli = _g3_cli_resume()
+    train.update(params=nparams, cli_resume=cli)
     return train, fwd_rows, bwd_rows
 
 
@@ -5997,9 +6235,9 @@ def main(argv=None) -> int:
                          "forward, one full-width training step, 8 "
                          "full-width LM decode steps, one full-width LM "
                          "prefill, 8 paged decode steps, one full-width LM "
-                         "training step, one MoE decode step, one zamba2 "
-                         "and one whisper training step and print the top "
-                         "device-time entries")
+                         "training step, one MoE decode step, one zamba2, "
+                         "one whisper and one gemma3 training step and "
+                         "print the top device-time entries")
     args = ap.parse_args(argv)
     t_all = time.time()
     phase_card()
@@ -6079,16 +6317,17 @@ def main(argv=None) -> int:
     rows += hy_fwd_rows + ed_fwd_rows
     bwd_rows += hy_bwd_rows + ed_bwd_rows
     hyc, edc = hy["launches"], ed["launches"]
-    d256_fwd, d256_dec, d256_pg = phase_d256_kernels()
+    d256_fwd, d256_bwd, d256_dec, d256_pg = phase_d256_kernels()
     g3, g3_dec, g3_pg = phase_gemma3_serving()
     dn = phase_danube_serving()
     vl, vl_fwd_rows, vl_bwd_rows = phase_vlm_train()
-    rows += d256_fwd + vl_fwd_rows
+    g3t, g3t_fwd_rows, g3t_bwd_rows = phase_gemma3_train(args.profile)
+    rows += d256_fwd + vl_fwd_rows + g3t_fwd_rows
     dec_rows += d256_dec + g3_dec
     pg_rows += d256_pg + g3_pg
-    bwd_rows += vl_bwd_rows
+    bwd_rows += d256_bwd + vl_bwd_rows + g3t_bwd_rows
     g3c, g3pc = g3["launches"], g3["paged"]["launches"]
-    dnc, vlc = dn["launches"], vl["launches"]
+    dnc, vlc, g3tc = dn["launches"], vl["launches"], g3t["launches"]
 
     def arch_head_dims(*archs):
         return sorted({get_arch(a).head_dim for a in archs})
@@ -6125,12 +6364,12 @@ def main(argv=None) -> int:
     # compiled flex_attention's forward on the same inputs and LUT (phase
     # 7): O^s and L only, no linear branch, so not the kernel's function
     flex16 = wan_tc["sla_bwd_dq"].get("library_fwd_ms")
-    say(f"[30] sla_fwd at the Wan bf16 case (tensor cores): "
+    say(f"[31] sla_fwd at the Wan bf16 case (tensor cores): "
         f"{wan16['ms']:.3f} ms against its bound {wan16['bound_ms']:.3f} ms "
         f"({wan16['bound_fraction']:.1%}) | compiled flex_attention forward "
         f"on the same LUT (O^s and L only, lacks O^l): "
         + (f"{flex16:.3f} ms" if flex16 is not None else "not measured"))
-    say(f"[30] sla_fwd at the Wan f32 case: split route {wan32['ms']:.3f} ms "
+    say(f"[31] sla_fwd at the Wan f32 case: split route {wan32['ms']:.3f} ms "
         f"against its bound {wan32['bound_ms']:.3f} ms "
         f"({wan32['bound_fraction']:.1%}; the f32-FMA bound "
         f"{wan32['bound_ms_f32_fma']:.3f} ms) | f32-FMA kernel "
@@ -6159,7 +6398,8 @@ def main(argv=None) -> int:
                 "gemma3_prefill": g3c["tc_sla_fwd"],
                 "gemma3_paged_prefill": g3pc["tc_sla_fwd"],
                 "danube_prefill": dnc["tc_sla_fwd"],
-                "vlm_train": vlc["tc_sla_fwd"]}
+                "vlm_train": vlc["tc_sla_fwd"],
+                "gemma3_train": g3tc["tc_sla_fwd"]}
     # the other paths compute in bf16: every launch there is a tensor-core
     # one (phases 9, 12, 15, 17 check), so none is on the split route
     split_paths = {"serve": main_run["split_launches"],
@@ -6172,7 +6412,8 @@ def main(argv=None) -> int:
                    "encdec_train": 0, "encdec_prefill": 0,
                    "gemma3_prefill": g3c["split_sla_fwd"],
                    "gemma3_paged_prefill": g3pc["split_sla_fwd"],
-                   "danube_prefill": dnc["split_sla_fwd"], "vlm_train": 0}
+                   "danube_prefill": dnc["split_sla_fwd"], "vlm_train": 0,
+                   "gemma3_train": 0}
     kernels = [{
         "name": "sla_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sla_fwd_split.cu",
@@ -6184,7 +6425,8 @@ def main(argv=None) -> int:
                      + ltc["sla_fwd"] + moec["sla_fwd"] + hyc["sla_fwd"]
                      + hy["prefill_launches"] + edc["sla_fwd"]
                      + ed["prefill_launches"] + g3c["sla_fwd"]
-                     + g3pc["sla_fwd"] + dnc["sla_fwd"] + vlc["sla_fwd"]),
+                     + g3pc["sla_fwd"] + dnc["sla_fwd"] + vlc["sla_fwd"]
+                     + g3tc["sla_fwd"]),
         "launches_by_path": {"serve": main_run["launches"],
                              "serve_plan_cache": pc_launches["launches"],
                              "train": train["launches"]["sla_fwd"],
@@ -6202,7 +6444,8 @@ def main(argv=None) -> int:
                              "gemma3_prefill": g3c["sla_fwd"],
                              "gemma3_paged_prefill": g3pc["sla_fwd"],
                              "danube_prefill": dnc["sla_fwd"],
-                             "vlm_train": vlc["sla_fwd"]},
+                             "vlm_train": vlc["sla_fwd"],
+                             "gemma3_train": g3tc["sla_fwd"]},
         **ran_at("sla_fwd"),
         "arch_head_dims": arch_head_dims(
             "wan2_1_1_3b", "lightningdit_1b", LM_ARCH, MOE_ARCH, HY_ARCH,
@@ -6256,6 +6499,9 @@ def main(argv=None) -> int:
             "shape", "dtype", "route", "max_abs_err", "bitwise_repeat", "ms",
             "plain_ms", "bound_ms", "bound_by", "bound_fraction", "ok")}
             for r in d256_fwd],
+        "gemma3_train_cases": [{k: r[k] for k in (
+            "shape", "head_dim", "ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_fraction", "max_abs_err", "ok")} for r in g3t_fwd_rows],
         "cases": rows,
     }, {
         "name": "sla_fwd_split_planes", "route": "cuda",
@@ -6276,6 +6522,9 @@ def main(argv=None) -> int:
         "bitwise_vs_twin": planes["bitwise"],
         "bound_fraction": planes["bound_fraction"],
     }]
+    d256_keys = ("shape", "dtype", "head_dim", "route", "max_abs_err",
+                 "limit", "bitwise_repeat", "live_tiles", "ms", "plain_ms",
+                 "bound_ms", "bound_by", "bound_fraction", "ok")
     for name, line in (("sla_bwd_dq", 48), ("sla_bwd_dkv", 76)):
         mine = [r for r in bwd_rows if r["kernel"] == name]
         tc_cases = [r for r in mine if r["route"] == TC_ROUTE]
@@ -6285,17 +6534,26 @@ def main(argv=None) -> int:
             "source": "src/repro_torch/kernels/csrc/sla_bwd.cu",
             "replaces": f"src/repro/kernels/sla_bwd.py:{line}",
             "launches": (train["launches"][name] + ltc[name] + hyc[name]
-                         + edc[name] + vlc[name]),
+                         + edc[name] + vlc[name] + g3tc[name]),
             "launches_by_path": {"train": train["launches"][name],
                                  "lm_train": ltc[name],
                                  "hybrid_train": hyc[name],
                                  "encdec_train": edc[name],
-                                 "vlm_train": vlc[name]},
+                                 "vlm_train": vlc[name],
+                                 "gemma3_train": g3tc[name]},
             **ran_at(name),
             "arch_head_dims": arch_head_dims(
                 "wan2_1_1_3b", "lightningdit_1b", LM_ARCH, HY_ARCH, ED_ARCH,
-                VL_ARCH),
-            "d256": "raises on CUDA tensors (ROADMAP item 15 part 3)",
+                VL_ARCH, G3_ARCH),
+            "d256_cases": [
+                {**{k: r[k] for k in d256_keys},
+                 **{k: r.get(k) for k in ("library_ms", "library_error")}}
+                for r in d256_bwd if r["kernel"] == name],
+            "gemma3_train_cases": [{k: r[k] for k in (
+                "shape", "head_dim", "ms", "plain_ms", "bound_ms",
+                "bound_by", "bound_fraction", "max_abs_err",
+                "bitwise_repeat", "ok")} for r in g3t_bwd_rows
+                if r["kernel"] == name],
             "max_abs_err": max(r["max_abs_err"] for r in mine
                                if r["route"] == F32_ROUTE),
             "ms": wan["ms"], "plain_ms": wan["plain_ms"],
@@ -6309,7 +6567,8 @@ def main(argv=None) -> int:
             "source_bf16": "src/repro_torch/kernels/csrc/sla_bwd_tc.cu",
             "tc_launches": (train["launches"][f"tc_{name}"]
                             + ltc[f"tc_{name}"] + hyc[f"tc_{name}"]
-                            + edc[f"tc_{name}"] + vlc[f"tc_{name}"]),
+                            + edc[f"tc_{name}"] + vlc[f"tc_{name}"]
+                            + g3tc[f"tc_{name}"]),
             "ms_bf16": tc["ms"], "plain_ms_bf16": tc["plain_ms"],
             "bound_ms_bf16": tc["bound_ms"],
             "bound_by_bf16": tc["bound_by"],
@@ -6403,14 +6662,14 @@ def main(argv=None) -> int:
         **{key: head5[key] for key in split_keys},
         "cases": pg_rows,
     })
-    say(f"[30] main path {main_run} | cross-check {cross} | plan cache "
+    say(f"[31] main path {main_run} | cross-check {cross} | plan cache "
         f"{pcache} | grads {grads} | "
         f"train {train} | train CLI {cli} | lm {lm} | lm cross-check "
         f"{lm_cross} | paged lm {pg} | unpaged mixed {pu} | chunked "
         f"admission {pc} | decode_chunk {dchunk} | disagg {dg} | lm train "
         f"{lt} | moe serve {moe} | hybrid {hy} | encdec {ed} | ssm {rw} | "
-        f"gemma3 serve {g3} | danube serve {dn} | vlm train {vl} | total "
-        f"{time.time() - t_all:.1f}s")
+        f"gemma3 serve {g3} | danube serve {dn} | vlm train {vl} | gemma3 "
+        f"train {g3t} | total {time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,12 +10,16 @@ routing dict included) and flattens unstacked nested dicts (the hybrid's
 turns a dict of plan leaves into an `SLAPlan`; `cache_from_numpy` carries
 a decode cache (monolithic, per-slot or paged, with or without decode-SLA
 state, or a recurrent or encoder-decoder family's) into the port's cache
-dict. The caller does the `np.asarray` on the JAX side: this module
-imports no JAX.
+dict; `train_state_from_checkpoint` reads a step directory written by the
+reference's `CheckpointManager` (its `.npy` files) into the port's
+parameters and AdamW state. The caller does the `np.asarray` on the JAX
+side: this module imports no JAX.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import json
+import pathlib
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -111,3 +115,28 @@ def cache_from_numpy(tree: Mapping, device=None) -> dict:
         else:
             out[key] = _tensor(leaf, dev)
     return out
+
+
+def train_state_from_checkpoint(step_dir, device=None
+                                ) -> Tuple[Dict[str, torch.Tensor], dict]:
+    """A reference training checkpoint (`<dir>/step_<N>/` of
+    `repro.checkpoint.manager.CheckpointManager`, saved as the reference
+    CLI saves `{"params": params, "opt": opt_state}`) -> (the port's
+    state_dict, its AdamW state {"m", "v", "step"}). The leaves' paths
+    come from the manifest ("__"-joined); params and both moments are
+    unstacked by `params_from_numpy`, the step is an int32 scalar."""
+    step_dir = pathlib.Path(step_dir)
+    leaves = json.loads((step_dir / "manifest.json").read_text())["leaves"]
+    tree: dict = {}
+    for path in leaves:
+        *outer, last = path.split("__")
+        node = tree
+        for key in outer:
+            node = node.setdefault(key, {})
+        node[last] = np.load(step_dir / f"{path}.npy")
+    dev = resolve_device(device)
+    opt = tree["opt"]
+    state = {"m": params_from_numpy(opt["m"], dev),
+             "v": params_from_numpy(opt["v"], dev),
+             "step": _tensor(np.asarray(opt["step"], np.int32), dev)}
+    return params_from_numpy(tree["params"], dev), state

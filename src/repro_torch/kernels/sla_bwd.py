@@ -23,13 +23,13 @@ too, so a training step never mixes routes), not a fallback:
     rounded to bf16 before their products; every sum is f32. Narrower
     heads are zero-padded to `TC_HEAD_DIM` (zero columns change neither S
     nor dP) and the outputs sliced back.
-  * everything else (f32, other blocks): the f32-FMA kernels of
-    `sla_bwd.cu`, every product in f32 from the same inputs.
+  * everything else (f32, other blocks, and head dims above 128 up to
+    `MAX_HEAD_DIM`, gemma3's 256 among them, in either dtype): the
+    f32-FMA kernels of `sla_bwd.cu`, every product in f32 from the same
+    inputs. Above 128 they split the gradients' head-dim columns over the
+    grid (the `wide` kernels there).
 
-Head dims above `MAX_HEAD_DIM` (128; gemma3's 256) raise a ValueError on
-CUDA tensors (ROADMAP.md queue 1, item 15 part 3); CPU tensors run the
-twins at any head dim. A failed build or launch raises; nothing
-reroutes. The twins compute in
+A failed build or launch raises; nothing reroutes. The twins compute in
 f32; with `mma_dtype=torch.bfloat16` they round dO, P and dS where the
 tensor-core kernels do, the yardstick of that route's rounding.
 `LAUNCHES_DQ` / `LAUNCHES_DKV` count kernel launches of either route and
@@ -47,9 +47,9 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.sla_fwd import (MAX_HEAD_DIM, NEG_INF, TC_BLOCK,
-                                         TC_HEAD_DIM, check_operands,
-                                         pad_head_dim, use_tensor_cores)
+from repro_torch.kernels.sla_fwd import (NEG_INF, TC_BLOCK, TC_HEAD_DIM,
+                                         check_operands, pad_head_dim,
+                                         use_tensor_cores)
 
 LAUNCHES_DQ = 0   # dQ kernel launches in this process (twin calls excluded)
 LAUNCHES_DKV = 0  # dK/dV kernel launches in this process
@@ -113,8 +113,8 @@ def sla_bwd_dq(lut, counts, q, k, v, do_s, lse, d_s, *, scale: float,
 
     Returns dq (BH, N, D) f32. On CUDA, bf16 q at 64 x 64 blocks and
     D <= 128 runs the tensor-core kernel (dO, P and dS rounded to bf16),
-    everything else the f32-FMA kernel (`use_tensor_cores`); CPU tensors
-    run the f32 twin.
+    everything else (D up to `MAX_HEAD_DIM`) the f32-FMA kernel
+    (`use_tensor_cores`); CPU tensors run the f32 twin.
     """
     kw = dict(scale=scale, causal=causal, block_q=block_q,
               block_kv=block_kv)
@@ -149,11 +149,6 @@ def _check(kernel, lut, counts, q, k, v, do_s, lse, d_s, block_q,
     """Operand checks of both wrappers; `lut_block` is the block size
     the LUT's rows index (block_q for the row LUT, block_kv for the
     column LUT)."""
-    if q.ndim == 3 and q.shape[-1] > MAX_HEAD_DIM:
-        raise ValueError(
-            f"{kernel} kernel takes head dims <= {MAX_HEAD_DIM}, got "
-            f"{q.shape[-1]}: the backward at wider heads (gemma3's 256) is "
-            f"ROADMAP.md queue 1, item 15 part 3")
     ts = dict(lut=lut, counts=counts, q=q, k=k, v=v, do_s=do_s, lse=lse,
               d_s=d_s)
     check_operands(kernel, ts, ("do_s", "lse", "d_s"), ("lut", "counts"),

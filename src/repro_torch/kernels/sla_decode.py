@@ -54,9 +54,9 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.config import SLAConfig
-from repro_torch.kernels.sla_fwd import EPS, NEG_INF, check_operands
+from repro_torch.kernels.sla_fwd import (EPS, MAX_HEAD_DIM, NEG_INF,
+                                         check_operands)
 
-MAX_HEAD_DIM = 256  # the decode kernels' head dims (gemma3's 256 among them)
 LAUNCHES = 0  # kernel calls in this process (plain-twin calls excluded)
 PAGED_LAUNCHES = 0  # the paged kernel's calls, counted apart
 HEAD_DIMS = collections.Counter()  # LAUNCHES by the head dim run at
@@ -177,7 +177,7 @@ def _check(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag,
     f32 = ("qp", "hblk", "zblk", "htot", "ztot") + (
         ("hdiag", "zdiag") if hdiag is not None else ())
     check_operands("sla_decode", ts, f32, ("lut", "cnt", "marg", "posv"), 1,
-                   block_kv, q_f32=True, max_head_dim=MAX_HEAD_DIM)
+                   block_kv, q_f32=True)
     bh, c, _ = q.shape
     if bh != bh_kv * group:
         raise ValueError(f"sla_decode: {bh} q rows are not {bh_kv} kv "

@@ -27,7 +27,7 @@ kernel is a rule on dtype and shape (`forward_route`), not a fallback:
     and the f32-FMA backward: both are f32-accurate, so this is not the
     bf16-rounding mismatch the shared rule exists to prevent.
   * everything else (blocks other than 64 x 64, and head dims above 128
-    up to `FWD_MAX_HEAD_DIM`, gemma3's 256 among them, in either dtype):
+    up to `MAX_HEAD_DIM`, gemma3's 256 among them, in either dtype):
     the f32-FMA kernel of `sla_fwd.cu`, every product in f32 from the
     same inputs.
 
@@ -56,8 +56,7 @@ import torch
 
 NEG_INF = -1e30
 EPS = 1e-6
-MAX_HEAD_DIM = 128  # the head dims every SLA kernel takes
-FWD_MAX_HEAD_DIM = 256  # the forward's (on its f32-FMA route above 128)
+MAX_HEAD_DIM = 256  # the head dims every SLA kernel takes
 MAX_BLOCK = 64
 
 LAUNCHES = 0  # kernel launches in this process (plain-twin calls excluded)
@@ -253,7 +252,7 @@ def sla_fwd(lut, counts, q, k, v, qp, hi, zi, *, scale: float,
     Returns (o_s (BH,Nq,D) f32, o_l (BH,Nq,D) f32, lse (BH,Nq) f32). On
     CUDA, q at 64 x 64 blocks and D <= 128 runs the tensor-core kernel if
     bf16 (P rounded to bf16) and the split kernel if f32 (f32-accurate
-    products), everything else (D up to `FWD_MAX_HEAD_DIM`) the f32-FMA
+    products), everything else (D up to `MAX_HEAD_DIM`) the f32-FMA
     kernel (`forward_route`); CPU tensors run the f32 twin.
     """
     kw = dict(scale=scale, causal=causal, block_q=block_q,
@@ -268,11 +267,11 @@ def sla_fwd(lut, counts, q, k, v, qp, hi, zi, *, scale: float,
 
 def check_operands(kernel: str, ts: dict, f32: Tuple[str, ...],
                    i32: Tuple[str, ...], block_q: int, block_kv: int,
-                   q_f32: bool = False, max_head_dim: int = MAX_HEAD_DIM):
+                   q_f32: bool = False):
     """The checks every SLA kernel wrapper shares: one device, contiguity,
     q/k/v in one of f32/bf16, the named f32 and int32 operands, q
     (BH, Nq, D) against k/v (BH_kv, N, D), and the head dims (up to
-    `max_head_dim`) and blocks the kernels take. `ts` maps operand names
+    `MAX_HEAD_DIM`) and blocks the kernels take. `ts` maps operand names
     to tensors and holds q, k and v. With `q_f32` q must be f32 and k/v
     share either dtype (the decode kernel); otherwise q, k and v share
     one. Raises TypeError or ValueError naming `kernel`."""
@@ -306,9 +305,9 @@ def check_operands(kernel: str, ts: dict, f32: Tuple[str, ...],
     if k.shape[2] != d or bh % bh_kv:
         raise ValueError(f"{kernel}: k {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)}")
-    if d > max_head_dim or d % 4:
+    if d > MAX_HEAD_DIM or d % 4:
         raise ValueError(f"{kernel} kernel takes head dims <= "
-                         f"{max_head_dim} that are multiples of 4, got {d}")
+                         f"{MAX_HEAD_DIM} that are multiples of 4, got {d}")
     if not (1 <= block_q <= MAX_BLOCK and 1 <= block_kv <= MAX_BLOCK):
         raise ValueError(f"{kernel} kernel takes blocks of 1..{MAX_BLOCK}, "
                          f"got {block_q} x {block_kv}")
@@ -319,7 +318,7 @@ def check_operands(kernel: str, ts: dict, f32: Tuple[str, ...],
 def _check(lut, counts, q, k, v, qp, hi, zi, block_q, block_kv):
     ts = dict(lut=lut, counts=counts, q=q, k=k, v=v, qp=qp, hi=hi, zi=zi)
     check_operands("sla_fwd", ts, ("qp", "hi", "zi"), ("lut", "counts"),
-                   block_q, block_kv, max_head_dim=FWD_MAX_HEAD_DIM)
+                   block_q, block_kv)
     if qp.shape != q.shape:
         raise ValueError("sla_fwd: qp must be shaped like q")
     bh, nq, d = q.shape

@@ -44,7 +44,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
                     backend: str = "gather", *, distill: bool = False,
                     trainable: Optional[Mapping[str, bool]] = None,
                     compute_bf16: bool = True,
-                    guard: Optional[Callable] = None) -> Callable:
+                    guard: Optional[Callable] = None,
+                    grad_transform: Optional[Callable] = None) -> Callable:
     """`train_step(params, opt_state, batch) -> (params, opt_state, loss,
     grad_norm)`: the model family's `loss_fn` on a bf16 compute copy of
     the f32 `params` (an nn.Module), its gradient on the masters, and one
@@ -59,8 +60,11 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
     ssm, hybrid, encdec); `trainable` (name -> bool, from
     `adamw.trainable_mask`) updates only those parameters;
     `compute_bf16=False` runs the loss on the f32 parameters themselves;
-    and when `guard(loss)` is false the update is skipped and the step
-    returns a grad norm of None."""
+    when `guard(loss)` is false the update is skipped and the step
+    returns a grad norm of None; and `grad_transform(grads) -> grads`
+    (name -> tensor dicts) runs after the guard and before the update,
+    whose grad norm is then that of its output (the CLI's error-feedback
+    compression)."""
     mdl = registry.get_model(cfg)
     loss_impl = mdl.loss_fn
     if distill:
@@ -83,6 +87,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
             # sla_proj) has a zero gradient, as the reference's
             grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
                      for n, p in named.items()}
+            if grad_transform is not None:
+                grads = grad_transform(grads)
             _, opt_state, metrics = adamw.update(named, grads, opt_state,
                                                  opt_cfg,
                                                  trainable=trainable)

@@ -9,6 +9,9 @@ hybrid (zamba2) and encoder-decoder (whisper) families.
     PYTHONPATH=src python -m repro_torch.launch.train --arch lightningdit_1b \
         --smoke --distill --routing-mode learned --train-only routing,sla_proj \
         --routing-warm-init --steps 3 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
+        --smoke --steps 4 --ckpt-dir /tmp/ckpt --ckpt-every 2 \
+        --compress-grads --device cpu
 
 Counterpart of `repro.launch.train`: config -> seeded params ->
 deterministic batches (latents for a DiT, Markov-chain tokens for an LM,
@@ -17,13 +20,16 @@ matching or next-token cross-entropy, or with `--distill` its
 distillation loss, which the ssm, hybrid and encdec families lack: a
 ValueError, as the reference) and gradient under per-layer remat ->
 AdamW (optionally on a `--train-only` subset) ->
-straggler watchdog + NaN guard. The loss keeps the reference's default
-backend ("gather"). `--device` (default cuda) chooses the device; 'cpu'
-runs the kernels' plain twins. Checkpointing (`--ckpt-dir`), gradient
-compression (`--compress-grads`) and meshes larger than one device are
-not ported and raise. The weights are random, from a seeded
-`torch.Generator` (not bitwise the reference's init); the batches are
-bitwise the reference's.
+straggler watchdog + NaN guard -> optional error-feedback gradient
+compression (`--compress-grads`, between the guard and the update; its
+error is carried across steps and not checkpointed) -> atomic async
+checkpoints every `--ckpt-every` steps and at the end (`--ckpt-dir`),
+from whose latest step a run resumes, its batches started at that step.
+The loss keeps the reference's default backend ("gather"). `--device`
+(default cuda) chooses the device; 'cpu' runs the kernels' plain twins.
+Meshes larger than one device are not ported and raise. The weights are
+random, from a seeded `torch.Generator` (not bitwise the reference's
+init); the batches are bitwise the reference's.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import warnings
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_arch, get_shape
 from repro_torch.data.pipeline import DataConfig, make_iterator
 from repro_torch.distributed import ctx as actx
@@ -43,6 +50,7 @@ from repro_torch.distributed.fault_tolerance import NaNGuard, \
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import registry
 from repro_torch.optim import adamw
+from repro_torch.optim.compression import ef_compress_decompress, ef_init
 
 ROUTING_WARM_EPS = 1e-3
 
@@ -100,10 +108,9 @@ def main(argv=None):
                     help="reduced config + shape (CPU-runnable)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--ckpt-dir", default=None,
-                    help="not ported yet (ROADMAP.md queue 1, item 16)")
-    ap.add_argument("--compress-grads", action="store_true",
-                    help="not ported yet (ROADMAP.md queue 1, item 16)")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--data-mesh", type=int, default=1)
     ap.add_argument("--model-mesh", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
@@ -133,14 +140,10 @@ def main(argv=None):
                          "paper's zero init, which pins '--train-only "
                          "routing' at exactly zero routing gradients")
     args = ap.parse_args(argv)
-    for flag, bad in (("--ckpt-dir", args.ckpt_dir is not None),
-                      ("--compress-grads", args.compress_grads),
-                      ("--data-mesh/--model-mesh",
-                       args.data_mesh * args.model_mesh > 1)):
-        if bad:
-            raise NotImplementedError(
-                f"{flag} is not ported to repro_torch yet (ROADMAP.md "
-                "queue 1, item 16)")
+    if args.data_mesh * args.model_mesh > 1:
+        raise NotImplementedError(
+            "--data-mesh/--model-mesh is not ported to repro_torch yet "
+            "(ROADMAP.md queue 1, item 16's mesh half)")
 
     cfg = get_arch(args.arch)
     if args.smoke:
@@ -160,7 +163,28 @@ def main(argv=None):
         routing_warm_init(model)
     params = dict(model.named_parameters())
     opt_state = adamw.init(params)
-    data = make_iterator(cfg, shape, DataConfig(seed=args.seed))
+
+    mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    start_step = 0
+    if mgr is not None and mgr.latest_step() is not None:
+        start_step = mgr.latest_step()
+        state = mgr.restore(start_step, {"params": params, "opt": opt_state})
+        with torch.no_grad():
+            for name, p in params.items():
+                p.copy_(state["params"][name])
+        opt_state = state["opt"]
+        print(f"resumed from step {start_step}")
+
+    data = make_iterator(cfg, shape, DataConfig(seed=args.seed),
+                         start_step=start_step)
+    grad_transform = None
+    if args.compress_grads:
+        ef_error = ef_init(params)
+
+        def grad_transform(grads):
+            nonlocal ef_error
+            grads, ef_error, _ = ef_compress_decompress(grads, ef_error)
+            return grads
 
     mask = None
     if args.train_only:
@@ -178,13 +202,15 @@ def main(argv=None):
     watchdog = StragglerWatchdog()
     guard = NaNGuard()
     # The reference's CLI loop: the loss's default backend on the f32
-    # parameters (no bf16 compute copy), the NaN guard before the update.
+    # parameters (no bf16 compute copy), the NaN guard, then compression,
+    # before the update.
     train_step = make_train_step(cfg, opt_cfg, distill=args.distill,
                                  trainable=mask, compute_bf16=False,
-                                 guard=guard.check)
+                                 guard=guard.check,
+                                 grad_transform=grad_transform)
     losses = []
     with actx.activation_sharding(None, remat=True):
-        for step in range(args.steps):
+        for step in range(start_step, args.steps):
             t0 = time.time()
             batch = {k: torch.from_numpy(v).to(device)
                      for k, v in next(data).items()}
@@ -204,9 +230,15 @@ def main(argv=None):
                       f"gnorm {float(gnorm):.3f} "
                       f"lr {float(lr):.2e} {dt:.2f}s{extra}",
                       flush=True)
+            if mgr is not None and (step + 1) % args.ckpt_every == 0:
+                mgr.save(step + 1, {"params": params, "opt": opt_state})
+        if mgr is not None:
+            mgr.save(args.steps, {"params": params, "opt": opt_state},
+                     blocking=True)
     if watchdog.flagged:
         print(f"stragglers flagged: {len(watchdog.flagged)}")
-    print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
+    if losses:  # a run resumed at --steps takes no step
+        print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
     return losses
 
 

@@ -5,6 +5,7 @@ import dataclasses
 
 import pytest
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.configs import get_arch as jax_get_arch
 from repro.core.config import SLAConfig as JaxSLAConfig
 from repro_torch.configs import get_arch

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.core import backends as jbackends
 from repro.core.config import SLAConfig as JaxSLAConfig
 from repro.kernels import sla_decode as jdecode

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.configs import get_arch as jax_get_arch
 from repro.core import backends as jbackends
 from repro.core.config import SLAConfig as JaxSLAConfig

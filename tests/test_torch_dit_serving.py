@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.configs import get_arch as jax_get_arch
 from repro.models import dit as jdit
 from repro.serving.diffusion import DenoiseParams as JaxDenoiseParams

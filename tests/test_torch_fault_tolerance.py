@@ -12,6 +12,7 @@ design: `retry_on` narrows what is retried, so a real step's
 """
 import pytest
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.distributed import fault_tolerance as jft
 from repro_torch.distributed import fault_tolerance as tft
 

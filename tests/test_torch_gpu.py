@@ -591,11 +591,13 @@ def test_cuda_tc_bwd_kernels_are_deterministic():
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-def test_cuda_bwd_kernels_stop_at_counts():
+@pytest.mark.parametrize("d", [128, 256])
+def test_cuda_bwd_kernels_stop_at_counts(d):
     """Rows and columns with no live entry get zero gradients whatever
-    their padded slots name: the kernels never read past the counts."""
+    their padded slots name: the kernels (narrow and wide) never read past
+    the counts."""
     _need_gpu()
-    dq_args, dkv_args, kw = _bwd_operands(3, 2, 1, 512, 128, 64,
+    dq_args, dkv_args, kw = _bwd_operands(3, 2, 1, 512, d, 64,
                                           torch.float32, False)
     dq_args, dkv_args = list(dq_args), list(dkv_args)
     for args in (dq_args, dkv_args):
@@ -928,21 +930,31 @@ def test_cuda_decode_kernels_at_d256_are_deterministic(kv_dtype):
         assert all(torch.equal(x, y) for x, y in zip(paged, mono))
 
 
-def test_cuda_bwd_kernels_raise_above_d128():
-    """The backward kernels stop at head dim 128 (item 15 part 3 takes
-    them to 256): a CUDA call at 256 raises before any launch, and CPU
-    tensors run the twins."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [256, 192])
+def test_cuda_bwd_kernels_at_wide_heads_match_f32_twins(d, dtype):
+    """Above head dim 128 (gemma3's 256) both backward kernels take the
+    f32-FMA route in either dtype (its wide kernels): held to the f32
+    twins within 5e-5 x max(1, max |twin|), the tensor-core counters
+    still, the head dim recorded, two launches bitwise equal."""
     _need_gpu()
-    dq_args, dkv_args, kw = _bwd_operands(18, 4, 4, 256, 256, 64,
-                                          torch.bfloat16, True)
+    dq_args, dkv_args, kw = _bwd_operands(18, 4, 4, 512, d, 64, dtype, True)
+    assert not sla_bwd.use_tensor_cores(dtype, 64, 64, d)
     before = _launches()
-    with pytest.raises(ValueError, match="item 15 part 3"):
-        sla_bwd.sla_bwd_dq(*dq_args, **kw)
-    with pytest.raises(ValueError, match="item 15 part 3"):
-        sla_bwd.sla_bwd_dkv(*dkv_args, **kw)
-    assert _launches() == before
-    cpu = [x.cpu() for x in dq_args]
-    assert sla_bwd.sla_bwd_dq(*cpu, **kw).shape == (4, 256, 256)
+    dims = (sla_bwd.HEAD_DIMS_DQ[d], sla_bwd.HEAD_DIMS_DKV[d])
+    first = (sla_bwd.sla_bwd_dq(*dq_args, **kw),
+             *sla_bwd.sla_bwd_dkv(*dkv_args, **kw))
+    second = (sla_bwd.sla_bwd_dq(*dq_args, **kw),
+              *sla_bwd.sla_bwd_dkv(*dkv_args, **kw))
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (2, 2, 0, 0)
+    assert (sla_bwd.HEAD_DIMS_DQ[d], sla_bwd.HEAD_DIMS_DKV[d]) == \
+        (dims[0] + 2, dims[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _assert_twin(first[0], sla_bwd.sla_bwd_dq_plain(*dq_args, **kw))
+    _assert_twin(first[1:], sla_bwd.sla_bwd_dkv_plain(*dkv_args, **kw))
+    assert all(float(x.abs().max()) > 0 for x in first)
 
 
 def test_cuda_decode_kernels_refuse_what_the_split_cannot_take():

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.core import plan as jplan
 from repro.core import sla as jsla
 from repro.core.config import SLAConfig as JaxSLAConfig

@@ -10,9 +10,15 @@ and bf16 K/V). Tolerances: f32 5e-5, bf16 5e-2, relative to max(1, max
 |reference|). Then the smoke gemma3 at head_dim 256 through the kernel
 backend in f32: prefill (two SLA layers through the forward kernel's
 twin, two sliding-window layers) and 8 decode-time SLA steps, within the
-f32 limits of the reference on its Pallas kernels. The backward kernels
-stop at 128 on the card (tests/test_torch_gpu.py); here, on CPU tensors,
-they run their twins at 256.
+f32 limits of the reference on its Pallas kernels. The backward kernels'
+twins (`sla_bwd_dq_plain`, `sla_bwd_dkv_plain`, which CPU tensors run)
+are held to `repro.kernels.sla_bwd.sla_bwd_dq` / `sla_bwd_dkv` in
+interpret mode at D 256, GQA 4:1, causal, on a JAX plan's row LUT and its
+column LUT capped by `col_capacity_factor`: f32 and bf16 q/k/v at 5e-5,
+the bf16 twin that rounds dO, P and dS (`mma_dtype=torch.bfloat16`) at
+5e-2. Last, the smoke gemma3's `loss_fn` and every parameter's gradient
+at D 256 on the kernel backend in f32 against JAX's `value_and_grad` on
+its Pallas kernels, within 5e-5.
 """
 import dataclasses
 import functools
@@ -23,8 +29,13 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.configs import get_arch as jax_get_arch
+from repro.configs import get_shape as jax_get_shape
+from repro.core import plan as jplan
 from repro.core.config import SLAConfig as JSLAConfig
+from repro.data import pipeline as jpipeline
+from repro.kernels import sla_bwd as jbwd
 from repro.kernels import sla_decode as jdecode
 from repro.kernels.sla_fwd import sla_fwd as jax_sla_fwd
 from repro.models import transformer as jtfm
@@ -195,6 +206,66 @@ def test_backward_twins_run_at_d256_on_cpu_tensors():
     assert bool(torch.isfinite(dq).all())
 
 
+def _bwd_case(dtype):
+    """Numpy operands of both backward calls at D 256: 4 query heads on 1
+    kv head, N 256 in 32 x 32 blocks, causal, the JAX plan's row LUT and
+    its column LUT (width from `col_capacity_factor` 2.0), L and O^s from
+    the forward twin, a random dO^s."""
+    rs = np.random.default_rng(11)
+    n, block = 256, 32
+    q = rs.standard_normal((G, n, D), dtype=np.float32)
+    k, v = (rs.standard_normal((1, n, D), dtype=np.float32)
+            for _ in range(2))
+    if dtype != "f32":
+        q, k, v = map(_bf16, (q, k, v))
+    cfg = JSLAConfig(block_q=block, block_kv=block, kh_frac=0.25,
+                     kl_frac=0.25, causal=True, col_capacity_factor=2.0)
+    plan = jplan.plan_attention(jnp.asarray(q[None]), jnp.asarray(k[None]),
+                                cfg)
+    c = {name: np.asarray(getattr(plan, name)[0]).astype(np.int32)
+         for name in ("lut", "counts", "col_lut", "col_counts")}
+    assert c["col_lut"].shape[-1] < n // block  # the capacity cut it
+    kw = dict(scale=D ** -0.5, causal=True, block_q=block, block_kv=block)
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    o_s, _, lse = sla_fwd.sla_fwd_plain(
+        torch.from_numpy(c["lut"]), torch.from_numpy(c["counts"]), *t,
+        torch.zeros_like(t[0]), torch.zeros((G, n // block, D, D)),
+        torch.zeros((G, n // block, D)), **kw)
+    do = rs.standard_normal((G, n, D), dtype=np.float32)
+    c.update(q=q, k=k, v=v, do=do, lse=lse.numpy(),
+             d_s=(torch.from_numpy(do) * o_s).sum(-1).numpy())
+    return c, kw
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "bf16-rounded"])
+def test_backward_twins_match_pallas_kernels_at_d256(dtype):
+    c, kw = _bwd_case(dtype)
+    jd = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    td = torch.float32 if dtype == "f32" else torch.bfloat16
+    tail = ("q", "k", "v", "do", "lse", "d_s")
+    jt = [jnp.asarray(c[x], jd if x in "qkv" else jnp.float32) for x in tail]
+    tt = [torch.from_numpy(c[x]).to(td if x in "qkv" else torch.float32)
+          for x in tail]
+    rounded = dict(mma_dtype=torch.bfloat16) if dtype == "bf16-rounded" \
+        else {}
+    tol = 5e-2 if rounded else TOL["f32"]
+    want = jbwd.sla_bwd_dq(jnp.asarray(c["lut"]), jnp.asarray(c["counts"]),
+                           *jt, **kw, interpret=True)
+    got = sla_bwd.sla_bwd_dq_plain(torch.from_numpy(c["lut"]),
+                                   torch.from_numpy(c["counts"]), *tt, **kw,
+                                   **rounded)
+    _close(got, want, tol, "dq")
+    jdk, jdv = jbwd.sla_bwd_dkv(jnp.asarray(c["col_lut"]),
+                                jnp.asarray(c["col_counts"]), *jt, **kw,
+                                interpret=True)
+    tdk, tdv = sla_bwd.sla_bwd_dkv_plain(torch.from_numpy(c["col_lut"]),
+                                         torch.from_numpy(c["col_counts"]),
+                                         *tt, **kw, **rounded)
+    _close(tdk, jdk, tol, "dk")
+    _close(tdv, jdv, tol, "dv")
+    assert float(got.abs().max()) > 0 and float(tdk.abs().max()) > 0
+
+
 @functools.lru_cache(maxsize=None)
 def _gemma256():
     jcfg, tcfg = (dataclasses.replace(get("gemma3-1b").smoke(), head_dim=D)
@@ -242,3 +313,33 @@ def test_gemma3_at_d256_through_the_kernel_backend():
     for name in ("live_lut", "live_cnt", "live_marg"):
         assert np.array_equal(tcache["sla"][name].numpy(),
                               np.asarray(jcache["sla"][name])), name
+
+
+def test_gemma3_at_d256_loss_and_grads_match_jax():
+    """`loss_fn` on one smoke `train_4k` batch on the kernel backend in
+    f32 (the SLA layers through kernels 1-3's twins, both directions) and
+    every parameter's gradient, against JAX's `value_and_grad` on its
+    Pallas kernels: within 5e-5 x max(1, max |reference|)."""
+    jcfg, tcfg, params, model = _gemma256()
+    batch = jpipeline.token_batch(jcfg, jax_get_shape("train_4k", smoke=True),
+                                  jpipeline.DataConfig(seed=3), 0)
+    jl, jg = jax.jit(jax.value_and_grad(
+        lambda p: jtfm.loss_fn(p, jcfg, batch, jnp.float32, "kernel")))(
+        params)
+    model.zero_grad(set_to_none=True)
+    tl = ttfm.loss_fn(model, tcfg, {k: torch.from_numpy(v)
+                                    for k, v in batch.items()},
+                      torch.float32, "kernel")
+    tl.backward()
+    _close(tl.detach(), jl, TOL["f32"], "loss")
+    want = bridge.params_from_numpy(jax.tree_util.tree_map(np.asarray, jg),
+                                    device="cpu")
+    # a sliding-window layer's sla_proj is never read: zero, as JAX's
+    grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+             for n, p in model.named_parameters()}
+    assert sorted(want) == sorted(grads)
+    assert any(float(g.abs().max()) > 0 for n, g in grads.items()
+               if n.endswith("sla_proj"))
+    for name, g in grads.items():
+        _close(g, want[name], TOL["f32"], name)
+    model.zero_grad(set_to_none=True)

@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.configs import get_arch as jax_get_arch
 from repro.configs import get_shape as jax_get_shape
 from repro.data import pipeline as jpipeline

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.core import plan as jplan
 from repro.core.config import SLAConfig as JaxSLAConfig
 from repro.kernels.sla_fwd import sla_fwd as jax_sla_fwd

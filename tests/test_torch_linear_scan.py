@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.models import linear_scan as jls
 from repro_torch.models import linear_scan as tls
 

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.optim import adamw as jadamw
 from repro_torch.configs import get_arch
 from repro_torch.models import dit

@@ -14,6 +14,7 @@ import random
 
 import pytest
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.serving import pages as jpages
 from repro_torch.serving import pages as tpages
 

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.core import masks as jmasks
 from repro.core import plan as jplan
 from repro.core.config import SLAConfig as JaxSLAConfig

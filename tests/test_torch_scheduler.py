@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.configs import get_arch as jax_get_arch
 from repro.models import transformer as jtfm
 from repro.serving import api as japi

@@ -12,10 +12,16 @@ over with `repro_torch.bridge`) and see bitwise the same latent batches.
 - 3 `make_train_step` steps (bf16 compute, kernel backend, remat):
   losses within 5e-2 of the reference's (bf16 rounds at other places in
   the two frameworks).
-- `train.main` (the fine-tuning recipe, and the plain flow-matching
-  loop) matches `repro.launch.train.main` losses within 5e-2.
+- `make_train_step(grad_transform=)` updates on the transformed
+  gradients: bitwise one step done by hand with error-feedback
+  compression.
+- `train.main` (the fine-tuning recipe, the plain flow-matching loop,
+  with `--compress-grads`, and checkpointed and resumed through
+  `--ckpt-dir`) matches `repro.launch.train.main` losses within 5e-2; a
+  resumed run's losses are bitwise the straight run's.
 """
 import dataclasses
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro.configs import get_arch as jax_get_arch
 from repro.configs import get_shape as jax_get_shape
 from repro.data import pipeline as jpipeline
@@ -37,7 +44,7 @@ from repro_torch.data import pipeline
 from repro_torch.distributed import ctx
 from repro_torch.launch import steps, train
 from repro_torch.models import dit as tdit
-from repro_torch.optim import adamw
+from repro_torch.optim import adamw, compression
 
 TOL = 5e-5
 LOSS_TOL = 5e-2
@@ -240,6 +247,58 @@ def test_train_step_options_of_the_cli():
     assert all(p.grad is None for p in model.parameters())
 
 
+def test_train_step_grad_transform_runs_between_guard_and_update():
+    """`grad_transform` (here the CLI's error-feedback compression) sees
+    the raw gradients, and AdamW updates on its output: one step is
+    bitwise the loss, backward, `ef_compress_decompress` and
+    `adamw.update` done by hand, and the compressed gradients differ from
+    the raw ones. A guard that refuses the loss skips the transform."""
+    jcfg, tcfg = _cfgs("lightningdit_1b")
+    tree = _tree(jcfg, seed=5)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(jcfg).items()}
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2)
+    seen = []
+
+    def transform(grads):
+        seen.append({n: g.clone() for n, g in grads.items()})
+        error = compression.ef_init(grads)
+        ghat, _, _ = compression.ef_compress_decompress(grads, error)
+        return ghat
+
+    model = _model(tcfg, tree)
+    state = adamw.init(dict(model.named_parameters()))
+    refused = steps.make_train_step(tcfg, opt_cfg, compute_bf16=False,
+                                    guard=lambda loss: False,
+                                    grad_transform=transform)
+    refused(model, state, batch)
+    assert not seen
+    step = steps.make_train_step(tcfg, opt_cfg, compute_bf16=False,
+                                 guard=lambda loss: True,
+                                 grad_transform=transform)
+    model, state, loss, gnorm = step(model, state, batch)
+    assert len(seen) == 1
+
+    hand = _model(tcfg, tree)
+    named = dict(hand.named_parameters())
+    hand_state = adamw.init(named)
+    hand_loss = tdit.loss_fn(hand, tcfg, batch, backend="gather")
+    hand_loss.backward()
+    raw = {n: torch.zeros_like(p) if p.grad is None else p.grad
+           for n, p in named.items()}
+    ghat, error, _ = compression.ef_compress_decompress(
+        raw, compression.ef_init(raw))
+    _, hand_state, metrics = adamw.update(named, ghat, hand_state, opt_cfg)
+    assert torch.equal(loss, hand_loss.detach())
+    assert all(torch.equal(seen[0][n], raw[n]) for n in raw)
+    assert any(not torch.equal(ghat[n], raw[n]) for n in raw)
+    assert max(float(e.abs().max()) for e in error.values()) > 0
+    assert torch.equal(gnorm, metrics["grad_norm"])
+    for n, p in model.named_parameters():
+        assert torch.equal(p, named[n]), n
+        for moment in ("m", "v"):
+            assert torch.equal(state[moment][n], hand_state[moment][n]), n
+
+
 def test_cast_params_bf16_feeds_forward_and_grads_the_masters():
     _, tcfg = _cfgs("lightningdit_1b", routing_mode="learned")
     model = tdit.init(torch.Generator().manual_seed(0), tcfg, device="cpu")
@@ -257,26 +316,78 @@ CLI = ["--arch", "lightningdit_1b", "--smoke", "--steps", "3",
        "--log-every", "1"]
 RECIPE = ["--distill", "--routing-mode", "learned", "--train-only",
           "routing,sla_proj", "--routing-warm-init"]
+# each CLI runs --steps 2, then --steps 4, into one checkpoint directory
+RESUME = ["--ckpt-dir"]
 
 
-@pytest.mark.parametrize("extra", [RECIPE, []], ids=["recipe", "flow"])
-def test_train_cli_matches_jax(extra, monkeypatch):
+@pytest.mark.parametrize("extra", [RECIPE, [], ["--compress-grads"],
+                                   RESUME],
+                         ids=["recipe", "flow", "compress", "resume"])
+def test_train_cli_matches_jax(extra, monkeypatch, tmp_path):
     """Both CLIs from the same perturbed weights (each family's `init` is
     patched to hand them over), so the losses are live: the fine-tuning
     recipe (distillation, learned routing, only routing + sla_proj
-    trained) and the plain flow-matching loop."""
+    trained), the plain flow-matching loop, the loop with error-feedback
+    gradient compression, and the loop checkpointed after 2 steps and
+    resumed from there to 4 (each CLI from its own checkpoint). The port's
+    compression is watched: it runs once a step, with a non-zero error,
+    under `--compress-grads` only."""
     jcfg, tcfg = _cfgs("lightningdit_1b", routing_mode="learned"
-                       if extra else "threshold")
+                       if extra is RECIPE else "threshold")
     tree = _tree(jcfg, seed=4)
     monkeypatch.setattr(jdit, "init", lambda rng, cfg, dtype=None:
                         jax.tree_util.tree_map(jnp.asarray, tree))
     monkeypatch.setattr(tdit, "init", lambda gen, cfg, dtype=None,
                         device=None: _model(tcfg, tree))
-    want = jtrain.main(CLI + extra)
-    got = train.main(CLI + extra + ["--device", "cpu"])
-    assert len(got) == len(want) == 3
+    errors = []
+
+    def compress(grads, error):
+        out = compression.ef_compress_decompress(grads, error)
+        errors.append(max(float(e.abs().max()) for e in out[1].values()))
+        return out
+
+    monkeypatch.setattr(train, "ef_compress_decompress", compress)
+    if extra is RESUME:
+        want, got = [], []
+        for steps in ("2", "4"):
+            run = CLI + ["--steps", steps, "--ckpt-dir"]
+            want += jtrain.main(run + [str(tmp_path / "jax")])
+            got += train.main(run + [str(tmp_path / "torch"), "--device",
+                                     "cpu"])
+        assert (tmp_path / "torch" / "step_4" / "manifest.json").exists()
+    else:
+        want = jtrain.main(CLI + extra)
+        got = train.main(CLI + extra + ["--device", "cpu"])
+    assert len(got) == len(want) == (4 if extra is RESUME else 3)
     assert all(np.isfinite(got)) and max(want) > 1e-4
     np.testing.assert_allclose(got, want, atol=LOSS_TOL, rtol=0)
+    # the port's CLI compressed every step's gradients, and only when asked
+    compressed = "--compress-grads" in extra
+    assert len(errors) == (3 if compressed else 0)
+    assert all(e > 0 for e in errors)
+
+
+def test_train_cli_resume_is_bitwise_the_straight_run(tmp_path):
+    """4 steps checkpointed every 2; with step_4 deleted, a second run
+    resumes from step_2 (weights, moments, step, and the batches from
+    step 2) and its two losses are the straight run's last two,
+    bitwise."""
+    ckpt = ["--steps", "4", "--ckpt-dir", str(tmp_path), "--device", "cpu"]
+    straight = train.main(CLI + ckpt + ["--ckpt-every", "2"])
+    assert (tmp_path / "step_2").exists()
+    shutil.rmtree(tmp_path / "step_4")
+    resumed = train.main(CLI + ckpt)
+    assert len(straight) == 4 and resumed == straight[2:]
+
+
+def test_train_cli_resumed_at_its_last_step_takes_no_step(tmp_path):
+    """A run whose checkpoint is already at --steps resumes there, takes
+    no step and returns no loss (the reference's CLI raises IndexError on
+    its empty loss list there: ROADMAP.md queue 3)."""
+    ckpt = ["--steps", "2", "--ckpt-dir", str(tmp_path), "--device", "cpu"]
+    assert len(train.main(CLI + ckpt)) == 2
+    assert train.main(CLI + ckpt) == []
+    assert (tmp_path / "step_2" / "manifest.json").exists()
 
 
 def test_dead_point_warning_fires():
@@ -300,7 +411,6 @@ def test_dead_point_warning_fires():
 
 
 def test_train_cli_refuses_what_is_not_ported():
-    for flags in (["--ckpt-dir", "x"], ["--compress-grads"],
-                  ["--data-mesh", "2"]):
-        with pytest.raises(NotImplementedError, match="item 16"):
+    for flags in (["--data-mesh", "2"], ["--model-mesh", "2"]):
+        with pytest.raises(NotImplementedError, match="item 16's mesh"):
             train.main(CLI + flags + ["--device", "cpu"])
