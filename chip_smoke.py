@@ -402,8 +402,8 @@ Phases, in order; any failure exits non-zero before the result line:
      kernels 1-3 on the last step's plans of layers 0 and 23, the train
      CLI.
      mistral-large-123b is not driven: its 122 B parameters take 228 GiB
-     even in bf16, past one card; it waits for the mesh of ROADMAP item
-     16.
+     even in bf16, past one card; `launch/dryrun.py` places it on the
+     production meshes on the meta device (not on the card).
  30. gemma3-1b trained at full width and depth (phase 27's model, 26
      layers, ~1.0 B parameters), train_4k at batch 1, f32 masters, bf16
      compute, kernel backend, remat: the loss kernel vs gather, 3 AdamW
@@ -420,6 +420,22 @@ Phases, in order; any failure exits non-zero before the result line:
      directory under build/: 4 steps, every checkpoint past step_2
      deleted, the same command resumed at step 2: its losses within 5e-2
      of the straight run's last two (bitwise equality printed).
+ 32. the mesh path at world size 1 (NCCL, a FileStore under a temporary
+     directory, the group destroyed at the end): phase 21's model and
+     batches (full-width Qwen3-1.7B, train_4k at batch 1) for LT_STEPS
+     AdamW steps on the plain path, then the same steps with the
+     parameters and moments held as DTensors on `make_host_mesh(1, 1)`
+     (`sharding.place_module`) under `activation_sharding(mesh,
+     default_residual_spec(...), remat=True)`: losses, grad norms and
+     every final parameter bitwise equal, 56 / 28 / 28 tensor-core
+     launches of kernels 1 / 2 / 3 a step on both, walls and peaks beside
+     phase 21's. Then the train CLI at smoke qwen3 on that world (so on
+     the mesh: its placement and `restore(shardings=)` are counted):
+     MESH_CLI_STEPS steps saving every MESH_CLI_EVERY, the last
+     checkpoint deleted, the same command resumed: its losses and the
+     rewritten checkpoint's files bitwise the straight run's. The dry run
+     does not run here (its fake process group cannot share the process
+     with NCCL).
  31. the kernels line (JSON): `sla_fwd` carries the split route's fields
      at the top (the f32 serving route) and the f32-FMA and bf16
      tensor-core routes' beside them, kernels 1-3 the D-64 cases of
@@ -601,6 +617,9 @@ DN_ARCH, DN_BATCH, DN_PROMPT, DN_NEW = "h2o-danube-3-4b", 2, 32000, 32
 VL_ARCH, VL_STEPS, VL_BATCH = "internvl2-1b", 3, 1
 # gemma3 training (phase 30): train_4k with its global batch 256 cut to 1
 G3T_STEPS, G3T_BATCH = 3, 1
+# the mesh path (phase 32): phase 21's first LT_STEPS steps over a 1 x 1
+# DeviceMesh, and the train CLI's sharded checkpoint resume at smoke qwen3
+MESH_CLI_STEPS, MESH_CLI_EVERY = 4, 2
 DEV = torch.device("cuda")
 
 
@@ -6217,6 +6236,224 @@ def phase_gemma3_train(profile: bool):
     return train, fwd_rows, bwd_rows
 
 
+def _mesh_train_run(batches, mesh, path: str, profile: bool = False
+                    ) -> dict:
+    """LT_STEPS `loss_fn` steps of phase 21 (its weights from
+    `_lm_model(0)`, its AdamW settings, kernel backend, bf16 compute,
+    remat) on the plain path (`mesh` None) or with every parameter and
+    moment a DTensor on `mesh`. Returns the losses and grad norms (as
+    tensors), each step's wall, peak and launches, and the final
+    parameters (local tensors). With `profile`, one more step (on the
+    first batch, after the final parameters were copied aside) runs
+    under torch.profiler: its device time and busy share ("profile")."""
+    from repro_torch.distributed import sharding
+    cfg, params = _lm_model(seed=0)
+    if mesh is not None:
+        sharding.place_module(params, mesh)
+    named = dict(params.named_parameters())
+    opt_state = adamw.init(named)
+    opt_cfg = adamw.AdamWConfig(lr=1e-4, warmup_steps=1,
+                                total_steps=LT_STEPS + 1)
+    step_fn = train_steps.make_train_step(cfg, opt_cfg, backend="kernel")
+    residual = (None if mesh is None else actx.default_residual_spec(
+        mesh, LT_BATCH, LT_SEQ))
+    plans, orig_plan = [], plan_lib.plan_attention
+
+    def counted_plan(*a, **kw):
+        plans.append(orig_plan(*a, **kw))
+        return plans[-1]
+
+    rows, losses, gnorms = [], [], []
+    plan_lib.plan_attention = counted_plan
+    try:
+        with actx.activation_sharding(mesh, residual, remat=True):
+            for batch in batches[:LT_STEPS]:
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _zero_kernel_counts()
+                t0 = time.time()
+                params, opt_state, loss, gnorm = step_fn(params, opt_state,
+                                                         batch)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                rows.append(dict(wall_s=wall, peak_gib=torch.cuda
+                                 .max_memory_allocated() / 2**30,
+                                 **_kernel_counts(plans, path)))
+                plans.clear()
+                losses.append(loss)
+                gnorms.append(gnorm)
+            final = {n: sharding.local(p).detach() for n, p in
+                     named.items()}
+            prof_res = None
+            if profile:
+                from torch.profiler import ProfilerActivity
+                from torch.profiler import profile as prof_ctx
+                final = {n: t.clone() for n, t in final.items()}
+                torch.cuda.synchronize()
+                t0 = time.time()
+                with prof_ctx(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]) as prof:
+                    step_fn(params, opt_state, batches[0])
+                    torch.cuda.synchronize()
+                prof_res = _busy(prof, time.time() - t0)
+                say(f"[32 lm train mesh profile] {path}: one more step "
+                    f"{prof_res}")
+                say(prof.key_averages().table(sort_by="cuda_time_total",
+                                              row_limit=15))
+    finally:
+        plan_lib.plan_attention = orig_plan
+    return dict(losses=losses, gnorms=gnorms, rows=rows, final=final,
+                profile=prof_res)
+
+
+def _mesh_cli_resume() -> dict:
+    """The train CLI at smoke qwen3 on the initialized world of one (so
+    on a 1 x 1 mesh): MESH_CLI_STEPS steps checkpointing every
+    MESH_CLI_EVERY into a temporary directory under build/, the last
+    checkpoint copied aside and deleted, the same command again, which
+    resumes from the one before. Its losses, and the checkpoint it
+    writes again, bitwise the straight run's. `place_module` and
+    `restore(shardings=)` are counted: the CLI took the mesh path."""
+    from repro_torch.distributed import sharding
+    calls = dict(place_module=0, restore_shardings=0)
+    place, restore = sharding.place_module, CheckpointManager.restore
+
+    def placed(*a, **kw):
+        calls["place_module"] += 1
+        return place(*a, **kw)
+
+    def restored(self, *a, **kw):
+        calls["restore_shardings"] += kw.get("shardings") is not None
+        return restore(self, *a, **kw)
+
+    sharding.place_module, CheckpointManager.restore = placed, restored
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            argv = ["--arch", LM_ARCH, "--smoke", "--steps",
+                    str(MESH_CLI_STEPS), "--ckpt-dir", tmp, "--ckpt-every",
+                    str(MESH_CLI_EVERY), "--device", "cuda", "--log-every",
+                    "1"]
+            t0 = time.time()
+            straight = train_cli.main(argv)
+            last = Path(tmp) / f"step_{MESH_CLI_STEPS}"
+            aside = Path(tmp) / "straight_last"
+            shutil.copytree(last, aside)
+            shutil.rmtree(last)
+            resumed = train_cli.main(argv)
+            names = sorted(p.name for p in aside.iterdir())
+            same_files = names == sorted(p.name for p in last.iterdir()) \
+                and all((aside / n).read_bytes() == (last / n).read_bytes()
+                        for n in names)
+            wall = time.time() - t0
+    finally:
+        sharding.place_module, CheckpointManager.restore = place, restore
+    resume_at = MESH_CLI_STEPS - MESH_CLI_EVERY
+    bitwise = resumed == straight[resume_at:]
+    ok = (len(straight) == MESH_CLI_STEPS and bitwise and same_files
+          and calls == dict(place_module=2, restore_shardings=1))
+    say(f"[32 mesh train CLI] repro_torch.launch.train {' '.join(argv)} on "
+        f"a world of 1: straight {straight}; step_{MESH_CLI_STEPS} deleted, "
+        f"resumed from step_{resume_at}: {resumed} | losses bitwise "
+        f"{bitwise}, step_{MESH_CLI_STEPS} files ({len(names)}) bitwise "
+        f"{same_files} | {calls} | {wall:.1f}s {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"mesh train CLI resume: straight {straight}, "
+                           f"resumed {resumed}, files {same_files}, {calls}")
+    return dict(straight=straight, resumed=resumed, files_bitwise=same_files,
+                calls=calls, wall_s=wall)
+
+
+def phase_lm_train_mesh(lt: dict, profile: bool = False) -> dict:
+    """Phase 32: the training path over a DeviceMesh, at world size 1 on
+    this card (NCCL in this process through a FileStore; the group is
+    destroyed before returning). Phase 21's first LT_STEPS steps on the
+    plain path and then on `make_host_mesh(1, 1)`: bitwise the same
+    losses, grad norms and final parameters, the same launches of kernels
+    1-3 (all on tensor cores); then the train CLI's sharded checkpoint
+    resume (`_mesh_cli_resume`). `lt` is phase 21's summary (its walls
+    and peaks printed beside). With `profile`, each run profiles one more
+    step (`_mesh_train_run`). Returns the summary."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    nl = get_arch(LM_ARCH).num_layers
+    want = dict(sla_fwd=2 * nl, tc_sla_fwd=2 * nl, sla_bwd_dq=nl,
+                tc_sla_bwd_dq=nl, sla_bwd_dkv=nl, tc_sla_bwd_dkv=nl,
+                plan_builds=nl)
+    shape = dataclasses.replace(get_shape("train_4k"),
+                                global_batch=LT_BATCH)
+    data = make_iterator(get_arch(LM_ARCH), shape, DataConfig(seed=0))
+    batches = [{k: torch.from_numpy(x).to(DEV) for k, x in
+                next(data).items()} for _ in range(LT_STEPS)]
+    t_all = time.time()
+    plain = _mesh_train_run(batches, None, "lm_train", profile)
+    final = plain.pop("final")
+    # the plain run's final parameters stay on the card for the
+    # comparison: the mesh run's peaks are printed without them
+    held = sum(t.numel() * t.element_size() for t in final.values()) / 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+    store = tempfile.mkdtemp(dir=ROOT / "build")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(store, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_host_mesh(1, 1, "cuda")
+        sharded = _mesh_train_run(batches, mesh, "lm_train_mesh", profile)
+        got = sharded.pop("final")
+        diff = [n for n in final if not torch.equal(got[n], final[n])]
+        del got, final
+        gc.collect()
+        torch.cuda.empty_cache()
+        cli = _mesh_cli_resume()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    same_loss = all(torch.equal(a, b) for a, b in
+                    zip(sharded["losses"], plain["losses"]))
+    same_gnorm = all(torch.equal(a, b) for a, b in
+                     zip(sharded["gnorms"], plain["gnorms"]))
+    counts = {k: [r[k] for r in sharded["rows"]] for k in want}
+    p21 = lt["steps"][:LT_STEPS]
+    for i, (a, b) in enumerate(zip(plain["rows"], sharded["rows"])):
+        b["peak_gib"] -= held
+        say(f"[32 lm train mesh] step {i}: loss "
+            f"{float(sharded['losses'][i]):.6f} grad norm "
+            f"{float(sharded['gnorms'][i]):.6f} | mesh 1x1 {b['wall_s']:.3f}s "
+            f"peak {b['peak_gib']:.2f} GiB (without the {held:.2f} GiB of "
+            f"plain parameters held) | plain {a['wall_s']:.3f}s peak "
+            f"{a['peak_gib']:.2f} GiB | phase 21 {p21[i]['wall_s']:.3f}s "
+            f"peak {p21[i]['peak_gib']:.2f} GiB | launches "
+            f"{ {k: b[k] for k in want} }")
+    ok = (same_loss and same_gnorm and not diff
+          and all({k: r[k] for k in want} == want
+                  for r in plain["rows"] + sharded["rows"]))
+    say(f"[32 lm train mesh] {LM_ARCH} full width over make_host_mesh(1, 1): "
+        f"losses bitwise {same_loss}, grad norms bitwise {same_gnorm}, "
+        f"final parameters differing {len(diff)} {diff[:5]} | launches a "
+        f"step expected {want} | {time.time() - t_all:.1f}s "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"mesh path vs plain path: losses {same_loss}, "
+                           f"grad norms {same_gnorm}, params {diff[:5]}, "
+                           f"launches {counts}")
+    launches = {k: sum(r[k] for r in sharded["rows"]) for k in want}
+    return dict(steps=[dict(step=i, loss=float(sharded["losses"][i]),
+                            grad_norm=float(sharded["gnorms"][i]),
+                            wall_s=b["wall_s"], peak_gib=b["peak_gib"],
+                            plain_wall_s=a["wall_s"],
+                            plain_peak_gib=a["peak_gib"],
+                            phase21_wall_s=p21[i]["wall_s"],
+                            phase21_peak_gib=p21[i]["peak_gib"])
+                       for i, (a, b) in enumerate(zip(plain["rows"],
+                                                      sharded["rows"]))],
+                bitwise=dict(losses=same_loss, grad_norms=same_gnorm,
+                             params=not diff),
+                held_gib=held, launches=launches, cli=cli,
+                profile=dict(plain=plain["profile"],
+                             mesh=sharded["profile"]),
+                wall_s=time.time() - t_all)
+
+
 def _tensors(x):
     if torch.is_tensor(x):
         yield x
@@ -6322,6 +6559,8 @@ def main(argv=None) -> int:
     dn = phase_danube_serving()
     vl, vl_fwd_rows, vl_bwd_rows = phase_vlm_train()
     g3t, g3t_fwd_rows, g3t_bwd_rows = phase_gemma3_train(args.profile)
+    mt = phase_lm_train_mesh(lt, args.profile)
+    mtc = mt["launches"]
     rows += d256_fwd + vl_fwd_rows + g3t_fwd_rows
     dec_rows += d256_dec + g3_dec
     pg_rows += d256_pg + g3_pg
@@ -6399,7 +6638,8 @@ def main(argv=None) -> int:
                 "gemma3_paged_prefill": g3pc["tc_sla_fwd"],
                 "danube_prefill": dnc["tc_sla_fwd"],
                 "vlm_train": vlc["tc_sla_fwd"],
-                "gemma3_train": g3tc["tc_sla_fwd"]}
+                "gemma3_train": g3tc["tc_sla_fwd"],
+                "lm_train_mesh": mtc["tc_sla_fwd"]}
     # the other paths compute in bf16: every launch there is a tensor-core
     # one (phases 9, 12, 15, 17 check), so none is on the split route
     split_paths = {"serve": main_run["split_launches"],
@@ -6413,7 +6653,7 @@ def main(argv=None) -> int:
                    "gemma3_prefill": g3c["split_sla_fwd"],
                    "gemma3_paged_prefill": g3pc["split_sla_fwd"],
                    "danube_prefill": dnc["split_sla_fwd"], "vlm_train": 0,
-                   "gemma3_train": 0}
+                   "gemma3_train": 0, "lm_train_mesh": 0}
     kernels = [{
         "name": "sla_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sla_fwd_split.cu",
@@ -6426,7 +6666,7 @@ def main(argv=None) -> int:
                      + hy["prefill_launches"] + edc["sla_fwd"]
                      + ed["prefill_launches"] + g3c["sla_fwd"]
                      + g3pc["sla_fwd"] + dnc["sla_fwd"] + vlc["sla_fwd"]
-                     + g3tc["sla_fwd"]),
+                     + g3tc["sla_fwd"] + mtc["sla_fwd"]),
         "launches_by_path": {"serve": main_run["launches"],
                              "serve_plan_cache": pc_launches["launches"],
                              "train": train["launches"]["sla_fwd"],
@@ -6445,7 +6685,8 @@ def main(argv=None) -> int:
                              "gemma3_paged_prefill": g3pc["sla_fwd"],
                              "danube_prefill": dnc["sla_fwd"],
                              "vlm_train": vlc["sla_fwd"],
-                             "gemma3_train": g3tc["sla_fwd"]},
+                             "gemma3_train": g3tc["sla_fwd"],
+                             "lm_train_mesh": mtc["sla_fwd"]},
         **ran_at("sla_fwd"),
         "arch_head_dims": arch_head_dims(
             "wan2_1_1_3b", "lightningdit_1b", LM_ARCH, MOE_ARCH, HY_ARCH,
@@ -6534,13 +6775,14 @@ def main(argv=None) -> int:
             "source": "src/repro_torch/kernels/csrc/sla_bwd.cu",
             "replaces": f"src/repro/kernels/sla_bwd.py:{line}",
             "launches": (train["launches"][name] + ltc[name] + hyc[name]
-                         + edc[name] + vlc[name] + g3tc[name]),
+                         + edc[name] + vlc[name] + g3tc[name] + mtc[name]),
             "launches_by_path": {"train": train["launches"][name],
                                  "lm_train": ltc[name],
                                  "hybrid_train": hyc[name],
                                  "encdec_train": edc[name],
                                  "vlm_train": vlc[name],
-                                 "gemma3_train": g3tc[name]},
+                                 "gemma3_train": g3tc[name],
+                                 "lm_train_mesh": mtc[name]},
             **ran_at(name),
             "arch_head_dims": arch_head_dims(
                 "wan2_1_1_3b", "lightningdit_1b", LM_ARCH, HY_ARCH, ED_ARCH,
@@ -6568,7 +6810,7 @@ def main(argv=None) -> int:
             "tc_launches": (train["launches"][f"tc_{name}"]
                             + ltc[f"tc_{name}"] + hyc[f"tc_{name}"]
                             + edc[f"tc_{name}"] + vlc[f"tc_{name}"]
-                            + g3tc[f"tc_{name}"]),
+                            + g3tc[f"tc_{name}"] + mtc[f"tc_{name}"]),
             "ms_bf16": tc["ms"], "plain_ms_bf16": tc["plain_ms"],
             "bound_ms_bf16": tc["bound_ms"],
             "bound_by_bf16": tc["bound_by"],
@@ -6669,7 +6911,8 @@ def main(argv=None) -> int:
         f"admission {pc} | decode_chunk {dchunk} | disagg {dg} | lm train "
         f"{lt} | moe serve {moe} | hybrid {hy} | encdec {ed} | ssm {rw} | "
         f"gemma3 serve {g3} | danube serve {dn} | vlm train {vl} | gemma3 "
-        f"train {g3t} | total {time.time() - t_all:.1f}s")
+        f"train {g3t} | lm train mesh {mt} | total "
+        f"{time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

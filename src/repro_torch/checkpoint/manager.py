@@ -23,9 +23,18 @@ Leaves are tensors (or python / numpy scalars and arrays). numpy has no
 bf16: a bf16 leaf is stored as its 16-bit patterns (int16) with dtype
 "bfloat16" in the manifest and restored exactly, never widened.
 `restore(device=)` puts the leaves on that device (default: the template
-leaf's device, else the CPU). The reference's `shardings=` (elastic
-restore onto another mesh) waits for the mesh (ROADMAP.md queue 1, item
-16).
+leaf's device, else the CPU).
+
+Over a mesh (DTensor leaves): `save` gathers each leaf's full tensor on
+every rank, in the same order, before the writer thread starts (the
+gathers are collectives, so no rank may skip one); rank 0 alone copies
+them to host memory (the others drop each at once) and writes,
+and every rank meets the others at a barrier in `wait()` (the next save,
+or the end of a blocking one) after rank 0's commit, so a committed step
+is visible to all of them. The files and manifest are those of a
+one-device save of the same values. `restore(shardings=)` places each
+leaf onto the *current* mesh under its `sharding.NamedSharding` (elastic
+restore across meshes and world sizes).
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 _SEP = "__"
 _BF16 = "bfloat16"
@@ -75,11 +85,23 @@ def _unflatten_into(template, flat: dict):
     return walk([], template)
 
 
-def _snapshot(leaf) -> tuple:
-    """(numpy array owning its memory, manifest dtype) of one leaf."""
+def _distributed(flat: dict) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(v, DTensor) for v in flat.values())
+
+
+def _snapshot(leaf, keep: bool = True) -> Optional[tuple]:
+    """(numpy array owning its memory, manifest dtype) of one leaf; a
+    DTensor's full tensor (a collective, which every rank joins). With
+    `keep` False the gathered tensor is dropped at once and nothing is
+    copied to host memory: None."""
+    from repro_torch.distributed.sharding import full
     if not torch.is_tensor(leaf):
-        return np.array(leaf), None
-    t = leaf.detach().to("cpu", copy=True)
+        return (np.array(leaf), None) if keep else None
+    t = full(leaf)
+    if not keep:
+        return None
+    t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy(), _BF16
     return t.numpy(), None
@@ -91,13 +113,24 @@ class CheckpointManager:
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
+        self._barrier = False  # a sharded save waits for the others
 
     # -------------------------------------------------- save
     def save(self, step: int, tree: Any, blocking: bool = False) -> None:
         """Async by default: snapshot to host now, write and commit in
-        the background."""
+        the background. With DTensor leaves every rank calls it; rank 0
+        writes."""
         self.wait()  # one in-flight save at a time
-        host = {k: _snapshot(v) for k, v in _flatten(tree).items()}
+        flat = _flatten(tree)
+        sharded = _distributed(flat) and dist.is_initialized()
+        writer = not sharded or dist.get_rank() == 0
+        host = {k: _snapshot(v, writer) for k, v in flat.items()}
+        if sharded:
+            self._barrier = True
+            if not writer:
+                if blocking:
+                    self.wait()
+                return
 
         def write():
             tmp = self.dir / f"step_{step}.tmp"
@@ -119,14 +152,20 @@ class CheckpointManager:
 
         if blocking:
             write()
+            self.wait()
         else:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
 
     def wait(self) -> None:
+        """Wait for the save in flight; after a sharded save, every rank
+        returns once rank 0 has committed it."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
 
     def _gc(self) -> None:
         steps = sorted(self.steps())
@@ -146,18 +185,32 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, template: Any, device=None) -> Any:
+    def restore(self, step: int, template: Any, device=None,
+                shardings: Any = None) -> Any:
         """Load a checkpoint into the structure of `template`, each leaf
         a tensor of its saved dtype on `device` (default: the template
-        leaf's device, else the CPU)."""
+        leaf's device, else the CPU). `shardings`: a tree like `template`
+        of `sharding.NamedSharding` (None for a leaf kept whole): each
+        such leaf becomes a DTensor on that sharding's mesh, this rank
+        keeping its shard (the device is the mesh's)."""
+        from repro_torch.distributed.sharding import place
         final = self.dir / f"step_{step}"
         leaves = json.loads((final / "manifest.json").read_text())["leaves"]
+        flat_s = {} if shardings is None else _flatten(shardings)
         flat = {}
         for k, like in _flatten(template).items():
             t = torch.from_numpy(np.load(final / f"{k}.npy"))
             if leaves[k]["dtype"] == _BF16:
                 t = t.view(torch.bfloat16)
-            dev = device if device is not None else (
-                like.device if torch.is_tensor(like) else "cpu")
-            flat[k] = t.to(dev)
+            sh = flat_s.get(k)
+            if sh is not None:
+                dev = (torch.device("cuda", torch.cuda.current_device())
+                       if sh.mesh.device_type == "cuda" else "cpu")
+            elif device is not None:
+                dev = device
+            else:
+                from torch.distributed.tensor import DTensor
+                dev = (like.to_local().device if isinstance(like, DTensor)
+                       else like.device if torch.is_tensor(like) else "cpu")
+            flat[k] = place(t.to(dev), sh)
         return _unflatten_into(template, flat)

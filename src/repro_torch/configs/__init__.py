@@ -20,6 +20,14 @@ _ARCH_MODULES = {
 }
 
 
+# the 10 assigned archs (x 4 shapes) and the paper's own models
+ASSIGNED_ARCHS = ["h2o-danube-3-4b", "gemma3-1b", "mistral-large-123b",
+                  "qwen3-1.7b", "zamba2-1.2b", "rwkv6-7b", "whisper-small",
+                  "moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b",
+                  "internvl2-1b"]
+PAPER_ARCHS = ["wan2_1_1_3b", "lightningdit_1b"]
+
+
 def get_arch(name: str) -> ArchConfig:
     import importlib
     if name not in _ARCH_MODULES:
@@ -34,4 +42,5 @@ def get_shape(name: str, smoke: bool = False) -> ShapeConfig:
 
 
 __all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "SMOKE_SHAPES",
-           "DIT_SHAPES", "get_arch", "get_shape"]
+           "DIT_SHAPES", "ASSIGNED_ARCHS", "PAPER_ARCHS", "get_arch",
+           "get_shape"]

@@ -1,13 +1,14 @@
-"""The train step of every ported family (DiT, dense and MoE LMs, the
-recurrent, hybrid and encoder-decoder LMs).
-Counterpart of `repro.launch.steps`, train half (`cast_params_bf16`,
-`make_train_step`); the prefill and serve steps, which only the dry run
-calls, are not ported (ROADMAP.md queue 1, item 16).
+"""Train, prefill and serve step builders, uniform across families (DiT,
+dense, MoE and VLM LMs, the recurrent, hybrid and encoder-decoder LMs).
+Counterpart of `repro.launch.steps`: `cast_params_bf16`,
+`make_train_step`, `make_prefill_step`, `make_serve_step` and
+`abstract_state`, the parameters and AdamW state on the `meta` device
+that the dry run places over the production meshes.
 """
 from __future__ import annotations
 
 import types
-from typing import Callable, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -44,6 +45,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
                     backend: str = "gather", *, distill: bool = False,
                     trainable: Optional[Mapping[str, bool]] = None,
                     compute_bf16: bool = True,
+                    compute_dtype: torch.dtype = torch.bfloat16,
                     guard: Optional[Callable] = None,
                     grad_transform: Optional[Callable] = None) -> Callable:
     """`train_step(params, opt_state, batch) -> (params, opt_state, loss,
@@ -59,12 +61,20 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
     family's `distill_loss_fn` (a ValueError for a family without one:
     ssm, hybrid, encdec); `trainable` (name -> bool, from
     `adamw.trainable_mask`) updates only those parameters;
-    `compute_bf16=False` runs the loss on the f32 parameters themselves;
-    when `guard(loss)` is false the update is skipped and the step
-    returns a grad norm of None; and `grad_transform(grads) -> grads`
+    `compute_bf16=False` runs the loss on the f32 parameters themselves
+    (`compute_dtype` is the loss's activation dtype, bf16 by default as
+    the reference's; f32 lets a test hold two runs to 5e-5); when
+    `guard(loss)` is false the update is skipped and the step returns a
+    grad norm of None; and `grad_transform(grads) -> grads`
     (name -> tensor dicts) runs after the guard and before the update,
     whose grad norm is then that of its output (the CLI's error-feedback
-    compression)."""
+    compression).
+
+    Over a mesh the parameters (and the moments) are DTensors placed by
+    `distributed.sharding.place_module`, `batch` is the global batch, of
+    which the model keeps this rank's rows, and the step runs under the
+    caller's `activation_sharding(mesh, ...)`. The loss returned is the
+    global one and `guard` sees it, so every rank skips together."""
     mdl = registry.get_model(cfg)
     loss_impl = mdl.loss_fn
     if distill:
@@ -78,7 +88,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
         for p in named.values():
             p.grad = None
         compute = cast_params_bf16(params) if compute_bf16 else params
-        loss = loss_impl(compute, cfg, batch, backend=backend)
+        loss = loss_impl(compute, cfg, batch, compute_dtype=compute_dtype,
+                         backend=backend)
         loss.backward()
         loss = loss.detach()
         gnorm = None
@@ -98,3 +109,54 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
         return params, opt_state, loss, gnorm
 
     return train_step
+
+
+def make_prefill_step(cfg: ArchConfig, backend: str = "gather") -> Callable:
+    """`prefill_step(params, batch)`: the family's inference entry at a
+    prefill shape (a DiT's is one denoising forward). Returns what the
+    reference's does: (last hidden, cache) for the LMs, the velocity for
+    a DiT."""
+    mdl = registry.get_model(cfg)
+
+    if cfg.family == "encdec":
+        def prefill_step(params, batch):
+            return mdl.prefill(params, cfg, batch, backend=backend)
+    elif cfg.family == "dit":
+        def prefill_step(params, batch):
+            return mdl.forward(params, cfg, batch["latents"], batch["t"],
+                               batch.get("cond"), backend=backend)
+    elif cfg.family == "vlm":
+        def prefill_step(params, batch):
+            x, _, (kc, vc) = mdl.forward(
+                params, cfg, batch["tokens"],
+                prefix_embeds=batch["patch_embeds"], backend=backend,
+                return_cache=True)
+            cache = {"k": kc, "v": vc,
+                     "pos": batch["tokens"].shape[1] + cfg.num_patches}
+            return x[:, -1], cache
+    else:
+        def prefill_step(params, batch):
+            return mdl.prefill(params, cfg, batch["tokens"], backend=backend)
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ArchConfig) -> Callable:
+    """`serve_step(params, token, cache) -> (logits, cache)`: one decode
+    step of the family's model (the cache is updated in place)."""
+    mdl = registry.get_model(cfg)
+
+    def serve_step(params, token, cache):
+        return mdl.decode_step(params, cfg, token, cache)
+
+    return serve_step
+
+
+def abstract_state(cfg: ArchConfig) -> Tuple[Dict[str, torch.Tensor], dict]:
+    """(params, opt_state) on the `meta` device: the parameters by name,
+    shaped and typed as `init` makes them, and AdamW's moments and step,
+    with no allocation and no generator draws."""
+    mdl = registry.get_model(cfg)
+    params = dict(mdl.init(None, cfg, device="meta").named_parameters())
+    params = {n: p.detach() for n, p in params.items()}
+    return params, adamw.init(params)

@@ -12,6 +12,8 @@ hybrid (zamba2) and encoder-decoder (whisper) families.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
         --smoke --steps 4 --ckpt-dir /tmp/ckpt --ckpt-every 2 \
         --compress-grads --device cpu
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch qwen3-1.7b --smoke --steps 3 --data-mesh 2 --model-mesh 2
 
 Counterpart of `repro.launch.train`: config -> seeded params ->
 deterministic batches (latents for a DiT, Markov-chain tokens for an LM,
@@ -27,26 +29,45 @@ checkpoints every `--ckpt-every` steps and at the end (`--ckpt-dir`),
 from whose latest step a run resumes, its batches started at that step.
 The loss keeps the reference's default backend ("gather"). `--device`
 (default cuda) chooses the device; 'cpu' runs the kernels' plain twins.
-Meshes larger than one device are not ported and raise. The weights are
-random, from a seeded `torch.Generator` (not bitwise the reference's
-init); the batches are bitwise the reference's.
+The weights are random, from a seeded `torch.Generator` (not bitwise the
+reference's init); the batches are bitwise the reference's.
+
+Under torch.distributed (WORLD_SIZE set, as torchrun sets it, or a
+process group already initialized) the CLI trains over a
+`--data-mesh` x `--model-mesh` DeviceMesh (their product must be the
+world size): parameters and AdamW state placed under the sharding rules,
+a resume restored onto this mesh (`restore(shardings=)`), every step
+under `activation_sharding(mesh, default_residual_spec(...),
+remat=True)`. Every rank draws the same global batch and the model keeps
+its rows; the loss and the NaN guard's decision are global, so every
+rank skips together; rank 0 alone prints and writes checkpoints.
+`--compress-grads` compresses the full gradient on every rank (gathered
+from the shards, blocks as on one device) and keeps its error whole, so
+its codes are those of a one-device run on the same gradient. The dense,
+VLM and DiT families run sharded; the others raise on more than one
+rank, and run unsharded (saying so) on a world of one. Without
+WORLD_SIZE, the CLI trains on one device.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 import warnings
 
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_arch, get_shape
 from repro_torch.data.pipeline import DataConfig, make_iterator
 from repro_torch.distributed import ctx as actx
+from repro_torch.distributed import sharding
 from repro_torch.distributed.fault_tolerance import NaNGuard, \
     StragglerWatchdog
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import registry
 from repro_torch.optim import adamw
@@ -140,10 +161,6 @@ def main(argv=None):
                          "paper's zero init, which pins '--train-only "
                          "routing' at exactly zero routing gradients")
     args = ap.parse_args(argv)
-    if args.data_mesh * args.model_mesh > 1:
-        raise NotImplementedError(
-            "--data-mesh/--model-mesh is not ported to repro_torch yet "
-            "(ROADMAP.md queue 1, item 16's mesh half)")
 
     cfg = get_arch(args.arch)
     if args.smoke:
@@ -155,12 +172,20 @@ def main(argv=None):
     mdl = registry.get_model(cfg)
     opt_cfg = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
                                 warmup_steps=max(args.steps // 10, 1))
+    mesh = _mesh(args, cfg)
+    rank0 = mesh is None or dist.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
     device = resolve_device(args.device)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = mdl.init(gen, cfg, device=device)
     if args.routing_warm_init:
         routing_warm_init(model)
+    shardings = None
+    if mesh is not None:
+        p_shard = sharding.place_module(model, mesh)
+        shardings = {"params": p_shard,
+                     "opt": sharding.opt_shardings(p_shard)}
     params = dict(model.named_parameters())
     opt_state = adamw.init(params)
 
@@ -168,23 +193,27 @@ def main(argv=None):
     start_step = 0
     if mgr is not None and mgr.latest_step() is not None:
         start_step = mgr.latest_step()
-        state = mgr.restore(start_step, {"params": params, "opt": opt_state})
+        state = mgr.restore(start_step, {"params": params, "opt": opt_state},
+                            shardings=shardings)
         with torch.no_grad():
             for name, p in params.items():
                 p.copy_(state["params"][name])
         opt_state = state["opt"]
-        print(f"resumed from step {start_step}")
+        say(f"resumed from step {start_step}")
 
     data = make_iterator(cfg, shape, DataConfig(seed=args.seed),
                          start_step=start_step)
     grad_transform = None
     if args.compress_grads:
-        ef_error = ef_init(params)
+        ef_error = ef_init({n: sharding.full(p) for n, p in params.items()})
 
         def grad_transform(grads):
             nonlocal ef_error
-            grads, ef_error, _ = ef_compress_decompress(grads, ef_error)
-            return grads
+            full = {n: sharding.full(g) for n, g in grads.items()}
+            full, ef_error, _ = ef_compress_decompress(full, ef_error)
+            if mesh is None:
+                return full
+            return {n: sharding.place(g, p_shard[n]) for n, g in full.items()}
 
     mask = None
     if args.train_only:
@@ -194,10 +223,11 @@ def main(argv=None):
         if n_train == 0:
             raise ValueError(
                 f"--train-only {args.train_only!r} matches no parameters")
-        print(f"training {n_train} of "
-              f"{sum(p.numel() for p in params.values())} params "
-              f"({args.train_only})")
-        check_routing_dead_point(params, mask)
+        say(f"training {n_train} of "
+            f"{sum(p.numel() for p in params.values())} params "
+            f"({args.train_only})")
+        check_routing_dead_point(
+            {n: sharding.full(p).detach() for n, p in params.items()}, mask)
 
     watchdog = StragglerWatchdog()
     guard = NaNGuard()
@@ -206,10 +236,12 @@ def main(argv=None):
     # before the update.
     train_step = make_train_step(cfg, opt_cfg, distill=args.distill,
                                  trainable=mask, compute_bf16=False,
-                                 guard=guard.check,
+                                 guard=_global_guard(guard, mesh),
                                  grad_transform=grad_transform)
+    residual = (None if mesh is None else actx.default_residual_spec(
+        mesh, shape.global_batch, shape.seq_len))
     losses = []
-    with actx.activation_sharding(None, remat=True):
+    with actx.activation_sharding(mesh, residual, remat=True):
         for step in range(start_step, args.steps):
             t0 = time.time()
             batch = {k: torch.from_numpy(v).to(device)
@@ -217,7 +249,7 @@ def main(argv=None):
             model, opt_state, loss, gnorm = train_step(model, opt_state,
                                                        batch)
             if gnorm is None:
-                print(f"step {step}: non-finite loss, update skipped")
+                say(f"step {step}: non-finite loss, update skipped")
                 continue
             loss = float(loss)
             dt = time.time() - t0
@@ -226,20 +258,55 @@ def main(argv=None):
             if step % args.log_every == 0 or step == args.steps - 1:
                 extra = " STRAGGLER" if slow else ""
                 lr = adamw.schedule_lr(opt_cfg, opt_state["step"])
-                print(f"step {step:5d} loss {loss:.4f} "
-                      f"gnorm {float(gnorm):.3f} "
-                      f"lr {float(lr):.2e} {dt:.2f}s{extra}",
-                      flush=True)
+                say(f"step {step:5d} loss {loss:.4f} "
+                    f"gnorm {float(gnorm):.3f} "
+                    f"lr {float(lr):.2e} {dt:.2f}s{extra}", flush=True)
             if mgr is not None and (step + 1) % args.ckpt_every == 0:
                 mgr.save(step + 1, {"params": params, "opt": opt_state})
         if mgr is not None:
             mgr.save(args.steps, {"params": params, "opt": opt_state},
                      blocking=True)
     if watchdog.flagged:
-        print(f"stragglers flagged: {len(watchdog.flagged)}")
+        say(f"stragglers flagged: {len(watchdog.flagged)}")
     if losses:  # a run resumed at --steps takes no step
-        print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
+        say(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
     return losses
+
+
+def _mesh(args, cfg):
+    """The run's DeviceMesh under torch.distributed, else None (one
+    device). A family outside `sharding.MESH_FAMILIES` raises on more
+    than one rank and trains unsharded on a world of one."""
+    if not (dist.is_initialized() or "WORLD_SIZE" in os.environ):
+        if args.data_mesh * args.model_mesh > 1:
+            raise ValueError(
+                f"--data-mesh {args.data_mesh} --model-mesh "
+                f"{args.model_mesh} needs torch.distributed: launch "
+                f"data x model ranks with torchrun")
+        return None
+    dev = mesh_lib.init_distributed(args.device)
+    mesh = mesh_lib.make_host_mesh(args.data_mesh, args.model_mesh, dev)
+    sharding.check_mesh_family(cfg, mesh)
+    if cfg.family not in sharding.MESH_FAMILIES:
+        print(f"the {cfg.family!r} family trains unsharded on this world "
+              f"of one")
+        return None
+    return mesh
+
+
+def _global_guard(guard: NaNGuard, mesh):
+    """The NaN guard's check; over a mesh, on the loss of any rank being
+    non-finite (the loss is global, but one split decision would
+    deadlock the next collective)."""
+    if mesh is None:
+        return guard.check
+
+    def check(loss):
+        bad = (~torch.isfinite(loss)).to(torch.float32).reshape(1)
+        dist.all_reduce(bad, op=dist.ReduceOp.MAX)
+        return guard.check(torch.where(bad > 0, float("nan"), loss))
+
+    return check
 
 
 if __name__ == "__main__":

@@ -10,6 +10,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import reference as sref
 from repro_torch.core.block_sparse_xla import sparse_component_gather
@@ -17,6 +18,7 @@ from repro_torch.core.config import SLAConfig
 from repro_torch.core.masks import NEG_INF
 from repro_torch.core.plan import repeat_kv
 from repro_torch.core.sla import sla_attention
+from repro_torch.distributed import ctx
 
 
 def dense_init(generator: Optional[torch.Generator], in_dim: int,
@@ -102,13 +104,43 @@ def _swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype)
 
 
+def kv_kind(num_kv_heads: int) -> str:
+    """`ctx.fsdp_gather` kind of a layer's wk / wv: this "model" rank's
+    KV heads ("col") when the axis divides them, else all of them ("tp"),
+    from which `local_kv_heads` picks."""
+    _, m = ctx.model_rank_size()
+    return "col" if num_kv_heads % m == 0 else "tp"
+
+
+def local_kv_heads(t: torch.Tensor, num_heads: int, num_kv_heads: int
+                   ) -> torch.Tensor:
+    """Where "model" does not divide the KV heads they stay whole on every
+    rank (t: (B, Hkv, N, D)): return the KV head of each of this rank's
+    query heads (GQA group 1), since a kernel maps a local query head to
+    a KV head as `bh // group` and this rank's first query head is global
+    head rank * H_loc. Otherwise `t` (its heads are this rank's)."""
+    rank, m = ctx.model_rank_size()
+    if num_kv_heads % m == 0:
+        return t
+    h = num_heads // m
+    group = num_heads // num_kv_heads
+    idx = (rank * h + torch.arange(h, device=t.device)) // group
+    return t.index_select(1, idx)
+
+
 def attention(sla_params: Optional[dict], q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor, kind: str, sla_cfg: SLAConfig,
               window: int = 0, causal: bool = True, backend: str = "gather",
               plan=None, routing: Optional[dict] = None) -> torch.Tensor:
     """Unified attention entry. kind: "sla" | "full" | "swa" (the banded
     sliding window of `window` tokens). k, v may have fewer (GQA)
-    heads."""
+    heads. Under a mesh, q, k and v are this rank's plain local tensors
+    (its batch rows, its heads, the whole sequence): the kernels read
+    `data_ptr()`, so a DTensor here is an error."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        raise TypeError("attention takes plain local tensors; gather the "
+                        "weights with distributed.ctx.fsdp_gather first")
     h = q.shape[1]
     if kind == "full":
         return sref.full_attention(q, repeat_kv(k, h), repeat_kv(v, h),
@@ -165,23 +197,43 @@ class _ChunkedXent(torch.autograd.Function):
     f32 logits = x @ table^T built one (B, chunk, V) chunk at a time. The
     forward keeps only each row's logsumexp; the backward rebuilds each
     chunk's logits from it, so peak logits memory stays one chunk (and its
-    gradient) both ways."""
+    gradient) both ways.
+
+    `table` may be one "model" rank's rows of the vocabulary, from id
+    `first` (`ctx.vocab_shard`): the rows' max, their sum of exponentials
+    and the target's logit (held by one rank) are then reduced over
+    `group`, and x's gradient is this rank's share (the caller sums it
+    over `group`)."""
 
     @staticmethod
-    def forward(ctx, x, table, targets, mask, chunk: int):
+    def forward(ctx, x, table, targets, mask, chunk: int, first: int,
+                group):
         b, s, _ = x.shape
         t32 = table.float()
+        v = t32.shape[0]
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         lse = torch.empty((b, s), dtype=torch.float32, device=x.device)
         for c0 in range(0, s, chunk):
             rows = slice(c0, c0 + chunk)
             logits = x[:, rows].float() @ t32.t()
-            lse[:, rows] = torch.logsumexp(logits, dim=-1)
-            gold = logits.gather(-1, targets[:, rows, None])[..., 0]
+            idx = targets[:, rows] - first
+            gold = torch.where(
+                (idx >= 0) & (idx < v),
+                logits.gather(-1, idx.clamp(0, v - 1)[..., None])[..., 0],
+                0.0)
+            top = logits.amax(-1)
+            if group is not None:
+                dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+            sums = logits.sub_(top[..., None]).exp_().sum(-1)
+            if group is not None:
+                both = torch.stack([sums, gold])
+                dist.all_reduce(both, group=group)
+                sums, gold = both
+            lse[:, rows] = torch.log(sums) + top
             total = total + ((lse[:, rows] - gold) * mask[:, rows]).sum()
             del logits
         ctx.save_for_backward(x, table, targets, mask, lse)
-        ctx.chunk = chunk
+        ctx.chunk, ctx.first = chunk, first
         return total
 
     @staticmethod
@@ -189,6 +241,7 @@ class _ChunkedXent(torch.autograd.Function):
         x, table, targets, mask, lse = ctx.saved_tensors
         want_x, want_t = ctx.needs_input_grad[:2]
         t32 = table.float()
+        v = t32.shape[0]
         dx = torch.empty_like(x) if want_x else None
         dt = torch.zeros_like(t32) if want_t else None
         for c0 in range(0, x.shape[1], ctx.chunk):
@@ -196,8 +249,9 @@ class _ChunkedXent(torch.autograd.Function):
             xi = x[:, rows].float()
             # d(lse - gold) / d logits = softmax - onehot(target)
             dlog = (xi @ t32.t()).sub_(lse[:, rows, None]).exp_()
-            dlog.scatter_add_(-1, targets[:, rows, None],
-                              -torch.ones_like(lse[:, rows, None]))
+            idx = targets[:, rows, None] - ctx.first
+            dlog.scatter_add_(-1, idx.clamp(0, v - 1),
+                              -((idx >= 0) & (idx < v)).to(dlog.dtype))
             dlog.mul_((grad * mask[:, rows])[..., None])
             if want_x:
                 dx[:, rows] = (dlog @ t32).to(x.dtype)
@@ -206,7 +260,7 @@ class _ChunkedXent(torch.autograd.Function):
                     -1, xi.shape[-1])
             del dlog
         return (dx, dt.to(table.dtype) if want_t else None, None, None,
-                None)
+                None, None, None)
 
 
 def chunked_softmax_xent(x: torch.Tensor, embed: torch.Tensor,
@@ -221,17 +275,33 @@ def chunked_softmax_xent(x: torch.Tensor, embed: torch.Tensor,
     again from its rows' logsumexp), so peak logits memory is (B, chunk,
     V). The chunk is the largest size <= `chunk` that divides S, as in
     the reference. Returns the mean over the rows `mask` keeps (all rows
-    without a mask)."""
+    without a mask).
+
+    Under a mesh `embed` is the stored DTensor: each "model" rank scores
+    its own rows of the vocabulary (`ctx.vocab_shard`), the logsumexp and
+    the target's logit reduced over "model"; the mean is over every data
+    rank's rows (the sum and the count summed over the data ranks, as
+    their rows' counts differ under the VLM prefix)."""
     b, s, _ = x.shape
     chunk = min(chunk, s)
     while s % chunk:
         chunk -= 1
     m = (torch.ones((b, s), dtype=torch.float32, device=x.device)
          if mask is None else mask.float())
-    total = _ChunkedXent.apply(x, embed, targets.long(), m, chunk)
-    return total / torch.clamp(m.sum(), min=1.0)
+    table, first, group = ctx.vocab_shard(embed)
+    total = _ChunkedXent.apply(ctx.to_tp(x, group) if group is not None
+                               else x, table, targets.long(), m, chunk,
+                               first, group)
+    return ctx.sum_data(total) / torch.clamp(ctx.sum_data(m.sum()),
+                                             min=1.0)
 
 
 def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean squared error; under a mesh, the mean over every data rank's
+    elements."""
     diff = pred.float() - target.float()
-    return (diff * diff).mean()
+    lay = ctx.layout()
+    if lay is None or lay.data_group is None:
+        return (diff * diff).mean()
+    count = torch.tensor(float(diff.numel()), device=diff.device)
+    return ctx.sum_data((diff * diff).sum()) / ctx.sum_data(count)

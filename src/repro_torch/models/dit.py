@@ -33,8 +33,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import masks as masks_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.distributed import ctx
-from repro_torch.models.common import (attention, dense_init, mse_loss,
-                                       rms_norm)
+from repro_torch.models.common import (attention, dense_init, kv_kind,
+                                       local_kv_heads, mse_loss, rms_norm)
 
 
 class DiTLayer(nn.Module):
@@ -136,17 +136,34 @@ def forward(params: DiT, cfg: ArchConfig, latents: torch.Tensor, t,
     threshold; the return gains {"retention": (L,), "replanned": (L,)}.
     `per_sample_refresh=True` makes that decision per batch row
     (thresholds broadcast to (L, B), info entries (L, B)).
+
+    Under `activation_sharding(mesh, ...)` the inputs are the global
+    batch: this rank keeps its rows of it (data parallelism) or of the
+    sequence (context parallelism), runs its heads and FFN columns of
+    every layer (`distributed.ctx`) and returns the velocity of its rows.
+    Plan reuse does not run over a mesh.
     """
+    if plans is not None or return_plans:
+        ctx.require_unsharded("DiT plan reuse")
     dev = latents.device
-    b, n = latents.shape[:2]
     t = torch.as_tensor(t, dtype=torch.float32, device=dev)
     if t.ndim == 0:
-        t = t.expand(b)
+        t = t.expand(latents.shape[0])
+    latents = ctx.seq_rows(ctx.batch_rows(latents))
+    t, cond = ctx.batch_rows(t), ctx.batch_rows(cond)
+    b, n = latents.shape[:2]
     cd = compute_dtype
-    x = latents.to(cd) @ params.patch_in.to(cd)
-    temb = _timestep_embedding(t * 1000.0) @ params.t_embed.float()
+    x = latents.to(cd) @ ctx.fsdp_gather(params.patch_in, "rep").to(cd)
+    temb = _timestep_embedding(t * 1000.0) \
+        @ ctx.fsdp_gather(params.t_embed, "rep").float()
     temb = F.silu(temb).to(cd)
-    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    _, m = ctx.model_rank_size()
+    h, hkv, dh = cfg.num_heads // m, cfg.num_kv_heads, cfg.head_dim
+    kvk = kv_kind(hkv)
+    hk = hkv // m if kvk == "col" else hkv
+
+    def kv_heads(t):
+        return local_kv_heads(t, cfg.num_heads, hkv)
     sla_cfg = dataclasses.replace(cfg.sla, causal=False)
     if sla_mode is not None:
         sla_cfg = dataclasses.replace(sla_cfg, mode=sla_mode)
@@ -167,15 +184,24 @@ def forward(params: DiT, cfg: ArchConfig, latents: torch.Tensor, t,
     def layer(x, p, given, thr, kept):
         """One DiT block. Planning (or the drift-gated refresh of a given
         plan) runs on the first call only and is kept in `kept`, so a
-        rematerializing recompute attends over the same blocks."""
-        mod = temb @ p.ada.to(temb.dtype)
+        rematerializing recompute attends over the same blocks. Under
+        context parallelism q, k and v are gathered to the whole sequence
+        (planning ranks every query row); this rank keeps its rows."""
+        mod = temb @ ctx.fsdp_gather(p.ada, "rep").to(temb.dtype)
         sh1, sc1, g1, sh2, sc2, g2 = mod.chunk(6, dim=-1)
-        xn = rms_norm(x, p.ln1) * (1 + sc1[:, None]) + sh1[:, None]
-        q = (xn @ p.wq.to(x.dtype)).reshape(b, n, h, dh).transpose(1, 2)
-        k = (xn @ p.wk.to(x.dtype)).reshape(b, n, hkv, dh).transpose(1, 2)
-        v = (xn @ p.wv.to(x.dtype)).reshape(b, n, hkv, dh).transpose(1, 2)
-        routing = (dict(p.routing) if sla_cfg.routing_mode == "learned"
-                   else None)
+        xn = rms_norm(x, ctx.fsdp_gather(p.ln1, "rep")) \
+            * (1 + sc1[:, None]) + sh1[:, None]
+        xn = ctx.to_tp(xn)
+        q = (xn @ ctx.fsdp_gather(p.wq, "col").to(x.dtype)) \
+            .reshape(b, n, h, dh).transpose(1, 2)
+        k = kv_heads((xn @ ctx.fsdp_gather(p.wk, kvk).to(x.dtype))
+                     .reshape(b, n, hk, dh).transpose(1, 2))
+        v = kv_heads((xn @ ctx.fsdp_gather(p.wv, kvk).to(x.dtype))
+                     .reshape(b, n, hk, dh).transpose(1, 2))
+        q, k, v = (ctx.gather_seq(t, 2) for t in (q, k, v))
+        routing = ({name: ctx.fsdp_gather(w, "row")
+                    for name, w in p.routing.items()}
+                   if sla_cfg.routing_mode == "learned" else None)
         if "plan" not in kept:
             # Tensors the planning ops save for the backward (the learned
             # router's straight-through gates) stay out of the remat
@@ -184,28 +210,34 @@ def forward(params: DiT, cfg: ArchConfig, latents: torch.Tensor, t,
                     lambda t: t.detach(), lambda t: t):
                 kept["plan"] = plan_layer(q, k, routing, given, thr)
         layer_plan = kept["plan"][0]
-        o = attention({"proj": p.sla_proj}, q, k, v, kind, sla_cfg,
-                      causal=False, backend=backend,
+        o = attention({"proj": ctx.fsdp_gather(p.sla_proj, "row")}, q, k,
+                      v, kind, sla_cfg, causal=False, backend=backend,
                       plan=layer_plan if plan_needed else None,
                       routing=routing)
-        o = o.transpose(1, 2).reshape(b, n, h * dh)
-        x = ctx.shard_residual(x + g1[:, None] * (o @ p.wo.to(x.dtype)))
+        o = ctx.seq_rows(o, dim=2).transpose(1, 2).reshape(b, n, h * dh)
+        o = ctx.from_tp(o @ ctx.fsdp_gather(p.wo, "row").to(x.dtype))
+        x = ctx.shard_residual(x + g1[:, None] * o)
         if cfg.cross_attn and cond is not None:
-            cx = cond.to(x.dtype)
+            cx = ctx.to_tp(cond.to(x.dtype))
             lc = cx.shape[1]
-            xq = (rms_norm(x, p.ln_x) @ p.xq.to(x.dtype)) \
+            xq = (ctx.to_tp(rms_norm(x, ctx.fsdp_gather(p.ln_x, "rep")))
+                  @ ctx.fsdp_gather(p.xq, "col").to(x.dtype)) \
                 .reshape(b, n, h, dh).transpose(1, 2)
-            xk = (cx @ p.xk.to(x.dtype)).reshape(b, lc, hkv, dh) \
-                .transpose(1, 2)
-            xv = (cx @ p.xv.to(x.dtype)).reshape(b, lc, hkv, dh) \
-                .transpose(1, 2)
+            xk = kv_heads((cx @ ctx.fsdp_gather(p.xk, kvk).to(x.dtype))
+                          .reshape(b, lc, hk, dh).transpose(1, 2))
+            xv = kv_heads((cx @ ctx.fsdp_gather(p.xv, kvk).to(x.dtype))
+                          .reshape(b, lc, hk, dh).transpose(1, 2))
             xo = attention(None, xq, xk, xv, "full", sla_cfg, causal=False)
             xo = xo.transpose(1, 2).reshape(b, n, h * dh)
-            x = x + xo @ p.xo.to(x.dtype)
-        xn2 = rms_norm(x, p.ln2) * (1 + sc2[:, None]) + sh2[:, None]
-        g, u = (xn2 @ p.mlp_wi.to(x.dtype)).chunk(2, dim=-1)
-        return ctx.shard_residual(
-            x + g2[:, None] * ((F.silu(g) * u) @ p.mlp_wo.to(x.dtype)))
+            x = x + ctx.from_tp(xo @ ctx.fsdp_gather(p.xo, "row")
+                                .to(x.dtype))
+        xn2 = rms_norm(x, ctx.fsdp_gather(p.ln2, "rep")) \
+            * (1 + sc2[:, None]) + sh2[:, None]
+        g, u = (ctx.to_tp(xn2) @ ctx.fsdp_gather(p.mlp_wi, "col", chunks=2)
+                .to(x.dtype)).chunk(2, dim=-1)
+        f = ctx.from_tp((F.silu(g) * u)
+                        @ ctx.fsdp_gather(p.mlp_wo, "row").to(x.dtype))
+        return ctx.shard_residual(x + g2[:, None] * f)
 
     def plan_layer(q, k, routing, layer_plan, thr):
         """(plan, retention, replanned) for one layer."""
@@ -239,8 +271,8 @@ def forward(params: DiT, cfg: ArchConfig, latents: torch.Tensor, t,
         if adaptive:
             rets.append(retention)
             reps.append(replanned)
-    x = rms_norm(x, params.ln_f)
-    out = x @ params.patch_out.to(x.dtype)
+    x = rms_norm(x, ctx.fsdp_gather(params.ln_f, "rep"))
+    out = x @ ctx.fsdp_gather(params.patch_out, "rep").to(x.dtype)
     result = (out,)
     if return_plans:
         result += (plan_lib.plan_map(lambda *ls: torch.stack(ls), *out_plans)
@@ -389,12 +421,14 @@ def loss_fn(params: DiT, cfg: ArchConfig, batch, compute_dtype=torch.bfloat16,
             ) -> torch.Tensor:
     """Flow-matching (rectified flow): x_t = (1-t) x0 + t noise; the model
     predicts the velocity (noise - x0). batch: latents (B, N, P), noise,
-    t (B,), cond (optional) tensors."""
+    t (B,), cond (optional) tensors; under a mesh the global batch, of
+    which `forward` keeps this rank's rows, and the loss the global
+    mean."""
     x0, noise, t = batch["latents"], batch["noise"], batch["t"]
     xt = (1.0 - t[:, None, None]) * x0 + t[:, None, None] * noise
     pred = forward(params, cfg, xt, t, batch.get("cond"), compute_dtype,
                    backend, sla_mode)
-    return mse_loss(pred, noise - x0)
+    return mse_loss(pred, ctx.seq_rows(ctx.batch_rows(noise - x0)))
 
 
 def distill_loss_fn(params: DiT, cfg: ArchConfig, batch,

@@ -14,7 +14,9 @@ the experts run and reads zero after them. Kept destinations are unique
 (only dropped slots share the sentinel row), so the dispatch is an
 `index_copy`, exact and deterministic where it is read. The
 reference's mesh helpers (`ctx.shard_expert_buf`, `ctx.ep_gather`,
-`ctx.fsdp_gather`) are identities on one device and are not called.
+`ctx.fsdp_gather`) are ported in `distributed/ctx.py` but not called
+here: expert parallelism is ROADMAP.md item 18, and the LM forward
+refuses the MoE FFN under a mesh.
 """
 from __future__ import annotations
 

@@ -53,9 +53,10 @@ from repro_torch.core.plan import repeat_kv
 from repro_torch.distributed import ctx
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (attention, chunked_softmax_xent,
-                                       dense_init, embed_init,
-                                       logits_from_hidden, mse_loss,
-                                       output_table, rms_norm, rope)
+                                       dense_init, embed_init, kv_kind,
+                                       local_kv_heads, logits_from_hidden,
+                                       mse_loss, output_table, rms_norm,
+                                       rope)
 
 KIND_SLA, KIND_FULL, KIND_SWA = 0, 1, 2
 NEG_INF = masks_lib.NEG_INF
@@ -183,27 +184,37 @@ def compute_params(params: Transformer, dtype=torch.bfloat16):
 
 
 def _routing(p, cfg) -> Optional[dict]:
-    """The layer's learned-routing scorer, or None under threshold
-    routing."""
+    """The layer's learned-routing scorer (this rank's heads of it under a
+    mesh), or None under threshold routing."""
     if cfg.routing_mode != "learned":
         return None
-    return dict(p.routing)
+    return {n: ctx.fsdp_gather(w, "row") for n, w in p.routing.items()}
 
 
 # --------------------------------------------------------------------------
 # attention sub-block
 # --------------------------------------------------------------------------
 def _qkv(p, x, cfg: ArchConfig, positions):
+    """q, k, v (B, H, S, Dh) with rope. Under a mesh, this "model" rank's
+    query heads and the KV heads they read (`common.local_kv_heads`)."""
     b, s, _ = x.shape
-    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p.wq.to(x.dtype)).reshape(b, s, h, dh).transpose(1, 2)
-    k = (x @ p.wk.to(x.dtype)).reshape(b, s, hkv, dh).transpose(1, 2)
-    v = (x @ p.wv.to(x.dtype)).reshape(b, s, hkv, dh).transpose(1, 2)
+    _, m = ctx.model_rank_size()
+    h, hkv, dh = cfg.num_heads // m, cfg.num_kv_heads, cfg.head_dim
+    kvk = kv_kind(hkv)
+    hk = hkv // m if kvk == "col" else hkv
+    q = (x @ ctx.fsdp_gather(p.wq, "col").to(x.dtype)) \
+        .reshape(b, s, h, dh).transpose(1, 2)
+    k = (x @ ctx.fsdp_gather(p.wk, kvk).to(x.dtype)) \
+        .reshape(b, s, hk, dh).transpose(1, 2)
+    v = (x @ ctx.fsdp_gather(p.wv, kvk).to(x.dtype)) \
+        .reshape(b, s, hk, dh).transpose(1, 2)
     if cfg.qk_norm:
-        q = rms_norm(q, p.qnorm)
-        k = rms_norm(k, p.knorm)
+        q = rms_norm(q, ctx.fsdp_gather(p.qnorm, "tp"))
+        k = rms_norm(k, ctx.fsdp_gather(p.knorm, "tp"))
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    k = local_kv_heads(k, cfg.num_heads, hkv)
+    v = local_kv_heads(v, cfg.num_heads, hkv)
     return q, k, v
 
 
@@ -241,9 +252,12 @@ def _attn(p, x, kind, cfg: ArchConfig, positions, backend, kept: dict,
     SLA layer's plan whenever `want_plan` or its mode needs one) and keeps
     it in `kept` with the layer's k and v; a rematerializing recompute
     finds it there and attends over the same blocks without planning
-    again."""
+    again. Under context parallelism q, k and v are gathered to the whole
+    sequence first, so planning ranks every query row, and this rank
+    keeps its own rows of the output."""
     b, s, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, positions)
+    x = ctx.to_tp(x)
+    q, k, v = (ctx.gather_seq(t, 2) for t in _qkv(p, x, cfg, positions))
     sla_cfg = cfg.sla
     if cfg.sliding_window:
         sla_cfg = dataclasses.replace(sla_cfg, window=cfg.sliding_window)
@@ -263,23 +277,28 @@ def _attn(p, x, kind, cfg: ArchConfig, positions, backend, kept: dict,
         kept["k"], kept["v"] = k, v
     layer_plan = kept["plan"]
     if kind == KIND_SLA:
-        out = attention({"proj": p.sla_proj}, q, k, v, "sla", sla_cfg,
-                        causal=True, backend=backend, plan=layer_plan,
-                        routing=routing)
+        out = attention({"proj": ctx.fsdp_gather(p.sla_proj, "row")}, q, k,
+                        v, "sla", sla_cfg, causal=True, backend=backend,
+                        plan=layer_plan, routing=routing)
     elif kind == KIND_FULL:
         out = attention(None, q, k, v, "full", sla_cfg, causal=True)
     else:
         out = attention(None, q, k, v, "swa", sla_cfg,
                         window=cfg.local_window or cfg.sliding_window,
                         causal=True)
-    return out.transpose(1, 2).reshape(b, s, -1) @ p.wo.to(x.dtype)
+    out = ctx.seq_rows(out, dim=2)
+    return ctx.from_tp(out.transpose(1, 2).reshape(b, s, -1)
+                       @ ctx.fsdp_gather(p.wo, "row").to(x.dtype))
 
 
 def _ffn(p, x, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     if cfg.num_experts:
         return moe_lib.moe_apply(p.moe, x, cfg)
-    g, u = (x @ p.mlp_wi.to(x.dtype)).chunk(2, dim=-1)
-    out = (F.silu(g) * u) @ p.mlp_wo.to(x.dtype)
+    x = ctx.to_tp(x)
+    g, u = (x @ ctx.fsdp_gather(p.mlp_wi, "col", chunks=2).to(x.dtype)) \
+        .chunk(2, dim=-1)
+    out = ctx.from_tp((F.silu(g) * u)
+                      @ ctx.fsdp_gather(p.mlp_wo, "row").to(x.dtype))
     return out, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -312,17 +331,35 @@ def forward(params, cfg: ArchConfig, tokens: Optional[torch.Tensor],
     recording, each layer is rematerialized (`ctx.maybe_remat`, the
     reference's remat of its layer scan); its block structure is built
     once, outside the recompute.
+
+    Under `activation_sharding(mesh, ...)` the batch is the global one:
+    this rank keeps its rows of it (data parallelism) or of the sequence
+    (context parallelism, after the prefix is prepended, with global rope
+    positions), and the hidden states returned are those rows. Serving
+    (caches, plan reuse) and the MoE FFN do not run over a mesh.
     """
+    if (return_cache or plans is not None or return_plans
+            or decode_plan_cfg is not None):
+        ctx.require_unsharded("serving (caches and plan reuse)")
+    if cfg.num_experts and ctx.layout() is not None:
+        raise NotImplementedError(
+            "the MoE FFN over a mesh (expert parallelism) is not ported to "
+            "repro_torch (ROADMAP.md queue 1, item 18)")
+    tokens = ctx.batch_rows(tokens)
+    prefix_embeds = ctx.batch_rows(prefix_embeds)
     parts = []
     if prefix_embeds is not None:
         parts.append(prefix_embeds.to(compute_dtype))
     if tokens is not None:
-        # F.embedding: its backward is deterministic, an index's is not
-        parts.append(F.embedding(tokens, params.embed).to(compute_dtype))
+        parts.append(ctx.vocab_lookup(tokens, params.embed)
+                     .to(compute_dtype))
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+    start, _ = ctx.seq_span(x.shape[1])
+    x = ctx.seq_rows(x)
     b, s, _ = x.shape
     dev = x.device
-    positions = torch.arange(s, device=dev)[None, :].expand(b, s)
+    positions = (torch.arange(start, start + s, device=dev) if start
+                 else torch.arange(s, device=dev))[None, :].expand(b, s)
     kinds = layer_kinds_list(cfg)
     nl = cfg.num_layers
     want_plan = return_plans or plans is not None
@@ -338,12 +375,14 @@ def forward(params, cfg: ArchConfig, tokens: Optional[torch.Tensor],
         vc = make(shape, dtype=compute_dtype, device=dev)
 
     def layer(x, p, kind, given, thr, kept):
-        a = _attn(p, rms_norm(x, p.ln1), kind, cfg, positions, backend,
-                  kept, layer_plan=given, drift_threshold=thr,
-                  want_plan=want_plan, decode_plan_cfg=decode_plan_cfg)
-        x = x + a
-        f, layer_aux = _ffn(p, rms_norm(x, p.ln2), cfg)
-        return x + f, layer_aux
+        a = _attn(p, rms_norm(x, ctx.fsdp_gather(p.ln1, "rep")), kind, cfg,
+                  positions, backend, kept, layer_plan=given,
+                  drift_threshold=thr, want_plan=want_plan,
+                  decode_plan_cfg=decode_plan_cfg)
+        x = ctx.shard_residual(x + a)
+        f, layer_aux = _ffn(p, rms_norm(x, ctx.fsdp_gather(p.ln2, "rep")),
+                            cfg)
+        return ctx.shard_residual(x + f), layer_aux
 
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     out_plans, dmcs, rets, reps = [], [], [], []
@@ -368,7 +407,7 @@ def forward(params, cfg: ArchConfig, tokens: Optional[torch.Tensor],
             rets.append(kept["retention"])
             reps.append(kept["replanned"])
         del k, v  # free this layer's k and v before the next
-    x = rms_norm(x, params.ln_f)
+    x = rms_norm(x, ctx.fsdp_gather(params.ln_f, "rep"))
     result = (x, aux)
     if return_cache:
         result += ((kc, vc),)
@@ -392,14 +431,30 @@ def loss_fn(params, cfg: ArchConfig, batch: dict,
     VLM family, `patch_embeds` (B, P, d), whose P hidden rows the loss
     leaves out. `params` is
     the Transformer module or a tree of its tensors with the same
-    attributes (`launch.steps.cast_params_bf16`)."""
-    x, aux = forward(params, cfg, batch["tokens"],
-                     prefix_embeds=batch.get("patch_embeds"),
+    attributes (`launch.steps.cast_params_bf16`). Under a mesh the batch
+    is the global one and the loss the global mean: each rank scores its
+    own rows (`forward`), the sums and the row count are summed over the
+    data ranks."""
+    prefix = batch.get("patch_embeds")
+    x, aux = forward(params, cfg, batch["tokens"], prefix_embeds=prefix,
                      compute_dtype=compute_dtype, backend=backend)
-    if batch.get("patch_embeds") is not None:
-        x = x[:, batch["patch_embeds"].shape[1]:]
-    loss = chunked_softmax_xent(x, output_table(params), batch["targets"],
-                                batch.get("mask"))
+    targets = ctx.batch_rows(batch["targets"])
+    mask = ctx.batch_rows(batch.get("mask"))
+    npre = 0 if prefix is None else prefix.shape[1]
+    start, rows = ctx.seq_span(npre + targets.shape[1])
+    if rows == npre + targets.shape[1]:
+        if prefix is not None:
+            x = x[:, npre:]
+    else:
+        # context parallelism: this rank's rows of [prefix; tokens], the
+        # prefix's rows (if any are here) masked out
+        g = torch.arange(start - npre, start - npre + rows,
+                         device=x.device)
+        idx = torch.clamp(g, min=0)
+        keep = (g >= 0).to(torch.float32)[None, :].expand(x.shape[0], rows)
+        mask = keep if mask is None else keep * mask[:, idx].float()
+        targets = targets[:, idx]
+    loss = chunked_softmax_xent(x, output_table(params), targets, mask)
     return loss + 0.01 * aux
 
 

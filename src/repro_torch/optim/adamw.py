@@ -7,6 +7,12 @@ dicts keyed by PyTorch parameter name (`dict(model.named_parameters())`,
 select the same leaves. Unlike the reference's functional update,
 `update` writes the new parameters and moments in place: at full width
 that saves a second copy of the parameters and both moments.
+
+Over a mesh the parameters, gradients and moments are DTensors of the
+same placements (`distributed.sharding`): the update runs on each rank's
+local shards, and `global_norm` sums the squares of every shard once
+over all ranks, so every rank clips by the same global norm (a per-rank
+norm would make the ranks' updates diverge).
 """
 from __future__ import annotations
 
@@ -15,6 +21,9 @@ import math
 from typing import Dict, Iterable, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.sharding import local as _local
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -49,18 +58,44 @@ def schedule_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(params: Mapping[str, torch.Tensor]) -> dict:
-    """Zero f32 moments shaped like each parameter, and step 0."""
+    """Zero f32 moments shaped (and, over a mesh, placed) like each
+    parameter, and step 0 (a plain tensor, the same on every rank)."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    device = next(iter(params.values())).device
+        return torch.zeros_like(p, dtype=torch.float32)
+    device = _local(next(iter(params.values()))).device
     return {"m": {n: zeros(p) for n, p in params.items()},
             "v": {n: zeros(p) for n, p in params.items()},
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def _owned(x) -> bool:
+    """Whether this rank counts a DTensor's local shard in a global sum:
+    the copy at coordinate 0 of every mesh dim that replicates it."""
+    from torch.distributed.tensor import Replicate
+    mesh = x.device_mesh
+    return all(mesh.get_local_rank(i) == 0
+               for i, pl in enumerate(x.placements)
+               if isinstance(pl, Replicate))
+
+
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    sq = sum(torch.sum(torch.square(x.float())) for x in tensors)
-    return torch.sqrt(torch.as_tensor(sq, dtype=torch.float32))
+    """sqrt of the sum of squares of every element, in f32. DTensors over
+    a mesh: each rank sums the shards it owns and the sum is all-reduced
+    over the world, so every rank gets the global norm."""
+    from torch.distributed.tensor import DTensor
+    tensors = list(tensors)
+    mesh = next((x.device_mesh for x in tensors if isinstance(x, DTensor)),
+                None)
+    if mesh is None:
+        sq = sum(torch.sum(torch.square(x.float())) for x in tensors)
+        return torch.sqrt(torch.as_tensor(sq, dtype=torch.float32))
+    sq = sum(torch.sum(torch.square(x.to_local().float())) if _owned(x)
+             else torch.zeros((), dtype=torch.float32,
+                              device=x.to_local().device)
+             for x in tensors)
+    sq = torch.as_tensor(sq, dtype=torch.float32).clone()
+    dist.all_reduce(sq)
+    return torch.sqrt(sq)
 
 
 def trainable_mask(params: Mapping[str, torch.Tensor], substrings
@@ -96,8 +131,9 @@ def update(params: Mapping[str, torch.Tensor],
     b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, device=stepf.device), stepf)
     b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, device=stepf.device), stepf)
     for n in names:
-        p, m, v = params[n], state["m"][n], state["v"][n]
-        g = grads[n].float() * scale
+        p, m, v = (_local(t) for t in (params[n], state["m"][n],
+                                       state["v"][n]))
+        g = _local(grads[n]).float() * scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
         step_p = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \

@@ -1545,3 +1545,64 @@ def test_moe_ffn_on_the_card_matches_the_cpu(dtype):
     for a, b in zip(runs["cuda"]["floats"], runs["cpu"]["floats"]):
         assert float((a - b).abs().max()) <= tol * max(
             1.0, float(b.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "lightningdit_1b"])
+def test_train_on_a_1x1_nccl_mesh_is_the_plain_path(arch, tmp_path):
+    """Two make_train_step steps (bf16 compute over f32 masters, kernel
+    backend, remat) from the same seeded smoke weights and batches, on
+    the plain path and with every parameter and moment a DTensor on a
+    1 x 1 mesh over NCCL in this process: losses, grad norms and final
+    parameters bitwise equal, and the mesh path launched the forward and
+    backward kernels."""
+    _need_gpu()
+    import torch.distributed as dist
+    from repro_torch.configs import get_shape
+    from repro_torch.data import pipeline
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import registry
+    cfg = get_arch(arch).smoke()
+    shape = get_shape("train_4k", smoke=True)
+    it = pipeline.make_iterator(cfg, shape)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
+               for _ in range(2)]
+
+    def run(mesh):
+        mdl = registry.get_model(cfg)
+        model = mdl.init(torch.Generator("cuda").manual_seed(3), cfg,
+                         device="cuda")
+        if mesh is not None:
+            sharding.place_module(model, mesh)
+        named = dict(model.named_parameters())
+        state = adamw.init(named)
+        step = steps.make_train_step(
+            cfg, adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=3),
+            backend="kernel")
+        residual = (None if mesh is None else ctx.default_residual_spec(
+            mesh, shape.global_batch, shape.seq_len))
+        before = (sla_fwd.LAUNCHES, sla_bwd.LAUNCHES_DQ,
+                  sla_bwd.LAUNCHES_DKV)
+        out = []
+        with ctx.activation_sharding(mesh, residual, remat=True):
+            for batch in batches:
+                model, state, loss, gnorm = step(model, state, batch)
+                out.append((loss, gnorm))
+        launches = tuple(a - b for a, b in zip(
+            (sla_fwd.LAUNCHES, sla_bwd.LAUNCHES_DQ, sla_bwd.LAUNCHES_DKV),
+            before))
+        final = {n: sharding.local(p).detach() for n, p in named.items()}
+        return out, final, launches
+
+    want, want_p, want_n = run(None)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        got, got_p, got_n = run(mesh_lib.make_host_mesh(1, 1, "cuda"))
+    finally:
+        dist.destroy_process_group()
+    n = cfg.num_layers
+    assert got_n == want_n == (2 * 2 * n, 2 * n, 2 * n)
+    for (gl, gg), (wl, wg) in zip(got, want):
+        assert torch.equal(gl, wl) and torch.equal(gg, wg)
+    assert all(torch.equal(got_p[k], want_p[k]) for k in want_p)
