@@ -436,6 +436,17 @@ Phases, in order; any failure exits non-zero before the result line:
      rewritten checkpoint's files bitwise the straight run's. The dry run
      does not run here (its fake process group cannot share the process
      with NCCL).
+ 33. phase 32 for the other families (`P33_MODELS`), in one NCCL group of
+     world size 1: zamba2-1.2b and whisper-small at full width and depth,
+     moonshot-v1-16b-a3b at full width cut from 48 to 4 layers (~580 M
+     parameters a layer at ~18 bytes of training state, beside the plain
+     run's parameters held for the comparison), rwkv6-7b at full width
+     cut from 32 to 4 layers; train_4k at batch 1, LT_STEPS AdamW steps
+     on the plain path, then over `make_host_mesh(1, 1)`: losses, grad
+     norms, final parameters and every MoE router call's kept slots
+     bitwise equal, launches of kernels 1 / 2 / 3 and plan builds a step
+     equal and as the family's layers say (7 / 7 / 7, 24 / 12 / 12,
+     8 / 4 / 4, none); walls, peaks and the MoE's dropped slots printed.
  31. the kernels line (JSON): `sla_fwd` carries the split route's fields
      at the top (the f32 serving route) and the f32-FMA and bf16
      tensor-core routes' beside them, kernels 1-3 the D-64 cases of
@@ -492,6 +503,7 @@ from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import dit, encdec, hybrid  # noqa: E402
 from repro_torch.models import linear_scan, rwkv6  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.models import registry  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.models.common import dense_init  # noqa: E402
@@ -620,6 +632,13 @@ G3T_STEPS, G3T_BATCH = 3, 1
 # the mesh path (phase 32): phase 21's first LT_STEPS steps over a 1 x 1
 # DeviceMesh, and the train CLI's sharded checkpoint resume at smoke qwen3
 MESH_CLI_STEPS, MESH_CLI_EVERY = 4, 2
+# the other families over the mesh (phase 33): LT_STEPS steps of train_4k
+# at batch 1 each on the plain path and over a 1 x 1 DeviceMesh; zamba2
+# and whisper at full depth, Moonlight and rwkv6 at full width with the
+# depth cut to what two runs' training state fits on one card (arch,
+# layers or None for the full depth, seed)
+P33_MODELS = (("zamba2-1.2b", None, 0), ("whisper-small", None, 1),
+              ("moonshot-v1-16b-a3b", 4, 2), ("rwkv6-7b", 4, 3))
 DEV = torch.device("cuda")
 
 
@@ -4735,7 +4754,9 @@ def phase_moe_serving(cfg, params, profile: bool):
 
     def route_hook(router, tokens, cfg_):
         r = orig_route(router, tokens, cfg_)
-        kind = "decode" if tokens.shape[0] == MOE_BATCH else "prefill"
+        # tokens (B, S, d): one a row in a decode step
+        kind = ("decode" if tokens.shape[:-1].numel() == MOE_BATCH
+                else "prefill")
         drops[kind].append(((~r["keep"]).sum(), r["cap"],
                             r["keep"].numel()))
         return r
@@ -6236,18 +6257,19 @@ def phase_gemma3_train(profile: bool):
     return train, fwd_rows, bwd_rows
 
 
-def _mesh_train_run(batches, mesh, path: str, profile: bool = False
-                    ) -> dict:
+def _mesh_train_run(batches, mesh, path: str, profile: bool = False,
+                    make=None) -> dict:
     """LT_STEPS `loss_fn` steps of phase 21 (its weights from
-    `_lm_model(0)`, its AdamW settings, kernel backend, bf16 compute,
-    remat) on the plain path (`mesh` None) or with every parameter and
-    moment a DTensor on `mesh`. Returns the losses and grad norms (as
-    tensors), each step's wall, peak and launches, and the final
-    parameters (local tensors). With `profile`, one more step (on the
-    first batch, after the final parameters were copied aside) runs
-    under torch.profiler: its device time and busy share ("profile")."""
+    `_lm_model(0)`, or the (cfg, params) `make()` returns; its AdamW
+    settings, kernel backend, bf16 compute, remat) on the plain path
+    (`mesh` None) or with every parameter and moment a DTensor on `mesh`.
+    Returns the losses and grad norms (as tensors), each step's wall,
+    peak and launches, and the final parameters (local tensors). With
+    `profile`, one more step (on the first batch, after the final
+    parameters were copied aside) runs under torch.profiler: its device
+    time and busy share ("profile")."""
     from repro_torch.distributed import sharding
-    cfg, params = _lm_model(seed=0)
+    cfg, params = (make or functools.partial(_lm_model, seed=0))()
     if mesh is not None:
         sharding.place_module(params, mesh)
     named = dict(params.named_parameters())
@@ -6255,8 +6277,9 @@ def _mesh_train_run(batches, mesh, path: str, profile: bool = False
     opt_cfg = adamw.AdamWConfig(lr=1e-4, warmup_steps=1,
                                 total_steps=LT_STEPS + 1)
     step_fn = train_steps.make_train_step(cfg, opt_cfg, backend="kernel")
+    rows_seq = next(iter(batches[0].values())).shape[:2]
     residual = (None if mesh is None else actx.default_residual_spec(
-        mesh, LT_BATCH, LT_SEQ))
+        mesh, *rows_seq))
     plans, orig_plan = [], plan_lib.plan_attention
 
     def counted_plan(*a, **kw):
@@ -6454,6 +6477,154 @@ def phase_lm_train_mesh(lt: dict, profile: bool = False) -> dict:
                 wall_s=time.time() - t_all)
 
 
+def _family_mesh_check(arch: str, layers, seed: int, mesh) -> dict:
+    """Phase 33 for one model: `arch` at full width (its depth cut to
+    `layers` when given), f32 masters from `seed` with every sla_proj
+    redrawn, LT_STEPS AdamW steps of train_4k at batch 1 on the plain
+    path, then the same steps on `mesh` (`_mesh_train_run`). Losses, grad
+    norms and final parameters must be bitwise equal, the launches of
+    kernels 1-3 and the plan builds equal step by step, and an MoE
+    model's kept slots (`keep_all` of every router call) bitwise equal.
+    Returns the summary."""
+    cfg = get_arch(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    mdl = registry.get_model(cfg)
+    # SLA launches of kernels 1 / 2 / 3 a step (tensor cores: bf16
+    # compute) and plan builds: an MoE layer's SLA forward runs twice
+    # under remat, as an encoder layer's; the hybrid's shared block is
+    # not rematerialized; rwkv6 does not attend
+    n = {"moe": (2 * cfg.num_layers, cfg.num_layers),
+         "encdec": (2 * cfg.encoder_layers, cfg.encoder_layers),
+         "hybrid": (len(hybrid.segments(cfg)), len(hybrid.segments(cfg))),
+         "ssm": (0, 0)}[cfg.family]
+    want = dict(sla_fwd=n[0], tc_sla_fwd=n[0], sla_bwd_dq=n[1],
+                tc_sla_bwd_dq=n[1], sla_bwd_dkv=n[1], tc_sla_bwd_dkv=n[1],
+                plan_builds=n[1])
+
+    def make():
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        params = mdl.init(gen, cfg, device=DEV)
+        _redraw(gen, [p for n, p in params.named_parameters()
+                      if n.endswith("sla_proj")])
+        return cfg, params
+
+    shape = dataclasses.replace(get_shape("train_4k"), global_batch=1)
+    data = make_iterator(cfg, shape, DataConfig(seed=seed))
+    batches = [{k: torch.from_numpy(x).to(DEV) for k, x in
+                next(data).items()} for _ in range(LT_STEPS)]
+    orig_route = moe_lib.route
+    t_all = time.time()
+    runs = {}
+    try:
+        for name, m in (("plain", None), ("mesh", mesh)):
+            slots = []
+
+            def route(*a, **kw):
+                r = orig_route(*a, **kw)
+                slots.append(r["keep_all"])
+                return r
+
+            moe_lib.route = route
+            runs[name] = _mesh_train_run(batches, m, f"{cfg.family}"
+                                         f"_train_mesh_{name}", make=make)
+            runs[name]["slots"] = slots
+            if name == "plain":
+                # the plain run's final parameters stay on the card for
+                # the comparison: the mesh run's peaks are printed
+                # without them
+                held = sum(t.numel() * t.element_size() for t in
+                           runs[name]["final"].values()) / 2**30
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        moe_lib.route = orig_route
+    plain, sharded = runs["plain"], runs["mesh"]
+    final, got = plain.pop("final"), sharded.pop("final")
+    diff = [n for n in final if not torch.equal(got[n], final[n])]
+    nparams = sum(t.numel() for t in final.values())
+    del got, final
+    same_loss = all(torch.equal(a, b) for a, b in
+                    zip(sharded["losses"], plain["losses"]))
+    same_gnorm = all(torch.equal(a, b) for a, b in
+                     zip(sharded["gnorms"], plain["gnorms"]))
+    same_slots = (len(plain["slots"]) == len(sharded["slots"]) and all(
+        torch.equal(a, b) for a, b in zip(plain["slots"], sharded["slots"])))
+    dropped = [int((~k).sum()) for k in sharded["slots"]]
+    counts, plain_counts = ([{k: v for k, v in r.items()
+                              if k not in ("wall_s", "peak_gib")}
+                             for r in run["rows"]] for run in (sharded, plain))
+    same_launches = counts == plain_counts and all(c == want for c in counts)
+    tag = "[33 family train mesh]"
+    cut = (f"depth cut {get_arch(arch).num_layers} -> {layers} layers"
+           if layers is not None else "full depth")
+    for i, (a, b) in enumerate(zip(plain["rows"], sharded["rows"])):
+        b["peak_gib"] -= held
+        say(f"{tag} {arch} step {i}: loss {float(sharded['losses'][i]):.6f} "
+            f"grad norm {float(sharded['gnorms'][i]):.6f} | mesh 1x1 "
+            f"{b['wall_s']:.3f}s peak {b['peak_gib']:.2f} GiB (without the "
+            f"{held:.2f} GiB of plain parameters held) | plain "
+            f"{a['wall_s']:.3f}s peak {a['peak_gib']:.2f} GiB | launches "
+            f"{counts[i]} (plain {plain_counts[i]}, expected {want})")
+    ok = (same_loss and same_gnorm and not diff and same_slots
+          and same_launches and all(np.isfinite(float(x))
+                                    for x in sharded["losses"]))
+    say(f"{tag} {arch} ({cfg.family}, full width, {cut}, {nparams:,} "
+        f"parameters in f32) over make_host_mesh(1, 1): losses bitwise "
+        f"{same_loss}, grad norms bitwise {same_gnorm}, final parameters "
+        f"differing {len(diff)} {diff[:5]}, launches equal "
+        f"{same_launches}"
+        + (f", MoE kept slots bitwise {same_slots} over {len(dropped)} "
+           f"router calls, dropped slots a call {dropped}" if dropped
+           else "")
+        + f" | {time.time() - t_all:.1f}s {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(
+            f"{arch} mesh path vs plain path: losses {same_loss}, grad "
+            f"norms {same_gnorm}, params {diff[:5]}, slots {same_slots}, "
+            f"launches {counts} vs {plain_counts}, expected {want}")
+    return dict(arch=arch, family=cfg.family, layers=cfg.num_layers,
+                depth_cut=layers is not None, params=nparams,
+                steps=[dict(step=i, loss=float(sharded["losses"][i]),
+                            grad_norm=float(sharded["gnorms"][i]),
+                            wall_s=b["wall_s"], peak_gib=b["peak_gib"],
+                            plain_wall_s=a["wall_s"],
+                            plain_peak_gib=a["peak_gib"])
+                       for i, (a, b) in enumerate(zip(plain["rows"],
+                                                      sharded["rows"]))],
+                held_gib=held, dropped_slots=dropped,
+                launches={k: sum(r[k] for r in counts)
+                          for k in counts[0]},
+                wall_s=time.time() - t_all)
+
+
+def phase_family_train_mesh() -> dict:
+    """Phase 33: phase 32 for the hybrid, encdec, MoE and ssm families
+    (`P33_MODELS`): each model's plain and 1 x 1 mesh runs
+    (`_family_mesh_check`) in one NCCL group of world size 1 through a
+    FileStore under build/, destroyed at the end. Returns {arch:
+    summary}."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    t_all = time.time()
+    store = tempfile.mkdtemp(dir=ROOT / "build")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(store, "store"), 1), rank=0, world_size=1)
+    out = {}
+    try:
+        mesh = mesh_lib.make_host_mesh(1, 1, "cuda")
+        for arch, layers, seed in P33_MODELS:
+            out[arch] = _family_mesh_check(arch, layers, seed, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    say(f"[33 family train mesh] {len(out)} models bitwise on the mesh path "
+        f"| {time.time() - t_all:.1f}s")
+    return out
+
+
 def _tensors(x):
     if torch.is_tensor(x):
         yield x
@@ -6561,6 +6732,8 @@ def main(argv=None) -> int:
     g3t, g3t_fwd_rows, g3t_bwd_rows = phase_gemma3_train(args.profile)
     mt = phase_lm_train_mesh(lt, args.profile)
     mtc = mt["launches"]
+    fm = phase_family_train_mesh()
+    fmc = {k: sum(r["launches"][k] for r in fm.values()) for k in mtc}
     rows += d256_fwd + vl_fwd_rows + g3t_fwd_rows
     dec_rows += d256_dec + g3_dec
     pg_rows += d256_pg + g3_pg
@@ -6639,7 +6812,8 @@ def main(argv=None) -> int:
                 "danube_prefill": dnc["tc_sla_fwd"],
                 "vlm_train": vlc["tc_sla_fwd"],
                 "gemma3_train": g3tc["tc_sla_fwd"],
-                "lm_train_mesh": mtc["tc_sla_fwd"]}
+                "lm_train_mesh": mtc["tc_sla_fwd"],
+                "family_train_mesh": fmc["tc_sla_fwd"]}
     # the other paths compute in bf16: every launch there is a tensor-core
     # one (phases 9, 12, 15, 17 check), so none is on the split route
     split_paths = {"serve": main_run["split_launches"],
@@ -6653,7 +6827,8 @@ def main(argv=None) -> int:
                    "gemma3_prefill": g3c["split_sla_fwd"],
                    "gemma3_paged_prefill": g3pc["split_sla_fwd"],
                    "danube_prefill": dnc["split_sla_fwd"], "vlm_train": 0,
-                   "gemma3_train": 0, "lm_train_mesh": 0}
+                   "gemma3_train": 0, "lm_train_mesh": 0,
+                   "family_train_mesh": 0}
     kernels = [{
         "name": "sla_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sla_fwd_split.cu",
@@ -6666,7 +6841,8 @@ def main(argv=None) -> int:
                      + hy["prefill_launches"] + edc["sla_fwd"]
                      + ed["prefill_launches"] + g3c["sla_fwd"]
                      + g3pc["sla_fwd"] + dnc["sla_fwd"] + vlc["sla_fwd"]
-                     + g3tc["sla_fwd"] + mtc["sla_fwd"]),
+                     + g3tc["sla_fwd"] + mtc["sla_fwd"]
+                     + fmc["sla_fwd"]),
         "launches_by_path": {"serve": main_run["launches"],
                              "serve_plan_cache": pc_launches["launches"],
                              "train": train["launches"]["sla_fwd"],
@@ -6686,7 +6862,8 @@ def main(argv=None) -> int:
                              "danube_prefill": dnc["sla_fwd"],
                              "vlm_train": vlc["sla_fwd"],
                              "gemma3_train": g3tc["sla_fwd"],
-                             "lm_train_mesh": mtc["sla_fwd"]},
+                             "lm_train_mesh": mtc["sla_fwd"],
+                             "family_train_mesh": fmc["sla_fwd"]},
         **ran_at("sla_fwd"),
         "arch_head_dims": arch_head_dims(
             "wan2_1_1_3b", "lightningdit_1b", LM_ARCH, MOE_ARCH, HY_ARCH,
@@ -6775,14 +6952,16 @@ def main(argv=None) -> int:
             "source": "src/repro_torch/kernels/csrc/sla_bwd.cu",
             "replaces": f"src/repro/kernels/sla_bwd.py:{line}",
             "launches": (train["launches"][name] + ltc[name] + hyc[name]
-                         + edc[name] + vlc[name] + g3tc[name] + mtc[name]),
+                         + edc[name] + vlc[name] + g3tc[name] + mtc[name]
+                         + fmc[name]),
             "launches_by_path": {"train": train["launches"][name],
                                  "lm_train": ltc[name],
                                  "hybrid_train": hyc[name],
                                  "encdec_train": edc[name],
                                  "vlm_train": vlc[name],
                                  "gemma3_train": g3tc[name],
-                                 "lm_train_mesh": mtc[name]},
+                                 "lm_train_mesh": mtc[name],
+                                 "family_train_mesh": fmc[name]},
             **ran_at(name),
             "arch_head_dims": arch_head_dims(
                 "wan2_1_1_3b", "lightningdit_1b", LM_ARCH, HY_ARCH, ED_ARCH,
@@ -6810,7 +6989,8 @@ def main(argv=None) -> int:
             "tc_launches": (train["launches"][f"tc_{name}"]
                             + ltc[f"tc_{name}"] + hyc[f"tc_{name}"]
                             + edc[f"tc_{name}"] + vlc[f"tc_{name}"]
-                            + g3tc[f"tc_{name}"] + mtc[f"tc_{name}"]),
+                            + g3tc[f"tc_{name}"] + mtc[f"tc_{name}"]
+                            + fmc[f"tc_{name}"]),
             "ms_bf16": tc["ms"], "plain_ms_bf16": tc["plain_ms"],
             "bound_ms_bf16": tc["bound_ms"],
             "bound_by_bf16": tc["bound_by"],
@@ -6911,7 +7091,8 @@ def main(argv=None) -> int:
         f"admission {pc} | decode_chunk {dchunk} | disagg {dg} | lm train "
         f"{lt} | moe serve {moe} | hybrid {hy} | encdec {ed} | ssm {rw} | "
         f"gemma3 serve {g3} | danube serve {dn} | vlm train {vl} | gemma3 "
-        f"train {g3t} | lm train mesh {mt} | total "
+        f"train {g3t} | lm train mesh {mt} | family train mesh {fm} | "
+        f"total "
         f"{time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -23,7 +23,16 @@ without sequence parallelism, so `shard_residual` is the identity).
     row-parallel matmul (all-reduce over "model"; identity backward).
   * `batch_rows`, `seq_rows`, `gather_seq` and `sum_data` give the data
     axis's slices, the whole sequence for attention under context
-    parallelism, and the loss's sums over the data ranks.
+    parallelism, and the loss's sums over the data ranks;
+    `gather_tokens` the global (B, S) order of a per-token tensor (the
+    MoE router's capacity decisions).
+  * `halo` and `carry_in` pass the recurrent families' state along the
+    sequence under context parallelism: the previous rank's last rows (a
+    conv tail, a token shift) and the scan state entering this rank.
+  * `sum_model` sums a statistic whose width is split over "model" (the
+    Mamba2 output norm's sum of squares).
+  * `ep_gather` and `shard_expert_buf` give the MoE layer this rank's
+    experts (expert parallelism over "model").
   * `vocab_shard` and `vocab_lookup` read a table stored with its
     vocabulary over "model" (`embed`, `unembed`) as this rank's rows
     only: the token lookup and the loss's logits are vocab-parallel.
@@ -169,6 +178,41 @@ class _FromTP(torch.autograd.Function):
         return g, None
 
 
+class _SumBoth(torch.autograd.Function):
+    """All-reduce forward and backward: a sum over ranks that each use
+    for their own part (the gradient of each rank's share is every
+    rank's gradient of the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _Halo(torch.autograd.Function):
+    """The previous rank's `tail` (zeros on rank 0); the backward sends
+    each rank's gradient to the rank whose tail it read."""
+
+    @staticmethod
+    def forward(ctx, tail, group, rank, size):
+        ctx.group, ctx.rank, ctx.size = group, rank, size
+        parts = [torch.empty_like(tail) for _ in range(size)]
+        dist.all_gather(parts, tail.contiguous(), group=group)
+        return parts[rank - 1] if rank else torch.zeros_like(tail)
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = [torch.empty_like(g) for _ in range(ctx.size)]
+        dist.all_gather(parts, g.contiguous(), group=ctx.group)
+        nxt = ctx.rank + 1
+        return (parts[nxt] if nxt < ctx.size else torch.zeros_like(g),
+                None, None, None)
+
+
 class _GatherSeq(torch.autograd.Function):
     """All-gather along `dim` over the data group; the backward sums every
     rank's gradient of the whole and keeps this rank's rows."""
@@ -263,6 +307,85 @@ def gather_seq(x: torch.Tensor, dim: int) -> torch.Tensor:
     if lay is None or lay.seq == 1:
         return x
     return _GatherSeq.apply(x, dim, lay.data_group, lay.data_rank, lay.seq)
+
+
+def gather_tokens(t: torch.Tensor) -> torch.Tensor:
+    """A per-token tensor (B_loc, S_loc, ...) of this rank as the global
+    (B, S, ...): every data rank's rows in the global (b, s) order, its
+    batch rows under data parallelism, its sequence rows under context
+    parallelism; `t` without a mesh. `local_tokens` takes this rank's
+    part back. The forward is an all-gather over "data" (every rank
+    calls it, a data axis of 1 included); for integer data (expert ids)."""
+    lay = layout()
+    if lay is None or lay.data_group is None:
+        return t
+    return _GatherSeq.apply(t, 1 if lay.cp else 0, lay.data_group,
+                            lay.data_rank, lay.data)
+
+
+def local_tokens(t: torch.Tensor) -> torch.Tensor:
+    """This rank's part of a global (B, S, ...) tensor (`gather_tokens`'s
+    inverse): its batch rows, then its sequence rows."""
+    return seq_rows(batch_rows(t))
+
+
+def halo(x: torch.Tensor, rows: int) -> Optional[torch.Tensor]:
+    """Under context parallelism, the previous data rank's last `rows`
+    rows of x (B, S_loc, ...) along dim 1, zeros on rank 0: what a causal
+    conv's tail or a token shift reads across the rank boundary. Its
+    gradient goes back to the rank that holds those rows. None otherwise
+    (the sequence starts here: the caller's zeros)."""
+    lay = layout()
+    if lay is None or lay.seq == 1:
+        return None
+    if x.shape[1] < rows:
+        raise ValueError(f"a halo of {rows} rows needs as many rows on "
+                         f"each rank (got {x.shape[1]})")
+    return _Halo.apply(x[:, x.shape[1] - rows:], lay.data_group,
+                       lay.data_rank, lay.seq)
+
+
+def carry_in(end_state: torch.Tensor, log_decay: torch.Tensor
+             ) -> torch.Tensor:
+    """The decayed scan's state entering this rank's first row under
+    context parallelism. Every rank passes the state its rows leave from
+    a zero start (B, H, Dk, Dv) and their total log decay (B, H, Dk) per
+    key column, or (B, H) per head; both are all-gathered over "data" and
+    folded in rank order: s <- exp(decay_j) s + end_j for each rank j
+    before this one (zeros on rank 0). Differentiable: each rank's
+    gradient of its (end state, decay) sums over the ranks after it.
+    Every rank folds the states entering every rank and keeps its own,
+    so each one's backward reaches the gathers' (their all-reduces are
+    collectives: rank 0 must join them too)."""
+    lay = layout()
+    ends = _GatherSeq.apply(end_state[None], 0, lay.data_group,
+                            lay.data_rank, lay.seq)
+    decays = _GatherSeq.apply(log_decay.float()[None], 0, lay.data_group,
+                              lay.data_rank, lay.seq)
+    s = torch.zeros_like(end_state)
+    entering = [s]
+    for j in range(lay.seq - 1):
+        d = torch.exp(decays[j])
+        s = d.reshape(d.shape + (1,) * (s.ndim - d.ndim)) * s + ends[j]
+        entering.append(s)
+    return torch.stack(entering)[lay.data_rank]
+
+
+def seq_parallel() -> bool:
+    """Whether the sequence is split over "data" (context parallelism)."""
+    lay = layout()
+    return lay is not None and lay.seq > 1
+
+
+def sum_model(x: torch.Tensor) -> torch.Tensor:
+    """Sum over "model" of a statistic each rank takes of its own columns
+    (a norm's sum of squares over a width split by heads), used by every
+    rank for its own columns: all-reduced forward and backward. The
+    identity without a mesh."""
+    lay = layout()
+    if lay is None or lay.model_group is None:
+        return x
+    return _SumBoth.apply(x, lay.model_group)
 
 
 def model_rank_size() -> tuple:
@@ -375,18 +498,19 @@ def vocab_lookup(tokens: torch.Tensor, w) -> torch.Tensor:
 
 def ep_gather(w):
     """MoE expert weights (E, d_in, d_out), stored FSDP-sharded on d_in:
-    this rank's experts gathered over the data axes (the reference's
-    experts-only sharding before the expert matmul). The MoE model does
-    not call it yet: expert parallelism is ROADMAP.md item 18."""
+    this "model" rank's experts gathered over the data axes (the
+    reference's experts-only sharding before the expert matmul); their
+    gradient reduce-scattered back. `models/moe.py` runs its expert
+    matmuls on them."""
     if getattr(w, "ndim", 0) != 3:
         return w
     return fsdp_gather(w, "row")
 
 
 def shard_expert_buf(x: torch.Tensor) -> torch.Tensor:
-    """This rank's experts' rows of an (E, capacity, d) dispatch buffer
-    (the reference constrains it to expert sharding). Not called by the
-    MoE model yet (ROADMAP.md item 18)."""
+    """This "model" rank's experts' rows of an (E, capacity, d) dispatch
+    buffer (the reference constrains it to expert sharding): the rows
+    its expert matmuls read in `models/moe.py`."""
     rank, size = model_rank_size()
     if x.ndim != 3 or size == 1 or x.shape[0] % size:
         return x

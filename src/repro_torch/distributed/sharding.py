@@ -39,9 +39,13 @@ input gradient is all-reduced in the backward. The vocabulary tables
 (`embed`, `unembed`) are read as each "model" rank's rows only
 (`ctx.vocab_shard`): the token lookup sums its rows over "model", and
 the loss reduces the logits' logsumexp and target logit over "model",
-so no rank builds the full-vocabulary logits. Execution covers the
-dense, VLM and DiT families (`MESH_FAMILIES`); the rules, being data,
-cover every family.
+so no rank builds the full-vocabulary logits. Execution covers every
+family of the registry (`MESH_FAMILIES`): the MoE layer runs its experts
+over "model" (expert parallelism, `models/moe.py`), the recurrent
+families their heads, and their scans' state crosses the data ranks
+under context parallelism (`ctx.halo`, `ctx.carry_in`).
+`check_mesh_family` refuses a "model" axis that does not divide what a
+family splits over it.
 """
 from __future__ import annotations
 
@@ -90,7 +94,7 @@ _PARAM_RULES_3D = {
 }
 
 # the families whose models run sharded over a mesh of more than one rank
-MESH_FAMILIES = ("dense", "vlm", "dit")
+MESH_FAMILIES = ("dense", "vlm", "dit", "moe", "ssm", "hybrid", "encdec")
 
 
 def param_spec(path: str, ndim: int) -> Spec:
@@ -311,11 +315,30 @@ def cache_shardings(mesh, cache_specs, global_batch: int
             for name, leaf in tree_leaves(cache_specs)}
 
 
+def _model_split(cfg) -> Dict[str, int]:
+    """{name: size} of what a family splits over "model": its attention
+    heads, its recurrence's heads, its experts and its FFN widths."""
+    if cfg.family == "ssm":
+        return {"rwkv6._heads": cfg.ssm_heads or cfg.num_heads,
+                "d_ff": cfg.d_ff}
+    out = {"num_heads": cfg.num_heads}
+    if cfg.family == "moe":
+        out.update(num_experts=cfg.num_experts)
+        if cfg.moe_shared_expert:
+            out.update(moe_d_ff=cfg.moe_d_ff)
+        return out
+    if cfg.family == "hybrid":
+        out.update(ssm_heads=cfg.ssm_heads)
+    out.update(d_ff=cfg.d_ff)
+    return out
+
+
 def check_mesh_family(cfg, mesh) -> None:
-    """Refuse to run a family outside `MESH_FAMILIES` over a mesh of more
-    than one rank, and a tensor-parallel degree that does not divide the
-    heads and the FFN width (the port runs a layer's heads and FFN columns
-    local to each "model" rank)."""
+    """Refuse a family outside `MESH_FAMILIES`, or a tensor-parallel
+    degree that does not divide what the family splits over "model"
+    (`_model_split`: the port runs a layer's heads, experts and FFN
+    columns local to each "model" rank), over a mesh of more than one
+    rank. Nothing falls back to replicated compute."""
     sizes = axis_sizes(mesh)
     world = 1
     for s in sizes.values():
@@ -324,17 +347,15 @@ def check_mesh_family(cfg, mesh) -> None:
         return
     if cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
-            f"sharded execution of the {cfg.family!r} family over a "
-            f"{tuple(sizes.values())} mesh is not ported to repro_torch "
-            f"(ROADMAP.md queue 1, item 18: expert parallelism and the "
-            f"ssm, hybrid and encdec families); its sharding rules and "
-            f"dry-run bytes are (launch/dryrun.py)")
+            f"sharded execution of the {cfg.family!r} family is not ported "
+            f"to repro_torch")
     m = sizes.get("model", 1)
-    if cfg.num_heads % m or cfg.d_ff % m:
+    bad = {n: v for n, v in _model_split(cfg).items() if v % m}
+    if bad:
         raise NotImplementedError(
-            f"a 'model' axis of {m} must divide num_heads "
-            f"({cfg.num_heads}) and d_ff ({cfg.d_ff}) to run "
-            f"{cfg.name} tensor-parallel")
+            f"a 'model' axis of {m} must divide "
+            + ", ".join(f"{n} ({v})" for n, v in bad.items())
+            + f" to run {cfg.name} tensor-parallel")
 
 
 def full(t):

@@ -14,6 +14,10 @@ hybrid (zamba2) and encoder-decoder (whisper) families.
         --compress-grads --device cpu
     torchrun --nproc-per-node 4 -m repro_torch.launch.train \
         --arch qwen3-1.7b --smoke --steps 3 --data-mesh 2 --model-mesh 2
+    OMP_NUM_THREADS=1 PYTHONPATH=src torchrun --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch moonshot-v1-16b-a3b --smoke --steps 3 --device cpu \
+        --data-mesh 2 --model-mesh 2
 
 Counterpart of `repro.launch.train`: config -> seeded params ->
 deterministic batches (latents for a DiT, Markov-chain tokens for an LM,
@@ -43,10 +47,11 @@ its rows; the loss and the NaN guard's decision are global, so every
 rank skips together; rank 0 alone prints and writes checkpoints.
 `--compress-grads` compresses the full gradient on every rank (gathered
 from the shards, blocks as on one device) and keeps its error whole, so
-its codes are those of a one-device run on the same gradient. The dense,
-VLM and DiT families run sharded; the others raise on more than one
-rank, and run unsharded (saying so) on a world of one. Without
-WORLD_SIZE, the CLI trains on one device.
+its codes are those of a one-device run on the same gradient. Every
+family runs sharded, at every world size, one included; a "model" axis
+that does not divide what the family splits over it raises
+(`sharding.check_mesh_family`). Without WORLD_SIZE, the CLI trains on
+one device.
 """
 from __future__ import annotations
 
@@ -275,8 +280,7 @@ def main(argv=None):
 
 def _mesh(args, cfg):
     """The run's DeviceMesh under torch.distributed, else None (one
-    device). A family outside `sharding.MESH_FAMILIES` raises on more
-    than one rank and trains unsharded on a world of one."""
+    device)."""
     if not (dist.is_initialized() or "WORLD_SIZE" in os.environ):
         if args.data_mesh * args.model_mesh > 1:
             raise ValueError(
@@ -287,10 +291,6 @@ def _mesh(args, cfg):
     dev = mesh_lib.init_distributed(args.device)
     mesh = mesh_lib.make_host_mesh(args.data_mesh, args.model_mesh, dev)
     sharding.check_mesh_family(cfg, mesh)
-    if cfg.family not in sharding.MESH_FAMILIES:
-        print(f"the {cfg.family!r} family trains unsharded on this world "
-              f"of one")
-        return None
     return mesh
 
 

@@ -128,6 +128,27 @@ def local_kv_heads(t: torch.Tensor, num_heads: int, num_kv_heads: int
     return t.index_select(1, idx)
 
 
+def qkv_heads(xq: torch.Tensor, xkv: torch.Tensor, wq, wk, wv, cfg
+              ) -> tuple:
+    """q from xq (B, Sq, d) and k, v from xkv (B, Sk, d), as (B, heads,
+    S, Dh), through this "model" rank's query heads of wq and the KV
+    heads they read of wk / wv (each read by `ctx.fsdp_gather`; k and v
+    picked by `local_kv_heads`); no rope. Without a mesh, all heads."""
+    _, m = ctx.model_rank_size()
+    h, hkv, dh = cfg.num_heads // m, cfg.num_kv_heads, cfg.head_dim
+    kvk = kv_kind(hkv)
+    hk = hkv // m if kvk == "col" else hkv
+
+    def proj(x, w, kind, heads):
+        b, s, _ = x.shape
+        return (x @ ctx.fsdp_gather(w, kind).to(x.dtype)) \
+            .reshape(b, s, heads, dh).transpose(1, 2)
+
+    return (proj(xq, wq, "col", h),
+            local_kv_heads(proj(xkv, wk, kvk, hk), cfg.num_heads, hkv),
+            local_kv_heads(proj(xkv, wv, kvk, hk), cfg.num_heads, hkv))
+
+
 def attention(sla_params: Optional[dict], q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor, kind: str, sla_cfg: SLAConfig,
               window: int = 0, causal: bool = True, backend: str = "gather",
@@ -174,9 +195,11 @@ def cache_attention(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
 
 
 def routing_of(p) -> Optional[dict]:
-    """A block's learned-routing head as a dict, or None without one."""
+    """A block's learned-routing head as a dict (under a mesh, this
+    "model" rank's heads of it), or None without one."""
     routing = getattr(p, "routing", None)
-    return None if routing is None else dict(routing)
+    return None if routing is None else {
+        n: ctx.fsdp_gather(w, "row") for n, w in routing.items()}
 
 
 def output_table(params) -> torch.Tensor:

@@ -12,6 +12,16 @@ rope. Both stacks are rematerialized layer by layer in training
 its first pass and reused by the recompute, so each encoder layer plans
 once a step and runs the SLA forward twice.
 
+Under a DeviceMesh (`distributed.ctx`) both stacks are tensor-parallel
+as the dense family's layers are: the self- and cross-attention's
+`wq` / `wk` / `wv` and `xq` / `xk` / `xv` column-parallel, `wo`, `xo`,
+`mlp_wo` and `sla_proj` row-parallel, `mlp_wi` column-parallel. Under
+context parallelism the frames and the text split over "data": the
+self-attention plans and attends over the whole sequence
+(`ctx.gather_seq`), and the decoder's cross-attention reads the whole
+encoder output (its K and V gathered over "data") from this rank's text
+rows.
+
 Serving: `prefill` encodes the audio and computes every decoder layer's
 cross K/V; `decode_step` runs one text token with masked dense attention
 over the self cache and dense attention over the cross cache, writing
@@ -34,7 +44,8 @@ from repro_torch.distributed import ctx
 from repro_torch.models.common import (attention, cache_attention,
                                        chunked_softmax_xent, dense_init,
                                        embed_init, logits_from_hidden,
-                                       rms_norm, rope, routing_of)
+                                       qkv_heads, rms_norm, rope,
+                                       routing_of)
 
 
 class EncDecBlock(nn.Module):
@@ -108,12 +119,20 @@ def _mha(p, pre: str, x, kv_x, cfg: ArchConfig, causal: bool, kind: str,
     """Attention sub-block: q from x, k and v from kv_x through the
     `pre`-prefixed weights ("w" self, "x" cross). An SLA call plans on
     its first pass and keeps the plan in `kept` for a rematerializing
-    recompute."""
-    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    recompute. Under a mesh, this "model" rank's heads; a cross
+    attention's `kv_x` has entered the tensor-parallel region already
+    (`decode`: once for every layer). Under context parallelism k and v
+    are gathered to the whole sequence, and so is q for self-attention
+    (`positions`: the whole sequence's), of whose output this rank keeps
+    its rows."""
     b, s, _ = x.shape
-    q = _proj(x, getattr(p, pre + "q"), h, dh)
-    k = _proj(kv_x, getattr(p, pre + "k"), hkv, dh)
-    v = _proj(kv_x, getattr(p, pre + "v"), hkv, dh)
+    self_attn = kv_x is x
+    x = ctx.to_tp(x)
+    q, k, v = qkv_heads(x, x if self_attn else kv_x, getattr(p, pre + "q"),
+                        getattr(p, pre + "k"), getattr(p, pre + "v"), cfg)
+    k, v = ctx.gather_seq(k, 2), ctx.gather_seq(v, 2)
+    if self_attn:
+        q = ctx.gather_seq(q, 2)
     if positions is not None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, torch.arange(k.shape[2], device=k.device),
@@ -132,72 +151,93 @@ def _mha(p, pre: str, x, kv_x, cfg: ArchConfig, causal: bool, kind: str,
                     kept["plan"] = plan_lib.plan_attention(
                         q, k, sla, routing=routing)
             plan = kept["plan"]
-        o = attention({"proj": p.sla_proj}, q, k, v, "sla", cfg.sla,
-                      causal=causal, backend=backend, plan=plan,
-                      routing=routing)
+        o = attention({"proj": ctx.fsdp_gather(p.sla_proj, "row")}, q, k,
+                      v, "sla", cfg.sla, causal=causal, backend=backend,
+                      plan=plan, routing=routing)
     else:
         o = attention(None, q, k, v, kind, cfg.sla, causal=causal)
-    o = o.transpose(1, 2).reshape(b, s, h * dh)
-    return o @ getattr(p, pre + "o").to(x.dtype)
+    if self_attn:
+        o = ctx.seq_rows(o, dim=2)
+    o = o.transpose(1, 2).reshape(b, s, -1)
+    return ctx.from_tp(o @ ctx.fsdp_gather(getattr(p, pre + "o"), "row")
+                       .to(x.dtype))
 
 
 def _mlp(p, x):
-    g, u = (x @ p.mlp_wi.to(x.dtype)).chunk(2, dim=-1)
-    return (F.silu(g) * u) @ p.mlp_wo.to(x.dtype)
+    g, u = (ctx.to_tp(x) @ ctx.fsdp_gather(p.mlp_wi, "col", chunks=2)
+            .to(x.dtype)).chunk(2, dim=-1)
+    return ctx.from_tp((F.silu(g) * u)
+                       @ ctx.fsdp_gather(p.mlp_wo, "row").to(x.dtype))
+
+
+def _norm(x, w):
+    return rms_norm(x, ctx.fsdp_gather(w, "rep"))
 
 
 def encode(params, cfg: ArchConfig, audio_embeds: torch.Tensor,
            compute_dtype=torch.bfloat16, backend: str = "gather"
            ) -> torch.Tensor:
-    """audio_embeds: (B, T, d) stub frame embeddings -> encoder states."""
-    x = audio_embeds.to(compute_dtype)
-    b, t = x.shape[:2]
+    """audio_embeds: (B, T, d) stub frame embeddings -> encoder states
+    (under a mesh, this rank's rows of them)."""
+    x = ctx.seq_rows(ctx.batch_rows(audio_embeds)).to(compute_dtype)
+    b, t = x.shape[0], audio_embeds.shape[1]
     pos = torch.arange(t, device=x.device)[None].expand(b, t)
     kind = "sla" if cfg.attention_kind == "sla" else "full"
 
     def body(x, p, kept):
-        xn = rms_norm(x, p.ln1)
+        xn = _norm(x, p.ln1)
         x = ctx.shard_residual(
             x + _mha(p, "w", xn, xn, cfg, False, kind, pos, backend, kept))
-        return ctx.shard_residual(x + _mlp(p, rms_norm(x, p.ln2)))
+        return ctx.shard_residual(x + _mlp(p, _norm(x, p.ln2)))
 
     for p in params.enc:
         x = ctx.maybe_remat(functools.partial(body, p=p, kept={}))(x)
-    return rms_norm(x, params.ln_enc)
+    return _norm(x, params.ln_enc)
 
 
 def decode(params, cfg: ArchConfig, tokens: torch.Tensor,
            enc_states: torch.Tensor, compute_dtype=torch.bfloat16,
            backend: str = "gather") -> torch.Tensor:
-    """Teacher-forced decoder over text tokens (B, S) -> hidden states."""
-    x = F.embedding(tokens, params.embed).to(compute_dtype)
+    """Teacher-forced decoder over text tokens (B, S) -> hidden states.
+    Under a mesh `tokens` is the global batch and `enc_states` this
+    rank's rows of the encoder output; the hidden states are this rank's
+    rows."""
+    x = ctx.vocab_lookup(ctx.batch_rows(tokens), params.embed) \
+        .to(compute_dtype)
     b, s = x.shape[:2]
+    x = ctx.seq_rows(x)
     pos = torch.arange(s, device=x.device)[None].expand(b, s)
-    enc = enc_states.to(compute_dtype)
+    # the cross-attention's K / V input, each "model" rank's share of its
+    # gradient from its own heads: summed over "model" once, after every
+    # layer added its own (as one device sums them)
+    enc = ctx.to_tp(enc_states.to(compute_dtype))
 
     def body(x, p):
-        xn = rms_norm(x, p.ln1)
+        xn = _norm(x, p.ln1)
         x = ctx.shard_residual(
             x + _mha(p, "w", xn, xn, cfg, True, "full", pos, backend))
         x = ctx.shard_residual(
-            x + _mha(p, "x", rms_norm(x, p.ln_x), enc, cfg, False, "full",
+            x + _mha(p, "x", _norm(x, p.ln_x), enc, cfg, False, "full",
                      None, backend))
-        return ctx.shard_residual(x + _mlp(p, rms_norm(x, p.ln2)))
+        return ctx.shard_residual(x + _mlp(p, _norm(x, p.ln2)))
 
     for p in params.dec:
         x = ctx.maybe_remat(functools.partial(body, p=p))(x)
-    return rms_norm(x, params.ln_f)
+    return _norm(x, params.ln_f)
 
 
 def loss_fn(params, cfg: ArchConfig, batch: dict,
             compute_dtype=torch.bfloat16, backend: str = "gather"
             ) -> torch.Tensor:
     """batch: audio_embeds (B, T, d), tokens (B, S), targets (B, S);
-    cross-entropy over the tied `embed`."""
+    cross-entropy over the tied `embed`. Under a mesh the global batch,
+    each rank scoring its own rows."""
     enc = encode(params, cfg, batch["audio_embeds"], compute_dtype, backend)
     x = decode(params, cfg, batch["tokens"], enc, compute_dtype, backend)
-    return chunked_softmax_xent(x, params.embed, batch["targets"],
-                                batch.get("mask"))
+    mask = batch.get("mask")
+    return chunked_softmax_xent(
+        x, params.embed, ctx.local_tokens(batch["targets"]),
+        None if mask is None else ctx.local_tokens(mask))
 
 
 # --------------------------------------------------------------------------
@@ -226,6 +266,7 @@ def prefill(params, cfg: ArchConfig, batch: dict,
             dec_len: Optional[int] = None):
     """Encode the audio and compute every decoder layer's cross K/V.
     Returns (encoder states (B, T, d), cache)."""
+    ctx.require_unsharded("serving (caches)")
     enc = encode(params, cfg, batch["audio_embeds"], compute_dtype, backend)
     b, t, _ = enc.shape
     hkv, dh = cfg.num_kv_heads, cfg.head_dim

@@ -11,6 +11,14 @@ of its segment scan); the shared block is not, so a step plans and runs
 its SLA forward once per application. Decode runs masked dense attention
 over the block's KV cache, as the reference.
 
+Under a DeviceMesh (`distributed.ctx`) the Mamba2 layers run their heads
+over "model" (`models/mamba2.py`) and the shared block is tensor-parallel
+as the transformer's layers are (`wq` / `wk` / `wv` and `mlp_wi`
+column-parallel, `wo`, `mlp_wo` and `sla_proj` row-parallel); under
+context parallelism its attention plans and attends over the whole
+sequence (`ctx.gather_seq`), and the Mamba2 layers pass their conv tail
+and scan state along it.
+
 The parameters live in `nn.Module`s in the reference's layout (`x @ W`);
 the reference's segment scans are Python loops. `decode_step` writes the
 new token's state, conv tail and K/V into the cache IN PLACE (the
@@ -34,7 +42,8 @@ from repro_torch.models import mamba2
 from repro_torch.models.common import (attention, cache_attention,
                                        chunked_softmax_xent, dense_init,
                                        embed_init, logits_from_hidden,
-                                       rms_norm, rope, routing_of)
+                                       qkv_heads, rms_norm, rope,
+                                       routing_of)
 
 
 class SharedAttn(nn.Module):
@@ -98,13 +107,12 @@ def _shared_block(p, x, cfg: ArchConfig, positions, backend,
                   kv_cache=None, pos=None):
     """The shared SLA-attention transformer block. Returns (x, (k, v)):
     the K/V this call computed (prefill), or the cache it wrote into
-    (decode, `kv_cache` given)."""
+    (decode, `kv_cache` given). Under a mesh, this "model" rank's heads;
+    under context parallelism q, k and v are gathered to the whole
+    sequence and this rank keeps its rows of the output."""
     b, s, _ = x.shape
-    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    xn = rms_norm(x, p.ln1)
-    q = (xn @ p.wq.to(x.dtype)).reshape(b, s, h, dh).transpose(1, 2)
-    k = (xn @ p.wk.to(x.dtype)).reshape(b, s, hkv, dh).transpose(1, 2)
-    v = (xn @ p.wv.to(x.dtype)).reshape(b, s, hkv, dh).transpose(1, 2)
+    xn = ctx.to_tp(rms_norm(x, ctx.fsdp_gather(p.ln1, "rep")))
+    q, k, v = qkv_heads(xn, xn, p.wq, p.wk, p.wv, cfg)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if kv_cache is not None:
@@ -114,23 +122,29 @@ def _shared_block(p, x, cfg: ArchConfig, positions, backend,
         new_cache = (kc, vc)
         o = cache_attention(q, kc, vc, pos)
     else:
+        q, k, v = (ctx.gather_seq(t, 2) for t in (q, k, v))
         routing = routing_of(p)
         sla = cfg.sla.replace(causal=True)
         plan = (None if sla.mode in ("full", "linear_only")
                 else plan_lib.plan_attention(q, k, sla, routing=routing))
-        o = attention({"proj": p.sla_proj}, q, k, v, "sla", cfg.sla,
-                      causal=True, backend=backend, plan=plan,
-                      routing=routing)
+        o = attention({"proj": ctx.fsdp_gather(p.sla_proj, "row")}, q, k,
+                      v, "sla", cfg.sla, causal=True, backend=backend,
+                      plan=plan, routing=routing)
+        o = ctx.seq_rows(o, dim=2)
         new_cache = (k, v)
-    o = o.transpose(1, 2).reshape(b, s, h * dh)
-    x = x + o @ p.wo.to(x.dtype)
-    g, u = (rms_norm(x, p.ln2) @ p.mlp_wi.to(x.dtype)).chunk(2, dim=-1)
-    x = x + (F.silu(g) * u) @ p.mlp_wo.to(x.dtype)
+    o = o.transpose(1, 2).reshape(b, s, -1)
+    x = x + ctx.from_tp(o @ ctx.fsdp_gather(p.wo, "row").to(x.dtype))
+    xn2 = ctx.to_tp(rms_norm(x, ctx.fsdp_gather(p.ln2, "rep")))
+    g, u = (xn2 @ ctx.fsdp_gather(p.mlp_wi, "col", chunks=2)
+            .to(x.dtype)).chunk(2, dim=-1)
+    x = x + ctx.from_tp((F.silu(g) * u)
+                        @ ctx.fsdp_gather(p.mlp_wo, "row").to(x.dtype))
     return x, new_cache
 
 
 def _mamba_layer(x, p, cfg):
-    out, (st, tail) = mamba2.mamba_apply(p, rms_norm(x, p.ln), cfg)
+    out, (st, tail) = mamba2.mamba_apply(
+        p, rms_norm(x, ctx.fsdp_gather(p.ln, "rep")), cfg)
     return ctx.shard_residual(x + out), st, tail
 
 
@@ -139,10 +153,19 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
             return_cache: bool = False):
     """Hidden states (B, S, d) and a zero aux loss; with `return_cache`
     also the decode cache: per-layer SSM states and conv tails, and the
-    shared block's K/V at each application (nseg, B, Hkv, S, Dh)."""
-    x = F.embedding(tokens, params.embed).to(compute_dtype)
+    shared block's K/V at each application (nseg, B, Hkv, S, Dh). Under
+    `activation_sharding(mesh, ...)` the batch is the global one and this
+    rank keeps its rows of it (or of the sequence, with global rope
+    positions); the hidden states returned are those rows."""
+    if return_cache:
+        ctx.require_unsharded("serving (caches)")
+    tokens = ctx.batch_rows(tokens)
+    x = ctx.vocab_lookup(tokens, params.embed).to(compute_dtype)
+    start, _ = ctx.seq_span(x.shape[1])
+    x = ctx.seq_rows(x)
     b, s = x.shape[:2]
-    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    positions = torch.arange(start, start + s,
+                             device=x.device)[None, :].expand(b, s)
     states, tails, ks, vs = [], [], [], []
     layer = ctx.maybe_remat(lambda x, p: _mamba_layer(x, p, cfg))
     start = 0
@@ -160,7 +183,7 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
             vs.append(v)
         del k, v
         start += seg
-    x = rms_norm(x, params.ln_f)
+    x = rms_norm(x, ctx.fsdp_gather(params.ln_f, "rep"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_cache:
         cache = {"ssm": torch.stack(states), "conv": torch.stack(tails),
@@ -173,10 +196,13 @@ def loss_fn(params, cfg: ArchConfig, batch: dict,
             compute_dtype=torch.bfloat16, backend: str = "gather"
             ) -> torch.Tensor:
     """Next-token cross-entropy over the tied `embed`. batch: `tokens`,
-    `targets` (B, S) and an optional `mask`."""
+    `targets` (B, S) and an optional `mask`; under a mesh the global
+    batch, each rank scoring its own rows."""
     x, _ = forward(params, cfg, batch["tokens"], compute_dtype, backend)
-    return chunked_softmax_xent(x, params.embed, batch["targets"],
-                                batch.get("mask"))
+    mask = batch.get("mask")
+    return chunked_softmax_xent(
+        x, params.embed, ctx.local_tokens(batch["targets"]),
+        None if mask is None else ctx.local_tokens(mask))
 
 
 def make_cache(cfg: ArchConfig, batch: int, max_len: int,

@@ -25,12 +25,20 @@ whole layers (`distributed.ctx.maybe_remat`), which bounds the saved pair
 tensors to one layer's: at full zamba2-1.2b width (B 1, H 64, N 4096, C
 64) a layer's scalar-decay (C, C) weights are 64 MiB in f32, so per-chunk
 checkpoints would save little and cost a launch sequence per chunk.
+
+Under context parallelism (the sequence split over the "data" ranks of a
+`distributed.ctx` mesh) a scan from no given state runs twice: from zero,
+which gives the state this rank's rows leave and their total log decay,
+then from the state entering its first row (`ctx.carry_in` folds every
+earlier rank's pair). Exact in exact arithmetic.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.distributed import ctx
 
 # the most pair-tensor elements (B * H * chunks * C * C * Dk) a group of
 # chunks of the per-channel-decay path builds at once: 512 MiB in f32
@@ -110,9 +118,16 @@ def decayed_la_chunked(q, k, v, logw, u: Optional[torch.Tensor] = None,
     matrix. The chunk is `chunk_size(N, chunk)`. With bf16 or f16 `v`
     the per-channel path rounds its (C, C) matrix and v to that dtype for
     the AV product (f32 accumulation), as the reference; the scalar path
-    stays in f32."""
+    stays in f32. Under context parallelism with `s0` None, the scan
+    starts from the state entering this rank's rows (module docstring)."""
     b, h, n, dk = q.shape
     dv = v.shape[-1]
+    if s0 is None and ctx.seq_parallel():
+        zero = torch.zeros((b, h, dk, dv), dtype=torch.float32,
+                           device=q.device)
+        _, end = decayed_la_chunked(q, k, v, logw, u, inclusive, chunk,
+                                    zero, scalar_decay)
+        s0 = ctx.carry_in(end, logw.float().sum(dim=2))
     in_dtype = (v.dtype if v.dtype in (torch.bfloat16, torch.float16)
                 else torch.float32)
     chunk = chunk_size(n, chunk)

@@ -9,6 +9,18 @@ masked-matmul path (`linear_scan.decayed_la_chunked`, scalar decay),
 or one `decayed_la_step` for a single token with a state. The casts
 follow the reference's: dt, its softplus and the decay in f32, the
 recurrence in f32, y rounded to the compute dtype before the norm.
+
+Under a DeviceMesh (`distributed.ctx`) the heads split over "model":
+each rank takes its heads' z, x and dt columns of the packed in-projection
+and all of B and C (one group, shared by the heads), the same channels of
+the conv and its heads of `a_log`, `dt_bias`, `d_skip` and `out_norm`.
+Those weights are read whole and sliced (`fsdp_gather` kind "tp": their
+gradients sum over "model"). The output norm's mean of squares over the
+whole d_inner sums over "model" (`ctx.sum_model`); `out_proj` is
+row-parallel. Under context parallelism the conv's tail is the previous
+rank's last K - 1 inputs (`ctx.halo`) and the scan starts from the state
+entering this rank (`linear_scan`). Without a mesh the slices are the
+whole tensors.
 """
 from __future__ import annotations
 
@@ -19,7 +31,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.distributed import ctx
+from repro_torch.models.common import dense_init
 from repro_torch.models.linear_scan import (decayed_la_chunked,
                                             decayed_la_step)
 
@@ -74,25 +87,57 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor,
     return out, xp[:, -(k - 1):]
 
 
+def _cols(t: torch.Tensor, spans) -> torch.Tensor:
+    """The (start, width) column spans of t's last dim, concatenated."""
+    return torch.cat([t.narrow(-1, a, w) for a, w in spans], dim=-1)
+
+
+def _split_rms_norm(y: torch.Tensor, w: torch.Tensor, width: int,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """`common.rms_norm` over a last dim of `width` columns of which y
+    holds this "model" rank's: the sum of squares is summed over
+    "model"."""
+    y32 = y.float()
+    var = ctx.sum_model((y32 * y32).sum(dim=-1, keepdim=True)) / width
+    r = torch.rsqrt(var + eps)
+    return y * r.to(y.dtype) * (1.0 + w.float()).to(y.dtype)
+
+
 def mamba_apply(p, x: torch.Tensor, cfg: ArchConfig,
                 conv_tail: Optional[torch.Tensor] = None,
                 state: Optional[torch.Tensor] = None):
     """x: (B, S, d) -> (out, (new_state (B, H, N, P) f32, new conv tail)).
     With S == 1 and a state, one recurrence step; otherwise the chunked
-    form from `state` (zeros without one)."""
+    form from `state` (zeros without one). Under a mesh, this "model"
+    rank's heads (module docstring): the state and the tail are its
+    heads' and channels'."""
     b, s, _ = x.shape
-    h, pd, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    d_inner = h * pd
-    zxbcdt = x @ p.in_proj.to(x.dtype)
-    z, xc, bb, cc, dt = torch.split(zxbcdt, [d_inner, d_inner, n, n, h],
-                                    dim=-1)
-    conv_out, tail = causal_conv(torch.cat([xc, bb, cc], dim=-1), p.conv,
-                                 conv_tail)
+    rank, m = ctx.model_rank_size()
+    hh, pd, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    d_inner = hh * pd
+    h = hh // m
+    di = h * pd
+    # this rank's z, x, B, C, dt columns of the packed projection
+    spans = [(rank * di, di), (d_inner + rank * di, di), (2 * d_inner, 2 * n),
+             (2 * d_inner + 2 * n + rank * h, h)]
+    x = ctx.to_tp(x)
+    w_in = _cols(ctx.fsdp_gather(p.in_proj, "tp"), spans)
+    zxbcdt = x @ w_in.to(x.dtype)
+    z, xc, bb, cc, dt = torch.split(zxbcdt, [di, di, n, n, h], dim=-1)
+    conv_w = _cols(ctx.fsdp_gather(p.conv, "tp"),
+                   [(rank * di, di), (d_inner, 2 * n)])
+    xbc = torch.cat([xc, bb, cc], dim=-1)
+    if conv_tail is None:
+        conv_tail = ctx.halo(xbc, conv_w.shape[0] - 1)
+    conv_out, tail = causal_conv(xbc, conv_w, conv_tail)
     conv_out = F.silu(conv_out)
-    xc, bb, cc = torch.split(conv_out, [d_inner, n, n], dim=-1)
+    xc, bb, cc = torch.split(conv_out, [di, n, n], dim=-1)
 
-    dt_soft = F.softplus(dt.float() + p.dt_bias[None, None, :])  # (B,S,H)
-    loga = -dt_soft * torch.exp(p.a_log)[None, None, :]
+    def heads(w):
+        return ctx.fsdp_gather(w, "tp").narrow(0, rank * h, h)
+
+    dt_soft = F.softplus(dt.float() + heads(p.dt_bias)[None, None, :])
+    loga = -dt_soft * torch.exp(heads(p.a_log))[None, None, :]
     xh = xc.reshape(b, s, h, pd).transpose(1, 2)  # v-role: (B, H, S, P)
     # B, C shared across heads (a single group)
     bh = bb[:, None].expand(b, h, s, n)
@@ -109,8 +154,10 @@ def mamba_apply(p, x: torch.Tensor, cfg: ArchConfig,
         y, new_state = decayed_la_chunked(ch, bh, xin, la, inclusive=True,
                                           scalar_decay=True, s0=state,
                                           chunk=SCAN_CHUNK)
-    y = y + p.d_skip[None, :, None, None] * xh.float()
-    y = y.transpose(1, 2).reshape(b, s, d_inner)
+    y = y + heads(p.d_skip)[None, :, None, None] * xh.float()
+    y = y.transpose(1, 2).reshape(b, s, di)
     y = y * F.silu(z.float())
-    y = rms_norm(y.to(x.dtype), p.out_norm)
-    return y @ p.out_proj.to(x.dtype), (new_state, tail)
+    norm_w = ctx.fsdp_gather(p.out_norm, "tp").narrow(0, rank * di, di)
+    y = _split_rms_norm(y.to(x.dtype), norm_w, d_inner)
+    return (ctx.from_tp(y @ ctx.fsdp_gather(p.out_proj, "row").to(x.dtype)),
+            (new_state, tail))

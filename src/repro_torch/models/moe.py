@@ -12,11 +12,26 @@ The reference's out-of-bounds scatter (`mode="drop"`) and fill-mode
 gather become a sentinel row at `E * capacity` that is sliced off before
 the experts run and reads zero after them. Kept destinations are unique
 (only dropped slots share the sentinel row), so the dispatch is an
-`index_copy`, exact and deterministic where it is read. The
-reference's mesh helpers (`ctx.shard_expert_buf`, `ctx.ep_gather`,
-`ctx.fsdp_gather`) are ported in `distributed/ctx.py` but not called
-here: expert parallelism is ROADMAP.md item 18, and the LM forward
-refuses the MoE FFN under a mesh.
+`index_copy`, exact and deterministic where it is read.
+
+Under a DeviceMesh (`distributed.ctx`) the experts run over "model"
+(expert parallelism). The residual is whole on every "model" rank, so a
+data rank's tokens are already on each of its model ranks and the
+reference's all-to-all has nothing to move: each rank routes its own
+tokens (the router read whole), fills the (E, capacity, d) buffer with
+them, runs the expert matmuls on its own experts' rows only
+(`ctx.shard_expert_buf`, weights through `ctx.ep_gather`), reads its
+experts' slots back (zero for the others' slots) and sums the slots over
+"model" (`ctx.from_tp`) before the gates weight them. The capacity and
+the drops follow the global token order, as GSPMD's global semantics
+give them: the capacity comes from the global token count, the expert
+ids are all-gathered over "data" into the global (b, s) order
+(`ctx.gather_tokens`) for the position cumsum, and each rank keeps its
+own slots' rows (not contiguous under context parallelism with a batch
+above 1). The aux loss's density and mean probability are global means,
+sums over "data" (`ctx.sum_data`). The shared expert is a
+tensor-parallel dense FFN. Without a mesh every hook is the identity; a
+1 x 1 mesh runs the same operations with one-rank collectives.
 """
 from __future__ import annotations
 
@@ -27,6 +42,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import ctx
 from repro_torch.models.common import dense_init
 
 
@@ -70,28 +86,44 @@ def _swiglu(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor
 
 def route(router: torch.Tensor, tokens: torch.Tensor, cfg: ArchConfig
           ) -> dict:
-    """Router of one call over tokens (T, d): f32 softmax probabilities,
-    the top-k experts (ties to the lower index, as `jax.lax.top_k`) with
-    their renormalized gates, the Switch-style aux loss, and the dispatch:
-    `keep` (T * k,) whether the slot fits its expert's capacity and `dst`
-    its buffer row (E * cap for a dropped slot)."""
+    """Router of one call over this rank's tokens, (B, S, d) or (T, d)
+    (one row of T), flattened in the (b, s) order: f32 softmax
+    probabilities (T, E), the top-k experts (ties to the lower index, as
+    `jax.lax.top_k`) with their renormalized gates, the Switch-style aux
+    loss over every rank's tokens, and the dispatch in the global (b, s)
+    order (`ctx.gather_tokens`): `keep` (T * k,) whether this rank's slot
+    fits its expert's capacity and `dst` its buffer row (E * cap for a
+    dropped slot), and `keep_all` every rank's slots (`keep` itself
+    without a mesh)."""
     e, k = cfg.num_experts, cfg.experts_per_token
-    # slots per expert: Python float arithmetic, as the reference
-    cap = max(1, int(cfg.capacity_factor * tokens.shape[0] * k / e))
+    rows = tuple(tokens.shape[:-1]) if tokens.ndim == 3 else (1, -1)
+    tokens = tokens.reshape(-1, tokens.shape[-1])
     probs = torch.softmax(tokens.float() @ router.float(), dim=-1)
     top, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, eidx = top[:, :k], order[:, :k]
     gate = gate / torch.clamp(gate.sum(dim=-1, keepdim=True), min=1e-9)
-    density = F.one_hot(eidx[:, 0], e).float().mean(dim=0)
-    aux = e * (density * probs.mean(dim=0)).sum()
-    flat_e = eidx.reshape(-1)
+    # the global (b, s) order of every rank's expert ids
+    glob = ctx.gather_tokens(eidx.reshape(rows + (k,)))
+    t_all = glob.shape[0] * glob.shape[1]
+    # global means: sums over the data ranks over the global count
+    density = ctx.sum_data(F.one_hot(eidx[:, 0], e).float().sum(dim=0))
+    mean_p = ctx.sum_data(probs.sum(dim=0))
+    aux = e * ((density / t_all) * (mean_p / t_all)).sum()
+    # slots per expert: Python float arithmetic, as the reference
+    cap = max(1, int(cfg.capacity_factor * t_all * k / e))
+    flat_e = glob.reshape(-1)
     onehot = F.one_hot(flat_e, e)
     my_pos = ((onehot.cumsum(dim=0) - onehot) * onehot).sum(dim=-1)
-    keep = my_pos < cap
-    dst = torch.where(keep, flat_e * cap + my_pos,
-                      torch.full_like(flat_e, e * cap))
-    return dict(probs=probs, gate=gate, eidx=eidx, aux=aux, keep=keep,
-                dst=dst, cap=cap)
+    keep_all = my_pos < cap
+    dst_all = torch.where(keep_all, flat_e * cap + my_pos,
+                          torch.full_like(flat_e, e * cap))
+
+    def mine(t):
+        return ctx.local_tokens(t.reshape(glob.shape)).reshape(-1)
+
+    return dict(probs=probs, gate=gate, eidx=eidx, aux=aux,
+                keep=mine(keep_all), dst=mine(dst_all), cap=cap,
+                keep_all=keep_all)
 
 
 def moe_apply(params, x: torch.Tensor, cfg: ArchConfig
@@ -99,24 +131,35 @@ def moe_apply(params, x: torch.Tensor, cfg: ArchConfig
     """x: (B, S, d) -> (out (B, S, d) in x.dtype, aux loss f32 scalar).
     `params` is the `MoE` module or a tree of its tensors with the same
     attributes; the expert weights are read in x.dtype, the router in
-    f32."""
+    f32. Under a mesh x is this rank's rows (module docstring)."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     tokens = x.reshape(b * s, d)
     t = tokens.shape[0]
-    r = route(params.router, tokens, cfg)
+    r = route(ctx.fsdp_gather(params.router, "rep"), x, cfg)
     cap, keep, dst = r["cap"], r["keep"], r["dst"]
-    sent = tokens.repeat_interleave(k, dim=0) * keep[:, None].to(x.dtype)
+    # the experts' input: each "model" rank's share of its gradient comes
+    # from its own experts (the router reads x whole, outside the region)
+    xt = ctx.to_tp(tokens)
+    sent = xt.repeat_interleave(k, dim=0) * keep[:, None].to(x.dtype)
     buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
     buf = buf.index_copy(0, dst, sent)  # row e * cap: the dropped slots
-    eb = buf[:e * cap].reshape(e, cap, d)
-    g, u = torch.bmm(eb, params.wi.to(x.dtype)).chunk(2, dim=-1)
-    out_e = torch.bmm(F.silu(g) * u, params.wo.to(x.dtype))
-    out_buf = F.pad(out_e.reshape(e * cap, d), (0, 0, 0, 1))
-    recv = out_buf[dst]  # a dropped slot reads the zero row
+    eb = ctx.shard_expert_buf(buf[:e * cap].reshape(e, cap, d))
+    g, u = torch.bmm(eb, ctx.ep_gather(params.wi).to(x.dtype)).chunk(
+        2, dim=-1)
+    out_e = torch.bmm(F.silu(g) * u, ctx.ep_gather(params.wo).to(x.dtype))
+    # this rank's experts' rows in place, zeros for the others' and the
+    # dropped slots' row
+    rank, _ = ctx.model_rank_size()
+    rows = out_e.shape[0] * cap
+    out_buf = F.pad(out_e.reshape(rows, d),
+                    (0, 0, rank * rows, e * cap + 1 - (rank + 1) * rows))
+    recv = ctx.from_tp(out_buf[dst])  # every expert's slots, summed
     w = (r["gate"].reshape(-1) * keep.float()).to(recv.dtype)
     y = (recv * w[:, None]).reshape(t, k, d).sum(dim=1)
     if cfg.moe_shared_expert:
-        y = y + _swiglu(tokens, params.shared_wi.to(x.dtype),
-                        params.shared_wo.to(x.dtype))
+        y = y + ctx.from_tp(_swiglu(
+            xt, ctx.fsdp_gather(params.shared_wi, "col", chunks=2)
+            .to(x.dtype),
+            ctx.fsdp_gather(params.shared_wo, "row").to(x.dtype)))
     return y.reshape(b, s, d), r["aux"]

@@ -9,6 +9,16 @@ width is d_model // ssm_heads. The recurrence runs through
 decay), or one `decayed_la_step` for a single token with a state. SLA
 does not apply: there is no softmax attention, so no SLA kernel runs.
 
+Under a DeviceMesh (`distributed.ctx`) the heads split over "model":
+`wr` / `wk` / `wv` / `wg` column-parallel, `u` and this rank's slices of
+`w0` and `gn` by head, the decay LoRA read whole (`wb`'s columns of this
+rank's heads), the group norm local to each head, `wo` row-parallel; the
+channel mix's `ck` column- and `cv` row-parallel, its receptance gate
+computed whole on every rank (`cr` read alike: it multiplies the whole
+d). Under context parallelism the token shifts read the previous rank's
+last row (`ctx.halo`) and the scan starts from the state entering this
+rank (`linear_scan`).
+
 The parameters live in `nn.Module`s in the reference's layout; its layer
 scan is a Python loop, each layer rematerialized in training
 (`distributed.ctx.maybe_remat`). `decode_step` writes the cache in place
@@ -101,26 +111,36 @@ def _shift(x: torch.Tensor, last: Optional[torch.Tensor] = None):
 
 
 def _time_mix(p, x, cfg: ArchConfig, prev=None, state=None):
-    """The WKV6 block. x: (B, S, d). Returns (out, (new_state, x_last))."""
+    """The WKV6 block. x: (B, S, d). Returns (out, (new_state, x_last)).
+    Under a mesh, this "model" rank's heads: the state is theirs."""
     b, s, d = x.shape
-    h = _heads(cfg)
-    dh = d // h
+    _, m = ctx.model_rank_size()
+    h = _heads(cfg) // m
+    dh = d // _heads(cfg)
+    dl = h * dh
+    # the region's input: each rank's share of its gradient comes from
+    # its own heads (the halo's too, which goes back to the rank before)
+    x = ctx.to_tp(x)
+    if prev is None:
+        prev = ctx.halo(x, 1)
     xprev = _shift(x, prev)
-    mix = p.mix.to(x.dtype)
+    mix = ctx.fsdp_gather(p.mix, "tp").to(x.dtype)
     xr, xk, xv, xw, xg = (mix[i] * x + (1 - mix[i]) * xprev
                           for i in range(5))
-    r = xr @ p.wr.to(x.dtype)
-    k = xk @ p.wk.to(x.dtype)
-    v = xv @ p.wv.to(x.dtype)
-    g = F.silu(xg @ p.wg.to(x.dtype))
-    lora = torch.tanh(xw @ p.wa.to(x.dtype)) @ p.wb.to(x.dtype)
-    logw = -torch.exp(torch.clamp(p.w0.float() + lora.float(), -8.0, 5.0))
+    r = xr @ ctx.fsdp_gather(p.wr, "col").to(x.dtype)
+    k = xk @ ctx.fsdp_gather(p.wk, "col").to(x.dtype)
+    v = xv @ ctx.fsdp_gather(p.wv, "col").to(x.dtype)
+    g = F.silu(xg @ ctx.fsdp_gather(p.wg, "col").to(x.dtype))
+    lora = torch.tanh(xw @ ctx.fsdp_gather(p.wa, "tp").to(x.dtype)) \
+        @ ctx.fsdp_gather(p.wb, "col").to(x.dtype)
+    w0 = ctx.fsdp_gather(p.w0, "col")
+    logw = -torch.exp(torch.clamp(w0.float() + lora.float(), -8.0, 5.0))
 
     def heads(t):
         return t.reshape(b, s, h, dh).transpose(1, 2)
 
     rh, kh, vh, wh = heads(r), heads(k), heads(v), heads(logw)
-    u = p.u.float()
+    u = ctx.fsdp_gather(p.u, "row").float()
     if s == 1 and state is not None:
         o, new_state = decayed_la_step(rh[:, :, 0], kh[:, :, 0],
                                        vh[:, :, 0], wh[:, :, 0], state, u=u)
@@ -132,24 +152,31 @@ def _time_mix(p, x, cfg: ArchConfig, prev=None, state=None):
     mu = o.mean(dim=-1, keepdim=True)
     var = o.var(dim=-1, keepdim=True, correction=0)
     o = (o - mu) * torch.rsqrt(var + 1e-5)
-    o = o.reshape(b, s, d) * (1.0 + p.gn.float())
+    o = o.reshape(b, s, dl) * (1.0 + ctx.fsdp_gather(p.gn, "col").float())
     o = (o * g.float()).to(x.dtype)
-    return o @ p.wo.to(x.dtype), (new_state, x[:, -1:])
+    return (ctx.from_tp(o @ ctx.fsdp_gather(p.wo, "row").to(x.dtype)),
+            (new_state, x[:, -1:]))
 
 
 def _channel_mix(p, x, prev=None):
+    if prev is None:
+        prev = ctx.halo(x, 1)
     xprev = _shift(x, prev)
-    mix = p.cmix.to(x.dtype)[0]
+    mix = ctx.fsdp_gather(p.cmix, "rep").to(x.dtype)[0]
     xk = mix * x + (1 - mix) * xprev
-    k = torch.square(F.relu(xk @ p.ck.to(x.dtype)))
-    rgate = torch.sigmoid(xk @ p.cr.to(x.dtype))
-    return rgate * (k @ p.cv.to(x.dtype)), x[:, -1:]
+    k = torch.square(F.relu(ctx.to_tp(xk)
+                            @ ctx.fsdp_gather(p.ck, "col").to(x.dtype)))
+    # the gate multiplies the whole d: every rank computes all of it
+    rgate = torch.sigmoid(xk @ ctx.fsdp_gather(p.cr, "rep").to(x.dtype))
+    return (rgate * ctx.from_tp(k @ ctx.fsdp_gather(p.cv, "row")
+                                .to(x.dtype)), x[:, -1:])
 
 
 def _layer(x, p, cfg):
-    a, (st, xl1) = _time_mix(p, rms_norm(x, p.ln1), cfg)
+    a, (st, xl1) = _time_mix(
+        p, rms_norm(x, ctx.fsdp_gather(p.ln1, "rep")), cfg)
     x = ctx.shard_residual(x + a)
-    f, xl2 = _channel_mix(p, rms_norm(x, p.ln2))
+    f, xl2 = _channel_mix(p, rms_norm(x, ctx.fsdp_gather(p.ln2, "rep")))
     return ctx.shard_residual(x + f), st, xl1, xl2
 
 
@@ -159,8 +186,14 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     """Hidden states (B, S, d) and a zero aux loss; with `return_cache`
     also each layer's (state, time-mix last input, channel-mix last
     input) stacked over layers. `backend` is accepted and unused: no
-    layer attends."""
-    x = F.embedding(tokens, params.embed).to(compute_dtype)
+    layer attends. Under `activation_sharding(mesh, ...)` the batch is
+    the global one and this rank keeps its rows of it (or of the
+    sequence); the hidden states returned are those rows."""
+    if return_cache:
+        ctx.require_unsharded("serving (caches)")
+    x = ctx.vocab_lookup(ctx.batch_rows(tokens), params.embed) \
+        .to(compute_dtype)
+    x = ctx.seq_rows(x)
     layer = ctx.maybe_remat(lambda x, p: _layer(x, p, cfg))
     caches = []
     for p in params.layers:
@@ -168,7 +201,7 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
         if return_cache:
             caches.append((st, xl1, xl2))
         del st, xl1, xl2
-    x = rms_norm(x, params.ln_f)
+    x = rms_norm(x, ctx.fsdp_gather(params.ln_f, "rep"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_cache:
         return x, aux, tuple(torch.stack(t) for t in zip(*caches))
@@ -178,10 +211,13 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
 def loss_fn(params, cfg: ArchConfig, batch: dict,
             compute_dtype=torch.bfloat16, backend: str = "gather"
             ) -> torch.Tensor:
-    """Next-token cross-entropy over the tied `embed`."""
+    """Next-token cross-entropy over the tied `embed`; under a mesh the
+    global batch, each rank scoring its own rows."""
     x, _ = forward(params, cfg, batch["tokens"], compute_dtype)
-    return chunked_softmax_xent(x, params.embed, batch["targets"],
-                                batch.get("mask"))
+    mask = batch.get("mask")
+    return chunked_softmax_xent(
+        x, params.embed, ctx.local_tokens(batch["targets"]),
+        None if mask is None else ctx.local_tokens(mask))
 
 
 def make_cache(cfg: ArchConfig, batch: int, max_len: int,

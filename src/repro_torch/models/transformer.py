@@ -53,9 +53,9 @@ from repro_torch.core.plan import repeat_kv
 from repro_torch.distributed import ctx
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (attention, chunked_softmax_xent,
-                                       dense_init, embed_init, kv_kind,
-                                       local_kv_heads, logits_from_hidden,
-                                       mse_loss, output_table, rms_norm,
+                                       dense_init, embed_init,
+                                       logits_from_hidden, mse_loss,
+                                       output_table, qkv_heads, rms_norm,
                                        rope)
 
 KIND_SLA, KIND_FULL, KIND_SWA = 0, 1, 2
@@ -196,25 +196,13 @@ def _routing(p, cfg) -> Optional[dict]:
 # --------------------------------------------------------------------------
 def _qkv(p, x, cfg: ArchConfig, positions):
     """q, k, v (B, H, S, Dh) with rope. Under a mesh, this "model" rank's
-    query heads and the KV heads they read (`common.local_kv_heads`)."""
-    b, s, _ = x.shape
-    _, m = ctx.model_rank_size()
-    h, hkv, dh = cfg.num_heads // m, cfg.num_kv_heads, cfg.head_dim
-    kvk = kv_kind(hkv)
-    hk = hkv // m if kvk == "col" else hkv
-    q = (x @ ctx.fsdp_gather(p.wq, "col").to(x.dtype)) \
-        .reshape(b, s, h, dh).transpose(1, 2)
-    k = (x @ ctx.fsdp_gather(p.wk, kvk).to(x.dtype)) \
-        .reshape(b, s, hk, dh).transpose(1, 2)
-    v = (x @ ctx.fsdp_gather(p.wv, kvk).to(x.dtype)) \
-        .reshape(b, s, hk, dh).transpose(1, 2)
+    query heads and the KV heads they read (`common.qkv_heads`)."""
+    q, k, v = qkv_heads(x, x, p.wq, p.wk, p.wv, cfg)
     if cfg.qk_norm:
         q = rms_norm(q, ctx.fsdp_gather(p.qnorm, "tp"))
         k = rms_norm(k, ctx.fsdp_gather(p.knorm, "tp"))
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    k = local_kv_heads(k, cfg.num_heads, hkv)
-    v = local_kv_heads(v, cfg.num_heads, hkv)
     return q, k, v
 
 
@@ -335,16 +323,13 @@ def forward(params, cfg: ArchConfig, tokens: Optional[torch.Tensor],
     Under `activation_sharding(mesh, ...)` the batch is the global one:
     this rank keeps its rows of it (data parallelism) or of the sequence
     (context parallelism, after the prefix is prepended, with global rope
-    positions), and the hidden states returned are those rows. Serving
-    (caches, plan reuse) and the MoE FFN do not run over a mesh.
+    positions), and the hidden states returned are those rows; an MoE
+    layer runs its experts over "model" (`models/moe.py`). Serving
+    (caches, plan reuse) does not run over a mesh of more than one rank.
     """
     if (return_cache or plans is not None or return_plans
             or decode_plan_cfg is not None):
         ctx.require_unsharded("serving (caches and plan reuse)")
-    if cfg.num_experts and ctx.layout() is not None:
-        raise NotImplementedError(
-            "the MoE FFN over a mesh (expert parallelism) is not ported to "
-            "repro_torch (ROADMAP.md queue 1, item 18)")
     tokens = ctx.batch_rows(tokens)
     prefix_embeds = ctx.batch_rows(prefix_embeds)
     parts = []

@@ -9,10 +9,12 @@ case runs (the train CLI joins it). Imports torch and the port only.
 Rank 0 writes the case's results to <out.npz>; every rank exits 0 or
 raises.
 """
+import dataclasses
 import functools
 import json
 import os
 import pathlib
+import shutil
 import sys
 
 import numpy as np
@@ -25,7 +27,7 @@ from repro_torch.configs import get_arch, get_shape
 from repro_torch.distributed import ctx, elastic, sharding
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps, train
-from repro_torch.models import registry
+from repro_torch.models import moe, registry
 from repro_torch.optim import adamw
 
 
@@ -33,8 +35,15 @@ def _full(t):
     return sharding.full(t).detach()
 
 
+def _cfg(spec):
+    """The smoke config of the case, with its overrides (a capacity
+    factor that drops slots, rwkv6's 4-head twin)."""
+    return dataclasses.replace(get_arch(spec["arch"]).smoke(),
+                               **spec.get("overrides", {}))
+
+
 def _model(spec):
-    cfg = get_arch(spec["arch"]).smoke()
+    cfg = _cfg(spec)
     model = registry.get_model(cfg).init(None, cfg, device="cpu")
     weights = np.load(spec["weights"])
     model.load_state_dict({n: torch.from_numpy(weights[n])
@@ -64,13 +73,23 @@ def case_train(spec, out):
     out["residual"] = np.array(repr(residual))
     mdl = registry.get_model(cfg)
     seen = []  # the operand shapes each attention call got
-    attend = mdl.attention
+    attend = getattr(mdl, "attention", None)  # rwkv6 does not attend
 
     def recorded(sla_params, q, k, v, *a, **kw):
         seen.append(list(q.shape) + list(k.shape))
         return attend(sla_params, q, k, v, *a, **kw)
 
-    mdl.attention = recorded
+    if attend is not None:
+        mdl.attention = recorded
+    slots = []  # every MoE call's kept slots, in the global order
+    route = moe.route
+
+    def recorded_route(*a, **kw):
+        got = route(*a, **kw)
+        slots.append(got["keep_all"])
+        return got
+
+    moe.route = recorded_route
     vocab = []  # the rows of each vocab-parallel table read, and its group
     vocab_shard = ctx.vocab_shard
 
@@ -102,22 +121,40 @@ def case_train(spec, out):
                 compute_dtype=torch.float32)
             model, opt, loss, gnorm = step(model, opt, batch)
             losses.append((float(loss), float(gnorm)))
-    mdl.attention = attend
+    if attend is not None:
+        mdl.attention = attend
     ctx.vocab_shard = vocab_shard
+    moe.route = route
     out["vocab"] = np.array(vocab, dtype=np.int64).reshape(-1, 2)
+    out["slots"] = slot_record(slots)
     out["losses"] = np.array(losses)
     out["attn_shapes"] = np.array(seen)
     for n, p in params.items():
         out[f"param/{n}"] = _full(p).numpy()
 
 
+def slot_record(slots) -> np.ndarray:
+    """The MoE calls' kept slots as one (calls, slots) bool array (empty
+    for a model without experts)."""
+    if not slots:
+        return np.zeros((0, 0), dtype=bool)
+    return torch.stack(slots).numpy()
+
+
 def case_cli(spec, out):
     """The train CLI on this world, its mesh from the flags; one run per
-    argv, its loss in f32 (`make_train_step(compute_dtype=)`)."""
+    argv, its loss in f32 (`make_train_step(compute_dtype=)`); with
+    `drop`, that checkpoint directory is deleted after the first run."""
     train.make_train_step = functools.partial(steps.make_train_step,
                                               compute_dtype=torch.float32)
     for i, argv in enumerate(spec["argvs"]):
         out[f"losses{i}"] = np.array(train.main(argv))
+        if i == 0 and spec.get("drop"):
+            # the first run's last checkpoint goes: the next resumes from
+            # the one before
+            if dist.get_rank() == 0:
+                shutil.rmtree(spec["drop"])
+            dist.barrier()
 
 
 def train_state(params):
@@ -187,28 +224,6 @@ def case_ckpt_restore(spec, out):
         out[f"m/{n}"] = _full(state["opt"]["m"][n]).numpy()
         out[f"v/{n}"] = _full(state["opt"]["v"][n]).numpy()
     out["step"] = state["opt"]["step"].numpy()
-
-
-def case_family(spec, out):
-    """Families outside the slice under a mesh of this world's size: the
-    placement check and the CLI must raise NotImplementedError."""
-    mesh = mesh_lib.make_host_mesh(*spec["mesh"], "cpu")
-    msgs = []
-    for arch in spec["archs"]:
-        cfg = get_arch(arch).smoke()
-        for attempt in ("check", "cli"):
-            try:
-                if attempt == "check":
-                    sharding.check_mesh_family(cfg, mesh)
-                else:
-                    train.main(["--arch", arch, "--smoke", "--steps", "1",
-                                "--device", "cpu", "--data-mesh",
-                                str(spec["mesh"][0]), "--model-mesh",
-                                str(spec["mesh"][1])])
-                msgs.append(f"{arch} {attempt}: no error")
-            except NotImplementedError as e:
-                msgs.append(f"{arch} {attempt}: {e}")
-    out["messages"] = np.array(msgs)
 
 
 def main():

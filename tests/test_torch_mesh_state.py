@@ -1,5 +1,5 @@
 """The train CLI, checkpoints and remeshing over a DeviceMesh on gloo
-ranks, and the families the mesh does not run.
+ranks.
 
 - `train.main` with `--data-mesh 2 --model-mesh 2` on 4 ranks gives the
   one-device run's losses within 5e-5 x max(1, |loss|), the loss in f32
@@ -14,9 +14,6 @@ ranks, and the families the mesh does not run.
 - `elastic.remesh` takes the same state placed on (4, 1) onto (2, 2):
   the rules' placements, and local shards bitwise those of placing it
   there directly.
-- MoE (moonshot smoke) and the hybrid (zamba2 smoke) raise
-  NotImplementedError under a 2-rank mesh, from the placement check and
-  from the CLI, naming the ROADMAP item.
 """
 import filecmp
 import functools
@@ -105,13 +102,3 @@ def test_sharded_checkpoint_is_a_one_device_checkpoint(tmp_path):
         assert torch.equal(got["params"][n], p.detach()), n
         assert torch.equal(got["opt"]["v"][n], opt["v"][n]), n
     assert int(got["opt"]["step"]) == 7
-
-
-def test_families_outside_the_mesh_raise(tmp_path):
-    archs = ["moonshot-v1-16b-a3b", "zamba2-1.2b"]
-    res = run_ranks("family", 2, tmp_path, archs=archs, mesh=[2, 1])
-    msgs = [str(m) for m in res["messages"]]
-    assert len(msgs) == 4
-    for msg in msgs:
-        assert "no error" not in msg, msg
-        assert "not ported" in msg and "item 18" in msg, msg
