@@ -447,6 +447,21 @@ Phases, in order; any failure exits non-zero before the result line:
      bitwise equal, launches of kernels 1 / 2 / 3 and plan builds a step
      equal and as the family's layers say (7 / 7 / 7, 24 / 12 / 12,
      8 / 4 / 4, none); walls, peaks and the MoE's dropped slots printed.
+ 34. sharded serving's path at world size 1 (`phase_serve_mesh`):
+     full-width Qwen3-1.7B with seeded bf16 weights, 2 prompts of 32,000
+     tokens prefilled into 32,768-position caches (7.5 GB of K/V) through
+     `make_prefill_step(cfg, "kernel", cache_len=)` and 16 greedy dense
+     decode steps through `make_serve_step`, on the plain path and then
+     with the parameters on `make_host_mesh(1, 1)` (NCCL, world size 1)
+     under `activation_sharding`: logits, K/V caches and greedy tokens
+     bitwise, 28 tensor-core launches of kernel 1 a prefill on both, none
+     of the decode kernels; walls a step printed for both paths. Then the
+     flash-decoding partial softmax and combine of
+     `distributed/serving.py` over layer 0's cache cut into 4 and 16
+     spans (layouts B and C), shared and per-slot positions, against
+     `_dense_decode_attn` on the whole cache: f32 within 5e-5 x max(1,
+     max |o|), bf16 within 5e-2 x max(1, max |o|), the combine bitwise on
+     repeat, CUDA-event times beside the whole cache's attention.
  31. the kernels line (JSON): `sla_fwd` carries the split route's fields
      at the top (the f32 serving route) and the f32-FMA and bf16
      tensor-core routes' beside them, kernels 1-3 the D-64 cases of
@@ -639,6 +654,12 @@ MESH_CLI_STEPS, MESH_CLI_EVERY = 4, 2
 # layers or None for the full depth, seed)
 P33_MODELS = (("zamba2-1.2b", None, 0), ("whisper-small", None, 1),
               ("moonshot-v1-16b-a3b", 4, 2), ("rwkv6-7b", 4, 3))
+# sharded serving (phase 34): Qwen3-1.7B in bf16, 2 prompts of 32,000
+# tokens (decode_32k's batch 128 cut to 2) into 32,768-position caches,
+# P34_NEW dense decode steps, on the plain path and over a 1 x 1 mesh;
+# then the flash-decoding functions over layer 0's cache cut into spans
+P34_BATCH, P34_PROMPT, P34_MAX_LEN, P34_NEW = 2, 32000, 32768, 16
+P34_SPANS = (4, 16)
 DEV = torch.device("cuda")
 
 
@@ -6625,6 +6646,186 @@ def phase_family_train_mesh() -> dict:
     return out
 
 
+def _serve_run(cfg, params, toks, path: str) -> dict:
+    """`make_prefill_step(cfg, "kernel", cache_len=P34_MAX_LEN)` on `toks`
+    and P34_NEW greedy `make_serve_step` steps (dense decode, bf16), under
+    the caller's scope. Returns the logits of the prefill and every step
+    (f32, on the card), the greedy tokens, the cache, the walls and kernel
+    1's launches in the prefill (`path` records its head dims)."""
+    prefill = train_steps.make_prefill_step(cfg, "kernel",
+                                            cache_len=P34_MAX_LEN)
+    serve = train_steps.make_serve_step(cfg)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _zero_kernel_counts()
+        sla_decode.LAUNCHES = sla_decode.PAGED_LAUNCHES = 0
+        t0 = time.time()
+        hidden, cache = prefill(params, {"tokens": toks})
+        logits = [logits_from_hidden(params, hidden)]
+        torch.cuda.synchronize()
+        prefill_s = time.time() - t0
+        launches = _kernel_counts([], path)
+        tokens, walls = [], []
+        for _ in range(P34_NEW):
+            tok = logits[-1].argmax(-1).to(torch.int32)
+            tokens.append(tok)
+            t0 = time.time()
+            step, cache = serve(params, tok, cache)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+            logits.append(step)
+        launches.update(sla_decode=sla_decode.LAUNCHES,
+                        sla_decode_paged=sla_decode.PAGED_LAUNCHES)
+    return dict(logits=torch.stack(logits), tokens=torch.stack(tokens),
+                cache=cache, prefill_s=prefill_s, walls=walls,
+                launches=launches)
+
+
+def _flash_decode_cases(cfg, kc, vc, pos: int) -> list:
+    """The flash-decoding functions of `distributed/serving.py` on the
+    card over one layer's cache kc, vc (B, Hkv, S, D) cut into
+    P34_SPANS spans (layout B's 4 "model" ranks, layout C's 4 x 4 ranks
+    over ("data", "model")): a seeded query (B, H, D) per slot, a shared
+    position and per-slot ones, against `_dense_decode_attn` on the whole
+    cache, in f32 (5e-5 x max(1, max |o|)) and bf16 (5e-2 x max(1, max
+    |o|)); the combine run twice, bitwise; CUDA-event times of the spans'
+    partials and the combine beside the whole cache's attention."""
+    from repro_torch.distributed import serving
+    b, hkv, n, d = kc.shape
+    gen = torch.Generator(device=DEV).manual_seed(34)
+    q0 = torch.randn((b, cfg.num_heads, 1, d), generator=gen, device=DEV)
+    rows = []
+    for spans in P34_SPANS:
+        step = n // spans
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = q0.to(dtype), kc.to(dtype), vc.to(dtype)
+            for pos_kind in ("shared", "per-slot"):
+                p = (pos if pos_kind == "shared" else torch.tensor(
+                    [pos, pos // 2 + 7], device=DEV))
+                want = transformer._dense_decode_attn(
+                    q, k, v, p, transformer.KIND_SLA, cfg)
+
+                def parts():
+                    return torch.stack([serving.decode_partial(
+                        q[:, :, 0], k[:, :, i * step:(i + 1) * step],
+                        v[:, :, i * step:(i + 1) * step], p, i * step)
+                        for i in range(spans)])
+
+                got = serving.decode_combine(parts())
+                again = serving.decode_combine(parts())
+                bitwise = bool(torch.equal(got, again))
+                got = got.to(dtype).reshape(want.shape)
+                err = float((got.float() - want.float()).abs().max())
+                tol = TWIN_TOL if dtype == torch.float32 else LM_LOGIT_TOL
+                limit = tol * max(1.0, float(want.float().abs().max()))
+                ms = cuda_ms(lambda: serving.decode_combine(parts()), 10)
+                whole_ms = cuda_ms(lambda: transformer._dense_decode_attn(
+                    q, k, v, p, transformer.KIND_SLA, cfg), 10)
+                ok = err <= limit and bitwise
+                rows.append(dict(spans=spans, dtype=str(dtype)[6:],
+                                 pos=pos_kind, max_abs_err=err, limit=limit,
+                                 bitwise_repeat=bitwise, ms=ms,
+                                 whole_ms=whole_ms, ok=ok))
+                say(f"[34 flash decode] layer 0's cache (B {b}, Hkv {hkv}, "
+                    f"S {n}, D {d}) in {spans} spans, {rows[-1]['dtype']}, "
+                    f"{pos_kind} pos: max abs err {err:.3g} (limit "
+                    f"{limit:.3g}), combine bitwise on repeat {bitwise} | "
+                    f"partials + combine {ms:.3f} ms, the whole cache's "
+                    f"attention {whole_ms:.3f} ms {'OK' if ok else 'FAIL'}")
+            del q, k, v
+    return rows
+
+
+def phase_serve_mesh() -> dict:
+    """Phase 34: sharded serving's path at world size 1 on this card.
+    Full-width Qwen3-1.7B with seeded bf16 weights (sla_proj redrawn)
+    prefills P34_BATCH prompts of P34_PROMPT tokens into P34_MAX_LEN-
+    position caches through `make_prefill_step` and decodes P34_NEW
+    greedy tokens through `make_serve_step` (dense decode) on the plain
+    path, then the same with the parameters placed on `make_host_mesh(1,
+    1)` (NCCL through a FileStore under build/, destroyed after) under
+    `activation_sharding(mesh, default_residual_spec(...))`: logits, K/V
+    caches and greedy tokens bitwise the plain path's, kernel 1's launches
+    equal (one a layer a prefill, on tensor cores; no decode kernel).
+    Then the flash-decoding functions over the mesh run's layer-0 cache
+    (`_flash_decode_cases`): the card is one H100, so this is where it
+    runs the sharded math. Returns the summary."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    t_all = time.time()
+    cfg = get_arch(LM_ARCH)
+    gen = torch.Generator(device=DEV).manual_seed(34)
+    params = transformer.init(gen, cfg, dtype=torch.bfloat16, device=DEV)
+    _redraw(gen, [layer.sla_proj for layer in params.layers])
+    toks = torch.randint(0, cfg.vocab_size, (P34_BATCH, P34_PROMPT),
+                         generator=gen, device=DEV, dtype=torch.int32)
+    plain = _serve_run(cfg, params, toks, "lm_serve")
+    store = tempfile.mkdtemp(dir=ROOT / "build")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(store, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_host_mesh(1, 1, "cuda")
+        sharding.place_module(params, mesh)
+        residual = actx.default_residual_spec(mesh, P34_BATCH, P34_MAX_LEN)
+        with actx.activation_sharding(mesh, residual, remat=False):
+            sharded = _serve_run(cfg, params, toks, "lm_serve_mesh")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    del params
+    runs = {"plain": plain, "mesh 1x1": sharded}
+    same = {"logits": torch.equal(sharded["logits"], plain["logits"]),
+            "tokens": torch.equal(sharded["tokens"], plain["tokens"])}
+    for key in ("k", "v"):
+        same[key] = torch.equal(sharded["cache"][key], plain["cache"][key])
+    pos = int(sharded["cache"]["pos"])
+    finite = bool(torch.isfinite(sharded["logits"]).all())
+    nl = cfg.num_layers
+    want = dict(sla_fwd=nl, tc_sla_fwd=nl, sla_decode=0, sla_decode_paged=0)
+    launches = {name: {k: run["launches"][k] for k in want}
+                for name, run in runs.items()}
+    kv_gb = sum(plain["cache"][k].numel() * plain["cache"][k].element_size()
+                for k in ("k", "v")) / 1e9
+    walls = {}
+    for name, run in runs.items():
+        w = sorted(run["walls"][1:])
+        walls[name] = dict(prefill_s=run["prefill_s"],
+                           decode_first_s=run["walls"][0],
+                           decode_ms_min=1e3 * w[0],
+                           decode_ms_median=1e3 * w[len(w) // 2],
+                           decode_ms_max=1e3 * w[-1])
+        say(f"[34 serve mesh] {name}: prefill of {P34_BATCH} x {P34_PROMPT} "
+            f"tokens into {P34_MAX_LEN}-position caches ({kv_gb:.2f} GB of "
+            f"K/V) {run['prefill_s']:.3f}s | {P34_NEW} decode steps: first "
+            f"{run['walls'][0] * 1e3:.1f} ms, then "
+            f"{walls[name]['decode_ms_min']:.1f}-"
+            f"{walls[name]['decode_ms_max']:.1f} ms a step (median "
+            f"{walls[name]['decode_ms_median']:.1f}) | launches "
+            f"{launches[name]}")
+    del plain, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash = _flash_decode_cases(cfg, sharded["cache"]["k"][0],
+                                sharded["cache"]["v"][0], pos - 1)
+    ok = (all(same.values()) and finite and pos == P34_PROMPT + P34_NEW
+          and all(v == want for v in launches.values())
+          and all(r["ok"] for r in flash))
+    say(f"[34 serve mesh] {LM_ARCH} full width over make_host_mesh(1, 1): "
+        f"bitwise {same}, finite {finite}, pos {pos} | kernel 1 launches a "
+        f"prefill expected {nl} on tensor cores | flash decode "
+        f"{sum(r['ok'] for r in flash)}/{len(flash)} OK | "
+        f"{time.time() - t_all:.1f}s {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"sharded serving: bitwise {same}, finite "
+                           f"{finite}, pos {pos}, launches {launches}, "
+                           f"flash {[r for r in flash if not r['ok']]}")
+    return dict(bitwise=same, launches=launches["mesh 1x1"],
+                plain_launches=launches["plain"], walls=walls,
+                kv_cache_gb=kv_gb, flash=flash,
+                wall_s=time.time() - t_all)
+
+
 def _tensors(x):
     if torch.is_tensor(x):
         yield x
@@ -6734,6 +6935,8 @@ def main(argv=None) -> int:
     mtc = mt["launches"]
     fm = phase_family_train_mesh()
     fmc = {k: sum(r["launches"][k] for r in fm.values()) for k in mtc}
+    sm = phase_serve_mesh()
+    smc = sm["launches"]
     rows += d256_fwd + vl_fwd_rows + g3t_fwd_rows
     dec_rows += d256_dec + g3_dec
     pg_rows += d256_pg + g3_pg
@@ -6813,7 +7016,8 @@ def main(argv=None) -> int:
                 "vlm_train": vlc["tc_sla_fwd"],
                 "gemma3_train": g3tc["tc_sla_fwd"],
                 "lm_train_mesh": mtc["tc_sla_fwd"],
-                "family_train_mesh": fmc["tc_sla_fwd"]}
+                "family_train_mesh": fmc["tc_sla_fwd"],
+                "lm_serve_mesh": smc["tc_sla_fwd"]}
     # the other paths compute in bf16: every launch there is a tensor-core
     # one (phases 9, 12, 15, 17 check), so none is on the split route
     split_paths = {"serve": main_run["split_launches"],
@@ -6828,7 +7032,7 @@ def main(argv=None) -> int:
                    "gemma3_paged_prefill": g3pc["split_sla_fwd"],
                    "danube_prefill": dnc["split_sla_fwd"], "vlm_train": 0,
                    "gemma3_train": 0, "lm_train_mesh": 0,
-                   "family_train_mesh": 0}
+                   "family_train_mesh": 0, "lm_serve_mesh": 0}
     kernels = [{
         "name": "sla_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sla_fwd_split.cu",
@@ -6842,7 +7046,7 @@ def main(argv=None) -> int:
                      + ed["prefill_launches"] + g3c["sla_fwd"]
                      + g3pc["sla_fwd"] + dnc["sla_fwd"] + vlc["sla_fwd"]
                      + g3tc["sla_fwd"] + mtc["sla_fwd"]
-                     + fmc["sla_fwd"]),
+                     + fmc["sla_fwd"] + smc["sla_fwd"]),
         "launches_by_path": {"serve": main_run["launches"],
                              "serve_plan_cache": pc_launches["launches"],
                              "train": train["launches"]["sla_fwd"],
@@ -6863,7 +7067,8 @@ def main(argv=None) -> int:
                              "vlm_train": vlc["sla_fwd"],
                              "gemma3_train": g3tc["sla_fwd"],
                              "lm_train_mesh": mtc["sla_fwd"],
-                             "family_train_mesh": fmc["sla_fwd"]},
+                             "family_train_mesh": fmc["sla_fwd"],
+                             "lm_serve_mesh": smc["sla_fwd"]},
         **ran_at("sla_fwd"),
         "arch_head_dims": arch_head_dims(
             "wan2_1_1_3b", "lightningdit_1b", LM_ARCH, MOE_ARCH, HY_ARCH,
@@ -7092,7 +7297,7 @@ def main(argv=None) -> int:
         f"{lt} | moe serve {moe} | hybrid {hy} | encdec {ed} | ssm {rw} | "
         f"gemma3 serve {g3} | danube serve {dn} | vlm train {vl} | gemma3 "
         f"train {g3t} | lm train mesh {mt} | family train mesh {fm} | "
-        f"total "
+        f"lm serve mesh {sm} | total "
         f"{time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -36,6 +36,10 @@ without sequence parallelism, so `shard_residual` is the identity).
   * `vocab_shard` and `vocab_lookup` read a table stored with its
     vocabulary over "model" (`embed`, `unembed`) as this rank's rows
     only: the token lookup and the loss's logits are vocab-parallel.
+  * serving: `seq_last` gives every rank the prefill's last hidden row
+    under context parallelism, and `replicated_tokens` scopes a decode
+    step whose tokens every data rank holds whole (the cache's sequence
+    split over "data": `distributed/serving.py`).
 Every hook is the identity without a mesh. Over a mesh, one with axes of
 size 1 included, the hooks run their collectives; over one rank each of
 them is the identity on the values, so the 1 x 1 mesh path computes what
@@ -62,26 +66,31 @@ class ActivationSharding:
     mesh: Any
     residual: tuple = ()  # spec of the (B, S, D) residual stream
     remat: bool = True
+    replicated: bool = False  # the tokens are whole on every data rank
 
     @functools.cached_property
     def layout(self) -> Optional["Layout"]:
-        return None if self.mesh is None else Layout(self.mesh,
-                                                     self.residual)
+        return None if self.mesh is None else Layout(
+            self.mesh, self.residual, self.replicated)
 
 
 class Layout:
     """What the hooks need of a mesh and a residual spec: this rank's
-    place on the data and model axes and their process groups."""
+    place on the data and model axes and their process groups. With
+    `replicated` (`replicated_tokens`), every data rank holds every token
+    of the call: the hooks over the data axes are the identity (no data
+    group), as in a decode step under context parallelism."""
 
-    def __init__(self, mesh, residual: tuple):
+    def __init__(self, mesh, residual: tuple, replicated: bool = False):
         self.mesh = mesh
         sizes = sharding.axis_sizes(mesh)
         res = tuple(residual) + (None,) * 3
         batch_axes = sharding._axes(res[0]) if res[0] is not None else ()
-        self.cp = res[1] == "data"
+        self.cp = res[1] == "data" and not replicated
         split = batch_axes + (("data",) if self.cp else ())
         for axis, size in sizes.items():
-            if axis != "model" and size > 1 and axis not in split:
+            if (axis != "model" and size > 1 and axis not in split
+                    and not replicated):
                 raise NotImplementedError(
                     f"mesh axis {axis!r} of size {size} splits neither the "
                     f"batch nor the sequence (residual spec {residual!r}): "
@@ -96,7 +105,7 @@ class Layout:
         self.seq = self.data if self.cp else 1
         self.data_rank = self._rank("data")
         self.model_rank = self._rank("model")
-        self.data_group = self._group("data")
+        self.data_group = None if replicated else self._group("data")
         self.model_group = self._group("model")
 
     def _rank(self, axis: str) -> int:
@@ -120,6 +129,21 @@ def activation_sharding(mesh=None, residual=None, remat: bool = True):
     residual stream's spec (`default_residual_spec`) and the remat
     policy."""
     token = _CTX.set(ActivationSharding(mesh, tuple(residual or ()), remat))
+    try:
+        yield
+    finally:
+        _CTX.reset(token)
+
+
+@contextlib.contextmanager
+def replicated_tokens():
+    """Scope of a call whose tokens every data rank holds whole (a decode
+    step under context parallelism: one token a row, the cache's sequence
+    split over "data"): the batch and sequence hooks and the data-axis
+    sums are the identity in it; the "model" hooks are unchanged."""
+    c = _CTX.get()
+    token = _CTX.set(c if c is None or c.mesh is None
+                     else dataclasses.replace(c, replicated=True))
     try:
         yield
     finally:
@@ -369,6 +393,19 @@ def carry_in(end_state: torch.Tensor, log_decay: torch.Tensor
         s = d.reshape(d.shape + (1,) * (s.ndim - d.ndim)) * s + ends[j]
         entering.append(s)
     return torch.stack(entering)[lay.data_rank]
+
+
+def seq_last(x: torch.Tensor) -> torch.Tensor:
+    """x[:, -1] of the whole sequence: under context parallelism the last
+    data rank's last row, all-gathered so every rank holds it (the
+    prefill's last hidden state); x[:, -1] otherwise. Inference only."""
+    lay = layout()
+    last = x[:, -1]
+    if lay is None or lay.seq == 1:
+        return last
+    parts = [torch.empty_like(last) for _ in range(lay.seq)]
+    dist.all_gather(parts, last.contiguous(), group=lay.data_group)
+    return parts[-1]
 
 
 def seq_parallel() -> bool:

@@ -45,7 +45,10 @@ over "model" (expert parallelism, `models/moe.py`), the recurrent
 families their heads, and their scans' state crosses the data ranks
 under context parallelism (`ctx.halo`, `ctx.carry_in`).
 `check_mesh_family` refuses a "model" axis that does not divide what a
-family splits over it.
+family splits over it. Serving places the decode caches by
+`cache_shardings` (`distributed/serving.py` reads the KV layout from it:
+heads over "model", or the sequence over "model" or "data" with a
+flash-decoding combine).
 """
 from __future__ import annotations
 
@@ -336,9 +339,10 @@ def _model_split(cfg) -> Dict[str, int]:
 def check_mesh_family(cfg, mesh) -> None:
     """Refuse a family outside `MESH_FAMILIES`, or a tensor-parallel
     degree that does not divide what the family splits over "model"
-    (`_model_split`: the port runs a layer's heads, experts and FFN
-    columns local to each "model" rank), over a mesh of more than one
-    rank. Nothing falls back to replicated compute."""
+    (`_model_split`: the port runs a layer's query heads, experts and FFN
+    columns local to each "model" rank, in training and in serving), over
+    a mesh of more than one rank, with the reason. Nothing falls back to
+    replicated compute."""
     sizes = axis_sizes(mesh)
     world = 1
     for s in sizes.values():
@@ -355,7 +359,11 @@ def check_mesh_family(cfg, mesh) -> None:
         raise NotImplementedError(
             f"a 'model' axis of {m} must divide "
             + ", ".join(f"{n} ({v})" for n, v in bad.items())
-            + f" to run {cfg.name} tensor-parallel")
+            + f" to run {cfg.name} tensor-parallel: each 'model' rank "
+            f"computes its own query heads, experts and FFN columns, and "
+            f"in sharded decode keeps its own query heads after the "
+            f"flash-decoding combine; only the KV heads may stay whole, "
+            f"the serving cache then splitting its sequence over 'model'")
 
 
 def full(t):

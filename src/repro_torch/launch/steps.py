@@ -111,12 +111,21 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig, backend: str = "gather") -> Callable:
+def make_prefill_step(cfg: ArchConfig, backend: str = "gather",
+                      cache_len: Optional[int] = None) -> Callable:
     """`prefill_step(params, batch)`: the family's inference entry at a
     prefill shape (a DiT's is one denoising forward). Returns what the
     reference's does: (last hidden, cache) for the LMs, the velocity for
-    a DiT."""
+    a DiT. `cache_len` makes a dense, MoE or VLM LM's KV caches that long
+    (zero past the prompt) for the decode steps that follow.
+
+    Under `activation_sharding(mesh, default_residual_spec(...))` the
+    batch is the global one and the LM's cache comes out as this rank's
+    part under `sharding.cache_shardings` (`transformer.prefill`)."""
     mdl = registry.get_model(cfg)
+    if cache_len is not None and cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(f"cache_len: the {cfg.family!r} family's prefill "
+                         f"sizes its own caches")
 
     if cfg.family == "encdec":
         def prefill_step(params, batch):
@@ -125,18 +134,19 @@ def make_prefill_step(cfg: ArchConfig, backend: str = "gather") -> Callable:
         def prefill_step(params, batch):
             return mdl.forward(params, cfg, batch["latents"], batch["t"],
                                batch.get("cond"), backend=backend)
-    elif cfg.family == "vlm":
-        def prefill_step(params, batch):
-            x, _, (kc, vc) = mdl.forward(
-                params, cfg, batch["tokens"],
-                prefix_embeds=batch["patch_embeds"], backend=backend,
-                return_cache=True)
-            cache = {"k": kc, "v": vc,
-                     "pos": batch["tokens"].shape[1] + cfg.num_patches}
-            return x[:, -1], cache
     else:
-        def prefill_step(params, batch):
-            return mdl.prefill(params, cfg, batch["tokens"], backend=backend)
+        sized = {} if cache_len is None else {"cache_len": cache_len}
+        if cfg.family == "vlm":
+            def prefill_step(params, batch):
+                # pos counts the patch prefix: tokens + num_patches
+                return mdl.prefill(params, cfg, batch["tokens"],
+                                   backend=backend,
+                                   prefix_embeds=batch["patch_embeds"],
+                                   **sized)
+        else:
+            def prefill_step(params, batch):
+                return mdl.prefill(params, cfg, batch["tokens"],
+                                   backend=backend, **sized)
 
     return prefill_step
 

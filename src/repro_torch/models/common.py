@@ -128,12 +128,15 @@ def local_kv_heads(t: torch.Tensor, num_heads: int, num_kv_heads: int
     return t.index_select(1, idx)
 
 
-def qkv_heads(xq: torch.Tensor, xkv: torch.Tensor, wq, wk, wv, cfg
-              ) -> tuple:
+def qkv_heads(xq: torch.Tensor, xkv: torch.Tensor, wq, wk, wv, cfg,
+              pick: bool = True) -> tuple:
     """q from xq (B, Sq, d) and k, v from xkv (B, Sk, d), as (B, heads,
     S, Dh), through this "model" rank's query heads of wq and the KV
     heads they read of wk / wv (each read by `ctx.fsdp_gather`; k and v
-    picked by `local_kv_heads`); no rope. Without a mesh, all heads."""
+    picked by `local_kv_heads`); no rope. Without a mesh, all heads.
+    `pick=False` returns k and v at the heads projected (this rank's KV
+    heads, or all of them where "model" does not divide them): the heads
+    a KV cache holds."""
     _, m = ctx.model_rank_size()
     h, hkv, dh = cfg.num_heads // m, cfg.num_kv_heads, cfg.head_dim
     kvk = kv_kind(hkv)
@@ -144,9 +147,11 @@ def qkv_heads(xq: torch.Tensor, xkv: torch.Tensor, wq, wk, wv, cfg
         return (x @ ctx.fsdp_gather(w, kind).to(x.dtype)) \
             .reshape(b, s, heads, dh).transpose(1, 2)
 
-    return (proj(xq, wq, "col", h),
-            local_kv_heads(proj(xkv, wk, kvk, hk), cfg.num_heads, hkv),
-            local_kv_heads(proj(xkv, wv, kvk, hk), cfg.num_heads, hkv))
+    k, v = proj(xkv, wk, kvk, hk), proj(xkv, wv, kvk, hk)
+    if pick:
+        k = local_kv_heads(k, cfg.num_heads, hkv)
+        v = local_kv_heads(v, cfg.num_heads, hkv)
+    return proj(xq, wq, "col", h), k, v
 
 
 def attention(sla_params: Optional[dict], q: torch.Tensor, k: torch.Tensor,
@@ -211,8 +216,18 @@ def output_table(params) -> torch.Tensor:
 
 def logits_from_hidden(params, hidden: torch.Tensor) -> torch.Tensor:
     """Unembed final hidden states: (..., D) -> (..., V) f32 logits over
-    `output_table(params)`."""
-    return hidden.float() @ output_table(params).float().t()
+    `output_table(params)`. Under a mesh the table is read as this
+    "model" rank's rows of the vocabulary (`ctx.vocab_shard`) and the
+    rows' logits are all-gathered over "model" in rank order, so every
+    rank returns all V columns (inference only: no gradient)."""
+    rows, _, group = ctx.vocab_shard(output_table(params))
+    logits = hidden.float() @ rows.float().t()
+    if group is None:
+        return logits
+    parts = [torch.empty_like(logits)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, logits.contiguous(), group=group)
+    return torch.cat(parts, dim=-1)
 
 
 class _ChunkedXent(torch.autograd.Function):

@@ -266,7 +266,7 @@ def prefill(params, cfg: ArchConfig, batch: dict,
             dec_len: Optional[int] = None):
     """Encode the audio and compute every decoder layer's cross K/V.
     Returns (encoder states (B, T, d), cache)."""
-    ctx.require_unsharded("serving (caches)")
+    ctx.require_unsharded("the encdec family's serving (prefill)")
     enc = encode(params, cfg, batch["audio_embeds"], compute_dtype, backend)
     b, t, _ = enc.shape
     hkv, dh = cfg.num_kv_heads, cfg.head_dim
@@ -284,6 +284,7 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
     cache plus cross-attention over the (long) audio cross K/V. Writes
     the self cache in place; returns (logits (B, V) f32, cache) with
     `pos` advanced."""
+    ctx.require_unsharded("the encdec family's serving (decode_step)")
     x = F.embedding(token[:, None], params.embed).to(compute_dtype)
     b = x.shape[0]
     pos = int(cache["pos"])

@@ -158,7 +158,8 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     rank keeps its rows of it (or of the sequence, with global rope
     positions); the hidden states returned are those rows."""
     if return_cache:
-        ctx.require_unsharded("serving (caches)")
+        ctx.require_unsharded(
+            "the hybrid family's serving (forward(return_cache=))")
     tokens = ctx.batch_rows(tokens)
     x = ctx.vocab_lookup(tokens, params.embed).to(compute_dtype)
     start, _ = ctx.seq_span(x.shape[1])
@@ -240,6 +241,7 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
     """One token: O(1) Mamba state updates plus O(S) shared-attention
     reads of the cache. token: (B,) int. Writes the cache in place and
     returns (logits (B, V) f32, cache) with `pos` advanced."""
+    ctx.require_unsharded("the hybrid family's serving (decode_step)")
     x = F.embedding(token[:, None], params.embed).to(compute_dtype)
     b = x.shape[0]
     pos = int(cache["pos"])

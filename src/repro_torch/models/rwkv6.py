@@ -190,7 +190,8 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     the global one and this rank keeps its rows of it (or of the
     sequence); the hidden states returned are those rows."""
     if return_cache:
-        ctx.require_unsharded("serving (caches)")
+        ctx.require_unsharded(
+            "the ssm family's serving (forward(return_cache=))")
     x = ctx.vocab_lookup(ctx.batch_rows(tokens), params.embed) \
         .to(compute_dtype)
     x = ctx.seq_rows(x)
@@ -251,6 +252,7 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
                 compute_dtype=torch.bfloat16):
     """O(1)-state decode of one token (B,). Writes the cache in place and
     returns (logits (B, V) f32, cache) with `pos` advanced."""
+    ctx.require_unsharded("the ssm family's serving (decode_step)")
     x = F.embedding(token[:, None], params.embed).to(compute_dtype)
     for li, p in enumerate(params.layers):
         a, (st, x1) = _time_mix(p, rms_norm(x, p.ln1), cfg,

@@ -30,9 +30,17 @@ Sliding-window layers (gemma3's local layers) attend a block-granular
 band in the forward (`common._swa_attention`) and a token-level window
 in dense decode, as the reference's. The VLM family prepends patch
 embeddings to the tokens (`forward(prefix_embeds=)`).
+
+Over a ("data", "model") mesh (`distributed.ctx.activation_sharding`)
+`forward`, `prefill`, `make_cache` and the dense `decode_step` serve:
+each rank's caches are its part under `sharding.cache_shardings`, and
+decode attends by that layout (`distributed/serving.py`). Plan reuse,
+decode-time SLA, chunked admission, `decode_chunk` and paged caches
+refuse a mesh of more than one rank.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import types
@@ -51,12 +59,13 @@ from repro_torch.core import plan as plan_lib
 from repro_torch.core.phi import phi
 from repro_torch.core.plan import repeat_kv
 from repro_torch.distributed import ctx
+from repro_torch.distributed import serving
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (attention, chunked_softmax_xent,
                                        dense_init, embed_init,
-                                       logits_from_hidden, mse_loss,
-                                       output_table, qkv_heads, rms_norm,
-                                       rope)
+                                       local_kv_heads, logits_from_hidden,
+                                       mse_loss, output_table, qkv_heads,
+                                       rms_norm, rope)
 
 KIND_SLA, KIND_FULL, KIND_SWA = 0, 1, 2
 NEG_INF = masks_lib.NEG_INF
@@ -196,8 +205,10 @@ def _routing(p, cfg) -> Optional[dict]:
 # --------------------------------------------------------------------------
 def _qkv(p, x, cfg: ArchConfig, positions):
     """q, k, v (B, H, S, Dh) with rope. Under a mesh, this "model" rank's
-    query heads and the KV heads they read (`common.qkv_heads`)."""
-    q, k, v = qkv_heads(x, x, p.wq, p.wk, p.wv, cfg)
+    query heads and the KV heads projected (`common.qkv_heads(pick=
+    False)`): its own where "model" divides them, else all of them, the
+    heads a KV cache holds; `_attn` picks each query head's."""
+    q, k, v = qkv_heads(x, x, p.wq, p.wk, p.wv, cfg, pick=False)
     if cfg.qk_norm:
         q = rms_norm(q, ctx.fsdp_gather(p.qnorm, "tp"))
         k = rms_norm(k, ctx.fsdp_gather(p.knorm, "tp"))
@@ -242,10 +253,13 @@ def _attn(p, x, kind, cfg: ArchConfig, positions, backend, kept: dict,
     finds it there and attends over the same blocks without planning
     again. Under context parallelism q, k and v are gathered to the whole
     sequence first, so planning ranks every query row, and this rank
-    keeps its own rows of the output."""
+    keeps its own rows of the output. `kept` gets k and v at the heads a
+    KV cache holds (before `local_kv_heads` picks each query head's)."""
     b, s, _ = x.shape
     x = ctx.to_tp(x)
-    q, k, v = (ctx.gather_seq(t, 2) for t in _qkv(p, x, cfg, positions))
+    q, kw, vw = (ctx.gather_seq(t, 2) for t in _qkv(p, x, cfg, positions))
+    k = local_kv_heads(kw, cfg.num_heads, cfg.num_kv_heads)
+    v = local_kv_heads(vw, cfg.num_heads, cfg.num_kv_heads)
     sla_cfg = cfg.sla
     if cfg.sliding_window:
         sla_cfg = dataclasses.replace(sla_cfg, window=cfg.sliding_window)
@@ -262,7 +276,7 @@ def _attn(p, x, kind, cfg: ArchConfig, positions, backend, kept: dict,
                                     drift_threshold,
                                     want_plan or plan_needed,
                                     decode_plan_cfg))
-        kept["k"], kept["v"] = k, v
+        kept["k"], kept["v"] = kw, vw
     layer_plan = kept["plan"]
     if kind == KIND_SLA:
         out = attention({"proj": ctx.fsdp_gather(p.sla_proj, "row")}, q, k,
@@ -293,6 +307,42 @@ def _ffn(p, x, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
 # --------------------------------------------------------------------------
 # forward
 # --------------------------------------------------------------------------
+def _kv_layout(cfg: ArchConfig, global_batch: int
+               ) -> Optional[serving.KVLayout]:
+    """The KV cache's layout on the active mesh (`serving.kv_layout`, the
+    rules of `sharding.cache_shardings`), held to the residual spec's data
+    parallelism; None without a mesh."""
+    lay = ctx.layout()
+    if lay is None:
+        return None
+    kl = serving.kv_layout(lay.mesh, global_batch, cfg.num_kv_heads)
+    if kl.dp != lay.dp:
+        raise ValueError(
+            f"the rules split a batch of {global_batch} over {kl.dp} data "
+            f"ranks, the residual spec over {lay.dp}: scope serving with "
+            f"activation_sharding(mesh, default_residual_spec(mesh, batch, "
+            f"cache length))")
+    return kl
+
+
+def _kv_cache(cfg: ArchConfig, global_batch: int, length: int, dtype,
+              device, zeros: bool):
+    """Empty K and V caches (L, B, Hkv, length, Dh) and this rank's span
+    of their positions (first, count). Under a mesh they are this rank's
+    part under the rules, allocated at that shape only: its batch rows,
+    its KV heads (or all of them), its span of the positions."""
+    shape = (cfg.num_layers, global_batch, cfg.num_kv_heads, length,
+             cfg.head_dim)
+    span = (0, length)
+    kl = _kv_layout(cfg, global_batch)
+    if kl is not None:
+        kl.check_length(length)
+        shape, span = kl.local_shape(shape), kl.span(length)
+    make = torch.zeros if zeros else torch.empty
+    return (make(shape, dtype=dtype, device=device),
+            make(shape, dtype=dtype, device=device), span)
+
+
 def forward(params, cfg: ArchConfig, tokens: Optional[torch.Tensor],
             prefix_embeds: Optional[torch.Tensor] = None,
             compute_dtype=torch.bfloat16, backend: str = "gather",
@@ -324,12 +374,21 @@ def forward(params, cfg: ArchConfig, tokens: Optional[torch.Tensor],
     this rank keeps its rows of it (data parallelism) or of the sequence
     (context parallelism, after the prefix is prepended, with global rope
     positions), and the hidden states returned are those rows; an MoE
-    layer runs its experts over "model" (`models/moe.py`). Serving
-    (caches, plan reuse) does not run over a mesh of more than one rank.
+    layer runs its experts over "model" (`models/moe.py`). The caches are
+    this rank's part under `sharding.cache_shardings` (`_kv_cache`): its
+    batch rows, its KV heads or all of them, its span of the positions.
+    Plan reuse and decode-time SLA do not run over a mesh of more than
+    one rank.
     """
-    if (return_cache or plans is not None or return_plans
-            or decode_plan_cfg is not None):
-        ctx.require_unsharded("serving (caches and plan reuse)")
+    if plans is not None:
+        ctx.require_unsharded("plan reuse (plans=)")
+    if return_plans:
+        ctx.require_unsharded("plan reuse (return_plans=)")
+    if drift_threshold is not None:
+        ctx.require_unsharded("plan reuse (drift_threshold=)")
+    if decode_plan_cfg is not None:
+        ctx.require_unsharded("decode-time SLA (decode_plan_cfg=)")
+    global_batch = (tokens if tokens is not None else prefix_embeds).shape[0]
     tokens = ctx.batch_rows(tokens)
     prefix_embeds = ctx.batch_rows(prefix_embeds)
     parts = []
@@ -339,7 +398,8 @@ def forward(params, cfg: ArchConfig, tokens: Optional[torch.Tensor],
         parts.append(ctx.vocab_lookup(tokens, params.embed)
                      .to(compute_dtype))
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
-    start, _ = ctx.seq_span(x.shape[1])
+    s_all = x.shape[1]
+    start, _ = ctx.seq_span(s_all)
     x = ctx.seq_rows(x)
     b, s, _ = x.shape
     dev = x.device
@@ -353,11 +413,12 @@ def forward(params, cfg: ArchConfig, tokens: Optional[torch.Tensor],
         thresholds = torch.broadcast_to(torch.as_tensor(
             drift_threshold, dtype=torch.float32, device=dev), (nl,))
     if return_cache:
-        length = max(s, cache_len or s)
-        shape = (nl, b, cfg.num_kv_heads, length, cfg.head_dim)
-        make = torch.zeros if length > s else torch.empty
-        kc = make(shape, dtype=compute_dtype, device=dev)
-        vc = make(shape, dtype=compute_dtype, device=dev)
+        length = max(s_all, cache_len or s_all)
+        kc, vc, (lo, span) = _kv_cache(cfg, global_batch, length,
+                                       compute_dtype, dev,
+                                       zeros=length > s_all)
+        # the prompt's positions in this rank's span
+        written = min(span, max(0, s_all - lo))
 
     def layer(x, p, kind, given, thr, kept):
         a = _attn(p, rms_norm(x, ctx.fsdp_gather(p.ln1, "rep")), kind, cfg,
@@ -381,9 +442,9 @@ def forward(params, cfg: ArchConfig, tokens: Optional[torch.Tensor],
         aux = aux + layer_aux
         # popped: a remat checkpoint holds `kept` until the backward
         k, v = kept.pop("k"), kept.pop("v")
-        if return_cache:
-            kc[li, :, :, :s] = k
-            vc[li, :, :, :s] = v
+        if return_cache and written:
+            kc[li, :, :, :written] = k[:, :, lo:lo + written]
+            vc[li, :, :, :written] = v[:, :, lo:lo + written]
         if return_plans:
             out_plans.append(kept["plan"])
         if decode_plan_cfg is not None:
@@ -539,10 +600,12 @@ def _check_decode_grid(cfg: ArchConfig, seq_len: int, max_len: int):
             f"sla.block_q={sla.block_q}")
 
 
-def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
+def prefill(params, cfg: ArchConfig, tokens: Optional[torch.Tensor],
             compute_dtype=torch.bfloat16, backend: str = "gather",
             plans=None, drift_threshold=None, return_plans: bool = False,
-            decode_max_len: Optional[int] = None):
+            decode_max_len: Optional[int] = None,
+            cache_len: Optional[int] = None,
+            prefix_embeds: Optional[torch.Tensor] = None):
     """Run the prompt; returns (last_hidden (B, d), cache dict).
 
     `return_plans=True` also returns the per-layer SLAPlan stack; pass it
@@ -550,18 +613,30 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
     prefill. `decode_max_len=` sizes a static decode block grid, makes
     the KV caches that long, and seeds the cache with the incremental
     decode plan and the linear branch's running H/Z state, so that
-    `decode_step` runs decode-time SLA. Return order: (last_hidden,
-    cache[, plans][, drift info]); cache["pos"] is the prompt length."""
+    `decode_step` runs decode-time SLA. `cache_len=` makes the KV caches
+    that long for dense decode (zero past the prompt). The VLM family's
+    `prefix_embeds` (B, P, d) come before the tokens. Return order:
+    (last_hidden, cache[, plans][, drift info]); cache["pos"] is the
+    prompt length (prefix included).
+
+    Under `activation_sharding(mesh, default_residual_spec(mesh, batch,
+    cache length))` the batch is the global one: the last hidden rows are
+    this rank's batch rows (every rank's under context parallelism, from
+    the last data rank), and the cache is this rank's part of it under
+    `sharding.cache_shardings`."""
     dcfg = None
-    s = tokens.shape[1]
+    s = ((0 if tokens is None else tokens.shape[1])
+         + (0 if prefix_embeds is None else prefix_embeds.shape[1]))
     if decode_max_len is not None:
+        ctx.require_unsharded("decode-time SLA (prefill(decode_max_len=))")
         _check_decode_grid(cfg, s, decode_max_len)
         dcfg = cfg.sla.decode_plan_cfg(decode_max_len // cfg.sla.block_kv)
-    out = forward(params, cfg, tokens, compute_dtype=compute_dtype,
-                  backend=backend, return_cache=True, plans=plans,
-                  return_plans=return_plans,
+        cache_len = decode_max_len
+    out = forward(params, cfg, tokens, prefix_embeds=prefix_embeds,
+                  compute_dtype=compute_dtype, backend=backend,
+                  return_cache=True, plans=plans, return_plans=return_plans,
                   drift_threshold=drift_threshold, decode_plan_cfg=dcfg,
-                  cache_len=decode_max_len)
+                  cache_len=cache_len)
     x, (kc, vc) = out[0], out[2]
     extras = list(out[3:])
     cache = {"k": kc, "v": vc, "pos": s}
@@ -570,7 +645,7 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
         cache["sla"] = _seed_decode_state(cfg, kc[..., :s, :],
                                           vc[..., :s, :], decode_mcs,
                                           decode_max_len)
-    return (x[:, -1], cache) + tuple(extras)
+    return (ctx.seq_last(x), cache) + tuple(extras)
 
 
 # --------------------------------------------------------------------------
@@ -698,6 +773,7 @@ def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, carry: dict,
     from repro_torch.core.block_sparse_xla import sla_forward_gather
     from repro_torch.kernels import ops as kops
 
+    ctx.require_unsharded("chunked admission prefill (prefill_chunk)")
     check_chunked_prefill(cfg, backend)
     backend = backend_lib.resolve(backend)
     sla = cfg.sla
@@ -922,36 +998,76 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
     against page-gathered views (dense) or the pools in place (SLA), so
     paged and monolithic decode are bitwise equal. Writes the new token
     into the cache in place and returns (logits (B, V) f32, cache) with
-    the positions advanced."""
+    the positions advanced.
+
+    Under `activation_sharding(mesh, default_residual_spec(mesh, batch,
+    cache length))` (dense decode; decode-time SLA does not run over a
+    mesh of more than one rank) `token` is the global (B,) batch and the
+    cache this rank's part of it under `sharding.cache_shardings`
+    (`prefill`, `make_cache`): the step reads its batch rows of the token
+    (and of a per-slot `pos`, which every rank holds whole), writes the
+    new K/V where its part holds them, and attends by the layout
+    (`distributed/serving.py`): heads over "model" as one device does, a
+    split sequence by a partial softmax and a combine across its ranks.
+    It returns the logits of its batch rows over the whole vocabulary
+    (every rank's rows under context parallelism)."""
     if "sla" in cache:
+        ctx.require_unsharded("decode-time SLA (a cache carrying 'sla')")
         return _decode_step_sla(params, cfg, token, cache, compute_dtype,
                                 backend, drift_threshold)
     paged = "kp" in cache
     vec, pos, _ = _slot_positions(cache)
-    x = params.embed[token[:, None]].to(compute_dtype)
-    b, dev = x.shape[0], x.device
-    positions = (pos.long()[:, None] if vec
-                 else torch.full((b, 1), pos, device=dev))
-    if paged:
-        pt = cache["pt"]
-        wpid, woff = _write_page(cache, pos, cfg.sla.block_kv)
-    kinds = layer_kinds_list(cfg)
-    for li, p in enumerate(params.layers):
-        q, k_new, v_new = _qkv(p, rms_norm(x, p.ln1), cfg, positions)
+    kl = None if paged else _kv_layout(cfg, token.shape[0])
+    sharded = kl is not None and (kl.seq_parts > 1 or not kl.heads_split)
+    if kl is not None:
+        length = cache["k"].shape[3] * kl.seq_parts
+        token = ctx.batch_rows(token)
+        if vec:
+            pos = ctx.batch_rows(pos)  # every rank holds the whole (B,)
+        if cache["k"].shape[1] != token.shape[0]:
+            raise ValueError(
+                f"the cache holds {cache['k'].shape[1]} batch rows on this "
+                f"rank, the step {token.shape[0]}: make it under the same "
+                f"activation_sharding scope")
+    # under context parallelism every data rank decodes every row
+    with (ctx.replicated_tokens() if ctx.seq_parallel()
+          else contextlib.nullcontext()):
+        x = ctx.vocab_lookup(token[:, None], params.embed).to(compute_dtype)
+        b, dev = x.shape[0], x.device
+        positions = (pos.long()[:, None] if vec
+                     else torch.full((b, 1), pos, device=dev))
         if paged:
-            kc, vc = cache["kp"][li], cache["vp"][li]
-            _page_write_kv(kc, k_new, wpid, woff)
-            _page_write_kv(vc, v_new, wpid, woff)
-            kc, vc = _page_gather_kv(kc, pt), _page_gather_kv(vc, pt)
-        else:
-            kc, vc = cache["k"][li], cache["v"][li]
-            _cache_write(kc, k_new, pos)
-            _cache_write(vc, v_new, pos)
-        o = _dense_decode_attn(q, kc, vc, pos, kinds[li], cfg)
-        x = x + o @ p.wo.to(x.dtype)
-        f, _ = _ffn(p, rms_norm(x, p.ln2), cfg)
-        x = x + f
-    x = rms_norm(x, params.ln_f)
+            pt = cache["pt"]
+            wpid, woff = _write_page(cache, pos, cfg.sla.block_kv)
+        kinds = layer_kinds_list(cfg)
+        for li, p in enumerate(params.layers):
+            q, k_new, v_new = _qkv(p, rms_norm(
+                x, ctx.fsdp_gather(p.ln1, "rep")), cfg, positions)
+            if paged:
+                kc, vc = cache["kp"][li], cache["vp"][li]
+                _page_write_kv(kc, k_new, wpid, woff)
+                _page_write_kv(vc, v_new, wpid, woff)
+                kc, vc = _page_gather_kv(kc, pt), _page_gather_kv(vc, pt)
+            else:
+                kc, vc = cache["k"][li], cache["v"][li]
+            if sharded:
+                start, _ = kl.span(length)
+                serving.write_token(kc, k_new, pos, start, length)
+                serving.write_token(vc, v_new, pos, start, length)
+                window = ((cfg.local_window or cfg.sliding_window)
+                          if kinds[li] == KIND_SWA else 0)
+                o = serving.sharded_decode_attn(
+                    q[:, :, 0], kc, vc, pos, kl, length, window)
+                o = o.to(q.dtype).reshape(b, 1, -1)
+            else:
+                if not paged:
+                    _cache_write(kc, k_new, pos)
+                    _cache_write(vc, v_new, pos)
+                o = _dense_decode_attn(q, kc, vc, pos, kinds[li], cfg)
+            x = x + ctx.from_tp(o @ ctx.fsdp_gather(p.wo, "row").to(x.dtype))
+            f, _ = _ffn(p, rms_norm(x, ctx.fsdp_gather(p.ln2, "rep")), cfg)
+            x = x + f
+        x = rms_norm(x, ctx.fsdp_gather(params.ln_f, "rep"))
     _advance(cache, vec)
     return logits_from_hidden(params, x[:, 0]), cache
 
@@ -1218,6 +1334,7 @@ def decode_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict,
     `chunk=` splits a longer token run into sub-chunks of that size.
     Requires a scalar cache["pos"] (aligned static batch); the
     continuous-batching scheduler decodes one token at a time."""
+    ctx.require_unsharded("verify-style decode (decode_chunk)")
     if torch.is_tensor(cache["pos"]) and cache["pos"].ndim > 0:
         raise ValueError(
             "decode_chunk requires a scalar cache['pos'] (aligned "
@@ -1479,14 +1596,20 @@ def make_cache(cfg: ArchConfig, batch: int, max_len: int,
     becomes a (B,) int32 tensor (with its host mirror `pos_host`) and the
     decode-SLA `rows` and counters per-slot (B,) / (L, B), so each batch
     row advances through its own sequence and `insert_slot` can copy a
-    fresh prefill into any slot."""
+    fresh prefill into any slot.
+
+    Under `activation_sharding(mesh, ...)` `batch` is the global batch and
+    the K/V leaves come out as this rank's part under
+    `sharding.cache_shardings`, allocated at that shape only (`pos` stays
+    whole on every rank)."""
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
-    cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
-             "v": torch.zeros(shape, dtype=dtype, device=dev)}
-    _slot_pos(cache, batch, per_slot, dev)
     if decode_sla is None:
         decode_sla = cfg.sla.decode_mode == "sla"
+    if decode_sla:
+        ctx.require_unsharded("decode-time SLA (make_cache(decode_sla=))")
+    kc, vc, _ = _kv_cache(cfg, batch, max_len, dtype, dev, zeros=True)
+    cache = {"k": kc, "v": vc}
+    _slot_pos(cache, batch, per_slot, dev)
     if decode_sla:
         _check_decode_grid(cfg, max_len, max_len)
         cache["sla"] = _empty_decode_state(cfg, batch, max_len, dev,
@@ -1582,6 +1705,7 @@ def make_paged_cache(cfg: ArchConfig, batch: int, max_len: int,
     harmless. Per-slot decode-SLA state (plan rows, totals, live-row LUT,
     counters) keeps the per-slot layout; `pos` is a (B,) tensor with its
     host mirror `pos_host`."""
+    ctx.require_unsharded("paged caches (make_paged_cache)")
     sla = cfg.sla
     if max_len % sla.block_kv:
         raise ValueError(

@@ -24,6 +24,7 @@ import torch.distributed as dist
 from repro_torch.checkpoint import manager
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_arch, get_shape
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.distributed import ctx, elastic, sharding
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps, train
@@ -224,6 +225,144 @@ def case_ckpt_restore(spec, out):
         out[f"m/{n}"] = _full(state["opt"]["m"][n]).numpy()
         out[f"v/{n}"] = _full(state["opt"]["v"][n]).numpy()
     out["step"] = state["opt"]["step"].numpy()
+
+
+def _assemble(parts, spec, sizes):
+    """The global array of a leaf from every rank's (coords, local) part,
+    coords {axis: rank on it}: each dim sharded over axes (major first)
+    takes the part's offset along it."""
+    local0 = parts[0][1]
+    spec = tuple(spec) + (None,) * (local0.ndim - len(spec))
+    axes = [() if n is None else sharding._axes(n) for n in spec]
+    out = np.zeros([dim * int(np.prod([sizes[a] for a in ax]))
+                    for dim, ax in zip(local0.shape, axes)], local0.dtype)
+    for coords, local in parts:
+        idx = []
+        for n, ax in zip(local.shape, axes):
+            k = 0
+            for a in ax:
+                k = k * sizes[a] + coords[a]
+            idx.append(slice(k * n, (k + 1) * n))
+        out[tuple(idx)] = local
+    return out
+
+
+def _every_rank(obj):
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, obj)
+    return got
+
+
+def _serve_one(case, out):
+    """One serving case over its mesh (see case_serve)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import common, transformer
+    name = case["name"]
+    cfg, model = _model(case)
+    mesh = mesh_lib.make_host_mesh(*case["mesh"], "cpu")
+    sizes = sharding.axis_sizes(mesh)
+    coords = {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names}
+    sharding.check_mesh_family(cfg, mesh)
+    data = np.load(case["inputs"])
+    batch = {k: torch.from_numpy(data[k]) for k in data.files
+             if k != "feed"}
+    feed = torch.from_numpy(data["feed"])  # (steps, B) tokens to decode
+    b, length = feed.shape[1], case["cache_len"]
+    dtype = getattr(torch, case["dtype"])
+    # the dry run's cell of this shape: one rank's bytes of its cache as
+    # the rules place it (meta tensors), and the rules' specs
+    shape = ShapeConfig("serve", length, b, "decode")
+    out[f"{name}/dryrun_bytes"] = np.array(dryrun.rank_bytes(
+        dryrun.build_cell(cfg, shape, mesh))["cache"])
+    whole = registry.decode_specs(cfg, shape)[1]
+    specs = sharding.cache_shardings(mesh, whole, b)
+    sharding.place_module(model, mesh)
+    mdl = registry.get_model(cfg)
+    seen, attend = [], mdl.attention
+
+    def recorded(sla_params, q, k, v, kind, *a, **kw):
+        seen.append([q.shape[0], q.shape[1], q.shape[2], k.shape[1],
+                     k.shape[2], kind == "sla"])
+        return attend(sla_params, q, k, v, kind, *a, **kw)
+
+    prefill, decode = transformer.prefill, transformer.decode_step
+    transformer.prefill = functools.partial(prefill, compute_dtype=dtype)
+    transformer.decode_step = functools.partial(decode, compute_dtype=dtype)
+    mdl.attention = recorded
+    residual = ctx.default_residual_spec(mesh, b, length)
+    logits = []
+    try:
+        with torch.no_grad(), ctx.activation_sharding(mesh, residual,
+                                                       remat=False):
+            empty = transformer.make_cache(cfg, b, length,
+                                           dtype=torch.bfloat16,
+                                           device="cpu")
+            out[f"{name}/empty_bytes"] = np.array(sum(
+                empty[key].numel() * empty[key].element_size()
+                for key in ("k", "v")) + 4)
+            hidden, cache = steps.make_prefill_step(
+                cfg, "kernel", cache_len=length)(model, batch)
+            for key in ("k", "v"):
+                want = specs[key].shard_shape(whole[key].shape)
+                assert tuple(empty[key].shape) == want, (key, want)
+                assert tuple(cache[key].shape) == want, (key, want)
+            del empty
+            out[f"{name}/cache_bytes"] = np.array(sum(
+                cache[key].numel() * cache[key].element_size()
+                for key in ("k", "v")) + 4)
+            if case.get("per_slot"):
+                cache["pos"] = torch.tensor(case["per_slot"],
+                                            dtype=torch.int32)
+                cache["pos_host"] = np.array(case["per_slot"], np.int64)
+            logits.append(common.logits_from_hidden(model, hidden))
+            out[f"{name}/prefill_calls"] = np.array(len(seen))
+            serve = steps.make_serve_step(cfg)
+            for tok in feed:
+                step, cache = serve(model, tok, cache)
+                logits.append(step)
+    finally:
+        transformer.prefill, transformer.decode_step = prefill, decode
+        mdl.attention = attend
+    out[f"{name}/attn_shapes"] = np.array(seen)
+    out[f"{name}/residual"] = np.array(repr(residual))
+    out[f"{name}/spec"] = np.array(json.dumps(specs["k"].spec))
+    out[f"{name}/pos"] = np.array(cache["pos"])
+    local = {key: cache[key].float().numpy() for key in ("k", "v")}
+    mine = torch.stack(logits).numpy()  # (1 + steps, B_loc, V)
+    ranks = _every_rank((coords, mine, local))
+    if dist.get_rank():
+        return
+    # the ranks that hold the same rows: one data coordinate's under
+    # data parallelism, every rank under context parallelism
+    dp = b // mine.shape[1]
+    rows = {}
+    for c, lg, _ in ranks:
+        rows.setdefault(c["data"] if dp > 1 else 0, []).append(lg)
+    out[f"{name}/replicated_bitwise"] = np.array(all(
+        np.array_equal(x, group[0])
+        for group in rows.values() for x in group))
+    out[f"{name}/logits"] = np.concatenate(
+        [rows[r][0] for r in sorted(rows)], axis=1)
+    for key in ("k", "v"):
+        out[f"{name}/{key}"] = _assemble(
+            [(c, loc[key]) for c, _, loc in ranks], specs[key].spec, sizes)
+
+
+def case_serve(spec, out):
+    """Sharded serving of every case in `spec["cases"]`, one mesh each over
+    this world: the smoke model from the case's weights placed by the
+    rules, `make_prefill_step(cfg, "kernel", cache_len=)` on the global
+    batch and one `make_serve_step` call per row of the case's `feed`
+    tokens, in the case's compute dtype under `activation_sharding(mesh,
+    default_residual_spec(mesh, batch, cache_len))`. Rank 0 records the
+    logits (every data rank's rows, and whether the ranks holding the same
+    rows returned them bitwise), the caches assembled from every rank's
+    part by the rule's spec, each rank's cache bytes beside the dry run's
+    for that cell, an empty `make_cache`'s, and the attention calls'
+    shapes."""
+    for case in spec["cases"]:
+        _serve_one(case, out)
+        dist.barrier()
 
 
 def main():

@@ -1615,3 +1615,83 @@ def test_train_on_a_1x1_nccl_mesh_is_the_plain_path(arch, tmp_path):
     for (gl, gg), (wl, wg) in zip(got, want):
         assert torch.equal(gl, wl) and torch.equal(gg, wg)
     assert all(torch.equal(got_p[k], want_p[k]) for k in want_p)
+
+
+@pytest.mark.parametrize("spans", [4, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_decode_combine_on_the_card(spans, dtype):
+    """Sharded decode's partial softmax over each span of a card cache
+    and the combine in span order (`distributed/serving.py`) against
+    `_dense_decode_attn` over the whole cache: f32 within 5e-5 x max(1,
+    max |o|), bf16 within 5e-2; shared and per-slot positions, a sliding
+    window on global columns; the combine bitwise on repeat."""
+    _need_gpu()
+    from repro_torch.distributed import serving
+    cfg = dataclasses.replace(get_arch("qwen3-1.7b"), local_window=300)
+    b, h, hkv, n, d = 2, 8, 2, 1024, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(spans)
+    q, kc, vc = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                 for shape in ((b, h, 1, d), (b, hkv, n, d), (b, hkv, n, d)))
+    tol = TWIN_TOL if dtype == torch.float32 else 5e-2
+    step = n // spans
+    for pos in (700, torch.tensor([700, n - 1], device="cuda")):
+        for kind, window in ((transformer.KIND_SLA, 0),
+                             (transformer.KIND_SWA, cfg.local_window)):
+            want = transformer._dense_decode_attn(q, kc, vc, pos, kind, cfg)
+            parts = torch.stack([serving.decode_partial(
+                q[:, :, 0], kc[:, :, i * step:(i + 1) * step],
+                vc[:, :, i * step:(i + 1) * step], pos, i * step, window)
+                for i in range(spans)])
+            got = serving.decode_combine(parts)
+            assert torch.equal(got, serving.decode_combine(parts.clone()))
+            err = float((got.to(dtype).reshape(want.shape).float()
+                         - want.float()).abs().max())
+            assert err <= tol * max(1.0, float(want.float().abs().max()))
+
+
+def test_serve_on_a_1x1_nccl_mesh_is_the_plain_path(tmp_path):
+    """Smoke qwen3 in bf16: `make_prefill_step(cache_len=)` and 4 greedy
+    `make_serve_step` steps on the plain path and with the parameters on
+    a 1 x 1 mesh over NCCL in this process: logits, K/V caches and tokens
+    bitwise equal, and kernel 1 launched once a layer in each prefill."""
+    _need_gpu()
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    cfg = get_arch("qwen3-1.7b").smoke()
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(1))
+
+    def run(mesh):
+        model = transformer.init(torch.Generator("cuda").manual_seed(3), cfg,
+                                 dtype=torch.bfloat16, device="cuda")
+        if mesh is not None:
+            sharding.place_module(model, mesh)
+        residual = (None if mesh is None else ctx.default_residual_spec(
+            mesh, 2, 128))
+        before = sla_fwd.LAUNCHES
+        with torch.no_grad(), ctx.activation_sharding(mesh, residual,
+                                                       remat=False):
+            hidden, cache = steps.make_prefill_step(
+                cfg, "kernel", cache_len=128)(model, {"tokens": toks})
+            launches = sla_fwd.LAUNCHES - before
+            logits = [transformer.logits_from_hidden(model, hidden)]
+            serve = steps.make_serve_step(cfg)
+            for _ in range(4):
+                step, cache = serve(model, logits[-1].argmax(-1), cache)
+                logits.append(step)
+        return torch.stack(logits), cache, launches
+
+    want, want_c, want_n = run(None)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        got, got_c, got_n = run(mesh_lib.make_host_mesh(1, 1, "cuda"))
+    finally:
+        dist.destroy_process_group()
+    assert got_n == want_n == cfg.num_layers
+    assert torch.equal(got, want)
+    assert torch.equal(got_c["k"], want_c["k"])
+    assert torch.equal(got_c["v"], want_c["v"])
+    assert got_c["pos"] == want_c["pos"] == 68
