@@ -462,6 +462,18 @@ Phases, in order; any failure exits non-zero before the result line:
      `_dense_decode_attn` on the whole cache: f32 within 5e-5 x max(1,
      max |o|), bf16 within 5e-2 x max(1, max |o|), the combine bitwise on
      repeat, CUDA-event times beside the whole cache's attention.
+ 35. sharded serving of the other families at world size 1
+     (`phase_serve_mesh_families`, `P35_MODELS`): zamba2-1.2b (2 x 4,096
+     tokens into 4,112-position K/V caches, 16 greedy steps),
+     whisper-small (2 x 4,096 audio frames, 32 greedy steps from start
+     token 0) and rwkv6-7b (2 x 2,048 tokens, 16 greedy steps), each at
+     full width and depth with seeded bf16 weights, through
+     `make_prefill_step(cfg, "kernel", cache_len=)` and `make_serve_step`
+     on the plain path and then with the parameters on `make_host_mesh(1,
+     1)` (one NCCL group of world size 1) under `activation_sharding`:
+     logits, every cache leaf and the greedy tokens bitwise, kernel 1's
+     launches a prefill 7 / 12 / 0 on both paths, all on tensor cores,
+     no decode kernel; walls a step printed for both paths.
  31. the kernels line (JSON): `sla_fwd` carries the split route's fields
      at the top (the f32 serving route) and the f32-FMA and bf16
      tensor-core routes' beside them, kernels 1-3 the D-64 cases of
@@ -660,6 +672,13 @@ P33_MODELS = (("zamba2-1.2b", None, 0), ("whisper-small", None, 1),
 # then the flash-decoding functions over layer 0's cache cut into spans
 P34_BATCH, P34_PROMPT, P34_MAX_LEN, P34_NEW = 2, 32000, 32768, 16
 P34_SPANS = (4, 16)
+# sharded serving of the other families (phase 35), each at full width and
+# depth with bf16 weights on the plain path and over a 1 x 1 mesh: (arch,
+# batch, prompt tokens or audio frames, K/V positions or None for the
+# family's own sizing, greedy decode steps, seed)
+P35_MODELS = (("zamba2-1.2b", 2, 4096, 4112, 16, 35),
+              ("whisper-small", 2, 4096, None, 32, 36),
+              ("rwkv6-7b", 2, 2048, None, 16, 37))
 DEV = torch.device("cuda")
 
 
@@ -6646,28 +6665,33 @@ def phase_family_train_mesh() -> dict:
     return out
 
 
-def _serve_run(cfg, params, toks, path: str) -> dict:
-    """`make_prefill_step(cfg, "kernel", cache_len=P34_MAX_LEN)` on `toks`
-    and P34_NEW greedy `make_serve_step` steps (dense decode, bf16), under
-    the caller's scope. Returns the logits of the prefill and every step
-    (f32, on the card), the greedy tokens, the cache, the walls and kernel
-    1's launches in the prefill (`path` records its head dims)."""
+def _serve_run(cfg, params, batch, cache_len, new: int, path: str) -> dict:
+    """`make_prefill_step(cfg, "kernel", cache_len=)` on `batch` and `new`
+    greedy `make_serve_step` steps (bf16 compute), under the caller's
+    scope: an LM decodes from its prefill's logits, whisper from start
+    token 0 of each row. Returns the logits (f32, on the card), the
+    greedy tokens, the cache, the walls and the kernels' launches in the
+    prefill (`path` records kernel 1's head dims)."""
     prefill = train_steps.make_prefill_step(cfg, "kernel",
-                                            cache_len=P34_MAX_LEN)
+                                            cache_len=cache_len)
     serve = train_steps.make_serve_step(cfg)
+    rows = next(iter(batch.values())).shape[0]
     with torch.no_grad():
         torch.cuda.synchronize()
         _zero_kernel_counts()
         sla_decode.LAUNCHES = sla_decode.PAGED_LAUNCHES = 0
         t0 = time.time()
-        hidden, cache = prefill(params, {"tokens": toks})
-        logits = [logits_from_hidden(params, hidden)]
+        first, cache = prefill(params, batch)
+        logits = ([] if cfg.family == "encdec"
+                  else [logits_from_hidden(params, first)])
+        del first
         torch.cuda.synchronize()
         prefill_s = time.time() - t0
         launches = _kernel_counts([], path)
         tokens, walls = [], []
-        for _ in range(P34_NEW):
-            tok = logits[-1].argmax(-1).to(torch.int32)
+        for _ in range(new):
+            tok = (logits[-1].argmax(-1).to(torch.int32) if logits else
+                   torch.zeros((rows,), dtype=torch.int32, device=DEV))
             tokens.append(tok)
             t0 = time.time()
             step, cache = serve(params, tok, cache)
@@ -6760,7 +6784,8 @@ def phase_serve_mesh() -> dict:
     _redraw(gen, [layer.sla_proj for layer in params.layers])
     toks = torch.randint(0, cfg.vocab_size, (P34_BATCH, P34_PROMPT),
                          generator=gen, device=DEV, dtype=torch.int32)
-    plain = _serve_run(cfg, params, toks, "lm_serve")
+    plain = _serve_run(cfg, params, {"tokens": toks}, P34_MAX_LEN, P34_NEW,
+                       "lm_serve")
     store = tempfile.mkdtemp(dir=ROOT / "build")
     dist.init_process_group("nccl", store=dist.FileStore(
         os.path.join(store, "store"), 1), rank=0, world_size=1)
@@ -6769,7 +6794,8 @@ def phase_serve_mesh() -> dict:
         sharding.place_module(params, mesh)
         residual = actx.default_residual_spec(mesh, P34_BATCH, P34_MAX_LEN)
         with actx.activation_sharding(mesh, residual, remat=False):
-            sharded = _serve_run(cfg, params, toks, "lm_serve_mesh")
+            sharded = _serve_run(cfg, params, {"tokens": toks}, P34_MAX_LEN,
+                                 P34_NEW, "lm_serve_mesh")
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
@@ -6824,6 +6850,131 @@ def phase_serve_mesh() -> dict:
                 plain_launches=launches["plain"], walls=walls,
                 kv_cache_gb=kv_gb, flash=flash,
                 wall_s=time.time() - t_all)
+
+
+def _family_serve_model(arch: str, batch: int, prompt: int, seed: int):
+    """The family's model at full width and depth in bf16 from `seed`
+    (the SLA layers' zero-initialized sla_proj redrawn) and its prefill
+    batch: `batch` prompts of `prompt` tokens, or of whisper's audio
+    frames."""
+    cfg = get_arch(arch)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    mdl = registry.get_model(cfg)
+    params = mdl.init(gen, cfg, dtype=torch.bfloat16, device=DEV)
+    if cfg.family == "hybrid":
+        _redraw(gen, [params.shared_attn.sla_proj])
+    elif cfg.family == "encdec":
+        _redraw(gen, [block.sla_proj for block in params.enc])
+    if cfg.family == "encdec":
+        inputs = {"audio_embeds": torch.randn(
+            (batch, prompt, cfg.d_model), generator=gen, device=DEV)}
+    else:
+        inputs = {"tokens": torch.randint(
+            0, cfg.vocab_size, (batch, prompt), generator=gen, device=DEV,
+            dtype=torch.int32)}
+    return cfg, params, inputs
+
+
+def phase_serve_mesh_families() -> dict:
+    """Phase 35: sharded serving of the hybrid, encdec and ssm families at
+    world size 1 on this card. For each of `P35_MODELS` (zamba2-1.2b,
+    whisper-small and rwkv6-7b at full width and depth, seeded bf16
+    weights) `make_prefill_step` and greedy `make_serve_step` steps on the
+    plain path, then the same with the parameters placed on
+    `make_host_mesh(1, 1)` (one NCCL group through a FileStore under
+    build/, destroyed after) under `activation_sharding(mesh,
+    default_residual_spec(mesh, batch, cache length))`: logits, every
+    cache leaf (SSM states, conv tails, token shifts, K/V) and the greedy
+    tokens bitwise the plain path's; kernel 1's launches a prefill equal
+    on both paths and one a shared-block application (zamba2) or encoder
+    layer (whisper), all on the tensor cores, none for rwkv6; no decode
+    kernel. Returns the summary by arch."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    t_all = time.time()
+    store = tempfile.mkdtemp(dir=ROOT / "build")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(store, "store"), 1), rank=0, world_size=1)
+    out, bad = {}, []
+    try:
+        mesh = mesh_lib.make_host_mesh(1, 1, "cuda")
+        for arch, batch, prompt, cache_len, new, seed in P35_MODELS:
+            t0 = time.time()
+            cfg, params, inputs = _family_serve_model(arch, batch, prompt,
+                                                      seed)
+            path = cfg.family + "_serve"
+            plain = _serve_run(cfg, params, inputs, cache_len, new, path)
+            sharding.place_module(params, mesh)
+            length = cache_len or prompt
+            residual = actx.default_residual_spec(mesh, batch, length)
+            with actx.activation_sharding(mesh, residual, remat=False):
+                sharded = _serve_run(cfg, params, inputs, cache_len, new,
+                                     path + "_mesh")
+            del params, inputs
+            leaves = [k for k, v in plain["cache"].items()
+                      if torch.is_tensor(v)]
+            same = {"logits": torch.equal(sharded["logits"],
+                                          plain["logits"]),
+                    "tokens": torch.equal(sharded["tokens"],
+                                          plain["tokens"])}
+            for key in leaves:
+                same[key] = torch.equal(sharded["cache"][key],
+                                        plain["cache"][key])
+            pos = int(sharded["cache"]["pos"])
+            want_pos = new + (0 if cfg.family == "encdec" else prompt)
+            finite = bool(torch.isfinite(sharded["logits"]).all())
+            napp = {"hybrid": len(hybrid.segments(cfg)),
+                    "encdec": cfg.encoder_layers, "ssm": 0}[cfg.family]
+            want = dict(sla_fwd=napp, tc_sla_fwd=napp, sla_decode=0,
+                        sla_decode_paged=0)
+            runs = {"plain": plain, "mesh 1x1": sharded}
+            launches = {name: {k: run["launches"][k] for k in want}
+                        for name, run in runs.items()}
+            cache_gb = sum(plain["cache"][k].numel()
+                           * plain["cache"][k].element_size()
+                           for k in leaves) / 1e9
+            walls = {}
+            for name, run in runs.items():
+                w = sorted(run["walls"][1:])
+                walls[name] = dict(prefill_s=run["prefill_s"],
+                                   decode_first_s=run["walls"][0],
+                                   decode_ms_min=1e3 * w[0],
+                                   decode_ms_median=1e3 * w[len(w) // 2],
+                                   decode_ms_max=1e3 * w[-1])
+                unit = "frames" if cfg.family == "encdec" else "tokens"
+                say(f"[35 serve mesh] {arch} {name}: prefill {batch} x "
+                    f"{prompt} {unit} ({cache_gb:.3f} GB of cache) "
+                    f"{run['prefill_s']:.3f}s | {new} decode steps: first "
+                    f"{run['walls'][0] * 1e3:.1f} ms, then "
+                    f"{walls[name]['decode_ms_min']:.2f}-"
+                    f"{walls[name]['decode_ms_max']:.2f} ms a step (median "
+                    f"{walls[name]['decode_ms_median']:.2f}) | launches "
+                    f"{launches[name]}")
+            ok = (all(same.values()) and finite and pos == want_pos
+                  and all(v == want for v in launches.values()))
+            say(f"[35 serve mesh] {arch} over make_host_mesh(1, 1): bitwise "
+                f"{same}, finite {finite}, pos {pos} | kernel 1 launches a "
+                f"prefill expected {napp} on tensor cores | "
+                f"{time.time() - t0:.1f}s {'OK' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"{arch}: bitwise {same}, finite {finite}, pos "
+                           f"{pos}, launches {launches}")
+            out[arch] = dict(bitwise=same, launches=launches["mesh 1x1"],
+                             plain_launches=launches["plain"], walls=walls,
+                             cache_gb=cache_gb, wall_s=time.time() - t0)
+            del plain, sharded, runs
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    say(f"[35 serve mesh] {len(P35_MODELS) - len(bad)}/{len(P35_MODELS)} "
+        f"families bitwise over the mesh | {time.time() - t_all:.1f}s "
+        f"{'OK' if not bad else 'FAIL'}")
+    if bad:
+        raise RuntimeError("sharded family serving: " + "; ".join(bad))
+    return out
 
 
 def _tensors(x):
@@ -6937,6 +7088,8 @@ def main(argv=None) -> int:
     fmc = {k: sum(r["launches"][k] for r in fm.values()) for k in mtc}
     sm = phase_serve_mesh()
     smc = sm["launches"]
+    sf = phase_serve_mesh_families()
+    sfc = {k: sum(r["launches"][k] for r in sf.values()) for k in smc}
     rows += d256_fwd + vl_fwd_rows + g3t_fwd_rows
     dec_rows += d256_dec + g3_dec
     pg_rows += d256_pg + g3_pg
@@ -7017,7 +7170,8 @@ def main(argv=None) -> int:
                 "gemma3_train": g3tc["tc_sla_fwd"],
                 "lm_train_mesh": mtc["tc_sla_fwd"],
                 "family_train_mesh": fmc["tc_sla_fwd"],
-                "lm_serve_mesh": smc["tc_sla_fwd"]}
+                "lm_serve_mesh": smc["tc_sla_fwd"],
+                "family_serve_mesh": sfc["tc_sla_fwd"]}
     # the other paths compute in bf16: every launch there is a tensor-core
     # one (phases 9, 12, 15, 17 check), so none is on the split route
     split_paths = {"serve": main_run["split_launches"],
@@ -7032,7 +7186,8 @@ def main(argv=None) -> int:
                    "gemma3_paged_prefill": g3pc["split_sla_fwd"],
                    "danube_prefill": dnc["split_sla_fwd"], "vlm_train": 0,
                    "gemma3_train": 0, "lm_train_mesh": 0,
-                   "family_train_mesh": 0, "lm_serve_mesh": 0}
+                   "family_train_mesh": 0, "lm_serve_mesh": 0,
+                   "family_serve_mesh": 0}
     kernels = [{
         "name": "sla_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sla_fwd_split.cu",
@@ -7046,7 +7201,8 @@ def main(argv=None) -> int:
                      + ed["prefill_launches"] + g3c["sla_fwd"]
                      + g3pc["sla_fwd"] + dnc["sla_fwd"] + vlc["sla_fwd"]
                      + g3tc["sla_fwd"] + mtc["sla_fwd"]
-                     + fmc["sla_fwd"] + smc["sla_fwd"]),
+                     + fmc["sla_fwd"] + smc["sla_fwd"]
+                     + sfc["sla_fwd"]),
         "launches_by_path": {"serve": main_run["launches"],
                              "serve_plan_cache": pc_launches["launches"],
                              "train": train["launches"]["sla_fwd"],
@@ -7068,7 +7224,8 @@ def main(argv=None) -> int:
                              "gemma3_train": g3tc["sla_fwd"],
                              "lm_train_mesh": mtc["sla_fwd"],
                              "family_train_mesh": fmc["sla_fwd"],
-                             "lm_serve_mesh": smc["sla_fwd"]},
+                             "lm_serve_mesh": smc["sla_fwd"],
+                             "family_serve_mesh": sfc["sla_fwd"]},
         **ran_at("sla_fwd"),
         "arch_head_dims": arch_head_dims(
             "wan2_1_1_3b", "lightningdit_1b", LM_ARCH, MOE_ARCH, HY_ARCH,
@@ -7297,7 +7454,7 @@ def main(argv=None) -> int:
         f"{lt} | moe serve {moe} | hybrid {hy} | encdec {ed} | ssm {rw} | "
         f"gemma3 serve {g3} | danube serve {dn} | vlm train {vl} | gemma3 "
         f"train {g3t} | lm train mesh {mt} | family train mesh {fm} | "
-        f"lm serve mesh {sm} | total "
+        f"lm serve mesh {sm} | family serve mesh {sf} | total "
         f"{time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -37,7 +37,9 @@ without sequence parallelism, so `shard_residual` is the identity).
     vocabulary over "model" (`embed`, `unembed`) as this rank's rows
     only: the token lookup and the loss's logits are vocab-parallel.
   * serving: `seq_last` gives every rank the prefill's last hidden row
-    under context parallelism, and `replicated_tokens` scopes a decode
+    under context parallelism (`last_span` any tensor of the last data
+    rank's, such as a recurrent state), `gather_model` every "model"
+    rank's part of a tensor, and `replicated_tokens` scopes a decode
     step whose tokens every data rank holds whole (the cache's sequence
     split over "data": `distributed/serving.py`).
 Every hook is the identity without a mesh. Over a mesh, one with axes of
@@ -395,17 +397,35 @@ def carry_in(end_state: torch.Tensor, log_decay: torch.Tensor
     return torch.stack(entering)[lay.data_rank]
 
 
+def last_span(t: torch.Tensor) -> torch.Tensor:
+    """Under context parallelism the last data rank's `t`, all-gathered so
+    every data rank holds its bits (what the whole sequence leaves: a
+    scan's end state, a conv tail, a token shift); `t` otherwise.
+    Inference only."""
+    lay = layout()
+    if lay is None or lay.seq == 1:
+        return t
+    parts = [torch.empty_like(t) for _ in range(lay.seq)]
+    dist.all_gather(parts, t.contiguous(), group=lay.data_group)
+    return parts[-1]
+
+
 def seq_last(x: torch.Tensor) -> torch.Tensor:
     """x[:, -1] of the whole sequence: under context parallelism the last
     data rank's last row, all-gathered so every rank holds it (the
     prefill's last hidden state); x[:, -1] otherwise. Inference only."""
+    return last_span(x[:, -1])
+
+
+def gather_model(t: torch.Tensor) -> list:
+    """Every "model" rank's `t`, in rank order ([t] without a mesh or
+    with a "model" axis of 1). Inference only."""
     lay = layout()
-    last = x[:, -1]
-    if lay is None or lay.seq == 1:
-        return last
-    parts = [torch.empty_like(last) for _ in range(lay.seq)]
-    dist.all_gather(parts, last.contiguous(), group=lay.data_group)
-    return parts[-1]
+    if lay is None or lay.model == 1:
+        return [t]
+    parts = [torch.empty_like(t) for _ in range(lay.model)]
+    dist.all_gather(parts, t.contiguous(), group=lay.model_group)
+    return parts
 
 
 def seq_parallel() -> bool:

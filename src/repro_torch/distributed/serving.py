@@ -32,12 +32,12 @@ no gradient.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed import sharding
+from repro_torch.distributed import ctx, sharding
 
 NEG_INF = -1e30  # the masked score (`core.masks.NEG_INF`)
 
@@ -108,6 +108,47 @@ def kv_layout(mesh, global_batch: int, num_kv_heads: int) -> KVLayout:
     for axis in (() if batch is None else sharding._axes(batch)):
         dp *= sizes[axis]
     return KVLayout(mesh, spec, heads_split, seq_axes, parts, index, dp)
+
+
+def active_kv_layout(global_batch: int, num_kv_heads: int
+                     ) -> Optional[KVLayout]:
+    """The KV cache's layout on the active mesh (`kv_layout`), held to the
+    residual spec's data parallelism; None without a mesh."""
+    lay = ctx.layout()
+    if lay is None:
+        return None
+    kl = kv_layout(lay.mesh, global_batch, num_kv_heads)
+    if kl.dp != lay.dp:
+        raise ValueError(
+            f"the rules split a batch of {global_batch} over {kl.dp} data "
+            f"ranks, the residual spec over {lay.dp}: scope serving with "
+            f"activation_sharding(mesh, default_residual_spec(mesh, batch, "
+            f"cache length))")
+    return kl
+
+
+def local_shapes(leaves: Dict[str, tuple], global_batch: int
+                 ) -> Dict[str, Tuple[int, ...]]:
+    """This rank's shape of each cache leaf {name: global shape} under
+    `sharding.cache_shardings` on the active mesh (the rules read the
+    leaf's name: "state" or "ssm" marks a recurrent state); the global
+    shapes without a mesh."""
+    lay = ctx.layout()
+    if lay is None:
+        return {name: tuple(shape) for name, shape in leaves.items()}
+    metas = {name: torch.empty(shape, device="meta")
+             for name, shape in leaves.items()}
+    rules = sharding.cache_shardings(lay.mesh, metas, global_batch)
+    return {name: rules[name].shard_shape(shape)
+            for name, shape in leaves.items()}
+
+
+def is_sharded(kl: Optional[KVLayout]) -> bool:
+    """Whether decode attention over a cache of layout `kl` needs the
+    partial softmax and combine (`sharded_decode_attn`): its sequence is
+    split, or every rank holds every KV head. False without a mesh and
+    in layout A, where the one-device math runs on the rank's heads."""
+    return kl is not None and (kl.seq_parts > 1 or not kl.heads_split)
 
 
 # --------------------------------------------------------------------------

@@ -116,14 +116,15 @@ def make_prefill_step(cfg: ArchConfig, backend: str = "gather",
     """`prefill_step(params, batch)`: the family's inference entry at a
     prefill shape (a DiT's is one denoising forward). Returns what the
     reference's does: (last hidden, cache) for the LMs, the velocity for
-    a DiT. `cache_len` makes a dense, MoE or VLM LM's KV caches that long
-    (zero past the prompt) for the decode steps that follow.
+    a DiT. `cache_len` makes a dense, MoE, VLM or hybrid LM's KV caches
+    that long (zero past the prompt) for the decode steps that follow.
 
     Under `activation_sharding(mesh, default_residual_spec(...))` the
-    batch is the global one and the LM's cache comes out as this rank's
-    part under `sharding.cache_shardings` (`transformer.prefill`)."""
+    batch is the global one and the cache comes out as this rank's part
+    under `sharding.cache_shardings` (the family's `prefill`)."""
     mdl = registry.get_model(cfg)
-    if cache_len is not None and cfg.family not in ("dense", "moe", "vlm"):
+    if cache_len is not None and cfg.family not in ("dense", "moe", "vlm",
+                                                    "hybrid"):
         raise ValueError(f"cache_len: the {cfg.family!r} family's prefill "
                          f"sizes its own caches")
 

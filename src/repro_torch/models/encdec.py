@@ -25,10 +25,13 @@ rows.
 Serving: `prefill` encodes the audio and computes every decoder layer's
 cross K/V; `decode_step` runs one text token with masked dense attention
 over the self cache and dense attention over the cross cache, writing
-the self cache IN PLACE (the reference returns a new cache).
+the self cache IN PLACE (the reference returns a new cache). Over the
+mesh each rank keeps its part of both caches under
+`sharding.cache_shardings` (the layouts of `distributed/serving.py`).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional
 
@@ -40,12 +43,12 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import masks as masks_lib
 from repro_torch.core import plan as plan_lib
-from repro_torch.distributed import ctx
+from repro_torch.distributed import ctx, serving
 from repro_torch.models.common import (attention, cache_attention,
                                        chunked_softmax_xent, dense_init,
-                                       embed_init, logits_from_hidden,
-                                       qkv_heads, rms_norm, rope,
-                                       routing_of)
+                                       embed_init, kv_kind,
+                                       logits_from_hidden, qkv_heads,
+                                       rms_norm, rope, routing_of)
 
 
 class EncDecBlock(nn.Module):
@@ -247,34 +250,57 @@ def make_cache(cfg: ArchConfig, batch: int, enc_len: int,
                dec_len: Optional[int] = None, dtype=torch.bfloat16,
                device=None) -> dict:
     """Empty decode cache on `device` (the card unless asked otherwise);
-    `dec_len` defaults to max(enc_len // 8, 64)."""
+    `dec_len` defaults to max(enc_len // 8, 64). Under
+    `activation_sharding(mesh, ...)` `batch` is the global batch and each
+    leaf is allocated at this rank's shape under
+    `sharding.cache_shardings` only (`pos` stays whole on every rank)."""
     dev = resolve_device(device)
     dec_len = dec_len or max(enc_len // 8, 64)
+    kl = serving.active_kv_layout(batch, cfg.num_kv_heads)
+    if kl is not None:
+        kl.check_length(enc_len)
+        kl.check_length(dec_len)
     dl, hkv, dh = cfg.decoder_layers, cfg.num_kv_heads, cfg.head_dim
-    kw = dict(dtype=dtype, device=dev)
-    return {
-        "self_k": torch.zeros((dl, batch, hkv, dec_len, dh), **kw),
-        "self_v": torch.zeros((dl, batch, hkv, dec_len, dh), **kw),
-        "cross_k": torch.zeros((dl, batch, hkv, enc_len, dh), **kw),
-        "cross_v": torch.zeros((dl, batch, hkv, enc_len, dh), **kw),
-        "pos": 0,
-    }
+    shapes = serving.local_shapes({
+        "self_k": (dl, batch, hkv, dec_len, dh),
+        "self_v": (dl, batch, hkv, dec_len, dh),
+        "cross_k": (dl, batch, hkv, enc_len, dh),
+        "cross_v": (dl, batch, hkv, enc_len, dh)}, batch)
+    cache = {name: torch.zeros(shape, dtype=dtype, device=dev)
+             for name, shape in shapes.items()}
+    cache["pos"] = 0
+    return cache
 
 
 def prefill(params, cfg: ArchConfig, batch: dict,
             compute_dtype=torch.bfloat16, backend: str = "gather",
             dec_len: Optional[int] = None):
     """Encode the audio and compute every decoder layer's cross K/V.
-    Returns (encoder states (B, T, d), cache)."""
-    ctx.require_unsharded("the encdec family's serving (prefill)")
-    enc = encode(params, cfg, batch["audio_embeds"], compute_dtype, backend)
-    b, t, _ = enc.shape
-    hkv, dh = cfg.num_kv_heads, cfg.head_dim
+    Returns (encoder states (B, T, d), cache).
+
+    Under `activation_sharding(mesh, default_residual_spec(mesh, batch,
+    frames))` the batch is the global one: the encoder states returned
+    are this rank's rows of them (of the frames under context
+    parallelism), and the cache is this rank's part under
+    `sharding.cache_shardings`: each rank projects the cross K/V of the
+    encoder rows in its span of the cross cache only, at the heads its
+    cache holds."""
+    audio = batch["audio_embeds"]
+    b, t = audio.shape[:2]
+    enc = encode(params, cfg, audio, compute_dtype, backend)
     cache = make_cache(cfg, b, t, dec_len, dtype=compute_dtype,
                        device=enc.device)
+    kl = serving.active_kv_layout(b, cfg.num_kv_heads)
+    lo, n = (0, t) if kl is None else kl.span(t)
+    e0, _ = ctx.seq_span(t)  # the first frame of this rank's rows
+    xs = enc[:, lo - e0:lo - e0 + n]
+    kind = kv_kind(cfg.num_kv_heads)
+    hk = cache["cross_k"].shape[2]
     for li, p in enumerate(params.dec):
-        cache["cross_k"][li] = _proj(enc, p.xk, hkv, dh)
-        cache["cross_v"][li] = _proj(enc, p.xv, hkv, dh)
+        cache["cross_k"][li] = _proj(xs, ctx.fsdp_gather(p.xk, kind), hk,
+                                     cfg.head_dim)
+        cache["cross_v"][li] = _proj(xs, ctx.fsdp_gather(p.xv, kind), hk,
+                                     cfg.head_dim)
     return enc, cache
 
 
@@ -283,29 +309,64 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
     """One text token (B,): causal self-attention over the (small) text
     cache plus cross-attention over the (long) audio cross K/V. Writes
     the self cache in place; returns (logits (B, V) f32, cache) with
-    `pos` advanced."""
-    ctx.require_unsharded("the encdec family's serving (decode_step)")
-    x = F.embedding(token[:, None], params.embed).to(compute_dtype)
-    b = x.shape[0]
+    `pos` advanced.
+
+    Under `activation_sharding(mesh, ...)` `token` is the global batch and
+    the cache this rank's part (`prefill`, `make_cache`): the step reads
+    its batch rows, writes the new K/V where its part of the self cache
+    holds them and attends by the layout (`distributed/serving.py`); the
+    cross-attention is the same partial softmax with every column
+    visible. Under context parallelism every data rank decodes every row.
+    Returns this rank's rows' logits over the whole vocabulary."""
+    kl = serving.active_kv_layout(token.shape[0], cfg.num_kv_heads)
+    parts = kl.seq_parts if kl is not None else 1
+    dec_len = cache["self_k"].shape[3] * parts
+    enc_len = cache["cross_k"].shape[3] * parts
+    sharded = serving.is_sharded(kl)
+    token = ctx.batch_rows(token)
+    if cache["self_k"].shape[1] != token.shape[0]:
+        raise ValueError(
+            f"the cache holds {cache['self_k'].shape[1]} batch rows on this "
+            f"rank, the step {token.shape[0]}: make it under the same "
+            f"activation_sharding scope")
     pos = int(cache["pos"])
-    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    positions = torch.full((b, 1), pos, device=x.device)
-    for li, p in enumerate(params.dec):
-        sk, sv = cache["self_k"][li], cache["self_v"][li]
-        xn = rms_norm(x, p.ln1)
-        q = rope(_proj(xn, p.wq, h, dh), positions, cfg.rope_theta)
-        kn = rope(_proj(xn, p.wk, hkv, dh), positions, cfg.rope_theta)
-        sk[:, :, pos] = kn[:, :, 0].to(sk.dtype)
-        sv[:, :, pos] = _proj(xn, p.wv, hkv, dh)[:, :, 0].to(sv.dtype)
-        o = cache_attention(q, sk, sv, pos).transpose(1, 2) \
-            .reshape(b, 1, h * dh)
-        x = x + o @ p.wo.to(x.dtype)
-        xq = _proj(rms_norm(x, p.ln_x), p.xq, h, dh)
-        xo = cache_attention(xq, cache["cross_k"][li],
-                             cache["cross_v"][li]).transpose(1, 2) \
-            .reshape(b, 1, h * dh)
-        x = x + xo @ p.xo.to(x.dtype)
-        x = x + _mlp(p, rms_norm(x, p.ln2))
-    x = rms_norm(x, params.ln_f)
+    with (ctx.replicated_tokens() if ctx.seq_parallel()
+          else contextlib.nullcontext()):
+        x = ctx.vocab_lookup(token[:, None], params.embed).to(compute_dtype)
+        b = x.shape[0]
+        positions = torch.full((b, 1), pos, device=x.device)
+        for li, p in enumerate(params.dec):
+            sk, sv = cache["self_k"][li], cache["self_v"][li]
+            ck, cv = cache["cross_k"][li], cache["cross_v"][li]
+            xn = ctx.to_tp(_norm(x, p.ln1))
+            q, kn, vn = qkv_heads(xn, xn, p.wq, p.wk, p.wv, cfg, pick=False)
+            q = rope(q, positions, cfg.rope_theta)
+            kn = rope(kn, positions, cfg.rope_theta)
+            if sharded:
+                start, _ = kl.span(dec_len)
+                serving.write_token(sk, kn, pos, start, dec_len)
+                serving.write_token(sv, vn, pos, start, dec_len)
+                o = serving.sharded_decode_attn(q[:, :, 0], sk, sv, pos, kl,
+                                                dec_len).to(q.dtype)
+            else:
+                sk[:, :, pos] = kn[:, :, 0].to(sk.dtype)
+                sv[:, :, pos] = vn[:, :, 0].to(sv.dtype)
+                o = cache_attention(q, sk, sv, pos)[:, :, 0]
+            x = x + ctx.from_tp(o.reshape(b, 1, -1) @ ctx.fsdp_gather(
+                p.wo, "row").to(x.dtype))
+            xq = ctx.to_tp(_norm(x, p.ln_x))
+            xq = _proj(xq, ctx.fsdp_gather(p.xq, "col"), q.shape[1],
+                       cfg.head_dim)
+            if sharded:
+                # no mask: the last position leaves every column visible
+                xo = serving.sharded_decode_attn(
+                    xq[:, :, 0], ck, cv, enc_len - 1, kl, enc_len
+                ).to(xq.dtype)
+            else:
+                xo = cache_attention(xq, ck, cv)[:, :, 0]
+            x = x + ctx.from_tp(xo.reshape(b, 1, -1) @ ctx.fsdp_gather(
+                p.xo, "row").to(x.dtype))
+            x = x + _mlp(p, _norm(x, p.ln2))
+        x = _norm(x, params.ln_f)
     cache["pos"] = pos + 1
     return logits_from_hidden(params, x[:, 0]), cache

@@ -17,7 +17,10 @@ as the transformer's layers are (`wq` / `wk` / `wv` and `mlp_wi`
 column-parallel, `wo`, `mlp_wo` and `sla_proj` row-parallel); under
 context parallelism its attention plans and attends over the whole
 sequence (`ctx.gather_seq`), and the Mamba2 layers pass their conv tail
-and scan state along it.
+and scan state along it. Serving (`prefill`, `make_cache`, `decode_step`)
+runs over the mesh too: each rank keeps its part of the cache under
+`sharding.cache_shardings` (its SSM heads, the whole conv tail, the K/V
+in the layouts of `distributed/serving.py`).
 
 The parameters live in `nn.Module`s in the reference's layout (`x @ W`);
 the reference's segment scans are Python loops. `decode_step` writes the
@@ -27,6 +30,7 @@ advanced.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -37,13 +41,13 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import masks as masks_lib
 from repro_torch.core import plan as plan_lib
-from repro_torch.distributed import ctx
+from repro_torch.distributed import ctx, serving
 from repro_torch.models import mamba2
 from repro_torch.models.common import (attention, cache_attention,
                                        chunked_softmax_xent, dense_init,
-                                       embed_init, logits_from_hidden,
-                                       qkv_heads, rms_norm, rope,
-                                       routing_of)
+                                       embed_init, local_kv_heads,
+                                       logits_from_hidden, qkv_heads,
+                                       rms_norm, rope, routing_of)
 
 
 class SharedAttn(nn.Module):
@@ -104,25 +108,41 @@ def segments(cfg: ArchConfig) -> list:
 
 
 def _shared_block(p, x, cfg: ArchConfig, positions, backend,
-                  kv_cache=None, pos=None):
+                  kv_cache=None, pos=None, kl=None, length=None):
     """The shared SLA-attention transformer block. Returns (x, (k, v)):
-    the K/V this call computed (prefill), or the cache it wrote into
-    (decode, `kv_cache` given). Under a mesh, this "model" rank's heads;
-    under context parallelism q, k and v are gathered to the whole
-    sequence and this rank keeps its rows of the output."""
+    the K/V this call computed at the heads a cache holds (prefill), or
+    the cache it wrote into (decode, `kv_cache` given). Under a mesh,
+    this "model" rank's query heads, and its KV heads or all of them
+    (`common.qkv_heads(pick=False)`); under context parallelism q, k and
+    v are gathered to the whole sequence and this rank keeps its rows of
+    the output. In decode `kl` is the cache's layout on the mesh (None
+    without one) and `length` its global positions: a split sequence or
+    whole KV heads attend by the partial softmax and combine
+    (`distributed/serving.py`)."""
     b, s, _ = x.shape
     xn = ctx.to_tp(rms_norm(x, ctx.fsdp_gather(p.ln1, "rep")))
-    q, k, v = qkv_heads(xn, xn, p.wq, p.wk, p.wv, cfg)
+    q, k, v = qkv_heads(xn, xn, p.wq, p.wk, p.wv, cfg, pick=False)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if kv_cache is not None:
         kc, vc = kv_cache
-        kc[:, :, pos] = k[:, :, 0].to(kc.dtype)
-        vc[:, :, pos] = v[:, :, 0].to(vc.dtype)
+        if serving.is_sharded(kl):
+            start, _ = kl.span(length)
+            serving.write_token(kc, k, pos, start, length)
+            serving.write_token(vc, v, pos, start, length)
+            o = serving.sharded_decode_attn(q[:, :, 0], kc, vc, pos, kl,
+                                            length)
+            o = o.to(q.dtype)[:, :, None]
+        else:
+            kc[:, :, pos] = k[:, :, 0].to(kc.dtype)
+            vc[:, :, pos] = v[:, :, 0].to(vc.dtype)
+            o = cache_attention(q, kc, vc, pos)
         new_cache = (kc, vc)
-        o = cache_attention(q, kc, vc, pos)
     else:
         q, k, v = (ctx.gather_seq(t, 2) for t in (q, k, v))
+        new_cache = (k, v)
+        k = local_kv_heads(k, cfg.num_heads, cfg.num_kv_heads)
+        v = local_kv_heads(v, cfg.num_heads, cfg.num_kv_heads)
         routing = routing_of(p)
         sla = cfg.sla.replace(causal=True)
         plan = (None if sla.mode in ("full", "linear_only")
@@ -131,7 +151,6 @@ def _shared_block(p, x, cfg: ArchConfig, positions, backend,
                       v, "sla", cfg.sla, causal=True, backend=backend,
                       plan=plan, routing=routing)
         o = ctx.seq_rows(o, dim=2)
-        new_cache = (k, v)
     o = o.transpose(1, 2).reshape(b, s, -1)
     x = x + ctx.from_tp(o @ ctx.fsdp_gather(p.wo, "row").to(x.dtype))
     xn2 = ctx.to_tp(rms_norm(x, ctx.fsdp_gather(p.ln2, "rep")))
@@ -148,18 +167,59 @@ def _mamba_layer(x, p, cfg):
     return ctx.shard_residual(x + out), st, tail
 
 
+def _whole_tail(tail: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The cache's whole conv tail from this "model" rank's channels:
+    every rank's gathered over "model" and put in the reference's order
+    (`mamba2.whole_tail`)."""
+    return mamba2.whole_tail(ctx.gather_model(tail), cfg)
+
+
+def _cache_leaves(cfg: ArchConfig, batch: int, length: int) -> dict:
+    """{leaf: global shape} of a decode cache of `batch` rows whose K/V
+    hold `length` positions."""
+    h, pd, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    kv = (len(segments(cfg)), batch, cfg.num_kv_heads, length,
+          cfg.head_dim)
+    return {"ssm": (cfg.num_layers, batch, h, n, pd),
+            "conv": (cfg.num_layers, batch, cfg.conv_kernel - 1,
+                     h * pd + 2 * n),
+            "attn_k": kv, "attn_v": kv}
+
+
+def _alloc(cfg: ArchConfig, batch: int, length: int, dtype, device,
+           zeros: bool = True):
+    """A decode cache (no `pos`) with each leaf at this rank's shape under
+    `sharding.cache_shardings` on the active mesh (the whole cache
+    without one): the SSM state in f32, the rest in `dtype`. Returns it
+    and this rank's span of the K/V positions (first, count)."""
+    kl = serving.active_kv_layout(batch, cfg.num_kv_heads)
+    span = (0, length)
+    if kl is not None:
+        kl.check_length(length)
+        span = kl.span(length)
+    shapes = serving.local_shapes(_cache_leaves(cfg, batch, length), batch)
+    make = torch.zeros if zeros else torch.empty
+    return {name: make(shape, dtype=torch.float32 if name == "ssm"
+                       else dtype, device=device)
+            for name, shape in shapes.items()}, span
+
+
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
             compute_dtype=torch.bfloat16, backend: str = "gather",
-            return_cache: bool = False):
+            return_cache: bool = False, cache_len: Optional[int] = None):
     """Hidden states (B, S, d) and a zero aux loss; with `return_cache`
     also the decode cache: per-layer SSM states and conv tails, and the
-    shared block's K/V at each application (nseg, B, Hkv, S, Dh). Under
+    shared block's K/V at each application (nseg, B, Hkv, L, Dh), L the
+    prompt's length or `cache_len` (zero past the prompt). Under
     `activation_sharding(mesh, ...)` the batch is the global one and this
     rank keeps its rows of it (or of the sequence, with global rope
-    positions); the hidden states returned are those rows."""
-    if return_cache:
-        ctx.require_unsharded(
-            "the hybrid family's serving (forward(return_cache=))")
+    positions); the hidden states returned are those rows, and the cache
+    is this rank's part under `sharding.cache_shardings`: its batch rows,
+    its SSM heads, the whole conv tail, its KV heads or all of them and
+    its span of the positions. Under context parallelism the states and
+    tails are the whole sequence's (the last data rank's) on every
+    rank."""
+    global_batch, s_all = tokens.shape
     tokens = ctx.batch_rows(tokens)
     x = ctx.vocab_lookup(tokens, params.embed).to(compute_dtype)
     start, _ = ctx.seq_span(x.shape[1])
@@ -167,10 +227,17 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     b, s = x.shape[:2]
     positions = torch.arange(start, start + s,
                              device=x.device)[None, :].expand(b, s)
-    states, tails, ks, vs = [], [], [], []
+    if return_cache:
+        length = max(s_all, cache_len or s_all)
+        cache, (lo, span) = _alloc(cfg, global_batch, length,
+                                   compute_dtype, x.device,
+                                   zeros=length > s_all)
+        # the prompt's positions in this rank's span
+        written = min(span, max(0, s_all - lo))
+        states, tails = [], []
     layer = ctx.maybe_remat(lambda x, p: _mamba_layer(x, p, cfg))
     start = 0
-    for seg in segments(cfg):
+    for si, seg in enumerate(segments(cfg)):
         for p in params.layers[start:start + seg]:
             x, st, tail = layer(x, p)
             if return_cache:
@@ -179,16 +246,17 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
             del st, tail
         x, (k, v) = _shared_block(params.shared_attn, x, cfg, positions,
                                   backend)
-        if return_cache:
-            ks.append(k)
-            vs.append(v)
+        if return_cache and written:
+            cache["attn_k"][si, :, :, :written] = k[:, :, lo:lo + written]
+            cache["attn_v"][si, :, :, :written] = v[:, :, lo:lo + written]
         del k, v
         start += seg
     x = rms_norm(x, ctx.fsdp_gather(params.ln_f, "rep"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_cache:
-        cache = {"ssm": torch.stack(states), "conv": torch.stack(tails),
-                 "attn_k": torch.stack(ks), "attn_v": torch.stack(vs)}
+        cache["ssm"].copy_(ctx.last_span(torch.stack(states)))
+        cache["conv"].copy_(_whole_tail(ctx.last_span(torch.stack(tails)),
+                                        cfg))
         return x, aux, cache
     return x, aux
 
@@ -208,58 +276,80 @@ def loss_fn(params, cfg: ArchConfig, batch: dict,
 
 def make_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """Empty decode cache on `device` (the card unless asked otherwise)."""
-    dev = resolve_device(device)
-    h, pd, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    nseg = len(segments(cfg))
-    d_conv = h * pd + 2 * n
-    kv = (nseg, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
-    return {
-        "ssm": torch.zeros((cfg.num_layers, batch, h, n, pd),
-                           dtype=torch.float32, device=dev),
-        "conv": torch.zeros((cfg.num_layers, batch, cfg.conv_kernel - 1,
-                             d_conv), dtype=dtype, device=dev),
-        "attn_k": torch.zeros(kv, dtype=dtype, device=dev),
-        "attn_v": torch.zeros(kv, dtype=dtype, device=dev),
-        "pos": 0,
-    }
+    """Empty decode cache on `device` (the card unless asked otherwise).
+    Under `activation_sharding(mesh, ...)` `batch` is the global batch and
+    each leaf is allocated at this rank's shape under
+    `sharding.cache_shardings` only (`pos` stays whole on every rank)."""
+    cache, _ = _alloc(cfg, batch, max_len, dtype, resolve_device(device))
+    cache["pos"] = 0
+    return cache
 
 
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
-            compute_dtype=torch.bfloat16, backend: str = "gather"):
+            compute_dtype=torch.bfloat16, backend: str = "gather",
+            cache_len: Optional[int] = None):
     """Run the prompt; returns (last hidden (B, d), cache) with
     cache["pos"] the prompt length. The K/V caches are the prompt's
-    length: grow them along axis 3 before decoding past it."""
+    length, as the reference's, or `cache_len` long (zero past the
+    prompt) for the decode steps that follow. Under
+    `activation_sharding(mesh, default_residual_spec(mesh, batch, cache
+    length))` the batch is the global one: the last hidden rows are this
+    rank's batch rows (every rank's under context parallelism) and the
+    cache is this rank's part (`forward`)."""
     x, _, cache = forward(params, cfg, tokens, compute_dtype, backend,
-                          return_cache=True)
+                          return_cache=True, cache_len=cache_len)
     cache["pos"] = tokens.shape[1]
-    return x[:, -1], cache
+    return ctx.seq_last(x), cache
 
 
 def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
                 compute_dtype=torch.bfloat16):
     """One token: O(1) Mamba state updates plus O(S) shared-attention
     reads of the cache. token: (B,) int. Writes the cache in place and
-    returns (logits (B, V) f32, cache) with `pos` advanced."""
-    ctx.require_unsharded("the hybrid family's serving (decode_step)")
-    x = F.embedding(token[:, None], params.embed).to(compute_dtype)
-    b = x.shape[0]
+    returns (logits (B, V) f32, cache) with `pos` advanced.
+
+    Under `activation_sharding(mesh, default_residual_spec(mesh, batch,
+    cache length))` `token` is the global batch and the cache this rank's
+    part of it (`prefill`, `make_cache`): the Mamba layers step this
+    rank's SSM heads from its channels of the whole conv tail and put
+    every rank's new channels back; the shared block attends by the K/V
+    layout (`distributed/serving.py`). Under context parallelism every
+    data rank decodes every row. Returns the logits of this rank's rows
+    over the whole vocabulary."""
+    kl = serving.active_kv_layout(token.shape[0], cfg.num_kv_heads)
+    length = cache["attn_k"].shape[3] * (kl.seq_parts if kl else 1)
+    token = ctx.batch_rows(token)
+    if cache["attn_k"].shape[1] != token.shape[0]:
+        raise ValueError(
+            f"the cache holds {cache['attn_k'].shape[1]} batch rows on "
+            f"this rank, the step {token.shape[0]}: make it under the same "
+            f"activation_sharding scope")
     pos = int(cache["pos"])
-    positions = torch.full((b, 1), pos, device=x.device)
-    start = 0
-    for si, seg in enumerate(segments(cfg)):
-        for li in range(start, start + seg):
-            p = params.layers[li]
-            out, (st, tail) = mamba2.mamba_apply(
-                p, rms_norm(x, p.ln), cfg, conv_tail=cache["conv"][li],
-                state=cache["ssm"][li])
-            x = x + out
-            cache["ssm"][li] = st
-            cache["conv"][li] = tail.to(cache["conv"].dtype)
-        x, _ = _shared_block(
-            params.shared_attn, x, cfg, positions, "gather",
-            kv_cache=(cache["attn_k"][si], cache["attn_v"][si]), pos=pos)
-        start += seg
-    x = rms_norm(x, params.ln_f)
+    # under context parallelism every data rank decodes every row
+    with (ctx.replicated_tokens() if ctx.seq_parallel()
+          else contextlib.nullcontext()):
+        rank, m = ctx.model_rank_size()
+        x = ctx.vocab_lookup(token[:, None], params.embed).to(compute_dtype)
+        b = x.shape[0]
+        positions = torch.full((b, 1), pos, device=x.device)
+        start = 0
+        for si, seg in enumerate(segments(cfg)):
+            for li in range(start, start + seg):
+                p = params.layers[li]
+                out, (st, tail) = mamba2.mamba_apply(
+                    p, rms_norm(x, ctx.fsdp_gather(p.ln, "rep")), cfg,
+                    conv_tail=mamba2.rank_tail(cache["conv"][li], cfg, rank,
+                                               m),
+                    state=cache["ssm"][li])
+                x = x + out
+                cache["ssm"][li] = st
+                cache["conv"][li] = _whole_tail(tail, cfg).to(
+                    cache["conv"].dtype)
+            x, _ = _shared_block(
+                params.shared_attn, x, cfg, positions, "gather",
+                kv_cache=(cache["attn_k"][si], cache["attn_v"][si]),
+                pos=pos, kl=kl, length=length)
+            start += seg
+        x = rms_norm(x, ctx.fsdp_gather(params.ln_f, "rep"))
     cache["pos"] = pos + 1
     return logits_from_hidden(params, x[:, 0]), cache

@@ -20,7 +20,9 @@ whole d_inner sums over "model" (`ctx.sum_model`); `out_proj` is
 row-parallel. Under context parallelism the conv's tail is the previous
 rank's last K - 1 inputs (`ctx.halo`) and the scan starts from the state
 entering this rank (`linear_scan`). Without a mesh the slices are the
-whole tensors.
+whole tensors. In serving the cache holds the whole conv tail on every
+"model" rank: `rank_tail` slices a rank's channels out of it and
+`whole_tail` puts every rank's back in the reference's order.
 """
 from __future__ import annotations
 
@@ -92,6 +94,36 @@ def _cols(t: torch.Tensor, spans) -> torch.Tensor:
     return torch.cat([t.narrow(-1, a, w) for a, w in spans], dim=-1)
 
 
+def conv_spans(cfg: ArchConfig, rank: int, m: int) -> list:
+    """(start, width) spans of the conv channels (x of every head, then B,
+    then C: the reference's order) that "model" rank `rank` of `m` runs:
+    its heads' x channels, and all of B and C."""
+    di = cfg.ssm_heads // m * cfg.ssm_head_dim
+    d_inner = cfg.ssm_heads * cfg.ssm_head_dim
+    return [(rank * di, di), (d_inner, 2 * cfg.ssm_state)]
+
+
+def rank_tail(whole: torch.Tensor, cfg: ArchConfig, rank: int, m: int
+              ) -> torch.Tensor:
+    """This "model" rank's channels of a whole conv tail (..., d_conv):
+    the tail `mamba_apply` reads under the mesh."""
+    if m == 1:
+        return whole
+    return _cols(whole, conv_spans(cfg, rank, m))
+
+
+def whole_tail(parts, cfg: ArchConfig) -> torch.Tensor:
+    """The whole conv tail (..., d_conv) in the reference's channel order
+    from every "model" rank's tail (`rank_tail`'s layout), in rank order:
+    each rank's x channels in turn, then B and C from rank 0, so that
+    every rank that assembles them holds the same bits."""
+    if len(parts) == 1:
+        return parts[0]
+    di = cfg.ssm_heads // len(parts) * cfg.ssm_head_dim
+    return torch.cat([p[..., :di] for p in parts] + [parts[0][..., di:]],
+                     dim=-1)
+
+
 def _split_rms_norm(y: torch.Tensor, w: torch.Tensor, width: int,
                     eps: float = 1e-6) -> torch.Tensor:
     """`common.rms_norm` over a last dim of `width` columns of which y
@@ -124,8 +156,7 @@ def mamba_apply(p, x: torch.Tensor, cfg: ArchConfig,
     w_in = _cols(ctx.fsdp_gather(p.in_proj, "tp"), spans)
     zxbcdt = x @ w_in.to(x.dtype)
     z, xc, bb, cc, dt = torch.split(zxbcdt, [di, di, n, n, h], dim=-1)
-    conv_w = _cols(ctx.fsdp_gather(p.conv, "tp"),
-                   [(rank * di, di), (d_inner, 2 * n)])
+    conv_w = _cols(ctx.fsdp_gather(p.conv, "tp"), conv_spans(cfg, rank, m))
     xbc = torch.cat([xc, bb, cc], dim=-1)
     if conv_tail is None:
         conv_tail = ctx.halo(xbc, conv_w.shape[0] - 1)

@@ -17,7 +17,9 @@ channel mix's `ck` column- and `cv` row-parallel, its receptance gate
 computed whole on every rank (`cr` read alike: it multiplies the whole
 d). Under context parallelism the token shifts read the previous rank's
 last row (`ctx.halo`) and the scan starts from the state entering this
-rank (`linear_scan`).
+rank (`linear_scan`). Serving runs over the mesh too: each rank's cache
+is its part under `sharding.cache_shardings` (the state's heads over
+"model", the token shifts whole on every "model" rank).
 
 The parameters live in `nn.Module`s in the reference's layout; its layer
 scan is a Python loop, each layer rematerialized in training
@@ -26,6 +28,7 @@ and returns the same dict with `pos` advanced.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -34,7 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed import ctx
+from repro_torch.distributed import ctx, serving
 from repro_torch.models.common import (chunked_softmax_xent, dense_init,
                                        embed_init, logits_from_hidden,
                                        rms_norm)
@@ -188,10 +191,10 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     input) stacked over layers. `backend` is accepted and unused: no
     layer attends. Under `activation_sharding(mesh, ...)` the batch is
     the global one and this rank keeps its rows of it (or of the
-    sequence); the hidden states returned are those rows."""
-    if return_cache:
-        ctx.require_unsharded(
-            "the ssm family's serving (forward(return_cache=))")
+    sequence); the hidden states returned are those rows, the states
+    this rank's heads of its rows, the token shifts whole. Under context
+    parallelism the caches are the whole sequence's (the last data
+    rank's) on every rank."""
     x = ctx.vocab_lookup(ctx.batch_rows(tokens), params.embed) \
         .to(compute_dtype)
     x = ctx.seq_rows(x)
@@ -205,7 +208,8 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     x = rms_norm(x, ctx.fsdp_gather(params.ln_f, "rep"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_cache:
-        return x, aux, tuple(torch.stack(t) for t in zip(*caches))
+        return x, aux, tuple(ctx.last_span(torch.stack(t))
+                             for t in zip(*caches))
     return x, aux
 
 
@@ -221,49 +225,71 @@ def loss_fn(params, cfg: ArchConfig, batch: dict,
         None if mask is None else ctx.local_tokens(mask))
 
 
+def _cache_leaves(cfg: ArchConfig, batch: int) -> dict:
+    """{leaf: global shape} of a decode cache of `batch` rows."""
+    d, h, nl = cfg.d_model, _heads(cfg), cfg.num_layers
+    return {"state": (nl, batch, h, d // h, d // h),
+            "x1": (nl, batch, 1, d), "x2": (nl, batch, 1, d)}
+
+
 def make_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
     """Empty decode cache (a constant-size recurrent state whatever
-    `max_len`) on `device` (the card unless asked otherwise)."""
+    `max_len`) on `device` (the card unless asked otherwise). Under
+    `activation_sharding(mesh, ...)` `batch` is the global batch and each
+    leaf is allocated at this rank's shape under
+    `sharding.cache_shardings` only: the state's heads over "model", the
+    token shifts whole, both over the batch's data ranks."""
     dev = resolve_device(device)
-    d = cfg.d_model
-    h = _heads(cfg)
-    dh = d // h
-    nl = cfg.num_layers
-    return {
-        "state": torch.zeros((nl, batch, h, dh, dh), dtype=torch.float32,
-                             device=dev),
-        "x1": torch.zeros((nl, batch, 1, d), dtype=dtype, device=dev),
-        "x2": torch.zeros((nl, batch, 1, d), dtype=dtype, device=dev),
-        "pos": 0,
-    }
+    shapes = serving.local_shapes(_cache_leaves(cfg, batch), batch)
+    cache = {name: torch.zeros(shape, dtype=torch.float32 if name == "state"
+                               else dtype, device=dev)
+             for name, shape in shapes.items()}
+    cache["pos"] = 0
+    return cache
 
 
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
             compute_dtype=torch.bfloat16, backend: str = "gather"):
-    """Run the prompt; returns (last hidden (B, d), cache)."""
+    """Run the prompt; returns (last hidden (B, d), cache). Under
+    `activation_sharding(mesh, default_residual_spec(...))` the batch is
+    the global one: the last hidden rows are this rank's batch rows
+    (every rank's under context parallelism) and the cache this rank's
+    part under `sharding.cache_shardings` (`forward`)."""
     x, _, (st, x1, x2) = forward(params, cfg, tokens, compute_dtype,
                                  return_cache=True)
     cache = {"state": st, "x1": x1, "x2": x2, "pos": tokens.shape[1]}
-    return x[:, -1], cache
+    return ctx.seq_last(x), cache
 
 
 def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
                 compute_dtype=torch.bfloat16):
     """O(1)-state decode of one token (B,). Writes the cache in place and
-    returns (logits (B, V) f32, cache) with `pos` advanced."""
-    ctx.require_unsharded("the ssm family's serving (decode_step)")
-    x = F.embedding(token[:, None], params.embed).to(compute_dtype)
-    for li, p in enumerate(params.layers):
-        a, (st, x1) = _time_mix(p, rms_norm(x, p.ln1), cfg,
-                                prev=cache["x1"][li],
-                                state=cache["state"][li])
-        x = x + a
-        f, x2 = _channel_mix(p, rms_norm(x, p.ln2), prev=cache["x2"][li])
-        x = x + f
-        cache["state"][li] = st
-        cache["x1"][li] = x1.to(cache["x1"].dtype)
-        cache["x2"][li] = x2.to(cache["x2"].dtype)
-    x = rms_norm(x, params.ln_f)
+    returns (logits (B, V) f32, cache) with `pos` advanced. Under
+    `activation_sharding(mesh, ...)` `token` is the global batch, the
+    cache this rank's part, and the logits this rank's rows over the
+    whole vocabulary; under context parallelism every data rank decodes
+    every row."""
+    token = ctx.batch_rows(token)
+    if cache["x1"].shape[1] != token.shape[0]:
+        raise ValueError(
+            f"the cache holds {cache['x1'].shape[1]} batch rows on this "
+            f"rank, the step {token.shape[0]}: make it under the same "
+            f"activation_sharding scope")
+    with (ctx.replicated_tokens() if ctx.seq_parallel()
+          else contextlib.nullcontext()):
+        x = ctx.vocab_lookup(token[:, None], params.embed).to(compute_dtype)
+        for li, p in enumerate(params.layers):
+            a, (st, x1) = _time_mix(
+                p, rms_norm(x, ctx.fsdp_gather(p.ln1, "rep")), cfg,
+                prev=cache["x1"][li], state=cache["state"][li])
+            x = x + a
+            f, x2 = _channel_mix(p, rms_norm(
+                x, ctx.fsdp_gather(p.ln2, "rep")), prev=cache["x2"][li])
+            x = x + f
+            cache["state"][li] = st
+            cache["x1"][li] = x1.to(cache["x1"].dtype)
+            cache["x2"][li] = x2.to(cache["x2"].dtype)
+        x = rms_norm(x, ctx.fsdp_gather(params.ln_f, "rep"))
     cache["pos"] = int(cache["pos"]) + 1
     return logits_from_hidden(params, x[:, 0]), cache

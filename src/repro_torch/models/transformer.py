@@ -307,24 +307,6 @@ def _ffn(p, x, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
 # --------------------------------------------------------------------------
 # forward
 # --------------------------------------------------------------------------
-def _kv_layout(cfg: ArchConfig, global_batch: int
-               ) -> Optional[serving.KVLayout]:
-    """The KV cache's layout on the active mesh (`serving.kv_layout`, the
-    rules of `sharding.cache_shardings`), held to the residual spec's data
-    parallelism; None without a mesh."""
-    lay = ctx.layout()
-    if lay is None:
-        return None
-    kl = serving.kv_layout(lay.mesh, global_batch, cfg.num_kv_heads)
-    if kl.dp != lay.dp:
-        raise ValueError(
-            f"the rules split a batch of {global_batch} over {kl.dp} data "
-            f"ranks, the residual spec over {lay.dp}: scope serving with "
-            f"activation_sharding(mesh, default_residual_spec(mesh, batch, "
-            f"cache length))")
-    return kl
-
-
 def _kv_cache(cfg: ArchConfig, global_batch: int, length: int, dtype,
               device, zeros: bool):
     """Empty K and V caches (L, B, Hkv, length, Dh) and this rank's span
@@ -334,7 +316,7 @@ def _kv_cache(cfg: ArchConfig, global_batch: int, length: int, dtype,
     shape = (cfg.num_layers, global_batch, cfg.num_kv_heads, length,
              cfg.head_dim)
     span = (0, length)
-    kl = _kv_layout(cfg, global_batch)
+    kl = serving.active_kv_layout(global_batch, cfg.num_kv_heads)
     if kl is not None:
         kl.check_length(length)
         shape, span = kl.local_shape(shape), kl.span(length)
@@ -1017,8 +999,9 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
                                 backend, drift_threshold)
     paged = "kp" in cache
     vec, pos, _ = _slot_positions(cache)
-    kl = None if paged else _kv_layout(cfg, token.shape[0])
-    sharded = kl is not None and (kl.seq_parts > 1 or not kl.heads_split)
+    kl = (None if paged else
+          serving.active_kv_layout(token.shape[0], cfg.num_kv_heads))
+    sharded = serving.is_sharded(kl)
     if kl is not None:
         length = cache["k"].shape[3] * kl.seq_parts
         token = ctx.batch_rows(token)

@@ -253,10 +253,25 @@ def _every_rank(obj):
     return got
 
 
+def _replicas(parts, spec) -> tuple:
+    """(whether the ranks holding the same shard of a leaf hold the same
+    bits, how many ranks share a shard with another): parts are every
+    rank's (coords, local), a shard named by the coordinates of the
+    spec's axes."""
+    spec = tuple(spec)
+    axes = [a for n in spec if n is not None for a in sharding._axes(n)]
+    groups = {}
+    for coords, local in parts:
+        groups.setdefault(tuple(coords[a] for a in axes), []).append(local)
+    shared = sum(len(g) for g in groups.values() if len(g) > 1)
+    same = all(np.array_equal(x, g[0]) for g in groups.values() for x in g)
+    return same, shared
+
+
 def _serve_one(case, out):
     """One serving case over its mesh (see case_serve)."""
     from repro_torch.launch import dryrun
-    from repro_torch.models import common, transformer
+    from repro_torch.models import common
     name = case["name"]
     cfg, model = _model(case)
     mesh = mesh_lib.make_host_mesh(*case["mesh"], "cpu")
@@ -275,59 +290,68 @@ def _serve_one(case, out):
     out[f"{name}/dryrun_bytes"] = np.array(dryrun.rank_bytes(
         dryrun.build_cell(cfg, shape, mesh))["cache"])
     whole = registry.decode_specs(cfg, shape)[1]
+    leaves = [k for k, v in whole.items()
+              if torch.is_tensor(v) and v.ndim >= 2]
     specs = sharding.cache_shardings(mesh, whole, b)
     sharding.place_module(model, mesh)
     mdl = registry.get_model(cfg)
-    seen, attend = [], mdl.attention
+    seen, attend = [], getattr(mdl, "attention", None)
 
     def recorded(sla_params, q, k, v, kind, *a, **kw):
         seen.append([q.shape[0], q.shape[1], q.shape[2], k.shape[1],
                      k.shape[2], kind == "sla"])
         return attend(sla_params, q, k, v, kind, *a, **kw)
 
-    prefill, decode = transformer.prefill, transformer.decode_step
-    transformer.prefill = functools.partial(prefill, compute_dtype=dtype)
-    transformer.decode_step = functools.partial(decode, compute_dtype=dtype)
-    mdl.attention = recorded
+    prefill, decode = mdl.prefill, mdl.decode_step
+    mdl.prefill = functools.partial(prefill, compute_dtype=dtype)
+    mdl.decode_step = functools.partial(decode, compute_dtype=dtype)
+    if attend is not None:
+        mdl.attention = recorded
     residual = ctx.default_residual_spec(mesh, b, length)
+    sized = cfg.family in ("dense", "moe", "vlm", "hybrid")
     logits = []
     try:
         with torch.no_grad(), ctx.activation_sharding(mesh, residual,
                                                        remat=False):
-            empty = transformer.make_cache(cfg, b, length,
-                                           dtype=torch.bfloat16,
-                                           device="cpu")
+            empty = mdl.make_cache(cfg, b, length, dtype=torch.bfloat16,
+                                   device="cpu")
             out[f"{name}/empty_bytes"] = np.array(sum(
                 empty[key].numel() * empty[key].element_size()
-                for key in ("k", "v")) + 4)
-            hidden, cache = steps.make_prefill_step(
-                cfg, "kernel", cache_len=length)(model, batch)
-            for key in ("k", "v"):
+                for key in leaves) + 4)
+            got = steps.make_prefill_step(
+                cfg, "kernel", cache_len=length if sized else None)(
+                    model, batch)
+            cache = got[1]
+            for key in leaves:
                 want = specs[key].shard_shape(whole[key].shape)
                 assert tuple(empty[key].shape) == want, (key, want)
                 assert tuple(cache[key].shape) == want, (key, want)
             del empty
             out[f"{name}/cache_bytes"] = np.array(sum(
                 cache[key].numel() * cache[key].element_size()
-                for key in ("k", "v")) + 4)
+                for key in leaves) + 4)
             if case.get("per_slot"):
                 cache["pos"] = torch.tensor(case["per_slot"],
                                             dtype=torch.int32)
                 cache["pos_host"] = np.array(case["per_slot"], np.int64)
-            logits.append(common.logits_from_hidden(model, hidden))
+            if cfg.family != "encdec":  # an LM's first token's logits
+                logits.append(common.logits_from_hidden(model, got[0]))
             out[f"{name}/prefill_calls"] = np.array(len(seen))
             serve = steps.make_serve_step(cfg)
             for tok in feed:
                 step, cache = serve(model, tok, cache)
                 logits.append(step)
     finally:
-        transformer.prefill, transformer.decode_step = prefill, decode
-        mdl.attention = attend
-    out[f"{name}/attn_shapes"] = np.array(seen)
+        mdl.prefill, mdl.decode_step = prefill, decode
+        if attend is not None:
+            mdl.attention = attend
+    out[f"{name}/attn_shapes"] = np.array(seen).reshape(-1, 6)
     out[f"{name}/residual"] = np.array(repr(residual))
-    out[f"{name}/spec"] = np.array(json.dumps(specs["k"].spec))
+    out[f"{name}/spec"] = np.array(json.dumps(specs[leaves[0]].spec))
+    for key in leaves:
+        out[f"{name}/spec/{key}"] = np.array(json.dumps(specs[key].spec))
     out[f"{name}/pos"] = np.array(cache["pos"])
-    local = {key: cache[key].float().numpy() for key in ("k", "v")}
+    local = {key: cache[key].float().numpy() for key in leaves}
     mine = torch.stack(logits).numpy()  # (1 + steps, B_loc, V)
     ranks = _every_rank((coords, mine, local))
     if dist.get_rank():
@@ -343,23 +367,31 @@ def _serve_one(case, out):
         for group in rows.values() for x in group))
     out[f"{name}/logits"] = np.concatenate(
         [rows[r][0] for r in sorted(rows)], axis=1)
-    for key in ("k", "v"):
-        out[f"{name}/{key}"] = _assemble(
-            [(c, loc[key]) for c, _, loc in ranks], specs[key].spec, sizes)
+    shared = 0
+    same = True
+    for key in leaves:
+        parts = [(c, loc[key]) for c, _, loc in ranks]
+        ok, n = _replicas(parts, specs[key].spec)
+        same, shared = same and ok, shared + n
+        out[f"{name}/{key}"] = _assemble(parts, specs[key].spec, sizes)
+    out[f"{name}/leaves_bitwise"] = np.array(same)
+    out[f"{name}/leaf_replicas"] = np.array(shared)
 
 
 def case_serve(spec, out):
     """Sharded serving of every case in `spec["cases"]`, one mesh each over
-    this world: the smoke model from the case's weights placed by the
-    rules, `make_prefill_step(cfg, "kernel", cache_len=)` on the global
-    batch and one `make_serve_step` call per row of the case's `feed`
-    tokens, in the case's compute dtype under `activation_sharding(mesh,
-    default_residual_spec(mesh, batch, cache_len))`. Rank 0 records the
-    logits (every data rank's rows, and whether the ranks holding the same
-    rows returned them bitwise), the caches assembled from every rank's
-    part by the rule's spec, each rank's cache bytes beside the dry run's
-    for that cell, an empty `make_cache`'s, and the attention calls'
-    shapes."""
+    this world: the family's smoke model from the case's weights placed
+    by the rules, `make_prefill_step(cfg, "kernel", cache_len=)` on the
+    global batch (an LM's caches sized to `cache_len`; the ssm and encdec
+    families size their own) and one `make_serve_step` call per row of
+    the case's `feed` tokens, in the case's compute dtype under
+    `activation_sharding(mesh, default_residual_spec(mesh, batch,
+    cache_len))`. Rank 0 records the logits (every data rank's rows, and
+    whether the ranks holding the same rows returned them bitwise), every
+    cache leaf assembled from every rank's part by the rule's spec and
+    whether the ranks holding the same shard of it hold the same bits,
+    each rank's cache bytes beside the dry run's for that cell, an empty
+    `make_cache`'s, and the attention calls' shapes."""
     for case in spec["cases"]:
         _serve_one(case, out)
         dist.barrier()

@@ -1695,3 +1695,52 @@ def test_serve_on_a_1x1_nccl_mesh_is_the_plain_path(tmp_path):
     assert torch.equal(got_c["k"], want_c["k"])
     assert torch.equal(got_c["v"], want_c["v"])
     assert got_c["pos"] == want_c["pos"] == 68
+
+
+def test_hybrid_serve_on_a_1x1_nccl_mesh_is_the_plain_path(tmp_path):
+    """Smoke zamba2 in bf16: `make_prefill_step(cache_len=)` and 4 greedy
+    `make_serve_step` steps on the plain path and with the parameters on
+    a 1 x 1 mesh over NCCL in this process: logits, every cache leaf (SSM
+    states, conv tails, the shared block's K/V) and tokens bitwise equal,
+    and kernel 1 launched once an application in each prefill."""
+    _need_gpu()
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import hybrid
+    cfg = get_arch("zamba2-1.2b").smoke()
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(1))
+
+    def run(mesh):
+        model = hybrid.init(torch.Generator("cuda").manual_seed(3), cfg,
+                            dtype=torch.bfloat16, device="cuda")
+        if mesh is not None:
+            sharding.place_module(model, mesh)
+        residual = (None if mesh is None else ctx.default_residual_spec(
+            mesh, 2, 128))
+        before = sla_fwd.LAUNCHES
+        with torch.no_grad(), ctx.activation_sharding(mesh, residual,
+                                                       remat=False):
+            hidden, cache = steps.make_prefill_step(
+                cfg, "kernel", cache_len=128)(model, {"tokens": toks})
+            launches = sla_fwd.LAUNCHES - before
+            logits = [hybrid.logits_from_hidden(model, hidden)]
+            serve = steps.make_serve_step(cfg)
+            for _ in range(4):
+                step, cache = serve(model, logits[-1].argmax(-1), cache)
+                logits.append(step)
+        return torch.stack(logits), cache, launches
+
+    want, want_c, want_n = run(None)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        got, got_c, got_n = run(mesh_lib.make_host_mesh(1, 1, "cuda"))
+    finally:
+        dist.destroy_process_group()
+    assert got_n == want_n == len(hybrid.segments(cfg))
+    assert torch.equal(got, want)
+    for key in ("ssm", "conv", "attn_k", "attn_v"):
+        assert torch.equal(got_c[key], want_c[key]), key
+    assert got_c["pos"] == want_c["pos"] == 68

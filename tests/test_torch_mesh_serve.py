@@ -50,7 +50,7 @@ from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch.configs import get_arch, get_shape
 from repro_torch.distributed import ctx, serving, sharding
 from repro_torch.launch import dryrun
-from repro_torch.models import encdec, hybrid, rwkv6, transformer
+from repro_torch.models import transformer
 
 Q3 = "qwen3-1.7b"
 CASES = [
@@ -304,19 +304,6 @@ REFUSED = {
         None, _qwen(), None, {}),
     "paged caches (make_paged_cache)": lambda: transformer.make_paged_cache(
         _qwen(), 2, 64, 8, device="meta"),
-    "the hybrid family's serving (forward(return_cache=))": lambda: hybrid
-    .forward(None, get_arch("zamba2-1.2b").smoke(), None,
-             return_cache=True),
-    "the hybrid family's serving (decode_step)": lambda: hybrid.decode_step(
-        None, get_arch("zamba2-1.2b").smoke(), None, {}),
-    "the ssm family's serving (forward(return_cache=))": lambda: rwkv6
-    .forward(None, get_arch("rwkv6-7b").smoke(), None, return_cache=True),
-    "the ssm family's serving (decode_step)": lambda: rwkv6.decode_step(
-        None, get_arch("rwkv6-7b").smoke(), None, {}),
-    "the encdec family's serving (prefill)": lambda: encdec.prefill(
-        None, get_arch("whisper-small").smoke(), {}),
-    "the encdec family's serving (decode_step)": lambda: encdec.decode_step(
-        None, get_arch("whisper-small").smoke(), None, {}),
 }
 
 
