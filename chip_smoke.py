@@ -474,11 +474,40 @@ Phases, in order; any failure exits non-zero before the result line:
      logits, every cache leaf and the greedy tokens bitwise, kernel 1's
      launches a prefill 7 / 12 / 0 on both paths, all on tensor cores,
      no decode kernel; walls a step printed for both paths.
+ 36. the examples on the card (`examples_torch/`, each through its own
+     entry point with the counters zeroed before it and read after): a.
+     `quickstart.main(["--backend", "kernel"])`: kernel vs reference and
+     gather vs reference within 5e-5 x max(1, max |ref|), kernel 1 twice
+     on the split route with its pre-pass (f32, 64 x 64 blocks, D 64
+     padded to 128), kernels 2-3 once each on `sla_bwd.cu`, its FLOPs dict
+     equal to the host's; b-c. `serve_lm`, `serve_stream` (greedy tokens
+     equal to the static engine's) and `serve_routing` (learned routing at
+     identity init emits the threshold router's tokens) at their
+     reference sizes, then `ablations` at its defaults, each with its own
+     assertions and no SLA kernel launch (gather and reference backends),
+     walls printed; d. `finetune_dit` at the 100m preset's widths and depth
+     (12 layers, d_model 768, 12 heads of 64, d_ff 3,072, 4,096 tokens)
+     through its `build` and `train` on the kernel backend, bf16 compute
+     over f32 masters: pretrain with full attention, then fine-tune a copy
+     in each of sla, sparse_only, linear_only and l_plus_s; at every step
+     the launches (sla: 12 / 12 / 12 of kernels 1 / 2 / 3 on the f32-FMA
+     routes at 32 x 32 blocks, none on the tensor cores; every other mode
+     none), a finite loss, wall and peak memory; the first sla step's
+     kernel loss within 5e-2 x max(1, |loss|) of the gather backend's on
+     the same params and batch; the example's quality table and its "SLA
+     best among accelerated modes" line printed, not held (the reference's
+     example does not assert them). Cuts, printed: the preset's batch 32
+     to `FT_BATCH`, its steps to `FT_PRETRAIN_STEPS` + `FT_FINETUNE_STEPS`
+     a mode. e. kernels 1-3 at the finetune's shape (BH = batch x 12, N
+     4,096, D 64, 32 x 32 blocks, bf16, K 13 from `plan_attention` on
+     seeded q and k) against their twins (5e-5), timed beside their bounds
+     (and the f32-FMA route's).
  31. the kernels line (JSON): `sla_fwd` carries the split route's fields
      at the top (the f32 serving route) and the f32-FMA and bf16
      tensor-core routes' beside them, kernels 1-3 the D-64 cases of
      phases 23, 24 and 29 (`d64_cases`), kernels 1-5 their D-256 cases,
-     kernels 1-3 phase 30's (`gemma3_train_cases`); every kernel the head
+     kernels 1-3 phase 30's (`gemma3_train_cases`) and phase 36e's
+     (`finetune_cases`); every kernel the head
      dims its launches on the main paths
      ran at (`head_dims`, `head_dims_by_path`: what its wrapper recorded
      after padding, zeroed with the counters before each path) and,
@@ -490,6 +519,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import functools
 import gc
@@ -516,11 +546,14 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import DIT_SHAPES, get_arch, get_shape  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
-from repro_torch.core import phi as phi_lib  # noqa: E402
+from repro_torch.core import flops as flops_lib  # noqa: E402
+from repro_torch.core.phi import phi  # noqa: E402
 from repro_torch.core import plan as plan_lib  # noqa: E402
 from repro_torch.core.block_sparse_xla import sla_forward_gather  # noqa: E402
-from repro_torch.data.pipeline import DataConfig, make_iterator  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, latent_batch  # noqa: E402
+from repro_torch.data.pipeline import make_iterator  # noqa: E402
 from repro_torch.distributed import ctx as actx  # noqa: E402
 from repro_torch.core import backends as backend_lib  # noqa: E402
 from repro_torch.kernels import _build, ops, sla_bwd, sla_fwd  # noqa: E402
@@ -538,6 +571,8 @@ from repro_torch.models.common import logits_from_hidden  # noqa: E402
 from repro_torch.serving.diffusion import (DenoiseParams,  # noqa: E402
                                            DiffusionScheduler)
 from repro_torch.serving.engine import Request, ServingEngine  # noqa: E402
+from examples_torch import ablations, finetune_dit, quickstart  # noqa: E402
+from examples_torch import serve_lm, serve_routing, serve_stream  # noqa: E402
 
 # Kernel vs plain twin: both read the same (possibly bf16) inputs and
 # accumulate in f32, so bf16 is held to the f32 limit too; the 5e-2 of
@@ -679,6 +714,21 @@ P34_SPANS = (4, 16)
 P35_MODELS = (("zamba2-1.2b", 2, 4096, 4112, 16, 35),
               ("whisper-small", 2, 4096, None, 32, 36),
               ("rwkv6-7b", 2, 2048, None, 16, 37))
+# the examples (phase 36): the quickstart's errors held as its kernel
+# backend's outputs; finetune_dit at the 100m preset's widths and depth,
+# its batch of 32 cut to 2 (the sparse_only and l_plus_s modes' dense f32
+# (B, 12, 4096, 4096) scores peak at 72-73 GiB at batch 2 and run out of
+# memory at 3), and its 150 pretraining and 150 fine-tuning steps a mode
+# cut to 40 and 30: at 150 + 150 the phase took 454 s and the script
+# 1,206 s on a card whose host ran the earlier phases 1.3x slower than
+# usual (PERF.md §6)
+QS_TOL = TWIN_TOL
+FT_CASE_KEYS = ("shape", "dtype", "route", "bh", "n", "d", "k_sel",
+                "live_tiles", "ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_fraction", "bound_ms_f32_fma", "max_abs_err", "ok")
+FT_PRESET, FT_BATCH, FT_LR, FT_SEED = "100m", 2, 3e-4, 0
+FT_PRETRAIN_STEPS, FT_FINETUNE_STEPS = 40, 30
+FT_MODES = ("sla", "sparse_only", "linear_only", "l_plus_s")
 DEV = torch.device("cuda")
 
 
@@ -780,7 +830,7 @@ def _operands(sla, q, k, v, marginal, lut, counts, dtype, causal=False):
     (B, H, ...) marginal / lut / counts, with hi/zi aggregated as the
     kernel backend does, plus the 4-D inputs for the backends."""
     q, k, v = (x.to(dtype) for x in (q, k, v))
-    qp, kp = phi_lib.phi(q, sla.phi), phi_lib.phi(k, sla.phi)
+    qp, kp = phi(q, sla.phi), phi(k, sla.phi)
     fq, fk, fv, fqp, fkp = map(ops._flat, (q, k, v, qp, kp))
     a, lut, counts = map(ops._flat, (marginal, lut, counts))
     hb, zb = ops._hz_blocks(fkp, fv, sla.block_kv)
@@ -1009,8 +1059,8 @@ def _gqa_fwd_operands(h, group, n, d, base, seed):
     plan = plan_lib.plan_attention(q, k, sla)
     q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
     fq, fk, fv = map(ops._flat, (q, k, v))
-    fqp = ops._flat(phi_lib.phi(q, sla.phi))
-    hb, zb = ops._hz_blocks(ops._flat(phi_lib.phi(k, sla.phi)), fv,
+    fqp = ops._flat(phi(q, sla.phi))
+    hb, zb = ops._hz_blocks(ops._flat(phi(k, sla.phi)), fv,
                             sla.block_kv)
     hi, zi = ops._aggregate(ops._flat(plan.marginal),
                             torch.repeat_interleave(hb, group, dim=0),
@@ -1984,7 +2034,7 @@ def phase_grad_cross_check(cfg, plans):
     for dtype in (torch.float32, torch.bfloat16):
         dname = "f32" if dtype == torch.float32 else "bf16"
         xs = [x.to(dtype) for x in (q, k, v)]
-        xs += [phi_lib.phi(xs[0], sla.phi), phi_lib.phi(xs[1], sla.phi)]
+        xs += [phi(xs[0], sla.phi), phi(xs[1], sla.phi)]
         ins = [x.detach().requires_grad_() for x in xs]
         sla_bwd.LAUNCHES_DQ = sla_bwd.LAUNCHES_DKV = 0
         sla_bwd.TC_LAUNCHES_DQ = sla_bwd.TC_LAUNCHES_DKV = 0
@@ -2697,7 +2747,7 @@ def phase_lm_cross_check(cfg, run, profile: bool):
         err = float((o_k - o_g).abs().max())
         limit = TWIN_TOL * max(1.0, float(o_g.abs().max()))
         qg = backend_lib._group_heads(q[:, :, 0].float(), hkv)[..., None, :]
-        qpg = backend_lib._group_heads(phi_lib.phi(q[:, :, 0], sla.phi),
+        qpg = backend_lib._group_heads(phi(q[:, :, 0], sla.phi),
                                        hkv)[..., None, :]
         flat = sla_decode._flat_args(
             *sla_decode.decode_operands(state, qg, qpg, pos), bkv)
@@ -2793,7 +2843,7 @@ def phase_lm_cross_check(cfg, run, profile: bool):
     q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
     fk_g, fv_g = ops._flat(k), ops._flat(v)  # the kv heads, unrepeated
     k, v = (plan_lib.repeat_kv(x, h) for x in (k, v))
-    qp, kp = phi_lib.phi(q, sla.phi), phi_lib.phi(k, sla.phi)
+    qp, kp = phi(q, sla.phi), phi(k, sla.phi)
     fq, fk, fv, fqp = map(ops._flat, (q, k, v, qp))
     hb, zb = ops._hz_blocks(ops._flat(kp), fv, bkv)
     for layer in (0, cfg.num_layers - 1):
@@ -2972,7 +3022,7 @@ def _paged_live_case(cfg, cache, layer: int, q, pos) -> dict:
     b = q.shape[0]
     bh, k_sel = b * cfg.num_heads, st["live_lut"].shape[-1]
     qg = backend_lib._group_heads(q[:, :, 0].float(), hkv)
-    qpg = backend_lib._group_heads(phi_lib.phi(q[:, :, 0], sla.phi), hkv)
+    qpg = backend_lib._group_heads(phi(q[:, :, 0], sla.phi), hkv)
     args = (st["live_lut"][layer].reshape(bh, 1, k_sel).contiguous(),
             cache["pt"], st["live_cnt"][layer].reshape(bh, 1).contiguous(),
             st["live_marg"][layer].reshape(bh, 1).contiguous(),
@@ -4008,7 +4058,7 @@ def phase_decode_chunk(cfg, params):
         lim = TWIN_TOL * max(1.0, float(o_g.abs().max()))
         backend_errs[li] = dict(err=err, limit=lim)
         qg = backend_lib._group_heads(q.float(), hkv)
-        qpg = backend_lib._group_heads(phi_lib.phi(q, cfg.sla.phi), hkv)
+        qpg = backend_lib._group_heads(phi(q, cfg.sla.phi), hkv)
         flat = sla_decode._flat_args(
             *sla_decode.decode_operands(state, qg, qpg, pos),
             cfg.sla.block_kv)
@@ -4928,7 +4978,7 @@ def phase_moe_serving(cfg, params, profile: bool):
         err = float((o_k - o_g).abs().max())
         limit = TWIN_TOL * max(1.0, float(o_g.abs().max()))
         qg = backend_lib._group_heads(q[:, :, 0].float(), hkv)[..., None, :]
-        qpg = backend_lib._group_heads(phi_lib.phi(q[:, :, 0], cfg.sla.phi),
+        qpg = backend_lib._group_heads(phi(q[:, :, 0], cfg.sla.phi),
                                        hkv)[..., None, :]
         flat = sla_decode._flat_args(
             *sla_decode.decode_operands(state, qg, qpg, pos), bkv)
@@ -5594,7 +5644,7 @@ def _d256_fwd_operands(dtype, seed: int):
             for _ in range(2))
     plan = plan_lib.plan_attention(q, k, sla)
     q, k, v = (x.to(dtype) for x in (q, k, v))
-    qp, kp = phi_lib.phi(q, sla.phi), phi_lib.phi(k, sla.phi)
+    qp, kp = phi(q, sla.phi), phi(k, sla.phi)
     fq, fk, fv, fqp, fkp = map(ops._flat, (q, k, v, qp, kp))
     a, lut, counts = map(ops._flat, (plan.marginal, plan.lut, plan.counts))
     hb, zb = ops._hz_blocks(fkp, fv, sla.block_kv)
@@ -6001,7 +6051,7 @@ def phase_gemma3_serving():
         q = torch.randn((G3_BATCH, cfg.num_heads, 1, cfg.head_dim),
                         generator=gen, device=DEV)
         qg = backend_lib._group_heads(q[:, :, 0].float(), hkv)[..., None, :]
-        qpg = backend_lib._group_heads(phi_lib.phi(q[:, :, 0], cfg.sla.phi),
+        qpg = backend_lib._group_heads(phi(q[:, :, 0], cfg.sla.phi),
                                        hkv)[..., None, :]
         flat = sla_decode._flat_args(
             *sla_decode.decode_operands(state, qg, qpg, pos), bkv)
@@ -6977,6 +7027,308 @@ def phase_serve_mesh_families() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+def _counts36() -> dict:
+    """Every launch counter of kernels 1-3 (the split route's pre-pass
+    among them)."""
+    return dict(sla_fwd=sla_fwd.LAUNCHES, tc_sla_fwd=sla_fwd.TC_LAUNCHES,
+                split_sla_fwd=sla_fwd.SPLIT_LAUNCHES,
+                planes=sla_fwd.PLANES_LAUNCHES,
+                sla_bwd_dq=sla_bwd.LAUNCHES_DQ,
+                tc_sla_bwd_dq=sla_bwd.TC_LAUNCHES_DQ,
+                sla_bwd_dkv=sla_bwd.LAUNCHES_DKV,
+                tc_sla_bwd_dkv=sla_bwd.TC_LAUNCHES_DKV,
+                sla_decode=sla_decode.LAUNCHES,
+                sla_decode_paged=sla_decode.PAGED_LAUNCHES)
+
+
+def _zero36():
+    """Every launch counter to 0 and the head-dim records cleared, just
+    before an example's path runs."""
+    _zero_kernel_counts()
+    sla_fwd.SPLIT_LAUNCHES = sla_fwd.PLANES_LAUNCHES = 0
+    sla_decode.LAUNCHES = sla_decode.PAGED_LAUNCHES = 0
+
+
+def _quickstart36() -> dict:
+    """Phase 36a: `examples_torch.quickstart` on the kernel backend: its
+    printed errors within 5e-5 x max(1, max |ref|), kernel 1 twice on the
+    split route with its pre-pass (step 3's call and the gradient's
+    forward), kernels 2-3 once each on `sla_bwd.cu`, the FLOPs dict the
+    host's."""
+    _zero36()
+    t0 = time.time()
+    out = quickstart.main(["--backend", "kernel"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = _counts36()
+    _read_head_dims("quickstart")
+    want = dict(sla_fwd=2, tc_sla_fwd=0, split_sla_fwd=2, planes=2,
+                sla_bwd_dq=1, tc_sla_bwd_dq=0, sla_bwd_dkv=1,
+                tc_sla_bwd_dkv=0, sla_decode=0, sla_decode_paged=0)
+    limit = QS_TOL * max(1.0, out["ref_max_abs"])
+    host = flops_lib.sla_flops(32768, 128, 12, quickstart.CFG)
+    ok = (counts == want and out["kernel_err"] <= limit
+          and out["gather_err"] <= limit and out["flops"] == host
+          and np.isfinite(out["grad_proj"]) and np.isfinite(out["grad_q"]))
+    say(f"[36 examples] quickstart --backend kernel: kernel vs reference "
+        f"{out['kernel_err']:.3g}, gather vs reference "
+        f"{out['gather_err']:.3g} (limit {limit:.3g}) | launches {counts} "
+        f"(expected {want}) | sla_flops equal to the host's "
+        f"{out['flops'] == host} | {wall:.2f}s {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"quickstart: {out} launches {counts}")
+    return dict(wall_s=wall, launches=counts, limit=limit,
+                **{k: out[k] for k in ("kernel_err", "gather_err",
+                                       "grad_proj", "grad_q", "stats")})
+
+
+def _example36(name: str, fn) -> dict:
+    """Phase 36b-c: one example's `main()` at its defaults on the card
+    (its own assertions), its wall and launches (none: these run the
+    gather and reference backends)."""
+    _zero36()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    fn([])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = _counts36()
+    _read_head_dims(name)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ok = not any(counts.values())
+    say(f"[36 examples] {name}: its assertions passed | {wall:.2f}s | peak "
+        f"{peak:.2f} GiB | launches {counts} (expected none) "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{name} launched an SLA kernel: {counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(wall_s=wall, peak_gib=peak, launches=counts)
+
+
+def _ft_train(path: str, cfg, params, shape, steps: int, lr: float,
+              seed: int, mode) -> dict:
+    """`finetune_dit.train` on the kernel backend with the launch counters
+    zeroed before it; after each step the step's launches (12 / 12 / 12
+    on the f32-FMA routes in `sla` mode, none in the others), a finite
+    loss, its wall and its peak memory are held and kept."""
+    nl = cfg.num_layers
+    per = nl if mode == "sla" else 0
+    want = dict(sla_fwd=per, tc_sla_fwd=0, split_sla_fwd=0, planes=0,
+                sla_bwd_dq=per, tc_sla_bwd_dq=0, sla_bwd_dkv=per,
+                tc_sla_bwd_dkv=0, sla_decode=0, sla_decode_paged=0)
+    recs = []
+    _zero36()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = dict(t=time.time(), counts=_counts36())
+
+    def on_step(s, loss):
+        now = _counts36()
+        delta = {k: now[k] - state["counts"][k] for k in now}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        recs.append(dict(loss=loss, wall_s=t - state["t"], peak_gib=peak))
+        state.update(t=t, counts=now)
+        if delta != want or not np.isfinite(loss):
+            raise RuntimeError(f"{path} step {s}: launches {delta} "
+                               f"(expected {want}), loss {loss}")
+
+    t0 = time.time()
+    _, hist = finetune_dit.train(cfg, params, shape, steps, lr, seed,
+                                 sla_mode=mode, backend="kernel",
+                                 on_step=on_step, log_every=50)
+    wall = time.time() - t0
+    _read_head_dims(path)
+    walls = sorted(r["wall_s"] for r in recs[1:]) or [recs[0]["wall_s"]]
+    return dict(steps=len(hist), hist=hist, wall_s=wall,
+                first_step_s=recs[0]["wall_s"], step_s_min=walls[0],
+                step_s_median=walls[len(walls) // 2], step_s_max=walls[-1],
+                peak_gib=max(r["peak_gib"] for r in recs),
+                launches={k: v * steps for k, v in want.items()},
+                launches_per_step=want)
+
+
+def _ft_summary(tag: str, r: dict):
+    say(f"[36 finetune] {tag}: {r['steps']} steps in {r['wall_s']:.1f}s "
+        f"(first {r['first_step_s']:.3f}s, then {r['step_s_min']:.3f}-"
+        f"{r['step_s_max']:.3f}s a step, median {r['step_s_median']:.3f}) "
+        f"| peak {r['peak_gib']:.2f} GiB | launches a step "
+        f"{r['launches_per_step']} held at every step | loss "
+        f"{r['hist'][0]:.5f} -> {r['hist'][-1]:.5f}")
+
+
+def _finetune36(batch: int, pretrain_steps: int, finetune_steps: int
+                ) -> dict:
+    """Phase 36d: `examples_torch.finetune_dit` at the 100m preset's
+    widths and depth (12 layers, d_model 768, 12 heads of 64, d_ff 3,072,
+    4,096 tokens) with its `build` and `train` on the kernel backend, bf16
+    compute over f32 masters: pretrain with full attention, then fine-tune
+    a copy in each mode of `FT_MODES`. The preset's batch of 32 is cut to
+    `batch` (the dense modes' (B, 12, 4096, 4096) f32 scores and
+    probabilities, kept a layer for the backward, fill the card), its 150
+    + 150 steps to the counts given. At the first `sla` step the kernel
+    backend's loss is held to the gather backend's on the same params and
+    batch (5e-2 x max(1, |loss|): both plan inline in bf16, and a
+    near-tied block may flip)."""
+    p = finetune_dit.PRESETS[FT_PRESET]
+    shape = ShapeConfig("dit", p["seq"], batch, "train")
+    say(f"[36 finetune] preset {FT_PRESET}: {p['num_layers']} layers, "
+        f"d_model {p['d_model']}, {p['num_heads']} heads of "
+        f"{p['head_dim']}, d_ff {p['d_ff']}, seq {p['seq']} | cut: batch "
+        f"{p['batch']} -> {batch}, steps 150 + 150 -> {pretrain_steps} + "
+        f"{finetune_steps} a mode")
+    cfg_full = finetune_dit.build(FT_PRESET, "full")
+    gen = torch.Generator(device=DEV).manual_seed(FT_SEED)
+    params = dit.init(gen, cfg_full, device=DEV)
+    nparams = sum(x.numel() for x in params.parameters())
+    runs = {"full": _ft_train("dit_pretrain", cfg_full, params, shape,
+                              pretrain_steps, FT_LR, FT_SEED, None)}
+    _ft_summary(f"pretrain, full attention, {nparams / 1e6:.1f}M params",
+                runs["full"])
+    hist = runs["full"]["hist"]
+    results = {"full_attention": sum(hist[-10:]) / len(hist[-10:])}
+    cross = None
+    for mode in FT_MODES:
+        cfg = finetune_dit.build(FT_PRESET, mode)
+        ft = copy.deepcopy(params)
+        if mode == "sla":
+            batch0 = finetune_dit.to_device(latent_batch(
+                cfg, shape, DataConfig(seed=FT_SEED + 1), 0), DEV)
+            with torch.no_grad():
+                gather_loss = float(dit.loss_fn(ft, cfg, batch0,
+                                                backend="gather",
+                                                sla_mode="sla"))
+            del batch0
+        r = _ft_train(f"dit_finetune_{mode}", cfg, ft, shape,
+                      finetune_steps, FT_LR * 0.5, FT_SEED + 1, mode)
+        del ft
+        gc.collect()
+        torch.cuda.empty_cache()
+        _ft_summary(f"finetune {mode}", r)
+        if mode == "sla":
+            kernel_loss = r["hist"][0]
+            limit = LT_LOSS_TOL * max(1.0, abs(gather_loss))
+            ok = abs(kernel_loss - gather_loss) <= limit
+            cross = dict(kernel_loss=kernel_loss, gather_loss=gather_loss,
+                         diff=abs(kernel_loss - gather_loss), limit=limit,
+                         ok=ok)
+            say(f"[36 finetune] sla step 0, same params and batch: kernel "
+                f"loss {kernel_loss:.6f} vs gather {gather_loss:.6f} (diff "
+                f"{cross['diff']:.3g}, limit {limit:.3g}) "
+                f"{'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"finetune sla: kernel vs gather loss "
+                                   f"{cross}")
+        h = r["hist"]
+        results[mode] = sum(h[-10:]) / len(h[-10:])
+        say(f"[finetune:{mode}] first-5 {sum(h[:5]) / 5:.5f} -> final "
+            f"{results[mode]:.5f}")
+        runs[mode] = r
+    order_ok = finetune_dit.report(results)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r in runs.values():
+        h = r.pop("hist")
+        r.update(loss_first=h[0], loss_last=h[-1])
+    return dict(batch=batch, pretrain_steps=pretrain_steps,
+                finetune_steps=finetune_steps, params_m=nparams / 1e6,
+                results=results, sla_best=order_ok, cross_check=cross,
+                runs=runs)
+
+
+def _fma_bound(nbytes: float, flops: float) -> float:
+    """The least time on the f32-FMA route: bytes over HBM bandwidth
+    against the operations at the f32 FMA peak (the CUDA cores these
+    kernels run on, beside `_bound`'s tensor-core peak for bf16
+    operands)."""
+    return max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS["fma"]) * 1e3
+
+
+def _ft_kernels36(batch: int) -> tuple:
+    """Phase 36e: kernels 1-3 at the finetune's shape (BH = batch x 12,
+    N 4,096, D 64, 32 x 32 blocks, bf16; K = num_critical(128) from
+    `plan_attention` on seeded q and k) against their twins on the same
+    card tensors (5e-5, the f32-FMA routes' limit), timed beside their
+    bounds. Returns (forward rows, backward rows)."""
+    sla = finetune_dit.build(FT_PRESET, "sla").sla
+    p = finetune_dit.PRESETS[FT_PRESET]
+    h, n, d = p["num_heads"], p["seq"], p["head_dim"]
+    gen = torch.Generator(device=DEV).manual_seed(36)
+    q, k, v = (torch.randn((batch, h, n, d), generator=gen, device=DEV)
+               for _ in range(3))
+    plan = plan_lib.plan_attention(q, k, sla)
+    shape = f"dit-{FT_PRESET} finetune"
+    args, kw, _ = _operands(sla, q, k, v, plan.marginal, plan.lut,
+                            plan.counts, torch.bfloat16)
+    c = _fwd_check(args, kw, shape)
+    ms = cuda_ms(lambda: sla_fwd.sla_fwd(*args, **kw), 20)
+    plain_ms = cuda_ms(lambda: sla_fwd.sla_fwd_plain(*args, **kw), 3,
+                       warmup=1)
+    bound_ms, bound_by, flops, nbytes, live = _bound(args, kw)
+    fma_ms = _fma_bound(nbytes, flops)
+    say(f"[36 kernels] sla_fwd {shape} bf16 (BH={args[2].shape[0]}, N={n}, "
+        f"D={d}, blocks 32, K={plan.k_sel}, live tiles {live} of "
+        f"{args[0].numel()}): {_fwd_text(c)} | kernel {ms:.3f} ms | bound "
+        f"{bound_ms:.3f} ms by {bound_by} ({flops / 1e9:.1f} GFLOP, "
+        f"{nbytes / 1e6:.0f} MB; {bound_ms / ms:.1%} of it) | f32-FMA "
+        f"bound {fma_ms:.3f} ms ({fma_ms / ms:.1%}) | plain twin "
+        f"{plain_ms:.3f} ms")
+    fwd = [dict(shape=shape, dtype="bf16", bh=args[2].shape[0], n=n, d=d,
+                block=kw["block_q"], k_sel=plan.k_sel, live_tiles=live,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bound_fraction=bound_ms / ms,
+                bound_ms_f32_fma=fma_ms, gflop=flops / 1e9,
+                mbytes=nbytes / 1e6, library_ms=None, **c)]
+    del args
+    leaves = (plan.marginal, plan.lut, plan.counts, plan.col_lut,
+              plan.col_counts)
+    dq_args, dkv_args, kw = _bwd_operands(sla, q, k, v, leaves,
+                                          torch.bfloat16, seed=37)
+    bwd = _bwd_case(shape, "bf16", dq_args, dkv_args, kw, n, d, {},
+                    tag="36 kernels")
+    for r, args in zip(bwd, (dq_args, dkv_args)):
+        r["bound_ms_f32_fma"] = _fma_bound(r["mbytes"] * 1e6,
+                                           r["gflop"] * 1e9)
+        r["k_sel"] = plan.k_sel
+        say(f"  {r['kernel']} f32-FMA bound {r['bound_ms_f32_fma']:.3f} ms "
+            f"({r['bound_ms_f32_fma'] / r['ms']:.1%})")
+    del dq_args, dkv_args, q, k, v, plan
+    torch.cuda.empty_cache()
+    bad = [r for r in fwd if not r["ok"] or r["route"] != FWD_F32_ROUTE]
+    bad += [r for r in bwd if not r["ok"] or r["route"] != F32_ROUTE]
+    if bad:
+        raise RuntimeError(f"a kernel disagrees with its twin or left the "
+                           f"f32-FMA route at the finetune shape: {bad}")
+    return fwd, bwd
+
+
+def phase_examples(batch: int = None, pretrain_steps: int = None,
+                   finetune_steps: int = None) -> tuple:
+    """Phase 36: the port's examples on the card (a-c: quickstart,
+    serve_lm, serve_stream, serve_routing, ablations; d: finetune_dit at
+    the 100m preset; e: kernels 1-3 at the finetune's shape). Returns
+    (summary, forward rows, backward rows)."""
+    t0 = time.time()
+    say(f"[36 examples] device memory held from earlier phases "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    out = {"quickstart": _quickstart36()}
+    for name, mod in (("serve_lm", serve_lm), ("serve_stream", serve_stream),
+                      ("serve_routing", serve_routing),
+                      ("ablations", ablations)):
+        out[name] = _example36(name, mod.main)
+    out["finetune"] = _finetune36(batch or FT_BATCH,
+                                  pretrain_steps or FT_PRETRAIN_STEPS,
+                                  finetune_steps or FT_FINETUNE_STEPS)
+    fwd, bwd = _ft_kernels36(batch or FT_BATCH)
+    out["wall_s"] = time.time() - t0
+    say(f"[36 examples] every example passed | {out['wall_s']:.1f}s")
+    return out, fwd, bwd
+
+
 def _tensors(x):
     if torch.is_tensor(x):
         yield x
@@ -7090,6 +7442,11 @@ def main(argv=None) -> int:
     smc = sm["launches"]
     sf = phase_serve_mesh_families()
     sfc = {k: sum(r["launches"][k] for r in sf.values()) for k in smc}
+    ex, ex_fwd_rows, ex_bwd_rows = phase_examples()
+    qsc = ex["quickstart"]["launches"]
+    ftc = ex["finetune"]["runs"]["sla"]["launches"]
+    rows += ex_fwd_rows
+    bwd_rows += ex_bwd_rows
     rows += d256_fwd + vl_fwd_rows + g3t_fwd_rows
     dec_rows += d256_dec + g3_dec
     pg_rows += d256_pg + g3_pg
@@ -7171,7 +7528,9 @@ def main(argv=None) -> int:
                 "lm_train_mesh": mtc["tc_sla_fwd"],
                 "family_train_mesh": fmc["tc_sla_fwd"],
                 "lm_serve_mesh": smc["tc_sla_fwd"],
-                "family_serve_mesh": sfc["tc_sla_fwd"]}
+                "family_serve_mesh": sfc["tc_sla_fwd"],
+                "quickstart": qsc["tc_sla_fwd"],
+                "dit_finetune_sla": ftc["tc_sla_fwd"]}
     # the other paths compute in bf16: every launch there is a tensor-core
     # one (phases 9, 12, 15, 17 check), so none is on the split route
     split_paths = {"serve": main_run["split_launches"],
@@ -7187,7 +7546,9 @@ def main(argv=None) -> int:
                    "danube_prefill": dnc["split_sla_fwd"], "vlm_train": 0,
                    "gemma3_train": 0, "lm_train_mesh": 0,
                    "family_train_mesh": 0, "lm_serve_mesh": 0,
-                   "family_serve_mesh": 0}
+                   "family_serve_mesh": 0,
+                   "quickstart": qsc["split_sla_fwd"],
+                   "dit_finetune_sla": ftc["split_sla_fwd"]}
     kernels = [{
         "name": "sla_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sla_fwd_split.cu",
@@ -7202,7 +7563,7 @@ def main(argv=None) -> int:
                      + g3pc["sla_fwd"] + dnc["sla_fwd"] + vlc["sla_fwd"]
                      + g3tc["sla_fwd"] + mtc["sla_fwd"]
                      + fmc["sla_fwd"] + smc["sla_fwd"]
-                     + sfc["sla_fwd"]),
+                     + sfc["sla_fwd"] + qsc["sla_fwd"] + ftc["sla_fwd"]),
         "launches_by_path": {"serve": main_run["launches"],
                              "serve_plan_cache": pc_launches["launches"],
                              "train": train["launches"]["sla_fwd"],
@@ -7225,7 +7586,9 @@ def main(argv=None) -> int:
                              "lm_train_mesh": mtc["sla_fwd"],
                              "family_train_mesh": fmc["sla_fwd"],
                              "lm_serve_mesh": smc["sla_fwd"],
-                             "family_serve_mesh": sfc["sla_fwd"]},
+                             "family_serve_mesh": sfc["sla_fwd"],
+                             "quickstart": qsc["sla_fwd"],
+                             "dit_finetune_sla": ftc["sla_fwd"]},
         **ran_at("sla_fwd"),
         "arch_head_dims": arch_head_dims(
             "wan2_1_1_3b", "lightningdit_1b", LM_ARCH, MOE_ARCH, HY_ARCH,
@@ -7282,6 +7645,8 @@ def main(argv=None) -> int:
         "gemma3_train_cases": [{k: r[k] for k in (
             "shape", "head_dim", "ms", "plain_ms", "bound_ms", "bound_by",
             "bound_fraction", "max_abs_err", "ok")} for r in g3t_fwd_rows],
+        "finetune_cases": [{k: r[k] for k in FT_CASE_KEYS}
+                           for r in ex_fwd_rows],
         "cases": rows,
     }, {
         "name": "sla_fwd_split_planes", "route": "cuda",
@@ -7289,10 +7654,11 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/sla_fwd.py:34",
         "part_of": "sla_fwd's split route: its K/V pre-pass",
         "launches": (main_run["planes_launches"]
-                     + pc_launches["planes_launches"]),
+                     + pc_launches["planes_launches"] + qsc["planes"]),
         "launches_by_path": {
             "serve": main_run["planes_launches"],
-            "serve_plan_cache": pc_launches["planes_launches"]},
+            "serve_plan_cache": pc_launches["planes_launches"],
+            "quickstart": qsc["planes"]},
         "max_abs_err": planes["max_abs_err"], "ms": planes["ms"],
         "plain_ms": planes["plain_ms"], "bound_ms": planes["bound_ms"],
         "bound_by": planes["bound_by"], "library_ms": None,
@@ -7315,7 +7681,7 @@ def main(argv=None) -> int:
             "replaces": f"src/repro/kernels/sla_bwd.py:{line}",
             "launches": (train["launches"][name] + ltc[name] + hyc[name]
                          + edc[name] + vlc[name] + g3tc[name] + mtc[name]
-                         + fmc[name]),
+                         + fmc[name] + qsc[name] + ftc[name]),
             "launches_by_path": {"train": train["launches"][name],
                                  "lm_train": ltc[name],
                                  "hybrid_train": hyc[name],
@@ -7323,7 +7689,9 @@ def main(argv=None) -> int:
                                  "vlm_train": vlc[name],
                                  "gemma3_train": g3tc[name],
                                  "lm_train_mesh": mtc[name],
-                                 "family_train_mesh": fmc[name]},
+                                 "family_train_mesh": fmc[name],
+                                 "quickstart": qsc[name],
+                                 "dit_finetune_sla": ftc[name]},
             **ran_at(name),
             "arch_head_dims": arch_head_dims(
                 "wan2_1_1_3b", "lightningdit_1b", LM_ARCH, HY_ARCH, ED_ARCH,
@@ -7337,6 +7705,8 @@ def main(argv=None) -> int:
                 "bound_by", "bound_fraction", "max_abs_err",
                 "bitwise_repeat", "ok")} for r in g3t_bwd_rows
                 if r["kernel"] == name],
+            "finetune_cases": [{k: r[k] for k in FT_CASE_KEYS}
+                               for r in ex_bwd_rows if r["kernel"] == name],
             "max_abs_err": max(r["max_abs_err"] for r in mine
                                if r["route"] == F32_ROUTE),
             "ms": wan["ms"], "plain_ms": wan["plain_ms"],
@@ -7352,7 +7722,8 @@ def main(argv=None) -> int:
                             + ltc[f"tc_{name}"] + hyc[f"tc_{name}"]
                             + edc[f"tc_{name}"] + vlc[f"tc_{name}"]
                             + g3tc[f"tc_{name}"] + mtc[f"tc_{name}"]
-                            + fmc[f"tc_{name}"]),
+                            + fmc[f"tc_{name}"] + qsc[f"tc_{name}"]
+                            + ftc[f"tc_{name}"]),
             "ms_bf16": tc["ms"], "plain_ms_bf16": tc["plain_ms"],
             "bound_ms_bf16": tc["bound_ms"],
             "bound_by_bf16": tc["bound_by"],
@@ -7454,7 +7825,8 @@ def main(argv=None) -> int:
         f"{lt} | moe serve {moe} | hybrid {hy} | encdec {ed} | ssm {rw} | "
         f"gemma3 serve {g3} | danube serve {dn} | vlm train {vl} | gemma3 "
         f"train {g3t} | lm train mesh {mt} | family train mesh {fm} | "
-        f"lm serve mesh {sm} | family serve mesh {sf} | total "
+        f"lm serve mesh {sm} | family serve mesh {sf} | examples {ex} | "
+        f"total "
         f"{time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
