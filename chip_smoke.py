@@ -502,6 +502,27 @@ Phases, in order; any failure exits non-zero before the result line:
      4,096, D 64, 32 x 32 blocks, bf16, K 13 from `plan_attention` on
      seeded q and k) against their twins (5e-5), timed beside their bounds
      (and the f32-FMA route's).
+ 37. decode-time SLA over the mesh's path at world size 1
+     (`phase_serve_mesh_sla`): a. full-width Qwen3-1.7B with seeded bf16
+     weights, 2 prompts of 32,000 tokens seeded by
+     `prefill(decode_max_len=32768)` on the kernel backend (15.0 GB of
+     per-block h_j beside 7.5 GB of K/V) and 72 greedy `decode_step`s on
+     the kernel backend, crossing the block boundaries at 32,000 and
+     32,064, on the plain path (its final leaves kept on the host) and
+     then with the parameters on `make_host_mesh(1, 1)` (NCCL, world size
+     1) under `activation_sharding`: logits, greedy tokens and every leaf
+     of the cache and of its "sla" state bitwise, compared a layer at a
+     time; 28 tensor-core launches of kernel 1 a prefill and 28 of kernel
+     4 a step on both paths, none of its partial mode (a one-rank mesh is
+     layout A); walls a step printed for both. b. kernel 4's partial mode
+     (`sla_decode_partial`) over the mesh run's layer-0 live state with a
+     seeded query, cut into 4 and 16 spans as ranks of layouts B and C
+     hold them: each span's records against the twin's (5e-5 x max(1, max
+     |twin|), field by field), two launches bitwise equal, the spans'
+     records combined across spans (`sla_decode.sla_decode_combine`) against
+     unsplit kernel 4 (5e-5 x max(1, max |o|)); CUDA-graph times of the
+     spans' launches and of unsplit kernel 4, the bytes bound, the card's
+     name and power limit.
  31. the kernels line (JSON): `sla_fwd` carries the split route's fields
      at the top (the f32 serving route) and the f32-FMA and bf16
      tensor-core routes' beside them, kernels 1-3 the D-64 cases of
@@ -512,8 +533,9 @@ Phases, in order; any failure exits non-zero before the result line:
      ran at (`head_dims`, `head_dims_by_path`: what its wrapper recorded
      after padding, zeroed with the counters before each path) and,
      apart, those of the archs it served (`arch_head_dims`);
-     `sla_fwd_split_planes` is the split route's pre-pass; then the
-     result line.
+     `sla_fwd_split_planes` is the split route's pre-pass; `sla_decode`
+     carries its partial mode's fields and counter under `partial`; then
+     the result line.
 """
 from __future__ import annotations
 
@@ -723,6 +745,14 @@ P35_MODELS = (("zamba2-1.2b", 2, 4096, 4112, 16, 35),
 # 1,206 s on a card whose host ran the earlier phases 1.3x slower than
 # usual (PERF.md §6)
 QS_TOL = TWIN_TOL
+# decode-time SLA over the mesh (phase 37): Qwen3-1.7B in bf16, 2 prompts
+# of 32,000 tokens (decode_32k's batch 128 cut to 2) seeded by
+# prefill(decode_max_len=32,768) and P37_NEW greedy decode_step's that
+# cross the block boundaries at 32,000 and 32,064, on the plain path and
+# over a 1 x 1 mesh; then kernel 4's partial mode over layer 0's live state
+# cut into spans (layout B's 4 "model" ranks, 16 as a 4 x 4 layout C)
+P37_BATCH, P37_PROMPT, P37_MAX_LEN, P37_NEW = 2, 32000, 32768, 72
+P37_SPANS = (4, 16)
 FT_CASE_KEYS = ("shape", "dtype", "route", "bh", "n", "d", "k_sel",
                 "live_tiles", "ms", "plain_ms", "bound_ms", "bound_by",
                 "bound_fraction", "bound_ms_f32_fma", "max_abs_err", "ok")
@@ -730,6 +760,7 @@ FT_PRESET, FT_BATCH, FT_LR, FT_SEED = "100m", 2, 3e-4, 0
 FT_PRETRAIN_STEPS, FT_FINETUNE_STEPS = 40, 30
 FT_MODES = ("sla", "sparse_only", "linear_only", "l_plus_s")
 DEV = torch.device("cuda")
+CARD: list = []  # nvidia-smi's name and power limit (phase 1)
 
 
 def say(*a):
@@ -790,6 +821,7 @@ def phase_card() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
+    CARD.append(card)
     say(card)
     say(f"[1 card] torch {torch.__version__} (CUDA {torch.version.cuda}) | "
         f"{torch.cuda.get_device_name(0)} | {torch.cuda.device_count()} "
@@ -895,7 +927,8 @@ def _head_dim_records() -> dict:
             "sla_bwd_dq": sla_bwd.HEAD_DIMS_DQ,
             "sla_bwd_dkv": sla_bwd.HEAD_DIMS_DKV,
             "sla_decode": sla_decode.HEAD_DIMS,
-            "sla_decode_paged": sla_decode.PAGED_HEAD_DIMS}
+            "sla_decode_paged": sla_decode.PAGED_HEAD_DIMS,
+            "sla_decode_partial": sla_decode.PARTIAL_HEAD_DIMS}
 
 
 # kernel -> main path -> the head dims its launches there ran at
@@ -7329,6 +7362,281 @@ def phase_examples(batch: int = None, pretrain_steps: int = None,
     return out, fwd, bwd
 
 
+def _sla_serve_run(cfg, params, toks, path: str) -> dict:
+    """`prefill(decode_max_len=P37_MAX_LEN)` on the kernel backend and
+    P37_NEW greedy `decode_step`s on it (bf16 compute) under the caller's
+    scope, the counters zeroed just before and read just after. Returns
+    the logits (f32, on the card), the greedy tokens, the cache, the walls
+    and the launches (kernel 1's in the prefill; kernel 4's, its partial
+    mode's and a step's)."""
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _zero_kernel_counts()
+        sla_decode.LAUNCHES = sla_decode.PAGED_LAUNCHES = 0
+        sla_decode.PARTIAL_LAUNCHES = 0
+        t0 = time.time()
+        hidden, cache = transformer.prefill(params, cfg, toks,
+                                            torch.bfloat16, "kernel",
+                                            decode_max_len=P37_MAX_LEN)
+        logits = [logits_from_hidden(params, hidden)]
+        del hidden
+        torch.cuda.synchronize()
+        prefill_s = time.time() - t0
+        launches = _kernel_counts([], path)
+        tokens, walls, per_step = [], [], []
+        for _ in range(P37_NEW):
+            tok = logits[-1].argmax(-1).to(torch.int32)
+            tokens.append(tok)
+            before = sla_decode.LAUNCHES
+            t0 = time.time()
+            step, cache = transformer.decode_step(
+                params, cfg, tok, cache, torch.bfloat16, backend="kernel")
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+            per_step.append(sla_decode.LAUNCHES - before)
+            logits.append(step)
+        _read_head_dims(path)
+        launches.update(sla_decode=sla_decode.LAUNCHES,
+                        sla_decode_paged=sla_decode.PAGED_LAUNCHES,
+                        sla_decode_partial=sla_decode.PARTIAL_LAUNCHES,
+                        per_step=sorted(set(per_step)))
+    return dict(logits=torch.stack(logits), tokens=torch.stack(tokens),
+                cache=cache, prefill_s=prefill_s, walls=walls,
+                launches=launches)
+
+
+def _partial_bound(ops, kw):
+    """Least time for one span's partial call: bytes over HBM bandwidth
+    against operations over the f32 peak. Bytes: each (kv head, block)
+    of the span that a live slot of its group selects, once, for its K
+    and V tiles and its h_j and z_j; q, phi(q), the integer operands and
+    the records written. Operations: 4 bkv D + 2 D^2 + 2 D per live
+    (bh, block)."""
+    lut, cnt, posv, q, qp, k = ops[:6]
+    bh, c, k_sel = lut.shape
+    _, tn, bkv, d = k.shape
+    live = torch.arange(k_sel, device=DEV) < cnt[..., None]
+    kvrow = (torch.arange(bh, device=DEV) // kw["group"])[:, None, None]
+    tile = (kvrow * tn + lut.long()).expand(bh, c, k_sel)
+    blocks = int(torch.unique(tile[live]).numel())
+    slots = int(live.sum())
+    nbytes = (blocks * (2 * bkv * d * k.element_size() + (d * d + d) * 4)
+              + 2 * bh * c * d * 4 + (lut.numel() + cnt.numel()
+                                      + posv.numel()) * 4
+              + bh * c * (2 * d + 3) * 4)
+    flops = slots * (4 * bkv * d + 2 * d * d + 2 * d)
+    return nbytes, flops
+
+
+def _partial_cases(cfg, cache, pos: int) -> list:
+    """Phase 37b: kernel 4's partial mode on the card over layer 0's live
+    state of the mesh run's cache, with a seeded query (B, H, D) at its
+    last position, cut into P37_SPANS spans as a rank of layouts B and C
+    holds them (`cases.span_operands`: its LUT slots re-based, its
+    position shifted, its own copy of its blocks): every span's records
+    against the twin's at the kernel's width (5e-5 x max(1, max |twin|),
+    field by field), two launches bitwise equal, and the spans' records
+    combined (`sla_decode.sla_decode_combine`) against unsplit kernel 4 on
+    the whole state (5e-5 x max(1, max |o|)). CUDA-graph times of every
+    span's launch (one after another on this one card) and of unsplit
+    kernel 4, CUDA-event times of the twin and the combine, the bytes
+    bound; the launches here are checks, not the main path's."""
+    st = cache["sla"]
+    state = {"k": cache["k"][0], "v": cache["v"][0], "hblk": st["hblk"][0],
+             "zblk": st["zblk"][0], "htot": st["htot"][0],
+             "ztot": st["ztot"][0], "lut": st["live_lut"][0],
+             "cnt": st["live_cnt"][0], "marg": st["live_marg"][0]}
+    b, hkv, n, d = state["k"].shape
+    bkv = cfg.sla.block_kv
+    tn = n // bkv
+    g = cfg.num_heads // hkv
+    gen = torch.Generator(device=DEV).manual_seed(37)
+    q = torch.randn((b, hkv, g, 1, d), generator=gen, device=DEV)
+    grouped = sla_decode.decode_operands(state, q, phi(q, cfg.sla.phi), pos)
+    flat = sla_decode._flat_args(*grouped, bkv)
+    kw = dict(scale=d ** -0.5, block_kv=bkv, group=g)
+    snap = (sla_decode.LAUNCHES, sla_decode.PARTIAL_LAUNCHES,
+            _head_dim_snapshot())
+    want = sla_decode.sla_decode(*flat, **kw)
+    whole_ms = cuda_graph_ms(lambda: sla_decode.sla_decode(*flat, **kw))
+    rows = []
+    for spans in P37_SPANS:
+        nb = tn // spans
+        ops = [cases.span_operands(flat, r * nb, nb) for r in range(spans)]
+        records, errs, neutral = [], [], True
+        for o in ops:
+            got = sla_decode.sla_decode_partial(*o, **kw)
+            width = sla_decode.split_geometry(o[3], o[0])["split_width"]
+            err = cases.record_error(got, sla_decode.sla_decode_partial_plain(
+                *o, **kw, split_width=width))
+            errs.append(err["err"])
+            neutral = neutral and err["neutral_ok"]
+            records.append(got)
+        bitwise = bool(torch.equal(
+            records[0], sla_decode.sla_decode_partial(*ops[0], **kw)))
+        o_s, o_l = cases.span_combine(torch.stack(records), flat, g)
+        comb = [float((x - w).abs().max()) / max(1.0, float(w.abs().max()))
+                for x, w in zip((o_s, o_l), want)]
+        ms = cuda_graph_ms(lambda: [sla_decode.sla_decode_partial(*o, **kw)
+                                    for o in ops])
+        plain_ms = cuda_ms(lambda: [sla_decode.sla_decode_partial_plain(
+            *o, **kw) for o in ops], 3)
+        combine_ms = cuda_ms(lambda: cases.span_combine(
+            torch.stack(records), flat, g), 10)
+        work = [_partial_bound(o, kw) for o in ops]
+        nbytes, flops = sum(w[0] for w in work), sum(w[1] for w in work)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / PEAK_FLOPS[torch.float32]
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        live = int(sum((o[1] > 0).sum() for o in ops))
+        ok = (max(errs) <= TWIN_TOL and neutral and bitwise
+              and max(comb) <= TWIN_TOL)
+        rows.append(dict(
+            spans=spans, blocks_a_span=nb, shape=f"{LM_ARCH} layer 0 live "
+            f"state B {b}, H {cfg.num_heads}, Hkv {hkv}, D {d}, Tn {tn}, K "
+            f"{flat[0].shape[-1]}, pos {pos}", max_abs_err=max(errs),
+            combine_err=max(comb), neutral_ok=neutral, bitwise_repeat=bitwise,
+            rows_with_live_slots=live, ms=ms, ms_a_span=ms / spans,
+            plain_ms=plain_ms, combine_ms=combine_ms, whole_ms=whole_ms,
+            bound_ms=bound_ms,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bound_bytes=nbytes, bound_flops=flops,
+            bound_fraction=bound_ms / ms, library_ms=None, ok=ok))
+        say(f"[37b partial] {rows[-1]['shape']} in {spans} spans of {nb} "
+            f"blocks: records vs twin max err {max(errs):.3g} (limit "
+            f"{TWIN_TOL:g}, relative), neutral rows {neutral}, bitwise on "
+            f"repeat {bitwise} | combined vs unsplit kernel 4 {max(comb):.3g} "
+            f"| every span's launch {ms:.4f} ms ({ms / spans:.4f} a span), "
+            f"twin {plain_ms:.3f} ms, combine {combine_ms:.3f} ms, unsplit "
+            f"kernel 4 {whole_ms:.4f} ms | bound {bound_ms:.4f} ms by "
+            f"{rows[-1]['bound_by']} ({nbytes / 1e6:.2f} MB) on {CARD[0]} "
+            f"{'OK' if ok else 'FAIL'}")
+        del ops, records
+    sla_decode.LAUNCHES, sla_decode.PARTIAL_LAUNCHES = snap[:2]
+    _restore_head_dims(snap[2])
+    return rows
+
+
+def _leaf_bitwise(got, host) -> bool:
+    """A card leaf against a host copy, a layer at a time."""
+    if not torch.is_tensor(got):
+        return got == host
+    if got.shape != host.shape or got.dtype != host.dtype:
+        return False
+    if got.ndim == 0:
+        return bool(torch.equal(got.cpu(), host))
+    return all(torch.equal(got[i], host[i].to(DEV))
+               for i in range(got.shape[0]))
+
+
+def phase_serve_mesh_sla() -> dict:
+    """Phase 37: decode-time SLA over the mesh's path at world size 1 on
+    this card. a. Full-width Qwen3-1.7B with seeded bf16 weights (sla_proj
+    redrawn) prefills P37_BATCH prompts of P37_PROMPT tokens with
+    `prefill(decode_max_len=P37_MAX_LEN)` on the kernel backend (the
+    decode-SLA state seeded: 15.0 GB of h_j beside 7.5 GB of K/V) and
+    takes P37_NEW greedy `decode_step`s on the kernel backend, on the plain
+    path, whose final leaves go to the host, then with the parameters
+    placed on `make_host_mesh(1, 1)` (NCCL through a FileStore under
+    build/, destroyed after) under `activation_sharding(mesh,
+    default_residual_spec(...))`: logits, greedy tokens and every leaf of
+    the cache and of its "sla" state bitwise the plain path's, compared a
+    layer at a time; kernel 1 one launch a layer a prefill on tensor
+    cores and kernel 4 one a layer a step on both paths, its partial mode
+    none (a one-rank mesh is layout A). b. `_partial_cases` over the mesh
+    run's layer 0. Returns the summary and the partial mode's rows."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    t_all = time.time()
+    cfg = get_arch(LM_ARCH)
+    nl = cfg.num_layers
+    gen = torch.Generator(device=DEV).manual_seed(37)
+    params = transformer.init(gen, cfg, dtype=torch.bfloat16, device=DEV)
+    _redraw(gen, [layer.sla_proj for layer in params.layers])
+    toks = torch.randint(0, cfg.vocab_size, (P37_BATCH, P37_PROMPT),
+                         generator=gen, device=DEV, dtype=torch.int32)
+    plain = _sla_serve_run(cfg, params, toks, "lm_serve_sla")
+    t0 = time.time()
+    held = {path: (leaf.cpu() if torch.is_tensor(leaf) else leaf)
+            for path, leaf in sharding.tree_leaves(plain["cache"])}
+    to_host_s = time.time() - t0
+    state_gb = sum(leaf.numel() * leaf.element_size()
+                   for leaf in held.values() if torch.is_tensor(leaf)) / 1e9
+    plain["cache"] = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    store = tempfile.mkdtemp(dir=ROOT / "build")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(store, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_host_mesh(1, 1, "cuda")
+        sharding.place_module(params, mesh)
+        residual = actx.default_residual_spec(mesh, P37_BATCH, P37_MAX_LEN)
+        with actx.activation_sharding(mesh, residual, remat=False):
+            sharded = _sla_serve_run(cfg, params, toks, "lm_serve_sla_mesh")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    del params
+    runs = {"plain": plain, "mesh 1x1": sharded}
+    same = {"logits": torch.equal(sharded["logits"], plain["logits"]),
+            "tokens": torch.equal(sharded["tokens"], plain["tokens"])}
+    leaves = dict(sharding.tree_leaves(sharded["cache"]))
+    same["leaves"] = sorted(leaves) == sorted(held)
+    bad_leaves = [path for path in sorted(held)
+                  if not _leaf_bitwise(leaves.get(path), held[path])]
+    same["every_leaf"] = not bad_leaves
+    del held
+    pos = int(sharded["cache"]["pos"])
+    st = sharded["cache"]["sla"]
+    counters = {key: st[key].tolist() for key in ("extends", "replans",
+                                                   "reuses")}
+    finite = bool(torch.isfinite(sharded["logits"]).all())
+    want = dict(sla_fwd=nl, tc_sla_fwd=nl, sla_decode=nl * P37_NEW,
+                sla_decode_paged=0, sla_decode_partial=0, per_step=[nl])
+    launches = {name: {k: run["launches"][k] for k in want}
+                for name, run in runs.items()}
+    walls = {}
+    for name, run in runs.items():
+        w = sorted(run["walls"][1:])
+        walls[name] = dict(prefill_s=run["prefill_s"],
+                           decode_first_s=run["walls"][0],
+                           decode_ms_min=1e3 * w[0],
+                           decode_ms_median=1e3 * w[len(w) // 2],
+                           decode_ms_max=1e3 * w[-1])
+        say(f"[37a serve mesh sla] {name}: prefill(decode_max_len="
+            f"{P37_MAX_LEN}) of {P37_BATCH} x {P37_PROMPT} tokens "
+            f"{run['prefill_s']:.3f}s | {P37_NEW} decode-time SLA steps: "
+            f"first {run['walls'][0] * 1e3:.1f} ms, then "
+            f"{walls[name]['decode_ms_min']:.1f}-"
+            f"{walls[name]['decode_ms_max']:.1f} ms a step (median "
+            f"{walls[name]['decode_ms_median']:.1f}) | launches "
+            f"{launches[name]} on {CARD[0]}")
+    del plain, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    partial = _partial_cases(cfg, sharded["cache"], pos - 1)
+    ok = (all(same.values()) and finite and pos == P37_PROMPT + P37_NEW
+          and all(v == want for v in launches.values())
+          and all(r["ok"] for r in partial))
+    say(f"[37a serve mesh sla] {LM_ARCH} full width over make_host_mesh(1, "
+        f"1): bitwise {same} (leaves that differ: {bad_leaves}), finite "
+        f"{finite}, pos {pos}, counters {counters} | the plain state's "
+        f"{state_gb:.2f} GB to the host in {to_host_s:.1f}s | partial mode "
+        f"{sum(r['ok'] for r in partial)}/{len(partial)} OK | "
+        f"{time.time() - t_all:.1f}s {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"decode-time SLA over the mesh: bitwise {same} "
+                           f"({bad_leaves}), finite {finite}, pos {pos}, "
+                           f"launches {launches}, partial "
+                           f"{[r for r in partial if not r['ok']]}")
+    return dict(bitwise=same, launches=launches["mesh 1x1"],
+                plain_launches=launches["plain"], walls=walls,
+                counters=counters, state_gb=state_gb,
+                wall_s=time.time() - t_all), partial
+
+
 def _tensors(x):
     if torch.is_tensor(x):
         yield x
@@ -7443,6 +7751,8 @@ def main(argv=None) -> int:
     sf = phase_serve_mesh_families()
     sfc = {k: sum(r["launches"][k] for r in sf.values()) for k in smc}
     ex, ex_fwd_rows, ex_bwd_rows = phase_examples()
+    sls, partial_rows = phase_serve_mesh_sla()
+    slsc, slpc = sls["launches"], sls["plain_launches"]
     qsc = ex["quickstart"]["launches"]
     ftc = ex["finetune"]["runs"]["sla"]["launches"]
     rows += ex_fwd_rows
@@ -7529,6 +7839,8 @@ def main(argv=None) -> int:
                 "family_train_mesh": fmc["tc_sla_fwd"],
                 "lm_serve_mesh": smc["tc_sla_fwd"],
                 "family_serve_mesh": sfc["tc_sla_fwd"],
+                "lm_serve_sla": slpc["tc_sla_fwd"],
+                "lm_serve_sla_mesh": slsc["tc_sla_fwd"],
                 "quickstart": qsc["tc_sla_fwd"],
                 "dit_finetune_sla": ftc["tc_sla_fwd"]}
     # the other paths compute in bf16: every launch there is a tensor-core
@@ -7546,7 +7858,8 @@ def main(argv=None) -> int:
                    "danube_prefill": dnc["split_sla_fwd"], "vlm_train": 0,
                    "gemma3_train": 0, "lm_train_mesh": 0,
                    "family_train_mesh": 0, "lm_serve_mesh": 0,
-                   "family_serve_mesh": 0,
+                   "family_serve_mesh": 0, "lm_serve_sla": 0,
+                   "lm_serve_sla_mesh": 0,
                    "quickstart": qsc["split_sla_fwd"],
                    "dit_finetune_sla": ftc["split_sla_fwd"]}
     kernels = [{
@@ -7563,7 +7876,8 @@ def main(argv=None) -> int:
                      + g3pc["sla_fwd"] + dnc["sla_fwd"] + vlc["sla_fwd"]
                      + g3tc["sla_fwd"] + mtc["sla_fwd"]
                      + fmc["sla_fwd"] + smc["sla_fwd"]
-                     + sfc["sla_fwd"] + qsc["sla_fwd"] + ftc["sla_fwd"]),
+                     + sfc["sla_fwd"] + slpc["sla_fwd"] + slsc["sla_fwd"]
+                     + qsc["sla_fwd"] + ftc["sla_fwd"]),
         "launches_by_path": {"serve": main_run["launches"],
                              "serve_plan_cache": pc_launches["launches"],
                              "train": train["launches"]["sla_fwd"],
@@ -7587,6 +7901,8 @@ def main(argv=None) -> int:
                              "family_train_mesh": fmc["sla_fwd"],
                              "lm_serve_mesh": smc["sla_fwd"],
                              "family_serve_mesh": sfc["sla_fwd"],
+                             "lm_serve_sla": slpc["sla_fwd"],
+                             "lm_serve_sla_mesh": slsc["sla_fwd"],
                              "quickstart": qsc["sla_fwd"],
                              "dit_finetune_sla": ftc["sla_fwd"]},
         **ran_at("sla_fwd"),
@@ -7751,7 +8067,8 @@ def main(argv=None) -> int:
                      + puc["sla_decode"] + sum(dchunk["launches"])
                      + dgc["sla_decode"] + moec["sla_decode"]
                      + g3c["sla_decode"] + g3pc["sla_decode"]
-                     + dnc["sla_decode"]),
+                     + dnc["sla_decode"] + slpc["sla_decode"]
+                     + slsc["sla_decode"]),
         "launches_by_path": {"lm_decode": lm["launches"]["sla_decode"],
                              "lm_paged_decode": pgc["sla_decode"],
                              "lm_unpaged_decode": puc["sla_decode"],
@@ -7760,7 +8077,9 @@ def main(argv=None) -> int:
                              "moe_decode": moec["sla_decode"],
                              "gemma3_decode": g3c["sla_decode"],
                              "gemma3_paged_decode": g3pc["sla_decode"],
-                             "danube_decode": dnc["sla_decode"]},
+                             "danube_decode": dnc["sla_decode"],
+                             "lm_serve_sla": slpc["sla_decode"],
+                             "lm_serve_sla_mesh": slsc["sla_decode"]},
         **ran_at("sla_decode"),
         "arch_head_dims": arch_head_dims(LM_ARCH, MOE_ARCH, G3_ARCH),
         "d256": {k: d256_dec[0][k] for k in (
@@ -7778,6 +8097,22 @@ def main(argv=None) -> int:
                   "of the split and combine kernels); eager_ms: CUDA events "
                   "around eager calls (host dispatch included)",
         "cases": dec_rows,
+        "partial": {
+            "entry": "sla_decode_partial (csrc/sla_decode.cu "
+                     "sla_decode_partial_launch: the split kernel without "
+                     "its totals' block, the combine kernel's kPartial "
+                     "mode)",
+            "launches": slsc["sla_decode_partial"]
+            + slpc["sla_decode_partial"],
+            "launches_note": "a one-card mesh is layout A, where kernel 4 "
+                             "runs unsplit on the rank's heads; the partial "
+                             "mode runs where a mesh of more than one rank "
+                             "splits the sequence (held on the CPU over "
+                             "gloo) and in phase 37b's checks",
+            **{key: partial_rows[0][key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_fraction", "combine_err", "library_ms")},
+            "cases": partial_rows},
     })
     head5 = next(r for r in pg_rows if r["shape"] ==
                  "qwen3-1.7b paged decode B=4" and r["dtype"] == "bf16")
@@ -7826,7 +8161,7 @@ def main(argv=None) -> int:
         f"gemma3 serve {g3} | danube serve {dn} | vlm train {vl} | gemma3 "
         f"train {g3t} | lm train mesh {mt} | family train mesh {fm} | "
         f"lm serve mesh {sm} | family serve mesh {sf} | examples {ex} | "
-        f"total "
+        f"lm serve sla mesh {sls} | total "
         f"{time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -13,7 +13,9 @@ the attention math given that plan. Three backends, all returning
 feature maps, GQA head broadcast, and the learned Proj merge (Eq. 6).
 A second registry runs one decode token against the decode cache state
 (`decode_execute`; backends gather / reference / kernel), on monolithic
-or paged decode state, and `decode_execute_chunk` a chunk of C tokens
+or paged decode state, `decode_partial_execute` one rank's span of a
+split cache (kernel 4's partial records), and `decode_execute_chunk` a
+chunk of C tokens
 with per-token plan rows and linear-state snapshots (verify-style
 decode). Counterpart of `repro.core.backends`.
 """
@@ -398,6 +400,53 @@ def decode_execute(state: Dict[str, torch.Tensor], params: Optional[Params],
     proj = params["proj"].float()
     o = o_s + torch.einsum("bhd,hde->bhe", o_l.reshape(b, h, d), proj)
     return o.to(in_dtype)
+
+
+def decode_partial_execute(state: Dict[str, torch.Tensor], q: torch.Tensor,
+                           pos: int, cfg: SLAConfig,
+                           scale: Optional[float] = None,
+                           backend: str = "gather") -> torch.Tensor:
+    """Kernel 4's partial records of one decode token over one rank's span
+    of a cache whose sequence is split over several ranks
+    (`distributed/serving.py`), for `sla_decode.sla_decode_combine`.
+
+    q: (B, H, D) the token's queries, H a multiple of the span's KV heads;
+    `state` holds the span's k, v (B, Hkv, S_span, D), hblk (B, Hkv,
+    Tn_span, D, D), zblk (B, Hkv, Tn_span, D), and the live row's blocks
+    in the span, lut (B, H, K) int32 in the span's own block ids
+    (`sla_decode.span_lut`) with cnt (B, H); `pos` is the token's position
+    less the span's first position. Backend "kernel" launches
+    `sla_decode_partial` (its plain twin on CPU tensors), "gather" runs the
+    twin's math; "reference" has no partial form and is refused. Returns
+    (B, H, 2 D + 3) f32 records (m, l, acc[D], hsel[D], zsel)."""
+    from repro_torch.kernels import sla_decode
+
+    backend = resolve_decode(backend)
+    if backend == "reference":
+        raise ValueError("the 'reference' decode backend has no partial "
+                         "form over a split cache: use 'kernel' or "
+                         "'gather'")
+    b, h, d = q.shape
+    hkv = state["k"].shape[1]
+    bkv = cfg.block_kv
+    tn = state["k"].shape[2] // bkv
+    k_sel = state["lut"].shape[-1]
+    bh = b * h
+    scale = (d**-0.5) if scale is None else scale
+    run = (sla_decode.sla_decode_partial if backend == "kernel"
+           else sla_decode.sla_decode_partial_plain)
+    rec = run(state["lut"].reshape(bh, 1, k_sel).int().contiguous(),
+              state["cnt"].reshape(bh, 1).int().contiguous(),
+              torch.full((bh,), int(pos), dtype=torch.int32,
+                         device=q.device),
+              q.float().reshape(bh, 1, d).contiguous(),
+              phi(q, cfg.phi).float().reshape(bh, 1, d).contiguous(),
+              state["k"].reshape(b * hkv, tn, bkv, d),
+              state["v"].reshape(b * hkv, tn, bkv, d),
+              state["hblk"].reshape(b * hkv, tn, d, d),
+              state["zblk"].reshape(b * hkv, tn, d),
+              scale=float(scale), block_kv=bkv, group=h // hkv)
+    return rec.reshape(b, h, 2 * d + 3)
 
 
 def decode_execute_chunk(state: Dict[str, torch.Tensor],

@@ -28,6 +28,17 @@ of exponentials against it and the unnormalised output; the combine
 rescales each to the global max and sums in rank order, so every rank
 gets the same bits. Decode is inference only: the collectives here carry
 no gradient.
+
+Decode-time SLA over the mesh keeps each leaf of its state where
+`cache_shardings` puts it (`SLAParts`): the per-block h_j, z_j and
+pooled k beside their blocks' K/V, the totals and the plan by their own
+rules. `reshard` moves a small tensor between two such placements (an
+all-gather of the dims one splits, a slice of the dims the other does),
+`read_row` reads one row of a leaf split by rows on every rank. Over a
+split sequence each rank attends its span's share of the live row's
+blocks through kernel 4's partial records, and the spans' records,
+gathered here (`gather_spans`), are merged in span order by
+`kernels.sla_decode.sla_decode_combine`.
 """
 from __future__ import annotations
 
@@ -58,15 +69,18 @@ class KVLayout:
     seq_index: int
     dp: int
 
-    def check_length(self, length: int) -> None:
-        """Refuse a cache length the sequence's ranks do not divide: the
-        rules would leave such a sequence whole on each of them, and a
-        rank's span would no longer follow from its local length."""
-        if length % self.seq_parts:
+    def check_length(self, length: int, block: int = 1) -> None:
+        """Refuse a cache length the sequence's ranks do not divide (in
+        whole `block`s of positions: decode-time SLA keeps each KV block's
+        state beside its K/V): the rules would leave such a sequence whole
+        on each of them, and a rank's span would no longer follow from its
+        local length."""
+        if length % (self.seq_parts * block):
             raise ValueError(
                 f"a cache of {length} positions with its sequence over "
                 f"{self.seq_axes} needs a length its {self.seq_parts} "
-                f"ranks divide")
+                f"ranks divide"
+                + (f" into whole blocks of {block}" if block > 1 else ""))
 
     def span(self, length: int) -> Tuple[int, int]:
         """(first position, positions) of this rank's span of a cache of
@@ -242,14 +256,20 @@ def gather_heads(x: torch.Tensor, mesh) -> torch.Tensor:
     return torch.cat(list(parts), dim=1)
 
 
+def gather_axes(x: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """Every rank's x over `axes`, (ranks, *x.shape) in rank order (the
+    first axis major); x[None] over no axis."""
+    out = x[None]
+    for axis in reversed(tuple(axes)):
+        out = _gather(out, axis, mesh)
+        out = out.reshape((-1,) + x.shape)
+    return out
+
+
 def gather_spans(x: torch.Tensor, lay: KVLayout) -> torch.Tensor:
     """Every span's x over the sequence axes, (seq_parts, *x.shape) in span
     order (the first axis major)."""
-    out = x[None]
-    for axis in reversed(lay.seq_axes):
-        out = _gather(out, axis, lay.mesh)
-        out = out.reshape((-1,) + x.shape)
-    return out
+    return gather_axes(x, lay.seq_axes, lay.mesh)
 
 
 def sharded_decode_attn(q: torch.Tensor, kc: torch.Tensor,
@@ -275,3 +295,125 @@ def sharded_decode_attn(q: torch.Tensor, kc: torch.Tensor,
         rank = lay.mesh.get_local_rank("model")
         o = o[:, rank * h_loc:(rank + 1) * h_loc]
     return o
+
+
+# --------------------------------------------------------------------------
+# decode-time SLA over the mesh
+# --------------------------------------------------------------------------
+def _spec_axes(entry) -> Tuple[str, ...]:
+    return () if entry is None else sharding._axes(entry)
+
+
+def _axes_index(axes, mesh) -> Tuple[int, int]:
+    """(ranks, this rank's index) over `axes`, the first axis major; (1, 0)
+    over no axis, with or without a mesh."""
+    parts, index = 1, 0
+    if not axes:
+        return parts, index
+    sizes = sharding.axis_sizes(mesh)
+    for axis in axes:
+        parts *= sizes[axis]
+        index = index * sizes[axis] + mesh.get_local_rank(axis)
+    return parts, index
+
+
+def reshard(x: torch.Tensor, have, want, mesh) -> torch.Tensor:
+    """x, laid out by `have` (one spec entry a dim of x: the axes that dim
+    is split over, or None), as laid out by `want`: a dim `have` splits is
+    all-gathered over its axes (rank order, the first axis major), then a
+    dim `want` splits is cut to this rank's part. The identity where the
+    two agree."""
+    for dim in range(x.ndim):
+        h, w = _spec_axes(have[dim]), _spec_axes(want[dim])
+        if h == w:
+            continue
+        for axis in reversed(h):
+            x = torch.cat(list(_gather(x, axis, mesh)), dim=dim)
+        if w:
+            parts, index = _axes_index(w, mesh)
+            n = x.shape[dim] // parts
+            x = x.narrow(dim, index * n, n)
+    return x
+
+
+def read_row(x: torch.Tensor, dim: int, row: int, have, mesh
+             ) -> torch.Tensor:
+    """Global index `row` of dim `dim` of x, whose dim is split over the
+    axes `have` (a spec entry): the owner's entry, gathered to every rank
+    of those axes. x.select(dim, row) where the dim is whole."""
+    axes = _spec_axes(have)
+    n = x.shape[dim]
+    if not axes:
+        return x.select(dim, row)
+    _, index = _axes_index(axes, mesh)
+    mine = x.select(dim, min(max(row - index * n, 0), n - 1))
+    return gather_axes(mine, axes, mesh)[row // n]
+
+
+def _per_layer(spec, ndim: int) -> tuple:
+    """A leaf's spec, one entry a dim (None where whole), without its
+    leading layer dim."""
+    spec = tuple(spec) + (None,) * (ndim - len(tuple(spec)))
+    return tuple(None if e is None or e == () else e for e in spec)[1:]
+
+
+class SLAParts:
+    """Where this rank's part of each leaf of a decode-time SLA state
+    sits: `spec[name]` is the leaf's spec under `cache_shardings` without
+    its layer dim, `start(name, dim)` this rank's first index along a dim
+    of one layer's leaf. `batch` is the split of the rows a decode step
+    computes ("data" under data parallelism, None when every rank holds
+    the whole batch), `heads` the query heads' ("model"), `kv_heads` the
+    K/V's. `shapes` are the leaves' global shapes, {name: shape}; the
+    plan's leaves are named "plan/<field>". Without a layout (`kl` None:
+    no mesh) every leaf is whole, so every move between placements is the
+    identity and no collective runs.
+
+    Built per call from the layout: it holds the layout's mesh, whose
+    process groups end with the group that made them."""
+
+    def __init__(self, kl: Optional[KVLayout], shapes: Dict[str, tuple],
+                 global_batch: int):
+        self.kl = kl
+        self.mesh = None if kl is None else kl.mesh
+        self.shapes = {n: tuple(s) for n, s in shapes.items()}
+        if kl is None:
+            self.local = dict(self.shapes)
+            self.spec = {n: (None,) * (len(s) - 1)
+                         for n, s in self.shapes.items()}
+            self.batch = self.heads = self.kv_heads = None
+            return
+        metas = {n: torch.empty(s, device="meta") for n, s in shapes.items()}
+        rules = sharding.cache_shardings(self.mesh, metas, global_batch)
+        self.local = {n: rules[n].shard_shape(s) for n, s in shapes.items()}
+        self.spec = {n: _per_layer(rules[n].spec, len(s))
+                     for n, s in shapes.items()}
+        self.batch = "data" if kl.dp > 1 else None
+        self.heads = "model"
+        self.kv_heads = kl.spec[2]
+
+    def start(self, name: str, dim: int) -> int:
+        parts, index = _axes_index(_spec_axes(self.spec[name][dim]),
+                                   self.mesh)
+        return index * (self.shapes[name][dim + 1] // parts)
+
+    def to_leaf(self, name: str, x: torch.Tensor, have,
+                stacked: bool = False) -> torch.Tensor:
+        """x (one layer's worth, or every layer's with `stacked`, laid out
+        by `have` on the per-layer dims) at the leaf's placement."""
+        lead = (None,) if stacked else ()
+        return reshard(x, lead + tuple(have), lead + self.spec[name],
+                       self.mesh)
+
+    def from_leaf(self, name: str, x: torch.Tensor, want) -> torch.Tensor:
+        """One layer's local leaf x laid out by `want`."""
+        return reshard(x, self.spec[name], want, self.mesh)
+
+    def min_over_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """The min of x over the data ranks that split the batch (exact in
+        any order); x itself where every rank holds the whole batch."""
+        if self.batch is not None:
+            x = x.clone()
+            dist.all_reduce(x, op=dist.ReduceOp.MIN,
+                            group=self.mesh.get_group(self.batch))
+        return x

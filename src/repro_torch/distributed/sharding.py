@@ -256,11 +256,15 @@ def batch_shardings(mesh, batch_specs, global_batch: int):
 
 
 def tree_leaves(tree, prefix: str = ""):
-    """(path, leaf) pairs of a nested dict / list / NamedTuple (a cache
-    with its SLAPlan), the path "/"-joined as the reference's."""
+    """(path, leaf) pairs of a nested dict / list / NamedTuple / dataclass
+    (a cache with its SLAPlan), the path "/"-joined as the reference's."""
     if isinstance(tree, Mapping):
         for k, v in tree.items():
             yield from tree_leaves(v, f"{prefix}{k}/")
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            yield from tree_leaves(getattr(tree, f.name),
+                                   f"{prefix}{f.name}/")
     elif hasattr(tree, "_fields"):
         for k in tree._fields:
             yield from tree_leaves(getattr(tree, k), f"{prefix}{k}/")
@@ -284,6 +288,12 @@ def cache_shardings(mesh, cache_specs, global_batch: int
     decode_32k (B=128): batch over dp, heads over model.
     long_500k (B=1):   sequence over data (context-parallel cache),
                        heads over model.
+
+    A 6-d leaf (decode-time SLA's per-block h_j, (L, B, Hkv, Tn, D, D))
+    takes the 5-d rule on its first five dims, its last dim whole, so it
+    sits where its 5-d sibling z_j (L, B, Hkv, Tn, D) sits. The reference
+    leaves it whole on every rank (`P()`, ROADMAP §3 "Differences by
+    design").
     """
     dp = pick_dp_axes(mesh, global_batch)
     shard_seq = not dp
@@ -292,6 +302,10 @@ def cache_shardings(mesh, cache_specs, global_batch: int
     def one(name, shape):
         if len(shape) <= 1:
             return NamedSharding(mesh, ())
+        if len(shape) == 6:
+            lead = one(name, shape[:5]).spec
+            spec = tuple(lead) + (None,) * (6 - len(lead))
+            return NamedSharding(mesh, spec)
         if len(shape) == 5:  # (L, B, H, S, D) kv cache / (L,B,H,dk,dv) state
             is_state = "state" in name or "ssm" in name
             model_sz = sizes.get("model", 1)

@@ -1,7 +1,9 @@
 """Seeded operands and criteria shared by `chip_smoke.py` and
 `tests/test_torch_gpu.py`: the paged decode kernel's cases (held against
-its plain twin and the monolithic decode kernel) and the tensor-core
-route's precision criterion (forward and backward), each written once.
+its plain twin and the monolithic decode kernel), the decode kernel's
+partial mode over the spans of a split cache (`span_operands`,
+`span_combine`, `record_error`), and the tensor-core route's precision
+criterion (forward and backward), each written once.
 """
 from __future__ import annotations
 
@@ -125,3 +127,53 @@ def paged_dense_operands(args):
 
     return (lut, cnt, marg, posv, q, qp, view(k), view(v), view(hblk),
             view(zblk), None, None, htot, ztot)
+
+
+def span_operands(args, first: int, blocks: int):
+    """`sla_decode_partial`'s operands for the span of `blocks` KV blocks
+    from block `first`, from `sla_decode`'s live-row operands `args`
+    (lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag, htot,
+    ztot; C = 1): the LUT's slots in the span re-based to its ids
+    (`sla_decode.span_lut`), the positions shifted by its first, and the
+    span's own copy of its K/V, h_j and z_j blocks (a rank's leaves)."""
+    from repro_torch.kernels import sla_decode
+    lut, cnt, _, posv, q, qp, k, v, hblk, zblk = args[:10]
+    span_lut, span_cnt = sla_decode.span_lut(lut, cnt, first, blocks)
+    cut = slice(first, first + blocks)
+    return (span_lut, span_cnt, (posv - first * k.shape[2]).int(), q, qp,
+            k[:, cut].contiguous(), v[:, cut].contiguous(),
+            hblk[:, cut].contiguous(), zblk[:, cut].contiguous())
+
+
+def span_combine(records, args, group: int):
+    """`sla_decode.sla_decode_combine` of the spans' records (spans, BH, 1,
+    2 D + 3) with phi(q) Htot and phi(q) Ztot from `args`' running totals
+    (one part: Htot whole) and its marg. Returns (o_s, o_l)."""
+    from repro_torch.kernels import sla_decode
+    marg, qp, htot, ztot = args[2], args[5], args[12], args[13]
+    kv = torch.arange(qp.shape[0], device=qp.device) // group
+    qht = torch.einsum("bcd,bde->bce", qp, htot[kv])[None]
+    qzt = (qp * ztot[kv][:, None]).sum(dim=-1)
+    return sla_decode.sla_decode_combine(records, qht, qzt, marg)
+
+
+def record_error(got, want) -> dict:
+    """A partial record (..., 2 D + 3) against its twin, field by field:
+    the max over m (where the twin's row walked a column; bitwise -1e30
+    where it walked none), l, acc, hsel and zsel of |got - want| / max(1,
+    max |want| of that field). Returns {"err": that max, "neutral_ok":
+    the unwalked rows' m bitwise}."""
+    d = (want.shape[-1] - 3) // 2
+    walked = want[..., 0] > -1e29
+    fields = {"m": (got[..., 0][walked], want[..., 0][walked]),
+              "l": (got[..., 1], want[..., 1]),
+              "acc": (got[..., 2:2 + d], want[..., 2:2 + d]),
+              "hsel": (got[..., 2 + d:2 + 2 * d], want[..., 2 + d:2 + 2 * d]),
+              "zsel": (got[..., 2 + 2 * d], want[..., 2 + 2 * d])}
+    err = 0.0
+    for g, w in fields.values():
+        if w.numel():
+            err = max(err, float((g - w).abs().max())
+                      / max(1.0, float(w.abs().max())))
+    return dict(err=err, neutral_ok=bool(torch.equal(
+        got[..., 0][~walked], want[..., 0][~walked])))

@@ -96,6 +96,18 @@
 // bounds. With one body and a width that depends on the shapes only, the
 // paged kernel on the pools and the monolithic one on the gathered view
 // split and sum in the same order: bitwise equal.
+//
+// Partial mode (`sla_decode_partial_launch`: a rank's span of a cache
+// whose sequence is split over several ranks). A rank holds some of the
+// live row's blocks and none of the global totals, so it cannot divide.
+// The split grid runs without its totals' block, and the combine kernel
+// (its kPartial instantiation) merges the split records in split order
+// as above but writes the merged record itself, (m, l, acc[D], hsel[D],
+// zsel), for a combine across ranks (`distributed/serving.py`
+// `sla_decode_combine`), which applies the marg and den tests on the
+// global sums. The wrapper passes the LUT slots in this rank's span in
+// its own block ids and the positions shifted by the span's start, so the
+// masks see global columns.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -552,21 +564,28 @@ __global__ void __launch_bounds__(kThreads)
 // row's record headers (m, l, zpart) in shared memory in one parallel
 // pass, reads the nsplit split records in index order, kBatch at a time
 // (their loads in flight together), then the totals' record, and writes
-// O^s and O^l.
-template <int kMaxThreads>
+// O^s and O^l. With kPartial (a rank's span of a sharded cache) the split
+// grid has no totals' block: the merged record itself is written, before
+// any divide, as (m, l, acc[d], hsel[d], zsel) into `rec`, 2 d + 3 floats
+// a row, for a combine across ranks; the marg / den test needs the global
+// sums, so it is left to that combine.
+template <int kMaxThreads, bool kPartial>
 __global__ void __launch_bounds__(kMaxThreads)
     sla_decode_combine_kernel(const int32_t* __restrict__ marg,
                               const float* __restrict__ work,
                               float* __restrict__ o_s,
-                              float* __restrict__ o_l, int d, int nsplit) {
+                              float* __restrict__ o_l,
+                              float* __restrict__ rec_out, int d,
+                              int nsplit) {
   extern __shared__ float head[];  // (nsplit + 1) x (m, l, zpart)
   const size_t tok = blockIdx.x;
   const int e = threadIdx.x;
   const bool col = e < d;
   const int rec = record(d);
+  const int nrec = kPartial ? nsplit : nsplit + 1;  // headers to stage
   const float* row = work + tok * (nsplit + 1) * rec;
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  for (int i = e; i < 3 * (nsplit + 1); i += blockDim.x)
+  for (int i = e; i < 3 * nrec; i += blockDim.x)
     head[i] = row[(size_t)(i / 3) * rec + i % 3];
   __syncthreads();
   float m = kNegInf;
@@ -592,6 +611,19 @@ __global__ void __launch_bounds__(kMaxThreads)
         h += hv[u];
       }
     }
+  }
+  if (kPartial) {
+    float* out = rec_out + tok * (2 * d + 3);
+    if (col) {
+      out[2 + e] = a;
+      out[2 + d + e] = h;
+    }
+    if (e == 0) {
+      out[0] = m;
+      out[1] = l;
+      out[2 + 2 * d] = z;
+    }
+    return;
   }
   const float den = head[3 * nsplit + 2] - z;
   const bool live = den > kEps && marg[tok] > 0;
@@ -620,16 +652,19 @@ int launch(const int32_t* lut, const int32_t* cnt, const int32_t* marg,
            const void* k, const void* v, const float* hblk,
            const float* zblk, const float* hdiag, const float* zdiag,
            const float* htot, const float* ztot, const int32_t* pt,
-           float* work, float* o_s, float* o_l, int bh_q, int c_len,
-           int k_sel, int tn, int num_blocks, int d, int block_kv,
-           int group, int heads, int kv_mod, float scale,
+           float* work, float* o_s, float* o_l, float* rec_out, int bh_q,
+           int c_len, int k_sel, int tn, int num_blocks, int d,
+           int block_kv, int group, int heads, int kv_mod, float scale,
            long long kv_head_stride, long long kv_blk_stride,
            long long h_head_stride, long long h_blk_stride,
            long long z_head_stride, long long z_blk_stride,
            int tot_per_token, int width, int nsplit, cudaStream_t stream) {
   cudaError_t err = allow_stage<T, kPaged, kCols>();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(nsplit + 1, c_len, bh_q);
+  // a partial launch (rec_out given) runs no totals' block: the rank
+  // holds no global totals
+  const bool partial = rec_out != nullptr;
+  const dim3 grid(partial ? nsplit : nsplit + 1, c_len, bh_q);
   sla_decode_split_kernel<T, kPaged, kCols><<<
       grid, kThreads,
       stage_bytes(d, block_kv, sizeof(T), h_rows_of(kCols)), stream>>>(
@@ -652,8 +687,16 @@ int launch(const int32_t* lut, const int32_t* cnt, const int32_t* marg,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, sla_decode_combine_kernel<dim_of(kCols)>,
-                           marg, (const float*)work, o_s, o_l, d, nsplit);
+  if (partial)
+    err = cudaLaunchKernelEx(&cfg,
+                             sla_decode_combine_kernel<dim_of(kCols), true>,
+                             marg, (const float*)work, o_s, o_l, rec_out, d,
+                             nsplit);
+  else
+    err = cudaLaunchKernelEx(&cfg,
+                             sla_decode_combine_kernel<dim_of(kCols), false>,
+                             marg, (const float*)work, o_s, o_l, rec_out, d,
+                             nsplit);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -664,7 +707,8 @@ int launch_any(int is_bf16, const int32_t* lut, const int32_t* cnt,
                const float* hblk, const float* zblk, const float* hdiag,
                const float* zdiag, const float* htot, const float* ztot,
                const int32_t* pt, float* work, float* o_s, float* o_l,
-               int bh_q, int c_len, int k_sel, int tn, int num_blocks, int d,
+               float* rec_out, int bh_q, int c_len, int k_sel, int tn,
+               int num_blocks, int d,
                int block_kv, int group, int heads, int kv_mod, float scale,
                long long kv_head_stride, long long kv_blk_stride,
                long long h_head_stride, long long h_blk_stride,
@@ -680,14 +724,17 @@ int launch_any(int is_bf16, const int32_t* lut, const int32_t* cnt,
       heads < 1 || num_blocks < 1 || k_sel < 1 || width < 1 ||
       width > k_sel || nsplit != (k_sel + width - 1) / width ||
       c_len < 1 || c_len > kMaxGrid || bh_q < 1 || bh_q > kMaxGrid ||
-      work == nullptr)
+      work == nullptr ||
+      (rec_out == nullptr && (htot == nullptr || ztot == nullptr ||
+                              o_s == nullptr || o_l == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto go = [&](auto tag, auto paged, auto cols) {
     using T = decltype(tag);
     return launch<T, decltype(paged)::value, decltype(cols)::value>(
         lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag, htot,
-        ztot, pt, work, o_s, o_l, bh_q, c_len, k_sel, tn, num_blocks, d,
+        ztot, pt, work, o_s, o_l, rec_out, bh_q, c_len, k_sel, tn,
+        num_blocks, d,
         block_kv, group, heads, kv_mod, scale, kv_head_stride,
         kv_blk_stride, h_head_stride, h_blk_stride, z_head_stride,
         z_blk_stride, tot_per_token, width, nsplit, st);
@@ -737,8 +784,9 @@ extern "C" int sla_decode_launch(
     int width, int nsplit, int is_bf16, void* stream) {
   const int bh_kv = group > 0 ? bh_q / group : 0;
   return launch_any(is_bf16, lut, cnt, marg, posv, q, qp, k, v, hblk, zblk,
-                    hdiag, zdiag, htot, ztot, nullptr, work, o_s, o_l, bh_q,
-                    c_len, k_sel, tn, tn, d, block_kv, group, 1, bh_kv,
+                    hdiag, zdiag, htot, ztot, nullptr, work, o_s, o_l,
+                    nullptr, bh_q, c_len, k_sel, tn, tn, d, block_kv, group,
+                    1, bh_kv,
                     scale, kv_head_stride, kv_blk_stride, h_head_stride,
                     h_blk_stride, z_head_stride, z_blk_stride, tot_per_token,
                     width, nsplit, stream);
@@ -765,11 +813,41 @@ extern "C" int sla_decode_paged_launch(
     int is_bf16, void* stream) {
   if (pt == nullptr) return (int)cudaErrorInvalidValue;
   return launch_any(is_bf16, lut, cnt, marg, posv, q, qp, k, v, hblk, zblk,
-                    nullptr, nullptr, htot, ztot, pt, work, o_s, o_l, bh_q, 1,
-                    k_sel, tn, num_pages, d, block_kv, group, group * hkv,
+                    nullptr, nullptr, htot, ztot, pt, work, o_s, o_l,
+                    nullptr, bh_q, 1, k_sel, tn, num_pages, d, block_kv,
+                    group, group * hkv,
                     hkv, scale, kv_head_stride, kv_page_stride,
                     h_head_stride, h_page_stride, z_head_stride,
                     z_page_stride, 0, width, nsplit, stream);
+}
+
+// The partial mode (a rank's span of a sharded decode cache; live row,
+// no diagonal partials): the operands of sla_decode_launch without the
+// totals, the outputs replaced by `rec`, (bh_q, c_len, 2 d + 3) f32 rows
+// (m, l, acc[d], hsel[d], zsel): the row max over the walked columns
+// (-1e30 where the row walks none), the sum of exponentials against it,
+// the unnormalised sparse output, hsel = phi(q) sum H_j and zsel = phi(q)
+// sum Z_j over the walked blocks. The LUT holds this rank's blocks in its
+// own block ids; posv is shifted by the span's first position, so the
+// causal mask sees global columns. The same workspace, width, limits and
+// return value as sla_decode_launch.
+extern "C" int sla_decode_partial_launch(
+    const int32_t* lut, const int32_t* cnt, const int32_t* posv,
+    const float* q, const float* qp, const void* k, const void* v,
+    const float* hblk, const float* zblk, float* work, float* rec,
+    int bh_q, int c_len, int k_sel, int tn, int d, int block_kv, int group,
+    float scale, long long kv_head_stride, long long kv_blk_stride,
+    long long h_head_stride, long long h_blk_stride,
+    long long z_head_stride, long long z_blk_stride, int width, int nsplit,
+    int is_bf16, void* stream) {
+  if (rec == nullptr) return (int)cudaErrorInvalidValue;
+  const int bh_kv = group > 0 ? bh_q / group : 0;
+  return launch_any(is_bf16, lut, cnt, nullptr, posv, q, qp, k, v, hblk,
+                    zblk, nullptr, nullptr, nullptr, nullptr, nullptr, work,
+                    nullptr, nullptr, rec, bh_q, c_len, k_sel, tn, tn, d,
+                    block_kv, group, 1, bh_kv, scale, kv_head_stride,
+                    kv_blk_stride, h_head_stride, h_blk_stride,
+                    z_head_stride, z_blk_stride, 0, width, nsplit, stream);
 }
 
 extern "C" const char* sla_decode_error_string(int err) {

@@ -35,6 +35,16 @@ as the reference's `custom_vjp` is JAX autodiff over `_decode_math`.
 The twins take `split_width` too: they then compute the kernel's partial
 records and combine them in its order (tests only).
 
+Over a cache whose sequence is split across ranks (a (data, model) mesh,
+`distributed/serving.py`) each rank runs `sla_decode_partial` on its own
+span: the same split kernel without the totals' block, and the combine
+kernel's partial mode, which writes the merged record before any divide,
+(m, l, acc[D], hsel[D], zsel) per row. `span_lut` re-bases the live
+row's blocks to a span's ids, and `sla_decode_combine` merges the spans'
+records in span order and finishes both branches on the global sums.
+`PARTIAL_LAUNCHES` and `PARTIAL_HEAD_DIMS` count the partial mode's calls
+apart; its twin is `sla_decode_partial_plain`.
+
 Paged decode state (a page table `"pt"` (B, Tn) and the layer's page
 pools in place of the per-slot leaves) goes to `sla_decode_paged`: the
 same kernel body with K/V/hblk/zblk read from the pools at page
@@ -61,6 +71,8 @@ LAUNCHES = 0  # kernel calls in this process (plain-twin calls excluded)
 PAGED_LAUNCHES = 0  # the paged kernel's calls, counted apart
 HEAD_DIMS = collections.Counter()  # LAUNCHES by the head dim run at
 PAGED_HEAD_DIMS = collections.Counter()  # PAGED_LAUNCHES alike
+PARTIAL_LAUNCHES = 0  # the partial mode's calls, counted apart
+PARTIAL_HEAD_DIMS = collections.Counter()  # PARTIAL_LAUNCHES alike
 SPLITS_PER_SM = 2  # the split grid covers every SM at least this often
 MAX_SPLIT_WIDTH = 4  # and no block walks more slots, one after another
 
@@ -68,6 +80,7 @@ _I, _F, _P, _L = ctypes.c_int, ctypes.c_float, ctypes.c_void_p, \
     ctypes.c_longlong
 _ARGTYPES = [_P] * 17 + [_I] * 7 + [_F] + [_L] * 6 + [_I] * 4 + [_P]
 _PAGED_ARGTYPES = [_P] * 16 + [_I] * 8 + [_F] + [_L] * 6 + [_I] * 3 + [_P]
+_PARTIAL_ARGTYPES = [_P] * 11 + [_I] * 7 + [_F] + [_L] * 6 + [_I] * 3 + [_P]
 _MAX_GRID = 65535  # the split grid's C and BH axes
 
 
@@ -79,6 +92,8 @@ def _lib() -> ctypes.CDLL:
     lib.sla_decode_launch.restype = ctypes.c_int
     lib.sla_decode_paged_launch.argtypes = _PAGED_ARGTYPES
     lib.sla_decode_paged_launch.restype = ctypes.c_int
+    lib.sla_decode_partial_launch.argtypes = _PARTIAL_ARGTYPES
+    lib.sla_decode_partial_launch.restype = ctypes.c_int
     lib.sla_decode_error_string.argtypes = [ctypes.c_int]
     lib.sla_decode_error_string.restype = ctypes.c_char_p
     return lib
@@ -171,13 +186,14 @@ def _check(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag,
         raise ValueError("sla_decode: give both hdiag and zdiag, or neither")
     ts = dict(lut=lut, cnt=cnt, marg=marg, posv=posv, q=q, qp=qp,
               k=k.view(bh_kv, tn * bkv, d), v=v.view(bh_kv, tn * bkv, d),
-              hblk=hblk, zblk=zblk, htot=htot, ztot=ztot)
-    if hdiag is not None:
-        ts.update(hdiag=hdiag, zdiag=zdiag)
-    f32 = ("qp", "hblk", "zblk", "htot", "ztot") + (
-        ("hdiag", "zdiag") if hdiag is not None else ())
-    check_operands("sla_decode", ts, f32, ("lut", "cnt", "marg", "posv"), 1,
-                   block_kv, q_f32=True)
+              hblk=hblk, zblk=zblk, htot=htot, ztot=ztot, hdiag=hdiag,
+              zdiag=zdiag)
+    ts = {name: t for name, t in ts.items() if t is not None}  # partial
+    f32 = tuple(n for n in ("qp", "hblk", "zblk", "htot", "ztot", "hdiag",
+                            "zdiag") if n in ts)
+    check_operands("sla_decode", ts, f32,
+                   tuple(n for n in ("lut", "cnt", "marg", "posv")
+                         if n in ts), 1, block_kv, q_f32=True)
     bh, c, _ = q.shape
     if bh != bh_kv * group:
         raise ValueError(f"sla_decode: {bh} q rows are not {bh_kv} kv "
@@ -189,19 +205,18 @@ def _check(lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag,
         raise ValueError(f"sla_decode: lut must be ({bh}, {c}, K>=1), got "
                          f"{tuple(lut.shape)}")
     _check_tile("sla_decode", bkv, d, k.element_size())
-    per_tok = (c,) if htot.ndim == 4 else ()
+    per_tok = (c,) if htot is not None and htot.ndim == 4 else ()
     want = dict(cnt=(bh, c), marg=(bh, c), posv=(bh,), qp=(bh, c, d),
                 hblk=(bh_kv, tn, d, d), zblk=(bh_kv, tn, d),
-                htot=(bh_kv, *per_tok, d, d), ztot=(bh_kv, *per_tok, d))
-    if hdiag is not None:
-        want.update(hdiag=(bh_kv, c, d, d), zdiag=(bh_kv, c, d))
+                htot=(bh_kv, *per_tok, d, d), ztot=(bh_kv, *per_tok, d),
+                hdiag=(bh_kv, c, d, d), zdiag=(bh_kv, c, d))
     for name, shape in want.items():
-        if tuple(ts[name].shape) != shape:
+        if name in ts and tuple(ts[name].shape) != shape:
             raise ValueError(f"sla_decode: {name} is "
                              f"{tuple(ts[name].shape)}, expected {shape}")
-    for name in ("q", "qp", "k", "v", "hblk", "zblk", "htot", "ztot") + (
-            ("hdiag", "zdiag") if hdiag is not None else ()):
-        if ts[name].data_ptr() % 16:
+    for name in ("q", "qp", "k", "v", "hblk", "zblk", "htot", "ztot",
+                 "hdiag", "zdiag"):
+        if name in ts and ts[name].data_ptr() % 16:
             raise ValueError(f"sla_decode: {name} must be 16-byte aligned")
 
 
@@ -337,15 +352,15 @@ def _plain_math(lut, cnt, marg, posv, q, qp, blocks, hdiag, zdiag, htot,
     return o_s, o_l
 
 
-def _split_combine(sf, live, vg, hg, zg, qpf, ht, zt, width):
-    """The kernels' split-and-combine on the twins' masked scores sf (BH,
-    C, K, bkv; -1e30 where masked) and gathered, zeroed-when-dead vg, hg,
-    zg: split n walks the live slots of [n w, (n + 1) w) and keeps its
+def _split_records(sf, live, vg, hg, zg, qpf, width):
+    """The kernels' split records, merged, on the twins' masked scores sf
+    (BH, C, K, bkv; -1e30 where masked) and gathered, zeroed-when-dead vg,
+    hg, zg: split n walks the live slots of [n w, (n + 1) w) and keeps its
     own max m_n, sum l_n (its masked columns count when all of its
     columns are masked, as in the kernel; slots past cnt never count),
     unnormalised acc_n, hpart_n = phi(q) sum H_j and zpart_n; the records
-    merge in split order. Returns (o_s, num, den) for the linear branch's
-    phi(q) Htot - sum hpart, phi(q) Ztot - sum zpart."""
+    merge in split order. Returns the merged (m, l, acc, hsel, zsel):
+    (BH, C), (BH, C), (BH, C, D), (BH, C, D), (BH, C)."""
     bh, c, k_sel, bkv = sf.shape
     nsplit = -(-k_sel // width)
     pad = nsplit * width - k_sel
@@ -376,11 +391,174 @@ def _split_combine(sf, live, vg, hg, zg, qpf, ht, zt, width):
         acc = acc + acc_n[:, :, n] * f[..., None]
         hsel = hsel + h_n[:, :, n]
         zsel = zsel + z_n[..., n]
+    return m, l, acc, hsel, zsel
+
+
+def _split_combine(sf, live, vg, hg, zg, qpf, ht, zt, width):
+    """`_split_records` finished as the combine kernel finishes them:
+    returns (o_s, num, den) for the linear branch's phi(q) Htot - sum
+    hpart, phi(q) Ztot - sum zpart."""
+    bh, c = sf.shape[:2]
+    _, l, acc, hsel, zsel = _split_records(sf, live, vg, hg, zg, qpf, width)
     o_s = acc / torch.where(l > 0, l, torch.ones_like(l))[..., None]
     d = qpf.shape[-1]
     num = torch.einsum("bcd,bcde->bce", qpf, ht.expand(bh, c, d, d)) - hsel
     den = ((qpf * zt.expand(bh, c, d)).sum(dim=-1) - zsel)[..., None]
     return o_s, num, den
+
+
+def sla_decode_partial(lut, cnt, posv, q, qp, k, v, hblk, zblk, *,
+                       scale: float, block_kv: int, group: int,
+                       split_width=None) -> torch.Tensor:
+    """Kernel 4 on one rank's span of a split cache, before any divide.
+
+    Args:
+      lut:    (BH, C, K) int32 the live row's blocks that lie in this
+              span, in the span's own block ids (padded slots repeat the
+              first); cnt (BH, C) int32 how many; posv (BH,) int32 the
+              positions less the span's first position (token c sits at
+              posv + c), so the causal mask sees global columns.
+      q, qp:  (BH, C, D) f32 (qp = phi(q)).
+      k, v:   (BH_kv, Tn_span, bkv, D) f32 or bf16; hblk (BH_kv, Tn_span,
+              D, D) f32; zblk (BH_kv, Tn_span, D) f32: the span's blocks.
+      split_width: as `sla_decode`'s.
+
+    Returns (BH, C, 2 D + 3) f32 records (m, l, acc[D], hsel[D], zsel):
+    the max over the walked columns (-1e30 where none), the sum of
+    exponentials against it, the unnormalised sparse output, and phi(q)
+    times the sum of the walked blocks' H and Z. CPU tensors run
+    `sla_decode_partial_plain`; CUDA tensors launch the kernel (a refused
+    operand or a failed launch raises; there is no fallback)."""
+    _check_width(split_width, lut.shape[-1], "sla_decode_partial")
+    args = (lut, cnt, posv, q, qp, k, v, hblk, zblk)
+    kw = dict(scale=scale, block_kv=block_kv, group=group,
+              split_width=split_width)
+    if q.device.type == "cpu":
+        return sla_decode_partial_plain(*args, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"sla_decode_partial runs on CUDA or CPU tensors, "
+                         f"got {q.device}")
+    return _launch_partial(*args, **kw)
+
+
+def _launch_partial(lut, cnt, posv, q, qp, k, v, hblk, zblk, *, scale,
+                    block_kv, group, split_width):
+    global PARTIAL_LAUNCHES
+    _check(lut, cnt, None, posv, q, qp, k, v, hblk, zblk, None, None, None,
+           None, block_kv, group)
+    lib = _lib()
+    bh, c, d = q.shape
+    tn, k_sel = k.shape[1], lut.shape[-1]
+    width, nsplit, work = _workspace(q, lut, split_width)
+    rec = torch.empty((bh, c, 2 * d + 3), dtype=torch.float32,
+                      device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sla_decode_partial_launch(
+            lut.data_ptr(), cnt.data_ptr(), posv.data_ptr(), q.data_ptr(),
+            qp.data_ptr(), k.data_ptr(), v.data_ptr(), hblk.data_ptr(),
+            zblk.data_ptr(), work.data_ptr(), rec.data_ptr(), bh, c, k_sel,
+            tn, d, block_kv, group, float(scale), k.stride(0), k.stride(1),
+            hblk.stride(0), hblk.stride(1), zblk.stride(0), zblk.stride(1),
+            width, nsplit, int(k.dtype == torch.bfloat16), stream)
+    if err != 0:
+        msg = lib.sla_decode_error_string(err).decode()
+        raise RuntimeError(f"sla_decode_partial kernel launch failed: CUDA "
+                           f"error {err} ({msg})")
+    PARTIAL_LAUNCHES += 1
+    PARTIAL_HEAD_DIMS[d] += 1
+    return rec
+
+
+def sla_decode_partial_plain(lut, cnt, posv, q, qp, k, v, hblk, zblk, *,
+                             scale: float, block_kv: int, group: int,
+                             split_width=None) -> torch.Tensor:
+    """Plain-PyTorch twin of `sla_decode_partial`: the twins' gathers and
+    masks (`sla_decode_plain`), then the split records merged in split
+    order (`_split_records`); `split_width` None walks every slot in one
+    split, the unsplit twin's order (one max, one sum over all K * bkv
+    scores). Same arguments and output as `sla_decode_partial`."""
+    bh, c, k_sel = lut.shape
+    dev = q.device
+    bkv = block_kv
+    kvh = (torch.arange(bh, device=dev) // group)[:, None, None]
+    j = lut.long().clamp(0, k.shape[1] - 1)
+    kg, vg, hg, zg = k[kvh, j].float(), v[kvh, j], hblk[kvh, j], zblk[kvh, j]
+    s = torch.einsum("bcd,bckvd->bckv", q.float(), kg) * scale
+    pos_tok = posv.long()[:, None] + torch.arange(c, device=dev)
+    cols = j[..., None] * bkv + torch.arange(bkv, device=dev)
+    live = torch.arange(k_sel, device=dev) < cnt[..., None]
+    vg = torch.where(live[..., None, None], vg.float(),
+                     torch.zeros((), device=dev))
+    ok = (cols <= pos_tok[..., None, None]) & live[..., None]
+    sf = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    hg = torch.where(live[..., None, None], hg, torch.zeros_like(hg))
+    zg = torch.where(live[..., None], zg, torch.zeros_like(zg))
+    m, l, acc, hsel, zsel = _split_records(
+        sf, live, vg, hg, zg, qp.float(),
+        k_sel if split_width is None else split_width)
+    return torch.cat([m[..., None], l[..., None], acc, hsel,
+                      zsel[..., None]], dim=-1)
+
+
+def span_lut(lut: torch.Tensor, cnt: torch.Tensor, first: int,
+             blocks: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The live row's blocks that lie in a span of `blocks` blocks from
+    block `first`, as `sla_decode_partial` takes them: lut (..., K) global
+    block ids, cnt (...) the live slots. Returns (lut, cnt) of the span:
+    its live slots first, in slot order, as the span's own ids
+    (id - first), the padding repeating the first of them (0 where the
+    span holds none), both int32."""
+    k_sel = lut.shape[-1]
+    slot = torch.arange(k_sel, device=lut.device)
+    inside = ((slot < cnt[..., None]) & (lut >= first)
+              & (lut < first + blocks))
+    order = torch.argsort((~inside).to(torch.int32), dim=-1, stable=True)
+    local = torch.gather(lut.long() - first, -1, order).clamp(0, blocks - 1)
+    n = inside.sum(dim=-1)
+    local = torch.where(slot < n[..., None], local, local[..., :1])
+    return local.int(), n.int()
+
+
+def sla_decode_combine(records: torch.Tensor, qhtot: torch.Tensor,
+                       qztot: torch.Tensor, marg: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 4's output from every span's partial records.
+
+    records (P, ..., 2 D + 3) f32 in span order, each (m, l, acc[D],
+    hsel[D], zsel) (`sla_decode_partial`); qhtot (R, ..., D) phi(q) Htot
+    over each part of Htot's D_k rows (R = 1 where Htot is whole), in rank
+    order; qztot (...) phi(q) Ztot; marg (...) the live row's marginal
+    block count. The records are rescaled to the global max and summed in
+    span order, the qhtot parts in rank order, so every rank gets the same
+    bits. Returns (o_s, o_l), both (..., D) f32: O^s = acc / l (l = 1
+    where l = 0) and O^l = (phi(q) Htot - sum hsel) / (phi(q) Ztot - sum
+    zsel), zero where the denominator is <= EPS or marg is 0 (the
+    unsplit kernel's rules)."""
+    d = (records.shape[-1] - 3) // 2
+    m, l = records[..., 0], records[..., 1]
+    acc, hsel = records[..., 2:2 + d], records[..., 2 + d:2 + 2 * d]
+    zsel = records[..., 2 + 2 * d]
+    top = m.amax(dim=0)
+    lsum, asum = torch.zeros_like(l[0]), torch.zeros_like(acc[0])
+    hsum, zsum = torch.zeros_like(hsel[0]), torch.zeros_like(zsel[0])
+    for r in range(records.shape[0]):
+        f = torch.exp(m[r] - top)
+        lsum = lsum + l[r] * f
+        asum = asum + acc[r] * f[..., None]
+        hsum = hsum + hsel[r]
+        zsum = zsum + zsel[r]
+    o_s = asum / torch.where(lsum > 0, lsum, torch.ones_like(lsum))[..., None]
+    num = qhtot[0]
+    for r in range(1, qhtot.shape[0]):
+        num = num + qhtot[r]
+    num = num - hsum
+    den = qztot - zsum
+    live = (den > EPS) & (marg > 0)
+    o_l = torch.where(live[..., None],
+                      num / torch.where(live, den, torch.ones_like(den))[
+                          ..., None], torch.zeros_like(num))
+    return o_s, o_l
 
 
 def sla_decode_paged(lut, pt, cnt, marg, posv, q, qp, k, v, hblk, zblk,

@@ -32,11 +32,14 @@ in dense decode, as the reference's. The VLM family prepends patch
 embeddings to the tokens (`forward(prefix_embeds=)`).
 
 Over a ("data", "model") mesh (`distributed.ctx.activation_sharding`)
-`forward`, `prefill`, `make_cache` and the dense `decode_step` serve:
-each rank's caches are its part under `sharding.cache_shardings`, and
-decode attends by that layout (`distributed/serving.py`). Plan reuse,
-decode-time SLA, chunked admission, `decode_chunk` and paged caches
-refuse a mesh of more than one rank.
+`forward`, `prefill`, `make_cache` and `decode_step` serve, dense and
+decode-time SLA: each rank's caches, and its part of the decode-SLA
+state, are its part under `sharding.cache_shardings`, and decode attends
+by that layout (`distributed/serving.py`; over a split sequence through
+kernel 4's partial records and a combine across ranks). Plan reuse,
+chunked admission, `decode_chunk`, paged caches, per-slot positions on a
+decode-SLA cache and learned routing in the decode step refuse a mesh of
+more than one rank.
 """
 from __future__ import annotations
 
@@ -359,8 +362,9 @@ def forward(params, cfg: ArchConfig, tokens: Optional[torch.Tensor],
     layer runs its experts over "model" (`models/moe.py`). The caches are
     this rank's part under `sharding.cache_shardings` (`_kv_cache`): its
     batch rows, its KV heads or all of them, its span of the positions.
-    Plan reuse and decode-time SLA do not run over a mesh of more than
-    one rank.
+    `decode_plan_cfg=` classifies this rank's query heads over the whole
+    prompt (its batch rows). Plan reuse does not run over a mesh of more
+    than one rank.
     """
     if plans is not None:
         ctx.require_unsharded("plan reuse (plans=)")
@@ -368,8 +372,6 @@ def forward(params, cfg: ArchConfig, tokens: Optional[torch.Tensor],
         ctx.require_unsharded("plan reuse (return_plans=)")
     if drift_threshold is not None:
         ctx.require_unsharded("plan reuse (drift_threshold=)")
-    if decode_plan_cfg is not None:
-        ctx.require_unsharded("decode-time SLA (decode_plan_cfg=)")
     global_batch = (tokens if tokens is not None else prefix_embeds).shape[0]
     tokens = ctx.batch_rows(tokens)
     prefix_embeds = ctx.batch_rows(prefix_embeds)
@@ -512,56 +514,136 @@ def distill_loss_fn(params, cfg: ArchConfig, batch: dict,
 # --------------------------------------------------------------------------
 # serving: prefill + single-token decode over a static-size KV cache
 # --------------------------------------------------------------------------
-def _seed_decode_state(cfg: ArchConfig, kc, vc, decode_mcs, max_len: int):
+def decode_state_shapes(cfg: ArchConfig, batch: int, max_len: int,
+                        per_slot: bool = False, pooled: bool = False
+                        ) -> dict:
+    """{name: global shape} of the decode-SLA state's tensors (the plan's
+    fields as "plan/<field>"; `rows` is a host int and not among them) for
+    `batch` rows and a `max_len`-position grid: per-slot counters with
+    `per_slot`, no per-block leaves where `pooled` page pools hold them."""
+    sla = cfg.sla
+    nl, hkv, dh, nh = (cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
+                       cfg.num_heads)
+    tn = max_len // sla.block_kv
+    k_sel = sla.decode_plan_cfg(tn).num_critical(tn)
+    lead = (nl, batch, nh)
+    counters = (nl, batch) if per_slot else (nl,)
+    out = {} if pooled else {"hblk": (nl, batch, hkv, tn, dh, dh),
+                             "zblk": (nl, batch, hkv, tn, dh),
+                             "kpool": (nl, batch, hkv, tn, dh)}
+    out.update({
+        "htot": (nl, batch, hkv, dh, dh), "ztot": (nl, batch, hkv, dh),
+        "qpool": lead + (dh,),
+        "plan/mc": lead + (tn, tn), "plan/lut": lead + (tn, k_sel),
+        "plan/counts": lead + (tn,), "plan/col_lut": lead + (tn, 1),
+        "plan/col_counts": lead + (tn,), "plan/marginal": lead + (tn, tn),
+        "live_lut": lead + (k_sel,), "live_cnt": lead, "live_marg": lead,
+        "extends": counters, "replans": counters, "reuses": counters,
+        "retention": counters})
+    return out
+
+
+def _sla_parts(cfg: ArchConfig, global_batch: int, max_len: int,
+               kl: Optional[serving.KVLayout]) -> serving.SLAParts:
+    """Where this rank's part of a decode-SLA state sits under the KV
+    layout `kl` (`serving.SLAParts`; every leaf whole where kl is None, no
+    mesh). Refuses a sequence split into spans of part KV blocks."""
+    if kl is not None:
+        kl.check_length(max_len, cfg.sla.block_kv)
+    return serving.SLAParts(
+        kl, decode_state_shapes(cfg, global_batch, max_len), global_batch)
+
+
+def _seed_decode_state(cfg: ArchConfig, kc, vc, decode_mcs, max_len: int,
+                       parts: Optional[serving.SLAParts] = None):
     """Decode-SLA state from the prompt caches kc, vc (L, B, Hkv, S, Dh)
     and the decode-grid classification of the prompt rows decode_mcs
     (L, B, H, Tm_p, Tn_p): the static-grid incremental plan, the per-block
     h_j = sum phi(k) v^T and z_j = sum phi(k) partials with their running
     totals, and the pooled-k sums. Built one layer at a time, so the f32
-    phi(k) and v temporaries hold one layer."""
+    phi(k) and v temporaries hold one layer.
+
+    Under a mesh (`parts`) kc, vc are the prompt's blocks in this rank's
+    span (its first block first), decode_mcs this rank's batch rows and
+    query heads, and every leaf comes out at this rank's part: the
+    per-block partials of its own blocks, the totals summed over the spans
+    in span order, the plan at its rule."""
     sla = cfg.sla
-    bq, bkv = sla.block_q, sla.block_kv
+    bkv = sla.block_kv
     nl, b, hkv, s, dh = kc.shape
     dev = kc.device
     tn = max_len // bkv
-    tm_p, tn_p = s // bq, s // bkv
+    tm_p, tn_p = decode_mcs.shape[-2:]
+    nb = s // bkv  # the prompt's blocks held here
     dcfg = sla.decode_plan_cfg(tn)
+    sharded = parts is not None and parts.kl is not None
+    shapes = (parts.local if sharded
+              else decode_state_shapes(cfg, b, max_len))
     f32 = dict(dtype=torch.float32, device=dev)
-    hblk = torch.zeros((nl, b, hkv, tn, dh, dh), **f32)
-    zblk = torch.zeros((nl, b, hkv, tn, dh), **f32)
-    kpool = torch.zeros((nl, b, hkv, tn, dh), **f32)
+    hblk = torch.zeros(shapes["hblk"], **f32)
+    zblk = torch.zeros(shapes["zblk"], **f32)
+    kpool = torch.zeros(shapes["kpool"], **f32)
     plans = []
     for li in range(nl):
-        kpb = phi(kc[li], sla.phi).reshape(b, hkv, tn_p, bkv, dh)
-        vb = vc[li].float().reshape(b, hkv, tn_p, bkv, dh)
-        hblk[li, :, :, :tn_p] = torch.matmul(kpb.transpose(-1, -2), vb)
-        zblk[li, :, :, :tn_p] = kpb.sum(dim=-2)
-        kpool[li, :, :, :tn_p] = kc[li].float().reshape(
-            b, hkv, tn_p, bkv, dh).sum(dim=-2)
+        kpb = phi(kc[li], sla.phi).reshape(b, hkv, nb, bkv, dh)
+        vb = vc[li].float().reshape(b, hkv, nb, bkv, dh)
+        hblk[li, :, :, :nb] = torch.matmul(kpb.transpose(-1, -2), vb)
+        zblk[li, :, :, :nb] = kpb.sum(dim=-2)
+        kpool[li, :, :, :nb] = kc[li].float().reshape(
+            b, hkv, nb, bkv, dh).sum(dim=-2)
         del kpb, vb
-        mc = torch.full((b, cfg.num_heads, tn, tn), -1, dtype=torch.int8,
-                        device=dev)
+        mc = torch.full(decode_mcs.shape[1:3] + (tn, tn), -1,
+                        dtype=torch.int8, device=dev)
         mc[..., :tm_p, :tn_p] = decode_mcs[li]
         # col_width=1: decode never runs the dK/dV backward, so the plan
         # skips the O(Tn^2)-per-head column LUT
         plans.append(plan_lib.plan_from_mask(mc, dcfg, col_width=1))
-    k_sel = dcfg.num_critical(tn)
+    plan = plan_lib.plan_map(lambda *ls: torch.stack(ls), *plans)
+    htot, ztot = hblk.sum(dim=3), zblk.sum(dim=3)
+    if sharded:
+        htot, ztot = _span_totals(parts, htot, ztot)
+        have = (parts.batch, parts.heads, None, None)
+        plan = plan_lib.SLAPlan(**{
+            field: parts.to_leaf(f"plan/{field}", getattr(plan, field),
+                                 have[:getattr(plan, field).ndim - 1],
+                                 stacked=True)
+            for field in plan_lib.PLAN_LEAVES})
     i32 = dict(dtype=torch.int32, device=dev)
     return {
         "hblk": hblk, "zblk": zblk,
-        "htot": hblk.sum(dim=3), "ztot": zblk.sum(dim=3),
+        "htot": htot, "ztot": ztot,
         "kpool": kpool,
-        "qpool": torch.zeros((nl, b, cfg.num_heads, dh), **f32),
-        "plan": plan_lib.plan_map(lambda *ls: torch.stack(ls), *plans),
+        "qpool": torch.zeros(shapes["qpool"], **f32),
+        "plan": plan,
         "rows": tm_p,
-        "live_lut": torch.zeros((nl, b, cfg.num_heads, k_sel), **i32),
-        "live_cnt": torch.zeros((nl, b, cfg.num_heads), **i32),
-        "live_marg": torch.zeros((nl, b, cfg.num_heads), **i32),
-        "extends": torch.zeros((nl,), **i32),
-        "replans": torch.zeros((nl,), **i32),
-        "reuses": torch.zeros((nl,), **i32),
-        "retention": torch.ones((nl,), **f32),
+        "live_lut": torch.zeros(shapes["live_lut"], **i32),
+        "live_cnt": torch.zeros(shapes["live_cnt"], **i32),
+        "live_marg": torch.zeros(shapes["live_marg"], **i32),
+        "extends": torch.zeros(shapes["extends"], **i32),
+        "replans": torch.zeros(shapes["replans"], **i32),
+        "reuses": torch.zeros(shapes["reuses"], **i32),
+        "retention": torch.ones(shapes["retention"], **f32),
     }
+
+
+def _span_totals(parts: serving.SLAParts, hsum, zsum):
+    """The running totals at their rule from this rank's sums over its own
+    blocks, hsum (L, B, Hkv_c, D, D) and zsum (L, B, Hkv_c, D): each
+    layer's sums of every span added in span order (so every rank gets the
+    same bits), then cut to htot's D_k rows or gathered to ztot's heads."""
+    kv = (parts.batch, parts.kv_heads)
+    htot, ztot = [], []
+    for li in range(hsum.shape[0]):
+        totals = []
+        for x in (hsum[li], zsum[li]):
+            spans = serving.gather_spans(x, parts.kl)
+            t = spans[0]
+            for r in range(1, spans.shape[0]):
+                t = t + spans[r]
+            totals.append(t)
+        htot.append(parts.to_leaf("htot", totals[0], kv + (None, None)))
+        ztot.append(parts.to_leaf("ztot", totals[1], kv + (None,)))
+    return torch.stack(htot), torch.stack(ztot)
 
 
 def _check_decode_grid(cfg: ArchConfig, seq_len: int, max_len: int):
@@ -604,15 +686,20 @@ def prefill(params, cfg: ArchConfig, tokens: Optional[torch.Tensor],
     Under `activation_sharding(mesh, default_residual_spec(mesh, batch,
     cache length))` the batch is the global one: the last hidden rows are
     this rank's batch rows (every rank's under context parallelism, from
-    the last data rank), and the cache is this rank's part of it under
-    `sharding.cache_shardings`."""
+    the last data rank), and the cache, its decode-SLA state too, is this
+    rank's part of it under `sharding.cache_shardings`; a sequence split
+    over ranks needs `decode_max_len` in whole blocks of each rank's
+    span."""
     dcfg = None
     s = ((0 if tokens is None else tokens.shape[1])
          + (0 if prefix_embeds is None else prefix_embeds.shape[1]))
+    bkv = cfg.sla.block_kv
     if decode_max_len is not None:
-        ctx.require_unsharded("decode-time SLA (prefill(decode_max_len=))")
         _check_decode_grid(cfg, s, decode_max_len)
-        dcfg = cfg.sla.decode_plan_cfg(decode_max_len // cfg.sla.block_kv)
+        batch = (tokens if tokens is not None else prefix_embeds).shape[0]
+        kl = serving.active_kv_layout(batch, cfg.num_kv_heads)
+        parts = _sla_parts(cfg, batch, decode_max_len, kl)
+        dcfg = cfg.sla.decode_plan_cfg(decode_max_len // bkv)
         cache_len = decode_max_len
     out = forward(params, cfg, tokens, prefix_embeds=prefix_embeds,
                   compute_dtype=compute_dtype, backend=backend,
@@ -624,9 +711,14 @@ def prefill(params, cfg: ArchConfig, tokens: Optional[torch.Tensor],
     cache = {"k": kc, "v": vc, "pos": s}
     if decode_max_len is not None:
         decode_mcs = extras.pop(1 if return_plans else 0)
-        cache["sla"] = _seed_decode_state(cfg, kc[..., :s, :],
-                                          vc[..., :s, :], decode_mcs,
-                                          decode_max_len)
+        # the prompt's positions in this rank's span: whole blocks from
+        # its first
+        lo, span = ((0, decode_max_len) if kl is None
+                    else kl.span(decode_max_len))
+        held = max(0, min(span, s - lo)) // bkv * bkv
+        cache["sla"] = _seed_decode_state(cfg, kc[..., :held, :],
+                                          vc[..., :held, :], decode_mcs,
+                                          decode_max_len, parts)
     return (ctx.seq_last(x), cache) + tuple(extras)
 
 
@@ -983,18 +1075,26 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
     the positions advanced.
 
     Under `activation_sharding(mesh, default_residual_spec(mesh, batch,
-    cache length))` (dense decode; decode-time SLA does not run over a
-    mesh of more than one rank) `token` is the global (B,) batch and the
-    cache this rank's part of it under `sharding.cache_shardings`
-    (`prefill`, `make_cache`): the step reads its batch rows of the token
-    (and of a per-slot `pos`, which every rank holds whole), writes the
-    new K/V where its part holds them, and attends by the layout
+    cache length))` `token` is the global (B,) batch and the cache this
+    rank's part of it under `sharding.cache_shardings` (`prefill`,
+    `make_cache`): the step reads its batch rows of the token (and of a
+    per-slot `pos`, which every rank holds whole), writes the new K/V
+    where its part holds them, and attends by the layout
     (`distributed/serving.py`): heads over "model" as one device does, a
     split sequence by a partial softmax and a combine across its ranks.
-    It returns the logits of its batch rows over the whole vocabulary
-    (every rank's rows under context parallelism)."""
+    Decode-time SLA runs there too for the aligned batch (a scalar `pos`;
+    `_decode_step_sla` on this rank's part of its state); per-slot
+    positions on a decode-SLA cache and learned routing refuse a mesh of
+    more than one rank. It returns the
+    logits of its batch rows over the whole vocabulary (every rank's rows
+    under context parallelism)."""
     if "sla" in cache:
-        ctx.require_unsharded("decode-time SLA (a cache carrying 'sla')")
+        if torch.is_tensor(cache["pos"]) and cache["pos"].ndim > 0:
+            ctx.require_unsharded("per-slot positions on an 'sla' cache")
+        if cfg.sla.routing_mode == "learned":
+            ctx.require_unsharded(
+                "learned routing (routing_mode='learned') in the decode "
+                "step")
         return _decode_step_sla(params, cfg, token, cache, compute_dtype,
                                 backend, drift_threshold)
     paged = "kp" in cache
@@ -1076,7 +1176,8 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
     classification from this token's q reaches the layer's threshold
     ("replan"). The boundary work runs only at boundaries (a host
     branch); the reference computes it every step and selects, with the
-    same result.
+    same result. It runs after the update: the new token's block is
+    causally masked out of the completed row's scores.
 
     Per-slot positions (a (B,) `pos`) run all of this per slot: each slot
     crosses its own block boundaries, appends its own plan row and makes
@@ -1089,6 +1190,22 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
     page pools: every write lands in the slot's private current page and
     the decode backends read the pools in place through the page table,
     so the step stays bitwise equal to unpaged decode.
+
+    Under a ("data", "model") mesh (the aligned batch, a scalar `pos`)
+    the same math runs on this rank's part of the state (`parts`, the
+    placement `cache_shardings` gives each leaf; without a mesh every
+    leaf is whole and every move between placements is the identity).
+    The new token's K/V and its update of the per-block h_j, z_j and
+    pooled k go to the rank whose span holds its block; each rank adds it
+    to its D_k rows of Htot and, with every "model" rank's phi(k), to the
+    whole Ztot. Every rank does the boundary work for its batch rows and
+    every head, on every head's q (gathered over "model") and the pooled
+    k of every block (gathered over the spans): the same bits on every
+    rank that holds the same rows. The drift decision's min over the
+    batch is an all-reduce MIN over the data ranks that split it (exact
+    in any order). The plan rows and the live row go to their leaves at
+    their rules. Attention by the layout (`_sla_attn`); a non-SLA layer
+    attends as the dense mesh step does.
     """
     backend_lib.resolve_decode(backend)
     paged = "kp" in cache
@@ -1098,15 +1215,27 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
     st = cache["sla"]
     sla = cfg.sla
     bq, bkv = sla.block_q, sla.block_kv
-    x = params.embed[token[:, None]].to(compute_dtype)
-    b, dev = x.shape[0], x.device
+    kl = (None if paged else
+          serving.active_kv_layout(token.shape[0], cfg.num_kv_heads))
     if paged:
         pt = cache["pt"]
         tn = pt.shape[1]
         slap = cache["slap"]
         wpid, woff = _write_page(cache, pos, bkv)
     else:
-        tn = cache["k"].shape[-2] // bkv
+        tn = cache["k"].shape[3] * (1 if kl is None else kl.seq_parts) // bkv
+    length = tn * bkv
+    parts = _sla_parts(cfg, token.shape[0], length, kl)
+    bat, kvh = parts.batch, parts.kv_heads
+    start, _ = (0, length) if kl is None else kl.span(length)
+    first = start // bkv
+    if kl is not None:
+        token = ctx.batch_rows(token)
+        if cache["k"].shape[1] != token.shape[0]:
+            raise ValueError(
+                f"the cache holds {cache['k'].shape[1]} batch rows on this "
+                f"rank, the step {token.shape[0]}: make it under the same "
+                f"activation_sharding scope")
     dcfg = sla.decode_plan_cfg(tn)
     kinds = layer_kinds_list(cfg)
     nl = cfg.num_layers
@@ -1115,163 +1244,295 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
     # host floats: a per-step host-to-device copy would sync the stream
     thresholds = torch.broadcast_to(torch.as_tensor(
         drift_threshold, dtype=torch.float32), (nl,)).tolist()
-    blk = torch.arange(tn, device=dev)
-    if vec:
-        posl = pos.long()
-        row = posl // bq                  # each slot's live query row
-        any_boundary = bool((pos_h % bq == 0).any())
-        positions = posl[:, None]
-        rowm = row[:, None]               # row arg of the masks helpers
-        if any_boundary:
-            boundary = posl % bq == 0
-            append = boundary & (st["rows"].long() < row)
-            blk_cnt = torch.clamp(torch.clamp(
-                (posl[:, None] + 1) - blk * bkv, max=bkv), 1, bkv)
-            cnt_div = blk_cnt[:, None, :, None].float()
-            prev = torch.clamp(row - 1, 0, tn - 1)
-            bi = torch.arange(b, device=dev)
-            diag = (blk == row[:, None])[:, None, :]
-    else:
-        row = rowm = pos // bq            # the current (partial) query row
-        any_boundary = pos % bq == 0      # a block was just completed
-        append = any_boundary and st["rows"] < row
-        positions = torch.full((b, 1), pos, device=dev)
-        if any_boundary:
-            # tokens per KV block after this step's write (pooled-k means)
-            cnt_div = torch.clamp(torch.clamp((pos + 1) - blk * bkv,
-                                              max=bkv), 1, bkv)[:, None]
-            cnt_div = cnt_div.float()
-    plan = st["plan"]
-    for li, p in enumerate(params.layers):
-        q, k_new, v_new = _qkv(p, rms_norm(x, p.ln1), cfg, positions)
-        if paged:
-            kc, vc = cache["kp"][li], cache["vp"][li]
-            _page_write_kv(kc, k_new, wpid, woff)
-            _page_write_kv(vc, v_new, wpid, woff)
-            hb, zb, kp_sum = (slap[key][li]
-                              for key in ("hblk", "zblk", "kpool"))
+    g = cfg.num_heads // cfg.num_kv_heads
+    # under context parallelism every data rank decodes every row
+    with (ctx.replicated_tokens() if ctx.seq_parallel()
+          else contextlib.nullcontext()):
+        x = ctx.vocab_lookup(token[:, None], params.embed).to(compute_dtype)
+        b, dev = x.shape[0], x.device
+        blk = torch.arange(tn, device=dev)
+        if vec:
+            posl = pos.long()
+            row = posl // bq                  # each slot's live query row
+            any_boundary = bool((pos_h % bq == 0).any())
+            positions = posl[:, None]
+            rowm = row[:, None]               # row arg of the masks helpers
+            if any_boundary:
+                boundary = posl % bq == 0
+                append = boundary & (st["rows"].long() < row)
+                blk_cnt = torch.clamp(torch.clamp(
+                    (posl[:, None] + 1) - blk * bkv, max=bkv), 1, bkv)
+                cnt_div = blk_cnt[:, None, :, None].float()
+                prev = torch.clamp(row - 1, 0, tn - 1)
+                bi = torch.arange(b, device=dev)
+                diag = (blk == row[:, None])[:, None, :]
         else:
-            kc, vc = cache["k"][li], cache["v"][li]
-            _cache_write(kc, k_new, pos)
-            _cache_write(vc, v_new, pos)
-            hb, zb, kp_sum = st["hblk"][li], st["zblk"][li], st["kpool"][li]
-        h, hkv = q.shape[1], k_new.shape[1]
-        g = h // hkv
-        qf = q[:, :, 0, :].float()       # (B, H, D)
-        kf = k_new[:, :, 0, :].float()   # (B, Hkv, D)
-        vf = v_new[:, :, 0, :].float()
-        routing = _routing(p, dcfg)
-        lplan = plan_lib.plan_map(lambda leaf: leaf[li], plan)  # views
-        ht, zt = st["htot"][li], st["ztot"][li]
-        qp_sum = st["qpool"][li]
-
-        def kp_view():
-            return _page_gather(kp_sum, pt) if paged else kp_sum
-
-        # 1. append the just-completed row (its pooled k excludes the
-        # current block's new token)
-        if (vec and any_boundary) or (not vec and append):
-            kpm = torch.repeat_interleave(kp_view() / bkv, g, dim=1)
-            pc_prev = masks_lib.score_row(routing, qp_sum / bq, kpm,
-                                          rowm - 1, dcfg)
-            mc_prev = masks_lib.classify_row(pc_prev, rowm - 1, dcfg)
-            if vec:
-                plan_lib.plan_extend(lplan, mc_prev, row - 1, append)
-                st["extends"][li] += append.to(torch.int32)
-            else:
-                plan_lib.plan_extend(lplan, mc_prev, row - 1)
-                st["extends"][li] += 1
-
-        # 2. O(1) running-state update for the new token
-        phik = phi(kf, sla.phi)          # (B, Hkv, D) f32
-        hupd = phik[..., :, None] * vf[..., None, :]
-        if paged:
-            # distinct private write pages: a gather/add/set, as the
-            # monolithic slice/add/write, so the partials stay bitwise
-            hb[wpid] = hb[wpid] + hupd
-            zb[wpid] = zb[wpid] + phik
-            kp_sum[wpid] = kp_sum[wpid] + kf
-        else:
-            _blk_update(hb, hupd, row)
-            _blk_update(zb, phik, row)
-            _blk_update(kp_sum, kf, row)
-        ht += hupd
-        zt += phik
-
-        # 3. the new live row's structure, drift-gated per layer
-        if any_boundary:
-            kpm_live = torch.repeat_interleave(kp_view() / cnt_div, g, dim=1)
-            pc_live = masks_lib.score_row(routing, qf, kpm_live, rowm, dcfg)
-            mc_fresh = masks_lib.classify_row(pc_live, rowm, dcfg)
-            if vec:
-                mc_inh = lplan.mc[bi, :, prev]  # (B, H, Tn), a copy
-                mc_inh[diag.expand_as(mc_inh)] = 1
-            else:
-                mc_inh = lplan.mc[..., row - 1, :].clone()  # (B, H, Tn)
-                mc_inh[..., row] = 1
-            stale = (pc_live * (mc_inh == 1)).sum(dim=-1)
-            fresh = (pc_live * (mc_fresh == 1)).sum(dim=-1)
-            r = torch.clamp(stale / torch.clamp(fresh, min=plan_lib.EPS),
-                            0.0, 1.0)
-            thr = thresholds[li]
-            # per slot: each slot's own heads gate its row; the aligned
-            # static batch takes one decision for every row
-            retention = r.min(dim=1).values if vec else r.min()
-            replan = ((1.0 - retention) >= thr) & (thr < 1.0)
-            rep_m = replan[:, None, None] if vec else replan
-            mc_live = torch.where(rep_m, mc_fresh, mc_inh)
-            lut_n, cnt_n = plan_lib.build_lut(mc_live[..., None, :],
-                                              lplan.k_sel)
-            marg_n = (mc_live == 0).sum(dim=-1, dtype=torch.int32)
-            if vec:
-                st["live_lut"][li] = _sel(boundary, lut_n[..., 0, :],
-                                          st["live_lut"][li])
-                st["live_cnt"][li] = _sel(boundary, cnt_n[..., 0],
-                                          st["live_cnt"][li])
-                st["live_marg"][li] = _sel(boundary, marg_n,
-                                           st["live_marg"][li])
-                st["replans"][li] += (boundary & replan).to(torch.int32)
-                st["reuses"][li] += (boundary & ~replan).to(torch.int32)
-                st["retention"][li] = torch.where(boundary, retention,
-                                                  st["retention"][li])
-                qp_sum.copy_(_sel(boundary, qf, qp_sum + qf))
-            else:
-                st["live_lut"][li] = lut_n[..., 0, :]
-                st["live_cnt"][li] = cnt_n[..., 0]
-                st["live_marg"][li] = marg_n
-                st["replans"][li] += replan.to(torch.int32)
-                st["reuses"][li] += (~replan).to(torch.int32)
-                st["retention"][li] = retention
-                qp_sum.copy_(qf)
-        else:
-            qp_sum += qf
-
-        # 4. attention: critical blocks + the O(1) linear state
-        if kinds[li] == KIND_SLA:
-            state = {"k": kc, "v": vc, "hblk": hb, "zblk": zb, "htot": ht,
-                     "ztot": zt, "lut": st["live_lut"][li],
-                     "cnt": st["live_cnt"][li], "marg": st["live_marg"][li]}
+            row = rowm = pos // bq            # the current (partial) query row
+            any_boundary = pos % bq == 0      # a block was just completed
+            append = any_boundary and st["rows"] < row
+            positions = torch.full((b, 1), pos, device=dev)
+            if any_boundary:
+                # tokens per KV block after this step's write (pooled-k
+                # means)
+                cnt_div = torch.clamp(torch.clamp((pos + 1) - blk * bkv,
+                                                  max=bkv), 1, bkv)[:, None]
+                cnt_div = cnt_div.float()
+        plan = st["plan"]
+        for li, p in enumerate(params.layers):
+            q, k_new, v_new = _qkv(p, rms_norm(
+                x, ctx.fsdp_gather(p.ln1, "rep")), cfg, positions)
             if paged:
-                state["pt"] = pt
-            o = backend_lib.decode_execute(
-                state, {"proj": p.sla_proj}, q, pos, dcfg, backend=backend)
-            o = o.reshape(b, 1, h * cfg.head_dim).to(x.dtype)
-        elif paged:
-            o = _dense_decode_attn(q, _page_gather_kv(kc, pt),
-                                   _page_gather_kv(vc, pt), pos, kinds[li],
-                                   cfg)
-        else:
-            o = _dense_decode_attn(q, kc, vc, pos, kinds[li], cfg)
-        x = x + o @ p.wo.to(x.dtype)
-        f, _ = _ffn(p, rms_norm(x, p.ln2), cfg)
-        x = x + f
-    if vec and any_boundary:
-        st["rows"] += append.to(st["rows"].dtype)
-    elif not vec and append:
-        st["rows"] += 1
-    x = rms_norm(x, params.ln_f)
+                kc, vc = cache["kp"][li], cache["vp"][li]
+                _page_write_kv(kc, k_new, wpid, woff)
+                _page_write_kv(vc, v_new, wpid, woff)
+                hb, zb, kp_sum = (slap[key][li]
+                                  for key in ("hblk", "zblk", "kpool"))
+            else:
+                kc, vc = cache["k"][li], cache["v"][li]
+                if kl is None:
+                    _cache_write(kc, k_new, pos)
+                    _cache_write(vc, v_new, pos)
+                else:
+                    serving.write_token(kc, k_new, pos, start, length)
+                    serving.write_token(vc, v_new, pos, start, length)
+                hb, zb, kp_sum = (st["hblk"][li], st["zblk"][li],
+                                  st["kpool"][li])
+            q1 = q[:, :, 0]                   # (B, H_loc, D)
+            q_all = serving.reshard(q1, (bat, parts.heads, None),
+                                    (bat, None, None), parts.mesh)
+            qf = q_all.float()                # (B, H, D), every head
+            kf = k_new[:, :, 0, :].float()    # (B, Hkv_c, D)
+            vf = v_new[:, :, 0, :].float()
+            routing = _routing(p, dcfg)
+            lplan = plan_lib.plan_map(lambda leaf: leaf[li], plan)  # views
+            ht, zt, qp_sum = st["htot"][li], st["ztot"][li], st["qpool"][li]
+
+            # 1. O(1) running-state update for the new token
+            phik = phi(kf, sla.phi)           # (B, Hkv_c, D) f32
+            hupd = phik[..., :, None] * vf[..., None, :]
+            if paged:
+                # distinct private write pages: a gather/add/set, as the
+                # monolithic slice/add/write, so the partials stay bitwise
+                hb[wpid] = hb[wpid] + hupd
+                zb[wpid] = zb[wpid] + phik
+                kp_sum[wpid] = kp_sum[wpid] + kf
+            elif vec or first <= row < first + hb.shape[2]:
+                _blk_update(hb, hupd, row - first)
+                _blk_update(zb, phik, row - first)
+                _blk_update(kp_sum, kf, row - first)
+            ht += parts.to_leaf("htot", hupd, (bat, kvh, None, None))
+            zt += parts.to_leaf("ztot", phik, (bat, kvh, None))
+
+            if any_boundary:
+                kp_all = parts.from_leaf(
+                    "kpool", _page_gather(kp_sum, pt) if paged else kp_sum,
+                    (bat, None, None, None))
+                # 2. append the just-completed row
+                if vec or append:
+                    kpm = torch.repeat_interleave(kp_all / bkv, g, dim=1)
+                    pc_prev = masks_lib.score_row(routing, qp_sum / bq, kpm,
+                                                  rowm - 1, dcfg)
+                    mc_prev = masks_lib.classify_row(pc_prev, rowm - 1, dcfg)
+                    if vec:
+                        plan_lib.plan_extend(lplan, mc_prev, row - 1, append)
+                        st["extends"][li] += append.to(torch.int32)
+                    else:
+                        _plan_extend_part(lplan, mc_prev, row - 1, parts)
+                        st["extends"][li] += 1
+
+                # 3. the new live row's structure, drift-gated per layer
+                kpm_live = torch.repeat_interleave(kp_all / cnt_div, g,
+                                                   dim=1)
+                pc_live = masks_lib.score_row(routing, qf, kpm_live, rowm,
+                                              dcfg)
+                mc_fresh = masks_lib.classify_row(pc_live, rowm, dcfg)
+                if vec:
+                    mc_inh = lplan.mc[bi, :, prev]  # (B, H, Tn), a copy
+                    mc_inh[diag.expand_as(mc_inh)] = 1
+                else:
+                    spec = parts.spec["plan/mc"]
+                    mc_inh = serving.reshard(
+                        serving.read_row(lplan.mc, 2, row - 1, spec[2],
+                                         parts.mesh),
+                        spec[:2] + (None,), (bat, None, None),
+                        parts.mesh).clone()       # (B, H, Tn)
+                    mc_inh[..., row] = 1
+                stale = (pc_live * (mc_inh == 1)).sum(dim=-1)
+                fresh = (pc_live * (mc_fresh == 1)).sum(dim=-1)
+                r = torch.clamp(stale / torch.clamp(fresh, min=plan_lib.EPS),
+                                0.0, 1.0)
+                thr = thresholds[li]
+                # per slot: each slot's own heads gate its row; the aligned
+                # static batch takes one decision for every row
+                retention = (r.min(dim=1).values if vec
+                             else parts.min_over_batch(r.min()))
+                replan = ((1.0 - retention) >= thr) & (thr < 1.0)
+                rep_m = replan[:, None, None] if vec else replan
+                mc_live = torch.where(rep_m, mc_fresh, mc_inh)
+                lut_n, cnt_n = plan_lib.build_lut(mc_live[..., None, :],
+                                                  lplan.k_sel)
+                marg_n = (mc_live == 0).sum(dim=-1, dtype=torch.int32)
+                if vec:
+                    st["live_lut"][li] = _sel(boundary, lut_n[..., 0, :],
+                                              st["live_lut"][li])
+                    st["live_cnt"][li] = _sel(boundary, cnt_n[..., 0],
+                                              st["live_cnt"][li])
+                    st["live_marg"][li] = _sel(boundary, marg_n,
+                                               st["live_marg"][li])
+                    st["replans"][li] += (boundary & replan).to(torch.int32)
+                    st["reuses"][li] += (boundary & ~replan).to(torch.int32)
+                    st["retention"][li] = torch.where(boundary, retention,
+                                                      st["retention"][li])
+                    qp_sum.copy_(_sel(boundary, qf, qp_sum + qf))
+                else:
+                    st["live_lut"][li] = parts.to_leaf(
+                        "live_lut", lut_n[..., 0, :], (bat, None, None))
+                    st["live_cnt"][li] = parts.to_leaf(
+                        "live_cnt", cnt_n[..., 0], (bat, None))
+                    st["live_marg"][li] = parts.to_leaf(
+                        "live_marg", marg_n, (bat, None))
+                    st["replans"][li] += replan.to(torch.int32)
+                    st["reuses"][li] += (~replan).to(torch.int32)
+                    st["retention"][li] = retention
+                    qp_sum.copy_(qf)
+            else:
+                qp_sum += qf
+
+            # 4. attention: critical blocks + the O(1) linear state
+            if kinds[li] == KIND_SLA:
+                o = _sla_attn(p, q1, q_all, st, li, kc, vc, hb, zb, pos,
+                              parts, dcfg, backend, pt if paged else None)
+            elif serving.is_sharded(kl):
+                window = ((cfg.local_window or cfg.sliding_window)
+                          if kinds[li] == KIND_SWA else 0)
+                o = serving.sharded_decode_attn(q1, kc, vc, pos, kl, length,
+                                                window)
+                o = o.to(q.dtype).reshape(b, 1, -1)
+            elif paged:
+                o = _dense_decode_attn(q, _page_gather_kv(kc, pt),
+                                       _page_gather_kv(vc, pt), pos,
+                                       kinds[li], cfg)
+            else:
+                o = _dense_decode_attn(q, kc, vc, pos, kinds[li], cfg)
+            x = x + ctx.from_tp(o @ ctx.fsdp_gather(p.wo, "row").to(x.dtype))
+            f, _ = _ffn(p, rms_norm(x, ctx.fsdp_gather(p.ln2, "rep")), cfg)
+            x = x + f
+        if vec and any_boundary:
+            st["rows"] += append.to(st["rows"].dtype)
+        elif not vec and append:
+            st["rows"] += 1
+        x = rms_norm(x, ctx.fsdp_gather(params.ln_f, "rep"))
     _advance(cache, vec)
     return logits_from_hidden(params, x[:, 0]), cache
+
+
+def _plan_extend_part(plan, mc_row: torch.Tensor, row: int,
+                      parts: serving.SLAParts):
+    """`plan_lib.plan_extend` of row `row` into this rank's part of a
+    plan, in place (the whole plan where `parts` has no mesh): mc_row
+    (B, H, Tn) is the row for this rank's batch rows and every head and
+    column (the same on every rank that holds them). The row-indexed
+    leaves are written by the ranks that hold row `row`, each at its own
+    heads; the column LUT and the counts at their rules."""
+    rows3 = (parts.batch, None, None)
+    mc_row = mc_row.to(plan.mc.dtype)
+    lut_r, cnt_r = plan_lib.build_lut(mc_row[..., None, :], plan.k_sel)
+    # the new row becomes the last critical entry of every column it is
+    # critical in (`plan_extend`), at every column's global fill level
+    cc = parts.from_leaf("plan/col_counts", plan.col_counts, rows3)
+    can = (mc_row == 1) & (cc < plan.w_col)
+    slot = torch.arange(plan.w_col, dtype=cc.dtype, device=cc.device)
+    write = can[..., None] & (slot == cc[..., None])
+    plan.col_lut.masked_fill_(
+        parts.to_leaf("plan/col_lut", write, rows3 + (None,)), row)
+    plan.col_counts.add_(parts.to_leaf("plan/col_counts", can.to(cc.dtype),
+                                       rows3))
+    for name, val in (("mc", mc_row), ("lut", lut_r[..., 0, :]),
+                      ("marginal", (mc_row == 0).to(plan.marginal.dtype)),
+                      ("counts", cnt_r[..., 0])):
+        leaf = getattr(plan, name)
+        spec = parts.spec[f"plan/{name}"]
+        val = serving.reshard(val, rows3[:val.ndim],
+                              spec[:2] + spec[3:], parts.mesh)
+        first = parts.start(f"plan/{name}", 2)
+        if first <= row < first + leaf.shape[2]:
+            leaf[:, :, row - first] = val
+    return plan
+
+
+def _sla_attn(p, q, q_all, st: dict, li: int, kc, vc, hb, zb, pos,
+              parts: serving.SLAParts, dcfg, backend: str, pt=None
+              ) -> torch.Tensor:
+    """Decode-time SLA attention of this rank's query heads q (B, H_loc,
+    D) over its part of the layer's state (kc, vc, hb, zb: the layer's
+    K/V and per-block h_j, z_j, or their page pools with the page table
+    `pt`); q_all every head's. Returns (B, 1, H_loc * D) in q.dtype.
+
+    The sequence whole (one device, or layout A): `backend_lib.
+    decode_execute` on the rank's heads. A split sequence (layouts B and
+    C): every span's partial records (kernel 4's partial mode) over the
+    live row's blocks it holds (`sla_decode.span_lut`), for every head
+    whose K/V it holds, gathered and combined in span order
+    (`sla_decode.sla_decode_combine`) with phi(q) Htot summed over Htot's
+    D_k rows and phi(q) Ztot; the rank keeps its own heads and applies
+    their Proj."""
+    from repro_torch.kernels import sla_decode
+
+    kl, bat, heads, kvh = parts.kl, parts.batch, parts.heads, parts.kv_heads
+    b, h_loc, d = q.shape
+    ht, zt = st["htot"][li], st["ztot"][li]
+    proj = ctx.fsdp_gather(p.sla_proj, "row")
+    if not serving.is_sharded(kl):
+        state = {"k": kc, "v": vc, "hblk": hb, "zblk": zb, "htot": ht,
+                 "ztot": parts.from_leaf("ztot", zt, (bat, kvh, None)),
+                 "lut": parts.from_leaf("live_lut", st["live_lut"][li],
+                                        (bat, heads, None)),
+                 "cnt": parts.from_leaf("live_cnt", st["live_cnt"][li],
+                                        (bat, heads)),
+                 "marg": parts.from_leaf("live_marg", st["live_marg"][li],
+                                         (bat, heads))}
+        if pt is not None:
+            state["pt"] = pt
+        o = backend_lib.decode_execute(state, {"proj": proj}, q[:, :, None],
+                                       pos, dcfg, backend=backend)
+        return o.to(q.dtype).reshape(b, 1, h_loc * d)
+    if dcfg.mode not in ("sla", "sparse_only"):
+        raise ValueError(f"decode-time SLA supports modes 'sla' / "
+                         f"'sparse_only', got {dcfg.mode!r}")
+    every = not kl.heads_split  # the K/V hold every head: attend them all
+    qh = q_all if every else q
+    hq = None if every else heads
+    lut = parts.from_leaf("live_lut", st["live_lut"][li], (bat, hq, None))
+    cnt = parts.from_leaf("live_cnt", st["live_cnt"][li], (bat, hq))
+    marg = parts.from_leaf("live_marg", st["live_marg"][li], (bat, hq))
+    first, blocks = parts.start("hblk", 2), hb.shape[2]
+    lut_s, cnt_s = sla_decode.span_lut(lut, cnt, first, blocks)
+    rec = backend_lib.decode_partial_execute(
+        {"k": kc, "v": vc, "hblk": hb, "zblk": zb, "lut": lut_s,
+         "cnt": cnt_s}, qh, pos - first * dcfg.block_kv, dcfg,
+        backend=backend)
+    records = serving.gather_spans(rec, kl)
+    # the totals' products: phi(q) Htot over this rank's D_k rows, every
+    # part of them in rank order; phi(q) Ztot where Ztot is whole
+    hkv = kc.shape[1]
+    hc = qh.shape[1]
+    qp = phi(qh, dcfg.phi).float().reshape(b, hkv, hc // hkv, d)
+    dk0, dkn = parts.start("htot", 2), ht.shape[2]
+    qht = torch.einsum("bngd,bnde->bnge", qp[..., dk0:dk0 + dkn],
+                       ht).reshape(b, hc, d)
+    qht = serving.gather_axes(
+        qht, serving._spec_axes(parts.spec["htot"][2]), parts.mesh)
+    zt_c = parts.from_leaf("ztot", zt, (bat, kvh, None))
+    qzt = torch.einsum("bngd,bnd->bng", qp, zt_c).reshape(b, hc)
+    o_s, o_l = sla_decode.sla_decode_combine(records, qht, qzt, marg)
+    if every:
+        rank = kl.mesh.get_local_rank("model")
+        o_s = o_s[:, rank * h_loc:(rank + 1) * h_loc]
+        o_l = o_l[:, rank * h_loc:(rank + 1) * h_loc]
+    o = o_s
+    if dcfg.mode == "sla":
+        o = o + torch.einsum("bhd,hde->bhe", o_l, proj.float())
+    return o.to(q.dtype).reshape(b, 1, h_loc * d)
 
 
 # --------------------------------------------------------------------------
@@ -1518,42 +1779,37 @@ def _empty_decode_state(cfg: ArchConfig, batch: int, max_len: int, device,
     """The decode-SLA state of an empty cache: what `_seed_decode_state`
     gives for an empty prompt (an all-negligible plan, zero partials and
     totals), built directly so that no (L, B, Hkv, Tn, D, D) block
-    buffer is made when `pooled` keeps the partials in page pools."""
-    sla = cfg.sla
-    nl, hkv, dh, nh = (cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
-                       cfg.num_heads)
-    tn = max_len // sla.block_kv
-    dcfg = sla.decode_plan_cfg(tn)
-    k_sel = dcfg.num_critical(tn)
+    buffer is made when `pooled` keeps the partials in page pools. Under
+    a mesh each leaf is this rank's part, allocated at that shape only."""
+    shapes = serving.local_shapes(
+        decode_state_shapes(cfg, batch, max_len, per_slot, pooled), batch)
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
-    lead = (nl, batch, nh)
     # plan_from_mask of an all-negligible mask: every index LUT pads
     # with block 0 and nothing is counted or marginal
     plan = plan_lib.SLAPlan(
-        mc=torch.full(lead + (tn, tn), -1, dtype=torch.int8, device=device),
-        lut=torch.zeros(lead + (tn, k_sel), **i32),
-        counts=torch.zeros(lead + (tn,), **i32),
-        col_lut=torch.zeros(lead + (tn, 1), **i32),
-        col_counts=torch.zeros(lead + (tn,), **i32),
-        marginal=torch.zeros(lead + (tn, tn), **f32))
-    counters = (nl, batch) if per_slot else (nl,)
-    st = {"htot": torch.zeros((nl, batch, hkv, dh, dh), **f32),
-          "ztot": torch.zeros((nl, batch, hkv, dh), **f32),
-          "qpool": torch.zeros((nl, batch, nh, dh), **f32),
+        mc=torch.full(shapes["plan/mc"], -1, dtype=torch.int8,
+                      device=device),
+        lut=torch.zeros(shapes["plan/lut"], **i32),
+        counts=torch.zeros(shapes["plan/counts"], **i32),
+        col_lut=torch.zeros(shapes["plan/col_lut"], **i32),
+        col_counts=torch.zeros(shapes["plan/col_counts"], **i32),
+        marginal=torch.zeros(shapes["plan/marginal"], **f32))
+    st = {"htot": torch.zeros(shapes["htot"], **f32),
+          "ztot": torch.zeros(shapes["ztot"], **f32),
+          "qpool": torch.zeros(shapes["qpool"], **f32),
           "plan": plan,
           "rows": torch.zeros((batch,), **i32) if per_slot else 0,
-          "live_lut": torch.zeros(lead + (k_sel,), **i32),
-          "live_cnt": torch.zeros(lead, **i32),
-          "live_marg": torch.zeros(lead, **i32),
-          "extends": torch.zeros(counters, **i32),
-          "replans": torch.zeros(counters, **i32),
-          "reuses": torch.zeros(counters, **i32),
-          "retention": torch.ones(counters, **f32)}
+          "live_lut": torch.zeros(shapes["live_lut"], **i32),
+          "live_cnt": torch.zeros(shapes["live_cnt"], **i32),
+          "live_marg": torch.zeros(shapes["live_marg"], **i32),
+          "extends": torch.zeros(shapes["extends"], **i32),
+          "replans": torch.zeros(shapes["replans"], **i32),
+          "reuses": torch.zeros(shapes["reuses"], **i32),
+          "retention": torch.ones(shapes["retention"], **f32)}
     if not pooled:
-        st["hblk"] = torch.zeros((nl, batch, hkv, tn, dh, dh), **f32)
-        st["zblk"] = torch.zeros((nl, batch, hkv, tn, dh), **f32)
-        st["kpool"] = torch.zeros((nl, batch, hkv, tn, dh), **f32)
+        for key in ("hblk", "zblk", "kpool"):
+            st[key] = torch.zeros(shapes[key], **f32)
     return st
 
 
@@ -1582,14 +1838,20 @@ def make_cache(cfg: ArchConfig, batch: int, max_len: int,
     fresh prefill into any slot.
 
     Under `activation_sharding(mesh, ...)` `batch` is the global batch and
-    the K/V leaves come out as this rank's part under
-    `sharding.cache_shardings`, allocated at that shape only (`pos` stays
-    whole on every rank)."""
+    the K/V leaves, and the decode-SLA state's, come out as this rank's
+    part under `sharding.cache_shardings`, allocated at that shape only
+    (`pos` stays whole on every rank; a split sequence holds whole KV
+    blocks of decode-time SLA in each rank's span). Per-slot positions
+    on a decode-SLA cache refuse a mesh of more than one rank."""
     dev = resolve_device(device)
     if decode_sla is None:
         decode_sla = cfg.sla.decode_mode == "sla"
     if decode_sla:
-        ctx.require_unsharded("decode-time SLA (make_cache(decode_sla=))")
+        if per_slot:
+            ctx.require_unsharded("per-slot positions on an 'sla' cache")
+        kl = serving.active_kv_layout(batch, cfg.num_kv_heads)
+        if kl is not None:  # refuses spans of part blocks
+            kl.check_length(max_len, cfg.sla.block_kv)
     kc, vc, _ = _kv_cache(cfg, batch, max_len, dtype, dev, zeros=True)
     cache = {"k": kc, "v": vc}
     _slot_pos(cache, batch, per_slot, dev)

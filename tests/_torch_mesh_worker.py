@@ -397,6 +397,107 @@ def case_serve(spec, out):
         dist.barrier()
 
 
+def case_serve_sla(spec, out):
+    """Decode-time SLA over a mesh, every case of `spec["cases"]`: the
+    smoke model (`sla.decode_mode="sla"`) from the case's weights placed
+    by the rules, `prefill(decode_max_len=)` on the global batch and one
+    `make_serve_step` call per row of the case's `feed` (the kernel
+    backend, the kernels' plain twins on these CPU tensors) under
+    `activation_sharding(mesh, default_residual_spec(mesh, batch,
+    cache_len))`. Rank 0 records the logits of every data rank's rows
+    (and whether the ranks holding the same rows returned them bitwise),
+    every cache leaf assembled from every rank's part by the rule's spec
+    (and whether the ranks holding the same shard hold the same bits),
+    each rank's cache bytes (of the filled cache and of an empty
+    `make_cache`) beside the dry run's for that cell."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import common
+    for case in spec["cases"]:
+        name = case["name"]
+        cfg, model = _model(case)
+        cfg = dataclasses.replace(cfg, sla=cfg.sla.replace(decode_mode="sla"))
+        mesh = mesh_lib.make_host_mesh(*case["mesh"], "cpu")
+        sizes = sharding.axis_sizes(mesh)
+        coords = {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names}
+        sharding.check_mesh_family(cfg, mesh)
+        data = np.load(case["inputs"])
+        feed = torch.from_numpy(data["feed"])
+        tokens = torch.from_numpy(data["tokens"])
+        b, length = feed.shape[1], case["cache_len"]
+        dtype = getattr(torch, case["dtype"])
+        shape = ShapeConfig("serve", length, b, "decode")
+        cell = dryrun.build_cell(cfg, shape, mesh)
+        out[f"{name}/dryrun_bytes"] = np.array(
+            dryrun.rank_bytes(cell)["cache"])
+        whole = registry.decode_specs(cfg, shape)[1]
+        specs = sharding.cache_shardings(mesh, whole, b)
+        sharding.place_module(model, mesh)
+        mdl = registry.get_model(cfg)
+        decode = mdl.decode_step
+        mdl.decode_step = functools.partial(decode, compute_dtype=dtype,
+                                            backend="kernel")
+        residual = ctx.default_residual_spec(mesh, b, length)
+        logits = []
+
+        def nbytes(cache):
+            return sum(leaf.numel() * leaf.element_size()
+                       if torch.is_tensor(leaf) else 4
+                       for _, leaf in sharding.tree_leaves(cache))
+
+        try:
+            with torch.no_grad(), ctx.activation_sharding(mesh, residual,
+                                                           remat=False):
+                empty = mdl.make_cache(cfg, b, length, device="cpu")
+                out[f"{name}/empty_bytes"] = np.array(nbytes(empty))
+                wholes = dict(sharding.tree_leaves(whole))
+                for path, leaf in sharding.tree_leaves(empty):
+                    if torch.is_tensor(leaf):
+                        want = specs[path].shard_shape(wholes[path].shape)
+                        assert tuple(leaf.shape) == want, (path, want)
+                del empty
+                hidden, cache = mdl.prefill(model, cfg, tokens, dtype,
+                                            "kernel", decode_max_len=length)
+                out[f"{name}/cache_bytes"] = np.array(nbytes(cache))
+                logits.append(common.logits_from_hidden(model, hidden))
+                serve = steps.make_serve_step(cfg)
+                for tok in feed:
+                    step, cache = serve(model, tok, cache)
+                    logits.append(step)
+        finally:
+            mdl.decode_step = decode
+        local = {}
+        for path, leaf in sharding.tree_leaves(cache):
+            if torch.is_tensor(leaf):
+                leaf = leaf.float() if leaf.is_floating_point() else leaf
+                local[path] = leaf.numpy()
+        out[f"{name}/sla/rows"] = np.array(cache["sla"]["rows"])
+        out[f"{name}/pos"] = np.array(cache["pos"])
+        mine = torch.stack(logits).float().numpy()
+        ranks = _every_rank((coords, mine, local))
+        dist.barrier()
+        if dist.get_rank():
+            continue
+        dp = b // mine.shape[1]
+        rows = {}
+        for c, lg, _ in ranks:
+            rows.setdefault(c["data"] if dp > 1 else 0, []).append(lg)
+        out[f"{name}/replicated_bitwise"] = np.array(all(
+            np.array_equal(x, group[0])
+            for group in rows.values() for x in group))
+        out[f"{name}/logits"] = np.concatenate(
+            [rows[r][0] for r in sorted(rows)], axis=1)
+        same = True
+        for path in local:
+            parts = [(c, loc[path]) for c, _, loc in ranks]
+            ok, _ = _replicas(parts, specs[path].spec)
+            same = same and ok
+            out[f"{name}/{path}"] = _assemble(parts, specs[path].spec,
+                                              sizes)
+            out[f"{name}/spec/{path}"] = np.array(
+                json.dumps(specs[path].spec))
+        out[f"{name}/leaves_bitwise"] = np.array(same)
+
+
 def main():
     case, spec_path, out_path, store = sys.argv[1:5]
     torch.set_num_threads(1)

@@ -909,6 +909,40 @@ def test_cuda_decode_kernels_are_deterministic(c, kv_dtype):
 
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
+def test_cuda_decode_partial_mode_over_spans_matches_its_twin(kv_dtype):
+    """Kernel 4's partial mode (a split cache's span, before any divide)
+    at the Qwen3 decode shape cut into 4 spans of 16 blocks: each span's
+    records against the twin's at the kernel's width (5e-5 x max(1, max
+    |twin|), field by field), two launches bitwise equal, one
+    PARTIAL_LAUNCHES a call and no LAUNCHES; the spans' records combined
+    across spans against unsplit kernel 4."""
+    _need_gpu()
+    args, kw = _decode_operands(17, 2, 8, 2, 1, 128, 64, 64, 6, kv_dtype,
+                                40 * 64 + 29)
+    want = sla_decode.sla_decode(*args, **kw)
+    spans, n = 4, 16
+    records = []
+    for r in range(spans):
+        ops_r = cases.span_operands(args, r * n, n)
+        before = sla_decode.PARTIAL_LAUNCHES, sla_decode.LAUNCHES
+        got = sla_decode.sla_decode_partial(*ops_r, **kw)
+        again = sla_decode.sla_decode_partial(*ops_r, **kw)
+        torch.cuda.synchronize()
+        assert (sla_decode.PARTIAL_LAUNCHES, sla_decode.LAUNCHES) == (
+            before[0] + 2, before[1])
+        assert torch.equal(got, again)
+        w = sla_decode.split_geometry(ops_r[3], ops_r[0])["split_width"]
+        twin = sla_decode.sla_decode_partial_plain(*ops_r, **kw,
+                                                   split_width=w)
+        err = cases.record_error(got, twin)
+        assert err["err"] <= TWIN_TOL and err["neutral_ok"], (r, err)
+        records.append(got)
+    o_s, o_l = cases.span_combine(torch.stack(records), args, kw["group"])
+    _assert_twin((o_s, o_l), want)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 def test_cuda_decode_kernels_at_d256_are_deterministic(kv_dtype):
     """At head dim 256 (H in slices): two launches of kernel 4 bitwise
     equal at C 1 and 4, and kernel 5 bitwise equal to kernel 4 on the

@@ -32,7 +32,8 @@ In process: the flash-decoding functions over slices of one cache against
 `_dense_decode_attn` on the whole, the span write against `_cache_write`,
 the layouts and local shapes on fake meshes (the production mesh's
 against the dry run), and every refusal that stays under a mesh of more
-than one rank.
+than one rank (decode-time SLA itself runs there:
+`tests/test_torch_mesh_decode_sla.py`).
 """
 import dataclasses
 import json
@@ -289,15 +290,13 @@ REFUSED = {
         None, _qwen(), None, return_plans=True),
     "plan reuse (drift_threshold=)": lambda: transformer.forward(
         None, _qwen(), None, drift_threshold=0.3),
-    "decode-time SLA (decode_plan_cfg=)": lambda: transformer.forward(
-        None, _qwen(), None, decode_plan_cfg=object()),
-    "decode-time SLA (prefill(decode_max_len=))": lambda: transformer
-    .prefill(None, _qwen(), torch.zeros((1, 64), dtype=torch.int32),
-             decode_max_len=128),
-    "decode-time SLA (make_cache(decode_sla=))": lambda: transformer
-    .make_cache(_qwen(), 2, 64, decode_sla=True, device="meta"),
-    "decode-time SLA (a cache carrying 'sla')": lambda: transformer
-    .decode_step(None, _qwen(), None, {"sla": {}}),
+    "per-slot positions on an 'sla' cache": lambda: transformer
+    .decode_step(None, _qwen(), None,
+                 {"sla": {}, "pos": torch.zeros(2, dtype=torch.int32)}),
+    "learned routing (routing_mode='learned') in the decode step":
+    lambda: transformer.decode_step(
+        None, dataclasses.replace(_qwen(), sla=_qwen().sla.replace(
+            routing_mode="learned")), None, {"sla": {}, "pos": 64}),
     "chunked admission prefill (prefill_chunk)": lambda: transformer
     .prefill_chunk(None, _qwen(), None, None, 0),
     "verify-style decode (decode_chunk)": lambda: transformer.decode_chunk(
