@@ -461,7 +461,13 @@ Phases, in order; any failure exits non-zero before the result line:
      spans (layouts B and C), shared and per-slot positions, against
      `_dense_decode_attn` on the whole cache: f32 within 5e-5 x max(1,
      max |o|), bf16 within 5e-2 x max(1, max |o|), the combine bitwise on
-     repeat, CUDA-event times beside the whole cache's attention.
+     repeat, CUDA-event times beside the whole cache's attention. b. plan
+     reuse at the model API on both paths: `prefill(return_plans=True)`
+     of the first prompts, then a same-shape `prefill(plans=,
+     drift_threshold=0.3, return_plans=True)` of 2 x 32,000 other tokens:
+     its logits, K/V cache, every plan leaf and drift info bitwise, 28
+     tensor-core launches of kernel 1 on both; its walls, re-planned
+     layers and lowest retention printed.
  35. sharded serving of the other families at world size 1
      (`phase_serve_mesh_families`, `P35_MODELS`): zamba2-1.2b (2 x 4,096
      tokens into 4,112-position K/V caches, 16 greedy steps),
@@ -501,7 +507,10 @@ Phases, in order; any failure exits non-zero before the result line:
      a mode. e. kernels 1-3 at the finetune's shape (BH = batch x 12, N
      4,096, D 64, 32 x 32 blocks, bf16, K 13 from `plan_attention` on
      seeded q and k) against their twins (5e-5), timed beside their bounds
-     (and the f32-FMA route's).
+     (and the f32-FMA route's), and phase 7's library call at that shape:
+     compiled flex_attention on a BlockMask of the same LUT, its forward
+     (O^s and L only) and its backward (dQ, dK and dV together; its bf16
+     gradients' error reported), with the card's name and power limit.
  37. decode-time SLA over the mesh's path at world size 1
      (`phase_serve_mesh_sla`): a. full-width Qwen3-1.7B with seeded bf16
      weights, 2 prompts of 32,000 tokens seeded by
@@ -523,6 +532,20 @@ Phases, in order; any failure exits non-zero before the result line:
      unsplit kernel 4 (5e-5 x max(1, max |o|)); CUDA-graph times of the
      spans' launches and of unsplit kernel 4, the bytes bound, the card's
      name and power limit.
+ 38. DiT serving over the mesh's path at world size 1
+     (`phase_dit_serve_mesh`, run just after phase 4 on its model:
+     full-width Wan2.1-1.3B, 30 layers, f32, 32,768 tokens, kernel
+     backend): a. `dit.sample` of 4 steps with adaptive refresh (drift
+     threshold 0.3) at batch 1 with a seeded text condition, on the plain
+     path and then on a copy of the parameters on `make_host_mesh(1, 1)`
+     (NCCL, world size 1) inside `activation_sharding`: latents, trace and
+     every plan leaf of every forward bitwise; b. phase 4's trace (3
+     requests, t_start 1.0 / 0.75 / 1.0, 4 steps, 2 slots) through a
+     `DiffusionScheduler` on that copy in the same scope: every request's
+     final latent bitwise phase 4's and the plan counters equal; 30
+     launches of kernel 1 a forward, all on the split route with one
+     pre-pass launch each. Each request's latency on both paths and the
+     card's name and power limit printed.
  31. the kernels line (JSON): `sla_fwd` carries the split route's fields
      at the top (the f32 serving route) and the f32-FMA and bf16
      tensor-core routes' beside them, kernels 1-3 the D-64 cases of
@@ -728,6 +751,7 @@ P33_MODELS = (("zamba2-1.2b", None, 0), ("whisper-small", None, 1),
 # P34_NEW dense decode steps, on the plain path and over a 1 x 1 mesh;
 # then the flash-decoding functions over layer 0's cache cut into spans
 P34_BATCH, P34_PROMPT, P34_MAX_LEN, P34_NEW = 2, 32000, 32768, 16
+P34_DRIFT = 0.3  # the plan-reusing prefill's drift threshold (phase 34b)
 P34_SPANS = (4, 16)
 # sharded serving of the other families (phase 35), each at full width and
 # depth with bf16 weights on the plain path and over a 1 x 1 mesh: (arch,
@@ -753,9 +777,21 @@ QS_TOL = TWIN_TOL
 # cut into spans (layout B's 4 "model" ranks, 16 as a 4 x 4 layout C)
 P37_BATCH, P37_PROMPT, P37_MAX_LEN, P37_NEW = 2, 32000, 32768, 72
 P37_SPANS = (4, 16)
+# DiT serving over the mesh (phase 38): Wan2.1-1.3B at full width and
+# depth in f32 on the kernel backend; `dit.sample` of P38_STEPS steps with
+# adaptive refresh at drift threshold P38_DRIFT on a batch of 1, then
+# phase 4's trace (MAIN_T_STARTS through MAIN_SLOTS slots), each on the
+# plain path and over a 1 x 1 mesh
+P38_STEPS, P38_DRIFT = 4, 0.3
+P38_COUNTERS = ("admissions", "denoise_steps", "plan_builds", "plan_replans",
+                "plan_reuses", "last_retention")
 FT_CASE_KEYS = ("shape", "dtype", "route", "bh", "n", "d", "k_sel",
                 "live_tiles", "ms", "plain_ms", "bound_ms", "bound_by",
-                "bound_fraction", "bound_ms_f32_fma", "max_abs_err", "ok")
+                "bound_fraction", "bound_ms_f32_fma", "max_abs_err", "ok",
+                "library_ms")
+# phase 36e's compiled flex_attention times beside a finetune case
+FT_FLEX_KEYS = ("flex_sparse_branch_fwd_ms", "library_fwd_ms",
+                "library_err", "library_error")
 FT_PRESET, FT_BATCH, FT_LR, FT_SEED = "100m", 2, 3e-4, 0
 FT_PRETRAIN_STEPS, FT_FINETUNE_STEPS = 40, 30
 FT_MODES = ("sla", "sparse_only", "linear_only", "l_plus_s")
@@ -1242,17 +1278,23 @@ def _main_model(seed: int):
     return cfg, params
 
 
-def phase_main_path(cfg, params):
+def _main_requests(cfg) -> list:
+    """The main path's requests: (latent, text condition, t_start) each,
+    drawn from a seeded generator in that order."""
     rs = np.random.default_rng(0)
+    return [(rs.standard_normal((MAIN_SEQ, cfg.patch_dim), dtype=np.float32),
+             rs.standard_normal((cfg.cond_len, cfg.d_model),
+                                dtype=np.float32), t_start)
+            for t_start in MAIN_T_STARTS]
+
+
+def phase_main_path(cfg, params):
     sched = DiffusionScheduler(cfg, params, num_slots=MAIN_SLOTS,
                                seq_len=MAIN_SEQ, backend="kernel",
                                compute_dtype=torch.float32, device=DEV)
-    for t_start in MAIN_T_STARTS:
-        sched.submit(rs.standard_normal((MAIN_SEQ, cfg.patch_dim),
-                                        dtype=np.float32),
-                     DenoiseParams(num_steps=MAIN_STEPS, t_start=t_start),
-                     cond=rs.standard_normal((cfg.cond_len, cfg.d_model),
-                                             dtype=np.float32))
+    for lat, cond, t_start in _main_requests(cfg):
+        sched.submit(lat, DenoiseParams(num_steps=MAIN_STEPS,
+                                        t_start=t_start), cond=cond)
     forwards = 0
     orig_forward = dit.forward
 
@@ -1316,7 +1358,9 @@ def phase_main_path(cfg, params):
                 forwards=forwards, wall_s=wall,
                 peak_gib=peak, latency_s=lat, ticks=ticks,
                 plan_builds=st.plan_builds, plan_replans=st.plan_replans,
-                plan_reuses=st.plan_reuses)
+                plan_reuses=st.plan_reuses,
+                results=[r.result for r in done],
+                counters={k: getattr(st, k) for k in P38_COUNTERS})
 
 
 def phase_cross_check(cfg, params, profile: bool):
@@ -6788,6 +6832,33 @@ def _serve_run(cfg, params, batch, cache_len, new: int, path: str) -> dict:
                 launches=launches)
 
 
+def _reuse_prefill_run(cfg, params, toks, toks2, path: str) -> dict:
+    """Phase 34b under the caller's scope: `prefill(return_plans=True)`
+    of `toks`, then a same-shape `prefill(plans=, drift_threshold=
+    P34_DRIFT, return_plans=True)` of `toks2` (bf16 compute, kernel
+    backend), the static engine's group-to-group plan reuse at the model
+    API. Returns the second prefill's logits, K/V cache, plans and drift
+    info, its wall and kernel 1's launches in it (`path` records their
+    head dims)."""
+    with torch.no_grad():
+        _, cache, plans = transformer.prefill(params, cfg, toks,
+                                              torch.bfloat16, "kernel",
+                                              return_plans=True)
+        del cache
+        torch.cuda.synchronize()
+        _zero_kernel_counts()
+        t0 = time.time()
+        last, cache, plans, info = transformer.prefill(
+            params, cfg, toks2, torch.bfloat16, "kernel", plans=plans,
+            drift_threshold=P34_DRIFT, return_plans=True)
+        logits = logits_from_hidden(params, last)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = _kernel_counts([], path)
+    return dict(logits=logits, k=cache["k"], v=cache["v"], plans=plans,
+                info=info, wall_s=wall, launches=launches)
+
+
 def _flash_decode_cases(cfg, kc, vc, pos: int) -> list:
     """The flash-decoding functions of `distributed/serving.py` on the
     card over one layer's cache kc, vc (B, Hkv, S, D) cut into
@@ -6867,8 +6938,12 @@ def phase_serve_mesh() -> dict:
     _redraw(gen, [layer.sla_proj for layer in params.layers])
     toks = torch.randint(0, cfg.vocab_size, (P34_BATCH, P34_PROMPT),
                          generator=gen, device=DEV, dtype=torch.int32)
+    toks2 = torch.randint(0, cfg.vocab_size, (P34_BATCH, P34_PROMPT),
+                          generator=gen, device=DEV, dtype=torch.int32)
     plain = _serve_run(cfg, params, {"tokens": toks}, P34_MAX_LEN, P34_NEW,
                        "lm_serve")
+    reuse = {"plain": _reuse_prefill_run(cfg, params, toks, toks2,
+                                         "lm_prefill_reuse")}
     store = tempfile.mkdtemp(dir=ROOT / "build")
     dist.init_process_group("nccl", store=dist.FileStore(
         os.path.join(store, "store"), 1), rank=0, world_size=1)
@@ -6879,10 +6954,41 @@ def phase_serve_mesh() -> dict:
         with actx.activation_sharding(mesh, residual, remat=False):
             sharded = _serve_run(cfg, params, {"tokens": toks}, P34_MAX_LEN,
                                  P34_NEW, "lm_serve_mesh")
+            reuse["mesh 1x1"] = _reuse_prefill_run(
+                cfg, params, toks, toks2, "lm_prefill_reuse_mesh")
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
     del params
+    reuse_same = {key: torch.equal(reuse["mesh 1x1"][key],
+                                   reuse["plain"][key])
+                  for key in ("logits", "k", "v")}
+    reuse_same["plans"] = all(
+        torch.equal(getattr(reuse["mesh 1x1"]["plans"], n),
+                    getattr(reuse["plain"]["plans"], n))
+        for n in plan_lib.PLAN_LEAVES)
+    reuse_same["info"] = all(
+        torch.equal(reuse["mesh 1x1"]["info"][k], reuse["plain"]["info"][k])
+        for k in ("retention", "replanned"))
+    want_reuse = dict(sla_fwd=cfg.num_layers, tc_sla_fwd=cfg.num_layers)
+    reuse_launches = {name: {k: run["launches"][k] for k in want_reuse}
+                      for name, run in reuse.items()}
+    replans = int(reuse["plain"]["info"]["replanned"].sum())
+    min_retention = float(reuse["plain"]["info"]["retention"].min())
+    for name, run in reuse.items():
+        say(f"[34b reuse prefill] {name}: prefill(plans=, drift_threshold="
+            f"{P34_DRIFT}) of {P34_BATCH} x {P34_PROMPT} tokens on the "
+            f"first prefill's plans {run['wall_s']:.3f}s | launches "
+            f"{reuse_launches[name]} on {CARD[0]}")
+    reuse_ok = (all(reuse_same.values())
+                and all(v == want_reuse for v in reuse_launches.values()))
+    say(f"[34b reuse prefill] {LM_ARCH} over make_host_mesh(1, 1) bitwise "
+        f"the plain path: {reuse_same} | {replans} of {cfg.num_layers} "
+        f"layers re-planned, lowest retention {min_retention:.4f} | kernel "
+        f"1 launches expected {cfg.num_layers} on tensor cores "
+        f"{'OK' if reuse_ok else 'FAIL'}")
+    reuse_walls = {name: run["wall_s"] for name, run in reuse.items()}
+    del reuse
     runs = {"plain": plain, "mesh 1x1": sharded}
     same = {"logits": torch.equal(sharded["logits"], plain["logits"]),
             "tokens": torch.equal(sharded["tokens"], plain["tokens"])}
@@ -6919,7 +7025,7 @@ def phase_serve_mesh() -> dict:
                                 sharded["cache"]["v"][0], pos - 1)
     ok = (all(same.values()) and finite and pos == P34_PROMPT + P34_NEW
           and all(v == want for v in launches.values())
-          and all(r["ok"] for r in flash))
+          and all(r["ok"] for r in flash) and reuse_ok)
     say(f"[34 serve mesh] {LM_ARCH} full width over make_host_mesh(1, 1): "
         f"bitwise {same}, finite {finite}, pos {pos} | kernel 1 launches a "
         f"prefill expected {nl} on tensor cores | flash decode "
@@ -6928,10 +7034,16 @@ def phase_serve_mesh() -> dict:
     if not ok:
         raise RuntimeError(f"sharded serving: bitwise {same}, finite "
                            f"{finite}, pos {pos}, launches {launches}, "
-                           f"flash {[r for r in flash if not r['ok']]}")
+                           f"flash {[r for r in flash if not r['ok']]}, "
+                           f"plan reuse bitwise {reuse_same}, launches "
+                           f"{reuse_launches}")
     return dict(bitwise=same, launches=launches["mesh 1x1"],
                 plain_launches=launches["plain"], walls=walls,
                 kv_cache_gb=kv_gb, flash=flash,
+                reuse=dict(bitwise=reuse_same, walls=reuse_walls,
+                           replans=replans, min_retention=min_retention,
+                           launches=reuse_launches["mesh 1x1"],
+                           plain_launches=reuse_launches["plain"]),
                 wall_s=time.time() - t_all)
 
 
@@ -7321,7 +7433,18 @@ def _ft_kernels36(batch: int) -> tuple:
               plan.col_counts)
     dq_args, dkv_args, kw = _bwd_operands(sla, q, k, v, leaves,
                                           torch.bfloat16, seed=37)
-    bwd = _bwd_case(shape, "bf16", dq_args, dkv_args, kw, n, d, {},
+    # the library call at this shape: compiled flex_attention on a
+    # BlockMask of the same LUT, phase 7's yardstick (its forward computes
+    # O^s and L only: the forward kernel's library_ms stays null)
+    lib = _with_library(sla, q, k, v, plan.lut, plan.counts, dq_args,
+                        dkv_args, kw, torch.bfloat16, shape)
+    fwd[0]["flex_sparse_branch_fwd_ms"] = lib.get("library_fwd_ms")
+    say(f"[36 kernels] compiled flex_attention at {shape} bf16 on "
+        f"{CARD[0]}: forward (O^s and L only) "
+        + (f"{lib['library_fwd_ms']:.3f} ms, backward (dQ, dK, dV) "
+           f"{lib['library_ms']:.3f} ms against kernels 2 + 3"
+           if lib.get("library_ms") is not None else "failed"))
+    bwd = _bwd_case(shape, "bf16", dq_args, dkv_args, kw, n, d, lib,
                     tag="36 kernels")
     for r, args in zip(bwd, (dq_args, dkv_args)):
         r["bound_ms_f32_fma"] = _fma_bound(r["mbytes"] * 1e6,
@@ -7637,6 +7760,189 @@ def phase_serve_mesh_sla() -> dict:
                 wall_s=time.time() - t_all), partial
 
 
+def _dit_sample_run(cfg, params, noise, cond, path: str) -> dict:
+    """Phase 38a under the caller's scope: `dit.sample` of P38_STEPS steps
+    with adaptive refresh at P38_DRIFT (f32, kernel backend), every
+    forward's returned plan stack kept. Returns the latents, the trace,
+    the stacks, the wall and kernel 1's launches by route (`path` records
+    their head dims)."""
+    stacks, forward = [], dit.forward
+
+    def recorded(*a, **kw):
+        out = forward(*a, **kw)
+        if kw.get("return_plans"):
+            stacks.append(out[1])
+        return out
+
+    torch.cuda.synchronize()
+    sla_fwd.LAUNCHES = sla_fwd.TC_LAUNCHES = sla_fwd.SPLIT_LAUNCHES = 0
+    sla_fwd.PLANES_LAUNCHES = 0
+    _zero_head_dims()
+    dit.forward = recorded
+    t0 = time.time()
+    try:
+        x, trace = dit.sample(params, cfg, noise, num_steps=P38_STEPS,
+                              cond=cond, compute_dtype=torch.float32,
+                              backend="kernel", refresh_mode="adaptive",
+                              drift_threshold=P38_DRIFT, return_trace=True)
+        torch.cuda.synchronize()
+    finally:
+        dit.forward = forward
+    wall = time.time() - t0
+    launches = dict(zip(("sla_fwd", "tc_sla_fwd", "split_sla_fwd",
+                         "planes"), _fwd_counters()))
+    _read_head_dims(path)
+    return dict(x=x, trace=trace, stacks=stacks, wall_s=wall,
+                forwards=P38_STEPS, launches=launches)
+
+
+def _dit_serve_run(cfg, params, reqs, path: str) -> dict:
+    """Phase 38b under the caller's scope: phase 4's trace (`reqs`: latent,
+    condition and t_start a request) through a `DiffusionScheduler` of
+    MAIN_SLOTS slots at MAIN_SEQ tokens, MAIN_STEPS steps each, its
+    default refresh, f32 on the kernel backend. Returns each request's
+    final latent and latency, the plan counters, the forwards, the wall
+    and kernel 1's launches by route."""
+    sched = DiffusionScheduler(cfg, params, num_slots=MAIN_SLOTS,
+                               seq_len=MAIN_SEQ, backend="kernel",
+                               compute_dtype=torch.float32, device=DEV)
+    for lat, cond, t_start in reqs:
+        sched.submit(lat, DenoiseParams(num_steps=MAIN_STEPS,
+                                        t_start=t_start), cond=cond)
+    forwards, forward = [0], dit.forward
+
+    def counted(*a, **kw):
+        forwards[0] += 1
+        return forward(*a, **kw)
+
+    torch.cuda.synchronize()
+    sla_fwd.LAUNCHES = sla_fwd.TC_LAUNCHES = sla_fwd.SPLIT_LAUNCHES = 0
+    sla_fwd.PLANES_LAUNCHES = 0
+    _zero_head_dims()
+    dit.forward = counted
+    t0 = time.time()
+    try:
+        done = sched.drain()
+    finally:
+        dit.forward = forward
+    wall = time.time() - t0
+    launches = dict(zip(("sla_fwd", "tc_sla_fwd", "split_sla_fwd",
+                         "planes"), _fwd_counters()))
+    _read_head_dims(path)
+    st = sched.stats
+    return dict(results=[r.result for r in done],
+                finished=all(r.state.value == "finished" for r in done),
+                latency_s=[r.metrics.latency_s for r in done],
+                counters={k: getattr(st, k) for k in P38_COUNTERS},
+                forwards=forwards[0], wall_s=wall, launches=launches)
+
+
+def phase_dit_serve_mesh(cfg, params, main_run: dict) -> dict:
+    """Phase 38: DiT serving over the mesh's path at world size 1 on this
+    card, on phase 4's model (full-width Wan2.1-1.3B, 30 layers, f32) at
+    32,768 tokens on the kernel backend, run just after phase 4: a.
+    `dit.sample` (P38_STEPS steps, adaptive refresh at P38_DRIFT, batch 1,
+    a seeded text condition) on the plain path, then on a copy of the
+    parameters placed on `make_host_mesh(1, 1)` (NCCL through a FileStore
+    under build/, destroyed after) inside `activation_sharding(mesh,
+    default_residual_spec(mesh, 1, MAIN_SEQ))`; b. phase 4's trace
+    (`_main_requests`) through a `DiffusionScheduler` on that copy in the
+    same scope, where the scheduler enters its own spec a call, against
+    phase 4's run of it (`main_run`: the plain path). Held bitwise: the
+    sample's latents, trace and every plan leaf of every forward; every
+    request's final latent; the plan counters equal. Kernel 1: 30
+    launches a forward, all on the split route with one pre-pass launch
+    each. Prints each request's latency on both paths beside the card's
+    name and power limit. Returns the summary."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    t_all = time.time()
+    nl = cfg.num_layers
+    rs = np.random.default_rng(38)
+    noise = torch.from_numpy(rs.standard_normal(
+        (1, MAIN_SEQ, cfg.patch_dim), dtype=np.float32)).to(DEV)
+    cond = torch.from_numpy(rs.standard_normal(
+        (1, cfg.cond_len, cfg.d_model), dtype=np.float32)).to(DEV)
+    plain = _dit_sample_run(cfg, params, noise, cond, "dit_serve_p38")
+    placed = copy.deepcopy(params)
+    store = tempfile.mkdtemp(dir=ROOT / "build")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(store, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_host_mesh(1, 1, "cuda")
+        sharding.place_module(placed, mesh)
+        residual = actx.default_residual_spec(mesh, 1, MAIN_SEQ)
+        with actx.activation_sharding(mesh, residual, remat=False):
+            sample = _dit_sample_run(cfg, placed, noise, cond,
+                                     "dit_serve_mesh")
+            serve = _dit_serve_run(cfg, placed, _main_requests(cfg),
+                                   "dit_serve_mesh")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    del placed
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = {"latents": torch.equal(plain["x"], sample["x"]),
+            "trace": all(torch.equal(plain["trace"][k], sample["trace"][k])
+                         for k in plain["trace"]),
+            "plans": len(plain["stacks"]) == P38_STEPS
+            and len(sample["stacks"]) == P38_STEPS
+            and all(torch.equal(getattr(x, n), getattr(y, n))
+                    for x, y in zip(plain["stacks"], sample["stacks"])
+                    for n in plan_lib.PLAN_LEAVES),
+            "served_latents": len(serve["results"]) == len(MAIN_T_STARTS)
+            and all(np.array_equal(x, y) for x, y in zip(
+                main_run["results"], serve["results"])),
+            "counters": serve["counters"] == main_run["counters"]}
+    del plain["stacks"], sample["stacks"]
+    finite = (all(bool(torch.isfinite(run["x"]).all())
+                  for run in (plain, sample))
+              and all(np.isfinite(r).all() for r in serve["results"])
+              and serve["finished"])
+    replans = plain["trace"]["replanned"].sum(dim=1).tolist()
+    launches = {"plain sample": plain["launches"],
+                "mesh 1x1 sample": sample["launches"],
+                "mesh 1x1 serve": serve["launches"]}
+    forwards = {"plain sample": P38_STEPS, "mesh 1x1 sample": P38_STEPS,
+                "mesh 1x1 serve": serve["forwards"]}
+    want = {k: dict(sla_fwd=nl * n, tc_sla_fwd=0, split_sla_fwd=nl * n,
+                    planes=nl * n) for k, n in forwards.items()}
+    say(f"[38 dit serve mesh] dit.sample of {P38_STEPS} adaptive steps "
+        f"(threshold {P38_DRIFT}) at {MAIN_SEQ} tokens, batch 1: plain "
+        f"{plain['wall_s']:.3f}s, mesh 1x1 {sample['wall_s']:.3f}s | phase "
+        f"4's trace, {len(MAIN_T_STARTS)} requests x {MAIN_STEPS} steps "
+        f"through {MAIN_SLOTS} slots in {serve['forwards']} forwards: "
+        f"latencies plain (phase 4) "
+        + ", ".join(f"{x:.3f}" for x in main_run["latency_s"])
+        + " s, mesh 1x1 " + ", ".join(f"{x:.3f}" for x in serve["latency_s"])
+        + f" s | counters {serve['counters']} | on {CARD[0]}")
+    ok = (all(same.values()) and finite
+          and all(launches[k] == want[k] for k in want))
+    say(f"[38 dit serve mesh] {cfg.name} full width over make_host_mesh(1, "
+        f"1): bitwise {same}, finite {finite} | the sample re-planned "
+        f"{replans} layers a step after step 0 | kernel 1 launches "
+        f"{launches} (expected {nl} a forward, all on the split route, one "
+        f"pre-pass each) | {time.time() - t_all:.1f}s "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"DiT serving over the mesh: bitwise {same}, "
+                           f"finite {finite}, launches {launches}")
+    total = {k: sample["launches"][k] + serve["launches"][k]
+             for k in want["mesh 1x1 serve"]}
+    return dict(bitwise=same, launches=total,
+                plain_launches=plain["launches"], launches_by_run=launches,
+                sample_replans=replans,
+                walls=dict(sample_plain_s=plain["wall_s"],
+                           sample_mesh_s=sample["wall_s"],
+                           serve_mesh_s=serve["wall_s"],
+                           serve_plain_s=main_run["wall_s"],
+                           latency_plain_s=main_run["latency_s"],
+                           latency_mesh_s=serve["latency_s"]),
+                counters=serve["counters"], wall_s=time.time() - t_all)
+
+
 def _tensors(x):
     if torch.is_tensor(x):
         yield x
@@ -7665,6 +7971,8 @@ def main(argv=None) -> int:
     rows, planes = phase_kernel_vs_plain()
     cfg, params = _main_model(seed=0)
     main_run = phase_main_path(cfg, params)
+    dsm = phase_dit_serve_mesh(cfg, params, main_run)
+    del main_run["results"]
     plans, cross = phase_cross_check(cfg, params, args.profile)
     rows += phase_kernel_on_path_plans(cfg, plans)
     pcache = phase_plan_cache(cfg, params, plans)
@@ -7753,6 +8061,8 @@ def main(argv=None) -> int:
     ex, ex_fwd_rows, ex_bwd_rows = phase_examples()
     sls, partial_rows = phase_serve_mesh_sla()
     slsc, slpc = sls["launches"], sls["plain_launches"]
+    dsc, dspc = dsm["launches"], dsm["plain_launches"]
+    rsc, rspc = sm["reuse"]["launches"], sm["reuse"]["plain_launches"]
     qsc = ex["quickstart"]["launches"]
     ftc = ex["finetune"]["runs"]["sla"]["launches"]
     rows += ex_fwd_rows
@@ -7842,7 +8152,11 @@ def main(argv=None) -> int:
                 "lm_serve_sla": slpc["tc_sla_fwd"],
                 "lm_serve_sla_mesh": slsc["tc_sla_fwd"],
                 "quickstart": qsc["tc_sla_fwd"],
-                "dit_finetune_sla": ftc["tc_sla_fwd"]}
+                "dit_finetune_sla": ftc["tc_sla_fwd"],
+                "lm_prefill_reuse": rspc["tc_sla_fwd"],
+                "lm_prefill_reuse_mesh": rsc["tc_sla_fwd"],
+                "dit_serve_p38": dspc["tc_sla_fwd"],
+                "dit_serve_mesh": dsc["tc_sla_fwd"]}
     # the other paths compute in bf16: every launch there is a tensor-core
     # one (phases 9, 12, 15, 17 check), so none is on the split route
     split_paths = {"serve": main_run["split_launches"],
@@ -7861,7 +8175,10 @@ def main(argv=None) -> int:
                    "family_serve_mesh": 0, "lm_serve_sla": 0,
                    "lm_serve_sla_mesh": 0,
                    "quickstart": qsc["split_sla_fwd"],
-                   "dit_finetune_sla": ftc["split_sla_fwd"]}
+                   "dit_finetune_sla": ftc["split_sla_fwd"],
+                   "lm_prefill_reuse": 0, "lm_prefill_reuse_mesh": 0,
+                   "dit_serve_p38": dspc["split_sla_fwd"],
+                   "dit_serve_mesh": dsc["split_sla_fwd"]}
     kernels = [{
         "name": "sla_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sla_fwd_split.cu",
@@ -7877,7 +8194,8 @@ def main(argv=None) -> int:
                      + g3tc["sla_fwd"] + mtc["sla_fwd"]
                      + fmc["sla_fwd"] + smc["sla_fwd"]
                      + sfc["sla_fwd"] + slpc["sla_fwd"] + slsc["sla_fwd"]
-                     + qsc["sla_fwd"] + ftc["sla_fwd"]),
+                     + qsc["sla_fwd"] + ftc["sla_fwd"] + rspc["sla_fwd"]
+                     + rsc["sla_fwd"] + dspc["sla_fwd"] + dsc["sla_fwd"]),
         "launches_by_path": {"serve": main_run["launches"],
                              "serve_plan_cache": pc_launches["launches"],
                              "train": train["launches"]["sla_fwd"],
@@ -7904,7 +8222,11 @@ def main(argv=None) -> int:
                              "lm_serve_sla": slpc["sla_fwd"],
                              "lm_serve_sla_mesh": slsc["sla_fwd"],
                              "quickstart": qsc["sla_fwd"],
-                             "dit_finetune_sla": ftc["sla_fwd"]},
+                             "dit_finetune_sla": ftc["sla_fwd"],
+                             "lm_prefill_reuse": rspc["sla_fwd"],
+                             "lm_prefill_reuse_mesh": rsc["sla_fwd"],
+                             "dit_serve_p38": dspc["sla_fwd"],
+                             "dit_serve_mesh": dsc["sla_fwd"]},
         **ran_at("sla_fwd"),
         "arch_head_dims": arch_head_dims(
             "wan2_1_1_3b", "lightningdit_1b", LM_ARCH, MOE_ARCH, HY_ARCH,
@@ -7961,7 +8283,8 @@ def main(argv=None) -> int:
         "gemma3_train_cases": [{k: r[k] for k in (
             "shape", "head_dim", "ms", "plain_ms", "bound_ms", "bound_by",
             "bound_fraction", "max_abs_err", "ok")} for r in g3t_fwd_rows],
-        "finetune_cases": [{k: r[k] for k in FT_CASE_KEYS}
+        "finetune_cases": [{**{k: r[k] for k in FT_CASE_KEYS},
+                            **{k: r[k] for k in FT_FLEX_KEYS if k in r}}
                            for r in ex_fwd_rows],
         "cases": rows,
     }, {
@@ -7970,11 +8293,14 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/sla_fwd.py:34",
         "part_of": "sla_fwd's split route: its K/V pre-pass",
         "launches": (main_run["planes_launches"]
-                     + pc_launches["planes_launches"] + qsc["planes"]),
+                     + pc_launches["planes_launches"] + qsc["planes"]
+                     + dspc["planes"] + dsc["planes"]),
         "launches_by_path": {
             "serve": main_run["planes_launches"],
             "serve_plan_cache": pc_launches["planes_launches"],
-            "quickstart": qsc["planes"]},
+            "quickstart": qsc["planes"],
+            "dit_serve_p38": dspc["planes"],
+            "dit_serve_mesh": dsc["planes"]},
         "max_abs_err": planes["max_abs_err"], "ms": planes["ms"],
         "plain_ms": planes["plain_ms"], "bound_ms": planes["bound_ms"],
         "bound_by": planes["bound_by"], "library_ms": None,
@@ -8021,7 +8347,8 @@ def main(argv=None) -> int:
                 "bound_by", "bound_fraction", "max_abs_err",
                 "bitwise_repeat", "ok")} for r in g3t_bwd_rows
                 if r["kernel"] == name],
-            "finetune_cases": [{k: r[k] for k in FT_CASE_KEYS}
+            "finetune_cases": [{**{k: r[k] for k in FT_CASE_KEYS},
+                                **{k: r[k] for k in FT_FLEX_KEYS if k in r}}
                                for r in ex_bwd_rows if r["kernel"] == name],
             "max_abs_err": max(r["max_abs_err"] for r in mine
                                if r["route"] == F32_ROUTE),
@@ -8161,7 +8488,7 @@ def main(argv=None) -> int:
         f"gemma3 serve {g3} | danube serve {dn} | vlm train {vl} | gemma3 "
         f"train {g3t} | lm train mesh {mt} | family train mesh {fm} | "
         f"lm serve mesh {sm} | family serve mesh {sf} | examples {ex} | "
-        f"lm serve sla mesh {sls} | total "
+        f"lm serve sla mesh {sls} | dit serve mesh {dsm} | total "
         f"{time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.config import SLAConfig
+from repro_torch.distributed import ctx
 from repro_torch.core.masks import (classify_blocks, routing_gates,
                                     score_map, sparsity_stats)
 
@@ -75,6 +76,23 @@ def plan_map(fn: Callable, *plans: SLAPlan) -> SLAPlan:
     """Apply `fn` leaf by leaf across plans (the port's tree_map)."""
     return SLAPlan(**{name: fn(*(getattr(p, name) for p in plans))
                       for name in PLAN_LEAVES})
+
+
+def check_stack(plans: SLAPlan, layers: int, rows: int, heads: int,
+                tm: int, tn: int) -> None:
+    """Refuse a per-layer plan stack given as a forward's `plans=` unless
+    its mc is (layers, rows, heads, tm, tn) and every leaf leads with
+    (layers, rows, heads): under a mesh, this rank's part of the stack
+    (its batch rows, or the whole batch under context parallelism, and
+    its query heads over the whole sequence's block grid)."""
+    want = (layers, rows, heads, tm, tn)
+    if tuple(plans.mc.shape) != want or any(
+            tuple(getattr(plans, name).shape[:3]) != want[:3]
+            for name in PLAN_LEAVES):
+        raise ValueError(
+            f"plans= holds mc of shape {tuple(plans.mc.shape)}; the active "
+            f"layout's part is {want} (layers, batch rows, query heads, "
+            f"Tm, Tn)")
 
 
 def build_lut(mc: torch.Tensor, k_sel: int
@@ -293,10 +311,15 @@ def refresh_plan(plan: SLAPlan, q: torch.Tensor, k: torch.Tensor,
     drift >= threshold (0.0 re-plans every call, >= 1.0 never). The
     decision is read on the host, where JAX branches under `lax.cond`.
     Returns (plan', retention scalar f32, replanned bool tensor).
+
+    Under `activation_sharding(mesh, ...)` q holds this rank's batch rows
+    and query heads: the retention is the MIN over every rank's rows and
+    heads (`ctx.min_over_ranks`), so every rank takes the global
+    decision, and a re-plan rebuilds this rank's part of the plan.
     """
     r, mc_fresh, pc = _retention_and_fresh_mc(plan, q, k, cfg, scale,
                                               routing)
-    retention = r.min()
+    retention = ctx.min_over_ranks(r.min())
     thr = torch.as_tensor(threshold, dtype=torch.float32,
                           device=retention.device)
     replanned = ((1.0 - retention) >= thr) & (thr < 1.0)
@@ -318,10 +341,15 @@ def refresh_plan_per_sample(plan: SLAPlan, q: torch.Tensor, k: torch.Tensor,
     forces a row's re-plan, >= 1.0 pins reuse. The rebuild always runs.
 
     Returns (plan', retention (B,), replanned (B,) bool).
+
+    Under `activation_sharding(mesh, ...)` the rows are this rank's and
+    the heads its own: a row's retention is the MIN over the "model"
+    ranks that hold its other heads (`ctx.min_over_ranks`), the global
+    decision for that row.
     """
     r, mc_fresh, pc = _retention_and_fresh_mc(plan, q, k, cfg, scale,
                                               routing)
-    retention = r.min(dim=-1).values
+    retention = ctx.min_over_ranks(r.min(dim=-1).values, batch=False)
     thr = torch.as_tensor(thresholds, dtype=torch.float32,
                           device=retention.device)
     thr = torch.broadcast_to(thr, retention.shape)

@@ -39,9 +39,11 @@ without sequence parallelism, so `shard_residual` is the identity).
   * serving: `seq_last` gives every rank the prefill's last hidden row
     under context parallelism (`last_span` any tensor of the last data
     rank's, such as a recurrent state), `gather_model` every "model"
-    rank's part of a tensor, and `replicated_tokens` scopes a decode
-    step whose tokens every data rank holds whole (the cache's sequence
-    split over "data": `distributed/serving.py`).
+    rank's part of a tensor, `replicated_tokens` scopes a decode step
+    whose tokens every data rank holds whole (the cache's sequence split
+    over "data": `distributed/serving.py`), `gather_batch` every data
+    rank's rows of a per-row tensor, and `min_over_ranks` is the drift
+    gate's MIN over the ranks that hold the rest of a decision.
 Every hook is the identity without a mesh. Over a mesh, one with axes of
 size 1 included, the hooks run their collectives; over one rank each of
 them is the identity on the values, so the 1 x 1 mesh path computes what
@@ -417,6 +419,19 @@ def seq_last(x: torch.Tensor) -> torch.Tensor:
     return last_span(x[:, -1])
 
 
+def gather_batch(t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Every data rank's rows of a per-row tensor along `dim`, in rank
+    order, under data parallelism (`batch_rows`' inverse: each rank's
+    per-row drift decisions as the global batch's); `t` otherwise, where
+    every data rank holds every row. Inference only."""
+    lay = layout()
+    if lay is None or lay.dp == 1:
+        return t
+    parts = [torch.empty_like(t) for _ in range(lay.dp)]
+    dist.all_gather(parts, t.contiguous(), group=lay.data_group)
+    return torch.cat(parts, dim=dim)
+
+
 def gather_model(t: torch.Tensor) -> list:
     """Every "model" rank's `t`, in rank order ([t] without a mesh or
     with a "model" axis of 1). Inference only."""
@@ -450,6 +465,30 @@ def model_rank_size() -> tuple:
     a mesh."""
     lay = layout()
     return (0, 1) if lay is None else (lay.model_rank, lay.model)
+
+
+def min_over_ranks(x: torch.Tensor, heads: bool = True,
+                   batch: bool = True) -> torch.Tensor:
+    """The elementwise MIN of x (a drift gate's retention) over the ranks
+    that hold the rest of its decision: with `heads`, the "model" ranks,
+    which hold the other query heads of this rank's rows; with `batch`
+    and the batch split over "data" (data parallelism), the data ranks
+    that hold the other rows (a batch-wide decision). Under context
+    parallelism every data rank plans the same rows, so no data rank is
+    crossed. Exact in any order, so every rank that holds a row takes the
+    same decision for it. x without a mesh. Inference only."""
+    lay = layout()
+    if lay is None:
+        return x
+    groups = []
+    if heads and lay.model_group is not None:
+        groups.append(lay.model_group)
+    if batch and lay.dp > 1 and lay.data_group is not None:
+        groups.append(lay.data_group)
+    for group in groups:
+        x = x.contiguous().clone()
+        dist.all_reduce(x, op=dist.ReduceOp.MIN, group=group)
+    return x
 
 
 def require_unsharded(what: str) -> None:

@@ -408,12 +408,3 @@ class SLAParts:
     def from_leaf(self, name: str, x: torch.Tensor, want) -> torch.Tensor:
         """One layer's local leaf x laid out by `want`."""
         return reshard(x, self.spec[name], want, self.mesh)
-
-    def min_over_batch(self, x: torch.Tensor) -> torch.Tensor:
-        """The min of x over the data ranks that split the batch (exact in
-        any order); x itself where every rank holds the whole batch."""
-        if self.batch is not None:
-            x = x.clone()
-            dist.all_reduce(x, op=dist.ReduceOp.MIN,
-                            group=self.mesh.get_group(self.batch))
-        return x

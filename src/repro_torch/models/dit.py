@@ -32,7 +32,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import masks as masks_lib
 from repro_torch.core import plan as plan_lib
-from repro_torch.distributed import ctx
+from repro_torch.distributed import ctx, serving
 from repro_torch.models.common import (attention, dense_init, kv_kind,
                                        local_kv_heads, mse_loss, rms_norm)
 
@@ -141,14 +141,22 @@ def forward(params: DiT, cfg: ArchConfig, latents: torch.Tensor, t,
     batch: this rank keeps its rows of it (data parallelism) or of the
     sequence (context parallelism), runs its heads and FFN columns of
     every layer (`distributed.ctx`) and returns the velocity of its rows.
-    Plan reuse does not run over a mesh.
+    Its plans are its part of the stack: leaves (L, B_local, H_local,
+    ...), B_local its data rows (the whole batch under context
+    parallelism, where q and k are gathered to the whole sequence, so the
+    block grid is the whole sequence's) and H_local its "model" heads;
+    `plans=` takes that part (anything else raises a ValueError naming
+    the expected shape) and `return_plans=True` returns it. Per-sample
+    thresholds are the global batch's (L, B). The drift gate's MIN
+    crosses the ranks that hold the rest of a decision
+    (`core.plan.refresh_plan`), so the info holds the global decisions:
+    (L,), or (L, B_local) per sample for this rank's rows.
     """
-    if plans is not None or return_plans:
-        ctx.require_unsharded("DiT plan reuse")
     dev = latents.device
     t = torch.as_tensor(t, dtype=torch.float32, device=dev)
     if t.ndim == 0:
         t = t.expand(latents.shape[0])
+    batch, seq = latents.shape[:2]
     latents = ctx.seq_rows(ctx.batch_rows(latents))
     t, cond = ctx.batch_rows(t), ctx.batch_rows(cond)
     b, n = latents.shape[:2]
@@ -174,12 +182,17 @@ def forward(params: DiT, cfg: ArchConfig, latents: torch.Tensor, t,
                                                          "linear_only")
     adaptive = (drift_threshold is not None and plans is not None
                 and plan_needed)
+    if plans is not None and plan_needed:
+        plan_lib.check_stack(plans, cfg.num_layers, b, h,
+                             seq // sla_cfg.block_q, seq // sla_cfg.block_kv)
     if adaptive:
-        thr_shape = ((cfg.num_layers, b) if per_sample_refresh
+        thr_shape = ((cfg.num_layers, batch) if per_sample_refresh
                      else (cfg.num_layers,))
         thresholds = torch.broadcast_to(
             torch.as_tensor(drift_threshold, dtype=torch.float32,
                             device=dev), thr_shape)
+        if per_sample_refresh:  # this rank's rows
+            thresholds = ctx.batch_rows(thresholds.T).T
 
     def layer(x, p, given, thr, kept):
         """One DiT block. Planning (or the drift-gated refresh of a given
@@ -298,6 +311,12 @@ def sample(params: DiT, cfg: ArchConfig, noise: torch.Tensor, *,
     drift reaches `drift_threshold`) as in the reference. With
     `return_trace=True` also returns {"retention": (S-1, L), "replanned":
     (S-1, L), "replan_count": (L,)}; counts exclude step 0's planning.
+
+    Under `activation_sharding(mesh, ...)` every rank holds the global
+    latents and advances them alike: each step's velocity of this rank's
+    rows is gathered over the data ranks (`ctx.gather_tokens`) before the
+    Euler step, and each rank reuses its own part of the plans. The trace
+    holds the global decisions, the one-device run's.
     """
     mode = (cfg.sla.plan_refresh_mode if refresh_mode is None
             else refresh_mode)
@@ -332,8 +351,12 @@ def sample(params: DiT, cfg: ArchConfig, noise: torch.Tensor, *,
             return x - dtv[:, None, None] * vel.to(x.dtype)
 
     def fwd(step, **kw):
-        return forward(params, cfg, x, tvec(step), cond, compute_dtype,
-                       backend, **kw)
+        """The forward at `step`, its velocity of the global batch."""
+        out = forward(params, cfg, x, tvec(step), cond, compute_dtype,
+                      backend, **kw)
+        if isinstance(out, tuple):
+            return (ctx.gather_tokens(out[0]),) + out[1:]
+        return ctx.gather_tokens(out)
 
     def static_trace(flags):
         rep = torch.tensor(flags, dtype=torch.bool, device=dev)[:, None] \
@@ -390,19 +413,39 @@ def sample(params: DiT, cfg: ArchConfig, noise: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 # serving slot surgery (serving/diffusion.py). Unlike the reference's
 # functional updates these write into the live pool in place, which saves
-# a copy of every per-layer plan leaf per admission.
+# a copy of every per-layer plan leaf per admission. Under a mesh they act
+# on this rank's part of the plan pool, in the scope of the pool's layout
+# (the tick's: `activation_sharding(mesh, default_residual_spec(mesh,
+# slots, seq_len))`): under data parallelism slot j's rows live on one
+# data rank; its heads' rows are the rank's own.
 # ---------------------------------------------------------------------------
+def _slot_rows(plans, slot: int):
+    """(whether this rank holds slot `slot`'s plan rows, their index in
+    its part of the pool)."""
+    lay = ctx.layout()
+    if lay is None or lay.dp == 1:
+        return True, slot
+    n = plans.mc.shape[1]
+    return slot // n == lay.data_rank, slot % n
+
+
 def insert_denoise_slot(latents, plans, slot: int, latent_row, plan_row):
     """Write one admitted request into batch slot `slot`, in place.
 
     latents: (B, N, P) live pool; latent_row: (1, N, P). plans: per-layer
     plan stack with leaves (L, B, ...); plan_row: leaves (L, 1, ...).
-    Either plan argument may be None. Returns (latents, plans)."""
+    Either plan argument may be None. Returns (latents, plans). Under a
+    mesh the latents are the global pool on every rank and the plans this
+    rank's part; plan_row holds the request's rows of this rank's heads
+    (a batch-1 admission runs under context parallelism, where every
+    data rank holds them), which the slot's owner copies in."""
     latents[slot] = latent_row[0].to(latents.dtype)
     if plans is not None and plan_row is not None:
-        for name in plan_lib.PLAN_LEAVES:
-            full = getattr(plans, name)
-            full[:, slot] = getattr(plan_row, name)[:, 0].to(full.dtype)
+        mine, row = _slot_rows(plans, slot)
+        if mine:
+            for name in plan_lib.PLAN_LEAVES:
+                full = getattr(plans, name)
+                full[:, row] = getattr(plan_row, name)[:, 0].to(full.dtype)
     return latents, plans
 
 
@@ -412,8 +455,15 @@ def retire_denoise_slot(latents, slot: int):
 
 
 def take_slot_plans(plans, slot: int):
-    """One slot's per-layer plan rows (leaves (L, 1, ...))."""
-    return plan_lib.plan_map(lambda leaf: leaf[:, slot:slot + 1], plans)
+    """One slot's per-layer plan rows (leaves (L, 1, ...)). Under data
+    parallelism the owner's rows of this rank's heads, gathered to every
+    data rank (every rank of the pool's layout calls it)."""
+    lay = ctx.layout()
+    if lay is None or lay.dp == 1:
+        return plan_lib.plan_map(lambda leaf: leaf[:, slot:slot + 1],
+                                 plans)
+    return plan_lib.plan_map(lambda leaf: serving.read_row(
+        leaf, 1, slot, "data", lay.mesh).unsqueeze(1), plans)
 
 
 def loss_fn(params: DiT, cfg: ArchConfig, batch, compute_dtype=torch.bfloat16,

@@ -363,15 +363,15 @@ def forward(params, cfg: ArchConfig, tokens: Optional[torch.Tensor],
     this rank's part under `sharding.cache_shardings` (`_kv_cache`): its
     batch rows, its KV heads or all of them, its span of the positions.
     `decode_plan_cfg=` classifies this rank's query heads over the whole
-    prompt (its batch rows). Plan reuse does not run over a mesh of more
-    than one rank.
+    prompt (its batch rows). The plans are this rank's part of the stack,
+    as the DiT's (`models.dit.forward`): leaves (L, B_local, H_local,
+    ...) over the whole prompt's block grid, B_local its batch rows (the
+    whole batch under context parallelism) and H_local its query heads;
+    `plans=` takes that part (anything else raises a ValueError naming
+    the expected shape), and the drift gate's MIN crosses the ranks that
+    hold the rest of the batch and heads (`core.plan.refresh_plan`), so
+    the info holds the global decisions.
     """
-    if plans is not None:
-        ctx.require_unsharded("plan reuse (plans=)")
-    if return_plans:
-        ctx.require_unsharded("plan reuse (return_plans=)")
-    if drift_threshold is not None:
-        ctx.require_unsharded("plan reuse (drift_threshold=)")
     global_batch = (tokens if tokens is not None else prefix_embeds).shape[0]
     tokens = ctx.batch_rows(tokens)
     prefix_embeds = ctx.batch_rows(prefix_embeds)
@@ -391,6 +391,11 @@ def forward(params, cfg: ArchConfig, tokens: Optional[torch.Tensor],
                  else torch.arange(s, device=dev))[None, :].expand(b, s)
     kinds = layer_kinds_list(cfg)
     nl = cfg.num_layers
+    if plans is not None:
+        _, m = ctx.model_rank_size()
+        plan_lib.check_stack(plans, nl, b, cfg.num_heads // m,
+                             s_all // cfg.sla.block_q,
+                             s_all // cfg.sla.block_kv)
     want_plan = return_plans or plans is not None
     adaptive = drift_threshold is not None and plans is not None
     if adaptive:
@@ -689,7 +694,8 @@ def prefill(params, cfg: ArchConfig, tokens: Optional[torch.Tensor],
     the last data rank), and the cache, its decode-SLA state too, is this
     rank's part of it under `sharding.cache_shardings`; a sequence split
     over ranks needs `decode_max_len` in whole blocks of each rank's
-    span."""
+    span. `plans=` and the returned plans are this rank's part of the
+    stack (`forward`), the drift info the global decisions."""
     dcfg = None
     s = ((0 if tokens is None else tokens.shape[1])
          + (0 if prefix_embeds is None else prefix_embeds.shape[1]))
@@ -1365,7 +1371,7 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
                 # per slot: each slot's own heads gate its row; the aligned
                 # static batch takes one decision for every row
                 retention = (r.min(dim=1).values if vec
-                             else parts.min_over_batch(r.min()))
+                             else ctx.min_over_ranks(r.min(), heads=False))
                 replan = ((1.0 - retention) >= thr) & (thr < 1.0)
                 rep_m = replan[:, None, None] if vec else replan
                 mc_live = torch.where(rep_m, mc_fresh, mc_inh)

@@ -28,10 +28,23 @@ back. Mid-flight, a slot crossing into a bucket not yet filled donates
 its current plans, so the first requests fill the timestep axis for the
 requests behind them.
 
+Over a ("data", "model") mesh the scheduler serves when its calls run
+inside `distributed.ctx.activation_sharding(mesh, ...)`, as the model
+API does, one process a rank, each submitting the same requests (SPMD):
+every rank holds the global latents and advances them alike, each holds
+its part of the plan pool (its slots under data parallelism, its "model"
+heads), and each device call enters the residual spec of its own global
+batch (`ctx.default_residual_spec`: 1 at admission, which runs under
+context parallelism where the data axis does not divide it, `num_slots`
+at a tick). The drift decisions and so the plan counters are the global
+ones. The plan cache keys and carries whole plans: it refuses a mesh of
+more than one rank.
+
 Counterpart of `repro.serving.diffusion`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import deque
@@ -43,6 +56,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import plan as plan_lib
+from repro_torch.distributed import ctx
 from repro_torch.models import dit
 from repro_torch.serving.api import (RequestMetrics, RequestState,
                                      ServeStats, StreamEvent,
@@ -178,15 +192,8 @@ class DiffusionScheduler:
         self._cond = (torch.zeros((num_slots, cfg.cond_len, cfg.d_model),
                                   dtype=torch.float32, device=dev)
                       if cfg.cross_attn else None)
-        if self.plan_needed:
-            tm = seq_len // self.sla_cfg.block_q
-            tn = seq_len // self.sla_cfg.block_kv
-            proto = plan_lib.empty_plan(self.sla_cfg, num_slots,
-                                        cfg.num_heads, tm, tn, dev)
-            self._plans = plan_lib.plan_map(
-                lambda leaf: torch.stack([leaf] * nl), proto)
-        else:
-            self._plans = None
+        self._mesh = None  # the mesh the slots live on (None: one device)
+        self._plans = self._empty_pool(num_slots, cfg.num_heads)
         self._t0 = np.zeros((num_slots,), np.float32)
         self._dt = np.zeros((num_slots,), np.float32)
         self._bucket = [None] * num_slots  # last plan-cache bucket seen
@@ -197,51 +204,104 @@ class DiffusionScheduler:
         self._next_rid = 0
         self.stats = ServeStats()
 
+    # -- the mesh ------------------------------------------------------------
+    def _empty_pool(self, slots: int, heads: int):
+        """An all-negligible plan pool of `slots` rows and `heads` heads a
+        layer (None where no layer plans)."""
+        if not self.plan_needed:
+            return None
+        proto = plan_lib.empty_plan(
+            self.sla_cfg, slots, heads, self.seq_len // self.sla_cfg.block_q,
+            self.seq_len // self.sla_cfg.block_kv, self.device)
+        return plan_lib.plan_map(
+            lambda leaf: torch.stack([leaf] * self.cfg.num_layers), proto)
+
+    def _bind(self):
+        """Serve on the active mesh (None: one device): a new mesh takes a
+        fresh plan pool of this rank's part, which needs every slot
+        free."""
+        lay = ctx.layout()
+        mesh = None if lay is None else lay.mesh
+        if self.cache is not None:
+            ctx.require_unsharded("the plan cache (plan_cache=)")
+        if mesh is self._mesh:
+            return
+        if any(r is not None for r in self._slots):
+            raise ValueError("a DiffusionScheduler's active slots live on "
+                             "the mesh they were admitted on")
+        self._mesh = mesh
+        with self._scope(self.num_slots):
+            lay = ctx.layout()
+            slots, heads = self.num_slots, self.cfg.num_heads
+            if lay is not None:
+                slots, heads = slots // lay.dp, heads // lay.model
+            self._plans = self._empty_pool(slots, heads)
+
+    def _scope(self, batch: int):
+        """A device call's scope on the bound mesh: the residual spec of a
+        global batch of `batch` rows."""
+        if self._mesh is None:
+            return contextlib.nullcontext()
+        return ctx.activation_sharding(
+            self._mesh, ctx.default_residual_spec(self._mesh, batch,
+                                                  self.seq_len),
+            remat=False)
+
     # -- device steps ------------------------------------------------------
     def _admit_fresh(self, lat1, t1, dt1, cond1):
         """Step 0 of a request's trajectory: plan + first Euler step,
         exactly `dit.sample`'s first step at batch 1."""
-        out = dit.forward(self.params, self.cfg, lat1, t1,
-                          cond1 if self.cfg.cross_attn else None,
-                          self.compute_dtype, self.backend,
-                          return_plans=self.plan_needed)
-        vel, plans = out if self.plan_needed else (out, None)
+        with self._scope(1):
+            out = dit.forward(self.params, self.cfg, lat1, t1,
+                              cond1 if self.cfg.cross_attn else None,
+                              self.compute_dtype, self.backend,
+                              return_plans=self.plan_needed)
+            vel, plans = out if self.plan_needed else (out, None)
+            vel = ctx.gather_tokens(vel)
         return lat1 - dt1[:, None, None] * vel.to(lat1.dtype), plans
 
     def _admit_cached(self, lat1, t1, dt1, cond1, cached):
         """Step 0 against a cached plan stack: the drift check validates
         each layer's cached structure at the per-layer threshold; the
         info's `replanned` flags the invalidated layers."""
-        vel, plans, info = dit.forward(
-            self.params, self.cfg, lat1, t1,
-            cond1 if self.cfg.cross_attn else None, self.compute_dtype,
-            self.backend, plans=cached, return_plans=True,
-            drift_threshold=torch.from_numpy(self._thr_layers).to(
-                self.device))
+        with self._scope(1):
+            vel, plans, info = dit.forward(
+                self.params, self.cfg, lat1, t1,
+                cond1 if self.cfg.cross_attn else None, self.compute_dtype,
+                self.backend, plans=cached, return_plans=True,
+                drift_threshold=torch.from_numpy(self._thr_layers).to(
+                    self.device))
+            vel = ctx.gather_tokens(vel)
         return lat1 - dt1[:, None, None] * vel.to(lat1.dtype), plans, info
 
     def _tick(self, tv, dtv, thr, mask):
         """ONE batched denoise step for every slot: mixed per-slot
         (t, dt), per-sample plan refresh, masked commit so retired/free
-        rows keep their state untouched."""
+        rows keep their state untouched. Over a mesh each rank keeps its
+        rows' plans and the info is gathered to the global slots."""
         cond = self._cond if self.cfg.cross_attn else None
         info = None
-        if self.plan_needed:
-            vel, new_plans, info = dit.forward(
-                self.params, self.cfg, self._lat, tv, cond,
-                self.compute_dtype, self.backend, plans=self._plans,
-                return_plans=True, drift_threshold=thr,
-                per_sample_refresh=True)
-        else:
-            vel = dit.forward(self.params, self.cfg, self._lat, tv, cond,
-                              self.compute_dtype, self.backend)
+        with self._scope(self.num_slots):
+            if self.plan_needed:
+                vel, new_plans, info = dit.forward(
+                    self.params, self.cfg, self._lat, tv, cond,
+                    self.compute_dtype, self.backend, plans=self._plans,
+                    return_plans=True, drift_threshold=thr,
+                    per_sample_refresh=True)
+                info = {k: ctx.gather_batch(v, dim=1)
+                        for k, v in info.items()}
+                mine = ctx.batch_rows(mask)
+
+                def sel(n, o):
+                    return torch.where(
+                        mine.reshape((1, -1) + (1,) * (n.ndim - 2)), n, o)
+                self._plans = plan_lib.plan_map(sel, new_plans, self._plans)
+            else:
+                vel = dit.forward(self.params, self.cfg, self._lat, tv,
+                                  cond, self.compute_dtype, self.backend)
+            vel = ctx.gather_tokens(vel)
         new_lat = self._lat - dtv[:, None, None] * vel.to(self._lat.dtype)
         self._lat = torch.where(mask[:, None, None], new_lat, self._lat)
-        if self.plan_needed:
-            def sel(n, o):
-                return torch.where(
-                    mask.reshape((1, -1) + (1,) * (n.ndim - 2)), n, o)
-            self._plans = plan_lib.plan_map(sel, new_plans, self._plans)
         return info
 
     # -- request surface ---------------------------------------------------
@@ -329,8 +389,9 @@ class DiffusionScheduler:
                 info["retention"].min().cpu())
             if n_replan:
                 self.cache.update(bucket, plan_row, replanned)
-        self._lat, self._plans = dit.insert_denoise_slot(
-            self._lat, self._plans, slot, new_lat, plan_row)
+        with self._scope(self.num_slots):
+            self._lat, self._plans = dit.insert_denoise_slot(
+                self._lat, self._plans, slot, new_lat, plan_row)
         if self._cond is not None:
             self._cond[slot] = cond1[0]
         self._t0[slot] = t_start
@@ -378,6 +439,7 @@ class DiffusionScheduler:
     def step(self) -> List[StreamEvent]:
         """Admit queued requests into free slots, then run ONE batched
         denoise step over every active slot. Returns the events."""
+        self._bind()
         events: List[StreamEvent] = []
         for slot in range(self.num_slots):
             if self._slots[slot] is None and self._queue:
@@ -432,8 +494,9 @@ class DiffusionScheduler:
                     # crossing into a new timestep bucket: donate this
                     # slot's current plans if the bucket is not filled
                     self._bucket[j] = nb
-                    self.cache.put_if_absent(
-                        nb, dit.take_slot_plans(self._plans, j))
+                    with self._scope(self.num_slots):
+                        row = dit.take_slot_plans(self._plans, j)
+                    self.cache.put_if_absent(nb, row)
             if r.steps_done >= r.params.num_steps:
                 self._finish(j, events)
         self._sync_cache_stats()

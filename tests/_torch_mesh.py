@@ -6,13 +6,17 @@ WORLD_SIZE set, a FileStore under `tmp_path`: no port is taken, so
 parallel test workers never collide), waits for all of them, and returns
 rank 0's results as a dict of numpy arrays, with every rank's output
 under "logs". Any rank failing or
-outliving `timeout` fails the caller with the ranks' stderr.
+outliving `timeout` fails the caller with the ranks' stderr; a rank
+still running then first prints its Python stack (SIGUSR1, the
+worker's `faulthandler`).
 """
 import json
 import os
 import pathlib
+import signal
 import subprocess
 import sys
+import time
 import uuid
 
 import numpy as np
@@ -63,10 +67,14 @@ def run_ranks(case: str, world: int, tmp_path, timeout: float = 300,
                 failed.append(rank)
                 break
     finally:
-        for p, _ in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        live = [p for p, _ in procs if p.poll() is None]
+        for p in live:  # each live rank's stack into its log
+            p.send_signal(signal.SIGUSR1)
+        if live:
+            time.sleep(2)
+        for p in live:
+            p.kill()
+            p.wait()
     logs = []
     for rank, (_, err) in enumerate(procs):
         err.seek(0)

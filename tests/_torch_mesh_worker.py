@@ -10,11 +10,13 @@ Rank 0 writes the case's results to <out.npz>; every rank exits 0 or
 raises.
 """
 import dataclasses
+import faulthandler
 import functools
 import json
 import os
 import pathlib
 import shutil
+import signal
 import sys
 
 import numpy as np
@@ -498,8 +500,18 @@ def case_serve_sla(spec, out):
         out[f"{name}/leaves_bitwise"] = np.array(same)
 
 
+def case_plan_reuse(spec, out):
+    """Plan reuse over a mesh, every case of `spec["cases"]`
+    (`tests/_torch_mesh_plan_reuse.py`)."""
+    from _torch_mesh_plan_reuse import run_cases
+    run_cases(spec, out)
+
+
 def main():
     case, spec_path, out_path, store = sys.argv[1:5]
+    # `run_ranks` sends SIGUSR1 before it kills a rank that outlived its
+    # wait: the rank's stack then shows where it waited
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
     torch.set_num_threads(1)
     spec = json.loads(pathlib.Path(spec_path).read_text())
     spec["store"] = store

@@ -51,7 +51,9 @@ from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch.configs import get_arch, get_shape
 from repro_torch.distributed import ctx, serving, sharding
 from repro_torch.launch import dryrun
-from repro_torch.models import transformer
+from repro_torch.core import plan as plan_lib
+from repro_torch.models import dit, transformer
+from repro_torch.serving.diffusion import DiffusionScheduler
 
 Q3 = "qwen3-1.7b"
 CASES = [
@@ -283,13 +285,16 @@ def _qwen():
     return get_arch("qwen3-1.7b").smoke()
 
 
+def _dit():
+    cfg = get_arch("lightningdit_1b").smoke()
+    return cfg, dit.init(torch.Generator().manual_seed(0), cfg,
+                         device="cpu")
+
+
 REFUSED = {
-    "plan reuse (plans=)": lambda: transformer.forward(
-        None, _qwen(), None, plans=object()),
-    "plan reuse (return_plans=)": lambda: transformer.forward(
-        None, _qwen(), None, return_plans=True),
-    "plan reuse (drift_threshold=)": lambda: transformer.forward(
-        None, _qwen(), None, drift_threshold=0.3),
+    "the plan cache (plan_cache=)": lambda: DiffusionScheduler(
+        *_dit(), num_slots=2, seq_len=64, backend="kernel",
+        plan_cache=True, device="cpu").step(),
     "per-slot positions on an 'sla' cache": lambda: transformer
     .decode_step(None, _qwen(), None,
                  {"sla": {}, "pos": torch.zeros(2, dtype=torch.int32)}),
@@ -314,6 +319,54 @@ def test_refused_under_a_mesh_of_more_than_one_rank(what, fake_mesh):
             REFUSED[what]()
     assert str(err.value) == (f"{what} is not ported to a mesh of more "
                               f"than one rank")
+
+
+def _stack(cfg, batch: int, heads: int, seq: int):
+    sla = cfg.sla
+    plan = plan_lib.empty_plan(sla, batch, heads, seq // sla.block_q,
+                               seq // sla.block_kv)
+    return plan_lib.plan_map(
+        lambda leaf: torch.stack([leaf] * cfg.num_layers), plan)
+
+
+@pytest.mark.parametrize("family", ["dit", "lm"])
+@pytest.mark.parametrize("mesh_shape", [None, (1, 2)])
+def test_a_plan_part_of_the_wrong_shape_is_refused(family, mesh_shape,
+                                                   fake_mesh):
+    """`plans=` must be this rank's part of the stack: on one device the
+    whole stack, on a (1, 2) mesh its batch rows and half the query heads.
+    The whole stack given on the mesh, or another batch on one device,
+    raises a ValueError naming the expected shape."""
+    seq, batch = 64, 2
+    if family == "dit":
+        cfg, model = _dit()
+        x = torch.zeros((batch, seq, cfg.patch_dim))
+
+        def call(plans):
+            dit.forward(model, cfg, x, 0.5, plans=plans)
+    else:
+        cfg = _qwen()
+        model = transformer.init(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+        x = torch.zeros((batch, seq), dtype=torch.int32)
+
+        def call(plans):
+            transformer.forward(model, cfg, x, plans=plans)
+    heads = cfg.num_heads
+    blocks = seq // cfg.sla.block_q
+    scope = ctx.activation_sharding(None)
+    if mesh_shape is None:
+        wrong = _stack(cfg, batch + 1, heads, seq)
+        want = (cfg.num_layers, batch, heads, blocks, blocks)
+    else:
+        scope = ctx.activation_sharding(fake_mesh(mesh_shape),
+                                        (("data",), None, "model"))
+        wrong = _stack(cfg, batch, heads, seq)
+        want = (cfg.num_layers, batch, heads // 2, blocks, blocks)
+    with scope, torch.no_grad():
+        with pytest.raises(ValueError) as err:
+            call(wrong)
+    assert f"the active layout's part is {want}" in str(err.value)
 
 
 def test_a_model_axis_the_query_heads_need_is_refused_with_its_reason():
