@@ -546,6 +546,24 @@ Phases, in order; any failure exits non-zero before the result line:
      launches of kernel 1 a forward, all on the split route with one
      pre-pass launch each. Each request's latency on both paths and the
      card's name and power limit printed.
+ 39. continuous-batching decode over the mesh's path at world size 1
+     (`phase_slots_mesh`, run just after phase 37 on its model and
+     state), each path on the plain path and then on a copy of the
+     parameters on `make_host_mesh(1, 1)` (NCCL, world size 1) under
+     `activation_sharding`, bitwise: b. from phase 37's state advanced to
+     8 tokens short of a block boundary, one `decode_chunk` of 16 seeded
+     tokens (every leaf it writes compared), and 16 `decode_step`s on
+     them within phase 19's logit limit; d. learned routing (a seeded
+     random scorer a layer) in 16 `decode_step`s across that boundary;
+     a. a per-slot cache of two slots (max_len 32,768): prompts of 32,000
+     and 30,976 tokens (whole 64-token blocks) admitted with `insert_slot`
+     after batch-1 prefills at steps 0 and 4, 72 greedy steps, logits and
+     every leaf of the cache and of its "sla" state bitwise; kernel 4 one
+     launch a layer a step (a chunk: a layer), kernel 1 28 tensor-core
+     launches a prefill; c. kernel 4's partial mode over layer 0's
+     operands of b's chunk (C = 16, per-token rows and diagonal partials)
+     and of a's last step (each slot's rows at its own position), cut
+     into 4 and 16 spans, as 37b, with the card's name and power limit.
  31. the kernels line (JSON): `sla_fwd` carries the split route's fields
      at the top (the f32 serving route) and the f32-FMA and bf16
      tensor-core routes' beside them, kernels 1-3 the D-64 cases of
@@ -785,6 +803,11 @@ P37_SPANS = (4, 16)
 P38_STEPS, P38_DRIFT = 4, 0.3
 P38_COUNTERS = ("admissions", "denoise_steps", "plan_builds", "plan_replans",
                 "plan_reuses", "last_retention")
+# continuous-batching decode over the mesh (phase 39), on phase 37's model
+# and state: a per-slot cache of two slots whose prompts (whole 64-token
+# blocks) arrive at different steps, decode_chunk and learned routing
+P39_PROMPTS, P39_ADMIT, P39_NEW = (32000, 30976), (0, 4), 72
+P39_C = 16  # decode_chunk's tokens (39b) and learned routing's steps (39d)
 FT_CASE_KEYS = ("shape", "dtype", "route", "bh", "n", "d", "k_sel",
                 "live_tiles", "ms", "plain_ms", "bound_ms", "bound_by",
                 "bound_fraction", "bound_ms_f32_fma", "max_abs_err", "ok",
@@ -793,7 +816,7 @@ FT_CASE_KEYS = ("shape", "dtype", "route", "bh", "n", "d", "k_sel",
 FT_FLEX_KEYS = ("flex_sparse_branch_fwd_ms", "library_fwd_ms",
                 "library_err", "library_error")
 FT_PRESET, FT_BATCH, FT_LR, FT_SEED = "100m", 2, 3e-4, 0
-FT_PRETRAIN_STEPS, FT_FINETUNE_STEPS = 40, 30
+FT_PRETRAIN_STEPS, FT_FINETUNE_STEPS = 20, 15
 FT_MODES = ("sla", "sparse_only", "linear_only", "l_plus_s")
 DEV = torch.device("cuda")
 CARD: list = []  # nvidia-smi's name and power limit (phase 1)
@@ -2720,33 +2743,31 @@ def phase_lm_main(cfg, params):
         decode_last_retention=st.decode_last_retention))
 
 
-def _step_snapshot(cache, bkv: int):
-    """What one SLA decode step at cache["pos"] writes, copied: the K/V
-    and hblk slices at that position and every smaller leaf of the
-    decode state (the plan included). `_restore` puts it back."""
-    pos = cache["pos"]
+def _span_snapshot(cache, pos: int, tokens: int, bkv: int) -> dict:
+    """What `tokens` decode-SLA tokens from `pos` write, copied: their
+    K/V rows, the h_j blocks they fill and every smaller leaf of the
+    decode state (the plan included); `pos` itself."""
     st = cache["sla"]
-    snap = {"pos": pos, "k": cache["k"][..., pos, :].clone(),
-            "v": cache["v"][..., pos, :].clone(),
-            "hblk": st["hblk"][:, :, :, pos // bkv].clone(), "sla": {}}
-    for name, leaf in st.items():
-        if name == "hblk":
-            continue
-        if torch.is_tensor(leaf):
-            leaf = leaf.clone()
-        elif isinstance(leaf, plan_lib.SLAPlan):
-            leaf = plan_lib.plan_map(torch.clone, leaf)
-        snap["sla"][name] = leaf
+    rows = slice(pos // bkv, (pos + tokens - 1) // bkv + 1)
+    snap = {"pos": cache["pos"],
+            "k": cache["k"][..., pos:pos + tokens, :].clone(),
+            "v": cache["v"][..., pos:pos + tokens, :].clone(),
+            "hblk": st["hblk"][:, :, :, rows].clone(),
+            "sla": {name: _clone_cache(leaf) for name, leaf in st.items()
+                    if name != "hblk"}}
     return snap
 
 
-def _restore(cache, snap, bkv: int):
-    pos = snap["pos"]
-    cache["pos"] = pos
-    cache["k"][..., pos, :] = snap["k"]
-    cache["v"][..., pos, :] = snap["v"]
-    cache["sla"]["hblk"][:, :, :, pos // bkv] = snap["hblk"]
-    cache["sla"].update(snap["sla"])
+def _span_restore(cache, snap: dict, pos: int, tokens: int, bkv: int):
+    """Put `_span_snapshot`'s copy back (copies of it: the snapshot can
+    be restored again)."""
+    cache["pos"] = snap["pos"]
+    cache["k"][..., pos:pos + tokens, :] = snap["k"]
+    cache["v"][..., pos:pos + tokens, :] = snap["v"]
+    st = cache["sla"]
+    st["hblk"][:, :, :, pos // bkv:(pos + tokens - 1) // bkv + 1] = \
+        snap["hblk"]
+    st.update({name: _clone_cache(leaf) for name, leaf in snap["sla"].items()})
 
 
 def _profile_prefill(engine, toks):
@@ -2847,12 +2868,13 @@ def phase_lm_cross_check(cfg, run, profile: bool):
     if bad:
         raise RuntimeError(f"decode kernel disagrees on the path's state: "
                            f"{bad}")
-    snap = _step_snapshot(cache, bkv)
+    at = cache["pos"]
+    snap = _span_snapshot(cache, at, 1, bkv)
     with torch.no_grad():
         l_k, _ = transformer.decode_step(
             params, cfg, token, cache, backend="kernel",
             drift_threshold=engine.drift_threshold)
-        _restore(cache, snap, bkv)
+        _span_restore(cache, snap, at, 1, bkv)
         l_g, _ = transformer.decode_step(
             params, cfg, token, cache, backend="gather",
             drift_threshold=engine.drift_threshold)
@@ -5012,7 +5034,8 @@ def phase_moe_serving(cfg, params, profile: bool):
     if profile:
         from torch.profiler import ProfilerActivity
         from torch.profiler import profile as prof_ctx
-        snap = _step_snapshot(cache, cfg.sla.block_kv)
+        at = cache["pos"]
+        snap = _span_snapshot(cache, at, 1, cfg.sla.block_kv)
         torch.cuda.synchronize()
         t0 = time.time()
         with prof_ctx(activities=[ProfilerActivity.CPU,
@@ -5023,7 +5046,7 @@ def phase_moe_serving(cfg, params, profile: bool):
                                         drift_threshold=engine.
                                         drift_threshold)
             torch.cuda.synchronize()
-        _restore(cache, snap, cfg.sla.block_kv)
+        _span_restore(cache, snap, at, 1, cfg.sla.block_kv)
         del snap
         prof_res = _busy(prof, time.time() - t0)
         k4_us, k4_n = _decode_kernel_time(prof.key_averages())
@@ -7532,9 +7555,10 @@ def _partial_bound(ops, kw):
     """Least time for one span's partial call: bytes over HBM bandwidth
     against operations over the f32 peak. Bytes: each (kv head, block)
     of the span that a live slot of its group selects, once, for its K
-    and V tiles and its h_j and z_j; q, phi(q), the integer operands and
-    the records written. Operations: 4 bkv D + 2 D^2 + 2 D per live
-    (bh, block)."""
+    and V tiles and its h_j and z_j; a chunk's per-token diagonal
+    partials of the tokens whose block is in the span (`hdiag`, `zdiag`);
+    q, phi(q), the integer operands and the records written. Operations:
+    4 bkv D + 2 D^2 + 2 D per live (bh, block)."""
     lut, cnt, posv, q, qp, k = ops[:6]
     bh, c, k_sel = lut.shape
     _, tn, bkv, d = k.shape
@@ -7543,40 +7567,55 @@ def _partial_bound(ops, kw):
     tile = (kvrow * tn + lut.long()).expand(bh, c, k_sel)
     blocks = int(torch.unique(tile[live]).numel())
     slots = int(live.sum())
+    diag = 0
+    if len(ops) > 9 and ops[9] is not None:  # the tokens' diagonal partials
+        tok = posv[::kw["group"], None].long() + torch.arange(c, device=DEV)
+        diag = int(((tok >= 0) & (tok < tn * bkv)).sum()) * (d * d + d) * 4
     nbytes = (blocks * (2 * bkv * d * k.element_size() + (d * d + d) * 4)
-              + 2 * bh * c * d * 4 + (lut.numel() + cnt.numel()
-                                      + posv.numel()) * 4
+              + diag + 2 * bh * c * d * 4 + (lut.numel() + cnt.numel()
+                                             + posv.numel()) * 4
               + bh * c * (2 * d + 3) * 4)
     flops = slots * (4 * bkv * d + 2 * d * d + 2 * d)
     return nbytes, flops
 
 
 def _partial_cases(cfg, cache, pos: int) -> list:
-    """Phase 37b: kernel 4's partial mode on the card over layer 0's live
-    state of the mesh run's cache, with a seeded query (B, H, D) at its
-    last position, cut into P37_SPANS spans as a rank of layouts B and C
-    holds them (`cases.span_operands`: its LUT slots re-based, its
-    position shifted, its own copy of its blocks): every span's records
-    against the twin's at the kernel's width (5e-5 x max(1, max |twin|),
-    field by field), two launches bitwise equal, and the spans' records
-    combined (`sla_decode.sla_decode_combine`) against unsplit kernel 4 on
-    the whole state (5e-5 x max(1, max |o|)). CUDA-graph times of every
-    span's launch (one after another on this one card) and of unsplit
-    kernel 4, CUDA-event times of the twin and the combine, the bytes
-    bound; the launches here are checks, not the main path's."""
+    """Phase 37b: `_span_cases` over layer 0's live state of the mesh
+    run's cache, with a seeded query (B, H, D) at its last position."""
     st = cache["sla"]
     state = {"k": cache["k"][0], "v": cache["v"][0], "hblk": st["hblk"][0],
              "zblk": st["zblk"][0], "htot": st["htot"][0],
              "ztot": st["ztot"][0], "lut": st["live_lut"][0],
              "cnt": st["live_cnt"][0], "marg": st["live_marg"][0]}
     b, hkv, n, d = state["k"].shape
-    bkv = cfg.sla.block_kv
-    tn = n // bkv
     g = cfg.num_heads // hkv
     gen = torch.Generator(device=DEV).manual_seed(37)
     q = torch.randn((b, hkv, g, 1, d), generator=gen, device=DEV)
     grouped = sla_decode.decode_operands(state, q, phi(q, cfg.sla.phi), pos)
-    flat = sla_decode._flat_args(*grouped, bkv)
+    flat = sla_decode._flat_args(*grouped, cfg.sla.block_kv)
+    return _span_cases(cfg, flat, "37b partial", f"{LM_ARCH} layer 0 live "
+                       f"state B {b}, H {cfg.num_heads}, Hkv {hkv}, D {d}, "
+                       f"Tn {n // cfg.sla.block_kv}, K {flat[0].shape[-1]}, "
+                       f"pos {pos}")
+
+
+def _span_cases(cfg, flat, tag: str, shape: str) -> list:
+    """Kernel 4's partial mode on the card over kernel 4's flat operands
+    `flat` (`sla_decode`'s: one token or a chunk of C, each row at its
+    own position), cut into each of P37_SPANS spans as a rank of layouts B
+    and C holds them (`cases.span_operands`): every span's records
+    against the twin's at the kernel's width (5e-5 x max(1, max |twin|),
+    field by field), two launches bitwise equal, and the spans' records
+    combined (`sla_decode.sla_decode_combine`) against unsplit kernel 4
+    on the whole (5e-5 x max(1, max |o|)). CUDA-graph times of every
+    span's launch (one after another on this one card) and of unsplit
+    kernel 4, CUDA-event times of the twin and the combine, the bytes
+    bound; the launches here are checks, not a main path's. Returns a
+    row a span count."""
+    bkv = cfg.sla.block_kv
+    tn = flat[6].shape[1]
+    g = flat[4].shape[0] // flat[6].shape[0]
+    d = flat[4].shape[-1]
     kw = dict(scale=d ** -0.5, block_kv=bkv, group=g)
     snap = (sla_decode.LAUNCHES, sla_decode.PARTIAL_LAUNCHES,
             _head_dim_snapshot())
@@ -7615,9 +7654,8 @@ def _partial_cases(cfg, cache, pos: int) -> list:
         ok = (max(errs) <= TWIN_TOL and neutral and bitwise
               and max(comb) <= TWIN_TOL)
         rows.append(dict(
-            spans=spans, blocks_a_span=nb, shape=f"{LM_ARCH} layer 0 live "
-            f"state B {b}, H {cfg.num_heads}, Hkv {hkv}, D {d}, Tn {tn}, K "
-            f"{flat[0].shape[-1]}, pos {pos}", max_abs_err=max(errs),
+            spans=spans, blocks_a_span=nb, shape=shape, c=flat[0].shape[1],
+            positions=sorted(set(flat[3].tolist())), max_abs_err=max(errs),
             combine_err=max(comb), neutral_ok=neutral, bitwise_repeat=bitwise,
             rows_with_live_slots=live, ms=ms, ms_a_span=ms / spans,
             plain_ms=plain_ms, combine_ms=combine_ms, whole_ms=whole_ms,
@@ -7625,14 +7663,15 @@ def _partial_cases(cfg, cache, pos: int) -> list:
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             bound_bytes=nbytes, bound_flops=flops,
             bound_fraction=bound_ms / ms, library_ms=None, ok=ok))
-        say(f"[37b partial] {rows[-1]['shape']} in {spans} spans of {nb} "
+        say(f"[{tag}] {shape} in {spans} spans of {nb} "
             f"blocks: records vs twin max err {max(errs):.3g} (limit "
             f"{TWIN_TOL:g}, relative), neutral rows {neutral}, bitwise on "
             f"repeat {bitwise} | combined vs unsplit kernel 4 {max(comb):.3g} "
             f"| every span's launch {ms:.4f} ms ({ms / spans:.4f} a span), "
             f"twin {plain_ms:.3f} ms, combine {combine_ms:.3f} ms, unsplit "
             f"kernel 4 {whole_ms:.4f} ms | bound {bound_ms:.4f} ms by "
-            f"{rows[-1]['bound_by']} ({nbytes / 1e6:.2f} MB) on {CARD[0]} "
+            f"{rows[-1]['bound_by']} ({nbytes / 1e6:.2f} MB, "
+            f"{bound_ms / ms:.3f} of it reached) on {CARD[0]} "
             f"{'OK' if ok else 'FAIL'}")
         del ops, records
     sla_decode.LAUNCHES, sla_decode.PARTIAL_LAUNCHES = snap[:2]
@@ -7667,7 +7706,9 @@ def phase_serve_mesh_sla() -> dict:
     layer at a time; kernel 1 one launch a layer a prefill on tensor
     cores and kernel 4 one a layer a step on both paths, its partial mode
     none (a one-rank mesh is layout A). b. `_partial_cases` over the mesh
-    run's layer 0. Returns the summary and the partial mode's rows."""
+    run's layer 0. Returns the summary, the partial mode's rows and (cfg,
+    the plain parameters, the mesh run's cache) for phase 39 (the mesh
+    run places a copy of the parameters)."""
     import torch.distributed as dist
     from repro_torch.distributed import sharding
     from repro_torch.launch import mesh as mesh_lib
@@ -7694,14 +7735,15 @@ def phase_serve_mesh_sla() -> dict:
         os.path.join(store, "store"), 1), rank=0, world_size=1)
     try:
         mesh = mesh_lib.make_host_mesh(1, 1, "cuda")
-        sharding.place_module(params, mesh)
+        placed = copy.deepcopy(params)
+        sharding.place_module(placed, mesh)
         residual = actx.default_residual_spec(mesh, P37_BATCH, P37_MAX_LEN)
         with actx.activation_sharding(mesh, residual, remat=False):
-            sharded = _sla_serve_run(cfg, params, toks, "lm_serve_sla_mesh")
+            sharded = _sla_serve_run(cfg, placed, toks, "lm_serve_sla_mesh")
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
-    del params
+    del placed
     runs = {"plain": plain, "mesh 1x1": sharded}
     same = {"logits": torch.equal(sharded["logits"], plain["logits"]),
             "tokens": torch.equal(sharded["tokens"], plain["tokens"])}
@@ -7757,8 +7799,412 @@ def phase_serve_mesh_sla() -> dict:
     return dict(bitwise=same, launches=launches["mesh 1x1"],
                 plain_launches=launches["plain"], walls=walls,
                 counters=counters, state_gb=state_gb,
-                wall_s=time.time() - t_all), partial
+                wall_s=time.time() - t_all), partial, (
+                    cfg, params, sharded["cache"])
 
+
+def _snap_differ(a: dict, b: dict) -> list:
+    """The leaves of two `_span_snapshot`s that are not bitwise equal."""
+    def flat(s):
+        out = {"pos": s["pos"], "k": s["k"], "v": s["v"], "hblk": s["hblk"]}
+        for name, leaf in s["sla"].items():
+            if isinstance(leaf, plan_lib.SLAPlan):
+                out.update({f"plan.{n}": getattr(leaf, n)
+                            for n in plan_lib.PLAN_LEAVES})
+            else:
+                out[name] = leaf
+        return out
+
+    fa, fb = flat(a), flat(b)
+    return sorted(k for k in fa if not (
+        torch.equal(fa[k], fb[k]) if torch.is_tensor(fa[k])
+        else fa[k] == fb[k]))
+
+
+def _p39_run(cfg, params, cache, toks, chunk: bool, path: str,
+             capture=None) -> dict:
+    """toks (B, C) on the decode-SLA `cache`: one `decode_chunk` (`chunk`)
+    or C `decode_step`s, on the kernel backend in bf16 under the caller's
+    scope, kernel 4's counters zeroed just before and read just after.
+    `capture` (a dict) keeps a copy of layer 0's operands of kernel 4 in
+    the chunk (`backends.decode_execute_chunk`), the clock stopped while
+    it copies."""
+    calls, paused = [0], [0.0]
+    execute_chunk = backend_lib.decode_execute_chunk
+
+    def hook(state, proj, q, pos, dcfg, **kw):
+        if calls[0] == 0:
+            torch.cuda.synchronize()
+            t = time.time()
+            capture.update(state={k: v.clone() for k, v in state.items()},
+                           q=q.clone(), pos=pos)
+            torch.cuda.synchronize()
+            paused[0] += time.time() - t
+        calls[0] += 1
+        return execute_chunk(state, proj, q, pos, dcfg, **kw)
+
+    if capture is not None:
+        backend_lib.decode_execute_chunk = hook
+    try:
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            sla_decode.LAUNCHES = sla_decode.PAGED_LAUNCHES = 0
+            sla_decode.PARTIAL_LAUNCHES = 0
+            _zero_head_dims()
+            t0 = time.time()
+            if chunk:
+                logits, cache = transformer.decode_chunk(
+                    params, cfg, toks, cache, torch.bfloat16,
+                    backend="kernel")
+            else:
+                out = []
+                for c in range(toks.shape[1]):
+                    lg, cache = transformer.decode_step(
+                        params, cfg, toks[:, c].contiguous(), cache,
+                        torch.bfloat16, backend="kernel")
+                    out.append(lg)
+                logits = torch.stack(out, dim=1)
+            torch.cuda.synchronize()
+            wall = time.time() - t0 - paused[0]
+            _read_head_dims(path)
+    finally:
+        backend_lib.decode_execute_chunk = execute_chunk
+    return dict(logits=logits, wall_s=wall, launches=dict(
+        sla_decode=sla_decode.LAUNCHES,
+        sla_decode_paged=sla_decode.PAGED_LAUNCHES,
+        sla_decode_partial=sla_decode.PARTIAL_LAUNCHES))
+
+
+def _p39_scope(mesh, batch: int):
+    if mesh is None:
+        return contextlib.nullcontext()
+    return actx.activation_sharding(
+        mesh, actx.default_residual_spec(mesh, batch, P37_MAX_LEN),
+        remat=False)
+
+
+def _slots_run(cfg, params, prompts, path: str, mesh=None,
+               capture=None) -> dict:
+    """Phase 39a's run: a per-slot decode-SLA cache of len(prompts) slots
+    (`make_cache(per_slot=True)`, K/V bf16), slot j admitting prompts[j]
+    at step P39_ADMIT[j] (`prefill(decode_max_len=)` at batch 1, kernel
+    backend, then `insert_slot`), P39_NEW greedy `decode_step`s (an idle
+    slot decodes token 0), bf16, on the plain path (`mesh` None) or under
+    the mesh's scopes (batch 1 for a prefill, the batch's for the rest),
+    the counters zeroed just before and read just after. `capture` keeps
+    a copy of layer 0's operands of kernel 4 at the last step, the clock
+    stopped while it copies."""
+    b = len(prompts)
+    execute = backend_lib.decode_execute
+    calls, paused = [0], [0.0]
+
+    def hook(state, proj, q, pos, dcfg, **kw):
+        if calls[0] == (P39_NEW - 1) * cfg.num_layers:
+            torch.cuda.synchronize()
+            t = time.time()
+            capture.update(state={k: v.clone() for k, v in state.items()},
+                           q=q.clone(), pos=pos.clone())
+            torch.cuda.synchronize()
+            paused[0] += time.time() - t
+        calls[0] += 1
+        return execute(state, proj, q, pos, dcfg, **kw)
+
+    with torch.no_grad():
+        with _p39_scope(mesh, b):
+            cache = transformer.make_cache(cfg, b, P37_MAX_LEN,
+                                           dtype=torch.bfloat16,
+                                           decode_sla=True, per_slot=True,
+                                           device=DEV)
+        torch.cuda.synchronize()
+        _zero_kernel_counts()
+        sla_decode.LAUNCHES = sla_decode.PAGED_LAUNCHES = 0
+        sla_decode.PARTIAL_LAUNCHES = 0
+        tok = torch.zeros((b,), dtype=torch.int32, device=DEV)
+        logits, walls, per_step, admit_s = [], [], [], []
+        if capture is not None:
+            backend_lib.decode_execute = hook
+        try:
+            for i in range(P39_NEW):
+                for slot, at in enumerate(P39_ADMIT):
+                    if at != i:
+                        continue
+                    t0 = time.time()
+                    with _p39_scope(mesh, 1):
+                        hidden, single = transformer.prefill(
+                            params, cfg, prompts[slot], torch.bfloat16,
+                            "kernel", decode_max_len=P37_MAX_LEN)
+                        first = logits_from_hidden(params, hidden).argmax(-1)
+                    with _p39_scope(mesh, b):
+                        transformer.insert_slot(cache, single, slot, cfg)
+                    del hidden, single
+                    tok[slot] = first[0].to(torch.int32)
+                    torch.cuda.synchronize()
+                    admit_s.append(time.time() - t0)
+                before = sla_decode.LAUNCHES
+                t0 = time.time()
+                with _p39_scope(mesh, b):
+                    lg, cache = transformer.decode_step(
+                        params, cfg, tok, cache, torch.bfloat16,
+                        backend="kernel")
+                torch.cuda.synchronize()
+                walls.append(time.time() - t0 - paused[0])
+                paused[0] = 0.0
+                per_step.append(sla_decode.LAUNCHES - before)
+                logits.append(lg)
+                active = torch.tensor([at <= i for at in P39_ADMIT],
+                                      device=DEV)
+                tok = torch.where(active, lg.argmax(-1).to(torch.int32),
+                                  torch.zeros_like(tok))
+        finally:
+            backend_lib.decode_execute = execute
+        launches = _kernel_counts([], path)
+        launches.update(sla_decode=sla_decode.LAUNCHES,
+                        sla_decode_paged=sla_decode.PAGED_LAUNCHES,
+                        sla_decode_partial=sla_decode.PARTIAL_LAUNCHES,
+                        per_step=sorted(set(per_step)))
+    return dict(logits=torch.stack(logits), cache=cache, walls=walls,
+                admit_s=admit_s, launches=launches)
+
+
+def _captured_flat(cfg, cap: dict):
+    """Kernel 4's flat operands (`sla_decode`'s) of a captured call."""
+    state, q, pos = cap["state"], cap["q"], cap["pos"]
+    hkv = state["k"].shape[1]
+    qg = backend_lib._group_heads(q.float(), hkv)
+    qpg = backend_lib._group_heads(phi(q, cfg.sla.phi), hkv)
+    return sla_decode._flat_args(
+        *sla_decode.decode_operands(state, qg, qpg, pos), cfg.sla.block_kv)
+
+
+def phase_slots_mesh(p37: dict) -> tuple:
+    """Phase 39: continuous-batching decode over the mesh's path at world
+    size 1 on this card, on phase 37's model (full-width Qwen3-1.7B, bf16)
+    and state (P37_BATCH x P37_PROMPT tokens and P37_NEW steps, max_len
+    P37_MAX_LEN), each path run plain and then under
+    `activation_sharding` over `make_host_mesh(1, 1)` (NCCL through a
+    FileStore under build/, destroyed after) on a placed copy of the
+    parameters, the two bitwise equal:
+
+    b. from phase 37's state advanced to P39_C // 2 tokens short of a
+       block boundary, one `decode_chunk` of P39_C seeded tokens (kernel 4
+       once a layer), every leaf it writes compared; then P39_C
+       `decode_step`s on the same tokens, within phase 19's logit limit;
+    d. learned routing (`routing_mode="learned"`, a seeded random scorer
+       a layer) in P39_C `decode_step`s across that boundary;
+    c. kernel 4's partial mode (`_span_cases`) over layer 0's operands of
+       (ii) b's chunk (C = P39_C, per-token rows and diagonal partials)
+       and (i) a's last step (each slot's rows at its own position);
+    a. a per-slot cache of two slots (`_slots_run`): prompts of
+       P39_PROMPTS tokens admitted with `insert_slot` at steps P39_ADMIT,
+       P39_NEW greedy steps, each slot crossing its own block boundaries;
+       logits, tokens and every leaf of the cache and of its "sla" state
+       bitwise (the plain run's to the host, compared a layer at a time).
+    Kernel 4 launches one a layer a step (a chunk: one a layer), its
+    partial mode none (a one-rank mesh is layout A); kernel 1 one a layer
+    a prefill on tensor cores. `p37` is phase 37's {"cfg", "params",
+    "cache"}; its cache is taken from it and freed before a. Returns
+    (summary, partial-mode rows)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    t_all = time.time()
+    cfg, params, cache = p37["cfg"], p37["params"], p37.pop("cache")
+    nl, bkv = cfg.num_layers, cfg.sla.block_kv
+    gen = torch.Generator(device=DEV).manual_seed(39)
+    h, dh = cfg.num_heads, cfg.head_dim
+    for layer in params.layers:  # the scorer 39d reads (threshold: unread)
+        layer.routing = torch.nn.ParameterDict({
+            name: torch.nn.Parameter((torch.randn(
+                (h, dh, dh), generator=gen, device=DEV) * dh ** -0.5).to(
+                    torch.bfloat16)) for name in ("wq", "wk")})
+    learned = dataclasses.replace(cfg, sla=cfg.sla.replace(
+        routing_mode="learned"))
+    b = cache["k"].shape[1]
+    # b and d: P39_C tokens crossing a block boundary at their middle
+    pos = int(cache["pos"])
+    walk = (-(pos + P39_C // 2)) % bkv
+    with torch.no_grad():
+        for _ in range(walk):
+            tok = torch.randint(0, cfg.vocab_size, (b,), generator=gen,
+                                device=DEV, dtype=torch.int32)
+            _, cache = transformer.decode_step(params, cfg, tok, cache,
+                                               torch.bfloat16,
+                                               backend="kernel")
+    pos = int(cache["pos"])
+    toks = torch.randint(0, cfg.vocab_size, (b, P39_C), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    start = _span_snapshot(cache, pos, P39_C, bkv)
+    chunk_cap = {}
+    runs, after = {}, {}
+
+    def run(name, model, cfg_, chunk, path, mesh=None, capture=None):
+        _span_restore(cache, start, pos, P39_C, bkv)
+        with _p39_scope(mesh, b):
+            runs[name] = _p39_run(cfg_, model, cache, toks, chunk, path,
+                                  capture)
+        after[name] = _span_snapshot(cache, pos, P39_C, bkv)
+
+    run("chunk plain", params, cfg, True, "lm_slots_p39", capture=chunk_cap)
+    run("steps plain", params, cfg, False, "lm_slots_p39")
+    run("learned plain", params, learned, False, "lm_slots_p39")
+    prompts = [torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                             device=DEV, dtype=torch.int32)
+               for n in P39_PROMPTS]
+    store = tempfile.mkdtemp(dir=ROOT / "build")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(store, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_host_mesh(1, 1, "cuda")
+        placed = copy.deepcopy(params)
+        sharding.place_module(placed, mesh)
+        run("chunk mesh 1x1", placed, cfg, True, "lm_slots_mesh", mesh)
+        run("learned mesh 1x1", placed, learned, False, "lm_slots_mesh",
+            mesh)
+        same = {"chunk logits": torch.equal(
+                    runs["chunk plain"]["logits"],
+                    runs["chunk mesh 1x1"]["logits"]),
+                "chunk state": not _snap_differ(after["chunk plain"],
+                                                after["chunk mesh 1x1"]),
+                "learned logits": torch.equal(
+                    runs["learned plain"]["logits"],
+                    runs["learned mesh 1x1"]["logits"]),
+                "learned state": not _snap_differ(
+                    after["learned plain"], after["learned mesh 1x1"])}
+        lc, ls = runs["chunk plain"]["logits"], runs["steps plain"]["logits"]
+        diff = float((lc - ls).abs().max())
+        limit = LM_LOGIT_TOL * max(1.0, float(ls.abs().max()))
+        learned_differs = bool((runs["learned plain"]["logits"] != ls).any())
+        finite = all(bool(torch.isfinite(r["logits"]).all())
+                     for r in runs.values())
+        for r in runs.values():
+            del r["logits"]
+        del cache, start, after, lc, ls
+        gc.collect()
+        torch.cuda.empty_cache()
+        # a: the plain run's state to the host, then the mesh run
+        slot_cap = {}
+        plain = _slots_run(cfg, params, prompts, "lm_slots_p39",
+                           capture=slot_cap)
+        t0 = time.time()
+        held = {path: (leaf.cpu() if torch.is_tensor(leaf) else leaf)
+                for path, leaf in sharding.tree_leaves(plain["cache"])}
+        to_host_s = time.time() - t0
+        plain["cache"] = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        sharded = _slots_run(cfg, placed, prompts, "lm_slots_mesh", mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    del placed
+    for layer in params.layers:
+        del layer.routing
+    leaves = dict(sharding.tree_leaves(sharded["cache"]))
+    bad = [path for path in sorted(held)
+           if path == "pos_host" and not np.array_equal(leaves[path],
+                                                        held[path])
+           or path != "pos_host" and not _leaf_bitwise(leaves.get(path),
+                                                      held[path])]
+    same.update({
+        "slots logits": torch.equal(plain["logits"], sharded["logits"]),
+        "slots leaves": sorted(leaves) == sorted(held) and not bad})
+    del held, leaves
+    counters = {key: sharded["cache"]["sla"][key].tolist()
+                for key in ("extends", "replans", "reuses")}
+    slot_pos = sharded["cache"]["pos"].tolist()
+    sharded["cache"] = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    finite = finite and all(bool(torch.isfinite(r["logits"]).all())
+                            for r in (plain, sharded))
+    want_runs = {name: dict(sla_decode=nl * (1 if "chunk" in name
+                                             else P39_C),
+                            sla_decode_paged=0, sla_decode_partial=0)
+                 for name in runs}
+    want_slots = dict(sla_fwd=nl * len(P39_PROMPTS),
+                      tc_sla_fwd=nl * len(P39_PROMPTS),
+                      sla_decode=nl * P39_NEW, sla_decode_paged=0,
+                      sla_decode_partial=0, per_step=[nl])
+    slots = {"plain": plain, "mesh 1x1": sharded}
+    launches = {name: r["launches"] for name, r in runs.items()}
+    launches.update({f"slots {name}": {k: r["launches"][k]
+                                       for k in want_slots}
+                     for name, r in slots.items()})
+    launch_ok = (all(launches[k] == want_runs[k] for k in want_runs)
+                 and all(launches[f"slots {k}"] == want_slots
+                         for k in slots))
+    walls = {name: r["wall_s"] for name, r in runs.items()}
+    for name, r in slots.items():
+        w = sorted(r["walls"])
+        walls[f"slots {name}"] = dict(
+            admit_s=r["admit_s"], decode_ms_min=1e3 * w[0],
+            decode_ms_median=1e3 * w[len(w) // 2], decode_ms_max=1e3 * w[-1])
+        say(f"[39a slots] {name}: per-slot cache of {len(P39_PROMPTS)} "
+            f"slots (max_len {P37_MAX_LEN}), prompts {P39_PROMPTS} admitted "
+            f"at steps {P39_ADMIT} in {[round(x, 3) for x in r['admit_s']]}"
+            f" s (prefill and insert_slot) | {P39_NEW} steps "
+            f"{walls[f'slots {name}']['decode_ms_min']:.1f}-"
+            f"{walls[f'slots {name}']['decode_ms_max']:.1f} ms (median "
+            f"{walls[f'slots {name}']['decode_ms_median']:.1f}) | launches "
+            f"{launches[f'slots {name}']} on {CARD[0]}")
+    say(f"[39b decode_chunk] C={P39_C} from pos {pos} (a block boundary at "
+        f"{pos + P39_C // 2}) on phase 37's state: chunk plain "
+        f"{walls['chunk plain'] * 1e3:.1f} ms, mesh 1x1 "
+        f"{walls['chunk mesh 1x1'] * 1e3:.1f} ms, {P39_C} steps "
+        f"{walls['steps plain'] * 1e3:.1f} ms | chunk vs steps logits max "
+        f"abs diff {diff:.4g} (limit {limit:.4g}) | launches "
+        f"{ {k: v['sla_decode'] for k, v in launches.items()} }")
+    say(f"[39d learned routing] {P39_C} steps across the boundary at "
+        f"{pos + P39_C // 2}: plain {walls['learned plain'] * 1e3:.1f} ms, "
+        f"mesh 1x1 {walls['learned mesh 1x1'] * 1e3:.1f} ms | logits differ "
+        f"from threshold routing's: {learned_differs}")
+    kernel1 = {name: r["launches"]["tc_sla_fwd"] for name, r in slots.items()}
+    del runs, slots, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    flat_rows = _captured_flat(cfg, slot_cap)
+    flat_chunk = _captured_flat(cfg, chunk_cap)
+    del slot_cap, chunk_cap
+    hkv = cfg.num_kv_heads
+    rows = _span_cases(cfg, flat_rows, "39c partial slots", f"{LM_ARCH} "
+                       f"layer 0 per-slot rows B {b}, H {h}, Hkv {hkv}, D "
+                       f"{dh}, Tn {P37_MAX_LEN // bkv}, K "
+                       f"{flat_rows[0].shape[-1]}, slot positions "
+                       f"{sorted(set(flat_rows[3].tolist()))}")
+    rows += _span_cases(cfg, flat_chunk, "39c partial chunk", f"{LM_ARCH} "
+                        f"layer 0 decode_chunk rows B {b}, H {h}, Hkv "
+                        f"{hkv}, D {dh}, Tn {P37_MAX_LEN // bkv}, K "
+                        f"{flat_chunk[0].shape[-1]}, C {P39_C} from pos "
+                        f"{pos}")
+    del flat_rows, flat_chunk, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = (all(same.values()) and finite and diff <= limit and launch_ok
+          and learned_differs and all(r["ok"] for r in rows)
+          and slot_pos == [P39_PROMPTS[j] + P39_NEW - P39_ADMIT[j]
+                           for j in range(len(P39_PROMPTS))])
+    say(f"[39 slots mesh] {LM_ARCH} full width over make_host_mesh(1, 1): "
+        f"bitwise {same} (slot leaves that differ: {bad}), finite {finite},"
+        f" slot positions {slot_pos}, counters {counters} | the plain "
+        f"per-slot state to the host in {to_host_s:.1f}s | partial mode "
+        f"{sum(r['ok'] for r in rows)}/{len(rows)} OK | "
+        f"{time.time() - t_all:.1f}s {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(
+            f"continuous-batching decode over the mesh: bitwise {same} "
+            f"({bad}), finite {finite}, chunk vs steps {diff} (limit "
+            f"{limit}), launches {launches}, learned differs "
+            f"{learned_differs}, positions {slot_pos}, partial "
+            f"{[r for r in rows if not r['ok']]}")
+    total = {k: sum(v[k] for name, v in launches.items() if "mesh" in name)
+             for k in ("sla_decode", "sla_decode_partial")}
+    plain_total = {k: sum(v[k] for name, v in launches.items()
+                          if "mesh" not in name)
+                   for k in ("sla_decode", "sla_decode_partial")}
+    return dict(bitwise=same, launches=total, plain_launches=plain_total,
+                launches_by_run=launches, kernel1=kernel1, walls=walls,
+                chunk_vs_steps=dict(diff=diff, limit=limit),
+                counters=counters, wall_s=time.time() - t_all), rows
 
 def _dit_sample_run(cfg, params, noise, cond, path: str) -> dict:
     """Phase 38a under the caller's scope: `dit.sample` of P38_STEPS steps
@@ -8059,8 +8505,15 @@ def main(argv=None) -> int:
     sf = phase_serve_mesh_families()
     sfc = {k: sum(r["launches"][k] for r in sf.values()) for k in smc}
     ex, ex_fwd_rows, ex_bwd_rows = phase_examples()
-    sls, partial_rows = phase_serve_mesh_sla()
+    sls, partial_rows, (cfg37, params37, cache37) = phase_serve_mesh_sla()
+    p37 = {"cfg": cfg37, "params": params37, "cache": cache37}
+    del cfg37, params37, cache37  # phase 39 frees the cache in p37
+    slm, slot_rows = phase_slots_mesh(p37)
+    del p37
+    gc.collect()
+    torch.cuda.empty_cache()
     slsc, slpc = sls["launches"], sls["plain_launches"]
+    smsc, smpc = slm["launches"], slm["plain_launches"]
     dsc, dspc = dsm["launches"], dsm["plain_launches"]
     rsc, rspc = sm["reuse"]["launches"], sm["reuse"]["plain_launches"]
     qsc = ex["quickstart"]["launches"]
@@ -8151,6 +8604,8 @@ def main(argv=None) -> int:
                 "family_serve_mesh": sfc["tc_sla_fwd"],
                 "lm_serve_sla": slpc["tc_sla_fwd"],
                 "lm_serve_sla_mesh": slsc["tc_sla_fwd"],
+                "lm_slots_p39": slm["kernel1"]["plain"],
+                "lm_slots_mesh": slm["kernel1"]["mesh 1x1"],
                 "quickstart": qsc["tc_sla_fwd"],
                 "dit_finetune_sla": ftc["tc_sla_fwd"],
                 "lm_prefill_reuse": rspc["tc_sla_fwd"],
@@ -8194,6 +8649,7 @@ def main(argv=None) -> int:
                      + g3tc["sla_fwd"] + mtc["sla_fwd"]
                      + fmc["sla_fwd"] + smc["sla_fwd"]
                      + sfc["sla_fwd"] + slpc["sla_fwd"] + slsc["sla_fwd"]
+                     + sum(slm["kernel1"].values())
                      + qsc["sla_fwd"] + ftc["sla_fwd"] + rspc["sla_fwd"]
                      + rsc["sla_fwd"] + dspc["sla_fwd"] + dsc["sla_fwd"]),
         "launches_by_path": {"serve": main_run["launches"],
@@ -8221,6 +8677,8 @@ def main(argv=None) -> int:
                              "family_serve_mesh": sfc["sla_fwd"],
                              "lm_serve_sla": slpc["sla_fwd"],
                              "lm_serve_sla_mesh": slsc["sla_fwd"],
+                             "lm_slots_p39": slm["kernel1"]["plain"],
+                             "lm_slots_mesh": slm["kernel1"]["mesh 1x1"],
                              "quickstart": qsc["sla_fwd"],
                              "dit_finetune_sla": ftc["sla_fwd"],
                              "lm_prefill_reuse": rspc["sla_fwd"],
@@ -8395,7 +8853,8 @@ def main(argv=None) -> int:
                      + dgc["sla_decode"] + moec["sla_decode"]
                      + g3c["sla_decode"] + g3pc["sla_decode"]
                      + dnc["sla_decode"] + slpc["sla_decode"]
-                     + slsc["sla_decode"]),
+                     + slsc["sla_decode"] + smpc["sla_decode"]
+                     + smsc["sla_decode"]),
         "launches_by_path": {"lm_decode": lm["launches"]["sla_decode"],
                              "lm_paged_decode": pgc["sla_decode"],
                              "lm_unpaged_decode": puc["sla_decode"],
@@ -8406,7 +8865,10 @@ def main(argv=None) -> int:
                              "gemma3_paged_decode": g3pc["sla_decode"],
                              "danube_decode": dnc["sla_decode"],
                              "lm_serve_sla": slpc["sla_decode"],
-                             "lm_serve_sla_mesh": slsc["sla_decode"]},
+                             "lm_serve_sla_mesh": slsc["sla_decode"],
+                             "lm_slots_p39": smpc["sla_decode"],
+                             "lm_slots_mesh": smsc["sla_decode"]},
+        "launches_p39": slm["launches_by_run"],
         **ran_at("sla_decode"),
         "arch_head_dims": arch_head_dims(LM_ARCH, MOE_ARCH, G3_ARCH),
         "d256": {k: d256_dec[0][k] for k in (
@@ -8430,16 +8892,19 @@ def main(argv=None) -> int:
                      "its totals' block, the combine kernel's kPartial "
                      "mode)",
             "launches": slsc["sla_decode_partial"]
-            + slpc["sla_decode_partial"],
+            + slpc["sla_decode_partial"] + smsc["sla_decode_partial"]
+            + smpc["sla_decode_partial"],
             "launches_note": "a one-card mesh is layout A, where kernel 4 "
                              "runs unsplit on the rank's heads; the partial "
                              "mode runs where a mesh of more than one rank "
                              "splits the sequence (held on the CPU over "
-                             "gloo) and in phase 37b's checks",
+                             "gloo) and in phases 37b's and 39c's checks",
             **{key: partial_rows[0][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "bound_fraction", "combine_err", "library_ms")},
-            "cases": partial_rows},
+            "cases": partial_rows,
+            "slot_rows_cases": [r for r in slot_rows if r["c"] == 1],
+            "chunk_cases": [r for r in slot_rows if r["c"] > 1]},
     })
     head5 = next(r for r in pg_rows if r["shape"] ==
                  "qwen3-1.7b paged decode B=4" and r["dtype"] == "bf16")
@@ -8488,7 +8953,8 @@ def main(argv=None) -> int:
         f"gemma3 serve {g3} | danube serve {dn} | vlm train {vl} | gemma3 "
         f"train {g3t} | lm train mesh {mt} | family train mesh {fm} | "
         f"lm serve mesh {sm} | family serve mesh {sf} | examples {ex} | "
-        f"lm serve sla mesh {sls} | dit serve mesh {dsm} | total "
+        f"lm serve sla mesh {sls} | slots mesh {slm} | dit serve mesh "
+        f"{dsm} | total "
         f"{time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

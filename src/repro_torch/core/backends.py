@@ -403,22 +403,26 @@ def decode_execute(state: Dict[str, torch.Tensor], params: Optional[Params],
 
 
 def decode_partial_execute(state: Dict[str, torch.Tensor], q: torch.Tensor,
-                           pos: int, cfg: SLAConfig,
+                           pos, cfg: SLAConfig,
                            scale: Optional[float] = None,
                            backend: str = "gather") -> torch.Tensor:
-    """Kernel 4's partial records of one decode token over one rank's span
-    of a cache whose sequence is split over several ranks
+    """Kernel 4's partial records of decode tokens over one rank's span of
+    a cache whose sequence is split over several ranks
     (`distributed/serving.py`), for `sla_decode.sla_decode_combine`.
 
-    q: (B, H, D) the token's queries, H a multiple of the span's KV heads;
-    `state` holds the span's k, v (B, Hkv, S_span, D), hblk (B, Hkv,
-    Tn_span, D, D), zblk (B, Hkv, Tn_span, D), and the live row's blocks
-    in the span, lut (B, H, K) int32 in the span's own block ids
-    (`sla_decode.span_lut`) with cnt (B, H); `pos` is the token's position
-    less the span's first position. Backend "kernel" launches
-    `sla_decode_partial` (its plain twin on CPU tensors), "gather" runs the
-    twin's math; "reference" has no partial form and is refused. Returns
-    (B, H, 2 D + 3) f32 records (m, l, acc[D], hsel[D], zsel)."""
+    q: (B, H, D) one token's queries, or (B, H, C, D) a chunk's, H a
+    multiple of the span's KV heads; `state` holds the span's k, v (B,
+    Hkv, S_span, D), hblk (B, Hkv, Tn_span, D, D), zblk (B, Hkv, Tn_span,
+    D), and each token's blocks in the span, lut (B, H, K) or (B, H, C, K)
+    int32 in the span's own block ids (`sla_decode.span_lut`) with cnt
+    (B, H) or (B, H, C); a chunk's state may hold its tokens' diagonal
+    partials hdiag (B, Hkv, C, D, D) and zdiag (B, Hkv, C, D). `pos` is
+    the (first) token's position less the span's first position, a
+    python int or a (B,) tensor (each slot's own). Backend "kernel"
+    launches `sla_decode_partial` (its plain twin on CPU tensors),
+    "gather" runs the twin's math; "reference" has no partial form and is
+    refused. Returns (B, H, 2 D + 3) f32 records (m, l, acc[D], hsel[D],
+    zsel), (B, H, C, 2 D + 3) for a chunk."""
     from repro_torch.kernels import sla_decode
 
     backend = resolve_decode(backend)
@@ -426,27 +430,40 @@ def decode_partial_execute(state: Dict[str, torch.Tensor], q: torch.Tensor,
         raise ValueError("the 'reference' decode backend has no partial "
                          "form over a split cache: use 'kernel' or "
                          "'gather'")
-    b, h, d = q.shape
+    chunk = q.ndim == 4
+    qc = q if chunk else q[:, :, None]
+    b, h, cdim, d = qc.shape
     hkv = state["k"].shape[1]
     bkv = cfg.block_kv
     tn = state["k"].shape[2] // bkv
     k_sel = state["lut"].shape[-1]
     bh = b * h
     scale = (d**-0.5) if scale is None else scale
+    if torch.is_tensor(pos):  # each slot's rows at its own position
+        posv = pos.to(device=q.device, dtype=torch.int32) \
+            .repeat_interleave(h)
+    else:
+        posv = torch.full((bh,), int(pos), dtype=torch.int32,
+                          device=q.device)
+    hdiag, zdiag = state.get("hdiag"), state.get("zdiag")
     run = (sla_decode.sla_decode_partial if backend == "kernel"
            else sla_decode.sla_decode_partial_plain)
-    rec = run(state["lut"].reshape(bh, 1, k_sel).int().contiguous(),
-              state["cnt"].reshape(bh, 1).int().contiguous(),
-              torch.full((bh,), int(pos), dtype=torch.int32,
-                         device=q.device),
-              q.float().reshape(bh, 1, d).contiguous(),
-              phi(q, cfg.phi).float().reshape(bh, 1, d).contiguous(),
+    rec = run(state["lut"].reshape(bh, cdim, k_sel).int().contiguous(),
+              state["cnt"].reshape(bh, cdim).int().contiguous(),
+              posv.contiguous(),
+              qc.float().reshape(bh, cdim, d).contiguous(),
+              phi(qc, cfg.phi).float().reshape(bh, cdim, d).contiguous(),
               state["k"].reshape(b * hkv, tn, bkv, d),
               state["v"].reshape(b * hkv, tn, bkv, d),
               state["hblk"].reshape(b * hkv, tn, d, d),
               state["zblk"].reshape(b * hkv, tn, d),
+              None if hdiag is None
+              else hdiag.reshape(b * hkv, cdim, d, d).contiguous(),
+              None if zdiag is None
+              else zdiag.reshape(b * hkv, cdim, d).contiguous(),
               scale=float(scale), block_kv=bkv, group=h // hkv)
-    return rec.reshape(b, h, 2 * d + 3)
+    rec = rec.reshape(b, h, cdim, 2 * d + 3)
+    return rec if chunk else rec[:, :, 0]
 
 
 def decode_execute_chunk(state: Dict[str, torch.Tensor],

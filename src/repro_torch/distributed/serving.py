@@ -22,23 +22,27 @@ three layouts, and this module reads which one from the rules
 
 `decode_partial`, `decode_combine` and `write_token` are plain functions
 of local tensors, so one process can also call them over slices of a
-whole cache (the CPU tests and `chip_smoke.py` do). The partial holds,
-for each query head, the row max over the span's visible columns, the sum
-of exponentials against it and the unnormalised output; the combine
-rescales each to the global max and sums in rank order, so every rank
-gets the same bits. Decode is inference only: the collectives here carry
-no gradient.
+whole cache (the CPU tests and `chip_smoke.py` do). They take one token
+or a verify-style chunk of C (token c at pos + c: a chunk may cross from
+one span into the next), at one position or at each slot's own (a (B,)
+`pos`, continuous batching). The partial holds, for each query head, the
+row max over the span's visible columns, the sum of exponentials against
+it and the unnormalised output; the combine rescales each to the global
+max and sums in rank order, so every rank gets the same bits. Decode is
+inference only: the collectives here carry no gradient.
 
 Decode-time SLA over the mesh keeps each leaf of its state where
 `cache_shardings` puts it (`SLAParts`): the per-block h_j, z_j and
 pooled k beside their blocks' K/V, the totals and the plan by their own
 rules. `reshard` moves a small tensor between two such placements (an
 all-gather of the dims one splits, a slice of the dims the other does),
-`read_row` reads one row of a leaf split by rows on every rank. Over a
-split sequence each rank attends its span's share of the live row's
-blocks through kernel 4's partial records, and the spans' records,
-gathered here (`gather_spans`), are merged in span order by
-`kernels.sla_decode.sla_decode_combine`.
+`read_row` reads one row of a leaf split by rows on every rank (one row,
+or one a batch slot), `put_row` writes a batch-1 leaf into a global row
+of a leaf at another placement (slot admission). Over a split sequence
+each rank attends its span's share of the live row's blocks through
+kernel 4's partial records (per-slot rows and chunks too), and the
+spans' records, gathered here (`gather_spans`), are merged in span order
+by `kernels.sla_decode.sla_decode_combine`.
 """
 from __future__ import annotations
 
@@ -170,17 +174,21 @@ def is_sharded(kl: Optional[KVLayout]) -> bool:
 # --------------------------------------------------------------------------
 def write_token(c: torch.Tensor, new: torch.Tensor, pos, start: int,
                 length: int) -> None:
-    """Write one new token's K or V into this rank's span, in place: c
+    """Write new tokens' K or V into this rank's span, in place: c
     (B, Hn, S_loc, D) holds global positions [start, start + S_loc) of a
-    `length`-position cache, new (B, Hn, 1, D). A python-int `pos` is
-    written by the rank whose span holds it (a host branch, the same on
-    every rank); a (B,) tensor of per-slot positions is a masked scatter
-    on every rank, each slot written by its owner, a runaway slot clamped
-    to the last position first (as the one-device `_cache_write`)."""
+    `length`-position cache, new (B, Hn, C, D) the C tokens at pos ..
+    pos + C - 1 (a chunk may cross from one rank's span into the next:
+    each rank writes the tokens its span holds). A python-int `pos` is a
+    host branch, the same on every rank; a (B,) tensor of per-slot
+    positions (C = 1) is a masked scatter on every rank, each slot written
+    by its owner, a runaway slot clamped to the last position first (as
+    the one-device `_cache_write`)."""
     n = c.shape[2]
     if not torch.is_tensor(pos):
-        if start <= pos < start + n:
-            c[:, :, pos - start] = new[:, :, 0].to(c.dtype)
+        lo, hi = max(pos, start), min(pos + new.shape[2], start + n)
+        if lo < hi:
+            c[:, :, lo - start:hi - start] = new[:, :, lo - pos:hi - pos] \
+                .to(c.dtype)
         return
     local = pos.long().clamp(0, length - 1) - start
     own = (local >= 0) & (local < n)
@@ -192,30 +200,38 @@ def write_token(c: torch.Tensor, new: torch.Tensor, pos, start: int,
 
 def decode_partial(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
                    pos, start: int, window: int = 0) -> torch.Tensor:
-    """Partial softmax attention of one decode token over a span of the
-    cache. q (B, H, D), H a multiple of kc's heads (the GQA group folds
-    into the query as in the one-device `_dense_decode_attn`); kc, vc
-    (B, Hkv, S_loc, D) hold global positions [start, start + S_loc); pos
-    a python int or a (B,) tensor; `window` > 0 also masks the columns at
-    or before pos - window (a sliding-window layer), on global columns.
-    Returns (B, H, D + 2) f32: the unnormalised output sum_j e_j v_j, the
-    row max m over the visible columns (NEG_INF where none is visible)
-    and l = sum_j e_j, with e_j = exp(s_j - m)."""
-    b, h, d = q.shape
+    """Partial softmax attention of decode tokens over a span of the
+    cache. q (B, H, D) one token's queries or (B, H, C, D) a chunk's, H a
+    multiple of kc's heads (the GQA group folds into the query as in the
+    one-device `_dense_decode_attn`); kc, vc (B, Hkv, S_loc, D) hold
+    global positions [start, start + S_loc); pos a python int or a (B,)
+    tensor, token c's causal limit pos + c; `window` > 0 also masks the
+    columns at or before pos + c - window (a sliding-window layer), on
+    global columns. Returns (B, H, D + 2) f32, (B, H, C, D + 2) for a
+    chunk: the unnormalised output sum_j e_j v_j, the row max m over the
+    visible columns (NEG_INF where none is visible) and l = sum_j e_j,
+    with e_j = exp(s_j - m)."""
+    chunk = q.ndim == 4
+    qc = q if chunk else q[:, :, None]
+    b, h, cdim, d = qc.shape
     hkv, n = kc.shape[1], kc.shape[2]
-    qg = q.reshape(b, hkv, h // hkv, d)
-    s = torch.einsum("bkgd,bksd->bkgs", qg.float(), kc.float()) * (d**-0.5)
-    posb = pos if not torch.is_tensor(pos) else pos[:, None, None, None]
+    qg = qc.reshape(b, hkv, h // hkv, cdim, d)
+    s = torch.einsum("bkgcd,bksd->bkgcs", qg.float(), kc.float()) \
+        * (d**-0.5)
+    limit = torch.arange(cdim, device=q.device)[:, None]  # (C, 1)
+    limit = (limit + pos if not torch.is_tensor(pos)
+             else limit + pos[:, None, None, None, None])
     idx = start + torch.arange(n, device=q.device)
-    ok = idx <= posb
+    ok = idx <= limit
     if window:
-        ok = ok & (idx > posb - window)
+        ok = ok & (idx > limit - window)
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
-    o = torch.einsum("bkgs,bksd->bkgd", e, vc.float())
+    o = torch.einsum("bkgcs,bksd->bkgcd", e, vc.float())
     out = torch.cat([o, m, e.sum(dim=-1, keepdim=True)], dim=-1)
-    return out.reshape(b, h, d + 2)
+    out = out.reshape(b, h, cdim, d + 2)
+    return out if chunk else out[:, :, 0]
 
 
 def decode_combine(parts: torch.Tensor) -> torch.Tensor:
@@ -275,10 +291,12 @@ def gather_spans(x: torch.Tensor, lay: KVLayout) -> torch.Tensor:
 def sharded_decode_attn(q: torch.Tensor, kc: torch.Tensor,
                         vc: torch.Tensor, pos, lay: KVLayout, length: int,
                         window: int = 0) -> torch.Tensor:
-    """Decode attention of this rank's query heads q (B, H_loc, D) over
-    its part of the cache kc, vc (B, Hkv_c, S_loc, D) of a `length`-
-    position cache under `lay`, whose sequence is split over at least one
-    axis. Returns (B, H_loc, D) f32 for this rank's heads.
+    """Decode attention of this rank's query heads q (B, H_loc, D), or a
+    chunk's (B, H_loc, C, D) with token c at pos + c, over its part of
+    the cache kc, vc (B, Hkv_c, S_loc, D) of a `length`-position cache
+    under `lay`, whose sequence is split over at least one axis. Returns
+    (B, H_loc, D) f32 for this rank's heads ((B, H_loc, C, D) for a
+    chunk).
 
     Where the KV heads are whole on every rank (the rules then split the
     sequence over "model": layouts B and C over ("data", "model")), q is
@@ -319,16 +337,18 @@ def _axes_index(axes, mesh) -> Tuple[int, int]:
 
 def reshard(x: torch.Tensor, have, want, mesh) -> torch.Tensor:
     """x, laid out by `have` (one spec entry a dim of x: the axes that dim
-    is split over, or None), as laid out by `want`: a dim `have` splits is
-    all-gathered over its axes (rank order, the first axis major), then a
-    dim `want` splits is cut to this rank's part. The identity where the
-    two agree."""
-    for dim in range(x.ndim):
-        h, w = _spec_axes(have[dim]), _spec_axes(want[dim])
-        if h == w:
-            continue
-        for axis in reversed(h):
+    is split over, or None), as laid out by `want`: every dim `have`
+    splits is all-gathered over its axes (rank order, the first axis
+    major), then every dim `want` splits is cut to this rank's part (all
+    the gathers first: a dim cut over an axis another dim is gathered over
+    would gather other ranks' cuts). The identity where the two agree."""
+    moved = [dim for dim in range(x.ndim)
+             if _spec_axes(have[dim]) != _spec_axes(want[dim])]
+    for dim in moved:
+        for axis in reversed(_spec_axes(have[dim])):
             x = torch.cat(list(_gather(x, axis, mesh)), dim=dim)
+    for dim in moved:
+        w = _spec_axes(want[dim])
         if w:
             parts, index = _axes_index(w, mesh)
             n = x.shape[dim] // parts
@@ -336,13 +356,23 @@ def reshard(x: torch.Tensor, have, want, mesh) -> torch.Tensor:
     return x
 
 
-def read_row(x: torch.Tensor, dim: int, row: int, have, mesh
-             ) -> torch.Tensor:
+def read_row(x: torch.Tensor, dim: int, row, have, mesh) -> torch.Tensor:
     """Global index `row` of dim `dim` of x, whose dim is split over the
     axes `have` (a spec entry): the owner's entry, gathered to every rank
-    of those axes. x.select(dim, row) where the dim is whole."""
+    of those axes. `row` a python int, or a (B,) tensor of one index a
+    batch row (dim 0 of x, dim > 0): each row's own entry, (B, ...)
+    without `dim`; x.select(dim, row) (or each row's select) where the
+    dim is whole."""
     axes = _spec_axes(have)
     n = x.shape[dim]
+    if torch.is_tensor(row):
+        b = torch.arange(x.shape[0], device=x.device)
+        xt, row = x.movedim(dim, 1), row.long()
+        if not axes:
+            return xt[b, row]
+        _, index = _axes_index(axes, mesh)
+        mine = xt[b, (row - index * n).clamp(0, n - 1)]
+        return gather_axes(mine, axes, mesh)[row // n, b]
     if not axes:
         return x.select(dim, row)
     _, index = _axes_index(axes, mesh)
@@ -350,11 +380,24 @@ def read_row(x: torch.Tensor, dim: int, row: int, have, mesh
     return gather_axes(mine, axes, mesh)[row // n]
 
 
-def _per_layer(spec, ndim: int) -> tuple:
-    """A leaf's spec, one entry a dim (None where whole), without its
-    leading layer dim."""
+def put_row(live: torch.Tensor, one: torch.Tensor, row: int, have, want,
+            mesh) -> None:
+    """Write `one` (1, ...), laid out by `have` (one spec entry a dim, its
+    first dim whole), into global index `row` of dim 0 of `live`, laid out
+    by `want`, in place: `one` is moved to `want`'s placement of the other
+    dims (`reshard`), and the ranks whose part of dim 0 holds `row`
+    write it."""
+    one = reshard(one, have, (None,) + tuple(want[1:]), mesh)
+    _, index = _axes_index(_spec_axes(want[0]), mesh)
+    n = live.shape[0]
+    if index * n <= row < (index + 1) * n:
+        live[row - index * n] = one[0].to(live.dtype)
+
+
+def _full_spec(spec, ndim: int) -> tuple:
+    """A leaf's spec, one entry a dim (None where whole)."""
     spec = tuple(spec) + (None,) * (ndim - len(tuple(spec)))
-    return tuple(None if e is None or e == () else e for e in spec)[1:]
+    return tuple(None if e is None or e == () else e for e in spec)
 
 
 class SLAParts:
@@ -379,15 +422,16 @@ class SLAParts:
         self.shapes = {n: tuple(s) for n, s in shapes.items()}
         if kl is None:
             self.local = dict(self.shapes)
-            self.spec = {n: (None,) * (len(s) - 1)
-                         for n, s in self.shapes.items()}
+            self.full = {n: (None,) * len(s) for n, s in self.shapes.items()}
+            self.spec = {n: f[1:] for n, f in self.full.items()}
             self.batch = self.heads = self.kv_heads = None
             return
         metas = {n: torch.empty(s, device="meta") for n, s in shapes.items()}
         rules = sharding.cache_shardings(self.mesh, metas, global_batch)
         self.local = {n: rules[n].shard_shape(s) for n, s in shapes.items()}
-        self.spec = {n: _per_layer(rules[n].spec, len(s))
+        self.full = {n: _full_spec(rules[n].spec, len(s))
                      for n, s in shapes.items()}
+        self.spec = {n: f[1:] for n, f in self.full.items()}
         self.batch = "data" if kl.dp > 1 else None
         self.heads = "model"
         self.kv_heads = kl.spec[2]
@@ -408,3 +452,16 @@ class SLAParts:
     def from_leaf(self, name: str, x: torch.Tensor, want) -> torch.Tensor:
         """One layer's local leaf x laid out by `want`."""
         return reshard(x, self.spec[name], want, self.mesh)
+
+    def slot_rows(self, name: str, leaf: torch.Tensor) -> torch.Tensor:
+        """A per-slot counter leaf (L, B), whose layers the rule may split
+        over the data axes, as every layer at the batch rows this rank
+        decodes (`batch`): the leaf itself without a mesh."""
+        return reshard(leaf, self.full[name], (None, self.batch), self.mesh)
+
+    def put_slot_rows(self, name: str, leaf: torch.Tensor,
+                      rows: torch.Tensor) -> None:
+        """Write `slot_rows`' (L, B_rows) back into the leaf, in place."""
+        if rows is not leaf:
+            leaf.copy_(reshard(rows, (None, self.batch), self.full[name],
+                               self.mesh))

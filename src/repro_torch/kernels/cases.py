@@ -2,7 +2,9 @@
 `tests/test_torch_gpu.py`: the paged decode kernel's cases (held against
 its plain twin and the monolithic decode kernel), the decode kernel's
 partial mode over the spans of a split cache (`span_operands`,
-`span_combine`, `record_error`), and the tensor-core route's precision
+`span_combine`, `record_error`) on the rows continuous batching and
+verify-style decode give it (`slot_decode_operands`), and the
+tensor-core route's precision
 criterion (forward and backward), each written once.
 """
 from __future__ import annotations
@@ -129,31 +131,102 @@ def paged_dense_operands(args):
             view(zblk), None, None, htot, ztot)
 
 
+def slot_decode_operands(seed: int, device, kv_dtype, pos, *, hkv: int,
+                         g: int, c: int, d: int, bkv: int, tn: int,
+                         k_sel: int):
+    """Kernel 4's flat operands (`sla_decode`'s, lut .. ztot) for the
+    decode rows continuous batching and verify-style decode give it: slot
+    b's rows at its own position pos[b] (a different one each slot), C
+    tokens from there (token c at pos[b] + c, crossing block boundaries
+    as they come), each token's LUT its own diagonal block first and other
+    distinct earlier blocks after it, cnt in [1, K], every third marg 0;
+    the h_j, z_j of blocks no token has reached zero; at C > 1 per-token
+    totals and diagonal partials that grow token by token, at C = 1 one
+    running total per kv head and no partials. Returns (args, kw)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    b = len(pos)
+    bh, bh_kv = b * hkv * g, b * hkv
+
+    def rnd(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    posv = torch.tensor(pos, dtype=torch.int32, device=device) \
+        .repeat_interleave(hkv * g)
+    row = (posv[:, None].long() + torch.arange(c, device=device)) // bkv
+    k = torch.randn((bh_kv, tn, bkv, d), generator=gen, device=device)
+    v = torch.randn((bh_kv, tn, bkv, d), generator=gen, device=device)
+    hblk, zblk = rnd(bh_kv, tn, d, d) * 0.2, rnd(bh_kv, tn, d) + 0.1
+    top = row.reshape(b, -1).amax(dim=1).repeat_interleave(hkv)
+    reached = torch.arange(tn, device=device) <= top[:, None]
+    hblk = hblk * reached[..., None, None]
+    zblk = zblk * reached[..., None]
+    # other blocks: the blocks before the diagonal in a random order
+    blocks = torch.arange(tn, device=device)
+    before = blocks < row[..., None]
+    others = torch.argsort(torch.where(before, rnd(bh, c, tn), -1.0),
+                           dim=-1, descending=True)[..., :k_sel - 1]
+    others = torch.where(torch.gather(before, -1, others), others,
+                         row[..., None])
+    lut = torch.cat([row[..., None], others], dim=-1)
+    cnt = torch.minimum(torch.randint(1, k_sel + 1, (bh, c), generator=gen,
+                                      device=device), row + 1)
+    dead = torch.arange(k_sel, device=device) >= cnt[..., None]
+    lut = torch.where(dead, row[..., None], lut).int().contiguous()
+    cnt = cnt.int().contiguous()
+    marg = torch.randint(0, 4, (bh, c), generator=gen, device=device).int()
+    marg.view(-1)[::3] = 0
+    grow, growz = rnd(bh_kv, c, d, d) * 0.05, rnd(bh_kv, c, d) * 0.05
+    htot = (hblk.sum(1)[:, None] + grow.cumsum(1)).contiguous()
+    ztot = (zblk.sum(1)[:, None] + growz.cumsum(1)).contiguous()
+    if c == 1:
+        hdiag = zdiag = None
+        htot, ztot = htot[:, 0], ztot[:, 0]
+    else:
+        kv_row = row[::g]  # (BH_kv, C): each kv row's tokens' blocks
+        at = torch.arange(bh_kv, device=device)[:, None]
+        hdiag = (hblk[at, kv_row] * 0.5 + grow.cumsum(1)).contiguous()
+        zdiag = (zblk[at, kv_row] * 0.5 + growz.cumsum(1)).contiguous()
+    q = torch.randn((bh, c, d), generator=gen, device=device)
+    qp = torch.softmax(torch.randn((bh, c, d), generator=gen,
+                                   device=device), dim=-1)
+    args = (lut, cnt, marg, posv.contiguous(), q, qp, k.to(kv_dtype),
+            v.to(kv_dtype), hblk.contiguous(), zblk.contiguous(), hdiag,
+            zdiag, htot, ztot)
+    return args, dict(scale=d ** -0.5, block_kv=bkv, group=g)
+
+
 def span_operands(args, first: int, blocks: int):
     """`sla_decode_partial`'s operands for the span of `blocks` KV blocks
-    from block `first`, from `sla_decode`'s live-row operands `args`
-    (lut, cnt, marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag, htot,
-    ztot; C = 1): the LUT's slots in the span re-based to its ids
-    (`sla_decode.span_lut`), the positions shifted by its first, and the
-    span's own copy of its K/V, h_j and z_j blocks (a rank's leaves)."""
+    from block `first`, from `sla_decode`'s operands `args` (lut, cnt,
+    marg, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag, htot, ztot): the
+    LUT's slots in the span re-based to its ids (`sla_decode.span_lut`),
+    the positions shifted by its first, the span's own copy of its K/V,
+    h_j and z_j blocks (a rank's leaves), and the tokens' diagonal
+    partials (None at C = 1)."""
     from repro_torch.kernels import sla_decode
-    lut, cnt, _, posv, q, qp, k, v, hblk, zblk = args[:10]
+    lut, cnt, _, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag = args[:12]
     span_lut, span_cnt = sla_decode.span_lut(lut, cnt, first, blocks)
     cut = slice(first, first + blocks)
     return (span_lut, span_cnt, (posv - first * k.shape[2]).int(), q, qp,
             k[:, cut].contiguous(), v[:, cut].contiguous(),
-            hblk[:, cut].contiguous(), zblk[:, cut].contiguous())
+            hblk[:, cut].contiguous(), zblk[:, cut].contiguous(), hdiag,
+            zdiag)
 
 
 def span_combine(records, args, group: int):
-    """`sla_decode.sla_decode_combine` of the spans' records (spans, BH, 1,
-    2 D + 3) with phi(q) Htot and phi(q) Ztot from `args`' running totals
-    (one part: Htot whole) and its marg. Returns (o_s, o_l)."""
+    """`sla_decode.sla_decode_combine` of the spans' records (spans, BH, C,
+    2 D + 3) with phi(q) Htot and phi(q) Ztot from `args`' totals (one
+    running total per kv head, or one per token; one part: Htot whole)
+    and its marg. Returns (o_s, o_l)."""
     from repro_torch.kernels import sla_decode
     marg, qp, htot, ztot = args[2], args[5], args[12], args[13]
     kv = torch.arange(qp.shape[0], device=qp.device) // group
-    qht = torch.einsum("bcd,bde->bce", qp, htot[kv])[None]
-    qzt = (qp * ztot[kv][:, None]).sum(dim=-1)
+    ht, zt = htot[kv], ztot[kv]
+    if ht.ndim == 3:  # one running total: every token's
+        ht, zt = ht[:, None], zt[:, None]
+    qht = torch.einsum("bcd,bcde->bce", qp, ht.expand(
+        -1, qp.shape[1], -1, -1))[None]
+    qzt = (qp * zt).sum(dim=-1)
     return sla_decode.sla_decode_combine(records, qht, qzt, marg)
 
 

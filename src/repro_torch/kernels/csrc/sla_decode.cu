@@ -98,8 +98,9 @@
 // split and sum in the same order: bitwise equal.
 //
 // Partial mode (`sla_decode_partial_launch`: a rank's span of a cache
-// whose sequence is split over several ranks). A rank holds some of the
-// live row's blocks and none of the global totals, so it cannot divide.
+// whose sequence is split over several ranks; one token or a chunk of C,
+// each row at its own position). A rank holds some of the live row's
+// blocks and none of the global totals, so it cannot divide.
 // The split grid runs without its totals' block, and the combine kernel
 // (its kPartial instantiation) merges the split records in split order
 // as above but writes the merged record itself, (m, l, acc[D], hsel[D],
@@ -381,7 +382,9 @@ __global__ void __launch_bounds__(kThreads)
     const int s0 = split * width;
     const int s1 = s0 + width < n ? s0 + width : n;
     const int pos = posv[bh] + c;
-    const int diag = pos / block_kv;
+    // a token before a span's first column (partial mode) has no
+    // diagonal block in it
+    const int diag = pos >= 0 ? pos / block_kv : -1;
     const int32_t* lut_row = lut + tok * k_sel;
     const int32_t* pt_row = kPaged ? pt + (size_t)(bh / heads) * tn
                                    : nullptr;
@@ -821,29 +824,35 @@ extern "C" int sla_decode_paged_launch(
                     z_page_stride, 0, width, nsplit, stream);
 }
 
-// The partial mode (a rank's span of a sharded decode cache; live row,
-// no diagonal partials): the operands of sla_decode_launch without the
-// totals, the outputs replaced by `rec`, (bh_q, c_len, 2 d + 3) f32 rows
-// (m, l, acc[d], hsel[d], zsel): the row max over the walked columns
-// (-1e30 where the row walks none), the sum of exponentials against it,
-// the unnormalised sparse output, hsel = phi(q) sum H_j and zsel = phi(q)
-// sum Z_j over the walked blocks. The LUT holds this rank's blocks in its
-// own block ids; posv is shifted by the span's first position, so the
-// causal mask sees global columns. The same workspace, width, limits and
-// return value as sla_decode_launch.
+// The partial mode (a rank's span of a sharded decode cache): the operands
+// of sla_decode_launch without the totals and marg, the outputs replaced
+// by `rec`, (bh_q, c_len, 2 d + 3) f32 rows (m, l, acc[d], hsel[d],
+// zsel): the row max over the walked columns (-1e30 where the row walks
+// none), the sum of exponentials against it, the unnormalised sparse
+// output, hsel = phi(q) sum H_j and zsel = phi(q) sum Z_j over the walked
+// blocks. The LUT holds this rank's blocks in its own block ids, a row
+// per (bh, c); posv (one a row, so each slot's rows carry its own
+// position) is shifted by the span's first position, so the causal mask
+// sees global columns: token c sits at posv + c, below 0 where it comes
+// before the span. hdiag and zdiag (per-token diagonal partials, rows
+// (bh / group) * c_len + c, as sla_decode_launch's) or both null: a chunk
+// whose tokens fill the diagonal block in this span reads its at-time
+// partial there. The same workspace, width, limits and return value as
+// sla_decode_launch.
 extern "C" int sla_decode_partial_launch(
     const int32_t* lut, const int32_t* cnt, const int32_t* posv,
     const float* q, const float* qp, const void* k, const void* v,
-    const float* hblk, const float* zblk, float* work, float* rec,
-    int bh_q, int c_len, int k_sel, int tn, int d, int block_kv, int group,
-    float scale, long long kv_head_stride, long long kv_blk_stride,
+    const float* hblk, const float* zblk, const float* hdiag,
+    const float* zdiag, float* work, float* rec, int bh_q, int c_len,
+    int k_sel, int tn, int d, int block_kv, int group, float scale,
+    long long kv_head_stride, long long kv_blk_stride,
     long long h_head_stride, long long h_blk_stride,
     long long z_head_stride, long long z_blk_stride, int width, int nsplit,
     int is_bf16, void* stream) {
   if (rec == nullptr) return (int)cudaErrorInvalidValue;
   const int bh_kv = group > 0 ? bh_q / group : 0;
   return launch_any(is_bf16, lut, cnt, nullptr, posv, q, qp, k, v, hblk,
-                    zblk, nullptr, nullptr, nullptr, nullptr, nullptr, work,
+                    zblk, hdiag, zdiag, nullptr, nullptr, nullptr, work,
                     nullptr, nullptr, rec, bh_q, c_len, k_sel, tn, tn, d,
                     block_kv, group, 1, bh_kv, scale, kv_head_stride,
                     kv_blk_stride, h_head_stride, h_blk_stride,

@@ -39,9 +39,11 @@ Over a cache whose sequence is split across ranks (a (data, model) mesh,
 `distributed/serving.py`) each rank runs `sla_decode_partial` on its own
 span: the same split kernel without the totals' block, and the combine
 kernel's partial mode, which writes the merged record before any divide,
-(m, l, acc[D], hsel[D], zsel) per row. `span_lut` re-bases the live
-row's blocks to a span's ids, and `sla_decode_combine` merges the spans'
-records in span order and finishes both branches on the global sums.
+(m, l, acc[D], hsel[D], zsel) per row; a row at its own position (each
+slot's), and C tokens a row with their diagonal partials (a chunk that
+crosses blocks and spans). `span_lut` re-bases the live row's blocks to
+a span's ids, and `sla_decode_combine` merges the spans' records in span
+order and finishes both branches on the global sums.
 `PARTIAL_LAUNCHES` and `PARTIAL_HEAD_DIMS` count the partial mode's calls
 apart; its twin is `sla_decode_partial_plain`.
 
@@ -80,7 +82,7 @@ _I, _F, _P, _L = ctypes.c_int, ctypes.c_float, ctypes.c_void_p, \
     ctypes.c_longlong
 _ARGTYPES = [_P] * 17 + [_I] * 7 + [_F] + [_L] * 6 + [_I] * 4 + [_P]
 _PAGED_ARGTYPES = [_P] * 16 + [_I] * 8 + [_F] + [_L] * 6 + [_I] * 3 + [_P]
-_PARTIAL_ARGTYPES = [_P] * 11 + [_I] * 7 + [_F] + [_L] * 6 + [_I] * 3 + [_P]
+_PARTIAL_ARGTYPES = [_P] * 13 + [_I] * 7 + [_F] + [_L] * 6 + [_I] * 3 + [_P]
 _MAX_GRID = 65535  # the split grid's C and BH axes
 
 
@@ -407,20 +409,27 @@ def _split_combine(sf, live, vg, hg, zg, qpf, ht, zt, width):
     return o_s, num, den
 
 
-def sla_decode_partial(lut, cnt, posv, q, qp, k, v, hblk, zblk, *,
-                       scale: float, block_kv: int, group: int,
+def sla_decode_partial(lut, cnt, posv, q, qp, k, v, hblk, zblk,
+                       hdiag=None, zdiag=None, *, scale: float,
+                       block_kv: int, group: int,
                        split_width=None) -> torch.Tensor:
     """Kernel 4 on one rank's span of a split cache, before any divide.
 
     Args:
-      lut:    (BH, C, K) int32 the live row's blocks that lie in this
-              span, in the span's own block ids (padded slots repeat the
-              first); cnt (BH, C) int32 how many; posv (BH,) int32 the
-              positions less the span's first position (token c sits at
-              posv + c), so the causal mask sees global columns.
+      lut:    (BH, C, K) int32 each token's blocks that lie in this span,
+              in the span's own block ids (padded slots repeat the
+              first); cnt (BH, C) int32 how many; posv (BH,) int32 each
+              row's position less the span's first position (token c sits
+              at posv + c, below 0 where it comes before the span; the
+              rows of different slots at their own positions), so the
+              causal mask sees global columns.
       q, qp:  (BH, C, D) f32 (qp = phi(q)).
       k, v:   (BH_kv, Tn_span, bkv, D) f32 or bf16; hblk (BH_kv, Tn_span,
               D, D) f32; zblk (BH_kv, Tn_span, D) f32: the span's blocks.
+      hdiag, zdiag: (BH_kv, C, D, D) / (BH_kv, C, D) f32 each token's
+              partial of its diagonal block (a chunk still filling it), read
+              where that block is in the span; or both None (the stored
+              block).
       split_width: as `sla_decode`'s.
 
     Returns (BH, C, 2 D + 3) f32 records (m, l, acc[D], hsel[D], zsel):
@@ -430,7 +439,7 @@ def sla_decode_partial(lut, cnt, posv, q, qp, k, v, hblk, zblk, *,
     `sla_decode_partial_plain`; CUDA tensors launch the kernel (a refused
     operand or a failed launch raises; there is no fallback)."""
     _check_width(split_width, lut.shape[-1], "sla_decode_partial")
-    args = (lut, cnt, posv, q, qp, k, v, hblk, zblk)
+    args = (lut, cnt, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag)
     kw = dict(scale=scale, block_kv=block_kv, group=group,
               split_width=split_width)
     if q.device.type == "cpu":
@@ -441,10 +450,10 @@ def sla_decode_partial(lut, cnt, posv, q, qp, k, v, hblk, zblk, *,
     return _launch_partial(*args, **kw)
 
 
-def _launch_partial(lut, cnt, posv, q, qp, k, v, hblk, zblk, *, scale,
-                    block_kv, group, split_width):
+def _launch_partial(lut, cnt, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag, *,
+                    scale, block_kv, group, split_width):
     global PARTIAL_LAUNCHES
-    _check(lut, cnt, None, posv, q, qp, k, v, hblk, zblk, None, None, None,
+    _check(lut, cnt, None, posv, q, qp, k, v, hblk, zblk, hdiag, zdiag, None,
            None, block_kv, group)
     lib = _lib()
     bh, c, d = q.shape
@@ -457,7 +466,9 @@ def _launch_partial(lut, cnt, posv, q, qp, k, v, hblk, zblk, *, scale,
         err = lib.sla_decode_partial_launch(
             lut.data_ptr(), cnt.data_ptr(), posv.data_ptr(), q.data_ptr(),
             qp.data_ptr(), k.data_ptr(), v.data_ptr(), hblk.data_ptr(),
-            zblk.data_ptr(), work.data_ptr(), rec.data_ptr(), bh, c, k_sel,
+            zblk.data_ptr(), None if hdiag is None else hdiag.data_ptr(),
+            None if zdiag is None else zdiag.data_ptr(), work.data_ptr(),
+            rec.data_ptr(), bh, c, k_sel,
             tn, d, block_kv, group, float(scale), k.stride(0), k.stride(1),
             hblk.stride(0), hblk.stride(1), zblk.stride(0), zblk.stride(1),
             width, nsplit, int(k.dtype == torch.bfloat16), stream)
@@ -470,14 +481,16 @@ def _launch_partial(lut, cnt, posv, q, qp, k, v, hblk, zblk, *, scale,
     return rec
 
 
-def sla_decode_partial_plain(lut, cnt, posv, q, qp, k, v, hblk, zblk, *,
-                             scale: float, block_kv: int, group: int,
+def sla_decode_partial_plain(lut, cnt, posv, q, qp, k, v, hblk, zblk,
+                             hdiag=None, zdiag=None, *, scale: float,
+                             block_kv: int, group: int,
                              split_width=None) -> torch.Tensor:
     """Plain-PyTorch twin of `sla_decode_partial`: the twins' gathers and
-    masks (`sla_decode_plain`), then the split records merged in split
-    order (`_split_records`); `split_width` None walks every slot in one
-    split, the unsplit twin's order (one max, one sum over all K * bkv
-    scores). Same arguments and output as `sla_decode_partial`."""
+    masks (`sla_decode_plain`, the diagonal substitution where hdiag is
+    given), then the split records merged in split order
+    (`_split_records`); `split_width` None walks every slot in one split,
+    the unsplit twin's order (one max, one sum over all K * bkv scores).
+    Same arguments and output as `sla_decode_partial`."""
     bh, c, k_sel = lut.shape
     dev = q.device
     bkv = block_kv
@@ -492,6 +505,13 @@ def sla_decode_partial_plain(lut, cnt, posv, q, qp, k, v, hblk, zblk, *,
                      torch.zeros((), device=dev))
     ok = (cols <= pos_tok[..., None, None]) & live[..., None]
     sf = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    if hdiag is not None:  # no diagonal block for a token before the span
+        kv1 = kvh[:, 0, 0]
+        is_diag = ((j == (pos_tok // bkv)[..., None])
+                   & (pos_tok >= 0)[..., None])
+        hg = torch.where(is_diag[..., None, None], hdiag[kv1][:, :, None],
+                         hg)
+        zg = torch.where(is_diag[..., None], zdiag[kv1][:, :, None], zg)
     hg = torch.where(live[..., None, None], hg, torch.zeros_like(hg))
     zg = torch.where(live[..., None], zg, torch.zeros_like(zg))
     m, l, acc, hsel, zsel = _split_records(
@@ -529,7 +549,8 @@ def sla_decode_combine(records: torch.Tensor, qhtot: torch.Tensor,
     hsel[D], zsel) (`sla_decode_partial`); qhtot (R, ..., D) phi(q) Htot
     over each part of Htot's D_k rows (R = 1 where Htot is whole), in rank
     order; qztot (...) phi(q) Ztot; marg (...) the live row's marginal
-    block count. The records are rescaled to the global max and summed in
+    block count (the leading dims may hold a chunk's tokens, each with
+    its own totals and live row). The records are rescaled to the global max and summed in
     span order, the qhtot parts in rank order, so every rank gets the same
     bits. Returns (o_s, o_l), both (..., D) f32: O^s = acc / l (l = 1
     where l = 0) and O^l = (phi(q) Htot - sum hsel) / (phi(q) Ztot - sum

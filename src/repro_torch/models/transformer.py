@@ -32,13 +32,13 @@ in dense decode, as the reference's. The VLM family prepends patch
 embeddings to the tokens (`forward(prefix_embeds=)`).
 
 Over a ("data", "model") mesh (`distributed.ctx.activation_sharding`)
-`forward`, `prefill`, `make_cache` and `decode_step` serve, dense and
-decode-time SLA: each rank's caches, and its part of the decode-SLA
-state, are its part under `sharding.cache_shardings`, and decode attends
-by that layout (`distributed/serving.py`; over a split sequence through
-kernel 4's partial records and a combine across ranks). Plan reuse,
-chunked admission, `decode_chunk`, paged caches, per-slot positions on a
-decode-SLA cache and learned routing in the decode step refuse a mesh of
+`forward`, `prefill`, `make_cache`, `insert_slot`, `decode_step` and
+`decode_chunk` serve, dense and decode-time SLA, per-slot positions and
+learned routing included: each rank's caches, and its part of the
+decode-SLA state, are its part under `sharding.cache_shardings`, and
+decode attends by that layout (`distributed/serving.py`; over a split
+sequence through kernel 4's partial records and a combine across ranks).
+Chunked admission (`prefill_chunk`) and paged caches refuse a mesh of
 more than one rank.
 """
 from __future__ import annotations
@@ -195,12 +195,14 @@ def compute_params(params: Transformer, dtype=torch.bfloat16):
                  else None))
 
 
-def _routing(p, cfg) -> Optional[dict]:
+def _routing(p, cfg, every: bool = False) -> Optional[dict]:
     """The layer's learned-routing scorer (this rank's heads of it under a
-    mesh), or None under threshold routing."""
+    mesh; every head with `every`, as decode scores every head's row), or
+    None under threshold routing."""
     if cfg.routing_mode != "learned":
         return None
-    return {n: ctx.fsdp_gather(w, "row") for n, w in p.routing.items()}
+    return {n: ctx.fsdp_gather(w, "rep" if every else "row")
+            for n, w in p.routing.items()}
 
 
 # --------------------------------------------------------------------------
@@ -549,14 +551,17 @@ def decode_state_shapes(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def _sla_parts(cfg: ArchConfig, global_batch: int, max_len: int,
-               kl: Optional[serving.KVLayout]) -> serving.SLAParts:
+               kl: Optional[serving.KVLayout], per_slot: bool = False
+               ) -> serving.SLAParts:
     """Where this rank's part of a decode-SLA state sits under the KV
     layout `kl` (`serving.SLAParts`; every leaf whole where kl is None, no
-    mesh). Refuses a sequence split into spans of part KV blocks."""
+    mesh), its counters per slot with `per_slot`. Refuses a sequence split
+    into spans of part KV blocks."""
     if kl is not None:
         kl.check_length(max_len, cfg.sla.block_kv)
     return serving.SLAParts(
-        kl, decode_state_shapes(cfg, global_batch, max_len), global_batch)
+        kl, decode_state_shapes(cfg, global_batch, max_len, per_slot),
+        global_batch)
 
 
 def _seed_decode_state(cfg: ArchConfig, kc, vc, decode_mcs, max_len: int,
@@ -1017,16 +1022,26 @@ def _cache_write(c, new, pos):
     c[b, :, pos.long().clamp(0, c.shape[2] - 1)] = new[:, :, 0].to(c.dtype)
 
 
-def _blk_update(buf, upd, row):
+def _blk_update(buf, upd, row, first: int = 0, grid: Optional[int] = None):
     """Add `upd` (B, Hn, ...) into block `row` of a per-block running
     buffer (B, Hn, Tn, ...), in place; `row` a python int or a (B,)
-    tensor (clamped into the grid, as the reference's dynamic slices)."""
+    tensor (clamped into the grid, as the reference's dynamic slices).
+    Under a mesh buf holds blocks [first, first + Tn_loc) of a `grid`-
+    block grid: a slot's update lands where its block is held (an int
+    `row` the caller has checked is)."""
     if not torch.is_tensor(row):
-        buf[:, :, row] += upd
+        buf[:, :, row - first] += upd
         return
     b = torch.arange(buf.shape[0], device=buf.device)
-    r = row.long().clamp(0, buf.shape[2] - 1)
-    buf[b, :, r] = buf[b, :, r] + upd
+    n = buf.shape[2]
+    r = row.long().clamp(0, (grid or n) - 1) - first
+    if grid is None:
+        buf[b, :, r] = buf[b, :, r] + upd
+        return
+    own = ((r >= 0) & (r < n)).reshape((-1,) + (1,) * (upd.ndim - 1))
+    r = r.clamp(0, n - 1)
+    cur = buf[b, :, r]
+    buf[b, :, r] = torch.where(own, cur + upd, cur)
 
 
 def _page_gather(pool, pt):
@@ -1088,19 +1103,14 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
     where its part holds them, and attends by the layout
     (`distributed/serving.py`): heads over "model" as one device does, a
     split sequence by a partial softmax and a combine across its ranks.
-    Decode-time SLA runs there too for the aligned batch (a scalar `pos`;
-    `_decode_step_sla` on this rank's part of its state); per-slot
-    positions on a decode-SLA cache and learned routing refuse a mesh of
-    more than one rank. It returns the
-    logits of its batch rows over the whole vocabulary (every rank's rows
-    under context parallelism)."""
+    Decode-time SLA runs there too (`_decode_step_sla` on this rank's
+    part of its state), for the aligned batch and for per-slot positions
+    (each slot's boundary work at its own row, its plan rows and live row
+    written where the rank holds them), under threshold or learned
+    routing (the scorer read whole: every head's row is scored). It
+    returns the logits of its batch rows over the whole vocabulary (every
+    rank's rows under context parallelism)."""
     if "sla" in cache:
-        if torch.is_tensor(cache["pos"]) and cache["pos"].ndim > 0:
-            ctx.require_unsharded("per-slot positions on an 'sla' cache")
-        if cfg.sla.routing_mode == "learned":
-            ctx.require_unsharded(
-                "learned routing (routing_mode='learned') in the decode "
-                "step")
         return _decode_step_sla(params, cfg, token, cache, compute_dtype,
                                 backend, drift_threshold)
     paged = "kp" in cache
@@ -1197,8 +1207,8 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
     the decode backends read the pools in place through the page table,
     so the step stays bitwise equal to unpaged decode.
 
-    Under a ("data", "model") mesh (the aligned batch, a scalar `pos`)
-    the same math runs on this rank's part of the state (`parts`, the
+    Under a ("data", "model") mesh the same math runs on this rank's
+    part of the state (`parts`, the
     placement `cache_shardings` gives each leaf; without a mesh every
     leaf is whole and every move between placements is the identity).
     The new token's K/V and its update of the per-block h_j, z_j and
@@ -1209,9 +1219,14 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
     k of every block (gathered over the spans): the same bits on every
     rank that holds the same rows. The drift decision's min over the
     batch is an all-reduce MIN over the data ranks that split it (exact
-    in any order). The plan rows and the live row go to their leaves at
-    their rules. Attention by the layout (`_sla_attn`); a non-SLA layer
-    attends as the dense mesh step does.
+    in any order); a slot's own decision needs none, each rank scoring
+    all of its heads. The plan rows and the live row go to their leaves
+    at their rules, a slot's at its own row (`_plan_extend_part`,
+    `serving.read_row` of a (B,) row); the per-slot counters, whose
+    layers the rules may split over the data ranks, are updated at the
+    rank's batch rows and written back (`SLAParts.slot_rows`). Attention
+    by the layout (`_sla_attn`, each slot's rows at its own position); a
+    non-SLA layer attends as the dense mesh step does.
     """
     backend_lib.resolve_decode(backend)
     paged = "kp" in cache
@@ -1231,12 +1246,16 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
     else:
         tn = cache["k"].shape[3] * (1 if kl is None else kl.seq_parts) // bkv
     length = tn * bkv
-    parts = _sla_parts(cfg, token.shape[0], length, kl)
+    parts = _sla_parts(cfg, token.shape[0], length, kl, per_slot=vec)
     bat, kvh = parts.batch, parts.kv_heads
     start, _ = (0, length) if kl is None else kl.span(length)
     first = start // bkv
+    grid = None if kl is None else tn  # a split grid masks per-slot rows
+    rows_all = st["rows"]
     if kl is not None:
         token = ctx.batch_rows(token)
+        if vec:  # every rank holds the whole (B,) pos and rows
+            pos, rows_all = ctx.batch_rows(pos), ctx.batch_rows(rows_all)
         if cache["k"].shape[1] != token.shape[0]:
             raise ValueError(
                 f"the cache holds {cache['k'].shape[1]} batch rows on this "
@@ -1260,22 +1279,27 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
         if vec:
             posl = pos.long()
             row = posl // bq                  # each slot's live query row
+            # the whole batch's host mirror: every rank takes the branch
             any_boundary = bool((pos_h % bq == 0).any())
             positions = posl[:, None]
-            rowm = row[:, None]               # row arg of the masks helpers
             if any_boundary:
                 boundary = posl % bq == 0
-                append = boundary & (st["rows"].long() < row)
+                append = boundary & (rows_all.long() < row)
                 blk_cnt = torch.clamp(torch.clamp(
                     (posl[:, None] + 1) - blk * bkv, max=bkv), 1, bkv)
                 cnt_div = blk_cnt[:, None, :, None].float()
                 prev = torch.clamp(row - 1, 0, tn - 1)
-                bi = torch.arange(b, device=dev)
                 diag = (blk == row[:, None])[:, None, :]
+                # the per-slot counters, every layer at this rank's rows
+                counters = {key: parts.slot_rows(key, st[key])
+                            for key in COUNTER_KEYS}
+                slots = dict(boundary=boundary, append=append, prev=prev,
+                             diag=diag, counters=counters)
         else:
-            row = rowm = pos // bq            # the current (partial) query row
+            row = pos // bq                   # the current (partial) query row
             any_boundary = pos % bq == 0      # a block was just completed
             append = any_boundary and st["rows"] < row
+            slots = None
             positions = torch.full((b, 1), pos, device=dev)
             if any_boundary:
                 # tokens per KV block after this step's write (pooled-k
@@ -1309,7 +1333,7 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
             qf = q_all.float()                # (B, H, D), every head
             kf = k_new[:, :, 0, :].float()    # (B, Hkv_c, D)
             vf = v_new[:, :, 0, :].float()
-            routing = _routing(p, dcfg)
+            routing = _routing(p, dcfg, every=True)
             lplan = plan_lib.plan_map(lambda leaf: leaf[li], plan)  # views
             ht, zt, qp_sum = st["htot"][li], st["ztot"][li], st["qpool"][li]
 
@@ -1323,9 +1347,9 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
                 zb[wpid] = zb[wpid] + phik
                 kp_sum[wpid] = kp_sum[wpid] + kf
             elif vec or first <= row < first + hb.shape[2]:
-                _blk_update(hb, hupd, row - first)
-                _blk_update(zb, phik, row - first)
-                _blk_update(kp_sum, kf, row - first)
+                _blk_update(hb, hupd, row, first, grid)
+                _blk_update(zb, phik, row, first, grid)
+                _blk_update(kp_sum, kf, row, first, grid)
             ht += parts.to_leaf("htot", hupd, (bat, kvh, None, None))
             zt += parts.to_leaf("ztot", phik, (bat, kvh, None))
 
@@ -1335,72 +1359,13 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
                     (bat, None, None, None))
                 # 2. append the just-completed row
                 if vec or append:
-                    kpm = torch.repeat_interleave(kp_all / bkv, g, dim=1)
-                    pc_prev = masks_lib.score_row(routing, qp_sum / bq, kpm,
-                                                  rowm - 1, dcfg)
-                    mc_prev = masks_lib.classify_row(pc_prev, rowm - 1, dcfg)
-                    if vec:
-                        plan_lib.plan_extend(lplan, mc_prev, row - 1, append)
-                        st["extends"][li] += append.to(torch.int32)
-                    else:
-                        _plan_extend_part(lplan, mc_prev, row - 1, parts)
-                        st["extends"][li] += 1
-
+                    _append_row(st, li, lplan, parts, routing, kp_all, row, g,
+                                dcfg, slots)
                 # 3. the new live row's structure, drift-gated per layer
                 kpm_live = torch.repeat_interleave(kp_all / cnt_div, g,
                                                    dim=1)
-                pc_live = masks_lib.score_row(routing, qf, kpm_live, rowm,
-                                              dcfg)
-                mc_fresh = masks_lib.classify_row(pc_live, rowm, dcfg)
-                if vec:
-                    mc_inh = lplan.mc[bi, :, prev]  # (B, H, Tn), a copy
-                    mc_inh[diag.expand_as(mc_inh)] = 1
-                else:
-                    spec = parts.spec["plan/mc"]
-                    mc_inh = serving.reshard(
-                        serving.read_row(lplan.mc, 2, row - 1, spec[2],
-                                         parts.mesh),
-                        spec[:2] + (None,), (bat, None, None),
-                        parts.mesh).clone()       # (B, H, Tn)
-                    mc_inh[..., row] = 1
-                stale = (pc_live * (mc_inh == 1)).sum(dim=-1)
-                fresh = (pc_live * (mc_fresh == 1)).sum(dim=-1)
-                r = torch.clamp(stale / torch.clamp(fresh, min=plan_lib.EPS),
-                                0.0, 1.0)
-                thr = thresholds[li]
-                # per slot: each slot's own heads gate its row; the aligned
-                # static batch takes one decision for every row
-                retention = (r.min(dim=1).values if vec
-                             else ctx.min_over_ranks(r.min(), heads=False))
-                replan = ((1.0 - retention) >= thr) & (thr < 1.0)
-                rep_m = replan[:, None, None] if vec else replan
-                mc_live = torch.where(rep_m, mc_fresh, mc_inh)
-                lut_n, cnt_n = plan_lib.build_lut(mc_live[..., None, :],
-                                                  lplan.k_sel)
-                marg_n = (mc_live == 0).sum(dim=-1, dtype=torch.int32)
-                if vec:
-                    st["live_lut"][li] = _sel(boundary, lut_n[..., 0, :],
-                                              st["live_lut"][li])
-                    st["live_cnt"][li] = _sel(boundary, cnt_n[..., 0],
-                                              st["live_cnt"][li])
-                    st["live_marg"][li] = _sel(boundary, marg_n,
-                                               st["live_marg"][li])
-                    st["replans"][li] += (boundary & replan).to(torch.int32)
-                    st["reuses"][li] += (boundary & ~replan).to(torch.int32)
-                    st["retention"][li] = torch.where(boundary, retention,
-                                                      st["retention"][li])
-                    qp_sum.copy_(_sel(boundary, qf, qp_sum + qf))
-                else:
-                    st["live_lut"][li] = parts.to_leaf(
-                        "live_lut", lut_n[..., 0, :], (bat, None, None))
-                    st["live_cnt"][li] = parts.to_leaf(
-                        "live_cnt", cnt_n[..., 0], (bat, None))
-                    st["live_marg"][li] = parts.to_leaf(
-                        "live_marg", marg_n, (bat, None))
-                    st["replans"][li] += replan.to(torch.int32)
-                    st["reuses"][li] += (~replan).to(torch.int32)
-                    st["retention"][li] = retention
-                    qp_sum.copy_(qf)
+                _live_row(st, li, lplan, parts, routing, qf, kpm_live, row,
+                          thresholds[li], dcfg, slots)
             else:
                 qp_sum += qf
 
@@ -1424,7 +1389,10 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
             f, _ = _ffn(p, rms_norm(x, ctx.fsdp_gather(p.ln2, "rep")), cfg)
             x = x + f
         if vec and any_boundary:
-            st["rows"] += append.to(st["rows"].dtype)
+            for key in COUNTER_KEYS:
+                parts.put_slot_rows(key, st[key], counters[key])
+            st["rows"] += serving.reshard(append, (bat,), (None,),
+                                          parts.mesh).to(st["rows"].dtype)
         elif not vec and append:
             st["rows"] += 1
         x = rms_norm(x, ctx.fsdp_gather(params.ln_f, "rep"))
@@ -1432,14 +1400,19 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
     return logits_from_hidden(params, x[:, 0]), cache
 
 
-def _plan_extend_part(plan, mc_row: torch.Tensor, row: int,
-                      parts: serving.SLAParts):
+def _plan_extend_part(plan, mc_row: torch.Tensor, row,
+                      parts: serving.SLAParts, append=None):
     """`plan_lib.plan_extend` of row `row` into this rank's part of a
     plan, in place (the whole plan where `parts` has no mesh): mc_row
     (B, H, Tn) is the row for this rank's batch rows and every head and
     column (the same on every rank that holds them). The row-indexed
     leaves are written by the ranks that hold row `row`, each at its own
-    heads; the column LUT and the counts at their rules."""
+    heads; the column LUT and the counts at their rules.
+
+    Per slot (`plan_extend`'s per-slot form): `row` and `append` are (B,)
+    tensors of this rank's batch rows, each slot's row written where
+    append is set (a row past the grid clamped to the last), by the ranks
+    that hold it, each column at that slot's own fill level."""
     rows3 = (parts.batch, None, None)
     mc_row = mc_row.to(plan.mc.dtype)
     lut_r, cnt_r = plan_lib.build_lut(mc_row[..., None, :], plan.k_sel)
@@ -1447,10 +1420,17 @@ def _plan_extend_part(plan, mc_row: torch.Tensor, row: int,
     # critical in (`plan_extend`), at every column's global fill level
     cc = parts.from_leaf("plan/col_counts", plan.col_counts, rows3)
     can = (mc_row == 1) & (cc < plan.w_col)
+    if append is not None:
+        can = can & append[:, None, None]
     slot = torch.arange(plan.w_col, dtype=cc.dtype, device=cc.device)
     write = can[..., None] & (slot == cc[..., None])
-    plan.col_lut.masked_fill_(
-        parts.to_leaf("plan/col_lut", write, rows3 + (None,)), row)
+    write_leaf = parts.to_leaf("plan/col_lut", write, rows3 + (None,))
+    if append is None:
+        plan.col_lut.masked_fill_(write_leaf, row)
+    else:  # each slot's own row: its value at the leaf's placement
+        rows = parts.to_leaf("plan/col_lut", row.to(plan.col_lut.dtype)[
+            :, None, None, None].expand(write.shape), rows3 + (None,))
+        plan.col_lut.copy_(torch.where(write_leaf, rows, plan.col_lut))
     plan.col_counts.add_(parts.to_leaf("plan/col_counts", can.to(cc.dtype),
                                        rows3))
     for name, val in (("mc", mc_row), ("lut", lut_r[..., 0, :]),
@@ -1461,9 +1441,104 @@ def _plan_extend_part(plan, mc_row: torch.Tensor, row: int,
         val = serving.reshard(val, rows3[:val.ndim],
                               spec[:2] + spec[3:], parts.mesh)
         first = parts.start(f"plan/{name}", 2)
-        if first <= row < first + leaf.shape[2]:
-            leaf[:, :, row - first] = val
+        n = leaf.shape[2]
+        if append is None:
+            if first <= row < first + n:
+                leaf[:, :, row - first] = val
+            continue
+        b = torch.arange(leaf.shape[0], device=leaf.device)
+        r = row.long().clamp(0, parts.shapes[f"plan/{name}"][3] - 1) - first
+        on = append & (r >= 0) & (r < n)
+        r = r.clamp(0, n - 1)
+        leaf[b, :, r] = torch.where(
+            on.reshape((-1,) + (1,) * (val.ndim - 1)), val.to(leaf.dtype),
+            leaf[b, :, r])
     return plan
+
+
+def _append_row(st: dict, li: int, plan, parts: serving.SLAParts,
+                routing, kp_all, row, g: int, dcfg, slots=None):
+    """Phase 2 of a decode-SLA token at a block boundary, layer li: the
+    just-completed row row - 1 classified from its pooled q (the layer's
+    qpool) and every block's pooled k (kp_all (B, Hkv, Tn, D), every
+    head and block) and appended to this rank's part of the plan
+    (`_plan_extend_part`). Per slot (`slots`, `_live_row`'s), each slot
+    whose `append` is set, at its own row."""
+    vec = slots is not None
+    rowm = row[:, None] if vec else row  # row arg of the masks helpers
+    kpm = torch.repeat_interleave(kp_all / dcfg.block_kv, g, dim=1)
+    pc_prev = masks_lib.score_row(routing, st["qpool"][li] / dcfg.block_q,
+                                  kpm, rowm - 1, dcfg)
+    mc_prev = masks_lib.classify_row(pc_prev, rowm - 1, dcfg)
+    if vec:
+        _plan_extend_part(plan, mc_prev, row - 1, parts, slots["append"])
+        slots["counters"]["extends"][li] += slots["append"].to(torch.int32)
+    else:
+        _plan_extend_part(plan, mc_prev, row - 1, parts)
+        st["extends"][li] += 1
+
+
+def _live_row(st: dict, li: int, plan, parts: serving.SLAParts, routing,
+              qf, kpm_live, row, thr: float, dcfg, slots=None):
+    """Phase 3 of a decode-SLA token at a block boundary, layer li: the
+    new live row `row` (every head's, scored from the token's q qf (B, H,
+    D) against every block's pooled k kpm_live), drift-gated: inherit the
+    previous row's critical set plus the forced diagonal ("reuse") unless
+    its drift against the fresh classification reaches `thr` ("replan").
+    The decision's min over the aligned batch crosses the data ranks that
+    split it (`ctx.min_over_ranks`). The live row goes to its leaves at
+    their rules, with the counters and the pooled q restarted.
+
+    Per slot (`slots`: the (B,) `boundary`, `append`, `prev` (each slot's
+    previous row), `diag` mask and the per-slot `counters` of
+    `SLAParts.slot_rows`): each slot at a boundary takes its own row and
+    decision, the min over its own heads (all of them scored here on
+    each rank that holds the slot: no rank is crossed); the other slots
+    keep theirs and add to their pooled q."""
+    bat = parts.batch
+    vec = slots is not None
+    rowm = row[:, None] if vec else row
+    pc_live = masks_lib.score_row(routing, qf, kpm_live, rowm, dcfg)
+    mc_fresh = masks_lib.classify_row(pc_live, rowm, dcfg)
+    spec = parts.spec["plan/mc"]
+    mc_inh = serving.reshard(
+        serving.read_row(plan.mc, 2, slots["prev"] if vec else row - 1,
+                         spec[2], parts.mesh),
+        spec[:2] + (None,), (bat, None, None), parts.mesh).clone()
+    if vec:
+        mc_inh[slots["diag"].expand_as(mc_inh)] = 1
+    else:
+        mc_inh[..., row] = 1
+    stale = (pc_live * (mc_inh == 1)).sum(dim=-1)
+    fresh = (pc_live * (mc_fresh == 1)).sum(dim=-1)
+    r = torch.clamp(stale / torch.clamp(fresh, min=plan_lib.EPS), 0.0, 1.0)
+    retention = (r.min(dim=1).values if vec
+                 else ctx.min_over_ranks(r.min(), heads=False))
+    replan = ((1.0 - retention) >= thr) & (thr < 1.0)
+    mc_live = torch.where(replan[:, None, None] if vec else replan,
+                          mc_fresh, mc_inh)
+    lut_n, cnt_n = plan_lib.build_lut(mc_live[..., None, :], plan.k_sel)
+    live = {"live_lut": lut_n[..., 0, :], "live_cnt": cnt_n[..., 0],
+            "live_marg": (mc_live == 0).sum(dim=-1, dtype=torch.int32)}
+    for key, new in live.items():
+        have = (bat,) + (None,) * (new.ndim - 1)
+        if vec:  # the slots at a boundary take their new row
+            new = _sel(slots["boundary"], new,
+                       parts.from_leaf(key, st[key][li], have))
+        st[key][li] = parts.to_leaf(key, new, have)
+    qp_sum = st["qpool"][li]
+    if vec:
+        boundary, counters = slots["boundary"], slots["counters"]
+        counters["replans"][li] += (boundary & replan).to(torch.int32)
+        counters["reuses"][li] += (boundary & ~replan).to(torch.int32)
+        counters["retention"][li] = torch.where(
+            boundary, retention, counters["retention"][li])
+        qp_sum.copy_(_sel(boundary, qf, qp_sum + qf))
+    else:
+        st["replans"][li] += replan.to(torch.int32)
+        st["reuses"][li] += (~replan).to(torch.int32)
+        st["retention"][li] = retention
+        qp_sum.copy_(qf)
 
 
 def _sla_attn(p, q, q_all, st: dict, li: int, kc, vc, hb, zb, pos,
@@ -1481,9 +1556,7 @@ def _sla_attn(p, q, q_all, st: dict, li: int, kc, vc, hb, zb, pos,
     whose K/V it holds, gathered and combined in span order
     (`sla_decode.sla_decode_combine`) with phi(q) Htot summed over Htot's
     D_k rows and phi(q) Ztot; the rank keeps its own heads and applies
-    their Proj."""
-    from repro_torch.kernels import sla_decode
-
+    their Proj (`_split_attn`, at C = 1)."""
     kl, bat, heads, kvh = parts.kl, parts.batch, parts.heads, parts.kv_heads
     b, h_loc, d = q.shape
     ht, zt = st["htot"][li], st["ztot"][li]
@@ -1502,34 +1575,64 @@ def _sla_attn(p, q, q_all, st: dict, li: int, kc, vc, hb, zb, pos,
         o = backend_lib.decode_execute(state, {"proj": proj}, q[:, :, None],
                                        pos, dcfg, backend=backend)
         return o.to(q.dtype).reshape(b, 1, h_loc * d)
+    every = not kl.heads_split  # the K/V hold every head: attend them all
+    have = (bat, None if every else heads)
+    live = [parts.from_leaf(key, st[key][li], have + (None,) * extra)[
+        :, :, None] for key, extra in (("live_lut", 1), ("live_cnt", 0),
+                                       ("live_marg", 0))]
+    o = _split_attn(p, q[:, :, None], q_all[:, :, None], kc, vc, hb, zb,
+                    *live, ht[:, :, None], parts.from_leaf(
+                        "ztot", zt, (bat, kvh, None))[:, :, None], pos,
+                    parts, dcfg, backend)
+    return o.to(q.dtype).reshape(b, 1, h_loc * d)
+
+
+def _split_attn(p, q, q_all, kc, vc, hb, zb, lut, cnt, marg, ht, zt, pos,
+                parts: serving.SLAParts, dcfg, backend: str, hdiag=None,
+                zdiag=None) -> torch.Tensor:
+    """Decode-time SLA attention of C tokens over a split sequence
+    (layouts B and C): this rank's query heads q (B, H_loc, C, D), every
+    head's q_all; the span's K/V and per-block h_j, z_j (kc, vc, hb, zb)
+    and, where a chunk fills its diagonal block, each token's partial of
+    it (hdiag, zdiag (B, Hkv_c, C, D, D) / (..., D)); each token's live
+    row lut (B, Hc, C, K), cnt and marg (B, Hc, C) for the heads the K/V
+    hold (Hc: every head where the K/V hold every head, else this rank's),
+    its totals ht (B, Hkv_c, C, Dk_loc, D) at Htot's rule and zt
+    (B, Hkv_c, C, D). Every span's partial records (kernel 4's partial
+    mode over the live row's blocks it holds, `sla_decode.span_lut`),
+    gathered and combined in span order (`sla_decode.sla_decode_combine`)
+    with phi(q) Htot summed over Htot's D_k rows and phi(q) Ztot; the rank
+    keeps its own heads and applies their Proj. Returns (B, H_loc, C, D)
+    f32."""
+    from repro_torch.kernels import sla_decode
+
     if dcfg.mode not in ("sla", "sparse_only"):
         raise ValueError(f"decode-time SLA supports modes 'sla' / "
                          f"'sparse_only', got {dcfg.mode!r}")
-    every = not kl.heads_split  # the K/V hold every head: attend them all
+    kl = parts.kl
+    b, h_loc, cdim, d = q.shape
+    every = not kl.heads_split
     qh = q_all if every else q
-    hq = None if every else heads
-    lut = parts.from_leaf("live_lut", st["live_lut"][li], (bat, hq, None))
-    cnt = parts.from_leaf("live_cnt", st["live_cnt"][li], (bat, hq))
-    marg = parts.from_leaf("live_marg", st["live_marg"][li], (bat, hq))
     first, blocks = parts.start("hblk", 2), hb.shape[2]
     lut_s, cnt_s = sla_decode.span_lut(lut, cnt, first, blocks)
+    state = {"k": kc, "v": vc, "hblk": hb, "zblk": zb, "lut": lut_s,
+             "cnt": cnt_s}
+    if hdiag is not None:
+        state.update(hdiag=hdiag, zdiag=zdiag)
     rec = backend_lib.decode_partial_execute(
-        {"k": kc, "v": vc, "hblk": hb, "zblk": zb, "lut": lut_s,
-         "cnt": cnt_s}, qh, pos - first * dcfg.block_kv, dcfg,
-        backend=backend)
+        state, qh, pos - first * dcfg.block_kv, dcfg, backend=backend)
     records = serving.gather_spans(rec, kl)
     # the totals' products: phi(q) Htot over this rank's D_k rows, every
     # part of them in rank order; phi(q) Ztot where Ztot is whole
     hkv = kc.shape[1]
     hc = qh.shape[1]
-    qp = phi(qh, dcfg.phi).float().reshape(b, hkv, hc // hkv, d)
-    dk0, dkn = parts.start("htot", 2), ht.shape[2]
-    qht = torch.einsum("bngd,bnde->bnge", qp[..., dk0:dk0 + dkn],
-                       ht).reshape(b, hc, d)
+    qp = phi(qh, dcfg.phi).float().reshape(b, hkv, hc // hkv, cdim, d)
+    dk0, dkn = parts.start("htot", 2), ht.shape[-2]
+    qht = torch.einsum("bngcd,bncde->bngce", qp[..., dk0:dk0 + dkn],
+                       ht).reshape(b, hc, cdim, d)
     qht = serving.gather_axes(
         qht, serving._spec_axes(parts.spec["htot"][2]), parts.mesh)
-    zt_c = parts.from_leaf("ztot", zt, (bat, kvh, None))
-    qzt = torch.einsum("bngd,bnd->bng", qp, zt_c).reshape(b, hc)
+    qzt = torch.einsum("bngcd,bncd->bngc", qp, zt).reshape(b, hc, cdim)
     o_s, o_l = sla_decode.sla_decode_combine(records, qht, qzt, marg)
     if every:
         rank = kl.mesh.get_local_rank("model")
@@ -1537,8 +1640,9 @@ def _sla_attn(p, q, q_all, st: dict, li: int, kc, vc, hb, zb, pos,
         o_l = o_l[:, rank * h_loc:(rank + 1) * h_loc]
     o = o_s
     if dcfg.mode == "sla":
-        o = o + torch.einsum("bhd,hde->bhe", o_l, proj.float())
-    return o.to(q.dtype).reshape(b, 1, h_loc * d)
+        o = o + torch.einsum("bhcd,hde->bhce", o_l,
+                             ctx.fsdp_gather(p.sla_proj, "row").float())
+    return o
 
 
 # --------------------------------------------------------------------------
@@ -1583,8 +1687,18 @@ def decode_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict,
 
     `chunk=` splits a longer token run into sub-chunks of that size.
     Requires a scalar cache["pos"] (aligned static batch); the
-    continuous-batching scheduler decodes one token at a time."""
-    ctx.require_unsharded("verify-style decode (decode_chunk)")
+    continuous-batching scheduler decodes one token at a time.
+
+    Under `activation_sharding(mesh, default_residual_spec(mesh, batch,
+    cache length))` `tokens` is the global batch and the cache this rank's
+    part of it (`prefill`, `make_cache`), as for `decode_step`: the C new
+    K/V rows go where the rank's part holds them (a chunk may cross from
+    one rank's span into the next), the boundary work and the running
+    state run per token on the rank's part of the decode-SLA state, and
+    attention follows the layout, over a split sequence through kernel
+    4's partial records of the C tokens (their diagonal partials
+    included) and a combine across ranks. Returns the logits of the
+    rank's batch rows (every rank's under context parallelism)."""
     if torch.is_tensor(cache["pos"]) and cache["pos"].ndim > 0:
         raise ValueError(
             "decode_chunk requires a scalar cache['pos'] (aligned "
@@ -1600,30 +1714,80 @@ def decode_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict,
             outs.append(logits)
         return torch.cat(outs, dim=1), cache
     pos = int(cache["pos"])
-    smax = (cache["k"].shape[-2])
+    kl = serving.active_kv_layout(tokens.shape[0], cfg.num_kv_heads)
+    smax = cache["k"].shape[-2] * (1 if kl is None else kl.seq_parts)
     if pos + cdim > smax:
         raise ValueError(f"decode_chunk: {cdim} tokens from position {pos} "
                          f"overrun the {smax}-position cache")
     if "sla" in cache:
         return _decode_chunk_sla(params, cfg, tokens, cache, compute_dtype,
                                  backend, drift_threshold)
-    x = params.embed[tokens].to(compute_dtype)
-    b, dev = x.shape[0], x.device
-    pos_c = pos + torch.arange(cdim, device=dev)
-    positions = pos_c[None, :].expand(b, cdim)
-    kinds = layer_kinds_list(cfg)
-    for li, p in enumerate(params.layers):
-        q, k_new, v_new = _qkv(p, rms_norm(x, p.ln1), cfg, positions)
-        kc, vc = cache["k"][li], cache["v"][li]
-        kc[:, :, pos:pos + cdim] = k_new.to(kc.dtype)
-        vc[:, :, pos:pos + cdim] = v_new.to(vc.dtype)
-        o = _dense_decode_chunk_attn(q, kc, vc, pos_c, kinds[li], cfg)
-        x = x + o @ p.wo.to(x.dtype)
-        f, _ = _ffn(p, rms_norm(x, p.ln2), cfg)
-        x = x + f
-    x = rms_norm(x, params.ln_f)
+    tokens = _chunk_rows(tokens, cache, kl)
+    # under context parallelism every data rank decodes every row
+    with (ctx.replicated_tokens() if ctx.seq_parallel()
+          else contextlib.nullcontext()):
+        x = ctx.vocab_lookup(tokens, params.embed).to(compute_dtype)
+        b, dev = x.shape[0], x.device
+        positions = (pos + torch.arange(cdim, device=dev))[None, :] \
+            .expand(b, cdim)
+        kinds = layer_kinds_list(cfg)
+        for li, p in enumerate(params.layers):
+            q, k_new, v_new = _qkv(p, rms_norm(
+                x, ctx.fsdp_gather(p.ln1, "rep")), cfg, positions)
+            kc, vc = cache["k"][li], cache["v"][li]
+            _chunk_write(kc, vc, k_new, v_new, pos, kl, smax)
+            o = _dense_chunk_attn(q, kc, vc, pos, kinds[li], cfg, kl, smax)
+            x = x + ctx.from_tp(o @ ctx.fsdp_gather(p.wo, "row").to(x.dtype))
+            f, _ = _ffn(p, rms_norm(x, ctx.fsdp_gather(p.ln2, "rep")), cfg)
+            x = x + f
+        x = rms_norm(x, ctx.fsdp_gather(params.ln_f, "rep"))
     cache["pos"] = pos + cdim
     return logits_from_hidden(params, x), cache
+
+
+def _chunk_rows(tokens, cache: dict, kl):
+    """A chunk's tokens at this rank's batch rows (the global batch
+    without a mesh), held to the cache's rows."""
+    if kl is None:
+        return tokens
+    tokens = ctx.batch_rows(tokens)
+    if cache["k"].shape[1] != tokens.shape[0]:
+        raise ValueError(
+            f"the cache holds {cache['k'].shape[1]} batch rows on this "
+            f"rank, the chunk {tokens.shape[0]}: make it under the same "
+            f"activation_sharding scope")
+    return tokens
+
+
+def _chunk_write(kc, vc, k_new, v_new, pos: int, kl, length: int):
+    """Write a chunk's C new K/V rows (B, Hkv_c, C, D) from position pos,
+    in place: into the whole sequence, or the rows this rank's span holds
+    where the layout splits it."""
+    if serving.is_sharded(kl):
+        start, _ = kl.span(length)
+        serving.write_token(kc, k_new, pos, start, length)
+        serving.write_token(vc, v_new, pos, start, length)
+        return
+    cdim = k_new.shape[2]
+    kc[:, :, pos:pos + cdim] = k_new.to(kc.dtype)
+    vc[:, :, pos:pos + cdim] = v_new.to(vc.dtype)
+
+
+def _dense_chunk_attn(q, kc, vc, pos: int, kind, cfg: ArchConfig, kl,
+                      length: int):
+    """Dense attention of a chunk q (B, H_loc, C, Dh), token c at pos + c,
+    over the cache (its K/V already written): one device's masked softmax
+    (`_dense_decode_chunk_attn`), or the flash-decoding partials and
+    combine where the layout splits the sequence. Returns (B, C,
+    H_loc * Dh) in q.dtype."""
+    b, _, cdim, _ = q.shape
+    if not serving.is_sharded(kl):
+        return _dense_decode_chunk_attn(
+            q, kc, vc, pos + torch.arange(cdim, device=q.device), kind, cfg)
+    window = ((cfg.local_window or cfg.sliding_window)
+              if kind == KIND_SWA else 0)
+    o = serving.sharded_decode_attn(q, kc, vc, pos, kl, length, window)
+    return o.to(q.dtype).transpose(1, 2).reshape(b, cdim, -1)
 
 
 def _decode_chunk_sla(params, cfg: ArchConfig, tokens, cache, compute_dtype,
@@ -1644,16 +1808,27 @@ def _decode_chunk_sla(params, cfg: ArchConfig, tokens, cache, compute_dtype,
     (state["hdiag"] / ["zdiag"]) and the kernel substitutes it for the
     stored block at the LUT's diagonal entry. The sparse branch needs no
     protocol: the chunk's KV is written before attention and token c
-    masks columns > pos + c."""
+    masks columns > pos + c.
+
+    Under a mesh the phases run on this rank's part of the state as the
+    scalar-pos `_decode_step_sla` runs them (the per-block update where
+    the rank's span holds the token's block, the boundary work for every
+    head, the drift gate's MIN across the data ranks); a token's diagonal
+    partial is the span's that holds its block (zeros elsewhere, where no
+    LUT entry of the token is its diagonal)."""
     backend_lib.resolve_decode(backend)
-    x = params.embed[tokens].to(compute_dtype)
-    b, cdim = tokens.shape
-    dev = x.device
+    b_all, cdim = tokens.shape
     pos = int(cache["pos"])
     st = cache["sla"]
     sla = cfg.sla
     bq, bkv = sla.block_q, sla.block_kv
-    tn = cache["k"].shape[-2] // bkv
+    kl = serving.active_kv_layout(b_all, cfg.num_kv_heads)
+    tn = cache["k"].shape[-2] * (1 if kl is None else kl.seq_parts) // bkv
+    length = tn * bkv
+    parts = _sla_parts(cfg, b_all, length, kl)
+    bat, heads, kvh = parts.batch, parts.heads, parts.kv_heads
+    first = parts.start("hblk", 2)
+    tokens = _chunk_rows(tokens, cache, kl)
     dcfg = sla.decode_plan_cfg(tn)
     kinds = layer_kinds_list(cfg)
     nl = cfg.num_layers
@@ -1661,6 +1836,7 @@ def _decode_chunk_sla(params, cfg: ArchConfig, tokens, cache, compute_dtype,
         drift_threshold = sla.drift_thresholds(nl)
     thresholds = torch.broadcast_to(torch.as_tensor(
         drift_threshold, dtype=torch.float32), (nl,)).tolist()
+    g = cfg.num_heads // cfg.num_kv_heads
     pos_c = [pos + c for c in range(cdim)]
     row_c = [p_ // bq for p_ in pos_c]
     bnd_c = [p_ % bq == 0 for p_ in pos_c]
@@ -1670,106 +1846,114 @@ def _decode_chunk_sla(params, cfg: ArchConfig, tokens, cache, compute_dtype,
     for c in range(cdim):
         app_c.append(bnd_c[c] and rows < row_c[c])
         rows += int(app_c[-1])
-    positions = torch.tensor(pos_c, device=dev)[None, :].expand(b, cdim)
-    blk = torch.arange(tn, device=dev)
     plan = st["plan"]
-    for li, p in enumerate(params.layers):
-        q, k_new, v_new = _qkv(p, rms_norm(x, p.ln1), cfg, positions)
-        kc, vc = cache["k"][li], cache["v"][li]
-        kc[:, :, pos:pos + cdim] = k_new.to(kc.dtype)
-        vc[:, :, pos:pos + cdim] = v_new.to(vc.dtype)
-        hb, zb, kp_sum = st["hblk"][li], st["zblk"][li], st["kpool"][li]
-        h, hkv = q.shape[1], k_new.shape[1]
-        g = h // hkv
-        qf, kf, vf = q.float(), k_new.float(), v_new.float()
-        phik = phi(kf, sla.phi)                      # (B, Hkv, C, D)
-        routing = _routing(p, dcfg)
-        lplan = plan_lib.plan_map(lambda leaf: leaf[li], plan)  # views
-        ht, zt = st["htot"][li], st["ztot"][li]
-        qp_sum = st["qpool"][li]
-        luts, cnts, margs, hts, zts, hds, zds = [], [], [], [], [], [], []
-        for c in range(cdim):
-            row = row_c[c]
-            qf_c = qf[:, :, c]
-            # 1. append the just-completed row (pooled k before the
-            # current block's new token)
-            if app_c[c]:
-                kpm = torch.repeat_interleave(kp_sum / bkv, g, dim=1)
-                pc_prev = masks_lib.score_row(routing, qp_sum / bq, kpm,
-                                              row - 1, dcfg)
-                plan_lib.plan_extend(lplan, masks_lib.classify_row(
-                    pc_prev, row - 1, dcfg), row - 1)
-                st["extends"][li] += 1
-            # 2. O(1) running-state update
-            hupd = phik[:, :, c, :, None] * vf[:, :, c, None, :]
-            _blk_update(hb, hupd, row)
-            _blk_update(zb, phik[:, :, c], row)
-            _blk_update(kp_sum, kf[:, :, c], row)
-            ht += hupd
-            zt += phik[:, :, c]
-            hds.append(hb[:, :, row].clone())
-            zds.append(zb[:, :, row].clone())
-            # 3. the live row's structure, at a boundary only
-            if bnd_c[c]:
-                cnt_div = torch.clamp(torch.clamp(
-                    (pos_c[c] + 1) - blk * bkv, max=bkv), 1, bkv)[:, None]
-                kpm_live = torch.repeat_interleave(
-                    kp_sum / cnt_div.float(), g, dim=1)
-                pc_live = masks_lib.score_row(routing, qf_c, kpm_live, row,
-                                              dcfg)
-                mc_fresh = masks_lib.classify_row(pc_live, row, dcfg)
-                mc_inh = lplan.mc[..., row - 1, :].clone()
-                mc_inh[..., row] = 1
-                stale = (pc_live * (mc_inh == 1)).sum(dim=-1)
-                fresh = (pc_live * (mc_fresh == 1)).sum(dim=-1)
-                r = torch.clamp(stale / torch.clamp(fresh, min=plan_lib.EPS),
-                                0.0, 1.0)
-                thr = thresholds[li]
-                retention = r.min()
-                replan = ((1.0 - retention) >= thr) & (thr < 1.0)
-                mc_live = torch.where(replan, mc_fresh, mc_inh)
-                lut_n, cnt_n = plan_lib.build_lut(mc_live[..., None, :],
-                                                  lplan.k_sel)
-                st["live_lut"][li] = lut_n[..., 0, :]
-                st["live_cnt"][li] = cnt_n[..., 0]
-                st["live_marg"][li] = (mc_live == 0).sum(dim=-1,
-                                                         dtype=torch.int32)
-                st["replans"][li] += replan.to(torch.int32)
-                st["reuses"][li] += (~replan).to(torch.int32)
-                st["retention"][li] = retention
-                qp_sum.copy_(qf_c)
-            else:
-                qp_sum += qf_c
-            luts.append(st["live_lut"][li].clone())
-            cnts.append(st["live_cnt"][li].clone())
-            margs.append(st["live_marg"][li].clone())
-            hts.append(ht.clone())
-            zts.append(zt.clone())
+    # under context parallelism every data rank decodes every row
+    with (ctx.replicated_tokens() if ctx.seq_parallel()
+          else contextlib.nullcontext()):
+        x = ctx.vocab_lookup(tokens, params.embed).to(compute_dtype)
+        b, dev = x.shape[0], x.device
+        positions = torch.tensor(pos_c, device=dev)[None, :].expand(b, cdim)
+        blk = torch.arange(tn, device=dev)
+        for li, p in enumerate(params.layers):
+            q, k_new, v_new = _qkv(p, rms_norm(
+                x, ctx.fsdp_gather(p.ln1, "rep")), cfg, positions)
+            kc, vc = cache["k"][li], cache["v"][li]
+            _chunk_write(kc, vc, k_new, v_new, pos, kl, length)
+            hb, zb, kp_sum = st["hblk"][li], st["zblk"][li], st["kpool"][li]
+            q_all = serving.reshard(q, (bat, heads, None, None),
+                                    (bat, None, None, None), parts.mesh)
+            qf, kf, vf = q_all.float(), k_new.float(), v_new.float()
+            phik = phi(kf, sla.phi)                  # (B, Hkv_c, C, D)
+            routing = _routing(p, dcfg, every=True)
+            lplan = plan_lib.plan_map(lambda leaf: leaf[li], plan)  # views
+            ht, zt = st["htot"][li], st["ztot"][li]
+            qp_sum = st["qpool"][li]
+            luts, cnts, margs, hts, zts, hds, zds = [], [], [], [], [], [], []
+            for c in range(cdim):
+                row = row_c[c]
+                own = first <= row < first + hb.shape[2]
+                qf_c = qf[:, :, c]
+                # 1. append the just-completed row (pooled k before the
+                # current block's new token)
+                if app_c[c]:
+                    _append_row(st, li, lplan, parts, routing,
+                                parts.from_leaf("kpool", kp_sum,
+                                                (bat, None, None, None)),
+                                row, g, dcfg)
+                # 2. O(1) running-state update
+                hupd = phik[:, :, c, :, None] * vf[:, :, c, None, :]
+                if own:
+                    _blk_update(hb, hupd, row, first)
+                    _blk_update(zb, phik[:, :, c], row, first)
+                    _blk_update(kp_sum, kf[:, :, c], row, first)
+                ht += parts.to_leaf("htot", hupd, (bat, kvh, None, None))
+                zt += parts.to_leaf("ztot", phik[:, :, c], (bat, kvh, None))
+                at = row - first if own else 0
+                hds.append(hb[:, :, at].clone() if own
+                           else torch.zeros_like(hb[:, :, at]))
+                zds.append(zb[:, :, at].clone() if own
+                           else torch.zeros_like(zb[:, :, at]))
+                # 3. the live row's structure, at a boundary only
+                if bnd_c[c]:
+                    kp_all = parts.from_leaf("kpool", kp_sum,
+                                             (bat, None, None, None))
+                    cnt_div = torch.clamp(torch.clamp(
+                        (pos_c[c] + 1) - blk * bkv, max=bkv), 1, bkv)[:, None]
+                    kpm_live = torch.repeat_interleave(
+                        kp_all / cnt_div.float(), g, dim=1)
+                    _live_row(st, li, lplan, parts, routing, qf_c, kpm_live,
+                              row, thresholds[li], dcfg)
+                else:
+                    qp_sum += qf_c
+                luts.append(st["live_lut"][li].clone())
+                cnts.append(st["live_cnt"][li].clone())
+                margs.append(st["live_marg"][li].clone())
+                hts.append(ht.clone())
+                zts.append(zt.clone())
 
-        # 4. attention: one chunked call over the C tokens
-        if kinds[li] == KIND_SLA:
-            state = {"k": kc, "v": vc, "hblk": hb, "zblk": zb,
-                     "hdiag": torch.stack(hds, dim=2),
-                     "zdiag": torch.stack(zds, dim=2),
-                     "htot": torch.stack(hts, dim=2),
-                     "ztot": torch.stack(zts, dim=2),
-                     "lut": torch.stack(luts, dim=2),
-                     "cnt": torch.stack(cnts, dim=2),
-                     "marg": torch.stack(margs, dim=2)}
-            o = backend_lib.decode_execute_chunk(
-                state, {"proj": p.sla_proj}, q, pos, dcfg, backend=backend)
-            o = o.transpose(1, 2).reshape(b, cdim, h * cfg.head_dim)
-            o = o.to(x.dtype)
-            del state
-        else:
-            o = _dense_decode_chunk_attn(
-                q, kc, vc, torch.tensor(pos_c, device=dev), kinds[li], cfg)
-        x = x + o @ p.wo.to(x.dtype)
-        f, _ = _ffn(p, rms_norm(x, p.ln2), cfg)
-        x = x + f
-        del hds, zds, hts, zts
-    st["rows"] = rows
-    x = rms_norm(x, params.ln_f)
+            # 4. attention: one chunked call over the C tokens
+            if kinds[li] == KIND_SLA:
+                split = serving.is_sharded(kl)
+                # the live rows of the heads attended here: the rank's own,
+                # every head where a split sequence's K/V hold them all
+                hq = None if split and not kl.heads_split else heads
+
+                def per_token(key, snaps):
+                    have = (bat, hq) + (None,) * (snaps[0].ndim - 2)
+                    return torch.stack([parts.from_leaf(key, s_, have)
+                                        for s_ in snaps], dim=2)
+
+                lut, cnt, marg = (per_token(key, snaps) for key, snaps in (
+                    ("live_lut", luts), ("live_cnt", cnts),
+                    ("live_marg", margs)))
+                ztc = torch.stack([parts.from_leaf("ztot", z_,
+                                                   (bat, kvh, None))
+                                   for z_ in zts], dim=2)
+                htc = torch.stack(hts, dim=2)
+                hdiag, zdiag = torch.stack(hds, dim=2), torch.stack(zds, 2)
+                del hds, zds, hts, zts
+                if split:
+                    o = _split_attn(p, q, q_all, kc, vc, hb, zb, lut, cnt,
+                                    marg, htc, ztc, pos, parts, dcfg,
+                                    backend, hdiag, zdiag)
+                else:
+                    state = {"k": kc, "v": vc, "hblk": hb, "zblk": zb,
+                             "hdiag": hdiag, "zdiag": zdiag, "htot": htc,
+                             "ztot": ztc, "lut": lut, "cnt": cnt,
+                             "marg": marg}
+                    o = backend_lib.decode_execute_chunk(
+                        state, {"proj": ctx.fsdp_gather(p.sla_proj, "row")},
+                        q, pos, dcfg, backend=backend)
+                    del state
+                o = o.transpose(1, 2).reshape(b, cdim, -1).to(x.dtype)
+            else:
+                o = _dense_chunk_attn(q, kc, vc, pos, kinds[li], cfg, kl,
+                                      length)
+            x = x + ctx.from_tp(o @ ctx.fsdp_gather(p.wo, "row").to(x.dtype))
+            f, _ = _ffn(p, rms_norm(x, ctx.fsdp_gather(p.ln2, "rep")), cfg)
+            x = x + f
+        st["rows"] = rows
+        x = rms_norm(x, ctx.fsdp_gather(params.ln_f, "rep"))
     cache["pos"] = pos + cdim
     return logits_from_hidden(params, x), cache
 
@@ -1846,15 +2030,13 @@ def make_cache(cfg: ArchConfig, batch: int, max_len: int,
     Under `activation_sharding(mesh, ...)` `batch` is the global batch and
     the K/V leaves, and the decode-SLA state's, come out as this rank's
     part under `sharding.cache_shardings`, allocated at that shape only
-    (`pos` stays whole on every rank; a split sequence holds whole KV
-    blocks of decode-time SLA in each rank's span). Per-slot positions
-    on a decode-SLA cache refuse a mesh of more than one rank."""
+    (the per-slot counters (L, B) too; `pos`, `pos_host` and a per-slot
+    `rows` stay whole on every rank; a split sequence holds whole KV
+    blocks of decode-time SLA in each rank's span)."""
     dev = resolve_device(device)
     if decode_sla is None:
         decode_sla = cfg.sla.decode_mode == "sla"
     if decode_sla:
-        if per_slot:
-            ctx.require_unsharded("per-slot positions on an 'sla' cache")
         kl = serving.active_kv_layout(batch, cfg.num_kv_heads)
         if kl is not None:  # refuses spans of part blocks
             kl.check_length(max_len, cfg.sla.block_kv)
@@ -1868,15 +2050,20 @@ def make_cache(cfg: ArchConfig, batch: int, max_len: int,
     return cache
 
 
-def _put_slot(live: torch.Tensor, one, slot: int):
-    """Copy a batch-1 leaf (1, ...) into batch row `slot` of a (L, B, ...)
-    live leaf, in place (values only: no storage is shared)."""
-    live[:, slot] = one[:, 0].to(live.dtype)
+def _put_slot(slot: int):
+    """The whole-leaf copy of an admission: `put(name, live, one)` writes a
+    batch-1 leaf (L, 1, ...) into batch row `slot` of a (L, B, ...) live
+    leaf, in place (values only: no storage is shared)."""
+    def put(name: str, live: torch.Tensor, one: torch.Tensor) -> None:
+        live[:, slot] = one[:, 0].to(live.dtype)
+    return put
 
 
-def _insert_slot_state(cache: dict, single: dict, slot: int, keys):
+def _insert_slot_state(cache: dict, single: dict, slot: int, keys, put):
     """The per-slot half of an admission: pos, and under decode-SLA the
-    listed state leaves, the plan rows, `rows` and the counters."""
+    listed state leaves, the plan rows ("plan/<field>"), `rows` and the
+    counters (each (L,) counter as an (L, 1) leaf), every leaf copied by
+    `put(name, live, one)`."""
     if ("sla" in cache) != ("sla" in single):
         raise ValueError(
             "decode-SLA 'sla' state mismatch: the slot cache and the "
@@ -1887,16 +2074,17 @@ def _insert_slot_state(cache: dict, single: dict, slot: int, keys):
         return
     s, t = cache["sla"], single["sla"]
     for key in keys:
-        _put_slot(s[key], t[key], slot)
+        put(key, s[key], t[key])
     for name in plan_lib.PLAN_LEAVES:
-        _put_slot(getattr(s["plan"], name), getattr(t["plan"], name), slot)
+        put(f"plan/{name}", getattr(s["plan"], name),
+            getattr(t["plan"], name))
     s["rows"][slot] = int(t["rows"])
     for key in COUNTER_KEYS:
-        # (L,) single-request counters -> column `slot` of (L, B)
-        s[key][:, slot] = t[key].to(s[key].dtype)
+        put(key, s[key], t[key][:, None])
 
 
-def insert_slot(cache: dict, single: dict, slot: int) -> dict:
+def insert_slot(cache: dict, single: dict, slot: int,
+                cfg: ArchConfig) -> dict:
     """Copy a batch-1 prefill cache into decode slot `slot` of a per-slot
     cache (`make_cache(..., per_slot=True)`), in place; returns `cache`.
 
@@ -1905,22 +2093,62 @@ def insert_slot(cache: dict, single: dict, slot: int) -> dict:
     `decode_max_len`; dense callers pad k/v first). Every piece of
     request state rides along: KV rows, the incremental decode plan's
     rows, the running H/Z state and the pooled q/k features, so the
-    admitted request decodes exactly as in a fresh aligned batch."""
+    admitted request decodes exactly as in a fresh aligned batch. `cfg`
+    gives the leaves' global shapes.
+
+    Under `activation_sharding(mesh, default_residual_spec(mesh, batch,
+    max_len))`, the cache's scope, `slot` is the global slot and `cache`
+    this rank's part; `single` is what that prefill returns under the
+    same mesh at batch 1 (its leaves at the batch-1 placement: the
+    sequence over "data"). Every leaf (K/V, h_j, z_j, the pooled k and q,
+    the totals, the plan rows, the live row, the counters) is moved from
+    the one placement to the other one layer at a time (`serving.put_row`)
+    and written by the ranks that hold slot `slot`'s rows. Without a mesh
+    every leaf is whole, the move is the identity and the copy plain."""
     if single["k"].shape[1] != 1:
         raise ValueError(
             f"insert_slot takes a batch-1 prefill cache (got batch "
             f"{single['k'].shape[1]})")
-    if single["k"].shape[-2] != cache["k"].shape[-2]:
+    batch = cache["pos"].shape[0]  # the per-slot positions are whole
+    lay = ctx.layout()
+    mesh = None if lay is None else lay.mesh
+    kl_c, kl_s = (None if mesh is None else
+                  serving.kv_layout(mesh, b, cfg.num_kv_heads)
+                  for b in (batch, 1))
+    length = cache["k"].shape[3] * (1 if kl_c is None else kl_c.seq_parts)
+    have = single["k"].shape[3] * (1 if kl_s is None else kl_s.seq_parts)
+    if have != length:
         raise ValueError(
-            f"cache length mismatch: the slot cache holds "
-            f"{cache['k'].shape[-2]} positions but the prefill cache "
-            f"has {single['k'].shape[-2]}; prefill with decode_max_len "
-            f"(or pad k/v) to the scheduler's max_len first")
+            f"cache length mismatch: the slot cache holds {length} "
+            f"positions but the prefill cache has {have}; prefill with "
+            f"decode_max_len (or pad k/v) to the scheduler's max_len first")
+
+    def parts(kl, b, per_slot):
+        kv = (cfg.num_layers, b, cfg.num_kv_heads, length, cfg.head_dim)
+        shapes = {"k": kv, "v": kv}
+        if "sla" in cache:
+            shapes.update(decode_state_shapes(cfg, b, length, per_slot))
+        return serving.SLAParts(kl, shapes, b)
+
+    many, one = parts(kl_c, batch, True), parts(kl_s, 1, False)
+
+    def put(name, live, new):
+        if name in COUNTER_KEYS:
+            # (L, B), its layers split by the rule: column `slot` at the
+            # layers this rank holds
+            live[:, slot] = serving.reshard(
+                new[:, 0], one.full[name], many.full[name][:1],
+                mesh).to(live.dtype)
+            return
+        for li in range(live.shape[0]):
+            serving.put_row(live[li], new[li], slot, one.spec[name],
+                            many.spec[name], mesh)
+
     _insert_slot_state(cache, single, slot,
                        ("hblk", "zblk", "htot", "ztot", "kpool", "qpool",
-                        "live_lut", "live_cnt", "live_marg"))
-    _put_slot(cache["k"], single["k"], slot)
-    _put_slot(cache["v"], single["v"], slot)
+                        "live_lut", "live_cnt", "live_marg"), put)
+    put("k", cache["k"], single["k"])
+    put("v", cache["v"], single["v"])
     return cache
 
 
@@ -1991,7 +2219,8 @@ def insert_slot_state_paged(cache: dict, single: dict, slot: int) -> dict:
     q and counters. Page contents are written by `insert_slot_paged`, or
     not at all when every prompt page was a prefix-cache hit (the
     full-prompt snapshot fast path). Returns `cache`."""
-    _insert_slot_state(cache, single, slot, PAGED_SLOT_KEYS)
+    _insert_slot_state(cache, single, slot, PAGED_SLOT_KEYS,
+                       _put_slot(slot))
     return cache
 
 

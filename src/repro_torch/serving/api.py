@@ -1134,7 +1134,7 @@ class Scheduler:
         if grow > 0:
             cache = dict(cache, **{key: torch.nn.functional.pad(
                 cache[key], (0, 0, 0, grow)) for key in ("k", "v")})
-        self._admit(self._live, cache, slot)
+        self._admit(self._live, cache, slot, self.cfg)
 
     def _land_paged(self, cache: dict, logits, padded: np.ndarray,
                     slot: int, pids: List[int], bucket: int):

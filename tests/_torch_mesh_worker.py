@@ -507,6 +507,13 @@ def case_plan_reuse(spec, out):
     run_cases(spec, out)
 
 
+def case_slots(spec, out):
+    """Continuous-batching decode over a mesh, every case of
+    `spec["cases"]` (`tests/_torch_mesh_slots.py`)."""
+    from _torch_mesh_slots import run_cases
+    run_cases(spec, out)
+
+
 def main():
     case, spec_path, out_path, store = sys.argv[1:5]
     # `run_ranks` sends SIGUSR1 before it kills a rank that outlived its

@@ -941,6 +941,56 @@ def test_cuda_decode_partial_mode_over_spans_matches_its_twin(kv_dtype):
     _assert_twin((o_s, o_l), want)
 
 
+SLOT_ROW_CASES = {  # slot positions (64-token blocks, spans of 16), C
+    # continuous batching: each slot's rows at its own position, in
+    # different spans
+    "slot-rows": ([40 * 64 + 29, 13 * 64 + 5], 1),
+    # verify-style decode: 16 tokens across the end of the first span
+    # (block 16), each with its diagonal partial
+    "chunk-span-end": ([15 * 64 + 56, 15 * 64 + 56], 16),
+    "chunk-slots": ([15 * 64 + 56, 47 * 64 + 60], 16),
+}
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows", list(SLOT_ROW_CASES))
+def test_cuda_decode_partial_mode_at_slot_rows_and_chunks(rows, kv_dtype):
+    """Kernel 4's partial mode on the rows continuous batching and
+    verify-style decode give it (`cases.slot_decode_operands`) at the
+    Qwen3 decode shape (Hkv 8, G 2, D 128, 64 blocks of 64, K 6) cut into
+    4 spans of 16 blocks: a different position in each slot's rows, and
+    C = 16 tokens straddling a span's end with their diagonal partials.
+    Each span's records against the twin's at the kernel's width (5e-5 x
+    max(1, max |twin|), field by field), two launches bitwise equal, one
+    PARTIAL_LAUNCHES a call; the spans' records combined against unsplit
+    kernel 4."""
+    _need_gpu()
+    pos, c = SLOT_ROW_CASES[rows]
+    args, kw = cases.slot_decode_operands(23, "cuda", kv_dtype, pos, hkv=8,
+                                          g=2, c=c, d=128, bkv=64, tn=64,
+                                          k_sel=6)
+    want = sla_decode.sla_decode(*args, **kw)
+    spans, n = 4, 16
+    records = []
+    for r in range(spans):
+        ops_r = cases.span_operands(args, r * n, n)
+        before = sla_decode.PARTIAL_LAUNCHES
+        got = sla_decode.sla_decode_partial(*ops_r, **kw)
+        again = sla_decode.sla_decode_partial(*ops_r, **kw)
+        torch.cuda.synchronize()
+        assert sla_decode.PARTIAL_LAUNCHES == before + 2
+        assert torch.equal(got, again)
+        w = sla_decode.split_geometry(ops_r[3], ops_r[0])["split_width"]
+        twin = sla_decode.sla_decode_partial_plain(*ops_r, **kw,
+                                                   split_width=w)
+        err = cases.record_error(got, twin)
+        assert err["err"] <= TWIN_TOL and err["neutral_ok"], (r, err)
+        records.append(got)
+    o_s, o_l = cases.span_combine(torch.stack(records), args, kw["group"])
+    _assert_twin((o_s, o_l), want)
+
+
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_cuda_decode_kernels_at_d256_are_deterministic(kv_dtype):

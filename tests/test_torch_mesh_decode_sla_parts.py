@@ -13,7 +13,11 @@
   reference's `cache_shardings` (`jax.sharding.AbstractMesh`), and the
   dry run's per-rank bytes of Qwen3-1.7B's `decode_mode="sla"` cells on
   the production (16, 16) mesh; `make_cache(decode_sla=True)` under that
-  mesh at the dry run's local shapes.
+  mesh at the dry run's local shapes, and the per-slot cache's on a
+  (1, 2) mesh;
+- the partial records of per-slot rows (a position a slot) and of a
+  C = 16 chunk across block and span boundaries, combined, against the
+  unsplit twin.
 """
 import dataclasses
 import math
@@ -297,14 +301,65 @@ def test_a_split_sequence_needs_whole_blocks_a_span(fake_mesh):
             transformer.make_cache(cfg, 2, 96, device="meta")
 
 
-def test_per_slot_positions_on_an_sla_cache_refuse_the_mesh(fake_mesh):
+def test_a_per_slot_decode_sla_cache_is_each_ranks_part(fake_mesh):
+    """`make_cache(per_slot=True)` of decode-time SLA on a (1, 2) mesh:
+    every leaf at its rule's local shape (K/V, h_j and z_j by heads, the
+    per-slot counters (L, B), `rows` and `pos` whole on every rank), the
+    rank's bytes the dry run's placement of the global cache's."""
     mesh = fake_mesh((1, 2))
     cfg = _sla_cfg(get_arch("qwen3-1.7b").smoke())
-    with ctx.activation_sharding(mesh, (("data",), None, "model")):
-        with pytest.raises(NotImplementedError, match="per-slot positions"):
-            transformer.make_cache(cfg, 2, 64, per_slot=True, device="meta")
-        transformer.make_cache(cfg, 2, 64, per_slot=True, decode_sla=False,
-                               device="meta")
+    whole = transformer.make_cache(cfg, 2, 64, per_slot=True, device="meta")
+    rules = sharding.cache_shardings(mesh, whole, 2)
+    cell = dryrun._place_tree(whole, rules)
+    with ctx.activation_sharding(mesh, ctx.default_residual_spec(mesh, 2,
+                                                                 64)):
+        cache = transformer.make_cache(cfg, 2, 64, per_slot=True,
+                                       device="meta")
+    got, want = dict(sharding.tree_leaves(cache)), dict(
+        sharding.tree_leaves(whole))
+    assert got.keys() == want.keys()
+    for path, leaf in got.items():
+        if torch.is_tensor(leaf):
+            assert tuple(leaf.shape) == rules[path].shard_shape(
+                want[path].shape), path
+    assert got["k"].shape[2] == cfg.num_kv_heads // 2
+    for path in ("pos", "sla/rows", "sla/extends", "sla/retention"):
+        assert got[path].shape == want[path].shape, path
+    assert got["sla/extends"].shape == (cfg.num_layers, 2)
+    assert dryrun.rank_bytes({"cache": got})["cache"] == \
+        dryrun.rank_bytes({"cache": cell})["cache"]
+
+
+SLOT_ROWS = {  # slot positions, tokens
+    "rows": ([250, 100], 1),            # each slot's rows at its own
+    "chunk": ([120, 120], 16),          # C = 16 across a span's end
+    "chunk-slots": ([60, 203], 16),     # and at different positions
+}
+
+
+@pytest.mark.parametrize("spans", [4, 16])
+@pytest.mark.parametrize("rows", list(SLOT_ROWS))
+def test_partial_records_of_slot_rows_and_chunks_combine_to_the_twin(
+        rows, spans):
+    """Kernel 4's partial records (the twin `sla_decode_partial_plain`) of
+    per-slot rows (a position a slot) and of C = 16 tokens that cross
+    block and span boundaries (each token's diagonal block read from its
+    partial in the span that holds it, no diagonal for a token before a
+    span), combined across the spans in span order, equal the unsplit
+    twin `sla_decode_plain` within 5e-5 x max(1, max |o|)."""
+    from repro_torch.kernels import cases
+    pos, c = SLOT_ROWS[rows]
+    args, kw = cases.slot_decode_operands(5, "cpu", torch.float32, pos,
+                                          hkv=2, g=2, c=c, d=32, bkv=16,
+                                          tn=16, k_sel=5)
+    want = sla_decode.sla_decode_plain(*args, **kw)
+    n = 16 // spans
+    records = torch.stack([sla_decode.sla_decode_partial_plain(
+        *cases.span_operands(args, r * n, n), **kw) for r in range(spans)])
+    got = cases.span_combine(records, args, kw["group"])
+    _close(got[0], want[0], "O^s")
+    _close(got[1], want[1], "O^l")
+    assert (want[1].abs() > 0).any()
 
 
 def test_each_step_reads_its_placements_from_the_mesh_it_runs_on(

@@ -196,6 +196,45 @@ def test_flash_decode_over_slices_is_the_whole_cache_attention(
     _close(got.float().numpy(), want.float().numpy(), tol, "flash decode")
 
 
+@pytest.mark.parametrize("h,hkv,n,spans,window,dtype", FLASH[:3])
+def test_a_chunk_over_slices_is_the_whole_cache_chunk(h, hkv, n, spans,
+                                                      window, dtype):
+    """A verify-style chunk of 8 tokens that crosses from one span into
+    the next: `write_token` of its K/V on each span writes what the
+    whole-cache write does, and the partials of its tokens (token c's
+    causal limit pos + c) combined in span order equal
+    `_dense_decode_chunk_attn` over the whole cache within 5e-5 x max(1,
+    max |o|)."""
+    cfg = get_arch("gemma3-1b").smoke()
+    g = torch.Generator().manual_seed(h * n + spans + 1)
+    cdim, step = 8, n // spans
+    pos = step * (spans // 2) - 3  # tokens on both sides of a span's end
+    q = torch.randn((2, h, cdim, cfg.head_dim), generator=g).to(dtype)
+    kc = torch.randn((2, hkv, n, cfg.head_dim), generator=g).to(dtype)
+    vc = torch.randn((2, hkv, n, cfg.head_dim), generator=g).to(dtype)
+    new_k = torch.randn((2, hkv, cdim, cfg.head_dim), generator=g)
+    new_v = torch.randn((2, hkv, cdim, cfg.head_dim), generator=g)
+    cut = [slice(i * step, (i + 1) * step) for i in range(spans)]
+    kp = [kc[:, :, c].clone() for c in cut]
+    vp = [vc[:, :, c].clone() for c in cut]
+    kc[:, :, pos:pos + cdim] = new_k.to(dtype)
+    vc[:, :, pos:pos + cdim] = new_v.to(dtype)
+    for i in range(spans):
+        serving.write_token(kp[i], new_k, pos, i * step, n)
+        serving.write_token(vp[i], new_v, pos, i * step, n)
+    assert torch.equal(torch.cat(kp, dim=2), kc)
+    assert torch.equal(torch.cat(vp, dim=2), vc)
+    kind = transformer.KIND_SWA if window else transformer.KIND_SLA
+    cfg = dataclasses.replace(cfg, local_window=window)
+    want = transformer._dense_decode_chunk_attn(
+        q, kc, vc, pos + torch.arange(cdim), kind, cfg)
+    parts = torch.stack([serving.decode_partial(
+        q, kp[i], vp[i], pos, c.start, window) for i, c in enumerate(cut)])
+    got = serving.decode_combine(parts)  # (B, H, C, D)
+    got = got.to(dtype).transpose(1, 2).reshape(want.shape)
+    _close(got.float().numpy(), want.float().numpy(), 5e-5, "chunk")
+
+
 @pytest.mark.parametrize("pos", [5, 50, 95, "per-slot", "runaway"])
 def test_span_write_is_the_whole_cache_write(pos):
     """`write_token` on each span of a cache writes what `_cache_write`
@@ -295,17 +334,8 @@ REFUSED = {
     "the plan cache (plan_cache=)": lambda: DiffusionScheduler(
         *_dit(), num_slots=2, seq_len=64, backend="kernel",
         plan_cache=True, device="cpu").step(),
-    "per-slot positions on an 'sla' cache": lambda: transformer
-    .decode_step(None, _qwen(), None,
-                 {"sla": {}, "pos": torch.zeros(2, dtype=torch.int32)}),
-    "learned routing (routing_mode='learned') in the decode step":
-    lambda: transformer.decode_step(
-        None, dataclasses.replace(_qwen(), sla=_qwen().sla.replace(
-            routing_mode="learned")), None, {"sla": {}, "pos": 64}),
     "chunked admission prefill (prefill_chunk)": lambda: transformer
     .prefill_chunk(None, _qwen(), None, None, 0),
-    "verify-style decode (decode_chunk)": lambda: transformer.decode_chunk(
-        None, _qwen(), None, {}),
     "paged caches (make_paged_cache)": lambda: transformer.make_paged_cache(
         _qwen(), 2, 64, 8, device="meta"),
 }

@@ -131,7 +131,7 @@ def test_cache_constructors_match_reference(decode):
     _assert_same(tm, jm)
     assert tm["pos_host"].tolist() == [0] * SLOTS
     jm = jtfm.insert_slot(jm, _grow(singles[1]), 2)
-    ttfm.insert_slot(tm, _port(_grow(singles[1])), 2)
+    ttfm.insert_slot(tm, _port(_grow(singles[1])), 2, tcfg)
     _assert_same(tm, jm)
     assert tm["pos_host"].tolist() == [0, 0, PROMPTS[1]]
 
@@ -205,7 +205,7 @@ def _run(decode, paged):
                 tc["pt"].copy_(torch.from_numpy(_pt({0, 1})))
             else:
                 jc = jtfm.insert_slot(jc, _grow(singles[1]), 2)
-                ttfm.insert_slot(tc, _port(_grow(singles[1])), 2)
+                ttfm.insert_slot(tc, _port(_grow(singles[1])), 2, tcfg)
         jl, jc = step(params, token=jnp.asarray(tokens[i]), cache=jc)
         with torch.no_grad():
             tl, tc = ttfm.decode_step(

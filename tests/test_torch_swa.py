@@ -280,7 +280,7 @@ def test_per_slot_and_paged_decode_match_reference():
     for slot, single in enumerate(singles):
         jc = jtfm.insert_slot(jc, _grow(single), slot)
         ttfm.insert_slot(tm, bridge.cache_from_numpy(
-            _np(_grow(single)), device="cpu"), slot)
+            _np(_grow(single)), device="cpu"), slot, tcfg)
         ttfm.insert_slot_paged(tp, bridge.cache_from_numpy(
             _np(single), device="cpu"), slot, PAGES[slot])
         row = PAGES[slot] + DECODE_PAGES[slot]
