@@ -77,9 +77,12 @@ Phases, in order; any failure exits non-zero before the result line:
      tensors (L and O^s from the forward kernel, a seeded dO), at both
      shapes of phase 3 with their random LUTs, a causal GQA-2 case (H 12,
      N 4096, D 128) and on the full-width forward's layer-0 and layer-29
-     LUTs, f32 and bf16. The f32 cases take the f32-FMA kernels, held to
-     5e-5 x max(1, max |twin|). The bf16 cases (all at 64 x 64 blocks)
-     take the tensor-core kernels (checked by their own launch counters),
+     LUTs, f32 and bf16, and four bf16 cases at 32 x 32 blocks (causal
+     and bidirectional GQA-2, H 12, N 4096, at D 64 and D 128). The f32
+     cases take the f32-FMA kernels, held to 5e-5 x max(1, max |twin|).
+     The bf16 cases take the tensor-core kernels of their blocks (64 x 64:
+     `sla_bwd_tc.cu`; 32 x 32: `sla_bwd_tc32.cu`, its CTAs an SM printed;
+     each checked by its route's own launch counters),
      held by `cases.tc_criterion`: err(kernel, f32 twin) <= 2 err(rounded
      twin, f32 twin) + 5e-5 m and <= 5e-2 m, m = max(1, max |twin|), the
      rounded twin rounding dO, P and dS to bf16 where the kernels do; two
@@ -485,10 +488,11 @@ Phases, in order; any failure exits non-zero before the result line:
      `quickstart.main(["--backend", "kernel"])`: kernel vs reference and
      gather vs reference within 5e-5 x max(1, max |ref|), kernel 1 twice
      on the split route with its pre-pass (f32, 64 x 64 blocks, D 64
-     padded to 128), kernels 2-3 once each on `sla_bwd.cu`, its FLOPs dict
-     equal to the host's; b-c. `serve_lm`, `serve_stream` (greedy tokens
-     equal to the static engine's) and `serve_routing` (learned routing at
-     identity init emits the threshold router's tokens) at their
+     padded to 128), kernels 2-3 once each on `sla_bwd.cu` (f32), its
+     FLOPs dict equal to the host's; b-c. `serve_lm`, `serve_stream`
+     (greedy tokens equal to the static engine's) and `serve_routing`
+     (learned routing at identity init emits the threshold router's
+     tokens) at their
      reference sizes, then `ablations` at its defaults, each with its own
      assertions and no SLA kernel launch (gather and reference backends),
      walls printed; d. `finetune_dit` at the 100m preset's widths and depth
@@ -496,9 +500,11 @@ Phases, in order; any failure exits non-zero before the result line:
      through its `build` and `train` on the kernel backend, bf16 compute
      over f32 masters: pretrain with full attention, then fine-tune a copy
      in each of sla, sparse_only, linear_only and l_plus_s; at every step
-     the launches (sla: 12 / 12 / 12 of kernels 1 / 2 / 3 on the f32-FMA
-     routes at 32 x 32 blocks, none on the tensor cores; every other mode
-     none), a finite loss, wall and peak memory; the first sla step's
+     the launches (sla: 12 / 12 / 12 of kernels 1 / 2 / 3 at 32 x 32
+     blocks, kernel 1 on its f32-FMA route, kernels 2-3 all on the
+     tensor-core "tc32" route, none on `sla_bwd.cu`; every other mode
+     none), a finite loss, wall and peak memory (the sla steps' wall
+     printed on its own line); the first sla step's
      kernel loss within 5e-2 x max(1, |loss|) of the gather backend's on
      the same params and batch; the example's quality table and its "SLA
      best among accelerated modes" line printed, not held (the reference's
@@ -506,11 +512,16 @@ Phases, in order; any failure exits non-zero before the result line:
      to `FT_BATCH`, its steps to `FT_PRETRAIN_STEPS` + `FT_FINETUNE_STEPS`
      a mode. e. kernels 1-3 at the finetune's shape (BH = batch x 12, N
      4,096, D 64, 32 x 32 blocks, bf16, K 13 from `plan_attention` on
-     seeded q and k) against their twins (5e-5), timed beside their bounds
-     (and the f32-FMA route's), and phase 7's library call at that shape:
+     seeded q and k) against their twins on their routes (kernel 1 on
+     the f32-FMA route within 5e-5; kernels 2-3 on the "tc32" route by
+     `cases.tc_criterion`, two launches bitwise equal), timed beside their
+     bounds (operations at the route's peak, and the f32-FMA peak), the
+     CTAs an SM of the "tc32" kernels, and phase 7's library call at that
+     shape:
      compiled flex_attention on a BlockMask of the same LUT, its forward
      (O^s and L only) and its backward (dQ, dK and dV together; its bf16
-     gradients' error reported), with the card's name and power limit.
+     gradients' error reported) and the ratio of kernels 2 + 3 to its
+     backward, with the card's name and power limit.
  37. decode-time SLA over the mesh's path at world size 1
      (`phase_serve_mesh_sla`): a. full-width Qwen3-1.7B with seeded bf16
      weights, 2 prompts of 32,000 tokens seeded by
@@ -569,7 +580,8 @@ Phases, in order; any failure exits non-zero before the result line:
      tensor-core routes' beside them, kernels 1-3 the D-64 cases of
      phases 23, 24 and 29 (`d64_cases`), kernels 1-5 their D-256 cases,
      kernels 1-3 phase 30's (`gemma3_train_cases`) and phase 36e's
-     (`finetune_cases`); every kernel the head
+     (`finetune_cases`), kernels 2-3 their "tc32" route's launches, time,
+     bound and library time (`*_tc32`); every kernel the head
      dims its launches on the main paths
      ran at (`head_dims`, `head_dims_by_path`: what its wrapper recorded
      after padding, zeroed with the counters before each path) and,
@@ -812,6 +824,9 @@ FT_CASE_KEYS = ("shape", "dtype", "route", "bh", "n", "d", "k_sel",
                 "live_tiles", "ms", "plain_ms", "bound_ms", "bound_by",
                 "bound_fraction", "bound_ms_f32_fma", "max_abs_err", "ok",
                 "library_ms")
+# and the backward's on the tc32 route
+FT_TC32_KEYS = ("bitwise_repeat", "rounded_err", "limit", "prep_ms",
+                "ctas_per_sm", "dq_plus_dkv_ms", "ratio_to_library")
 # phase 36e's compiled flex_attention times beside a finetune case
 FT_FLEX_KEYS = ("flex_sparse_branch_fwd_ms", "library_fwd_ms",
                 "library_err", "library_error")
@@ -1759,33 +1774,41 @@ def _bwd_bound(name, args, kw, dtype):
 
 
 TC_ROUTE = "tensor cores, wgmma m64n64k16 (sla_bwd_tc.cu)"
+TC32_ROUTE = ("tensor cores at 32 x 32 blocks, mma.sync m16n8k16 "
+              "(sla_bwd_tc32.cu)")
 F32_ROUTE = "f32 FMA on CUDA cores (sla_bwd.cu)"
+BWD_ROUTES = {"tc": TC_ROUTE, "tc32": TC32_ROUTE, "fma": F32_ROUTE}
 
 
-def _tc_launches(name: str) -> int:
-    return (sla_bwd.TC_LAUNCHES_DQ if name == "sla_bwd_dq"
-            else sla_bwd.TC_LAUNCHES_DKV)
+def _route_launches(name: str) -> tuple:
+    """The backward kernel `name`'s launches on the "tc" and "tc32"
+    routes."""
+    if name == "sla_bwd_dq":
+        return sla_bwd.TC_LAUNCHES_DQ, sla_bwd.TC32_LAUNCHES_DQ
+    return sla_bwd.TC_LAUNCHES_DKV, sla_bwd.TC32_LAUNCHES_DKV
 
 
 def _bwd_check(name, args, kw, what: str) -> dict:
     """Kernel against its twin on the same card operands. The f32-FMA
     route: max abs error against 5e-5 x max(1, max |twin|). The
-    tensor-core route (`sla_bwd.use_tensor_cores`): `cases.tc_criterion`
-    against the f32 twin and the twin that rounds dO, P and dS to bf16.
-    On both, a second launch bitwise equal to the first. Raises on a
-    non-finite output or when the route's counter did not move."""
+    tensor-core routes ("tc" at 64 x 64 blocks, "tc32" at 32 x 32,
+    `sla_bwd.backward_route`): `cases.tc_criterion` against the f32 twin
+    and the twin that rounds dO, P and dS to bf16. On all, a second
+    launch bitwise equal to the first. Raises on a non-finite output or
+    when the routes' counters did not move as the rule says."""
     kernel, plain, _ = BWD[name]
     q = args[2]
-    tc = sla_bwd.use_tensor_cores(q.dtype, kw["block_q"], kw["block_kv"],
-                                  q.shape[-1])
-    before = _tc_launches(name)
+    route = sla_bwd.backward_route(q.dtype, kw["block_q"], kw["block_kv"],
+                                   q.shape[-1])
+    before = _route_launches(name)
     got = kernel(*args, **kw)
-    launched = _tc_launches(name) - before
+    launched = tuple(a - b for a, b in zip(_route_launches(name), before))
     want = plain(*args, **kw)
     torch.cuda.synchronize()
-    if launched != int(tc):
-        raise RuntimeError(f"{name} {what}: {launched} tensor-core "
-                           f"launches, expected {int(tc)}")
+    expected = (int(route == "tc"), int(route == "tc32"))
+    if launched != expected:
+        raise RuntimeError(f"{name} {what}: (tc, tc32) launches "
+                           f"{launched}, expected {expected}")
     got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
     if not all(bool(torch.isfinite(g).all()) for g in got):
         raise RuntimeError(f"{name} {what}: non-finite output")
@@ -1793,7 +1816,7 @@ def _bwd_check(name, args, kw, what: str) -> dict:
     again = (again,) if torch.is_tensor(again) else again
     bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
     del again
-    if not tc:
+    if route == "fma":
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         limit = TWIN_TOL * max(1.0, max(float(w.abs().max())
                                         for w in want))
@@ -1803,7 +1826,7 @@ def _bwd_check(name, args, kw, what: str) -> dict:
     res = cases.tc_criterion(got, want, rounded)
     res["bitwise_repeat"] = bitwise
     res["ok"] = res["ok"] and res["bitwise_repeat"]
-    return dict(route=TC_ROUTE, **res)
+    return dict(route=BWD_ROUTES[route], **res)
 
 
 def _check_text(c: dict) -> str:
@@ -1811,23 +1834,27 @@ def _check_text(c: dict) -> str:
         return (f"max abs err {c['max_abs_err']:.3g} (limit "
                 f"{c['limit']:.3g}), bitwise repeat {c['bitwise_repeat']} "
                 f"{'OK' if c['ok'] else 'FAIL'}")
-    return (f"tensor cores: max abs err {c['max_abs_err']:.3g} vs f32 twin "
-            f"(rounded twin {c['rounded_err']:.3g}, limit {c['limit']:.3g}"
-            f"), bitwise repeat {c['bitwise_repeat']} "
+    where = "" if c["route"] == TC_ROUTE else " at 32 x 32"
+    return (f"tensor cores{where}: max abs err {c['max_abs_err']:.3g} vs "
+            f"f32 twin (rounded twin {c['rounded_err']:.3g}, limit "
+            f"{c['limit']:.3g}), bitwise repeat {c['bitwise_repeat']} "
             f"{'OK' if c['ok'] else 'FAIL'}")
 
 
 def _gqa_bwd_operands(h, group, n, d, seed, causal, dtype=torch.bfloat16,
-                      arch="wan2_1_1_3b"):
+                      arch="wan2_1_1_3b", block=None):
     """Both backward kernels' operands in `dtype` for GQA (h // group kv
-    heads) at `arch`'s blocks: a plan of seeded q/k, L and O^s from the
-    forward kernel, a seeded dO. Returns (dq args, dkv args, keywords,
-    (q, k, v, plan) as f32 (1, H, N, D) tensors and the plan)."""
+    heads) at `arch`'s blocks (or `block` x `block`): a plan of seeded
+    q/k, L and O^s from the forward kernel, a seeded dO. Returns (dq
+    args, dkv args, keywords, (q, k, v, plan) as f32 (1, H, N, D) tensors
+    and the plan)."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     q = torch.randn((1, h, n, d), generator=gen, device=DEV)
     k, v = (torch.randn((1, h // group, n, d), generator=gen, device=DEV)
             for _ in range(2))
     sla = get_arch(arch).sla.replace(causal=causal)
+    if block is not None:
+        sla = sla.replace(block_q=block, block_kv=block)
     plan = plan_lib.plan_attention(q, k, sla)
     fq, fk, fv = (ops._flat(x.to(dtype)) for x in (q, k, v))
     lut, counts = ops._flat(plan.lut), ops._flat(plan.counts)
@@ -2011,9 +2038,14 @@ def _bwd_case(shape, dname, dq_args, dkv_args, kw, n, d, extra,
         plain_ms = cuda_ms(lambda: plain(*args, **kw), 2, warmup=1)
         bound_ms, bound_by, flops, nbytes, live = _bwd_bound(
             name, args, kw, args[2].dtype)
-        if c["route"] == TC_ROUTE:  # the wrapper's dO cast and D padding
+        if c["route"] != F32_ROUTE:  # the wrapper's dO cast and D padding
+            width = (sla_bwd.TC_HEAD_DIM if c["route"] == TC_ROUTE
+                     else sla_bwd.tc32_head_dim(d))
             c["prep_ms"] = cuda_ms(lambda: sla_bwd._tc_operands(
-                name, *args[2:]), 10)
+                name, *args[2:], width), 10)
+        if c["route"] == TC32_ROUTE:
+            c["head_dim_run"] = width
+            c["ctas_per_sm"] = sla_bwd.ctas_per_sm(name, width)
         say(f"[{tag}] {name} {shape} {dname} (BH={args[2].shape[0]}, "
             f"BH_kv={args[3].shape[0]}, N={n}, D={d}, causal "
             f"{kw['causal']}, LUT width {args[0].shape[-1]}, live tiles "
@@ -2023,6 +2055,8 @@ def _bwd_case(shape, dname, dq_args, dkv_args, kw, n, d, extra,
             f"{bound_ms / ms:.1%} of it) | plain twin {plain_ms:.3f} ms"
             + (f" | of the kernel's time, the wrapper's dO cast and head-dim"
                f" padding {c['prep_ms']:.3f} ms" if "prep_ms" in c else "")
+            + (f" | {c['ctas_per_sm']} CTAs an SM at D {c['head_dim_run']}"
+               if "ctas_per_sm" in c else "")
             + (f" | dense SDPA backward yardstick (not the same function) "
                f"{extra['dense_sdpa_bwd_ms']:.3f} ms"
                if "dense_sdpa_bwd_ms" in extra else ""))
@@ -2064,10 +2098,23 @@ def phase_bwd_vs_plain():
     rows += _bwd_case("causal GQA-2", "bf16", dq_args, dkv_args, kw, n, d,
                       {})
     del dq_args, dkv_args
+    for d in (64, 128):  # the "tc32" route: the fine-tune's D and the widest
+        for causal in (True, False):
+            dq_args, dkv_args, kw, _ = _gqa_bwd_operands(
+                h, 2, n, d, seed=7 + d + int(causal), causal=causal,
+                block=32)
+            mode = "causal" if causal else "bidirectional"
+            rows += _bwd_case(f"32x32 {mode} GQA-2 D{d}", "bf16", dq_args,
+                              dkv_args, kw, n, d, {})
+            del dq_args, dkv_args
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise RuntimeError(f"backward kernel disagrees with its plain "
                            f"twin: {bad}")
+    tc32 = [r for r in rows if r["shape"].startswith("32x32")]
+    if len(tc32) != 8 or any(r["route"] != TC32_ROUTE for r in tc32):
+        raise RuntimeError(f"the 32 x 32 bf16 cases left the tc32 route: "
+                           f"{[(r['shape'], r['route']) for r in tc32]}")
     return rows
 
 
@@ -2575,6 +2622,7 @@ def _zero_kernel_counts():
     sla_fwd.LAUNCHES = sla_fwd.TC_LAUNCHES = 0
     sla_bwd.LAUNCHES_DQ = sla_bwd.LAUNCHES_DKV = 0
     sla_bwd.TC_LAUNCHES_DQ = sla_bwd.TC_LAUNCHES_DKV = 0
+    sla_bwd.TC32_LAUNCHES_DQ = sla_bwd.TC32_LAUNCHES_DKV = 0
     _zero_head_dims()
 
 
@@ -7206,6 +7254,8 @@ def _counts36() -> dict:
                 tc_sla_bwd_dq=sla_bwd.TC_LAUNCHES_DQ,
                 sla_bwd_dkv=sla_bwd.LAUNCHES_DKV,
                 tc_sla_bwd_dkv=sla_bwd.TC_LAUNCHES_DKV,
+                tc32_sla_bwd_dq=sla_bwd.TC32_LAUNCHES_DQ,
+                tc32_sla_bwd_dkv=sla_bwd.TC32_LAUNCHES_DKV,
                 sla_decode=sla_decode.LAUNCHES,
                 sla_decode_paged=sla_decode.PAGED_LAUNCHES)
 
@@ -7222,8 +7272,8 @@ def _quickstart36() -> dict:
     """Phase 36a: `examples_torch.quickstart` on the kernel backend: its
     printed errors within 5e-5 x max(1, max |ref|), kernel 1 twice on the
     split route with its pre-pass (step 3's call and the gradient's
-    forward), kernels 2-3 once each on `sla_bwd.cu`, the FLOPs dict the
-    host's."""
+    forward), kernels 2-3 once each on `sla_bwd.cu` (f32), the FLOPs dict
+    the host's."""
     _zero36()
     t0 = time.time()
     out = quickstart.main(["--backend", "kernel"])
@@ -7233,7 +7283,8 @@ def _quickstart36() -> dict:
     _read_head_dims("quickstart")
     want = dict(sla_fwd=2, tc_sla_fwd=0, split_sla_fwd=2, planes=2,
                 sla_bwd_dq=1, tc_sla_bwd_dq=0, sla_bwd_dkv=1,
-                tc_sla_bwd_dkv=0, sla_decode=0, sla_decode_paged=0)
+                tc_sla_bwd_dkv=0, tc32_sla_bwd_dq=0, tc32_sla_bwd_dkv=0,
+                sla_decode=0, sla_decode_paged=0)
     limit = QS_TOL * max(1.0, out["ref_max_abs"])
     host = flops_lib.sla_flops(32768, 128, 12, quickstart.CFG)
     ok = (counts == want and out["kernel_err"] <= limit
@@ -7279,13 +7330,15 @@ def _ft_train(path: str, cfg, params, shape, steps: int, lr: float,
               seed: int, mode) -> dict:
     """`finetune_dit.train` on the kernel backend with the launch counters
     zeroed before it; after each step the step's launches (12 / 12 / 12
-    on the f32-FMA routes in `sla` mode, none in the others), a finite
+    in `sla` mode: kernel 1 on its f32-FMA route, kernels 2-3 all on the
+    "tc32" route, so none on `sla_bwd.cu`; none in the others), a finite
     loss, its wall and its peak memory are held and kept."""
     nl = cfg.num_layers
     per = nl if mode == "sla" else 0
     want = dict(sla_fwd=per, tc_sla_fwd=0, split_sla_fwd=0, planes=0,
                 sla_bwd_dq=per, tc_sla_bwd_dq=0, sla_bwd_dkv=per,
-                tc_sla_bwd_dkv=0, sla_decode=0, sla_decode_paged=0)
+                tc_sla_bwd_dkv=0, tc32_sla_bwd_dq=per,
+                tc32_sla_bwd_dkv=per, sla_decode=0, sla_decode_paged=0)
     recs = []
     _zero36()
     torch.cuda.synchronize()
@@ -7377,6 +7430,11 @@ def _finetune36(batch: int, pretrain_steps: int, finetune_steps: int
         torch.cuda.empty_cache()
         _ft_summary(f"finetune {mode}", r)
         if mode == "sla":
+            say(f"[36 finetune] sla step wall (bf16, batch {batch}; "
+                f"kernels 2-3 on the tc32 route, 12 launches each a step, "
+                f"none on sla_bwd.cu): median {r['step_s_median']:.4f} s, "
+                f"{r['step_s_min']:.4f}-{r['step_s_max']:.4f} s after the "
+                f"first ({r['first_step_s']:.4f} s) on {CARD[0]}")
             kernel_loss = r["hist"][0]
             limit = LT_LOSS_TOL * max(1.0, abs(gather_loss))
             ok = abs(kernel_loss - gather_loss) <= limit
@@ -7420,8 +7478,11 @@ def _ft_kernels36(batch: int) -> tuple:
     """Phase 36e: kernels 1-3 at the finetune's shape (BH = batch x 12,
     N 4,096, D 64, 32 x 32 blocks, bf16; K = num_critical(128) from
     `plan_attention` on seeded q and k) against their twins on the same
-    card tensors (5e-5, the f32-FMA routes' limit), timed beside their
-    bounds. Returns (forward rows, backward rows)."""
+    card tensors: kernel 1 on its f32-FMA route (5e-5), kernels 2-3 on the
+    "tc32" route (`cases.tc_criterion`, a bitwise repeat); timed beside
+    their bounds (operations at the route's peak, and at the f32-FMA
+    peak) and beside compiled flex_attention's backward, with the ratio.
+    Returns (forward rows, backward rows)."""
     sla = finetune_dit.build(FT_PRESET, "sla").sla
     p = finetune_dit.PRESETS[FT_PRESET]
     h, n, d = p["num_heads"], p["seq"], p["head_dim"]
@@ -7475,13 +7536,25 @@ def _ft_kernels36(batch: int) -> tuple:
         r["k_sel"] = plan.k_sel
         say(f"  {r['kernel']} f32-FMA bound {r['bound_ms_f32_fma']:.3f} ms "
             f"({r['bound_ms_f32_fma'] / r['ms']:.1%})")
+    both = sum(r["ms"] for r in bwd)
+    flex_ms = lib.get("library_ms")
+    for r in bwd:
+        r["dq_plus_dkv_ms"] = both
+        r["ratio_to_library"] = (both / flex_ms if flex_ms is not None
+                                 else None)
+    say(f"[36 kernels] kernels 2 + 3 on the tc32 route {both:.3f} ms | "
+        f"compiled flex_attention backward "
+        + (f"{flex_ms:.3f} ms | ratio {both / flex_ms:.3f}"
+           if flex_ms is not None else "failed")
+        + f" | on {CARD[0]}")
     del dq_args, dkv_args, q, k, v, plan
     torch.cuda.empty_cache()
     bad = [r for r in fwd if not r["ok"] or r["route"] != FWD_F32_ROUTE]
-    bad += [r for r in bwd if not r["ok"] or r["route"] != F32_ROUTE]
+    bad += [r for r in bwd if not r["ok"] or r["route"] != TC32_ROUTE]
     if bad:
-        raise RuntimeError(f"a kernel disagrees with its twin or left the "
-                           f"f32-FMA route at the finetune shape: {bad}")
+        raise RuntimeError(f"a kernel disagrees with its twin or left its "
+                           f"route at the finetune shape (forward: f32 "
+                           f"FMA, backward: tc32): {bad}")
     return fwd, bwd
 
 
@@ -8774,6 +8847,8 @@ def main(argv=None) -> int:
     for name, line in (("sla_bwd_dq", 48), ("sla_bwd_dkv", 76)):
         mine = [r for r in bwd_rows if r["kernel"] == name]
         tc_cases = [r for r in mine if r["route"] == TC_ROUTE]
+        tc32_cases = [r for r in mine if r["route"] == TC32_ROUTE]
+        ft32 = next(r for r in ex_bwd_rows if r["kernel"] == name)
         wan, tc = wan_bwd[name], wan_tc[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -8806,7 +8881,8 @@ def main(argv=None) -> int:
                 "bitwise_repeat", "ok")} for r in g3t_bwd_rows
                 if r["kernel"] == name],
             "finetune_cases": [{**{k: r[k] for k in FT_CASE_KEYS},
-                                **{k: r[k] for k in FT_FLEX_KEYS if k in r}}
+                                **{k: r[k] for k in FT_FLEX_KEYS if k in r},
+                                **{k: r[k] for k in FT_TC32_KEYS if k in r}}
                                for r in ex_bwd_rows if r["kernel"] == name],
             "max_abs_err": max(r["max_abs_err"] for r in mine
                                if r["route"] == F32_ROUTE),
@@ -8838,6 +8914,23 @@ def main(argv=None) -> int:
             "d64_cases": [{k: r[k] for k in d64_keys}
                           for r in hy_bwd_rows + ed_bwd_rows + vl_bwd_rows
                           if r["kernel"] == name],
+            "route_tc32": TC32_ROUTE,
+            "source_tc32": "src/repro_torch/kernels/csrc/sla_bwd_tc32.cu",
+            "tc32_launches": ftc[f"tc32_{name}"] + qsc[f"tc32_{name}"],
+            "tc32_launches_by_path": {
+                "dit_finetune_sla": ftc[f"tc32_{name}"],
+                "quickstart": qsc[f"tc32_{name}"]},
+            "tc32_shape": ft32["shape"],
+            "ms_tc32": ft32["ms"], "plain_ms_tc32": ft32["plain_ms"],
+            "bound_ms_tc32": ft32["bound_ms"],
+            "bound_by_tc32": ft32["bound_by"],
+            "bound_fraction_tc32": ft32["bound_fraction"],
+            "library_ms_tc32": ft32["library_ms"],
+            "dq_plus_dkv_ms_tc32": ft32["dq_plus_dkv_ms"],
+            "ratio_to_library_tc32": ft32["ratio_to_library"],
+            "ctas_per_sm_tc32": ft32["ctas_per_sm"],
+            "max_abs_err_tc32": max(r["max_abs_err"] for r in tc32_cases),
+            "tc_criterion_all_ok_tc32": all(r["ok"] for r in tc32_cases),
             "cases": mine,
         })
     head = next(r for r in dec_rows if r["shape"] == "qwen3-1.7b decode C=1"

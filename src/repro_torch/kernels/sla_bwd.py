@@ -1,5 +1,6 @@
-"""SLA sparse-branch backward: the CUDA kernels `csrc/sla_bwd.cu` and
-`csrc/sla_bwd_tc.cu`, their plain twins, and their launch counters.
+"""SLA sparse-branch backward: the CUDA kernels `csrc/sla_bwd.cu`,
+`csrc/sla_bwd_tc.cu` and `csrc/sla_bwd_tc32.cu`, their plain twins, the
+route rule, and their launch counters.
 
 Counterparts of the Pallas TPU kernels `repro.kernels.sla_bwd._dq_kernel`
 (`sla_bwd_dq`) and `_dkv_kernel` (`sla_bwd_dkv`). With P = exp(S * scale
@@ -14,15 +15,23 @@ dS = P * (dO V^T - D) * scale, D = rowsum(dO^s * O^s):
 Each wrapper launches a kernel for CUDA tensors and runs the plain twin
 (plain PyTorch walking the same LUT loop) only for CPU tensors: a CUDA
 tensor gets a kernel or an exception, never the twin. Which kernel is a
-rule on dtype and shape (`sla_fwd.use_tensor_cores`, the forward's rule
-too, so a training step never mixes routes), not a fallback:
+rule on dtype and shape (`backward_route`), not a fallback:
 
-  * bf16 q, k, v at 64 x 64 blocks and head dims up to 128: the
-    tensor-core kernels of `sla_bwd_tc.cu` (wgmma). Their precision is
+  * bf16 q, k, v at 64 x 64 blocks and head dims up to 128 ("tc",
+    `sla_fwd.use_tensor_cores`, the forward's rule too): the tensor-core
+    kernels of `sla_bwd_tc.cu` (wgmma). Their precision is
     FlashAttention's: dO (cast once from f32 by the wrapper), P and dS are
     rounded to bf16 before their products; every sum is f32. Narrower
     heads are zero-padded to `TC_HEAD_DIM` (zero columns change neither S
     nor dP) and the outputs sliced back.
+  * bf16 q, k, v at 32 x 32 blocks and head dims up to 128 ("tc32", the
+    paper's fine-tune): the tensor-core kernels of `sla_bwd_tc32.cu`
+    (mma.sync, built at head dims 64 and 128; narrower heads are
+    zero-padded to the next of them, `tc32_head_dim`), with the same
+    precision. The forward has no route of its own there and stays on
+    `sla_fwd.cu`, so such a step mixes routes: P is f32 going forward,
+    and the backward recomputes it from the forward's f32 L and rounds
+    dO, P and dS to bf16 before their products.
   * everything else (f32, other blocks, and head dims above 128 up to
     `MAX_HEAD_DIM`, gemma3's 256 among them, in either dtype): the
     f32-FMA kernels of `sla_bwd.cu`, every product in f32 from the same
@@ -31,12 +40,13 @@ too, so a training step never mixes routes), not a fallback:
 
 A failed build or launch raises; nothing reroutes. The twins compute in
 f32; with `mma_dtype=torch.bfloat16` they round dO, P and dS where the
-tensor-core kernels do, the yardstick of that route's rounding.
-`LAUNCHES_DQ` / `LAUNCHES_DKV` count kernel launches of either route and
-nothing else, `TC_LAUNCHES_DQ` / `TC_LAUNCHES_DKV` those of the
-tensor-core route, `HEAD_DIMS_DQ` / `HEAD_DIMS_DKV` the same launches by
-the head dim the kernel ran at (`TC_HEAD_DIM` on the tensor-core route,
-which pads to it; the own D on the f32 route).
+tensor-core kernels of both routes do, the yardstick of their rounding.
+`LAUNCHES_DQ` / `LAUNCHES_DKV` count kernel launches of any route and
+nothing else, `TC_LAUNCHES_DQ` / `TC_LAUNCHES_DKV` those of the "tc"
+route, `TC32_LAUNCHES_DQ` / `TC32_LAUNCHES_DKV` those of the "tc32"
+route, `HEAD_DIMS_DQ` / `HEAD_DIMS_DKV` the same launches by the head dim
+the kernel ran at (`TC_HEAD_DIM` on the "tc" route and `tc32_head_dim(d)`
+on the "tc32" route, which pad to them; the own D on the f32 route).
 """
 from __future__ import annotations
 
@@ -53,8 +63,12 @@ from repro_torch.kernels.sla_fwd import (NEG_INF, TC_BLOCK, TC_HEAD_DIM,
 
 LAUNCHES_DQ = 0   # dQ kernel launches in this process (twin calls excluded)
 LAUNCHES_DKV = 0  # dK/dV kernel launches in this process
-TC_LAUNCHES_DQ = 0   # of which on the tensor-core route
+TC_LAUNCHES_DQ = 0   # of which on the tensor-core route at 64 x 64
 TC_LAUNCHES_DKV = 0
+TC32_LAUNCHES_DQ = 0   # of which on the tensor-core route at 32 x 32
+TC32_LAUNCHES_DKV = 0
+TC32_BLOCK = 32  # the "tc32" kernels' block_q == block_kv
+TC32_HEAD_DIMS = (64, 128)  # the head dims they are built for
 HEAD_DIMS_DQ = collections.Counter()  # LAUNCHES_DQ by the head dim run at
 HEAD_DIMS_DKV = collections.Counter()  # LAUNCHES_DKV alike
 
@@ -71,6 +85,9 @@ _LAUNCHERS = {
                 "sla_bwd_dkv_launch": _DKV_ARGTYPES},
     "sla_bwd_tc": {"sla_bwd_dq_tc_launch": _DQ_ARGTYPES[:-2] + [_P],
                    "sla_bwd_dkv_tc_launch": _DKV_ARGTYPES[:-2] + [_P]},
+    "sla_bwd_tc32": {"sla_bwd_dq_tc32_launch": _DQ_ARGTYPES[:-2] + [_P],
+                     "sla_bwd_dkv_tc32_launch": _DKV_ARGTYPES[:-2] + [_P],
+                     "sla_bwd_tc32_ctas_per_sm": [_I, _I]},
 }
 
 
@@ -86,6 +103,37 @@ def _lib(name: str = "sla_bwd") -> ctypes.CDLL:
     lib.sla_bwd_error_string.argtypes = [ctypes.c_int]
     lib.sla_bwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def backward_route(dtype: torch.dtype, block_q: int, block_kv: int,
+                   d: int) -> str:
+    """The backward kernels a CUDA call takes: "tc" (`use_tensor_cores`:
+    bf16 at 64 x 64 blocks, D <= 128, `sla_bwd_tc.cu`), "tc32" (bf16 at
+    32 x 32 blocks, D <= 128, `sla_bwd_tc32.cu`) or "fma" (`sla_bwd.cu`,
+    every other call)."""
+    if use_tensor_cores(dtype, block_q, block_kv, d):
+        return "tc"
+    if (dtype == torch.bfloat16 and block_q == TC32_BLOCK
+            and block_kv == TC32_BLOCK and d <= TC_HEAD_DIM):
+        return "tc32"
+    return "fma"
+
+
+def tc32_head_dim(d: int) -> int:
+    """The head dim the "tc32" kernels run a call of head dim d at: the
+    first of `TC32_HEAD_DIMS` that holds it (the wrapper zero-pads)."""
+    return next(w for w in TC32_HEAD_DIMS if d <= w)
+
+
+def ctas_per_sm(kernel: str, d: int) -> int:
+    """CTAs of the "tc32" route's dQ ("sla_bwd_dq") or dK/dV
+    ("sla_bwd_dkv") kernel at head dim d (64 or 128) that fit on one SM
+    of the current CUDA device; raises on a CUDA error."""
+    lib = _lib("sla_bwd_tc32")
+    got = lib.sla_bwd_tc32_ctas_per_sm(int(kernel == "sla_bwd_dkv"), d)
+    if got < 0:
+        _raise_on(-got, f"{kernel} occupancy query", lib)
+    return got
 
 
 def _route(kernel: str, q: torch.Tensor) -> bool:
@@ -111,10 +159,10 @@ def sla_bwd_dq(lut, counts, q, k, v, do_s, lse, d_s, *, scale: float,
       lse:    (BH, N) f32 forward row log-sum-exp; d_s (BH, N) f32
               rowsum(dO^s * O^s).
 
-    Returns dq (BH, N, D) f32. On CUDA, bf16 q at 64 x 64 blocks and
-    D <= 128 runs the tensor-core kernel (dO, P and dS rounded to bf16),
-    everything else (D up to `MAX_HEAD_DIM`) the f32-FMA kernel
-    (`use_tensor_cores`); CPU tensors run the f32 twin.
+    Returns dq (BH, N, D) f32. On CUDA, bf16 q at 64 x 64 or 32 x 32
+    blocks and D <= 128 runs a tensor-core kernel (dO, P and dS rounded to
+    bf16), everything else (D up to `MAX_HEAD_DIM`) the f32-FMA kernel
+    (`backward_route`); CPU tensors run the f32 twin.
     """
     kw = dict(scale=scale, causal=causal, block_q=block_q,
               block_kv=block_kv)
@@ -183,9 +231,10 @@ def _launch_dq(lut, counts, q, k, v, do_s, lse, d_s, *, scale, causal,
     _check("sla_bwd_dq", lut, counts, q, k, v, do_s, lse, d_s, block_q,
            block_kv, block_q)
     bh, n, d = q.shape
-    if use_tensor_cores(q.dtype, block_q, block_kv, d):
+    route = backward_route(q.dtype, block_q, block_kv, d)
+    if route != "fma":
         return _launch_dq_tc(lut, counts, q, k, v, do_s, lse, d_s,
-                             scale=scale, causal=causal)
+                             scale=scale, causal=causal, route=route)
     lib = _lib()
     dq = torch.empty((bh, n, d), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -208,9 +257,10 @@ def _launch_dkv(col_lut, col_counts, q, k, v, do_s, lse, d_s, *, scale,
     _check("sla_bwd_dkv", col_lut, col_counts, q, k, v, do_s, lse, d_s,
            block_q, block_kv, block_kv)
     bh, n, d = q.shape
-    if use_tensor_cores(q.dtype, block_q, block_kv, d):
+    route = backward_route(q.dtype, block_q, block_kv, d)
+    if route != "fma":
         return _launch_dkv_tc(col_lut, col_counts, q, k, v, do_s, lse, d_s,
-                              scale=scale, causal=causal)
+                              scale=scale, causal=causal, route=route)
     lib = _lib()
     dk = torch.empty((bh, n, d), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
@@ -228,62 +278,84 @@ def _launch_dkv(col_lut, col_counts, q, k, v, do_s, lse, d_s, *, scale,
     return dk, dv
 
 
-def _tc_operands(kernel, q, k, v, do_s, lse, d_s):
+def _tc_operands(kernel, q, k, v, do_s, lse, d_s, width=TC_HEAD_DIM):
     """q, k, v and dO as the tensor-core kernels read them: dO cast to
-    bf16 once, all four zero-padded to `TC_HEAD_DIM`. Raises unless
-    they, lse and d_s start on 16 bytes (the kernels copy 16-byte
-    chunks)."""
-    xs = [pad_head_dim(x) for x in (q, k, v, do_s.to(torch.bfloat16))]
+    bf16 once, all four zero-padded to `width` (`TC_HEAD_DIM` on the "tc"
+    route, `tc32_head_dim(d)` on the "tc32" route). Raises unless they,
+    lse and d_s start on 16 bytes (the kernels copy 16-byte chunks)."""
+    xs = [pad_head_dim(x, width)
+          for x in (q, k, v, do_s.to(torch.bfloat16))]
     if any(x.data_ptr() % 16 for x in (*xs, lse, d_s)):
         raise ValueError(f"{kernel}: the tensor-core kernel needs q, k, v, "
                          f"do_s, lse and d_s 16-byte aligned")
     return xs
 
 
-def _launch_dq_tc(lut, counts, q, k, v, do_s, lse, d_s, *, scale, causal):
-    global LAUNCHES_DQ, TC_LAUNCHES_DQ
-    lib = _lib("sla_bwd_tc")
+# route -> (library, block, its name in a launch error)
+_TC_ROUTES = {"tc": ("sla_bwd_tc", TC_BLOCK, "tensor-core"),
+              "tc32": ("sla_bwd_tc32", TC32_BLOCK, "tensor-core 32 x 32")}
+
+
+def _tc_width(route: str, d: int) -> int:
+    return TC_HEAD_DIM if route == "tc" else tc32_head_dim(d)
+
+
+def _launch_dq_tc(lut, counts, q, k, v, do_s, lse, d_s, *, scale, causal,
+                  route):
+    global LAUNCHES_DQ, TC_LAUNCHES_DQ, TC32_LAUNCHES_DQ
+    name, block, what = _TC_ROUTES[route]
+    lib = _lib(name)
     bh, n, d = q.shape
-    qp, kp, vp, dop = _tc_operands("sla_bwd_dq", q, k, v, do_s, lse, d_s)
-    dq = torch.empty((bh, n, TC_HEAD_DIM), dtype=torch.float32,
-                     device=q.device)
+    width = _tc_width(route, d)
+    qp, kp, vp, dop = _tc_operands("sla_bwd_dq", q, k, v, do_s, lse, d_s,
+                                   width)
+    dq = torch.empty((bh, n, width), dtype=torch.float32, device=q.device)
+    launch = getattr(lib, f"sla_bwd_dq_{route}_launch")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sla_bwd_dq_tc_launch(
+        err = launch(
             lut.data_ptr(), counts.data_ptr(), qp.data_ptr(), kp.data_ptr(),
             vp.data_ptr(), dop.data_ptr(), lse.data_ptr(), d_s.data_ptr(),
-            dq.data_ptr(), bh, k.shape[0], n, TC_HEAD_DIM, lut.shape[-1],
-            TC_BLOCK, TC_BLOCK, float(scale), int(bool(causal)), stream)
-    _raise_on(err, "sla_bwd_dq tensor-core", lib)
+            dq.data_ptr(), bh, k.shape[0], n, width, lut.shape[-1], block,
+            block, float(scale), int(bool(causal)), stream)
+    _raise_on(err, f"sla_bwd_dq {what}", lib)
     LAUNCHES_DQ += 1
-    TC_LAUNCHES_DQ += 1
-    HEAD_DIMS_DQ[TC_HEAD_DIM] += 1
-    return dq if d == TC_HEAD_DIM else dq[..., :d].contiguous()
+    if route == "tc":
+        TC_LAUNCHES_DQ += 1
+    else:
+        TC32_LAUNCHES_DQ += 1
+    HEAD_DIMS_DQ[width] += 1
+    return dq if d == width else dq[..., :d].contiguous()
 
 
 def _launch_dkv_tc(col_lut, col_counts, q, k, v, do_s, lse, d_s, *, scale,
-                   causal):
-    global LAUNCHES_DKV, TC_LAUNCHES_DKV
-    lib = _lib("sla_bwd_tc")
+                   causal, route):
+    global LAUNCHES_DKV, TC_LAUNCHES_DKV, TC32_LAUNCHES_DKV
+    name, block, what = _TC_ROUTES[route]
+    lib = _lib(name)
     bh, n, d = q.shape
-    qp, kp, vp, dop = _tc_operands("sla_bwd_dkv", q, k, v, do_s, lse,
-                                   d_s)
-    dk = torch.empty((bh, n, TC_HEAD_DIM), dtype=torch.float32,
-                     device=q.device)
+    width = _tc_width(route, d)
+    qp, kp, vp, dop = _tc_operands("sla_bwd_dkv", q, k, v, do_s, lse, d_s,
+                                   width)
+    dk = torch.empty((bh, n, width), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
+    launch = getattr(lib, f"sla_bwd_dkv_{route}_launch")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.sla_bwd_dkv_tc_launch(
+        err = launch(
             col_lut.data_ptr(), col_counts.data_ptr(), qp.data_ptr(),
             kp.data_ptr(), vp.data_ptr(), dop.data_ptr(), lse.data_ptr(),
             d_s.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, k.shape[0], n,
-            TC_HEAD_DIM, col_lut.shape[-1], TC_BLOCK, TC_BLOCK,
-            float(scale), int(bool(causal)), stream)
-    _raise_on(err, "sla_bwd_dkv tensor-core", lib)
+            width, col_lut.shape[-1], block, block, float(scale),
+            int(bool(causal)), stream)
+    _raise_on(err, f"sla_bwd_dkv {what}", lib)
     LAUNCHES_DKV += 1
-    TC_LAUNCHES_DKV += 1
-    HEAD_DIMS_DKV[TC_HEAD_DIM] += 1
-    if d != TC_HEAD_DIM:
+    if route == "tc":
+        TC_LAUNCHES_DKV += 1
+    else:
+        TC32_LAUNCHES_DKV += 1
+    HEAD_DIMS_DKV[width] += 1
+    if d != width:
         dk, dv = dk[..., :d].contiguous(), dv[..., :d].contiguous()
     return dk, dv
 
@@ -327,7 +399,7 @@ def sla_bwd_dq_plain(lut, counts, q, k, v, do_s, lse, d_s, *, scale: float,
     slots s >= counts left out. Same arguments and output as
     `sla_bwd_dq`; all arithmetic in f32. `mma_dtype=torch.bfloat16`
     rounds dO and dS to bf16 before their products, as the tensor-core
-    kernel does."""
+    kernels of both routes do."""
     bh, n, d = q.shape
     qb, kb, vb, dob, lseb, dsb = _tiles(q, k, v, do_s, lse, d_s, block_q,
                                         block_kv)
@@ -359,7 +431,7 @@ def sla_bwd_dkv_plain(col_lut, col_counts, q, k, v, do_s, lse, d_s, *,
     once, slots c >= col_counts left out. Same arguments and outputs as
     `sla_bwd_dkv`; all arithmetic in f32. `mma_dtype=torch.bfloat16`
     rounds dO, P and dS to bf16 before their products, as the
-    tensor-core kernel does."""
+    tensor-core kernels of both routes do."""
     bh, n, d = q.shape
     qb, kb, vb, dob, lseb, dsb = _tiles(q, k, v, do_s, lse, d_s, block_q,
                                         block_kv)

@@ -14,9 +14,13 @@ kernel is a rule on dtype and shape (`forward_route`), not a fallback:
 
   * bf16 q, k, v at 64 x 64 blocks and head dims up to 128: the
     tensor-core kernel of `sla_fwd_tc.cu` (wgmma; `use_tensor_cores`, the
-    rule the backward's wrappers import too, so a bf16 training step never
-    mixes routes). Its precision is FlashAttention's: P is rounded to bf16
-    before P V; every sum, m, l, lse and the whole linear branch are f32.
+    rule the backward's wrappers apply too, so a bf16 training step at 64
+    x 64 blocks rounds alike in both directions). Its precision is
+    FlashAttention's: P is rounded to bf16 before P V; every sum, m, l,
+    lse and the whole linear branch are f32. At 32 x 32 blocks the
+    backward has a tensor-core route of its own (`sla_bwd.backward_route`)
+    while the forward stays on `sla_fwd.cu`: such a step computes P in f32
+    going forward and rounds dO, P and dS to bf16 going back.
   * f32 q, k, v at those blocks and head dims (`use_split`, a rule of the
     forward alone: f32 DiT serving): the split kernel of
     `sla_fwd_split.cu`, on the tensor cores with f32 accuracy. Each f32
@@ -109,10 +113,13 @@ def _lib(name: str = "sla_fwd") -> ctypes.CDLL:
 
 def use_tensor_cores(dtype: torch.dtype, block_q: int, block_kv: int,
                      d: int) -> bool:
-    """The bf16 route rule of a CUDA call, for the forward and the
-    backward: bf16 operands at 64 x 64 blocks and head dims up to
-    `TC_HEAD_DIM` take the tensor-core kernels (the rounding of P, and of
-    dO, P and dS, is then the same in both directions)."""
+    """The bf16 route rule of a CUDA call at 64 x 64 blocks, for the
+    forward and the backward: bf16 operands at 64 x 64 blocks and head
+    dims up to `TC_HEAD_DIM` take the tensor-core kernels (the rounding of
+    P, and of dO, P and dS, is then the same in both directions). The
+    backward adds a route at 32 x 32 blocks (`sla_bwd.backward_route`);
+    the forward stays on its f32-FMA kernel there, so a bf16 step at 32 x
+    32 blocks mixes routes."""
     return (dtype == torch.bfloat16 and block_q == TC_BLOCK
             and block_kv == TC_BLOCK and d <= TC_HEAD_DIM)
 
@@ -164,13 +171,14 @@ def _split_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def pad_head_dim(x: torch.Tensor) -> torch.Tensor:
-    """Zero-pad the last dim to `TC_HEAD_DIM` (x itself when it is that
-    wide already)."""
+def pad_head_dim(x: torch.Tensor, width: int = TC_HEAD_DIM
+                 ) -> torch.Tensor:
+    """Zero-pad the last dim to `width` (x itself when it is that wide
+    already)."""
     d = x.shape[-1]
-    if d == TC_HEAD_DIM:
+    if d == width:
         return x
-    return torch.nn.functional.pad(x, (0, TC_HEAD_DIM - d)).contiguous()
+    return torch.nn.functional.pad(x, (0, width - d)).contiguous()
 
 
 def split_kv_planes(k: torch.Tensor, v: torch.Tensor

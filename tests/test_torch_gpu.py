@@ -34,10 +34,11 @@ from repro_torch.optim import adamw
 # Kernel and twin read the same (possibly bf16) inputs and accumulate in
 # f32, so both dtypes are held to the f32 limit; 5e-2 is test_conformance's
 # limit for the port's bf16 path against JAX's, not for kernel vs twin.
-# The tensor-core routes (bf16 at 64 x 64 blocks) round P (forward) and
-# dO, P and dS (backward) to bf16 before their products and are held by
-# `cases.tc_criterion` against the twin that rounds alike; the forward's
-# O^l, whose arithmetic stays f32, is held to 5e-5.
+# The tensor-core routes (bf16 at 64 x 64 blocks, and the backward's
+# "tc32" route at 32 x 32) round P (forward) and dO, P and dS (backward)
+# to bf16 before their products and are held by `cases.tc_criterion`
+# against the twin that rounds alike; the forward's O^l, whose arithmetic
+# stays f32, is held to 5e-5.
 TWIN_TOL = 5e-5
 pytestmark = pytest.mark.gpu
 
@@ -538,6 +539,10 @@ def _launches():
             sla_bwd.TC_LAUNCHES_DQ, sla_bwd.TC_LAUNCHES_DKV)
 
 
+def _tc32_launches():
+    return sla_bwd.TC32_LAUNCHES_DQ, sla_bwd.TC32_LAUNCHES_DKV
+
+
 def _assert_tc(got, plain, args, kw):
     """The tensor-core route's criterion against the f32 twin and the
     twin that rounds dO, P and dS to bf16."""
@@ -553,19 +558,23 @@ def _assert_tc(got, plain, args, kw):
 def test_cuda_bwd_kernels_match_plain_twins(h, group, n, d, block, causal,
                                             dtype):
     """Both backward kernels against their twins: the f32-FMA route within
-    5e-5, the tensor-core route (bf16 at 64 x 64 blocks) by the rounding
-    criterion; the route's own counter moves once per call."""
+    5e-5, the tensor-core routes (bf16 at 64 x 64 blocks, and at 32 x 32)
+    by the rounding criterion; the route's own counter moves once per
+    call."""
     _need_gpu()
     dq_args, dkv_args, kw = _bwd_operands(11, h, group, n, d, block, dtype,
                                           causal)
-    tc = sla_bwd.use_tensor_cores(dtype, block, block, d)
-    before = _launches()
+    route = sla_bwd.backward_route(dtype, block, block, d)
+    tc, tc32 = int(route == "tc"), int(route == "tc32")
+    before, before32 = _launches(), _tc32_launches()
     got_dq = sla_bwd.sla_bwd_dq(*dq_args, **kw)
     got_dkv = sla_bwd.sla_bwd_dkv(*dkv_args, **kw)
     torch.cuda.synchronize()
     assert tuple(a - b for a, b in zip(_launches(), before)) == \
-        (1, 1, int(tc), int(tc))
-    if tc:
+        (1, 1, tc, tc)
+    assert tuple(a - b for a, b in zip(_tc32_launches(), before32)) == \
+        (tc32, tc32)
+    if route != "fma":
         _assert_tc(got_dq, sla_bwd.sla_bwd_dq_plain, dq_args, kw)
         _assert_tc(got_dkv, sla_bwd.sla_bwd_dkv_plain, dkv_args, kw)
     else:
@@ -634,6 +643,110 @@ def test_cuda_tc_bwd_kernels_stop_at_counts():
     assert torch.all(dk[0, 128:192] == 0) and torch.all(dv[0, 128:192] == 0)
     _assert_tc(dq, sla_bwd.sla_bwd_dq_plain, dq_args, kw)
     _assert_tc((dk, dv), sla_bwd.sla_bwd_dkv_plain, dkv_args, kw)
+
+
+TC32_BWD_CASES = [
+    # (h, group, n, d, causal): D 64 (the fine-tune's), D 48 (padded to
+    # 64) and D 128, GQA-2, causal and bidirectional
+    pytest.param(4, 2, 512, d, causal,
+                 id=f"d{d}-{'causal' if causal else 'bidir'}")
+    for d in (64, 48, 128)
+    for causal in (True, False)
+]
+
+
+@pytest.mark.parametrize("h,group,n,d,causal", TC32_BWD_CASES)
+def test_cuda_tc32_bwd_kernels_match_plain_twins(h, group, n, d, causal):
+    """The "tc32" route (bf16 at 32 x 32 blocks) against the f32 twin and
+    the twin that rounds dO, P and dS to bf16, by `cases.tc_criterion`;
+    its own counters move once a call, at the head dim it pads to."""
+    _need_gpu()
+    dq_args, dkv_args, kw = _bwd_operands(13, h, group, n, d, 32,
+                                          torch.bfloat16, causal)
+    assert sla_bwd.backward_route(torch.bfloat16, 32, 32, d) == "tc32"
+    width = sla_bwd.tc32_head_dim(d)
+    before, before32 = _launches(), _tc32_launches()
+    dims = (sla_bwd.HEAD_DIMS_DQ[width], sla_bwd.HEAD_DIMS_DKV[width])
+    got_dq = sla_bwd.sla_bwd_dq(*dq_args, **kw)
+    got_dkv = sla_bwd.sla_bwd_dkv(*dkv_args, **kw)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (1, 1, 0, 0)
+    assert tuple(a - b for a, b in zip(_tc32_launches(), before32)) == (1, 1)
+    assert (sla_bwd.HEAD_DIMS_DQ[width] - dims[0],
+            sla_bwd.HEAD_DIMS_DKV[width] - dims[1]) == (1, 1)
+    assert got_dq.shape == (h, n, d) and got_dkv[0].shape == (h, n, d)
+    assert float(got_dq.abs().max()) > 0
+    _assert_tc(got_dq, sla_bwd.sla_bwd_dq_plain, dq_args, kw)
+    _assert_tc(got_dkv, sla_bwd.sla_bwd_dkv_plain, dkv_args, kw)
+
+
+def test_cuda_tc32_bwd_kernels_are_deterministic():
+    """No atomics on the "tc32" route: two launches on the same operands
+    are bitwise equal."""
+    _need_gpu()
+    dq_args, dkv_args, kw = _bwd_operands(14, 4, 2, 1024, 64, 32,
+                                          torch.bfloat16, True)
+    before = _tc32_launches()
+    first = (sla_bwd.sla_bwd_dq(*dq_args, **kw),
+             *sla_bwd.sla_bwd_dkv(*dkv_args, **kw))
+    second = (sla_bwd.sla_bwd_dq(*dq_args, **kw),
+              *sla_bwd.sla_bwd_dkv(*dkv_args, **kw))
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_tc32_launches(), before)) == (2, 2)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _masked_luts(mask, dead_block):
+    """A row LUT (live blocks of each row of `mask` (BH, rows, cols) in
+    order, then `dead_block` in every padded slot) and its counts."""
+    order = torch.argsort((~mask).to(torch.int8), dim=-1, stable=True)
+    counts = mask.sum(-1, dtype=torch.int32)
+    slots = torch.arange(mask.shape[-1], device=mask.device)
+    lut = torch.where(slots < counts[..., None], order,
+                      torch.full_like(order, dead_block))
+    return lut.int().contiguous(), counts.contiguous()
+
+
+def test_cuda_tc32_bwd_kernels_stop_at_counts():
+    """The "tc32" kernels never read past the counts: with the padded
+    slots of both LUTs naming blocks whose q, dO, L, D (last query block)
+    or K, V (last kv block) are NaN, and those blocks' own counts 0, the
+    gradients stay finite, zero in the dead blocks, bitwise what they are
+    on the operands without NaN, and meet the rounding criterion."""
+    _need_gpu()
+    h, group, n, d, blk = 4, 2, 512, 64, 32
+    dq_args, _, kw = _bwd_operands(15, h, group, n, d, blk, torch.bfloat16,
+                                   False)
+    t = n // blk
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    mask = torch.rand((h, t, t), generator=gen, device="cuda") < 0.3
+    mask[:, -1, :] = False  # the last query block: no live entry
+    mask[:, :, -1] = False  # the last kv block: no live entry
+    lut, counts = _masked_luts(mask, t - 1)
+    col_lut, col_counts = _masked_luts(mask.transpose(1, 2), t - 1)
+    assert int((counts < t).sum()) > 0 and int(col_counts[:, -1].max()) == 0
+    q, k, v, do, lse, d_s = dq_args[2:]
+    rows = slice(n - blk, n)
+    q_nan, do_nan, lse_nan, ds_nan, k_nan, v_nan = (
+        x.clone() for x in (q, do, lse, d_s, k, v))
+    for x in (q_nan, do_nan, lse_nan, ds_nan, k_nan, v_nan):
+        x[:, rows] = float("nan")
+    clean = (q, k, v, do, lse, d_s)
+    poisoned = (q_nan, k_nan, v_nan, do_nan, lse_nan, ds_nan)
+    before = _tc32_launches()
+    want = (sla_bwd.sla_bwd_dq(lut, counts, *clean, **kw),
+            *sla_bwd.sla_bwd_dkv(col_lut, col_counts, *clean, **kw))
+    got = (sla_bwd.sla_bwd_dq(lut, counts, *poisoned, **kw),
+           *sla_bwd.sla_bwd_dkv(col_lut, col_counts, *poisoned, **kw))
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_tc32_launches(), before)) == (2, 2)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.all(g[:, rows] == 0) for g in got)
+    _assert_tc(got[0], sla_bwd.sla_bwd_dq_plain,
+               (lut, counts, *poisoned), kw)
+    _assert_tc(got[1:], sla_bwd.sla_bwd_dkv_plain,
+               (col_lut, col_counts, *poisoned), kw)
 
 
 def _small_dit(arch, seed):
@@ -731,6 +844,62 @@ def test_kernel_backend_bf16_grads_on_tensor_cores_match_gather(
     want = grads("gather")
     monkeypatch.setattr(ops, "sla_fwd", functools.partial(
         sla_fwd.sla_fwd_plain, mma_dtype=torch.bfloat16))
+    monkeypatch.setattr(ops, "sla_bwd_dq", functools.partial(
+        sla_bwd.sla_bwd_dq_plain, mma_dtype=torch.bfloat16))
+    monkeypatch.setattr(ops, "sla_bwd_dkv", functools.partial(
+        sla_bwd.sla_bwd_dkv_plain, mma_dtype=torch.bfloat16))
+    rounded = grads("kernel")
+    for name in got:
+        res = cases.tc_criterion(got[name], want[name].float(),
+                                 rounded[name])
+        assert res["ok"], (name, res)
+
+
+def test_kernel_backend_bf16_grads_at_32x32_blocks_match_gather(
+        monkeypatch):
+    """bf16 compute at 32 x 32 blocks (smoke Wan, seq 256, D 32 padded to
+    64), the fine-tune's route mix: the forward on its f32-FMA kernel, the
+    backward on the "tc32" kernels; every parameter gradient and the loss
+    meet the rounding criterion against the gather backend (f32 attention
+    arithmetic), the "rounded" term from the kernel backend run through
+    the backward twins that round dO, P and dS to bf16."""
+    _need_gpu()
+    cfg = get_arch("wan2_1_1_3b").smoke()
+    cfg = dataclasses.replace(cfg, sla=cfg.sla.replace(block_q=32,
+                                                       block_kv=32))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    model = dit.init(gen, cfg)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen,
+                                      device="cuda"))
+    rs = np.random.default_rng(7)
+    batch = {"latents": rs.standard_normal((2, 256, cfg.patch_dim),
+                                           dtype=np.float32),
+             "noise": rs.standard_normal((2, 256, cfg.patch_dim),
+                                         dtype=np.float32),
+             "t": np.array([0.8, 0.3], np.float32),
+             "cond": rs.standard_normal((2, cfg.cond_len, cfg.d_model),
+                                        dtype=np.float32)}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+    def grads(backend):
+        model.zero_grad()
+        loss = dit.loss_fn(model, cfg, batch, torch.bfloat16, backend)
+        loss.backward()
+        return {"loss": loss.detach().float(),
+                **{n: p.grad.clone() for n, p in model.named_parameters()}}
+
+    def counts():
+        return (*_launches(), *_tc32_launches(), sla_fwd.LAUNCHES,
+                sla_fwd.TC_LAUNCHES)
+
+    before = counts()
+    got = grads("kernel")
+    n = cfg.num_layers
+    assert tuple(a - b for a, b in zip(counts(), before)) == (
+        n, n, 0, 0, n, n, n, 0)
+    want = grads("gather")
     monkeypatch.setattr(ops, "sla_bwd_dq", functools.partial(
         sla_bwd.sla_bwd_dq_plain, mma_dtype=torch.bfloat16))
     monkeypatch.setattr(ops, "sla_bwd_dkv", functools.partial(

@@ -191,8 +191,10 @@ def test_head_dim_padding_leaves_the_twin_unchanged(mma_dtype):
 ])
 def test_forward_and_backward_share_one_route_rule(dtype, block_q, block_kv,
                                                    d, tc):
-    """One rule object decides the forward's and the backward's route, so
-    a training step never mixes them."""
+    """One rule object decides the forward's and the backward's route at
+    64 x 64 blocks, so a training step there rounds alike in both
+    directions (the backward's 32 x 32 route, `sla_bwd.backward_route`,
+    has no forward counterpart)."""
     assert sla_bwd.use_tensor_cores is sla_fwd.use_tensor_cores
     assert sla_bwd.pad_head_dim is sla_fwd.pad_head_dim
     assert (sla_bwd.TC_BLOCK, sla_bwd.TC_HEAD_DIM) == (sla_fwd.TC_BLOCK,
@@ -461,8 +463,9 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         _build.build("sla_fwd")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
-    assert _build.kernel_names() == ["sla_bwd", "sla_bwd_tc", "sla_decode",
-                                     "sla_fwd", "sla_fwd_split", "sla_fwd_tc"]
+    assert _build.kernel_names() == ["sla_bwd", "sla_bwd_tc", "sla_bwd_tc32",
+                                     "sla_decode", "sla_fwd", "sla_fwd_split",
+                                     "sla_fwd_tc"]
 
 
 def test_library_path_hashes_the_shared_headers(monkeypatch, tmp_path):

@@ -10,7 +10,10 @@ the same (bf16-rounded) values, so both dtypes are held to
 form, which rounds dO, P and dS where the tensor-core kernels do, is held
 to the Pallas kernels within the repo's bf16 conformance limit, 5e-2 x
 max(1, max |reference|); the route rule and the head-dim padding of that
-route are checked here too.
+route are checked here too. At 32 x 32 blocks and D 64, the shape of the
+"tc32" route (the paper's fine-tune), the f32 and the rounded twins are
+held to the Pallas kernels alike, and that route's operands (dO cast,
+padding to 64 or 128) are checked.
 
 The CUDA kernels themselves run only on a GPU: their tests are in
 tests/test_torch_gpu.py.
@@ -32,7 +35,7 @@ BF16_TOL = 5e-2  # tests/test_conformance.py's bf16 limit
 BLOCK = 16
 
 
-def _case(seed, d, group, causal, dtype, h=4, n=128):
+def _case(seed, d, group, causal, dtype, h=4, n=128, block=BLOCK):
     """Numpy operands for one backward call: q, k, v (rounded to bf16
     for the bf16 cases), a random dO^s, the forward's L and
     D = rowsum(dO^s * O^s), and the plan's row and column LUTs."""
@@ -44,13 +47,13 @@ def _case(seed, d, group, causal, dtype, h=4, n=128):
     if dtype == "bf16":
         q, k, v = (np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
                    for x in (q, k, v))
-    cfg = JaxSLAConfig(block_q=BLOCK, block_kv=BLOCK, kh_frac=0.5,
+    cfg = JaxSLAConfig(block_q=block, block_kv=block, kh_frac=0.5,
                        kl_frac=0.25, causal=causal)
     plan = jplan.plan_attention(jnp.asarray(q[None]), jnp.asarray(k[None]),
                                 cfg)
     luts = {name: np.asarray(getattr(plan, name)[0]).astype(np.int32)
             for name in ("lut", "counts", "col_lut", "col_counts")}
-    tm = n // BLOCK
+    tm = n // block
     zeros_h = torch.zeros((h, tm, d, d))
     zeros_z = torch.zeros((h, tm, d))
     t = {name: torch.from_numpy(a) for name, a in
@@ -58,7 +61,7 @@ def _case(seed, d, group, causal, dtype, h=4, n=128):
     o_s, _, lse = sla_fwd.sla_fwd_plain(
         t["lut"], t["counts"], t["q"], t["k"], t["v"], torch.zeros_like(
             t["q"]), zeros_h, zeros_z, scale=d ** -0.5, causal=causal,
-        block_q=BLOCK, block_kv=BLOCK)
+        block_q=block, block_kv=block)
     do = rs.standard_normal((h, n, d), dtype=np.float32)
     d_s = (torch.from_numpy(do) * o_s).sum(-1).numpy()
     return dict(q=q, k=k, v=v, do=do, lse=lse.numpy(), d_s=d_s, **luts)
@@ -192,6 +195,145 @@ def test_tensor_core_route_rule(dtype, block_q, block_kv, d, tc):
     """bf16 at 64 x 64 blocks and head dims up to 128 take the
     tensor-core kernels; everything else the f32-FMA kernels."""
     assert sla_bwd.use_tensor_cores(dtype, block_q, block_kv, d) is tc
+
+
+TC32_CASES = [
+    pytest.param(group, causal,
+                 id=f"g{group}-{'causal' if causal else 'bidir'}")
+    for group in (1, 2)
+    for causal in (False, True)
+]
+
+
+def _tc32_case(group, causal):
+    """Operands at the "tc32" route's shape: bf16 inputs at 32 x 32
+    blocks, D 64, n 256."""
+    c = _case(40 + 3 * group + int(causal), 64, group, causal, "bf16",
+              n=256, block=sla_bwd.TC32_BLOCK)
+    kw = dict(scale=64 ** -0.5, causal=causal, block_q=sla_bwd.TC32_BLOCK,
+              block_kv=sla_bwd.TC32_BLOCK)
+    assert sla_bwd.backward_route(torch.bfloat16, 32, 32, 64) == "tc32"
+    return c, kw
+
+
+@pytest.mark.parametrize("group,causal", TC32_CASES)
+def test_rounded_twins_match_pallas_kernels_at_32x32_blocks(group, causal):
+    """At the "tc32" route's shape the twins that round dO, P and dS to
+    bf16 (that route's arithmetic) stay within bf16 conformance of the
+    Pallas kernels, and the rounding changes the result."""
+    c, kw = _tc32_case(group, causal)
+    dq_args = _torch(c, "bf16", "lut", "counts")
+    dkv_args = _torch(c, "bf16", "col_lut", "col_counts")
+    dq = sla_bwd.sla_bwd_dq_plain(*dq_args, **kw, mma_dtype=torch.bfloat16)
+    dk, dv = sla_bwd.sla_bwd_dkv_plain(*dkv_args, **kw,
+                                       mma_dtype=torch.bfloat16)
+    _close(dq, jax_dq(*_jax(c, "bf16", "lut", "counts"), **kw), "dq",
+           BF16_TOL)
+    jdk, jdv = jax_dkv(*_jax(c, "bf16", "col_lut", "col_counts"), **kw)
+    _close(dk, jdk, "dk", BF16_TOL)
+    _close(dv, jdv, "dv", BF16_TOL)
+    assert not torch.equal(dq, sla_bwd.sla_bwd_dq_plain(*dq_args, **kw))
+    assert float(dq.abs().max()) > 0 and float(dk.abs().max()) > 0
+
+
+@pytest.mark.parametrize("group,causal", TC32_CASES)
+def test_f32_twins_match_pallas_kernels_at_32x32_blocks(group, causal):
+    """At the "tc32" route's shape the f32 twins (the yardstick
+    `cases.tc_criterion` measures that route from) match the Pallas
+    kernels within 5e-5, through the wrappers on CPU tensors, with no
+    launch of any route counted."""
+    c, kw = _tc32_case(group, causal)
+    before = (sla_bwd.LAUNCHES_DQ, sla_bwd.LAUNCHES_DKV,
+              sla_bwd.TC32_LAUNCHES_DQ, sla_bwd.TC32_LAUNCHES_DKV)
+    dq = sla_bwd.sla_bwd_dq(*_torch(c, "bf16", "lut", "counts"), **kw)
+    dk, dv = sla_bwd.sla_bwd_dkv(*_torch(c, "bf16", "col_lut",
+                                         "col_counts"), **kw)
+    assert (sla_bwd.LAUNCHES_DQ, sla_bwd.LAUNCHES_DKV,
+            sla_bwd.TC32_LAUNCHES_DQ, sla_bwd.TC32_LAUNCHES_DKV) == before
+    _close(dq, jax_dq(*_jax(c, "bf16", "lut", "counts"), **kw), "dq")
+    jdk, jdv = jax_dkv(*_jax(c, "bf16", "col_lut", "col_counts"), **kw)
+    _close(dk, jdk, "dk")
+    _close(dv, jdv, "dv")
+
+
+@pytest.mark.parametrize("dtype,block_q,block_kv,d,route", [
+    (torch.bfloat16, 64, 64, 128, "tc"),
+    (torch.bfloat16, 64, 64, 108, "tc"),
+    (torch.bfloat16, 64, 64, 64, "tc"),
+    (torch.bfloat16, 32, 32, 64, "tc32"),
+    (torch.bfloat16, 32, 32, 128, "tc32"),
+    (torch.bfloat16, 32, 32, 48, "tc32"),
+    (torch.bfloat16, 32, 32, 108, "tc32"),
+    (torch.bfloat16, 32, 32, 132, "fma"),
+    (torch.bfloat16, 32, 32, 256, "fma"),
+    (torch.float32, 32, 32, 64, "fma"),
+    (torch.float32, 64, 64, 128, "fma"),
+    (torch.bfloat16, 32, 64, 64, "fma"),
+    (torch.bfloat16, 64, 32, 64, "fma"),
+    (torch.bfloat16, 16, 16, 64, "fma"),
+    (torch.bfloat16, 64, 64, 256, "fma"),
+])
+def test_backward_route_rule(dtype, block_q, block_kv, d, route):
+    """bf16 at 64 x 64 blocks takes the "tc" kernels (the forward's
+    tensor-core rule), bf16 at 32 x 32 blocks the "tc32" kernels, both up
+    to D 128; everything else the f32-FMA kernels. The forward keeps its
+    own rule: at 32 x 32 blocks it stays on its f32-FMA kernel."""
+    assert sla_bwd.backward_route(dtype, block_q, block_kv, d) == route
+    assert sla_bwd.use_tensor_cores(dtype, block_q, block_kv, d) is (
+        route == "tc")
+    if route == "tc32":
+        assert not sla_fwd.use_tensor_cores(dtype, block_q, block_kv, d)
+        assert sla_fwd.forward_route(dtype, block_q, block_kv, d) == "fma"
+
+
+@pytest.mark.parametrize("d,width", [(48, 64), (64, 64), (108, 128),
+                                     (128, 128)])
+def test_tc32_operands_are_cast_padded_and_aligned(d, width):
+    """What the "tc32" kernels read: bf16 q, k, v and dO zero-padded to
+    the next of 64 and 128 (q itself where it is that wide); a misaligned
+    lse or d_s is refused."""
+    assert sla_bwd.tc32_head_dim(d) == width
+    c = _case(6, d, 2, False, "bf16")
+    q, k, v, do, lse, d_s = _torch(c, "bf16", "lut", "counts")[2:]
+    xs = sla_bwd._tc_operands("sla_bwd_dq", q, k, v, do, lse, d_s, width)
+    for x, src in zip(xs, (q, k, v, do)):
+        assert x.dtype == torch.bfloat16 and x.is_contiguous()
+        assert x.shape == (*src.shape[:-1], width)
+        assert torch.equal(x[..., :d], src.to(torch.bfloat16))
+        assert d == width or float(x[..., d:].abs().max()) == 0
+    assert (xs[0] is q) is (d == width)
+    assert xs[3].dtype == torch.bfloat16 and do.dtype == torch.float32
+
+    def shifted(x):
+        return x.reshape(-1)[1:1 + x.numel() - 64].reshape(x.shape[0], -1)
+
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sla_bwd._tc_operands("sla_bwd_dq", q, k, v, do, shifted(lse), d_s,
+                             width)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sla_bwd._tc_operands("sla_bwd_dkv", q, k, v, do, lse, shifted(d_s),
+                             width)
+
+
+def test_cpu_tensors_on_the_tc32_shape_run_the_f32_twin():
+    """A CPU call at the "tc32" route's shape runs the f32 twin (no
+    rounding) and counts no launch of any route."""
+    c, kw = _tc32_case(2, True)
+    dq_args = _torch(c, "bf16", "lut", "counts")
+    dkv_args = _torch(c, "bf16", "col_lut", "col_counts")
+    before = (sla_bwd.LAUNCHES_DQ, sla_bwd.LAUNCHES_DKV,
+              sla_bwd.TC_LAUNCHES_DQ, sla_bwd.TC_LAUNCHES_DKV,
+              sla_bwd.TC32_LAUNCHES_DQ, sla_bwd.TC32_LAUNCHES_DKV)
+    got = sla_bwd.sla_bwd_dq(*dq_args, **kw)
+    got_kv = sla_bwd.sla_bwd_dkv(*dkv_args, **kw)
+    assert (sla_bwd.LAUNCHES_DQ, sla_bwd.LAUNCHES_DKV,
+            sla_bwd.TC_LAUNCHES_DQ, sla_bwd.TC_LAUNCHES_DKV,
+            sla_bwd.TC32_LAUNCHES_DQ, sla_bwd.TC32_LAUNCHES_DKV) == before
+    assert torch.equal(got, sla_bwd.sla_bwd_dq_plain(*dq_args, **kw))
+    assert all(torch.equal(g, w) for g, w in
+               zip(got_kv, sla_bwd.sla_bwd_dkv_plain(*dkv_args, **kw)))
+    assert not torch.equal(got, sla_bwd.sla_bwd_dq_plain(
+        *dq_args, **kw, mma_dtype=torch.bfloat16))
 
 
 def test_tensor_core_operands_are_cast_padded_and_aligned():
