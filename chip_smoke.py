@@ -33,9 +33,11 @@ Phases, in order; any failure exits non-zero before the result line:
      bitwise equal; so are a causal GQA-2 case (H 12, BH_kv 6, N 4096, D
      128, the query span from block 32 on, base 32) and the Wan operands
      in both dtypes with every row cut to its diagonal block (count 1: the
-     time of the linear-branch epilogue and one tile). The f32-FMA kernel's
-     own calls, the LightningDiT shape at 32x32 blocks in f32 and bf16, are
-     held to 5e-5. CUDA-event times of the kernel, the plain twin, the
+     time of the linear-branch epilogue and one tile). The LightningDiT
+     shape at 32x32 blocks: in f32 on the f32-FMA kernel, held to 5e-5; in
+     bf16 on the "tc32" tensor-core kernel (`sla_fwd_tc32.cu`, D 108
+     padded to 128), held as the tensor-core route is, with the f32-FMA
+     kernel forced beside it. CUDA-event times of the kernel, the plain twin, the
      gather backend, and dense scaled_dot_product_attention (a yardstick
      for dense attention, not the same function), the route's bound and
      its fraction (the split route's beside the f32-FMA one).
@@ -78,7 +80,10 @@ Phases, in order; any failure exits non-zero before the result line:
      shapes of phase 3 with their random LUTs, a causal GQA-2 case (H 12,
      N 4096, D 128) and on the full-width forward's layer-0 and layer-29
      LUTs, f32 and bf16, and four bf16 cases at 32 x 32 blocks (causal
-     and bidirectional GQA-2, H 12, N 4096, at D 64 and D 128). The f32
+     and bidirectional GQA-2, H 12, N 4096, at D 64 and D 128), with the
+     forward kernel's "tc32" route held beside them on the same four
+     cases (phase 3's tensor-core criterion, a bitwise repeat; causal on
+     the query span from block 32, base 32). The f32
      cases take the f32-FMA kernels, held to 5e-5 x max(1, max |twin|).
      The bf16 cases take the tensor-core kernels of their blocks (64 x 64:
      `sla_bwd_tc.cu`; 32 x 32: `sla_bwd_tc32.cu`, its CTAs an SM printed;
@@ -501,10 +506,12 @@ Phases, in order; any failure exits non-zero before the result line:
      over f32 masters: pretrain with full attention, then fine-tune a copy
      in each of sla, sparse_only, linear_only and l_plus_s; at every step
      the launches (sla: 12 / 12 / 12 of kernels 1 / 2 / 3 at 32 x 32
-     blocks, kernel 1 on its f32-FMA route, kernels 2-3 all on the
-     tensor-core "tc32" route, none on `sla_bwd.cu`; every other mode
-     none), a finite loss, wall and peak memory (the sla steps' wall
-     printed on its own line); the first sla step's
+     blocks, all on the tensor-core "tc32" routes, none on `sla_fwd.cu`
+     or `sla_bwd.cu`; every other mode none), a finite loss, wall and
+     peak memory (the sla steps' wall printed on its own line), then
+     torch.profiler over one more sla step (the third of three on the
+     fine-tuned copy): its wall, device time, the device's busy share and
+     the top device ops by time; the first sla step's
      kernel loss within 5e-2 x max(1, |loss|) of the gather backend's on
      the same params and batch; the example's quality table and its "SLA
      best among accelerated modes" line printed, not held (the reference's
@@ -512,12 +519,13 @@ Phases, in order; any failure exits non-zero before the result line:
      to `FT_BATCH`, its steps to `FT_PRETRAIN_STEPS` + `FT_FINETUNE_STEPS`
      a mode. e. kernels 1-3 at the finetune's shape (BH = batch x 12, N
      4,096, D 64, 32 x 32 blocks, bf16, K 13 from `plan_attention` on
-     seeded q and k) against their twins on their routes (kernel 1 on
-     the f32-FMA route within 5e-5; kernels 2-3 on the "tc32" route by
-     `cases.tc_criterion`, two launches bitwise equal), timed beside their
-     bounds (operations at the route's peak, and the f32-FMA peak), the
-     CTAs an SM of the "tc32" kernels, and phase 7's library call at that
-     shape:
+     seeded q and k) against their twins on their "tc32" routes
+     (`cases.tc_criterion`, kernel 1's O^l within 5e-5 x max(1, max
+     |twin|), two launches bitwise equal), timed beside their bounds
+     (operations at the route's peak, and the f32-FMA peak), with kernel
+     1's f32-FMA kernel forced beside it (held within 5e-5, timed in the
+     same call), the CTAs an SM of the "tc32" kernels, and phase 7's
+     library call at that shape:
      compiled flex_attention on a BlockMask of the same LUT, its forward
      (O^s and L only) and its backward (dQ, dK and dV together; its bf16
      gradients' error reported) and the ratio of kernels 2 + 3 to its
@@ -580,7 +588,7 @@ Phases, in order; any failure exits non-zero before the result line:
      tensor-core routes' beside them, kernels 1-3 the D-64 cases of
      phases 23, 24 and 29 (`d64_cases`), kernels 1-5 their D-256 cases,
      kernels 1-3 phase 30's (`gemma3_train_cases`) and phase 36e's
-     (`finetune_cases`), kernels 2-3 their "tc32" route's launches, time,
+     (`finetune_cases`), kernels 1-3 their "tc32" route's launches, time,
      bound and library time (`*_tc32`); every kernel the head
      dims its launches on the main paths
      ran at (`head_dims`, `head_dims_by_path`: what its wrapper recorded
@@ -827,6 +835,10 @@ FT_CASE_KEYS = ("shape", "dtype", "route", "bh", "n", "d", "k_sel",
 # and the backward's on the tc32 route
 FT_TC32_KEYS = ("bitwise_repeat", "rounded_err", "limit", "prep_ms",
                 "ctas_per_sm", "dq_plus_dkv_ms", "ratio_to_library")
+# and the forward's, with the f32-FMA kernel forced beside it
+FT_FWD_TC32_KEYS = ("bitwise_repeat", "rounded_err", "limit", "o_l_err",
+                    "o_l_limit", "ctas_per_sm", "ms_fma", "fma_max_abs_err",
+                    "ratio_to_flex_fwd")
 # phase 36e's compiled flex_attention times beside a finetune case
 FT_FLEX_KEYS = ("flex_sparse_branch_fwd_ms", "library_fwd_ms",
                 "library_err", "library_error")
@@ -984,13 +996,15 @@ FWD_TC_ROUTE = "tensor cores, wgmma m64n64k16 (sla_fwd_tc.cu)"
 FWD_SPLIT_ROUTE = ("tensor cores, bf16x3 split products on wgmma m64n64k16 "
                    "(sla_fwd_split.cu)")
 FWD_F32_ROUTE = "f32 FMA on CUDA cores (sla_fwd.cu)"
-FWD_ROUTES = {"tc": FWD_TC_ROUTE, "split": FWD_SPLIT_ROUTE,
-              "fma": FWD_F32_ROUTE}
+FWD_TC32_ROUTE = ("tensor cores at 32 x 32 blocks, mma.sync m16n8k16 "
+                  "(sla_fwd_tc32.cu)")
+FWD_ROUTES = {"tc": FWD_TC_ROUTE, "tc32": FWD_TC32_ROUTE,
+              "split": FWD_SPLIT_ROUTE, "fma": FWD_F32_ROUTE}
 
 
 def _fwd_counters():
     return (sla_fwd.LAUNCHES, sla_fwd.TC_LAUNCHES, sla_fwd.SPLIT_LAUNCHES,
-            sla_fwd.PLANES_LAUNCHES)
+            sla_fwd.PLANES_LAUNCHES, sla_fwd.TC32_LAUNCHES)
 
 
 def _head_dim_records() -> dict:
@@ -1052,12 +1066,13 @@ def _fwd_check(args, kw, what: str, route=None) -> dict:
     o_s, o_l and lse against 5e-5. The split route: each of o_s, o_l and
     lse within 5e-5 x max(1, max |twin|) of the f32 twin (the distance
     from the twin that cuts and sums alike, `mma_dtype="bf16x3"`, is
-    printed beside it). The tensor-core route: (o_s, lse) by
-    `cases.tc_criterion` against the f32 twin and the twin that rounds P
-    to bf16, o_l (f32 arithmetic on either route) within 5e-5 x max(1, max
-    |twin|). Both tensor-core routes: a second launch bitwise equal to the
-    first. Raises on a non-finite output or when the route's counters did
-    not move as they should."""
+    printed beside it). The tensor-core routes ("tc" at 64 x 64 blocks,
+    "tc32" at 32 x 32): (o_s, lse) by `cases.tc_criterion` against the f32
+    twin and the twin that rounds P to bf16, o_l (f32 arithmetic on every
+    route) within 5e-5 x max(1, max |twin|). The split and tensor-core
+    routes: a second launch bitwise equal to the first. Raises on a
+    non-finite output or when the route's counters did not move as they
+    should."""
     q = args[2]
     route = route or sla_fwd.forward_route(q.dtype, kw["block_q"],
                                            kw["block_kv"], q.shape[-1])
@@ -1068,9 +1083,10 @@ def _fwd_check(args, kw, what: str, route=None) -> dict:
     want = sla_fwd.sla_fwd_plain(*args, **kw)
     torch.cuda.synchronize()
     split = int(route == "split")
-    if moved != (1, int(route == "tc"), split, split):
+    if moved != (1, int(route == "tc"), split, split, int(route == "tc32")):
         raise RuntimeError(f"sla_fwd {what}: counters (launches, tc, split, "
-                           f"planes) moved {moved} on the {route} route")
+                           f"planes, tc32) moved {moved} on the {route} "
+                           f"route")
     if not all(bool(torch.isfinite(g).all()) for g in got):
         raise RuntimeError(f"sla_fwd {what}: non-finite output")
     errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
@@ -1096,7 +1112,7 @@ def _fwd_check(args, kw, what: str, route=None) -> dict:
         1.0, float(want[1].abs().max())))
     res["ok"] = (res["ok"] and res["bitwise_repeat"]
                  and res["o_l_err"] <= res["o_l_limit"])
-    return dict(route=FWD_TC_ROUTE, **res)
+    return dict(route=FWD_ROUTES[route], **res)
 
 
 def _fwd_text(c: dict) -> str:
@@ -1112,7 +1128,8 @@ def _fwd_text(c: dict) -> str:
                 f"{m[2]:.3g}; the cut twin's own {t[0]:.3g} / {t[1]:.3g} / "
                 f"{t[2]:.3g}), bitwise repeat {c['bitwise_repeat']} "
                 f"{verdict}")
-    return (f"tensor cores: max abs err o_s {e[0]:.3g} lse {e[2]:.3g} vs f32 "
+    where = "tensor cores" if c["route"] == FWD_TC_ROUTE else "tc32"
+    return (f"{where}: max abs err o_s {e[0]:.3g} lse {e[2]:.3g} vs f32 "
             f"twin (rounded twin {c['rounded_err']:.3g}, limit "
             f"{c['limit']:.3g}), o_l {e[1]:.3g} (limit {c['o_l_limit']:.3g})"
             f", bitwise repeat {c['bitwise_repeat']} {verdict}")
@@ -1152,17 +1169,20 @@ def _planes_case(k, v) -> dict:
                 mbytes=nbytes / 1e6)
 
 
-def _gqa_fwd_operands(h, group, n, d, base, seed):
-    """The forward's bf16 operands for a causal span of query blocks from
-    block `base` to the end against the full KV with GQA (h // group kv
-    heads) at 64 x 64 blocks: a plan of seeded q/k, h_j and z_j per kv
-    head repeated to the query heads and aggregated per query head (the
+def _gqa_fwd_operands(h, group, n, d, base, seed, causal=True, block=None):
+    """The forward's bf16 operands for a span of query blocks from block
+    `base` to the end (causal) or every query block (`base` 0) against
+    the full KV with GQA (h // group kv heads) at 64 x 64 blocks (or
+    `block` x `block`): a plan of seeded q/k, h_j and z_j per kv head
+    repeated to the query heads and aggregated per query head (the
     marginal set is per query head)."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
     q = torch.randn((1, h, n, d), generator=gen, device=DEV)
     k, v = (torch.randn((1, h // group, n, d), generator=gen, device=DEV)
             for _ in range(2))
-    sla = get_arch("wan2_1_1_3b").sla.replace(causal=True)
+    sla = get_arch("wan2_1_1_3b").sla.replace(causal=causal)
+    if block is not None:
+        sla = sla.replace(block_q=block, block_kv=block)
     plan = plan_lib.plan_attention(q, k, sla)
     q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
     fq, fk, fv = map(ops._flat, (q, k, v))
@@ -1178,7 +1198,7 @@ def _gqa_fwd_operands(h, group, n, d, base, seed):
     args = tuple(x.contiguous() for x in (
         lut[:, rows], counts[:, rows], fq[:, cols], fk, fv, fqp[:, cols],
         hi[:, rows], zi[:, rows]))
-    return args, dict(scale=d ** -0.5, causal=True, block_q=sla.block_q,
+    return args, dict(scale=d ** -0.5, causal=causal, block_q=sla.block_q,
                       block_kv=sla.block_kv, base=base)
 
 
@@ -1246,13 +1266,21 @@ def phase_kernel_vs_plain():
             del args
         del q, k, v, plan
         torch.cuda.empty_cache()
-    # sla_fwd.cu's own calls: blocks other than 64 x 64, f32 and bf16
+    # 32 x 32 blocks: f32 on sla_fwd.cu, bf16 on the "tc32" route (D 108
+    # padded to 128) with sla_fwd.cu forced beside it
     arch, h, n, d = SHAPES["lightningdit_1b"]
     sla, q, k, v, plan = _kernel_inputs(arch, h, n, d, seed=3, block=32)
     for dtype in (torch.float32, torch.bfloat16):
         args, kw, _ = _operands(sla, q, k, v, plan.marginal, plan.lut,
                                 plan.counts, dtype)
         rows.append(_fwd_case("lightningdit_1b 32x32 blocks", args, kw))
+        if dtype == torch.bfloat16:
+            rows.append(_fwd_case("lightningdit_1b 32x32 blocks", args, kw,
+                                  plain=False, route="fma"))
+    if [r["route"] for r in rows[-3:]] != [FWD_F32_ROUTE, FWD_TC32_ROUTE,
+                                           FWD_F32_ROUTE]:
+        raise RuntimeError(f"the 32 x 32 cases left their routes: "
+                           f"{[r['route'] for r in rows[-3:]]}")
     del args, q, k, v, plan
     h, n, d = SHAPES["wan2_1_1_3b"][1], 4096, 128
     args, kw = _gqa_fwd_operands(h, 2, n, d, base=32, seed=6)
@@ -1264,9 +1292,10 @@ def phase_kernel_vs_plain():
     return rows, planes
 
 
-def _fwd_case(shape, args, kw, plain=True, route=None) -> dict:
+def _fwd_case(shape, args, kw, plain=True, route=None,
+              tag="3 kernel") -> dict:
     """Check and time the forward kernel of `route` (default: the rule's)
-    on one extra case of phase 3."""
+    on one extra case of phase 3 (or of the phase `tag` names)."""
     c = _fwd_check(args, kw, shape, route)
     ms = cuda_ms(_fwd_call(args, kw, route), 20)
     plain_ms = (cuda_ms(lambda: sla_fwd.sla_fwd_plain(*args, **kw), 3,
@@ -1277,7 +1306,7 @@ def _fwd_case(shape, args, kw, plain=True, route=None) -> dict:
     if c["route"] == FWD_SPLIT_ROUTE:
         extra["bound_ms_f32_fma"] = _bound(args, kw, "fma")[0]
     dname = "f32" if dtype == torch.float32 else "bf16"
-    say(f"[3 kernel] {shape} {dname} (BH={args[2].shape[0]}, BH_kv="
+    say(f"[{tag}] {shape} {dname} (BH={args[2].shape[0]}, BH_kv="
         f"{args[3].shape[0]}, Nq={args[2].shape[1]}, Nkv={args[3].shape[1]}"
         f", D={args[2].shape[-1]}, blocks {kw['block_q']}, causal "
         f"{kw['causal']}, base {kw.get('base', 0)}, live tiles {live}): "
@@ -1353,7 +1382,7 @@ def phase_main_path(cfg, params):
     finally:
         dit.forward = orig_forward
     wall = time.time() - t0
-    launches, tc_launches, split_launches, planes_launches = \
+    launches, tc_launches, split_launches, planes_launches, _ = \
         _fwd_counters()
     _read_head_dims("serve")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1594,7 +1623,7 @@ def _plan_cache_run(cfg, params, reqs, cache: bool) -> dict:
     finally:
         dit.forward = orig_forward
     wall = time.time() - t0
-    launches, tc_launches, split_launches, planes_launches = \
+    launches, tc_launches, split_launches, planes_launches, _ = \
         _fwd_counters()
     _read_head_dims("serve_plan_cache")
     return dict(sched=sched, done=done, hits=hits, parts=parts, wall_s=wall,
@@ -2072,7 +2101,8 @@ def _bwd_case(shape, dname, dq_args, dkv_args, kw, n, d, extra,
 
 
 def phase_bwd_vs_plain():
-    rows = []
+    """Phase 7. Returns (backward rows, the forward's 32 x 32 rows)."""
+    rows, fwd_rows = [], []
     for shape, (arch, h, n, d) in SHAPES.items():
         sla, q, k, v, plan = _kernel_inputs(arch, h, n, d, seed=1)
         leaves = (plan.marginal, plan.lut, plan.counts, plan.col_lut,
@@ -2107,15 +2137,31 @@ def phase_bwd_vs_plain():
             rows += _bwd_case(f"32x32 {mode} GQA-2 D{d}", "bf16", dq_args,
                               dkv_args, kw, n, d, {})
             del dq_args, dkv_args
-    bad = [r for r in rows if not r["ok"]]
+            # the forward's "tc32" route on the same case's shape
+            fargs, fkw = _gqa_fwd_operands(h, 2, n, d, 32 if causal else 0,
+                                           seed=9 + d + int(causal),
+                                           causal=causal, block=32)
+            row = _fwd_case(f"32x32 {mode} GQA-2 D{d}", fargs, fkw,
+                            tag="7 fwd")
+            row["head_dim_run"] = sla_fwd.tc32_head_dim(d)
+            row["ctas_per_sm"] = sla_fwd.tc32_ctas_per_sm(
+                row["head_dim_run"])
+            fwd_rows.append(row)
+            del fargs
+    bad = [r for r in rows + fwd_rows if not r["ok"]]
     if bad:
         raise RuntimeError(f"backward kernel disagrees with its plain "
                            f"twin: {bad}")
     tc32 = [r for r in rows if r["shape"].startswith("32x32")]
-    if len(tc32) != 8 or any(r["route"] != TC32_ROUTE for r in tc32):
-        raise RuntimeError(f"the 32 x 32 bf16 cases left the tc32 route: "
-                           f"{[(r['shape'], r['route']) for r in tc32]}")
-    return rows
+    if (len(tc32) != 8 or any(r["route"] != TC32_ROUTE for r in tc32)
+            or any(r["route"] != FWD_TC32_ROUTE for r in fwd_rows)):
+        raise RuntimeError(f"the 32 x 32 bf16 cases left the tc32 routes: "
+                           f"{[(r['shape'], r['route']) for r in tc32]}, "
+                           f"forward {[r['route'] for r in fwd_rows]}")
+    say(f"[7 fwd] the forward's tc32 kernel at D 64 / 128: "
+        f"{fwd_rows[0]['ctas_per_sm']} / {fwd_rows[-1]['ctas_per_sm']} CTAs "
+        f"an SM")
+    return rows, fwd_rows
 
 
 def phase_bwd_on_path_plans(cfg, plans):
@@ -2619,7 +2665,7 @@ def phase_decode_vs_plain():
 
 # --------------------------------------------------------------------------
 def _zero_kernel_counts():
-    sla_fwd.LAUNCHES = sla_fwd.TC_LAUNCHES = 0
+    sla_fwd.LAUNCHES = sla_fwd.TC_LAUNCHES = sla_fwd.TC32_LAUNCHES = 0
     sla_bwd.LAUNCHES_DQ = sla_bwd.LAUNCHES_DKV = 0
     sla_bwd.TC_LAUNCHES_DQ = sla_bwd.TC_LAUNCHES_DKV = 0
     sla_bwd.TC32_LAUNCHES_DQ = sla_bwd.TC32_LAUNCHES_DKV = 0
@@ -5822,7 +5868,7 @@ def _d256_fwd_case(dtype) -> dict:
     errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
     limits = [TWIN_TOL * max(1.0, float(w.abs().max())) for w in want]
     bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
-    ok = (route == "fma" and moved == (2, 0, 0, 0) and bitwise
+    ok = (route == "fma" and moved == (2, 0, 0, 0, 0) and bitwise
           and all(e <= m for e, m in zip(errs, limits)))
     del got, again, want
     ms = cuda_ms(lambda: sla_fwd.sla_fwd(*args, **kw), 5)
@@ -5833,7 +5879,8 @@ def _d256_fwd_case(dtype) -> dict:
         f"{args[2].shape[0]}, BH_kv {args[3].shape[0]}, N {D256_N}, D "
         f"{args[2].shape[-1]}, {kw['block_q']}x{kw['block_kv']} blocks, "
         f"causal, K {args[0].shape[-1]}, live tiles {live}): "
-        f"route {route}, counters (launches, tc, split, planes) moved "
+        f"route {route}, counters (launches, tc, split, planes, tc32) "
+        f"moved "
         f"{moved} for two calls | max abs err o_s {errs[0]:.3g} o_l "
         f"{errs[1]:.3g} lse {errs[2]:.3g} (limits {limits[0]:.3g} / "
         f"{limits[1]:.3g} / {limits[2]:.3g}), bitwise repeat {bitwise} "
@@ -7248,6 +7295,7 @@ def _counts36() -> dict:
     """Every launch counter of kernels 1-3 (the split route's pre-pass
     among them)."""
     return dict(sla_fwd=sla_fwd.LAUNCHES, tc_sla_fwd=sla_fwd.TC_LAUNCHES,
+                tc32_sla_fwd=sla_fwd.TC32_LAUNCHES,
                 split_sla_fwd=sla_fwd.SPLIT_LAUNCHES,
                 planes=sla_fwd.PLANES_LAUNCHES,
                 sla_bwd_dq=sla_bwd.LAUNCHES_DQ,
@@ -7281,7 +7329,8 @@ def _quickstart36() -> dict:
     wall = time.time() - t0
     counts = _counts36()
     _read_head_dims("quickstart")
-    want = dict(sla_fwd=2, tc_sla_fwd=0, split_sla_fwd=2, planes=2,
+    want = dict(sla_fwd=2, tc_sla_fwd=0, tc32_sla_fwd=0, split_sla_fwd=2,
+                planes=2,
                 sla_bwd_dq=1, tc_sla_bwd_dq=0, sla_bwd_dkv=1,
                 tc_sla_bwd_dkv=0, tc32_sla_bwd_dq=0, tc32_sla_bwd_dkv=0,
                 sla_decode=0, sla_decode_paged=0)
@@ -7330,12 +7379,13 @@ def _ft_train(path: str, cfg, params, shape, steps: int, lr: float,
               seed: int, mode) -> dict:
     """`finetune_dit.train` on the kernel backend with the launch counters
     zeroed before it; after each step the step's launches (12 / 12 / 12
-    in `sla` mode: kernel 1 on its f32-FMA route, kernels 2-3 all on the
-    "tc32" route, so none on `sla_bwd.cu`; none in the others), a finite
-    loss, its wall and its peak memory are held and kept."""
+    in `sla` mode, kernels 1-3 all on their "tc32" routes, so none on
+    `sla_fwd.cu` or `sla_bwd.cu`; none in the others), a finite loss, its
+    wall and its peak memory are held and kept."""
     nl = cfg.num_layers
     per = nl if mode == "sla" else 0
-    want = dict(sla_fwd=per, tc_sla_fwd=0, split_sla_fwd=0, planes=0,
+    want = dict(sla_fwd=per, tc_sla_fwd=0, tc32_sla_fwd=per,
+                split_sla_fwd=0, planes=0,
                 sla_bwd_dq=per, tc_sla_bwd_dq=0, sla_bwd_dkv=per,
                 tc_sla_bwd_dkv=0, tc32_sla_bwd_dq=per,
                 tc32_sla_bwd_dkv=per, sla_decode=0, sla_decode_paged=0)
@@ -7425,14 +7475,17 @@ def _finetune36(batch: int, pretrain_steps: int, finetune_steps: int
             del batch0
         r = _ft_train(f"dit_finetune_{mode}", cfg, ft, shape,
                       finetune_steps, FT_LR * 0.5, FT_SEED + 1, mode)
+        if mode == "sla":
+            r["profile"] = _profile36(cfg, ft, shape)
         del ft
         gc.collect()
         torch.cuda.empty_cache()
         _ft_summary(f"finetune {mode}", r)
         if mode == "sla":
             say(f"[36 finetune] sla step wall (bf16, batch {batch}; "
-                f"kernels 2-3 on the tc32 route, 12 launches each a step, "
-                f"none on sla_bwd.cu): median {r['step_s_median']:.4f} s, "
+                f"kernels 1-3 on the tc32 routes, 12 launches each a step, "
+                f"none on sla_fwd.cu or sla_bwd.cu): median "
+                f"{r['step_s_median']:.4f} s, "
                 f"{r['step_s_min']:.4f}-{r['step_s_max']:.4f} s after the "
                 f"first ({r['first_step_s']:.4f} s) on {CARD[0]}")
             kernel_loss = r["hist"][0]
@@ -7466,6 +7519,54 @@ def _finetune36(batch: int, pretrain_steps: int, finetune_steps: int
                 runs=runs)
 
 
+def _profile36(cfg, params, shape) -> dict:
+    """Phase 36d's profile: `finetune_dit.train` takes three more `sla`
+    steps on the fine-tuned copy, and torch.profiler records the third
+    (its batch, forward, backward and update): its wall, device time, the
+    device's busy share, the host's own time in the ops it ran, the SLA
+    kernels' device time, and the top ops by the device time of the
+    kernels each launched (name, ms, calls)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as prof_ctx
+    prof = prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    state = {}
+
+    def on_step(s, loss):
+        torch.cuda.synchronize()
+        if s == 1:
+            prof.__enter__()
+            state["t0"] = time.time()
+        elif s == 2:
+            state["wall_s"] = time.time() - state["t0"]
+            prof.__exit__(None, None, None)
+
+    finetune_dit.train(cfg, params, shape, 3, FT_LR * 0.5, FT_SEED + 2,
+                       sla_mode="sla", backend="kernel", on_step=on_step,
+                       log_every=50)
+    res = _busy(prof, state["wall_s"])
+    host = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    res["host_op_s"] = sum(e.self_cpu_time_total for e in host) / 1e6
+    res["host_ops"] = sum(e.count for e in host)
+    res["sla_kernels"] = {
+        name: (ms * n if ms is not None else 0.0, n) for name, (ms, n) in
+        _kernel_means(prof, ("sla_fwd_tc32_kernel", "sla_bwd_dq_tc32_kernel",
+                             "sla_bwd_dkv_tc32_kernel")).items()}
+    top = sorted((e for e in host if e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    res["top"] = [(e.key, e.self_device_time_total / 1e3, e.count)
+                  for e in top[:10]]
+    say(f"[36 profile] one sla step at the {FT_PRESET} widths under "
+        f"torch.profiler: {res['wall_s']:.4f} s wall, {res['device_s']:.4f} "
+        f"s device time, device busy {res['busy']:.3f}, {res['host_ops']} "
+        f"host ops taking {res['host_op_s']:.4f} s of host time on their "
+        f"own | SLA kernels (device ms, launches) {res['sla_kernels']} | "
+        f"on {CARD[0]}")
+    for name, ms, calls in res["top"]:
+        say(f"  {ms:9.3f} ms of device time  {calls:5d}x  {name}")
+    return res
+
+
 def _fma_bound(nbytes: float, flops: float) -> float:
     """The least time on the f32-FMA route: bytes over HBM bandwidth
     against the operations at the f32 FMA peak (the CUDA cores these
@@ -7478,11 +7579,13 @@ def _ft_kernels36(batch: int) -> tuple:
     """Phase 36e: kernels 1-3 at the finetune's shape (BH = batch x 12,
     N 4,096, D 64, 32 x 32 blocks, bf16; K = num_critical(128) from
     `plan_attention` on seeded q and k) against their twins on the same
-    card tensors: kernel 1 on its f32-FMA route (5e-5), kernels 2-3 on the
-    "tc32" route (`cases.tc_criterion`, a bitwise repeat); timed beside
-    their bounds (operations at the route's peak, and at the f32-FMA
-    peak) and beside compiled flex_attention's backward, with the ratio.
-    Returns (forward rows, backward rows)."""
+    card tensors, all on their "tc32" routes (`cases.tc_criterion`,
+    kernel 1's O^l within 5e-5 x max(1, max |twin|), a bitwise repeat);
+    kernel 1's f32-FMA kernel forced beside it (5e-5) and timed in the
+    same call; timed beside their bounds (operations at the route's peak,
+    and at the f32-FMA peak) and beside compiled flex_attention's forward
+    (kernel 1) and backward (kernels 2 + 3), with the ratios. Returns
+    (forward rows, backward rows)."""
     sla = finetune_dit.build(FT_PRESET, "sla").sla
     p = finetune_dit.PRESETS[FT_PRESET]
     h, n, d = p["num_heads"], p["seq"], p["head_dim"]
@@ -7494,24 +7597,37 @@ def _ft_kernels36(batch: int) -> tuple:
     args, kw, _ = _operands(sla, q, k, v, plan.marginal, plan.lut,
                             plan.counts, torch.bfloat16)
     c = _fwd_check(args, kw, shape)
+    forced = _fwd_check(args, kw, f"{shape} (f32-FMA forced)", route="fma")
+    # the tc32 kernel, then the f32-FMA kernel it replaces, in one call
     ms = cuda_ms(lambda: sla_fwd.sla_fwd(*args, **kw), 20)
+    ms_fma = cuda_ms(_fwd_call(args, kw, "fma"), 20)
     plain_ms = cuda_ms(lambda: sla_fwd.sla_fwd_plain(*args, **kw), 3,
                        warmup=1)
     bound_ms, bound_by, flops, nbytes, live = _bound(args, kw)
     fma_ms = _fma_bound(nbytes, flops)
+    width = sla_fwd.tc32_head_dim(d)
+    ctas = sla_fwd.tc32_ctas_per_sm(width)
     say(f"[36 kernels] sla_fwd {shape} bf16 (BH={args[2].shape[0]}, N={n}, "
         f"D={d}, blocks 32, K={plan.k_sel}, live tiles {live} of "
         f"{args[0].numel()}): {_fwd_text(c)} | kernel {ms:.3f} ms | bound "
         f"{bound_ms:.3f} ms by {bound_by} ({flops / 1e9:.1f} GFLOP, "
         f"{nbytes / 1e6:.0f} MB; {bound_ms / ms:.1%} of it) | f32-FMA "
-        f"bound {fma_ms:.3f} ms ({fma_ms / ms:.1%}) | plain twin "
-        f"{plain_ms:.3f} ms")
+        f"bound {fma_ms:.3f} ms ({fma_ms / ms:.1%}) | {ctas} CTAs an SM "
+        f"at D {width} | plain twin {plain_ms:.3f} ms")
+    say(f"[36 kernels] sla_fwd {shape}, the f32-FMA kernel forced in the "
+        f"same call: {_fwd_text(forced)} | {ms_fma:.3f} ms "
+        f"({bound_ms / ms_fma:.1%} of the bound) against the tc32 kernel's "
+        f"{ms:.3f} ms "
+        f"({ms_fma / ms:.1f}x) on {CARD[0]}")
     fwd = [dict(shape=shape, dtype="bf16", bh=args[2].shape[0], n=n, d=d,
                 block=kw["block_q"], k_sel=plan.k_sel, live_tiles=live,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, bound_fraction=bound_ms / ms,
                 bound_ms_f32_fma=fma_ms, gflop=flops / 1e9,
-                mbytes=nbytes / 1e6, library_ms=None, **c)]
+                mbytes=nbytes / 1e6, library_ms=None, head_dim_run=width,
+                ctas_per_sm=ctas, ms_fma=ms_fma,
+                fma_max_abs_err=forced["max_abs_err"], fma_ok=forced["ok"],
+                **c)]
     del args
     leaves = (plan.marginal, plan.lut, plan.counts, plan.col_lut,
               plan.col_counts)
@@ -7522,10 +7638,14 @@ def _ft_kernels36(batch: int) -> tuple:
     # O^s and L only: the forward kernel's library_ms stays null)
     lib = _with_library(sla, q, k, v, plan.lut, plan.counts, dq_args,
                         dkv_args, kw, torch.bfloat16, shape)
-    fwd[0]["flex_sparse_branch_fwd_ms"] = lib.get("library_fwd_ms")
+    flex_fwd = lib.get("library_fwd_ms")
+    fwd[0]["flex_sparse_branch_fwd_ms"] = flex_fwd
+    fwd[0]["ratio_to_flex_fwd"] = (ms / flex_fwd if flex_fwd is not None
+                                   else None)
     say(f"[36 kernels] compiled flex_attention at {shape} bf16 on "
         f"{CARD[0]}: forward (O^s and L only) "
-        + (f"{lib['library_fwd_ms']:.3f} ms, backward (dQ, dK, dV) "
+        + (f"{flex_fwd:.3f} ms against kernel 1's tc32 {ms:.3f} ms (ratio "
+           f"{ms / flex_fwd:.3f}), backward (dQ, dK, dV) "
            f"{lib['library_ms']:.3f} ms against kernels 2 + 3"
            if lib.get("library_ms") is not None else "failed"))
     bwd = _bwd_case(shape, "bf16", dq_args, dkv_args, kw, n, d, lib,
@@ -7549,12 +7669,13 @@ def _ft_kernels36(batch: int) -> tuple:
         + f" | on {CARD[0]}")
     del dq_args, dkv_args, q, k, v, plan
     torch.cuda.empty_cache()
-    bad = [r for r in fwd if not r["ok"] or r["route"] != FWD_F32_ROUTE]
+    bad = [r for r in fwd if not (r["ok"] and r["fma_ok"])
+           or r["route"] != FWD_TC32_ROUTE]
     bad += [r for r in bwd if not r["ok"] or r["route"] != TC32_ROUTE]
     if bad:
         raise RuntimeError(f"a kernel disagrees with its twin or left its "
-                           f"route at the finetune shape (forward: f32 "
-                           f"FMA, backward: tc32): {bad}")
+                           f"route at the finetune shape (tc32 in both "
+                           f"directions): {bad}")
     return fwd, bwd
 
 
@@ -8495,7 +8616,8 @@ def main(argv=None) -> int:
     plans, cross = phase_cross_check(cfg, params, args.profile)
     rows += phase_kernel_on_path_plans(cfg, plans)
     pcache = phase_plan_cache(cfg, params, plans)
-    bwd_rows = phase_bwd_vs_plain()
+    bwd_rows, fwd7_rows = phase_bwd_vs_plain()
+    rows += fwd7_rows
     bwd_rows += phase_bwd_on_path_plans(cfg, plans)
     grads = phase_grad_cross_check(cfg, plans)
     del plans
@@ -8626,7 +8748,10 @@ def main(argv=None) -> int:
         for route in (FWD_SPLIT_ROUTE, FWD_F32_ROUTE)}
         for layer in (0, 29)}
     fwd_tc = [r for r in rows if r["route"] == FWD_TC_ROUTE]
+    fwd_tc32 = [r for r in rows if r["route"] == FWD_TC32_ROUTE]
     fwd_split = [r for r in rows if r["route"] == FWD_SPLIT_ROUTE]
+    ft_fwd = ex_fwd_rows[0]  # phase 36e: the finetune shape, tc32
+    fwd7 = [r for r in fwd_tc32 if r["shape"].startswith("32x32")]
     fwd_fma = [r for r in rows if r["route"] == FWD_F32_ROUTE]
     wan_bwd = {r["kernel"]: r for r in bwd_rows
                if r["shape"] == "wan2_1_1_3b" and r["dtype"] == "f32"}
@@ -8815,8 +8940,29 @@ def main(argv=None) -> int:
             "shape", "head_dim", "ms", "plain_ms", "bound_ms", "bound_by",
             "bound_fraction", "max_abs_err", "ok")} for r in g3t_fwd_rows],
         "finetune_cases": [{**{k: r[k] for k in FT_CASE_KEYS},
-                            **{k: r[k] for k in FT_FLEX_KEYS if k in r}}
+                            **{k: r[k] for k in FT_FLEX_KEYS if k in r},
+                            **{k: r[k] for k in FT_FWD_TC32_KEYS if k in r}}
                            for r in ex_fwd_rows],
+        "route_tc32": FWD_TC32_ROUTE,
+        "source_tc32": "src/repro_torch/kernels/csrc/sla_fwd_tc32.cu",
+        "tc32_launches": ftc["tc32_sla_fwd"] + qsc["tc32_sla_fwd"],
+        "tc32_launches_by_path": {"dit_finetune_sla": ftc["tc32_sla_fwd"],
+                                  "quickstart": qsc["tc32_sla_fwd"]},
+        "tc32_shape": ft_fwd["shape"],
+        "ms_tc32": ft_fwd["ms"], "plain_ms_tc32": ft_fwd["plain_ms"],
+        "bound_ms_tc32": ft_fwd["bound_ms"],
+        "bound_by_tc32": ft_fwd["bound_by"],
+        "bound_fraction_tc32": ft_fwd["bound_fraction"],
+        "ms_fma_at_tc32_shape": ft_fwd["ms_fma"],
+        "flex_sparse_branch_fwd_ms_tc32": ft_fwd.get(
+            "flex_sparse_branch_fwd_ms"),
+        "ctas_per_sm_tc32": {r["head_dim_run"]: r["ctas_per_sm"]
+                             for r in fwd7 + [ft_fwd]},
+        "ms_tc32_phase7": {r["shape"]: r["ms"] for r in fwd7},
+        "max_abs_err_tc32": max(r["max_abs_err"] for r in fwd_tc32),
+        "o_l_max_abs_err_tc32": max(r["o_l_err"] for r in fwd_tc32),
+        "tc_criterion_all_ok_tc32": all(r["ok"] for r in fwd_tc32),
+        "profile_sla_step": ex["finetune"]["runs"]["sla"]["profile"],
         "cases": rows,
     }, {
         "name": "sla_fwd_split_planes", "route": "cuda",

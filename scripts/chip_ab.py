@@ -3,6 +3,7 @@
 
     git archive <parent> | tar -x -C build/parent   # an ignored directory
     python3 scripts/chip_ab.py build/parent
+    python3 scripts/chip_ab.py build/parent --finetune
 
 Runs, in the order parent, change, change, parent and each tree in its
 own process from its own root (so each builds and loads its own
@@ -24,9 +25,20 @@ torch.profiler (the decode kernels' device time a step). Last, the
 decode kernel on the random C = 1 bf16 operands of `chip_smoke`'s phase
 11, timed by CUDA events around replays of a CUDA graph of 20 calls (its
 device time a call), and by the host clock over 200 eager calls without
-a synchronisation (the host's cost to issue one). Prints one JSON line a
-run. Exits non-zero if a run
-failed. Compare the two trees only within one call of this script.
+a synchronisation (the host's cost to issue one).
+
+With `--finetune` each run instead takes `examples_torch/finetune_dit`'s
+`sla` mode at its 100m preset's widths and depth (batch 2, bf16 compute
+over f32 masters, seeded random weights, kernel backend): 15 steps
+through that tree's `chip_smoke._ft_train` (its own per-step launch
+checks; the step walls' median, min and max after the first), 8 more
+steps' walls, then one step under torch.profiler (its wall, device time
+and busy share, the host's own time in the ops it ran, the SLA kernels'
+device time, the top ops by the device time of their kernels and by
+their own host time).
+
+Prints one JSON line a run. Exits non-zero if a run failed. Compare the
+two trees only within one call of this script.
 """
 import json
 import subprocess
@@ -193,14 +205,87 @@ print("AB " + json.dumps(dict(
 '''
 
 
+RUN_FINETUNE = r'''
+import json, re, sys, time
+sys.path.insert(0, ".")
+import torch
+from torch.profiler import ProfilerActivity, profile
+import chip_smoke as cs
+from examples_torch import finetune_dit
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.models import dit
+cs.phase_card()
+cs.phase_build()
+p = finetune_dit.PRESETS["100m"]
+shape = ShapeConfig("dit", p["seq"], 2, "train")
+cfg = finetune_dit.build("100m", "sla")
+params = dit.init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                  device=cs.DEV)
+r = cs._ft_train("dit_finetune_sla", cfg, params, shape, 15, 1.5e-4, 1,
+                 "sla")
+walls, state = [], {"t": time.time()}
+
+
+def on_step(s, loss):
+    now = time.time()
+    walls.append(now - state["t"])
+    state["t"] = now
+
+
+finetune_dit.train(cfg, params, shape, 8, 1.5e-4, 2, sla_mode="sla",
+                   backend="kernel", on_step=on_step, log_every=50)
+prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def on_prof(s, loss):
+    torch.cuda.synchronize()
+    if s == 1:
+        prof.__enter__()
+        state["t0"] = time.time()
+    elif s == 2:
+        state["wall"] = time.time() - state["t0"]
+        prof.__exit__(None, None, None)
+
+
+finetune_dit.train(cfg, params, shape, 3, 1.5e-4, 3, sla_mode="sla",
+                   backend="kernel", on_step=on_prof, log_every=50)
+ka = prof.key_averages()
+cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+dev = [e for e in ka if e.device_type == cuda and not e.is_user_annotation]
+host = [e for e in ka if e.device_type == cpu]
+dev_s = sum(e.self_device_time_total for e in dev) / 1e6
+print("AB " + json.dumps(dict(
+    step_s_median=r["step_s_median"], step_s_min=r["step_s_min"],
+    step_s_max=r["step_s_max"], first_step_s=r["first_step_s"],
+    launches_per_step=r["launches_per_step"], more_step_walls=walls[1:],
+    profiled_wall_s=state["wall"], profiled_device_s=dev_s,
+    busy=dev_s / state["wall"],
+    host_op_s=sum(e.self_cpu_time_total for e in host) / 1e6,
+    host_ops=sum(e.count for e in host),
+    sla_kernels_ms={re.search(r"sla_\w+(<\d+>)?", e.key).group(0):
+                    e.self_device_time_total / 1e3
+                    for e in dev if re.search(r"sla_\w+_kernel", e.key)},
+    top_device_ms=[(e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in sorted(host, key=lambda e:
+                                   -e.self_device_time_total)[:8]],
+    top_host_ms=[(e.key, e.self_cpu_time_total / 1e3, e.count)
+                 for e in sorted(host, key=lambda e:
+                                 -e.self_cpu_time_total)[:8]])), flush=True)
+'''
+
+
 def main(argv) -> int:
+    finetune = "--finetune" in argv
+    argv = [a for a in argv if a != "--finetune"]
     if len(argv) != 1:
         print(__doc__, file=sys.stderr)
         return 2
     trees = {"parent": Path(argv[0]).resolve(), "change": CHANGE}
     failed = False
     for name in ("parent", "change", "change", "parent"):
-        p = subprocess.run([sys.executable, "-c", RUN], cwd=trees[name],
+        p = subprocess.run([sys.executable, "-c",
+                            RUN_FINETUNE if finetune else RUN],
+                           cwd=trees[name],
                            capture_output=True, text=True, timeout=900)
         line = [x for x in p.stdout.splitlines() if x.startswith("AB ")]
         res = dict(tree=name, rc=p.returncode,

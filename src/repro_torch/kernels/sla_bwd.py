@@ -25,13 +25,12 @@ rule on dtype and shape (`backward_route`), not a fallback:
     heads are zero-padded to `TC_HEAD_DIM` (zero columns change neither S
     nor dP) and the outputs sliced back.
   * bf16 q, k, v at 32 x 32 blocks and head dims up to 128 ("tc32", the
-    paper's fine-tune): the tensor-core kernels of `sla_bwd_tc32.cu`
+    paper's fine-tune; `sla_fwd.use_tensor_cores_32`, the forward's
+    "tc32" rule too): the tensor-core kernels of `sla_bwd_tc32.cu`
     (mma.sync, built at head dims 64 and 128; narrower heads are
     zero-padded to the next of them, `tc32_head_dim`), with the same
-    precision. The forward has no route of its own there and stays on
-    `sla_fwd.cu`, so such a step mixes routes: P is f32 going forward,
-    and the backward recomputes it from the forward's f32 L and rounds
-    dO, P and dS to bf16 before their products.
+    precision. Such a step rounds P to bf16 going forward and dO, P and
+    dS going back, as at 64 x 64 blocks.
   * everything else (f32, other blocks, and head dims above 128 up to
     `MAX_HEAD_DIM`, gemma3's 256 among them, in either dtype): the
     f32-FMA kernels of `sla_bwd.cu`, every product in f32 from the same
@@ -57,9 +56,11 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.sla_fwd import (NEG_INF, TC_BLOCK, TC_HEAD_DIM,
-                                         check_operands, pad_head_dim,
-                                         use_tensor_cores)
+from repro_torch.kernels.sla_fwd import (NEG_INF, TC32_BLOCK, TC_BLOCK,
+                                         TC_HEAD_DIM, check_operands,
+                                         pad_head_dim, tc32_head_dim,
+                                         use_tensor_cores,
+                                         use_tensor_cores_32)
 
 LAUNCHES_DQ = 0   # dQ kernel launches in this process (twin calls excluded)
 LAUNCHES_DKV = 0  # dK/dV kernel launches in this process
@@ -67,8 +68,6 @@ TC_LAUNCHES_DQ = 0   # of which on the tensor-core route at 64 x 64
 TC_LAUNCHES_DKV = 0
 TC32_LAUNCHES_DQ = 0   # of which on the tensor-core route at 32 x 32
 TC32_LAUNCHES_DKV = 0
-TC32_BLOCK = 32  # the "tc32" kernels' block_q == block_kv
-TC32_HEAD_DIMS = (64, 128)  # the head dims they are built for
 HEAD_DIMS_DQ = collections.Counter()  # LAUNCHES_DQ by the head dim run at
 HEAD_DIMS_DKV = collections.Counter()  # LAUNCHES_DKV alike
 
@@ -108,21 +107,15 @@ def _lib(name: str = "sla_bwd") -> ctypes.CDLL:
 def backward_route(dtype: torch.dtype, block_q: int, block_kv: int,
                    d: int) -> str:
     """The backward kernels a CUDA call takes: "tc" (`use_tensor_cores`:
-    bf16 at 64 x 64 blocks, D <= 128, `sla_bwd_tc.cu`), "tc32" (bf16 at
-    32 x 32 blocks, D <= 128, `sla_bwd_tc32.cu`) or "fma" (`sla_bwd.cu`,
-    every other call)."""
+    bf16 at 64 x 64 blocks, D <= 128, `sla_bwd_tc.cu`), "tc32"
+    (`use_tensor_cores_32`: bf16 at 32 x 32 blocks, D <= 128,
+    `sla_bwd_tc32.cu`) or "fma" (`sla_bwd.cu`, every other call). The
+    forward's `sla_fwd.forward_route` applies the same two rules."""
     if use_tensor_cores(dtype, block_q, block_kv, d):
         return "tc"
-    if (dtype == torch.bfloat16 and block_q == TC32_BLOCK
-            and block_kv == TC32_BLOCK and d <= TC_HEAD_DIM):
+    if use_tensor_cores_32(dtype, block_q, block_kv, d):
         return "tc32"
     return "fma"
-
-
-def tc32_head_dim(d: int) -> int:
-    """The head dim the "tc32" kernels run a call of head dim d at: the
-    first of `TC32_HEAD_DIMS` that holds it (the wrapper zero-pads)."""
-    return next(w for w in TC32_HEAD_DIMS if d <= w)
 
 
 def ctas_per_sm(kernel: str, d: int) -> int:

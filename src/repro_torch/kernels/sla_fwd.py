@@ -1,6 +1,6 @@
 """Fused SLA forward: the CUDA kernels `csrc/sla_fwd.cu`,
-`csrc/sla_fwd_tc.cu` and `csrc/sla_fwd_split.cu`, their plain twin, the
-route rules, and their launch counters.
+`csrc/sla_fwd_tc.cu`, `csrc/sla_fwd_tc32.cu` and `csrc/sla_fwd_split.cu`,
+their plain twin, the route rules, and their launch counters.
 
 Counterpart of the Pallas TPU kernel `repro.kernels.sla_fwd._fwd_kernel`.
 For each (batch*head, query block i) it runs online softmax over the
@@ -17,10 +17,7 @@ kernel is a rule on dtype and shape (`forward_route`), not a fallback:
     rule the backward's wrappers apply too, so a bf16 training step at 64
     x 64 blocks rounds alike in both directions). Its precision is
     FlashAttention's: P is rounded to bf16 before P V; every sum, m, l,
-    lse and the whole linear branch are f32. At 32 x 32 blocks the
-    backward has a tensor-core route of its own (`sla_bwd.backward_route`)
-    while the forward stays on `sla_fwd.cu`: such a step computes P in f32
-    going forward and rounds dO, P and dS to bf16 going back.
+    lse and the whole linear branch are f32.
   * f32 q, k, v at those blocks and head dims (`use_split`, a rule of the
     forward alone: f32 DiT serving): the split kernel of
     `sla_fwd_split.cu`, on the tensor cores with f32 accuracy. Each f32
@@ -30,24 +27,33 @@ kernel is a rule on dtype and shape (`forward_route`), not a fallback:
     (`split_kv_planes`). A step that trains in f32 then runs this forward
     and the f32-FMA backward: both are f32-accurate, so this is not the
     bf16-rounding mismatch the shared rule exists to prevent.
-  * everything else (blocks other than 64 x 64, and head dims above 128
-    up to `MAX_HEAD_DIM`, gemma3's 256 among them, in either dtype):
-    the f32-FMA kernel of `sla_fwd.cu`, every product in f32 from the
-    same inputs.
+  * bf16 q, k, v at 32 x 32 blocks and head dims up to 128 (the paper's
+    fine-tune): the tensor-core kernel of `sla_fwd_tc32.cu` (mma.sync,
+    built at head dims 64 and 128; narrower heads are zero-padded to the
+    next of them, `tc32_head_dim`), with the 64 x 64 kernel's precision.
+    Its rule, `use_tensor_cores_32`, is the backward's "tc32" rule too, so
+    a bf16 step at 32 x 32 blocks also rounds alike in both directions.
+  * everything else (f32 at blocks other than 64 x 64, bf16 at blocks
+    other than 64 x 64 and 32 x 32, and head dims above 128 up to
+    `MAX_HEAD_DIM`, gemma3's 256 among them, in either dtype): the
+    f32-FMA kernel of `sla_fwd.cu`, every product in f32 from the same
+    inputs.
 
 Narrower heads on the tensor-core routes zero-pad q, k and v to
-`TC_HEAD_DIM` (zero columns leave S unchanged; the split route pads in
-its pre-pass and its Q loads); qp, hi, zi and the outputs keep their own
-D. A failed build or launch raises; nothing reroutes. With
-`mma_dtype=torch.bfloat16` the twin rounds P where the tensor-core kernel
-does, and with `mma_dtype="bf16x3"` it cuts and sums the products as the
-split kernel does: the yardsticks of those routes' arithmetic.
+`TC_HEAD_DIM` ("tc"; the split route pads in its pre-pass and its Q
+loads) or `tc32_head_dim(d)` ("tc32"): zero columns leave S unchanged.
+qp, hi, zi and the outputs keep their own D. A failed build or launch
+raises; nothing reroutes. With `mma_dtype=torch.bfloat16` the twin rounds
+P where both tensor-core kernels do, and with `mma_dtype="bf16x3"` it
+cuts and sums the products as the split kernel does: the yardsticks of
+those routes' arithmetic.
 `LAUNCHES` counts kernel launches of the forward on any route and nothing
-else, `TC_LAUNCHES` those of the tensor-core route, `SPLIT_LAUNCHES`
-those of the split route, `PLANES_LAUNCHES` those of its pre-pass.
-`HEAD_DIMS` and `PLANES_HEAD_DIMS` count the same launches by the head
-dim the kernel ran at: the tensor-core and split routes' (and the
-pre-pass's) padded `TC_HEAD_DIM`, the f32-FMA route's own D.
+else, `TC_LAUNCHES` those of the tensor-core route at 64 x 64,
+`TC32_LAUNCHES` those at 32 x 32, `SPLIT_LAUNCHES` those of the split
+route, `PLANES_LAUNCHES` those of its pre-pass. `HEAD_DIMS` and
+`PLANES_HEAD_DIMS` count the same launches by the head dim the kernel ran
+at: the "tc" and split routes' (and the pre-pass's) padded `TC_HEAD_DIM`,
+the "tc32" route's `tc32_head_dim(d)`, the f32-FMA route's own D.
 """
 from __future__ import annotations
 
@@ -64,24 +70,28 @@ MAX_HEAD_DIM = 256  # the head dims every SLA kernel takes
 MAX_BLOCK = 64
 
 LAUNCHES = 0  # kernel launches in this process (plain-twin calls excluded)
-TC_LAUNCHES = 0  # of which on the tensor-core route
+TC_LAUNCHES = 0  # of which on the tensor-core route at 64 x 64
+TC32_LAUNCHES = 0  # of which on the tensor-core route at 32 x 32
 SPLIT_LAUNCHES = 0  # of which on the split route
 PLANES_LAUNCHES = 0  # launches of the split route's K/V pre-pass
 HEAD_DIMS = collections.Counter()  # LAUNCHES by the head dim run at
 PLANES_HEAD_DIMS = collections.Counter()  # PLANES_LAUNCHES alike
 TC_BLOCK = 64      # the tensor-core kernels' block_q == block_kv
 TC_HEAD_DIM = 128  # the head dim they are built for (narrower is padded)
+TC32_BLOCK = 32  # the "tc32" kernels' block_q == block_kv
+TC32_HEAD_DIMS = (64, 128)  # the head dims they are built for
 SPLIT_PARTS = 3    # bf16 parts of each f32 operand on the split route
 # the part products the split route sums, smallest first (x2y0, x1y1,
 # x0y2, x1y0, x0y1, x0y0): the three below 2^-21 |x||y| are dropped
 SPLIT_PAIRS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
 SPLIT_PRODUCTS = len(SPLIT_PAIRS)
-ROUTES = {"fma": "sla_fwd", "tc": "sla_fwd_tc", "split": "sla_fwd_split"}
+ROUTES = {"fma": "sla_fwd", "tc": "sla_fwd_tc", "tc32": "sla_fwd_tc32",
+          "split": "sla_fwd_split"}
 
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 # lut, counts, base, q, k, v, qp, hi, zi, o_s, o_l, lse; bh_q, bh_kv, nq,
 # nkv, d, tm, k_sel, block_q, block_kv; scale; causal, is_bf16; stream. The
-# tensor-core kernel takes the same arguments without is_bf16, the split
+# tensor-core kernels take the same arguments without is_bf16, the split
 # kernel too, with k and v's planes for k and v.
 _ARGTYPES = [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
              _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]
@@ -93,7 +103,8 @@ def _lib(name: str = "sla_fwd") -> ctypes.CDLL:
     """Build and load csrc/<name>.cu; each exports `<name>_launch` and
     `<name>_error_string`, the split source also its pre-pass
     (`sla_fwd_split_planes_launch`: k, v, k3, v3, rows, d, stream) and
-    `sla_fwd_split_ctas_per_sm`."""
+    `sla_fwd_split_ctas_per_sm`, the "tc32" source
+    `sla_fwd_tc32_ctas_per_sm` (d)."""
     from repro_torch.kernels import _build
     lib = _build.load(name)
     launch = getattr(lib, f"{name}_launch")
@@ -108,6 +119,9 @@ def _lib(name: str = "sla_fwd") -> ctypes.CDLL:
         lib.sla_fwd_split_planes_launch.restype = ctypes.c_int
         lib.sla_fwd_split_ctas_per_sm.argtypes = []
         lib.sla_fwd_split_ctas_per_sm.restype = ctypes.c_int
+    if name == "sla_fwd_tc32":
+        lib.sla_fwd_tc32_ctas_per_sm.argtypes = [_I]
+        lib.sla_fwd_tc32_ctas_per_sm.restype = ctypes.c_int
     return lib
 
 
@@ -116,12 +130,28 @@ def use_tensor_cores(dtype: torch.dtype, block_q: int, block_kv: int,
     """The bf16 route rule of a CUDA call at 64 x 64 blocks, for the
     forward and the backward: bf16 operands at 64 x 64 blocks and head
     dims up to `TC_HEAD_DIM` take the tensor-core kernels (the rounding of
-    P, and of dO, P and dS, is then the same in both directions). The
-    backward adds a route at 32 x 32 blocks (`sla_bwd.backward_route`);
-    the forward stays on its f32-FMA kernel there, so a bf16 step at 32 x
-    32 blocks mixes routes."""
+    P, and of dO, P and dS, is then the same in both directions). At 32 x
+    32 blocks `use_tensor_cores_32` is the same rule's counterpart."""
     return (dtype == torch.bfloat16 and block_q == TC_BLOCK
             and block_kv == TC_BLOCK and d <= TC_HEAD_DIM)
+
+
+def use_tensor_cores_32(dtype: torch.dtype, block_q: int, block_kv: int,
+                        d: int) -> bool:
+    """The bf16 route rule of a CUDA call at 32 x 32 blocks (the paper's
+    fine-tune), for the forward ("tc32", `sla_fwd_tc32.cu`) and the
+    backward ("tc32", `sla_bwd_tc32.cu`): bf16 operands at 32 x 32 blocks
+    and head dims up to `TC_HEAD_DIM` take the mma.sync tensor-core
+    kernels, which round P (and dO, P and dS going back) to bf16 alike in
+    both directions."""
+    return (dtype == torch.bfloat16 and block_q == TC32_BLOCK
+            and block_kv == TC32_BLOCK and d <= TC_HEAD_DIM)
+
+
+def tc32_head_dim(d: int) -> int:
+    """The head dim the "tc32" kernels run a call of head dim d at: the
+    first of `TC32_HEAD_DIMS` that holds it (the wrappers zero-pad)."""
+    return next(w for w in TC32_HEAD_DIMS if d <= w)
 
 
 def use_split(dtype: torch.dtype, block_q: int, block_kv: int,
@@ -137,9 +167,12 @@ def use_split(dtype: torch.dtype, block_q: int, block_kv: int,
 def forward_route(dtype: torch.dtype, block_q: int, block_kv: int,
                   d: int) -> str:
     """The forward kernel a CUDA call takes: "tc" (`use_tensor_cores`),
-    "split" (`use_split`) or "fma" (`sla_fwd.cu`, every other call)."""
+    "tc32" (`use_tensor_cores_32`), "split" (`use_split`) or "fma"
+    (`sla_fwd.cu`, every other call)."""
     if use_tensor_cores(dtype, block_q, block_kv, d):
         return "tc"
+    if use_tensor_cores_32(dtype, block_q, block_kv, d):
+        return "tc32"
     if use_split(dtype, block_q, block_kv, d):
         return "split"
     return "fma"
@@ -233,6 +266,15 @@ def split_kv_planes_plain(k: torch.Tensor, v: torch.Tensor
                  .to(torch.bfloat16) for x in (k, v))
 
 
+def tc32_ctas_per_sm(d: int) -> int:
+    """CTAs of the "tc32" kernel at head dim d (64 or 128) resident on one
+    SM of the current card; raises if the query fails."""
+    n = _lib("sla_fwd_tc32").sla_fwd_tc32_ctas_per_sm(d)
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
+    return n
+
+
 def split_ctas_per_sm() -> int:
     """CTAs of the split kernel resident on one SM of the current card
     (its design wants 2); raises if the query fails."""
@@ -260,8 +302,10 @@ def sla_fwd(lut, counts, q, k, v, qp, hi, zi, *, scale: float,
     Returns (o_s (BH,Nq,D) f32, o_l (BH,Nq,D) f32, lse (BH,Nq) f32). On
     CUDA, q at 64 x 64 blocks and D <= 128 runs the tensor-core kernel if
     bf16 (P rounded to bf16) and the split kernel if f32 (f32-accurate
-    products), everything else (D up to `MAX_HEAD_DIM`) the f32-FMA
-    kernel (`forward_route`); CPU tensors run the f32 twin.
+    products), bf16 q at 32 x 32 blocks and D <= 128 the "tc32"
+    tensor-core kernel (P rounded to bf16), everything else (D up to
+    `MAX_HEAD_DIM`) the f32-FMA kernel (`forward_route`); CPU tensors run
+    the f32 twin.
     """
     kw = dict(scale=scale, causal=causal, block_q=block_q,
               block_kv=block_kv, base=base)
@@ -341,10 +385,11 @@ def _check(lut, counts, q, k, v, qp, hi, zi, block_q, block_kv):
 
 def _launch(lut, counts, q, k, v, qp, hi, zi, *, scale, causal, block_q,
             block_kv, base, route=None):
-    """Launch the forward kernel of `route` ("fma", "tc" or "split"; None:
-    `forward_route`'s choice). A route forced past the rule must still
-    take the call's dtype and shape, or ValueError."""
-    global LAUNCHES, TC_LAUNCHES, SPLIT_LAUNCHES
+    """Launch the forward kernel of `route` ("fma", "tc", "tc32" or
+    "split"; None: `forward_route`'s choice). A route forced past the rule
+    must still take the call's dtype and shape (the f32-FMA kernel takes
+    every call), or ValueError."""
+    global LAUNCHES, TC_LAUNCHES, TC32_LAUNCHES, SPLIT_LAUNCHES
     _check(lut, counts, q, k, v, qp, hi, zi, block_q, block_kv)
     bh, nq, d = q.shape
     bh_kv, nkv = k.shape[0], k.shape[1]
@@ -355,14 +400,17 @@ def _launch(lut, counts, q, k, v, qp, hi, zi, *, scale, causal, block_q,
                          f"{q.dtype} at {block_q} x {block_kv} blocks, D {d}")
     name = ROUTES[route]
     lib = _lib(name)
+    # the head dim the kernel runs at: the tensor-core routes pad to it
+    width = (d if route == "fma" else tc32_head_dim(d) if route == "tc32"
+             else TC_HEAD_DIM)
     flags = []  # the f32-FMA kernel's is_bf16
     if route == "fma":
         flags = [int(q.dtype == torch.bfloat16)]
     elif any(x.data_ptr() % 16 for x in (q, k, v, qp, hi, zi)):
         raise ValueError(f"sla_fwd: the {name} kernel needs q, k, v, qp, hi"
                          " and zi 16-byte aligned")
-    elif route == "tc":
-        q, k, v = (pad_head_dim(x) for x in (q, k, v))
+    elif route in ("tc", "tc32"):
+        q, k, v = (pad_head_dim(x, width) for x in (q, k, v))
     else:  # split: K and V cut into planes (padded there), q cut in-kernel
         k, v = split_kv_planes(k, v)
     o_s = torch.empty((bh, nq, d), dtype=torch.float32, device=q.device)
@@ -382,8 +430,9 @@ def _launch(lut, counts, q, k, v, qp, hi, zi, *, scale, causal, block_q,
                            f"({msg})")
     LAUNCHES += 1
     TC_LAUNCHES += int(route == "tc")
+    TC32_LAUNCHES += int(route == "tc32")
     SPLIT_LAUNCHES += int(route == "split")
-    HEAD_DIMS[d if route == "fma" else TC_HEAD_DIM] += 1
+    HEAD_DIMS[width] += 1
     return o_s, o_l, lse
 
 
@@ -395,7 +444,8 @@ def sla_fwd_plain(lut, counts, q, k, v, qp, hi, zi, *, scale: float,
     one online-softmax update per slot for every (bh, row block) at once,
     with slots s >= counts left out. Same arguments and outputs as
     `sla_fwd`; all arithmetic in f32. `mma_dtype=torch.bfloat16` rounds P
-    (and only P) to bf16 before P V, as the tensor-core kernel does; l
+    (and only P) to bf16 before P V, as the tensor-core kernels ("tc",
+    "tc32") do; l
     still sums the unrounded P. `mma_dtype="bf16x3"` computes Q K^T and
     P V as the split kernel does (`_split_matmul`: three bf16 parts of
     each operand, six part products summed in f32); l sums the uncut P."""

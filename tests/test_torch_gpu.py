@@ -34,8 +34,8 @@ from repro_torch.optim import adamw
 # Kernel and twin read the same (possibly bf16) inputs and accumulate in
 # f32, so both dtypes are held to the f32 limit; 5e-2 is test_conformance's
 # limit for the port's bf16 path against JAX's, not for kernel vs twin.
-# The tensor-core routes (bf16 at 64 x 64 blocks, and the backward's
-# "tc32" route at 32 x 32) round P (forward) and dO, P and dS (backward)
+# The tensor-core routes (bf16 at 64 x 64 blocks, and the "tc32" routes
+# at 32 x 32) round P (forward) and dO, P and dS (backward)
 # to bf16 before their products and are held by `cases.tc_criterion`
 # against the twin that rounds alike; the forward's O^l, whose arithmetic
 # stays f32, is held to 5e-5.
@@ -107,23 +107,24 @@ CASES = [
 @pytest.mark.parametrize("h,group,n,d,block,causal,base", CASES)
 def test_cuda_kernel_matches_plain_twin(h, group, n, d, block, causal, base,
                                         dtype):
-    """The f32-FMA and split routes within 5e-5; the tensor-core route
-    (bf16 at 64 x 64 blocks) by the rounding criterion on (O^s, lse) and
-    5e-5 on O^l; the route's own counter moves once per call."""
+    """The f32-FMA and split routes within 5e-5; the tensor-core routes
+    (bf16 at 64 x 64 and at 32 x 32 blocks) by the rounding criterion on
+    (O^s, lse) and 5e-5 on O^l; the route's own counter moves once per
+    call."""
     _need_gpu()
     args, kw, _ = _operands(7, h, group, n, d, block, dtype, causal, base,
                             span=4)
     route = sla_fwd.forward_route(dtype, block, block, d)
-    tc = route == "tc"
-    before = _fwd_counters()
+    before = _fwd_counters() + (sla_fwd.TC32_LAUNCHES,)
     got = sla_fwd.sla_fwd(*args, **kw)
     want = sla_fwd.sla_fwd_plain(*args, **kw)
     torch.cuda.synchronize()
-    assert _fwd_counters() == (before[0] + 1, before[1] + int(tc),
-                               before[2] + int(route == "split"))
+    assert _fwd_counters() + (sla_fwd.TC32_LAUNCHES,) == (
+        before[0] + 1, before[1] + int(route == "tc"),
+        before[2] + int(route == "split"), before[3] + int(route == "tc32"))
     for g in got:
         assert g.is_cuda and g.dtype == torch.float32
-    if tc:
+    if route in ("tc", "tc32"):
         _assert_tc_fwd(got, want, args, kw)
         return
     for g, w in zip(got, want):
@@ -204,6 +205,106 @@ def test_cuda_tc_fwd_kernel_refuses_misaligned_operands():
     with pytest.raises(ValueError, match="16-byte aligned"):
         sla_fwd.sla_fwd(args[0], args[1], shifted, *args[3:], **kw)
     assert (sla_fwd.LAUNCHES, sla_fwd.TC_LAUNCHES) == before
+
+
+TC32_FWD_CASES = [
+    # (h, group, n, d, causal, base): D 64 (the fine-tune's), D 48 (padded
+    # to 64) and D 128, GQA-2, causal on a span from block 4 and
+    # bidirectional
+    pytest.param(4, 2, 512, d, causal, 4 if causal else 0,
+                 id=f"d{d}-{'causal' if causal else 'bidir'}")
+    for d in (64, 48, 128)
+    for causal in (True, False)
+]
+
+
+@pytest.mark.parametrize("h,group,n,d,causal,base", TC32_FWD_CASES)
+def test_cuda_tc32_fwd_kernel_matches_plain_twins(h, group, n, d, causal,
+                                                  base):
+    """The forward's "tc32" route (bf16 at 32 x 32 blocks): (O^s, lse) by
+    `cases.tc_criterion` against the f32 twin and the twin that rounds P
+    to bf16, O^l within 5e-5 x max(1, max |twin|); its counter moves once
+    a call, at the head dim it pads to, and no other route's does."""
+    _need_gpu()
+    args, kw, _ = _operands(18, h, group, n, d, 32, torch.bfloat16, causal,
+                            base, span=8)
+    assert sla_fwd.forward_route(torch.bfloat16, 32, 32, d) == "tc32"
+    width = sla_fwd.tc32_head_dim(d)
+    before = _fwd_counters() + (sla_fwd.TC32_LAUNCHES,
+                                sla_fwd.HEAD_DIMS[width])
+    got = sla_fwd.sla_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert _fwd_counters() + (sla_fwd.TC32_LAUNCHES,
+                              sla_fwd.HEAD_DIMS[width]) == (
+        before[0] + 1, before[1], before[2], before[3] + 1, before[4] + 1)
+    assert got[0].shape == (h, args[2].shape[1], d)
+    assert float(got[0].abs().max()) > 0 and float(got[1].abs().max()) > 0
+    _assert_tc_fwd(got, sla_fwd.sla_fwd_plain(*args, **kw), args, kw)
+
+
+def test_cuda_tc32_fwd_kernel_is_deterministic():
+    """No atomics on the forward's "tc32" route: two launches on the same
+    operands (causal GQA-2 with a row offset, D 64 and D 108 padded to
+    128) are bitwise equal."""
+    _need_gpu()
+    for d in (64, 108):
+        args, kw, _ = _operands(19, 4, 2, 1024, d, 32, torch.bfloat16, True,
+                                8, span=16)
+        before = sla_fwd.TC32_LAUNCHES
+        first = sla_fwd.sla_fwd(*args, **kw)
+        second = sla_fwd.sla_fwd(*args, **kw)
+        torch.cuda.synchronize()
+        assert sla_fwd.TC32_LAUNCHES == before + 2
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+        _assert_tc_fwd(first, sla_fwd.sla_fwd_plain(*args, **kw), args, kw)
+
+
+def test_cuda_tc32_fwd_kernel_stops_at_counts():
+    """The forward's "tc32" route never reads a padded LUT slot: with
+    every slot past the counts naming a block id far past the end of K
+    and V, the outputs stay finite and bitwise what they are with those
+    slots naming valid blocks (the twin, which gathers every slot before
+    it masks, runs on the latter)."""
+    _need_gpu()
+    args, kw, _ = _operands(20, 4, 2, 512, 64, 32, torch.bfloat16, False, 0,
+                            span=16)
+    lut, counts = args[:2]
+    counts = torch.clamp(counts - 1, min=1).contiguous()
+    dead = torch.arange(lut.shape[-1], device="cuda") >= counts[..., None]
+    assert int(dead.sum()) > 0
+    far = torch.where(dead, torch.full_like(lut, 1 << 24), lut).contiguous()
+    near = torch.where(dead, torch.zeros_like(lut), lut).contiguous()
+    want = sla_fwd.sla_fwd(near, counts, *args[2:], **kw)
+    got = sla_fwd.sla_fwd(far, counts, *args[2:], **kw)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    call = (near, counts, *args[2:])
+    _assert_tc_fwd(got, sla_fwd.sla_fwd_plain(*call, **kw), call, kw)
+
+
+def test_cuda_fma_kernel_forced_at_the_tc32_shape():
+    """`sla_fwd.cu` still takes bf16 at 32 x 32 blocks when forced (as
+    chip_smoke times it beside the "tc32" kernel), within 5e-5 of the f32
+    twin, and only the launch counter moves."""
+    _need_gpu()
+    args, kw, _ = _operands(21, 4, 2, 512, 64, 32, torch.bfloat16, True, 4,
+                            span=8)
+    before = _fwd_counters() + (sla_fwd.TC32_LAUNCHES,)
+    got = sla_fwd._launch(*args, **kw, route="fma")
+    want = sla_fwd.sla_fwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert _fwd_counters() + (sla_fwd.TC32_LAUNCHES,) == (
+        before[0] + 1, before[1], before[2], before[3])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=TWIN_TOL, rtol=TWIN_TOL)
+
+
+def test_cuda_tc32_ctas_per_sm():
+    """The occupancy query of the "tc32" forward kernel answers at both
+    built head dims."""
+    _need_gpu()
+    assert all(sla_fwd.tc32_ctas_per_sm(d) >= 1 for d in (64, 128))
 
 
 SPLIT_CASES = [c for c in CASES if c[4] == 64 and c[3] <= 128] + [
@@ -858,11 +959,12 @@ def test_kernel_backend_bf16_grads_on_tensor_cores_match_gather(
 def test_kernel_backend_bf16_grads_at_32x32_blocks_match_gather(
         monkeypatch):
     """bf16 compute at 32 x 32 blocks (smoke Wan, seq 256, D 32 padded to
-    64), the fine-tune's route mix: the forward on its f32-FMA kernel, the
-    backward on the "tc32" kernels; every parameter gradient and the loss
-    meet the rounding criterion against the gather backend (f32 attention
+    64), the fine-tune's routes: the forward and the backward on the
+    "tc32" kernels; every parameter gradient and the loss meet the
+    rounding criterion against the gather backend (f32 attention
     arithmetic), the "rounded" term from the kernel backend run through
-    the backward twins that round dO, P and dS to bf16."""
+    the forward twin that rounds P and the backward twins that round dO,
+    P and dS to bf16."""
     _need_gpu()
     cfg = get_arch("wan2_1_1_3b").smoke()
     cfg = dataclasses.replace(cfg, sla=cfg.sla.replace(block_q=32,
@@ -892,14 +994,16 @@ def test_kernel_backend_bf16_grads_at_32x32_blocks_match_gather(
 
     def counts():
         return (*_launches(), *_tc32_launches(), sla_fwd.LAUNCHES,
-                sla_fwd.TC_LAUNCHES)
+                sla_fwd.TC_LAUNCHES, sla_fwd.TC32_LAUNCHES)
 
     before = counts()
     got = grads("kernel")
     n = cfg.num_layers
     assert tuple(a - b for a, b in zip(counts(), before)) == (
-        n, n, 0, 0, n, n, n, 0)
+        n, n, 0, 0, n, n, n, 0, n)
     want = grads("gather")
+    monkeypatch.setattr(ops, "sla_fwd", functools.partial(
+        sla_fwd.sla_fwd_plain, mma_dtype=torch.bfloat16))
     monkeypatch.setattr(ops, "sla_bwd_dq", functools.partial(
         sla_bwd.sla_bwd_dq_plain, mma_dtype=torch.bfloat16))
     monkeypatch.setattr(ops, "sla_bwd_dkv", functools.partial(

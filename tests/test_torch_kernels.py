@@ -7,10 +7,12 @@ group 2, head dims 32 and 108. Tolerances are the conformance matrix's
 (tests/test_conformance.py): f32 5e-5, bf16 5e-2.
 
 The twin's `mma_dtype=torch.bfloat16` form, which rounds P to bf16 before
-P V where the tensor-core kernel (bf16 at 64 x 64 blocks) does, is held to
-the Pallas kernel within the bf16 limit; the route rule the forward shares
-with the backward, the head-dim padding of that route, and the build's
-hashing of the shared CUDA header are checked here too.
+P V where the tensor-core kernels (bf16 at 64 x 64 blocks, and the "tc32"
+kernel at 32 x 32 blocks) do, is held to the Pallas kernel within the
+bf16 limit, at 32 x 32 blocks on D 64 and 128 too; the route rules the
+forward shares with the backward (one at each block size), the head-dim
+padding of those routes, and the build's hashing of the shared CUDA
+headers are checked here too.
 
 The twin's `mma_dtype="bf16x3"` form computes Q K^T and P V as the split
 kernel (f32 at 64 x 64 blocks, on the tensor cores) does: three bf16
@@ -43,9 +45,11 @@ TOL = {"f32": 5e-5, "bf16": 5e-2}
 BLOCK = 16
 
 
-def _case(seed, d, group, causal, base, dtype, h=4, n=128, span=4):
-    """Numpy operands for one kernel call. Causal cases attend a span of
-    `span` query blocks starting at block `base` against the full KV."""
+def _case(seed, d, group, causal, base, dtype, h=4, n=128, span=4,
+          block=BLOCK):
+    """Numpy operands for one kernel call at `block` x `block` blocks.
+    Causal cases attend a span of `span` query blocks starting at block
+    `base` against the full KV."""
     rs = np.random.default_rng(seed)
     hkv = h // group
     q = rs.standard_normal((h, n, d), dtype=np.float32)
@@ -54,18 +58,18 @@ def _case(seed, d, group, causal, base, dtype, h=4, n=128, span=4):
     if dtype == "bf16":  # round once; both sides then see the same values
         q, k, v = (np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
                    for x in (q, k, v))
-    cfg = JaxSLAConfig(block_q=BLOCK, block_kv=BLOCK, kh_frac=0.5,
+    cfg = JaxSLAConfig(block_q=block, block_kv=block, kh_frac=0.5,
                        kl_frac=0.25, causal=causal)
     plan = jplan.plan_attention(jnp.asarray(q[None]),
                                 jnp.asarray(k[None]), cfg)
     lut, counts = np.asarray(plan.lut[0]), np.asarray(plan.counts[0])
     if causal:
         rows = slice(base, base + span)
-        q, lut, counts = q[:, base * BLOCK:(base + span) * BLOCK], \
+        q, lut, counts = q[:, base * block:(base + span) * block], \
             lut[:, rows], counts[:, rows]
     else:
         base = 0
-    tm = q.shape[1] // BLOCK
+    tm = q.shape[1] // block
     qp = np.exp(q - q.max(-1, keepdims=True))
     qp = (qp / qp.sum(-1, keepdims=True)).astype(np.float32)
     hi = (0.1 * rs.standard_normal((h, tm, d, d))).astype(np.float32)
@@ -121,16 +125,30 @@ def test_plain_twin_matches_pallas_kernel(d, group, causal, base, dtype):
 
 
 BF16_CASES = [c for c in CASES if c.values[-1] == "bf16"]
+# the same at 32 x 32 blocks, the "tc32" route's (n 256, a span of 4
+# query blocks from block 4 when causal): D 64 (the fine-tune's) and 128,
+# GQA-2
+ROUNDED_CASES = [pytest.param(*c.values, BLOCK, id=c.id)
+                 for c in BF16_CASES] + [
+    pytest.param(d, 2, causal, 4 if causal else 0, "bf16", 32,
+                 id=f"d{d}-g2-{'causal4' if causal else 'bidir0'}-bf16-"
+                    f"32x32")
+    for d in (64, 128)
+    for causal in (False, True)
+]
 
 
-@pytest.mark.parametrize("d,group,causal,base,dtype", BF16_CASES)
-def test_rounded_twin_matches_pallas_kernel(d, group, causal, base, dtype):
-    """The twin that rounds P to bf16 before P V (the tensor-core route's
-    rounding) against the Pallas kernel, within the bf16 limit; it leaves
-    l, and so lse, bitwise as the f32 twin has them."""
-    ops, base = _case(d + group, d, group, causal, base, dtype)
-    kw = dict(scale=d ** -0.5, causal=causal, block_q=BLOCK,
-              block_kv=BLOCK)
+@pytest.mark.parametrize("d,group,causal,base,dtype,block", ROUNDED_CASES)
+def test_rounded_twin_matches_pallas_kernel(d, group, causal, base, dtype,
+                                            block):
+    """The twin that rounds P to bf16 before P V (the tensor-core routes'
+    rounding, "tc" and "tc32") against the Pallas kernel, within the bf16
+    limit; it leaves l, and so lse, bitwise as the f32 twin has them."""
+    n = 128 if block == BLOCK else 256
+    ops, base = _case(d + group, d, group, causal, base, dtype, n=n,
+                      block=block)
+    kw = dict(scale=d ** -0.5, causal=causal, block_q=block,
+              block_kv=block)
     want = jax_sla_fwd(*_jax_args(ops, dtype), **kw, interpret=True,
                        base=jnp.asarray([base], jnp.int32))
     args = _torch_args(ops, dtype)
@@ -200,6 +218,33 @@ def test_forward_and_backward_share_one_route_rule(dtype, block_q, block_kv,
     assert (sla_bwd.TC_BLOCK, sla_bwd.TC_HEAD_DIM) == (sla_fwd.TC_BLOCK,
                                                        sla_fwd.TC_HEAD_DIM)
     assert sla_fwd.use_tensor_cores(dtype, block_q, block_kv, d) is tc
+
+
+@pytest.mark.parametrize("d,group,causal", [(64, 2, False), (128, 2, True),
+                                            (48, 1, True)])
+def test_forward_and_backward_share_the_32x32_route_rule(d, group, causal):
+    """One rule object decides "tc32" for the forward and the backward, so
+    a bf16 step at 32 x 32 blocks rounds P alike in both directions (as
+    `use_tensor_cores` does at 64 x 64); both pad to the same width, and
+    a CPU call at that shape runs the f32 twin with no launch counted."""
+    assert sla_bwd.use_tensor_cores_32 is sla_fwd.use_tensor_cores_32
+    assert sla_bwd.tc32_head_dim is sla_fwd.tc32_head_dim
+    assert sla_bwd.TC32_BLOCK == sla_fwd.TC32_BLOCK == 32
+    block = sla_fwd.TC32_BLOCK
+    assert sla_fwd.forward_route(torch.bfloat16, block, block, d) == \
+        sla_bwd.backward_route(torch.bfloat16, block, block, d) == "tc32"
+    assert sla_fwd.tc32_head_dim(d) == (64 if d <= 64 else 128)
+    ops, base = _case(50 + d, d, group, causal, 2, "bf16", n=256,
+                      block=block)
+    kw = dict(scale=d ** -0.5, causal=causal, block_q=block,
+              block_kv=block, base=base)
+    args = _torch_args(ops, "bf16")
+    counters = ("LAUNCHES", "TC_LAUNCHES", "TC32_LAUNCHES")
+    before = [getattr(sla_fwd, c) for c in counters]
+    got = sla_fwd.sla_fwd(*args, **kw)
+    assert [getattr(sla_fwd, c) for c in counters] == before
+    want = sla_fwd.sla_fwd_plain(*args, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_cpu_tensors_at_the_tensor_core_shape_run_the_f32_twin():
@@ -331,18 +376,26 @@ def test_split_kv_planes_twin_pads_and_recombines():
     (torch.float32, 64, 64, 132, "fma"),
     (torch.bfloat16, 64, 64, 128, "tc"),
     (torch.bfloat16, 64, 64, 108, "tc"),
-    (torch.bfloat16, 32, 32, 128, "fma"),
+    (torch.bfloat16, 32, 32, 128, "tc32"),
     (torch.bfloat16, 64, 64, 132, "fma"),
+    (torch.bfloat16, 32, 32, 48, "tc32"),
+    (torch.bfloat16, 32, 32, 64, "tc32"),
+    (torch.bfloat16, 32, 32, 108, "tc32"),
+    (torch.bfloat16, 32, 32, 132, "fma"),
+    (torch.float32, 32, 32, 64, "fma"),
 ])
 def test_forward_route_rule(dtype, block_q, block_kv, d, route):
-    """The forward's three routes; the split rule is the forward's alone,
+    """The forward's four routes; the split rule is the forward's alone,
     so the backward's (shared) tensor-core rule still sends f32 to its
-    f32-FMA kernels."""
+    f32-FMA kernels; bf16 at 32 x 32 blocks and D <= 128 takes "tc32",
+    the backward's 32 x 32 rule too."""
     assert sla_fwd.forward_route(dtype, block_q, block_kv, d) == route
     assert sla_fwd.use_split(dtype, block_q, block_kv, d) is (
         route == "split")
     assert sla_bwd.use_tensor_cores(dtype, block_q, block_kv, d) is (
         route == "tc")
+    assert sla_bwd.use_tensor_cores_32(dtype, block_q, block_kv, d) is (
+        route == "tc32")
 
 
 def test_cpu_tensors_at_the_split_shape_run_the_f32_twin():
@@ -371,7 +424,9 @@ def test_cpu_tensors_at_the_split_shape_run_the_f32_twin():
 
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "split"),
                                          (torch.float32, "tc"),
-                                         (torch.float32, "dense")])
+                                         (torch.float32, "dense"),
+                                         (torch.float32, "tc32"),
+                                         (torch.bfloat16, "tc32")])
 def test_forced_route_must_take_the_call(dtype, route):
     """`_launch` forces a route only where that route's kernel takes the
     call (the f32-FMA kernel takes every one): the rest are refused before
@@ -465,7 +520,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         _build.build_all()
     assert _build.kernel_names() == ["sla_bwd", "sla_bwd_tc", "sla_bwd_tc32",
                                      "sla_decode", "sla_fwd", "sla_fwd_split",
-                                     "sla_fwd_tc"]
+                                     "sla_fwd_tc", "sla_fwd_tc32"]
 
 
 def test_library_path_hashes_the_shared_headers(monkeypatch, tmp_path):

@@ -276,14 +276,14 @@ def test_f32_twins_match_pallas_kernels_at_32x32_blocks(group, causal):
 def test_backward_route_rule(dtype, block_q, block_kv, d, route):
     """bf16 at 64 x 64 blocks takes the "tc" kernels (the forward's
     tensor-core rule), bf16 at 32 x 32 blocks the "tc32" kernels, both up
-    to D 128; everything else the f32-FMA kernels. The forward keeps its
-    own rule: at 32 x 32 blocks it stays on its f32-FMA kernel."""
+    to D 128; everything else the f32-FMA kernels. At 32 x 32 blocks the
+    forward takes its own "tc32" kernel by the same rule."""
     assert sla_bwd.backward_route(dtype, block_q, block_kv, d) == route
     assert sla_bwd.use_tensor_cores(dtype, block_q, block_kv, d) is (
         route == "tc")
     if route == "tc32":
         assert not sla_fwd.use_tensor_cores(dtype, block_q, block_kv, d)
-        assert sla_fwd.forward_route(dtype, block_q, block_kv, d) == "fma"
+        assert sla_fwd.forward_route(dtype, block_q, block_kv, d) == "tc32"
 
 
 @pytest.mark.parametrize("d,width", [(48, 64), (64, 64), (108, 128),
