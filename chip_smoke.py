@@ -583,6 +583,31 @@ Phases, in order; any failure exits non-zero before the result line:
      operands of b's chunk (C = 16, per-token rows and diagonal partials)
      and of a's last step (each slot's rows at its own position), cut
      into 4 and 16 spans, as 37b, with the card's name and power limit.
+ 40. paged caches and chunked admission over the mesh's path at world
+     size 1 (`phase_paged_mesh`, run just after phase 39 on phase 37's
+     model, `col_capacity_factor` lifted as the paged Scheduler lifts
+     it), each path on the plain path and then on a copy of the
+     parameters on `make_host_mesh(1, 1)` (NCCL, world size 1) under
+     `activation_sharding`, bitwise: a. a paged cache of two slots (536
+     pages) whose 32,000-token prompts share their first 30,720 tokens
+     (480 pages), admitted with `insert_slot_paged` after batch-1
+     prefills at steps 0 and 4, slot 0's shared page of block 1 copied on
+     write at step 8, a fresh zeroed page whenever a slot enters a block,
+     72 greedy steps across the block boundaries at 32,000 and 32,064:
+     logits and every leaf (pools, page table, "sla" state) bitwise;
+     kernel 5 one launch a layer a step, kernel 1 28 tensor-core launches
+     a prefill; c. kernel 5's partial mode (`sla_decode_paged_partial`)
+     over the mesh run's layer-0 paged state with a seeded query, cut
+     into 4 and 16 spans: each span's records against the twin's (5e-5 x
+     max(1, max |twin|), field by field), bitwise kernel 4's partial mode
+     on the page-gathered view of the span, two launches bitwise equal,
+     the spans combined against unsplit kernel 5; CUDA-graph times of 20
+     calls, the bytes bound, the card's name and power limit; b. slot 0's
+     prompt admitted in 4 chunks of 8,000 tokens (`prefill_chunk`,
+     `finalize_chunked_prefill`): the last chunk's logits and every
+     finalized leaf bitwise, the plain run within phase 18's limits of
+     a's blocking prefill (logits and the prompt's K/V), kernel 1 28
+     tensor-core launches a chunk, the carry's bytes a rank.
  31. the kernels line (JSON): `sla_fwd` carries the split route's fields
      at the top (the f32 serving route) and the f32-FMA and bf16
      tensor-core routes' beside them, kernels 1-3 the D-64 cases of
@@ -595,8 +620,8 @@ Phases, in order; any failure exits non-zero before the result line:
      after padding, zeroed with the counters before each path) and,
      apart, those of the archs it served (`arch_head_dims`);
      `sla_fwd_split_planes` is the split route's pre-pass; `sla_decode`
-     carries its partial mode's fields and counter under `partial`; then
-     the result line.
+     and `sla_decode_paged` carry their partial modes' fields and
+     counters under `partial`; then the result line.
 """
 from __future__ import annotations
 
@@ -828,6 +853,15 @@ P38_COUNTERS = ("admissions", "denoise_steps", "plan_builds", "plan_replans",
 # blocks) arrive at different steps, decode_chunk and learned routing
 P39_PROMPTS, P39_ADMIT, P39_NEW = (32000, 30976), (0, 4), 72
 P39_C = 16  # decode_chunk's tokens (39b) and learned routing's steps (39d)
+# paged caches and chunked admission over the mesh (phase 40), on phase
+# 37's model: a paged cache of two slots whose 32,000-token prompts share
+# their first 30,720 tokens (480 whole pages), slot 1 admitted at step 4,
+# slot 0's page of block 1 copied on write at step 8, P37_NEW greedy
+# steps crossing the block boundaries at 32,000 and 32,064; slot 0's prompt
+# admitted again in PC_CHUNK_BLOCKS chunks. Pages: 0 the zero page, 1-2
+# the slots' scratch pages, then the prompts', the copy, the decode pages
+P40_ADMIT, P40_SHARED, P40_COW_STEP = (0, 4), 30720, 8
+P40_POOL = 536
 FT_CASE_KEYS = ("shape", "dtype", "route", "bh", "n", "d", "k_sel",
                 "live_tiles", "ms", "plain_ms", "bound_ms", "bound_by",
                 "bound_fraction", "bound_ms_f32_fma", "max_abs_err", "ok",
@@ -1016,7 +1050,8 @@ def _head_dim_records() -> dict:
             "sla_bwd_dkv": sla_bwd.HEAD_DIMS_DKV,
             "sla_decode": sla_decode.HEAD_DIMS,
             "sla_decode_paged": sla_decode.PAGED_HEAD_DIMS,
-            "sla_decode_partial": sla_decode.PARTIAL_HEAD_DIMS}
+            "sla_decode_partial": sla_decode.PARTIAL_HEAD_DIMS,
+            "sla_decode_paged_partial": sla_decode.PAGED_PARTIAL_HEAD_DIMS}
 
 
 # kernel -> main path -> the head dims its launches there ran at
@@ -3306,7 +3341,7 @@ def _pg_cross_check(cfg, sched, logits, res):
         raise RuntimeError(f"paged decode disagrees on the path's state: "
                            f"{rows}")
     token = logits.argmax(-1)
-    snap = transformer.snapshot_slots(cache, range(PG_SLOTS))
+    snap = transformer.snapshot_slots(cache, range(PG_SLOTS), cfg)
     outs = {}
     with torch.no_grad():
         for backend in ("kernel", "gather"):
@@ -3461,7 +3496,7 @@ def phase_paged_main(cfg, params, profile: bool):
         hits.append(sched._pool.stats.prefix_hits > before)
         return pid
 
-    def admit_hook(live, single, slot, pids):
+    def admit_hook(live, single, slot, pids, cfg):
         """Every interned page this admission rewrites must already hold
         bitwise what the new prefill computed for it."""
         idx = [i for i, hit in enumerate(hits) if hit]
@@ -3484,7 +3519,7 @@ def phase_paged_main(cfg, params, profile: bool):
                         (new.float() - old.float()).abs().max()))
                     rewrite["bits"] += int((_bits(new) != _bits(old)).sum())
             rewrite["pages"] += len(idx)
-        return admit_paged(live, single, slot, pids)
+        return admit_paged(live, single, slot, pids, cfg)
 
     sched._one, sched._run_prefill = one_hook, prefill_hook
     sched._claim_page, sched._admit_paged = claim_hook, admit_hook
@@ -3820,7 +3855,7 @@ def _pc_run(cfg, params, chunk, capture: bool):
         hits.append(sched._pool.stats.prefix_hits > before)
         return pid
 
-    def admit_hook(live, single, slot, pids):
+    def admit_hook(live, single, slot, pids, cfg):
         idx = [i for i, hit in enumerate(hits) if hit]
         hits.clear()
         if idx:
@@ -3841,7 +3876,7 @@ def _pc_run(cfg, params, chunk, capture: bool):
                         (new.float() - old.float()).abs().max()))
                     rewrite["bits"] += int((_bits(new) != _bits(old)).sum())
             rewrite["pages"] += len(idx)
-        return admit_paged(live, single, slot, pids)
+        return admit_paged(live, single, slot, pids, cfg)
 
     admit_next, note_gap = sched._admit_next, sched._note_gap
 
@@ -8583,6 +8618,455 @@ def phase_dit_serve_mesh(cfg, params, main_run: dict) -> dict:
                 counters=serve["counters"], wall_s=time.time() - t_all)
 
 
+def _p40_scope(mesh, batch: int, length: int = P37_MAX_LEN):
+    if mesh is None:
+        return contextlib.nullcontext()
+    return actx.activation_sharding(
+        mesh, actx.default_residual_spec(mesh, batch, length), remat=False)
+
+
+def _p40_zero():
+    _zero_kernel_counts()
+    sla_decode.LAUNCHES = sla_decode.PAGED_LAUNCHES = 0
+    sla_decode.PARTIAL_LAUNCHES = sla_decode.PAGED_PARTIAL_LAUNCHES = 0
+
+
+def _p40_counts(path: str) -> dict:
+    launches = _kernel_counts([], path)
+    launches.update(sla_decode=sla_decode.LAUNCHES,
+                    sla_decode_paged=sla_decode.PAGED_LAUNCHES,
+                    sla_decode_partial=sla_decode.PARTIAL_LAUNCHES,
+                    sla_decode_paged_partial=(
+                        sla_decode.PAGED_PARTIAL_LAUNCHES))
+    return launches
+
+
+def _paged_mesh_run(cfg, params, prompts, path: str, mesh=None,
+                    keep: bool = False) -> dict:
+    """Phase 40a's run: a paged decode-SLA cache of two slots
+    (`make_paged_cache`, P40_POOL pages, K/V bf16), slot j admitting
+    prompts[j] at step P40_ADMIT[j] (`prefill(decode_max_len=)` at batch 1
+    on the kernel backend, then `insert_slot_paged` into pages 3 ..;
+    slot 1's first P40_SHARED // bkv pages are slot 0's), slot 0's page of
+    block 1 copied on write (`copy_page`) at step P40_COW_STEP, a fresh
+    zeroed page (`copy_page(new, 0)`) whenever an admitted slot enters a
+    block, P37_NEW greedy `decode_step`s (an idle slot decodes token 0 on
+    its scratch page), bf16, on the plain path (`mesh` None) or under the
+    mesh's scopes, the counters zeroed just before and read just after.
+    Returns the logits, the cache, with `keep` slot 0's prompt logits and
+    K/V (phase 40b's blocking yardstick), the walls and the launches."""
+    b, bkv = len(prompts), cfg.sla.block_kv
+    tn = P37_MAX_LEN // bkv
+    npp = prompts[0].shape[1] // bkv
+    shared = P40_SHARED // bkv
+    pages = [list(range(3, 3 + npp)),
+             list(range(3, 3 + shared))
+             + list(range(3 + npp, 3 + 2 * npp - shared))]
+    fresh = 3 + 2 * npp - shared
+    cow, fresh = fresh, fresh + 1
+    pt = np.zeros((b, tn), np.int32)
+    for slot in range(b):
+        pt[slot] = 1 + slot  # its scratch page
+    with torch.no_grad():
+        with _p40_scope(mesh, b):
+            cache = transformer.make_paged_cache(
+                cfg, b, P37_MAX_LEN, P40_POOL, dtype=torch.bfloat16,
+                decode_sla=True, device=DEV)
+        torch.cuda.synchronize()
+        _p40_zero()
+        tok = torch.zeros((b,), dtype=torch.int32, device=DEV)
+        logits, walls, per_step, admit_s, first = [], [], [], [], {}
+        active = set()
+        for i in range(P37_NEW):
+            for slot, at in enumerate(P40_ADMIT):
+                if at != i:
+                    continue
+                t0 = time.time()
+                with _p40_scope(mesh, 1):
+                    hidden, single = transformer.prefill(
+                        params, cfg, prompts[slot], torch.bfloat16, "kernel",
+                        decode_max_len=P37_MAX_LEN)
+                    lg = logits_from_hidden(params, hidden)
+                with _p40_scope(mesh, b):
+                    transformer.insert_slot_paged(cache, single, slot,
+                                                  pages[slot], cfg)
+                if slot == 0 and keep:
+                    n = prompts[0].shape[1]
+                    first = dict(logits=lg, k=single["k"][..., :n, :].clone(),
+                                 v=single["v"][..., :n, :].clone())
+                del hidden, single
+                pt[slot] = 0
+                pt[slot, :npp] = pages[slot]
+                active.add(slot)
+                tok[slot] = lg.argmax(-1)[0].to(torch.int32)
+                torch.cuda.synchronize()
+                admit_s.append(time.time() - t0)
+            if i == P40_COW_STEP:
+                transformer.copy_page(cache, cow, int(pt[0, 1]))
+                pt[0, 1] = cow
+            for slot in sorted(active):
+                p = int(cache["pos_host"][slot])
+                if p % bkv == 0 and p // bkv < tn:
+                    transformer.copy_page(cache, fresh, 0)
+                    pt[slot, p // bkv] = fresh
+                    fresh += 1
+            transformer.set_page_table(cache, pt)
+            before = sla_decode.PAGED_LAUNCHES
+            t0 = time.time()
+            with _p40_scope(mesh, b):
+                lg, cache = transformer.decode_step(
+                    params, cfg, tok, cache, torch.bfloat16,
+                    backend="kernel")
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+            per_step.append(sla_decode.PAGED_LAUNCHES - before)
+            logits.append(lg)
+            on = torch.tensor([s in active for s in range(b)], device=DEV)
+            tok = torch.where(on, lg.argmax(-1).to(torch.int32),
+                              torch.zeros_like(tok))
+        launches = _p40_counts(path)
+        launches["per_step"] = sorted(set(per_step))
+    return dict(logits=torch.stack(logits), cache=cache, first=first,
+                walls=walls, admit_s=admit_s, launches=launches,
+                pages_used=fresh)
+
+
+def _chunked_mesh_run(cfg, params, prompt, path: str, mesh=None) -> dict:
+    """Phase 40b's run: `make_prefill_carry` of the prompt's bucket
+    (decode rows kept), `prefill_chunk` in chunks of PC_CHUNK_BLOCKS
+    blocks on the kernel backend, `finalize_chunked_prefill` for a
+    P37_MAX_LEN cache, bf16, on the plain path or under the mesh's scopes
+    (the bucket's for the chunks, the cache's for the finalize), the
+    counters zeroed just before and read just after. Returns the last
+    chunk's logits, the cache, the carry's bytes, the wall and the
+    launches."""
+    bucket = prompt.shape[1]
+    chunk = PC_CHUNK_BLOCKS * cfg.sla.block_kv
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _p40_zero()
+        t0 = time.time()
+        with _p40_scope(mesh, 1, bucket):
+            carry = transformer.make_prefill_carry(
+                cfg, bucket, torch.bfloat16, decode_sla=True, device=DEV)
+            nbytes = sum(t.numel() * t.element_size() for t in carry.values())
+            for start in range(0, bucket, chunk):
+                carry, hidden = transformer.prefill_chunk(
+                    params, cfg, prompt[:, start:start + chunk], carry, start,
+                    torch.bfloat16, "kernel", decode_max_len=P37_MAX_LEN)
+            lg = logits_from_hidden(params, hidden)
+        with _p40_scope(mesh, 1):
+            cache = transformer.finalize_chunked_prefill(cfg, carry,
+                                                         P37_MAX_LEN)
+        del carry, hidden
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = _p40_counts(path)
+    return dict(logits=lg, cache=cache, carry_bytes=nbytes, wall_s=wall,
+                launches=launches)
+
+
+def _leaves_equal(a: dict, b: dict) -> list:
+    """The paths of two caches' leaves that are not bitwise equal (a leaf
+    missing from either counts)."""
+    from repro_torch.distributed import sharding
+    la, lb = dict(sharding.tree_leaves(a)), dict(sharding.tree_leaves(b))
+    return sorted(set(la) ^ set(lb)) + [
+        path for path in sorted(set(la) & set(lb))
+        if not (np.array_equal(la[path], lb[path])
+                if isinstance(la[path], np.ndarray)
+                else _leaf_bitwise(la[path], lb[path]))]
+
+
+def _paged_partial_cases(cfg, cache) -> list:
+    """Phase 40c: kernel 5's partial mode (`sla_decode_paged_partial`) over
+    layer 0's paged state of the mesh run's cache (its pools, page table,
+    live rows and totals) with a seeded query at each slot's last
+    position, cut into each of P37_SPANS spans as a rank of layouts B and
+    C holds them (`cases.paged_span_operands`): every span's records
+    against the twin's at the kernel's width (5e-5 x max(1, max |twin|),
+    field by field), bitwise kernel 4's partial mode on the page-gathered
+    view of the span at the same width, two launches bitwise equal, and
+    the spans' records combined (`sla_decode.sla_decode_combine`) against
+    unsplit kernel 5 (5e-5 x max(1, max |o|)). CUDA-graph times of 20
+    calls (every span's launch, one after another on this one card) and
+    of unsplit kernel 5, CUDA-event times of the twin and the combine, the
+    bytes bound; the launches here are checks, not a main path's."""
+    st = cache["sla"]
+    b, tn = cache["pt"].shape
+    h, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g, bh = h // hkv, b * h
+    gen = torch.Generator(device=DEV).manual_seed(40)
+    q = torch.randn((bh, 1, d), generator=gen, device=DEV)
+    posv = (torch.as_tensor(cache["pos_host"], device=DEV) - 1).int() \
+        .repeat_interleave(h).contiguous()
+    args = (st["live_lut"][0].reshape(bh, 1, -1).contiguous(),
+            cache["pt"].contiguous(),
+            st["live_cnt"][0].reshape(bh, 1).contiguous(),
+            st["live_marg"][0].reshape(bh, 1).contiguous(), posv, q,
+            phi(q, cfg.sla.phi).float().contiguous(), cache["kp"][0],
+            cache["vp"][0], cache["slap"]["hblk"][0],
+            cache["slap"]["zblk"][0],
+            st["htot"][0].reshape(b * hkv, d, d).contiguous(),
+            st["ztot"][0].reshape(b * hkv, d).contiguous())
+    kw = dict(scale=d ** -0.5, block_kv=cfg.sla.block_kv, group=g)
+    snap = (sla_decode.PAGED_LAUNCHES, sla_decode.PARTIAL_LAUNCHES,
+            sla_decode.PAGED_PARTIAL_LAUNCHES, _head_dim_snapshot())
+    want = sla_decode.sla_decode_paged(*args, **kw)
+    whole_ms = cuda_graph_ms(lambda: sla_decode.sla_decode_paged(*args,
+                                                                 **kw))
+    dense_all = cases.paged_dense_operands(args)
+    shape = (f"{LM_ARCH} layer 0 paged state B {b}, H {h}, Hkv {hkv}, D "
+             f"{d}, Tn {tn}, K {args[0].shape[-1]}, pool "
+             f"{cache['kp'].shape[1]} pages, slot positions "
+             f"{sorted(set(posv.tolist()))}")
+    rows = []
+    for spans in P37_SPANS:
+        nb = tn // spans
+        ops = [cases.paged_span_operands(args, r * nb, nb)
+               for r in range(spans)]
+        records, errs, neutral, vs_k4, bitwise = [], [], True, True, True
+        for paged, dense in ops:
+            got = sla_decode.sla_decode_paged_partial(*paged, **kw)
+            again = sla_decode.sla_decode_paged_partial(*paged, **kw)
+            bitwise = bitwise and bool(torch.equal(got, again))
+            vs_k4 = vs_k4 and bool(torch.equal(
+                got, sla_decode.sla_decode_partial(*dense, **kw)))
+            width = sla_decode.split_geometry(paged[4], paged[0])[
+                "split_width"]
+            err = cases.record_error(
+                got, sla_decode.sla_decode_paged_partial_plain(
+                    *paged, **kw, split_width=width))
+            errs.append(err["err"])
+            neutral = neutral and err["neutral_ok"]
+            records.append(got)
+        o_s, o_l = cases.span_combine(torch.stack(records), dense_all, g)
+        comb = [float((x - w).abs().max()) / max(1.0, float(w.abs().max()))
+                for x, w in zip((o_s, o_l), want)]
+        ms = cuda_graph_ms(lambda: [sla_decode.sla_decode_paged_partial(
+            *o[0], **kw) for o in ops])
+        plain_ms = cuda_ms(lambda: [sla_decode.sla_decode_paged_partial_plain(
+            *o[0], **kw) for o in ops], 3)
+        combine_ms = cuda_ms(lambda: cases.span_combine(
+            torch.stack(records), dense_all, g), 10)
+        work = [_partial_bound(o[1], kw) for o in ops]
+        # and each span's columns of the page table
+        nbytes = sum(w[0] for w in work) + b * tn * 4
+        flops = sum(w[1] for w in work)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = flops / PEAK_FLOPS[torch.float32]
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        ok = (max(errs) <= TWIN_TOL and neutral and bitwise and vs_k4
+              and max(comb) <= TWIN_TOL)
+        rows.append(dict(
+            spans=spans, blocks_a_span=nb, shape=shape,
+            max_abs_err=max(errs), combine_err=max(comb), neutral_ok=neutral,
+            bitwise_repeat=bitwise, bitwise_vs_partial=vs_k4, ms=ms,
+            ms_a_span=ms / spans, plain_ms=plain_ms, combine_ms=combine_ms,
+            whole_ms=whole_ms, bound_ms=bound_ms,
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bound_bytes=nbytes, bound_flops=flops,
+            bound_fraction=bound_ms / ms, library_ms=None, ok=ok))
+        say(f"[40c paged partial] {shape} in {spans} spans of {nb} blocks: "
+            f"records vs twin max err {max(errs):.3g} (limit {TWIN_TOL:g}, "
+            f"relative), neutral rows {neutral}, bitwise on repeat "
+            f"{bitwise}, bitwise kernel 4's partial mode on the gathered "
+            f"view {vs_k4} | combined vs unsplit kernel 5 {max(comb):.3g} | "
+            f"every span's launch {ms:.4f} ms ({ms / spans:.4f} a span), "
+            f"twin {plain_ms:.3f} ms, combine {combine_ms:.3f} ms, unsplit "
+            f"kernel 5 {whole_ms:.4f} ms | bound {bound_ms:.4f} ms by "
+            f"{rows[-1]['bound_by']} ({nbytes / 1e6:.2f} MB, "
+            f"{bound_ms / ms:.3f} of it reached) on {CARD[0]} "
+            f"{'OK' if ok else 'FAIL'}")
+        del ops, records
+    sla_decode.PAGED_LAUNCHES, sla_decode.PARTIAL_LAUNCHES = snap[:2]
+    sla_decode.PAGED_PARTIAL_LAUNCHES = snap[2]
+    _restore_head_dims(snap[3])
+    return rows
+
+
+def phase_paged_mesh(p37: dict) -> tuple:
+    """Phase 40: paged caches and chunked admission over the mesh's path
+    at world size 1 on this card, on phase 37's model (full-width
+    Qwen3-1.7B, bf16), each path run plain and then under
+    `activation_sharding` over `make_host_mesh(1, 1)` (NCCL through a
+    FileStore under build/, destroyed after) on a placed copy of the
+    parameters, the two bitwise equal:
+
+    a. a paged cache of two slots (`_paged_mesh_run`): P37_PROMPT-token
+       prompts sharing their first P40_SHARED tokens (whole pages),
+       admitted with `insert_slot_paged` at steps P40_ADMIT, a copy on
+       write, P37_NEW greedy steps across the block boundaries: logits,
+       tokens and every leaf of the cache (pools, page table, "sla"
+       state) bitwise; kernel 5 one launch a layer a step, its partial
+       mode none (a one-rank mesh is layout A), kernel 1 one tensor-core
+       launch a layer a prefill;
+    c. kernel 5's partial mode over the mesh run's layer 0
+       (`_paged_partial_cases`);
+    b. slot 0's prompt admitted in chunks of PC_CHUNK_BLOCKS blocks
+       (`_chunked_mesh_run`): the last chunk's logits and every leaf of
+       the finalized cache bitwise; the plain run held to a's blocking
+       prefill of the same prompt within phase 18's limits (logits and
+       K/V within LM_LOGIT_TOL x max(1, max |blocking|)); kernel 1 one
+       tensor-core launch a layer a chunk.
+    Both run phase 37's config with `col_capacity_factor` lifted to None,
+    as the paged `Scheduler` serves it. `p37` is phase 37's {"cfg",
+    "params"}. Returns (summary, partial-mode rows)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import mesh as mesh_lib
+    t_all = time.time()
+    params = p37["params"]
+    # as the paged Scheduler serves it: chunk plan rows and shared pages
+    # need per-row critical sets (`check_chunked_prefill`)
+    cfg = dataclasses.replace(p37["cfg"], sla=p37["cfg"].sla.replace(
+        col_capacity_factor=None))
+    nl, bkv = cfg.num_layers, cfg.sla.block_kv
+    gen = torch.Generator(device=DEV).manual_seed(40)
+    p0 = torch.randint(0, cfg.vocab_size, (1, P37_PROMPT), generator=gen,
+                       device=DEV, dtype=torch.int32)
+    tail = torch.randint(0, cfg.vocab_size, (1, P37_PROMPT - P40_SHARED),
+                         generator=gen, device=DEV, dtype=torch.int32)
+    prompts = [p0, torch.cat([p0[:, :P40_SHARED], tail], dim=1)]
+    plain = _paged_mesh_run(cfg, params, prompts, "lm_paged_p40", keep=True)
+    blocking = plain.pop("first")
+    store = tempfile.mkdtemp(dir=ROOT / "build")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(store, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_host_mesh(1, 1, "cuda")
+        placed = copy.deepcopy(params)
+        sharding.place_module(placed, mesh)
+        sharded = _paged_mesh_run(cfg, placed, prompts, "lm_paged_mesh",
+                                  mesh)
+        bad_a = _leaves_equal(plain["cache"], sharded["cache"])
+        same = {"paged logits": torch.equal(plain["logits"],
+                                            sharded["logits"]),
+                "paged leaves": not bad_a}
+        finite = all(bool(torch.isfinite(r["logits"]).all())
+                     for r in (plain, sharded))
+        pos = sharded["cache"]["pos"].tolist()
+        counters = {key: sharded["cache"]["sla"][key].tolist()
+                    for key in ("extends", "replans", "reuses")}
+        plain["cache"] = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows = _paged_partial_cases(cfg, sharded["cache"])
+        sharded["cache"] = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        chunk_plain = _chunked_mesh_run(cfg, params, p0, "lm_chunked_p40")
+        chunk_mesh = _chunked_mesh_run(cfg, placed, p0, "lm_chunked_mesh",
+                                       mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    del placed
+    bad_b = _leaves_equal(chunk_plain["cache"], chunk_mesh["cache"])
+    same.update({"chunked logits": torch.equal(chunk_plain["logits"],
+                                               chunk_mesh["logits"]),
+                 "chunked leaves": not bad_b})
+    # chunked against blocking (phase 18's limits): the last logits, the
+    # prompt's K/V
+    x, y = chunk_plain["logits"].float(), blocking["logits"].float()
+    vs_blocking = dict(logits=float((x - y).abs().max()), logits_limit=(
+        LM_LOGIT_TOL * max(1.0, float(y.abs().max()))), kv=0.0, kv_limit=0.0,
+        kv_differ=0)
+    for key in ("k", "v"):
+        got = chunk_plain["cache"][key][..., :P37_PROMPT, :]
+        for li in range(nl):
+            a, w = got[li].float(), blocking[key][li].float()
+            vs_blocking["kv"] = max(vs_blocking["kv"],
+                                    float((a - w).abs().max()))
+            vs_blocking["kv_limit"] = max(vs_blocking["kv_limit"], (
+                LM_LOGIT_TOL * max(1.0, float(w.abs().max()))))
+            vs_blocking["kv_differ"] += int((a != w).sum())
+    chunk_pos = (chunk_plain["cache"]["pos"], chunk_mesh["cache"]["pos"])
+    del blocking, x, y
+    chunk_plain["cache"] = chunk_mesh["cache"] = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    finite = finite and all(bool(torch.isfinite(r["logits"]).all())
+                            for r in (chunk_plain, chunk_mesh))
+    want_paged = dict(sla_fwd=nl * len(prompts),
+                      tc_sla_fwd=nl * len(prompts), sla_decode=0,
+                      sla_decode_paged=nl * P37_NEW, sla_decode_partial=0,
+                      sla_decode_paged_partial=0, per_step=[nl])
+    nchunks = -(-P37_PROMPT // (PC_CHUNK_BLOCKS * bkv))
+    want_chunked = dict(sla_fwd=nl * nchunks, tc_sla_fwd=nl * nchunks,
+                        sla_decode=0, sla_decode_paged=0,
+                        sla_decode_partial=0, sla_decode_paged_partial=0)
+    runs = {"paged plain": plain, "paged mesh 1x1": sharded,
+            "chunked plain": chunk_plain, "chunked mesh 1x1": chunk_mesh}
+    launches = {name: {k: r["launches"][k] for k in (
+        want_paged if "paged" in name else want_chunked)}
+        for name, r in runs.items()}
+    launch_ok = all(v == (want_paged if "paged" in name else want_chunked)
+                    for name, v in launches.items())
+    walls = {}
+    for name in ("paged plain", "paged mesh 1x1"):
+        r = runs[name]
+        w = sorted(r["walls"])
+        walls[name] = dict(admit_s=r["admit_s"], decode_ms_min=1e3 * w[0],
+                           decode_ms_median=1e3 * w[len(w) // 2],
+                           decode_ms_max=1e3 * w[-1])
+        say(f"[40a paged mesh] {name}: paged cache of {len(prompts)} slots "
+            f"({P40_POOL} pages, {r['pages_used']} named), prompts of "
+            f"{P37_PROMPT} tokens sharing {P40_SHARED} admitted at steps "
+            f"{P40_ADMIT} in {[round(t, 3) for t in r['admit_s']]} s "
+            f"(prefill and insert_slot_paged) | {P37_NEW} steps "
+            f"{walls[name]['decode_ms_min']:.1f}-"
+            f"{walls[name]['decode_ms_max']:.1f} ms (median "
+            f"{walls[name]['decode_ms_median']:.1f}) | launches "
+            f"{launches[name]} on {CARD[0]}")
+    for name in ("chunked plain", "chunked mesh 1x1"):
+        walls[name] = runs[name]["wall_s"]
+    say(f"[40b chunked mesh] {P37_PROMPT} tokens in {nchunks} chunks of "
+        f"{PC_CHUNK_BLOCKS * bkv}, finalized for {P37_MAX_LEN}: plain "
+        f"{walls['chunked plain']:.3f} s, mesh 1x1 "
+        f"{walls['chunked mesh 1x1']:.3f} s, carry "
+        f"{chunk_plain['carry_bytes'] / 1e9:.3f} GB a rank | vs blocking: "
+        f"logits {vs_blocking['logits']:.4g} (limit "
+        f"{vs_blocking['logits_limit']:.4g}), K/V {vs_blocking['kv']:.4g} "
+        f"(limit {vs_blocking['kv_limit']:.4g}; "
+        f"{vs_blocking['kv_differ']} elements differ) | launches "
+        f"{ {k: launches[k] for k in ('chunked plain', 'chunked mesh 1x1')} }")
+    del runs, plain, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    ok = (all(same.values()) and finite and launch_ok
+          and all(r["ok"] for r in rows)
+          and vs_blocking["logits"] <= vs_blocking["logits_limit"]
+          and vs_blocking["kv"] <= vs_blocking["kv_limit"]
+          and pos == [P37_PROMPT + P37_NEW - at for at in P40_ADMIT]
+          and chunk_pos == (P37_PROMPT, P37_PROMPT))
+    say(f"[40 paged mesh] {LM_ARCH} full width over make_host_mesh(1, 1): "
+        f"bitwise {same} (paged leaves that differ: {bad_a}; chunked: "
+        f"{bad_b}), finite {finite}, slot positions {pos}, counters "
+        f"{counters} | kernel 5's partial mode {sum(r['ok'] for r in rows)}/"
+        f"{len(rows)} OK | {time.time() - t_all:.1f}s "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(
+            f"paged caches and chunked admission over the mesh: bitwise "
+            f"{same} ({bad_a}, {bad_b}), finite {finite}, launches "
+            f"{launches}, vs blocking {vs_blocking}, positions {pos}, "
+            f"{chunk_pos}, partial {[r for r in rows if not r['ok']]}")
+    total = {k: sum(v.get(k, 0) for name, v in launches.items()
+                    if "mesh" in name)
+             for k in ("tc_sla_fwd", "sla_decode_paged",
+                       "sla_decode_paged_partial")}
+    plain_total = {k: sum(v.get(k, 0) for name, v in launches.items()
+                          if "mesh" not in name)
+                   for k in ("tc_sla_fwd", "sla_decode_paged",
+                             "sla_decode_paged_partial")}
+    return dict(bitwise=same, launches=total, plain_launches=plain_total,
+                launches_by_run=launches, walls=walls,
+                vs_blocking=vs_blocking,
+                carry_bytes=chunk_plain["carry_bytes"], counters=counters,
+                wall_s=time.time() - t_all), rows
+
+
 def _tensors(x):
     if torch.is_tensor(x):
         yield x
@@ -8704,11 +9188,17 @@ def main(argv=None) -> int:
     p37 = {"cfg": cfg37, "params": params37, "cache": cache37}
     del cfg37, params37, cache37  # phase 39 frees the cache in p37
     slm, slot_rows = phase_slots_mesh(p37)
+    pm, pm_rows = phase_paged_mesh(p37)
     del p37
     gc.collect()
     torch.cuda.empty_cache()
     slsc, slpc = sls["launches"], sls["plain_launches"]
     smsc, smpc = slm["launches"], slm["plain_launches"]
+    pmr = pm["launches_by_run"]
+    pm_paths = {"lm_paged_p40": pmr["paged plain"],
+                "lm_paged_mesh": pmr["paged mesh 1x1"],
+                "lm_chunked_p40": pmr["chunked plain"],
+                "lm_chunked_mesh": pmr["chunked mesh 1x1"]}
     dsc, dspc = dsm["launches"], dsm["plain_launches"]
     rsc, rspc = sm["reuse"]["launches"], sm["reuse"]["plain_launches"]
     qsc = ex["quickstart"]["launches"]
@@ -8809,7 +9299,8 @@ def main(argv=None) -> int:
                 "lm_prefill_reuse": rspc["tc_sla_fwd"],
                 "lm_prefill_reuse_mesh": rsc["tc_sla_fwd"],
                 "dit_serve_p38": dspc["tc_sla_fwd"],
-                "dit_serve_mesh": dsc["tc_sla_fwd"]}
+                "dit_serve_mesh": dsc["tc_sla_fwd"],
+                **{path: r["tc_sla_fwd"] for path, r in pm_paths.items()}}
     # the other paths compute in bf16: every launch there is a tensor-core
     # one (phases 9, 12, 15, 17 check), so none is on the split route
     split_paths = {"serve": main_run["split_launches"],
@@ -8831,7 +9322,8 @@ def main(argv=None) -> int:
                    "dit_finetune_sla": ftc["split_sla_fwd"],
                    "lm_prefill_reuse": 0, "lm_prefill_reuse_mesh": 0,
                    "dit_serve_p38": dspc["split_sla_fwd"],
-                   "dit_serve_mesh": dsc["split_sla_fwd"]}
+                   "dit_serve_mesh": dsc["split_sla_fwd"],
+                   **{path: 0 for path in pm_paths}}
     kernels = [{
         "name": "sla_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sla_fwd_split.cu",
@@ -8849,7 +9341,8 @@ def main(argv=None) -> int:
                      + sfc["sla_fwd"] + slpc["sla_fwd"] + slsc["sla_fwd"]
                      + sum(slm["kernel1"].values())
                      + qsc["sla_fwd"] + ftc["sla_fwd"] + rspc["sla_fwd"]
-                     + rsc["sla_fwd"] + dspc["sla_fwd"] + dsc["sla_fwd"]),
+                     + rsc["sla_fwd"] + dspc["sla_fwd"] + dsc["sla_fwd"]
+                     + sum(r["sla_fwd"] for r in pm_paths.values())),
         "launches_by_path": {"serve": main_run["launches"],
                              "serve_plan_cache": pc_launches["launches"],
                              "train": train["launches"]["sla_fwd"],
@@ -8882,7 +9375,9 @@ def main(argv=None) -> int:
                              "lm_prefill_reuse": rspc["sla_fwd"],
                              "lm_prefill_reuse_mesh": rsc["sla_fwd"],
                              "dit_serve_p38": dspc["sla_fwd"],
-                             "dit_serve_mesh": dsc["sla_fwd"]},
+                             "dit_serve_mesh": dsc["sla_fwd"],
+                             **{path: r["sla_fwd"]
+                                for path, r in pm_paths.items()}},
         **ran_at("sla_fwd"),
         "arch_head_dims": arch_head_dims(
             "wan2_1_1_3b", "lightningdit_1b", LM_ARCH, MOE_ARCH, HY_ARCH,
@@ -9155,7 +9650,9 @@ def main(argv=None) -> int:
                      + pgc["sla_decode_paged"] + puc["sla_decode_paged"]
                      + pcc["sla_decode_paged"] + dgc["sla_decode_paged"]
                      + moec["sla_decode_paged"] + g3c["sla_decode_paged"]
-                     + g3pc["sla_decode_paged"] + dnc["sla_decode_paged"]),
+                     + g3pc["sla_decode_paged"] + dnc["sla_decode_paged"]
+                     + pmr["paged plain"]["sla_decode_paged"]
+                     + pmr["paged mesh 1x1"]["sla_decode_paged"]),
         "launches_by_path": {"lm_decode": lm["launches"]["sla_decode_paged"],
                              "lm_paged_decode": pgc["sla_decode_paged"],
                              "lm_unpaged_decode": puc["sla_decode_paged"],
@@ -9164,7 +9661,11 @@ def main(argv=None) -> int:
                              "moe_decode": moec["sla_decode_paged"],
                              "gemma3_decode": g3c["sla_decode_paged"],
                              "gemma3_paged_decode": g3pc["sla_decode_paged"],
-                             "danube_decode": dnc["sla_decode_paged"]},
+                             "danube_decode": dnc["sla_decode_paged"],
+                             "lm_paged_p40": pmr["paged plain"][
+                                 "sla_decode_paged"],
+                             "lm_paged_mesh": pmr["paged mesh 1x1"][
+                                 "sla_decode_paged"]},
         **ran_at("sla_decode_paged"),
         "arch_head_dims": arch_head_dims(LM_ARCH, G3_ARCH),
         "d256": {k: d256_pg[0][k] for k in (
@@ -9182,6 +9683,23 @@ def main(argv=None) -> int:
                                      for r in pg_rows),
         **{key: head5[key] for key in split_keys},
         "cases": pg_rows,
+        "partial": {
+            "entry": "sla_decode_paged_partial (csrc/sla_decode.cu "
+                     "sla_decode_paged_partial_launch: the paged split "
+                     "kernel without its totals' block, the combine "
+                     "kernel's kPartial mode)",
+            "launches": sum(r["sla_decode_paged_partial"]
+                            for r in pmr.values()),
+            "launches_note": "a one-card mesh is layout A, where kernel 5 "
+                             "runs unsplit on the rank's heads; the partial "
+                             "mode runs where a mesh of more than one rank "
+                             "splits the sequence (held on the CPU over "
+                             "gloo) and in phase 40c's checks",
+            **{key: pm_rows[0][key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "bound_fraction", "combine_err", "bitwise_vs_partial",
+                "library_ms")},
+            "cases": pm_rows},
     })
     say(f"[31] main path {main_run} | cross-check {cross} | plan cache "
         f"{pcache} | grads {grads} | "
@@ -9192,7 +9710,8 @@ def main(argv=None) -> int:
         f"gemma3 serve {g3} | danube serve {dn} | vlm train {vl} | gemma3 "
         f"train {g3t} | lm train mesh {mt} | family train mesh {fm} | "
         f"lm serve mesh {sm} | family serve mesh {sf} | examples {ex} | "
-        f"lm serve sla mesh {sls} | slots mesh {slm} | dit serve mesh "
+        f"lm serve sla mesh {sls} | slots mesh {slm} | paged mesh {pm} | "
+        f"dit serve mesh "
         f"{dsm} | total "
         f"{time.time() - t_all:.1f}s")
     say(json.dumps({"kernels": kernels}))

@@ -421,8 +421,12 @@ def decode_partial_execute(state: Dict[str, torch.Tensor], q: torch.Tensor,
     python int or a (B,) tensor (each slot's own). Backend "kernel"
     launches `sla_decode_partial` (its plain twin on CPU tensors),
     "gather" runs the twin's math; "reference" has no partial form and is
-    refused. Returns (B, H, 2 D + 3) f32 records (m, l, acc[D], hsel[D],
-    zsel), (B, H, C, 2 D + 3) for a chunk."""
+    refused. A paged span (one token) holds the span's page table pt
+    (B, Tn_span) and the rank's page pools, k/v (P, Hkv, bkv, D), hblk
+    (P, Hkv, D, D), zblk (P, Hkv, D), in place of the per-slot leaves:
+    kernel 5's partial mode `sla_decode_paged_partial` (or its twin).
+    Returns (B, H, 2 D + 3) f32 records (m, l, acc[D], hsel[D], zsel),
+    (B, H, C, 2 D + 3) for a chunk."""
     from repro_torch.kernels import sla_decode
 
     backend = resolve_decode(backend)
@@ -435,7 +439,6 @@ def decode_partial_execute(state: Dict[str, torch.Tensor], q: torch.Tensor,
     b, h, cdim, d = qc.shape
     hkv = state["k"].shape[1]
     bkv = cfg.block_kv
-    tn = state["k"].shape[2] // bkv
     k_sel = state["lut"].shape[-1]
     bh = b * h
     scale = (d**-0.5) if scale is None else scale
@@ -445,6 +448,23 @@ def decode_partial_execute(state: Dict[str, torch.Tensor], q: torch.Tensor,
     else:
         posv = torch.full((bh,), int(pos), dtype=torch.int32,
                           device=q.device)
+    if "pt" in state:
+        if cdim != 1:
+            raise ValueError(f"the paged partial mode takes one token a "
+                             f"row (got a chunk of {cdim})")
+        run = (sla_decode.sla_decode_paged_partial if backend == "kernel"
+               else sla_decode.sla_decode_paged_partial_plain)
+        rec = run(state["lut"].reshape(bh, 1, k_sel).int().contiguous(),
+                  state["pt"].int().contiguous(),
+                  state["cnt"].reshape(bh, 1).int().contiguous(),
+                  posv.contiguous(),
+                  qc.float().reshape(bh, 1, d).contiguous(),
+                  phi(qc, cfg.phi).float().reshape(bh, 1, d).contiguous(),
+                  state["k"], state["v"], state["hblk"], state["zblk"],
+                  scale=float(scale), block_kv=bkv, group=h // hkv)
+        rec = rec.reshape(b, h, 1, 2 * d + 3)
+        return rec if chunk else rec[:, :, 0]
+    tn = state["k"].shape[2] // bkv
     hdiag, zdiag = state.get("hdiag"), state.get("zdiag")
     run = (sla_decode.sla_decode_partial if backend == "kernel"
            else sla_decode.sla_decode_partial_plain)

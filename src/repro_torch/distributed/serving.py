@@ -43,6 +43,14 @@ each rank attends its span's share of the live row's blocks through
 kernel 4's partial records (per-slot rows and chunks too), and the
 spans' records, gathered here (`gather_spans`), are merged in span order
 by `kernels.sla_decode.sla_decode_combine`.
+
+A paged cache (`transformer.make_paged_cache`) stands for a per-slot
+cache and holds, on each rank, the pages of that cache's part under
+this layout: in A its data rank's slots at its KV heads, in B and C
+every slot's pages at the logical blocks of its span (whole pages),
+indexed by the global page id. A split sequence reads the span's
+columns of the page table through kernel 5's partial mode, whose
+records merge as kernel 4's.
 """
 from __future__ import annotations
 

@@ -3,7 +3,9 @@
 its plain twin and the monolithic decode kernel), the decode kernel's
 partial mode over the spans of a split cache (`span_operands`,
 `span_combine`, `record_error`) on the rows continuous batching and
-verify-style decode give it (`slot_decode_operands`), and the
+verify-style decode give it (`slot_decode_operands`), the paged kernel's
+partial mode over the spans of a split paged cache
+(`paged_span_operands`), and the
 tensor-core route's precision
 criterion (forward and backward), each written once.
 """
@@ -211,6 +213,24 @@ def span_operands(args, first: int, blocks: int):
             k[:, cut].contiguous(), v[:, cut].contiguous(),
             hblk[:, cut].contiguous(), zblk[:, cut].contiguous(), hdiag,
             zdiag)
+
+
+def paged_span_operands(args, first: int, blocks: int):
+    """Kernel 5's partial mode over the span of `blocks` logical blocks
+    from block `first`, from `sla_decode_paged`'s operands `args`: returns
+    (paged, dense), `sla_decode_paged_partial`'s operands (the span's
+    re-based LUT, the span's columns of the page table, the positions
+    shifted by its first, the pools as they are) and
+    `sla_decode_partial`'s on the page-gathered view of the same span
+    (`span_operands` of `paged_dense_operands`), whose records the paged
+    ones equal bitwise."""
+    from repro_torch.kernels import sla_decode
+    lut, pt, cnt, _, posv, q, qp, k, v, hblk, zblk = args[:11]
+    span_lut, span_cnt = sla_decode.span_lut(lut, cnt, first, blocks)
+    paged = (span_lut, pt[:, first:first + blocks].contiguous(), span_cnt,
+             (posv - first * k.shape[2]).int(), q, qp, k, v, hblk, zblk)
+    dense = span_operands(paged_dense_operands(args), first, blocks)[:9]
+    return paged, dense
 
 
 def span_combine(records, args, group: int):

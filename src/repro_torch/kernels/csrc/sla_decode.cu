@@ -108,7 +108,10 @@
 // `sla_decode_combine`), which applies the marg and den tests on the
 // global sums. The wrapper passes the LUT slots in this rank's span in
 // its own block ids and the positions shifted by the span's start, so the
-// masks see global columns.
+// masks see global columns. The paged partial mode
+// (`sla_decode_paged_partial_launch`) is the same split grid at kPaged
+// with the combine's kPartial instantiation: a span's re-based LUT and the
+// span's columns of the page table, the rank's pools read in place.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -857,6 +860,36 @@ extern "C" int sla_decode_partial_launch(
                     block_kv, group, 1, bh_kv, scale, kv_head_stride,
                     kv_blk_stride, h_head_stride, h_blk_stride,
                     z_head_stride, z_blk_stride, 0, width, nsplit, stream);
+}
+
+// The paged partial mode (a rank's span of a sharded paged decode cache,
+// single token, live row): the partial mode's record, read through a page
+// table as the paged kernel reads it. lut holds the live row's blocks that
+// lie in the span, in the span's own logical ids (0 .. tn - 1); pt is the
+// span's page table, (B, tn) int32, logical block j of slot b in page
+// pt[b * tn + j] of the rank's pools; posv is each row's position less the
+// span's first position. The pools, heads and strides as
+// sla_decode_paged_launch's; rec as sla_decode_partial_launch's, one row
+// per bh. The same split width and record order as the partial mode on the
+// page-gathered view of the span: bitwise equal to it.
+extern "C" int sla_decode_paged_partial_launch(
+    const int32_t* lut, const int32_t* pt, const int32_t* cnt,
+    const int32_t* posv, const float* q, const float* qp, const void* k,
+    const void* v, const float* hblk, const float* zblk, float* work,
+    float* rec, int bh_q, int k_sel, int tn, int num_pages, int d,
+    int block_kv, int group, int hkv, float scale,
+    long long kv_head_stride, long long kv_page_stride,
+    long long h_head_stride, long long h_page_stride,
+    long long z_head_stride, long long z_page_stride, int width, int nsplit,
+    int is_bf16, void* stream) {
+  if (pt == nullptr || rec == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_any(is_bf16, lut, cnt, nullptr, posv, q, qp, k, v, hblk,
+                    zblk, nullptr, nullptr, nullptr, nullptr, pt, work,
+                    nullptr, nullptr, rec, bh_q, 1, k_sel, tn, num_pages, d,
+                    block_kv, group, group * hkv, hkv, scale,
+                    kv_head_stride, kv_page_stride, h_head_stride,
+                    h_page_stride, z_head_stride, z_page_stride, 0, width,
+                    nsplit, stream);
 }
 
 extern "C" const char* sla_decode_error_string(int err) {

@@ -55,6 +55,15 @@ pt[b, lut] (masking on the logical ids), single-token only, counted by
 is `sla_decode_paged_plain`. Serving never differentiates it.
 `HEAD_DIMS` and `PAGED_HEAD_DIMS` count the same calls by the head dim
 the kernels ran at (the operands' own D: they are never padded).
+
+A paged cache whose sequence is split across ranks runs the paged
+kernel's partial mode on each rank's span, `sla_decode_paged_partial`:
+the span's re-based LUT (`span_lut`) and the span's columns of the page
+table, the rank's pools read in place, the same merged record as
+`sla_decode_partial` (bitwise that mode on the page-gathered view, at
+every split width), merged by `sla_decode_combine` unchanged. Counted by
+`PAGED_PARTIAL_LAUNCHES` (and `PAGED_PARTIAL_HEAD_DIMS`) apart; its twin
+is `sla_decode_paged_partial_plain`.
 """
 from __future__ import annotations
 
@@ -75,6 +84,8 @@ HEAD_DIMS = collections.Counter()  # LAUNCHES by the head dim run at
 PAGED_HEAD_DIMS = collections.Counter()  # PAGED_LAUNCHES alike
 PARTIAL_LAUNCHES = 0  # the partial mode's calls, counted apart
 PARTIAL_HEAD_DIMS = collections.Counter()  # PARTIAL_LAUNCHES alike
+PAGED_PARTIAL_LAUNCHES = 0  # the paged partial mode's calls, apart
+PAGED_PARTIAL_HEAD_DIMS = collections.Counter()  # and alike
 SPLITS_PER_SM = 2  # the split grid covers every SM at least this often
 MAX_SPLIT_WIDTH = 4  # and no block walks more slots, one after another
 
@@ -83,6 +94,8 @@ _I, _F, _P, _L = ctypes.c_int, ctypes.c_float, ctypes.c_void_p, \
 _ARGTYPES = [_P] * 17 + [_I] * 7 + [_F] + [_L] * 6 + [_I] * 4 + [_P]
 _PAGED_ARGTYPES = [_P] * 16 + [_I] * 8 + [_F] + [_L] * 6 + [_I] * 3 + [_P]
 _PARTIAL_ARGTYPES = [_P] * 13 + [_I] * 7 + [_F] + [_L] * 6 + [_I] * 3 + [_P]
+_PAGED_PARTIAL_ARGTYPES = ([_P] * 12 + [_I] * 8 + [_F] + [_L] * 6
+                           + [_I] * 3 + [_P])
 _MAX_GRID = 65535  # the split grid's C and BH axes
 
 
@@ -96,6 +109,8 @@ def _lib() -> ctypes.CDLL:
     lib.sla_decode_paged_launch.restype = ctypes.c_int
     lib.sla_decode_partial_launch.argtypes = _PARTIAL_ARGTYPES
     lib.sla_decode_partial_launch.restype = ctypes.c_int
+    lib.sla_decode_paged_partial_launch.argtypes = _PAGED_PARTIAL_ARGTYPES
+    lib.sla_decode_paged_partial_launch.restype = ctypes.c_int
     lib.sla_decode_error_string.argtypes = [ctypes.c_int]
     lib.sla_decode_error_string.restype = ctypes.c_char_p
     return lib
@@ -491,13 +506,25 @@ def sla_decode_partial_plain(lut, cnt, posv, q, qp, k, v, hblk, zblk,
     (`_split_records`); `split_width` None walks every slot in one split,
     the unsplit twin's order (one max, one sum over all K * bkv scores).
     Same arguments and output as `sla_decode_partial`."""
-    bh, c, k_sel = lut.shape
+    kvh = (torch.arange(lut.shape[0], device=q.device) // group)[
+        :, None, None]
+    j = lut.long().clamp(0, k.shape[1] - 1)
+    return _partial_math(j, cnt, posv, q, qp, (k[kvh, j], v[kvh, j],
+                                               hblk[kvh, j], zblk[kvh, j]),
+                         hdiag, zdiag, scale, block_kv, group, split_width)
+
+
+def _partial_math(j, cnt, posv, q, qp, blocks, hdiag, zdiag, scale,
+                  block_kv, group, split_width):
+    """The partial twins' shared math on the gathered blocks of every
+    (bh, c) (kg, vg (BH, C, K, bkv, D), hg (BH, C, K, D, D), zg (BH, C,
+    K, D)) at the clamped logical ids j (BH, C, K)."""
+    bh, c, k_sel = j.shape
     dev = q.device
     bkv = block_kv
     kvh = (torch.arange(bh, device=dev) // group)[:, None, None]
-    j = lut.long().clamp(0, k.shape[1] - 1)
-    kg, vg, hg, zg = k[kvh, j].float(), v[kvh, j], hblk[kvh, j], zblk[kvh, j]
-    s = torch.einsum("bcd,bckvd->bckv", q.float(), kg) * scale
+    kg, vg, hg, zg = blocks
+    s = torch.einsum("bcd,bckvd->bckv", q.float(), kg.float()) * scale
     pos_tok = posv.long()[:, None] + torch.arange(c, device=dev)
     cols = j[..., None] * bkv + torch.arange(bkv, device=dev)
     live = torch.arange(k_sel, device=dev) < cnt[..., None]
@@ -538,6 +565,97 @@ def span_lut(lut: torch.Tensor, cnt: torch.Tensor, first: int,
     n = inside.sum(dim=-1)
     local = torch.where(slot < n[..., None], local, local[..., :1])
     return local.int(), n.int()
+
+
+def sla_decode_paged_partial(lut, pt, cnt, posv, q, qp, k, v, hblk, zblk,
+                             *, scale: float, block_kv: int, group: int,
+                             split_width=None) -> torch.Tensor:
+    """Kernel 5 on one rank's span of a split paged cache, before any
+    divide (`sla_decode_partial`'s record, read through a page table).
+
+    Args:
+      lut:    (BH, 1, K) int32 the live row's blocks that lie in this
+              span, in the span's own logical ids (`span_lut`; padded
+              slots repeat the first); cnt (BH, 1) int32 how many; posv
+              (BH,) int32 each row's position less the span's first
+              position. Row bh = b * H + h.
+      pt:     (B, Tn_span) int32 the span's page table: the span's
+              logical block j of slot b lives in page pt[b, j] of the
+              rank's pools.
+      q, qp:  (BH, 1, D) f32 (qp = phi(q)).
+      k, v:   (P, Hkv, bkv, D) f32 or bf16 page pools, hblk (P, Hkv, D,
+              D) and zblk (P, Hkv, D) f32, as `sla_decode_paged`'s.
+      split_width: as `sla_decode`'s; the chosen width is the one
+              `sla_decode_partial` takes on the same rows.
+
+    Returns (BH, 1, 2 D + 3) f32 records (m, l, acc[D], hsel[D], zsel),
+    bitwise `sla_decode_partial` on the page-gathered view of the span.
+    CPU tensors run `sla_decode_paged_partial_plain`; CUDA tensors
+    launch the kernel (a refused operand or a failed launch raises;
+    there is no fallback)."""
+    _check_width(split_width, lut.shape[-1], "sla_decode_paged_partial")
+    args = (lut, pt, cnt, posv, q, qp, k, v, hblk, zblk)
+    kw = dict(scale=scale, block_kv=block_kv, group=group,
+              split_width=split_width)
+    if q.device.type == "cpu":
+        return sla_decode_paged_partial_plain(*args, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"sla_decode_paged_partial runs on CUDA or CPU "
+                         f"tensors, got {q.device}")
+    return _launch_paged_partial(*args, **kw)
+
+
+def _launch_paged_partial(lut, pt, cnt, posv, q, qp, k, v, hblk, zblk, *,
+                          scale, block_kv, group, split_width):
+    global PAGED_PARTIAL_LAUNCHES
+    _check_paged(lut, pt, cnt, None, posv, q, qp, k, v, hblk, zblk, None,
+                 None, block_kv, group, "sla_decode_paged_partial")
+    lib = _lib()
+    bh, _, d = q.shape
+    k_sel = lut.shape[-1]
+    width, nsplit, work = _workspace(q, lut, split_width)
+    rec = torch.empty((bh, 1, 2 * d + 3), dtype=torch.float32,
+                      device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sla_decode_paged_partial_launch(
+            lut.data_ptr(), pt.data_ptr(), cnt.data_ptr(), posv.data_ptr(),
+            q.data_ptr(), qp.data_ptr(), k.data_ptr(), v.data_ptr(),
+            hblk.data_ptr(), zblk.data_ptr(), work.data_ptr(),
+            rec.data_ptr(), bh, k_sel, pt.shape[1], k.shape[0], d,
+            block_kv, group, k.shape[1], float(scale), k.stride(1),
+            k.stride(0), hblk.stride(1), hblk.stride(0), zblk.stride(1),
+            zblk.stride(0), width, nsplit, int(k.dtype == torch.bfloat16),
+            stream)
+    if err != 0:
+        msg = lib.sla_decode_error_string(err).decode()
+        raise RuntimeError(f"sla_decode_paged_partial kernel launch failed: "
+                           f"CUDA error {err} ({msg})")
+    PAGED_PARTIAL_LAUNCHES += 1
+    PAGED_PARTIAL_HEAD_DIMS[d] += 1
+    return rec
+
+
+def sla_decode_paged_partial_plain(lut, pt, cnt, posv, q, qp, k, v, hblk,
+                                   zblk, *, scale: float, block_kv: int,
+                                   group: int, split_width=None
+                                   ) -> torch.Tensor:
+    """Plain-PyTorch twin of `sla_decode_paged_partial`: the pools'
+    blocks gathered through pt[b, lut] (the logical ids, clamped as the
+    kernel clamps them, keep the masking), then `sla_decode_partial_plain`'s
+    math. Same arguments and output as `sla_decode_paged_partial`."""
+    bh = lut.shape[0]
+    b, tn = pt.shape
+    hkv = k.shape[1]
+    rows = torch.arange(bh, device=q.device)
+    slot = (rows // (bh // b))[:, None, None]
+    kvh = ((rows // group) % hkv)[:, None, None]
+    j = lut.long().clamp(0, tn - 1)
+    page = pt.long()[slot, j].clamp(0, k.shape[0] - 1)
+    return _partial_math(j, cnt, posv, q, qp, (k[page, kvh], v[page, kvh],
+                                               hblk[page, kvh],
+                                               zblk[page, kvh]),
+                         None, None, scale, block_kv, group, split_width)
 
 
 def sla_decode_combine(records: torch.Tensor, qhtot: torch.Tensor,
@@ -619,19 +737,21 @@ def sla_decode_paged(lut, pt, cnt, marg, posv, q, qp, k, v, hblk, zblk,
 
 
 def _check_paged(lut, pt, cnt, marg, posv, q, qp, k, v, hblk, zblk, htot,
-                 ztot, block_kv, group):
-    name = "sla_decode_paged"
+                 ztot, block_kv, group, name="sla_decode_paged"):
+    """The paged kernel's operands (the partial mode's: no marg and no
+    totals, given as None)."""
     ts = dict(lut=lut, pt=pt, cnt=cnt, marg=marg, posv=posv, q=q, qp=qp,
               k=k, v=v, hblk=hblk, zblk=zblk, htot=htot, ztot=ztot)
+    ts = {key: t for key, t in ts.items() if t is not None}
     for key, t in ts.items():
         if t.device != q.device:
             raise ValueError(f"{name}: {key} is on {t.device}, q on "
                              f"{q.device}")
     for key in ("lut", "pt", "cnt", "marg", "posv"):
-        if ts[key].dtype != torch.int32:
+        if key in ts and ts[key].dtype != torch.int32:
             raise TypeError(f"{name}: {key} must be int32")
     for key in ("q", "qp", "hblk", "zblk", "htot", "ztot"):
-        if ts[key].dtype != torch.float32:
+        if key in ts and ts[key].dtype != torch.float32:
             raise TypeError(f"{name}: {key} must be float32")
     if k.dtype not in (torch.float32, torch.bfloat16) or v.dtype != k.dtype:
         raise TypeError(f"{name}: k and v must share float32 or bfloat16")
@@ -666,12 +786,12 @@ def _check_paged(lut, pt, cnt, marg, posv, q, qp, k, v, hblk, zblk, htot,
                 zblk=(npages, hkv, d), htot=(b * hkv, d, d),
                 ztot=(b * hkv, d))
     for key, shape in want.items():
-        if tuple(ts[key].shape) != shape:
+        if key in ts and tuple(ts[key].shape) != shape:
             raise ValueError(f"{name}: {key} is {tuple(ts[key].shape)}, "
                              f"expected {shape}")
     for key in ("lut", "pt", "cnt", "marg", "posv", "q", "qp", "htot",
                 "ztot"):
-        if not ts[key].is_contiguous():
+        if key in ts and not ts[key].is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
     # the pools are read in place: rows of D contiguous elements, rows of a
     # block D apart, head and page strides that keep 16-byte loads aligned
@@ -688,7 +808,7 @@ def _check_paged(lut, pt, cnt, marg, posv, q, qp, k, v, hblk, zblk, htot,
                              f"{tuple(t.stride()[:2])} must be multiples "
                              f"of 16 bytes")
     for key in ("q", "qp", "k", "v", "hblk", "zblk", "htot", "ztot"):
-        if ts[key].data_ptr() % 16:
+        if key in ts and ts[key].data_ptr() % 16:
             raise ValueError(f"{name}: {key} must be 16-byte aligned")
 
 

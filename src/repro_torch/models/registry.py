@@ -7,7 +7,8 @@ distill_loss_fn. The LM module (the dense and MoE families) adds prefill,
 decode_step and the serving caches that the continuous scheduler reaches
 as `mdl.make_cache`, `mdl.insert_slot`, `mdl.make_paged_cache`,
 `mdl.insert_slot_paged`, `mdl.insert_slot_state_paged`,
-`mdl.slot_state_from_prefill` and `mdl.copy_page`, and chunked admission
+`mdl.slot_state_from_prefill`, `mdl.set_page_table` and `mdl.copy_page`,
+and chunked admission
 as `mdl.check_chunked_prefill`, `mdl.make_prefill_carry`,
 `mdl.prefill_chunk`, `mdl.finalize_chunked_prefill`, `mdl.carry_rows` and
 `mdl.carry_restore`. The recurrent and encoder-decoder families

@@ -38,8 +38,15 @@ learned routing included: each rank's caches, and its part of the
 decode-SLA state, are its part under `sharding.cache_shardings`, and
 decode attends by that layout (`distributed/serving.py`; over a split
 sequence through kernel 4's partial records and a combine across ranks).
-Chunked admission (`prefill_chunk`) and paged caches refuse a mesh of
-more than one rank.
+Paged caches serve there too (`make_paged_cache`, `insert_slot_paged`,
+`set_page_table`, `copy_page`, `paged_dense_view`): each rank's pools
+hold the pages of its part of the per-slot cache they stand for, at the
+global page ids, and a split sequence attends through kernel 5's
+partial mode; chunked
+admission (`make_prefill_carry`, `prefill_chunk`,
+`finalize_chunked_prefill`) follows the sharded prefill's scheme on a
+carry each rank holds whole over the bucket; `snapshot_slots` /
+`restore_slots` copy and restore a rank's part.
 """
 from __future__ import annotations
 
@@ -787,15 +794,25 @@ def make_prefill_carry(cfg: ArchConfig, bucket: int,
       qpm  (L, 1, H, Tm, Dh) f32    mean-pooled q per written block row
       kpm  (L, 1, H, Tm, Dh) f32    mean-pooled (GQA-repeated) k per block
       dmc  (L, 1, H, Tm, Tm) int8   decode-grid rows (decode_sla only)
-    """
+
+    Under `activation_sharding(mesh, default_residual_spec(mesh, 1,
+    bucket))` the carry is this rank's heads of the whole bucket: the KV
+    heads its "model" rank projects (its own where "model" divides them,
+    else all of them) and its query heads, every block of the bucket on
+    every data rank (each chunk attends the whole carried prefix and
+    re-scores every block's pooled rows, so the carry is held whole over
+    the sequence, not gathered a chunk)."""
     sla = cfg.sla
     if bucket % sla.block_q:
         raise ValueError(
             f"chunked prefill needs a block-aligned bucket (got {bucket} "
             f"for block_q={sla.block_q})")
     dev = resolve_device(device)
-    nl, hkv, h, dh = (cfg.num_layers, cfg.num_kv_heads, cfg.num_heads,
+    _, m = ctx.model_rank_size()
+    nl, hkv, h, dh = (cfg.num_layers, cfg.num_kv_heads, cfg.num_heads // m,
                       cfg.head_dim)
+    if hkv % m == 0:  # `common.kv_kind`: the KV heads "model" divides
+        hkv //= m
     tm = bucket // sla.block_q
     carry = {
         "k": torch.zeros((nl, 1, hkv, bucket, dh), dtype=compute_dtype,
@@ -854,11 +871,21 @@ def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, carry: dict,
     blocks contribute exact zeros through the marginal mask), (d)
     classifies its decode-grid rows from the same pooled maps.
     `decode_max_len` must be the value blocking prefill would get
-    (required when the carry has "dmc")."""
+    (required when the carry has "dmc").
+
+    Under `activation_sharding(mesh, default_residual_spec(mesh, 1,
+    bucket))` the carry is this rank's (`make_prefill_carry`) and the
+    chunk follows the sharded `prefill`'s scheme: each rank projects its
+    heads of its rows of the chunk (its data rank's share under context
+    parallelism: a chunk length the data ranks do not divide is refused),
+    q, k and v are gathered to the whole chunk, every rank writes them
+    into its carry, scores and attends its heads of the chunk's rows
+    against the whole carried bucket, and keeps its own rows for the
+    row-parallel output projection and the FFN. The last hidden row is
+    every rank's (`ctx.seq_last`)."""
     from repro_torch.core.block_sparse_xla import sla_forward_gather
     from repro_torch.kernels import ops as kops
 
-    ctx.require_unsharded("chunked admission prefill (prefill_chunk)")
     check_chunked_prefill(cfg, backend)
     backend = backend_lib.resolve(backend)
     sla = cfg.sla
@@ -885,12 +912,23 @@ def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, carry: dict,
     plan_cfg = dataclasses.replace(sla, causal=True)
     dcfg = (sla.decode_plan_cfg(decode_max_len // sla.block_kv)
             if decode_sla else None)
-    x = params.embed[tokens].to(compute_dtype)
+    lay = ctx.layout()
+    if lay is not None and c % lay.seq:
+        raise ValueError(
+            f"a chunk of {c} tokens at {start} cannot be split over the "
+            f"{lay.seq} data ranks of context parallelism: give a chunk "
+            f"length they divide")
+    x = ctx.vocab_lookup(tokens, params.embed).to(compute_dtype)
+    row0, _ = ctx.seq_span(c)
+    x = ctx.seq_rows(x)
     dev = x.device
-    positions = (start + torch.arange(c, device=dev))[None, :]
+    positions = (start + row0 + torch.arange(x.shape[1], device=dev))[
+        None, :]
     k_sel = plan_cfg.num_critical(tm)
     for li, p in enumerate(params.layers):
-        q, k, v = _qkv(p, rms_norm(x, p.ln1), cfg, positions)
+        xin = ctx.to_tp(rms_norm(x, ctx.fsdp_gather(p.ln1, "rep")))
+        q, k, v = (ctx.gather_seq(t, 2) for t in _qkv(p, xin, cfg,
+                                                       positions))
         kc, vc = carry["k"][li], carry["v"][li]
         kc[:, :, start:start + c] = k.to(kc.dtype)
         vc[:, :, start:start + c] = v.to(vc.dtype)
@@ -900,8 +938,9 @@ def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, carry: dict,
         # local pooling equals full-prefill pooling (and GQA repeat and
         # pooling commute)
         qpm[:, :, sb:sb + nb] = masks_lib.pool_blocks(q, bq)
-        kpm[:, :, sb:sb + nb] = masks_lib.pool_blocks(repeat_kv(k, h),
-                                                      sla.block_kv)
+        kpm[:, :, sb:sb + nb] = masks_lib.pool_blocks(repeat_kv(
+            local_kv_heads(k, cfg.num_heads, cfg.num_kv_heads), h),
+            sla.block_kv)
         routing = _routing(p, sla)
         mc_rows = masks_lib.classify_blocks(
             masks_lib.score_map_pooled(routing, qpm, kpm, plan_cfg),
@@ -915,7 +954,9 @@ def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, carry: dict,
                 masks_lib.score_map_pooled(routing, qpm, kpm, dcfg), dcfg)
             carry["dmc"][li][:, :, sb:sb + nb] = mcd[:, :, sb:sb + nb]
             del mcd
-        krf, vrf = repeat_kv(kc, h), repeat_kv(vc, h)
+        krf, vrf = (repeat_kv(local_kv_heads(t, cfg.num_heads,
+                                             cfg.num_kv_heads), h)
+                    for t in (kc, vc))
         qp, kp = phi(q, sla.phi), phi(krf, sla.phi)
         if backend == "gather":
             rows_plan = plan_lib.SLAPlan(
@@ -932,14 +973,17 @@ def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, carry: dict,
                 q, krf, vrf, qp, kp, marginal, lut, counts, plan_cfg,
                 row_offset=sb)
         del krf, vrf, kp
-        o = (o_s + torch.einsum("bhnd,hde->bhne", o_l,
-                                p.sla_proj.float())).to(x.dtype)
-        x = x + o.transpose(1, 2).reshape(b, c, -1) @ p.wo.to(x.dtype)
-        f, _ = _ffn(p, rms_norm(x, p.ln2), cfg)
+        o = (o_s + torch.einsum(
+            "bhnd,hde->bhne", o_l,
+            ctx.fsdp_gather(p.sla_proj, "row").float())).to(x.dtype)
+        o = ctx.seq_rows(o, dim=2)
+        x = x + ctx.from_tp(o.transpose(1, 2).reshape(b, x.shape[1], -1)
+                            @ ctx.fsdp_gather(p.wo, "row").to(x.dtype))
+        f, _ = _ffn(p, rms_norm(x, ctx.fsdp_gather(p.ln2, "rep")), cfg)
         x = x + f
         del q, k, v, o_s, o_l, o, f
-    x = rms_norm(x, params.ln_f)
-    return carry, x[:, -1]
+    x = rms_norm(x, ctx.fsdp_gather(params.ln_f, "rep"))
+    return carry, ctx.seq_last(x)
 
 
 def finalize_chunked_prefill(cfg: ArchConfig, carry: dict,
@@ -949,18 +993,39 @@ def finalize_chunked_prefill(cfg: ArchConfig, carry: dict,
     KV and decode rows (not grown with `plan_extend`, whose dead col_lut
     padding would differ), and the KV caches are padded to
     `decode_max_len`. The cache's k/v share the carry's storage when no
-    padding is needed."""
+    padding is needed.
+
+    Under the carry's scope (`make_prefill_carry`) the cache is this
+    rank's part of what a sharded blocking `prefill(decode_max_len=)`
+    returns: its span of the positions (whole blocks), its KV heads, and
+    its part of the decode-SLA state, seeded from its span's blocks and
+    its query heads' decode rows (`_seed_decode_state` under `parts`)."""
     kc, vc = carry["k"], carry["v"]
     bucket = kc.shape[-2]
     cache = {"k": kc, "v": vc, "pos": bucket}
+    length = bucket if decode_max_len is None else decode_max_len
+    kl = serving.active_kv_layout(1, cfg.num_kv_heads)
     if decode_max_len is not None:
         _check_decode_grid(cfg, bucket, decode_max_len)
-        cache["sla"] = _seed_decode_state(cfg, kc, vc, carry["dmc"],
-                                          decode_max_len)
-        grow = decode_max_len - bucket
-        if grow > 0:
-            cache["k"] = F.pad(kc, (0, 0, 0, grow))
-            cache["v"] = F.pad(vc, (0, 0, 0, grow))
+    lo, span = 0, length
+    if kl is not None:
+        kl.check_length(length, 1 if decode_max_len is None
+                        else cfg.sla.block_kv)
+        lo, span = kl.span(length)
+    grow = length - bucket
+    if grow > 0:
+        kc, vc = F.pad(kc, (0, 0, 0, grow)), F.pad(vc, (0, 0, 0, grow))
+    if span < length:
+        kc, vc = (t[..., lo:lo + span, :].clone() for t in (kc, vc))
+    cache["k"], cache["v"] = kc, vc
+    if decode_max_len is not None:
+        # the prompt's positions in this rank's span: whole blocks from
+        # its first
+        bkv = cfg.sla.block_kv
+        held = max(0, min(span, bucket - lo)) // bkv * bkv
+        cache["sla"] = _seed_decode_state(
+            cfg, kc[..., :held, :], vc[..., :held, :], carry["dmc"],
+            decode_max_len, _sla_parts(cfg, 1, decode_max_len, kl))
     return cache
 
 
@@ -1057,23 +1122,55 @@ def _page_gather_kv(pool, pt):
     return g.reshape(g.shape[:2] + (g.shape[2] * g.shape[3], g.shape[4]))
 
 
-def _page_write_kv(pool, new, pid, off):
+def _page_write_kv(pool, new, pid, off, own=None):
     """Write one new-token KV into its page, in place: pool
     (P, Hkv, bkv, Dh), new (B, Hkv, 1, Dh), pid/off (B,) tensors. The
     scheduler's copy-on-write pass makes every active slot's write page
-    private, so the pids are distinct and the scatter has no conflict."""
-    pool[pid, :, off] = new[:, :, 0, :].to(pool.dtype)
+    private, so the pids are distinct and the scatter has no conflict.
+    `own` (B,) bool, where a rank's span holds some slots' write blocks
+    only: the other slots write back what their page holds."""
+    new = new[:, :, 0, :].to(pool.dtype)
+    if own is not None:
+        new = _sel(own, new, pool[pid, :, off])
+    pool[pid, :, off] = new
 
 
-def _write_page(cache: dict, pos: torch.Tensor, bkv: int):
-    """(page, offset) of each slot's write: the page table's entry for
-    block pos // bkv, clamped to the last block (runaway inactive slots
-    land on their scratch page), and pos % bkv."""
+def _write_page(pt_rows: torch.Tensor, pos: torch.Tensor, bkv: int,
+                span=None):
+    """(page, offset, own) of each slot's write: the page table's entry
+    (pt_rows (B, Tn), the slots' rows) for block pos // bkv, clamped to
+    the last block (runaway inactive slots land on their scratch page),
+    and pos % bkv. `span` (first, blocks) of a split grid: `own` marks
+    the slots whose write block lies in it (None where the grid is
+    whole)."""
+    b, tn = pt_rows.shape
+    blk = torch.clamp(pos.long() // bkv, max=tn - 1)
+    wpid = pt_rows[torch.arange(b, device=pt_rows.device), blk].long()
+    own = None
+    if span is not None and span[1] < tn:
+        own = (blk >= span[0]) & (blk < span[0] + span[1])
+    return wpid, pos.long() % bkv, own
+
+
+def _paged_part(cache: dict, kl: Optional[serving.KVLayout], bkv: int
+                ) -> dict:
+    """This rank's view of a paged cache's page table (`make_paged_cache`:
+    `pt` (B, Tn) is whole on every rank, as `pos`): "rows" its batch
+    rows' entries (B_loc, Tn), "pt" their entries for its span's logical
+    blocks (B_loc, Tn_loc), the span as "span" (first block, blocks), and
+    the slot index of its first row ("row0"). The whole table without a
+    mesh. The rank's pools hold the pages of its rows at its span's
+    blocks, indexed by the global page id."""
     pt = cache["pt"]
     b, tn = pt.shape
-    blk = torch.clamp(pos.long() // bkv, max=tn - 1)
-    wpid = pt[torch.arange(b, device=pt.device), blk].long()
-    return wpid, pos.long() % bkv
+    if kl is None:
+        return {"rows": pt, "pt": pt, "span": (0, tn), "row0": 0}
+    rows = ctx.batch_rows(pt)
+    first, n = kl.span(tn * bkv)
+    first, n = first // bkv, n // bkv
+    _, index = serving._axes_index(serving._spec_axes(kl.spec[1]), kl.mesh)
+    return {"rows": rows, "pt": rows[:, first:first + n].contiguous(),
+            "span": (first, n), "row0": index * rows.shape[0]}
 
 
 def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
@@ -1115,19 +1212,18 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
                                 backend, drift_threshold)
     paged = "kp" in cache
     vec, pos, _ = _slot_positions(cache)
-    kl = (None if paged else
-          serving.active_kv_layout(token.shape[0], cfg.num_kv_heads))
+    bkv = cfg.sla.block_kv
+    kl = serving.active_kv_layout(token.shape[0], cfg.num_kv_heads)
     sharded = serving.is_sharded(kl)
+    if paged:
+        part = _paged_part(cache, kl, bkv)
     if kl is not None:
-        length = cache["k"].shape[3] * kl.seq_parts
+        length = (cache["pt"].shape[1] * bkv if paged
+                  else cache["k"].shape[3] * kl.seq_parts)
         token = ctx.batch_rows(token)
         if vec:
             pos = ctx.batch_rows(pos)  # every rank holds the whole (B,)
-        if cache["k"].shape[1] != token.shape[0]:
-            raise ValueError(
-                f"the cache holds {cache['k'].shape[1]} batch rows on this "
-                f"rank, the step {token.shape[0]}: make it under the same "
-                f"activation_sharding scope")
+        _check_rows(part["rows"] if paged else cache["k"], token)
     # under context parallelism every data rank decodes every row
     with (ctx.replicated_tokens() if ctx.seq_parallel()
           else contextlib.nullcontext()):
@@ -1136,23 +1232,25 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
         positions = (pos.long()[:, None] if vec
                      else torch.full((b, 1), pos, device=dev))
         if paged:
-            pt = cache["pt"]
-            wpid, woff = _write_page(cache, pos, cfg.sla.block_kv)
+            pt = part["pt"]
+            wpid, woff, own = _write_page(part["rows"], pos, bkv,
+                                          part["span"])
         kinds = layer_kinds_list(cfg)
         for li, p in enumerate(params.layers):
             q, k_new, v_new = _qkv(p, rms_norm(
                 x, ctx.fsdp_gather(p.ln1, "rep")), cfg, positions)
             if paged:
                 kc, vc = cache["kp"][li], cache["vp"][li]
-                _page_write_kv(kc, k_new, wpid, woff)
-                _page_write_kv(vc, v_new, wpid, woff)
+                _page_write_kv(kc, k_new, wpid, woff, own)
+                _page_write_kv(vc, v_new, wpid, woff, own)
                 kc, vc = _page_gather_kv(kc, pt), _page_gather_kv(vc, pt)
             else:
                 kc, vc = cache["k"][li], cache["v"][li]
             if sharded:
                 start, _ = kl.span(length)
-                serving.write_token(kc, k_new, pos, start, length)
-                serving.write_token(vc, v_new, pos, start, length)
+                if not paged:
+                    serving.write_token(kc, k_new, pos, start, length)
+                    serving.write_token(vc, v_new, pos, start, length)
                 window = ((cfg.local_window or cfg.sliding_window)
                           if kinds[li] == KIND_SWA else 0)
                 o = serving.sharded_decode_attn(
@@ -1176,6 +1274,18 @@ def _sel(mask, new, old):
     trailing dims of new."""
     return torch.where(mask.reshape((-1,) + (1,) * (new.ndim - 1)), new,
                        old)
+
+
+def _check_rows(held: torch.Tensor, token: torch.Tensor) -> None:
+    """Refuse a step whose batch rows on this rank (token's) are not the
+    cache's (held's, dim 1 of a K/V leaf or dim 0 of a page table's
+    rows)."""
+    n = held.shape[0] if held.ndim == 2 else held.shape[1]
+    if n != token.shape[0]:
+        raise ValueError(
+            f"the cache holds {n} batch rows on this rank, the step "
+            f"{token.shape[0]}: make it under the same activation_sharding "
+            f"scope")
 
 
 def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
@@ -1236,13 +1346,12 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
     st = cache["sla"]
     sla = cfg.sla
     bq, bkv = sla.block_q, sla.block_kv
-    kl = (None if paged else
-          serving.active_kv_layout(token.shape[0], cfg.num_kv_heads))
+    kl = serving.active_kv_layout(token.shape[0], cfg.num_kv_heads)
     if paged:
-        pt = cache["pt"]
-        tn = pt.shape[1]
+        part = _paged_part(cache, kl, bkv)
+        pt = part["pt"]
+        tn = cache["pt"].shape[1]
         slap = cache["slap"]
-        wpid, woff = _write_page(cache, pos, bkv)
     else:
         tn = cache["k"].shape[3] * (1 if kl is None else kl.seq_parts) // bkv
     length = tn * bkv
@@ -1256,11 +1365,9 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
         token = ctx.batch_rows(token)
         if vec:  # every rank holds the whole (B,) pos and rows
             pos, rows_all = ctx.batch_rows(pos), ctx.batch_rows(rows_all)
-        if cache["k"].shape[1] != token.shape[0]:
-            raise ValueError(
-                f"the cache holds {cache['k'].shape[1]} batch rows on this "
-                f"rank, the step {token.shape[0]}: make it under the same "
-                f"activation_sharding scope")
+        _check_rows(part["rows"] if paged else cache["k"], token)
+    if paged:
+        wpid, woff, own = _write_page(part["rows"], pos, bkv, part["span"])
     dcfg = sla.decode_plan_cfg(tn)
     kinds = layer_kinds_list(cfg)
     nl = cfg.num_layers
@@ -1313,8 +1420,8 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
                 x, ctx.fsdp_gather(p.ln1, "rep")), cfg, positions)
             if paged:
                 kc, vc = cache["kp"][li], cache["vp"][li]
-                _page_write_kv(kc, k_new, wpid, woff)
-                _page_write_kv(vc, v_new, wpid, woff)
+                _page_write_kv(kc, k_new, wpid, woff, own)
+                _page_write_kv(vc, v_new, wpid, woff, own)
                 hb, zb, kp_sum = (slap[key][li]
                                   for key in ("hblk", "zblk", "kpool"))
             else:
@@ -1343,9 +1450,11 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
             if paged:
                 # distinct private write pages: a gather/add/set, as the
                 # monolithic slice/add/write, so the partials stay bitwise
-                hb[wpid] = hb[wpid] + hupd
-                zb[wpid] = zb[wpid] + phik
-                kp_sum[wpid] = kp_sum[wpid] + kf
+                # (a split grid's other slots write back what they read)
+                for buf, upd in ((hb, hupd), (zb, phik), (kp_sum, kf)):
+                    cur = buf[wpid]
+                    buf[wpid] = (cur + upd if own is None
+                                 else _sel(own, cur + upd, cur))
             elif vec or first <= row < first + hb.shape[2]:
                 _blk_update(hb, hupd, row, first, grid)
                 _blk_update(zb, phik, row, first, grid)
@@ -1373,18 +1482,17 @@ def _decode_step_sla(params, cfg: ArchConfig, token, cache, compute_dtype,
             if kinds[li] == KIND_SLA:
                 o = _sla_attn(p, q1, q_all, st, li, kc, vc, hb, zb, pos,
                               parts, dcfg, backend, pt if paged else None)
-            elif serving.is_sharded(kl):
-                window = ((cfg.local_window or cfg.sliding_window)
-                          if kinds[li] == KIND_SWA else 0)
-                o = serving.sharded_decode_attn(q1, kc, vc, pos, kl, length,
-                                                window)
-                o = o.to(q.dtype).reshape(b, 1, -1)
-            elif paged:
-                o = _dense_decode_attn(q, _page_gather_kv(kc, pt),
-                                       _page_gather_kv(vc, pt), pos,
-                                       kinds[li], cfg)
             else:
-                o = _dense_decode_attn(q, kc, vc, pos, kinds[li], cfg)
+                if paged:
+                    kc, vc = _page_gather_kv(kc, pt), _page_gather_kv(vc, pt)
+                if serving.is_sharded(kl):
+                    window = ((cfg.local_window or cfg.sliding_window)
+                              if kinds[li] == KIND_SWA else 0)
+                    o = serving.sharded_decode_attn(q1, kc, vc, pos, kl,
+                                                    length, window)
+                    o = o.to(q.dtype).reshape(b, 1, -1)
+                else:
+                    o = _dense_decode_attn(q, kc, vc, pos, kinds[li], cfg)
             x = x + ctx.from_tp(o @ ctx.fsdp_gather(p.wo, "row").to(x.dtype))
             f, _ = _ffn(p, rms_norm(x, ctx.fsdp_gather(p.ln2, "rep")), cfg)
             x = x + f
@@ -1583,13 +1691,13 @@ def _sla_attn(p, q, q_all, st: dict, li: int, kc, vc, hb, zb, pos,
     o = _split_attn(p, q[:, :, None], q_all[:, :, None], kc, vc, hb, zb,
                     *live, ht[:, :, None], parts.from_leaf(
                         "ztot", zt, (bat, kvh, None))[:, :, None], pos,
-                    parts, dcfg, backend)
+                    parts, dcfg, backend, pt=pt)
     return o.to(q.dtype).reshape(b, 1, h_loc * d)
 
 
 def _split_attn(p, q, q_all, kc, vc, hb, zb, lut, cnt, marg, ht, zt, pos,
                 parts: serving.SLAParts, dcfg, backend: str, hdiag=None,
-                zdiag=None) -> torch.Tensor:
+                zdiag=None, pt=None) -> torch.Tensor:
     """Decode-time SLA attention of C tokens over a split sequence
     (layouts B and C): this rank's query heads q (B, H_loc, C, D), every
     head's q_all; the span's K/V and per-block h_j, z_j (kc, vc, hb, zb)
@@ -1602,8 +1710,10 @@ def _split_attn(p, q, q_all, kc, vc, hb, zb, lut, cnt, marg, ht, zt, pos,
     mode over the live row's blocks it holds, `sla_decode.span_lut`),
     gathered and combined in span order (`sla_decode.sla_decode_combine`)
     with phi(q) Htot summed over Htot's D_k rows and phi(q) Ztot; the rank
-    keeps its own heads and applies their Proj. Returns (B, H_loc, C, D)
-    f32."""
+    keeps its own heads and applies their Proj. A paged span (`pt`, the
+    span's page table (B, Tn_span), one token) passes the rank's page
+    pools as kc, vc, hb, zb: kernel 5's partial mode. Returns (B, H_loc,
+    C, D) f32."""
     from repro_torch.kernels import sla_decode
 
     if dcfg.mode not in ("sla", "sparse_only"):
@@ -1613,10 +1723,13 @@ def _split_attn(p, q, q_all, kc, vc, hb, zb, lut, cnt, marg, ht, zt, pos,
     b, h_loc, cdim, d = q.shape
     every = not kl.heads_split
     qh = q_all if every else q
-    first, blocks = parts.start("hblk", 2), hb.shape[2]
+    first = parts.start("hblk", 2)
+    blocks = hb.shape[2] if pt is None else pt.shape[1]
     lut_s, cnt_s = sla_decode.span_lut(lut, cnt, first, blocks)
     state = {"k": kc, "v": vc, "hblk": hb, "zblk": zb, "lut": lut_s,
              "cnt": cnt_s}
+    if pt is not None:
+        state["pt"] = pt
     if hdiag is not None:
         state.update(hdiag=hdiag, zdiag=zdiag)
     rec = backend_lib.decode_partial_execute(
@@ -2109,28 +2222,60 @@ def insert_slot(cache: dict, single: dict, slot: int,
         raise ValueError(
             f"insert_slot takes a batch-1 prefill cache (got batch "
             f"{single['k'].shape[1]})")
+    kl_c = _scope_layout(cache["pos"].shape[0], cfg)
+    length = cache["k"].shape[3] * (1 if kl_c is None else kl_c.seq_parts)
+    _, _, put = _slot_movers(cfg, cache, single, slot, length)
+    _insert_slot_state(cache, single, slot,
+                       ("hblk", "zblk", "htot", "ztot", "kpool", "qpool",
+                        "live_lut", "live_cnt", "live_marg"), put)
+    put("k", cache["k"], single["k"])
+    put("v", cache["v"], single["v"])
+    return cache
+
+
+def _scope_layout(batch: int, cfg: ArchConfig
+                  ) -> Optional[serving.KVLayout]:
+    """The layout the rules give a `batch`-row KV cache on the active
+    mesh (None without one), read without the residual spec's check: an
+    admission runs under the cache's scope or the prefill's."""
+    lay = ctx.layout()
+    return None if lay is None else serving.kv_layout(lay.mesh, batch,
+                                                      cfg.num_kv_heads)
+
+
+def _slot_movers(cfg: ArchConfig, cache: dict, single: dict, slot: int,
+                 length: int, prompt_only: bool = False):
+    """(many, one, put) of an admission into slot `slot` of a per-slot or
+    paged cache of `length` positions (global): the placements of the
+    batch's cache (`many`, per-slot counters) and of the batch-1 prefill
+    (`one`) on the active mesh (every leaf whole without one), and
+    `put(name, live, new)`, which moves each layer of a batch-1 leaf from
+    the one placement to the other (`serving.put_row`; a counter's
+    column `slot` at the layers the rank holds) and writes it where the
+    rank holds slot `slot`. Refuses a prefill of another length (a
+    `slot_state_from_prefill` snapshot holds no K/V to tell it by),
+    except for its K/V with `prompt_only` (a paged admission reads only
+    its prompt's pages: `one` places them at the prefill's own length)."""
     batch = cache["pos"].shape[0]  # the per-slot positions are whole
     lay = ctx.layout()
     mesh = None if lay is None else lay.mesh
-    kl_c, kl_s = (None if mesh is None else
-                  serving.kv_layout(mesh, b, cfg.num_kv_heads)
-                  for b in (batch, 1))
-    length = cache["k"].shape[3] * (1 if kl_c is None else kl_c.seq_parts)
-    have = single["k"].shape[3] * (1 if kl_s is None else kl_s.seq_parts)
-    if have != length:
+    kl_c, kl_s = (_scope_layout(b, cfg) for b in (batch, 1))
+    have = length if "k" not in single else single["k"].shape[3] * (
+        1 if kl_s is None else kl_s.seq_parts)
+    if have != length and not (prompt_only and "sla" not in cache):
         raise ValueError(
             f"cache length mismatch: the slot cache holds {length} "
             f"positions but the prefill cache has {have}; prefill with "
             f"decode_max_len (or pad k/v) to the scheduler's max_len first")
 
-    def parts(kl, b, per_slot):
-        kv = (cfg.num_layers, b, cfg.num_kv_heads, length, cfg.head_dim)
+    def parts(kl, b, per_slot, n):
+        kv = (cfg.num_layers, b, cfg.num_kv_heads, n, cfg.head_dim)
         shapes = {"k": kv, "v": kv}
         if "sla" in cache:
             shapes.update(decode_state_shapes(cfg, b, length, per_slot))
         return serving.SLAParts(kl, shapes, b)
 
-    many, one = parts(kl_c, batch, True), parts(kl_s, 1, False)
+    many, one = parts(kl_c, batch, True, length), parts(kl_s, 1, False, have)
 
     def put(name, live, new):
         if name in COUNTER_KEYS:
@@ -2144,12 +2289,7 @@ def insert_slot(cache: dict, single: dict, slot: int,
             serving.put_row(live[li], new[li], slot, one.spec[name],
                             many.spec[name], mesh)
 
-    _insert_slot_state(cache, single, slot,
-                       ("hblk", "zblk", "htot", "ztot", "kpool", "qpool",
-                        "live_lut", "live_cnt", "live_marg"), put)
-    put("k", cache["k"], single["k"])
-    put("v", cache["v"], single["v"])
-    return cache
+    return many, one, put
 
 
 # --------------------------------------------------------------------------
@@ -2183,8 +2323,25 @@ def make_paged_cache(cfg: ArchConfig, batch: int, max_len: int,
     keep stepping through every batched dispatch) write somewhere
     harmless. Per-slot decode-SLA state (plan rows, totals, live-row LUT,
     counters) keeps the per-slot layout; `pos` is a (B,) tensor with its
-    host mirror `pos_host`."""
-    ctx.require_unsharded("paged caches (make_paged_cache)")
+    host mirror `pos_host`.
+
+    Under `activation_sharding(mesh, default_residual_spec(mesh, batch,
+    max_len))` `batch` is the global batch, and each rank's pools hold
+    what its part of the per-slot cache the paged one stands for would
+    (`serving.kv_layout`): the pages of its batch rows (layout A: a data
+    rank's slots, its KV heads over "model"; layouts B and C: every slot's
+    pages at the logical blocks of its span, whole pages, every KV head
+    or its own). The pools keep the global page ids (page 0 the zero page
+    on every rank, each slot's scratch page in its own data rank's pool),
+    so P is whole on every rank, at the rank's KV heads; `pt`, `pos` and
+    `pos_host` are whole on every rank (the host pushes the whole table),
+    and the per-slot decode-SLA state is the rank's part of its rules
+    (`make_cache(per_slot=True)`'s). Where the batch is split over data
+    ranks the cache records which data rank last wrote each page
+    (`page_owner`, host numpy: an admission's pages are its slot's data
+    rank's, `copy_page` gives a page its source's, and a copy of the zero
+    page is every rank's), and `set_page_table` refuses a table that
+    would read a page from another rank's pool."""
     sla = cfg.sla
     if max_len % sla.block_kv:
         raise ValueError(
@@ -2193,11 +2350,18 @@ def make_paged_cache(cfg: ArchConfig, batch: int, max_len: int,
     dev = resolve_device(device)
     tn = max_len // sla.block_kv
     nl, hkv, dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    kl = serving.active_kv_layout(batch, hkv)
+    if kl is not None:  # whole pages in each span
+        kl.check_length(max_len, sla.block_kv)
+        hkv = kl.local_shape((nl, batch, hkv, max_len, dh))[2]
     pshape = (nl, num_pages, hkv, sla.block_kv, dh)
     cache = {"kp": torch.zeros(pshape, dtype=dtype, device=dev),
              "vp": torch.zeros(pshape, dtype=dtype, device=dev),
              "pt": torch.zeros((batch, tn), dtype=torch.int32, device=dev)}
     _slot_pos(cache, batch, True, dev)
+    if kl is not None and kl.dp > 1:
+        cache["page_owner"] = np.full((num_pages,), -1, np.int64)
+        cache["page_owner"][0] = -2  # the zero page, on every rank
     if decode_sla is None:
         decode_sla = sla.decode_mode == "sla"
     if decode_sla:
@@ -2212,15 +2376,24 @@ def make_paged_cache(cfg: ArchConfig, batch: int, max_len: int,
     return cache
 
 
-def insert_slot_state_paged(cache: dict, single: dict, slot: int) -> dict:
+def insert_slot_state_paged(cache: dict, single: dict, slot: int,
+                            cfg: ArchConfig) -> dict:
     """Copy only the PER-SLOT half of a batch-1 prefill (or a
     `slot_state_from_prefill` snapshot) into `slot` of a paged cache, in
     place: pos and, under decode-SLA, plan rows, running totals, pooled
     q and counters. Page contents are written by `insert_slot_paged`, or
     not at all when every prompt page was a prefix-cache hit (the
-    full-prompt snapshot fast path). Returns `cache`."""
-    _insert_slot_state(cache, single, slot, PAGED_SLOT_KEYS,
-                       _put_slot(slot))
+    full-prompt snapshot fast path). `cfg` gives the leaves' global
+    shapes. Returns `cache`.
+
+    Under a mesh (the cache's scope, as `insert_slot`) each leaf moves
+    from the batch-1 prefill's placement to the cache's and is written
+    where the rank holds the slot. The pages of the hit fast path must
+    be in the slot's data rank's pool: `set_page_table` refuses a row
+    that names another data rank's."""
+    length = cache["pt"].shape[1] * cfg.sla.block_kv
+    _, _, put = _slot_movers(cfg, cache, single, slot, length)
+    _insert_slot_state(cache, single, slot, PAGED_SLOT_KEYS, put)
     return cache
 
 
@@ -2240,7 +2413,7 @@ def slot_state_from_prefill(single: dict) -> dict:
 
 
 def insert_slot_paged(cache: dict, single: dict, slot: int,
-                      page_ids) -> dict:
+                      page_ids, cfg: ArchConfig) -> dict:
     """Copy a batch-1 prefill cache into `slot` of a paged cache, in place.
 
     `page_ids` (n_prompt_pages,) names the physical page of each prompt
@@ -2250,30 +2423,92 @@ def insert_slot_paged(cache: dict, single: dict, slot: int,
     Prefix-interned hit pages are rewritten with the same contents
     (causal attention makes page j a pure function of the padded tokens
     below its end). The page table itself is host-owned and pushed
-    separately. Returns `cache`."""
+    separately (`set_page_table`). `cfg` gives the leaves' global shapes.
+    Returns `cache`.
+
+    Under a mesh (the cache's scope; `single` the batch-1 prefill under
+    its own, as for `insert_slot`) each K/V and per-block leaf is
+    gathered a layer at a time to the cache's KV heads over its whole
+    sequence (`serving.reshard`; the identity without a mesh), and the
+    ranks that hold slot `slot`'s rows write the pages of the logical
+    blocks in their span. Where the batch is split over data ranks, the
+    pages become the slot's data rank's (`page_owner`)."""
     if single["k"].shape[1] != 1:
         raise ValueError(
             f"insert_slot_paged takes a batch-1 prefill cache (got "
             f"batch {single['k'].shape[1]})")
-    bkv = cache["kp"].shape[3]
-    pids = torch.as_tensor(page_ids, dtype=torch.long,
-                           device=cache["kp"].device)
-    npp = pids.shape[0]
-    if single["k"].shape[-2] < npp * bkv:
+    bkv = cfg.sla.block_kv
+    batch, tn = cache["pt"].shape
+    ids = [int(i) for i in np.asarray(page_ids).reshape(-1)]
+    npp = len(ids)
+    many, one, put = _slot_movers(cfg, cache, single, slot, tn * bkv,
+                                  prompt_only=True)
+    have = one.shapes["k"][3]
+    if have < npp * bkv:
         raise ValueError(
-            f"prefill cache holds {single['k'].shape[-2]} positions but "
-            f"{npp} pages of {bkv} were requested")
-    insert_slot_state_paged(cache, single, slot)
-    nl, hkv = cache["kp"].shape[0], cache["kp"].shape[2]
-    for key, pool in (("k", cache["kp"]), ("v", cache["vp"])):
-        # (L, 1, Hkv, S, Dh) -> (L, npp, Hkv, bkv, Dh)
-        x = single[key][:, 0, :, :npp * bkv, :].reshape(nl, hkv, npp, bkv,
-                                                        -1)
-        pool[:, pids] = x.movedim(1, 2).to(pool.dtype)
+            f"prefill cache holds {have} positions but {npp} pages of "
+            f"{bkv} were requested")
+    part = _paged_part(cache, _scope_layout(batch, cfg), bkv)
+    rows = part["rows"].shape[0]
+    first, n = part["span"]
+    held = part["row0"] <= slot < part["row0"] + rows
+    owner = cache.get("page_owner")
+    if owner is not None:  # the zero page stays every rank's
+        owner[[pid for pid in ids if pid]] = slot // rows
+    _insert_slot_state(cache, single, slot, PAGED_SLOT_KEYS, put)
+    # this rank's blocks of the prompt's pages: those of its span below npp
+    mine = list(range(first, min(first + n, npp)))
+    dev = cache["kp"].device
+    sel = torch.tensor(mine, dtype=torch.long, device=dev)
+    pids = torch.tensor([ids[j] for j in mine], dtype=torch.long, device=dev)
+    pools = [("k", cache["kp"], single["k"]), ("v", cache["vp"], single["v"])]
     if "sla" in cache:
-        for key in PAGED_POOL_KEYS:  # (L, 1, Hkv, Tn, ...) -> (L, npp, ...)
-            pool = cache["slap"][key]
-            pool[:, pids] = single["sla"][key][:, 0, :, :npp].movedim(1, 2)
+        pools += [(key, cache["slap"][key], single["sla"][key])
+                  for key in PAGED_POOL_KEYS]
+    for name, pool, leaf in pools:
+        # batch whole, the cache's KV heads, the sequence (blocks) whole
+        want = (None, many.spec[name][1], None) + tuple(many.spec[name][3:])
+        for li in range(pool.shape[0]):
+            x = serving.reshard(leaf[li], one.spec[name], want, many.mesh)[0]
+            if not held or not mine:
+                continue
+            if name in ("k", "v"):  # (Hkv_c, S, Dh) -> (Hkv_c, Tn, bkv, Dh)
+                x = x[:, :npp * bkv].reshape(x.shape[0], npp, bkv, -1)
+            pool[li, pids] = x.index_select(1, sel).movedim(1, 0).to(
+                pool.dtype)
+    return cache
+
+
+def set_page_table(cache: dict, table) -> dict:
+    """Publish the host-owned page table `table` (B, Tn) to a paged cache,
+    in place (the scheduler owns the table and overwrites it between
+    dispatches). Returns `cache`.
+
+    Where the batch is split over data ranks (under the cache's scope;
+    the cache records which data rank wrote each page, `page_owner`), a
+    row that names a page another data rank's pool holds is refused
+    (ValueError): prefix pages are not shared across data ranks, and a
+    rank reads only its own pool. Every rank checks the whole table, so
+    all refuse alike."""
+    table = np.asarray(table, np.int32)
+    owner = cache.get("page_owner")
+    if owner is not None:
+        lay = ctx.layout()
+        if lay is None:
+            raise ValueError("set_page_table of a cache split over data "
+                             "ranks runs under the cache's scope")
+        b = table.shape[0]
+        rank = np.arange(b)[:, None] // (b // lay.dp)
+        held = owner[table]
+        bad = np.argwhere((held >= 0) & (held != rank))
+        if len(bad):
+            slot, blk = bad[0]
+            page = int(table[slot, blk])
+            raise ValueError(
+                f"slot {slot} (data rank {int(rank[slot, 0])}) names page "
+                f"{page}, which data rank {int(owner[page])}'s pool "
+                f"holds: prefix pages are not shared across data ranks")
+    cache["pt"].copy_(torch.from_numpy(table))
     return cache
 
 
@@ -2287,6 +2522,9 @@ def copy_page(cache: dict, dst: int, src: int) -> dict:
     pools = [cache["kp"], cache["vp"]] + list(cache.get("slap", {}).values())
     for pool in pools:
         pool[:, dst] = pool[:, src]
+    owner = cache.get("page_owner")
+    if owner is not None:  # a mesh: every rank copies its own pool's page
+        owner[dst] = owner[src]
     return cache
 
 
@@ -2295,9 +2533,13 @@ def paged_dense_view(cfg: ArchConfig, cache: dict) -> dict:
     gathered KV slabs and per-block partials, copies). Test and debugging
     aid: the paged-vs-monolithic checks compare this view bitwise with
     the unpaged cache, and `chip_smoke.py` runs the monolithic decode
-    kernel on it."""
+    kernel on it. Under a mesh (the cache's scope) it is this rank's part
+    of that cache: its batch rows, its KV heads, its span's blocks."""
+    kl = serving.active_kv_layout(cache["pt"].shape[0], cfg.num_kv_heads)
+    pt = _paged_part(cache, kl, cfg.sla.block_kv)["pt"]
+
     def view(pool):  # (L, P, Hkv, ...) -> (L, B, Hkv, Tn, ...)
-        return backend_lib.gather_pages(pool, cache["pt"], axis=1)
+        return backend_lib.gather_pages(pool, pt, axis=1)
 
     out = {"k": view(cache["kp"]).flatten(-3, -2),  # (L, B, Hkv, S, Dh)
            "v": view(cache["vp"]).flatten(-3, -2), "pos": cache["pos"],
@@ -2310,19 +2552,64 @@ def paged_dense_view(cfg: ArchConfig, cache: dict) -> dict:
     return out
 
 
-def snapshot_slots(cache: dict, slots) -> dict:
+class _SlotPlaces:
+    """Where a slot's entries of a per-slot or paged cache's leaves sit on
+    this rank: `loc(name, dim, index)` is the local index of a global
+    `index` along dim `dim` of leaf `name` (the per-slot cache a paged one
+    stands for: "k", "v", the "sla" leaves and "plan/<field>"), or None
+    where another rank holds it; `length` the cache's positions, `tm` the
+    plan's rows and `bq` its block. The leaves' rules (`serving.SLAParts`,
+    from `cfg`'s global shapes) place them; without a mesh (`parts` None)
+    every index is its own."""
+
+    def __init__(self, cache: dict, cfg: ArchConfig):
+        batch = cache["pos"].shape[0]
+        kl = _scope_layout(batch, cfg)
+        self.bq = cfg.sla.block_q
+        self.length = (cache["pt"].shape[1] * cfg.sla.block_kv
+                       if "kp" in cache else cache["k"].shape[3]
+                       * (1 if kl is None else kl.seq_parts))
+        self.tm = self.length // self.bq
+        self.parts = None
+        if kl is None:
+            return
+        kv = (cfg.num_layers, batch, cfg.num_kv_heads, self.length,
+              cfg.head_dim)
+        shapes = {"k": kv, "v": kv}
+        if "sla" in cache:
+            shapes.update(decode_state_shapes(cfg, batch, self.length,
+                                              per_slot=True))
+        self.parts = serving.SLAParts(kl, shapes, batch)
+
+    def loc(self, name: str, dim: int, index: int) -> Optional[int]:
+        if self.parts is None:
+            return index
+        parts, at = serving._axes_index(serving._spec_axes(
+            self.parts.full[name][dim]), self.parts.mesh)
+        n = self.parts.shapes[name][dim] // parts
+        local = index - at * n
+        return local if 0 <= local < n else None
+
+
+def snapshot_slots(cache: dict, slots, cfg: ArchConfig) -> dict:
     """Copies of everything one decode step writes for the batch rows
     `slots` of a per-slot or paged cache: the K/V row at each slot's
     position (its page and offset, paged), the h/z/kpool partials of its
     live block, the plan row that block boundary would append, the
-    column-LUT entry at each column's fill level (the only ones an
-    append writes), and every smaller per-slot leaf (totals, pooled q,
-    live row, column fill levels, rows, counters, positions).
-    `restore_slots` puts them back, so a step over the whole batch can
-    leave these slots as they were. Reads the page table on the host (a
-    sync) for paged caches."""
+    slot's column LUT (an append writes the entry at each column's fill
+    level), and every smaller per-slot leaf (totals, pooled q, live row,
+    column fill levels, rows, counters, positions). `restore_slots` puts
+    them back, so a step over the whole batch can leave these slots as
+    they were. Reads the page table on the host (a sync) for paged
+    caches. `cfg` gives the leaves' global shapes.
+
+    Under a mesh (the cache's scope) each rank copies its part: the
+    entries its leaves hold of each slot (`_SlotPlaces`) and its pools'
+    pages."""
     paged = "kp" in cache
     st = cache.get("sla")
+    places = _SlotPlaces(cache, cfg)
+    loc = places.loc
     snap = []
     for j in slots:
         p = int(cache["pos_host"][j])
@@ -2338,35 +2625,43 @@ def snapshot_slots(cache: dict, slots) -> dict:
             for key, pool in cache.get("slap", {}).items():
                 one["blk"][key] = (page, pool[:, page].clone())
         else:
-            at = min(p, cache["k"].shape[3] - 1)
+            at = min(p, places.length - 1)
             for key in ("k", "v"):
-                one["kv"][key] = (at, cache[key][:, j, :, at].clone())
+                jl, al = loc(key, 1, j), loc(key, 3, at)
+                if jl is not None and al is not None:
+                    one["kv"][key] = (jl, al,
+                                      cache[key][:, jl, :, al].clone())
         if st is not None:
             plan = st["plan"]
-            tm = plan.mc.shape[-2]
-            bq = (cache["kp"].shape[3] if paged
-                  else cache["k"].shape[3] // tm)
-            live = min(p // bq, tm - 1)
-            prev = min(max(p // bq - 1, 0), tm - 1)
+            live = min(p // places.bq, places.tm - 1)
+            prev = min(max(p // places.bq - 1, 0), places.tm - 1)
             if not paged:
                 for key in PAGED_POOL_KEYS:
-                    one["blk"][key] = (live, st[key][:, j, :, live].clone())
+                    jl, ll = loc(key, 1, j), loc(key, 3, live)
+                    if jl is not None and ll is not None:
+                        one["blk"][key] = (jl, ll, st[key][:, jl, :,
+                                                           ll].clone())
             for name in ("mc", "lut", "counts", "marginal"):
-                one["row"][name] = (prev, getattr(plan, name)[:, j, :,
-                                                              prev].clone())
-            fill = plan.col_counts[:, j].long().clamp(
-                max=plan.w_col - 1)[..., None]
-            one["fill"] = (fill, plan.col_lut[:, j].gather(-1, fill))
-            one["whole"]["col_counts"] = plan.col_counts[:, j].clone()
-            for key in PAGED_SLOT_KEYS + COUNTER_KEYS:
-                one["whole"][key] = st[key][:, j].clone()
+                jl, pl = loc(f"plan/{name}", 1, j), loc(f"plan/{name}", 3,
+                                                        prev)
+                if jl is not None and pl is not None:
+                    one["row"][name] = (jl, pl, getattr(plan, name)[
+                        :, jl, :, pl].clone())
+            for key in ("col_lut", "col_counts") + PAGED_SLOT_KEYS \
+                    + COUNTER_KEYS:
+                plan_leaf = key in ("col_lut", "col_counts")
+                leaf = getattr(plan, key) if plan_leaf else st[key]
+                jl = loc(f"plan/{key}" if plan_leaf else key, 1, j)
+                if jl is not None:
+                    one["whole"][key] = (jl, leaf[:, jl].clone())
             one["rows"] = st["rows"][j].clone()
         snap.append(one)
     return {"slots": snap}
 
 
 def restore_slots(cache: dict, snap: dict) -> dict:
-    """Put back what `snapshot_slots` copied, in place; returns `cache`."""
+    """Put back what `snapshot_slots` copied (each entry at the place it
+    was copied from), in place; returns `cache`."""
     paged = "kp" in cache
     st = cache.get("sla")
     for one in snap["slots"]:
@@ -2379,19 +2674,19 @@ def restore_slots(cache: dict, snap: dict) -> dict:
             for key, (page, val) in one["blk"].items():
                 cache["slap"][key][:, page] = val
         else:
-            for key, (at, val) in one["kv"].items():
-                cache[key][:, j, :, at] = val
+            for key, (jl, at, val) in one["kv"].items():
+                cache[key][:, jl, :, at] = val
         if st is None:
             continue
         if not paged:
-            for key, (live, val) in one["blk"].items():
-                st[key][:, j, :, live] = val
+            for key, (jl, live, val) in one["blk"].items():
+                st[key][:, jl, :, live] = val
         plan = st["plan"]
-        for name, (prev, val) in one["row"].items():
-            getattr(plan, name)[:, j, :, prev] = val
-        plan.col_lut[:, j].scatter_(-1, *one["fill"])
-        for name, val in one["whole"].items():
-            leaf = plan.col_counts if name == "col_counts" else st[name]
-            leaf[:, j] = val
+        for name, (jl, prev, val) in one["row"].items():
+            getattr(plan, name)[:, jl, :, prev] = val
+        for name, (jl, val) in one["whole"].items():
+            leaf = (getattr(plan, name) if name in ("col_lut", "col_counts")
+                    else st[name])
+            leaf[:, jl] = val
         st["rows"][j] = one["rows"]
     return cache

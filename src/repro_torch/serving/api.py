@@ -509,7 +509,10 @@ class Scheduler:
                  prefill_chunk_blocks: Optional[int] = None,
                  cparams=None):
         from repro_torch.core import backends as backend_registry
+        from repro_torch.distributed import ctx
 
+        # its page bookkeeping and slot admissions run on one device
+        ctx.require_unsharded("the LM Scheduler (Scheduler)")
         backend = backend_registry.resolve(backend)
         cfg.sla.validate()
         if plan_reuse not in ("off", "adaptive"):
@@ -675,7 +678,8 @@ class Scheduler:
     def _frozen(self, keep: List[int]) -> dict:
         """Snapshot of every slot outside `keep` (their step writes)."""
         return self.mdl.snapshot_slots(
-            self._live, [j for j in range(self.num_slots) if j not in keep])
+            self._live, [j for j in range(self.num_slots) if j not in keep],
+            self.cfg)
 
     @torch.no_grad()
     def _decode_multi(self, nsteps: int, keep: Optional[List[int]] = None):
@@ -1064,7 +1068,7 @@ class Scheduler:
     def _push_pt(self):
         """Publish the host-owned page table to the device cache, in place
         (the scheduler owns it and overwrites it between dispatches)."""
-        self._live["pt"].copy_(torch.from_numpy(self._pt_host))
+        self.mdl.set_page_table(self._live, self._pt_host)
 
     def _sync_page_stats(self):
         ps, st = self._pool.stats, self.stats
@@ -1111,7 +1115,7 @@ class Scheduler:
             pids.append(pid)
         self._snapshots.move_to_end(snap_key)
         state, logits = snap
-        self._admit_state(self._live, state, slot)
+        self._admit_state(self._live, state, slot, self.cfg)
         self._set_slot_pages(slot, pids)
         self.stats.prefix_full_hits += 1
         self._sync_page_stats()
@@ -1142,7 +1146,7 @@ class Scheduler:
         prompt pages `pids` (one pool ref each, taken), the page-table row
         pointed at them, the full-prompt snapshot stored under (bucket,
         padded bytes)."""
-        self._admit_paged(self._live, cache, slot, pids)
+        self._admit_paged(self._live, cache, slot, pids, self.cfg)
         self._set_slot_pages(slot, pids, bucket=bucket)
         self._store_snapshot((bucket, padded.tobytes()), cache, logits)
         self._sync_page_stats()

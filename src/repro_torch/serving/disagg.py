@@ -312,7 +312,9 @@ class DisaggScheduler:
                  max_requeues: int = 1, max_retries: int = 2,
                  clock=time.time, sleep=time.sleep):
         from repro_torch.core import backends as backend_registry
+        from repro_torch.distributed import ctx
 
+        ctx.require_unsharded("disaggregated serving (DisaggScheduler)")
         if prefill_workers < 1 or decode_workers < 1:
             raise ValueError("need at least one worker per pool (got "
                              f"prefill={prefill_workers}, "

@@ -514,6 +514,13 @@ def case_slots(spec, out):
     run_cases(spec, out)
 
 
+def case_paged(spec, out):
+    """Paged caches and chunked admission over a mesh, every case of
+    `spec["cases"]` (`tests/_torch_mesh_paged.py`)."""
+    from _torch_mesh_paged import run_cases
+    run_cases(spec, out)
+
+
 def main():
     case, spec_path, out_path, store = sys.argv[1:5]
     # `run_ranks` sends SIGUSR1 before it kills a rank that outlived its

@@ -1214,6 +1214,58 @@ def test_cuda_decode_partial_mode_over_spans_matches_its_twin(kv_dtype):
     _assert_twin((o_s, o_l), want)
 
 
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("spans", [4, 16])
+def test_cuda_paged_partial_mode_is_kernel_4s_on_the_gathered_view(
+        spans, kv_dtype):
+    """Kernel 5's partial mode (a split paged cache's span, read through
+    the span's columns of the page table) at the Qwen3 decode shape, 4
+    slots sharing 12 pages, cut into `spans` spans: at the chosen split
+    width and at every width 1 .. K, each span's records bitwise kernel
+    4's partial mode on the page-gathered view of the span and two
+    launches bitwise equal (one PAGED_PARTIAL_LAUNCHES a call, no other
+    count); at the chosen width against its twin (5e-5 x max(1, max
+    |twin|), field by field), and the spans' records combined against
+    unsplit kernel 5."""
+    _need_gpu()
+    pargs, kw = cases.paged_decode_operands(
+        12, kv_dtype, 20 * 64 + 29, b=4, hkv=8, g=2, d=128, bkv=64, tn=32,
+        npages=140, k_sel=6, shared=12)
+    want = sla_decode.sla_decode_paged(*pargs, **kw)
+    n = 32 // spans
+    for width in (None, *range(1, 7)):
+        records = []
+        for first in range(0, 32, n):
+            paged, dense = cases.paged_span_operands(pargs, first, n)
+            counts = (sla_decode.PAGED_PARTIAL_LAUNCHES,
+                      sla_decode.PAGED_LAUNCHES, sla_decode.LAUNCHES)
+            got = sla_decode.sla_decode_paged_partial(*paged, **kw,
+                                                      split_width=width)
+            again = sla_decode.sla_decode_paged_partial(*paged, **kw,
+                                                        split_width=width)
+            torch.cuda.synchronize()
+            assert (sla_decode.PAGED_PARTIAL_LAUNCHES,
+                    sla_decode.PAGED_LAUNCHES, sla_decode.LAUNCHES) == (
+                counts[0] + 2, counts[1], counts[2])
+            mono = sla_decode.sla_decode_partial(*dense, **kw,
+                                                 split_width=width)
+            assert torch.equal(got, again) and torch.equal(got, mono), (
+                width, first)
+            records.append(got)
+            if width is None:
+                w = sla_decode.split_geometry(paged[4], paged[0])[
+                    "split_width"]
+                twin = sla_decode.sla_decode_paged_partial_plain(
+                    *paged, **kw, split_width=w)
+                err = cases.record_error(got, twin)
+                assert err["err"] <= TWIN_TOL and err["neutral_ok"], err
+        if width is None:
+            _assert_twin(cases.span_combine(
+                torch.stack(records), cases.paged_dense_operands(pargs),
+                kw["group"]), want)
+
+
 SLOT_ROW_CASES = {  # slot positions (64-token blocks, spans of 16), C
     # continuous batching: each slot's rows at its own position, in
     # different spans

@@ -53,7 +53,9 @@ from repro_torch.distributed import ctx, serving, sharding
 from repro_torch.launch import dryrun
 from repro_torch.core import plan as plan_lib
 from repro_torch.models import dit, transformer
+from repro_torch.serving.api import Scheduler
 from repro_torch.serving.diffusion import DiffusionScheduler
+from repro_torch.serving.disagg import DisaggScheduler
 
 Q3 = "qwen3-1.7b"
 CASES = [
@@ -334,10 +336,9 @@ REFUSED = {
     "the plan cache (plan_cache=)": lambda: DiffusionScheduler(
         *_dit(), num_slots=2, seq_len=64, backend="kernel",
         plan_cache=True, device="cpu").step(),
-    "chunked admission prefill (prefill_chunk)": lambda: transformer
-    .prefill_chunk(None, _qwen(), None, None, 0),
-    "paged caches (make_paged_cache)": lambda: transformer.make_paged_cache(
-        _qwen(), 2, 64, 8, device="meta"),
+    "the LM Scheduler (Scheduler)": lambda: Scheduler(_qwen(), None),
+    "disaggregated serving (DisaggScheduler)": lambda: DisaggScheduler(
+        _qwen(), None),
 }
 
 

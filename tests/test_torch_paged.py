@@ -142,13 +142,13 @@ def test_cache_constructors_match_reference(decode):
                                device="cpu")
     _assert_same(tp, jp)
     jp = jtfm.insert_slot_paged(jp, singles[0], 0, jnp.asarray(PAGES[0]))
-    ttfm.insert_slot_paged(tp, _port(singles[0]), 0, PAGES[0])
+    ttfm.insert_slot_paged(tp, _port(singles[0]), 0, PAGES[0], tcfg)
     _assert_same(tp, jp)
     jstate = jtfm.slot_state_from_prefill(singles[1])
     tstate = ttfm.slot_state_from_prefill(_port(singles[1]))
     assert set(_leaves(tstate)) == set(_leaves(_np(jstate)))
     jp = jtfm.insert_slot_state_paged(jp, jstate, 2)
-    ttfm.insert_slot_state_paged(tp, tstate, 2)
+    ttfm.insert_slot_state_paged(tp, tstate, 2, tcfg)
     _assert_same(tp, jp)
     jp = jtfm.copy_page(jp, 9, 3)
     ttfm.copy_page(tp, 9, 3)
@@ -159,7 +159,7 @@ def test_cache_constructors_match_reference(decode):
                  jtfm.paged_dense_view(jcfg, jp))
     # copies, not views: a live leaf never shares storage with its source
     src = _port(singles[0])
-    ttfm.insert_slot_paged(tp, src, 0, PAGES[0])
+    ttfm.insert_slot_paged(tp, src, 0, PAGES[0], tcfg)
     src["k"].zero_()
     if decode:
         src["sla"]["htot"].zero_()
@@ -201,7 +201,8 @@ def _run(decode, paged):
                 jc = jtfm.insert_slot_paged(jc, singles[1], 2,
                                             jnp.asarray(PAGES[1]))
                 jc["pt"] = jnp.asarray(_pt({0, 1}))
-                ttfm.insert_slot_paged(tc, _port(singles[1]), 2, PAGES[1])
+                ttfm.insert_slot_paged(tc, _port(singles[1]), 2, PAGES[1],
+                                      tcfg)
                 tc["pt"].copy_(torch.from_numpy(_pt({0, 1})))
             else:
                 jc = jtfm.insert_slot(jc, _grow(singles[1]), 2)
@@ -293,7 +294,7 @@ def test_restore_slots_undoes_a_step_at_an_appending_boundary(paged):
     st = tc["sla"]
     assert int(tc["pos_host"][0]) == 48 and int(st["rows"][0]) == 2
     before = slot0()
-    snap = ttfm.snapshot_slots(tc, [0])
+    snap = ttfm.snapshot_slots(tc, [0], tcfg)
     step()
     assert not np.array_equal(slot0()["sla.plan.col_counts"],
                               before["sla.plan.col_counts"])

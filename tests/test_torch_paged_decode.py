@@ -16,7 +16,12 @@ backend, bitwise. The kernel's split-and-combine, as the paged twin
 computes it (`split_width`), is held to the same Pallas kernel over split
 widths with NaN-poisoned pages behind the padded slots, and to the
 monolithic twin on the page-gathered view at the same width, bitwise.
-The CUDA kernel itself runs only on a GPU: tests/test_torch_gpu.py.
+The paged kernel's partial mode (a split paged cache's spans,
+`sla_decode_paged_partial`) is held bitwise to the decode kernel's
+partial mode on the page-gathered span at split widths 1-4, and its
+spans' records, merged by `sla_decode_combine`, to the Pallas paged
+kernel. The CUDA kernel itself runs only on a GPU:
+tests/test_torch_gpu.py.
 """
 import functools
 
@@ -290,3 +295,37 @@ def test_paged_split_matches_monolithic_on_the_gathered_view(width):
     paged = sla_decode.sla_decode_paged_plain(*args, **kw)
     mono = sla_decode.sla_decode_plain(*dense, **kw)
     assert all(torch.equal(a, b) for a, b in zip(paged, mono))
+
+
+# kernel 5's partial mode: the split case's 16 blocks in spans of 4
+SPAN_BLOCKS = 4
+
+
+@pytest.mark.parametrize("width", [1, 2, 3, 4])
+@pytest.mark.parametrize("kv_dtype", ["f32", "bf16"])
+def test_paged_partial_twin_is_the_partial_twin_on_the_gathered_view(
+        kv_dtype, width):
+    """Kernel 5's partial mode over the spans of a split paged cache (the
+    twin `sla_decode_paged_partial` runs on CPU tensors, no launch): each
+    span's records bitwise `sla_decode_partial_plain` on the span of the
+    page-gathered view at the same split width, NaN pages and all; the
+    spans' records merged by `sla_decode_combine` within the file's
+    tolerance of the Pallas paged kernel (interpret mode)."""
+    args, want = _split_case(kv_dtype)
+    kw = dict(scale=D ** -0.5, block_kv=BKV, group=G, split_width=width)
+    records = []
+    for first in range(0, SPLIT_TN, SPAN_BLOCKS):
+        paged, dense = cases.paged_span_operands(args, first, SPAN_BLOCKS)
+        before = sla_decode.PAGED_PARTIAL_LAUNCHES
+        got = sla_decode.sla_decode_paged_partial(*paged, **kw)
+        assert sla_decode.PAGED_PARTIAL_LAUNCHES == before
+        assert torch.equal(got, sla_decode.sla_decode_paged_partial_plain(
+            *paged, **kw))
+        assert torch.equal(got, sla_decode.sla_decode_partial_plain(
+            *dense, **kw))
+        records.append(got)
+    dense_args = cases.paged_dense_operands(args)
+    o = cases.span_combine(torch.stack(records), dense_args, G)
+    for g, w in zip(o, want):
+        assert bool(torch.isfinite(g).all())
+        _close(g, w, TOL[kv_dtype])

@@ -282,7 +282,7 @@ def test_per_slot_and_paged_decode_match_reference():
         ttfm.insert_slot(tm, bridge.cache_from_numpy(
             _np(_grow(single)), device="cpu"), slot, tcfg)
         ttfm.insert_slot_paged(tp, bridge.cache_from_numpy(
-            _np(single), device="cpu"), slot, PAGES[slot])
+            _np(single), device="cpu"), slot, PAGES[slot], tcfg)
         row = PAGES[slot] + DECODE_PAGES[slot]
         pt[slot, :len(row)] = row
     tp["pt"] = torch.from_numpy(pt)
